@@ -1,0 +1,29 @@
+"""flashattn_tpu_torch — the PyTorch + CUDA port of flashattn_tpu for NVIDIA Hopper.
+
+The JAX package ``flashattn_tpu`` is the reference this package is tested
+against; this one imports ``torch`` and never ``jax``. Its kernels are written
+by hand for ``sm_90a`` under ``csrc/`` and built with nvcc at first use.
+CPU tensors run each kernel's plain PyTorch version.
+
+Public API::
+
+    from flashattn_tpu_torch import flash_attention, scaled_dot_product_attention
+
+    o = flash_attention(q, k, v)                              # [B,H,N,D]
+    o = flash_attention(q, k, v, layout="BNHD")               # [B,N,H,D]
+    o = scaled_dot_product_attention(q, k, v, layout="BNHD")  # SDPA-style adapter
+"""
+
+from flashattn_tpu_torch.ops.flash import flash_attention, flash_attention_with_lse
+from flashattn_tpu_torch.ops.oracle import attention_reference
+from flashattn_tpu_torch.ops.sdpa import scaled_dot_product_attention
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "flash_attention",
+    "flash_attention_with_lse",
+    "scaled_dot_product_attention",
+    "attention_reference",
+    "__version__",
+]

@@ -1,0 +1,345 @@
+// FlashAttention-2 forward for Hopper (sm_90a), bf16 tensor cores.
+//
+// Replaces the TPU kernel flashattn_tpu/ops/flash_fwd.py::_fwd_kernel on its
+// dense-grid route: non-causal, no bias, KV tail, GQA. It computes what that
+// kernel computes -- O = softmax(Q K^T * scale) V with the online softmax in
+// the log2 domain, f32 running max / sum / accumulator, and the row LSE in
+// natural log (m * ln2 + log l) -- but is not a block-by-block copy:
+//
+//   * The TPU walks KV tiles on a sequential grid axis and carries (m, l, acc)
+//     in VMEM scratch between grid steps. Here CTAs run in parallel in no
+//     order, so one CTA owns (b, h, 64-row Q tile) and loops over 64-row KV
+//     tiles itself, keeping (m, l, acc) in registers.
+//   * Each of the 4 warps owns 16 Q rows. Q K^T and P V run as
+//     mma.sync.m16n8k16 bf16 with f32 accumulation; P goes from the score
+//     accumulators to the A operand of P V without touching shared memory.
+//   * The softmax scale is folded in f32 on the scores (x scale * log2 e),
+//     not by re-rounding a pre-scaled Q to bf16 on the host.
+//   * The head dim is zero-filled in shared memory up to the MMA depth (a
+//     multiple of 16: D=40 runs as 48) and only D columns are written out.
+//   * K/V tail rows are never read past kv_valid_len; their scores are set to
+//     the finite mask value (ops/oracle.py DEFAULT_MASK_VALUE) before the max.
+//     A ragged Q tail is masked on store. A row that sees no valid key (only
+//     when kv_valid_len == 0) stores zeros and lse = ln2 * mask, the package's
+//     dead-row convention.
+//   * Q/K/V/O are addressed through (batch, head, seq) strides in elements
+//     with a unit head-dim stride, so the U-Net's [B, N, H, D] projections
+//     reach the kernel as transposed views without a copy.
+//
+// What bounds it at the slice's shape (B1 H8 N4096 D40): with D=40 padded to
+// 48 the two matrix products do little work per score, so tensor-core
+// throughput competes with the softmax's exp2 / FMA / shuffle work on the
+// 64x64 score tile, and with synchronous global->shared loads that stall the
+// warps between tiles. This simple design leaves for later PRs: wgmma on
+// 64-row warpgroup tiles, TMA loads into a multi-stage ring with mbarriers
+// (or cp.async double buffering), warp specialisation (producer warp +
+// consumer warpgroups), and a persistent grid.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BLOCK_M = 64;  // Q rows per CTA: 4 warps x 16 rows
+constexpr int BLOCK_N = 64;  // KV rows per inner-loop tile
+constexpr int NUM_WARPS = 4;
+constexpr int NUM_THREADS = NUM_WARPS * 32;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+// ops/oracle.py DEFAULT_MASK_VALUE: -0.7 * float32 max, finite so that a
+// fully masked tile never computes -inf - (-inf).
+constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
+
+struct Params {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  float* lse;  // [B, Hq, Nq] contiguous
+  int64_t q_sb, q_sh, q_sn;
+  int64_t k_sb, k_sh, k_sn;
+  int64_t v_sb, v_sh, v_sn;
+  int64_t o_sb, o_sh, o_sn;
+  int hq, rep, nq, d, kv_valid_len;
+  float scale_log2;  // softmax scale * log2(e)
+};
+
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices, transposed on load: lanes 8i..8i+7 address the rows
+// of matrix i, and register i of every lane receives its piece of matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t ld_b32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Copy `rows_valid` rows of `d` (a multiple of 8) bf16 from global memory into
+// a ROWS x DP shared tile with row stride DP + 8, in 16-byte pieces; rows past
+// rows_valid and columns past d are zero-filled and never read from global.
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* g,
+                                          int64_t row_stride, int rows_valid, int d) {
+  constexpr int CHUNKS = DP / 8;
+  constexpr int STRIDE = DP + 8;
+  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += NUM_THREADS) {
+    const int r = idx / CHUNKS;
+    const int c = idx % CHUNKS;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows_valid && c * 8 < d) {
+      val = *reinterpret_cast<const uint4*>(g + r * row_stride + c * 8);
+    }
+    *reinterpret_cast<uint4*>(smem + r * STRIDE + c * 8) = val;
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
+  // Shared row stride DP + 8 elements: (DP/2 + 4) 32-bit words, which puts the
+  // 8 rows one fragment load touches on distinct banks.
+  constexpr int STRIDE = DP + 8;
+  constexpr int KS_QK = DP / 16;       // k-steps of Q K^T
+  constexpr int NT_S = BLOCK_N / 8;    // n-tiles of the score tile
+  constexpr int KS_PV = BLOCK_N / 16;  // k-steps of P V
+  constexpr int NT_O = DP / 8;         // n-tiles of the output
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* s_k = s_q + BLOCK_M * STRIDE;
+  __nv_bfloat16* s_v = s_k + BLOCK_N * STRIDE;
+
+  const int m0 = blockIdx.x * BLOCK_M;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / p.rep;  // GQA: the BlockSpec index map h // rep
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group
+
+  const __nv_bfloat16* q_g = p.q + b * p.q_sb + h * p.q_sh + static_cast<int64_t>(m0) * p.q_sn;
+  const __nv_bfloat16* k_g = p.k + b * p.k_sb + hk * p.k_sh;
+  const __nv_bfloat16* v_g = p.v + b * p.v_sb + hk * p.v_sh;
+  load_tile<DP, BLOCK_M>(s_q, q_g, p.q_sn, min(BLOCK_M, p.nq - m0), p.d);
+
+  float acc[NT_O][4];
+#pragma unroll
+  for (int i = 0; i < NT_O; ++i) {
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  }
+  // Rows g and g + 8 of this warp's 16; (m, l) are in log2 units, and l is
+  // this thread's partial sum over its columns (reduced over the quad at the
+  // end -- m is quad-uniform, so the rescales agree).
+  float m_i[2] = {-INFINITY, -INFINITY};
+  float l_i[2] = {0.f, 0.f};
+
+  const __nv_bfloat16* s_qw = s_q + warp * 16 * STRIDE;
+  const int nkv = p.kv_valid_len;
+  const int n_tiles = (nkv + BLOCK_N - 1) / BLOCK_N;
+  // ldmatrix.trans lane -> (row, col) of the 16x16 V block it addresses.
+  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int v_col = (lane >> 4) * 8;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int n0 = j * BLOCK_N;
+    __syncthreads();  // the previous tile is consumed (and s_q is complete)
+    load_tile<DP, BLOCK_N>(s_k, k_g + n0 * p.k_sn, p.k_sn, min(BLOCK_N, nkv - n0), p.d);
+    load_tile<DP, BLOCK_N>(s_v, v_g + n0 * p.v_sn, p.v_sn, min(BLOCK_N, nkv - n0), p.d);
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 rows x 64 columns.
+    float s[NT_S][4];
+#pragma unroll
+    for (int nt = 0; nt < NT_S; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < KS_QK; ++ks) {
+      const int c = ks * 16 + 2 * t;
+      const uint32_t a[4] = {ld_b32(s_qw + g * STRIDE + c), ld_b32(s_qw + (g + 8) * STRIDE + c),
+                             ld_b32(s_qw + g * STRIDE + c + 8),
+                             ld_b32(s_qw + (g + 8) * STRIDE + c + 8)};
+#pragma unroll
+      for (int nt = 0; nt < NT_S; ++nt) {
+        const __nv_bfloat16* kr = s_k + (nt * 8 + g) * STRIDE + c;
+        mma_bf16_16816(s[nt], a, ld_b32(kr), ld_b32(kr + 8));
+      }
+    }
+
+    // Scale into the log2 domain in f32; mask the KV tail.
+    const bool tail = n0 + BLOCK_N > nkv;
+    float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+    for (int nt = 0; nt < NT_S; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * p.scale_log2;
+        if (tail && n0 + nt * 8 + 2 * t + (e & 1) >= nkv) x = MASK_VALUE;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m_i[r] - mx[r]);
+      m_i[r] = mx[r];
+      l_i[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT_S; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2f(s[nt][e] - m_i[e >> 1]);
+        s[nt][e] = pe;
+        l_i[e >> 1] += pe;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NT_O; ++i) {
+      acc[i][0] *= alpha[0];
+      acc[i][1] *= alpha[0];
+      acc[i][2] *= alpha[1];
+      acc[i][3] *= alpha[1];
+    }
+
+    // O += P V: the score accumulators of n-tiles 2kk, 2kk+1 are exactly the
+    // A fragment of k-step kk; V's B fragments come transposed by ldmatrix.
+#pragma unroll
+    for (int kk = 0; kk < KS_PV; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dt = 0; dt < DP / 16; ++dt) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, s_v + (kk * 16 + v_row) * STRIDE + dt * 16 + v_col);
+        mma_bf16_16816(acc[2 * dt], a, bv[0], bv[1]);
+        mma_bf16_16816(acc[2 * dt + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // Epilogue: O = acc / l, LSE = m ln2 + log l; ragged rows masked on store.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_i[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const bool dead = m_i[r] <= MASK_VALUE * 0.5f;
+    const float l_safe = l == 0.f ? 1.f : l;
+    const float inv = dead ? 0.f : 1.f / l_safe;
+    const int row = m0 + warp * 16 + g + 8 * r;
+    if (row < p.nq) {
+      __nv_bfloat16* o_row = p.o + b * p.o_sb + h * p.o_sh + static_cast<int64_t>(row) * p.o_sn;
+#pragma unroll
+      for (int nt = 0; nt < NT_O; ++nt) {
+        const int col = nt * 8 + 2 * t;
+        if (col < p.d) {
+          *reinterpret_cast<uint32_t*>(o_row + col) =
+              pack_bf16(acc[nt][2 * r] * inv, acc[nt][2 * r + 1] * inv);
+        }
+      }
+      if (t == 0) {
+        p.lse[(static_cast<int64_t>(b) * p.hq + h) * p.nq + row] =
+            dead ? LN2 * MASK_VALUE : m_i[r] * LN2 + logf(l_safe);
+      }
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(BLOCK_M + 2 * BLOCK_N) * (DP + 8) * sizeof(__nv_bfloat16);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((p.nq + BLOCK_M - 1) / BLOCK_M, p.hq, batch);
+  fwd_kernel<DP><<<grid, NUM_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// O and LSE for q [B, Hq, Nq, D], k/v [B, Hkv, Nk, D] (bf16, unit stride on D,
+// other strides in elements); o has q's shape, lse is [B, Hq, Nq] f32
+// contiguous. Requires 8 <= D <= 256 with D % 8 == 0, Hq % Hkv == 0,
+// 0 <= kv_valid_len <= Nk, Nq >= 1. Returns a cudaError_t (0 on success).
+int fa_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+                int hq, int hkv, int nq, int d, int kv_valid_len, float scale, int64_t q_sb,
+                int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn,
+                int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh,
+                int64_t o_sn, void* stream) {
+  if (d < 8 || d > 256 || d % 8 != 0 || hkv <= 0 || hq % hkv != 0 || nq <= 0 ||
+      kv_valid_len < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sn = q_sn;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sn = k_sn;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sn = v_sn;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
+  p.hq = hq;
+  p.rep = hq / hkv;
+  p.nq = nq;
+  p.d = d;
+  p.kv_valid_len = kv_valid_len;
+  p.scale_log2 = scale * LOG2E;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch ((d + 15) / 16 * 16) {
+    case 16: e = launch<16>(p, batch, s); break;
+    case 32: e = launch<32>(p, batch, s); break;
+    case 48: e = launch<48>(p, batch, s); break;
+    case 64: e = launch<64>(p, batch, s); break;
+    case 80: e = launch<80>(p, batch, s); break;
+    case 96: e = launch<96>(p, batch, s); break;
+    case 112: e = launch<112>(p, batch, s); break;
+    case 128: e = launch<128>(p, batch, s); break;
+    case 144: e = launch<144>(p, batch, s); break;
+    case 160: e = launch<160>(p, batch, s); break;
+    case 176: e = launch<176>(p, batch, s); break;
+    case 192: e = launch<192>(p, batch, s); break;
+    case 208: e = launch<208>(p, batch, s); break;
+    case 224: e = launch<224>(p, batch, s); break;
+    case 240: e = launch<240>(p, batch, s); break;
+    default: e = launch<256>(p, batch, s); break;
+  }
+  return static_cast<int>(e);
+}
+
+const char* fa_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

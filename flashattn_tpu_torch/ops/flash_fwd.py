@@ -1,0 +1,113 @@
+"""FlashAttention-2 forward: the CUDA kernel's wrapper and its plain version.
+
+Port of flashattn_tpu/ops/flash_fwd.py (kernel K1, ``_fwd_kernel``) for the
+route the serving path takes: non-causal, no bias, KV tail, GQA. The kernel is
+``csrc/flash_fwd.cu``; its header says what bounds it and what it leaves for
+later. :func:`fwd` launches it for CUDA tensors and computes the plain
+:func:`fwd_reference` for CPU tensors -- the device of the input decides, and
+a CUDA tensor never reaches the plain version.
+
+Strides: the kernel takes (batch, head, seq) strides, so the ``[B, N, H, D]``
+projections of the U-Net arrive as transposed views without a copy; the
+output is allocated with the query's strides. Only a tensor whose head-dim
+stride is not 1, or whose strides or address break 16-byte loads, is made
+contiguous first.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from flashattn_tpu_torch.ops.oracle import (
+    DEFAULT_MASK_VALUE,
+    attention_reference_with_lse,
+)
+from flashattn_tpu_torch.utils import native
+
+MAX_HEAD_DIM = 256
+
+
+def fwd_reference(q, k, v, *, scale: float, kv_valid_len: int | None = None):
+    """Plain PyTorch K1: ``(O, LSE)`` for ``q [B,Hq,Nq,D]``, ``k/v [B,Hkv,Nk,D]``.
+
+    The exact f32 oracle over the first ``kv_valid_len`` keys (the kernel's
+    finite mask value gives those past it a weight of exactly 0). LSE is the
+    natural-log row log-sum-exp in f32, O is in ``q.dtype``. With no valid key
+    (``kv_valid_len == 0``) every row is dead: O = 0 and LSE = ln2 * mask
+    value, the kernel's convention.
+    """
+    kv_valid_len = k.shape[2] if kv_valid_len is None else kv_valid_len
+    if kv_valid_len == 0:
+        lse = torch.full(q.shape[:3], math.log(2.0) * DEFAULT_MASK_VALUE,
+                         dtype=torch.float32, device=q.device)
+        return torch.zeros_like(q), lse
+    return attention_reference_with_lse(
+        q, k[:, :, :kv_valid_len], v[:, :, :kv_valid_len], scale=scale)
+
+
+def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself if the kernel can address it (unit head-dim stride, other
+    strides multiples of 8 elements, 16-byte aligned), else a contiguous copy."""
+    ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+          and all(s % 8 == 0 for s, n in zip(x.stride()[:3], x.shape[:3]) if n > 1))
+    return x if ok else x.contiguous()
+
+
+def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None):
+    """K1: ``(O [B,Hq,Nq,D] in q.dtype, LSE [B,Hq,Nq] f32)``.
+
+    CPU tensors take :func:`fwd_reference`. CUDA tensors launch the kernel,
+    which takes bf16 with ``D % 8 == 0`` and ``D <= 256``; anything else
+    raises. ``fwd.launches`` counts kernel launches.
+    """
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"q/k/v must be rank-4, got {q.shape}, {k.shape}, {v.shape}")
+    B, Hq, Nq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} incompatible with q {tuple(q.shape)}")
+    if Hq % k.shape[1] != 0:
+        raise ValueError(f"GQA requires Hkv | Hq: Hq={Hq}, Hkv={k.shape[1]}")
+    if q.dtype != k.dtype or q.dtype != v.dtype:
+        raise ValueError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q/k/v on different devices: {q.device}, {k.device}, {v.device}")
+    Nk = k.shape[2]
+    kv_valid_len = Nk if kv_valid_len is None else int(kv_valid_len)
+    if not 0 <= kv_valid_len <= Nk:
+        raise ValueError(f"kv_valid_len={kv_valid_len} outside [0, {Nk}]")
+
+    if q.device.type == "cpu":
+        return fwd_reference(q, k, v, scale=scale, kv_valid_len=kv_valid_len)
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"no K1 kernel for device {q.device}")
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the CUDA K1 takes bfloat16, got {q.dtype} (an f32 FMA instantiation "
+            "is a ROADMAP queue 2 K1 item)")
+    if D % 8 or D > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"the CUDA K1 takes head dims that are multiples of 8 up to "
+            f"{MAX_HEAD_DIM}, got D={D} (ROADMAP queue 2 K1 item)")
+    if B > 65535 or Hq > 65535:
+        raise ValueError(f"B={B} and Hq={Hq} must each be at most 65535 (CUDA grid limit)")
+
+    q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
+    o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides
+    lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:  # an empty grid is not a valid launch
+        return o, lse
+    with torch.cuda.device(q.device):
+        rc = native.kernels().fa_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            B, Hq, k.shape[1], Nq, D, kv_valid_len, float(scale),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    native.check(rc, "flash_fwd kernel launch")
+    fwd.launches += 1
+    return o, lse
+
+
+fwd.launches = 0

@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) with nvcc + ctypes.
+
+Counterpart of the JAX package's planner loader (flashattn_tpu/utils/native.py):
+at first use the kernels are compiled with nvcc into a shared library with a
+plain C interface under ``flashattn_tpu_torch/build/`` (rebuilt when a source
+is newer than the library) and loaded with ``ctypes``. Every pointer and the
+CUDA stream cross the boundary as ``ctypes.c_void_p``; each C entry returns
+``cudaGetLastError()`` after its launch and the Python wrapper raises if that
+is not 0. A failed build raises with nvcc's stderr -- there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import pathlib
+import shutil
+import subprocess
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+LIB_NAME = "libfa_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def find_nvcc() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin): "
+        "the CUDA kernels are built from csrc/ at first use on a machine with "
+        "the CUDA toolkit")
+
+
+def build(extra_flags: tuple[str, ...] = ()) -> tuple[pathlib.Path, str]:
+    """Compile ``csrc/*.cu`` into ``build/libfa_kernels.so`` if it is missing or
+    older than a source. Returns (library path, nvcc's output; empty when the
+    library was up to date). Raises RuntimeError with nvcc's stderr on failure."""
+    sources = sorted(CSRC.glob("*.cu"))
+    deps = sources + sorted(CSRC.glob("*.cuh"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    lib = BUILD_DIR / LIB_NAME
+    newest = max(p.stat().st_mtime for p in deps)
+    if lib.exists() and lib.stat().st_mtime >= newest and not extra_flags:
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Build under a private name and rename, so a concurrent loader never
+    # maps a half-written library.
+    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
+           *(str(s) for s in sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
+            f"{proc.stderr}{proc.stdout}")
+    os.replace(tmp, lib)
+    return lib, proc.stderr + proc.stdout
+
+
+@functools.lru_cache(maxsize=1)
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build()[0]))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.fa_fwd_bf16.restype = i32
+    lib.fa_fwd_bf16.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,            # q, k, v, o, lse
+        i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, Nq, D, kv_valid_len
+        ctypes.c_float,                     # scale
+        i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
+        i64, i64, i64, i64, i64, i64,       # v, o (batch, head, seq) strides
+        ptr,                                # cudaStream_t
+    ]
+    lib.fa_error_string.restype = ctypes.c_char_p
+    lib.fa_error_string.argtypes = [i32]
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if rc != 0:
+        msg = kernels().fa_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
