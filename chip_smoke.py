@@ -2,20 +2,31 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernel from ``flashattn_tpu_torch/csrc/`` with nvcc, holds
-it against its plain PyTorch version at the serving path's shapes, then serves
-the port's main path -- Euler sampling over the SD1.5 U-Net at full width
-(random weights from a seed, 64x64 latent, 77-token context) -- and checks
-that the path went through the kernel. One line per phase; the last two lines
-are a JSON object of the kernels' numbers and ``{"ok": true, "device": ...}``.
-Exits non-zero, before printing any result, when there is no CUDA device or
-when any phase fails. Imports nothing of JAX.
+Builds the port's kernels from ``flashattn_tpu_torch/csrc/`` with nvcc (one
+nvcc per source, in parallel) and holds each against its plain PyTorch version
+at the shapes its paths give it: K1 non-causal (serving), K1 causal (which
+also stands for K2) and the backward K3 (which also stands for K4). Then it
+drives the port's two paths and checks that each went through its kernels:
+
+* serving: Euler sampling over the SD1.5 U-Net at full width (random weights
+  from a seed, 64x64 latent, 77-token context), fused vs exact attention;
+* training: the Llama-class LM at the width of benchmarks/bench_lm.py
+  (443 M parameters, bf16, random weights from a seed, one 2049-token row),
+  loss and gradient gates fused vs exact attention, then 10 AdamW steps per
+  arm.
+
+One line per phase; the last two lines are a JSON object of the kernels'
+numbers and ``{"ok": true, "device": ...}``. Exits non-zero, before printing
+any result, when there is no CUDA device or when any phase fails. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -23,6 +34,7 @@ import time
 
 import torch
 
+DEVICE = "cuda"
 STEPS = 20
 REQUESTS = 2
 LATENT = 64        # SD1.5 at 512x512 pixels
@@ -30,6 +42,16 @@ CONTEXT_LEN = 77   # CLIP text tokens
 O_TOL_NAME = "FWD_TOL[bf16]"
 LSE_ATOL = 1e-3
 REL_L2_LIMIT = 2e-2
+# The LM of benchmarks/bench_lm.py:122-125 (full depth) and its step.
+LM_WIDTH = dict(vocab_size=32000, d_model=2048, n_layers=8, n_heads=16, n_kv_heads=8,
+                d_head=128, d_ff=5632)
+LM_SEQ = 2048
+LM_STEPS = 10
+LM_WARMUP = 2
+# Gradient gate, fused vs xla: relative L2 over all parameter gradients. The
+# bf16 noise floor (each arm against an f32 copy of the model) is measured
+# and printed in every run: 2.07e-2 on the H100, so the limit sits 1.5x above.
+GRAD_REL_L2_LIMIT = 3e-2
 
 
 def log(phase: str, msg: str) -> None:
@@ -93,10 +115,25 @@ def phase_build() -> None:
     from flashattn_tpu_torch.utils import native
 
     t0 = time.perf_counter()
-    lib, _ = native.build()
+    lib, out = native.build(("-Xptxas", "-v"))
     native.kernels()
-    log("build", f"K1 built from {native.CSRC.relative_to(native.CSRC.parent.parent)} "
+    sources = ", ".join(p.name for p in sorted(native.CSRC.glob("*.cu")))
+    log("build", f"{sources} built from {native.CSRC.relative_to(native.CSRC.parent.parent)} "
                  f"into {lib.name} in {time.perf_counter() - t0:.2f} s")
+    # ptxas -v: registers and spills of every kernel instantiation.
+    entries = re.split(r"Compiling entry function", out)[1:]
+    for entry in entries:
+        name = re.search(r"(fwd|bwd)_kernel\w*?ILi(\d+)E", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+        if name and regs and spill:
+            log("build", f"{name.group(1)}_kernel<{name.group(2)}>: {regs.group(1)} registers, "
+                         f"{spill.group(1)} B spill stores, {spill.group(2)} B spill loads")
+
+
+def _bnhd(x):
+    """``x`` as a [B, H, N, D] view of [B, N, H, D] memory (the models' layout)."""
+    return x.transpose(1, 2).contiguous().transpose(1, 2)
 
 
 def phase_kernel_check() -> dict:
@@ -113,9 +150,9 @@ def phase_kernel_check() -> dict:
     slice_err = None
     for i, (name, B, Hq, Nq, D, Nk, Hkv, bnhd) in enumerate(cases):
         q, k, v = make_qkv(100 + i, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv, dtype=torch.bfloat16,
-                           device="cuda")
-        if bnhd:  # [B, N, H, D] memory, passed as [B, H, N, D] views (the U-Net's layout)
-            q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v))
+                           device=DEVICE)
+        if bnhd:
+            q, k, v = (_bnhd(x) for x in (q, k, v))
         o, lse = flash_fwd.fwd(q, k, v, scale=D ** -0.5)
         torch.cuda.synchronize()
         o_want, lse_want = flash_fwd.fwd_reference(q.float(), k.float(), v.float(), scale=D ** -0.5)
@@ -140,6 +177,99 @@ def phase_kernel_check() -> dict:
     return {"max_abs_err": slice_err, "ms": ms, "plain_ms": plain_ms}
 
 
+# (name, B, Hq, Hkv, Nq, Nk, D): the LM's attention and the routes K2/K4
+# take on the TPU (N1536: the resident causal routes), ragged, top-left
+# causal with Nq < Nk, a smaller head dim.
+CAUSAL_CASES = [("lm", 1, 16, 8, 2048, 2048, 128), ("N1536", 1, 16, 8, 1536, 1536, 128),
+                ("N1537", 1, 16, 8, 1537, 1537, 128), ("Nq256-Nk1024", 1, 16, 8, 256, 1024, 128),
+                ("D64-B2", 2, 8, 8, 1024, 1024, 64)]
+
+
+def phase_causal_check() -> dict:
+    from flashattn_tpu_torch.ops import flash_fwd
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, Tolerance, check_close, make_qkv
+    from flashattn_tpu_torch.utils.timing import attention_flops
+
+    o_tol, lse_tol = FWD_TOL[torch.bfloat16], Tolerance(LSE_ATOL, 0.0)
+    for i, (name, B, Hq, Hkv, Nq, Nk, D) in enumerate(CAUSAL_CASES):
+        q, k, v = (_bnhd(x) for x in make_qkv(200 + i, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv,
+                                               dtype=torch.bfloat16, device=DEVICE))
+        o, lse = flash_fwd.fwd(q, k, v, scale=D ** -0.5, causal=True)
+        torch.cuda.synchronize()
+        o_want, lse_want = flash_fwd.fwd_reference(q.float(), k.float(), v.float(),
+                                                   scale=D ** -0.5, causal=True)
+        ok_o, msg_o = check_close(o, o_want, o_tol, "O")
+        ok_l, msg_l = check_close(lse, lse_want, lse_tol, "LSE")
+        err = (o.float() - o_want).abs().max().item()
+        log("kernel", f"K1 causal {name} B{B} Hq{Hq} Hkv{Hkv} Nq{Nq} Nk{Nk} D{D} BNHD: O "
+                      f"max_abs_err {err:.3e} (budget {O_TOL_NAME}), LSE max_abs_err "
+                      f"{(lse - lse_want).abs().max().item():.3e} (budget {LSE_ATOL})")
+        if not (ok_o and ok_l):
+            fail(f"K1 causal disagrees with fwd_reference at {name}: {msg_o}; {msg_l}")
+        if name == "lm":
+            res = {"max_abs_err": err}
+            q_s, k_s, v_s = q, k, v
+    B, Hq, Hkv, N, _, D = CAUSAL_CASES[0][1:]
+    res["ms"] = cuda_ms(lambda: flash_fwd.fwd(q_s, k_s, v_s, scale=D ** -0.5, causal=True))
+    res["plain_ms"] = cuda_ms(lambda: flash_fwd.fwd_reference(q_s, k_s, v_s, scale=D ** -0.5,
+                                                              causal=True), reps=5)
+    tf = attention_flops(B, Hq, N, N, D, causal=True, mode="fwd") / 1e9
+    log("kernel", f"lm shape B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal bf16: K1 {res['ms']:.4f} ms "
+                  f"({tf / res['ms']:.1f} TFLOP/s), plain version {res['plain_ms']:.4f} ms "
+                  f"({tf / res['plain_ms']:.1f} TFLOP/s) (median CUDA-event time)")
+    return res
+
+
+def phase_bwd_check() -> dict:
+    """K3 against bwd_reference on f32 copies of the same bf16 inputs, with
+    the same LSE and Delta (from the f32 forward). Budget BWD_TOL[bf16] per
+    element on dQ, dK and dV: the kernel feeds P and dS to the tensor cores
+    in bf16, and its dQ atomics sum in an order that changes from run to run."""
+    from flashattn_tpu_torch.ops import flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.utils.testing import BWD_TOL, grad_gate, make_qkv
+    from flashattn_tpu_torch.utils.timing import attention_flops
+
+    tol = BWD_TOL[torch.bfloat16]
+    # (name, B, Hq, Hkv, Nq, Nk, D, causal, kv_valid_len)
+    cases = [(c[0], *c[1:], causal, None) for c in CAUSAL_CASES for causal in (True, False)]
+    cases += [("unet", 1, 8, 8, 4096, 4096, 40, False, None),
+              ("GQA-16/8", 1, 16, 8, 1024, 1024, 128, False, None),
+              ("kv-tail", 1, 8, 2, 1000, 1100, 64, False, 1000)]
+    res = None
+    for i, (name, B, Hq, Hkv, Nq, Nk, D, causal, kvl) in enumerate(cases):
+        q, k, v = (_bnhd(x) for x in make_qkv(300 + i, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv,
+                                               dtype=torch.bfloat16, device=DEVICE))
+        do = _bnhd(make_qkv(400 + i, B, Hq, Nq, D, dtype=torch.bfloat16, device=DEVICE)[0])
+        scale = D ** -0.5
+        o32, lse = flash_fwd.fwd_reference(q.float(), k.float(), v.float(), scale=scale,
+                                           causal=causal, kv_valid_len=kvl)
+        delta = (do.float() * o32).sum(-1)
+        got = flash_bwd_fused.bwd(q, k, v, do, lse, delta, scale=scale, causal=causal,
+                                  kv_valid_len=kvl)
+        torch.cuda.synchronize()
+        want = flash_bwd_fused.bwd_reference(q.float(), k.float(), v.float(), do.float(), lse,
+                                             delta, scale=scale, causal=causal, kv_valid_len=kvl)
+        ok, why, gmd, _ = grad_gate(got, want, tol)
+        log("kernel", f"K3 {name} B{B} Hq{Hq} Hkv{Hkv} Nq{Nq} Nk{Nk} D{D} "
+                      f"{'causal' if causal else 'non-causal'}"
+                      f"{'' if kvl is None else f' kv_valid_len {kvl}'}: dQ/dK/dV max_abs_err "
+                      f"{gmd:.3e} (budget BWD_TOL[bf16] atol {tol.atol} rtol {tol.rtol})")
+        if not ok:
+            fail(f"K3 disagrees with bwd_reference at {name} causal={causal}: {why}")
+        if name == "lm" and causal:
+            res = {"max_abs_err": gmd}
+            args = (q, k, v, do, lse, delta)
+    B, Hq, Hkv, N, _, D = CAUSAL_CASES[0][1:]
+    res["ms"] = cuda_ms(lambda: flash_bwd_fused.bwd(*args, scale=D ** -0.5, causal=True))
+    res["plain_ms"] = cuda_ms(lambda: flash_bwd_fused.bwd_reference(
+        *args, scale=D ** -0.5, causal=True), reps=5)
+    tf = attention_flops(B, Hq, N, N, D, causal=True, mode="bwd") / 1e9
+    log("kernel", f"lm shape B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal bf16: K3 {res['ms']:.4f} ms "
+                  f"({tf / res['ms']:.1f} TFLOP/s), plain version {res['plain_ms']:.4f} ms "
+                  f"({tf / res['plain_ms']:.1f} TFLOP/s) (median CUDA-event time)")
+    return res
+
+
 def phase_slice() -> int:
     from flashattn_tpu_torch.models.diffusion import euler_sample
     from flashattn_tpu_torch.models.unet import UNetConfig, init_unet, unet_forward
@@ -148,13 +278,13 @@ def phase_slice() -> int:
     # zero_init=False: with SD's zero-init, proj_out and conv_out are zero and
     # attention could not change the output, so the comparison would prove nothing.
     cfg = dataclasses.replace(UNetConfig.sd15(), zero_init=False)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    unet = init_unet(cfg, gen, device="cuda")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    unet = init_unet(cfg, gen, device=DEVICE)
     n_params = sum(p.numel() for p in unet.parameters())
     shape = (1, LATENT, LATENT, cfg.in_channels)
-    x = torch.randn(shape, generator=gen, device="cuda")
-    ctx = torch.randn((1, CONTEXT_LEN, cfg.context_dim), generator=gen, device="cuda")
-    t = torch.full((1,), 500.0, device="cuda")
+    x = torch.randn(shape, generator=gen, device=DEVICE)
+    ctx = torch.randn((1, CONTEXT_LEN, cfg.context_dim), generator=gen, device=DEVICE)
+    t = torch.full((1,), 500.0, device=DEVICE)
     with torch.no_grad():
         eps = {arm: unet_forward(unet, x, t, ctx, cfg, attn_impl=arm) for arm in ("fused", "xla")}
     torch.cuda.synchronize()
@@ -171,9 +301,9 @@ def phase_slice() -> int:
     # Two requests, each with its own seed and context; made before the timed runs.
     requests = []
     for seed in (1, 2):
-        g = torch.Generator(device="cuda").manual_seed(seed)
-        requests.append((torch.randn((1, CONTEXT_LEN, cfg.context_dim), generator=g, device="cuda"),
-                         torch.randn(shape, generator=g, device="cuda")))
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        requests.append((torch.randn((1, CONTEXT_LEN, cfg.context_dim), generator=g, device=DEVICE),
+                         torch.randn(shape, generator=g, device=DEVICE)))
     per_forward = predicted_fused_calls(cfg, LATENT, LATENT, CONTEXT_LEN)
     expected = per_forward * STEPS * REQUESTS
     launches = None
@@ -204,6 +334,96 @@ def phase_slice() -> int:
     return launches
 
 
+def _rel_l2(a: dict, b: dict) -> float:
+    """Relative L2 distance of two gradient dicts, as one concatenated vector."""
+    num = sum((a[n].float() - b[n].float()).pow(2).sum().item() for n in b)
+    den = sum(b[n].float().pow(2).sum().item() for n in b)
+    return math.sqrt(num / den)
+
+
+def phase_train() -> tuple[int, int]:
+    from flashattn_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, adamw_init, adamw_update, init_transformer, lm_loss)
+    from flashattn_tpu_torch.ops import flash_bwd_fused, flash_fwd
+
+    cfg = TransformerConfig(**LM_WIDTH)  # bf16
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = init_transformer(cfg, gen, device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_SEQ + 1), generator=gen, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def loss_and_grads(m, arm):
+        m.zero_grad(set_to_none=True)
+        loss = lm_loss(m, tokens, m.cfg, attn_impl=arm)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in m.named_parameters()}
+
+    lf, gf = loss_and_grads(model, "fused")
+    lx, gx = loss_and_grads(model, "xla")
+    m32 = Transformer(dataclasses.replace(cfg, dtype=torch.float32), device=DEVICE)
+    m32.load_state_dict(model.state_dict())
+    l32, g32 = loss_and_grads(m32, "xla")
+    del m32
+    for arm, loss, g in (("fused", lf, gf), ("xla", lx, gx)):
+        if not math.isfinite(loss) or not all(torch.isfinite(t).all() for t in g.values()):
+            fail(f"LM {arm}: loss {loss} or its gradients are not finite")
+    loss_limit = max(5e-2, 1e-2 * abs(lx))
+    log("train", f"LM ({n_params / 1e6:.1f} M params, {cfg.n_layers} layers, d_model "
+                 f"{cfg.d_model}, Hq{cfg.n_heads} Hkv{cfg.n_kv_heads} D{cfg.d_head}, bf16) on "
+                 f"[1, {LM_SEQ + 1}] tokens: loss fused {lf:.5f}, xla {lx:.5f}, f32 model "
+                 f"{l32:.5f}; |fused - xla| {abs(lf - lx):.2e} (limit {loss_limit:.2e}, "
+                 f"bench_lm.py's rule)")
+    if not abs(lf - lx) < loss_limit:
+        fail(f"LM loss gate: fused {lf} vs xla {lx}")
+    floor = max(_rel_l2(gf, g32), _rel_l2(gx, g32))
+    rel = _rel_l2(gf, gx)
+    log("train", f"gradients: fused vs xla relative L2 {rel:.3e} (limit {GRAD_REL_L2_LIMIT}); "
+                 f"bf16 noise floor {floor:.3e} (fused vs f32 model {_rel_l2(gf, g32):.3e}, "
+                 f"xla vs f32 model {_rel_l2(gx, g32):.3e})")
+    if not rel <= GRAD_REL_L2_LIMIT:
+        fail(f"LM gradient gate: fused vs xla relative L2 {rel:.3e} > {GRAD_REL_L2_LIMIT}")
+    del model, gf, gx, g32
+    torch.cuda.empty_cache()
+
+    counts = None
+    for arm in ("fused", "xla"):
+        model = init_transformer(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+        params = dict(model.named_parameters())
+        opt = adamw_init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if arm == "fused":
+            flash_fwd.fwd.launches = flash_bwd_fused.bwd.launches = 0
+        losses, secs = [], []
+        for _ in range(LM_STEPS):
+            t0 = time.perf_counter()
+            model.zero_grad(set_to_none=True)
+            loss = lm_loss(model, tokens, cfg, attn_impl=arm)
+            loss.backward()
+            adamw_update({n: p.grad for n, p in params.items()}, opt, params)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        if arm == "fused":
+            counts = (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        step_s = statistics.median(secs[LM_WARMUP:])
+        log("train", f"{arm}: {LM_STEPS} AdamW steps, {step_s * 1e3:.2f} ms/step "
+                     f"({', '.join(f'{s * 1e3:.1f}' for s in secs)}), {LM_SEQ / step_s:.0f} "
+                     f"tokens/s (median after {LM_WARMUP} warm-up steps), peak "
+                     f"{peak:.2f} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            fail(f"LM {arm} training: losses {losses} not finite or not falling")
+        del model, params, opt
+        torch.cuda.empty_cache()
+    expected = cfg.n_layers * LM_STEPS
+    log("train", f"launches during the fused steps: K1 {counts[0]}, K3 {counts[1]} (expected "
+                 f"{cfg.n_layers} layers x {LM_STEPS} steps = {expected} each)")
+    if counts != (expected, expected):
+        fail(f"LM steps launched K1 {counts[0]} and K3 {counts[1]} times, expected {expected}")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -212,12 +432,21 @@ def main() -> None:
     phase_env()
     phase_build()
     k1 = phase_kernel_check()
+    k1c = phase_causal_check()
+    k3 = phase_bwd_check()
     launches = phase_slice()
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd (K1)", "route": "cuda",
-        "source": "flashattn_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
-        "launches": launches, **k1}]}), flush=True)
+    k1c_launches, k3_launches = phase_train()
+    fwd_src, bwd_src = (f"flashattn_tpu_torch/csrc/flash_{d}.cu" for d in ("fwd", "bwd"))
+    print(json.dumps({"kernels": [
+        {"name": "flash_fwd (K1)", "route": "cuda", "source": fwd_src,
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115", "launches": launches, **k1},
+        {"name": "flash_fwd causal (K1 causal, K2)", "route": "cuda", "source": fwd_src,
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:516",
+         "launches": k1c_launches, **k1c},
+        {"name": "flash_bwd (K3, K4)", "route": "cuda", "source": bwd_src,
+         "replaces": "flashattn_tpu/ops/flash_bwd_fused.py:110, "
+                     "flashattn_tpu/ops/flash_bwd_fused.py:336",
+         "launches": k3_launches, **k3}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,83 @@
+// Device helpers shared by the port's attention kernels (sm_90a):
+// mma.sync m16n8k16 bf16 with f32 accumulation, ldmatrix, and 16-byte tile
+// loads into padded shared memory.
+//
+// Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A (16x16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
+//                         a3 = (g+8, 2t+8..)
+//   B (16x8, "col"):      b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..2t+9, n g)
+//   C (16x8):             c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
+// so the C fragments of two neighbouring n-tiles are exactly the A fragment
+// of one k-step, and a row-major [n][k] shared tile gives B by 32-bit loads.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace fa {
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+// ops/oracle.py DEFAULT_MASK_VALUE: -0.7 * float32 max, finite so that a
+// fully masked tile never computes -inf - (-inf).
+constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
+
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices, transposed on load: lanes 8i..8i+7 address the rows
+// of matrix i, and register i of every lane receives its piece of matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t ld_b32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Copy `rows_valid` rows of `d` (a multiple of 8) bf16 from global memory into
+// a ROWS x DP shared tile with row stride DP + 8, in 16-byte pieces; rows past
+// rows_valid and columns past d are zero-filled and never read from global.
+// The row stride DP + 8 elements ((DP/2 + 4) 32-bit words) puts the 8 rows
+// that one fragment load or ldmatrix touches on distinct banks.
+template <int DP, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* g,
+                                          int64_t row_stride, int rows_valid, int d) {
+  constexpr int CHUNKS = DP / 8;
+  constexpr int STRIDE = DP + 8;
+  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
+    const int r = idx / CHUNKS;
+    const int c = idx % CHUNKS;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows_valid && c * 8 < d) {
+      val = *reinterpret_cast<const uint4*>(g + r * row_stride + c * 8);
+    }
+    *reinterpret_cast<uint4*>(smem + r * STRIDE + c * 8) = val;
+  }
+}
+
+// Raise a kernel's dynamic shared-memory limit when it needs more than 48 KB.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace fa

@@ -1,8 +1,10 @@
 // FlashAttention-2 forward for Hopper (sm_90a), bf16 tensor cores.
 //
-// Replaces the TPU kernel flashattn_tpu/ops/flash_fwd.py::_fwd_kernel on its
-// dense-grid route: non-causal, no bias, KV tail, GQA. It computes what that
-// kernel computes -- O = softmax(Q K^T * scale) V with the online softmax in
+// Replaces the TPU kernels flashattn_tpu/ops/flash_fwd.py::_fwd_kernel (K1,
+// :115) on its flat and dense-grid routes, and, with causal, the whole-sequence
+// banded flashattn_tpu/ops/flash_fwd.py::_fwd_causal_resident_kernel (K2,
+// :516): no bias, KV tail, GQA, optional top-left causal mask. It computes
+// what those kernels compute -- O = softmax(Q K^T * scale) V with the online softmax in
 // the log2 domain, f32 running max / sum / accumulator, and the row LSE in
 // natural log (m * ln2 + log l) -- but is not a block-by-block copy:
 //
@@ -22,6 +24,12 @@
 //     A ragged Q tail is masked on store. A row that sees no valid key (only
 //     when kv_valid_len == 0) stores zeros and lse = ln2 * mask, the package's
 //     dead-row convention.
+//   * Causal (kv_pos <= q_pos, top-left aligned with zero offsets, also when
+//     Nq != Nk): the CTA of Q tile m0 visits only the KV tiles whose first
+//     column is <= its last row -- the tile skipping that K2 gets from its
+//     static tile table -- and masks col > row with the finite mask value on
+//     the diagonal tiles only. CTAs are issued longest-first (the last Q
+//     tile, which visits the most KV tiles, gets blockIdx.x == 0).
 //   * Q/K/V/O are addressed through (batch, head, seq) strides in elements
 //     with a unit head-dim stride, so the U-Net's [B, N, H, D] projections
 //     reach the kernel as transposed views without a copy.
@@ -35,21 +43,16 @@
 // (or cp.async double buffering), warp specialisation (producer warp +
 // consumer warpgroups), and a persistent grid.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
+
+using namespace fa;
 
 constexpr int BLOCK_M = 64;  // Q rows per CTA: 4 warps x 16 rows
 constexpr int BLOCK_N = 64;  // KV rows per inner-loop tile
 constexpr int NUM_WARPS = 4;
 constexpr int NUM_THREADS = NUM_WARPS * 32;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-// ops/oracle.py DEFAULT_MASK_VALUE: -0.7 * float32 max, finite so that a
-// fully masked tile never computes -inf - (-inf).
-constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 
 struct Params {
   const __nv_bfloat16* q;
@@ -61,61 +64,13 @@ struct Params {
   int64_t k_sb, k_sh, k_sn;
   int64_t v_sb, v_sh, v_sn;
   int64_t o_sb, o_sh, o_sn;
-  int hq, rep, nq, d, kv_valid_len;
+  int hq, rep, nq, d, kv_valid_len, causal;
   float scale_log2;  // softmax scale * log2(e)
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices, transposed on load: lanes 8i..8i+7 address the rows
-// of matrix i, and register i of every lane receives its piece of matrix i.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t ld_b32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy `rows_valid` rows of `d` (a multiple of 8) bf16 from global memory into
-// a ROWS x DP shared tile with row stride DP + 8, in 16-byte pieces; rows past
-// rows_valid and columns past d are zero-filled and never read from global.
-template <int DP, int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* g,
-                                          int64_t row_stride, int rows_valid, int d) {
-  constexpr int CHUNKS = DP / 8;
-  constexpr int STRIDE = DP + 8;
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += NUM_THREADS) {
-    const int r = idx / CHUNKS;
-    const int c = idx % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid && c * 8 < d) {
-      val = *reinterpret_cast<const uint4*>(g + r * row_stride + c * 8);
-    }
-    *reinterpret_cast<uint4*>(smem + r * STRIDE + c * 8) = val;
-  }
-}
-
 template <int DP>
 __global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
-  // Shared row stride DP + 8 elements: (DP/2 + 4) 32-bit words, which puts the
-  // 8 rows one fragment load touches on distinct banks.
-  constexpr int STRIDE = DP + 8;
+  constexpr int STRIDE = DP + 8;  // shared row stride (see load_tile)
   constexpr int KS_QK = DP / 16;       // k-steps of Q K^T
   constexpr int NT_S = BLOCK_N / 8;    // n-tiles of the score tile
   constexpr int KS_PV = BLOCK_N / 16;  // k-steps of P V
@@ -126,7 +81,9 @@ __global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
   __nv_bfloat16* s_k = s_q + BLOCK_M * STRIDE;
   __nv_bfloat16* s_v = s_k + BLOCK_N * STRIDE;
 
-  const int m0 = blockIdx.x * BLOCK_M;
+  // Causal: heavy (late) Q tiles first, so the tail of the grid is short.
+  const int m_tile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int m0 = m_tile * BLOCK_M;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / p.rep;  // GQA: the BlockSpec index map h // rep
@@ -138,7 +95,7 @@ __global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
   const __nv_bfloat16* q_g = p.q + b * p.q_sb + h * p.q_sh + static_cast<int64_t>(m0) * p.q_sn;
   const __nv_bfloat16* k_g = p.k + b * p.k_sb + hk * p.k_sh;
   const __nv_bfloat16* v_g = p.v + b * p.v_sb + hk * p.v_sh;
-  load_tile<DP, BLOCK_M>(s_q, q_g, p.q_sn, min(BLOCK_M, p.nq - m0), p.d);
+  load_tile<DP, BLOCK_M, NUM_THREADS>(s_q, q_g, p.q_sn, min(BLOCK_M, p.nq - m0), p.d);
 
   float acc[NT_O][4];
 #pragma unroll
@@ -153,7 +110,9 @@ __global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
 
   const __nv_bfloat16* s_qw = s_q + warp * 16 * STRIDE;
   const int nkv = p.kv_valid_len;
-  const int n_tiles = (nkv + BLOCK_N - 1) / BLOCK_N;
+  // Causal: only KV tiles whose first column is <= this tile's last row.
+  const int n_end = p.causal ? min(nkv, m0 + BLOCK_M) : nkv;
+  const int n_tiles = (n_end + BLOCK_N - 1) / BLOCK_N;
   // ldmatrix.trans lane -> (row, col) of the 16x16 V block it addresses.
   const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int v_col = (lane >> 4) * 8;
@@ -161,8 +120,8 @@ __global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
   for (int j = 0; j < n_tiles; ++j) {
     const int n0 = j * BLOCK_N;
     __syncthreads();  // the previous tile is consumed (and s_q is complete)
-    load_tile<DP, BLOCK_N>(s_k, k_g + n0 * p.k_sn, p.k_sn, min(BLOCK_N, nkv - n0), p.d);
-    load_tile<DP, BLOCK_N>(s_v, v_g + n0 * p.v_sn, p.v_sn, min(BLOCK_N, nkv - n0), p.d);
+    load_tile<DP, BLOCK_N, NUM_THREADS>(s_k, k_g + n0 * p.k_sn, p.k_sn, min(BLOCK_N, nkv - n0), p.d);
+    load_tile<DP, BLOCK_N, NUM_THREADS>(s_v, v_g + n0 * p.v_sn, p.v_sn, min(BLOCK_N, nkv - n0), p.d);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 columns.
@@ -184,15 +143,19 @@ __global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
       }
     }
 
-    // Scale into the log2 domain in f32; mask the KV tail.
+    // Scale into the log2 domain in f32; mask the KV tail and, on diagonal
+    // tiles, the causal upper triangle (col > row).
     const bool tail = n0 + BLOCK_N > nkv;
+    const bool diag = p.causal && n0 + BLOCK_N - 1 > m0;
+    const int row0 = m0 + warp * 16 + g;
     float mx[2] = {m_i[0], m_i[1]};
 #pragma unroll
     for (int nt = 0; nt < NT_S; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[nt][e] * p.scale_log2;
-        if (tail && n0 + nt * 8 + 2 * t + (e & 1) >= nkv) x = MASK_VALUE;
+        const int col = n0 + nt * 8 + 2 * t + (e & 1);
+        if ((tail && col >= nkv) || (diag && col > row0 + 8 * (e >> 1))) x = MASK_VALUE;
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -272,11 +235,8 @@ __global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
 template <int DP>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(BLOCK_M + 2 * BLOCK_N) * (DP + 8) * sizeof(__nv_bfloat16);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = allow_smem(fwd_kernel<DP>, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid((p.nq + BLOCK_M - 1) / BLOCK_M, p.hq, batch);
   fwd_kernel<DP><<<grid, NUM_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
@@ -289,9 +249,11 @@ extern "C" {
 // O and LSE for q [B, Hq, Nq, D], k/v [B, Hkv, Nk, D] (bf16, unit stride on D,
 // other strides in elements); o has q's shape, lse is [B, Hq, Nq] f32
 // contiguous. Requires 8 <= D <= 256 with D % 8 == 0, Hq % Hkv == 0,
-// 0 <= kv_valid_len <= Nk, Nq >= 1. Returns a cudaError_t (0 on success).
+// 0 <= kv_valid_len <= Nk, Nq >= 1. causal != 0 masks kv_pos > q_pos (zero
+// offsets). Returns a cudaError_t (0 on success).
 int fa_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
-                int hq, int hkv, int nq, int d, int kv_valid_len, float scale, int64_t q_sb,
+                int hq, int hkv, int nq, int d, int kv_valid_len, int causal, float scale,
+                int64_t q_sb,
                 int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn,
                 int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh,
                 int64_t o_sn, void* stream) {
@@ -314,7 +276,8 @@ int fa_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
   p.nq = nq;
   p.d = d;
   p.kv_valid_len = kv_valid_len;
-  p.scale_log2 = scale * LOG2E;
+  p.causal = causal != 0;
+  p.scale_log2 = scale * fa::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch ((d + 15) / 16 * 16) {

@@ -1,9 +1,11 @@
-"""Carry U-Net weights from the JAX package's pytree to the port.
+"""Carry U-Net and LM weights from the JAX package's pytrees to the port.
 
-The JAX tree (``init_unet`` of flashattn_tpu/models/unet.py; leaves as numpy arrays)
-and the port's :class:`UNet` have the same paths; only conv kernels change
-layout, HWIO -> OIHW. With the weights carried over, both compute the same
-function, which is how the tests hold the port to the JAX model.
+The JAX trees (``init_unet`` of flashattn_tpu/models/unet.py,
+``init_transformer`` of flashattn_tpu/models/transformer.py; leaves as numpy
+arrays) and the port's :class:`UNet` and :class:`Transformer` have the same
+paths; only U-Net conv kernels change layout, HWIO -> OIHW. With the weights
+carried over, both compute the same function, which is how the tests hold the
+port to the JAX models.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flashattn_tpu_torch.models.transformer import Transformer, TransformerConfig
 from flashattn_tpu_torch.models.unet import UNet, UNetConfig
 
 
@@ -26,13 +29,11 @@ def _flatten(tree, prefix=""):
         yield from _flatten(sub, f"{prefix}.{key}" if prefix else str(key))
 
 
-def unet_from_jax(params, cfg: UNetConfig, device=None) -> UNet:
-    """A :class:`UNet` on ``device`` holding the weights of the JAX pytree
-    ``params`` (nested dicts/lists of numpy arrays, e.g. bf16 from ml_dtypes),
-    cast to the port's parameter dtypes. Raises ValueError if the trees'
-    paths or shapes differ."""
-    unet = UNet(cfg, device=device)
-    own = unet.state_dict()
+def _load(module: torch.nn.Module, params, conv_hwio: bool):
+    """Copy the JAX pytree ``params`` into ``module`` by path, cast to the
+    module's dtypes; 4-D leaves are conv kernels (HWIO -> OIHW) when
+    ``conv_hwio``. Raises ValueError if the paths or shapes differ."""
+    own = module.state_dict()
     flat = dict(_flatten(params))
     if flat.keys() != own.keys():
         raise ValueError(
@@ -41,10 +42,26 @@ def unet_from_jax(params, cfg: UNetConfig, device=None) -> UNet:
     state = {}
     for name, leaf in flat.items():
         t = torch.from_numpy(np.array(leaf, dtype=np.float32))
-        if t.ndim == 4:  # conv kernel: HWIO -> OIHW
+        if conv_hwio and t.ndim == 4:
             t = t.permute(3, 2, 0, 1)
         if t.shape != own[name].shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(own[name].shape)}")
         state[name] = t.to(dtype=own[name].dtype)
-    unet.load_state_dict(state, strict=True)
-    return unet
+    module.load_state_dict(state, strict=True)
+    return module
+
+
+def unet_from_jax(params, cfg: UNetConfig, device=None) -> UNet:
+    """A :class:`UNet` on ``device`` holding the weights of the JAX pytree
+    ``params`` (nested dicts/lists of numpy arrays, e.g. bf16 from ml_dtypes),
+    cast to the port's parameter dtypes. Raises ValueError if the trees'
+    paths or shapes differ."""
+    return _load(UNet(cfg, device=device), params, conv_hwio=True)
+
+
+def transformer_from_jax(params, cfg: TransformerConfig, device=None) -> Transformer:
+    """A :class:`Transformer` on ``device`` holding the weights of the JAX
+    pytree ``params`` (``{"embed", "ln_f", "layers": [...]}`` of numpy
+    arrays), cast to ``cfg.dtype``. Every leaf keeps its shape. Raises
+    ValueError if the trees' paths or shapes differ."""
+    return _load(Transformer(cfg, device=device), params, conv_hwio=False)

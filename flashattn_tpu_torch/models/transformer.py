@@ -1,0 +1,236 @@
+"""Decoder-only transformer LM (GQA + RoPE + RMSNorm + SwiGLU) on the fused
+attention engine: the single-device training path.
+
+Port of flashattn_tpu/models/transformer.py: :func:`transformer_forward`,
+:func:`lm_loss` and the AdamW update. Activations stay ``[B, N, H, D]`` so
+attention runs in its BNHD layout with no rearrange: causal
+:func:`flash_attention` (kernels K1 forward, K3 backward on the card) or, with
+``attn_impl="xla"``, the exact f32 oracle (the baseline arm).
+
+The parameters keep the JAX pytree's names and shapes -- ``embed``, ``ln_f``,
+``layers.{i}.{ln1,wq,wk,wv,wo,ln2,w_gate,w_up,w_down}``, ``wq`` as
+``[d_model, H, d_head]`` -- and the forward keeps the JAX einsums, so
+``models.convert.transformer_from_jax`` is a plain copy. The KV-cache decode
+path, packed (segment-id) and windowed or soft-capped training and the
+sharded step are not ported yet (ROADMAP queue 1, item 7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from flashattn_tpu_torch.ops.flash import flash_attention
+from flashattn_tpu_torch.ops.oracle import attention_reference
+
+_ROADMAP_K1 = "ROADMAP queue 2, K1 options"
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int = 4
+    d_head: int = 64
+    d_ff: int = 1408
+    rope_theta: float = 10000.0
+    # Mistral-style sliding window (None = full causal attention); not ported.
+    sliding_window: int | None = None
+    # Gemma-2-style logit soft-capping (None = off); not ported.
+    logit_softcap: float | None = None
+    # Recompute each block in the backward (torch.utils.checkpoint) instead
+    # of storing its activations, as jax.checkpoint does in the JAX model.
+    remat: bool = False
+    dtype: torch.dtype = torch.bfloat16
+
+
+def _rms_norm(x, w, eps=1e-6):
+    xf = x.float()
+    scale = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * scale).to(x.dtype) * w
+
+
+def _rope(x, positions, theta):
+    """Rotary embedding over the last dim of ``[B, N, H, D]``, in f32."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[:, :, None, None].float() * freqs  # B N 1 half
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+class Layer(nn.Module):
+    """One block's parameters, named and shaped as the JAX layer dict."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        dm, dh, dt = cfg.d_model, cfg.d_head, cfg.dtype
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=dt, device=device))
+
+        self.ln1 = param(dm)
+        self.wq = param(dm, cfg.n_heads, dh)
+        self.wk = param(dm, cfg.n_kv_heads, dh)
+        self.wv = param(dm, cfg.n_kv_heads, dh)
+        self.wo = param(cfg.n_heads, dh, dm)
+        self.ln2 = param(dm)
+        self.w_gate = param(dm, cfg.d_ff)
+        self.w_up = param(dm, cfg.d_ff)
+        self.w_down = param(cfg.d_ff, dm)
+
+
+class Transformer(nn.Module):
+    """The LM's parameters, laid out as the JAX pytree of ``init_transformer``.
+    Allocated uninitialised: use :func:`init_transformer` or
+    ``models.convert.transformer_from_jax``."""
+
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, dtype=cfg.dtype,
+                                              device=device))
+        self.ln_f = nn.Parameter(torch.empty(cfg.d_model, dtype=cfg.dtype, device=device))
+        self.layers = nn.ModuleList(Layer(cfg, device) for _ in range(cfg.n_layers))
+
+    def forward(self, tokens, attn_impl="fused"):
+        return transformer_forward(self, tokens, self.cfg, attn_impl=attn_impl)
+
+
+def init_transformer(cfg: TransformerConfig, generator: torch.Generator, device=None) -> Transformer:
+    """An LM with the JAX package's initialisation: projections
+    ``normal · fan_in^-1/2``, the embedding ``normal · 0.02``, unit norm
+    scales. Draws come from ``generator`` on its own device, in f32, then are
+    cast to ``cfg.dtype``."""
+    model = Transformer(cfg, device=device)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=generator.device) * std
+
+    fan_in = {"wq": cfg.d_model, "wk": cfg.d_model, "wv": cfg.d_model,
+              "wo": cfg.n_heads * cfg.d_head, "w_gate": cfg.d_model, "w_up": cfg.d_model,
+              "w_down": cfg.d_ff}
+    with torch.no_grad():
+        for layer in model.layers:
+            for name, p in layer.named_parameters():
+                if name in fan_in:
+                    p.copy_(normal(p.shape, fan_in[name] ** -0.5))
+                else:  # ln1, ln2
+                    p.fill_(1.0)
+        model.embed.copy_(normal(model.embed.shape, 0.02))
+        model.ln_f.fill_(1.0)
+    return model
+
+
+def _attention_block(layer: Layer, x, positions, cfg, attn_fn):
+    h = _rms_norm(x, layer.ln1)
+    q = torch.einsum("bnd,dhe->bnhe", h, layer.wq)
+    k = torch.einsum("bnd,dhe->bnhe", h, layer.wk)
+    v = torch.einsum("bnd,dhe->bnhe", h, layer.wv)
+    q = _rope(q, positions, cfg.rope_theta)
+    k = _rope(k, positions, cfg.rope_theta)
+    o = attn_fn(q, k, v)  # [B, N, H, D]
+    return x + torch.einsum("bnhe,hed->bnd", o, layer.wo).to(x.dtype)
+
+
+def _mlp_block(layer: Layer, x):
+    h = _rms_norm(x, layer.ln2)
+    gate = F.silu(torch.einsum("bnd,df->bnf", h, layer.w_gate).float()).to(x.dtype)
+    up = torch.einsum("bnd,df->bnf", h, layer.w_up)
+    return x + torch.einsum("bnf,fd->bnd", gate * up, layer.w_down)
+
+
+def _reject_unported(cfg: TransformerConfig, segment_ids):
+    unported = {"segment_ids (packed training)": segment_ids is not None,
+                "sliding_window": cfg.sliding_window is not None,
+                "logit_softcap": cfg.logit_softcap is not None}
+    for name, given in unported.items():
+        if given:
+            raise NotImplementedError(
+                f"transformer_forward: {name} waits for the matching flash_attention "
+                f"option in the port ({_ROADMAP_K1})")
+
+
+def transformer_forward(model: Transformer, tokens, cfg: TransformerConfig, *,
+                        attn_impl="fused", segment_ids=None):
+    """tokens ``[B, N]`` (int) → logits ``[B, N, vocab]`` f32 (causal LM).
+
+    ``attn_impl``: "fused" runs causal :func:`flash_attention` (the kernels
+    on the card); "xla" computes exact unfused softmax attention in f32, the
+    baseline arm (named after the JAX model's arm)."""
+    if attn_impl not in ("fused", "xla"):
+        raise ValueError(f"unknown attn_impl {attn_impl!r} (expected 'fused' or 'xla')")
+    _reject_unported(cfg, segment_ids)
+    B, N = tokens.shape
+    x = model.embed[tokens]
+    positions = torch.arange(N, device=tokens.device)[None].expand(B, N)
+
+    def attn(q, k, v):
+        if attn_impl == "xla":
+            o = attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                    causal=True)
+            return o.transpose(1, 2).to(q.dtype)
+        return flash_attention(q, k, v, causal=True, layout="BNHD")
+
+    def block(layer, x):
+        return _mlp_block(layer, _attention_block(layer, x, positions, cfg, attn))
+
+    for layer in model.layers:
+        if cfg.remat:
+            x = checkpoint(block, layer, x, use_reentrant=False)
+        else:
+            x = block(layer, x)
+    x = _rms_norm(x, model.ln_f)
+    return torch.einsum("bnd,vd->bnv", x, model.embed).float()
+
+
+def lm_loss(model: Transformer, tokens, cfg: TransformerConfig, *, attn_impl="fused",
+            segment_ids=None):
+    """Next-token cross-entropy, the mean over all ``B·(N−1)`` positions."""
+    logits = transformer_forward(model, tokens[:, :-1], cfg, attn_impl=attn_impl,
+                                 segment_ids=segment_ids)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, tokens[:, 1:, None])[..., 0]
+    return -ll.mean()
+
+
+def adamw_init(params: dict[str, torch.Tensor]) -> dict:
+    """AdamW state for a ``{name: parameter}`` dict: f32 moments, count 0."""
+    return {"mu": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
+            "nu": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
+            "count": 0}
+
+
+@torch.no_grad()
+def adamw_update(grads, state, params, *, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+                 weight_decay=0.01):
+    """One AdamW step with the JAX package's arithmetic: f32 moments, the
+    bias-corrected step plus ``weight_decay · p``, the result cast to the
+    parameter's dtype. (``torch.optim.AdamW`` keeps bf16 moments for bf16
+    parameters and so computes something else.)
+
+    ``grads``, ``params`` and the state's moments are ``{name: tensor}``
+    dicts. Unlike the pure JAX function, this one updates ``params`` and the
+    moments in place, to hold no second copy of them; it returns
+    ``(params, state)`` with the state's count advanced."""
+    count = state["count"] + 1
+    # The bias corrections in f32, as JAX computes b ** count on an f32 count.
+    c1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** count
+    c2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** count
+    for name, p in params.items():
+        gf = grads[name].float()
+        m, n = state["mu"][name], state["nu"][name]
+        m.mul_(b1).add_((1 - b1) * gf)
+        n.mul_(b2).add_((1 - b2) * gf * gf)
+        pf = p.float()
+        step = (m / c1.item()) / (torch.sqrt(n / c2.item()) + eps) + weight_decay * pf
+        p.copy_(pf - lr * step)
+    return params, {"mu": state["mu"], "nu": state["nu"], "count": count}

@@ -1,18 +1,21 @@
 """Public fused-attention API: validation, layouts, dtype dispatch, autograd.
 
-Port of the forward half of flashattn_tpu/ops/flash.py. The arguments keep
-the JAX signature; those the port's K1 does not take yet raise
-``NotImplementedError`` naming their ROADMAP item, on every device. The TPU
-routing tiers (unaligned/causal decompositions, macro/resident routing, the
-GQA decode fold) are not ported: the CUDA kernel masks the KV tail and Q tail
-itself, so one launch covers every shape the JAX tiers split up.
+Port of flashattn_tpu/ops/flash.py for no bias, with the causal mask: the
+forward runs K1 (``ops/flash_fwd.py``), the gradient runs the single-pass
+backward K3 (``ops/flash_bwd_fused.py``) behind a ``torch.autograd.Function``.
+The arguments keep the JAX signature; those the port's kernels do not take yet
+raise ``NotImplementedError`` naming their ROADMAP item, on every device. The
+TPU routing tiers (unaligned/causal decompositions, macro/resident routing,
+the GQA decode fold) are not ported: the CUDA kernels mask the KV tail, the Q
+tail and the causal band themselves, so one launch covers every shape the JAX
+tiers split up.
 """
 
 from __future__ import annotations
 
 import torch
 
-from flashattn_tpu_torch.ops import flash_fwd
+from flashattn_tpu_torch.ops import flash_bwd_fused, flash_fwd
 
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
 
@@ -58,10 +61,9 @@ def _validate(q, k, v, bias):
             raise ValueError(f"bias seq dims {tuple(bias.shape)} must be (1|{Nq}, {k.shape[2]})")
 
 
-def _reject_unported(*, bias, causal, block_sizes, q_offset, kv_offset, window,
+def _reject_unported(*, bias, block_sizes, q_offset, kv_offset, window,
                      segment_ids, logit_softcap, compute_dtype):
     unported = {
-        "causal=True": bool(causal),
         "bias": bias is not None,
         "window": window is not None,
         "segment_ids": segment_ids is not None,
@@ -78,23 +80,53 @@ def _reject_unported(*, bias, causal, block_sizes, q_offset, kv_offset, window,
 
 
 class _FlashCore(torch.autograd.Function):
-    """K1 forward saving ``(q, k, v, o, lse)`` for the backward kernel K3."""
+    """K1 forward saving ``(q, k, v, o, lse)``; K3 backward (``_flash_core_bwd``
+    of the JAX package on its fused branch)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, kv_valid_len):
-        o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len)
+    def forward(ctx, q, k, v, scale, kv_valid_len, causal):
+        o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal)
         ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.kv_valid_len, ctx.causal = scale, kv_valid_len, causal
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        B, Hq, _, D = q.shape
+        Hkv, Nk = k.shape[1], k.shape[2]
+        do = do.to(q.dtype)
+        # Δ = rowsum(dO ⊙ O) in f32, outside the kernel (XLA's job in the JAX package).
+        delta = (do.float() * o.float()).sum(-1)
+        dq, dk, dv = flash_bwd_fused.bwd(
+            q, k, v, do, lse, delta, scale=ctx.scale, causal=ctx.causal,
+            kv_valid_len=ctx.kv_valid_len)
+        if Hq != Hkv:  # GQA: dK/dV come per query head; sum each KV head's group
+            dk = dk.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
+            dv = dv.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
+class _FlashForwardOnly(torch.autograd.Function):
+    """K1 forward with no gradient: ``flash_attention_with_lse`` is forward-only
+    in the JAX package too (it calls the forward implementation, not the
+    custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kv_valid_len, causal):
+        o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
         raise NotImplementedError(
-            "flash_attention backward is not ported yet: it needs kernel K3 "
-            "(flash_bwd_fused.py::_bwd_fused_kernel), ROADMAP queue 2")
+            "flash_attention_with_lse is forward-only, as in the JAX package; "
+            "differentiate flash_attention instead")
 
 
-def _forward(q, k, v, *, scale, layout, **unported):
+def _forward(q, k, v, *, scale, layout, causal, core, **unported):
     q, k, v = _to_bhnd(q, layout), _to_bhnd(k, layout), _to_bhnd(v, layout)
     _validate(q, k, v, unported["bias"])
     _reject_unported(**unported)
@@ -103,7 +135,7 @@ def _forward(q, k, v, *, scale, layout, **unported):
         scale = float(q.shape[-1]) ** -0.5
     kdt = _dispatch_dtype(in_dtype)
     q, k, v = q.to(kdt), k.to(kdt), v.to(kdt)
-    o, lse = _FlashCore.apply(q, k, v, float(scale), k.shape[2])
+    o, lse = core.apply(q, k, v, float(scale), k.shape[2], bool(causal))
     return _from_bhnd(o.to(in_dtype), layout), lse
 
 
@@ -124,24 +156,25 @@ def flash_attention(
     logit_softcap: float | None = None,
     compute_dtype=None,
 ) -> torch.Tensor:
-    """Fused FlashAttention-2 forward, arbitrary Nq/Nk, GQA.
+    """Fused FlashAttention-2, arbitrary Nq/Nk, GQA, differentiable.
 
     Args:
       q/k/v: ``[B, H, N, D]`` (layout="BHND") or ``[B, N, H, D]``
         (layout="BNHD"). K/V may have fewer heads (GQA) as long as they divide
         Q's head count. ``Nk`` may differ from ``Nq``.
+      causal: mask ``kv_pos > q_pos``, top-left aligned (position 0 of Q
+        and of K/V coincide, also when ``Nq != Nk``).
       scale: softmax scale, default ``D ** -0.5``.
-      bias, causal, block_sizes, q_offset, kv_offset, window, segment_ids,
+      bias, block_sizes, q_offset, kv_offset, window, segment_ids,
       logit_softcap, compute_dtype: the JAX package's options; not ported
         yet, each raises ``NotImplementedError`` when given.
     Returns:
       Attention output, same shape/layout/dtype as ``q``. CPU tensors run the
-      plain PyTorch version, CUDA tensors the kernel (bf16; fp16 is cast to
-      bf16 and back). The backward raises ``NotImplementedError`` until K3 is
-      ported.
+      plain PyTorch versions, CUDA tensors the kernels (bf16; fp16 is cast to
+      bf16 and back): K1 forward, K3 backward (head dims up to 128).
     """
     o, _ = _forward(
-        q, k, v, scale=scale, layout=layout, bias=bias, causal=causal,
+        q, k, v, scale=scale, layout=layout, causal=causal, core=_FlashCore, bias=bias,
         block_sizes=block_sizes, q_offset=q_offset, kv_offset=kv_offset,
         window=window, segment_ids=segment_ids, logit_softcap=logit_softcap,
         compute_dtype=compute_dtype)
@@ -167,10 +200,11 @@ def flash_attention_with_lse(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward-only fused attention returning ``(O, L)`` with
     ``L = logsumexp`` per row ``[B, H, Nq]`` in f32 -- the merge primitive
-    for partial attention results. Same arguments as :func:`flash_attention`.
+    for partial attention results. Same arguments as :func:`flash_attention`;
+    its backward raises ``NotImplementedError``, as the JAX function has none.
     """
     return _forward(
-        q, k, v, scale=scale, layout=layout, bias=bias, causal=causal,
+        q, k, v, scale=scale, layout=layout, causal=causal, core=_FlashForwardOnly, bias=bias,
         block_sizes=block_sizes, q_offset=q_offset, kv_offset=kv_offset,
         window=window, segment_ids=segment_ids, logit_softcap=logit_softcap,
         compute_dtype=compute_dtype)

@@ -1,7 +1,8 @@
 """FlashAttention-2 forward: the CUDA kernel's wrapper and its plain version.
 
-Port of flashattn_tpu/ops/flash_fwd.py (kernel K1, ``_fwd_kernel``) for the
-route the serving path takes: non-causal, no bias, KV tail, GQA. The kernel is
+Port of flashattn_tpu/ops/flash_fwd.py: kernel K1 (``_fwd_kernel``) without
+bias, with KV tail, GQA and an optional causal mask, which also covers K2
+(``_fwd_causal_resident_kernel``, the whole-sequence causal route). The kernel is
 ``csrc/flash_fwd.cu``; its header says what bounds it and what it leaves for
 later. :func:`fwd` launches it for CUDA tensors and computes the plain
 :func:`fwd_reference` for CPU tensors -- the device of the input decides, and
@@ -29,11 +30,13 @@ from flashattn_tpu_torch.utils import native
 MAX_HEAD_DIM = 256
 
 
-def fwd_reference(q, k, v, *, scale: float, kv_valid_len: int | None = None):
+def fwd_reference(q, k, v, *, scale: float, kv_valid_len: int | None = None,
+                  causal: bool = False):
     """Plain PyTorch K1: ``(O, LSE)`` for ``q [B,Hq,Nq,D]``, ``k/v [B,Hkv,Nk,D]``.
 
     The exact f32 oracle over the first ``kv_valid_len`` keys (the kernel's
-    finite mask value gives those past it a weight of exactly 0). LSE is the
+    finite mask value gives those past it a weight of exactly 0); ``causal``
+    masks ``kv_pos > q_pos``, top-left aligned (zero offsets). LSE is the
     natural-log row log-sum-exp in f32, O is in ``q.dtype``. With no valid key
     (``kv_valid_len == 0``) every row is dead: O = 0 and LSE = ln2 * mask
     value, the kernel's convention.
@@ -44,7 +47,7 @@ def fwd_reference(q, k, v, *, scale: float, kv_valid_len: int | None = None):
                          dtype=torch.float32, device=q.device)
         return torch.zeros_like(q), lse
     return attention_reference_with_lse(
-        q, k[:, :, :kv_valid_len], v[:, :, :kv_valid_len], scale=scale)
+        q, k[:, :, :kv_valid_len], v[:, :, :kv_valid_len], scale=scale, causal=causal)
 
 
 def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
@@ -55,9 +58,10 @@ def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.contiguous()
 
 
-def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None):
+def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool = False):
     """K1: ``(O [B,Hq,Nq,D] in q.dtype, LSE [B,Hq,Nq] f32)``.
 
+    ``causal`` masks ``kv_pos > q_pos``, top-left aligned (zero offsets).
     CPU tensors take :func:`fwd_reference`. CUDA tensors launch the kernel,
     which takes bf16 with ``D % 8 == 0`` and ``D <= 256``; anything else
     raises. ``fwd.launches`` counts kernel launches.
@@ -79,7 +83,7 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None):
         raise ValueError(f"kv_valid_len={kv_valid_len} outside [0, {Nk}]")
 
     if q.device.type == "cpu":
-        return fwd_reference(q, k, v, scale=scale, kv_valid_len=kv_valid_len)
+        return fwd_reference(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal)
     if q.device.type != "cuda":
         raise NotImplementedError(f"no K1 kernel for device {q.device}")
     if q.dtype != torch.bfloat16:
@@ -101,7 +105,7 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None):
     with torch.cuda.device(q.device):
         rc = native.kernels().fa_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            B, Hq, k.shape[1], Nq, D, kv_valid_len, float(scale),
+            B, Hq, k.shape[1], Nq, D, kv_valid_len, int(bool(causal)), float(scale),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             torch.cuda.current_stream(q.device).cuda_stream,
         )

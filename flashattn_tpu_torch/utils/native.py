@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) with nvcc + ctypes.
 
 Counterpart of the JAX package's planner loader (flashattn_tpu/utils/native.py):
-at first use the kernels are compiled with nvcc into a shared library with a
-plain C interface under ``flashattn_tpu_torch/build/`` (rebuilt when a source
-is newer than the library) and loaded with ``ctypes``. Every pointer and the
+at first use each ``csrc/*.cu`` is compiled with nvcc into an object file, all
+of them at once in parallel, and the objects are linked into one shared
+library with a plain C interface under ``flashattn_tpu_torch/build/`` (rebuilt
+when a source is newer than the library), loaded with ``ctypes``. Every pointer and the
 CUDA stream cross the boundary as ``ctypes.c_void_p``; each C entry returns
 ``cudaGetLastError()`` after its launch and the Python wrapper raises if that
 is not 0. A failed build raises with nvcc's stderr -- there is no fallback.
@@ -24,7 +25,7 @@ BUILD_DIR = _PKG / "build"
 LIB_NAME = "libfa_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 
@@ -42,10 +43,26 @@ def find_nvcc() -> str:
         "the CUDA toolkit")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Start every command at once, wait for all of them, and return their
+    output; raise RuntimeError with the stderr of each one that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    failed = [(c, p.returncode, err + out)
+              for c, p, (out, err) in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(
+            f"nvcc failed with exit code {rc}: {' '.join(c)}\n{msg}" for c, rc, msg in failed))
+    return "".join(err + out for out, err in outs)
+
+
 def build(extra_flags: tuple[str, ...] = ()) -> tuple[pathlib.Path, str]:
     """Compile ``csrc/*.cu`` into ``build/libfa_kernels.so`` if it is missing or
-    older than a source. Returns (library path, nvcc's output; empty when the
-    library was up to date). Raises RuntimeError with nvcc's stderr on failure."""
+    older than a source: one nvcc per source, all started together, then one
+    link. Returns (library path, nvcc's output -- registers and spills with
+    ``("-Xptxas", "-v")``; empty when the library was up to date). Raises
+    RuntimeError with nvcc's stderr on failure."""
     sources = sorted(CSRC.glob("*.cu"))
     deps = sources + sorted(CSRC.glob("*.cuh"))
     if not sources:
@@ -58,16 +75,18 @@ def build(extra_flags: tuple[str, ...] = ()) -> tuple[pathlib.Path, str]:
     # Build under a private name and rename, so a concurrent loader never
     # maps a half-written library.
     tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-           *(str(s) for s in sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc = find_nvcc()
+    objs = [BUILD_DIR / f"{s.stem}.{os.getpid()}.o" for s in sources]
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(sources, objs)])
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]])
+        os.replace(tmp, lib)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}")
-    os.replace(tmp, lib)
-    return lib, proc.stderr + proc.stdout
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return lib, log
 
 
 @functools.lru_cache(maxsize=1)
@@ -79,9 +98,19 @@ def kernels() -> ctypes.CDLL:
     lib.fa_fwd_bf16.argtypes = [
         ptr, ptr, ptr, ptr, ptr,            # q, k, v, o, lse
         i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, Nq, D, kv_valid_len
-        ctypes.c_float,                     # scale
+        i32, ctypes.c_float,                # causal, scale
         i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
         i64, i64, i64, i64, i64, i64,       # v, o (batch, head, seq) strides
+        ptr,                                # cudaStream_t
+    ]
+    lib.fa_bwd_bf16.restype = i32
+    lib.fa_bwd_bf16.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, dO, lse, delta
+        ptr, ptr, ptr,                      # dq (f32, zeroed), dk, dv (f32)
+        i32, i32, i32, i32, i32, i32, i32,  # B, Hq, Hkv, Nq, Nk, D, kv_valid_len
+        i32, ctypes.c_float,                # causal, scale
+        i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
+        i64, i64, i64, i64, i64, i64,       # v, dO (batch, head, seq) strides
         ptr,                                # cudaStream_t
     ]
     lib.fa_error_string.restype = ctypes.c_char_p

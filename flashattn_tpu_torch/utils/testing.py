@@ -27,6 +27,13 @@ FWD_TOL = {
     # them), so their error is bf16-class.
     torch.float16: Tolerance(2e-2, 2e-2),
 }
+# Gradients amplify round-off through the dS = P (dP - Delta) cancellation, so
+# their budgets are looser (the JAX package's budgets, unchanged).
+BWD_TOL = {
+    torch.float32: Tolerance(1e-3, 5e-4),
+    torch.bfloat16: Tolerance(8e-2, 8e-2),
+    torch.float16: Tolerance(8e-2, 8e-2),
+}
 
 
 def make_qkv(
@@ -87,3 +94,21 @@ def assert_close(actual, expected, tol: Tolerance, name: str = "out"):
     """Assert per-element ``|a−e| ≤ atol + rtol·|e|``."""
     ok, msg = check_close(actual, expected, tol, name)
     assert ok, msg
+
+
+def grad_gate(grads, grads_want, tol: Tolerance, names=("dq", "dk", "dv")):
+    """Per-element gate over a tuple of gradient tensors. Returns
+    ``(ok, why, grad_maxdiff, grad_maxrel)``: the max-abs and max-relative
+    (relative to ``max(|want|, 1)``) differences are reported, the pass/fail
+    decision is per element."""
+    gmd = gmr = 0.0
+    ok, why = True, ""
+    for name, a, b in zip(names, grads, grads_want):
+        a, b = _as_f32_numpy(a), _as_f32_numpy(b)
+        d = np.abs(a - b)
+        gmd = max(gmd, float(d.max()))
+        gmr = max(gmr, float((d / np.maximum(np.abs(b), 1.0)).max()))
+        gok, msg = check_close(a, b, tol, name)
+        if not gok:
+            ok, why = False, (why + "; " + msg if why else msg)
+    return ok, why, gmd, gmr

@@ -82,7 +82,6 @@ def test_flash_attention_low_precision_vs_f32_oracle(dtype, D, Nk, Hkv, layout):
 
 
 UNPORTED = {
-    "causal": {"causal": True},
     "bias": {"bias": torch.zeros(1, 1, 64, 64)},
     "window": {"window": (8, 8)},
     "segment_ids": {"segment_ids": torch.zeros(1, 64, dtype=torch.int32)},
@@ -102,12 +101,15 @@ def test_unported_arguments_raise(fn, name):
         getattr(flashattn_tpu_torch, fn)(q, k, v, **UNPORTED[name])
 
 
-def test_backward_raises_naming_k3():
+@pytest.mark.parametrize("name", sorted(UNPORTED))
+def test_unported_arguments_raise_before_a_backward(name):
+    """The gradient of an option the kernels do not take yet is refused with
+    its ROADMAP item, never computed without it."""
     q, k, v = make_qkv(1, 1, 2, 64, 32)
     q.requires_grad_(True)
-    o = flashattn_tpu_torch.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="K3"):
-        o.sum().backward()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flashattn_tpu_torch.flash_attention(q, k, v, **UNPORTED[name]).sum().backward()
+    assert q.grad is None
 
 
 def test_validation_errors_match_jax():
@@ -135,6 +137,16 @@ def test_sdpa_matches_jax(impl, N, Nk):
     want = jax_sdpa.scaled_dot_product_attention(
         *(_to_jax(x) for x in (q, k, v)), layout="BNHD", impl=impl)
     got = sdpa.scaled_dot_product_attention(q, k, v, layout="BNHD", impl=impl)
+    assert_close(got, np.asarray(want), FWD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("impl", ["fused", "exact"])
+def test_sdpa_is_causal_matches_jax(impl):
+    q, k, v = make_qkv(8, 1, 4, 300, 64, Hkv=2)
+    q, k, v = (_layout(x, "BNHD") for x in (q, k, v))
+    want = jax_sdpa.scaled_dot_product_attention(
+        *(_to_jax(x) for x in (q, k, v)), is_causal=True, layout="BNHD", impl=impl)
+    got = sdpa.scaled_dot_product_attention(q, k, v, is_causal=True, layout="BNHD", impl=impl)
     assert_close(got, np.asarray(want), FWD_TOL[torch.float32])
 
 

@@ -25,7 +25,7 @@ def _fake_nvcc(tmp_path, body):
 
 
 @pytest.fixture
-def sandbox(tmp_path, monkeypatch):
+def fake_tree(tmp_path, monkeypatch):
     """The builder pointed at a private csrc/ and build/ under tmp_path."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -35,38 +35,64 @@ def sandbox(tmp_path, monkeypatch):
     return tmp_path
 
 
-def test_build_invokes_nvcc_for_sm90a_and_skips_when_fresh(sandbox, monkeypatch):
-    log = sandbox / "calls.txt"
+def test_build_invokes_nvcc_for_sm90a_and_skips_when_fresh(fake_tree, monkeypatch):
+    log = fake_tree / "calls.txt"
     # Writes its arguments to calls.txt and an empty "library" to the -o path.
-    cuda = _fake_nvcc(sandbox, f'echo "$@" >> {log}\n'
+    cuda = _fake_nvcc(fake_tree, f'echo "$@" >> {log}\n'
                                'while [ $# -gt 0 ]; do [ "$1" = -o ] && : > "$2"; shift; done\n')
     monkeypatch.setenv("CUDA_HOME", str(cuda))
     lib, _ = native.build()
-    assert lib == sandbox / "build" / native.LIB_NAME and lib.exists()
-    args = log.read_text().split()
-    assert "arch=compute_90a,code=sm_90a" in args and "-shared" in args
-    assert str(sandbox / "csrc" / "k.cu") in args
+    assert lib == fake_tree / "build" / native.LIB_NAME and lib.exists()
+    compile_line, link_line = log.read_text().splitlines()
+    args = compile_line.split()
+    assert "arch=compute_90a,code=sm_90a" in args and "-c" in args
+    assert str(fake_tree / "csrc" / "k.cu") in args
+    assert "-shared" in link_line.split()
     assert native.build() == (lib, "")  # up to date: nvcc not run again
-    assert len(log.read_text().splitlines()) == 1
-    future = time.time() + 10
-    os.utime(sandbox / "csrc" / "k.cu", (future, future))  # a newer source rebuilds
-    native.build()
     assert len(log.read_text().splitlines()) == 2
-    assert not list((sandbox / "build").glob("*.tmp"))
+    future = time.time() + 10
+    os.utime(fake_tree / "csrc" / "k.cu", (future, future))  # a newer source rebuilds
+    native.build()
+    assert len(log.read_text().splitlines()) == 4
+    assert not list((fake_tree / "build").glob("*.tmp"))
+    assert not list((fake_tree / "build").glob("*.o"))
 
 
-def test_build_failure_raises_with_nvcc_stderr(sandbox, monkeypatch):
-    cuda = _fake_nvcc(sandbox, 'echo "k.cu(3): error: identifier is undefined" >&2\nexit 2\n')
+def test_build_compiles_each_source_in_parallel_then_links(fake_tree, monkeypatch):
+    """One nvcc per source, all running at the same time, then one link of
+    their objects: each stand-in compile waits until every source's compile
+    has started, which would hang a build that ran them one after another."""
+    (fake_tree / "csrc" / "k2.cu").write_text("// second kernel\n")
+    (fake_tree / "csrc" / "common.cuh").write_text("// header\n")
+    log, started = fake_tree / "calls.txt", fake_tree / "started"
+    started.mkdir()
+    cuda = _fake_nvcc(fake_tree, f'echo "$@" >> {log}\n'
+                               f'case "$*" in *" -c "*) : > {started}/$$; n=0; '
+                               f'while [ $(ls {started} | wc -l) -lt 2 ] && [ $n -lt 100 ]; '
+                               'do sleep 0.05; n=$((n+1)); done; '
+                               f'[ $(ls {started} | wc -l) -ge 2 ] || exit 3;; esac\n'
+                               'while [ $# -gt 0 ]; do [ "$1" = -o ] && : > "$2"; shift; done\n')
+    monkeypatch.setenv("CUDA_HOME", str(cuda))
+    lib, _ = native.build()
+    lines = log.read_text().splitlines()
+    assert len(lines) == 3 and lib.exists()
+    assert sum(" -c " in ln for ln in lines[:2]) == 2
+    link = lines[2].split()
+    assert "-shared" in link and sum(a.endswith(".o") for a in link) == 2
+
+
+def test_build_failure_raises_with_nvcc_stderr(fake_tree, monkeypatch):
+    cuda = _fake_nvcc(fake_tree, 'echo "k.cu(3): error: identifier is undefined" >&2\nexit 2\n')
     monkeypatch.setenv("CUDA_HOME", str(cuda))
     with pytest.raises(RuntimeError, match="identifier is undefined") as err:
         native.build()
     assert "exit code 2" in str(err.value)
-    assert not (sandbox / "build" / native.LIB_NAME).exists()
+    assert not (fake_tree / "build" / native.LIB_NAME).exists()
 
 
-def test_missing_nvcc_raises(sandbox, monkeypatch):
+def test_missing_nvcc_raises(fake_tree, monkeypatch):
     monkeypatch.delenv("CUDA_HOME", raising=False)
-    monkeypatch.setenv("PATH", str(sandbox))
+    monkeypatch.setenv("PATH", str(fake_tree))
     monkeypatch.setattr(native.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         native.build()

@@ -1,0 +1,186 @@
+"""The port's LM (models/transformer.py), its AdamW step and its weight
+converter against the JAX package's, in f32 on CPU.
+
+Weights come from the JAX ``init_transformer`` at the tiny config of
+tests/test_models.py and are carried over with ``transformer_from_jax``, so
+both compute the same function on the same numpy tokens. Attention is causal
+``flash_attention`` in both: the JAX Pallas kernels in interpret mode, the
+port's wrappers on their plain versions. Budgets: logits within FWD_TOL[f32]
+(1e-4), parameter gradients within BWD_TOL[f32] (1e-3 abs + 5e-4 rel), the
+AdamW update within 1e-6 (the same numpy gradients go into both, so only f32
+rounding differs).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flashattn_tpu.models import transformer as jax_lm
+from flashattn_tpu_torch.models import transformer as lm
+from flashattn_tpu_torch.models.convert import _flatten, transformer_from_jax
+from flashattn_tpu_torch.ops import flash_bwd_fused, flash_fwd
+from flashattn_tpu_torch.utils.testing import BWD_TOL, FWD_TOL, Tolerance, assert_close
+
+WIDTH = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_head=32,
+             d_ff=128)
+JCFG = jax_lm.TransformerConfig(**WIDTH, dtype=jnp.float32)
+PCFG = lm.TransformerConfig(**WIDTH, dtype=torch.float32)
+TOKENS = np.random.default_rng(1).integers(0, 128, (2, 65)).astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return jax.tree_util.tree_map(np.asarray, jax_lm.init_transformer(jax.random.PRNGKey(0), JCFG))
+
+
+@pytest.fixture(scope="module")
+def jax_loss_and_grads(jax_params):
+    loss, grads = jax.value_and_grad(lambda p: jax_lm.lm_loss(p, jnp.asarray(TOKENS), JCFG))(
+        jax_params)
+    return float(loss), dict(_flatten(jax.tree_util.tree_map(np.asarray, grads)))
+
+
+def _tokens():
+    return torch.from_numpy(TOKENS).long()
+
+
+def _loss_and_grads(model, cfg=PCFG, attn_impl="fused"):
+    model.zero_grad(set_to_none=True)
+    loss = lm.lm_loss(model, _tokens(), cfg, attn_impl=attn_impl)
+    loss.backward()
+    return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def test_logits_and_loss_match_jax(jax_params, jax_loss_and_grads):
+    model = transformer_from_jax(jax_params, PCFG)
+    want = jax_lm.transformer_forward(jax_params, jnp.asarray(TOKENS), JCFG)
+    with torch.no_grad():
+        got = lm.transformer_forward(model, _tokens(), PCFG)
+        assert torch.equal(model(_tokens()), got)
+        loss = lm.lm_loss(model, _tokens(), PCFG)
+    assert got.dtype == torch.float32 and got.shape == (2, 65, 128)
+    assert_close(got, np.asarray(want), FWD_TOL[torch.float32], "logits")
+    assert abs(loss.item() - jax_loss_and_grads[0]) < 1e-5
+
+
+def test_every_gradient_matches_jax(jax_params, jax_loss_and_grads):
+    model = transformer_from_jax(jax_params, PCFG)
+    loss, grads = _loss_and_grads(model)
+    want = jax_loss_and_grads[1]
+    assert grads.keys() == want.keys()
+    for name, g in grads.items():
+        assert_close(g, want[name], BWD_TOL[torch.float32], name)
+
+
+def test_adamw_update_matches_jax(jax_params):
+    """Two steps on the same numpy gradients: parameters and both moments."""
+    rng = np.random.default_rng(7)
+    flat = dict(_flatten(jax_params))
+    params = {n: torch.from_numpy(np.array(p)) for n, p in flat.items()}
+    state = lm.adamw_init(params)
+    j_params, j_state = jax_params, jax_lm.adamw_init(jax_params)
+    for _ in range(2):
+        grads = {n: rng.standard_normal(p.shape).astype(np.float32) for n, p in flat.items()}
+        j_grads = jax.tree_util.tree_unflatten(
+            jax.tree_util.tree_structure(jax_params),
+            [grads[n] for n, _ in _flatten(jax_params)])
+        j_params, j_state = jax_lm.adamw_update(j_grads, j_state, j_params)
+        params, state = lm.adamw_update({n: torch.from_numpy(g) for n, g in grads.items()},
+                                        state, params)
+    assert state["count"] == int(j_state["count"]) == 2
+    tol = Tolerance(1e-6, 1e-6)
+    for tree, got in ((j_params, params), (j_state["mu"], state["mu"]),
+                      (j_state["nu"], state["nu"])):
+        for name, want in _flatten(jax.tree_util.tree_map(np.asarray, tree)):
+            assert got[name].dtype == torch.float32
+            assert_close(got[name], want, tol, name)
+
+
+def test_adamw_keeps_f32_moments_for_bf16_parameters():
+    p = {"w": torch.tensor([1.0, -2.0, 3.0], dtype=torch.bfloat16)}
+    state = lm.adamw_init(p)
+    assert state["mu"]["w"].dtype == torch.float32 and state["count"] == 0
+    g = torch.tensor([0.5, -0.25, 1e-3], dtype=torch.bfloat16)
+    p, state = lm.adamw_update({"w": g}, state, p, lr=0.1)
+    assert p["w"].dtype == torch.bfloat16
+    want = (torch.tensor([1.0, -2.0, 3.0]) - 0.1 * (torch.sign(g.float()) + 0.01 * torch.tensor(
+        [1.0, -2.0, 3.0]))).to(torch.bfloat16)
+    assert torch.equal(p["w"], want)
+    assert_close(state["mu"]["w"], 0.1 * g.float(), Tolerance(1e-7, 1e-6))
+
+
+def test_attn_impl_fused_and_xla_agree(jax_params):
+    """The two arms of the training step compute the same function."""
+    model = transformer_from_jax(jax_params, PCFG)
+    lf, gf = _loss_and_grads(model, attn_impl="fused")
+    lx, gx = _loss_and_grads(model, attn_impl="xla")
+    assert abs(lf - lx) < 1e-5
+    for name in gf:
+        assert_close(gf[name], gx[name], BWD_TOL[torch.float32], name)
+    with pytest.raises(ValueError, match="attn_impl"):
+        lm.lm_loss(model, _tokens(), PCFG, attn_impl="flash")
+
+
+def test_remat_same_loss_and_grads(jax_params):
+    """cfg.remat recomputes each block in the backward, never approximates."""
+    model = transformer_from_jax(jax_params, PCFG)
+    l0, g0 = _loss_and_grads(model)
+    l1, g1 = _loss_and_grads(model, cfg=dataclasses.replace(PCFG, remat=True))
+    assert abs(l0 - l1) < 1e-6
+    assert max((g0[n] - g1[n]).abs().max().item() for n in g0) < 1e-5
+
+
+def test_training_step_on_cpu_launches_no_kernel(jax_params):
+    model = transformer_from_jax(jax_params, dataclasses.replace(PCFG, dtype=torch.bfloat16))
+    params = dict(model.named_parameters())
+    state = lm.adamw_init(params)
+    before = (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches)
+    losses = []
+    for _ in range(3):
+        model.zero_grad(set_to_none=True)
+        loss = lm.lm_loss(model, _tokens(), model.cfg)
+        loss.backward()
+        lm.adamw_update({n: p.grad for n, p in params.items()}, state, params, lr=1e-2)
+        losses.append(loss.item())
+    assert losses[-1] < losses[0]
+    assert (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches) == before
+
+
+@pytest.mark.parametrize("option", ["sliding_window", "logit_softcap", "segment_ids"])
+def test_unported_options_raise(jax_params, option):
+    cfg, kw = PCFG, {}
+    if option == "segment_ids":
+        kw["segment_ids"] = torch.zeros(2, 65, dtype=torch.int32)
+    else:
+        cfg = dataclasses.replace(PCFG, **{option: 16})
+    model = transformer_from_jax(jax_params, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm.lm_loss(model, _tokens(), cfg, **kw)
+
+
+def test_init_transformer_mirrors_jax_tree(jax_params):
+    model = lm.init_transformer(PCFG, torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    flat = dict(_flatten(jax_params))
+    assert state.keys() == flat.keys()
+    for name, leaf in flat.items():
+        assert tuple(state[name].shape) == leaf.shape, name
+    assert torch.equal(model.ln_f, torch.ones(64)) and torch.equal(model.layers[1].ln2,
+                                                                   torch.ones(64))
+    assert abs(model.embed.std().item() - 0.02) < 2e-3
+    assert abs(model.layers[0].w_down.std().item() * 128 ** 0.5 - 1) < 0.1
+
+
+def test_transformer_from_jax_rejects_mismatched_tree(jax_params):
+    bad = dict(jax_params)
+    bad.pop("ln_f")
+    with pytest.raises(ValueError, match="ln_f"):
+        transformer_from_jax(bad, PCFG)
+    bad = dict(jax_params, layers=[dict(layer) for layer in jax_params["layers"]])
+    bad["layers"][1]["wq"] = bad["layers"][1]["wq"][:, :2]
+    with pytest.raises(ValueError, match="layers.1.wq"):
+        transformer_from_jax(bad, PCFG)
