@@ -5,15 +5,20 @@
 Builds the port's kernels from ``flashattn_tpu_torch/csrc/`` with nvcc (one
 nvcc per source, in parallel) and holds each against its plain PyTorch version
 at the shapes its paths give it: K1 non-causal (serving), K1 causal (which
-also stands for K2) and the backward K3 (which also stands for K4). Then it
-drives the port's two paths and checks that each went through its kernels:
+also stands for K2), the backward K3 (which also stands for K4), and K1 with
+segment ids and the two-kernel backward K5 (dK/dV) + K6 (dQ) of packed
+training. Then it drives the port's three paths and checks that each went
+through its kernels:
 
 * serving: Euler sampling over the SD1.5 U-Net at full width (random weights
   from a seed, 64x64 latent, 77-token context), fused vs exact attention;
 * training: the Llama-class LM at the width of benchmarks/bench_lm.py
   (443 M parameters, bf16, random weights from a seed, one 2049-token row),
   loss and gradient gates fused vs exact attention, then 10 AdamW steps per
-  arm.
+  arm;
+* packed training: the same LM on rows of 8 packed documents (bench_lm.py's
+  packed cell): gates at [1, 2049] tokens, then 10 fused AdamW steps at
+  [2, 4097] tokens beside 10 unpacked steps at the same shape.
 
 One line per phase; the last two lines are a JSON object of the kernels'
 numbers and ``{"ok": true, "device": ...}``. Exits non-zero, before printing
@@ -52,6 +57,12 @@ LM_WARMUP = 2
 # bf16 noise floor (each arm against an f32 copy of the model) is measured
 # and printed in every run: 2.07e-2 on the H100, so the limit sits 1.5x above.
 GRAD_REL_L2_LIMIT = 3e-2
+# Packed training (bench_lm.py's packed cell): the gates run at [1, 2049]
+# tokens in 8 documents, the steps at [2, 4097] with 8 documents per row. The
+# packed bf16 floor measured 2.027e-2 on the H100 (fused vs the f32 model),
+# above 2e-2, so the limit is 1.5x that floor.
+PACKED_GRAD_REL_L2_LIMIT = 3.04e-2
+PACKED_SHAPE = (2, 4096)
 
 
 def log(phase: str, msg: str) -> None:
@@ -121,14 +132,18 @@ def phase_build() -> None:
     log("build", f"{sources} built from {native.CSRC.relative_to(native.CSRC.parent.parent)} "
                  f"into {lib.name} in {time.perf_counter() - t0:.2f} s")
     # ptxas -v: registers and spills of every kernel instantiation.
+    kernel_of = {("fwd", "0"): "K1", ("fwd", "1"): "K1 segments", ("dkv", "1"): "K3",
+                 ("dkv", "0"): "K5", ("dq", ""): "K6"}
     entries = re.split(r"Compiling entry function", out)[1:]
     for entry in entries:
-        name = re.search(r"(fwd|bwd)_kernel\w*?ILi(\d+)E", entry)
+        name = re.search(r"(fwd|dkv|dq)_kernelILi(\d+)E(?:Lb(\d)E)?", entry)
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
         if name and regs and spill:
-            log("build", f"{name.group(1)}_kernel<{name.group(2)}>: {regs.group(1)} registers, "
-                         f"{spill.group(1)} B spill stores, {spill.group(2)} B spill loads")
+            kernel = kernel_of[(name.group(1), name.group(3) or "")]
+            log("build", f"{kernel} {name.group(1)}_kernel<{name.group(2)}>: {regs.group(1)} "
+                         f"registers, {spill.group(1)} B spill stores, {spill.group(2)} B "
+                         "spill loads")
 
 
 def _bnhd(x):
@@ -270,6 +285,145 @@ def phase_bwd_check() -> dict:
     return res
 
 
+def packed_ids(B: int, n_tokens: int, docs: int = 8) -> torch.Tensor:
+    """benchmarks/bench_lm.py:66-69: ``docs`` equal documents per row of
+    ``n_tokens`` tokens (the last one shorter), int32 ``[B, n_tokens]``."""
+    ids = torch.arange(docs, dtype=torch.int32, device=DEVICE).repeat_interleave(
+        (n_tokens + docs - 1) // docs)[:n_tokens]
+    return ids[None].expand(B, n_tokens).contiguous()
+
+
+def random_ids(seed: int, B: int, N: int, n_segs: int = 4) -> torch.Tensor:
+    """benchmarks/spot_segments.py:34-36: a document boundary after each token
+    with probability ``n_segs / N``, int32 ``[B, N]``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    bounds = torch.rand((B, N), generator=gen, device=DEVICE) < n_segs / N
+    return torch.cumsum(bounds.int(), dim=1, dtype=torch.int32)
+
+
+# (name, B, Hq, Hkv, Nq, Nk, D, causal, ids): bench_lm's packed cell, random
+# boundaries at an unaligned N (causal and not), GQA, (q_ids, kv_ids) with
+# Nq != Nk, and the dead rows of tests/test_segments.py:116-141 (query rows
+# of a segment that no key carries).
+SEG_CASES = [("packed", 2, 16, 8, 4096, 4096, 128, True, "packed"),
+             ("N1537", 2, 8, 8, 1537, 1537, 64, True, "random"),
+             ("N1537", 2, 8, 8, 1537, 1537, 64, False, "random"),
+             ("GQA-16/4", 1, 16, 4, 1024, 1024, 128, True, "random"),
+             ("Nq777-Nk1300", 2, 8, 8, 777, 1300, 64, False, "tuple"),
+             ("dead-rows", 1, 8, 8, 1024, 1024, 128, False, "dead")]
+
+
+def _seg_case_ids(kind: str, seed: int, B: int, Nq: int, Nk: int):
+    if kind == "packed":
+        ids = packed_ids(B, Nq + 1)[:, :Nq]  # the LM's forward sees tokens[:, :-1]
+        return ids, ids
+    if kind == "random":
+        ids = random_ids(seed, B, Nq)
+        return ids, ids
+    if kind == "tuple":
+        return random_ids(seed, B, Nq), random_ids(seed + 1, B, Nk)
+    seg_q = torch.zeros((B, Nq), dtype=torch.int32, device=DEVICE)
+    seg_q[:, Nq // 2:] = 7
+    return seg_q, torch.zeros((B, Nk), dtype=torch.int32, device=DEVICE)
+
+
+def phase_seg_check() -> dict:
+    """K1 with segments, K5 and K6 against their plain versions on f32 copies
+    of the same bf16 inputs (K5/K6 with the LSE and Delta of the f32
+    forward): O within FWD_TOL[bf16], LSE within 1e-3 on live rows, dQ/dK/dV
+    within BWD_TOL[bf16]; the dead rows' O and dQ exactly 0. Times each kernel
+    at bench_lm's packed shape beside its plain version, and prints, ungated,
+    K1 with segments against K1 causal there and K5 + K6 against K3 at the
+    unpacked "lm" shape."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+    from flashattn_tpu_torch.utils.testing import (
+        BWD_TOL, FWD_TOL, Tolerance, check_close, grad_gate, make_qkv)
+
+    o_tol, lse_tol, g_tol = FWD_TOL[torch.bfloat16], Tolerance(LSE_ATOL, 0.0), BWD_TOL[torch.bfloat16]
+    res = {}
+    for i, (name, B, Hq, Hkv, Nq, Nk, D, causal, kind) in enumerate(SEG_CASES):
+        q, k, v = (_bnhd(x) for x in make_qkv(500 + i, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv,
+                                               dtype=torch.bfloat16, device=DEVICE))
+        do = _bnhd(make_qkv(600 + i, B, Hq, Nq, D, dtype=torch.bfloat16, device=DEVICE)[0])
+        kw = dict(scale=D ** -0.5, causal=causal, segment_ids=_seg_case_ids(kind, 700 + i, B, Nq, Nk))
+        o, lse = flash_fwd.fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        f32 = [x.float() for x in (q, k, v, do)]
+        o_want, lse_want = flash_fwd.fwd_reference(*f32[:3], **kw)
+        live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
+        ok_o, msg_o = check_close(o, o_want, o_tol, "O")
+        ok_l, msg_l = check_close(lse[live], lse_want[live], lse_tol, "LSE")
+        err1 = (o.float() - o_want).abs().max().item()
+        delta = (f32[3] * o_want.float()).sum(-1)
+        args = (q, k, v, do, lse_want, delta)
+        dk, dv = flash_bwd.dkv(*args, **kw)
+        dq = flash_bwd.dq(*args, **kw)
+        torch.cuda.synchronize()
+        ok5, why5, err5, _ = grad_gate((dk, dv), flash_bwd.dkv_reference(
+            *f32, lse_want, delta, **kw), g_tol, names=("dk", "dv"))
+        ok6, why6, err6, _ = grad_gate((dq,), (flash_bwd.dq_reference(
+            *f32, lse_want, delta, **kw),), g_tol, names=("dq",))
+        dead = ~live
+        dead_zero = bool((o[dead] == 0).all() and (dq[dead] == 0).all())
+        log("seg", f"{name} B{B} Hq{Hq} Hkv{Hkv} Nq{Nq} Nk{Nk} D{D} "
+                   f"{'causal' if causal else 'non-causal'} {kind} ids: K1 O max_abs_err "
+                   f"{err1:.3e} (budget {O_TOL_NAME}), LSE live rows max_abs_err "
+                   f"{(lse[live] - lse_want[live]).abs().max().item():.3e} (budget {LSE_ATOL}); "
+                   f"K5 dK/dV {err5:.3e}, K6 dQ {err6:.3e} (budget BWD_TOL[bf16] atol "
+                   f"{g_tol.atol} rtol {g_tol.rtol}); dead rows {int(dead.sum())}, their O "
+                   f"and dQ exactly 0: {dead_zero}")
+        if not (ok_o and ok_l):
+            fail(f"K1 with segments disagrees with fwd_reference at {name}: {msg_o}; {msg_l}")
+        if not (ok5 and ok6):
+            fail(f"K5/K6 disagree with their plain versions at {name}: {why5}; {why6}")
+        if not dead_zero:
+            fail(f"dead rows at {name}: O or dQ not exactly 0")
+        if kind == "dead" and not dead.any():
+            fail("the dead-row case has no dead row")
+        if name == "packed":
+            res = {"k1": {"max_abs_err": err1}, "k5": {"max_abs_err": err5},
+                   "k6": {"max_abs_err": err6}}
+            packed = (q, k, v, do, lse_want, delta, kw)
+
+    q, k, v, do, lse_want, delta, kw = packed
+    args = (q, k, v, do, lse_want, delta)
+    B, Hq, Hkv, N, _, D = SEG_CASES[0][1:7]
+    timed = {"k1": (lambda: flash_fwd.fwd(q, k, v, **kw),
+                    lambda: flash_fwd.fwd_reference(q, k, v, **kw)),
+             "k5": (lambda: flash_bwd.dkv(*args, **kw),
+                    lambda: flash_bwd.dkv_reference(*args, **kw)),
+             "k6": (lambda: flash_bwd.dq(*args, **kw),
+                    lambda: flash_bwd.dq_reference(*args, **kw))}
+    for key, (kernel, plain) in timed.items():
+        res[key]["ms"] = cuda_ms(kernel)
+        res[key]["plain_ms"] = cuda_ms(plain, reps=3)
+    causal_ms = cuda_ms(lambda: flash_fwd.fwd(q, k, v, scale=kw["scale"], causal=True))
+    log("seg", f"packed shape B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal, 8 documents per row, bf16: "
+               f"K1 with segments {res['k1']['ms']:.4f} ms (plain {res['k1']['plain_ms']:.4f}), "
+               f"K5 {res['k5']['ms']:.4f} ms (plain {res['k5']['plain_ms']:.4f}), "
+               f"K6 {res['k6']['ms']:.4f} ms (plain {res['k6']['plain_ms']:.4f}) "
+               "(median CUDA-event time)")
+    log("seg", f"not gated: K1 causal without segments at the same shape {causal_ms:.4f} ms; "
+               f"K1 with segments / K1 causal = {res['k1']['ms'] / causal_ms:.3f}")
+
+    B, Hq, Hkv, N, _, D = CAUSAL_CASES[0][1:]
+    q, k, v = (_bnhd(x) for x in make_qkv(800, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16,
+                                           device=DEVICE))
+    do = _bnhd(make_qkv(801, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
+    o32, lse = flash_fwd.fwd_reference(q.float(), k.float(), v.float(), scale=D ** -0.5,
+                                       causal=True)
+    args = (q, k, v, do, lse, (do.float() * o32).sum(-1))
+    kw = dict(scale=D ** -0.5, causal=True)
+    k3_ms = cuda_ms(lambda: flash_bwd_fused.bwd(*args, **kw))
+    k5_ms = cuda_ms(lambda: flash_bwd.dkv(*args, **kw))
+    k6_ms = cuda_ms(lambda: flash_bwd.dq(*args, **kw))
+    log("seg", f"not gated: lm shape B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal, no segments: K3 "
+               f"{k3_ms:.4f} ms, K5 + K6 {k5_ms:.4f} + {k6_ms:.4f} = {k5_ms + k6_ms:.4f} ms "
+               f"({(k5_ms + k6_ms) / k3_ms:.3f}x K3: the deterministic two-pass dQ)")
+    return res
+
+
 def phase_slice() -> int:
     from flashattn_tpu_torch.models.diffusion import euler_sample
     from flashattn_tpu_torch.models.unet import UNetConfig, init_unet, unet_forward
@@ -341,20 +495,20 @@ def _rel_l2(a: dict, b: dict) -> float:
     return math.sqrt(num / den)
 
 
-def phase_train() -> tuple[int, int]:
-    from flashattn_tpu_torch.models.transformer import (
-        Transformer, TransformerConfig, adamw_init, adamw_update, init_transformer, lm_loss)
-    from flashattn_tpu_torch.ops import flash_bwd_fused, flash_fwd
+def _lm_gates(cfg, tokens, segment_ids, grad_limit: float, phase: str) -> None:
+    """Loss and gradient gates of the LM, fused against xla on the same
+    weights and tokens: the loss within bench_lm.py's rule, the gradients
+    within ``grad_limit`` relative L2, with the bf16 noise floor (each arm
+    against an f32 copy of the model) printed beside it."""
+    from flashattn_tpu_torch.models.transformer import Transformer, init_transformer, lm_loss
 
-    cfg = TransformerConfig(**LM_WIDTH)  # bf16
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     model = init_transformer(cfg, gen, device=DEVICE)
-    tokens = torch.randint(0, cfg.vocab_size, (1, LM_SEQ + 1), generator=gen, device=DEVICE)
     n_params = sum(p.numel() for p in model.parameters())
 
     def loss_and_grads(m, arm):
         m.zero_grad(set_to_none=True)
-        loss = lm_loss(m, tokens, m.cfg, attn_impl=arm)
+        loss = lm_loss(m, tokens, m.cfg, attn_impl=arm, segment_ids=segment_ids)
         loss.backward()
         return loss.item(), {n: p.grad for n, p in m.named_parameters()}
 
@@ -367,60 +521,122 @@ def phase_train() -> tuple[int, int]:
     for arm, loss, g in (("fused", lf, gf), ("xla", lx, gx)):
         if not math.isfinite(loss) or not all(torch.isfinite(t).all() for t in g.values()):
             fail(f"LM {arm}: loss {loss} or its gradients are not finite")
+    docs = "" if segment_ids is None else f" in {int(segment_ids.max()) + 1} documents"
     loss_limit = max(5e-2, 1e-2 * abs(lx))
-    log("train", f"LM ({n_params / 1e6:.1f} M params, {cfg.n_layers} layers, d_model "
-                 f"{cfg.d_model}, Hq{cfg.n_heads} Hkv{cfg.n_kv_heads} D{cfg.d_head}, bf16) on "
-                 f"[1, {LM_SEQ + 1}] tokens: loss fused {lf:.5f}, xla {lx:.5f}, f32 model "
-                 f"{l32:.5f}; |fused - xla| {abs(lf - lx):.2e} (limit {loss_limit:.2e}, "
-                 f"bench_lm.py's rule)")
+    log(phase, f"LM ({n_params / 1e6:.1f} M params, {cfg.n_layers} layers, d_model "
+               f"{cfg.d_model}, Hq{cfg.n_heads} Hkv{cfg.n_kv_heads} D{cfg.d_head}, bf16) on "
+               f"{list(tokens.shape)} tokens{docs}: loss fused {lf:.5f}, xla {lx:.5f}, f32 model "
+               f"{l32:.5f}; |fused - xla| {abs(lf - lx):.2e} (limit {loss_limit:.2e}, "
+               f"bench_lm.py's rule)")
     if not abs(lf - lx) < loss_limit:
-        fail(f"LM loss gate: fused {lf} vs xla {lx}")
+        fail(f"LM loss gate ({phase}): fused {lf} vs xla {lx}")
     floor = max(_rel_l2(gf, g32), _rel_l2(gx, g32))
     rel = _rel_l2(gf, gx)
-    log("train", f"gradients: fused vs xla relative L2 {rel:.3e} (limit {GRAD_REL_L2_LIMIT}); "
-                 f"bf16 noise floor {floor:.3e} (fused vs f32 model {_rel_l2(gf, g32):.3e}, "
-                 f"xla vs f32 model {_rel_l2(gx, g32):.3e})")
-    if not rel <= GRAD_REL_L2_LIMIT:
-        fail(f"LM gradient gate: fused vs xla relative L2 {rel:.3e} > {GRAD_REL_L2_LIMIT}")
+    log(phase, f"gradients: fused vs xla relative L2 {rel:.3e} (limit {grad_limit}); "
+               f"bf16 noise floor {floor:.3e} (fused vs f32 model {_rel_l2(gf, g32):.3e}, "
+               f"xla vs f32 model {_rel_l2(gx, g32):.3e})")
+    if not rel <= grad_limit:
+        fail(f"LM gradient gate ({phase}): fused vs xla relative L2 {rel:.3e} > {grad_limit}")
     del model, gf, gx, g32
     torch.cuda.empty_cache()
 
-    counts = None
-    for arm in ("fused", "xla"):
-        model = init_transformer(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
-        params = dict(model.named_parameters())
-        opt = adamw_init(params)
+
+def _lm_steps(cfg, tokens, arm: str, segment_ids=None, *, phase: str, label: str) -> float:
+    """LM_STEPS AdamW steps from the seed-0 weights; logs ms/step (median
+    after LM_WARMUP warm-up steps), tokens/s, peak GB and the losses, fails
+    unless the losses are finite and falling, and returns s/step."""
+    from flashattn_tpu_torch.models.transformer import (
+        adamw_init, adamw_update, init_transformer, lm_loss)
+
+    model = init_transformer(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    params = dict(model.named_parameters())
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(LM_STEPS):
+        t0 = time.perf_counter()
+        model.zero_grad(set_to_none=True)
+        loss = lm_loss(model, tokens, cfg, attn_impl=arm, segment_ids=segment_ids)
+        loss.backward()
+        adamw_update({n: p.grad for n, p in params.items()}, opt, params)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        if arm == "fused":
-            flash_fwd.fwd.launches = flash_bwd_fused.bwd.launches = 0
-        losses, secs = [], []
-        for _ in range(LM_STEPS):
-            t0 = time.perf_counter()
-            model.zero_grad(set_to_none=True)
-            loss = lm_loss(model, tokens, cfg, attn_impl=arm)
-            loss.backward()
-            adamw_update({n: p.grad for n, p in params.items()}, opt, params)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            losses.append(loss.item())
-        if arm == "fused":
-            counts = (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches)
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        step_s = statistics.median(secs[LM_WARMUP:])
-        log("train", f"{arm}: {LM_STEPS} AdamW steps, {step_s * 1e3:.2f} ms/step "
-                     f"({', '.join(f'{s * 1e3:.1f}' for s in secs)}), {LM_SEQ / step_s:.0f} "
-                     f"tokens/s (median after {LM_WARMUP} warm-up steps), peak "
-                     f"{peak:.2f} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
-        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-            fail(f"LM {arm} training: losses {losses} not finite or not falling")
-        del model, params, opt
-        torch.cuda.empty_cache()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = statistics.median(secs[LM_WARMUP:])
+    n_tokens = tokens.shape[0] * (tokens.shape[1] - 1)
+    log(phase, f"{label}: {LM_STEPS} AdamW steps on {list(tokens.shape)} tokens, "
+               f"{step_s * 1e3:.2f} ms/step ({', '.join(f'{s * 1e3:.1f}' for s in secs)}), "
+               f"{n_tokens / step_s:.0f} tokens/s (median after {LM_WARMUP} warm-up steps), "
+               f"peak {peak:.2f} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"LM {label} training: losses {losses} not finite or not falling")
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return step_s
+
+
+def _reset_launches() -> None:
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+
+    flash_fwd.fwd.launches = flash_bwd_fused.bwd.launches = 0
+    flash_bwd.dkv.launches = flash_bwd.dq.launches = 0
+
+
+def _launches() -> dict:
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+
+    return {"K1": flash_fwd.fwd.launches, "K3": flash_bwd_fused.bwd.launches,
+            "K5": flash_bwd.dkv.launches, "K6": flash_bwd.dq.launches}
+
+
+def phase_train() -> tuple[int, int]:
+    from flashattn_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(**LM_WIDTH)  # bf16
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_SEQ + 1), generator=gen, device=DEVICE)
+    _lm_gates(cfg, tokens, None, GRAD_REL_L2_LIMIT, "train")
+    _reset_launches()
+    _lm_steps(cfg, tokens, "fused", phase="train", label="fused")
+    counts = _launches()
+    _lm_steps(cfg, tokens, "xla", phase="train", label="xla")
     expected = cfg.n_layers * LM_STEPS
-    log("train", f"launches during the fused steps: K1 {counts[0]}, K3 {counts[1]} (expected "
-                 f"{cfg.n_layers} layers x {LM_STEPS} steps = {expected} each)")
-    if counts != (expected, expected):
-        fail(f"LM steps launched K1 {counts[0]} and K3 {counts[1]} times, expected {expected}")
+    log("train", f"launches during the fused steps: {counts} (expected K1 = K3 = "
+                 f"{cfg.n_layers} layers x {LM_STEPS} steps = {expected}, K5 = K6 = 0)")
+    if counts != {"K1": expected, "K3": expected, "K5": 0, "K6": 0}:
+        fail(f"LM steps launched {counts}, expected K1 = K3 = {expected} and no K5/K6")
+    return counts["K1"], counts["K3"]
+
+
+def phase_packed_train() -> dict:
+    """Packed-sequence training (bench_lm.py's packed cell): loss and
+    gradient gates at [1, 2049] tokens in 8 documents, fused vs xla; then
+    LM_STEPS fused AdamW steps at [2, 4097] tokens, 8 documents per row, with
+    exact launch counts, and the unpacked fused step at the same shape (the
+    segment-masking overhead column). The xla arm is skipped at N4096, as
+    bench_lm.py:130-134 skips it (its f32 scores would take ~34 GB)."""
+    from flashattn_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(**LM_WIDTH)  # bf16
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_SEQ + 1), generator=gen, device=DEVICE)
+    _lm_gates(cfg, tokens, packed_ids(1, LM_SEQ + 1), PACKED_GRAD_REL_L2_LIMIT, "packed")
+
+    B, N = PACKED_SHAPE
+    tokens = torch.randint(0, cfg.vocab_size, (B, N + 1), generator=gen, device=DEVICE)
+    _reset_launches()
+    packed_s = _lm_steps(cfg, tokens, "fused", packed_ids(B, N + 1), phase="packed",
+                         label="fused, 8 documents per row")
+    counts = _launches()
+    plain_s = _lm_steps(cfg, tokens, "fused", phase="packed", label="fused, unpacked")
+    expected = cfg.n_layers * LM_STEPS
+    log("packed", f"packed step / unpacked step at [{B}, {N + 1}]: {packed_s / plain_s:.3f}")
+    log("packed", f"launches during the packed fused steps: {counts} (expected K1 = K5 = K6 = "
+                  f"{cfg.n_layers} layers x {LM_STEPS} steps = {expected}, K3 = 0)")
+    if counts != {"K1": expected, "K3": 0, "K5": expected, "K6": expected}:
+        fail(f"packed LM steps launched {counts}, expected K1 = K5 = K6 = {expected} and no K3")
     return counts
 
 
@@ -434,19 +650,30 @@ def main() -> None:
     k1 = phase_kernel_check()
     k1c = phase_causal_check()
     k3 = phase_bwd_check()
+    seg = phase_seg_check()
     launches = phase_slice()
     k1c_launches, k3_launches = phase_train()
-    fwd_src, bwd_src = (f"flashattn_tpu_torch/csrc/flash_{d}.cu" for d in ("fwd", "bwd"))
+    packed = phase_packed_train()
+    fwd_src, bwd_src, split_src = (f"flashattn_tpu_torch/csrc/flash_{d}.cu"
+                                   for d in ("fwd", "bwd", "bwd_split"))
     print(json.dumps({"kernels": [
         {"name": "flash_fwd (K1)", "route": "cuda", "source": fwd_src,
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115", "launches": launches, **k1},
         {"name": "flash_fwd causal (K1 causal, K2)", "route": "cuda", "source": fwd_src,
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:516",
          "launches": k1c_launches, **k1c},
+        {"name": "flash_fwd segments (K1 causal + segment ids)", "route": "cuda",
+         "source": fwd_src, "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+         "launches": packed["K1"], **seg["k1"]},
         {"name": "flash_bwd (K3, K4)", "route": "cuda", "source": bwd_src,
          "replaces": "flashattn_tpu/ops/flash_bwd_fused.py:110, "
                      "flashattn_tpu/ops/flash_bwd_fused.py:336",
-         "launches": k3_launches, **k3}]}), flush=True)
+         "launches": k3_launches, **k3},
+        {"name": "flash_bwd_split dkv (K5)", "route": "cuda", "source": split_src,
+         "replaces": "flashattn_tpu/ops/flash_bwd.py:139", "launches": packed["K5"], **seg["k5"]},
+        {"name": "flash_bwd_split dq (K6)", "route": "cuda", "source": split_src,
+         "replaces": "flashattn_tpu/ops/flash_bwd.py:234", "launches": packed["K6"],
+         **seg["k6"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

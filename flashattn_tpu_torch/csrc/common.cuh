@@ -1,6 +1,6 @@
 // Device helpers shared by the port's attention kernels (sm_90a):
-// mma.sync m16n8k16 bf16 with f32 accumulation, ldmatrix, and 16-byte tile
-// loads into padded shared memory.
+// mma.sync m16n8k16 bf16 with f32 accumulation, ldmatrix, 16-byte tile
+// loads into padded shared memory, and segment-id ranges for tile skipping.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
@@ -70,6 +70,31 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat
     }
     *reinterpret_cast<uint4*>(smem + r * STRIDE + c * 8) = val;
   }
+}
+
+// Packed-sequence tile skipping (flashattn_tpu/ops/flash.py::_seg_block_flags):
+// the (min, max) of the segment ids ids[0, n), identical in every lane of the
+// calling warp. Every warp of a CTA computes it from the same ids, so a skip
+// decided on it is uniform across the CTA. n == 0 gives an empty range.
+__device__ __forceinline__ int2 warp_id_range(const int* ids, int n) {
+  int lo = 0x7fffffff;
+  int hi = -0x7fffffff - 1;
+  for (int i = threadIdx.x % 32; i < n; i += 32) {
+    lo = min(lo, ids[i]);
+    hi = max(hi, ids[i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  return make_int2(lo, hi);
+}
+
+// Two tiles can hold a matching pair only if their id ranges intersect; a
+// disjoint pair of ranges proves that none does (exact for any ids).
+__device__ __forceinline__ bool ranges_meet(int2 a, int2 b) {
+  return a.x <= b.y && b.x <= a.y;
 }
 
 // Raise a kernel's dynamic shared-memory limit when it needs more than 48 KB.

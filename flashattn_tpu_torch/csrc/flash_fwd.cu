@@ -21,9 +21,9 @@
 //     multiple of 16: D=40 runs as 48) and only D columns are written out.
 //   * K/V tail rows are never read past kv_valid_len; their scores are set to
 //     the finite mask value (ops/oracle.py DEFAULT_MASK_VALUE) before the max.
-//     A ragged Q tail is masked on store. A row that sees no valid key (only
-//     when kv_valid_len == 0) stores zeros and lse = ln2 * mask, the package's
-//     dead-row convention.
+//     A ragged Q tail is masked on store. A row that sees no valid key
+//     (kv_valid_len == 0, or no key of its segment) stores zeros and
+//     lse = ln2 * mask, the package's dead-row convention.
 //   * Causal (kv_pos <= q_pos, top-left aligned with zero offsets, also when
 //     Nq != Nk): the CTA of Q tile m0 visits only the KV tiles whose first
 //     column is <= its last row -- the tile skipping that K2 gets from its
@@ -33,6 +33,15 @@
 //   * Q/K/V/O are addressed through (batch, head, seq) strides in elements
 //     with a unit head-dim stride, so the U-Net's [B, N, H, D] projections
 //     reach the kernel as transposed views without a copy.
+//   * Segments (packed sequences): with int32 ids seg_q [B, Nq] and seg_kv
+//     [B, Nk], pair (i, j) attends iff seg_q[i] == seg_kv[j], AND-composed
+//     with causal and the KV tail. The ids are read only below Nq and
+//     kv_valid_len, so the TPU's -1/-2 padding sentinels have no counterpart.
+//     A KV tile whose id range is disjoint from the Q tile's is skipped
+//     before it is loaded (flash.py::_seg_block_flags, computed per tile in
+//     the kernel), so packed attention costs the sum of the per-document
+//     areas; the pairs of a visited tile are masked per element. A row that
+//     matches no key is a dead row like a kv_valid_len == 0 row.
 //
 // What bounds it at the slice's shape (B1 H8 N4096 D40): with D=40 padded to
 // 48 the two matrix products do little work per score, so tensor-core
@@ -60,15 +69,20 @@ struct Params {
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
   float* lse;  // [B, Hq, Nq] contiguous
+  const int* seg_q;   // [B, Nq] segment ids (row stride seg_q_sb), or null
+  const int* seg_kv;  // [B, Nk] segment ids (row stride seg_kv_sb), or null
   int64_t q_sb, q_sh, q_sn;
   int64_t k_sb, k_sh, k_sn;
   int64_t v_sb, v_sh, v_sn;
   int64_t o_sb, o_sh, o_sn;
+  int64_t seg_q_sb, seg_kv_sb;
   int hq, rep, nq, d, kv_valid_len, causal;
   float scale_log2;  // softmax scale * log2(e)
 };
 
-template <int DP>
+// SEG: segment ids (p.seg_q / p.seg_kv not null). A template parameter, so
+// that the instantiations without segments carry no trace of them.
+template <int DP, bool SEG>
 __global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
   constexpr int STRIDE = DP + 8;  // shared row stride (see load_tile)
   constexpr int KS_QK = DP / 16;       // k-steps of Q K^T
@@ -80,6 +94,7 @@ __global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
   __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* s_k = s_q + BLOCK_M * STRIDE;
   __nv_bfloat16* s_v = s_k + BLOCK_N * STRIDE;
+  int* s_seg = reinterpret_cast<int*>(s_v + BLOCK_N * STRIDE);  // the KV tile's segment ids
 
   // Causal: heavy (late) Q tiles first, so the tail of the grid is short.
   const int m_tile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
@@ -117,11 +132,27 @@ __global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
   const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int v_col = (lane >> 4) * 8;
 
+  // Segments: the ids of rows g and g + 8 and the id range of the Q tile.
+  const int row0 = m0 + warp * 16 + g;
+  const int* kv_ids = SEG ? p.seg_kv + b * p.seg_kv_sb : nullptr;
+  int q_seg[2] = {0, 0};
+  int2 q_range = make_int2(0, 0);
+  if (SEG) {
+    const int* q_ids = p.seg_q + b * p.seg_q_sb;
+    q_range = warp_id_range(q_ids + m0, min(BLOCK_M, p.nq - m0));
+    q_seg[0] = row0 < p.nq ? q_ids[row0] : 0;
+    q_seg[1] = row0 + 8 < p.nq ? q_ids[row0 + 8] : 0;
+  }
+
   for (int j = 0; j < n_tiles; ++j) {
     const int n0 = j * BLOCK_N;
+    const int kv_rows = min(BLOCK_N, nkv - n0);
+    // A tile of other documents only: skip it (uniform across the CTA).
+    if (SEG && !ranges_meet(q_range, warp_id_range(kv_ids + n0, kv_rows))) continue;
     __syncthreads();  // the previous tile is consumed (and s_q is complete)
-    load_tile<DP, BLOCK_N, NUM_THREADS>(s_k, k_g + n0 * p.k_sn, p.k_sn, min(BLOCK_N, nkv - n0), p.d);
-    load_tile<DP, BLOCK_N, NUM_THREADS>(s_v, v_g + n0 * p.v_sn, p.v_sn, min(BLOCK_N, nkv - n0), p.d);
+    load_tile<DP, BLOCK_N, NUM_THREADS>(s_k, k_g + n0 * p.k_sn, p.k_sn, kv_rows, p.d);
+    load_tile<DP, BLOCK_N, NUM_THREADS>(s_v, v_g + n0 * p.v_sn, p.v_sn, kv_rows, p.d);
+    if (SEG && threadIdx.x < kv_rows) s_seg[threadIdx.x] = kv_ids[n0 + threadIdx.x];
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 columns.
@@ -143,11 +174,10 @@ __global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
       }
     }
 
-    // Scale into the log2 domain in f32; mask the KV tail and, on diagonal
-    // tiles, the causal upper triangle (col > row).
+    // Scale into the log2 domain in f32; mask the KV tail, on diagonal
+    // tiles the causal upper triangle (col > row), and pairs of two segments.
     const bool tail = n0 + BLOCK_N > nkv;
     const bool diag = p.causal && n0 + BLOCK_N - 1 > m0;
-    const int row0 = m0 + warp * 16 + g;
     float mx[2] = {m_i[0], m_i[1]};
 #pragma unroll
     for (int nt = 0; nt < NT_S; ++nt) {
@@ -155,7 +185,10 @@ __global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
       for (int e = 0; e < 4; ++e) {
         float x = s[nt][e] * p.scale_log2;
         const int col = n0 + nt * 8 + 2 * t + (e & 1);
-        if ((tail && col >= nkv) || (diag && col > row0 + 8 * (e >> 1))) x = MASK_VALUE;
+        if ((tail && col >= nkv) || (diag && col > row0 + 8 * (e >> 1)) ||
+            (SEG && s_seg[col - n0] != q_seg[e >> 1])) {
+          x = MASK_VALUE;
+        }
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -232,14 +265,21 @@ __global__ void __launch_bounds__(NUM_THREADS) fwd_kernel(const Params p) {
   }
 }
 
-template <int DP>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(BLOCK_M + 2 * BLOCK_N) * (DP + 8) * sizeof(__nv_bfloat16);
-  const cudaError_t e = allow_smem(fwd_kernel<DP>, smem);
+template <int DP, bool SEG>
+cudaError_t launch_kernel(const Params& p, int batch, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(BLOCK_M + 2 * BLOCK_N) * (DP + 8) * sizeof(__nv_bfloat16) +
+                      (SEG ? BLOCK_N * sizeof(int) : 0);
+  const cudaError_t e = allow_smem(fwd_kernel<DP, SEG>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.nq + BLOCK_M - 1) / BLOCK_M, p.hq, batch);
-  fwd_kernel<DP><<<grid, NUM_THREADS, smem, stream>>>(p);
+  fwd_kernel<DP, SEG><<<grid, NUM_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
+  return p.seg_q != nullptr ? launch_kernel<DP, true>(p, batch, stream)
+                            : launch_kernel<DP, false>(p, batch, stream);
 }
 
 }  // namespace
@@ -248,17 +288,20 @@ extern "C" {
 
 // O and LSE for q [B, Hq, Nq, D], k/v [B, Hkv, Nk, D] (bf16, unit stride on D,
 // other strides in elements); o has q's shape, lse is [B, Hq, Nq] f32
-// contiguous. Requires 8 <= D <= 256 with D % 8 == 0, Hq % Hkv == 0,
-// 0 <= kv_valid_len <= Nk, Nq >= 1. causal != 0 masks kv_pos > q_pos (zero
-// offsets). Returns a cudaError_t (0 on success).
-int fa_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+// contiguous. seg_q [B, Nq] / seg_kv [B, Nk] are int32 segment ids with unit
+// stride along the sequence (both null: no segments). Requires 8 <= D <= 256
+// with D % 8 == 0, Hq % Hkv == 0, 0 <= kv_valid_len <= Nk, Nq >= 1.
+// causal != 0 masks kv_pos > q_pos (zero offsets). Returns a cudaError_t (0
+// on success).
+int fa_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
+                const void* seg_q, const void* seg_kv, int batch,
                 int hq, int hkv, int nq, int d, int kv_valid_len, int causal, float scale,
                 int64_t q_sb,
                 int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn,
                 int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh,
-                int64_t o_sn, void* stream) {
+                int64_t o_sn, int64_t seg_q_sb, int64_t seg_kv_sb, void* stream) {
   if (d < 8 || d > 256 || d % 8 != 0 || hkv <= 0 || hq % hkv != 0 || nq <= 0 ||
-      kv_valid_len < 0) {
+      kv_valid_len < 0 || (seg_q == nullptr) != (seg_kv == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -267,10 +310,13 @@ int fa_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = static_cast<float*>(lse);
+  p.seg_q = static_cast<const int*>(seg_q);
+  p.seg_kv = static_cast<const int*>(seg_kv);
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_sn = q_sn;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_sn = k_sn;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_sn = v_sn;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
+  p.seg_q_sb = seg_q_sb; p.seg_kv_sb = seg_kv_sb;
   p.hq = hq;
   p.rep = hq / hkv;
   p.nq = nq;

@@ -2,17 +2,19 @@
 attention engine: the single-device training path.
 
 Port of flashattn_tpu/models/transformer.py: :func:`transformer_forward`,
-:func:`lm_loss` and the AdamW update. Activations stay ``[B, N, H, D]`` so
-attention runs in its BNHD layout with no rearrange: causal
-:func:`flash_attention` (kernels K1 forward, K3 backward on the card) or, with
+:func:`lm_loss` (also on packed batches, with ``segment_ids``),
+:func:`segment_positions` and the AdamW update. Activations stay
+``[B, N, H, D]`` so attention runs in its BNHD layout with no rearrange:
+causal :func:`flash_attention` (kernels K1 forward and K3 backward on the
+card; K1 with segments and K5 + K6 when packed) or, with
 ``attn_impl="xla"``, the exact f32 oracle (the baseline arm).
 
 The parameters keep the JAX pytree's names and shapes -- ``embed``, ``ln_f``,
 ``layers.{i}.{ln1,wq,wk,wv,wo,ln2,w_gate,w_up,w_down}``, ``wq`` as
 ``[d_model, H, d_head]`` -- and the forward keeps the JAX einsums, so
 ``models.convert.transformer_from_jax`` is a plain copy. The KV-cache decode
-path, packed (segment-id) and windowed or soft-capped training and the
-sharded step are not ported yet (ROADMAP queue 1, item 7).
+path, windowed or soft-capped training and the sharded step are not ported
+yet (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -100,8 +102,9 @@ class Transformer(nn.Module):
         self.ln_f = nn.Parameter(torch.empty(cfg.d_model, dtype=cfg.dtype, device=device))
         self.layers = nn.ModuleList(Layer(cfg, device) for _ in range(cfg.n_layers))
 
-    def forward(self, tokens, attn_impl="fused"):
-        return transformer_forward(self, tokens, self.cfg, attn_impl=attn_impl)
+    def forward(self, tokens, attn_impl="fused", segment_ids=None):
+        return transformer_forward(self, tokens, self.cfg, attn_impl=attn_impl,
+                                   segment_ids=segment_ids)
 
 
 def init_transformer(cfg: TransformerConfig, generator: torch.Generator, device=None) -> Transformer:
@@ -148,9 +151,8 @@ def _mlp_block(layer: Layer, x):
     return x + torch.einsum("bnf,fd->bnd", gate * up, layer.w_down)
 
 
-def _reject_unported(cfg: TransformerConfig, segment_ids):
-    unported = {"segment_ids (packed training)": segment_ids is not None,
-                "sliding_window": cfg.sliding_window is not None,
+def _reject_unported(cfg: TransformerConfig):
+    unported = {"sliding_window": cfg.sliding_window is not None,
                 "logit_softcap": cfg.logit_softcap is not None}
     for name, given in unported.items():
         if given:
@@ -159,26 +161,46 @@ def _reject_unported(cfg: TransformerConfig, segment_ids):
                 f"option in the port ({_ROADMAP_K1})")
 
 
+def segment_positions(segment_ids):
+    """Per-segment RoPE positions for a packed batch: each contiguous run of
+    equal ids restarts at position 0 (``[0,0,1,1,1] → [0,1,0,1,2]``)."""
+    B, N = segment_ids.shape
+    idx = torch.arange(N, device=segment_ids.device)[None].expand(B, N)
+    is_start = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=segment_ids.device),
+                          segment_ids[:, 1:] != segment_ids[:, :-1]], dim=1)
+    seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=1).values
+    return idx - seg_start
+
+
 def transformer_forward(model: Transformer, tokens, cfg: TransformerConfig, *,
                         attn_impl="fused", segment_ids=None):
     """tokens ``[B, N]`` (int) → logits ``[B, N, vocab]`` f32 (causal LM).
 
     ``attn_impl``: "fused" runs causal :func:`flash_attention` (the kernels
     on the card); "xla" computes exact unfused softmax attention in f32, the
-    baseline arm (named after the JAX model's arm)."""
+    baseline arm (named after the JAX model's arm).
+
+    ``segment_ids`` ``[B, N]``: packed-batch training -- several documents
+    packed into one row as contiguous runs of equal ids. Attention is blocked
+    across documents and RoPE positions restart per document, so packed
+    logits equal the per-document logits."""
     if attn_impl not in ("fused", "xla"):
         raise ValueError(f"unknown attn_impl {attn_impl!r} (expected 'fused' or 'xla')")
-    _reject_unported(cfg, segment_ids)
+    _reject_unported(cfg)
     B, N = tokens.shape
     x = model.embed[tokens]
-    positions = torch.arange(N, device=tokens.device)[None].expand(B, N)
+    if segment_ids is not None:
+        positions = segment_positions(segment_ids)
+    else:
+        positions = torch.arange(N, device=tokens.device)[None].expand(B, N)
 
     def attn(q, k, v):
         if attn_impl == "xla":
-            o = attention_reference(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                    causal=True)
+            o = attention_reference(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+                segment_ids=None if segment_ids is None else (segment_ids, segment_ids))
             return o.transpose(1, 2).to(q.dtype)
-        return flash_attention(q, k, v, causal=True, layout="BNHD")
+        return flash_attention(q, k, v, causal=True, layout="BNHD", segment_ids=segment_ids)
 
     def block(layer, x):
         return _mlp_block(layer, _attention_block(layer, x, positions, cfg, attn))
@@ -194,12 +216,21 @@ def transformer_forward(model: Transformer, tokens, cfg: TransformerConfig, *,
 
 def lm_loss(model: Transformer, tokens, cfg: TransformerConfig, *, attn_impl="fused",
             segment_ids=None):
-    """Next-token cross-entropy, the mean over all ``B·(N−1)`` positions."""
-    logits = transformer_forward(model, tokens[:, :-1], cfg, attn_impl=attn_impl,
-                                 segment_ids=segment_ids)
+    """Next-token cross-entropy, the mean over all ``B·(N−1)`` positions.
+
+    With ``segment_ids`` ``[B, N]`` (packed batches), positions whose next
+    token belongs to another document are excluded -- a document's last
+    token never predicts the next document's first -- and the mean runs over
+    the remaining positions."""
+    logits = transformer_forward(
+        model, tokens[:, :-1], cfg, attn_impl=attn_impl,
+        segment_ids=None if segment_ids is None else segment_ids[:, :-1])
     logp = torch.log_softmax(logits, dim=-1)
     ll = logp.gather(-1, tokens[:, 1:, None])[..., 0]
-    return -ll.mean()
+    if segment_ids is None:
+        return -ll.mean()
+    valid = (segment_ids[:, :-1] == segment_ids[:, 1:]).float()
+    return -(ll * valid).sum() / valid.sum().clamp_min(1.0)
 
 
 def adamw_init(params: dict[str, torch.Tensor]) -> dict:

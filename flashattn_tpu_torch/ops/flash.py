@@ -1,21 +1,24 @@
 """Public fused-attention API: validation, layouts, dtype dispatch, autograd.
 
-Port of flashattn_tpu/ops/flash.py for no bias, with the causal mask: the
-forward runs K1 (``ops/flash_fwd.py``), the gradient runs the single-pass
-backward K3 (``ops/flash_bwd_fused.py``) behind a ``torch.autograd.Function``.
-The arguments keep the JAX signature; those the port's kernels do not take yet
-raise ``NotImplementedError`` naming their ROADMAP item, on every device. The
-TPU routing tiers (unaligned/causal decompositions, macro/resident routing,
-the GQA decode fold) are not ported: the CUDA kernels mask the KV tail, the Q
-tail and the causal band themselves, so one launch covers every shape the JAX
-tiers split up.
+Port of flashattn_tpu/ops/flash.py for no bias, with the causal mask and
+segment ids (packed sequences): the forward runs K1 (``ops/flash_fwd.py``);
+the gradient, behind a ``torch.autograd.Function``, runs the single-pass
+backward K3 (``ops/flash_bwd_fused.py``) or, with segment ids, the two-kernel
+backward K5 + K6 (``ops/flash_bwd.py``) -- the routing of the JAX
+``_flash_core_bwd``. The arguments keep the JAX signature; those the port's
+kernels do not take yet raise ``NotImplementedError`` naming their ROADMAP
+item, on every device. The TPU routing tiers (unaligned/causal
+decompositions, macro/resident routing, the GQA decode fold) and K3's VMEM
+bound on its dQ scratch are not ported: the CUDA kernels mask the KV tail,
+the Q tail, the causal band and the segments themselves, so one launch covers
+every shape the JAX tiers split up.
 """
 
 from __future__ import annotations
 
 import torch
 
-from flashattn_tpu_torch.ops import flash_bwd_fused, flash_fwd
+from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
 
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
 
@@ -61,12 +64,38 @@ def _validate(q, k, v, bias):
             raise ValueError(f"bias seq dims {tuple(bias.shape)} must be (1|{Nq}, {k.shape[2]})")
 
 
+def _normalize_segment_ids(segment_ids, q, k):
+    """Validate/split the public ``segment_ids`` arg into ``(q_ids, kv_ids)``
+    (the JAX function of that name, with its checks and messages), as int32 on
+    q's device; ``(None, None)`` without segments."""
+    if segment_ids is None:
+        return None, None
+    if isinstance(segment_ids, (tuple, list)):
+        seg_q, seg_kv = segment_ids
+    else:
+        if q.shape[2] != k.shape[2]:
+            raise ValueError(
+                "a single segment_ids array requires Nq == Nk; pass a "
+                f"(q_ids, kv_ids) tuple for Nq={q.shape[2]} Nk={k.shape[2]}")
+        seg_q = seg_kv = segment_ids
+    seg_q, seg_kv = torch.as_tensor(seg_q), torch.as_tensor(seg_kv)
+    for ids in (seg_q, seg_kv):
+        if ids.dtype.is_floating_point or ids.dtype.is_complex or ids.dtype == torch.bool:
+            raise ValueError(f"segment ids must be integers, got {ids.dtype}")
+    B, _, Nq, _ = q.shape
+    Nk = k.shape[2]
+    if tuple(seg_q.shape) != (B, Nq) or tuple(seg_kv.shape) != (B, Nk):
+        raise ValueError(
+            f"segment id shapes {tuple(seg_q.shape)}/{tuple(seg_kv.shape)} must be "
+            f"({B}, {Nq}) / ({B}, {Nk})")
+    return tuple(ids.to(device=q.device, dtype=torch.int32) for ids in (seg_q, seg_kv))
+
+
 def _reject_unported(*, bias, block_sizes, q_offset, kv_offset, window,
-                     segment_ids, logit_softcap, compute_dtype):
+                     logit_softcap, compute_dtype):
     unported = {
         "bias": bias is not None,
         "window": window is not None,
-        "segment_ids": segment_ids is not None,
         "logit_softcap": logit_softcap is not None,
         "nonzero q_offset/kv_offset": int(q_offset) != 0 or int(kv_offset) != 0,
         "block_sizes": block_sizes is not None,
@@ -80,32 +109,39 @@ def _reject_unported(*, bias, block_sizes, q_offset, kv_offset, window,
 
 
 class _FlashCore(torch.autograd.Function):
-    """K1 forward saving ``(q, k, v, o, lse)``; K3 backward (``_flash_core_bwd``
-    of the JAX package on its fused branch)."""
+    """K1 forward saving ``(q, k, v, o, lse)`` and the segment ids; the
+    backward routes as the JAX ``_flash_core_bwd``: K3 when there are no
+    segment ids (its fused branch), else K5 then K6 (its two-kernel branch)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, kv_valid_len, causal):
-        o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, seg_q, seg_kv, scale, kv_valid_len, causal):
+        segment_ids = None if seg_q is None else (seg_q, seg_kv)
+        o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
+                               segment_ids=segment_ids)
+        ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_kv)
         ctx.scale, ctx.kv_valid_len, ctx.causal = scale, kv_valid_len, causal
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, seg_q, seg_kv = ctx.saved_tensors
         B, Hq, _, D = q.shape
         Hkv, Nk = k.shape[1], k.shape[2]
         do = do.to(q.dtype)
         # Δ = rowsum(dO ⊙ O) in f32, outside the kernel (XLA's job in the JAX package).
         delta = (do.float() * o.float()).sum(-1)
-        dq, dk, dv = flash_bwd_fused.bwd(
-            q, k, v, do, lse, delta, scale=ctx.scale, causal=ctx.causal,
-            kv_valid_len=ctx.kv_valid_len)
+        kw = dict(scale=ctx.scale, causal=ctx.causal, kv_valid_len=ctx.kv_valid_len)
+        if seg_q is None:
+            dq, dk, dv = flash_bwd_fused.bwd(q, k, v, do, lse, delta, **kw)
+        else:
+            kw["segment_ids"] = (seg_q, seg_kv)
+            dk, dv = flash_bwd.dkv(q, k, v, do, lse, delta, **kw)
+            dq = flash_bwd.dq(q, k, v, do, lse, delta, **kw)
         if Hq != Hkv:  # GQA: dK/dV come per query head; sum each KV head's group
             dk = dk.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
             dv = dv.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
 
 
 class _FlashForwardOnly(torch.autograd.Function):
@@ -114,8 +150,10 @@ class _FlashForwardOnly(torch.autograd.Function):
     custom_vjp)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, kv_valid_len, causal):
-        o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal)
+    def forward(ctx, q, k, v, seg_q, seg_kv, scale, kv_valid_len, causal):
+        segment_ids = None if seg_q is None else (seg_q, seg_kv)
+        o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
+                               segment_ids=segment_ids)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -126,16 +164,17 @@ class _FlashForwardOnly(torch.autograd.Function):
             "differentiate flash_attention instead")
 
 
-def _forward(q, k, v, *, scale, layout, causal, core, **unported):
+def _forward(q, k, v, *, scale, layout, causal, core, segment_ids, **unported):
     q, k, v = _to_bhnd(q, layout), _to_bhnd(k, layout), _to_bhnd(v, layout)
     _validate(q, k, v, unported["bias"])
     _reject_unported(**unported)
+    seg_q, seg_kv = _normalize_segment_ids(segment_ids, q, k)
     in_dtype = q.dtype
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     kdt = _dispatch_dtype(in_dtype)
     q, k, v = q.to(kdt), k.to(kdt), v.to(kdt)
-    o, lse = core.apply(q, k, v, float(scale), k.shape[2], bool(causal))
+    o, lse = core.apply(q, k, v, seg_q, seg_kv, float(scale), k.shape[2], bool(causal))
     return _from_bhnd(o.to(in_dtype), layout), lse
 
 
@@ -165,13 +204,19 @@ def flash_attention(
       causal: mask ``kv_pos > q_pos``, top-left aligned (position 0 of Q
         and of K/V coincide, also when ``Nq != Nk``).
       scale: softmax scale, default ``D ** -0.5``.
-      bias, block_sizes, q_offset, kv_offset, window, segment_ids,
-      logit_softcap, compute_dtype: the JAX package's options; not ported
-        yet, each raises ``NotImplementedError`` when given.
+      segment_ids: packed sequences: integer ids ``[B, N]`` (needs
+        ``Nq == Nk``) or a ``(q_ids [B, Nq], kv_ids [B, Nk])`` tuple, ids
+        >= 0. Pair (i, j) attends iff ``q_ids[i] == kv_ids[j]`` (AND-composed
+        with ``causal``); a row that matches no key gives zeros and zero
+        gradients.
+      bias, block_sizes, q_offset, kv_offset, window, logit_softcap,
+      compute_dtype: the JAX package's options; not ported yet, each raises
+        ``NotImplementedError`` when given (also together with segment ids).
     Returns:
       Attention output, same shape/layout/dtype as ``q``. CPU tensors run the
       plain PyTorch versions, CUDA tensors the kernels (bf16; fp16 is cast to
-      bf16 and back): K1 forward, K3 backward (head dims up to 128).
+      bf16 and back): K1 forward; K3 backward, or K5 + K6 with segment ids
+      (head dims up to 128).
     """
     o, _ = _forward(
         q, k, v, scale=scale, layout=layout, causal=causal, core=_FlashCore, bias=bias,

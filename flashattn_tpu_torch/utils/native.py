@@ -97,20 +97,38 @@ def kernels() -> ctypes.CDLL:
     lib.fa_fwd_bf16.restype = i32
     lib.fa_fwd_bf16.argtypes = [
         ptr, ptr, ptr, ptr, ptr,            # q, k, v, o, lse
+        ptr, ptr,                           # seg_q, seg_kv (int32 ids, or None)
         i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, Nq, D, kv_valid_len
         i32, ctypes.c_float,                # causal, scale
         i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
         i64, i64, i64, i64, i64, i64,       # v, o (batch, head, seq) strides
+        i64, i64,                           # seg_q, seg_kv batch strides
         ptr,                                # cudaStream_t
     ]
-    lib.fa_bwd_bf16.restype = i32
-    lib.fa_bwd_bf16.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, dO, lse, delta
-        ptr, ptr, ptr,                      # dq (f32, zeroed), dk, dv (f32)
+    bwd_head = [ptr, ptr, ptr, ptr, ptr, ptr]  # q, k, v, dO, lse, delta
+    bwd_tail = [
         i32, i32, i32, i32, i32, i32, i32,  # B, Hq, Hkv, Nq, Nk, D, kv_valid_len
         i32, ctypes.c_float,                # causal, scale
         i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
         i64, i64, i64, i64, i64, i64,       # v, dO (batch, head, seq) strides
+    ]
+    lib.fa_bwd_bf16.restype = i32
+    lib.fa_bwd_bf16.argtypes = [
+        *bwd_head, ptr, ptr, ptr,           # dq (f32, zeroed), dk, dv (f32)
+        *bwd_tail, ptr,                     # cudaStream_t
+    ]
+    lib.fa_bwd_dkv_bf16.restype = i32
+    lib.fa_bwd_dkv_bf16.argtypes = [
+        *bwd_head, ptr, ptr,                # seg_q, seg_kv (int32 ids, or None)
+        ptr, ptr,                           # dk, dv (f32)
+        *bwd_tail, i64, i64,                # seg_q, seg_kv batch strides
+        ptr,                                # cudaStream_t
+    ]
+    lib.fa_bwd_dq_bf16.restype = i32
+    lib.fa_bwd_dq_bf16.argtypes = [
+        *bwd_head, ptr, ptr,                # seg_q, seg_kv (int32 ids, or None)
+        ptr,                                # dq (f32)
+        *bwd_tail, i64, i64,                # seg_q, seg_kv batch strides
         ptr,                                # cudaStream_t
     ]
     lib.fa_error_string.restype = ctypes.c_char_p

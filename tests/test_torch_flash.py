@@ -81,15 +81,20 @@ def test_flash_attention_low_precision_vs_f32_oracle(dtype, D, Nk, Hkv, layout):
     assert_close(np.asarray(got_jax.astype(jnp.float32)), np.asarray(want), tol, "jax")
 
 
+_SEG = {"segment_ids": torch.zeros(1, 64, dtype=torch.int32)}
 UNPORTED = {
     "bias": {"bias": torch.zeros(1, 1, 64, 64)},
     "window": {"window": (8, 8)},
-    "segment_ids": {"segment_ids": torch.zeros(1, 64, dtype=torch.int32)},
     "logit_softcap": {"logit_softcap": 5.0},
     "q_offset": {"q_offset": 3},
     "kv_offset": {"kv_offset": 3},
     "block_sizes": {"block_sizes": object()},
     "compute_dtype": {"compute_dtype": torch.float32},
+    # segment ids are ported; combined with an unported option they still raise
+    "segment_ids+bias": {**_SEG, "bias": torch.zeros(1, 1, 64, 64)},
+    "segment_ids+window": {**_SEG, "window": (8, 8)},
+    "segment_ids+logit_softcap": {**_SEG, "logit_softcap": 5.0},
+    "segment_ids+q_offset": {**_SEG, "q_offset": 3},
 }
 
 

@@ -3,12 +3,14 @@ converter against the JAX package's, in f32 on CPU.
 
 Weights come from the JAX ``init_transformer`` at the tiny config of
 tests/test_models.py and are carried over with ``transformer_from_jax``, so
-both compute the same function on the same numpy tokens. Attention is causal
+both compute the same function on the same numpy tokens, unpacked and packed
+(``segment_ids``: several documents per row). Attention is causal
 ``flash_attention`` in both: the JAX Pallas kernels in interpret mode, the
 port's wrappers on their plain versions. Budgets: logits within FWD_TOL[f32]
 (1e-4), parameter gradients within BWD_TOL[f32] (1e-3 abs + 5e-4 rel), the
 AdamW update within 1e-6 (the same numpy gradients go into both, so only f32
-rounding differs).
+rounding differs); packed against separate documents, logits within 2e-4 and
+the loss within 1e-5, as tests/test_models.py checks the JAX model.
 """
 
 import dataclasses
@@ -22,7 +24,7 @@ import torch
 from flashattn_tpu.models import transformer as jax_lm
 from flashattn_tpu_torch.models import transformer as lm
 from flashattn_tpu_torch.models.convert import _flatten, transformer_from_jax
-from flashattn_tpu_torch.ops import flash_bwd_fused, flash_fwd
+from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
 from flashattn_tpu_torch.utils.testing import BWD_TOL, FWD_TOL, Tolerance, assert_close
 
 WIDTH = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_head=32,
@@ -30,6 +32,8 @@ WIDTH = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_
 JCFG = jax_lm.TransformerConfig(**WIDTH, dtype=jnp.float32)
 PCFG = lm.TransformerConfig(**WIDTH, dtype=torch.float32)
 TOKENS = np.random.default_rng(1).integers(0, 128, (2, 65)).astype(np.int32)
+# Packed rows: three documents in row 0, two in row 1.
+SEG = np.array([[0] * 20 + [1] * 25 + [2] * 20, [0] * 33 + [1] * 32], dtype=np.int32)
 
 
 @pytest.fixture(scope="module")
@@ -44,13 +48,24 @@ def jax_loss_and_grads(jax_params):
     return float(loss), dict(_flatten(jax.tree_util.tree_map(np.asarray, grads)))
 
 
+@pytest.fixture(scope="module")
+def jax_packed_loss_and_grads(jax_params):
+    loss, grads = jax.value_and_grad(lambda p: jax_lm.lm_loss(
+        p, jnp.asarray(TOKENS), JCFG, segment_ids=jnp.asarray(SEG)))(jax_params)
+    return float(loss), dict(_flatten(jax.tree_util.tree_map(np.asarray, grads)))
+
+
 def _tokens():
     return torch.from_numpy(TOKENS).long()
 
 
-def _loss_and_grads(model, cfg=PCFG, attn_impl="fused"):
+def _seg():
+    return torch.from_numpy(SEG)
+
+
+def _loss_and_grads(model, cfg=PCFG, attn_impl="fused", segment_ids=None):
     model.zero_grad(set_to_none=True)
-    loss = lm.lm_loss(model, _tokens(), cfg, attn_impl=attn_impl)
+    loss = lm.lm_loss(model, _tokens(), cfg, attn_impl=attn_impl, segment_ids=segment_ids)
     loss.backward()
     return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
 
@@ -150,13 +165,14 @@ def test_training_step_on_cpu_launches_no_kernel(jax_params):
     assert (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches) == before
 
 
-@pytest.mark.parametrize("option", ["sliding_window", "logit_softcap", "segment_ids"])
+@pytest.mark.parametrize("option", ["sliding_window", "logit_softcap",
+                                    "segment_ids+sliding_window"])
 def test_unported_options_raise(jax_params, option):
-    cfg, kw = PCFG, {}
-    if option == "segment_ids":
-        kw["segment_ids"] = torch.zeros(2, 65, dtype=torch.int32)
-    else:
-        cfg = dataclasses.replace(PCFG, **{option: 16})
+    kw = {}
+    if option.startswith("segment_ids+"):  # packing is ported, not with this option
+        kw["segment_ids"] = _seg()
+        option = option.split("+")[1]
+    cfg = dataclasses.replace(PCFG, **{option: 16})
     model = transformer_from_jax(jax_params, cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.lm_loss(model, _tokens(), cfg, **kw)
@@ -184,3 +200,68 @@ def test_transformer_from_jax_rejects_mismatched_tree(jax_params):
     bad["layers"][1]["wq"] = bad["layers"][1]["wq"][:, :2]
     with pytest.raises(ValueError, match="layers.1.wq"):
         transformer_from_jax(bad, PCFG)
+
+
+@pytest.mark.parametrize("ids", [[[0, 0, 1, 1, 1]], [[3, 3, 3, 0, 0, 7]], SEG[:, :40].tolist(),
+                                 [[5] * 9]])
+def test_segment_positions_match_jax(ids):
+    ids = np.asarray(ids, dtype=np.int32)
+    got = lm.segment_positions(torch.from_numpy(ids))
+    assert np.array_equal(got.numpy(), np.asarray(jax_lm.segment_positions(jnp.asarray(ids))))
+
+
+def test_packed_logits_and_loss_match_jax(jax_params, jax_packed_loss_and_grads):
+    model = transformer_from_jax(jax_params, PCFG)
+    want = jax_lm.transformer_forward(jax_params, jnp.asarray(TOKENS), JCFG,
+                                      segment_ids=jnp.asarray(SEG))
+    with torch.no_grad():
+        got = lm.transformer_forward(model, _tokens(), PCFG, segment_ids=_seg())
+        assert torch.equal(model(_tokens(), segment_ids=_seg()), got)
+        loss = lm.lm_loss(model, _tokens(), PCFG, segment_ids=_seg())
+    assert_close(got, np.asarray(want), FWD_TOL[torch.float32], "logits")
+    assert abs(loss.item() - jax_packed_loss_and_grads[0]) < 1e-5
+
+
+def test_packed_gradients_match_jax(jax_params, jax_packed_loss_and_grads):
+    model = transformer_from_jax(jax_params, PCFG)
+    _, grads = _loss_and_grads(model, segment_ids=_seg())
+    want = jax_packed_loss_and_grads[1]
+    assert grads.keys() == want.keys()
+    for name, g in grads.items():
+        assert_close(g, want[name], BWD_TOL[torch.float32], name)
+
+
+def test_packed_batch_matches_separate_documents(jax_params):
+    """Two documents packed into one row give the per-document logits, and a
+    loss equal to the token-weighted mean of the separate losses (attention
+    blocked across documents, RoPE restarted per document, boundary-masked
+    loss)."""
+    model = transformer_from_jax(jax_params, PCFG)
+    n1, n2 = 28, 36
+    toks = _tokens()[:1, :n1 + n2]
+    seg = torch.cat([torch.zeros(1, n1, dtype=torch.int32), torch.ones(1, n2, dtype=torch.int32)], 1)
+    with torch.no_grad():
+        packed = lm.transformer_forward(model, toks, PCFG, segment_ids=seg)
+        want = torch.cat([lm.transformer_forward(model, toks[:, :n1], PCFG),
+                          lm.transformer_forward(model, toks[:, n1:], PCFG)], dim=1)
+        lp = lm.lm_loss(model, toks, PCFG, segment_ids=seg).item()
+        l1 = lm.lm_loss(model, toks[:, :n1], PCFG).item()
+        l2 = lm.lm_loss(model, toks[:, n1:], PCFG).item()
+    assert (packed - want).abs().max().item() < 2e-4
+    assert abs(lp - ((n1 - 1) * l1 + (n2 - 1) * l2) / (n1 + n2 - 2)) < 1e-5
+
+
+def test_packed_fused_and_xla_agree(jax_params):
+    """The two arms of the packed training step compute the same function,
+    and the packed step runs K1, K5 and K6's plain versions on the CPU (no
+    kernel launch)."""
+    model = transformer_from_jax(jax_params, PCFG)
+    before = (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches, flash_bwd.dkv.launches,
+              flash_bwd.dq.launches)
+    lf, gf = _loss_and_grads(model, attn_impl="fused", segment_ids=_seg())
+    lx, gx = _loss_and_grads(model, attn_impl="xla", segment_ids=_seg())
+    assert abs(lf - lx) < 1e-5
+    for name in gf:
+        assert_close(gf[name], gx[name], BWD_TOL[torch.float32], name)
+    assert (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches, flash_bwd.dkv.launches,
+            flash_bwd.dq.launches) == before
