@@ -5,10 +5,10 @@
 Builds the port's kernels from ``flashattn_tpu_torch/csrc/`` with nvcc (one
 nvcc per source, in parallel) and holds each against its plain PyTorch version
 at the shapes its paths give it: K1 non-causal (serving), K1 causal (which
-also stands for K2), the backward K3 (which also stands for K4), and K1 with
+also stands for K2), the backward K3 (which also stands for K4), K1 with
 segment ids and the two-kernel backward K5 (dK/dV) + K6 (dQ) of packed
-training. Then it drives the port's three paths and checks that each went
-through its kernels:
+training, and K1's decode variants (bias; int8 / fp8 K/V). Then it drives the
+port's four paths and checks that each went through its kernels:
 
 * serving: Euler sampling over the SD1.5 U-Net at full width (random weights
   from a seed, 64x64 latent, 77-token context), fused vs exact attention;
@@ -18,7 +18,14 @@ through its kernels:
   arm;
 * packed training: the same LM on rows of 8 packed documents (bench_lm.py's
   packed cell): gates at [1, 2049] tokens, then 10 fused AdamW steps at
-  [2, 4097] tokens beside 10 unpacked steps at the same shape.
+  [2, 4097] tokens beside 10 unpacked steps at the same shape;
+* LM serving: KV-cache decode of the LM of benchmarks/bench_decode.py (821 M
+  parameters, 16 layers, bf16) on a bf16, int8 and fp8 cache -- K1 with the
+  cache-slot bias, and K1 dequantizing int8 / fp8 K/V in the kernel, checked
+  first against their plain version at bench_decode's attention shapes:
+  gates against the teacher-forced forward and between cache dtypes, 8
+  requests per cache dtype (16 K1 launches per step), ms/token at cache
+  lengths 1024-8192.
 
 One line per phase; the last two lines are a JSON object of the kernels'
 numbers and ``{"ok": true, "device": ...}``. Exits non-zero, before printing
@@ -132,18 +139,37 @@ def phase_build() -> None:
     log("build", f"{sources} built from {native.CSRC.relative_to(native.CSRC.parent.parent)} "
                  f"into {lib.name} in {time.perf_counter() - t0:.2f} s")
     # ptxas -v: registers and spills of every kernel instantiation.
-    kernel_of = {("fwd", "0"): "K1", ("fwd", "1"): "K1 segments", ("dkv", "1"): "K3",
-                 ("dkv", "0"): "K5", ("dq", ""): "K6"}
     entries = re.split(r"Compiling entry function", out)[1:]
     for entry in entries:
-        name = re.search(r"(fwd|dkv|dq)_kernelILi(\d+)E(?:Lb(\d)E)?", entry)
+        mangled = entry.split("'")[1] if entry.count("'") >= 2 else entry[:120]
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
-        if name and regs and spill:
-            kernel = kernel_of[(name.group(1), name.group(3) or "")]
-            log("build", f"{kernel} {name.group(1)}_kernel<{name.group(2)}>: {regs.group(1)} "
-                         f"registers, {spill.group(1)} B spill stores, {spill.group(2)} B "
-                         "spill loads")
+        if regs and spill:
+            log("build", f"{instantiation_name(mangled)}: {regs.group(1)} registers, "
+                         f"{spill.group(1)} B spill stores, {spill.group(2)} B spill loads")
+    log("build", f"{len(entries)} kernel instantiations")
+
+
+def instantiation_name(mangled: str) -> str:
+    """The kernel (K1 and its variant, K3, K5, K6) and template arguments of
+    a mangled instantiation name from ptxas, e.g. ``K1 int8 bias
+    fwd_kernel<128, 0, 1, 1>``; an unrecognised name comes back marked as
+    such, never raising."""
+    m = re.search(r"(fwd|dkv|dq)_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if not m:
+        return f"unrecognised instantiation {mangled}"
+    kind, args = m.group(1), [int(a) for a in re.findall(r"L[a-z]+(-?\d+)E", m.group(2))]
+    label = f"{kind}_kernel<{', '.join(map(str, args))}>"
+    if kind == "fwd" and len(args) == 4:  # <DP, SEG, BIAS, KV>
+        _, seg, bias, kv = args
+        variant = {0: "", 1: " int8", 2: " fp8"}.get(kv, f" kv{kv}")
+        return (f"K1{variant}{' bias' if bias else ''}{' segments' if seg else ''} "
+                f"{label}")
+    if kind == "dkv" and len(args) == 2:  # <DP, DQ>
+        return f"{'K3' if args[1] else 'K5'} {label}"
+    if kind == "dq" and len(args) == 1:
+        return f"K6 {label}"
+    return f"unrecognised instantiation {label}"
 
 
 def _bnhd(x):
@@ -581,14 +607,24 @@ def _reset_launches() -> None:
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
 
     flash_fwd.fwd.launches = flash_bwd_fused.bwd.launches = 0
+    flash_fwd.fwd.launches_bias = flash_fwd.fwd.launches_int8 = flash_fwd.fwd.launches_fp8 = 0
     flash_bwd.dkv.launches = flash_bwd.dq.launches = 0
 
 
 def _launches() -> dict:
+    """Every kernel's launch count; "K1" counts all K1 launches, "K1 bias",
+    "K1 int8" and "K1 fp8" those of its decode variants."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
 
-    return {"K1": flash_fwd.fwd.launches, "K3": flash_bwd_fused.bwd.launches,
-            "K5": flash_bwd.dkv.launches, "K6": flash_bwd.dq.launches}
+    return {"K1": flash_fwd.fwd.launches, "K1 bias": flash_fwd.fwd.launches_bias,
+            "K1 int8": flash_fwd.fwd.launches_int8, "K1 fp8": flash_fwd.fwd.launches_fp8,
+            "K3": flash_bwd_fused.bwd.launches, "K5": flash_bwd.dkv.launches,
+            "K6": flash_bwd.dq.launches}
+
+
+def _expect(**counts) -> dict:
+    """A launch-count dict with every kernel not named at 0."""
+    return {**dict.fromkeys(_launches(), 0), **{k.replace("_", " "): v for k, v in counts.items()}}
 
 
 def phase_train() -> tuple[int, int]:
@@ -604,9 +640,9 @@ def phase_train() -> tuple[int, int]:
     _lm_steps(cfg, tokens, "xla", phase="train", label="xla")
     expected = cfg.n_layers * LM_STEPS
     log("train", f"launches during the fused steps: {counts} (expected K1 = K3 = "
-                 f"{cfg.n_layers} layers x {LM_STEPS} steps = {expected}, K5 = K6 = 0)")
-    if counts != {"K1": expected, "K3": expected, "K5": 0, "K6": 0}:
-        fail(f"LM steps launched {counts}, expected K1 = K3 = {expected} and no K5/K6")
+                 f"{cfg.n_layers} layers x {LM_STEPS} steps = {expected}, no other)")
+    if counts != _expect(K1=expected, K3=expected):
+        fail(f"LM steps launched {counts}, expected K1 = K3 = {expected} and no other")
     return counts["K1"], counts["K3"]
 
 
@@ -634,9 +670,254 @@ def phase_packed_train() -> dict:
     expected = cfg.n_layers * LM_STEPS
     log("packed", f"packed step / unpacked step at [{B}, {N + 1}]: {packed_s / plain_s:.3f}")
     log("packed", f"launches during the packed fused steps: {counts} (expected K1 = K5 = K6 = "
-                  f"{cfg.n_layers} layers x {LM_STEPS} steps = {expected}, K3 = 0)")
-    if counts != {"K1": expected, "K3": 0, "K5": expected, "K6": expected}:
-        fail(f"packed LM steps launched {counts}, expected K1 = K5 = K6 = {expected} and no K3")
+                  f"{cfg.n_layers} layers x {LM_STEPS} steps = {expected}, no other)")
+    if counts != _expect(K1=expected, K5=expected, K6=expected):
+        fail(f"packed LM steps launched {counts}, expected K1 = K5 = K6 = {expected} and no "
+             "other")
+    return counts
+
+
+# bench_decode.py:124-138: decode attention, B8 H16 D128 against an 8192-slot
+# cache; the Hkv < 16 cases run GQA-folded.
+DECODE_B, DECODE_H, DECODE_NK, DECODE_D = 8, 16, 8192, 128
+KV_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def _decode_slot_bias(nk: int, live: int) -> torch.Tensor:
+    """decode_step's cache-slot mask: ``[1, 1, 1, nk]`` f32, -1e9 past ``live``."""
+    slot = torch.arange(nk, device=DEVICE)
+    return torch.where(slot < live, 0.0, -1e9).to(torch.float32)[None, None, None]
+
+
+def phase_decode_check() -> dict:
+    """K1's decode variants -- bias on bf16 K/V, int8 and fp8 K/V with and
+    without bias -- against their plain version on the dequantized cache, at
+    bench_decode's attention shapes (Hkv 16, 8, 4, 2 with a cache-slot bias
+    of half the slots live, Nq 1, GQA-folded where Hkv < 16; Nq 16 without
+    bias) and a random [B, H, Nq, Nk] bias at B2 H4 Nq1000 Nk1100 D64
+    causal: O within FWD_TOL[bf16]. Times each case's kernel launch (on the
+    folded shape the path gives it) and its plain version, with the KV read
+    rate 2·B·Hkv·Nk·D·bytes / t of bench_decode.py:94."""
+    from flashattn_tpu_torch.ops import flash_fwd, quant
+    from flashattn_tpu_torch.ops.flash import flash_attention
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close, make_qkv
+
+    tol = FWD_TOL[torch.bfloat16]
+    B, H, Nk, D = DECODE_B, DECODE_H, DECODE_NK, DECODE_D
+    # (B, Hq, Hkv, Nq, Nk, D, bias, causal)
+    cases = [(B, H, hkv, 1, Nk, D, "slots", False) for hkv in (16, 8, 4, 2)]
+    cases += [(B, H, H, 16, Nk, D, None, False), (2, 4, 4, 1000, 1100, 64, "random", True)]
+    res = {}
+    for i, (b, hq, hkv, nq, nk, d, bias_kind, causal) in enumerate(cases):
+        q, k, v = make_qkv(900 + i, b, hq, nq, d, Nk=nk, Hkv=hkv, dtype=torch.bfloat16,
+                           device=DEVICE)
+        bias = None
+        if bias_kind == "slots":
+            bias = _decode_slot_bias(nk, nk // 2)
+        elif bias_kind == "random":
+            gen = torch.Generator(device=DEVICE).manual_seed(950 + i)
+            bias = torch.randn((b, hq, nq, nk), generator=gen, device=DEVICE)
+        rep = hq // hkv
+        folded = rep > 1 and not causal and nq * rep <= 32
+        for name, dtype in KV_DTYPES.items():
+            kw = dict(scale=d ** -0.5, causal=causal, bias=bias)
+            if dtype == torch.bfloat16:
+                o = flash_attention(q, k, v, bias=bias, causal=causal)
+                kk, vv, scales = k, v, {}
+            else:
+                qkv = quant.quantize_kv(k, v, dtype, allow_slow_fp8=True)
+                o = quant.flash_attention_quantized(q, qkv, bias=bias, causal=causal)
+                kk, vv = qkv.k_q, qkv.v_q
+                scales = dict(k_scale=qkv.k_scale, v_scale=qkv.v_scale)
+            torch.cuda.synchronize()
+            o_want, _ = flash_fwd.fwd_reference(q.float(), kk, vv, **kw, **scales)
+            ok, msg = check_close(o, o_want, tol, "O")
+            err = (o.float() - o_want).abs().max().item()
+            # The launch the path makes: the folded query for tiny-Nq GQA.
+            qk = q.reshape(b, hkv, rep * nq, d) if folded else q
+            if bias is not None and folded and bias.shape[2] > 1:
+                kw["bias"] = bias.repeat(1, 1, rep, 1)
+            ms = cuda_ms(lambda: flash_fwd.fwd(qk, kk, vv, **kw, **scales))
+            plain_ms = cuda_ms(lambda: flash_fwd.fwd_reference(q, kk, vv, **kw, **scales),
+                               reps=3, trials=3)
+            nbytes = 2 * b * hkv * nk * d * kk.element_size()
+            label = (f"{name} B{b} Hq{hq} Hkv{hkv} Nq{nq} Nk{nk} D{d}"
+                     f"{' causal' if causal else ''}"
+                     f"{'' if bias_kind is None else f' bias {bias_kind}'}"
+                     f"{' folded' if folded else ''}")
+            log("decode", f"{label}: O max_abs_err {err:.3e} (budget {O_TOL_NAME}); K1 "
+                          f"{ms * 1e3:.2f} us ({nbytes / ms / 1e6:.1f} GB/s KV read), plain "
+                          f"{plain_ms * 1e3:.2f} us ({nbytes / plain_ms / 1e6:.1f} GB/s)")
+            if not ok:
+                fail(f"K1 ({label}) disagrees with fwd_reference: {msg}")
+            if (hkv, nq, bias_kind) == (8, 1, "slots"):  # the LM's decode attention
+                res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        del q, k, v, kk, vv, scales
+        torch.cuda.empty_cache()
+    return res
+
+
+# benchmarks/bench_decode.py:115-118: the LM bench_decode serves, full depth.
+DECODE_WIDTH = dict(vocab_size=32000, d_model=2048, n_layers=16, n_heads=16, n_kv_heads=8,
+                    d_head=128, d_ff=5632)
+DECODE_GATE_TOKENS = 32
+DECODE_REQUESTS, PROMPT_LEN, GEN_LEN = 8, 64, 64
+DECODE_CACHE_LENS = (1024, 4096, 8192)
+DECODE_STEPS, DECODE_WARMUP = 10, 3
+# Quantized cache against the bf16 cache: max|dlogits| < rule x max(max|logits|, 1).
+# int8 takes the JAX rule (tests/test_models.py:134-147). e4m3 keeps 3
+# mantissa bits, so each element rounds by up to 2^-4 of itself, where int8
+# rounds by 1/254 of the token's amax: at this LM fp8 measured 2.73x int8's
+# deviation (max|dlogits| 0.3203 vs 0.1172, relative L2 6.49e-2 vs 2.36e-2,
+# H100), above the JAX rule, so its limit is 3x the rule.
+QUANT_RULE = {"int8": 0.05, "fp8": 0.15}
+
+
+def _decode_logits(model, cfg, tokens, quant_dtype=None):
+    """Decode logits ``[B, T, V]`` of feeding ``tokens [B, T]`` one by one."""
+    from flashattn_tpu_torch.models.transformer import decode_step, init_kv_cache
+
+    cache = init_kv_cache(cfg, tokens.shape[0], tokens.shape[1], quant_dtype, device=DEVICE)
+    return torch.stack([decode_step(model, cache, tokens[:, t], cfg)[0]
+                        for t in range(tokens.shape[1])], dim=1)
+
+
+def _rel(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def phase_decode() -> dict:
+    """The serving slice at bench_decode's width and depth (821 M params).
+
+    Gates at batch 2 over the first 32 tokens: bf16-cache decode logits
+    against the fused teacher-forced forward at the same positions, relative
+    L2 within 1.5x the bf16 floor (each of the two against an f32 copy of the
+    model, exact attention), measured and printed in every run; int8 and fp8
+    caches against the bf16 cache by the JAX rule
+    ``max|Δ| < 0.05·max(max|logits|, 1)``, 3x that for fp8 (QUANT_RULE).
+    Then 8 requests at batch 8 per
+    cache dtype (a 64-token prompt fed through decode_step, 64 greedy
+    tokens), with exactly 16 K1 launches per step in the dtype's variant and
+    no other kernel; then ms/token and tokens/s at cache lengths 1024, 4096
+    and 8192 with the length held at half (bench_decode.py:46-55), batch 8,
+    and the peak device memory. Returns the launch counts per dtype."""
+    from flashattn_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, decode_step, init_kv_cache, init_transformer,
+        transformer_forward)
+
+    from flashattn_tpu_torch.utils.platform import native_fp8_matmul
+
+    cfg = TransformerConfig(**DECODE_WIDTH)  # bf16
+    fp8_cache = init_kv_cache(cfg, 1, 1, torch.float8_e4m3fn, device=DEVICE)["k"][0].dtype
+    log("decode", f"fp8 guard: native_fp8_matmul() = {native_fp8_matmul(DEVICE)}, "
+                  f"init_kv_cache(float8_e4m3fn) stores {fp8_cache}")
+    if fp8_cache != torch.float8_e4m3fn:
+        fail(f"the fp8 guard turned an fp8 cache into {fp8_cache} on this card")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = init_transformer(cfg, gen, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.randint(0, cfg.vocab_size, (2, DECODE_GATE_TOKENS), generator=gen,
+                           device=DEVICE)
+    with torch.no_grad():
+        fwd = transformer_forward(model, tokens, cfg)
+        m32 = Transformer(dataclasses.replace(cfg, dtype=torch.float32), device=DEVICE)
+        m32.load_state_dict(model.state_dict())
+        ref = transformer_forward(m32, tokens, m32.cfg, attn_impl="xla")
+        del m32
+    dec = {name: _decode_logits(model, cfg, tokens, None if dt == torch.bfloat16 else dt)
+           for name, dt in KV_DTYPES.items()}
+    torch.cuda.synchronize()
+    for name, lg in dec.items():
+        if lg.shape != fwd.shape or not torch.isfinite(lg).all():
+            fail(f"{name} decode logits have shape {tuple(lg.shape)} or are not finite")
+    floor = max(_rel(dec["bf16"], ref), _rel(fwd, ref))
+    rel = _rel(dec["bf16"], fwd)
+    log("decode", f"LM ({n_params / 1e6:.1f} M params, {cfg.n_layers} layers, d_model "
+                  f"{cfg.d_model}, Hq{cfg.n_heads} Hkv{cfg.n_kv_heads} D{cfg.d_head}, bf16), "
+                  f"{list(tokens.shape)} tokens: bf16-cache decode vs teacher-forced forward "
+                  f"relative L2 {rel:.3e} (limit 1.5 x floor = {1.5 * floor:.3e}); bf16 floor "
+                  f"{floor:.3e} (decode vs f32 model {_rel(dec['bf16'], ref):.3e}, forward vs "
+                  f"f32 model {_rel(fwd, ref):.3e})")
+    if not rel <= 1.5 * floor:
+        fail(f"decode gate: decode vs forward relative L2 {rel:.3e} > 1.5 x {floor:.3e}")
+    scale = max(dec["bf16"].abs().max().item(), 1.0)
+    for name in ("int8", "fp8"):
+        d = (dec[name] - dec["bf16"]).abs().max().item()
+        limit = QUANT_RULE[name] * scale
+        log("decode", f"{name} cache vs bf16 cache: max|dlogits| {d:.4f} (limit "
+                      f"{QUANT_RULE[name]} x {scale:.4f} = {limit:.4f}), relative L2 "
+                      f"{_rel(dec[name], dec['bf16']):.3e}")
+        if not d < limit:
+            fail(f"{name} cache decode differs from the bf16 cache's: {d} >= {limit}")
+    del fwd, ref, dec
+
+    counts = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (DECODE_REQUESTS, PROMPT_LEN), generator=gen,
+                            device=DEVICE)
+    steps = PROMPT_LEN + GEN_LEN
+    for name, dt in KV_DTYPES.items():
+        cache = init_kv_cache(cfg, DECODE_REQUESTS, steps, None if dt == torch.bfloat16 else dt,
+                              device=DEVICE)
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        for t in range(PROMPT_LEN):
+            logits, cache = decode_step(model, cache, prompts[:, t], cfg)
+        out = []
+        for _ in range(GEN_LEN):
+            token = logits.argmax(-1)
+            out.append(token)
+            logits, cache = decode_step(model, cache, token, cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts[name] = _launches()
+        out = torch.stack(out, dim=1)
+        if not torch.isfinite(logits).all() or not ((out >= 0) & (out < cfg.vocab_size)).all():
+            fail(f"{name} requests: logits not finite or tokens out of range")
+        variant = {"bf16": "K1_bias", "int8": "K1_int8", "fp8": "K1_fp8"}[name]
+        want = _expect(K1=cfg.n_layers * steps, **{variant: cfg.n_layers * steps})
+        log("decode", f"{name} cache: {DECODE_REQUESTS} requests at batch {DECODE_REQUESTS}, "
+                      f"{PROMPT_LEN}-token prompt + {GEN_LEN} greedy tokens = {steps} steps in "
+                      f"{secs:.3f} s ({secs / steps * 1e3:.2f} ms/step, "
+                      f"{DECODE_REQUESTS * steps / secs:.0f} tokens/s); first request's tokens "
+                      f"{out[0, :8].tolist()}...; launches {counts[name]} (expected "
+                      f"{cfg.n_layers} x {steps} = {cfg.n_layers * steps} K1, all "
+                      f"{variant.replace('_', ' ')})")
+        if counts[name] != want:
+            fail(f"{name} decode launched {counts[name]}, expected {want}")
+        del cache
+        torch.cuda.empty_cache()
+
+    for cache_len in DECODE_CACHE_LENS:
+        for name, dt in KV_DTYPES.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cache = init_kv_cache(cfg, DECODE_B, cache_len, None if dt == torch.bfloat16 else dt,
+                                  device=DEVICE)
+            cache["length"] = cache_len // 2
+            token = torch.zeros(DECODE_B, dtype=torch.long, device=DEVICE)
+            secs = []
+            for i in range(DECODE_WARMUP + DECODE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = decode_step(model, cache, token, cfg)
+                token = logits.argmax(-1)
+                cache["length"] -= 1  # hold the length, as bench_decode.py does
+                torch.cuda.synchronize()
+                if i >= DECODE_WARMUP:
+                    secs.append(time.perf_counter() - t0)
+            step_s = statistics.median(secs)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            log("decode", f"{name} cache, cache_len {cache_len} (length {cache_len // 2}), batch "
+                          f"{DECODE_B}: {step_s * 1e3:.3f} ms/token ({min(secs) * 1e3:.3f}-"
+                          f"{max(secs) * 1e3:.3f}), {DECODE_B / step_s:.1f} tokens/s, peak "
+                          f"{peak:.2f} GB (median of {DECODE_STEPS} steps after "
+                          f"{DECODE_WARMUP} warm-up)")
+            del cache
+            torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -654,8 +935,18 @@ def main() -> None:
     launches = phase_slice()
     k1c_launches, k3_launches = phase_train()
     packed = phase_packed_train()
+    dec_k = phase_decode_check()
+    dec = phase_decode()
     fwd_src, bwd_src, split_src = (f"flashattn_tpu_torch/csrc/flash_{d}.cu"
                                    for d in ("fwd", "bwd", "bwd_split"))
+    decode_kernels = [
+        {"name": f"flash_fwd {label} (K1 decode, {name} cache)", "route": "cuda",
+         "source": f"flashattn_tpu_torch/csrc/flash_fwd_{src}.cu",
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115", "launches": dec[name][counter],
+         **dec_k[name]}
+        for name, label, src, counter in (("bf16", "bias", "bias", "K1 bias"),
+                                          ("int8", "int8 K/V + bias", "int8", "K1 int8"),
+                                          ("fp8", "fp8 K/V + bias", "fp8", "K1 fp8"))]
     print(json.dumps({"kernels": [
         {"name": "flash_fwd (K1)", "route": "cuda", "source": fwd_src,
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115", "launches": launches, **k1},
@@ -673,7 +964,7 @@ def main() -> None:
          "replaces": "flashattn_tpu/ops/flash_bwd.py:139", "launches": packed["K5"], **seg["k5"]},
         {"name": "flash_bwd_split dq (K6)", "route": "cuda", "source": split_src,
          "replaces": "flashattn_tpu/ops/flash_bwd.py:234", "launches": packed["K6"],
-         **seg["k6"]}]}), flush=True)
+         **seg["k6"]}, *decode_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,13 @@
-"""Carry U-Net and LM weights from the JAX package's pytrees to the port.
+"""Carry U-Net and LM weights, and LM KV caches, from the JAX package's pytrees
+to the port.
 
 The JAX trees (``init_unet`` of flashattn_tpu/models/unet.py,
 ``init_transformer`` of flashattn_tpu/models/transformer.py; leaves as numpy
 arrays) and the port's :class:`UNet` and :class:`Transformer` have the same
 paths; only U-Net conv kernels change layout, HWIO -> OIHW. With the weights
 carried over, both compute the same function, which is how the tests hold the
-port to the JAX models.
+port to the JAX models. A KV cache of the JAX ``init_kv_cache`` /
+``decode_step`` carries over with :func:`kv_cache_from_jax`.
 """
 
 from __future__ import annotations
@@ -65,3 +67,29 @@ def transformer_from_jax(params, cfg: TransformerConfig, device=None) -> Transfo
     arrays), cast to ``cfg.dtype``. Every leaf keeps its shape. Raises
     ValueError if the trees' paths or shapes differ."""
     return _load(Transformer(cfg, device=device), params, conv_hwio=False)
+
+
+def _tensor_from_numpy(x, device) -> torch.Tensor:
+    """A numpy leaf as a torch tensor of the same dtype, bit for bit: bf16 by
+    way of f32 (exact), fp8 e4m3 (which numpy lacks; ml_dtypes gives it) as
+    its bytes reinterpreted."""
+    x = np.asarray(x)
+    if str(x.dtype) == "float8_e4m3fn":
+        t = torch.from_numpy(x.view(np.uint8).copy()).view(torch.float8_e4m3fn)
+    elif str(x.dtype) == "bfloat16":
+        t = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(x.copy())
+    return t.to(device)
+
+
+def kv_cache_from_jax(cache, device=None) -> dict:
+    """The port's KV cache (``models.transformer.init_kv_cache``'s dict) from
+    a JAX one, its leaves as numpy arrays -- bf16, f32, int8 or fp8 payloads
+    and f32 scales -- on ``device``, every value kept bit for bit;
+    ``length`` becomes a Python int."""
+    out = {"length": int(np.asarray(cache["length"]))}
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in cache:
+            out[name] = [_tensor_from_numpy(x, device) for x in cache[name]]
+    return out

@@ -1,20 +1,26 @@
 """Decoder-only transformer LM (GQA + RoPE + RMSNorm + SwiGLU) on the fused
-attention engine: the single-device training path.
+attention engine: the single-device training path and KV-cache decode.
 
 Port of flashattn_tpu/models/transformer.py: :func:`transformer_forward`,
 :func:`lm_loss` (also on packed batches, with ``segment_ids``),
-:func:`segment_positions` and the AdamW update. Activations stay
-``[B, N, H, D]`` so attention runs in its BNHD layout with no rearrange:
-causal :func:`flash_attention` (kernels K1 forward and K3 backward on the
-card; K1 with segments and K5 + K6 when packed) or, with
-``attn_impl="xla"``, the exact f32 oracle (the baseline arm).
+:func:`segment_positions`, the AdamW update, and the serving path
+:func:`init_kv_cache` / :func:`decode_step` (bf16, int8 or fp8 cache).
+Activations stay ``[B, N, H, D]`` so attention runs in its BNHD layout with
+no rearrange: causal :func:`flash_attention` (kernels K1 forward and K3
+backward on the card; K1 with segments and K5 + K6 when packed) or, with
+``attn_impl="xla"``, the exact f32 oracle (the baseline arm). A decode step
+runs K1 once per layer with the cache-slot mask as its additive bias --
+through ``flash_attention`` on a bf16 cache, ``flash_attention_quantized``
+(in-kernel dequantization) on an int8 / fp8 one -- with the GQA decode fold.
 
 The parameters keep the JAX pytree's names and shapes -- ``embed``, ``ln_f``,
 ``layers.{i}.{ln1,wq,wk,wv,wo,ln2,w_gate,w_up,w_down}``, ``wq`` as
 ``[d_model, H, d_head]`` -- and the forward keeps the JAX einsums, so
-``models.convert.transformer_from_jax`` is a plain copy. The KV-cache decode
-path, windowed or soft-capped training and the sharded step are not ported
-yet (ROADMAP queue 1, item 7).
+``models.convert.transformer_from_jax`` is a plain copy (and
+``kv_cache_from_jax`` carries a cache over). Windowed or soft-capped
+training, soft-capped decode and the sharded step are not ported yet
+(ROADMAP queue 1, item 7); windowed decode is, because its window is only the
+host-side cache-slot bias.
 """
 
 from __future__ import annotations
@@ -28,6 +34,9 @@ from torch.utils.checkpoint import checkpoint
 
 from flashattn_tpu_torch.ops.flash import flash_attention
 from flashattn_tpu_torch.ops.oracle import attention_reference
+from flashattn_tpu_torch.ops.quant import (
+    QuantizedKV, flash_attention_quantized, quantize_kv, resolve_quant_dtype,
+)
 
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
 
@@ -42,7 +51,8 @@ class TransformerConfig:
     d_head: int = 64
     d_ff: int = 1408
     rope_theta: float = 10000.0
-    # Mistral-style sliding window (None = full causal attention); not ported.
+    # Mistral-style sliding window (None = full causal attention); decode
+    # only (a host-side cache-slot bias), not ported to training.
     sliding_window: int | None = None
     # Gemma-2-style logit soft-capping (None = off); not ported.
     logit_softcap: float | None = None
@@ -158,7 +168,7 @@ def _reject_unported(cfg: TransformerConfig):
         if given:
             raise NotImplementedError(
                 f"transformer_forward: {name} waits for the matching flash_attention "
-                f"option in the port ({_ROADMAP_K1})")
+                f"option in the port ({_ROADMAP_K1}; decode_step takes sliding_window)")
 
 
 def segment_positions(segment_ids):
@@ -265,3 +275,99 @@ def adamw_update(grads, state, params, *, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
         step = (m / c1.item()) / (torch.sqrt(n / c2.item()) + eps) + weight_decay * pf
         p.copy_(pf - lr * step)
     return params, {"mu": state["mu"], "nu": state["nu"], "count": count}
+
+
+# ───────────────────────────── decode path ──────────────────────────────────
+
+
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, quant_dtype=None, *,
+                  device=None) -> dict:
+    """The JAX package's KV cache on ``device``, zero-filled: ``length`` (a
+    Python int, the slot the next step writes) and per layer ``k``/``v``
+    ``[B, max_len, Hkv, D]`` lists in ``cfg.dtype``. With ``quant_dtype``
+    (``torch.int8`` or ``torch.float8_e4m3fn``, through the fp8 guard of
+    ``ops/quant.py``) the cache holds that dtype, quantized per token per
+    head, plus ``k_scale``/``v_scale`` ``[B, max_len, Hkv]`` f32 lists: half
+    the bytes of bf16, dequantized inside K1."""
+    if quant_dtype is not None:
+        quant_dtype = resolve_quant_dtype(quant_dtype, device=device)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    dt = cfg.dtype if quant_dtype is None else quant_dtype
+    cache = {"length": 0,
+             "k": [torch.zeros(shape, dtype=dt, device=device) for _ in range(cfg.n_layers)],
+             "v": [torch.zeros(shape, dtype=dt, device=device) for _ in range(cfg.n_layers)]}
+    if quant_dtype is not None:
+        sshape = shape[:3]
+        cache["k_scale"] = [torch.zeros(sshape, dtype=torch.float32, device=device)
+                            for _ in range(cfg.n_layers)]
+        cache["v_scale"] = [torch.zeros(sshape, dtype=torch.float32, device=device)
+                            for _ in range(cfg.n_layers)]
+    return cache
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, cache: dict, token, cfg: TransformerConfig):
+    """One autoregressive step: token ``[B]`` (int) → ``(logits [B, vocab]
+    f32, cache)``, with the arithmetic of the JAX ``decode_step``.
+
+    Attention runs with Nq = 1 against every slot of the cache, non-causal,
+    with an additive f32 bias of ``-1e9`` on the slots not written yet (and,
+    with ``cfg.sliding_window``, on those that have left the window): K1's
+    bias variant on a bf16 cache, its int8 / fp8 variant (the step's K and V
+    quantized per token first) on a quantized one, GQA-folded either way.
+
+    Unlike the pure JAX function, this one writes the step's K/V (and
+    scales) into the cache tensors in place and advances ``cache["length"]``
+    (a Python int, so the step needs no host sync); it returns the same
+    dict. A quantized cache with ``cfg.logit_softcap`` raises the JAX
+    package's ValueError; a bf16 cache with it raises NotImplementedError
+    until K1's softcap is ported."""
+    quantized = "k_scale" in cache
+    if quantized and cfg.logit_softcap:
+        raise ValueError(
+            "logit_softcap is not supported with a quantized KV cache "
+            "(flash_attention_quantized has no softcap path) — decode with "
+            "an unquantized cache or disable the cap")
+    if cfg.logit_softcap:
+        raise NotImplementedError(
+            f"decode_step: logit_softcap waits for K1's softcap ({_ROADMAP_K1})")
+    B = token.shape[0]
+    pos = int(cache["length"])
+    max_len = cache["k"][0].shape[1]
+    if pos >= max_len:
+        raise ValueError(f"the KV cache is full: length {pos}, max_len {max_len}")
+    device = token.device
+    x = model.embed[token][:, None]  # [B, 1, D]
+    positions = torch.full((B, 1), pos, device=device)
+    # additive mask for not-yet-written cache slots (and, with a sliding
+    # window, slots that have scrolled out of the window)
+    slot = torch.arange(max_len, device=device)
+    live = slot <= pos  # include the token being written this step
+    if cfg.sliding_window:
+        live = live & (slot > pos - cfg.sliding_window)
+    maskbias = torch.where(live, 0.0, -1e9).to(torch.float32)[None, None, None]
+
+    for i, layer in enumerate(model.layers):
+        h = _rms_norm(x, layer.ln1)
+        q = torch.einsum("bnd,dhe->bnhe", h, layer.wq)
+        k = torch.einsum("bnd,dhe->bnhe", h, layer.wk)
+        v = torch.einsum("bnd,dhe->bnhe", h, layer.wv)
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+        kc, vc = cache["k"][i], cache["v"][i]
+        if quantized:
+            qt = quantize_kv(k, v, kc.dtype, allow_slow_fp8=True)
+            ksc, vsc = cache["k_scale"][i], cache["v_scale"][i]
+            kc[:, pos], vc[:, pos] = qt.k_q[:, 0], qt.v_q[:, 0]
+            ksc[:, pos], vsc[:, pos] = qt.k_scale[:, 0], qt.v_scale[:, 0]
+            o = flash_attention_quantized(q, QuantizedKV(kc, ksc, vc, vsc), layout="BNHD",
+                                          bias=maskbias)
+        else:
+            kc[:, pos], vc[:, pos] = k[:, 0], v[:, 0]
+            o = flash_attention(q, kc, vc, causal=False, layout="BNHD", bias=maskbias)
+        x = x + torch.einsum("bnhe,hed->bnd", o, layer.wo).to(x.dtype)
+        x = _mlp_block(layer, x)
+    x = _rms_norm(x, model.ln_f)
+    logits = torch.einsum("bnd,vd->bnv", x, model.embed)[:, 0]
+    cache["length"] = pos + 1
+    return logits.float(), cache

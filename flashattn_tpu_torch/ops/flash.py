@@ -1,17 +1,21 @@
 """Public fused-attention API: validation, layouts, dtype dispatch, autograd.
 
-Port of flashattn_tpu/ops/flash.py for no bias, with the causal mask and
-segment ids (packed sequences): the forward runs K1 (``ops/flash_fwd.py``);
-the gradient, behind a ``torch.autograd.Function``, runs the single-pass
-backward K3 (``ops/flash_bwd_fused.py``) or, with segment ids, the two-kernel
-backward K5 + K6 (``ops/flash_bwd.py``) -- the routing of the JAX
-``_flash_core_bwd``. The arguments keep the JAX signature; those the port's
-kernels do not take yet raise ``NotImplementedError`` naming their ROADMAP
-item, on every device. The TPU routing tiers (unaligned/causal
-decompositions, macro/resident routing, the GQA decode fold) and K3's VMEM
-bound on its dQ scratch are not ported: the CUDA kernels mask the KV tail,
-the Q tail, the causal band and the segments themselves, so one launch covers
-every shape the JAX tiers split up.
+Port of flashattn_tpu/ops/flash.py with the causal mask, segment ids (packed
+sequences) and, in the forward, an additive bias: the forward runs K1
+(``ops/flash_fwd.py``); the gradient, behind a ``torch.autograd.Function``,
+runs the single-pass backward K3 (``ops/flash_bwd_fused.py``) or, with
+segment ids, the two-kernel backward K5 + K6 (``ops/flash_bwd.py``) -- the
+routing of the JAX ``_flash_core_bwd``. The GQA decode fold is ported: a
+tiny-Nq non-causal GQA call folds each KV head's query heads into the Q rows,
+so the cache is read once. The arguments keep the JAX signature; those the
+port's kernels do not take yet raise ``NotImplementedError`` naming their
+ROADMAP item, on every device: the bias's gradient (K5's bias read and K6's
+dbias), the bias together with segment ids, and the window, softcap, offset,
+``block_sizes`` and ``compute_dtype`` options. The TPU routing tiers
+(unaligned/causal decompositions, macro/resident routing) and K3's VMEM bound
+on its dQ scratch are not ported: the CUDA kernels mask the KV tail, the Q
+tail, the causal band and the segments themselves, so one launch covers every
+shape the JAX tiers split up.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
 
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
+_ROADMAP_BIAS = "ROADMAP queue 2, item 1: K5's bias read and K6's dbias"
 
 
 def _dispatch_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -91,10 +96,10 @@ def _normalize_segment_ids(segment_ids, q, k):
     return tuple(ids.to(device=q.device, dtype=torch.int32) for ids in (seg_q, seg_kv))
 
 
-def _reject_unported(*, bias, block_sizes, q_offset, kv_offset, window,
+def _reject_unported(*, bias, segment_ids, block_sizes, q_offset, kv_offset, window,
                      logit_softcap, compute_dtype):
     unported = {
-        "bias": bias is not None,
+        "bias together with segment_ids": bias is not None and segment_ids is not None,
         "window": window is not None,
         "logit_softcap": logit_softcap is not None,
         "nonzero q_offset/kv_offset": int(q_offset) != 0 or int(kv_offset) != 0,
@@ -111,20 +116,26 @@ def _reject_unported(*, bias, block_sizes, q_offset, kv_offset, window,
 class _FlashCore(torch.autograd.Function):
     """K1 forward saving ``(q, k, v, o, lse)`` and the segment ids; the
     backward routes as the JAX ``_flash_core_bwd``: K3 when there are no
-    segment ids (its fused branch), else K5 then K6 (its two-kernel branch)."""
+    segment ids (its fused branch), else K5 then K6 (its two-kernel branch).
+    With a bias the backward raises: it needs K5's bias read and K6's dbias."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_kv, scale, kv_valid_len, causal):
+    def forward(ctx, q, k, v, bias, seg_q, seg_kv, scale, kv_valid_len, causal):
         segment_ids = None if seg_q is None else (seg_q, seg_kv)
         o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
-                               segment_ids=segment_ids)
+                               segment_ids=segment_ids, bias=bias)
         ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_kv)
         ctx.scale, ctx.kv_valid_len, ctx.causal = scale, kv_valid_len, causal
+        ctx.has_bias = bias is not None
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
+        if ctx.has_bias:
+            raise NotImplementedError(
+                "flash_attention: the gradient with a bias needs K5's bias read and K6's "
+                f"dbias, not ported yet ({_ROADMAP_BIAS})")
         q, k, v, o, lse, seg_q, seg_kv = ctx.saved_tensors
         B, Hq, _, D = q.shape
         Hkv, Nk = k.shape[1], k.shape[2]
@@ -141,7 +152,8 @@ class _FlashCore(torch.autograd.Function):
         if Hq != Hkv:  # GQA: dK/dV come per query head; sum each KV head's group
             dk = dk.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
             dv = dv.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None,
+                None)
 
 
 class _FlashForwardOnly(torch.autograd.Function):
@@ -150,10 +162,10 @@ class _FlashForwardOnly(torch.autograd.Function):
     custom_vjp)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seg_q, seg_kv, scale, kv_valid_len, causal):
+    def forward(ctx, q, k, v, bias, seg_q, seg_kv, scale, kv_valid_len, causal):
         segment_ids = None if seg_q is None else (seg_q, seg_kv)
         o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
-                               segment_ids=segment_ids)
+                               segment_ids=segment_ids, bias=bias)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -164,17 +176,37 @@ class _FlashForwardOnly(torch.autograd.Function):
             "differentiate flash_attention instead")
 
 
-def _forward(q, k, v, *, scale, layout, causal, core, segment_ids, **unported):
+def _forward(q, k, v, *, scale, layout, causal, core, bias, segment_ids, fold=False,
+             **unported):
     q, k, v = _to_bhnd(q, layout), _to_bhnd(k, layout), _to_bhnd(v, layout)
-    _validate(q, k, v, unported["bias"])
-    _reject_unported(**unported)
-    seg_q, seg_kv = _normalize_segment_ids(segment_ids, q, k)
+    _validate(q, k, v, bias)
+    _reject_unported(bias=bias, segment_ids=segment_ids, **unported)
     in_dtype = q.dtype
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
     kdt = _dispatch_dtype(in_dtype)
     q, k, v = q.to(kdt), k.to(kdt), v.to(kdt)
-    o, lse = core.apply(q, k, v, seg_q, seg_kv, float(scale), k.shape[2], bool(causal))
+    # GQA decode fold (flash.py:1052-1077): tiny-Nq queries against a GQA
+    # cache would read each KV tile rep = Hq/Hkv times (one CTA per q head).
+    # Folding one KV head's rep q heads into the Q-tile rows reads the cache
+    # once: [B, Hq, Nq, D] -> [B, Hkv, rep·Nq, D], head-major rows, exactly
+    # the kernel's h // rep mapping. Sound only when nothing depends on a
+    # row's sequence position: non-causal, no window or segments, and a bias
+    # without a head dim (decode's cache-slot mask), tiled head-major when
+    # it has rows. Under the JAX condition, so both fold the same calls.
+    B, Hq, Nq, D = q.shape
+    rep = Hq // k.shape[1]
+    if (fold and rep > 1 and not causal and unported["window"] is None
+            and (bias is None or bias.shape[1] == 1) and segment_ids is None
+            and Nq * rep <= 32 and unported["block_sizes"] is None):
+        if bias is not None and bias.shape[2] > 1:
+            bias = bias.repeat(1, 1, rep, 1)
+        o, lse = _forward(
+            q.reshape(B, k.shape[1], rep * Nq, D), k, v, scale=scale, layout="BHND",
+            causal=False, core=core, bias=bias, segment_ids=None, **unported)
+        return _from_bhnd(o.reshape(B, Hq, Nq, D).to(in_dtype), layout), lse
+    seg_q, seg_kv = _normalize_segment_ids(segment_ids, q, k)
+    o, lse = core.apply(q, k, v, bias, seg_q, seg_kv, float(scale), k.shape[2], bool(causal))
     return _from_bhnd(o.to(in_dtype), layout), lse
 
 
@@ -204,25 +236,31 @@ def flash_attention(
       causal: mask ``kv_pos > q_pos``, top-left aligned (position 0 of Q
         and of K/V coincide, also when ``Nq != Nk``).
       scale: softmax scale, default ``D ** -0.5``.
+      bias: additive attention bias ``[B|1, H|1, Nq|1, Nk]`` (dims of size 1
+        broadcast, and are read with stride 0 by the kernel), cast to f32
+        once. Forward only for now: the backward raises
+        ``NotImplementedError`` (K5's bias read and K6's dbias), and so does
+        a bias together with ``segment_ids``.
       segment_ids: packed sequences: integer ids ``[B, N]`` (needs
         ``Nq == Nk``) or a ``(q_ids [B, Nq], kv_ids [B, Nk])`` tuple, ids
         >= 0. Pair (i, j) attends iff ``q_ids[i] == kv_ids[j]`` (AND-composed
         with ``causal``); a row that matches no key gives zeros and zero
         gradients.
-      bias, block_sizes, q_offset, kv_offset, window, logit_softcap,
-      compute_dtype: the JAX package's options; not ported yet, each raises
+      block_sizes, q_offset, kv_offset, window, logit_softcap, compute_dtype:
+        the JAX package's options; not ported yet, each raises
         ``NotImplementedError`` when given (also together with segment ids).
     Returns:
       Attention output, same shape/layout/dtype as ``q``. CPU tensors run the
       plain PyTorch versions, CUDA tensors the kernels (bf16; fp16 is cast to
       bf16 and back): K1 forward; K3 backward, or K5 + K6 with segment ids
-      (head dims up to 128).
+      (head dims up to 128). Tiny-Nq non-causal GQA calls (``Nq·Hq/Hkv <=
+      32``) run folded, one KV head's query heads as Q rows.
     """
     o, _ = _forward(
         q, k, v, scale=scale, layout=layout, causal=causal, core=_FlashCore, bias=bias,
         block_sizes=block_sizes, q_offset=q_offset, kv_offset=kv_offset,
         window=window, segment_ids=segment_ids, logit_softcap=logit_softcap,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, fold=True)
     return o
 
 
@@ -245,8 +283,9 @@ def flash_attention_with_lse(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward-only fused attention returning ``(O, L)`` with
     ``L = logsumexp`` per row ``[B, H, Nq]`` in f32 -- the merge primitive
-    for partial attention results. Same arguments as :func:`flash_attention`;
-    its backward raises ``NotImplementedError``, as the JAX function has none.
+    for partial attention results. Same arguments as :func:`flash_attention`
+    (never folded, as in the JAX package); its backward raises
+    ``NotImplementedError``, as the JAX function has none.
     """
     return _forward(
         q, k, v, scale=scale, layout=layout, causal=causal, core=_FlashForwardOnly, bias=bias,

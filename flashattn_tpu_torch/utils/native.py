@@ -94,15 +94,19 @@ def kernels() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(str(build()[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.fa_fwd_bf16.restype = i32
-    lib.fa_fwd_bf16.argtypes = [
+    lib.fa_fwd.restype = i32
+    lib.fa_fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr,            # q, k, v, o, lse
         ptr, ptr,                           # seg_q, seg_kv (int32 ids, or None)
+        ptr, ptr, ptr,                      # bias, k_scale, v_scale (f32, or None)
+        i32,                                # K/V dtype code (ops/flash_fwd.KV_DTYPE_CODE)
         i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, Nq, D, kv_valid_len
         i32, ctypes.c_float,                # causal, scale
         i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
         i64, i64, i64, i64, i64, i64,       # v, o (batch, head, seq) strides
         i64, i64,                           # seg_q, seg_kv batch strides
+        i64, i64, i64,                      # bias (batch, head, row) strides
+        i64, i64, i64, i64, i64, i64,       # k_scale, v_scale (batch, head, seq) strides
         ptr,                                # cudaStream_t
     ]
     bwd_head = [ptr, ptr, ptr, ptr, ptr, ptr]  # q, k, v, dO, lse, delta

@@ -96,3 +96,29 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
     monkeypatch.setattr(native.os.path, "isfile", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         native.build()
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_110fwd_kernelILi48ELb0ELb0ELi0EEEvN2fa9FwdParamsE",
+     "K1 fwd_kernel<48, 0, 0, 0>"),
+    ("_ZN12_GLOBAL__N_110fwd_kernelILi128ELb1ELb0ELi0EEEvN2fa9FwdParamsE",
+     "K1 segments fwd_kernel<128, 1, 0, 0>"),
+    ("_ZN12_GLOBAL__N_110fwd_kernelILi128ELb0ELb1ELi0EEEvN2fa9FwdParamsE",
+     "K1 bias fwd_kernel<128, 0, 1, 0>"),
+    ("_ZN12_GLOBAL__N_110fwd_kernelILi128ELb0ELb1ELi1EEEvN2fa9FwdParamsE",
+     "K1 int8 bias fwd_kernel<128, 0, 1, 1>"),
+    ("_ZN12_GLOBAL__N_110fwd_kernelILi64ELb0ELb0ELi2EEEvN2fa9FwdParamsE",
+     "K1 fp8 fwd_kernel<64, 0, 0, 2>"),
+    ("_ZN12_GLOBAL__N_110dkv_kernelILi128ELb1EEEvN2fa9BwdParamsE", "K3 dkv_kernel<128, 1>"),
+    ("_ZN12_GLOBAL__N_110dkv_kernelILi64ELb0EEEvN2fa9BwdParamsE", "K5 dkv_kernel<64, 0>"),
+    ("_ZN12_GLOBAL__N_19dq_kernelILi96EEEvN2fa9BwdParamsE", "K6 dq_kernel<96>"),
+    ("_ZN12_GLOBAL__N_110fwd_kernelILi64ELb0EEEvN2fa9FwdParamsE",
+     "unrecognised instantiation fwd_kernel<64, 0>"),
+    ("_Z11some_kernelv", "unrecognised instantiation _Z11some_kernelv"),
+])
+def test_register_report_names_every_instantiation(mangled, name):
+    """chip_smoke.py's build phase names each ptxas entry by kernel and
+    variant; a name it does not know is reported as such, never raised."""
+    import chip_smoke
+
+    assert chip_smoke.instantiation_name(mangled) == name
