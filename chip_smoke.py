@@ -7,8 +7,9 @@ nvcc per source, in parallel) and holds each against its plain PyTorch version
 at the shapes its paths give it: K1 non-causal (serving), K1 causal (which
 also stands for K2), the backward K3 (which also stands for K4), K1 with
 segment ids and the two-kernel backward K5 (dK/dV) + K6 (dQ) of packed
-training, and K1's decode variants (bias; int8 / fp8 K/V). Then it drives the
-port's four paths and checks that each went through its kernels:
+training, K1's decode variants (bias; int8 / fp8 K/V), and the sliding-window
+and soft-capped variants of K1, K3, K5 and K6. Then it drives the port's
+paths and checks that each went through its kernels:
 
 * serving: Euler sampling over the SD1.5 U-Net at full width (random weights
   from a seed, 64x64 latent, 77-token context), fused vs exact attention;
@@ -25,7 +26,23 @@ port's four paths and checks that each went through its kernels:
   first against their plain version at bench_decode's attention shapes:
   gates against the teacher-forced forward and between cache dtypes, 8
   requests per cache dtype (16 K1 launches per step), ms/token at cache
-  lengths 1024-8192.
+  lengths 1024-8192;
+* sliding-window training (bench_lm.py's long-context cells): the same LM
+  with ``sliding_window=2048``, gates at [1, 2049] tokens with a window of
+  512, 10 AdamW steps at [1, 8193] beside 10 full-causal steps, and a few
+  steps at [1, 16385] with ``remat=True``;
+* soft-capped training and decode: the LM with ``logit_softcap=50.0`` (and
+  the window), gates at [1, 2049] and 10 steps at [1, 8193]; bench_decode's
+  LM with the cap on a bf16 cache, decode against the teacher-forced forward
+  and ms/token at cache lengths 1024-8192.
+
+Every kernel's line in the kernels JSON carries its time, its plain version's
+time, its bound (the larger of the bytes it must move at 3.35 TB/s and its
+tensor-core FLOPs at 989 TFLOP/s, the H100 SXM's datasheet peaks) and the
+time of one PyTorch call that computes the same function
+(``scaled_dot_product_attention``, forward or backward; ``flex_attention``
+compiled by ``torch.compile`` where a softcap or segment ids rule SDPA out),
+or null with the reason where none does (quantized K/V).
 
 One line per phase; the last two lines are a JSON object of the kernels'
 numbers and ``{"ok": true, "device": ...}``. Exits non-zero, before printing
@@ -38,6 +55,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -70,6 +88,20 @@ GRAD_REL_L2_LIMIT = 3e-2
 # above 2e-2, so the limit is 1.5x that floor.
 PACKED_GRAD_REL_L2_LIMIT = 3.04e-2
 PACKED_SHAPE = (2, 4096)
+# Sliding-window training (bench_lm.py:141-151): window 2048 at B1 N8192, and
+# with remat at N16384; the gates run at [1, 2049] with a window of 512, so
+# the window binds where the xla arm fits. Soft-capped training and decode
+# take Gemma-2's attn_logit_softcapping, 50.0.
+SWA_WINDOW = 2048
+SWA_SEQ = 8192
+SWA_REMAT_SEQ = 16384
+SWA_REMAT_STEPS = 4
+GATE_WINDOW = 512
+SOFTCAP = 50.0
+# The H100 SXM's datasheet peaks:
+# dense bf16 tensor-core FLOP/s and HBM3 bytes/s.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def log(phase: str, msg: str) -> None:
@@ -94,6 +126,105 @@ def cuda_ms(fn, *, reps: int = 20, trials: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def tensor_bytes(*xs) -> int:
+    """Bytes of the given tensors (None counts 0): each read or written once."""
+    return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of ``nbytes`` over the
+    HBM rate and ``flops`` over the bf16 tensor-core rate, and which one."""
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def pair_flops(q, k, *, matmuls: int, **mask) -> float:
+    """Tensor-core FLOPs of ``matmuls`` products of depth D over the (query,
+    key) pairs that these inputs attend (``flash_fwd.pair_mask`` of ``mask``,
+    counted on the card): 2·D per pair per product, over batch and q heads."""
+    from flashattn_tpu_torch.ops import flash_fwd
+
+    B, Hq, Nq, D = q.shape
+    keep = flash_fwd.pair_mask(Nq, k.shape[2], device=q.device, **mask)
+    pairs = float(keep.expand(B, 1, Nq, k.shape[2]).sum().item()) * Hq
+    return 2.0 * D * pairs * matmuls
+
+
+def sdpa_ms(q, k, v, *, do=None, **kw) -> float:
+    """The library yardstick: one ``scaled_dot_product_attention`` call at
+    its best backend on the same inputs (``enable_gqa`` for Hkv < Hq), or,
+    with ``do``, the one backward call of that attention (dQ, dK, dV from the
+    saved forward). Timed here, used nowhere in the port."""
+    import torch.nn.functional as F
+
+    kw.setdefault("enable_gqa", k.shape[1] != q.shape[1])
+    if do is None:
+        with torch.no_grad():
+            return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, **kw), reps=5,
+                           trials=3)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
+    return cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
+                   reps=5, trials=3)
+
+
+def flex_ms(q, k, v, *, scale: float, do=None, score_mod=None, mask_mod=None) -> float:
+    """The library yardstick where no SDPA call computes the function (a
+    logit softcap, segment ids): one call of ``flex_attention`` compiled by
+    ``torch.compile`` (Triton), with ``score_mod`` and the block mask of
+    ``mask_mod``, on contiguous copies of the same inputs; with ``do``, its
+    one backward call (dQ, dK and dV together). The warm-up compiles it
+    (Inductor's and Triton's caches go to the port's build directory). Timed
+    here, used nowhere in the port."""
+    from flashattn_tpu_torch.utils import native
+
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(native.BUILD_DIR / sub))
+    from torch._functorch import config as functorch_config
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    flex = torch.compile(flex_attention)
+    block = None if mask_mod is None else create_block_mask(
+        mask_mod, q.shape[0], None, q.shape[2], k.shape[2], device=q.device)
+    kw = dict(score_mod=score_mod, block_mask=block, scale=scale,
+              enable_gqa=k.shape[1] != q.shape[1])
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    if do is None:
+        with torch.no_grad():
+            return cuda_ms(lambda: flex(q, k, v, **kw), reps=5, trials=3)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    # The one graph's backward is timed again and again (retain_graph), which
+    # a compiled backward that donates its saved buffers refuses.
+    with functorch_config.patch(donated_buffer=False):
+        out = flex(qg, kg, vg, **kw)
+        return cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
+                       reps=5, trials=3)
+
+
+def softcap_mod(cap: float, bias=None):
+    """flex_attention's ``score_mod`` of K1's softcap: ``cap·tanh(s/cap)`` on
+    the scaled score, then ``bias [1, 1, 1, Nk]`` by key (the HF Gemma-2
+    order, flash_fwd.py:310-318)."""
+    def mod(score, b, h, q_idx, kv_idx):
+        score = cap * torch.tanh(score / cap)
+        return score if bias is None else score + bias[0, 0, 0, kv_idx]
+    return mod
+
+
+def band_mod(lo: int, ids=None):
+    """flex_attention's ``mask_mod`` of causal attention with a left bound
+    ``lo`` (None: none) and segment ids ``ids [B, N]`` (None: none)."""
+    def mod(b, h, q_idx, kv_idx):
+        keep = q_idx >= kv_idx
+        if lo is not None:
+            keep = keep & (q_idx - kv_idx <= lo)
+        if ids is not None:
+            keep = keep & (ids[b, q_idx] == ids[b, kv_idx])
+        return keep
+    return mod
 
 
 def predicted_fused_calls(cfg, h: int, w: int, ctx_len: int) -> int:
@@ -138,38 +269,57 @@ def phase_build() -> None:
     sources = ", ".join(p.name for p in sorted(native.CSRC.glob("*.cu")))
     log("build", f"{sources} built from {native.CSRC.relative_to(native.CSRC.parent.parent)} "
                  f"into {lib.name} in {time.perf_counter() - t0:.2f} s")
-    # ptxas -v: registers and spills of every kernel instantiation.
-    entries = re.split(r"Compiling entry function", out)[1:]
-    for entry in entries:
+    stats = ptxas_stats(out)
+    for name, (regs, stack, spill_st, spill_ld) in stats.items():
+        log("build", f"{name}: {regs} registers, {stack} B stack frame, {spill_st} B spill "
+                     f"stores, {spill_ld} B spill loads")
+    log("build", f"{len(stats)} kernel instantiations")
+
+
+def ptxas_stats(out: str) -> dict:
+    """``ptxas -v`` output as {instantiation_name: (registers, stack frame
+    bytes, spill store bytes, spill load bytes)}."""
+    stats = {}
+    for entry in re.split(r"Compiling entry function", out)[1:]:
         mangled = entry.split("'")[1] if entry.count("'") >= 2 else entry[:120]
         regs = re.search(r"Used (\d+) registers", entry)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", entry)
         if regs and spill:
-            log("build", f"{instantiation_name(mangled)}: {regs.group(1)} registers, "
-                         f"{spill.group(1)} B spill stores, {spill.group(2)} B spill loads")
-    log("build", f"{len(entries)} kernel instantiations")
+            stats[instantiation_name(mangled)] = (int(regs.group(1)), *map(int, spill.groups()))
+    return stats
 
 
 def instantiation_name(mangled: str) -> str:
     """The kernel (K1 and its variant, K3, K5, K6) and template arguments of
     a mangled instantiation name from ptxas, e.g. ``K1 int8 bias
-    fwd_kernel<128, 0, 1, 1>``; an unrecognised name comes back marked as
-    such, never raising."""
-    m = re.search(r"(fwd|dkv|dq)_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    fwd_kernel<128, 0, 1, 1>`` or ``K5 softcap dkv_softcap_kernel<128>``; an
+    unrecognised name comes back marked as such, never raising."""
+    m = re.search(r"(fwd|dkv|dq)(_softcap|_window)?_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if not m:
         return f"unrecognised instantiation {mangled}"
-    kind, args = m.group(1), [int(a) for a in re.findall(r"L[a-z]+(-?\d+)E", m.group(2))]
-    label = f"{kind}_kernel<{', '.join(map(str, args))}>"
-    if kind == "fwd" and len(args) == 4:  # <DP, SEG, BIAS, KV>
-        _, seg, bias, kv = args
-        variant = {0: "", 1: " int8", 2: " fp8"}.get(kv, f" kv{kv}")
-        return (f"K1{variant}{' bias' if bias else ''}{' segments' if seg else ''} "
-                f"{label}")
-    if kind == "dkv" and len(args) == 2:  # <DP, DQ>
-        return f"{'K3' if args[1] else 'K5'} {label}"
-    if kind == "dq" and len(args) == 1:
-        return f"K6 {label}"
-    return f"unrecognised instantiation {label}"
+    kind, family = m.group(1), m.group(2) or ""
+    args = [int(a) for a in re.findall(r"L[a-z]+(-?\d+)E", m.group(3))]
+    label = f"{kind}{family}_kernel<{', '.join(map(str, args))}>"
+    # Template arguments after DP, by kernel: K1 fwd_kernel<DP, SEG, BIAS, KV>,
+    # fwd_softcap_kernel<DP, SEG, BIAS>, fwd_window_kernel<DP, SEG, CAP>; K3/K5
+    # dkv_kernel<DP, DQ>, dkv_softcap_kernel<DP>, dkv_window_kernel<DP, DQ, CAP>;
+    # K6 dq_kernel<DP>, dq_softcap_kernel<DP>, dq_window_kernel<DP, CAP>.
+    params = {("fwd", ""): ("seg", "bias", "kv"), ("fwd", "_softcap"): ("seg", "bias"),
+              ("fwd", "_window"): ("seg", "cap"), ("dkv", ""): ("dq",), ("dkv", "_softcap"): (),
+              ("dkv", "_window"): ("dq", "cap"), ("dq", ""): (), ("dq", "_softcap"): (),
+              ("dq", "_window"): ("cap",)}.get((kind, family))
+    if params is None or len(args) != 1 + len(params):
+        return f"unrecognised instantiation {label}"
+    a = dict(zip(params, args[1:]))
+    cap = family == "_softcap" or a.get("cap")
+    window = family == "_window"
+    if kind == "fwd":
+        variant = {0: "", 1: " int8", 2: " fp8"}.get(a.get("kv", 0), f" kv{a.get('kv')}")
+        return (f"K1{variant}{' softcap' if cap else ''}{' window' if window else ''}"
+                f"{' bias' if a.get('bias') else ''}{' segments' if a['seg'] else ''} {label}")
+    name = "K6" if kind == "dq" else "K3" if a.get("dq") else "K5"
+    return f"{name}{' softcap' if cap else ''}{' window' if window else ''} {label}"
 
 
 def _bnhd(x):
@@ -213,9 +363,15 @@ def phase_kernel_check() -> dict:
 
     ms = cuda_ms(lambda: flash_fwd.fwd(q_s, k_s, v_s, scale=d_s ** -0.5))
     plain_ms = cuda_ms(lambda: flash_fwd.fwd_reference(q_s, k_s, v_s, scale=d_s ** -0.5))
+    res = {"max_abs_err": slice_err, "ms": ms, "plain_ms": plain_ms,
+           **bound(tensor_bytes(q_s, k_s, v_s, q_s) + 4 * q_s.numel() // d_s,
+                   pair_flops(q_s, k_s, matmuls=2, kv_valid_len=k_s.shape[2], causal=False,
+                              segment_ids=None)),
+           "library_ms": sdpa_ms(q_s, k_s, v_s), "library_call": "scaled_dot_product_attention"}
     log("kernel", f"slice shape B1 H8 N4096 D40 bf16: K1 {ms:.4f} ms, plain version "
-                  f"{plain_ms:.4f} ms (median CUDA-event time)")
-    return {"max_abs_err": slice_err, "ms": ms, "plain_ms": plain_ms}
+                  f"{plain_ms:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
+                  f"SDPA {res['library_ms']:.4f} ms (median CUDA-event time)")
+    return res
 
 
 # (name, B, Hq, Hkv, Nq, Nk, D): the LM's attention and the routes K2/K4
@@ -255,9 +411,13 @@ def phase_causal_check() -> dict:
     res["plain_ms"] = cuda_ms(lambda: flash_fwd.fwd_reference(q_s, k_s, v_s, scale=D ** -0.5,
                                                               causal=True), reps=5)
     tf = attention_flops(B, Hq, N, N, D, causal=True, mode="fwd") / 1e9
+    res.update(bound(tensor_bytes(q_s, k_s, v_s, q_s) + 4 * B * Hq * N, tf * 1e9))
+    res["library_ms"] = sdpa_ms(q_s, k_s, v_s, is_causal=True)
+    res["library_call"] = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
     log("kernel", f"lm shape B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal bf16: K1 {res['ms']:.4f} ms "
                   f"({tf / res['ms']:.1f} TFLOP/s), plain version {res['plain_ms']:.4f} ms "
-                  f"({tf / res['plain_ms']:.1f} TFLOP/s) (median CUDA-event time)")
+                  f"({tf / res['plain_ms']:.1f} TFLOP/s), bound {res['bound_ms']:.4f} ms, SDPA "
+                  f"{res['library_ms']:.4f} ms (median CUDA-event time)")
     return res
 
 
@@ -305,9 +465,16 @@ def phase_bwd_check() -> dict:
     res["plain_ms"] = cuda_ms(lambda: flash_bwd_fused.bwd_reference(
         *args, scale=D ** -0.5, causal=True), reps=5)
     tf = attention_flops(B, Hq, N, N, D, causal=True, mode="bwd") / 1e9
+    q, k, v, do = args[:4]
+    # In: q, k, v, dO (bf16), LSE, Delta (f32); out: dQ, and dK/dV per q head (f32).
+    res.update(bound(tensor_bytes(q, k, v, do, *args[4:]) + 4 * (q.numel() + 2 * Hq * N * D),
+                     tf * 1e9))
+    res["library_ms"] = sdpa_ms(q, k, v, do=do, is_causal=True)
+    res["library_call"] = "the backward of scaled_dot_product_attention(is_causal=True)"
     log("kernel", f"lm shape B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal bf16: K3 {res['ms']:.4f} ms "
                   f"({tf / res['ms']:.1f} TFLOP/s), plain version {res['plain_ms']:.4f} ms "
-                  f"({tf / res['plain_ms']:.1f} TFLOP/s) (median CUDA-event time)")
+                  f"({tf / res['plain_ms']:.1f} TFLOP/s), bound {res['bound_ms']:.4f} ms, SDPA "
+                  f"backward {res['library_ms']:.4f} ms (median CUDA-event time)")
     return res
 
 
@@ -424,12 +591,31 @@ def phase_seg_check() -> dict:
     for key, (kernel, plain) in timed.items():
         res[key]["ms"] = cuda_ms(kernel)
         res[key]["plain_ms"] = cuda_ms(plain, reps=3)
+    mask = dict(kv_valid_len=N, causal=True, segment_ids=kw["segment_ids"])
+    ids = tensor_bytes(*kw["segment_ids"])
+    stats = 4 * B * Hq * N  # one f32 per row: LSE or Delta
+    grad = 4 * B * Hq * N * D  # one f32 gradient of q's shape
+    res["k1"].update(bound(tensor_bytes(q, k, v, q) + stats + ids,
+                           pair_flops(q, k, matmuls=2, **mask)))
+    res["k5"].update(bound(tensor_bytes(q, k, v, do) + 2 * stats + ids + 2 * grad,
+                           pair_flops(q, k, matmuls=4, **mask)))
+    res["k6"].update(bound(tensor_bytes(q, k, v, do) + 2 * stats + ids + grad,
+                           pair_flops(q, k, matmuls=3, **mask)))
+    docs = band_mod(None, kw["segment_ids"][0])
+    res["k1"].update(library_ms=flex_ms(q, k, v, scale=kw["scale"], mask_mod=docs),
+                     library_call="flex_attention (torch.compile) with the causal document mask")
+    bwd_ms = flex_ms(q, k, v, scale=kw["scale"], do=do, mask_mod=docs)
+    for key in ("k5", "k6"):
+        res[key].update(library_ms=bwd_ms, library_call=(
+            "the backward of flex_attention (torch.compile) with the causal document mask "
+            "(dQ, dK and dV in one call)"))
     causal_ms = cuda_ms(lambda: flash_fwd.fwd(q, k, v, scale=kw["scale"], causal=True))
     log("seg", f"packed shape B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal, 8 documents per row, bf16: "
                f"K1 with segments {res['k1']['ms']:.4f} ms (plain {res['k1']['plain_ms']:.4f}), "
                f"K5 {res['k5']['ms']:.4f} ms (plain {res['k5']['plain_ms']:.4f}), "
-               f"K6 {res['k6']['ms']:.4f} ms (plain {res['k6']['plain_ms']:.4f}) "
-               "(median CUDA-event time)")
+               f"K6 {res['k6']['ms']:.4f} ms (plain {res['k6']['plain_ms']:.4f}); "
+               f"flex_attention {res['k1']['library_ms']:.4f} ms, its backward "
+               f"{bwd_ms:.4f} ms (median CUDA-event time)")
     log("seg", f"not gated: K1 causal without segments at the same shape {causal_ms:.4f} ms; "
                f"K1 with segments / K1 causal = {res['k1']['ms'] / causal_ms:.3f}")
 
@@ -521,11 +707,12 @@ def _rel_l2(a: dict, b: dict) -> float:
     return math.sqrt(num / den)
 
 
-def _lm_gates(cfg, tokens, segment_ids, grad_limit: float, phase: str) -> None:
+def _lm_gates(cfg, tokens, segment_ids, grad_limit: float | None, phase: str) -> None:
     """Loss and gradient gates of the LM, fused against xla on the same
     weights and tokens: the loss within bench_lm.py's rule, the gradients
-    within ``grad_limit`` relative L2, with the bf16 noise floor (each arm
-    against an f32 copy of the model) printed beside it."""
+    within ``grad_limit`` relative L2 (None: 1.5x the bf16 noise floor of
+    this run), with the bf16 noise floor (each arm against an f32 copy of the
+    model) printed beside it."""
     from flashattn_tpu_torch.models.transformer import Transformer, init_transformer, lm_loss
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -548,9 +735,11 @@ def _lm_gates(cfg, tokens, segment_ids, grad_limit: float, phase: str) -> None:
         if not math.isfinite(loss) or not all(torch.isfinite(t).all() for t in g.values()):
             fail(f"LM {arm}: loss {loss} or its gradients are not finite")
     docs = "" if segment_ids is None else f" in {int(segment_ids.max()) + 1} documents"
+    opts = "".join(f", {n} {getattr(cfg, n)}" for n in ("sliding_window", "logit_softcap")
+                   if getattr(cfg, n) is not None)
     loss_limit = max(5e-2, 1e-2 * abs(lx))
     log(phase, f"LM ({n_params / 1e6:.1f} M params, {cfg.n_layers} layers, d_model "
-               f"{cfg.d_model}, Hq{cfg.n_heads} Hkv{cfg.n_kv_heads} D{cfg.d_head}, bf16) on "
+               f"{cfg.d_model}, Hq{cfg.n_heads} Hkv{cfg.n_kv_heads} D{cfg.d_head}, bf16{opts}) on "
                f"{list(tokens.shape)} tokens{docs}: loss fused {lf:.5f}, xla {lx:.5f}, f32 model "
                f"{l32:.5f}; |fused - xla| {abs(lf - lx):.2e} (limit {loss_limit:.2e}, "
                f"bench_lm.py's rule)")
@@ -558,7 +747,9 @@ def _lm_gates(cfg, tokens, segment_ids, grad_limit: float, phase: str) -> None:
         fail(f"LM loss gate ({phase}): fused {lf} vs xla {lx}")
     floor = max(_rel_l2(gf, g32), _rel_l2(gx, g32))
     rel = _rel_l2(gf, gx)
-    log(phase, f"gradients: fused vs xla relative L2 {rel:.3e} (limit {grad_limit}); "
+    if grad_limit is None:
+        grad_limit = 1.5 * floor
+    log(phase, f"gradients: fused vs xla relative L2 {rel:.3e} (limit {grad_limit:.4e}); "
                f"bf16 noise floor {floor:.3e} (fused vs f32 model {_rel_l2(gf, g32):.3e}, "
                f"xla vs f32 model {_rel_l2(gx, g32):.3e})")
     if not rel <= grad_limit:
@@ -567,9 +758,10 @@ def _lm_gates(cfg, tokens, segment_ids, grad_limit: float, phase: str) -> None:
     torch.cuda.empty_cache()
 
 
-def _lm_steps(cfg, tokens, arm: str, segment_ids=None, *, phase: str, label: str) -> float:
-    """LM_STEPS AdamW steps from the seed-0 weights; logs ms/step (median
-    after LM_WARMUP warm-up steps), tokens/s, peak GB and the losses, fails
+def _lm_steps(cfg, tokens, arm: str, segment_ids=None, *, phase: str, label: str,
+              steps: int = LM_STEPS, warmup: int = LM_WARMUP) -> float:
+    """``steps`` AdamW steps from the seed-0 weights; logs ms/step (median
+    after ``warmup`` warm-up steps), tokens/s, peak GB and the losses, fails
     unless the losses are finite and falling, and returns s/step."""
     from flashattn_tpu_torch.models.transformer import (
         adamw_init, adamw_update, init_transformer, lm_loss)
@@ -580,7 +772,7 @@ def _lm_steps(cfg, tokens, arm: str, segment_ids=None, *, phase: str, label: str
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, secs = [], []
-    for _ in range(LM_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         model.zero_grad(set_to_none=True)
         loss = lm_loss(model, tokens, cfg, attn_impl=arm, segment_ids=segment_ids)
@@ -590,11 +782,11 @@ def _lm_steps(cfg, tokens, arm: str, segment_ids=None, *, phase: str, label: str
         secs.append(time.perf_counter() - t0)
         losses.append(loss.item())
     peak = torch.cuda.max_memory_allocated() / 1e9
-    step_s = statistics.median(secs[LM_WARMUP:])
+    step_s = statistics.median(secs[warmup:])
     n_tokens = tokens.shape[0] * (tokens.shape[1] - 1)
-    log(phase, f"{label}: {LM_STEPS} AdamW steps on {list(tokens.shape)} tokens, "
+    log(phase, f"{label}: {steps} AdamW steps on {list(tokens.shape)} tokens, "
                f"{step_s * 1e3:.2f} ms/step ({', '.join(f'{s * 1e3:.1f}' for s in secs)}), "
-               f"{n_tokens / step_s:.0f} tokens/s (median after {LM_WARMUP} warm-up steps), "
+               f"{n_tokens / step_s:.0f} tokens/s (median after {warmup} warm-up steps), "
                f"peak {peak:.2f} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"LM {label} training: losses {losses} not finite or not falling")
@@ -608,16 +800,20 @@ def _reset_launches() -> None:
 
     flash_fwd.fwd.launches = flash_bwd_fused.bwd.launches = 0
     flash_fwd.fwd.launches_bias = flash_fwd.fwd.launches_int8 = flash_fwd.fwd.launches_fp8 = 0
+    flash_fwd.fwd.launches_window = flash_fwd.fwd.launches_softcap = 0
     flash_bwd.dkv.launches = flash_bwd.dq.launches = 0
 
 
 def _launches() -> dict:
     """Every kernel's launch count; "K1" counts all K1 launches, "K1 bias",
-    "K1 int8" and "K1 fp8" those of its decode variants."""
+    "K1 int8", "K1 fp8", "K1 window" and "K1 softcap" those of its variants
+    (a launch with a window and a softcap counts in both)."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
 
     return {"K1": flash_fwd.fwd.launches, "K1 bias": flash_fwd.fwd.launches_bias,
             "K1 int8": flash_fwd.fwd.launches_int8, "K1 fp8": flash_fwd.fwd.launches_fp8,
+            "K1 window": flash_fwd.fwd.launches_window,
+            "K1 softcap": flash_fwd.fwd.launches_softcap,
             "K3": flash_bwd_fused.bwd.launches, "K5": flash_bwd.dkv.launches,
             "K6": flash_bwd.dq.launches}
 
@@ -751,7 +947,16 @@ def phase_decode_check() -> dict:
             if not ok:
                 fail(f"K1 ({label}) disagrees with fwd_reference: {msg}")
             if (hkv, nq, bias_kind) == (8, 1, "slots"):  # the LM's decode attention
-                res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(
+                    tensor_bytes(q, kk, vv, bias, q, *scales.values()) + 4 * b * hq * nq,
+                    4.0 * d * b * hq * nq * nk)}
+                if dtype == torch.bfloat16:
+                    res[name]["library_ms"] = sdpa_ms(q, k, v, attn_mask=bias)
+                    res[name]["library_call"] = ("scaled_dot_product_attention(attn_mask=bias, "
+                                                 "enable_gqa=True)")
+                else:
+                    res[name].update(library_ms=None, library_call=(
+                        "none: no PyTorch call takes int8 / fp8 K/V with per-token scales"))
         del q, k, v, kk, vv, scales
         torch.cuda.empty_cache()
     return res
@@ -782,6 +987,39 @@ def _decode_logits(model, cfg, tokens, quant_dtype=None):
                         for t in range(tokens.shape[1])], dim=1)
 
 
+def _decode_gate(model, cfg, tokens, phase: str) -> torch.Tensor:
+    """Decode logits of a bf16 cache against the fused teacher-forced forward
+    at the same positions: relative L2 within 1.5x the bf16 floor (each of
+    the two against an f32 copy of the model with exact attention), measured
+    and printed here. Returns the decode logits."""
+    from flashattn_tpu_torch.models.transformer import Transformer, transformer_forward
+
+    with torch.no_grad():
+        fwd = transformer_forward(model, tokens, cfg)
+        m32 = Transformer(dataclasses.replace(cfg, dtype=torch.float32), device=DEVICE)
+        m32.load_state_dict(model.state_dict())
+        ref = transformer_forward(m32, tokens, m32.cfg, attn_impl="xla")
+        del m32
+    dec = _decode_logits(model, cfg, tokens)
+    torch.cuda.synchronize()
+    if dec.shape != fwd.shape or not torch.isfinite(dec).all():
+        fail(f"{phase}: decode logits have shape {tuple(dec.shape)} or are not finite")
+    floor = max(_rel(dec, ref), _rel(fwd, ref))
+    rel = _rel(dec, fwd)
+    n_params = sum(p.numel() for p in model.parameters())
+    opts = "".join(f", {n} {getattr(cfg, n)}" for n in ("sliding_window", "logit_softcap")
+                   if getattr(cfg, n) is not None)
+    log(phase, f"LM ({n_params / 1e6:.1f} M params, {cfg.n_layers} layers, d_model "
+               f"{cfg.d_model}, Hq{cfg.n_heads} Hkv{cfg.n_kv_heads} D{cfg.d_head}, bf16{opts}), "
+               f"{list(tokens.shape)} tokens: bf16-cache decode vs teacher-forced forward "
+               f"relative L2 {rel:.3e} (limit 1.5 x floor = {1.5 * floor:.3e}); bf16 floor "
+               f"{floor:.3e} (decode vs f32 model {_rel(dec, ref):.3e}, forward vs "
+               f"f32 model {_rel(fwd, ref):.3e})")
+    if not rel <= 1.5 * floor:
+        fail(f"{phase} decode gate: decode vs forward relative L2 {rel:.3e} > 1.5 x {floor:.3e}")
+    return dec
+
+
 def _rel(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
@@ -802,9 +1040,7 @@ def phase_decode() -> dict:
     and 8192 with the length held at half (bench_decode.py:46-55), batch 8,
     and the peak device memory. Returns the launch counts per dtype."""
     from flashattn_tpu_torch.models.transformer import (
-        Transformer, TransformerConfig, decode_step, init_kv_cache, init_transformer,
-        transformer_forward)
-
+        TransformerConfig, decode_step, init_kv_cache, init_transformer)
     from flashattn_tpu_torch.utils.platform import native_fp8_matmul
 
     cfg = TransformerConfig(**DECODE_WIDTH)  # bf16
@@ -815,31 +1051,14 @@ def phase_decode() -> dict:
         fail(f"the fp8 guard turned an fp8 cache into {fp8_cache} on this card")
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     model = init_transformer(cfg, gen, device=DEVICE)
-    n_params = sum(p.numel() for p in model.parameters())
     tokens = torch.randint(0, cfg.vocab_size, (2, DECODE_GATE_TOKENS), generator=gen,
                            device=DEVICE)
-    with torch.no_grad():
-        fwd = transformer_forward(model, tokens, cfg)
-        m32 = Transformer(dataclasses.replace(cfg, dtype=torch.float32), device=DEVICE)
-        m32.load_state_dict(model.state_dict())
-        ref = transformer_forward(m32, tokens, m32.cfg, attn_impl="xla")
-        del m32
-    dec = {name: _decode_logits(model, cfg, tokens, None if dt == torch.bfloat16 else dt)
-           for name, dt in KV_DTYPES.items()}
-    torch.cuda.synchronize()
-    for name, lg in dec.items():
-        if lg.shape != fwd.shape or not torch.isfinite(lg).all():
-            fail(f"{name} decode logits have shape {tuple(lg.shape)} or are not finite")
-    floor = max(_rel(dec["bf16"], ref), _rel(fwd, ref))
-    rel = _rel(dec["bf16"], fwd)
-    log("decode", f"LM ({n_params / 1e6:.1f} M params, {cfg.n_layers} layers, d_model "
-                  f"{cfg.d_model}, Hq{cfg.n_heads} Hkv{cfg.n_kv_heads} D{cfg.d_head}, bf16), "
-                  f"{list(tokens.shape)} tokens: bf16-cache decode vs teacher-forced forward "
-                  f"relative L2 {rel:.3e} (limit 1.5 x floor = {1.5 * floor:.3e}); bf16 floor "
-                  f"{floor:.3e} (decode vs f32 model {_rel(dec['bf16'], ref):.3e}, forward vs "
-                  f"f32 model {_rel(fwd, ref):.3e})")
-    if not rel <= 1.5 * floor:
-        fail(f"decode gate: decode vs forward relative L2 {rel:.3e} > 1.5 x {floor:.3e}")
+    dec = {"bf16": _decode_gate(model, cfg, tokens, "decode")}
+    for name in ("int8", "fp8"):
+        dec[name] = _decode_logits(model, cfg, tokens, KV_DTYPES[name])
+        torch.cuda.synchronize()
+        if dec[name].shape != dec["bf16"].shape or not torch.isfinite(dec[name]).all():
+            fail(f"{name} decode logits have shape {tuple(dec[name].shape)} or are not finite")
     scale = max(dec["bf16"].abs().max().item(), 1.0)
     for name in ("int8", "fp8"):
         d = (dec[name] - dec["bf16"]).abs().max().item()
@@ -849,7 +1068,7 @@ def phase_decode() -> dict:
                       f"{_rel(dec[name], dec['bf16']):.3e}")
         if not d < limit:
             fail(f"{name} cache decode differs from the bf16 cache's: {d} >= {limit}")
-    del fwd, ref, dec
+    del dec
 
     counts = {}
     gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -891,34 +1110,396 @@ def phase_decode() -> dict:
 
     for cache_len in DECODE_CACHE_LENS:
         for name, dt in KV_DTYPES.items():
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            cache = init_kv_cache(cfg, DECODE_B, cache_len, None if dt == torch.bfloat16 else dt,
-                                  device=DEVICE)
-            cache["length"] = cache_len // 2
-            token = torch.zeros(DECODE_B, dtype=torch.long, device=DEVICE)
-            secs = []
-            for i in range(DECODE_WARMUP + DECODE_STEPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits, cache = decode_step(model, cache, token, cfg)
-                token = logits.argmax(-1)
-                cache["length"] -= 1  # hold the length, as bench_decode.py does
-                torch.cuda.synchronize()
-                if i >= DECODE_WARMUP:
-                    secs.append(time.perf_counter() - t0)
-            step_s = statistics.median(secs)
-            peak = torch.cuda.max_memory_allocated() / 1e9
-            log("decode", f"{name} cache, cache_len {cache_len} (length {cache_len // 2}), batch "
-                          f"{DECODE_B}: {step_s * 1e3:.3f} ms/token ({min(secs) * 1e3:.3f}-"
-                          f"{max(secs) * 1e3:.3f}), {DECODE_B / step_s:.1f} tokens/s, peak "
-                          f"{peak:.2f} GB (median of {DECODE_STEPS} steps after "
-                          f"{DECODE_WARMUP} warm-up)")
-            del cache
-            torch.cuda.empty_cache()
+            _decode_ms(model, cfg, cache_len, None if dt == torch.bfloat16 else dt,
+                       phase="decode", label=f"{name} cache")
     del model
     torch.cuda.empty_cache()
     return counts
+
+
+def _decode_ms(model, cfg, cache_len: int, quant_dtype, *, phase: str, label: str) -> float:
+    """bench_decode.py:46-55's method: ms/token of decode_step at batch
+    DECODE_B against a ``cache_len``-slot cache with the length held at half,
+    the median of DECODE_STEPS synchronised steps after DECODE_WARMUP;
+    logs it with tokens/s and the peak device memory, returns s/token."""
+    from flashattn_tpu_torch.models.transformer import decode_step, init_kv_cache
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = init_kv_cache(cfg, DECODE_B, cache_len, quant_dtype, device=DEVICE)
+    cache["length"] = cache_len // 2
+    token = torch.zeros(DECODE_B, dtype=torch.long, device=DEVICE)
+    secs = []
+    for i in range(DECODE_WARMUP + DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode_step(model, cache, token, cfg)
+        token = logits.argmax(-1)
+        cache["length"] -= 1  # hold the length, as bench_decode.py does
+        torch.cuda.synchronize()
+        if i >= DECODE_WARMUP:
+            secs.append(time.perf_counter() - t0)
+    step_s = statistics.median(secs)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(phase, f"{label}, cache_len {cache_len} (length {cache_len // 2}), batch "
+               f"{DECODE_B}: {step_s * 1e3:.3f} ms/token ({min(secs) * 1e3:.3f}-"
+               f"{max(secs) * 1e3:.3f}), {DECODE_B / step_s:.1f} tokens/s, peak "
+               f"{peak:.2f} GB (median of {DECODE_STEPS} steps after {DECODE_WARMUP} warm-up)")
+    del cache
+    torch.cuda.empty_cache()
+    return step_s
+
+
+def band_ranges(n_outer: int, n_inner: int, outer: int, inner: int, lo, hi):
+    """The inner rows a banded kernel visits for each ``outer``-row tile:
+    ``(o0, begin, end)``, the ``inner``-aligned tiles from ``begin`` that meet
+    the band [o0 - lo, o0 + outer - 1 + hi] (None: unbounded), up to ``end``
+    -- the ranges that csrc/fwd_tile.cuh and dq_tile.cuh (Q tiles outer, KV
+    tiles inner) and csrc/dkv_tile.cuh (KV tiles outer, with lo and hi
+    swapped) compute, restated here only to print how many tile pairs they
+    visit. Whether the kernels' own ranges hold the band is shown by
+    phase_window_check's edge cases on the card."""
+    for o0 in range(0, n_outer, outer):
+        begin = 0 if lo is None else max(0, o0 - lo) // inner * inner
+        end = n_inner if hi is None else min(n_inner, o0 + outer + hi)
+        yield o0, begin, end
+
+
+def band_tiles(n_outer: int, n_inner: int, outer: int, inner: int, lo, hi) -> int:
+    """Tile pairs a banded kernel visits (:func:`band_ranges`)."""
+    return sum(max(0, -(-(end - begin) // inner))
+               for _, begin, end in band_ranges(n_outer, n_inner, outer, inner, lo, hi))
+
+
+# (name, B, Hq, Hkv, Nq, Nk, D, causal, window): bench_lm's SWA attention
+# (window 2047 = sliding_window 2048 - 1, causal), a non-causal local window,
+# an unaligned left bound at an unaligned N, a right-only window with Nq > Nk,
+# and a left bound with Nq > Nk (rows past Nk + 64 see no key: dead rows).
+WINDOW_CASES = [("swa", 1, 16, 8, SWA_SEQ, SWA_SEQ, 128, True, (SWA_WINDOW - 1, -1)),
+                ("local", 1, 16, 8, 2048, 2048, 128, False, (64, 64)),
+                ("unaligned", 2, 8, 8, 1537, 1537, 64, True, (200, -1)),
+                ("right-only", 1, 8, 8, 1300, 1024, 64, False, (-1, 50)),
+                ("dead-rows", 1, 8, 8, 1300, 1024, 64, False, (64, -1))]
+
+
+# The window checks draw q and k at GROW times unit variance: each row's
+# softmax then peaks on a few keys and O, dQ, dK and dV are O(1), so that one
+# pair dropped or added at a band edge moves an output by O(1). At unit
+# variance a row spreads over its ~2048 keys, |O| is ~0.04, and such a fault
+# stays inside FWD_TOL / BWD_TOL. Beside those per-element budgets each
+# output's relative L2 error is held to WINDOW_REL_L2 (the bf16 rounding of
+# P and dS gives ~2e-3 at the SWA shape).
+GROW = 4
+WINDOW_REL_L2 = 1e-2
+
+
+def _fwd_bwd_check(tag: str, q, k, v, do, **kw) -> dict:
+    """K1 (flash_fwd.fwd) and its backward -- K3, or K5 + K6 with segment ids
+    or a softcap, as flash_attention routes it -- against their plain
+    versions on f32 copies of the same bf16 inputs: O within FWD_TOL[bf16],
+    LSE within 1e-3 on live rows, dQ/dK/dV within BWD_TOL[bf16], each of O,
+    dQ, dK, dV within WINDOW_REL_L2 relative L2 (printed with max|ref|), dead
+    rows' O and dQ exactly 0. Returns the max errors and the (q, k, v, do,
+    lse, delta) the backward took."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+    from flashattn_tpu_torch.utils.testing import (
+        BWD_TOL, FWD_TOL, Tolerance, check_close, grad_gate)
+
+    o, lse = flash_fwd.fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    f32 = [x.float() for x in (q, k, v, do)]
+    o_want, lse_want = flash_fwd.fwd_reference(*f32[:3], **kw)
+    live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
+    ok_o, msg_o = check_close(o, o_want, FWD_TOL[torch.bfloat16], "O")
+    ok_l, msg_l = check_close(lse[live], lse_want[live], Tolerance(LSE_ATOL, 0.0), "LSE")
+    err_o = (o.float() - o_want).abs().max().item()
+    delta = (f32[3] * o_want.float()).sum(-1)
+    args = (q, k, v, do, lse_want, delta)
+    split = "softcap" in kw or "segment_ids" in kw
+    if not split:
+        got = flash_bwd_fused.bwd(*args, **kw)
+        want = flash_bwd_fused.bwd_reference(*f32, lse_want, delta, **kw)
+        names = ("dq", "dk", "dv")
+    else:
+        got = (flash_bwd.dq(*args, **kw), *flash_bwd.dkv(*args, **kw))
+        want = (flash_bwd.dq_reference(*f32, lse_want, delta, **kw),
+                *flash_bwd.dkv_reference(*f32, lse_want, delta, **kw))
+        names = ("dq (K6)", "dk (K5)", "dv (K5)")
+    torch.cuda.synchronize()
+    g_tol = BWD_TOL[torch.bfloat16]
+    ok_g, why_g, err_g, _ = grad_gate(got, want, g_tol, names=names)
+    dead = ~live
+    dead_zero = bool((o[dead] == 0).all() and (got[0][dead] == 0).all())
+    rel = {n: (_rel(a.float(), e), e.abs().max().item())
+           for n, a, e in zip(("O", *names), (o, *got), (o_want, *want))}
+    log("window", f"{tag}: K1 O max_abs_err {err_o:.3e} (budget {O_TOL_NAME}), LSE live rows "
+                  f"max_abs_err {(lse[live] - lse_want[live]).abs().max().item():.3e} (budget "
+                  f"{LSE_ATOL}); {'K5 + K6' if split else 'K3'} dQ/dK/dV "
+                  f"max_abs_err {err_g:.3e} (budget BWD_TOL[bf16] atol {g_tol.atol} rtol "
+                  f"{g_tol.rtol}); relative L2 (limit {WINDOW_REL_L2}) / max|ref|: "
+                  + ", ".join(f"{n} {r:.2e} / {m:.3f}" for n, (r, m) in rel.items())
+                  + f"; dead rows {int(dead.sum())}, their O and dQ exactly 0: {dead_zero}")
+    if not (ok_o and ok_l):
+        fail(f"K1 disagrees with fwd_reference at {tag}: {msg_o}; {msg_l}")
+    if not ok_g:
+        fail(f"the backward disagrees with its plain version at {tag}: {why_g}")
+    if not all(r <= WINDOW_REL_L2 for r, _ in rel.values()):
+        fail(f"relative L2 error above {WINDOW_REL_L2} at {tag}: {rel}")
+    if not dead_zero:
+        fail(f"dead rows at {tag}: O or dQ not exactly 0")
+    del o, got, want, f32
+    torch.cuda.empty_cache()
+    return {"fwd_err": err_o, "bwd_err": err_g, "args": args, "dead": int(dead.sum())}
+
+
+def phase_window_check() -> dict:
+    """The sliding-window and soft-capped variants against their plain
+    versions (_fwd_bwd_check), all on q, k scaled by GROW: K1 and K3 with
+    each window of WINDOW_CASES; K1 and K5 + K6 with a window and segment
+    ids, without and with softcap 50; K1 and K5 + K6 with softcap 50 and the
+    SWA window at bench_lm's long shape; K1 with softcap and the cache-slot
+    bias at bench_decode's shape, GQA-folded. Times each at the path's shape
+    beside its plain version and its library call, the kernels with a window
+    beside the same kernel full-causal (gated: at most 0.6x), and prints the
+    tile pairs each visits."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.ops.flash import flash_attention
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close, make_qkv
+
+    def grown(seed, B, Hq, Nq, D, Nk, Hkv):
+        q, k, v = make_qkv(seed, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv, device=DEVICE)
+        return (_bnhd(x.to(torch.bfloat16)) for x in (GROW * q, GROW * k, v))
+
+    res = {}
+    for i, (name, B, Hq, Hkv, Nq, Nk, D, causal, window) in enumerate(WINDOW_CASES):
+        q, k, v = grown(1000 + i, B, Hq, Nq, D, Nk, Hkv)
+        do = _bnhd(make_qkv(1100 + i, B, Hq, Nq, D, dtype=torch.bfloat16, device=DEVICE)[0])
+        kw = dict(scale=D ** -0.5, causal=causal, window=window)
+        out = _fwd_bwd_check(f"{name} B{B} Hq{Hq} Hkv{Hkv} Nq{Nq} Nk{Nk} D{D} "
+                             f"{'causal' if causal else 'non-causal'} window {window}",
+                             q, k, v, do, **kw)
+        if name == "dead-rows" and not out["dead"]:
+            fail("the dead-row window case has no dead row")
+        if name == "swa":
+            swa = out["args"], kw, out["fwd_err"], out["bwd_err"]
+        del q, k, v, do, out
+    # Packed documents with a window, without and with softcap: K1's windowed
+    # segment variants and K5 + K6's windowed ones, at bench_lm's packed shape.
+    B, Hq, Hkv, N, _, D = SEG_CASES[0][1:7]
+    ids = packed_ids(B, N + 1)[:, :N]
+    for cap in (None, SOFTCAP):
+        q, k, v = grown(1050, B, Hq, N, D, N, Hkv)
+        do = _bnhd(make_qkv(1051, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
+        kw = dict(scale=D ** -0.5, causal=True, window=(GATE_WINDOW - 1, -1),
+                  segment_ids=(ids, ids), **({} if cap is None else {"softcap": cap}))
+        _fwd_bwd_check(f"packed B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal, 8 documents per row, "
+                       f"window {kw['window']}{'' if cap is None else f', softcap {cap}'}",
+                       q, k, v, do, **kw)
+        del q, k, v, do
+
+    (q, k, v, do, lse, delta), kw, k1_err, k3_err = swa
+    B, Hq, Hkv, N, _, D = WINDOW_CASES[0][1:7]
+    wl = kw["window"][0]
+    mask = dict(kv_valid_len=N, causal=True, segment_ids=None, window=kw["window"])
+    band = flash_fwd.pair_mask(N, N, device=DEVICE, **mask)[0, 0]
+    stats, grad = 4 * B * Hq * N, 4 * B * Hq * N * D
+    full = dict(scale=kw["scale"], causal=True)
+    k1 = {"max_abs_err": k1_err, "ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, **kw)),
+          "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw), reps=3, trials=3),
+          **bound(tensor_bytes(q, k, v, q) + stats, pair_flops(q, k, matmuls=2, **mask)),
+          "library_ms": sdpa_ms(q, k, v, attn_mask=band),
+          "library_call": "scaled_dot_product_attention(attn_mask=band, enable_gqa=True)"}
+    k1_full = cuda_ms(lambda: flash_fwd.fwd(q, k, v, **full))
+    args = (q, k, v, do, lse, delta)
+    k3 = {"max_abs_err": k3_err, "ms": cuda_ms(lambda: flash_bwd_fused.bwd(*args, **kw)),
+          "plain_ms": cuda_ms(lambda: flash_bwd_fused.bwd_reference(*args, **kw), reps=2,
+                              trials=3),
+          **bound(tensor_bytes(*args) + 3 * grad, pair_flops(q, k, matmuls=5, **mask)),
+          "library_ms": sdpa_ms(q, k, v, do=do, attn_mask=band),
+          "library_call": "the backward of scaled_dot_product_attention(attn_mask=band)"}
+    k3_full = cuda_ms(lambda: flash_bwd_fused.bwd(*args, **full))
+    bm = 64 if D <= 64 else 32  # K3's Q tile (csrc/dkv_tile.cuh block_m)
+    tiles = {"K1": (band_tiles(N, N, 64, 64, wl, 0), band_tiles(N, N, 64, 64, None, 0)),
+             "K3": (band_tiles(N, N, 64, bm, 0, wl), band_tiles(N, N, 64, bm, 0, None))}
+    for name, res_k, full_ms in (("K1", k1, k1_full), ("K3", k3, k3_full)):
+        visited, causal_pairs = tiles[name]
+        log("window", f"{name} window {kw['window']} causal at B{B} Hq{Hq} Hkv{Hkv} N{N} D{D}: "
+                      f"{res_k['ms']:.4f} ms vs {name} full causal {full_ms:.4f} ms "
+                      f"({res_k['ms'] / full_ms:.3f}x, gate 0.6x); tile pairs per head "
+                      f"{visited} vs full causal {causal_pairs} ({visited / causal_pairs:.3f}); "
+                      f"plain {res_k['plain_ms']:.4f} ms, bound {res_k['bound_ms']:.4f} ms "
+                      f"({res_k['bound_by']}), SDPA with the band mask {res_k['library_ms']:.4f} ms")
+        if not res_k["ms"] <= 0.6 * full_ms:
+            fail(f"{name} with window {kw['window']} takes {res_k['ms']:.4f} ms, more than 0.6x "
+                 f"{name} full causal ({full_ms:.4f} ms)")
+    res["k1_window"], res["k3_window"] = k1, k3
+    del q, k, v, do, lse, delta, args, band, swa
+    torch.cuda.empty_cache()
+
+    # Soft-capped training attention: the SWA shape with Gemma-2's cap.
+    q, k, v = grown(1200, B, Hq, N, D, N, Hkv)
+    do = _bnhd(make_qkv(1201, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
+    kw = dict(kw, softcap=SOFTCAP)
+    out = _fwd_bwd_check(f"softcap {SOFTCAP} window {kw['window']} causal B{B} Hq{Hq} Hkv{Hkv} "
+                         f"N{N} D{D}", q, k, v, do, **kw)
+    args = out["args"]
+    flex_kw = dict(scale=kw["scale"], score_mod=softcap_mod(SOFTCAP), mask_mod=band_mod(wl))
+    fwd_library = dict(library_ms=flex_ms(q, k, v, **flex_kw), library_call=(
+        "flex_attention (torch.compile) with the softcap score_mod and the band block mask"))
+    bwd_library = dict(library_ms=flex_ms(q, k, v, do=do, **flex_kw), library_call=(
+        "the backward of flex_attention (torch.compile) with the softcap score_mod and the "
+        "band block mask (dQ, dK and dV in one call)"))
+    res["k1_softcap"] = {"max_abs_err": out["fwd_err"],
+                         "ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, **kw)),
+                         "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw),
+                                             reps=3, trials=3),
+                         **bound(tensor_bytes(q, k, v, q) + stats,
+                                 pair_flops(q, k, matmuls=2, **mask)), **fwd_library}
+    res["k5_softcap"] = {"max_abs_err": out["bwd_err"],
+                         "ms": cuda_ms(lambda: flash_bwd.dkv(*args, **kw)),
+                         "plain_ms": cuda_ms(lambda: flash_bwd.dkv_reference(*args, **kw),
+                                             reps=2, trials=3),
+                         **bound(tensor_bytes(*args) + 2 * grad,
+                                 pair_flops(q, k, matmuls=4, **mask)), **bwd_library}
+    res["k6_softcap"] = {"max_abs_err": out["bwd_err"],
+                         "ms": cuda_ms(lambda: flash_bwd.dq(*args, **kw)),
+                         "plain_ms": cuda_ms(lambda: flash_bwd.dq_reference(*args, **kw),
+                                             reps=2, trials=3),
+                         **bound(tensor_bytes(*args) + grad,
+                                 pair_flops(q, k, matmuls=3, **mask)), **bwd_library}
+    log("window", f"softcap at the SWA shape: K1 {res['k1_softcap']['ms']:.4f} ms (plain "
+                  f"{res['k1_softcap']['plain_ms']:.4f}, flex_attention "
+                  f"{fwd_library['library_ms']:.4f}), K5 {res['k5_softcap']['ms']:.4f} ms "
+                  f"(plain {res['k5_softcap']['plain_ms']:.4f}), K6 {res['k6_softcap']['ms']:.4f} "
+                  f"ms (plain {res['k6_softcap']['plain_ms']:.4f}), flex_attention's backward "
+                  f"{bwd_library['library_ms']:.4f} ms; K1 window without the cap "
+                  f"{k1['ms']:.4f} ms, K3 window {k3['ms']:.4f} ms (median CUDA-event time)")
+    del q, k, v, do, args, out
+    torch.cuda.empty_cache()
+
+    # Soft-capped decode: K1 with the cap and the cache-slot bias, folded.
+    b, hq, hkv, nk, d = DECODE_B, DECODE_H, 8, DECODE_NK, DECODE_D
+    q, k, v = make_qkv(1300, b, hq, 1, d, Nk=nk, Hkv=hkv, device=DEVICE)
+    q, k, v = (x.to(torch.bfloat16) for x in (GROW * q, GROW * k, v))
+    bias = _decode_slot_bias(nk, nk // 2)
+    o = flash_attention(q, k, v, bias=bias, logit_softcap=SOFTCAP)
+    torch.cuda.synchronize()
+    kw = dict(scale=d ** -0.5, bias=bias, softcap=SOFTCAP)
+    o_want, _ = flash_fwd.fwd_reference(q.float(), k.float(), v.float(), **kw)
+    ok, msg = check_close(o, o_want, FWD_TOL[torch.bfloat16], "O")
+    err = (o.float() - o_want).abs().max().item()
+    qf = q.reshape(b, hkv, hq // hkv, d)  # the folded launch the path makes
+    res["k1_softcap_bias"] = {
+        "max_abs_err": err, "ms": cuda_ms(lambda: flash_fwd.fwd(qf, k, v, **kw)),
+        "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw), reps=3, trials=3),
+        **bound(tensor_bytes(q, k, v, bias, q) + 4 * b * hq, 4.0 * d * b * hq * nk),
+        "library_ms": flex_ms(q, k, v, scale=kw["scale"], score_mod=softcap_mod(SOFTCAP, bias)),
+        "library_call": "flex_attention (torch.compile) with the softcap and bias score_mod"}
+    log("window", f"softcap {SOFTCAP} + cache-slot bias B{b} Hq{hq} Hkv{hkv} Nq1 Nk{nk} D{d} "
+                  f"folded (q, k x{GROW}): O max_abs_err {err:.3e} (budget {O_TOL_NAME}, "
+                  f"max|ref| {o_want.abs().max().item():.3f}); K1 "
+                  f"{res['k1_softcap_bias']['ms'] * 1e3:.2f} us, plain "
+                  f"{res['k1_softcap_bias']['plain_ms'] * 1e3:.2f} us, flex_attention "
+                  f"{res['k1_softcap_bias']['library_ms'] * 1e3:.2f} us")
+    if not ok:
+        fail(f"K1 softcap + bias disagrees with fwd_reference at the decode shape: {msg}")
+    return res
+
+
+def phase_swa_train() -> dict:
+    """Sliding-window training (bench_lm.py:141-151): loss and gradient gates
+    at [1, 2049] tokens with sliding_window 512, fused vs xla (gradients
+    within 1.5x this run's bf16 floor); LM_STEPS fused AdamW steps at
+    [1, 8193] with sliding_window 2048 (exactly K1 = K1 window = K3 =
+    layers x steps, no K5/K6) beside LM_STEPS full-causal steps; then
+    SWA_REMAT_STEPS steps at [1, 16385] with remat (the recomputed forward
+    launches K1 twice per layer). Returns the windowed steps' launch counts."""
+    from flashattn_tpu_torch.models.transformer import TransformerConfig
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    tokens = torch.randint(0, LM_WIDTH["vocab_size"], (1, LM_SEQ + 1), generator=gen,
+                           device=DEVICE)
+    _lm_gates(TransformerConfig(**LM_WIDTH, sliding_window=GATE_WINDOW), tokens, None, None,
+              "swa")
+    cfg = TransformerConfig(**LM_WIDTH, sliding_window=SWA_WINDOW)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SWA_SEQ + 1), generator=gen, device=DEVICE)
+    _reset_launches()
+    swa_s = _lm_steps(cfg, tokens, "fused", phase="swa",
+                      label=f"fused, sliding_window {SWA_WINDOW}")
+    counts = _launches()
+    full_s = _lm_steps(TransformerConfig(**LM_WIDTH), tokens, "fused", phase="swa",
+                       label="fused, full causal")
+    n = cfg.n_layers * LM_STEPS
+    log("swa", f"windowed step / full-causal step at [1, {SWA_SEQ + 1}]: {swa_s / full_s:.3f}")
+    log("swa", f"launches during the windowed steps: {counts} (expected K1 = K1 window = K3 = "
+               f"{cfg.n_layers} layers x {LM_STEPS} steps = {n}, no other)")
+    if counts != _expect(K1=n, K1_window=n, K3=n):
+        fail(f"SWA steps launched {counts}, expected K1 = K1 window = K3 = {n} and no other")
+
+    cfg = dataclasses.replace(cfg, remat=True)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SWA_REMAT_SEQ + 1), generator=gen,
+                           device=DEVICE)
+    _reset_launches()
+    _lm_steps(cfg, tokens, "fused", phase="swa", label=f"fused, sliding_window {SWA_WINDOW}, remat",
+              steps=SWA_REMAT_STEPS, warmup=1)
+    remat = _launches()
+    n = cfg.n_layers * SWA_REMAT_STEPS
+    log("swa", f"launches during the remat steps: {remat} (expected K1 = K1 window = 2 x {n} "
+               f"(forward and its recomputation), K3 = {n})")
+    if remat != _expect(K1=2 * n, K1_window=2 * n, K3=n):
+        fail(f"SWA remat steps launched {remat}, expected K1 = K1 window = {2 * n}, K3 = {n}")
+    return counts
+
+
+def phase_softcap() -> dict:
+    """Soft-capped training and decode. Training: the LM with logit_softcap
+    50 and sliding_window 512, gates at [1, 2049] as phase_swa_train's; then
+    LM_STEPS fused steps at [1, 8193] with the cap and sliding_window 2048:
+    exactly K1 = K1 window = K1 softcap = K5 = K6 = layers x steps, no K3.
+    Decode: bench_decode's LM with the cap and sliding_window 2048 on a bf16
+    cache, decode against the teacher-forced forward (_decode_gate; the
+    forward runs K1 with the window and the cap), ms/token at cache lengths
+    1024-8192 with exactly 16 K1 softcap launches per step, all with the
+    cache-slot bias. Returns both paths' launch counts."""
+    from flashattn_tpu_torch.models.transformer import TransformerConfig, init_transformer
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    tokens = torch.randint(0, LM_WIDTH["vocab_size"], (1, LM_SEQ + 1), generator=gen,
+                           device=DEVICE)
+    _lm_gates(TransformerConfig(**LM_WIDTH, sliding_window=GATE_WINDOW, logit_softcap=SOFTCAP),
+              tokens, None, None, "softcap")
+    cfg = TransformerConfig(**LM_WIDTH, sliding_window=SWA_WINDOW, logit_softcap=SOFTCAP)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SWA_SEQ + 1), generator=gen, device=DEVICE)
+    _reset_launches()
+    _lm_steps(cfg, tokens, "fused", phase="softcap",
+              label=f"fused, logit_softcap {SOFTCAP}, sliding_window {SWA_WINDOW}")
+    train = _launches()
+    n = cfg.n_layers * LM_STEPS
+    log("softcap", f"launches during the soft-capped steps: {train} (expected K1 = K1 window = "
+                   f"K1 softcap = K5 = K6 = {n}, no K3)")
+    if train != _expect(K1=n, K1_window=n, K1_softcap=n, K5=n, K6=n):
+        fail(f"soft-capped steps launched {train}, expected K1 = K1 window = K1 softcap = K5 = "
+             f"K6 = {n} and no other")
+
+    cfg = TransformerConfig(**DECODE_WIDTH, sliding_window=SWA_WINDOW, logit_softcap=SOFTCAP)
+    model = init_transformer(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab_size, (2, DECODE_GATE_TOKENS), generator=gen,
+                           device=DEVICE)
+    _decode_gate(model, cfg, tokens, "softcap")
+    _reset_launches()
+    for cache_len in DECODE_CACHE_LENS:
+        _decode_ms(model, cfg, cache_len, None, phase="softcap",
+                   label=f"bf16 cache, logit_softcap {SOFTCAP}, sliding_window {SWA_WINDOW}")
+    decode = _launches()
+    n = cfg.n_layers * (DECODE_WARMUP + DECODE_STEPS) * len(DECODE_CACHE_LENS)
+    log("softcap", f"launches during the soft-capped decode steps: {decode} (expected "
+                   f"{cfg.n_layers} per step, K1 = K1 bias = K1 softcap = {n})")
+    if decode != _expect(K1=n, K1_bias=n, K1_softcap=n):
+        fail(f"soft-capped decode launched {decode}, expected K1 = K1 bias = K1 softcap = {n}")
+    del model
+    torch.cuda.empty_cache()
+    return {"train": train, "decode": decode}
 
 
 def main() -> None:
@@ -937,8 +1518,13 @@ def main() -> None:
     packed = phase_packed_train()
     dec_k = phase_decode_check()
     dec = phase_decode()
-    fwd_src, bwd_src, split_src = (f"flashattn_tpu_torch/csrc/flash_{d}.cu"
-                                   for d in ("fwd", "bwd", "bwd_split"))
+    win = phase_window_check()
+    swa = phase_swa_train()
+    cap = phase_softcap()
+    fwd_src, bwd_src, split_src, cap_src, win_src, cap_win_src, split_win_src = (
+        f"flashattn_tpu_torch/csrc/flash_{d}.cu"
+        for d in ("fwd", "bwd", "bwd_split", "fwd_softcap", "fwd_window", "fwd_softcap_window",
+                  "bwd_split_window"))
     decode_kernels = [
         {"name": f"flash_fwd {label} (K1 decode, {name} cache)", "route": "cuda",
          "source": f"flashattn_tpu_torch/csrc/flash_fwd_{src}.cu",
@@ -964,7 +1550,29 @@ def main() -> None:
          "replaces": "flashattn_tpu/ops/flash_bwd.py:139", "launches": packed["K5"], **seg["k5"]},
         {"name": "flash_bwd_split dq (K6)", "route": "cuda", "source": split_src,
          "replaces": "flashattn_tpu/ops/flash_bwd.py:234", "launches": packed["K6"],
-         **seg["k6"]}, *decode_kernels]}), flush=True)
+         **seg["k6"]}, *decode_kernels,
+        {"name": "flash_fwd window (K1 causal + sliding window, K2 windowed)", "route": "cuda",
+         "source": win_src,
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:852",
+         "launches": swa["K1 window"], **win["k1_window"]},
+        {"name": "flash_bwd window (K3, K4 windowed)", "route": "cuda", "source": bwd_src,
+         "replaces": "flashattn_tpu/ops/flash_bwd_fused.py:110, "
+                     "flashattn_tpu/ops/flash_bwd_fused.py:651",
+         "launches": swa["K3"], **win["k3_window"]},
+        {"name": "flash_fwd softcap (K1 + logit softcap + sliding window)", "route": "cuda",
+         "source": cap_win_src, "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+         "launches": cap["train"]["K1 softcap"], **win["k1_softcap"]},
+        {"name": "flash_bwd_split dkv softcap (K5 + logit softcap + sliding window)",
+         "route": "cuda", "source": split_win_src,
+         "replaces": "flashattn_tpu/ops/flash_bwd.py:139",
+         "launches": cap["train"]["K5"], **win["k5_softcap"]},
+        {"name": "flash_bwd_split dq softcap (K6 + logit softcap + sliding window)",
+         "route": "cuda", "source": split_win_src,
+         "replaces": "flashattn_tpu/ops/flash_bwd.py:234",
+         "launches": cap["train"]["K6"], **win["k6_softcap"]},
+        {"name": "flash_fwd softcap bias (K1 decode, soft-capped bf16 cache)", "route": "cuda",
+         "source": cap_src, "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+         "launches": cap["decode"]["K1 softcap"], **win["k1_softcap_bias"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,6 +23,16 @@ constexpr float LN2 = 0.6931471805599453f;
 // ops/oracle.py DEFAULT_MASK_VALUE: -0.7 * float32 max, finite so that a
 // fully masked tile never computes -inf - (-inf).
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
+// An unbounded side of the causal / window band (FwdParams / BwdParams lo, hi).
+constexpr int NO_BOUND = 1 << 30;
+
+// The band of flashattn_tpu/ops/flash_fwd.py::_range_predicates as (lo, hi):
+// row i sees column j iff i - lo <= j <= i + hi. A negative window bound is
+// no bound on that side; causal makes the right bound 0, whatever wr is.
+inline void band_bounds(int causal, int wl, int wr, int* lo, int* hi) {
+  *lo = wl >= 0 ? (wl < NO_BOUND ? wl : NO_BOUND) : NO_BOUND;
+  *hi = causal ? 0 : wr >= 0 ? (wr < NO_BOUND ? wr : NO_BOUND) : NO_BOUND;
+}
 
 __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
                                                uint32_t b0, uint32_t b1) {

@@ -1,19 +1,26 @@
 // The KV-tile backward body shared by K3 (csrc/flash_bwd.cu: dK, dV and dQ
 // by f32 atomics) and K5 (csrc/flash_bwd_split.cu: dK and dV only, with
-// optional segment ids). Each kernel is its own instantiation and launch;
-// the header of each .cu says what it replaces and what bounds it.
+// optional segment ids and logit soft-capping). Each kernel is its own
+// instantiation and launch; the header of each .cu says what it replaces and
+// what bounds it.
 //
 // One CTA per (64-row KV tile, q-head, batch) keeps dK and dV in registers
-// and loops over the Q tiles that can see its KV tile: from the diagonal on
-// when causal, and, with segments, only the Q tiles whose id range meets the
-// KV tile's (flash.py::_seg_block_flags). Per Q tile, with the forward's row
-// LSE (natural log) and Delta = rowsum(dO * O):
+// and loops over the Q tiles that can see its KV tile: with causal or a
+// window, only those that meet rows [n0 - hi, n0 + 63 + lo] (the band of
+// fwd_tile.cuh: row i sees column j iff i - lo <= j <= i + hi), and, with
+// segments, only the Q tiles whose id range meets the KV tile's
+// (flash.py::_seg_block_flags). Per Q tile, with the forward's row LSE
+// (natural log) and Delta = rowsum(dO * O):
 //
 //   S = Q K^T (recomputed)      P = exp2(S * scale * log2e - LSE * log2e)
 //   dV += P^T dO                dP = dO V^T         dS = P * (dP - Delta) * scale
 //   dK += dS^T Q                (K3 only) dQ += dS K
 //
-// so dK (and dQ) carry `scale` exactly once.
+// so dK (and dQ) carry `scale` exactly once. With softcap (K5 only,
+// flashattn_tpu/ops/flash_bwd.py:92-96, 220), t = tanh(S * scale / cap),
+// P = exp2(cap * log2e * t - LSE * log2e), and dS gains the cap's Jacobian:
+// dS = P * (dP - Delta) * (1 - t^2) * scale. t is recomputed per element in
+// the loop that forms P and dS, so it costs no register array.
 //
 //   * Each of the 4 warps owns 16 KV rows and computes the transposed scores
 //     S^T = K Q^T and dP^T = V dO^T directly, so P^T and dS^T are already the
@@ -25,9 +32,9 @@
 //     fit a thread's registers without spilling (`-Xptxas -v`).
 //   * GQA: K/V are read at head h / rep without materialising the repeat;
 //     dK/dV are written per query head (f32) and ops/flash.py reduces them.
-//   * Masks: masked pairs get P = 0 exactly (causal col > row on diagonal
+//   * Masks: masked pairs get P = 0 exactly (pairs outside the band on edge
 //     tiles, KV rows past kv_valid_len, Q rows past Nq, pairs of two
-//     segments). There is no -inf anywhere, and no reliance on the mask value
+//     segments). A KV row that no Q row sees gets dK = dV = 0. There is no -inf anywhere, and no reliance on the mask value
 //     underflowing: a dead row's LSE is ln2 * mask, which would give
 //     exp2(mask - mask) = 1 on a merely mask-valued score. KV rows past
 //     kv_valid_len are never loaded; their dK/dV rows are stored as zeros.
@@ -42,13 +49,7 @@
 
 #include "common.cuh"
 
-namespace {
-
-using namespace fa;
-
-constexpr int BLOCK_N = 64;  // KV rows per CTA: 4 warps x 16 rows
-constexpr int NUM_WARPS = 4;
-constexpr int NUM_THREADS = NUM_WARPS * 32;
+namespace fa {
 
 struct BwdParams {
   const __nv_bfloat16* q;
@@ -68,9 +69,28 @@ struct BwdParams {
   int64_t do_sb, do_sh, do_sn;
   int64_t seg_q_sb, seg_kv_sb;
   int hq, rep, nq, nk, d, kv_valid_len, causal;
+  // Band: row i sees column j iff i - lo <= j <= i + hi (NO_BOUND: no bound).
+  int lo, hi;
   float scale;       // softmax scale
   float scale_log2;  // softmax scale * log2(e)
+  float cap_scale;   // softcap: softmax scale / cap
+  float cap_log2;    // softcap: cap * log2(e)
 };
+
+// K5 and K6 with a window, for each head dim; defined in
+// flash_bwd_split_window.cu, so that nvcc builds them beside the rest.
+cudaError_t dkv_window_bf16(const BwdParams& p, int batch, cudaStream_t stream, bool cap);
+cudaError_t dq_window_bf16(const BwdParams& p, int batch, cudaStream_t stream, bool cap);
+
+}  // namespace fa
+
+namespace {
+
+using namespace fa;
+
+constexpr int BLOCK_N = 64;  // KV rows per CTA: 4 warps x 16 rows
+constexpr int NUM_WARPS = 4;
+constexpr int NUM_THREADS = NUM_WARPS * 32;
 
 template <int DP>
 __host__ __device__ constexpr int block_m() {
@@ -86,10 +106,13 @@ __host__ __device__ constexpr size_t dkv_smem_bytes() {
          3 * block_m<DP>() * 4;
 }
 
-// DQ = true: K3 (also adds dQ by atomics; takes no segments).
+// DQ = true: K3 (also adds dQ by atomics; takes no segments, no softcap).
 // DQ = false: K5 (dK and dV only; segments when p.seg_q is not null).
-template <int DP, bool DQ>
-__global__ void __launch_bounds__(NUM_THREADS) dkv_kernel(const BwdParams p) {
+// CAP: logit soft-capping (K5 only). WIN: the sliding window (p.lo, p.hi;
+// without it the band is causal's).
+template <int DP, bool DQ, bool CAP, bool WIN>
+__device__ __forceinline__ void dkv_tile(const BwdParams& p) {
+  static_assert(!(DQ && CAP), "soft-capped gradients run K5 + K6, never K3");
   constexpr int BLOCK_M = block_m<DP>();
   constexpr int STRIDE = DP + 8;          // shared row stride of the [rows][DP] tiles
   constexpr int DS_STRIDE = BLOCK_M + 8;  // shared row stride of dS^T [64][BLOCK_M]
@@ -130,9 +153,15 @@ __global__ void __launch_bounds__(NUM_THREADS) dkv_kernel(const BwdParams p) {
     for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
   }
 
-  // A KV tile wholly past kv_valid_len does no work and stores zeros.
-  const int m_begin = p.causal ? (n0 / BLOCK_M) * BLOCK_M : 0;
-  const int m_end = kv_rows > 0 ? p.nq : 0;
+  // Causal: only the Q tiles from the diagonal on; with a window, only those
+  // that meet rows [n0 - hi, n0 + 63 + lo]. A KV tile wholly past
+  // kv_valid_len, or one that no row sees, does no work and stores zeros.
+  int m_begin = p.causal ? (n0 / BLOCK_M) * BLOCK_M : 0;
+  int m_end = kv_rows > 0 ? p.nq : 0;
+  if constexpr (WIN) {
+    m_begin = p.hi < NO_BOUND ? max(0, n0 - p.hi) / BLOCK_M * BLOCK_M : 0;
+    if (p.lo < NO_BOUND) m_end = min(m_end, n0 + BLOCK_N + p.lo);
+  }
   if (kv_rows > 0) {
     load_tile<DP, BLOCK_N, NUM_THREADS>(
         s_k, p.k + b * p.k_sb + hk * p.k_sh + static_cast<int64_t>(n0) * p.k_sn, p.k_sn,
@@ -214,9 +243,11 @@ __global__ void __launch_bounds__(NUM_THREADS) dkv_kernel(const BwdParams p) {
     }
 
     // P^T = exp2(S^T scale log2e - LSE log2e), exactly 0 where masked;
-    // dS^T = P^T (dP^T - Delta) scale, in place of dP^T.
-    const bool need_mask = seg || (p.causal && m0 < n0 + BLOCK_N - 1) ||
-                           m0 + BLOCK_M > p.nq || n0 + BLOCK_N > nkv;
+    // dS^T = P^T (dP^T - Delta) scale, in place of dP^T (with softcap, P from
+    // the capped score and dS through the cap's Jacobian 1 - t^2).
+    const bool edge = WIN ? n0 + BLOCK_N - 1 - m0 > p.hi || m0 + BLOCK_M - 1 - n0 > p.lo
+                          : p.causal && m0 < n0 + BLOCK_N - 1;
+    const bool need_mask = seg || edge || m0 + BLOCK_M > p.nq || n0 + BLOCK_N > nkv;
 #pragma unroll
     for (int nt = 0; nt < NT_Q; ++nt) {
 #pragma unroll
@@ -225,11 +256,19 @@ __global__ void __launch_bounds__(NUM_THREADS) dkv_kernel(const BwdParams p) {
         const int q = m0 + ql;
         const int kv = kv_row0 + 8 * (e >> 1);
         const bool masked =
-            need_mask && (kv >= nkv || q >= p.nq || (p.causal && kv > q) ||
+            need_mask && (kv >= nkv || q >= p.nq ||
+                          (WIN ? kv - q > p.hi || q - kv > p.lo : p.causal && kv > q) ||
                           (seg && s_segq[ql] != kv_seg[e >> 1]));
-        const float pe = masked ? 0.f : exp2f(s[nt][e] * p.scale_log2 - s_lse[ql]);
-        s[nt][e] = pe;
-        dp[nt][e] = pe * (dp[nt][e] - s_dlt[ql]) * p.scale;
+        if constexpr (CAP) {
+          const float tc = masked ? 0.f : tanhf(s[nt][e] * p.cap_scale);
+          const float pe = masked ? 0.f : exp2f(tc * p.cap_log2 - s_lse[ql]);
+          s[nt][e] = pe;
+          dp[nt][e] = pe * (dp[nt][e] - s_dlt[ql]) * ((1.f - tc * tc) * p.scale);
+        } else {
+          const float pe = masked ? 0.f : exp2f(s[nt][e] * p.scale_log2 - s_lse[ql]);
+          s[nt][e] = pe;
+          dp[nt][e] = pe * (dp[nt][e] - s_dlt[ql]) * p.scale;
+        }
       }
     }
 
@@ -325,13 +364,51 @@ __global__ void __launch_bounds__(NUM_THREADS) dkv_kernel(const BwdParams p) {
   }
 }
 
+template <int DP, bool DQ>
+__global__ void __launch_bounds__(NUM_THREADS) dkv_kernel(const BwdParams p) {
+  dkv_tile<DP, DQ, false, false>(p);
+}
+
+// K5 with logit soft-capping.
+template <int DP>
+__global__ void __launch_bounds__(NUM_THREADS) dkv_softcap_kernel(const BwdParams p) {
+  dkv_tile<DP, false, true, false>(p);
+}
+
+// K3 (DQ) or K5 with the window, K5 also with softcap.
+template <int DP, bool DQ, bool CAP>
+__global__ void __launch_bounds__(NUM_THREADS) dkv_window_kernel(const BwdParams p) {
+  dkv_tile<DP, DQ, CAP, true>(p);
+}
+
+// One launch of the KV-tile kernel of these options: one CTA per (64-row KV
+// tile, q-head, batch).
+template <int DP, bool DQ, bool CAP, bool WIN>
+cudaError_t launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
+  constexpr size_t smem = dkv_smem_bytes<DP, DQ>();
+  void (*kernel)(const BwdParams);
+  if constexpr (WIN) {
+    kernel = dkv_window_kernel<DP, DQ, CAP>;
+  } else if constexpr (CAP) {
+    kernel = dkv_softcap_kernel<DP>;
+  } else {
+    kernel = dkv_kernel<DP, DQ>;
+  }
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.nk + BLOCK_N - 1) / BLOCK_N, p.hq, batch);
+  kernel<<<grid, NUM_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // Fill BwdParams from the C entries' common arguments (shared by K3, K5, K6);
 // strides: q, k, v, dO (batch, head, seq), then seg_q, seg_kv (batch).
+// (wl, wr) is the window (a negative bound: none); softcap 0 is no cap.
 inline BwdParams bwd_params(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, const void* seg_q,
                             const void* seg_kv, int hq, int hkv, int nq, int nk, int d,
-                            int kv_valid_len, int causal, float scale,
-                            const int64_t (&strides)[14]) {
+                            int kv_valid_len, int causal, int wl, int wr, float scale,
+                            float softcap, const int64_t (&strides)[14]) {
   BwdParams p = {};
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -353,8 +430,11 @@ inline BwdParams bwd_params(const void* q, const void* k, const void* v, const v
   p.d = d;
   p.kv_valid_len = kv_valid_len;
   p.causal = causal != 0;
+  band_bounds(causal, wl, wr, &p.lo, &p.hi);
   p.scale = scale;
   p.scale_log2 = scale * fa::LOG2E;
+  p.cap_scale = softcap > 0.f ? scale / softcap : 0.f;
+  p.cap_log2 = softcap * fa::LOG2E;
   return p;
 }
 

@@ -1,12 +1,15 @@
-// K1, the FlashAttention-2 forward for Hopper (sm_90a): bf16 K/V without bias,
-// with or without segment ids, and the C entry of every K1 variant.
+// K1, the FlashAttention-2 forward for Hopper (sm_90a): bf16 K/V without bias
+// or softcap, with or without segment ids, and the C entry of every K1 variant.
 //
 // The kernel body, what it replaces (flashattn_tpu/ops/flash_fwd.py::
-// _fwd_kernel, and by causal _fwd_causal_resident_kernel) and what bounds it
-// are in fwd_tile.cuh. The other instantiation families live in their own
-// sources so that one nvcc per source builds them in parallel:
-// flash_fwd_bias.cu (bf16 with an additive bias), flash_fwd_int8.cu and
-// flash_fwd_fp8.cu (quantized K/V, with or without bias).
+// _fwd_kernel, and by causal or a window _fwd_causal_resident_kernel and
+// fwd_macro_padded) and what bounds it are in fwd_tile.cuh. The other
+// instantiation families live in their own sources so that one nvcc per
+// source builds them in parallel: flash_fwd_bias.cu (bf16 with an additive
+// bias), flash_fwd_int8.cu and flash_fwd_fp8.cu (quantized K/V, with or
+// without bias), flash_fwd_softcap.cu (logit soft-capping on bf16 K/V),
+// flash_fwd_window.cu and flash_fwd_softcap_window.cu (a sliding window on
+// bf16 K/V without bias, without and with softcap).
 
 #include "fwd_tile.cuh"
 
@@ -28,23 +31,29 @@ extern "C" {
 //     strides; required for int8 / fp8 K/V, null for bf16.
 // Requires 8 <= D <= 256 with D % 8 == 0, Hq % Hkv == 0,
 // 0 <= kv_valid_len <= Nk, Nq >= 1; int8 / fp8 K/V rows 8-byte aligned.
-// causal != 0 masks kv_pos > q_pos (zero offsets). Returns a cudaError_t (0
-// on success).
+// causal != 0 masks kv_pos > q_pos (zero offsets); the window (wl, wr) masks
+// kv_pos < q_pos - wl (wl >= 0) and kv_pos > q_pos + wr (wr >= 0), a negative
+// bound being none (bf16 K/V without bias only). softcap > 0 caps the scaled
+// scores at softcap * tanh(s / softcap) (bf16 K/V only; 0: no cap). Returns a
+// cudaError_t (0 on success).
 int fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
            const void* seg_q, const void* seg_kv, const void* bias, const void* k_scale,
            const void* v_scale, int kv_dtype, int batch, int hq, int hkv, int nq, int d,
-           int kv_valid_len, int causal, float scale, int64_t q_sb, int64_t q_sh, int64_t q_sn,
-           int64_t k_sb, int64_t k_sh, int64_t k_sn, int64_t v_sb, int64_t v_sh, int64_t v_sn,
+           int kv_valid_len, int causal, int wl, int wr, float scale, float softcap,
+           int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn,
+           int64_t v_sb, int64_t v_sh, int64_t v_sn,
            int64_t o_sb, int64_t o_sh, int64_t o_sn, int64_t seg_q_sb, int64_t seg_kv_sb,
            int64_t bias_sb, int64_t bias_sh, int64_t bias_sn, int64_t ks_sb, int64_t ks_sh,
            int64_t ks_sn, int64_t vs_sb, int64_t vs_sh, int64_t vs_sn, void* stream) {
   const bool seg = seg_q != nullptr;
   const bool quant = kv_dtype != fa::KV_BF16;
+  const bool win = wl >= 0 || wr >= 0;
   if (d < 8 || d > 256 || d % 8 != 0 || hkv <= 0 || hq % hkv != 0 || nq <= 0 ||
       kv_valid_len < 0 || seg != (seg_kv != nullptr) ||
       (kv_dtype != fa::KV_BF16 && kv_dtype != fa::KV_INT8 && kv_dtype != fa::KV_FP8) ||
       quant != (k_scale != nullptr) || quant != (v_scale != nullptr) ||
-      (seg && (quant || bias != nullptr))) {
+      (seg && (quant || bias != nullptr)) || softcap < 0.f || (softcap > 0.f && quant) ||
+      (win && (quant || bias != nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   fa::FwdParams p;
@@ -72,10 +81,18 @@ int fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   p.d = d;
   p.kv_valid_len = kv_valid_len;
   p.causal = causal != 0;
+  fa::band_bounds(causal, wl, wr, &p.lo, &p.hi);
   p.scale_log2 = scale * fa::LOG2E;
+  p.cap_scale = softcap > 0.f ? scale / softcap : 0.f;
+  p.cap_log2 = softcap * fa::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (kv_dtype == fa::KV_INT8) {
+  if (win) {
+    e = softcap > 0.f ? fa::fwd_softcap_window_bf16(p, batch, s)
+                      : fa::fwd_window_bf16(p, batch, s);
+  } else if (softcap > 0.f) {
+    e = fa::fwd_softcap_bf16(p, batch, s);
+  } else if (kv_dtype == fa::KV_INT8) {
     e = fa::fwd_int8(p, batch, s);
   } else if (kv_dtype == fa::KV_FP8) {
     e = fa::fwd_fp8(p, batch, s);

@@ -26,12 +26,19 @@
 //     A ragged Q tail is masked on store. A row that sees no valid key
 //     (kv_valid_len == 0, or no key of its segment) stores zeros and
 //     lse = ln2 * mask, the package's dead-row convention.
-//   * Causal (kv_pos <= q_pos, top-left aligned with zero offsets, also when
-//     Nq != Nk): the CTA of Q tile m0 visits only the KV tiles whose first
-//     column is <= its last row -- the tile skipping that K2 gets from its
-//     static tile table -- and masks col > row with the finite mask value on
-//     the diagonal tiles only. CTAs are issued longest-first (the last Q
-//     tile, which visits the most KV tiles, gets blockIdx.x == 0).
+//   * Causal and sliding window (absolute positions, top-left aligned with
+//     zero offsets, also when Nq != Nk; flash_fwd.py::_range_predicates):
+//     row i sees column j iff i - lo <= j <= i + hi, where hi is 0 with
+//     causal, else the window's right bound, and lo the window's left bound
+//     (NO_BOUND on an unbounded side). The CTA of Q tile m0 visits only the
+//     KV tiles that meet columns [m0 - lo, m0 + 63 + hi] -- the tile
+//     skipping that K2 gets from its static tile table, so a window of w
+//     costs ~w columns per row, not N -- and masks with the finite mask value
+//     only on the edge tiles that hold a pair outside the band. A row that
+//     the band leaves no column (Nq > Nk + lo) is a dead row. Without a
+//     window the band is causal's alone: KV tiles up to the diagonal, masked
+//     col > row on the diagonal tiles. With causal, CTAs are issued
+//     longest-first (the last Q tile gets blockIdx.x == 0).
 //   * Q/K/V/O are addressed through (batch, head, seq) strides in elements
 //     with a unit head-dim stride, so the models' [B, N, H, D] projections
 //     and KV caches reach the kernel as transposed views without a copy.
@@ -60,14 +67,27 @@
 //     f32 score column, v_scale[col] multiplies P after the row sum and
 //     before P is rounded to bf16 for P V. Folding the scales into K/V before
 //     the bf16 rounding would compute other numbers than the JAX package.
+//   * Logit soft-capping (flash_fwd.py:310-318, Gemma-2): the f32 score
+//     becomes x = cap * log2e * tanh(s * scale / cap) -- scale inside the
+//     tanh, so Q is never pre-scaled -- before the bias (the HF Gemma-2
+//     order) and the masks. tanhf is the accurate one (no fast-math): the
+//     backward's 1 - t^2 amplifies its error near saturation.
 //
-// Segments, bias and the K/V element type are template parameters: a runtime
-// segment flag measured 0.234 -> 0.350 ms on K1 without segments at the U-Net
-// shape (register pressure, PERF.md), so each instantiation carries only the
-// options it takes. The sources instantiate (flash_fwd.cu) bf16 with and
-// without segments, (flash_fwd_bias.cu) bf16 with bias, and
-// (flash_fwd_int8.cu, flash_fwd_fp8.cu) quantized K/V with and without bias,
-// each compiled by its own nvcc in parallel.
+// Segments, bias, softcap, the window and the K/V element type are template
+// parameters: a runtime segment flag measured 0.234 -> 0.350 ms on K1 without
+// segments at the U-Net shape (register pressure, PERF.md), and the window's
+// two ints as runtime parameters measured +13.7% there, so each
+// instantiation carries only the options it takes (the window's bounds stay
+// runtime ints, read only by the windowed instantiations); softcap puts a
+// tanhf on every score. The sources instantiate (flash_fwd.cu) bf16 with and
+// without segments, (flash_fwd_bias.cu) bf16 with bias, (flash_fwd_int8.cu,
+// flash_fwd_fp8.cu) quantized K/V with and without bias,
+// (flash_fwd_softcap.cu) softcap on bf16 K/V with segments, with bias or with
+// neither, and (flash_fwd_window.cu, flash_fwd_softcap_window.cu) the window
+// on bf16 K/V without bias, with or without segments, without and with
+// softcap, each compiled by its own nvcc in parallel. Each family is a
+// kernel of its own name -- fwd_kernel, fwd_softcap_kernel,
+// fwd_window_kernel -- around the one body fwd_tile.
 //
 // What bounds it: at the U-Net shape (B1 H8 N4096 D40) the softmax's exp2 /
 // FMA / shuffle work on the 64x64 score tile competes with the thin matrix
@@ -126,7 +146,11 @@ struct FwdParams {
   int64_t ks_sb, ks_sh, ks_sn;
   int64_t vs_sb, vs_sh, vs_sn;
   int hq, rep, nq, d, kv_valid_len, causal;
+  // Band: row i sees column j iff i - lo <= j <= i + hi (NO_BOUND: no bound).
+  int lo, hi;
   float scale_log2;  // softmax scale * log2(e)
+  float cap_scale;   // softcap: softmax scale / cap
+  float cap_log2;    // softcap: cap * log2(e)
 };
 
 // One launch of an instantiation family over every padded head dim; defined
@@ -135,6 +159,10 @@ cudaError_t fwd_bf16(const FwdParams& p, int batch, cudaStream_t stream);       
 cudaError_t fwd_bias_bf16(const FwdParams& p, int batch, cudaStream_t stream);  // flash_fwd_bias.cu
 cudaError_t fwd_int8(const FwdParams& p, int batch, cudaStream_t stream);       // flash_fwd_int8.cu
 cudaError_t fwd_fp8(const FwdParams& p, int batch, cudaStream_t stream);        // flash_fwd_fp8.cu
+cudaError_t fwd_softcap_bf16(const FwdParams& p, int batch, cudaStream_t stream);  // flash_fwd_softcap.cu
+cudaError_t fwd_window_bf16(const FwdParams& p, int batch, cudaStream_t stream);   // flash_fwd_window.cu
+cudaError_t fwd_softcap_window_bf16(const FwdParams& p, int batch,
+                                    cudaStream_t stream);  // flash_fwd_softcap_window.cu
 
 }  // namespace fa
 
@@ -187,10 +215,12 @@ __device__ __forceinline__ void load_kv_tile(__nv_bfloat16* smem,
 }
 
 // SEG: segment ids; BIAS: additive bias; KV: K/V element type (quantized
-// when not KV_BF16, with p.k_scale / p.v_scale).
-template <int DP, bool SEG, bool BIAS, int KV>
-__global__ void __launch_bounds__(FWD_THREADS) fwd_kernel(const FwdParams p) {
+// when not KV_BF16, with p.k_scale / p.v_scale); CAP: logit soft-capping;
+// WIN: the sliding window (p.lo, p.hi; without it the band is causal's).
+template <int DP, bool SEG, bool BIAS, int KV, bool CAP, bool WIN>
+__device__ __forceinline__ void fwd_tile(const FwdParams& p) {
   constexpr bool QUANT = KV != KV_BF16;
+  static_assert(!(CAP && QUANT), "softcap takes bf16 K/V only (the JAX ValueError)");
   constexpr int BLOCK_M = FWD_BLOCK_M;
   constexpr int BLOCK_N = FWD_BLOCK_N;
   constexpr int STRIDE = DP + 8;  // shared row stride (see load_tile)
@@ -238,9 +268,15 @@ __global__ void __launch_bounds__(FWD_THREADS) fwd_kernel(const FwdParams p) {
 
   const __nv_bfloat16* s_qw = s_q + warp * 16 * STRIDE;
   const int nkv = p.kv_valid_len;
-  // Causal: only KV tiles whose first column is <= this tile's last row.
-  const int n_end = p.causal ? min(nkv, m0 + BLOCK_M) : nkv;
-  const int n_tiles = (n_end + BLOCK_N - 1) / BLOCK_N;
+  // Causal: only KV tiles whose first column is <= this tile's last row; with
+  // a window, only those that meet columns [m0 - lo, m0 + 63 + hi].
+  int n_begin = 0;
+  int n_end = p.causal ? min(nkv, m0 + BLOCK_M) : nkv;
+  if constexpr (WIN) {
+    n_begin = p.lo < NO_BOUND ? max(0, m0 - p.lo) / BLOCK_N * BLOCK_N : 0;
+    n_end = p.hi < NO_BOUND ? min(nkv, m0 + BLOCK_M + p.hi) : nkv;
+  }
+  const int n_tiles = (n_end - n_begin + BLOCK_N - 1) / BLOCK_N;
   // ldmatrix.trans lane -> (row, col) of the 16x16 V block it addresses.
   const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int v_col = (lane >> 4) * 8;
@@ -267,7 +303,7 @@ __global__ void __launch_bounds__(FWD_THREADS) fwd_kernel(const FwdParams p) {
   const float* vs_g = QUANT ? p.v_scale + b * p.vs_sb + hk * p.vs_sh : nullptr;
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = j * BLOCK_N;
+    const int n0 = n_begin + j * BLOCK_N;
     const int kv_rows = min(BLOCK_N, nkv - n0);
     // A tile of other documents only: skip it (uniform across the CTA).
     if (SEG && !ranges_meet(q_range, warp_id_range(kv_ids + n0, kv_rows))) continue;
@@ -303,10 +339,13 @@ __global__ void __launch_bounds__(FWD_THREADS) fwd_kernel(const FwdParams p) {
     }
 
     // Scale into the log2 domain in f32 (with quantized K, the column's K
-    // scale first); add the bias; mask the KV tail, on diagonal tiles the
-    // causal upper triangle (col > row), and pairs of two segments.
+    // scale first; with softcap, through the cap); add the bias; mask the KV
+    // tail, on edge tiles the pairs outside the band (causal's upper triangle
+    // col > row; with a window col - row > hi or row - col > lo), and pairs of
+    // two segments.
     const bool tail = n0 + BLOCK_N > nkv;
-    const bool diag = p.causal && n0 + BLOCK_N - 1 > m0;
+    const bool edge = WIN ? n0 + BLOCK_N - 1 - m0 > p.hi || m0 + BLOCK_M - 1 - n0 > p.lo
+                          : p.causal && n0 + BLOCK_N - 1 > m0;
     float mx[2] = {m_i[0], m_i[1]};
 #pragma unroll
     for (int nt = 0; nt < NT_S; ++nt) {
@@ -314,15 +353,21 @@ __global__ void __launch_bounds__(FWD_THREADS) fwd_kernel(const FwdParams p) {
       for (int e = 0; e < 4; ++e) {
         const int cl = nt * 8 + 2 * t + (e & 1);  // column within the tile
         const int col = n0 + cl;
-        float x = QUANT ? s[nt][e] * s_ks[cl] * p.scale_log2 : s[nt][e] * p.scale_log2;
+        float x;
+        if constexpr (CAP) {
+          x = p.cap_log2 * tanhf(s[nt][e] * p.cap_scale);
+        } else {
+          x = QUANT ? s[nt][e] * s_ks[cl] * p.scale_log2 : s[nt][e] * p.scale_log2;
+        }
         if (BIAS && bias_row[e >> 1] != nullptr && col < nkv) {
           // Floored at the mask value: a bias at the mask value (a boolean
           // mask turned additive) times log2 e would overflow to -inf, and a
           // tile of -inf only would make the rescale exp2(-inf - -inf) NaN.
           x = fmaxf(x + __ldg(bias_row[e >> 1] + col) * LOG2E, MASK_VALUE);
         }
-        if ((tail && col >= nkv) || (diag && col > row0 + 8 * (e >> 1)) ||
-            (SEG && s_seg[cl] != q_seg[e >> 1])) {
+        const int row = row0 + 8 * (e >> 1);
+        const bool out = WIN ? col - row > p.hi || row - col > p.lo : col > row;
+        if ((tail && col >= nkv) || (edge && out) || (SEG && s_seg[cl] != q_seg[e >> 1])) {
           x = MASK_VALUE;
         }
         s[nt][e] = x;
@@ -403,38 +448,63 @@ __global__ void __launch_bounds__(FWD_THREADS) fwd_kernel(const FwdParams p) {
 }
 
 template <int DP, bool SEG, bool BIAS, int KV>
+__global__ void __launch_bounds__(FWD_THREADS) fwd_kernel(const FwdParams p) {
+  fwd_tile<DP, SEG, BIAS, KV, false, false>(p);
+}
+
+template <int DP, bool SEG, bool BIAS>
+__global__ void __launch_bounds__(FWD_THREADS) fwd_softcap_kernel(const FwdParams p) {
+  fwd_tile<DP, SEG, BIAS, KV_BF16, true, false>(p);
+}
+
+// The window, on bf16 K/V without bias (the paths that take one).
+template <int DP, bool SEG, bool CAP>
+__global__ void __launch_bounds__(FWD_THREADS) fwd_window_kernel(const FwdParams p) {
+  fwd_tile<DP, SEG, false, KV_BF16, CAP, true>(p);
+}
+
+template <int DP, bool SEG, bool BIAS, int KV, bool CAP, bool WIN>
 cudaError_t fwd_launch_dp(const FwdParams& p, int batch, cudaStream_t stream) {
+  static_assert(!WIN || (!BIAS && KV == KV_BF16), "the window takes bf16 K/V without bias");
   size_t smem = static_cast<size_t>(FWD_BLOCK_M + 2 * FWD_BLOCK_N) * (DP + 8) *
                 sizeof(__nv_bfloat16);
   if (SEG) smem += FWD_BLOCK_N * sizeof(int);
   if (KV != KV_BF16) smem += 2 * FWD_BLOCK_N * sizeof(float);
-  const cudaError_t e = allow_smem(fwd_kernel<DP, SEG, BIAS, KV>, smem);
+  void (*kernel)(const FwdParams);
+  if constexpr (WIN) {
+    kernel = fwd_window_kernel<DP, SEG, CAP>;
+  } else if constexpr (CAP) {
+    kernel = fwd_softcap_kernel<DP, SEG, BIAS>;
+  } else {
+    kernel = fwd_kernel<DP, SEG, BIAS, KV>;
+  }
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.nq + FWD_BLOCK_M - 1) / FWD_BLOCK_M, p.hq, batch);
-  fwd_kernel<DP, SEG, BIAS, KV><<<grid, FWD_THREADS, smem, stream>>>(p);
+  kernel<<<grid, FWD_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // One instantiation per padded head dim (a multiple of 16 up to 256).
-template <bool SEG, bool BIAS, int KV>
+template <bool SEG, bool BIAS, int KV, bool CAP = false, bool WIN = false>
 cudaError_t fwd_launch(const FwdParams& p, int batch, cudaStream_t s) {
   switch ((p.d + 15) / 16 * 16) {
-    case 16: return fwd_launch_dp<16, SEG, BIAS, KV>(p, batch, s);
-    case 32: return fwd_launch_dp<32, SEG, BIAS, KV>(p, batch, s);
-    case 48: return fwd_launch_dp<48, SEG, BIAS, KV>(p, batch, s);
-    case 64: return fwd_launch_dp<64, SEG, BIAS, KV>(p, batch, s);
-    case 80: return fwd_launch_dp<80, SEG, BIAS, KV>(p, batch, s);
-    case 96: return fwd_launch_dp<96, SEG, BIAS, KV>(p, batch, s);
-    case 112: return fwd_launch_dp<112, SEG, BIAS, KV>(p, batch, s);
-    case 128: return fwd_launch_dp<128, SEG, BIAS, KV>(p, batch, s);
-    case 144: return fwd_launch_dp<144, SEG, BIAS, KV>(p, batch, s);
-    case 160: return fwd_launch_dp<160, SEG, BIAS, KV>(p, batch, s);
-    case 176: return fwd_launch_dp<176, SEG, BIAS, KV>(p, batch, s);
-    case 192: return fwd_launch_dp<192, SEG, BIAS, KV>(p, batch, s);
-    case 208: return fwd_launch_dp<208, SEG, BIAS, KV>(p, batch, s);
-    case 224: return fwd_launch_dp<224, SEG, BIAS, KV>(p, batch, s);
-    case 240: return fwd_launch_dp<240, SEG, BIAS, KV>(p, batch, s);
-    default: return fwd_launch_dp<256, SEG, BIAS, KV>(p, batch, s);
+    case 16: return fwd_launch_dp<16, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 32: return fwd_launch_dp<32, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 48: return fwd_launch_dp<48, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 64: return fwd_launch_dp<64, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 80: return fwd_launch_dp<80, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 96: return fwd_launch_dp<96, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 112: return fwd_launch_dp<112, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 128: return fwd_launch_dp<128, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 144: return fwd_launch_dp<144, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 160: return fwd_launch_dp<160, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 176: return fwd_launch_dp<176, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 192: return fwd_launch_dp<192, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 208: return fwd_launch_dp<208, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 224: return fwd_launch_dp<224, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 240: return fwd_launch_dp<240, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    default: return fwd_launch_dp<256, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
   }
 }
 

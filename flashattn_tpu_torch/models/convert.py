@@ -1,5 +1,5 @@
 """Carry U-Net and LM weights, and LM KV caches, from the JAX package's pytrees
-to the port.
+to the port. Each builds on the card unless given ``device=``.
 
 The JAX trees (``init_unet`` of flashattn_tpu/models/unet.py,
 ``init_transformer`` of flashattn_tpu/models/transformer.py; leaves as numpy
@@ -53,16 +53,16 @@ def _load(module: torch.nn.Module, params, conv_hwio: bool):
     return module
 
 
-def unet_from_jax(params, cfg: UNetConfig, device=None) -> UNet:
-    """A :class:`UNet` on ``device`` holding the weights of the JAX pytree
+def unet_from_jax(params, cfg: UNetConfig, device="cuda") -> UNet:
+    """A :class:`UNet` on ``device`` (the card by default) holding the weights of the JAX pytree
     ``params`` (nested dicts/lists of numpy arrays, e.g. bf16 from ml_dtypes),
     cast to the port's parameter dtypes. Raises ValueError if the trees'
     paths or shapes differ."""
     return _load(UNet(cfg, device=device), params, conv_hwio=True)
 
 
-def transformer_from_jax(params, cfg: TransformerConfig, device=None) -> Transformer:
-    """A :class:`Transformer` on ``device`` holding the weights of the JAX
+def transformer_from_jax(params, cfg: TransformerConfig, device="cuda") -> Transformer:
+    """A :class:`Transformer` on ``device`` (the card by default) holding the weights of the JAX
     pytree ``params`` (``{"embed", "ln_f", "layers": [...]}`` of numpy
     arrays), cast to ``cfg.dtype``. Every leaf keeps its shape. Raises
     ValueError if the trees' paths or shapes differ."""
@@ -83,10 +83,11 @@ def _tensor_from_numpy(x, device) -> torch.Tensor:
     return t.to(device)
 
 
-def kv_cache_from_jax(cache, device=None) -> dict:
+def kv_cache_from_jax(cache, device="cuda") -> dict:
     """The port's KV cache (``models.transformer.init_kv_cache``'s dict) from
     a JAX one, its leaves as numpy arrays -- bf16, f32, int8 or fp8 payloads
-    and f32 scales -- on ``device``, every value kept bit for bit;
+    and f32 scales -- on ``device`` (the card by default), every value kept
+    bit for bit;
     ``length`` becomes a Python int."""
     out = {"length": int(np.asarray(cache["length"]))}
     for name in ("k", "v", "k_scale", "v_scale"):

@@ -2,25 +2,27 @@
 attention engine: the single-device training path and KV-cache decode.
 
 Port of flashattn_tpu/models/transformer.py: :func:`transformer_forward`,
-:func:`lm_loss` (also on packed batches, with ``segment_ids``),
+:func:`lm_loss` (also on packed batches, with ``segment_ids``; with a
+Mistral-style ``sliding_window`` and Gemma-2-style ``logit_softcap``),
 :func:`segment_positions`, the AdamW update, and the serving path
-:func:`init_kv_cache` / :func:`decode_step` (bf16, int8 or fp8 cache).
-Activations stay ``[B, N, H, D]`` so attention runs in its BNHD layout with
-no rearrange: causal :func:`flash_attention` (kernels K1 forward and K3
-backward on the card; K1 with segments and K5 + K6 when packed) or, with
-``attn_impl="xla"``, the exact f32 oracle (the baseline arm). A decode step
-runs K1 once per layer with the cache-slot mask as its additive bias --
-through ``flash_attention`` on a bf16 cache, ``flash_attention_quantized``
-(in-kernel dequantization) on an int8 / fp8 one -- with the GQA decode fold.
+:func:`init_kv_cache` / :func:`decode_step` (bf16, int8 or fp8 cache; a
+soft-capped model on a bf16 cache). Activations stay ``[B, N, H, D]`` so
+attention runs in its BNHD layout with no rearrange: causal
+:func:`flash_attention` (kernels K1 forward and K3 backward on the card, also
+with a window; K1 with segments or a softcap and K5 + K6 when packed or
+soft-capped) or, with ``attn_impl="xla"``, the exact f32 oracle with the same
+window and cap (the baseline arm). A decode step runs K1 once per layer with
+the cache-slot mask as its additive bias -- through ``flash_attention`` on a
+bf16 cache (with the cap, if any), ``flash_attention_quantized`` (in-kernel
+dequantization) on an int8 / fp8 one -- with the GQA decode fold.
 
 The parameters keep the JAX pytree's names and shapes -- ``embed``, ``ln_f``,
 ``layers.{i}.{ln1,wq,wk,wv,wo,ln2,w_gate,w_up,w_down}``, ``wq`` as
 ``[d_model, H, d_head]`` -- and the forward keeps the JAX einsums, so
 ``models.convert.transformer_from_jax`` is a plain copy (and
-``kv_cache_from_jax`` carries a cache over). Windowed or soft-capped
-training, soft-capped decode and the sharded step are not ported yet
-(ROADMAP queue 1, item 7); windowed decode is, because its window is only the
-host-side cache-slot bias.
+``kv_cache_from_jax`` carries a cache over). The sharded step is not ported
+yet (ROADMAP queue 1, item 8). :class:`Transformer`, :func:`init_transformer`
+and :func:`init_kv_cache` build on the card unless given ``device=``.
 """
 
 from __future__ import annotations
@@ -38,8 +40,6 @@ from flashattn_tpu_torch.ops.quant import (
     QuantizedKV, flash_attention_quantized, quantize_kv, resolve_quant_dtype,
 )
 
-_ROADMAP_K1 = "ROADMAP queue 2, K1 options"
-
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
@@ -51,10 +51,13 @@ class TransformerConfig:
     d_head: int = 64
     d_ff: int = 1408
     rope_theta: float = 10000.0
-    # Mistral-style sliding window (None = full causal attention); decode
-    # only (a host-side cache-slot bias), not ported to training.
+    # Mistral-style sliding window: each token attends to at most the
+    # previous `sliding_window` tokens (None = full causal attention). K1 and
+    # the backward skip the tiles outside it; decode masks the cache slots
+    # that have left it.
     sliding_window: int | None = None
-    # Gemma-2-style logit soft-capping (None = off); not ported.
+    # Gemma-2-style logit soft-capping (None = off); training runs K1 with
+    # the cap and K5 + K6, decode needs a bf16 cache.
     logit_softcap: float | None = None
     # Recompute each block in the backward (torch.utils.checkpoint) instead
     # of storing its activations, as jax.checkpoint does in the JAX model.
@@ -100,11 +103,11 @@ class Layer(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The LM's parameters, laid out as the JAX pytree of ``init_transformer``.
-    Allocated uninitialised: use :func:`init_transformer` or
-    ``models.convert.transformer_from_jax``."""
+    """The LM's parameters, laid out as the JAX pytree of ``init_transformer``,
+    on ``device`` (the card by default). Allocated uninitialised: use
+    :func:`init_transformer` or ``models.convert.transformer_from_jax``."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model, dtype=cfg.dtype,
@@ -117,11 +120,12 @@ class Transformer(nn.Module):
                                    segment_ids=segment_ids)
 
 
-def init_transformer(cfg: TransformerConfig, generator: torch.Generator, device=None) -> Transformer:
-    """An LM with the JAX package's initialisation: projections
-    ``normal · fan_in^-1/2``, the embedding ``normal · 0.02``, unit norm
-    scales. Draws come from ``generator`` on its own device, in f32, then are
-    cast to ``cfg.dtype``."""
+def init_transformer(cfg: TransformerConfig, generator: torch.Generator,
+                     device="cuda") -> Transformer:
+    """An LM on ``device`` (the card by default) with the JAX package's
+    initialisation: projections ``normal · fan_in^-1/2``, the embedding
+    ``normal · 0.02``, unit norm scales. Draws come from ``generator`` on its
+    own device, in f32, then are cast to ``cfg.dtype``."""
     model = Transformer(cfg, device=device)
 
     def normal(shape, std):
@@ -161,16 +165,6 @@ def _mlp_block(layer: Layer, x):
     return x + torch.einsum("bnf,fd->bnd", gate * up, layer.w_down)
 
 
-def _reject_unported(cfg: TransformerConfig):
-    unported = {"sliding_window": cfg.sliding_window is not None,
-                "logit_softcap": cfg.logit_softcap is not None}
-    for name, given in unported.items():
-        if given:
-            raise NotImplementedError(
-                f"transformer_forward: {name} waits for the matching flash_attention "
-                f"option in the port ({_ROADMAP_K1}; decode_step takes sliding_window)")
-
-
 def segment_positions(segment_ids):
     """Per-segment RoPE positions for a packed batch: each contiguous run of
     equal ids restarts at position 0 (``[0,0,1,1,1] → [0,1,0,1,2]``)."""
@@ -188,7 +182,9 @@ def transformer_forward(model: Transformer, tokens, cfg: TransformerConfig, *,
 
     ``attn_impl``: "fused" runs causal :func:`flash_attention` (the kernels
     on the card); "xla" computes exact unfused softmax attention in f32, the
-    baseline arm (named after the JAX model's arm).
+    baseline arm (named after the JAX model's arm). Both take
+    ``cfg.sliding_window`` as the window ``(sliding_window - 1, -1)`` and
+    ``cfg.logit_softcap`` as the cap.
 
     ``segment_ids`` ``[B, N]``: packed-batch training -- several documents
     packed into one row as contiguous runs of equal ids. Attention is blocked
@@ -196,21 +192,24 @@ def transformer_forward(model: Transformer, tokens, cfg: TransformerConfig, *,
     logits equal the per-document logits."""
     if attn_impl not in ("fused", "xla"):
         raise ValueError(f"unknown attn_impl {attn_impl!r} (expected 'fused' or 'xla')")
-    _reject_unported(cfg)
     B, N = tokens.shape
     x = model.embed[tokens]
     if segment_ids is not None:
         positions = segment_positions(segment_ids)
     else:
         positions = torch.arange(N, device=tokens.device)[None].expand(B, N)
+    window = (cfg.sliding_window - 1, -1) if cfg.sliding_window else None
 
     def attn(q, k, v):
         if attn_impl == "xla":
             o = attention_reference(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
-                segment_ids=None if segment_ids is None else (segment_ids, segment_ids))
+                window=window,
+                segment_ids=None if segment_ids is None else (segment_ids, segment_ids),
+                logit_softcap=cfg.logit_softcap)
             return o.transpose(1, 2).to(q.dtype)
-        return flash_attention(q, k, v, causal=True, layout="BNHD", segment_ids=segment_ids)
+        return flash_attention(q, k, v, causal=True, layout="BNHD", window=window,
+                               segment_ids=segment_ids, logit_softcap=cfg.logit_softcap)
 
     def block(layer, x):
         return _mlp_block(layer, _attention_block(layer, x, positions, cfg, attn))
@@ -281,8 +280,9 @@ def adamw_update(grads, state, params, *, lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, quant_dtype=None, *,
-                  device=None) -> dict:
-    """The JAX package's KV cache on ``device``, zero-filled: ``length`` (a
+                  device="cuda") -> dict:
+    """The JAX package's KV cache on ``device`` (the card by default),
+    zero-filled: ``length`` (a
     Python int, the slot the next step writes) and per layer ``k``/``v``
     ``[B, max_len, Hkv, D]`` lists in ``cfg.dtype``. With ``quant_dtype``
     (``torch.int8`` or ``torch.float8_e4m3fn``, through the fp8 guard of
@@ -313,24 +313,21 @@ def decode_step(model: Transformer, cache: dict, token, cfg: TransformerConfig):
     Attention runs with Nq = 1 against every slot of the cache, non-causal,
     with an additive f32 bias of ``-1e9`` on the slots not written yet (and,
     with ``cfg.sliding_window``, on those that have left the window): K1's
-    bias variant on a bf16 cache, its int8 / fp8 variant (the step's K and V
-    quantized per token first) on a quantized one, GQA-folded either way.
+    bias variant on a bf16 cache (with ``cfg.logit_softcap``, its soft-capped
+    bias variant), its int8 / fp8 variant (the step's K and V quantized per
+    token first) on a quantized one, GQA-folded either way.
 
     Unlike the pure JAX function, this one writes the step's K/V (and
     scales) into the cache tensors in place and advances ``cache["length"]``
     (a Python int, so the step needs no host sync); it returns the same
     dict. A quantized cache with ``cfg.logit_softcap`` raises the JAX
-    package's ValueError; a bf16 cache with it raises NotImplementedError
-    until K1's softcap is ported."""
+    package's ValueError."""
     quantized = "k_scale" in cache
     if quantized and cfg.logit_softcap:
         raise ValueError(
             "logit_softcap is not supported with a quantized KV cache "
             "(flash_attention_quantized has no softcap path) — decode with "
             "an unquantized cache or disable the cap")
-    if cfg.logit_softcap:
-        raise NotImplementedError(
-            f"decode_step: logit_softcap waits for K1's softcap ({_ROADMAP_K1})")
     B = token.shape[0]
     pos = int(cache["length"])
     max_len = cache["k"][0].shape[1]
@@ -364,7 +361,8 @@ def decode_step(model: Transformer, cache: dict, token, cfg: TransformerConfig):
                                           bias=maskbias)
         else:
             kc[:, pos], vc[:, pos] = k[:, 0], v[:, 0]
-            o = flash_attention(q, kc, vc, causal=False, layout="BNHD", bias=maskbias)
+            o = flash_attention(q, kc, vc, causal=False, layout="BNHD", bias=maskbias,
+                                logit_softcap=cfg.logit_softcap)
         x = x + torch.einsum("bnhe,hed->bnd", o, layer.wo).to(x.dtype)
         x = _mlp_block(layer, x)
     x = _rms_norm(x, model.ln_f)

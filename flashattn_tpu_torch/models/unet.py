@@ -260,11 +260,12 @@ class SpatialTransformer(nn.Module):
 
 
 class UNet(nn.Module):
-    """The U-Net's parameters, laid out as the JAX pytree of ``init_unet``.
+    """The U-Net's parameters, laid out as the JAX pytree of ``init_unet``, on
+    ``device`` (the card by default; the blocks inside take it from here).
     Parameters are allocated uninitialised: use :func:`init_unet` or
     ``models.convert.unet_from_jax``."""
 
-    def __init__(self, cfg: UNetConfig, device=None):
+    def __init__(self, cfg: UNetConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         mc, dt = cfg.model_channels, cfg.dtype
@@ -328,8 +329,9 @@ class UNet(nn.Module):
         return unet_forward(self, x, t, context, self.cfg, attn_impl=attn_impl)
 
 
-def init_unet(cfg: UNetConfig, generator: torch.Generator, device=None) -> UNet:
-    """A U-Net with the JAX package's initialisation: dense and conv weights
+def init_unet(cfg: UNetConfig, generator: torch.Generator, device="cuda") -> UNet:
+    """A U-Net on ``device`` (the card by default) with the JAX package's
+    initialisation: dense and conv weights
     ``normal · fan_in^-1/2`` (zero where SD zero-initialises and
     ``cfg.zero_init``), zero biases, unit norm scales. Draws come from
     ``generator`` on its own device."""

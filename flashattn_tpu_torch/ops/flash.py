@@ -1,21 +1,22 @@
 """Public fused-attention API: validation, layouts, dtype dispatch, autograd.
 
-Port of flashattn_tpu/ops/flash.py with the causal mask, segment ids (packed
-sequences) and, in the forward, an additive bias: the forward runs K1
-(``ops/flash_fwd.py``); the gradient, behind a ``torch.autograd.Function``,
-runs the single-pass backward K3 (``ops/flash_bwd_fused.py``) or, with
-segment ids, the two-kernel backward K5 + K6 (``ops/flash_bwd.py``) -- the
-routing of the JAX ``_flash_core_bwd``. The GQA decode fold is ported: a
-tiny-Nq non-causal GQA call folds each KV head's query heads into the Q rows,
-so the cache is read once. The arguments keep the JAX signature; those the
+Port of flashattn_tpu/ops/flash.py with the causal mask, the sliding window,
+segment ids (packed sequences), logit soft-capping and, in the forward, an
+additive bias: the forward runs K1 (``ops/flash_fwd.py``); the gradient,
+behind a ``torch.autograd.Function``, runs the single-pass backward K3
+(``ops/flash_bwd_fused.py``) or, with segment ids or a softcap, the
+two-kernel backward K5 + K6 (``ops/flash_bwd.py``) -- the routing of the JAX
+``_flash_core_bwd``. The GQA decode fold is ported: a tiny-Nq non-causal GQA
+call without a window folds each KV head's query heads into the Q rows, so
+the cache is read once. The arguments keep the JAX signature; those the
 port's kernels do not take yet raise ``NotImplementedError`` naming their
 ROADMAP item, on every device: the bias's gradient (K5's bias read and K6's
-dbias), the bias together with segment ids, and the window, softcap, offset,
+dbias), the bias together with segment ids, nonzero offsets, and the
 ``block_sizes`` and ``compute_dtype`` options. The TPU routing tiers
 (unaligned/causal decompositions, macro/resident routing) and K3's VMEM bound
 on its dQ scratch are not ported: the CUDA kernels mask the KV tail, the Q
-tail, the causal band and the segments themselves, so one launch covers every
-shape the JAX tiers split up.
+tail, the causal and window band and the segments themselves, so one launch
+covers every shape the JAX tiers split up.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
 
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
 _ROADMAP_BIAS = "ROADMAP queue 2, item 1: K5's bias read and K6's dbias"
+_ROADMAP_OFFSETS = "ROADMAP queue 2, item 2: dynamic q/kv offsets"
 
 
 def _dispatch_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -96,36 +98,38 @@ def _normalize_segment_ids(segment_ids, q, k):
     return tuple(ids.to(device=q.device, dtype=torch.int32) for ids in (seg_q, seg_kv))
 
 
-def _reject_unported(*, bias, segment_ids, block_sizes, q_offset, kv_offset, window,
-                     logit_softcap, compute_dtype):
+def _reject_unported(*, bias, segment_ids, block_sizes, q_offset, kv_offset, compute_dtype):
     unported = {
-        "bias together with segment_ids": bias is not None and segment_ids is not None,
-        "window": window is not None,
-        "logit_softcap": logit_softcap is not None,
-        "nonzero q_offset/kv_offset": int(q_offset) != 0 or int(kv_offset) != 0,
-        "block_sizes": block_sizes is not None,
-        "compute_dtype": compute_dtype is not None,
+        "bias together with segment_ids": (bias is not None and segment_ids is not None,
+                                           _ROADMAP_K1),
+        "nonzero q_offset/kv_offset": (int(q_offset) != 0 or int(kv_offset) != 0,
+                                       _ROADMAP_OFFSETS),
+        "block_sizes": (block_sizes is not None, _ROADMAP_K1),
+        "compute_dtype": (compute_dtype is not None, _ROADMAP_K1),
     }
-    for name, given in unported.items():
+    for name, (given, item) in unported.items():
         if given:
             raise NotImplementedError(
-                f"flash_attention: {name} is not ported to the CUDA K1 yet "
-                f"({_ROADMAP_K1})")
+                f"flash_attention: {name} is not ported to the CUDA K1 yet ({item})")
 
 
 class _FlashCore(torch.autograd.Function):
-    """K1 forward saving ``(q, k, v, o, lse)`` and the segment ids; the
-    backward routes as the JAX ``_flash_core_bwd``: K3 when there are no
-    segment ids (its fused branch), else K5 then K6 (its two-kernel branch).
-    With a bias the backward raises: it needs K5's bias read and K6's dbias."""
+    """K1 forward saving ``(q, k, v, o, lse)``, the segment ids, the window
+    and the softcap; the backward routes as the JAX ``_flash_core_bwd``: K3
+    when there are no segment ids and no softcap (its fused branch, with the
+    window), else K5 then K6 (its two-kernel branch). With a bias the
+    backward raises: it needs K5's bias read and K6's dbias."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seg_q, seg_kv, scale, kv_valid_len, causal):
+    def forward(ctx, q, k, v, bias, seg_q, seg_kv, scale, kv_valid_len, causal, window,
+                softcap):
         segment_ids = None if seg_q is None else (seg_q, seg_kv)
         o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
-                               segment_ids=segment_ids, bias=bias)
+                               segment_ids=segment_ids, bias=bias, window=window,
+                               softcap=softcap)
         ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_kv)
         ctx.scale, ctx.kv_valid_len, ctx.causal = scale, kv_valid_len, causal
+        ctx.window, ctx.softcap = window, softcap
         ctx.has_bias = bias is not None
         ctx.mark_non_differentiable(lse)
         return o, lse
@@ -142,18 +146,20 @@ class _FlashCore(torch.autograd.Function):
         do = do.to(q.dtype)
         # Δ = rowsum(dO ⊙ O) in f32, outside the kernel (XLA's job in the JAX package).
         delta = (do.float() * o.float()).sum(-1)
-        kw = dict(scale=ctx.scale, causal=ctx.causal, kv_valid_len=ctx.kv_valid_len)
-        if seg_q is None:
+        kw = dict(scale=ctx.scale, causal=ctx.causal, kv_valid_len=ctx.kv_valid_len,
+                  window=ctx.window)
+        if seg_q is None and ctx.softcap is None:
             dq, dk, dv = flash_bwd_fused.bwd(q, k, v, do, lse, delta, **kw)
         else:
-            kw["segment_ids"] = (seg_q, seg_kv)
+            kw["segment_ids"] = None if seg_q is None else (seg_q, seg_kv)
+            kw["softcap"] = ctx.softcap
             dk, dv = flash_bwd.dkv(q, k, v, do, lse, delta, **kw)
             dq = flash_bwd.dq(q, k, v, do, lse, delta, **kw)
         if Hq != Hkv:  # GQA: dK/dV come per query head; sum each KV head's group
             dk = dk.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
             dv = dv.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None,
-                None)
+                None, None, None)
 
 
 class _FlashForwardOnly(torch.autograd.Function):
@@ -162,10 +168,12 @@ class _FlashForwardOnly(torch.autograd.Function):
     custom_vjp)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seg_q, seg_kv, scale, kv_valid_len, causal):
+    def forward(ctx, q, k, v, bias, seg_q, seg_kv, scale, kv_valid_len, causal, window,
+                softcap):
         segment_ids = None if seg_q is None else (seg_q, seg_kv)
         o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
-                               segment_ids=segment_ids, bias=bias)
+                               segment_ids=segment_ids, bias=bias, window=window,
+                               softcap=softcap)
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -176,11 +184,14 @@ class _FlashForwardOnly(torch.autograd.Function):
             "differentiate flash_attention instead")
 
 
-def _forward(q, k, v, *, scale, layout, causal, core, bias, segment_ids, fold=False,
-             **unported):
+def _forward(q, k, v, *, scale, layout, causal, core, bias, segment_ids, window,
+             logit_softcap, fold=False, **unported):
     q, k, v = _to_bhnd(q, layout), _to_bhnd(k, layout), _to_bhnd(v, layout)
     _validate(q, k, v, bias)
     _reject_unported(bias=bias, segment_ids=segment_ids, **unported)
+    # As the JAX function normalises them (flash.py:1093-1095, 1164-1171).
+    window = None if window is None else tuple(int(w) for w in window)
+    softcap = None if logit_softcap is None else float(logit_softcap)
     in_dtype = q.dtype
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
@@ -193,20 +204,23 @@ def _forward(q, k, v, *, scale, layout, causal, core, bias, segment_ids, fold=Fa
     # the kernel's h // rep mapping. Sound only when nothing depends on a
     # row's sequence position: non-causal, no window or segments, and a bias
     # without a head dim (decode's cache-slot mask), tiled head-major when
-    # it has rows. Under the JAX condition, so both fold the same calls.
+    # it has rows. The softcap passes through. Under the JAX condition, so
+    # both fold the same calls.
     B, Hq, Nq, D = q.shape
     rep = Hq // k.shape[1]
-    if (fold and rep > 1 and not causal and unported["window"] is None
+    if (fold and rep > 1 and not causal and window is None
             and (bias is None or bias.shape[1] == 1) and segment_ids is None
             and Nq * rep <= 32 and unported["block_sizes"] is None):
         if bias is not None and bias.shape[2] > 1:
             bias = bias.repeat(1, 1, rep, 1)
         o, lse = _forward(
             q.reshape(B, k.shape[1], rep * Nq, D), k, v, scale=scale, layout="BHND",
-            causal=False, core=core, bias=bias, segment_ids=None, **unported)
+            causal=False, core=core, bias=bias, segment_ids=None, window=None,
+            logit_softcap=softcap, **unported)
         return _from_bhnd(o.reshape(B, Hq, Nq, D).to(in_dtype), layout), lse
     seg_q, seg_kv = _normalize_segment_ids(segment_ids, q, k)
-    o, lse = core.apply(q, k, v, bias, seg_q, seg_kv, float(scale), k.shape[2], bool(causal))
+    o, lse = core.apply(q, k, v, bias, seg_q, seg_kv, float(scale), k.shape[2], bool(causal),
+                        window, softcap)
     return _from_bhnd(o.to(in_dtype), layout), lse
 
 
@@ -235,6 +249,11 @@ def flash_attention(
         Q's head count. ``Nk`` may differ from ``Nq``.
       causal: mask ``kv_pos > q_pos``, top-left aligned (position 0 of Q
         and of K/V coincide, also when ``Nq != Nk``).
+      window: sliding window ``(left, right)``: position pair (i, j) may
+        attend iff ``i - left <= j <= i + right`` (absolute positions, zero
+        offsets); -1 disables that side (Mistral-style local attention is
+        ``causal=True, window=(w - 1, -1)``). Tiles outside the band are
+        skipped, so cost scales with the window, not N².
       scale: softmax scale, default ``D ** -0.5``.
       bias: additive attention bias ``[B|1, H|1, Nq|1, Nk]`` (dims of size 1
         broadcast, and are read with stride 0 by the kernel), cast to f32
@@ -244,17 +263,21 @@ def flash_attention(
       segment_ids: packed sequences: integer ids ``[B, N]`` (needs
         ``Nq == Nk``) or a ``(q_ids [B, Nq], kv_ids [B, Nk])`` tuple, ids
         >= 0. Pair (i, j) attends iff ``q_ids[i] == kv_ids[j]`` (AND-composed
-        with ``causal``); a row that matches no key gives zeros and zero
-        gradients.
-      block_sizes, q_offset, kv_offset, window, logit_softcap, compute_dtype:
-        the JAX package's options; not ported yet, each raises
-        ``NotImplementedError`` when given (also together with segment ids).
+        with ``causal`` and ``window``); a row that matches no key gives
+        zeros and zero gradients.
+      logit_softcap: Gemma-2-style soft-capping: the scaled logits become
+        ``cap·tanh(s/cap)`` before the bias and the masks, differentiable
+        through the cap's ``1 − tanh²`` Jacobian.
+      block_sizes, q_offset, kv_offset, compute_dtype: the JAX package's
+        options; not ported yet, each raises ``NotImplementedError`` when
+        given (nonzero offsets only).
     Returns:
       Attention output, same shape/layout/dtype as ``q``. CPU tensors run the
       plain PyTorch versions, CUDA tensors the kernels (bf16; fp16 is cast to
-      bf16 and back): K1 forward; K3 backward, or K5 + K6 with segment ids
-      (head dims up to 128). Tiny-Nq non-causal GQA calls (``Nq·Hq/Hkv <=
-      32``) run folded, one KV head's query heads as Q rows.
+      bf16 and back): K1 forward; K3 backward, or K5 + K6 with segment ids or
+      a softcap (head dims up to 128). Tiny-Nq non-causal GQA calls without a
+      window (``Nq·Hq/Hkv <= 32``) run folded, one KV head's query heads as Q
+      rows.
     """
     o, _ = _forward(
         q, k, v, scale=scale, layout=layout, causal=causal, core=_FlashCore, bias=bias,

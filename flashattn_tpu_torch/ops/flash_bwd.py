@@ -1,8 +1,8 @@
 """Two-kernel FlashAttention-2 backward: the CUDA kernels' wrappers and their plain versions.
 
 Port of flashattn_tpu/ops/flash_bwd.py: kernels K5 (``_dkv_kernel``, dK and
-dV) and K6 (``_dq_kernel``, dQ), for no bias, KV tail, GQA, causal and
-segment ids (packed sequences). Both kernels are in
+dV) and K6 (``_dq_kernel``, dQ), for no bias, KV tail, GQA, causal, a sliding
+window, segment ids (packed sequences) and logit soft-capping. Both kernels are in
 ``csrc/flash_bwd_split.cu``; its header says what bounds them and what they
 leave for later. :func:`dkv` and :func:`dq` launch them for CUDA tensors and
 compute the plain :func:`dkv_reference` / :func:`dq_reference` for CPU
@@ -23,7 +23,10 @@ import torch
 from flashattn_tpu_torch.ops.flash_fwd import (
     _kernel_ready,
     check_segment_ids,
+    check_softcap,
+    check_window,
     kernel_segment_ids,
+    kernel_window,
     pair_mask,
 )
 from flashattn_tpu_torch.ops.oracle import _expand_kv, _full_f32_matmul
@@ -33,43 +36,57 @@ MAX_HEAD_DIM = 128
 
 
 def recompute_p_ds(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
-                   kv_valid_len: int | None = None, segment_ids=None):
+                   kv_valid_len: int | None = None, segment_ids=None, window=None,
+                   softcap=None):
     """``(P, dS, Q, K, V, dO)`` in f32, K/V expanded to the query heads.
 
     P = exp(S·scale − LSE) and dS = P (dP − Δ) scale, ``[B, Hq, Nq, Nk]``, with
     P = 0 exactly for pairs that the forward masked (:func:`pair_mask`: keys
-    at or past ``kv_valid_len``, ``kv_pos > q_pos`` when ``causal``, unequal
-    segment ids), so a dead row contributes nothing.
+    at or past ``kv_valid_len``, ``kv_pos > q_pos`` when ``causal``, pairs
+    outside ``window``, unequal segment ids), so a dead row contributes
+    nothing. With ``softcap`` (the JAX ``_recompute_p_ds``): t = tanh(S·scale
+    / softcap), P = exp(softcap·t − LSE) and dS gains the cap's Jacobian,
+    dS = P (dP − Δ) (1 − t²) scale.
     """
     H, Nq, Nk = q.shape[1], q.shape[2], k.shape[2]
     kv_valid_len = Nk if kv_valid_len is None else kv_valid_len
     kf, vf = _expand_kv(k, v, H)
     qf, dof = q.float(), do.float()
     keep = pair_mask(Nq, Nk, kv_valid_len=kv_valid_len, causal=causal,
-                     segment_ids=segment_ids, device=q.device)
+                     segment_ids=segment_ids, device=q.device, window=window)
     with _full_f32_matmul():
         s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+        jac = None
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            jac = 1.0 - t * t
+            s = softcap * t
         p = torch.where(keep, torch.exp(s - lse.float()[..., None]), torch.zeros_like(s))
         dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - delta.float()[..., None]) * scale
+    if jac is not None:
+        ds = ds * jac
     return p, ds, qf, kf, vf, dof
 
 
 def dkv_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
-                  kv_valid_len: int | None = None, segment_ids=None):
+                  kv_valid_len: int | None = None, segment_ids=None, window=None,
+                  softcap=None):
     """Plain PyTorch K5: ``(dK, dV)`` ``[B, Hq, Nk, D]`` f32, per query head:
     dV = Pᵀ dO, dK = dSᵀ Q (:func:`recompute_p_ds`)."""
     p, ds, qf, _, _, dof = recompute_p_ds(q, k, v, do, lse, delta, scale=scale, causal=causal,
-                                          kv_valid_len=kv_valid_len, segment_ids=segment_ids)
+                                          kv_valid_len=kv_valid_len, segment_ids=segment_ids,
+                                          window=window, softcap=softcap)
     with _full_f32_matmul():
         return torch.matmul(ds.transpose(-1, -2), qf), torch.matmul(p.transpose(-1, -2), dof)
 
 
 def dq_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
-                 kv_valid_len: int | None = None, segment_ids=None):
+                 kv_valid_len: int | None = None, segment_ids=None, window=None, softcap=None):
     """Plain PyTorch K6: dQ = dS K, ``[B, Hq, Nq, D]`` f32 (:func:`recompute_p_ds`)."""
     _, ds, _, kf, _, _ = recompute_p_ds(q, k, v, do, lse, delta, scale=scale, causal=causal,
-                                        kv_valid_len=kv_valid_len, segment_ids=segment_ids)
+                                        kv_valid_len=kv_valid_len, segment_ids=segment_ids,
+                                        window=window, softcap=softcap)
     with _full_f32_matmul():
         return torch.matmul(ds, kf)
 
@@ -117,7 +134,7 @@ def check_kernel_args(q, name: str) -> None:
 
 
 def _launch(entry: str, q, k, v, do, lse, delta, outs, *, scale, causal, kv_valid_len,
-            segment_ids) -> None:
+            segment_ids, window, softcap) -> None:
     """Launch K5 or K6 (``entry``) writing ``outs``, on q's current stream."""
     B, Hq, Nq, D = q.shape
     q, k, v, do = (_kernel_ready(x) for x in (q, k, v, do))
@@ -127,7 +144,8 @@ def _launch(entry: str, q, k, v, do, lse, delta, outs, *, scale, causal, kv_vali
         rc = getattr(native.kernels(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), *seg_ptrs, *(o.data_ptr() for o in outs),
-            B, Hq, k.shape[1], Nq, k.shape[2], D, kv_valid_len, int(bool(causal)), float(scale),
+            B, Hq, k.shape[1], Nq, k.shape[2], D, kv_valid_len, int(bool(causal)),
+            *kernel_window(window), float(scale), softcap or 0.0,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *seg_strides,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -135,18 +153,20 @@ def _launch(entry: str, q, k, v, do, lse, delta, outs, *, scale, causal, kv_vali
 
 
 def dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
-        kv_valid_len: int | None = None, segment_ids=None):
+        kv_valid_len: int | None = None, segment_ids=None, window=None, softcap=None):
     """K5: ``(dK, dV)`` ``[B, Hq, Nk, D]`` in f32, per query head.
 
     ``q``/``do`` ``[B,Hq,Nq,D]``, ``k``/``v`` ``[B,Hkv,Nk,D]`` in one dtype;
     ``lse`` (natural log, from the forward) and ``delta`` = rowsum(dO·O),
-    ``[B,Hq,Nq]`` f32; ``segment_ids`` as in ``flash_fwd.fwd``. CPU tensors
+    ``[B,Hq,Nq]`` f32; ``segment_ids``, ``window`` and ``softcap`` as in
+    ``flash_fwd.fwd``. CPU tensors
     take :func:`dkv_reference`. CUDA tensors launch the kernel, which takes
     bf16 with ``D % 8 == 0`` and ``D <= 128``; anything else raises.
     ``dkv.launches`` counts kernel launches.
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len, segment_ids)
-    kw = dict(scale=scale, causal=causal, kv_valid_len=kv_valid_len, segment_ids=segment_ids)
+    kw = dict(scale=scale, causal=causal, kv_valid_len=kv_valid_len, segment_ids=segment_ids,
+              window=check_window(window), softcap=check_softcap(softcap))
     if q.device.type == "cpu":
         return dkv_reference(q, k, v, do, lse, delta, **kw)
     check_kernel_args(q, "K5")
@@ -162,7 +182,7 @@ def dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
 
 
 def dq(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
-       kv_valid_len: int | None = None, segment_ids=None):
+       kv_valid_len: int | None = None, segment_ids=None, window=None, softcap=None):
     """K6: dQ ``[B, Hq, Nq, D]`` in f32, written once (deterministic).
 
     Arguments as :func:`dkv`. CPU tensors take :func:`dq_reference`; CUDA
@@ -170,7 +190,8 @@ def dq(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     launches.
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len, segment_ids)
-    kw = dict(scale=scale, causal=causal, kv_valid_len=kv_valid_len, segment_ids=segment_ids)
+    kw = dict(scale=scale, causal=causal, kv_valid_len=kv_valid_len, segment_ids=segment_ids,
+              window=check_window(window), softcap=check_softcap(softcap))
     if q.device.type == "cpu":
         return dq_reference(q, k, v, do, lse, delta, **kw)
     check_kernel_args(q, "K6")

@@ -1,8 +1,9 @@
 """Single-pass FlashAttention-2 backward: the CUDA kernel's wrapper and its plain version.
 
 Port of flashattn_tpu/ops/flash_bwd_fused.py: kernel K3 (``_bwd_fused_kernel``)
-and, with ``causal``, K4 (``_bwd_causal_resident_kernel``, the banded
-whole-sequence route), for no bias, KV tail, GQA. The kernel is
+and, with ``causal`` or a ``window``, K4 (``_bwd_causal_resident_kernel`` and
+``_bwd_macro_windowed``, the banded whole-sequence routes), for no bias, KV
+tail, GQA. Soft-capped gradients take K5 + K6, as in the JAX package. The kernel is
 ``csrc/flash_bwd.cu``; its header says what bounds it and what it leaves for
 later. :func:`bwd` launches it for CUDA tensors and computes the plain
 :func:`bwd_reference` for CPU tensors -- the device of the input decides, and
@@ -18,24 +19,24 @@ from __future__ import annotations
 import torch
 
 from flashattn_tpu_torch.ops.flash_bwd import check_args, check_kernel_args, recompute_p_ds
-from flashattn_tpu_torch.ops.flash_fwd import _kernel_ready
+from flashattn_tpu_torch.ops.flash_fwd import _kernel_ready, check_window, kernel_window
 from flashattn_tpu_torch.ops.oracle import _full_f32_matmul
 from flashattn_tpu_torch.utils import native
 
 
 def bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
-                  kv_valid_len: int | None = None):
+                  kv_valid_len: int | None = None, window=None):
     """Plain PyTorch K3: ``(dQ [B,Hq,Nq,D], dK, dV [B,Hq,Nk,D])``, all f32.
 
     The formulas of the JAX package's ``_bwd_xla_quadrant``
     (P = exp(S·scale − LSE), dS = P (dP − Δ) scale, dV = Pᵀ dO, dK = dSᵀ Q,
     dQ = dS K) over K/V expanded to the query heads, with P = 0 for pairs
     that the forward masked: ``kv_pos > q_pos`` when ``causal`` (top-left,
-    zero offsets) and keys at or past ``kv_valid_len``, whose dK/dV are 0
-    (``flash_bwd.recompute_p_ds``).
+    zero offsets), pairs outside ``window``, and keys at or past
+    ``kv_valid_len``, whose dK/dV are 0 (``flash_bwd.recompute_p_ds``).
     """
     p, ds, qf, kf, _, dof = recompute_p_ds(q, k, v, do, lse, delta, scale=scale, causal=causal,
-                                           kv_valid_len=kv_valid_len)
+                                           kv_valid_len=kv_valid_len, window=window)
     with _full_f32_matmul():
         dv = torch.matmul(p.transpose(-1, -2), dof)
         dk = torch.matmul(ds.transpose(-1, -2), qf)
@@ -44,19 +45,21 @@ def bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False
 
 
 def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
-        kv_valid_len: int | None = None):
+        kv_valid_len: int | None = None, window=None):
     """K3/K4: ``(dQ [B,Hq,Nq,D], dK, dV [B,Hq,Nk,D])`` in f32.
 
     ``q``/``do`` ``[B,Hq,Nq,D]``, ``k``/``v`` ``[B,Hkv,Nk,D]`` in one dtype;
     ``lse`` (natural log, from the forward) and ``delta`` = rowsum(dO·O),
-    ``[B,Hq,Nq]`` f32. CPU tensors take :func:`bwd_reference`. CUDA tensors
-    launch the kernel, which takes bf16 with ``D % 8 == 0`` and ``D <= 128``;
-    anything else raises. ``bwd.launches`` counts kernel launches.
+    ``[B,Hq,Nq]`` f32; ``window`` as in ``flash_fwd.fwd``. CPU tensors take
+    :func:`bwd_reference`. CUDA tensors launch the kernel, which takes bf16
+    with ``D % 8 == 0`` and ``D <= 128``; anything else raises.
+    ``bwd.launches`` counts kernel launches.
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len)
+    window = check_window(window)
     if q.device.type == "cpu":
         return bwd_reference(q, k, v, do, lse, delta, scale=scale, causal=causal,
-                             kv_valid_len=kv_valid_len)
+                             kv_valid_len=kv_valid_len, window=window)
     check_kernel_args(q, "K3")
     B, Hq, Nq, D = q.shape
     Nk = k.shape[2]
@@ -72,7 +75,8 @@ def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
         rc = native.kernels().fa_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, Hq, k.shape[1], Nq, Nk, D, kv_valid_len, int(bool(causal)), float(scale),
+            B, Hq, k.shape[1], Nq, Nk, D, kv_valid_len, int(bool(causal)),
+            *kernel_window(window), float(scale),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             torch.cuda.current_stream(q.device).cuda_stream,
         )

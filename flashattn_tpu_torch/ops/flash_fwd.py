@@ -1,13 +1,14 @@
 """FlashAttention-2 forward: the CUDA kernel's wrapper and its plain version.
 
 Port of flashattn_tpu/ops/flash_fwd.py: kernel K1 (``_fwd_kernel``) with KV
-tail, GQA, an optional causal mask, optional segment ids (packed sequences),
-an optional additive bias, and int8 / fp8 e4m3 K/V with per-token f32 scales
-dequantized in the kernel (the serving path of ops/quant.py); the causal
-mask also covers K2 (``_fwd_causal_resident_kernel``, the whole-sequence
-causal route). The kernel body is ``csrc/fwd_tile.cuh`` (its header says
-what bounds it and what it leaves for later), instantiated per option family
-in ``csrc/flash_fwd*.cu``. :func:`fwd` launches it for CUDA tensors and
+tail, GQA, an optional causal mask, an optional sliding window, optional
+segment ids (packed sequences), an optional additive bias, optional logit
+soft-capping, and int8 / fp8 e4m3 K/V with per-token f32 scales dequantized
+in the kernel (the serving path of ops/quant.py); the causal mask and the
+window also cover K2 (``_fwd_causal_resident_kernel`` and
+``fwd_macro_padded``, the whole-sequence banded routes). The kernel body is
+``csrc/fwd_tile.cuh`` (its header says what bounds it and what it leaves for
+later), instantiated per option family in ``csrc/flash_fwd*.cu``. :func:`fwd` launches it for CUDA tensors and
 computes the plain :func:`fwd_reference` for CPU tensors -- the device of the
 input decides, and a CUDA tensor never reaches the plain version.
 
@@ -41,16 +42,53 @@ QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
 
 
+def check_window(window):
+    """A kernel-level ``window``: None, or ``(left, right)`` as two ints
+    (a negative bound is no bound on that side), as the JAX function
+    normalises it; raises ValueError otherwise."""
+    if window is None:
+        return None
+    window = tuple(window)
+    if len(window) != 2:
+        raise ValueError(f"window must be (left, right), got {window!r}")
+    return tuple(int(w) for w in window)
+
+
+def check_softcap(softcap):
+    """A kernel-level ``softcap``: None, or a positive float; raises
+    ValueError otherwise."""
+    if softcap is None:
+        return None
+    if not float(softcap) > 0:
+        raise ValueError(f"logit_softcap must be positive, got {softcap!r}")
+    return float(softcap)
+
+
+def kernel_window(window) -> tuple[int, int]:
+    """``(wl, wr)`` as the kernels' C entries take them: -1 for no bound."""
+    if window is None:
+        return -1, -1
+    return tuple(w if w >= 0 else -1 for w in window)
+
+
 def pair_mask(Nq: int, Nk: int, *, kv_valid_len: int, causal: bool, segment_ids,
-              device) -> torch.Tensor:
+              device, window=None) -> torch.Tensor:
     """The (query, key) pairs that attend, ``[B or 1, 1, Nq, Nk]`` bool: keys
     below ``kv_valid_len``; with ``causal``, ``kv_pos <= q_pos`` (top-left,
-    zero offsets); with ``segment_ids = (seg_q [B, Nq], seg_kv [B, Nk])``,
-    equal ids. The masks AND-compose, as in the kernels."""
-    cols = torch.arange(Nk, device=device)
-    keep = (cols < kv_valid_len)[None, :].expand(Nq, Nk)
+    zero offsets); with ``window = (left, right)``, ``q_pos - left <= kv_pos
+    <= q_pos + right`` (absolute positions, a negative bound being none);
+    with ``segment_ids = (seg_q [B, Nq], seg_kv [B, Nk])``, equal ids. The
+    masks AND-compose, as in the kernels."""
+    cols = torch.arange(Nk, device=device)[None, :]
+    rows = torch.arange(Nq, device=device)[:, None]
+    keep = (cols < kv_valid_len).expand(Nq, Nk)
     if causal:
-        keep = keep & (cols[None, :] <= torch.arange(Nq, device=device)[:, None])
+        keep = keep & (cols <= rows)
+    wl, wr = kernel_window(window)
+    if wl >= 0:
+        keep = keep & (cols >= rows - wl)
+    if wr >= 0:
+        keep = keep & (cols <= rows + wr)
     keep = keep[None, None]
     if segment_ids is not None:
         seg_q, seg_kv = segment_ids
@@ -60,29 +98,36 @@ def pair_mask(Nq: int, Nk: int, *, kv_valid_len: int, causal: bool, segment_ids,
 
 def fwd_reference(q, k, v, *, scale: float, kv_valid_len: int | None = None,
                   causal: bool = False, segment_ids=None, bias=None, k_scale=None,
-                  v_scale=None):
+                  v_scale=None, window=None, softcap=None):
     """Plain PyTorch K1: ``(O, LSE)`` for ``q [B,Hq,Nq,D]``, ``k/v [B,Hkv,Nk,D]``.
 
     The exact f32 oracle over the first ``kv_valid_len`` keys (the kernel's
     finite mask value gives those past it a weight of exactly 0); ``causal``
-    masks ``kv_pos > q_pos``, top-left aligned (zero offsets);
+    masks ``kv_pos > q_pos``, top-left aligned (zero offsets); ``window =
+    (left, right)`` keeps ``q_pos - left <= kv_pos <= q_pos + right``
+    (absolute positions, a negative bound being none);
     ``segment_ids = (seg_q [B, Nq], seg_kv [B, Nk])`` lets a pair attend only
-    when its ids are equal; ``bias`` (broadcastable to ``[B,Hq,Nq,Nk]``) is
-    added to the scaled scores in f32 before the masks; int8 / fp8 ``k``/``v``
-    with ``k_scale``/``v_scale`` ``[B,Hkv,Nk]`` are dequantized to f32 first
-    (``x · scale``). LSE is the natural-log row log-sum-exp in f32, O is in
-    ``q.dtype``. A row with no key to attend (``kv_valid_len == 0``, or none
-    of its segment) is dead: O = 0 and LSE = ln2 * mask value, the kernel's
+    when its ids are equal; ``softcap`` caps the scaled scores at
+    ``softcap · tanh(s / softcap)``; ``bias`` (broadcastable to
+    ``[B,Hq,Nq,Nk]``) is added to the scaled (and capped) scores in f32
+    before the masks; int8 / fp8 ``k``/``v`` with ``k_scale``/``v_scale``
+    ``[B,Hkv,Nk]`` are dequantized to f32 first (``x · scale``). LSE is the
+    natural-log row log-sum-exp in f32, O is in ``q.dtype``. A row with no key
+    to attend (``kv_valid_len == 0``, none of its segment, or none in its
+    window) is dead: O = 0 and LSE = ln2 * mask value, the kernel's
     convention.
     """
     if k_scale is not None:
         k = k.float() * k_scale.float()[..., None]
         v = v.float() * v_scale.float()[..., None]
     kv_valid_len = k.shape[2] if kv_valid_len is None else kv_valid_len
-    if segment_ids is not None or bias is not None:
-        return _masked_reference(q, k, v, scale=scale, bias=bias, keep=pair_mask(
-            q.shape[2], k.shape[2], kv_valid_len=kv_valid_len, causal=causal,
-            segment_ids=segment_ids, device=q.device))
+    if (segment_ids is not None or bias is not None or window is not None
+            or softcap is not None):
+        return _masked_reference(q, k, v, scale=scale, bias=bias, softcap=softcap,
+                                 keep=pair_mask(q.shape[2], k.shape[2],
+                                                kv_valid_len=kv_valid_len, causal=causal,
+                                                segment_ids=segment_ids, device=q.device,
+                                                window=window))
     if kv_valid_len == 0:
         lse = torch.full(q.shape[:3], math.log(2.0) * DEFAULT_MASK_VALUE,
                          dtype=torch.float32, device=q.device)
@@ -91,12 +136,15 @@ def fwd_reference(q, k, v, *, scale: float, kv_valid_len: int | None = None,
         q, k[:, :, :kv_valid_len], v[:, :, :kv_valid_len], scale=scale, causal=causal)
 
 
-def _masked_reference(q, k, v, *, scale, keep, bias=None):
-    """The exact f32 ``(O, LSE)`` over the pairs of ``keep``, with ``bias``
-    added before the mask, dead rows as the kernel stores them."""
+def _masked_reference(q, k, v, *, scale, keep, bias=None, softcap=None):
+    """The exact f32 ``(O, LSE)`` over the pairs of ``keep``, with the scores
+    capped by ``softcap`` and then ``bias`` added before the mask, dead rows
+    as the kernel stores them."""
     kf, vf = _expand_kv(k, v, q.shape[1])
     with _full_f32_matmul():
         s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
         if bias is not None:
             s = s + bias.float()
         s = torch.where(keep, s, torch.full_like(s, DEFAULT_MASK_VALUE))
@@ -187,21 +235,26 @@ def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
 
 
 def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool = False,
-        segment_ids=None, bias=None, k_scale=None, v_scale=None):
+        segment_ids=None, bias=None, k_scale=None, v_scale=None, window=None, softcap=None):
     """K1: ``(O [B,Hq,Nq,D] in q.dtype, LSE [B,Hq,Nq] f32)``.
 
     ``causal`` masks ``kv_pos > q_pos``, top-left aligned (zero offsets);
+    ``window = (left, right)`` keeps ``q_pos - left <= kv_pos <= q_pos +
+    right`` (a negative bound is none; with ``causal`` the right bound is 0);
     ``segment_ids = (seg_q [B, Nq], seg_kv [B, Nk])`` (integers) lets a pair
-    attend only when its ids are equal; ``bias`` ``[B|1, Hq|1, Nq|1, Nk]`` is
-    added to the scores; int8 / float8_e4m3fn ``k``/``v`` take per-token
-    ``k_scale``/``v_scale`` ``[B, Hkv, Nk]`` and are dequantized in the
-    kernel. CPU tensors take :func:`fwd_reference`. CUDA tensors launch the
-    kernel, which takes a bf16 ``q`` (and bf16, int8 or fp8 K/V) with
-    ``D % 8 == 0`` and ``D <= 256``, and segment ids only without bias or
-    quantized K/V; anything else raises. ``fwd.launches`` counts every kernel
-    launch; ``fwd.launches_bias`` those of bf16 K/V with a bias,
+    attend only when its ids are equal; ``softcap`` (a positive float) caps
+    the scaled scores at ``softcap · tanh(s / softcap)``; ``bias``
+    ``[B|1, Hq|1, Nq|1, Nk]`` is added to the (capped) scores; int8 /
+    float8_e4m3fn ``k``/``v`` take per-token ``k_scale``/``v_scale``
+    ``[B, Hkv, Nk]`` and are dequantized in the kernel (not with a softcap).
+    CPU tensors take :func:`fwd_reference`. CUDA tensors launch the kernel,
+    which takes a bf16 ``q`` (and bf16, int8 or fp8 K/V) with ``D % 8 == 0``
+    and ``D <= 256``, and segment ids or a window only without bias or
+    quantized K/V; anything else raises. ``fwd.launches`` counts every kernel launch;
+    ``fwd.launches_bias`` those of bf16 K/V with a bias,
     ``fwd.launches_int8`` / ``fwd.launches_fp8`` those of quantized K/V (with
-    or without a bias).
+    or without a bias), ``fwd.launches_window`` those with a window and
+    ``fwd.launches_softcap`` those with a softcap.
     """
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"q/k/v must be rank-4, got {q.shape}, {k.shape}, {v.shape}")
@@ -221,11 +274,15 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
         raise ValueError(f"kv_valid_len={kv_valid_len} outside [0, {Nk}]")
     check_segment_ids(segment_ids, B, Nq, Nk, q.device)
     check_bias(bias, B, Hq, Nq, Nk, q.device)
+    window, softcap = check_window(window), check_softcap(softcap)
+    if softcap is not None and k_scale is not None:
+        raise ValueError("logit_softcap is not supported with quantized K/V (the JAX "
+                         "flash_attention_quantized has no softcap path)")
 
     if q.device.type == "cpu":
         return fwd_reference(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
                              segment_ids=segment_ids, bias=bias, k_scale=k_scale,
-                             v_scale=v_scale)
+                             v_scale=v_scale, window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise NotImplementedError(f"no K1 kernel for device {q.device}")
     if q.dtype != torch.bfloat16:
@@ -239,6 +296,10 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     if segment_ids is not None and (bias is not None or k_scale is not None):
         raise NotImplementedError(
             f"the CUDA K1 takes segment ids without bias or quantized K/V ({_ROADMAP_K1})")
+    windowed = kernel_window(window) != (-1, -1)
+    if windowed and (bias is not None or k_scale is not None):
+        raise NotImplementedError(
+            f"the CUDA K1 takes a window without bias or quantized K/V ({_ROADMAP_K1})")
     if B > 65535 or Hq > 65535:
         raise ValueError(f"B={B} and Hq={Hq} must each be at most 65535 (CUDA grid limit)")
 
@@ -256,7 +317,8 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
         rc = native.kernels().fa_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *seg_ptrs,
             *ptrs, KV_DTYPE_CODE[k.dtype], B, Hq, Hkv, Nq, D, kv_valid_len,
-            int(bool(causal)), float(scale), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(bool(causal)), *kernel_window(window), float(scale), softcap or 0.0,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], *seg_strides, *bias_strides, *scale_strides,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -268,6 +330,10 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
         fwd.launches_fp8 += 1
     elif bias is not None:
         fwd.launches_bias += 1
+    if windowed:
+        fwd.launches_window += 1
+    if softcap is not None:
+        fwd.launches_softcap += 1
     return o, lse
 
 
@@ -275,3 +341,5 @@ fwd.launches = 0
 fwd.launches_bias = 0
 fwd.launches_int8 = 0
 fwd.launches_fp8 = 0
+fwd.launches_window = 0
+fwd.launches_softcap = 0

@@ -101,7 +101,8 @@ def kernels() -> ctypes.CDLL:
         ptr, ptr, ptr,                      # bias, k_scale, v_scale (f32, or None)
         i32,                                # K/V dtype code (ops/flash_fwd.KV_DTYPE_CODE)
         i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, Nq, D, kv_valid_len
-        i32, ctypes.c_float,                # causal, scale
+        i32, i32, i32,                      # causal, window left, window right (-1: none)
+        ctypes.c_float, ctypes.c_float,     # scale, softcap (0: none)
         i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
         i64, i64, i64, i64, i64, i64,       # v, o (batch, head, seq) strides
         i64, i64,                           # seg_q, seg_kv batch strides
@@ -110,16 +111,21 @@ def kernels() -> ctypes.CDLL:
         ptr,                                # cudaStream_t
     ]
     bwd_head = [ptr, ptr, ptr, ptr, ptr, ptr]  # q, k, v, dO, lse, delta
-    bwd_tail = [
+    bwd_dims = [
         i32, i32, i32, i32, i32, i32, i32,  # B, Hq, Hkv, Nq, Nk, D, kv_valid_len
-        i32, ctypes.c_float,                # causal, scale
+        i32, i32, i32,                      # causal, window left, window right (-1: none)
+    ]
+    bwd_strides = [
         i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
         i64, i64, i64, i64, i64, i64,       # v, dO (batch, head, seq) strides
     ]
+    # scale, softcap (0: none) for K5 and K6; K3 takes the scale only.
+    bwd_tail = [*bwd_dims, ctypes.c_float, ctypes.c_float, *bwd_strides]
     lib.fa_bwd_bf16.restype = i32
     lib.fa_bwd_bf16.argtypes = [
         *bwd_head, ptr, ptr, ptr,           # dq (f32, zeroed), dk, dv (f32)
-        *bwd_tail, ptr,                     # cudaStream_t
+        *bwd_dims, ctypes.c_float, *bwd_strides,
+        ptr,                                # cudaStream_t
     ]
     lib.fa_bwd_dkv_bf16.restype = i32
     lib.fa_bwd_dkv_bf16.argtypes = [

@@ -11,7 +11,8 @@ tests/test_models.py:120-131), also for a windowed model
 (tests/test_window.py:113-131); an int8 or fp8 cache within 1e-3 of the JAX
 package's on the same cache dtype (both quantize K/V that agree to f32
 round-off with the same rounding, and attend over the dequantized cache in
-f32); int8 and fp8 against the unquantized cache by the JAX rule
+f32); a soft-capped model on a full-precision cache within 1e-4 of the JAX
+decode; int8 and fp8 against the unquantized cache by the JAX rule
 ``0.05·max(max|logits|, 1)`` (tests/test_models.py:134-147).
 """
 
@@ -44,7 +45,8 @@ def jax_params():
 
 
 def _port_model(jax_params, cfg=PCFG):
-    return transformer_from_jax(jax.tree_util.tree_map(np.asarray, jax_params), cfg)
+    return transformer_from_jax(jax.tree_util.tree_map(np.asarray, jax_params), cfg,
+                                device="cpu")
 
 
 def _jax_fp8_cache(cfg, batch, max_len):
@@ -58,7 +60,7 @@ def _jax_fp8_cache(cfg, batch, max_len):
 def _decode_both(jax_params, model, jcfg, pcfg, jcache, steps, tokens=TOKENS):
     """Decode ``steps`` tokens with both packages from the same cache; returns
     (jax logits, port logits, jax cache, port cache), logits as [steps, B, V]."""
-    pcache = kv_cache_from_jax(jax.tree_util.tree_map(np.asarray, jcache))
+    pcache = kv_cache_from_jax(jax.tree_util.tree_map(np.asarray, jcache), device="cpu")
     step = jax.jit(lambda c, t: jax_lm.decode_step(jax_params, c, t, jcfg))
     want, got = [], []
     for t in range(steps):
@@ -91,7 +93,7 @@ def test_decode_matches_teacher_forced_forward(jax_params):
     tokens = torch.from_numpy(TOKENS).long()
     with torch.no_grad():
         full = lm.transformer_forward(model, tokens, PCFG)
-    cache = lm.init_kv_cache(PCFG, 2, 32)
+    cache = lm.init_kv_cache(PCFG, 2, 32, device="cpu")
     errs = []
     for t in range(6):
         logits, cache = lm.decode_step(model, cache, tokens[:, t], PCFG)
@@ -126,10 +128,10 @@ def test_quantized_cache_tracks_full_precision(jax_params, qdtype):
     """The JAX rule of tests/test_models.py:134-147, on the port alone."""
     model = _port_model(jax_params)
     tokens = torch.from_numpy(np.random.default_rng(9).integers(0, 128, (2, 16))).long()
-    cache = lm.init_kv_cache(PCFG, 2, 16)
+    cache = lm.init_kv_cache(PCFG, 2, 16, device="cpu")
     # The CPU has no fp8 matrix unit, so init_kv_cache would pick int8:
     # make the fp8 cache by hand, as bench_decode.py forces real fp8.
-    qcache = lm.init_kv_cache(PCFG, 2, 16, quant_dtype=torch.int8)
+    qcache = lm.init_kv_cache(PCFG, 2, 16, quant_dtype=torch.int8, device="cpu")
     qcache["k"] = [x.to(qdtype) for x in qcache["k"]]
     qcache["v"] = [x.to(qdtype) for x in qcache["v"]]
     errs = []
@@ -156,27 +158,64 @@ def test_windowed_decode_matches_jax():
     assert np.abs(got - want).max() < 1e-4
     # the window binds: full attention decodes other logits from step 8 on
     full = dataclasses.replace(pcfg, sliding_window=None)
-    cache = lm.init_kv_cache(full, 1, 24)
+    cache = lm.init_kv_cache(full, 1, 24, device="cpu")
     for t in range(12):
         lg, cache = lm.decode_step(model, cache, torch.from_numpy(tokens[:, t]).long(), full)
     assert np.abs(lg.numpy() - got[-1]).max() > 1e-3
 
 
 def test_softcap_decode_raises(jax_params):
+    """A quantized cache with a softcap raises the JAX package's ValueError;
+    a full-precision cache with it decodes (test_softcap_decode_matches_jax
+    holds its logits against the JAX decode)."""
     cfg = dataclasses.replace(PCFG, logit_softcap=30.0)
     model = _port_model(jax_params, cfg)
     token = torch.zeros(2, dtype=torch.long)
     with pytest.raises(ValueError, match="quantized KV cache"):
-        lm.decode_step(model, lm.init_kv_cache(cfg, 2, 8, quant_dtype=torch.int8), token, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.decode_step(model, lm.init_kv_cache(cfg, 2, 8), token, cfg)
+        lm.decode_step(model, lm.init_kv_cache(cfg, 2, 8, quant_dtype=torch.int8, device="cpu"),
+                       token, cfg)
+    logits, _ = lm.decode_step(model, lm.init_kv_cache(cfg, 2, 8, device="cpu"), token, cfg)
+    assert logits.shape == (2, 128) and torch.isfinite(logits).all()
+
+
+def test_softcap_decode_matches_jax(jax_params):
+    """A soft-capped model (cap 2, which bends the tiny model's scores)
+    decodes 6 steps on a full-precision cache within 1e-4 of the JAX
+    decode_step, through the GQA fold with the cap; without the cap the
+    logits differ."""
+    jcfg = dataclasses.replace(JCFG, logit_softcap=2.0)
+    pcfg = dataclasses.replace(PCFG, logit_softcap=2.0)
+    model = _port_model(jax_params, pcfg)
+    want, got, _, _ = _decode_both(jax_params, model, jcfg, pcfg,
+                                   jax_lm.init_kv_cache(jcfg, 2, 32), 6)
+    assert np.abs(got - want).max() < 1e-4
+    plain, _, _, _ = _decode_both(jax_params, model, JCFG, PCFG, jax_lm.init_kv_cache(JCFG, 2, 32),
+                                  6)
+    assert np.abs(plain - want).max() > 1e-3
+
+
+def test_softcap_window_decode_matches_teacher_forced_forward(jax_params):
+    """With a cap and a sliding window of 8 that binds, decode (the window as
+    the cache-slot bias) reproduces the fused forward (the window and the cap
+    in K1's plain version) at every position, within 1e-4."""
+    cfg = dataclasses.replace(PCFG, logit_softcap=2.0, sliding_window=8)
+    model = _port_model(jax_params, cfg)
+    tokens = torch.from_numpy(TOKENS).long()[:, :12]
+    with torch.no_grad():
+        full = lm.transformer_forward(model, tokens, cfg)
+    cache = lm.init_kv_cache(cfg, 2, 12, device="cpu")
+    errs = []
+    for t in range(12):
+        logits, cache = lm.decode_step(model, cache, tokens[:, t], cfg)
+        errs.append((logits - full[:, t]).abs().max().item())
+    assert max(errs) < 1e-4, errs
 
 
 @pytest.mark.parametrize("quant_dtype", [None, torch.int8])
 def test_init_kv_cache_matches_jax_layout(quant_dtype):
     jq = None if quant_dtype is None else jnp.int8
     want = jax.tree_util.tree_map(np.asarray, jax_lm.init_kv_cache(JCFG, 3, 20, quant_dtype=jq))
-    got = lm.init_kv_cache(PCFG, 3, 20, quant_dtype=quant_dtype)
+    got = lm.init_kv_cache(PCFG, 3, 20, quant_dtype=quant_dtype, device="cpu")
     assert got.keys() == want.keys() and got["length"] == 0
     for name in ("k", "v", "k_scale", "v_scale"):
         for p, j in zip(got.get(name, []), want.get(name, [])):
@@ -188,7 +227,7 @@ def test_init_kv_cache_matches_jax_layout(quant_dtype):
 def test_init_kv_cache_fp8_guard_on_cpu():
     """init_kv_cache asks the fp8 guard, as the JAX one does: int8 on the CPU."""
     with pytest.warns(UserWarning, match="native fp8"):
-        cache = lm.init_kv_cache(PCFG, 1, 8, quant_dtype=torch.float8_e4m3fn)
+        cache = lm.init_kv_cache(PCFG, 1, 8, quant_dtype=torch.float8_e4m3fn, device="cpu")
     assert cache["k"][0].dtype == torch.int8 and "k_scale" in cache
 
 
@@ -204,7 +243,7 @@ def test_kv_cache_from_jax_keeps_every_bit(kind):
     if kind != "bf16":
         cache["k_scale"][1] = jnp.asarray(rng.random(cache["k_scale"][1].shape, np.float32))
     cache["length"] = jnp.asarray(5, jnp.int32)
-    got = kv_cache_from_jax(jax.tree_util.tree_map(np.asarray, cache))
+    got = kv_cache_from_jax(jax.tree_util.tree_map(np.asarray, cache), device="cpu")
     assert got["length"] == 5 and isinstance(got["length"], int)
     want = np.asarray(cache["k"][1])
     assert got["k"][1].dtype == {"bf16": torch.bfloat16, "int8": torch.int8,
@@ -222,7 +261,7 @@ def test_decode_on_cpu_launches_no_kernel_and_fills_the_cache(jax_params):
     """A bf16 decode on the CPU runs the plain K1 (no launch), writes the
     cache in place, and refuses a step past max_len."""
     model = _port_model(jax_params, dataclasses.replace(PCFG, dtype=torch.bfloat16))
-    cache = lm.init_kv_cache(model.cfg, 2, 3, quant_dtype=torch.int8)
+    cache = lm.init_kv_cache(model.cfg, 2, 3, quant_dtype=torch.int8, device="cpu")
     before = (flash_fwd.fwd.launches, flash_fwd.fwd.launches_int8)
     k0 = cache["k"][0]
     for t in range(3):

@@ -21,7 +21,7 @@ import flashattn_tpu_torch
 from flashattn_tpu.ops import oracle as jax_oracle
 from flashattn_tpu.ops import sdpa as jax_sdpa
 from flashattn_tpu_torch.ops import flash_fwd, oracle, sdpa
-from flashattn_tpu_torch.utils.testing import FWD_TOL, assert_close, make_qkv
+from flashattn_tpu_torch.utils.testing import BWD_TOL, FWD_TOL, assert_close, make_qkv
 
 JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
              torch.float16: jnp.float16}
@@ -82,10 +82,13 @@ def test_flash_attention_low_precision_vs_f32_oracle(dtype, D, Nk, Hkv, layout):
 
 
 _SEG = {"segment_ids": torch.zeros(1, 64, dtype=torch.int32)}
-# The JAX options, each raising until its kernel option is ported; "bias" is
+# The JAX options, each raising until its kernel option is ported. "bias" is
 # ported in the forward (its forward case holds the result against the
-# oracle), and its backward still raises.
+# oracle), and its backward still raises. The window and the softcap are
+# ported in both directions, also with segment ids: their cases hold the
+# output and the gradient against the oracle.
 FORWARD_PORTED = {"bias"}
+PORTED = {"window", "logit_softcap", "segment_ids+window", "segment_ids+logit_softcap"}
 UNPORTED = {
     "bias": {"bias": torch.zeros(1, 1, 64, 64)},
     "window": {"window": (8, 8)},
@@ -102,14 +105,21 @@ UNPORTED = {
 }
 
 
+def _oracle_kw(kw):
+    """The oracle's spelling of flash_attention's options: a (q_ids, kv_ids)
+    tuple for a single segment-id tensor."""
+    seg = kw.get("segment_ids")
+    return kw if seg is None else {**kw, "segment_ids": (seg, seg)}
+
+
 @pytest.mark.parametrize("fn", ["flash_attention", "flash_attention_with_lse"])
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_arguments_raise(fn, name):
     q, k, v = make_qkv(0, 1, 2, 64, 32)
-    if name in FORWARD_PORTED:
+    if name in FORWARD_PORTED | PORTED:
         out = getattr(flashattn_tpu_torch, fn)(q, k, v, **UNPORTED[name])
         o = out[0] if fn == "flash_attention_with_lse" else out
-        assert_close(o, oracle.attention_reference(q, k, v, **UNPORTED[name]),
+        assert_close(o, oracle.attention_reference(q, k, v, **_oracle_kw(UNPORTED[name])),
                      FWD_TOL[torch.float32])
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -119,9 +129,16 @@ def test_unported_arguments_raise(fn, name):
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_arguments_raise_before_a_backward(name):
     """The gradient of an option the kernels do not take yet is refused with
-    its ROADMAP item, never computed without it."""
+    its ROADMAP item, never computed without it; that of a ported option
+    agrees with the oracle's."""
     q, k, v = make_qkv(1, 1, 2, 64, 32)
     q.requires_grad_(True)
+    if name in PORTED:
+        flashattn_tpu_torch.flash_attention(q, k, v, **UNPORTED[name]).sum().backward()
+        qo = q.detach().clone().requires_grad_(True)
+        oracle.attention_reference(qo, k, v, **_oracle_kw(UNPORTED[name])).sum().backward()
+        assert_close(q.grad, qo.grad, BWD_TOL[torch.float32], "dq")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         flashattn_tpu_torch.flash_attention(q, k, v, **UNPORTED[name]).sum().backward()
     assert q.grad is None

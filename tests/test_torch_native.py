@@ -112,6 +112,16 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
     ("_ZN12_GLOBAL__N_110dkv_kernelILi128ELb1EEEvN2fa9BwdParamsE", "K3 dkv_kernel<128, 1>"),
     ("_ZN12_GLOBAL__N_110dkv_kernelILi64ELb0EEEvN2fa9BwdParamsE", "K5 dkv_kernel<64, 0>"),
     ("_ZN12_GLOBAL__N_19dq_kernelILi96EEEvN2fa9BwdParamsE", "K6 dq_kernel<96>"),
+    ("_ZN12_GLOBAL__N_118fwd_softcap_kernelILi128ELb0ELb1EEEvN2fa9FwdParamsE",
+     "K1 softcap bias fwd_softcap_kernel<128, 0, 1>"),
+    ("_ZN12_GLOBAL__N_117fwd_window_kernelILi128ELb1ELb1EEEvN2fa9FwdParamsE",
+     "K1 softcap window segments fwd_window_kernel<128, 1, 1>"),
+    ("_ZN12_GLOBAL__N_117dkv_window_kernelILi128ELb1ELb0EEEvN2fa9BwdParamsE",
+     "K3 window dkv_window_kernel<128, 1, 0>"),
+    ("_ZN12_GLOBAL__N_118dkv_softcap_kernelILi64EEEvN2fa9BwdParamsE",
+     "K5 softcap dkv_softcap_kernel<64>"),
+    ("_ZN12_GLOBAL__N_116dq_window_kernelILi128ELb1EEEvN2fa9BwdParamsE",
+     "K6 softcap window dq_window_kernel<128, 1>"),
     ("_ZN12_GLOBAL__N_110fwd_kernelILi64ELb0EEEvN2fa9FwdParamsE",
      "unrecognised instantiation fwd_kernel<64, 0>"),
     ("_Z11some_kernelv", "unrecognised instantiation _Z11some_kernelv"),
@@ -122,3 +132,38 @@ def test_register_report_names_every_instantiation(mangled, name):
     import chip_smoke
 
     assert chip_smoke.instantiation_name(mangled) == name
+
+
+PTXAS_K1 = ("ptxas info    : Compiling entry function "
+            "'_ZN12_GLOBAL__N_110fwd_kernelILi128ELb0ELb0ELi0EEEvN2fa9FwdParamsE' for 'sm_90a'\n"
+            "ptxas info    : Function properties for _ZN12_GLOBAL__N_110fwd_kernelILi128ELb0ELb0E"
+            "Li0EEEvN2fa9FwdParamsE\n"
+            "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads\n"
+            "ptxas info    : Used 135 registers, 904 bytes cmem[0]\n")
+
+
+@pytest.mark.parametrize("out,want", [
+    (PTXAS_K1, {"K1 fwd_kernel<128, 0, 0, 0>": (135, 8, 4, 12)}),
+    (PTXAS_K1.replace("Used 135 registers", "no register line"), {}),
+    ("", {}),
+])
+def test_ptxas_stats_reads_registers_and_stack(out, want):
+    """chip_smoke.ptxas_stats (the build phase's and chip_ab.py's register
+    report) reads registers, stack frame and spills per named instantiation."""
+    import chip_smoke
+
+    assert chip_smoke.ptxas_stats(out) == want
+
+
+@pytest.mark.parametrize("n,lo,hi,want", [
+    (4096, None, 0, 64 * 65 // 2),   # full causal: the lower triangle of 64 x 64 tiles
+    (4096, None, None, 64 * 64),     # no band: every tile
+    (1000, None, 0, 16 * 17 // 2),   # a ragged last tile counts
+    (4096, 0, 0, 64),                # the diagonal alone: one tile per row tile
+])
+def test_band_tiles_counts_tile_pairs(n, lo, hi, want):
+    """chip_smoke.band_tiles, the tile pairs the window check prints beside
+    the full causal count, on bands whose count is known in closed form."""
+    import chip_smoke
+
+    assert chip_smoke.band_tiles(n, n, 64, 64, lo, hi) == want

@@ -4,7 +4,8 @@ converter against the JAX package's, in f32 on CPU.
 Weights come from the JAX ``init_transformer`` at the tiny config of
 tests/test_models.py and are carried over with ``transformer_from_jax``, so
 both compute the same function on the same numpy tokens, unpacked and packed
-(``segment_ids``: several documents per row). Attention is causal
+(``segment_ids``: several documents per row), and with a sliding window or
+logit soft-capping (``OPTIONS``). Attention is causal
 ``flash_attention`` in both: the JAX Pallas kernels in interpret mode, the
 port's wrappers on their plain versions. Budgets: logits within FWD_TOL[f32]
 (1e-4), parameter gradients within BWD_TOL[f32] (1e-3 abs + 5e-4 rel), the
@@ -34,6 +35,9 @@ PCFG = lm.TransformerConfig(**WIDTH, dtype=torch.float32)
 TOKENS = np.random.default_rng(1).integers(0, 128, (2, 65)).astype(np.int32)
 # Packed rows: three documents in row 0, two in row 1.
 SEG = np.array([[0] * 20 + [1] * 25 + [2] * 20, [0] * 33 + [1] * 32], dtype=np.int32)
+# The window binds over the 64 attended tokens; the cap bends the tiny LM's
+# scores (up to ~3 here).
+OPTIONS = {"sliding_window": dict(sliding_window=16), "logit_softcap": dict(logit_softcap=2.0)}
 
 
 @pytest.fixture(scope="module")
@@ -55,6 +59,20 @@ def jax_packed_loss_and_grads(jax_params):
     return float(loss), dict(_flatten(jax.tree_util.tree_map(np.asarray, grads)))
 
 
+@pytest.fixture(scope="module")
+def jax_option_results(jax_params):
+    """Per OPTIONS entry, the JAX model's logits, loss and gradients."""
+    out = {}
+    for name, kw in OPTIONS.items():
+        jcfg = dataclasses.replace(JCFG, **kw)
+        loss, grads = jax.value_and_grad(lambda p: jax_lm.lm_loss(p, jnp.asarray(TOKENS), jcfg))(
+            jax_params)
+        logits = jax_lm.transformer_forward(jax_params, jnp.asarray(TOKENS), jcfg)
+        out[name] = (np.asarray(logits), float(loss),
+                     dict(_flatten(jax.tree_util.tree_map(np.asarray, grads))))
+    return out
+
+
 def _tokens():
     return torch.from_numpy(TOKENS).long()
 
@@ -71,7 +89,7 @@ def _loss_and_grads(model, cfg=PCFG, attn_impl="fused", segment_ids=None):
 
 
 def test_logits_and_loss_match_jax(jax_params, jax_loss_and_grads):
-    model = transformer_from_jax(jax_params, PCFG)
+    model = transformer_from_jax(jax_params, PCFG, device="cpu")
     want = jax_lm.transformer_forward(jax_params, jnp.asarray(TOKENS), JCFG)
     with torch.no_grad():
         got = lm.transformer_forward(model, _tokens(), PCFG)
@@ -83,7 +101,7 @@ def test_logits_and_loss_match_jax(jax_params, jax_loss_and_grads):
 
 
 def test_every_gradient_matches_jax(jax_params, jax_loss_and_grads):
-    model = transformer_from_jax(jax_params, PCFG)
+    model = transformer_from_jax(jax_params, PCFG, device="cpu")
     loss, grads = _loss_and_grads(model)
     want = jax_loss_and_grads[1]
     assert grads.keys() == want.keys()
@@ -130,7 +148,7 @@ def test_adamw_keeps_f32_moments_for_bf16_parameters():
 
 def test_attn_impl_fused_and_xla_agree(jax_params):
     """The two arms of the training step compute the same function."""
-    model = transformer_from_jax(jax_params, PCFG)
+    model = transformer_from_jax(jax_params, PCFG, device="cpu")
     lf, gf = _loss_and_grads(model, attn_impl="fused")
     lx, gx = _loss_and_grads(model, attn_impl="xla")
     assert abs(lf - lx) < 1e-5
@@ -142,7 +160,7 @@ def test_attn_impl_fused_and_xla_agree(jax_params):
 
 def test_remat_same_loss_and_grads(jax_params):
     """cfg.remat recomputes each block in the backward, never approximates."""
-    model = transformer_from_jax(jax_params, PCFG)
+    model = transformer_from_jax(jax_params, PCFG, device="cpu")
     l0, g0 = _loss_and_grads(model)
     l1, g1 = _loss_and_grads(model, cfg=dataclasses.replace(PCFG, remat=True))
     assert abs(l0 - l1) < 1e-6
@@ -150,7 +168,8 @@ def test_remat_same_loss_and_grads(jax_params):
 
 
 def test_training_step_on_cpu_launches_no_kernel(jax_params):
-    model = transformer_from_jax(jax_params, dataclasses.replace(PCFG, dtype=torch.bfloat16))
+    model = transformer_from_jax(jax_params, dataclasses.replace(PCFG, dtype=torch.bfloat16),
+                                 device="cpu")
     params = dict(model.named_parameters())
     state = lm.adamw_init(params)
     before = (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches)
@@ -168,18 +187,25 @@ def test_training_step_on_cpu_launches_no_kernel(jax_params):
 @pytest.mark.parametrize("option", ["sliding_window", "logit_softcap",
                                     "segment_ids+sliding_window"])
 def test_unported_options_raise(jax_params, option):
+    """The options that raised before the window and the softcap were ported
+    now train: the fused arm's loss and gradients equal the xla arm's (the
+    oracle with the same window and cap), also on a packed batch."""
     kw = {}
-    if option.startswith("segment_ids+"):  # packing is ported, not with this option
+    if option.startswith("segment_ids+"):
         kw["segment_ids"] = _seg()
         option = option.split("+")[1]
     cfg = dataclasses.replace(PCFG, **{option: 16})
-    model = transformer_from_jax(jax_params, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.lm_loss(model, _tokens(), cfg, **kw)
+    model = transformer_from_jax(jax_params, cfg, device="cpu")
+    lf, gf = _loss_and_grads(model, cfg, "fused", **kw)
+    lx, gx = _loss_and_grads(model, cfg, "xla", **kw)
+    l0, _ = _loss_and_grads(model, PCFG, "fused", **kw)
+    assert abs(lf - lx) < 1e-5 and abs(lf - l0) > 1e-4  # the option changes the loss
+    for name in gf:
+        assert_close(gf[name], gx[name], BWD_TOL[torch.float32], name)
 
 
 def test_init_transformer_mirrors_jax_tree(jax_params):
-    model = lm.init_transformer(PCFG, torch.Generator().manual_seed(0))
+    model = lm.init_transformer(PCFG, torch.Generator().manual_seed(0), device="cpu")
     state = model.state_dict()
     flat = dict(_flatten(jax_params))
     assert state.keys() == flat.keys()
@@ -195,11 +221,11 @@ def test_transformer_from_jax_rejects_mismatched_tree(jax_params):
     bad = dict(jax_params)
     bad.pop("ln_f")
     with pytest.raises(ValueError, match="ln_f"):
-        transformer_from_jax(bad, PCFG)
+        transformer_from_jax(bad, PCFG, device="cpu")
     bad = dict(jax_params, layers=[dict(layer) for layer in jax_params["layers"]])
     bad["layers"][1]["wq"] = bad["layers"][1]["wq"][:, :2]
     with pytest.raises(ValueError, match="layers.1.wq"):
-        transformer_from_jax(bad, PCFG)
+        transformer_from_jax(bad, PCFG, device="cpu")
 
 
 @pytest.mark.parametrize("ids", [[[0, 0, 1, 1, 1]], [[3, 3, 3, 0, 0, 7]], SEG[:, :40].tolist(),
@@ -211,7 +237,7 @@ def test_segment_positions_match_jax(ids):
 
 
 def test_packed_logits_and_loss_match_jax(jax_params, jax_packed_loss_and_grads):
-    model = transformer_from_jax(jax_params, PCFG)
+    model = transformer_from_jax(jax_params, PCFG, device="cpu")
     want = jax_lm.transformer_forward(jax_params, jnp.asarray(TOKENS), JCFG,
                                       segment_ids=jnp.asarray(SEG))
     with torch.no_grad():
@@ -223,7 +249,7 @@ def test_packed_logits_and_loss_match_jax(jax_params, jax_packed_loss_and_grads)
 
 
 def test_packed_gradients_match_jax(jax_params, jax_packed_loss_and_grads):
-    model = transformer_from_jax(jax_params, PCFG)
+    model = transformer_from_jax(jax_params, PCFG, device="cpu")
     _, grads = _loss_and_grads(model, segment_ids=_seg())
     want = jax_packed_loss_and_grads[1]
     assert grads.keys() == want.keys()
@@ -236,7 +262,7 @@ def test_packed_batch_matches_separate_documents(jax_params):
     loss equal to the token-weighted mean of the separate losses (attention
     blocked across documents, RoPE restarted per document, boundary-masked
     loss)."""
-    model = transformer_from_jax(jax_params, PCFG)
+    model = transformer_from_jax(jax_params, PCFG, device="cpu")
     n1, n2 = 28, 36
     toks = _tokens()[:1, :n1 + n2]
     seg = torch.cat([torch.zeros(1, n1, dtype=torch.int32), torch.ones(1, n2, dtype=torch.int32)], 1)
@@ -255,7 +281,7 @@ def test_packed_fused_and_xla_agree(jax_params):
     """The two arms of the packed training step compute the same function,
     and the packed step runs K1, K5 and K6's plain versions on the CPU (no
     kernel launch)."""
-    model = transformer_from_jax(jax_params, PCFG)
+    model = transformer_from_jax(jax_params, PCFG, device="cpu")
     before = (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches, flash_bwd.dkv.launches,
               flash_bwd.dq.launches)
     lf, gf = _loss_and_grads(model, attn_impl="fused", segment_ids=_seg())
@@ -265,3 +291,30 @@ def test_packed_fused_and_xla_agree(jax_params):
         assert_close(gf[name], gx[name], BWD_TOL[torch.float32], name)
     assert (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches, flash_bwd.dkv.launches,
             flash_bwd.dq.launches) == before
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_windowed_and_softcapped_lm_match_jax(jax_params, jax_option_results, option):
+    """The LM with a sliding window or a logit cap: logits, loss and every
+    gradient against the JAX model with the same option."""
+    cfg = dataclasses.replace(PCFG, **OPTIONS[option])
+    model = transformer_from_jax(jax_params, cfg, device="cpu")
+    logits, loss_want, grads_want = jax_option_results[option]
+    with torch.no_grad():
+        got = lm.transformer_forward(model, _tokens(), cfg)
+    assert_close(got, logits, FWD_TOL[torch.float32], "logits")
+    loss, grads = _loss_and_grads(model, cfg)
+    assert abs(loss - loss_want) < 1e-5
+    assert grads.keys() == grads_want.keys()
+    for name, g in grads.items():
+        assert_close(g, grads_want[name], BWD_TOL[torch.float32], name)
+
+
+def test_remat_with_window_same_loss_and_grads(jax_params):
+    """Remat recomputes the windowed blocks, never approximates."""
+    cfg = dataclasses.replace(PCFG, sliding_window=16)
+    model = transformer_from_jax(jax_params, cfg, device="cpu")
+    l0, g0 = _loss_and_grads(model, cfg)
+    l1, g1 = _loss_and_grads(model, cfg=dataclasses.replace(cfg, remat=True))
+    assert abs(l0 - l1) < 1e-6
+    assert max((g0[n] - g1[n]).abs().max().item() for n in g0) < 1e-5

@@ -37,7 +37,7 @@ def jax_params():
 
 @pytest.fixture(scope="module")
 def port_unet(jax_params):
-    return unet_from_jax(jax_params, PCFG)
+    return unet_from_jax(jax_params, PCFG, device="cpu")
 
 
 def _inputs(seed, size, batch=1):
@@ -182,7 +182,7 @@ def test_conv_weights_carried_hwio_to_oihw(jax_params, port_unet):
 
 def test_init_unet_mirrors_jax_tree(jax_params):
     cfg = dataclasses.replace(PCFG, zero_init=True)
-    model = unet.init_unet(cfg, torch.Generator().manual_seed(0))
+    model = unet.init_unet(cfg, torch.Generator().manual_seed(0), device="cpu")
     flat = dict(_flatten(jax_params))
     state = model.state_dict()
     assert state.keys() == flat.keys()
@@ -201,4 +201,4 @@ def test_unet_from_jax_rejects_mismatched_tree(jax_params):
     bad = dict(jax_params)
     bad.pop("conv_out")
     with pytest.raises(ValueError, match="conv_out"):
-        unet_from_jax(bad, PCFG)
+        unet_from_jax(bad, PCFG, device="cpu")
