@@ -8,9 +8,8 @@ reads the library's SASS with ``cuobjdump``; chip_ab prints, per case below,
 each checkout's registers, stack frame and SASS instruction count, and the
 opcodes whose counts differ most. Then each entry of ``--order`` (0: the first
 directory, 1: the second) runs one child from that checkout, which times the
-kernels at the shapes of the port's paths that take no window and no softcap
-with chip_smoke.cuda_ms (CUDA events, median over 7 trials of the mean of 20
-launches):
+kernels at the shapes of the port's paths with chip_smoke.cuda_ms (CUDA
+events, median over 7 trials of the mean of 20 launches):
 
 * ``unet``: K1 non-causal, B1 H8 N4096 D40, BNHD (SD1.5's level-0 attention);
 * ``lm``: K1 causal at chip_smoke's "lm" shape, B1 Hq16 Hkv8 N2048 D128, BNHD;
@@ -18,7 +17,9 @@ launches):
 * ``decode``: K1 with the cache-slot bias, q [8, 8, 2, 128] against K/V
   [8, 8, 8192, 128] (bench_decode's folded decode attention, half live);
 * ``k1_seg``, ``k5``, ``k6``: K1 with segment ids, K5 and K6 at bench_lm's
-  packed cell, B2 Hq16 Hkv8 N4096 D128 causal, 8 documents per row.
+  packed cell, B2 Hq16 Hkv8 N4096 D128 causal, 8 documents per row;
+* ``k3_win``, ``k5_cap``, ``k6_cap``: K3 with the SWA window, and K5 / K6
+  with the window and softcap 50, at B1 Hq16 Hkv8 N8192 D128.
 
 The children take their helpers and shapes from this checkout's
 chip_smoke.py, and pass only arguments that both checkouts take. Prints the
@@ -33,7 +34,6 @@ import collections
 import json
 import os
 import pathlib
-import re
 import statistics
 import subprocess
 import sys
@@ -45,7 +45,9 @@ SMOKE = pathlib.Path(__file__).resolve().with_name("chip_smoke.py")
 CASE_KERNELS = {"unet": "K1 fwd_kernel<48, 0, 0, 0>", "lm": "K1 fwd_kernel<128, 0, 0, 0>",
                 "k3": "K3 dkv_kernel<128, 1>", "decode": "K1 bias fwd_kernel<128, 0, 1, 0>",
                 "k1_seg": "K1 segments fwd_kernel<128, 1, 0, 0>", "k5": "K5 dkv_kernel<128, 0>",
-                "k6": "K6 dq_kernel<128>"}
+                "k6": "K6 dq_kernel<128>", "k3_win": "K3 window dkv_window_kernel<128, 1, 0>",
+                "k5_cap": "K5 softcap window dkv_window_kernel<128, 0, 1>",
+                "k6_cap": "K6 softcap window dq_window_kernel<128, 1>"}
 
 LOAD_SMOKE = r'''
 import importlib.util, json, sys, torch
@@ -96,6 +98,20 @@ delta = (do.float() * o.float()).sum(-1)
 out["k1_seg"] = ms(lambda: flash_fwd.fwd(q, k, v, **kw))
 out["k5"] = ms(lambda: flash_bwd.dkv(q, k, v, do, lse, delta, **kw))
 out["k6"] = ms(lambda: flash_bwd.dq(q, k, v, do, lse, delta, **kw))
+_, B, Hq, Hkv, N, _, D, causal, window = cs.WINDOW_CASES[0]
+q, k, v = (cs._bnhd(x) for x in make_qkv(7, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16,
+                                         device="cuda"))
+do = cs._bnhd(make_qkv(8, B, Hq, N, D, dtype=torch.bfloat16, device="cuda")[0])
+for name, kw in (("k3_win", dict(scale=D ** -0.5, causal=causal, window=window)),
+                 ("k5_cap", dict(scale=D ** -0.5, causal=causal, window=window,
+                                 softcap=cs.SOFTCAP))):
+    o, lse = flash_fwd.fwd(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    if name == "k3_win":
+        out[name] = ms(lambda: flash_bwd_fused.bwd(q, k, v, do, lse, delta, **kw))
+    else:
+        out["k5_cap"] = ms(lambda: flash_bwd.dkv(q, k, v, do, lse, delta, **kw))
+        out["k6_cap"] = ms(lambda: flash_bwd.dq(q, k, v, do, lse, delta, **kw))
 print("AB " + json.dumps(out), flush=True)
 '''
 
@@ -112,27 +128,6 @@ def child(tree: pathlib.Path, code: str, tag: str) -> dict:
     return json.loads(line[0][len(tag) + 1:])
 
 
-def sass_opcodes(lib: str, names: set) -> dict:
-    """{instantiation name: Counter of SASS opcodes} for the kernels of
-    ``lib`` named in ``names``, from ``cuobjdump -sass``."""
-    from flashattn_tpu_torch.utils import native
-
-    cuobjdump = str(pathlib.Path(native.find_nvcc()).with_name("cuobjdump"))
-    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
-                          check=True).stdout
-    ops, current = {}, None
-    for line in sass.splitlines():
-        fn = re.search(r"Function : (\S+)", line)
-        if fn:
-            name = chip_smoke.instantiation_name(fn.group(1))
-            current = ops.setdefault(name, collections.Counter()) if name in names else None
-            continue
-        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)", line)
-        if current is not None and op:
-            current[op.group(1)] += 1
-    return ops
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs=2, type=pathlib.Path, help="two checkouts of the repo")
@@ -145,7 +140,7 @@ def main() -> None:
     trees = [t.resolve() for t in args.trees]
 
     code = [child(t, CODE, "CODE") for t in trees]
-    ops = [sass_opcodes(c["lib"], set(CASE_KERNELS.values())) for c in code]
+    ops = [chip_smoke.sass_opcodes(c["lib"], set(CASE_KERNELS.values())) for c in code]
     for case, name in CASE_KERNELS.items():
         cols = []
         for t, c, o in zip(args.trees, code, ops):

@@ -7,9 +7,10 @@ nvcc per source, in parallel) and holds each against its plain PyTorch version
 at the shapes its paths give it: K1 non-causal (serving), K1 causal (which
 also stands for K2), the backward K3 (which also stands for K4), K1 with
 segment ids and the two-kernel backward K5 (dK/dV) + K6 (dQ) of packed
-training, K1's decode variants (bias; int8 / fp8 K/V), and the sliding-window
-and soft-capped variants of K1, K3, K5 and K6. Then it drives the port's
-paths and checks that each went through its kernels:
+training, K1's decode variants (bias; int8 / fp8 K/V), the sliding-window
+and soft-capped variants of K1, K3, K5 and K6, K5 and K6 with a bias (K6 with
+dbias), and the probes K9 (GEMM) and K10 (tensor-core peak). Then it drives
+the port's paths and checks that each went through its kernels:
 
 * serving: Euler sampling over the SD1.5 U-Net at full width (random weights
   from a seed, 64x64 latent, 77-token context), fused vs exact attention;
@@ -34,7 +35,19 @@ paths and checks that each went through its kernels:
 * soft-capped training and decode: the LM with ``logit_softcap=50.0`` (and
   the window), gates at [1, 2049] and 10 steps at [1, 8193]; bench_decode's
   LM with the cap on a bf16 cache, decode against the teacher-forced forward
-  and ms/token at cache lengths 1024-8192.
+  and ms/token at cache lengths 1024-8192;
+* bias-gradient training (path A): the counterpart of flax's
+  MultiHeadDotProductAttention (integrations/torch_nn.py, 16 heads of 128,
+  impl "fused") on x [4, 2048, 2048] bf16 with a key-padding mask of row
+  lengths 2048-512: loss and gradient gates fused vs exact, then 10 AdamW
+  steps per arm -- K1, K5 and K6 with the bias; first K5 with a bias and K6
+  with a bias and dbias against their plain versions at the LM's attention
+  shape with a learned [1, 16, 2048, 2048] bias, and flash_attention(bias=)
+  end to end against autograd through the f32 oracle;
+* the roofline probes (path B): K9 (gemm.matmul) at 4096^3 and K10
+  (measure_mxu_peak_tflops) against their plain versions, K10's HMMA count in
+  the SASS, and the measured mma.sync and chained torch.matmul peaks beside
+  the datasheet's 989 TFLOP/s.
 
 Every kernel's line in the kernels JSON carries its time, its plain version's
 time, its bound (the larger of the bytes it must move at 3.35 TB/s and its
@@ -52,6 +65,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -153,11 +167,13 @@ def pair_flops(q, k, *, matmuls: int, **mask) -> float:
     return 2.0 * D * pairs * matmuls
 
 
-def sdpa_ms(q, k, v, *, do=None, **kw) -> float:
+def sdpa_ms(q, k, v, *, do=None, bias_leaf=None, **kw) -> float:
     """The library yardstick: one ``scaled_dot_product_attention`` call at
     its best backend on the same inputs (``enable_gqa`` for Hkv < Hq), or,
     with ``do``, the one backward call of that attention (dQ, dK, dV from the
-    saved forward). Timed here, used nowhere in the port."""
+    saved forward, and the gradient of ``bias_leaf``, a tensor that requires
+    grad and from which ``attn_mask`` was computed: SDPA's dbias). Timed
+    here, used nowhere in the port."""
     import torch.nn.functional as F
 
     kw.setdefault("enable_gqa", k.shape[1] != q.shape[1])
@@ -167,7 +183,8 @@ def sdpa_ms(q, k, v, *, do=None, **kw) -> float:
                            trials=3)
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
     out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
-    return cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
+    leaves = (qg, kg, vg) + (() if bias_leaf is None else (bias_leaf,))
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
                    reps=5, trials=3)
 
 
@@ -295,7 +312,12 @@ def instantiation_name(mangled: str) -> str:
     a mangled instantiation name from ptxas, e.g. ``K1 int8 bias
     fwd_kernel<128, 0, 1, 1>`` or ``K5 softcap dkv_softcap_kernel<128>``; an
     unrecognised name comes back marked as such, never raising."""
-    m = re.search(r"(fwd|dkv|dq)(_softcap|_window)?_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    probe = re.search(r"(gemm|roofline)_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if probe:
+        args = re.findall(r"L[a-z]+(-?\d+)E", probe.group(2))
+        return (f"{'K9' if probe.group(1) == 'gemm' else 'K10'} "
+                f"{probe.group(1)}_kernel<{', '.join(args)}>")
+    m = re.search(r"(fwd|dkv|dq)(_softcap|_window|_bias)?_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if not m:
         return f"unrecognised instantiation {mangled}"
     kind, family = m.group(1), m.group(2) or ""
@@ -304,11 +326,14 @@ def instantiation_name(mangled: str) -> str:
     # Template arguments after DP, by kernel: K1 fwd_kernel<DP, SEG, BIAS, KV>,
     # fwd_softcap_kernel<DP, SEG, BIAS>, fwd_window_kernel<DP, SEG, CAP>; K3/K5
     # dkv_kernel<DP, DQ>, dkv_softcap_kernel<DP>, dkv_window_kernel<DP, DQ, CAP>;
-    # K6 dq_kernel<DP>, dq_softcap_kernel<DP>, dq_window_kernel<DP, CAP>.
+    # K6 dq_kernel<DP>, dq_softcap_kernel<DP>, dq_window_kernel<DP, CAP>; K5/K6
+    # with a bias dkv_bias_kernel<DP, CAP>, dq_bias_kernel<DP, CAP>. K9
+    # gemm_kernel<OUT_F32>, K10 roofline_kernel<CHAINS> (above).
     params = {("fwd", ""): ("seg", "bias", "kv"), ("fwd", "_softcap"): ("seg", "bias"),
               ("fwd", "_window"): ("seg", "cap"), ("dkv", ""): ("dq",), ("dkv", "_softcap"): (),
-              ("dkv", "_window"): ("dq", "cap"), ("dq", ""): (), ("dq", "_softcap"): (),
-              ("dq", "_window"): ("cap",)}.get((kind, family))
+              ("dkv", "_window"): ("dq", "cap"), ("dkv", "_bias"): ("cap",), ("dq", ""): (),
+              ("dq", "_softcap"): (), ("dq", "_window"): ("cap",),
+              ("dq", "_bias"): ("cap",)}.get((kind, family))
     if params is None or len(args) != 1 + len(params):
         return f"unrecognised instantiation {label}"
     a = dict(zip(params, args[1:]))
@@ -319,7 +344,30 @@ def instantiation_name(mangled: str) -> str:
         return (f"K1{variant}{' softcap' if cap else ''}{' window' if window else ''}"
                 f"{' bias' if a.get('bias') else ''}{' segments' if a['seg'] else ''} {label}")
     name = "K6" if kind == "dq" else "K3" if a.get("dq") else "K5"
-    return f"{name}{' softcap' if cap else ''}{' window' if window else ''} {label}"
+    return (f"{name}{' softcap' if cap else ''}{' window' if window else ''}"
+            f"{' bias' if family == '_bias' else ''} {label}")
+
+
+def sass_opcodes(lib, names: set) -> dict:
+    """{instantiation name: Counter of SASS opcodes} for the kernels of the
+    library ``lib`` named in ``names`` (:func:`instantiation_name`), from
+    ``cuobjdump -sass``."""
+    from flashattn_tpu_torch.utils import native
+
+    cuobjdump = os.path.join(os.path.dirname(native.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    ops, current = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            name = instantiation_name(fn.group(1))
+            current = ops.setdefault(name, collections.Counter()) if name in names else None
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)", line)
+        if current is not None and op:
+            current[op.group(1)] += 1
+    return ops
 
 
 def _bnhd(x):
@@ -796,26 +844,32 @@ def _lm_steps(cfg, tokens, arm: str, segment_ids=None, *, phase: str, label: str
 
 
 def _reset_launches() -> None:
-    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, gemm, roofline
 
     flash_fwd.fwd.launches = flash_bwd_fused.bwd.launches = 0
     flash_fwd.fwd.launches_bias = flash_fwd.fwd.launches_int8 = flash_fwd.fwd.launches_fp8 = 0
     flash_fwd.fwd.launches_window = flash_fwd.fwd.launches_softcap = 0
     flash_bwd.dkv.launches = flash_bwd.dq.launches = 0
+    flash_bwd.dkv.launches_bias = flash_bwd.dq.launches_bias = flash_bwd.dq.launches_dbias = 0
+    gemm.matmul.launches = roofline.roofline_call.launches = 0
 
 
 def _launches() -> dict:
     """Every kernel's launch count; "K1" counts all K1 launches, "K1 bias",
     "K1 int8", "K1 fp8", "K1 window" and "K1 softcap" those of its variants
-    (a launch with a window and a softcap counts in both)."""
-    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    (a launch with a window and a softcap counts in both); "K5 bias" and "K6
+    bias" the K5 / K6 launches with a bias, "K6 dbias" those that also wrote
+    dbias."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, gemm, roofline
 
     return {"K1": flash_fwd.fwd.launches, "K1 bias": flash_fwd.fwd.launches_bias,
             "K1 int8": flash_fwd.fwd.launches_int8, "K1 fp8": flash_fwd.fwd.launches_fp8,
             "K1 window": flash_fwd.fwd.launches_window,
             "K1 softcap": flash_fwd.fwd.launches_softcap,
             "K3": flash_bwd_fused.bwd.launches, "K5": flash_bwd.dkv.launches,
-            "K6": flash_bwd.dq.launches}
+            "K5 bias": flash_bwd.dkv.launches_bias, "K6": flash_bwd.dq.launches,
+            "K6 bias": flash_bwd.dq.launches_bias, "K6 dbias": flash_bwd.dq.launches_dbias,
+            "K9": gemm.matmul.launches, "K10": roofline.roofline_call.launches}
 
 
 def _expect(**counts) -> dict:
@@ -1193,14 +1247,24 @@ GROW = 4
 WINDOW_REL_L2 = 1e-2
 
 
-def _fwd_bwd_check(tag: str, q, k, v, do, **kw) -> dict:
-    """K1 (flash_fwd.fwd) and its backward -- K3, or K5 + K6 with segment ids
-    or a softcap, as flash_attention routes it -- against their plain
-    versions on f32 copies of the same bf16 inputs: O within FWD_TOL[bf16],
-    LSE within 1e-3 on live rows, dQ/dK/dV within BWD_TOL[bf16], each of O,
-    dQ, dK, dV within WINDOW_REL_L2 relative L2 (printed with max|ref|), dead
-    rows' O and dQ exactly 0. Returns the max errors and the (q, k, v, do,
-    lse, delta) the backward took."""
+def _grown(seed, B, Hq, Nq, D, Nk, Hkv):
+    """q, k (scaled by GROW) and v, bf16 [B, H, N, D] views of [B, N, H, D]."""
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    q, k, v = make_qkv(seed, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv, device=DEVICE)
+    return tuple(_bnhd(x.to(torch.bfloat16)) for x in (GROW * q, GROW * k, v))
+
+
+def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: bool = False,
+                   **kw) -> dict:
+    """K1 (flash_fwd.fwd) and its backward -- K3, or K5 + K6 with segment ids,
+    a softcap or a bias, as flash_attention routes it, K6 also writing dbias
+    with ``want_dbias`` -- against their plain versions on f32 copies of the
+    same bf16 inputs: O within FWD_TOL[bf16], LSE within 1e-3 on live rows,
+    dQ/dK/dV (and dbias) within BWD_TOL[bf16], each of O, dQ, dK, dV (and
+    dbias) within WINDOW_REL_L2 relative L2 (printed with max|ref|), dead
+    rows' O and dQ exactly 0. Returns the max errors, dbias, and the (q, k,
+    v, do, lse, delta) the backward took."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
     from flashattn_tpu_torch.utils.testing import (
@@ -1216,16 +1280,18 @@ def _fwd_bwd_check(tag: str, q, k, v, do, **kw) -> dict:
     err_o = (o.float() - o_want).abs().max().item()
     delta = (f32[3] * o_want.float()).sum(-1)
     args = (q, k, v, do, lse_want, delta)
-    split = "softcap" in kw or "segment_ids" in kw
+    split = any(n in kw for n in ("softcap", "segment_ids", "bias"))
     if not split:
         got = flash_bwd_fused.bwd(*args, **kw)
         want = flash_bwd_fused.bwd_reference(*f32, lse_want, delta, **kw)
         names = ("dq", "dk", "dv")
     else:
-        got = (flash_bwd.dq(*args, **kw), *flash_bwd.dkv(*args, **kw))
-        want = (flash_bwd.dq_reference(*f32, lse_want, delta, **kw),
+        dq = flash_bwd.dq(*args, want_dbias=want_dbias, **kw)
+        dq_want = flash_bwd.dq_reference(*f32, lse_want, delta, want_dbias=want_dbias, **kw)
+        got = (*(dq if want_dbias else (dq,)), *flash_bwd.dkv(*args, **kw))
+        want = (*(dq_want if want_dbias else (dq_want,)),
                 *flash_bwd.dkv_reference(*f32, lse_want, delta, **kw))
-        names = ("dq (K6)", "dk (K5)", "dv (K5)")
+        names = ("dq (K6)", *(("dbias (K6)",) if want_dbias else ()), "dk (K5)", "dv (K5)")
     torch.cuda.synchronize()
     g_tol = BWD_TOL[torch.bfloat16]
     ok_g, why_g, err_g, _ = grad_gate(got, want, g_tol, names=names)
@@ -1233,7 +1299,7 @@ def _fwd_bwd_check(tag: str, q, k, v, do, **kw) -> dict:
     dead_zero = bool((o[dead] == 0).all() and (got[0][dead] == 0).all())
     rel = {n: (_rel(a.float(), e), e.abs().max().item())
            for n, a, e in zip(("O", *names), (o, *got), (o_want, *want))}
-    log("window", f"{tag}: K1 O max_abs_err {err_o:.3e} (budget {O_TOL_NAME}), LSE live rows "
+    log(phase, f"{tag}: K1 O max_abs_err {err_o:.3e} (budget {O_TOL_NAME}), LSE live rows "
                   f"max_abs_err {(lse[live] - lse_want[live]).abs().max().item():.3e} (budget "
                   f"{LSE_ATOL}); {'K5 + K6' if split else 'K3'} dQ/dK/dV "
                   f"max_abs_err {err_g:.3e} (budget BWD_TOL[bf16] atol {g_tol.atol} rtol "
@@ -1248,9 +1314,11 @@ def _fwd_bwd_check(tag: str, q, k, v, do, **kw) -> dict:
         fail(f"relative L2 error above {WINDOW_REL_L2} at {tag}: {rel}")
     if not dead_zero:
         fail(f"dead rows at {tag}: O or dQ not exactly 0")
+    dbias = got[1] if want_dbias else None
     del o, got, want, f32
     torch.cuda.empty_cache()
-    return {"fwd_err": err_o, "bwd_err": err_g, "args": args, "dead": int(dead.sum())}
+    return {"fwd_err": err_o, "bwd_err": err_g, "args": args, "dead": int(dead.sum()),
+            "dbias": dbias}
 
 
 def phase_window_check() -> dict:
@@ -1267,13 +1335,9 @@ def phase_window_check() -> dict:
     from flashattn_tpu_torch.ops.flash import flash_attention
     from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close, make_qkv
 
-    def grown(seed, B, Hq, Nq, D, Nk, Hkv):
-        q, k, v = make_qkv(seed, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv, device=DEVICE)
-        return (_bnhd(x.to(torch.bfloat16)) for x in (GROW * q, GROW * k, v))
-
     res = {}
     for i, (name, B, Hq, Hkv, Nq, Nk, D, causal, window) in enumerate(WINDOW_CASES):
-        q, k, v = grown(1000 + i, B, Hq, Nq, D, Nk, Hkv)
+        q, k, v = _grown(1000 + i, B, Hq, Nq, D, Nk, Hkv)
         do = _bnhd(make_qkv(1100 + i, B, Hq, Nq, D, dtype=torch.bfloat16, device=DEVICE)[0])
         kw = dict(scale=D ** -0.5, causal=causal, window=window)
         out = _fwd_bwd_check(f"{name} B{B} Hq{Hq} Hkv{Hkv} Nq{Nq} Nk{Nk} D{D} "
@@ -1289,7 +1353,7 @@ def phase_window_check() -> dict:
     B, Hq, Hkv, N, _, D = SEG_CASES[0][1:7]
     ids = packed_ids(B, N + 1)[:, :N]
     for cap in (None, SOFTCAP):
-        q, k, v = grown(1050, B, Hq, N, D, N, Hkv)
+        q, k, v = _grown(1050, B, Hq, N, D, N, Hkv)
         do = _bnhd(make_qkv(1051, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
         kw = dict(scale=D ** -0.5, causal=True, window=(GATE_WINDOW - 1, -1),
                   segment_ids=(ids, ids), **({} if cap is None else {"softcap": cap}))
@@ -1338,7 +1402,7 @@ def phase_window_check() -> dict:
     torch.cuda.empty_cache()
 
     # Soft-capped training attention: the SWA shape with Gemma-2's cap.
-    q, k, v = grown(1200, B, Hq, N, D, N, Hkv)
+    q, k, v = _grown(1200, B, Hq, N, D, N, Hkv)
     do = _bnhd(make_qkv(1201, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
     kw = dict(kw, softcap=SOFTCAP)
     out = _fwd_bwd_check(f"softcap {SOFTCAP} window {kw['window']} causal B{B} Hq{Hq} Hkv{Hkv} "
@@ -1502,29 +1566,531 @@ def phase_softcap() -> dict:
     return {"train": train, "decode": decode}
 
 
+# Bias-gradient training (path A): the counterpart of flax's
+# MultiHeadDotProductAttention at the LM's attention width (16 heads of 128,
+# integrations/torch_nn.py), over a key-padding mask of these row lengths built
+# as nn.make_attention_mask builds it; the padded rows are left out of the
+# loss. phase_bias_check also holds the kernels at the LM's attention shape
+# (B, Hq, Hkv, N, D), causal, with a learned [1, Hq, N, N] bias.
+ATTN_WIDTH = dict(num_heads=16, in_features=2048, qkv_features=2048)
+ATTN_LENGTHS = (2048, 1536, 1024, 512)
+ATTN_SEQ = 2048
+BIAS_SHAPE = (2, 16, 8, 2048, 128)
+# phase_roofline: K9 at 4096^3 and at the JAX test's 512 x 256 x 384; K10
+# checked at size 256 with 4 iterations and timed at the JAX probe's default
+# (size 512, 1024 iterations); the chained torch.matmul at size 4096.
+GEMM_SHAPES = ((4096, 4096, 4096), (512, 256, 384))
+ROOFLINE_SIZE, ROOFLINE_ITERS = 512, 1024
+MATMUL_PEAK_SIZE = 4096
+
+
+def _padding_bias(lengths, n: int) -> torch.Tensor:
+    """The f32 bias ``[B, 1, n, n]`` of a key-padding mask of row
+    ``lengths`` (``make_attention_mask`` of the valid flags, then the
+    adapter's 0 / DEFAULT_MASK_VALUE): rows past a length are dead."""
+    from flashattn_tpu_torch.integrations import make_attention_mask
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+
+    valid = torch.arange(n, device=DEVICE)[None] < torch.tensor(lengths, device=DEVICE)[:, None]
+    mask = make_attention_mask(valid, valid, dtype=torch.bool)
+    return torch.where(mask, 0.0, DEFAULT_MASK_VALUE).to(torch.float32)
+
+
+def _bias_e2e(tag: str, q, k, v, bias, do, **fkw):
+    """Gradients of ``flash_attention(bias=)`` (dQ, dK, dV, dbias) against
+    autograd through the f32 oracle on f32 copies: BWD_TOL[bf16] and each
+    within WINDOW_REL_L2 relative L2; dbias of the bias's shape and dtype.
+    Returns dbias."""
+    from flashattn_tpu_torch.ops.flash import flash_attention
+    from flashattn_tpu_torch.ops.oracle import attention_reference
+    from flashattn_tpu_torch.utils.testing import BWD_TOL, grad_gate
+
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v, bias)]
+    got = torch.autograd.grad(flash_attention(*leaves[:3], bias=leaves[3], **fkw), leaves, do)
+    torch.cuda.synchronize()
+    ref = [x.detach().float().requires_grad_(True) for x in (q, k, v, bias)]
+    o_ref = attention_reference(*ref[:3], bias=ref[3], causal=fkw.get("causal", False),
+                                logit_softcap=fkw.get("logit_softcap"))
+    want = torch.autograd.grad(o_ref, ref, do.float())
+    names = ("dq", "dk", "dv", "dbias")
+    g_tol = BWD_TOL[torch.bfloat16]
+    ok, why, err, _ = grad_gate(got, want, g_tol, names=names)
+    rel = {n: (_rel(a.float(), e), e.abs().max().item()) for n, a, e in zip(names, got, want)}
+    log("bias", f"flash_attention(bias=) end to end, {tag}: dQ/dK/dV/dbias max_abs_err "
+                f"{err:.3e} (budget BWD_TOL[bf16] atol {g_tol.atol} rtol {g_tol.rtol}) against "
+                f"autograd through the f32 oracle; relative L2 (limit {WINDOW_REL_L2}) / "
+                f"max|ref|: " + ", ".join(f"{n} {r:.2e} / {m:.3f}" for n, (r, m) in rel.items())
+                + f"; dbias {list(got[3].shape)} {got[3].dtype}")
+    if not ok:
+        fail(f"flash_attention(bias=) gradients disagree with the oracle's ({tag}): {why}")
+    if not all(r <= WINDOW_REL_L2 for r, _ in rel.values()):
+        fail(f"relative L2 error above {WINDOW_REL_L2} ({tag}): {rel}")
+    if got[3].shape != bias.shape or got[3].dtype != bias.dtype:
+        fail(f"dbias {tuple(got[3].shape)} {got[3].dtype} is not the bias's "
+             f"{tuple(bias.shape)} {bias.dtype} ({tag})")
+    return got[3]
+
+
+def phase_bias_check() -> dict:
+    """K1, K5 and K6 with a bias, and K6's dbias, against their plain
+    versions (_fwd_bwd_check, q and k scaled by GROW): at path A's attention
+    (B4 H16 N2048 D128 non-causal) with its mask arm's bias (the key-padding
+    bias [4, 1, N, N] of ATTN_LENGTHS, with dead rows; no dbias, as a mask
+    wants none) and its learned arm's (that bias plus a learned [1, 16, N, N]
+    one, [4, 16, N, N], with dbias); at the LM's attention shape B2 Hq16 Hkv8
+    N2048 D128 causal with a learned [1, 16, N, N] bias, without and with
+    softcap 50 (dbias, exactly 0 above the diagonal). Then
+    flash_attention(bias=) end to end against autograd through the f32 oracle
+    (_bias_e2e): the learned bias, a trainable [2, 1, 1, N] padding bias,
+    softcap + the learned bias, and the GQA decode fold with a [B, 1, Nq, Nk]
+    bias, whose repeated rows sum back (4 K6 dbias launches). Times K1, K5
+    and K6 with the mask arm's bias and K6 with dbias with the learned arm's,
+    beside their plain versions and SDPA, and K6 with and without dbias at
+    the causal shape beside its bound."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    res = {}
+    B, N = len(ATTN_LENGTHS), ATTN_SEQ
+    H = ATTN_WIDTH["num_heads"]
+    D = ATTN_WIDTH["qkv_features"] // H
+    q, k, v = _grown(1400, B, H, N, D, N, H)
+    do = _bnhd(make_qkv(1401, B, H, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
+    pad = _padding_bias(ATTN_LENGTHS, N)
+    kw = dict(scale=D ** -0.5, bias=pad)
+    out = _fwd_bwd_check(f"path A's attention B{B} H{H} N{N} D{D} non-causal, key-padding bias "
+                         f"[{B}, 1, {N}, {N}] of lengths {ATTN_LENGTHS}", q, k, v, do,
+                         phase="bias", **kw)
+    if not out["dead"]:
+        fail("the key-padding case has no dead row")
+    args = out["args"]
+    stats, grad = 4 * B * H * N, 4 * B * H * N * D
+    mask = dict(kv_valid_len=N, causal=False, segment_ids=None)
+    bwd_library = dict(library_ms=sdpa_ms(q, k, v, do=do, attn_mask=pad), library_call=(
+        "the backward of scaled_dot_product_attention(attn_mask=the key-padding bias) (dQ, dK "
+        "and dV in one call)"))
+    res["k1_bias"] = {
+        "max_abs_err": out["fwd_err"], "ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, **kw)),
+        "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw), reps=3, trials=3),
+        **bound(tensor_bytes(q, k, v, pad, q) + stats, pair_flops(q, k, matmuls=2, **mask)),
+        "library_ms": sdpa_ms(q, k, v, attn_mask=pad),
+        "library_call": "scaled_dot_product_attention(attn_mask=the key-padding bias)"}
+    res["k5_bias"] = {
+        "max_abs_err": out["bwd_err"], "ms": cuda_ms(lambda: flash_bwd.dkv(*args, **kw)),
+        "plain_ms": cuda_ms(lambda: flash_bwd.dkv_reference(*args, **kw), reps=2, trials=3),
+        **bound(tensor_bytes(*args, pad) + 2 * grad, pair_flops(q, k, matmuls=4, **mask)),
+        **bwd_library}
+    res["k6_bias"] = {
+        "max_abs_err": out["bwd_err"], "ms": cuda_ms(lambda: flash_bwd.dq(*args, **kw)),
+        "plain_ms": cuda_ms(lambda: flash_bwd.dq_reference(*args, **kw), reps=2, trials=3),
+        **bound(tensor_bytes(*args, pad) + grad, pair_flops(q, k, matmuls=3, **mask)),
+        **bwd_library}
+    log("bias", f"path A's attention: K1 bias {res['k1_bias']['ms']:.4f} ms (plain "
+                f"{res['k1_bias']['plain_ms']:.4f}, SDPA {res['k1_bias']['library_ms']:.4f}), "
+                f"K5 bias {res['k5_bias']['ms']:.4f} ms (plain {res['k5_bias']['plain_ms']:.4f}), "
+                f"K6 bias {res['k6_bias']['ms']:.4f} ms (plain {res['k6_bias']['plain_ms']:.4f}), "
+                f"SDPA's backward {bwd_library['library_ms']:.4f} ms (median CUDA-event time)")
+    del q, k, v, do, args, out
+    torch.cuda.empty_cache()
+
+    # Path A's learned arm: flash_attention_fn adds the key-padding bias and
+    # the learned relative-position bias [1, H, N, N] into one [B, H, N, N] f32
+    # bias that requires grad, so K6 writes dbias over every pair.
+    gen = torch.Generator(device=DEVICE).manual_seed(1409)
+    combined = pad + torch.randn((1, H, N, N), generator=gen, device=DEVICE)
+    del pad
+    q, k, v = _grown(1410, B, H, N, D, N, H)
+    do = _bnhd(make_qkv(1411, B, H, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
+    kw = dict(scale=D ** -0.5, bias=combined)
+    out = _fwd_bwd_check(f"path A's learned arm B{B} H{H} N{N} D{D} non-causal, bias [{B}, {H}, "
+                         f"{N}, {N}] (key padding + learned [1, {H}, {N}, {N}]), dbias", q, k, v, do,
+                         phase="bias", want_dbias=True, **kw)
+    # SDPA takes a bias that requires grad only in the query's dtype.
+    args, leaf = out["args"], combined.to(torch.bfloat16).requires_grad_(True)
+    res["k6_dbias"] = {
+        "max_abs_err": out["bwd_err"],
+        "ms": cuda_ms(lambda: flash_bwd.dq(*args, want_dbias=True, **kw)),
+        "plain_ms": cuda_ms(lambda: flash_bwd.dq_reference(*args, want_dbias=True, **kw), reps=2,
+                            trials=3),
+        **bound(tensor_bytes(*args, combined, out["dbias"]) + grad,
+                pair_flops(q, k, matmuls=3, **mask)),
+        "library_ms": sdpa_ms(q, k, v, do=do, attn_mask=leaf, bias_leaf=leaf),
+        "library_call": ("the backward of scaled_dot_product_attention(attn_mask=the [B, H, N, N] "
+                         "bias in bf16, which requires grad) (dQ, dK, dV and dbias in one call)")}
+    no_dbias = cuda_ms(lambda: flash_bwd.dq(*args, **kw))
+    log("bias", f"path A's learned arm: K6 with dbias {res['k6_dbias']['ms']:.4f} ms (plain "
+                f"{res['k6_dbias']['plain_ms']:.4f}), without dbias {no_dbias:.4f} ms; bound "
+                f"{res['k6_dbias']['bound_ms']:.4f} ms ({res['k6_dbias']['bound_by']}); SDPA's "
+                f"backward with dbias {res['k6_dbias']['library_ms']:.4f} ms")
+    del q, k, v, do, args, out, combined, leaf
+    torch.cuda.empty_cache()
+
+    B, Hq, Hkv, N, D = BIAS_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(1402)
+    learned = torch.randn((1, Hq, N, N), generator=gen, device=DEVICE)
+    upper = torch.ones((N, N), dtype=torch.bool, device=DEVICE).triu(1)
+    for cap in (None, SOFTCAP):
+        q, k, v = _grown(1403, B, Hq, N, D, N, Hkv)
+        do = _bnhd(make_qkv(1404, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
+        kw = dict(scale=D ** -0.5, causal=True, bias=learned,
+                  **({} if cap is None else {"softcap": cap}))
+        out = _fwd_bwd_check(f"learned bias [1, {Hq}, {N}, {N}] B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} "
+                             f"causal{'' if cap is None else f', softcap {cap}'}, dbias",
+                             q, k, v, do, phase="bias", want_dbias=True, **kw)
+        above = int((out["dbias"][..., upper] != 0).sum())
+        log("bias", f"dbias above the causal diagonal: {above} nonzero of "
+                    f"{B * Hq * int(upper.sum())}")
+        if above:
+            fail(f"K6's dbias is not exactly 0 above the causal diagonal (cap {cap})")
+        if cap is None:
+            lm = out
+        del q, k, v, do, out
+        torch.cuda.empty_cache()
+
+    args, kw = lm["args"], dict(scale=D ** -0.5, causal=True, bias=learned)
+    # The batch-broadcast bias is read once over the attended pairs (on and
+    # below the diagonal); dbias [B, Hq, N, N] is written whole.
+    causal_bound = bound(tensor_bytes(*args, lm["dbias"]) + 4 * Hq * N * (N + 1) // 2
+                         + 4 * B * Hq * N * D,
+                         pair_flops(args[0], args[1], matmuls=3, kv_valid_len=N, causal=True,
+                                    segment_ids=None))
+    with_dbias = cuda_ms(lambda: flash_bwd.dq(*args, want_dbias=True, **kw))
+    no_dbias = cuda_ms(lambda: flash_bwd.dq(*args, **kw))
+    log("bias", f"learned bias B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal: K6 with dbias "
+                f"{with_dbias:.4f} ms, without dbias {no_dbias:.4f} ms; bound "
+                f"{causal_bound['bound_ms']:.4f} ms ({causal_bound['bound_by']})")
+    del args, lm
+    torch.cuda.empty_cache()
+
+    # End to end at unit scale: these gradients also carry the bf16 rounding
+    # of O and of Delta = rowsum(dO * O), which at GROW scale alone exceeds
+    # BWD_TOL[bf16] elementwise (dQ off by 9.8e-2 at |ref| 6.4e-2 on the H100).
+    _reset_launches()
+    q, k, v = (_bnhd(x) for x in make_qkv(1405, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16,
+                                           device=DEVICE))
+    do = _bnhd(make_qkv(1406, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
+    dbias = _bias_e2e(f"learned bias [1, {Hq}, {N}, {N}], B{B} Hq{Hq} Hkv{Hkv} causal", q, k, v,
+                      learned, do, causal=True)
+    if (dbias[..., upper] != 0).any():
+        fail("the reduced dbias is not exactly 0 above the causal diagonal")
+    lengths = torch.tensor([N, 3 * N // 4], device=DEVICE)
+    slots = torch.where(torch.arange(N, device=DEVICE)[None] < lengths[:, None], 0.0, -1e9)
+    _bias_e2e(f"trainable padding bias [{B}, 1, 1, {N}], causal", q, k, v,
+              slots[:, None, None], do, causal=True)
+    _bias_e2e(f"softcap {SOFTCAP} + learned bias, causal", q, k, v, learned, do, causal=True,
+              logit_softcap=SOFTCAP)
+    nq = 2  # rep * Nq = 4 rows per KV head: folded
+    qd = _bnhd(make_qkv(1407, B, Hq, nq, D, dtype=torch.bfloat16, device=DEVICE)[0])
+    dod = _bnhd(make_qkv(1408, B, Hq, nq, D, dtype=torch.bfloat16, device=DEVICE)[0])
+    rows = torch.randn((B, 1, nq, N), generator=gen, device=DEVICE)
+    _bias_e2e(f"GQA decode fold Nq{nq}, bias [{B}, 1, {nq}, {N}] (rows repeated per q head)",
+              qd, k, v, rows, dod)
+    res["e2e"] = _launches()
+    log("bias", f"launches during the end-to-end checks: {res['e2e']}")
+    if res["e2e"]["K6 dbias"] != 4 or res["e2e"]["K3"]:
+        fail(f"the end-to-end bias checks launched {res['e2e']}, expected K6 dbias = 4, no K3")
+    return res
+
+
+def _plain_mhdpa(m, x, bias):
+    """The module's function written out apart from the port: the
+    projections in the parameters' dtype, then softmax(q k^T · D^-1/2 + bias)
+    v in f32 with the f32 ``bias`` [B|1, H, N, N], cast back. A gate's
+    reference: it shares no code with flash_attention_fn, the SDPA adapter
+    or the kernels."""
+    q, k, v = ((torch.einsum("bnf,fhd->bhnd", x, p.kernel) + p.bias[:, None]).float()
+               for p in (m.query, m.key, m.value))
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * q.shape[-1] ** -0.5 + bias
+    o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v).to(x.dtype)
+    return torch.einsum("bhnd,hdf->bnf", o, m.out.kernel) + m.out.bias
+
+
+def _path_a(arm: str, x, target, valid, mask, rel0) -> dict:
+    """One arm of path A: FlashMultiHeadDotProductAttention (ATTN_WIDTH,
+    bf16) on ``x`` with the key-padding ``mask`` and, where ``rel0`` is given,
+    a trainable relative-position bias initialised to it (f32, passed as the
+    module's ``bias``); an MSE loss over the valid rows. Loss and gradient
+    gates: the bf16 floor is the plain bf16 function (_plain_mhdpa on the
+    bf16 weights) against the plain f32 one on the unrounded weights; the
+    fused and exact (impl "exact", the SDPA adapter's oracle) arms are each
+    held to 1.5x that floor against the f32 one, over all gradients and,
+    with a learned bias, over its gradient alone. Then LM_STEPS AdamW steps
+    per arm (the learned bias trained with the weights), the launches of the
+    fused steps counted."""
+    from flashattn_tpu_torch.integrations import FlashMultiHeadDotProductAttention
+    from flashattn_tpu_torch.models.transformer import adamw_init, adamw_update
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+
+    B, N, F = x.shape
+
+    def build(impl, dtype=torch.bfloat16):
+        m = FlashMultiHeadDotProductAttention(
+            **ATTN_WIDTH, impl=impl, dtype=dtype, device=DEVICE,
+            generator=torch.Generator(device=DEVICE).manual_seed(0))
+        rel = None if rel0 is None else torch.nn.Parameter(rel0.clone())
+        return m, rel
+
+    def loss_of(m, rel, plain=False):
+        dtype = m.out.kernel.dtype
+        if plain:
+            bias = torch.where(mask, 0.0, DEFAULT_MASK_VALUE)
+            y = _plain_mhdpa(m, x.to(dtype), bias if rel is None else bias + rel)
+        else:
+            y = m(x.to(dtype), mask=mask, bias=rel)
+        return ((y.float() - target) ** 2 * valid[..., None]).sum() / (valid.sum() * F)
+
+    def params_of(m, rel):
+        return {**dict(m.named_parameters()), **({} if rel is None else {"rel_bias": rel})}
+
+    def loss_and_grads(m, rel, plain=False):
+        params = params_of(m, rel)
+        for p in params.values():
+            p.grad = None
+        loss = loss_of(m, rel, plain)
+        loss.backward()
+        return loss.item(), {n: p.grad for n, p in params.items()}
+
+    fused, exact = build("fused"), build("exact")
+    n_params = sum(p.numel() for p in params_of(*fused).values())
+    got = {"fused": loss_and_grads(*fused), "exact": loss_and_grads(*exact)}
+    l16, g16 = loss_and_grads(*build("exact"), plain=True)
+    l32, g32 = loss_and_grads(*build("exact", torch.float32), plain=True)
+    for name, (loss, g) in (*got.items(), ("plain bf16", (l16, g16)), ("plain f32", (l32, g32))):
+        if not math.isfinite(loss) or not all(torch.isfinite(t).all() for t in g.values()):
+            fail(f"path A {arm}, {name}: loss {loss} or its gradients are not finite")
+    only = {} if rel0 is None else {"rel_bias": "the learned bias's gradient"}
+    floors = {"loss": abs(l16 - l32), "gradients": _rel_l2(g16, g32),
+              **{n: _rel_l2({n: g16[n]}, {n: g32[n]}) for n in only}}
+    errs = {name: {"loss": abs(loss - l32), "gradients": _rel_l2(g, g32),
+                   **{n: _rel_l2({n: g[n]}, {n: g32[n]}) for n in only}}
+            for name, (loss, g) in got.items()}
+    what = f"key-padding mask of lengths {ATTN_LENGTHS}" + (
+        "" if rel0 is None else f" + a trainable bias {list(rel0.shape)} f32")
+    log("bias_train", f"{arm} arm: FlashMultiHeadDotProductAttention ({n_params / 1e6:.1f} M "
+                      f"params, {ATTN_WIDTH['num_heads']} heads of "
+                      f"{ATTN_WIDTH['qkv_features'] // ATTN_WIDTH['num_heads']}, bf16) on x "
+                      f"[{B}, {N}, {F}], {what}: loss fused {got['fused'][0]:.7f}, exact "
+                      f"{got['exact'][0]:.7f}, plain bf16 {l16:.7f}, plain f32 {l32:.7f}; "
+                      + "; ".join(f"{key} against plain f32: fused {errs['fused'][key]:.3e}, exact "
+                                  f"{errs['exact'][key]:.3e} (limit 1.5 x bf16 floor "
+                                  f"{floors[key]:.3e}, plain bf16 vs plain f32)"
+                                  for key in floors))
+    for name, err in errs.items():
+        for key, floor in floors.items():
+            if not err[key] <= 1.5 * floor:
+                fail(f"path A {arm} gate, {name} {only.get(key, key)}: {err[key]:.3e} against "
+                     f"the plain f32 function > 1.5 x the bf16 floor {floor:.3e}")
+    del got, g16, g32
+
+    res = {}
+    for name, (model, rel) in (("fused", fused), ("exact", exact)):
+        params = params_of(model, rel)
+        opt = adamw_init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if name == "fused":
+            _reset_launches()
+        losses, secs = [], []
+        for _ in range(LM_STEPS):
+            t0 = time.perf_counter()
+            for p in params.values():
+                p.grad = None
+            loss = loss_of(model, rel)
+            loss.backward()
+            adamw_update({n: p.grad for n, p in params.items()}, opt, params)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        if name == "fused":
+            res["launches"] = _launches()
+        step_s = statistics.median(secs[LM_WARMUP:])
+        res[name] = {"ms_per_step": step_s * 1e3,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log("bias_train", f"{arm} arm, {name}: {LM_STEPS} AdamW steps, {step_s * 1e3:.2f} ms/step "
+                          f"({', '.join(f'{s * 1e3:.1f}' for s in secs)}; median after "
+                          f"{LM_WARMUP} warm-up steps), peak {res[name]['peak_gb']:.2f} GB; loss "
+                          f"{losses[0]:.5f} -> {losses[-1]:.5f}")
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+            fail(f"path A {arm} arm, {name} training: losses {losses} not finite or not falling")
+        del params, opt
+    n, dbias = LM_STEPS, (0 if rel0 is None else LM_STEPS)
+    log("bias_train", f"{arm} arm, launches during the fused steps: {res['launches']} (expected "
+                      f"K1 = K1 bias = K5 = K5 bias = K6 = K6 bias = {n}, K6 dbias = {dbias}, no "
+                      f"K3)")
+    if res["launches"] != _expect(K1=n, K1_bias=n, K5=n, K5_bias=n, K6=n, K6_bias=n,
+                                  K6_dbias=dbias):
+        fail(f"path A's {arm} arm launched {res['launches']}, expected K1 = K1 bias = K5 = K5 "
+             f"bias = K6 = K6 bias = {n}, K6 dbias = {dbias} and no other")
+    del fused, exact
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_bias_train() -> dict:
+    """Path A: FlashMultiHeadDotProductAttention (16 heads, qkv_features
+    2048, bf16, impl "fused") on x [4, 2048, 2048] with the key-padding mask of
+    ATTN_LENGTHS ([B, 1, N, N] boolean, as nn.make_attention_mask builds it),
+    an MSE loss over the valid rows against a random target at the output's
+    scale, in two arms (_path_a): the mask alone, which needs no dbias, and
+    the mask plus a trainable relative-position bias [1, 16, N, N] (a T5 /
+    Swin-style learned bias), whose gradient K6's dbias gives."""
+    from flashattn_tpu_torch.integrations import make_attention_mask
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    B, N, F = len(ATTN_LENGTHS), ATTN_SEQ, ATTN_WIDTH["in_features"]
+    x = torch.randn((B, N, F), generator=gen, device=DEVICE)
+    # The target at the output's own scale (its std is ~0.044 at this width),
+    # so that the loss moves with the attention's output and not only with
+    # the target's variance.
+    target = 0.05 * torch.randn((B, N, F), generator=gen, device=DEVICE)
+    valid = torch.arange(N, device=DEVICE)[None] < torch.tensor(ATTN_LENGTHS, device=DEVICE)[:, None]
+    mask = make_attention_mask(valid, valid, dtype=torch.bool)
+    res = {"mask": _path_a("mask", x, target, valid, mask, None)}
+    rel0 = torch.randn((1, ATTN_WIDTH["num_heads"], N, N), generator=gen, device=DEVICE)
+    res["learned"] = _path_a("learned", x, target, valid, mask, rel0)
+    return res
+
+
+def phase_roofline() -> dict:
+    """Path B, the roofline probes: gemm.matmul (K9) at 4096^3 and at the
+    JAX test's 512 x 256 x 384 (blocks 128), and measure_mxu_peak_tflops
+    (K10, size 512, 1024 iterations) -- the launches counted -- then K9's
+    outputs against its plain version (bf16 out: FWD_TOL[bf16]; f32 out at
+    the small shape: FWD_TOL[f32]) and K10 against its plain version at size
+    256, 4 iterations (FWD_TOL[bf16]); the HMMA instructions of K10's SASS
+    (at least 2 x N_CHAINS: its chains' products are neither merged nor
+    hoisted) and the measured mma.sync peak at most the datasheet's 989
+    TFLOP/s; the chained torch.matmul peak beside it. Times K9 and K10 beside
+    their plain versions and torch.matmul."""
+    from flashattn_tpu_torch.ops import gemm, roofline
+    from flashattn_tpu_torch.utils import native
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    operands = [tuple(torch.randn(s, generator=gen, device=DEVICE).to(torch.bfloat16)
+                      for s in ((m, kd), (kd, n))) for m, n, kd in GEMM_SHAPES]
+    _reset_launches()
+    outs = [gemm.matmul(*operands[0]), gemm.matmul(*operands[1], block_m=128, block_n=128,
+                                                   block_k=128)]
+    mxu = roofline.measure_mxu_peak_tflops(size=ROOFLINE_SIZE, iters=ROOFLINE_ITERS)
+    counts = _launches()
+    log("roofline", f"launches driving the probes: {counts} (expected K9 = 2, K10 > 0, no other)")
+    if counts != _expect(K9=2, K10=counts["K10"]) or not counts["K10"]:
+        fail(f"the roofline probes launched {counts}, expected K9 = 2, K10 > 0 and no other")
+
+    res = {"launches": counts, "mxu_tflops": mxu}
+    for (m, n, kd), (a, b), out in zip(GEMM_SHAPES, operands, outs):
+        want = gemm.matmul_reference(a, b, torch.float32)
+        ok, msg = check_close(out, want, FWD_TOL[torch.bfloat16], "K9 bf16")
+        err = (out.float() - want).abs().max().item()
+        msg32 = ""
+        if (m, n, kd) != GEMM_SHAPES[0]:
+            out32 = gemm.matmul(a, b, block_m=128, block_n=128, block_k=128,
+                                out_dtype=torch.float32)
+            ok32, msg32 = check_close(out32, want, FWD_TOL[torch.float32], "K9 f32")
+            ok = ok and ok32
+            msg32 = f"; f32 out max_abs_err {(out32 - want).abs().max().item():.3e} (FWD_TOL[f32])"
+        log("roofline", f"K9 {m}x{kd} @ {kd}x{n} bf16: bf16 out max_abs_err {err:.3e} "
+                        f"(FWD_TOL[bf16], max|ref| {want.abs().max().item():.2f}){msg32}")
+        if not ok:
+            fail(f"K9 disagrees with its plain version at {m}x{kd}x{n}: {msg} {msg32}")
+        if (m, n, kd) == GEMM_SHAPES[0]:
+            k9_err = err
+    a, b = (torch.randn((256, 256), generator=gen, device=DEVICE).to(torch.bfloat16)
+            for _ in range(2))
+    out = roofline.roofline_call(a, b, iters=4, size=256)
+    want = roofline.roofline_reference(a.float(), b.float(), iters=4)
+    ok, msg = check_close(out, want, FWD_TOL[torch.bfloat16], "K10")
+    k10_err = (out.float() - want).abs().max().item()
+    log("roofline", f"K10 size 256, 4 iterations: max_abs_err {k10_err:.3e} (FWD_TOL[bf16], "
+                    f"max|ref| {want.abs().max().item():.2f})")
+    if not ok:
+        fail(f"K10 disagrees with its plain version: {msg}")
+
+    names = {"K10 roofline_kernel<4>", "K9 gemm_kernel<0>", "K9 gemm_kernel<1>"}
+    sass = sass_opcodes(native.BUILD_DIR / native.LIB_NAME, names)
+    hmma = {name: sass.get(name, collections.Counter())["HMMA"] for name in sorted(names)}
+    log("roofline", f"HMMA instructions in the SASS: {hmma} (K10 needs at least "
+                    f"{2 * roofline.N_CHAINS}: {roofline.N_CHAINS} chains x 2 n-tiles per k-step)")
+    if hmma["K10 roofline_kernel<4>"] < 2 * roofline.N_CHAINS:
+        fail(f"K10's SASS has {hmma['K10 roofline_kernel<4>']} HMMA: its products were merged")
+    matmul_peak = roofline.measure_xla_matmul_peak_tflops(size=MATMUL_PEAK_SIZE)
+    res["matmul_tflops"] = matmul_peak
+    datasheet = PEAK_BF16_FLOPS / 1e12
+    log("roofline", f"measured bf16 tensor-core peaks: K10 mma.sync (size {ROOFLINE_SIZE}, "
+                    f"{ROOFLINE_ITERS} iterations, {roofline.N_CHAINS} chains) {mxu:.1f} TFLOP/s, "
+                    f"chained torch.matmul (size {MATMUL_PEAK_SIZE}) {matmul_peak:.1f} TFLOP/s; "
+                    f"datasheet {datasheet:.0f} TFLOP/s (chip_smoke.bound keeps the datasheet)")
+    if not 0 < mxu <= datasheet:
+        fail(f"K10 measured {mxu:.1f} TFLOP/s, outside (0, {datasheet:.0f}]: its loop was cut")
+
+    a, b = operands[0]
+    m, n, kd = GEMM_SHAPES[0]
+    res["k9"] = {"max_abs_err": k9_err, "ms": cuda_ms(lambda: gemm.matmul(a, b)),
+                 "plain_ms": cuda_ms(lambda: gemm.matmul_reference(a, b), reps=3, trials=3),
+                 **bound(tensor_bytes(a, b, outs[0]), 2.0 * m * n * kd),
+                 "library_ms": cuda_ms(lambda: torch.matmul(a, b)),
+                 "library_call": "torch.matmul (bf16)"}
+    size, iters = ROOFLINE_SIZE, ROOFLINE_ITERS
+    a, b = (torch.randn((size, size), generator=gen, device=DEVICE).to(torch.bfloat16)
+            for _ in range(2))
+    a4, b4 = (x.expand(roofline.N_CHAINS, size, size).contiguous() for x in (a, b))
+    c0 = torch.zeros((roofline.N_CHAINS, size, size), dtype=torch.bfloat16, device=DEVICE)
+
+    def chained_matmul():
+        c = c0
+        for _ in range(iters):
+            c = torch.baddbmm(c, a4, b4, beta=1e-30)
+        return c
+
+    res["k10"] = {"max_abs_err": k10_err,
+                  "ms": cuda_ms(lambda: roofline.roofline_call(a, b, iters=iters, size=size),
+                                reps=3, trials=3),
+                  "plain_ms": cuda_ms(lambda: roofline.roofline_reference(a, b, iters=iters),
+                                      reps=1, trials=3),
+                  **bound(3 * size * size * 2, 2.0 * size ** 3 * iters * roofline.N_CHAINS),
+                  "library_ms": cuda_ms(chained_matmul, reps=1, trials=3),
+                  "library_call": (f"{iters} chained torch.baddbmm of [{roofline.N_CHAINS}, "
+                                   f"{size}, {size}] (beta 1e-30: the chains' feedback)")}
+    for key, res_k in (("K9", res["k9"]), ("K10", res["k10"])):
+        log("roofline", f"{key}: {res_k['ms']:.4f} ms, plain {res_k['plain_ms']:.4f} ms, bound "
+                        f"{res_k['bound_ms']:.4f} ms ({res_k['bound_by']}), "
+                        f"{res_k['library_call']} {res_k['library_ms']:.4f} ms")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     import flashattn_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    phase_env()
-    phase_build()
-    k1 = phase_kernel_check()
-    k1c = phase_causal_check()
-    k3 = phase_bwd_check()
-    seg = phase_seg_check()
-    launches = phase_slice()
-    k1c_launches, k3_launches = phase_train()
-    packed = phase_packed_train()
-    dec_k = phase_decode_check()
-    dec = phase_decode()
-    win = phase_window_check()
-    swa = phase_swa_train()
-    cap = phase_softcap()
-    fwd_src, bwd_src, split_src, cap_src, win_src, cap_win_src, split_win_src = (
+    def timed(phase):
+        t0 = time.perf_counter()
+        out = phase()
+        log("time", f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed(phase_env)
+    timed(phase_build)
+    k1 = timed(phase_kernel_check)
+    k1c = timed(phase_causal_check)
+    k3 = timed(phase_bwd_check)
+    seg = timed(phase_seg_check)
+    launches = timed(phase_slice)
+    k1c_launches, k3_launches = timed(phase_train)
+    packed = timed(phase_packed_train)
+    dec_k = timed(phase_decode_check)
+    dec = timed(phase_decode)
+    win = timed(phase_window_check)
+    swa = timed(phase_swa_train)
+    cap = timed(phase_softcap)
+    bias = timed(phase_bias_check)
+    bias_train = timed(phase_bias_train)
+    roof = timed(phase_roofline)
+    fwd_src, bwd_src, split_src, cap_src, win_src, cap_win_src, split_win_src, bias_src = (
         f"flashattn_tpu_torch/csrc/flash_{d}.cu"
         for d in ("fwd", "bwd", "bwd_split", "fwd_softcap", "fwd_window", "fwd_softcap_window",
-                  "bwd_split_window"))
+                  "bwd_split_window", "bwd_split_bias"))
     decode_kernels = [
         {"name": f"flash_fwd {label} (K1 decode, {name} cache)", "route": "cuda",
          "source": f"flashattn_tpu_torch/csrc/flash_fwd_{src}.cu",
@@ -1572,7 +2138,27 @@ def main() -> None:
          "launches": cap["train"]["K6"], **win["k6_softcap"]},
         {"name": "flash_fwd softcap bias (K1 decode, soft-capped bf16 cache)", "route": "cuda",
          "source": cap_src, "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
-         "launches": cap["decode"]["K1 softcap"], **win["k1_softcap_bias"]}]}), flush=True)
+         "launches": cap["decode"]["K1 softcap"], **win["k1_softcap_bias"]},
+        {"name": "flash_fwd bias (K1 + key-padding bias, path A)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/flash_fwd_bias.cu",
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+         "launches": bias_train["mask"]["launches"]["K1 bias"], **bias["k1_bias"]},
+        {"name": "flash_bwd_split dkv bias (K5 + bias)", "route": "cuda", "source": bias_src,
+         "replaces": "flashattn_tpu/ops/flash_bwd.py:139",
+         "launches": bias_train["mask"]["launches"]["K5 bias"], **bias["k5_bias"]},
+        {"name": "flash_bwd_split dq bias (K6 + bias, no dbias)", "route": "cuda",
+         "source": bias_src, "replaces": "flashattn_tpu/ops/flash_bwd.py:234",
+         "launches": bias_train["mask"]["launches"]["K6 bias"], **bias["k6_bias"]},
+        {"name": "flash_bwd_split dq dbias (K6 + bias + dbias, path A's learned arm)",
+         "route": "cuda", "source": bias_src, "replaces": "flashattn_tpu/ops/flash_bwd.py:234",
+         "launches": bias_train["learned"]["launches"]["K6 dbias"], **bias["k6_dbias"]},
+        {"name": "gemm (K9)", "route": "cuda", "source": "flashattn_tpu_torch/csrc/gemm.cu",
+         "replaces": "flashattn_tpu/ops/gemm.py:22", "launches": roof["launches"]["K9"],
+         **roof["k9"]},
+        {"name": "roofline (K10)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/roofline.cu",
+         "replaces": "flashattn_tpu/ops/roofline.py:28", "launches": roof["launches"]["K10"],
+         **roof["k10"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

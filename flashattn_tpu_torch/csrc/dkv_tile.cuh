@@ -1,6 +1,6 @@
 // The KV-tile backward body shared by K3 (csrc/flash_bwd.cu: dK, dV and dQ
 // by f32 atomics) and K5 (csrc/flash_bwd_split.cu: dK and dV only, with
-// optional segment ids and logit soft-capping). Each kernel is its own
+// optional segment ids, logit soft-capping or an additive bias). Each kernel is its own
 // instantiation and launch; the header of each .cu says what it replaces and
 // what bounds it.
 //
@@ -32,6 +32,15 @@
 //     fit a thread's registers without spilling (`-Xptxas -v`).
 //   * GQA: K/V are read at head h / rep without materialising the repeat;
 //     dK/dV are written per query head (f32) and ops/flash.py reduces them.
+//   * Bias (K5 only, flash_bwd.py:97-98): the f32 [B|1, H|1, Nq|1, Nk] bias
+//     of the forward, read through (batch, head, row) strides that are 0 on
+//     broadcast dims, is added in the forward's log2 domain and floored at
+//     the mask value there (fwd_tile.cuh), x = s * scale * log2e +
+//     bias * log2e (with softcap: cap * log2e * t + bias * log2e), so P
+//     recomputed here is the P whose LSE the forward stored. A row that the
+//     bias masks wholly (a padding mask turned additive) is dead in the
+//     forward, LSE = ln2 * mask; its pairs are mask-valued, not masked, so
+//     they get P = 0 explicitly here too.
 //   * Masks: masked pairs get P = 0 exactly (pairs outside the band on edge
 //     tiles, KV rows past kv_valid_len, Q rows past Nq, pairs of two
 //     segments). A KV row that no Q row sees gets dK = dV = 0. There is no -inf anywhere, and no reliance on the mask value
@@ -63,11 +72,14 @@ struct BwdParams {
   float* dv;           // [B, Hq, Nk, D] contiguous, per query head
   const int* seg_q;    // [B, Nq] segment ids (row stride seg_q_sb), or null
   const int* seg_kv;   // [B, Nk] segment ids (row stride seg_kv_sb), or null
+  const float* bias;   // f32, unit column stride (K5, K6), or null
+  float* dbias;        // [B, Hq, Nq, Nk] f32 contiguous (K6), or null: not wanted
   int64_t q_sb, q_sh, q_sn;
   int64_t k_sb, k_sh, k_sn;
   int64_t v_sb, v_sh, v_sn;
   int64_t do_sb, do_sh, do_sn;
   int64_t seg_q_sb, seg_kv_sb;
+  int64_t bias_sb, bias_sh, bias_sn;  // 0 on broadcast dims
   int hq, rep, nq, nk, d, kv_valid_len, causal;
   // Band: row i sees column j iff i - lo <= j <= i + hi (NO_BOUND: no bound).
   int lo, hi;
@@ -81,6 +93,10 @@ struct BwdParams {
 // flash_bwd_split_window.cu, so that nvcc builds them beside the rest.
 cudaError_t dkv_window_bf16(const BwdParams& p, int batch, cudaStream_t stream, bool cap);
 cudaError_t dq_window_bf16(const BwdParams& p, int batch, cudaStream_t stream, bool cap);
+// K5 and K6 with a bias (K6 also writes dbias when p.dbias is not null); defined
+// in flash_bwd_split_bias.cu.
+cudaError_t dkv_bias_bf16(const BwdParams& p, int batch, cudaStream_t stream, bool cap);
+cudaError_t dq_bias_bf16(const BwdParams& p, int batch, cudaStream_t stream, bool cap);
 
 }  // namespace fa
 
@@ -109,10 +125,12 @@ __host__ __device__ constexpr size_t dkv_smem_bytes() {
 // DQ = true: K3 (also adds dQ by atomics; takes no segments, no softcap).
 // DQ = false: K5 (dK and dV only; segments when p.seg_q is not null).
 // CAP: logit soft-capping (K5 only). WIN: the sliding window (p.lo, p.hi;
-// without it the band is causal's).
-template <int DP, bool DQ, bool CAP, bool WIN>
+// without it the band is causal's). BIAS: the additive bias p.bias (K5 only,
+// without a window or segments, as K1 takes it).
+template <int DP, bool DQ, bool CAP, bool WIN, bool BIAS = false>
 __device__ __forceinline__ void dkv_tile(const BwdParams& p) {
   static_assert(!(DQ && CAP), "soft-capped gradients run K5 + K6, never K3");
+  static_assert(!(BIAS && (DQ || WIN)), "a bias runs K5 + K6 without a window, never K3");
   constexpr int BLOCK_M = block_m<DP>();
   constexpr int STRIDE = DP + 8;          // shared row stride of the [rows][DP] tiles
   constexpr int DS_STRIDE = BLOCK_M + 8;  // shared row stride of dS^T [64][BLOCK_M]
@@ -183,6 +201,7 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p) {
   const int ta_col = ((lane >> 3) & 1) * 8;
 
   const __nv_bfloat16* q_g = p.q + b * p.q_sb + h * p.q_sh;
+  const float* bias_bh = BIAS ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
   const __nv_bfloat16* do_g = p.dout + b * p.do_sb + h * p.do_sh;
   const int64_t row_base = (static_cast<int64_t>(b) * p.hq + h) * p.nq;
   float* dq_g = p.dq + row_base * p.d;
@@ -259,7 +278,21 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p) {
             need_mask && (kv >= nkv || q >= p.nq ||
                           (WIN ? kv - q > p.hi || q - kv > p.lo : p.causal && kv > q) ||
                           (seg && s_segq[ql] != kv_seg[e >> 1]));
-        if constexpr (CAP) {
+        if constexpr (BIAS) {
+          // Kept apart from the branches below, as in dq_tile.cuh. A row the
+          // forward found dead (LSE = ln2 * mask) is masked too: its
+          // mask-valued scores would give exp2(mask - mask) = 1.
+          const bool off = masked || s_lse[ql] <= 0.5f * MASK_VALUE;
+          const float tc = CAP && !off ? tanhf(s[nt][e] * p.cap_scale) : 0.f;
+          float x = CAP ? tc * p.cap_log2 : s[nt][e] * p.scale_log2;
+          if (!off) {
+            x = fmaxf(x + __ldg(bias_bh + static_cast<int64_t>(q) * p.bias_sn + kv) * LOG2E,
+                      MASK_VALUE);
+          }
+          const float pe = off ? 0.f : exp2f(x - s_lse[ql]);
+          s[nt][e] = pe;
+          dp[nt][e] = pe * (dp[nt][e] - s_dlt[ql]) * (CAP ? (1.f - tc * tc) * p.scale : p.scale);
+        } else if constexpr (CAP) {
           const float tc = masked ? 0.f : tanhf(s[nt][e] * p.cap_scale);
           const float pe = masked ? 0.f : exp2f(tc * p.cap_log2 - s_lse[ql]);
           s[nt][e] = pe;
@@ -381,13 +414,21 @@ __global__ void __launch_bounds__(NUM_THREADS) dkv_window_kernel(const BwdParams
   dkv_tile<DP, DQ, CAP, true>(p);
 }
 
+// K5 with a bias, with or without softcap.
+template <int DP, bool CAP>
+__global__ void __launch_bounds__(NUM_THREADS) dkv_bias_kernel(const BwdParams p) {
+  dkv_tile<DP, false, CAP, false, true>(p);
+}
+
 // One launch of the KV-tile kernel of these options: one CTA per (64-row KV
 // tile, q-head, batch).
-template <int DP, bool DQ, bool CAP, bool WIN>
+template <int DP, bool DQ, bool CAP, bool WIN, bool BIAS = false>
 cudaError_t launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<DP, DQ>();
   void (*kernel)(const BwdParams);
-  if constexpr (WIN) {
+  if constexpr (BIAS) {
+    kernel = dkv_bias_kernel<DP, CAP>;
+  } else if constexpr (WIN) {
     kernel = dkv_window_kernel<DP, DQ, CAP>;
   } else if constexpr (CAP) {
     kernel = dkv_softcap_kernel<DP>;
@@ -403,7 +444,8 @@ cudaError_t launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
 
 // Fill BwdParams from the C entries' common arguments (shared by K3, K5, K6);
 // strides: q, k, v, dO (batch, head, seq), then seg_q, seg_kv (batch).
-// (wl, wr) is the window (a negative bound: none); softcap 0 is no cap.
+// (wl, wr) is the window (a negative bound: none); softcap 0 is no cap. No
+// bias: K5 and K6 set p.bias and its strides themselves.
 inline BwdParams bwd_params(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, const void* seg_q,
                             const void* seg_kv, int hq, int hkv, int nq, int nk, int d,

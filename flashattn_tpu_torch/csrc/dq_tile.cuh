@@ -1,7 +1,16 @@
-// K6's body (dQ of the two-kernel backward) and its launcher, shared by
-// flash_bwd_split.cu (without a window) and flash_bwd_split_window.cu (with
-// one); the header of flash_bwd_split.cu says what K6 replaces, how it is
-// laid out and what bounds it. K5's body is dkv_tile.cuh's.
+// K6's body (dQ of the two-kernel backward, and dbias) and its launcher,
+// shared by flash_bwd_split.cu (without a window), flash_bwd_split_window.cu
+// (with one) and flash_bwd_split_bias.cu (with a bias); the header of
+// flash_bwd_split.cu says what K6 replaces, how it is laid out and what
+// bounds it. K5's body is dkv_tile.cuh's.
+//
+// dbias (flash_bwd.py:135, 300-302) is the gradient of the capped logits,
+// dbias = P * (dP - Delta): the bias is added after the cap, so it carries
+// neither `scale` nor the cap's Jacobian, which dS = dbias * (1 - t^2) *
+// scale then takes on. K6 writes it in f32 for every pair of the tiles it
+// visits (0 for masked pairs, whose P is 0); the pairs of tiles it skips are
+// zero-filled by the caller (ops/flash_bwd.py), as the TPU kernel zeroes
+// them (flash_bwd.py:315-322).
 
 #pragma once
 
@@ -18,9 +27,11 @@ constexpr size_t dq_smem_bytes() {
 }
 
 // CAP: logit soft-capping; WIN: the sliding window (p.lo, p.hi; without it
-// the band is causal's).
-template <int DP, bool CAP, bool WIN>
+// the band is causal's); BIAS: the additive bias p.bias (without a window or
+// segments, as K1 takes it), and dbias into p.dbias unless it is null.
+template <int DP, bool CAP, bool WIN, bool BIAS = false>
 __device__ __forceinline__ void dq_tile(const BwdParams& p) {
+  static_assert(!(BIAS && WIN), "K1 takes a bias without a window");
   constexpr int BLOCK_M = DQ_BLOCK_M;
   constexpr int STRIDE = DP + 8;      // shared row stride (see load_tile)
   constexpr int KS_D = DP / 16;       // k-steps over the head dim (S, dP)
@@ -58,11 +69,19 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p) {
   const int row0 = m0 + warp * 16 + g;
   const int64_t row_base = (static_cast<int64_t>(b) * p.hq + h) * p.nq;
   float lse2[2], dlt[2];
+  // Bias: rows g and g + 8 (null past Nq); a row the forward found dead
+  // (LSE = ln2 * mask) is masked, as in dkv_tile.cuh.
+  const float* bias_row[2] = {nullptr, nullptr};
+  bool dead[2] = {false, false};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     lse2[r] = row < p.nq ? p.lse[row_base + row] * LOG2E : 0.f;
     dlt[r] = row < p.nq ? p.delta[row_base + row] : 0.f;
+    if (BIAS && row < p.nq) {
+      bias_row[r] = p.bias + b * p.bias_sb + h * p.bias_sh + static_cast<int64_t>(row) * p.bias_sn;
+      dead[r] = lse2[r] <= 0.5f * MASK_VALUE;
+    }
   }
 
   // Segments: the ids of rows g and g + 8 and the id range of the Q tile.
@@ -148,6 +167,7 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p) {
     const bool need_mask = seg || n0 + BLOCK_N > nkv || edge;
 #pragma unroll
     for (int nt = 0; nt < NT_S; ++nt) {
+      float dl[4];  // dbias = P (dP - Delta), the capped logits' gradient
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = n0 + nt * 8 + 2 * t + (e & 1);
@@ -157,13 +177,42 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p) {
             need_mask && (col >= nkv ||
                           (WIN ? col - row > p.hi || row - col > p.lo : p.causal && col > row) ||
                           (seg && s_seg[col - n0] != q_seg[r]));
-        if constexpr (CAP) {
+        if constexpr (BIAS) {
+          // Kept apart from the branches below: folded into them, the bias
+          // changed how nvcc compiled K6 without one (+25% time at the
+          // packed shape on the H100).
+          const bool off = masked || dead[r];
+          const float tc = CAP && !off ? tanhf(s[nt][e] * p.cap_scale) : 0.f;
+          float x = CAP ? tc * p.cap_log2 : s[nt][e] * p.scale_log2;
+          if (!off && bias_row[r] != nullptr) {
+            x = fmaxf(x + __ldg(bias_row[r] + col) * LOG2E, MASK_VALUE);  // K6 bias add
+          }
+          const float pe = off ? 0.f : exp2f(x - lse2[r]);
+          dl[e] = pe * (dp[nt][e] - dlt[r]);
+          s[nt][e] = dl[e] * (CAP ? (1.f - tc * tc) * p.scale : p.scale);
+        } else if constexpr (CAP) {
           const float tc = masked ? 0.f : tanhf(s[nt][e] * p.cap_scale);
           const float pe = masked ? 0.f : exp2f(tc * p.cap_log2 - lse2[r]);
           s[nt][e] = pe * (dp[nt][e] - dlt[r]) * ((1.f - tc * tc) * p.scale);
         } else {
           const float pe = masked ? 0.f : exp2f(s[nt][e] * p.scale_log2 - lse2[r]);
           s[nt][e] = pe * (dp[nt][e] - dlt[r]) * p.scale;
+        }
+      }
+      if (BIAS && p.dbias != nullptr) {
+        // Rows g and g + 8, columns col, col + 1 (< Nk); rows past Nq are not stored.
+        const int col = n0 + nt * 8 + 2 * t;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r;
+          if (row >= p.nq || col >= p.nk) continue;
+          float* dst = p.dbias + (row_base + row) * p.nk + col;
+          if ((p.nk & 1) == 0) {
+            *reinterpret_cast<float2*>(dst) = make_float2(dl[2 * r], dl[2 * r + 1]);
+          } else {
+            dst[0] = dl[2 * r];
+            if (col + 1 < p.nk) dst[1] = dl[2 * r + 1];
+          }
         }
       }
     }
@@ -218,12 +267,19 @@ __global__ void __launch_bounds__(NUM_THREADS) dq_window_kernel(const BwdParams 
   dq_tile<DP, CAP, true>(p);
 }
 
+template <int DP, bool CAP>
+__global__ void __launch_bounds__(NUM_THREADS) dq_bias_kernel(const BwdParams p) {
+  dq_tile<DP, CAP, false, true>(p);
+}
+
 // One launch of K6 with these options: one CTA per (64-row Q tile, q-head, batch).
-template <int DP, bool CAP, bool WIN>
+template <int DP, bool CAP, bool WIN, bool BIAS = false>
 cudaError_t launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<DP>();
   void (*kernel)(const BwdParams);
-  if constexpr (WIN) {
+  if constexpr (BIAS) {
+    kernel = dq_bias_kernel<DP, CAP>;
+  } else if constexpr (WIN) {
     kernel = dq_window_kernel<DP, CAP>;
   } else if constexpr (CAP) {
     kernel = dq_softcap_kernel<DP>;

@@ -3,8 +3,8 @@
 // Replaces the TPU kernels flashattn_tpu/ops/flash_bwd.py::_dkv_kernel (K5,
 // :139) and flashattn_tpu/ops/flash_bwd.py::_dq_kernel (K6, :234), the pair
 // that the JAX package's _flash_core_bwd runs whenever the single-pass K3
-// cannot (here: with segment ids or logit soft-capping; later also
-// bias/dbias and dynamic offsets). Both recompute P and dS from the forward's
+// cannot (here: with segment ids, logit soft-capping or a bias; later also
+// dynamic offsets). Both recompute P and dS from the forward's
 // row LSE (natural log) and Delta = rowsum(dO * O), as
 // flash_bwd.py::_recompute_p_ds does:
 //
@@ -22,7 +22,12 @@
 // template parameter: its instantiations (dkv_window_kernel,
 // dq_window_kernel, with or without softcap) are in
 // flash_bwd_split_window.cu, so that nvcc builds them in parallel with this
-// source; K6's body is in dq_tile.cuh, K5's in dkv_tile.cuh.
+// source; K6's body is in dq_tile.cuh, K5's in dkv_tile.cuh. So are the
+// bias instantiations (dkv_bias_kernel, dq_bias_kernel, with or without
+// softcap), in flash_bwd_split_bias.cu: K5 and K6 read the forward's f32 bias
+// [B|1, H|1, Nq|1, Nk] through strides that are 0 on broadcast dims, add it
+// in the forward's log2 domain, and K6 writes dbias = P * (dP - Delta)
+// [B, Hq, Nq, Nk] in f32 when it is wanted (dq_tile.cuh).
 // A dead row (no key of its segment) has LSE = ln2 * mask from the forward,
 // and a mask-valued score would give exp2(mask - mask) = 1, so the mask is
 // never left to underflow. Tiles whose id ranges are disjoint are skipped
@@ -50,18 +55,42 @@
 // two kernels against K3's 5 -- and synchronous global->shared tile loads
 // behind a barrier (as K1 and K3). At 8 documents per row most tile pairs
 // are skipped, so the work follows the per-document areas; with a window it
-// follows the band's area. Softcap adds a tanhf per pair to each kernel. Left
-// for later PRs: bias/dbias (K6's full dbias tile), dynamic offsets, wgmma
-// and TMA/cp.async pipelining.
+// follows the band's area. Softcap adds a tanhf per pair to each kernel; a
+// bias adds a 4-byte read per pair to each (from L2 when it broadcasts over
+// heads), and dbias a 4-byte write per pair to K6 -- with dbias, K6 moves
+// B * Hq * Nq * Nk * 4 bytes, which at N2048 outweighs its Q/K/V/dO reads.
+// Left for later PRs: a bias with a window or segments, dynamic offsets,
+// wgmma and TMA/cp.async pipelining.
 
 #include "dq_tile.cuh"
+
+namespace {
+
+// The checks of both entries: bwd_args_ok, ids in pairs, a bias without
+// segments or a window (as K1 takes it), softcap >= 0.
+bool split_args_ok(int d, int hq, int hkv, int nq, int nk, int kv_valid_len, const void* seg_q,
+                   const void* seg_kv, const void* bias, int wl, int wr, float softcap) {
+  return bwd_args_ok(d, hq, hkv, nq, nk, kv_valid_len) && (seg_q == nullptr) == (seg_kv == nullptr) &&
+         softcap >= 0.f && (bias == nullptr || (seg_q == nullptr && wl < 0 && wr < 0));
+}
+
+void set_bias(BwdParams* p, const void* bias, int64_t sb, int64_t sh, int64_t sn) {
+  p->bias = static_cast<const float*>(bias);
+  p->bias_sb = sb;
+  p->bias_sh = sh;
+  p->bias_sn = sn;
+}
+
+}  // namespace
 
 extern "C" {
 
 // Common arguments of both entries: q/do [B, Hq, Nq, D], k/v [B, Hkv, Nk, D]
 // (bf16, unit stride on D, other strides in elements), lse/delta [B, Hq, Nq]
 // f32 contiguous, seg_q [B, Nq] / seg_kv [B, Nk] int32 segment ids with unit
-// stride along the sequence (both null: no segments). Requires
+// stride along the sequence (both null: no segments), bias f32 with unit
+// column stride and (batch, head, row) strides bias_sb/sh/sn, 0 on broadcast
+// dims (null: no bias; not with segments or a window). Requires
 // 8 <= D <= 128 with D % 8 == 0, Hq % Hkv == 0, 0 <= kv_valid_len <= Nk,
 // Nq >= 1, Nk >= 1. causal != 0 masks kv_pos > q_pos (zero offsets); the
 // window (wl, wr) masks kv_pos < q_pos - wl (wl >= 0) and kv_pos > q_pos + wr
@@ -71,14 +100,14 @@ extern "C" {
 // K5: dk/dv [B, Hq, Nk, D] f32 contiguous, written per query head.
 int fa_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, const void* seg_q, const void* seg_kv,
-                    void* dk, void* dv, int batch, int hq, int hkv, int nq, int nk, int d,
+                    const void* bias, void* dk, void* dv, int batch, int hq, int hkv, int nq, int nk, int d,
                     int kv_valid_len, int causal, int wl, int wr, float scale, float softcap,
                     int64_t q_sb, int64_t q_sh,
                     int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn, int64_t v_sb,
                     int64_t v_sh, int64_t v_sn, int64_t do_sb, int64_t do_sh, int64_t do_sn,
-                    int64_t seg_q_sb, int64_t seg_kv_sb, void* stream) {
-  if (!bwd_args_ok(d, hq, hkv, nq, nk, kv_valid_len) || (seg_q == nullptr) != (seg_kv == nullptr) ||
-      softcap < 0.f) {
+                    int64_t seg_q_sb, int64_t seg_kv_sb, int64_t bias_sb, int64_t bias_sh,
+                    int64_t bias_sn, void* stream) {
+  if (!split_args_ok(d, hq, hkv, nq, nk, kv_valid_len, seg_q, seg_kv, bias, wl, wr, softcap)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t strides[14] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,  v_sb,
@@ -87,8 +116,10 @@ int fa_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dou
                            kv_valid_len, causal, wl, wr, scale, softcap, strides);
   p.dk = static_cast<float*>(dk);
   p.dv = static_cast<float*>(dv);
+  set_bias(&p, bias, bias_sb, bias_sh, bias_sn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool cap = softcap > 0.f;
+  if (bias != nullptr) return static_cast<int>(fa::dkv_bias_bf16(p, batch, s, cap));
   if (wl >= 0 || wr >= 0) return static_cast<int>(fa::dkv_window_bf16(p, batch, s, cap));
   return static_cast<int>(dispatch_head_dim(d, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
@@ -97,17 +128,21 @@ int fa_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dou
   }));
 }
 
-// K6: dq [B, Hq, Nq, D] f32 contiguous, written once (no atomics, no zeroing).
+// K6: dq [B, Hq, Nq, D] f32 contiguous, written once (no atomics, no zeroing);
+// with a bias, dbias [B, Hq, Nq, Nk] f32 contiguous (null: not wanted), written
+// for the tiles K6 visits -- the caller zero-fills it when causal or
+// kv_valid_len < Nk leave tiles unvisited.
 int fa_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, const void* seg_q, const void* seg_kv,
-                   void* dq, int batch, int hq, int hkv, int nq, int nk, int d,
+                   const void* bias, void* dq, void* dbias, int batch, int hq, int hkv, int nq, int nk, int d,
                    int kv_valid_len, int causal, int wl, int wr, float scale, float softcap,
                    int64_t q_sb, int64_t q_sh,
                    int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn, int64_t v_sb,
                    int64_t v_sh, int64_t v_sn, int64_t do_sb, int64_t do_sh, int64_t do_sn,
-                   int64_t seg_q_sb, int64_t seg_kv_sb, void* stream) {
-  if (!bwd_args_ok(d, hq, hkv, nq, nk, kv_valid_len) || (seg_q == nullptr) != (seg_kv == nullptr) ||
-      softcap < 0.f) {
+                   int64_t seg_q_sb, int64_t seg_kv_sb, int64_t bias_sb, int64_t bias_sh,
+                   int64_t bias_sn, void* stream) {
+  if (!split_args_ok(d, hq, hkv, nq, nk, kv_valid_len, seg_q, seg_kv, bias, wl, wr, softcap) ||
+      (dbias != nullptr && bias == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t strides[14] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,  v_sb,
@@ -115,8 +150,11 @@ int fa_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout
   BwdParams p = bwd_params(q, k, v, dout, lse, delta, seg_q, seg_kv, hq, hkv, nq, nk, d,
                            kv_valid_len, causal, wl, wr, scale, softcap, strides);
   p.dq = static_cast<float*>(dq);
+  p.dbias = static_cast<float*>(dbias);
+  set_bias(&p, bias, bias_sb, bias_sh, bias_sn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool cap = softcap > 0.f;
+  if (bias != nullptr) return static_cast<int>(fa::dq_bias_bf16(p, batch, s, cap));
   if (wl >= 0 || wr >= 0) return static_cast<int>(fa::dq_window_bf16(p, batch, s, cap));
   return static_cast<int>(dispatch_head_dim(d, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;

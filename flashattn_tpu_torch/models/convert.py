@@ -1,5 +1,6 @@
-"""Carry U-Net and LM weights, and LM KV caches, from the JAX package's pytrees
-to the port. Each builds on the card unless given ``device=``.
+"""Carry U-Net and LM weights, LM KV caches, and a flax attention module's
+weights from the JAX side to the port. Each builds on the card unless given
+``device=``.
 
 The JAX trees (``init_unet`` of flashattn_tpu/models/unet.py,
 ``init_transformer`` of flashattn_tpu/models/transformer.py; leaves as numpy
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from flashattn_tpu_torch.integrations.torch_nn import FlashMultiHeadDotProductAttention
 from flashattn_tpu_torch.models.transformer import Transformer, TransformerConfig
 from flashattn_tpu_torch.models.unet import UNet, UNetConfig
 
@@ -67,6 +69,24 @@ def transformer_from_jax(params, cfg: TransformerConfig, device="cuda") -> Trans
     arrays), cast to ``cfg.dtype``. Every leaf keeps its shape. Raises
     ValueError if the trees' paths or shapes differ."""
     return _load(Transformer(cfg, device=device), params, conv_hwio=False)
+
+
+def mhdpa_from_flax(params, *, num_heads: int, causal: bool = False, window=None,
+                    impl: str = "auto", dtype: torch.dtype = torch.float32,
+                    device="cuda") -> FlashMultiHeadDotProductAttention:
+    """A :class:`FlashMultiHeadDotProductAttention` on ``device`` (the card by
+    default) holding the weights of a flax ``MultiHeadDotProductAttention``:
+    ``params`` is its variables (``{"params": {...}}``) or their
+    ``"params"`` tree, numpy leaves ``query``/``key``/``value``/``out``
+    ``kernel`` and ``bias``, cast to ``dtype``. The widths come from the
+    kernels' shapes. Raises ValueError if the trees differ."""
+    params = params.get("params", params)
+    in_features, _, head_dim = np.shape(params["query"]["kernel"])
+    module = FlashMultiHeadDotProductAttention(
+        num_heads, in_features, qkv_features=num_heads * head_dim,
+        out_features=np.shape(params["out"]["kernel"])[-1], use_bias="bias" in params["query"],
+        causal=causal, window=window, impl=impl, dtype=dtype, device=device)
+    return _load(module, params, conv_hwio=False)
 
 
 def _tensor_from_numpy(x, device) -> torch.Tensor:

@@ -1,18 +1,18 @@
 """Public fused-attention API: validation, layouts, dtype dispatch, autograd.
 
 Port of flashattn_tpu/ops/flash.py with the causal mask, the sliding window,
-segment ids (packed sequences), logit soft-capping and, in the forward, an
-additive bias: the forward runs K1 (``ops/flash_fwd.py``); the gradient,
-behind a ``torch.autograd.Function``, runs the single-pass backward K3
-(``ops/flash_bwd_fused.py``) or, with segment ids or a softcap, the
-two-kernel backward K5 + K6 (``ops/flash_bwd.py``) -- the routing of the JAX
-``_flash_core_bwd``. The GQA decode fold is ported: a tiny-Nq non-causal GQA
-call without a window folds each KV head's query heads into the Q rows, so
-the cache is read once. The arguments keep the JAX signature; those the
-port's kernels do not take yet raise ``NotImplementedError`` naming their
-ROADMAP item, on every device: the bias's gradient (K5's bias read and K6's
-dbias), the bias together with segment ids, nonzero offsets, and the
-``block_sizes`` and ``compute_dtype`` options. The TPU routing tiers
+segment ids (packed sequences), logit soft-capping and an additive bias: the
+forward runs K1 (``ops/flash_fwd.py``); the gradient, behind a
+``torch.autograd.Function``, runs the single-pass backward K3
+(``ops/flash_bwd_fused.py``) or, with segment ids, a softcap or a bias, the
+two-kernel backward K5 + K6 (``ops/flash_bwd.py``), whose K6 also gives
+dbias -- the routing of the JAX ``_flash_core_bwd``. The GQA decode fold is
+ported: a tiny-Nq non-causal GQA call without a window folds each KV head's
+query heads into the Q rows, so the cache is read once. The arguments keep
+the JAX signature; those the port's kernels do not take yet raise
+``NotImplementedError`` naming their ROADMAP item, on every device: the bias
+together with segment ids, nonzero offsets, and the ``block_sizes`` and
+``compute_dtype`` options. The TPU routing tiers
 (unaligned/causal decompositions, macro/resident routing) and K3's VMEM bound
 on its dQ scratch are not ported: the CUDA kernels mask the KV tail, the Q
 tail, the causal and window band and the segments themselves, so one launch
@@ -26,7 +26,6 @@ import torch
 from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
 
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
-_ROADMAP_BIAS = "ROADMAP queue 2, item 1: K5's bias read and K6's dbias"
 _ROADMAP_OFFSETS = "ROADMAP queue 2, item 2: dynamic q/kv offsets"
 
 
@@ -113,12 +112,22 @@ def _reject_unported(*, bias, segment_ids, block_sizes, q_offset, kv_offset, com
                 f"flash_attention: {name} is not ported to the CUDA K1 yet ({item})")
 
 
+def _reduce_dbias(dbias, bias):
+    """The full f32 dbias ``[B, Hq, Nq, Nk]`` summed over every dim where
+    ``bias`` has size 1 and cast to its dtype (JAX flash.py:944-954)."""
+    dims = tuple(d for d in range(3) if bias.shape[d] == 1 and dbias.shape[d] != 1)
+    if dims:
+        dbias = dbias.sum(dim=dims, keepdim=True)
+    return dbias.to(bias.dtype)
+
+
 class _FlashCore(torch.autograd.Function):
-    """K1 forward saving ``(q, k, v, o, lse)``, the segment ids, the window
-    and the softcap; the backward routes as the JAX ``_flash_core_bwd``: K3
-    when there are no segment ids and no softcap (its fused branch, with the
-    window), else K5 then K6 (its two-kernel branch). With a bias the
-    backward raises: it needs K5's bias read and K6's dbias."""
+    """K1 forward saving ``(q, k, v, o, lse)``, the segment ids, the bias, the
+    window and the softcap; the backward routes as the JAX
+    ``_flash_core_bwd``: K3 when there are no segment ids, no softcap and no
+    bias (its fused branch, with the window), else K5 then K6 (its two-kernel
+    branch). K6 writes dbias only when the bias needs a gradient; it comes
+    back reduced over the bias's broadcast dims, in the bias's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seg_q, seg_kv, scale, kv_valid_len, causal, window,
@@ -127,20 +136,15 @@ class _FlashCore(torch.autograd.Function):
         o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
                                segment_ids=segment_ids, bias=bias, window=window,
                                softcap=softcap)
-        ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_kv)
+        ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_kv, bias)
         ctx.scale, ctx.kv_valid_len, ctx.causal = scale, kv_valid_len, causal
         ctx.window, ctx.softcap = window, softcap
-        ctx.has_bias = bias is not None
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        if ctx.has_bias:
-            raise NotImplementedError(
-                "flash_attention: the gradient with a bias needs K5's bias read and K6's "
-                f"dbias, not ported yet ({_ROADMAP_BIAS})")
-        q, k, v, o, lse, seg_q, seg_kv = ctx.saved_tensors
+        q, k, v, o, lse, seg_q, seg_kv, bias = ctx.saved_tensors
         B, Hq, _, D = q.shape
         Hkv, Nk = k.shape[1], k.shape[2]
         do = do.to(q.dtype)
@@ -148,17 +152,22 @@ class _FlashCore(torch.autograd.Function):
         delta = (do.float() * o.float()).sum(-1)
         kw = dict(scale=ctx.scale, causal=ctx.causal, kv_valid_len=ctx.kv_valid_len,
                   window=ctx.window)
-        if seg_q is None and ctx.softcap is None:
+        dbias = None
+        if seg_q is None and ctx.softcap is None and bias is None:
             dq, dk, dv = flash_bwd_fused.bwd(q, k, v, do, lse, delta, **kw)
         else:
             kw["segment_ids"] = None if seg_q is None else (seg_q, seg_kv)
-            kw["softcap"] = ctx.softcap
+            kw.update(softcap=ctx.softcap, bias=bias)
             dk, dv = flash_bwd.dkv(q, k, v, do, lse, delta, **kw)
-            dq = flash_bwd.dq(q, k, v, do, lse, delta, **kw)
+            if bias is not None and ctx.needs_input_grad[3]:
+                dq, dbias = flash_bwd.dq(q, k, v, do, lse, delta, want_dbias=True, **kw)
+                dbias = _reduce_dbias(dbias, bias)
+            else:
+                dq = flash_bwd.dq(q, k, v, do, lse, delta, **kw)
         if Hq != Hkv:  # GQA: dK/dV come per query head; sum each KV head's group
             dk = dk.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
             dv = dv.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
-        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None,
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, None, None, None, None,
                 None, None, None)
 
 
@@ -256,10 +265,11 @@ def flash_attention(
         skipped, so cost scales with the window, not N².
       scale: softmax scale, default ``D ** -0.5``.
       bias: additive attention bias ``[B|1, H|1, Nq|1, Nk]`` (dims of size 1
-        broadcast, and are read with stride 0 by the kernel), cast to f32
-        once. Forward only for now: the backward raises
-        ``NotImplementedError`` (K5's bias read and K6's dbias), and so does
-        a bias together with ``segment_ids``.
+        broadcast, and are read with stride 0 by the kernels), cast to f32
+        once, added after the softcap. Differentiable: when it requires grad,
+        its gradient ``P (dP − Δ)`` (K6's dbias) comes back summed over its
+        size-1 dims, in its dtype. Not with ``segment_ids`` yet
+        (``NotImplementedError``), nor with a window on the card.
       segment_ids: packed sequences: integer ids ``[B, N]`` (needs
         ``Nq == Nk``) or a ``(q_ids [B, Nq], kv_ids [B, Nk])`` tuple, ids
         >= 0. Pair (i, j) attends iff ``q_ids[i] == kv_ids[j]`` (AND-composed
@@ -274,8 +284,8 @@ def flash_attention(
     Returns:
       Attention output, same shape/layout/dtype as ``q``. CPU tensors run the
       plain PyTorch versions, CUDA tensors the kernels (bf16; fp16 is cast to
-      bf16 and back): K1 forward; K3 backward, or K5 + K6 with segment ids or
-      a softcap (head dims up to 128). Tiny-Nq non-causal GQA calls without a
+      bf16 and back): K1 forward; K3 backward, or K5 + K6 with segment ids, a
+      softcap or a bias (head dims up to 128). Tiny-Nq non-causal GQA calls without a
       window (``Nq·Hq/Hkv <= 32``) run folded, one KV head's query heads as Q
       rows.
     """

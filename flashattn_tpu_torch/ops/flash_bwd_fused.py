@@ -35,8 +35,9 @@ def bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False
     zero offsets), pairs outside ``window``, and keys at or past
     ``kv_valid_len``, whose dK/dV are 0 (``flash_bwd.recompute_p_ds``).
     """
-    p, ds, qf, kf, _, dof = recompute_p_ds(q, k, v, do, lse, delta, scale=scale, causal=causal,
-                                           kv_valid_len=kv_valid_len, window=window)
+    p, ds, qf, kf, _, dof, _ = recompute_p_ds(q, k, v, do, lse, delta, scale=scale,
+                                              causal=causal, kv_valid_len=kv_valid_len,
+                                              window=window)
     with _full_f32_matmul():
         dv = torch.matmul(p.transpose(-1, -2), dof)
         dk = torch.matmul(ds.transpose(-1, -2), qf)

@@ -39,6 +39,7 @@ MAX_HEAD_DIM = 256
 # K/V element types of the kernel: the kv_dtype code of the C entry fa_fwd.
 KV_DTYPE_CODE = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
+_LOG2E = 1.0 / math.log(2.0)
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
 
 
@@ -139,7 +140,11 @@ def fwd_reference(q, k, v, *, scale: float, kv_valid_len: int | None = None,
 def _masked_reference(q, k, v, *, scale, keep, bias=None, softcap=None):
     """The exact f32 ``(O, LSE)`` over the pairs of ``keep``, with the scores
     capped by ``softcap`` and then ``bias`` added before the mask, dead rows
-    as the kernel stores them."""
+    as the kernel stores them. A row is dead when it keeps no pair or, as in
+    the kernel (csrc/fwd_tile.cuh), when its largest score is at or below
+    half the mask value in the log2 domain: a padding mask turned additive
+    (``DEFAULT_MASK_VALUE`` on every key of the row) leaves nothing to
+    attend."""
     kf, vf = _expand_kv(k, v, q.shape[1])
     with _full_f32_matmul():
         s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
@@ -151,6 +156,8 @@ def _masked_reference(q, k, v, *, scale, keep, bias=None, softcap=None):
         lse = torch.logsumexp(s, dim=-1)
         o = torch.matmul(torch.exp(s - lse[..., None]), vf)
     alive = keep.any(dim=-1)
+    if bias is not None:
+        alive = alive & (s.amax(dim=-1) * _LOG2E > 0.5 * DEFAULT_MASK_VALUE)
     lse = torch.where(alive, lse, torch.full_like(lse, math.log(2.0) * DEFAULT_MASK_VALUE))
     o = torch.where(alive[..., None], o, torch.zeros_like(o))
     return o.to(q.dtype), lse

@@ -34,7 +34,9 @@ def scaled_dot_product_attention(
     """torch.nn.functional.scaled_dot_product_attention semantics.
 
     ``attn_mask``: boolean (True = attend) or additive float, broadcastable to
-    ``[B, H, Nq, Nk]``; ranks < 4 are left-padded with size-1 dims.
+    ``[B, H, Nq, Nk]``; ranks < 4 are left-padded with size-1 dims. A
+    float mask that requires grad gets its gradient (on the fused path K6's
+    dbias, reduced to the mask's shape); a boolean mask gets none.
     ``impl``: "auto" (shape-based fused/exact dispatch), "fused", or "exact".
     The exact path materializes the full f32 [Nq, Nk] score matrix.
     """

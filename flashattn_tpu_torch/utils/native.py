@@ -128,17 +128,34 @@ def kernels() -> ctypes.CDLL:
         ptr,                                # cudaStream_t
     ]
     lib.fa_bwd_dkv_bf16.restype = i32
+    split_tail = [
+        *bwd_tail, i64, i64,                # seg_q, seg_kv batch strides
+        i64, i64, i64,                      # bias (batch, head, row) strides
+        ptr,                                # cudaStream_t
+    ]
     lib.fa_bwd_dkv_bf16.argtypes = [
         *bwd_head, ptr, ptr,                # seg_q, seg_kv (int32 ids, or None)
+        ptr,                                # bias (f32, or None)
         ptr, ptr,                           # dk, dv (f32)
-        *bwd_tail, i64, i64,                # seg_q, seg_kv batch strides
-        ptr,                                # cudaStream_t
+        *split_tail,
     ]
     lib.fa_bwd_dq_bf16.restype = i32
     lib.fa_bwd_dq_bf16.argtypes = [
         *bwd_head, ptr, ptr,                # seg_q, seg_kv (int32 ids, or None)
-        ptr,                                # dq (f32)
-        *bwd_tail, i64, i64,                # seg_q, seg_kv batch strides
+        ptr,                                # bias (f32, or None)
+        ptr, ptr,                           # dq, dbias (f32; dbias None: not wanted)
+        *split_tail,
+    ]
+    lib.fa_gemm_bf16.restype = i32
+    lib.fa_gemm_bf16.argtypes = [
+        ptr, ptr, ptr,                      # a [M, K], b [K, N] (bf16), out [M, N]
+        i32, i32, i32, i32,                 # M, N, K, out is f32 (else bf16)
+        ptr,                                # cudaStream_t
+    ]
+    lib.fa_roofline_bf16.restype = i32
+    lib.fa_roofline_bf16.argtypes = [
+        ptr, ptr, ptr,                      # a, b, out [size, size] bf16
+        i32, i32,                           # size, iters
         ptr,                                # cudaStream_t
     ]
     lib.fa_error_string.restype = ctypes.c_char_p

@@ -15,7 +15,7 @@ import torch
 
 import flashattn_tpu
 import flashattn_tpu_torch
-from flashattn_tpu_torch.ops import flash_fwd
+from flashattn_tpu_torch.ops import flash_fwd, oracle
 from flashattn_tpu_torch.utils.testing import BWD_TOL, FWD_TOL, assert_close, make_qkv
 
 B, HQ, HKV, NQ, NK, D = 2, 4, 2, 100, 77, 32
@@ -126,13 +126,23 @@ def test_fold_gradient_equals_unfolded():
 
 @pytest.mark.parametrize("fold", [False, True])
 def test_bias_backward_raises(fold):
+    """The gradient through a bias raised until K5's bias read and K6's dbias
+    were ported; now it runs, folded or not: a zero bias leaves dQ as without
+    a bias, and dbias ``[1, 1, 1, Nk]`` is the f32 oracle's under autograd."""
     hkv = 2 if fold else 4
     q, k, v = make_qkv(31, 1, 4, 1 if fold else 32, 16, Nk=32, Hkv=hkv)
-    q.requires_grad_(True)
-    o = flashattn_tpu_torch.flash_attention(q, k, v, bias=torch.zeros(1, 1, 1, 32))
-    with pytest.raises(NotImplementedError, match="dbias.*ROADMAP|ROADMAP.*dbias"):
-        o.sum().backward()
-    assert q.grad is None
+    grads = []
+    for fn in (flashattn_tpu_torch.flash_attention, oracle.attention_reference):
+        qq, bias = q.clone().requires_grad_(True), torch.zeros(1, 1, 1, 32, requires_grad=True)
+        (fn(qq, k, v, bias=bias) ** 2).sum().backward()
+        grads.append((qq.grad, bias.grad))
+    (dq, dbias), (dq_want, dbias_want) = grads
+    qq = q.clone().requires_grad_(True)
+    (flashattn_tpu_torch.flash_attention(qq, k, v) ** 2).sum().backward()
+    assert dbias.shape == (1, 1, 1, 32)
+    assert_close(dq, qq.grad, BWD_TOL[torch.float32], "dq vs no bias")
+    assert_close(dq, dq_want, BWD_TOL[torch.float32], "dq")
+    assert_close(dbias, dbias_want, BWD_TOL[torch.float32], "dbias")
 
 
 def test_kernel_bias_strides_never_expand():

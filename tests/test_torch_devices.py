@@ -1,11 +1,12 @@
 """The port's model entry points build on the card unless the caller asks for
 the CPU.
 
-Each of the eight entry points that allocates parameters or a cache takes
+Each of the ten entry points that allocates parameters or a cache takes
 ``device="cuda"`` by default. On a machine without CUDA (the CPU test run) a
 call without a device raises torch's own error instead of falling back to the
 CPU, and ``device="cpu"`` builds everything on the CPU. The inner modules (the
-LM's ``Layer``, the U-Net's blocks) take their device from their parent.
+LM's ``Layer``, the U-Net's blocks, the attention module's projections) take
+their device from their parent.
 """
 
 import inspect
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from flashattn_tpu_torch.integrations import torch_nn
 from flashattn_tpu_torch.models import convert, transformer, unet
 
 TCFG = transformer.TransformerConfig(vocab_size=64, d_model=32, n_layers=1, n_heads=2,
@@ -39,6 +41,15 @@ ENTRY_POINTS = {
         _jax_tree(transformer.Transformer(TCFG, device="cpu")), TCFG, **kw)),
     "unet_from_jax": (convert.unet_from_jax, lambda f, **kw: f(
         _jax_tree(unet.UNet(UCFG, device="cpu")), UCFG, **kw)),
+    "FlashMultiHeadDotProductAttention": (torch_nn.FlashMultiHeadDotProductAttention,
+                                          lambda f, **kw: f(2, 16, **kw)),
+    "mhdpa_from_flax": (convert.mhdpa_from_flax, lambda f, **kw: f(
+        {"params": {name: {"kernel": np.zeros(shape, np.float32),
+                           "bias": np.zeros(shape[-2:] if name != "out" else shape[-1:],
+                                            np.float32)}
+                    for name, shape in (("query", (16, 2, 8)), ("key", (16, 2, 8)),
+                                        ("value", (16, 2, 8)), ("out", (2, 8, 16)))}},
+        num_heads=2, **kw)),
     "kv_cache_from_jax": (convert.kv_cache_from_jax, lambda f, **kw: f(
         {"length": np.int32(3), "k": [np.zeros((1, 4, 1, 16), np.float32)],
          "v": [np.zeros((1, 4, 1, 16), np.float32)]}, **kw)),

@@ -82,13 +82,11 @@ def test_flash_attention_low_precision_vs_f32_oracle(dtype, D, Nk, Hkv, layout):
 
 
 _SEG = {"segment_ids": torch.zeros(1, 64, dtype=torch.int32)}
-# The JAX options, each raising until its kernel option is ported. "bias" is
-# ported in the forward (its forward case holds the result against the
-# oracle), and its backward still raises. The window and the softcap are
-# ported in both directions, also with segment ids: their cases hold the
-# output and the gradient against the oracle.
-FORWARD_PORTED = {"bias"}
-PORTED = {"window", "logit_softcap", "segment_ids+window", "segment_ids+logit_softcap"}
+# The JAX options, each raising until its kernel option is ported. The bias,
+# the window and the softcap are ported in both directions (the window and
+# the softcap also with segment ids): their cases hold the output and the
+# gradient against the oracle.
+PORTED = {"bias", "window", "logit_softcap", "segment_ids+window", "segment_ids+logit_softcap"}
 UNPORTED = {
     "bias": {"bias": torch.zeros(1, 1, 64, 64)},
     "window": {"window": (8, 8)},
@@ -116,7 +114,7 @@ def _oracle_kw(kw):
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_arguments_raise(fn, name):
     q, k, v = make_qkv(0, 1, 2, 64, 32)
-    if name in FORWARD_PORTED | PORTED:
+    if name in PORTED:
         out = getattr(flashattn_tpu_torch, fn)(q, k, v, **UNPORTED[name])
         o = out[0] if fn == "flash_attention_with_lse" else out
         assert_close(o, oracle.attention_reference(q, k, v, **_oracle_kw(UNPORTED[name])),

@@ -122,6 +122,13 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
      "K5 softcap dkv_softcap_kernel<64>"),
     ("_ZN12_GLOBAL__N_116dq_window_kernelILi128ELb1EEEvN2fa9BwdParamsE",
      "K6 softcap window dq_window_kernel<128, 1>"),
+    ("_ZN12_GLOBAL__N_115dkv_bias_kernelILi128ELb0EEEvN2fa9BwdParamsE",
+     "K5 bias dkv_bias_kernel<128, 0>"),
+    ("_ZN12_GLOBAL__N_114dq_bias_kernelILi128ELb1EEEvN2fa9BwdParamsE",
+     "K6 softcap bias dq_bias_kernel<128, 1>"),
+    ("_ZN12_GLOBAL__N_111gemm_kernelILb1EEEvPK13__nv_bfloat16S3_Pvii", "K9 gemm_kernel<1>"),
+    ("_ZN12_GLOBAL__N_115roofline_kernelILi4EEEvPK13__nv_bfloat16S3_PS1_ii",
+     "K10 roofline_kernel<4>"),
     ("_ZN12_GLOBAL__N_110fwd_kernelILi64ELb0EEEvN2fa9FwdParamsE",
      "unrecognised instantiation fwd_kernel<64, 0>"),
     ("_Z11some_kernelv", "unrecognised instantiation _Z11some_kernelv"),
@@ -167,3 +174,32 @@ def test_band_tiles_counts_tile_pairs(n, lo, hi, want):
     import chip_smoke
 
     assert chip_smoke.band_tiles(n, n, 64, 64, lo, hi) == want
+
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_115roofline_kernelILi4EEEvPK13__nv_bfloat16S3_PS1_ii
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0020*/                   HMMA.16816.F32.BF16 R16, R8, R14, R16 ;
+        /*0030*/              @!P0 BRA 0x10 ;
+\t\tFunction : _ZN12_GLOBAL__N_19dq_kernelILi96EEEvN2fa9BwdParamsE
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+
+
+def test_sass_opcodes_counts_per_instantiation(tmp_path, monkeypatch):
+    """chip_smoke.sass_opcodes (K10's HMMA gate, chip_ab.py's SASS report)
+    counts opcodes per named instantiation from cuobjdump's listing, beside
+    nvcc, and skips kernels not asked for."""
+    import chip_smoke
+
+    cuda = _fake_nvcc(tmp_path, "exit 0\n")
+    (tmp_path / "sass.txt").write_text(SASS)
+    dump = cuda / "bin" / "cuobjdump"
+    dump.write_text(f"#!/bin/sh\ncat {tmp_path / 'sass.txt'}\n")
+    dump.chmod(dump.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("CUDA_HOME", str(cuda))
+    ops = chip_smoke.sass_opcodes(tmp_path / "lib.so", {"K10 roofline_kernel<4>"})
+    assert ops == {"K10 roofline_kernel<4>": {"LDC": 1, "HMMA": 2, "BRA": 1}}

@@ -176,19 +176,23 @@ def test_softcap_decode_fold_passes_the_cap(monkeypatch):
 
 
 def test_softcap_bias_gradient_and_quantized_kv_raise():
-    """The forward with a bias and the cap is ported; its gradient waits for
-    K5's bias read and K6's dbias; the cap on quantized K/V raises the JAX
-    package's ValueError; a cap that is not positive is refused."""
+    """The forward with a bias and the cap is ported, and so is its gradient
+    (K5's bias read, K6's dbias taken before the cap's Jacobian): dQ and
+    dbias match autograd through the oracle; the cap on quantized K/V raises
+    the JAX package's ValueError; a cap that is not positive is refused."""
     q, k, v = make_qkv(15, 1, 2, 64, 32)
     bias = torch.from_numpy(np.random.default_rng(16).standard_normal((1, 2, 64, 64),
                                                                        dtype=np.float32))
     o = flashattn_tpu_torch.flash_attention(q, k, v, bias=bias, logit_softcap=CAP)
     assert_close(o, oracle.attention_reference(q, k, v, bias=bias, logit_softcap=CAP),
                  FWD_TOL[torch.float32])
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 1"):
-        flashattn_tpu_torch.flash_attention(q, k, v, bias=bias, logit_softcap=CAP).sum() \
-            .backward()
+    grads = []
+    for fn in (flashattn_tpu_torch.flash_attention, oracle.attention_reference):
+        qq, bb = q.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        (fn(qq, k, v, bias=bb, logit_softcap=CAP) ** 2).sum().backward()
+        grads.append((qq.grad, bb.grad))
+    for name, got, want in zip(("dq", "dbias"), *grads):
+        assert_close(got, want, BWD_TOL[torch.float32], name)
     ks = torch.ones(1, 2, 64)
     with pytest.raises(ValueError, match="quantized"):
         flash_fwd.fwd(q.detach(), k.to(torch.int8), v.to(torch.int8), scale=0.2, k_scale=ks,

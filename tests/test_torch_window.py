@@ -173,8 +173,10 @@ def test_window_routes_to_k3(monkeypatch):
 
 
 def test_window_offsets_and_bias_gradient_still_raise():
-    """Nonzero offsets and a bias's gradient raise with their ROADMAP items,
-    also with a window; the forward with a bias and a window is ported."""
+    """Nonzero offsets raise with their ROADMAP item, also with a window; the
+    forward with a bias and a window is ported, and on the CPU its gradient
+    too (dQ and dbias against autograd through the oracle; the card's
+    kernels take a bias without a window)."""
     q, k, v = make_qkv(8, 1, 2, 64, 32)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 2"):
         flashattn_tpu_torch.flash_attention(q, k, v, window=(8, 8), q_offset=3)
@@ -183,9 +185,13 @@ def test_window_offsets_and_bias_gradient_still_raise():
     o = flashattn_tpu_torch.flash_attention(q, k, v, window=(8, 8), bias=bias)
     assert_close(o, oracle.attention_reference(q, k, v, window=(8, 8), bias=bias),
                  FWD_TOL[torch.float32])
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 1"):
-        flashattn_tpu_torch.flash_attention(q, k, v, window=(8, 8), bias=bias).sum().backward()
+    grads = []
+    for fn in (flashattn_tpu_torch.flash_attention, oracle.attention_reference):
+        qq, bb = q.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        (fn(qq, k, v, window=(8, 8), bias=bb) ** 2).sum().backward()
+        grads.append((qq.grad, bb.grad))
+    for name, got, want in zip(("dq", "dbias"), *grads):
+        assert_close(got, want, BWD_TOL[torch.float32], name)
 
 
 def test_window_validation():
