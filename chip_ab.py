@@ -4,9 +4,11 @@
 
 First, per checkout, one child builds its kernels from its own
 ``flashattn_tpu_torch/csrc/`` (into its own ``build/``) with ``ptxas -v`` and
-reads the library's SASS with ``cuobjdump``; chip_ab prints, per case below,
-each checkout's registers, stack frame and SASS instruction count, and the
-opcodes whose counts differ most. Then each entry of ``--order`` (0: the first
+reads the library's SASS with ``cuobjdump``; chip_ab prints each build's
+instantiations and seconds, per case below each checkout's registers, stack
+frame and SASS instruction count and the opcodes whose counts differ most,
+and then every instantiation of both builds whose SASS instruction count
+differs. Then each entry of ``--order`` (0: the first
 directory, 1: the second) runs one child from that checkout, which times the
 kernels at the shapes of the port's paths with chip_smoke.cuda_ms (CUDA
 events, median over 7 trials of the mean of 20 launches):
@@ -37,6 +39,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import time
 
 import chip_smoke
 
@@ -139,8 +142,13 @@ def main() -> None:
     print(smi, flush=True)
     trees = [t.resolve() for t in args.trees]
 
-    code = [child(t, CODE, "CODE") for t in trees]
-    ops = [chip_smoke.sass_opcodes(c["lib"], set(CASE_KERNELS.values())) for c in code]
+    code = []
+    for t, shown in zip(trees, args.trees):
+        t0 = time.perf_counter()
+        code.append(child(t, CODE, "CODE"))
+        print(f"[code] {shown}: {len(code[-1]['ptxas'])} instantiations built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ops = [chip_smoke.sass_opcodes(c["lib"], set(c["ptxas"])) for c in code]
     for case, name in CASE_KERNELS.items():
         cols = []
         for t, c, o in zip(args.trees, code, ops):
@@ -151,6 +159,12 @@ def main() -> None:
         diff = sorted(set(a) | set(b), key=lambda x: -abs(b[x] - a[x]))[:8]
         print(f"[code] {case} ({name}): {'; '.join(cols)}; opcodes that differ most "
               f"(first -> second): " + ", ".join(f"{x} {a[x]} -> {b[x]}" for x in diff), flush=True)
+    shared = sorted(set(ops[0]) & set(ops[1]))
+    changed = [n for n in shared if sum(ops[0][n].values()) != sum(ops[1][n].values())]
+    print(f"[code] instantiations in both: {len(shared)}, with another SASS instruction count: "
+          f"{len(changed)}" + "".join(f"; {n} {sum(ops[0][n].values())} -> "
+                                      f"{sum(ops[1][n].values())}" for n in changed)
+          + f"; only in {args.trees[1]}: {sorted(set(ops[1]) - set(ops[0]))}", flush=True)
 
     runs = {0: [], 1: []}
     for i in (int(x) for x in args.order.split(",")):

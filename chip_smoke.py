@@ -47,7 +47,13 @@ the port's paths and checks that each went through its kernels:
 * the roofline probes (path B): K9 (gemm.matmul) at 4096^3 and K10
   (measure_mxu_peak_tflops) against their plain versions, K10's HMMA count in
   the SASS, and the measured mma.sync and chained torch.matmul peaks beside
-  the datasheet's 989 TFLOP/s.
+  the datasheet's 989 TFLOP/s;
+* sequence-parallel ring attention (context-parallel long-context training
+  at the LM's attention width, 4 virtual ranks x 4096 tokens): forward and
+  gradients through ring_attention_kernel_sharded with exactly 10 K7 and 10
+  K8 launches causal (7 with a 2048-token window, 16 non-causal), against
+  the plain ring and single-device K1 / K3, also at 8 ranks with GQA, at one
+  rank, and through a one-rank NCCL process group.
 
 Every kernel's line in the kernels JSON carries its time, its plain version's
 time, its bound (the larger of the bytes it must move at 3.35 TB/s and its
@@ -308,10 +314,15 @@ def ptxas_stats(out: str) -> dict:
 
 
 def instantiation_name(mangled: str) -> str:
-    """The kernel (K1 and its variant, K3, K5, K6) and template arguments of
+    """The kernel (K1 and its variant, K3, K5, K6, K7-K10) and template arguments of
     a mangled instantiation name from ptxas, e.g. ``K1 int8 bias
     fwd_kernel<128, 0, 1, 1>`` or ``K5 softcap dkv_softcap_kernel<128>``; an
     unrecognised name comes back marked as such, never raising."""
+    ring = re.search(r"ring_(fwd|bwd)_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if ring:  # before the K1 pattern, which "ring_fwd_kernel" would also match
+        args = re.findall(r"L[a-z]+(-?\d+)E", ring.group(2))
+        return (f"{'K7' if ring.group(1) == 'fwd' else 'K8'} "
+                f"ring_{ring.group(1)}_kernel<{', '.join(args)}>")
     probe = re.search(r"(gemm|roofline)_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if probe:
         args = re.findall(r"L[a-z]+(-?\d+)E", probe.group(2))
@@ -327,8 +338,9 @@ def instantiation_name(mangled: str) -> str:
     # fwd_softcap_kernel<DP, SEG, BIAS>, fwd_window_kernel<DP, SEG, CAP>; K3/K5
     # dkv_kernel<DP, DQ>, dkv_softcap_kernel<DP>, dkv_window_kernel<DP, DQ, CAP>;
     # K6 dq_kernel<DP>, dq_softcap_kernel<DP>, dq_window_kernel<DP, CAP>; K5/K6
-    # with a bias dkv_bias_kernel<DP, CAP>, dq_bias_kernel<DP, CAP>. K9
-    # gemm_kernel<OUT_F32>, K10 roofline_kernel<CHAINS> (above).
+    # with a bias dkv_bias_kernel<DP, CAP>, dq_bias_kernel<DP, CAP>. K7
+    # ring_fwd_kernel<DP>, K8 ring_bwd_kernel<DP>, K9 gemm_kernel<OUT_F32>,
+    # K10 roofline_kernel<CHAINS> (above).
     params = {("fwd", ""): ("seg", "bias", "kv"), ("fwd", "_softcap"): ("seg", "bias"),
               ("fwd", "_window"): ("seg", "cap"), ("dkv", ""): ("dq",), ("dkv", "_softcap"): (),
               ("dkv", "_window"): ("dq", "cap"), ("dkv", "_bias"): ("cap",), ("dq", ""): (),
@@ -845,6 +857,7 @@ def _lm_steps(cfg, tokens, arm: str, segment_ids=None, *, phase: str, label: str
 
 def _reset_launches() -> None:
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, gemm, roofline
+    from flashattn_tpu_torch.parallel import ring_kernel
 
     flash_fwd.fwd.launches = flash_bwd_fused.bwd.launches = 0
     flash_fwd.fwd.launches_bias = flash_fwd.fwd.launches_int8 = flash_fwd.fwd.launches_fp8 = 0
@@ -852,6 +865,7 @@ def _reset_launches() -> None:
     flash_bwd.dkv.launches = flash_bwd.dq.launches = 0
     flash_bwd.dkv.launches_bias = flash_bwd.dq.launches_bias = flash_bwd.dq.launches_dbias = 0
     gemm.matmul.launches = roofline.roofline_call.launches = 0
+    ring_kernel.ring_fwd_step.launches = ring_kernel.ring_bwd_step.launches = 0
 
 
 def _launches() -> dict:
@@ -861,6 +875,7 @@ def _launches() -> dict:
     bias" the K5 / K6 launches with a bias, "K6 dbias" those that also wrote
     dbias."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, gemm, roofline
+    from flashattn_tpu_torch.parallel import ring_kernel
 
     return {"K1": flash_fwd.fwd.launches, "K1 bias": flash_fwd.fwd.launches_bias,
             "K1 int8": flash_fwd.fwd.launches_int8, "K1 fp8": flash_fwd.fwd.launches_fp8,
@@ -869,6 +884,7 @@ def _launches() -> dict:
             "K3": flash_bwd_fused.bwd.launches, "K5": flash_bwd.dkv.launches,
             "K5 bias": flash_bwd.dkv.launches_bias, "K6": flash_bwd.dq.launches,
             "K6 bias": flash_bwd.dq.launches_bias, "K6 dbias": flash_bwd.dq.launches_dbias,
+            "K7": ring_kernel.ring_fwd_step.launches, "K8": ring_kernel.ring_bwd_step.launches,
             "K9": gemm.matmul.launches, "K10": roofline.roofline_call.launches}
 
 
@@ -2059,6 +2075,254 @@ def phase_roofline() -> dict:
     return res
 
 
+# Ring attention (parallel/ring_kernel.py): context-parallel long-context
+# training at the LM's attention width (bench_lm.py:122-125: Hq16 Hkv8 D128,
+# bf16, B1), the global sequence split over RING_RANKS virtual ranks of
+# RING_CHUNK tokens. (name, ranks, chunk, Hq, Hkv, causal, window, GROW,
+# expected K7 = K8 launches): the main shape causal and with a 2048-token
+# window (q, k at GROW x unit scale: a pair missed at a band edge moves an
+# output by O(1)), non-causal, 8 ranks with GQA 16/2 (the JAX package's slow
+# 8-device case), and one rank, which must give what K1 / K3 give.
+RING_RANKS, RING_CHUNK = 4, 4096
+RING_WINDOW = (2048, -1)
+RING_CASES = [("causal", 4, 4096, 16, 8, True, None, 1, 10),
+              ("window", 4, 4096, 16, 8, True, RING_WINDOW, GROW, 7),
+              ("non-causal", 4, 1024, 16, 8, False, None, 1, 16),
+              ("8 ranks GQA 16/2", 8, 1024, 16, 2, True, None, 1, 36),
+              ("1 rank", 1, 4096, 16, 8, True, None, 1, 1)]
+# One direction of the H100 SXM's NVLink (the hopper guide's table).
+NVLINK_BYTES_PER_S = 450e9
+
+
+def _ring_inputs(seed: int, ranks: int, chunk: int, hq: int, hkv: int, grow: int):
+    """q, k (x grow), v and dO, bf16 [1, H, ranks * chunk, 128]."""
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    n = ranks * chunk
+    q, k, v = make_qkv(seed, 1, hq, n, 128, Hkv=hkv, device=DEVICE)
+    do = make_qkv(seed + 1, 1, hq, n, 128, device=DEVICE)[0]
+    return tuple(x.to(torch.bfloat16) for x in (grow * q, grow * k, v, do))
+
+
+def _ring_gate(tag: str, got: dict, want: dict, what: str) -> tuple[float, float]:
+    """O within FWD_TOL[bf16], LSE within LSE_ATOL, dQ/dK/dV within
+    BWD_TOL[bf16], each also within relative L2 WINDOW_REL_L2; logs and
+    fails. Returns the max errors of O and of the gradients."""
+    from flashattn_tpu_torch.utils.testing import (
+        BWD_TOL, FWD_TOL, Tolerance, check_close, grad_gate)
+
+    ok_o, msg_o = check_close(got["o"], want["o"], FWD_TOL[torch.bfloat16], "O")
+    ok_l, msg_l = check_close(got["lse"], want["lse"], Tolerance(LSE_ATOL, 0.0), "LSE")
+    names = ("dq", "dk", "dv")
+    ok_g, why, err_g, _ = grad_gate([got[n] for n in names], [want[n] for n in names],
+                                    BWD_TOL[torch.bfloat16], names=names)
+    err_o = (got["o"].float() - want["o"].float()).abs().max().item()
+    rel = {n: _rel(got[n].float(), want[n].float()) for n in ("o", *names)}
+    log("ring", f"{tag} vs {what}: O max_abs_err {err_o:.3e} (budget {O_TOL_NAME}), LSE "
+                f"max_abs_err {(got['lse'] - want['lse']).abs().max().item():.3e} (budget "
+                f"{LSE_ATOL}), dQ/dK/dV max_abs_err {err_g:.3e} (budget BWD_TOL[bf16]); "
+                f"relative L2 (limit {WINDOW_REL_L2}): "
+                + ", ".join(f"{n} {r:.2e}" for n, r in rel.items()))
+    if not (ok_o and ok_l and ok_g):
+        fail(f"the ring disagrees with {what} at {tag}: {msg_o}; {msg_l}; {why}")
+    if not all(r <= WINDOW_REL_L2 for r in rel.values()):
+        fail(f"relative L2 error above {WINDOW_REL_L2} against {what} at {tag}: {rel}")
+    return err_o, err_g
+
+
+def _ring_bytes(ranks: int, chunk: int, hq: int, hkv: int, causal: bool, window) -> tuple:
+    """Bytes each live step must move, summed over the ring: K7 reads its Q
+    chunk and K/V chunk (bf16) and the f32 running state (acc, m, l) except
+    on a rank's first live step, and writes the state or, on the last, O
+    (bf16) and LSE; K8 reads Q, dO, K, V (bf16), LSE and Delta, reads and
+    writes the f32 dK/dV accumulators and the f32 dQ."""
+    from flashattn_tpu_torch.parallel.ring_kernel import _live_steps
+
+    d = 128
+    q_b, kv_b = 2 * hq * chunk * d, 2 * 2 * hkv * chunk * d
+    state_b, stats_b = 4 * hq * chunk * (d + 2), 4 * hq * chunk
+    fwd = bwd = 0
+    for steps in (_live_steps(r, ranks, chunk, chunk, causal, window) for r in range(ranks)):
+        for s in steps:
+            fwd += q_b + kv_b + (0 if s == steps[0] else state_b)
+            fwd += q_b + stats_b if s == steps[-1] else state_b
+            bwd += 2 * q_b + kv_b + 2 * stats_b + 2 * 2 * kv_b + 2 * 4 * hq * chunk * d
+    return fwd, bwd
+
+
+def phase_ring() -> dict:
+    """Ring attention over virtual ranks (RING_CASES): the forward and the
+    gradients through ring_attention_kernel_sharded with autograd, with exact
+    K7 = K8 launch counts (the counters reset just before), held against the
+    plain ring (run_virtual_ring(plain=True): the same rotation with the
+    steps' plain versions, on f32 copies) and against single-device K1 / K3
+    on the global sequence; then a one-rank NCCL process group through
+    ring_attention_kernel(group=). Times K7 and K8 per step (a diagonal and
+    a full off-diagonal chunk pair), the whole ring forward and backward,
+    the plain ring, K1 / K3 and SDPA at the global shape, and prints the
+    bytes one rotation would put on NVLink."""
+    import torch.distributed as dist
+
+    from flashattn_tpu_torch.ops import flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.parallel import ring_attention_kernel, ring_attention_kernel_sharded
+    from flashattn_tpu_torch.parallel import ring_kernel as rk
+
+    res = {}
+    for i, (name, ranks, chunk, hq, hkv, causal, window, grow, expect) in enumerate(RING_CASES):
+        q, k, v, do = _ring_inputs(1400 + 10 * i, ranks, chunk, hq, hkv, grow)
+        tag = (f"{name}: {ranks} ranks x {chunk} B1 Hq{hq} Hkv{hkv} D128 "
+               f"{'causal' if causal else 'non-causal'}"
+               f"{'' if window is None else f' window {window}'}{'' if grow == 1 else f' (q, k x{grow})'}")
+        kw = dict(causal=causal, window=window)
+        ring = ring_attention_kernel_sharded(ranks=ranks, **kw)
+        leaves = tuple(x.detach().requires_grad_(True) for x in (q, k, v))
+        _reset_launches()
+        o = ring(*leaves)
+        dq, dk, dv = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        counts = _launches()
+        log("ring", f"{tag}: launches {counts} (expected K7 = K8 = {expect}, no other)")
+        if counts != _expect(K7=expect, K8=expect):
+            fail(f"the ring at {tag} launched {counts}, expected K7 = K8 = {expect} and no other")
+        got = {"o": o.detach(), "lse": rk.run_virtual_ring(q, k, v, ranks=ranks, **kw)[1],
+               "dq": dq, "dk": dk, "dv": dv}
+        plain = dict(zip(("o", "lse", "dq", "dk", "dv"), rk.run_virtual_ring(
+            q, k, v, do, ranks=ranks, plain=True, **kw)))
+        err = _ring_gate(tag, got, plain, "the plain ring")
+        # K1 / K3 on the whole sequence take the ring's q2 = bf16(q·scale·log2e)
+        # with scale ln2 -- the same scores, so the bf16 rounding of q2 (the
+        # JAX ring's practice, ring_kernel.py:886) stays out of the gate --
+        # and dL/dq = dL/dq2 · scale·log2e.
+        q2, s2q = rk._prescale(q, 128 ** -0.5), 128 ** -0.5 * rk.LOG2E
+        o1, lse1 = flash_fwd.fwd(q2, k, v, scale=rk.LN2, **kw)
+        delta = (do.float() * o1.float()).sum(-1)
+        g3 = flash_bwd_fused.bwd(q2, k, v, do, lse1, delta, scale=rk.LN2, **kw)
+        rep = hq // hkv
+        single = {"o": o1, "lse": lse1, "dq": g3[0] * s2q,
+                  **{n: g.view(1, hkv, rep, *g.shape[2:]).sum(2)
+                     for n, g in zip(("dk", "dv"), g3[1:])}}
+        _ring_gate(tag, got, single, "single-device K1 / K3")
+        if name == "1 rank":
+            one = (q, k, v, do, got)
+        if name in ("causal", "window"):
+            res[name] = {"err": err, "counts": counts, "inputs": (q, k, v, do), "kw": kw}
+        del o, dq, dk, dv, got, plain, single, g3, o1, q2, leaves
+        torch.cuda.empty_cache()
+
+    # One rank of a real process group: NCCL, world size 1, an in-process store.
+    q, k, v, do, want = one
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        leaves = tuple(x.detach().requires_grad_(True) for x in (q, k, v))
+        o = ring_attention_kernel(*leaves, group=dist.group.WORLD, causal=True)
+        grads = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    diffs = [(a.float() - want[n].float()).abs().max().item()
+             for n, a in zip(("o", "dq", "dk", "dv"), (o, *grads))]
+    log("ring", f"one-rank NCCL group (world size 1) vs the one virtual rank: O / dQ / dK / dV "
+                f"max_abs_diff {', '.join(f'{d:.3e}' for d in diffs)} (limit {O_TOL_NAME} atol "
+                f"0.02: dQ's atomics add in a varying order)")
+    if not max(diffs) <= 2e-2:
+        fail(f"the one-rank NCCL ring differs from the virtual rank: {diffs}")
+    del one, want, o, grads, leaves
+
+    # Times at the main shape, causal; the window's ring beside its SDPA.
+    q, k, v, do = res["causal"]["inputs"]
+    n, scale = q.shape[2], 128 ** -0.5
+    hq, hkv = q.shape[1], k.shape[1]
+    ring = ring_attention_kernel_sharded(ranks=RING_RANKS, causal=True)
+    leaves = tuple(x.detach().requires_grad_(True) for x in (q, k, v))
+    out = ring(*leaves)
+    fwd_ms = cuda_ms(lambda: ring(q, k, v), reps=5, trials=3)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), reps=3,
+                     trials=3)
+    xport = rk.VirtualRanks(RING_RANKS)
+    q2 = rk._prescale(q, scale)
+    o_ref, lse_ref = rk.run_virtual_ring(q, k, v, ranks=RING_RANKS, causal=True)
+    lses = [x.contiguous() for x in xport.split(lse_ref)]
+    plain_fwd_ms = cuda_ms(lambda: rk.run_virtual_ring(q, k, v, ranks=RING_RANKS, causal=True,
+                                                       plain=True), reps=1, trials=3)
+    plain_bwd_ms = cuda_ms(lambda: rk._ring_grads(
+        xport, q2, k, v, o_ref, lses, do, scale=scale, causal=True, window=None,
+        step=rk.ring_bwd_step_reference), reps=1, trials=3)
+    k1_ms = cuda_ms(lambda: flash_fwd.fwd(q, k, v, scale=scale, causal=True), reps=5, trials=3)
+    o1, lse1 = flash_fwd.fwd(q, k, v, scale=scale, causal=True)
+    delta = (do.float() * o1.float()).sum(-1)
+    k3_ms = cuda_ms(lambda: flash_bwd_fused.bwd(q, k, v, do, lse1, delta, scale=scale,
+                                                causal=True), reps=3, trials=3)
+    sdpa_fwd, sdpa_bwd = sdpa_ms(q, k, v, is_causal=True), sdpa_ms(q, k, v, do=do, is_causal=True)
+
+    # Per step: rank 0's diagonal chunk (its first step: the state is written,
+    # not read) and rank 1's full off-diagonal chunk at step 1 (read, merged,
+    # written).
+    c = RING_CHUNK
+    qs, ks, vs, dos = (xport.split(x) for x in (q2, k, v, do))
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    acc, m, l = (torch.empty((1, hq, c, 128), **f32), torch.empty((1, hq, c), **f32),
+                 torch.empty((1, hq, c), **f32))
+    o_c, lse_c = torch.empty_like(qs[0]), torch.empty((1, hq, c), **f32)
+    deltas = [x.contiguous() for x in xport.split((do.float() * o_ref.float()).sum(-1))]
+    dq_c, dk_c, dv_c = (torch.zeros((1, hq, c, 128), **f32), torch.zeros((1, hkv, c, 128), **f32),
+                        torch.zeros((1, hkv, c, 128), **f32))
+    steps = {"diagonal": dict(rank=0, src=0, first=True), "off-diagonal": dict(rank=1, src=0,
+                                                                               first=False)}
+    step_ms = {}
+    for label, st in steps.items():
+        r, src = st["rank"], st["src"]
+        pos = dict(q_base=r * c, kv_off=src * c, causal=True)
+        step_ms[label] = (
+            cuda_ms(lambda: rk.ring_fwd_step(qs[r], ks[src], vs[src], acc, m, l, o_c, lse_c,
+                                             first=st["first"], **pos), reps=10, trials=3),
+            cuda_ms(lambda: rk.ring_bwd_step(qs[r], ks[src], vs[src], dos[r], lses[r], deltas[r],
+                                             dq_c, dk_c, dv_c, **pos), reps=5, trials=3))
+    pair = dict(kv_valid_len=n, causal=True, segment_ids=None)
+    fwd_bytes, bwd_bytes = _ring_bytes(RING_RANKS, c, hq, hkv, True, None)
+    k7 = {"max_abs_err": res["causal"]["err"][0], "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+          **bound(fwd_bytes, pair_flops(q, k, matmuls=2, **pair)), "library_ms": sdpa_fwd,
+          "library_call": f"scaled_dot_product_attention(is_causal=True, enable_gqa=True) on "
+                          f"the global [1, {hq}, {n}, 128]"}
+    k8 = {"max_abs_err": res["causal"]["err"][1], "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+          **bound(bwd_bytes, pair_flops(q, k, matmuls=5, **pair)), "library_ms": sdpa_bwd,
+          "library_call": "the backward of scaled_dot_product_attention(is_causal=True) on the "
+                          "global sequence"}
+    kv_rot, dkv_rot = 2 * 2 * hkv * c * 128, 2 * 4 * hkv * c * 128
+    log("ring", f"{RING_RANKS} ranks x {c} B1 Hq{hq} Hkv{hkv} D128 causal bf16: forward ring "
+                f"{fwd_ms:.4f} ms, backward ring {bwd_ms:.4f} ms; plain ring {plain_fwd_ms:.2f} / {plain_bwd_ms:.2f} ms; "
+                f"single-device K1 {k1_ms:.4f} ms, K3 {k3_ms:.4f} ms at N{n}; SDPA "
+                f"{sdpa_fwd:.4f} / backward {sdpa_bwd:.4f} ms; bound {k7['bound_ms']:.4f} "
+                f"({k7['bound_by']}) / {k8['bound_ms']:.4f} ms ({k8['bound_by']}) "
+                f"(median CUDA-event time)")
+    for label, (f_ms, b_ms) in step_ms.items():
+        log("ring", f"one step, {label} {c} x {c} chunk pair: K7 {f_ms:.4f} ms, K8 {b_ms:.4f} ms")
+    log("ring", f"bytes one rotation would put on NVLink per rank (computed, not measured): K/V "
+                f"bf16 {kv_rot / 1e6:.1f} MB ({kv_rot / NVLINK_BYTES_PER_S * 1e3:.4f} ms at 450 "
+                f"GB/s), dK/dV f32 {dkv_rot / 1e6:.1f} MB "
+                f"({dkv_rot / NVLINK_BYTES_PER_S * 1e3:.4f} ms); per ring {RING_RANKS - 1} K/V "
+                f"rotations forward, {RING_RANKS - 1} K/V + {RING_RANKS} dK/dV backward")
+    del out, leaves, o_ref, o1
+    torch.cuda.empty_cache()
+
+    q, k, v, do = res["window"]["inputs"]
+    ring = ring_attention_kernel_sharded(ranks=RING_RANKS, causal=True, window=RING_WINDOW)
+    leaves = tuple(x.detach().requires_grad_(True) for x in (q, k, v))
+    out = ring(*leaves)
+    w_fwd = cuda_ms(lambda: ring(q, k, v), reps=5, trials=3)
+    w_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), reps=3,
+                    trials=3)
+    band = flash_fwd.pair_mask(n, n, kv_valid_len=n, causal=True, segment_ids=None,
+                               window=RING_WINDOW, device=DEVICE)[0, 0]
+    log("ring", f"window {RING_WINDOW} at {RING_RANKS} x {c}: forward ring {w_fwd:.4f} ms, "
+                f"backward ring {w_bwd:.4f} ms; SDPA with the band mask "
+                f"{sdpa_ms(q, k, v, attn_mask=band):.4f} / backward "
+                f"{sdpa_ms(q, k, v, do=do, attn_mask=band):.4f} ms (median CUDA-event time)")
+    counts = res["causal"]["counts"]
+    del out, leaves, band, res
+    torch.cuda.empty_cache()
+    return {"k7": k7, "k8": k8, "launches": counts}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -2087,6 +2351,7 @@ def main() -> None:
     bias = timed(phase_bias_check)
     bias_train = timed(phase_bias_train)
     roof = timed(phase_roofline)
+    ring = timed(phase_ring)
     fwd_src, bwd_src, split_src, cap_src, win_src, cap_win_src, split_win_src, bias_src = (
         f"flashattn_tpu_torch/csrc/flash_{d}.cu"
         for d in ("fwd", "bwd", "bwd_split", "fwd_softcap", "fwd_window", "fwd_softcap_window",
@@ -2158,7 +2423,15 @@ def main() -> None:
         {"name": "roofline (K10)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/roofline.cu",
          "replaces": "flashattn_tpu/ops/roofline.py:28", "launches": roof["launches"]["K10"],
-         **roof["k10"]}]}), flush=True)
+         **roof["k10"]},
+        {"name": "ring fwd step (K7)", "route": "cuda", "source": "flashattn_tpu_torch/csrc/ring.cu",
+         "replaces": "flashattn_tpu/parallel/ring_kernel.py:74, "
+                     "flashattn_tpu/parallel/ring_kernel.py:257, "
+                     "flashattn_tpu/parallel/ring_kernel.py:357",
+         "launches": ring["launches"]["K7"], **ring["k7"]},
+        {"name": "ring bwd step (K8)", "route": "cuda", "source": "flashattn_tpu_torch/csrc/ring.cu",
+         "replaces": "flashattn_tpu/parallel/ring_kernel.py:389",
+         "launches": ring["launches"]["K8"], **ring["k8"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -40,6 +40,27 @@ def _expand_kv(k, v, H):
     return kf, vf
 
 
+def position_mask(Nq: int, Nk: int, *, q_offset: int = 0, kv_offset: int = 0,
+                  causal: bool = False, window: tuple[int, int] | None = None,
+                  device=None) -> torch.Tensor:
+    """The (query, key) pairs that attend by position, ``[1, 1, Nq, Nk]``
+    bool: query ``i`` sits at ``q_offset + i`` and key ``j`` at ``kv_offset +
+    j``; ``causal`` keeps ``kv_pos <= q_pos``, ``window = (left, right)``
+    keeps ``q_pos - left <= kv_pos <= q_pos + right`` (-1: no bound)."""
+    q_pos = torch.arange(Nq, device=device)[:, None] + q_offset
+    kv_pos = torch.arange(Nk, device=device)[None, :] + kv_offset
+    keep = torch.ones((1, 1, Nq, Nk), dtype=torch.bool, device=device)
+    if causal:
+        keep = keep & (kv_pos <= q_pos)
+    if window is not None:
+        wl, wr = window
+        if wl >= 0:
+            keep = keep & (kv_pos >= q_pos - wl)
+        if wr >= 0:
+            keep = keep & (kv_pos <= q_pos + wr)
+    return keep
+
+
 def attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -90,17 +111,8 @@ def attention_reference(
             s = s + bias.float()
         row_alive = None
         if causal or window is not None or segment_ids is not None:
-            q_pos = torch.arange(Nq, device=q.device)[:, None] + q_offset
-            kv_pos = torch.arange(Nk, device=q.device)[None, :] + kv_offset
-            keep = torch.ones((1, 1, Nq, Nk), dtype=torch.bool, device=q.device)
-            if causal:
-                keep = keep & (kv_pos <= q_pos)
-            if window is not None:
-                wl, wr = window
-                if wl >= 0:
-                    keep = keep & (kv_pos >= q_pos - wl)
-                if wr >= 0:
-                    keep = keep & (kv_pos <= q_pos + wr)
+            keep = position_mask(Nq, Nk, q_offset=q_offset, kv_offset=kv_offset,
+                                 causal=causal, window=window, device=q.device)
             if segment_ids is not None:
                 seg_q, seg_kv = segment_ids
                 keep = keep & (seg_q[:, None, :, None] == seg_kv[:, None, None, :])

@@ -158,6 +158,30 @@ def kernels() -> ctypes.CDLL:
         i32, i32,                           # size, iters
         ptr,                                # cudaStream_t
     ]
+    ring_tail = [
+        i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, nq, nk, D
+        i32, i32,                           # q_base, kv_off (global positions)
+        i32, i32, i32,                      # causal, window left, window right (-1: none)
+    ]
+    lib.fa_ring_fwd_bf16.restype = i32
+    lib.fa_ring_fwd_bf16.argtypes = [
+        ptr, ptr, ptr,                      # q (x scale x log2 e), k, v
+        ptr, ptr, ptr,                      # acc, m, l: the running state (f32)
+        ptr, ptr,                           # o, lse (written on the last step)
+        *ring_tail, i32, i32,               # first, last
+        i64, i64, i64, i64, i64, i64,       # q, k/v (batch, head, seq) strides
+        i64, i64, i64,                      # o (batch, head, seq) strides
+        ptr,                                # cudaStream_t
+    ]
+    lib.fa_ring_bwd_bf16.restype = i32
+    lib.fa_ring_bwd_bf16.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,       # q (x scale x log2 e), k, v, dO, lse, delta
+        ptr, ptr, ptr,                      # dq (f32, zeroed), dk, dv (f32 accumulators)
+        *ring_tail,
+        i64, i64, i64, i64, i64, i64,       # q, k/v (batch, head, seq) strides
+        i64, i64, i64,                      # dO (batch, head, seq) strides
+        ptr,                                # cudaStream_t
+    ]
     lib.fa_error_string.restype = ctypes.c_char_p
     lib.fa_error_string.argtypes = [i32]
     return lib

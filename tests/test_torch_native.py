@@ -129,6 +129,10 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
     ("_ZN12_GLOBAL__N_111gemm_kernelILb1EEEvPK13__nv_bfloat16S3_Pvii", "K9 gemm_kernel<1>"),
     ("_ZN12_GLOBAL__N_115roofline_kernelILi4EEEvPK13__nv_bfloat16S3_PS1_ii",
      "K10 roofline_kernel<4>"),
+    ("_ZN12_GLOBAL__N_115ring_fwd_kernelILi128EEEvNS_13RingFwdParamsE",
+     "K7 ring_fwd_kernel<128>"),
+    ("_ZN12_GLOBAL__N_115ring_bwd_kernelILi64EEEvNS_13RingBwdParamsE",
+     "K8 ring_bwd_kernel<64>"),
     ("_ZN12_GLOBAL__N_110fwd_kernelILi64ELb0EEEvN2fa9FwdParamsE",
      "unrecognised instantiation fwd_kernel<64, 0>"),
     ("_Z11some_kernelv", "unrecognised instantiation _Z11some_kernelv"),
