@@ -16,12 +16,15 @@ events, median over 7 trials of the mean of 20 launches):
 * ``unet``: K1 non-causal, B1 H8 N4096 D40, BNHD (SD1.5's level-0 attention);
 * ``lm``: K1 causal at chip_smoke's "lm" shape, B1 Hq16 Hkv8 N2048 D128, BNHD;
 * ``k3``: K3 causal at the ``lm`` shape;
-* ``decode``: K1 with the cache-slot bias, q [8, 8, 2, 128] against K/V
-  [8, 8, 8192, 128] (bench_decode's folded decode attention, half live);
+* ``decode``, ``decode_int8``, ``decode_fp8``: K1 with the cache-slot bias,
+  q [8, 8, 2, 128] against bf16 / int8 / fp8 K/V [8, 8, 8192, 128]
+  (bench_decode's folded decode attention, half live: the dense K1 before
+  the decode route, the split-KV decode kernel and its merge after);
 * ``k1_seg``, ``k5``, ``k6``: K1 with segment ids, K5 and K6 at bench_lm's
   packed cell, B2 Hq16 Hkv8 N4096 D128 causal, 8 documents per row;
 * ``k3_win``, ``k5_cap``, ``k6_cap``: K3 with the SWA window, and K5 / K6
-  with the window and softcap 50, at B1 Hq16 Hkv8 N8192 D128.
+  with the window and softcap 50, at B1 Hq16 Hkv8 N8192 D128;
+* ``gemm``: K9 at 4096^3, bf16 out.
 
 The children take their helpers and shapes from this checkout's
 chip_smoke.py, and pass only arguments that both checkouts take. Prints the
@@ -44,13 +47,22 @@ import time
 import chip_smoke
 
 SMOKE = pathlib.Path(__file__).resolve().with_name("chip_smoke.py")
-# The instantiation each case launches (chip_smoke.instantiation_name).
+# The instantiation each case launches (chip_smoke.instantiation_name), or
+# (the first tree's, the second's) where the redesigned decode route and K9
+# launch another kernel than the earlier design.
 CASE_KERNELS = {"unet": "K1 fwd_kernel<48, 0, 0, 0>", "lm": "K1 fwd_kernel<128, 0, 0, 0>",
-                "k3": "K3 dkv_kernel<128, 1>", "decode": "K1 bias fwd_kernel<128, 0, 1, 0>",
+                "k3": "K3 dkv_kernel<128, 1>",
+                "decode": ("K1 bias fwd_kernel<128, 0, 1, 0>",
+                           "K1 decode bias decode_kernel<128, 0, 1, 0>"),
+                "decode_int8": ("K1 int8 bias fwd_kernel<128, 0, 1, 1>",
+                                "K1 decode int8 bias decode_kernel<128, 1, 1, 0>"),
+                "decode_fp8": ("K1 fp8 bias fwd_kernel<128, 0, 1, 2>",
+                               "K1 decode fp8 bias decode_kernel<128, 2, 1, 0>"),
                 "k1_seg": "K1 segments fwd_kernel<128, 1, 0, 0>", "k5": "K5 dkv_kernel<128, 0>",
                 "k6": "K6 dq_kernel<128>", "k3_win": "K3 window dkv_window_kernel<128, 1, 0>",
                 "k5_cap": "K5 softcap window dkv_window_kernel<128, 0, 1>",
-                "k6_cap": "K6 softcap window dq_window_kernel<128, 1>"}
+                "k6_cap": "K6 softcap window dq_window_kernel<128, 1>",
+                "gemm": ("K9 gemm_kernel<0>", "K9 gemm_wgmma_kernel<0>")}
 
 LOAD_SMOKE = r'''
 import importlib.util, json, sys, torch
@@ -66,7 +78,7 @@ print("CODE " + json.dumps({"lib": str(lib), "ptxas": cs.ptxas_stats(out)}), flu
 '''
 
 TIME = LOAD_SMOKE + r'''
-from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, gemm, quant
 from flashattn_tpu_torch.utils import native
 from flashattn_tpu_torch.utils.testing import make_qkv
 
@@ -90,6 +102,10 @@ q, k, v = make_qkv(4, cs.DECODE_B, 8, 2, cs.DECODE_D, Nk=cs.DECODE_NK, dtype=tor
                    device="cuda")
 bias = cs._decode_slot_bias(cs.DECODE_NK, cs.DECODE_NK // 2)
 out["decode"] = ms(lambda: flash_fwd.fwd(q, k, v, scale=cs.DECODE_D ** -0.5, bias=bias))
+for name, dtype in (("decode_int8", torch.int8), ("decode_fp8", torch.float8_e4m3fn)):
+    qkv = quant.quantize_kv(k, v, dtype, allow_slow_fp8=True)
+    out[name] = ms(lambda: flash_fwd.fwd(q, qkv.k_q, qkv.v_q, scale=cs.DECODE_D ** -0.5,
+                                         bias=bias, k_scale=qkv.k_scale, v_scale=qkv.v_scale))
 _, B, Hq, Hkv, N, _, D = cs.SEG_CASES[0][:7]
 q, k, v = (cs._bnhd(x) for x in make_qkv(5, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16,
                                          device="cuda"))
@@ -115,6 +131,9 @@ for name, kw in (("k3_win", dict(scale=D ** -0.5, causal=causal, window=window))
     else:
         out["k5_cap"] = ms(lambda: flash_bwd.dkv(q, k, v, do, lse, delta, **kw))
         out["k6_cap"] = ms(lambda: flash_bwd.dq(q, k, v, do, lse, delta, **kw))
+a, b = (x[0, 0].contiguous() for x in make_qkv(9, 1, 1, 4096, 4096, dtype=torch.bfloat16,
+                                                device="cuda")[:2])
+out["gemm"] = ms(lambda: gemm.matmul(a, b))
 print("AB " + json.dumps(out), flush=True)
 '''
 
@@ -150,14 +169,15 @@ def main() -> None:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     ops = [chip_smoke.sass_opcodes(c["lib"], set(c["ptxas"])) for c in code]
     for case, name in CASE_KERNELS.items():
+        names = (name, name) if isinstance(name, str) else name
         cols = []
-        for t, c, o in zip(args.trees, code, ops):
-            regs, stack = c["ptxas"].get(name, (None, None))[:2]
-            cols.append(f"{t} {regs} registers, {stack} B stack, "
-                        f"{sum(o.get(name, {}).values())} SASS instructions")
-        a, b = (o.get(name, collections.Counter()) for o in ops)
+        for t, c, o, nm in zip(args.trees, code, ops, names):
+            regs, stack = c["ptxas"].get(nm, (None, None))[:2]
+            cols.append(f"{t} {nm}: {regs} registers, {stack} B stack, "
+                        f"{sum(o.get(nm, {}).values())} SASS instructions")
+        a, b = (o.get(nm, collections.Counter()) for o, nm in zip(ops, names))
         diff = sorted(set(a) | set(b), key=lambda x: -abs(b[x] - a[x]))[:8]
-        print(f"[code] {case} ({name}): {'; '.join(cols)}; opcodes that differ most "
+        print(f"[code] {case}: {'; '.join(cols)}; opcodes that differ most "
               f"(first -> second): " + ", ".join(f"{x} {a[x]} -> {b[x]}" for x in diff), flush=True)
     shared = sorted(set(ops[0]) & set(ops[1]))
     changed = [n for n in shared if sum(ops[0][n].values()) != sum(ops[1][n].values())]

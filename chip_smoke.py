@@ -7,10 +7,13 @@ nvcc per source, in parallel) and holds each against its plain PyTorch version
 at the shapes its paths give it: K1 non-causal (serving), K1 causal (which
 also stands for K2), the backward K3 (which also stands for K4), K1 with
 segment ids and the two-kernel backward K5 (dK/dV) + K6 (dQ) of packed
-training, K1's decode variants (bias; int8 / fp8 K/V), the sliding-window
-and soft-capped variants of K1, K3, K5 and K6, K5 and K6 with a bias (K6 with
-dbias), and the probes K9 (GEMM) and K10 (tensor-core peak). Then it drives
-the port's paths and checks that each went through its kernels:
+training, K1's decode route (the split-KV decode kernel and its merge: bias,
+softcap + bias, int8 / fp8 K/V, against its plain split / merge version and
+the dense plain K1), the sliding-window and soft-capped variants of K1, K3,
+K5 and K6, K5 and K6 with a bias (K6 with dbias), and the probes K9 (the
+TMA + wgmma GEMM, with HGMMA and no HMMA in its SASS) and K10 (tensor-core
+peak). Then it drives the port's paths and checks that each went through
+its kernels:
 
 * serving: Euler sampling over the SD1.5 U-Net at full width (random weights
   from a seed, 64x64 latent, 77-token context), fused vs exact attention;
@@ -22,12 +25,13 @@ the port's paths and checks that each went through its kernels:
   packed cell): gates at [1, 2049] tokens, then 10 fused AdamW steps at
   [2, 4097] tokens beside 10 unpacked steps at the same shape;
 * LM serving: KV-cache decode of the LM of benchmarks/bench_decode.py (821 M
-  parameters, 16 layers, bf16) on a bf16, int8 and fp8 cache -- K1 with the
-  cache-slot bias, and K1 dequantizing int8 / fp8 K/V in the kernel, checked
-  first against their plain version at bench_decode's attention shapes:
-  gates against the teacher-forced forward and between cache dtypes, 8
-  requests per cache dtype (16 K1 launches per step), ms/token at cache
-  lengths 1024-8192;
+  parameters, 16 layers, bf16) on a bf16, int8 and fp8 cache -- K1's decode
+  kernel on bf16 K/V and dequantizing int8 / fp8 K/V in the kernel, over
+  the live slots with no bias, checked first against their plain versions
+  at bench_decode's attention shapes: gates against the teacher-forced
+  forward and between cache dtypes, 8 requests per cache dtype (16 decode
+  kernel launches per step, no dense K1), ms/token at cache lengths
+  1024-8192;
 * sliding-window training (bench_lm.py's long-context cells): the same LM
   with ``sliding_window=2048``, gates at [1, 2049] tokens with a window of
   512, 10 AdamW steps at [1, 8193] beside 10 full-causal steps, and a few
@@ -314,10 +318,28 @@ def ptxas_stats(out: str) -> dict:
 
 
 def instantiation_name(mangled: str) -> str:
-    """The kernel (K1 and its variant, K3, K5, K6, K7-K10) and template arguments of
-    a mangled instantiation name from ptxas, e.g. ``K1 int8 bias
-    fwd_kernel<128, 0, 1, 1>`` or ``K5 softcap dkv_softcap_kernel<128>``; an
-    unrecognised name comes back marked as such, never raising."""
+    """The kernel (K1 and its variant, K1's decode route, K3, K5, K6, K7-K10)
+    and template arguments of a mangled instantiation name from ptxas, e.g.
+    ``K1 int8 bias fwd_kernel<128, 0, 1, 1>``, ``K1 decode fp8 bias
+    decode_kernel<128, 2, 1, 0>`` or ``K5 softcap dkv_softcap_kernel<128>``
+    (K9 is ``gemm_wgmma_kernel``; the earlier ``gemm_kernel`` is still named,
+    for chip_ab.py's parent builds); an unrecognised name comes back marked
+    as such, never raising."""
+    if "decode_merge_kernel" in mangled:
+        return "K1 decode merge decode_merge_kernel"
+    dec = re.search(r"decode_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if dec:  # K1's decode route: decode_kernel<D, KV, BIAS, CAP>
+        args = [int(a) for a in re.findall(r"L[a-z]+(-?\d+)E", dec.group(1))]
+        label = f"decode_kernel<{', '.join(map(str, args))}>"
+        if len(args) != 4:
+            return f"unrecognised instantiation {label}"
+        variant = {0: "", 1: " int8", 2: " fp8"}.get(args[1], f" kv{args[1]}")
+        return (f"K1 decode{variant}{' softcap' if args[3] else ''}{' bias' if args[2] else ''} "
+                f"{label}")
+    wgmma = re.search(r"gemm_wgmma_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if wgmma:  # K9, gemm_wgmma_kernel<OUT_F32>
+        args = re.findall(r"L[a-z]+(-?\d+)E", wgmma.group(1))
+        return f"K9 gemm_wgmma_kernel<{', '.join(args)}>"
     ring = re.search(r"ring_(fwd|bwd)_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if ring:  # before the K1 pattern, which "ring_fwd_kernel" would also match
         args = re.findall(r"L[a-z]+(-?\d+)E", ring.group(2))
@@ -862,6 +884,7 @@ def _reset_launches() -> None:
     flash_fwd.fwd.launches = flash_bwd_fused.bwd.launches = 0
     flash_fwd.fwd.launches_bias = flash_fwd.fwd.launches_int8 = flash_fwd.fwd.launches_fp8 = 0
     flash_fwd.fwd.launches_window = flash_fwd.fwd.launches_softcap = 0
+    flash_fwd.fwd.launches_decode = flash_fwd.fwd.launches_merge = 0
     flash_bwd.dkv.launches = flash_bwd.dq.launches = 0
     flash_bwd.dkv.launches_bias = flash_bwd.dq.launches_bias = flash_bwd.dq.launches_dbias = 0
     gemm.matmul.launches = roofline.roofline_call.launches = 0
@@ -881,6 +904,7 @@ def _launches() -> dict:
             "K1 int8": flash_fwd.fwd.launches_int8, "K1 fp8": flash_fwd.fwd.launches_fp8,
             "K1 window": flash_fwd.fwd.launches_window,
             "K1 softcap": flash_fwd.fwd.launches_softcap,
+            "K1 decode": flash_fwd.fwd.launches_decode, "K1 merge": flash_fwd.fwd.launches_merge,
             "K3": flash_bwd_fused.bwd.launches, "K5": flash_bwd.dkv.launches,
             "K5 bias": flash_bwd.dkv.launches_bias, "K6": flash_bwd.dq.launches,
             "K6 bias": flash_bwd.dq.launches_bias, "K6 dbias": flash_bwd.dq.launches_dbias,
@@ -947,48 +971,112 @@ def phase_packed_train() -> dict:
 # cache; the Hkv < 16 cases run GQA-folded.
 DECODE_B, DECODE_H, DECODE_NK, DECODE_D = 8, 16, 8192, 128
 KV_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
+# The decode kernel's variants: (K/V dtype, softcap).
+DECODE_VARIANTS = {"bf16": (torch.bfloat16, None), "int8": (torch.int8, None),
+                   "fp8": (torch.float8_e4m3fn, None), "softcap": (torch.bfloat16, SOFTCAP)}
+# (name, B, Hq, Hkv, Nq, Nk, D, bias, causal): the call decode_step makes at
+# bench_decode's cache length 8192 held at half (its 4097 live slots, no bias),
+# timed for the kernel rows; bench_decode's shapes at Hkv 16, 8, 4, 2 over the
+# whole cache with the JAX step's cache-slot bias (half the slots live; Hkv 8
+# timed beside the earlier design's times), Nq 16 without bias, 32 folded rows
+# (two Q tiles), Nk 8191, batch row 0 masked entirely, the fewest splits (1)
+# and the most (B1 Hkv1: 4 CTAs per SM), D 64; then a causal [B, H, Nq, Nk]
+# bias, which the dense K1 takes.
+DECODE_LIVE = DECODE_NK // 2 + 1
+DECODE_CASES = [("live", DECODE_B, DECODE_H, 8, 1, DECODE_LIVE, DECODE_D, None, False)]
+DECODE_CASES += [(f"Hkv{hkv}", DECODE_B, DECODE_H, hkv, 1, DECODE_NK, DECODE_D, "slots", False)
+                 for hkv in (16, 8, 4, 2)]
+DECODE_CASES += [("Nq16", DECODE_B, DECODE_H, DECODE_H, 16, DECODE_NK, DECODE_D, None, False),
+                 ("rows32", DECODE_B, DECODE_H, 8, 16, DECODE_NK, DECODE_D, "slots", False),
+                 ("Nk8191", DECODE_B, DECODE_H, 8, 1, 8191, DECODE_D, "slots", False),
+                 ("dead row", DECODE_B, DECODE_H, 8, 1, DECODE_NK, DECODE_D, "dead", False),
+                 ("1 split", DECODE_B, DECODE_H, 8, 1, 200, DECODE_D, "slots", False),
+                 ("most splits", 1, 8, 1, 1, 528 * 256, DECODE_D, "slots", False),
+                 ("D64", 2, 8, 2, 1, 1000, 64, "slots", False),
+                 ("dense causal", 2, 4, 4, 1000, 1100, 64, "random", True)]
+# Beside FWD_TOL[bf16] per element, O's relative L2 error against the plain
+# version: at these shapes |O| is ~0.03 (a row spreads over thousands of
+# keys), so FWD_TOL's atol 2e-2 alone would pass a kernel that dropped a
+# split's accumulator; bf16 rounding of P and O gives ~1e-3.
+DECODE_REL_L2 = 1e-2
 
 
 def _decode_slot_bias(nk: int, live: int) -> torch.Tensor:
-    """decode_step's cache-slot mask: ``[1, 1, 1, nk]`` f32, -1e9 past ``live``."""
+    """The JAX decode_step's cache-slot mask: ``[1, 1, 1, nk]`` f32, -1e9
+    past ``live``."""
     slot = torch.arange(nk, device=DEVICE)
     return torch.where(slot < live, 0.0, -1e9).to(torch.float32)[None, None, None]
 
 
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+def _decode_merges(batch: int, hkv: int, live: int) -> int:
+    """Merge launches of one decode-kernel call over ``live`` keys: 1 when it
+    has more than one split."""
+    from flashattn_tpu_torch.ops import flash_fwd
+
+    return int(_decode_splits(batch, hkv, live) > 1)
+
+
+def _decode_splits(batch: int, hkv: int, live: int) -> int:
+    """The decode kernel's split count on this card (its SM count)."""
+    from flashattn_tpu_torch.ops import flash_fwd
+
+    return flash_fwd.decode_splits(batch, hkv, live, _sms())[0]
+
+
 def phase_decode_check() -> dict:
-    """K1's decode variants -- bias on bf16 K/V, int8 and fp8 K/V with and
-    without bias -- against their plain version on the dequantized cache, at
-    bench_decode's attention shapes (Hkv 16, 8, 4, 2 with a cache-slot bias
-    of half the slots live, Nq 1, GQA-folded where Hkv < 16; Nq 16 without
-    bias) and a random [B, H, Nq, Nk] bias at B2 H4 Nq1000 Nk1100 D64
-    causal: O within FWD_TOL[bf16]. Times each case's kernel launch (on the
-    folded shape the path gives it) and its plain version, with the KV read
-    rate 2·B·Hkv·Nk·D·bytes / t of bench_decode.py:94."""
+    """K1's decode route -- the split-KV decode kernel on bf16 K/V, with a
+    softcap, and on int8 / fp8 K/V, each with and without a bias -- at
+    DECODE_CASES. Each case goes through the path (flash_attention /
+    flash_attention_quantized) against fwd_reference on the dequantized
+    cache (O within FWD_TOL[bf16] and DECODE_REL_L2), with exactly one K1
+    launch, on the decode kernel where decode_route takes the call (and its
+    merge when it has more than one split) and on the dense K1 otherwise;
+    then the kernel on the folded launch the path makes against
+    decode_reference with the kernel's splits (O within FWD_TOL[bf16] and
+    DECODE_REL_L2, LSE within LSE_ATOL; a masked batch row exactly O = 0 and
+    LSE = ln2 x mask). Times each variant beside its plain version, with the
+    KV read rate 2·B·Hkv·Nk·D·bytes / t of bench_decode.py:94: on the live
+    case (decode_step's call; returned under the variant's name) and on the
+    Hkv 8 case (the whole cache with the slot bias; under "<variant> bias")."""
     from flashattn_tpu_torch.ops import flash_fwd, quant
     from flashattn_tpu_torch.ops.flash import flash_attention
-    from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close, make_qkv
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, Tolerance, check_close, make_qkv
 
-    tol = FWD_TOL[torch.bfloat16]
-    B, H, Nk, D = DECODE_B, DECODE_H, DECODE_NK, DECODE_D
-    # (B, Hq, Hkv, Nq, Nk, D, bias, causal)
-    cases = [(B, H, hkv, 1, Nk, D, "slots", False) for hkv in (16, 8, 4, 2)]
-    cases += [(B, H, H, 16, Nk, D, None, False), (2, 4, 4, 1000, 1100, 64, "random", True)]
+    tol, lse_tol = FWD_TOL[torch.bfloat16], Tolerance(LSE_ATOL, 0.0)
     res = {}
-    for i, (b, hq, hkv, nq, nk, d, bias_kind, causal) in enumerate(cases):
+    for i, (case, b, hq, hkv, nq, nk, d, bias_kind, causal) in enumerate(DECODE_CASES):
         q, k, v = make_qkv(900 + i, b, hq, nq, d, Nk=nk, Hkv=hkv, dtype=torch.bfloat16,
                            device=DEVICE)
         bias = None
-        if bias_kind == "slots":
+        if bias_kind in ("slots", "dead"):
             bias = _decode_slot_bias(nk, nk // 2)
+        if bias_kind == "dead":  # batch row 0: every slot at the mask value
+            bias = bias.expand(b, 1, 1, nk).clone()
+            bias[0] = DEFAULT_MASK_VALUE
         elif bias_kind == "random":
             gen = torch.Generator(device=DEVICE).manual_seed(950 + i)
             bias = torch.randn((b, hq, nq, nk), generator=gen, device=DEVICE)
         rep = hq // hkv
         folded = rep > 1 and not causal and nq * rep <= 32
-        for name, dtype in KV_DTYPES.items():
-            kw = dict(scale=d ** -0.5, causal=causal, bias=bias)
+        # The launch the path makes: the folded query for tiny-Nq GQA.
+        qk = q.reshape(b, hkv, rep * nq, d) if folded else q
+        bias_k = bias.repeat(1, 1, rep, 1) if bias is not None and folded and bias.shape[2] > 1 \
+            else bias
+        route = flash_fwd.decode_route(rows=qk.shape[1] // hkv * qk.shape[2], causal=causal,
+                                       segment_ids=None, window=None, head_dim=d)
+        for name, (dtype, cap) in DECODE_VARIANTS.items():
+            if cap is not None and bias_kind == "random":
+                continue  # the dense K1's softcap is checked by phase_window_check
+            kw = dict(scale=d ** -0.5, causal=causal, bias=bias, softcap=cap)
+            before = (flash_fwd.fwd.launches, flash_fwd.fwd.launches_decode,
+                      flash_fwd.fwd.launches_merge)
             if dtype == torch.bfloat16:
-                o = flash_attention(q, k, v, bias=bias, causal=causal)
+                o = flash_attention(q, k, v, bias=bias, causal=causal, logit_softcap=cap)
                 kk, vv, scales = k, v, {}
             else:
                 qkv = quant.quantize_kv(k, v, dtype, allow_slow_fp8=True)
@@ -996,37 +1084,85 @@ def phase_decode_check() -> dict:
                 kk, vv = qkv.k_q, qkv.v_q
                 scales = dict(k_scale=qkv.k_scale, v_scale=qkv.v_scale)
             torch.cuda.synchronize()
+            launched = tuple(x - y for x, y in zip(
+                (flash_fwd.fwd.launches, flash_fwd.fwd.launches_decode,
+                 flash_fwd.fwd.launches_merge), before))
+            want = (1, 1, _decode_merges(b, hkv, nk)) if route else (1, 0, 0)
             o_want, _ = flash_fwd.fwd_reference(q.float(), kk, vv, **kw, **scales)
             ok, msg = check_close(o, o_want, tol, "O")
-            err = (o.float() - o_want).abs().max().item()
-            # The launch the path makes: the folded query for tiny-Nq GQA.
-            qk = q.reshape(b, hkv, rep * nq, d) if folded else q
-            if bias is not None and folded and bias.shape[2] > 1:
-                kw["bias"] = bias.repeat(1, 1, rep, 1)
-            ms = cuda_ms(lambda: flash_fwd.fwd(qk, kk, vv, **kw, **scales))
-            plain_ms = cuda_ms(lambda: flash_fwd.fwd_reference(q, kk, vv, **kw, **scales),
-                               reps=3, trials=3)
-            nbytes = 2 * b * hkv * nk * d * kk.element_size()
-            label = (f"{name} B{b} Hq{hq} Hkv{hkv} Nq{nq} Nk{nk} D{d}"
+            err, rel = (o.float() - o_want).abs().max().item(), _rel(o.float(), o_want)
+            label = (f"{case} {name} B{b} Hq{hq} Hkv{hkv} Nq{nq} Nk{nk} D{d}"
                      f"{' causal' if causal else ''}"
                      f"{'' if bias_kind is None else f' bias {bias_kind}'}"
                      f"{' folded' if folded else ''}")
-            log("decode", f"{label}: O max_abs_err {err:.3e} (budget {O_TOL_NAME}); K1 "
-                          f"{ms * 1e3:.2f} us ({nbytes / ms / 1e6:.1f} GB/s KV read), plain "
-                          f"{plain_ms * 1e3:.2f} us ({nbytes / plain_ms / 1e6:.1f} GB/s)")
-            if not ok:
-                fail(f"K1 ({label}) disagrees with fwd_reference: {msg}")
-            if (hkv, nq, bias_kind) == (8, 1, "slots"):  # the LM's decode attention
-                res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(
+            kern = "decode kernel" if route else "dense K1"
+            line = (f"{label}: path O max_abs_err {err:.3e} (budget {O_TOL_NAME}), relative "
+                    f"L2 {rel:.3e} (limit {DECODE_REL_L2}), max|O| "
+                    f"{o_want.abs().max().item():.3e}; launches K1 / decode / merge {launched} "
+                    f"(expected {want}, the {kern})")
+            if launched != want:
+                fail(f"{label} launched K1 / decode / merge {launched}, expected {want}")
+            if not (ok and rel <= DECODE_REL_L2):
+                fail(f"K1 ({label}) disagrees with fwd_reference: {msg}; relative L2 {rel:.3e}")
+            kernel_kw = {**kw, "bias": bias_k}
+            dref_kw = {x: y for x, y in kernel_kw.items() if x != "causal"}
+            splits = _decode_splits(b, hkv, nk)
+            if route:
+                o_k, lse_k = flash_fwd.fwd(qk, kk, vv, **kernel_kw, **scales)
+                torch.cuda.synchronize()
+                o_r, lse_r = flash_fwd.decode_reference(qk.float(), kk, vv, **dref_kw, **scales,
+                                                        splits=splits)
+                ok_o, msg_o = check_close(o_k, o_r, tol, "O")
+                k_rel = _rel(o_k.float(), o_r)
+                # Dead rows' LSE, ln2 x mask, is f32's product in the kernel:
+                # within an ulp of the reference's, not within LSE_ATOL.
+                live = lse_r > 0.5 * math.log(2.0) * DEFAULT_MASK_VALUE
+                ok_l, msg_l = check_close(lse_k[live], lse_r[live], lse_tol, "LSE")
+                ok_l = ok_l and torch.allclose(lse_k[~live], lse_r[~live], rtol=1e-6, atol=0.0)
+                k_err = (o_k.float() - o_r).abs().max().item()
+                lse_err = (lse_k[live] - lse_r[live]).abs().max().item() if live.any() else 0.0
+                line += (f"; kernel vs decode_reference ({splits} splits): O max_abs_err "
+                         f"{k_err:.3e}, relative L2 {k_rel:.3e} (limit {DECODE_REL_L2}), LSE "
+                         f"max_abs_err on live rows {lse_err:.3e} (budget {LSE_ATOL})")
+                if not (ok_o and ok_l and k_rel <= DECODE_REL_L2):
+                    fail(f"the decode kernel ({label}) disagrees with decode_reference: "
+                         f"{msg_o}; {msg_l}; O relative L2 {k_rel:.3e}")
+                if bias_kind == "dead":
+                    dead_o = o_k[0].float().abs().max().item()
+                    dead_lse = torch.allclose(
+                        lse_k[0], torch.full_like(lse_k[0], math.log(2.0) * DEFAULT_MASK_VALUE),
+                        rtol=1e-6, atol=0.0)
+                    line += f"; masked batch row: max|O| {dead_o}, LSE ln2 x mask {dead_lse}"
+                    if dead_o != 0.0 or not dead_lse or o[0].float().abs().max().item() != 0.0:
+                        fail(f"{label}: the masked batch row is not exactly O = 0, "
+                             f"LSE = ln2 x mask")
+            if case in ("live", "Hkv8"):  # the LM's decode attention
+                key = name if case == "live" else f"{name} bias"
+                ms = cuda_ms(lambda: flash_fwd.fwd(qk, kk, vv, **kernel_kw, **scales))
+                plain_ms = cuda_ms(lambda: flash_fwd.decode_reference(
+                    qk, kk, vv, **dref_kw, **scales, splits=splits), reps=3, trials=3)
+                nbytes = 2 * b * hkv * nk * d * kk.element_size()
+                line += (f"; decode kernel {ms * 1e3:.2f} us ({nbytes / ms / 1e6:.1f} GB/s KV "
+                         f"read), plain {plain_ms * 1e3:.2f} us")
+                res[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound(
                     tensor_bytes(q, kk, vv, bias, q, *scales.values()) + 4 * b * hq * nq,
                     4.0 * d * b * hq * nq * nk)}
-                if dtype == torch.bfloat16:
-                    res[name]["library_ms"] = sdpa_ms(q, k, v, attn_mask=bias)
-                    res[name]["library_call"] = ("scaled_dot_product_attention(attn_mask=bias, "
-                                                 "enable_gqa=True)")
-                else:
-                    res[name].update(library_ms=None, library_call=(
+                with_bias = "" if bias is None else " and bias"
+                if dtype != torch.bfloat16:
+                    res[key].update(library_ms=None, library_call=(
                         "none: no PyTorch call takes int8 / fp8 K/V with per-token scales"))
+                elif cap is None:
+                    res[key]["library_ms"] = sdpa_ms(q, k, v, attn_mask=bias)
+                    res[key]["library_call"] = (f"scaled_dot_product_attention(attn_mask="
+                                                f"{'bias' if bias is not None else 'None'}, "
+                                                "enable_gqa=True)")
+                else:
+                    res[key]["library_ms"] = flex_ms(q, k, v, scale=kw["scale"],
+                                                     score_mod=softcap_mod(cap, bias))
+                    res[key]["library_call"] = ("flex_attention (torch.compile) with the "
+                                                f"softcap{with_bias} score_mod")
+                line += f", library {res[key]['library_ms']}"
+            log("decode", line)
         del q, k, v, kk, vv, scales
         torch.cuda.empty_cache()
     return res
@@ -1046,6 +1182,9 @@ DECODE_STEPS, DECODE_WARMUP = 10, 3
 # deviation (max|dlogits| 0.3203 vs 0.1172, relative L2 6.49e-2 vs 2.36e-2,
 # H100), above the JAX rule, so its limit is 3x the rule.
 QUANT_RULE = {"int8": 0.05, "fp8": 0.15}
+# The launch counters of each cache dtype's decode variant beside K1 decode
+# (decode_step passes no bias: a bf16 cache counts in no variant counter).
+DECODE_COUNTER = {"bf16": {}, "int8": {"K1_int8": 1}, "fp8": {"K1_fp8": 1}}
 
 
 def _decode_logits(model, cfg, tokens, quant_dtype=None):
@@ -1105,10 +1244,13 @@ def phase_decode() -> dict:
     ``max|Δ| < 0.05·max(max|logits|, 1)``, 3x that for fp8 (QUANT_RULE).
     Then 8 requests at batch 8 per
     cache dtype (a 64-token prompt fed through decode_step, 64 greedy
-    tokens), with exactly 16 K1 launches per step in the dtype's variant and
-    no other kernel; then ms/token and tokens/s at cache lengths 1024, 4096
-    and 8192 with the length held at half (bench_decode.py:46-55), batch 8,
-    and the peak device memory. Returns the launch counts per dtype."""
+    tokens), with exactly 16 K1 launches per step, all on the decode kernel
+    in the dtype's variant (no dense K1), its merge kernel exactly where the
+    live slots make more than one split, and no other kernel; then ms/token
+    and tokens/s at cache lengths 1024, 4096 and 8192 with the length held
+    at half (bench_decode.py:46-55), batch 8, and the peak device memory,
+    the launches checked the same way. Returns the launch counts per dtype,
+    summed over the requests and the timed steps."""
     from flashattn_tpu_torch.models.transformer import (
         TransformerConfig, decode_step, init_kv_cache, init_transformer)
     from flashattn_tpu_torch.utils.platform import native_fp8_matmul
@@ -1164,15 +1306,19 @@ def phase_decode() -> dict:
         out = torch.stack(out, dim=1)
         if not torch.isfinite(logits).all() or not ((out >= 0) & (out < cfg.vocab_size)).all():
             fail(f"{name} requests: logits not finite or tokens out of range")
-        variant = {"bf16": "K1_bias", "int8": "K1_int8", "fp8": "K1_fp8"}[name]
-        want = _expect(K1=cfg.n_layers * steps, **{variant: cfg.n_layers * steps})
+        n = cfg.n_layers * steps
+        merges = cfg.n_layers * sum(_decode_merges(DECODE_REQUESTS, cfg.n_kv_heads, t + 1)
+                                    for t in range(steps))
+        want = _expect(K1=n, K1_decode=n, K1_merge=merges,
+                       **{c: n for c in DECODE_COUNTER[name]})
         log("decode", f"{name} cache: {DECODE_REQUESTS} requests at batch {DECODE_REQUESTS}, "
                       f"{PROMPT_LEN}-token prompt + {GEN_LEN} greedy tokens = {steps} steps in "
                       f"{secs:.3f} s ({secs / steps * 1e3:.2f} ms/step, "
                       f"{DECODE_REQUESTS * steps / secs:.0f} tokens/s); first request's tokens "
                       f"{out[0, :8].tolist()}...; launches {counts[name]} (expected "
-                      f"{cfg.n_layers} x {steps} = {cfg.n_layers * steps} K1, all "
-                      f"{variant.replace('_', ' ')})")
+                      f"{cfg.n_layers} x {steps} = {n} K1, all on the decode kernel "
+                      f"without a bias{''.join(', ' + c.replace('_', ' ') for c in DECODE_COUNTER[name])}"
+                      f", {merges} merges)")
         if counts[name] != want:
             fail(f"{name} decode launched {counts[name]}, expected {want}")
         del cache
@@ -1180,8 +1326,20 @@ def phase_decode() -> dict:
 
     for cache_len in DECODE_CACHE_LENS:
         for name, dt in KV_DTYPES.items():
+            _reset_launches()
             _decode_ms(model, cfg, cache_len, None if dt == torch.bfloat16 else dt,
                        phase="decode", label=f"{name} cache")
+            timed = _launches()
+            n = cfg.n_layers * (DECODE_WARMUP + DECODE_STEPS)
+            want = _expect(K1=n, K1_decode=n, **{c: n for c in DECODE_COUNTER[name]},
+                           K1_merge=n * _decode_merges(DECODE_B, cfg.n_kv_heads,
+                                                       cache_len // 2 + 1))
+            if timed != want:
+                fail(f"{name} decode at cache length {cache_len} launched {timed}, expected "
+                     f"{want}")
+            counts[name] = {x: counts[name][x] + timed[x] for x in timed}
+    log("decode", f"launches over the requests and the timed steps: {counts} (16 decode "
+                  "kernels per step, no dense K1)")
     del model
     torch.cuda.empty_cache()
     return counts
@@ -1540,8 +1698,8 @@ def phase_softcap() -> dict:
     Decode: bench_decode's LM with the cap and sliding_window 2048 on a bf16
     cache, decode against the teacher-forced forward (_decode_gate; the
     forward runs K1 with the window and the cap), ms/token at cache lengths
-    1024-8192 with exactly 16 K1 softcap launches per step, all with the
-    cache-slot bias. Returns both paths' launch counts."""
+    1024-8192 with exactly 16 K1 softcap launches per step, all on the
+    decode kernel without a bias. Returns both paths' launch counts."""
     from flashattn_tpu_torch.models.transformer import TransformerConfig, init_transformer
 
     gen = torch.Generator(device=DEVICE).manual_seed(3)
@@ -1572,11 +1730,18 @@ def phase_softcap() -> dict:
         _decode_ms(model, cfg, cache_len, None, phase="softcap",
                    label=f"bf16 cache, logit_softcap {SOFTCAP}, sliding_window {SWA_WINDOW}")
     decode = _launches()
-    n = cfg.n_layers * (DECODE_WARMUP + DECODE_STEPS) * len(DECODE_CACHE_LENS)
+    per_len = cfg.n_layers * (DECODE_WARMUP + DECODE_STEPS)
+    n = per_len * len(DECODE_CACHE_LENS)
+    # The live slots of a step held at cache_len // 2: the window's, at most.
+    merges = per_len * sum(_decode_merges(DECODE_B, cfg.n_kv_heads,
+                                          min(cache_len // 2 + 1, SWA_WINDOW))
+                           for cache_len in DECODE_CACHE_LENS)
     log("softcap", f"launches during the soft-capped decode steps: {decode} (expected "
-                   f"{cfg.n_layers} per step, K1 = K1 bias = K1 softcap = {n})")
-    if decode != _expect(K1=n, K1_bias=n, K1_softcap=n):
-        fail(f"soft-capped decode launched {decode}, expected K1 = K1 bias = K1 softcap = {n}")
+                   f"{cfg.n_layers} per step, K1 = K1 softcap = K1 decode = {n}, no bias, "
+                   f"{merges} merges, no dense K1)")
+    if decode != _expect(K1=n, K1_softcap=n, K1_decode=n, K1_merge=merges):
+        fail(f"soft-capped decode launched {decode}, expected K1 = K1 softcap = K1 decode = "
+             f"{n}, K1 merge = {merges}")
     del model
     torch.cuda.empty_cache()
     return {"train": train, "decode": decode}
@@ -1596,6 +1761,8 @@ BIAS_SHAPE = (2, 16, 8, 2048, 128)
 # checked at size 256 with 4 iterations and timed at the JAX probe's default
 # (size 512, 1024 iterations); the chained torch.matmul at size 4096.
 GEMM_SHAPES = ((4096, 4096, 4096), (512, 256, 384))
+# Checked beside them: N = 384, so K9's second 256-wide tile hangs over N.
+GEMM_TAIL_SHAPE = (512, 384, 256)
 ROOFLINE_SIZE, ROOFLINE_ITERS = 512, 1024
 MATMUL_PEAK_SIZE = 4096
 
@@ -1971,13 +2138,16 @@ def phase_roofline() -> dict:
     """Path B, the roofline probes: gemm.matmul (K9) at 4096^3 and at the
     JAX test's 512 x 256 x 384 (blocks 128), and measure_mxu_peak_tflops
     (K10, size 512, 1024 iterations) -- the launches counted -- then K9's
-    outputs against its plain version (bf16 out: FWD_TOL[bf16]; f32 out at
-    the small shape: FWD_TOL[f32]) and K10 against its plain version at size
-    256, 4 iterations (FWD_TOL[bf16]); the HMMA instructions of K10's SASS
-    (at least 2 x N_CHAINS: its chains' products are neither merged nor
-    hoisted) and the measured mma.sync peak at most the datasheet's 989
-    TFLOP/s; the chained torch.matmul peak beside it. Times K9 and K10 beside
-    their plain versions and torch.matmul."""
+    outputs at both shapes and at GEMM_TAIL_SHAPE against its plain version
+    (bf16 out: FWD_TOL[bf16]; f32 out: FWD_TOL[f32] at the small shapes, the
+    f32 summation bound K·2^-24·(|A||B|) at 4096^3) and K10 against its
+    plain version at size 256, 4 iterations (FWD_TOL[bf16]); the HMMA
+    instructions of K10's SASS (at least 2 x N_CHAINS: its chains' products
+    are neither merged nor hoisted), K9's HGMMA (wgmma) and no HMMA, and the
+    measured mma.sync peak at most the datasheet's 989 TFLOP/s; the chained
+    torch.matmul peak beside it. Times K9 and K10 beside their plain versions
+    and torch.matmul, and prints K9's TFLOP/s beside K10's and
+    torch.matmul's."""
     from flashattn_tpu_torch.ops import gemm, roofline
     from flashattn_tpu_torch.utils import native
     from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close
@@ -1995,21 +2165,30 @@ def phase_roofline() -> dict:
         fail(f"the roofline probes launched {counts}, expected K9 = 2, K10 > 0 and no other")
 
     res = {"launches": counts, "mxu_tflops": mxu}
-    for (m, n, kd), (a, b), out in zip(GEMM_SHAPES, operands, outs):
+    m, n, kd = GEMM_TAIL_SHAPE
+    operands.append(tuple(torch.randn(sh, generator=gen, device=DEVICE).to(torch.bfloat16)
+                          for sh in ((m, kd), (kd, n))))
+    outs.append(gemm.matmul(*operands[-1], block_m=128, block_n=128, block_k=128))
+    for (m, n, kd), (a, b), out in zip((*GEMM_SHAPES, GEMM_TAIL_SHAPE), operands, outs):
         want = gemm.matmul_reference(a, b, torch.float32)
         ok, msg = check_close(out, want, FWD_TOL[torch.bfloat16], "K9 bf16")
         err = (out.float() - want).abs().max().item()
-        msg32 = ""
-        if (m, n, kd) != GEMM_SHAPES[0]:
-            out32 = gemm.matmul(a, b, block_m=128, block_n=128, block_k=128,
-                                out_dtype=torch.float32)
+        out32 = gemm.matmul(a, b, block_m=128, block_n=128, block_k=128, out_dtype=torch.float32)
+        if kd <= 512:
             ok32, msg32 = check_close(out32, want, FWD_TOL[torch.float32], "K9 f32")
-            ok = ok and ok32
-            msg32 = f"; f32 out max_abs_err {(out32 - want).abs().max().item():.3e} (FWD_TOL[f32])"
+            budget = "FWD_TOL[f32]"
+        else:
+            # Summation in another order: within the forward error bound of a
+            # K-term f32 sum, K·2^-24·(|A||B|) per element.
+            bound32 = kd * 2.0 ** -24 * gemm.matmul_reference(a.abs(), b.abs(), torch.float32)
+            excess = ((out32 - want).abs() - bound32).max().item()
+            ok32, msg32 = excess <= 0, f"K9 f32: |err| - K 2^-24 (|A||B|) max {excess:.3e}"
+            budget = "K 2^-24 (|A||B|) per element"
         log("roofline", f"K9 {m}x{kd} @ {kd}x{n} bf16: bf16 out max_abs_err {err:.3e} "
-                        f"(FWD_TOL[bf16], max|ref| {want.abs().max().item():.2f}){msg32}")
-        if not ok:
-            fail(f"K9 disagrees with its plain version at {m}x{kd}x{n}: {msg} {msg32}")
+                        f"(FWD_TOL[bf16], max|ref| {want.abs().max().item():.2f}); f32 out "
+                        f"max_abs_err {(out32 - want).abs().max().item():.3e} ({budget})")
+        if not (ok and ok32):
+            fail(f"K9 disagrees with its plain version at {m}x{kd}x{n}: {msg}; {msg32}")
         if (m, n, kd) == GEMM_SHAPES[0]:
             k9_err = err
     a, b = (torch.randn((256, 256), generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -2023,13 +2202,20 @@ def phase_roofline() -> dict:
     if not ok:
         fail(f"K10 disagrees with its plain version: {msg}")
 
-    names = {"K10 roofline_kernel<4>", "K9 gemm_kernel<0>", "K9 gemm_kernel<1>"}
+    k9_names = ("K9 gemm_wgmma_kernel<0>", "K9 gemm_wgmma_kernel<1>")
+    names = {"K10 roofline_kernel<4>", *k9_names}
     sass = sass_opcodes(native.BUILD_DIR / native.LIB_NAME, names)
-    hmma = {name: sass.get(name, collections.Counter())["HMMA"] for name in sorted(names)}
-    log("roofline", f"HMMA instructions in the SASS: {hmma} (K10 needs at least "
-                    f"{2 * roofline.N_CHAINS}: {roofline.N_CHAINS} chains x 2 n-tiles per k-step)")
-    if hmma["K10 roofline_kernel<4>"] < 2 * roofline.N_CHAINS:
-        fail(f"K10's SASS has {hmma['K10 roofline_kernel<4>']} HMMA: its products were merged")
+    mma = {name: {op: sass.get(name, collections.Counter())[op] for op in ("HMMA", "HGMMA")}
+           for name in sorted(names)}
+    log("roofline", f"HMMA / HGMMA instructions in the SASS: {mma} (K10 needs at least "
+                    f"{2 * roofline.N_CHAINS} HMMA: {roofline.N_CHAINS} chains x 2 n-tiles per "
+                    "k-step; K9 HGMMA and no HMMA)")
+    if mma["K10 roofline_kernel<4>"]["HMMA"] < 2 * roofline.N_CHAINS:
+        fail(f"K10's SASS has {mma['K10 roofline_kernel<4>']['HMMA']} HMMA: its products were "
+             "merged")
+    for name in k9_names:
+        if mma[name]["HGMMA"] == 0 or mma[name]["HMMA"] != 0:
+            fail(f"{name}'s SASS has {mma[name]}: K9 must run on wgmma (HGMMA) alone")
     matmul_peak = roofline.measure_xla_matmul_peak_tflops(size=MATMUL_PEAK_SIZE)
     res["matmul_tflops"] = matmul_peak
     datasheet = PEAK_BF16_FLOPS / 1e12
@@ -2072,6 +2258,10 @@ def phase_roofline() -> dict:
         log("roofline", f"{key}: {res_k['ms']:.4f} ms, plain {res_k['plain_ms']:.4f} ms, bound "
                         f"{res_k['bound_ms']:.4f} ms ({res_k['bound_by']}), "
                         f"{res_k['library_call']} {res_k['library_ms']:.4f} ms")
+    flops = 2.0 * m * n * kd
+    log("roofline", f"K9 at {m}x{kd} @ {kd}x{n}: {flops / res['k9']['ms'] / 1e9:.1f} TFLOP/s "
+                    f"(torch.matmul {flops / res['k9']['library_ms'] / 1e9:.1f}), beside K10's "
+                    f"mma.sync {mxu:.1f} and the chained torch.matmul {matmul_peak:.1f} TFLOP/s")
     return res
 
 
@@ -2352,18 +2542,23 @@ def main() -> None:
     bias_train = timed(phase_bias_train)
     roof = timed(phase_roofline)
     ring = timed(phase_ring)
-    fwd_src, bwd_src, split_src, cap_src, win_src, cap_win_src, split_win_src, bias_src = (
+    fwd_src, bwd_src, split_src, win_src, cap_win_src, split_win_src, bias_src = (
         f"flashattn_tpu_torch/csrc/flash_{d}.cu"
-        for d in ("fwd", "bwd", "bwd_split", "fwd_softcap", "fwd_window", "fwd_softcap_window",
+        for d in ("fwd", "bwd", "bwd_split", "fwd_window", "fwd_softcap_window",
                   "bwd_split_window", "bwd_split_bias"))
+    # K1's decode route: the decode kernel and, where a call has more than one
+    # split, its merge kernel, both launched by flash_fwd.fwd's one C call
+    # (their times are the call's); launches are the decode kernel's.
     decode_kernels = [
-        {"name": f"flash_fwd {label} (K1 decode, {name} cache)", "route": "cuda",
-         "source": f"flashattn_tpu_torch/csrc/flash_fwd_{src}.cu",
-         "replaces": "flashattn_tpu/ops/flash_fwd.py:115", "launches": dec[name][counter],
-         **dec_k[name]}
-        for name, label, src, counter in (("bf16", "bias", "bias", "K1 bias"),
-                                          ("int8", "int8 K/V + bias", "int8", "K1 int8"),
-                                          ("fp8", "fp8 K/V + bias", "fp8", "K1 fp8"))]
+        {"name": f"flash_decode {label} (K1 decode route, {name} cache)", "route": "cuda",
+         "source": f"flashattn_tpu_torch/csrc/{src}.cu",
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115", "launches": counts["K1 decode"],
+         "merge_launches": counts["K1 merge"], **dec_k[key]}
+        for name, label, src, key, counts in (
+            ("bf16", "bf16 K/V", "flash_decode", "bf16", dec["bf16"]),
+            ("int8", "int8 K/V", "flash_decode_quant", "int8", dec["int8"]),
+            ("fp8", "fp8 K/V", "flash_decode_quant", "fp8", dec["fp8"]),
+            ("bf16 soft-capped", "softcap", "flash_decode", "softcap", cap["decode"]))]
     print(json.dumps({"kernels": [
         {"name": "flash_fwd (K1)", "route": "cuda", "source": fwd_src,
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115", "launches": launches, **k1},
@@ -2401,9 +2596,6 @@ def main() -> None:
          "route": "cuda", "source": split_win_src,
          "replaces": "flashattn_tpu/ops/flash_bwd.py:234",
          "launches": cap["train"]["K6"], **win["k6_softcap"]},
-        {"name": "flash_fwd softcap bias (K1 decode, soft-capped bf16 cache)", "route": "cuda",
-         "source": cap_src, "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
-         "launches": cap["decode"]["K1 softcap"], **win["k1_softcap_bias"]},
         {"name": "flash_fwd bias (K1 + key-padding bias, path A)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/flash_fwd_bias.cu",
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
@@ -2417,7 +2609,8 @@ def main() -> None:
         {"name": "flash_bwd_split dq dbias (K6 + bias + dbias, path A's learned arm)",
          "route": "cuda", "source": bias_src, "replaces": "flashattn_tpu/ops/flash_bwd.py:234",
          "launches": bias_train["learned"]["launches"]["K6 dbias"], **bias["k6_dbias"]},
-        {"name": "gemm (K9)", "route": "cuda", "source": "flashattn_tpu_torch/csrc/gemm.cu",
+        {"name": "gemm (K9, TMA + wgmma)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/gemm.cu",
          "replaces": "flashattn_tpu/ops/gemm.py:22", "launches": roof["launches"]["K9"],
          **roof["k9"]},
         {"name": "roofline (K10)", "route": "cuda",

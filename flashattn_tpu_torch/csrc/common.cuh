@@ -13,10 +13,28 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace fa {
+
+// K/V element types: the kv_dtype code of the C entries fa_fwd and fa_decode,
+// and the template argument KV of the K1 kernels.
+enum : int { KV_BF16 = 0, KV_INT8 = 1, KV_FP8 = 2 };
+
+template <int KV>
+struct KvElem {
+  using type = __nv_bfloat16;
+};
+template <>
+struct KvElem<KV_INT8> {
+  using type = int8_t;
+};
+template <>
+struct KvElem<KV_FP8> {
+  using type = __nv_fp8_storage_t;  // e4m3 bits
+};
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;

@@ -1,7 +1,8 @@
 // K1 with an additive bias on bf16 K/V (flashattn_tpu/ops/flash_fwd.py:319-320):
-// the instantiations of fwd_tile.cuh's kernel that the bf16 decode cache's
-// cache-slot mask runs, in a source of their own so that nvcc builds them in
-// parallel with the other K1 families. Reached through fa_fwd (flash_fwd.cu).
+// the instantiations of fwd_tile.cuh's kernel that a dense call with a bias
+// (path A's key-padding mask) runs, in a source of their own so that nvcc
+// builds them in parallel with the other K1 families. Reached through fa_fwd
+// (flash_fwd.cu).
 
 #include "fwd_tile.cuh"
 

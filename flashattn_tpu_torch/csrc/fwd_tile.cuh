@@ -53,7 +53,7 @@
 //     matches no key is a dead row like a kv_valid_len == 0 row.
 //   * Bias (flash_fwd.py:319-320): an f32 [B|1, H|1, Nq|1, Nk] tensor read
 //     through (batch, head, row) strides that are 0 on broadcast dims, with a
-//     unit column stride, so decode's [1, 1, 1, Nk] cache-slot mask is never
+//     unit column stride, so a [1, 1, 1, Nk] key mask is never
 //     materialised per head or row. x = s * scale * log2e + bias * log2e is
 //     formed before the masks, as the TPU kernel adds it before jnp.where,
 //     and floored at the finite mask value (never -inf). Bias columns are
@@ -92,13 +92,13 @@
 // What bounds it: at the U-Net shape (B1 H8 N4096 D40) the softmax's exp2 /
 // FMA / shuffle work on the 64x64 score tile competes with the thin matrix
 // products, and synchronous global->shared loads stall the warps between
-// tiles. At decode (q [8, 8, 2, 128] after the GQA fold, Nk up to 8192) the
-// kernel is bound by the KV bytes it streams, yet 64 CTAs with 2 live rows
-// each and synchronous 8/16-byte loads leave most of HBM's bandwidth unused.
-// This simple design leaves for later PRs: wgmma on 64-row warpgroup tiles,
-// TMA loads into a multi-stage ring with mbarriers (or cp.async double
-// buffering), warp specialisation, a persistent grid, and for decode a
-// split-KV grid with an LSE merge and 16-row Q tiles.
+// tiles. Decode-shaped calls (at most 32 query rows per KV head after the
+// GQA fold, not causal, no window or segment ids, D 64 or 128) do not reach
+// this kernel: ops/flash_fwd.py::decode_route sends them to the split-KV
+// decode kernel of decode_tile.cuh. This simple design leaves for later PRs:
+// wgmma on 64-row warpgroup tiles, TMA loads into a multi-stage ring with
+// mbarriers (or cp.async double buffering), warp specialisation and a
+// persistent grid.
 
 #pragma once
 
@@ -108,23 +108,6 @@
 #include "common.cuh"
 
 namespace fa {
-
-// K/V element types: template argument KV of fwd_kernel and the kv_dtype
-// code of the C entry fa_fwd.
-enum : int { KV_BF16 = 0, KV_INT8 = 1, KV_FP8 = 2 };
-
-template <int KV>
-struct KvElem {
-  using type = __nv_bfloat16;
-};
-template <>
-struct KvElem<KV_INT8> {
-  using type = int8_t;
-};
-template <>
-struct KvElem<KV_FP8> {
-  using type = __nv_fp8_storage_t;  // e4m3 bits
-};
 
 struct FwdParams {
   const __nv_bfloat16* q;

@@ -1,28 +1,46 @@
-// K9: the tiled GEMM probe for Hopper (sm_90a), bf16 tensor cores.
+// K9: the GEMM probe for Hopper (sm_90a), TMA loads and wgmma.
 //
 // Replaces the TPU kernel flashattn_tpu/ops/gemm.py::_matmul_kernel (:22):
 // C = A B for A [M, K] and B [K, N] bf16, row-major and contiguous, with f32
 // accumulation and C in bf16 or f32 (the probe's `out_dtype`). The TPU kernel
-// walks K as a sequential grid axis and carries the f32 sum in a VMEM
-// scratch between grid steps, with (bm, bn, bk) blocks of 512; here CTAs run
-// in parallel in no order, so one CTA owns a 128 x 128 tile of C and loops
-// over K in 32-deep steps itself, its sum in registers. The caller's block
-// sizes are validated as the JAX function validates them (ops/gemm.py) but
-// do not shape this tile: M and N are multiples of 128 and K of 32 whenever
-// they pass.
-//
-//   * 8 warps, 2 x 4: each owns 64 rows x 32 columns of C, 4 x 4 mma.sync
-//     m16n8k16 tiles (64 f32 accumulators a thread).
-//   * A's 128 x 32 and B's 32 x 128 tiles go through shared memory with rows
-//     padded by 8 bf16, so the 8 rows of a fragment load or ldmatrix fall on
-//     distinct banks; A's fragments come by 32-bit loads, B's transposed by
-//     ldmatrix (B is row-major [k][n], as V is in fwd_tile.cuh).
+// walks K as a sequential grid axis and carries the f32 sum in a VMEM scratch
+// between grid steps, with (bm, bn, bk) blocks of 512; here CTAs run in
+// parallel in no order, so one CTA owns a 128 x 256 tile of C and loops over K
+// in 64-deep steps itself, its sum in registers. The caller's block sizes are
+// validated as the JAX function validates them (ops/gemm.py) but do not shape
+// this tile: M, N and K are multiples of 128 whenever they pass, and a
+// 256-wide tile that hangs over N (N = 128 mod 256) reads zeros there (TMA's
+// out-of-bounds fill) and stores only the columns below N.
 //
 // What bounds it: at 4096^3 the product is 2 M N K = 137 GFLOP over 96 MB,
-// ~1400 FLOP per byte, far above the H100's ~295: operations. This simple
-// kernel loads each tile synchronously behind a barrier and issues mma.sync,
-// not wgmma, so it stays below the mma.sync ceiling that K10 (roofline.cu)
-// measures; a TMA ring with wgmma warpgroups is for a later PR.
+// ~1400 FLOP per byte, far above the H100's ~295: operations (0.139 ms at 989
+// TFLOP/s). So the design feeds the tensor cores at their wgmma rate:
+//
+//   * A 4-stage ring of (A 128 x 64, B 64 x 256) bf16 tiles in dynamic shared
+//     memory with the 128-byte swizzle, filled by TMA (cp.async.bulk.tensor.2d:
+//     A as one 64 x 128 box, B as four 64 x 64 boxes, 64 columns being the
+//     128 bytes the swizzle spans). Loads complete on "full" mbarriers (expect
+//     the stage's bytes); consumers release a stage through its "empty"
+//     mbarrier once the wgmma that read it have retired.
+//   * Warp specialisation: warpgroup 0 is the producer (one thread issues the
+//     TMA loads; setmaxnreg gives its registers away), warpgroups 1 and 2 are
+//     consumers, each owning 64 rows x 256 columns of C in 128 f32
+//     registers a thread and issuing wgmma.mma_async m64n256k16 (4 per
+//     64-deep step) with wgmma.fence / commit_group / wait_group, keeping
+//     one step's products in flight while the next stage is waited on.
+//   * A is K-major (row-major [M, K]); B, row-major [K, N], is N-major, which
+//     wgmma takes for 16-bit types through the descriptor's transpose bit.
+//     Both descriptors use the 128-byte swizzle of the TMA boxes: A's stride
+//     byte offset 1024 (8 rows of 128 bytes), its k-step +32 bytes; B's
+//     leading byte offset 8192 (the next 64-column box), stride byte offset
+//     1024 (the next 8 k rows), its k-step +2048 bytes (16 rows).
+//   * Epilogue: registers straight to global memory, bf16 or f32.
+//
+// The tensor maps are built on the host by cuTensorMapEncodeTiled, reached
+// through cudaGetDriverEntryPoint so the library links no libcuda, and passed
+// as __grid_constant__ kernel parameters.
+
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -31,123 +49,266 @@ namespace {
 using namespace fa;
 
 constexpr int GEMM_BM = 128;
-constexpr int GEMM_BN = 128;
-constexpr int GEMM_BK = 32;
-constexpr int GEMM_THREADS = 256;
-constexpr int A_STRIDE = GEMM_BK + 8;  // shared row strides (bf16)
-constexpr int B_STRIDE = GEMM_BN + 8;
+constexpr int GEMM_BN = 256;
+constexpr int GEMM_BK = 64;
+constexpr int GEMM_STAGES = 4;
+constexpr int GEMM_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int A_TILE = GEMM_BM * GEMM_BK * 2;  // bytes
+constexpr int B_BOX = GEMM_BK * 64 * 2;        // one 64 x 64 box of B
+constexpr int B_TILE = GEMM_BK * GEMM_BN * 2;
+constexpr int STAGE_BYTES = A_TILE + B_TILE;
+constexpr int GEMM_SMEM = 1024 + GEMM_STAGES * STAGE_BYTES + 2 * GEMM_STAGES * 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 2-D TMA box (c0 innermost) into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor with the 128-byte swizzle (layout type 1).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
+}
+
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma that read and write them.
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 256, f32) += A (64 x 16, K-major) B (16 x 256, N-major: trans-b 1).
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
 
 template <bool OUT_F32>
-__global__ void __launch_bounds__(GEMM_THREADS)
-    gemm_kernel(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
-                void* __restrict__ out, int n, int k) {
-  __shared__ __align__(16) __nv_bfloat16 s_a[GEMM_BM * A_STRIDE];
-  __shared__ __align__(16) __nv_bfloat16 s_b[GEMM_BK * B_STRIDE];
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                      const __grid_constant__ CUtensorMap tm_b, void* __restrict__ out, int n,
+                      int k) {
+  extern __shared__ unsigned char smem_raw[];
+  // The 128-byte swizzle repeats every 1024 bytes: align the ring to it.
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + GEMM_STAGES * STAGE_BYTES);
+  uint64_t* empty = full + GEMM_STAGES;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
   const int m0 = blockIdx.y * GEMM_BM;
   const int n0 = blockIdx.x * GEMM_BN;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wm = warp / 4;  // rows wm * 64 ...
-  const int wn = warp % 4;  // columns wn * 32 ...
-  // ldmatrix.trans lane -> (row, col) of the 16x16 B block it addresses.
-  const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int b_col = (lane >> 4) * 8;
+  const int k_tiles = k / GEMM_BK;
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      acc[mi][nj][0] = acc[mi][nj][1] = acc[mi][nj][2] = acc[mi][nj][3] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GEMM_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  for (int k0 = 0; k0 < k; k0 += GEMM_BK) {
-    __syncthreads();  // the previous tiles are consumed
-    for (int idx = threadIdx.x; idx < GEMM_BM * GEMM_BK / 8; idx += GEMM_THREADS) {
-      const int r = idx / (GEMM_BK / 8);
-      const int c = idx % (GEMM_BK / 8) * 8;
-      *reinterpret_cast<uint4*>(s_a + r * A_STRIDE + c) =
-          *reinterpret_cast<const uint4*>(a + static_cast<int64_t>(m0 + r) * k + k0 + c);
-    }
-    for (int idx = threadIdx.x; idx < GEMM_BK * GEMM_BN / 8; idx += GEMM_THREADS) {
-      const int r = idx / (GEMM_BN / 8);
-      const int c = idx % (GEMM_BN / 8) * 8;
-      *reinterpret_cast<uint4*>(s_b + r * B_STRIDE + c) =
-          *reinterpret_cast<const uint4*>(b + static_cast<int64_t>(k0 + r) * n + n0 + c);
-    }
-    __syncthreads();
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % GEMM_STAGES;
+        mbar_wait(&empty[s], ((kt / GEMM_STAGES) & 1) ^ 1);  // round 0 passes at once
+        unsigned char* st = smem + s * STAGE_BYTES;
+        mbar_expect_tx(&full[s], STAGE_BYTES);
+        tma_load_2d(st, &tm_a, &full[s], kt * GEMM_BK, m0);
 #pragma unroll
-    for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const __nv_bfloat16* ar = s_a + (wm * 64 + mi * 16 + g) * A_STRIDE + kk * 16 + 2 * t;
-        af[mi][0] = ld_b32(ar);
-        af[mi][1] = ld_b32(ar + 8 * A_STRIDE);
-        af[mi][2] = ld_b32(ar + 8);
-        af[mi][3] = ld_b32(ar + 8 * A_STRIDE + 8);
-      }
-      uint32_t bf[2][4];
-#pragma unroll
-      for (int dt = 0; dt < 2; ++dt) {
-        ldmatrix_x4_trans(bf[dt], s_b + (kk * 16 + b_row) * B_STRIDE + wn * 32 + dt * 16 + b_col);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-          mma_bf16_16816(acc[mi][nj], af[mi], bf[nj / 2][(nj % 2) * 2], bf[nj / 2][(nj % 2) * 2 + 1]);
+        for (int j = 0; j < GEMM_BN / 64; ++j) {
+          tma_load_2d(st + A_TILE + j * B_BOX, &tm_b, &full[s], n0 + 64 * j, kt * GEMM_BK);
         }
       }
     }
-  }
+  } else {
+    // Consumers: warpgroup 1 owns rows 0-63 of the tile, warpgroup 2 rows 64-127.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int half = wg - 1;
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.f;
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      const int s = kt % GEMM_STAGES;
+      mbar_wait(&full[s], (kt / GEMM_STAGES) & 1);
+      const unsigned char* a_t = smem + s * STAGE_BYTES + half * 64 * 128;
+      const unsigned char* b_t = smem + s * STAGE_BYTES + A_TILE;
+      fence_acc(d);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
+        wgmma_m64n256k16(d, smem_desc(a_t + kk * 32, 16, 1024),
+                         smem_desc(b_t + kk * 16 * 128, B_BOX, 1024));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // The previous step's products have retired: release its stage.
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_acc(d);
+      if (kt > 0 && tid == 0) mbar_arrive(&empty[(kt - 1) % GEMM_STAGES]);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(d);
 
-  // C rows g and g + 8 of each 16-row tile, columns 2t, 2t + 1 of each n-tile.
+    // d[4j + (0, 1)]: row g, columns 8j + 2t + (0, 1); d[4j + (2, 3)]: row g + 8.
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int64_t row = m0 + half * 64 + warp * 16 + lane / 4;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+    for (int j = 0; j < GEMM_BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+      if (n0 + 8 * j < n) {
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int64_t idx = static_cast<int64_t>(m0 + wm * 64 + mi * 16 + g + 8 * r) * n + n0 +
-                            wn * 32 + nj * 8 + 2 * t;
-        if constexpr (OUT_F32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) =
-              make_float2(acc[mi][nj][2 * r], acc[mi][nj][2 * r + 1]);
-        } else {
-          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + idx) =
-              pack_bf16(acc[mi][nj][2 * r], acc[mi][nj][2 * r + 1]);
+        for (int r = 0; r < 2; ++r) {
+          const int64_t idx = (row + 8 * r) * n + col;
+          if constexpr (OUT_F32) {
+            *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) =
+                make_float2(d[4 * j + 2 * r], d[4 * j + 2 * r + 1]);
+          } else {
+            *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + idx) =
+                pack_bf16(d[4 * j + 2 * r], d[4 * j + 2 * r + 1]);
+          }
         }
       }
     }
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through cudaGetDriverEntryPoint (null if absent).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 2-D bf16 row-major [rows, cols] tensor map with boxes of box_rows x 64
+// columns (128 bytes, the 128-byte swizzle's span); out-of-bounds reads zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 extern "C" {
 
-// out [M, N] = a [M, K] @ b [K, N]: a, b bf16 row-major contiguous; out f32
-// (out_f32 != 0) or bf16, contiguous. Requires M, N multiples of 128 and K
-// of 32, each positive, M / 128 <= 65535. Returns a cudaError_t (0 on success).
+// out [M, N] = a [M, K] @ b [K, N]: a, b bf16 row-major contiguous with
+// 16-byte-aligned bases; out f32 (out_f32 != 0) or bf16, contiguous. Requires
+// M, N and K positive multiples of 128 and M / 128 <= 65535. Returns a
+// cudaError_t (0 on success; cudaErrorInvalidValue for a shape it does not
+// take, cudaErrorNotSupported when cuTensorMapEncodeTiled is missing or
+// refuses a tensor map).
 int fa_gemm_bf16(const void* a, const void* b, void* out, int m, int n, int k, int out_f32,
                  void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || m % GEMM_BM || n % GEMM_BN || k % GEMM_BK ||
-      m / GEMM_BM > 65535) {
+  if (m <= 0 || n <= 0 || k <= 0 || m % 128 || n % 128 || k % 128 || m / GEMM_BM > 65535 ||
+      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(n / GEMM_BN, m / GEMM_BM);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* pa = static_cast<const __nv_bfloat16*>(a);
-  const auto* pb = static_cast<const __nv_bfloat16*>(b);
-  if (out_f32) {
-    gemm_kernel<true><<<grid, GEMM_THREADS, 0, s>>>(pa, pb, out, n, k);
-  } else {
-    gemm_kernel<false><<<grid, GEMM_THREADS, 0, s>>>(pa, pb, out, n, k);
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  alignas(64) CUtensorMap tm_a;
+  alignas(64) CUtensorMap tm_b;
+  if (!make_map(&tm_a, a, m, k, GEMM_BM) || !make_map(&tm_b, b, k, n, GEMM_BK)) {
+    return static_cast<int>(cudaErrorNotSupported);
   }
+  const dim3 grid((n + GEMM_BN - 1) / GEMM_BN, m / GEMM_BM);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kernel = out_f32 ? gemm_wgmma_kernel<true> : gemm_wgmma_kernel<false>;
+  const cudaError_t e = allow_smem(kernel, GEMM_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, GEMM_THREADS, GEMM_SMEM, s>>>(tm_a, tm_b, out, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 

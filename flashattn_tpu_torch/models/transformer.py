@@ -11,10 +11,11 @@ attention runs in its BNHD layout with no rearrange: causal
 :func:`flash_attention` (kernels K1 forward and K3 backward on the card, also
 with a window; K1 with segments or a softcap and K5 + K6 when packed or
 soft-capped) or, with ``attn_impl="xla"``, the exact f32 oracle with the same
-window and cap (the baseline arm). A decode step runs K1 once per layer with
-the cache-slot mask as its additive bias -- through ``flash_attention`` on a
-bf16 cache (with the cap, if any), ``flash_attention_quantized`` (in-kernel
-dequantization) on an int8 / fp8 one -- with the GQA decode fold.
+window and cap (the baseline arm). A decode step runs K1's decode route once
+per layer over views of the live cache slots, with no bias -- through
+``flash_attention`` on a bf16 cache (with the cap, if any),
+``flash_attention_quantized`` (in-kernel dequantization) on an int8 / fp8
+one -- with the GQA decode fold.
 
 The parameters keep the JAX pytree's names and shapes -- ``embed``, ``ln_f``,
 ``layers.{i}.{ln1,wq,wk,wv,wo,ln2,w_gate,w_up,w_down}``, ``wq`` as
@@ -310,12 +311,17 @@ def decode_step(model: Transformer, cache: dict, token, cfg: TransformerConfig):
     """One autoregressive step: token ``[B]`` (int) → ``(logits [B, vocab]
     f32, cache)``, with the arithmetic of the JAX ``decode_step``.
 
-    Attention runs with Nq = 1 against every slot of the cache, non-causal,
-    with an additive f32 bias of ``-1e9`` on the slots not written yet (and,
-    with ``cfg.sliding_window``, on those that have left the window): K1's
-    bias variant on a bf16 cache (with ``cfg.logit_softcap``, its soft-capped
-    bias variant), its int8 / fp8 variant (the step's K and V quantized per
-    token first) on a quantized one, GQA-folded either way.
+    Attention runs with Nq = 1, non-causal, over the live slots alone: K/V
+    and their scales are passed as strided views of slots ``[max(0, pos -
+    window + 1), pos]`` (without a window ``[0, pos]``), not copies, and
+    with no bias. The JAX step attends every slot with an additive f32 bias
+    of ``-1e9`` on the slots not written yet (and, with
+    ``cfg.sliding_window``, on those that have left the window); those slots
+    add exactly 0 in f32 and the live ones take a bias of 0, so the function
+    is the JAX step's. K1's decode kernel runs on a bf16 cache (with
+    ``cfg.logit_softcap``, soft-capped) or on int8 / fp8 K/V (the step's K
+    and V quantized per token first) on a quantized one, GQA-folded either
+    way.
 
     Unlike the pure JAX function, this one writes the step's K/V (and
     scales) into the cache tensors in place and advances ``cache["length"]``
@@ -336,13 +342,10 @@ def decode_step(model: Transformer, cache: dict, token, cfg: TransformerConfig):
     device = token.device
     x = model.embed[token][:, None]  # [B, 1, D]
     positions = torch.full((B, 1), pos, device=device)
-    # additive mask for not-yet-written cache slots (and, with a sliding
-    # window, slots that have scrolled out of the window)
-    slot = torch.arange(max_len, device=device)
-    live = slot <= pos  # include the token being written this step
-    if cfg.sliding_window:
-        live = live & (slot > pos - cfg.sliding_window)
-    maskbias = torch.where(live, 0.0, -1e9).to(torch.float32)[None, None, None]
+    # the slots written so far (this step's included) that are still inside
+    # the sliding window
+    lo = max(0, pos - cfg.sliding_window + 1) if cfg.sliding_window else 0
+    live_slots = slice(lo, pos + 1)
 
     for i, layer in enumerate(model.layers):
         h = _rms_norm(x, layer.ln1)
@@ -357,12 +360,13 @@ def decode_step(model: Transformer, cache: dict, token, cfg: TransformerConfig):
             ksc, vsc = cache["k_scale"][i], cache["v_scale"][i]
             kc[:, pos], vc[:, pos] = qt.k_q[:, 0], qt.v_q[:, 0]
             ksc[:, pos], vsc[:, pos] = qt.k_scale[:, 0], qt.v_scale[:, 0]
-            o = flash_attention_quantized(q, QuantizedKV(kc, ksc, vc, vsc), layout="BNHD",
-                                          bias=maskbias)
+            live_kv = QuantizedKV(kc[:, live_slots], ksc[:, live_slots], vc[:, live_slots],
+                                  vsc[:, live_slots])
+            o = flash_attention_quantized(q, live_kv, layout="BNHD")
         else:
             kc[:, pos], vc[:, pos] = k[:, 0], v[:, 0]
-            o = flash_attention(q, kc, vc, causal=False, layout="BNHD", bias=maskbias,
-                                logit_softcap=cfg.logit_softcap)
+            o = flash_attention(q, kc[:, live_slots], vc[:, live_slots], causal=False,
+                                layout="BNHD", logit_softcap=cfg.logit_softcap)
         x = x + torch.einsum("bnhe,hed->bnd", o, layer.wo).to(x.dtype)
         x = _mlp_block(layer, x)
     x = _rms_norm(x, model.ln_f)

@@ -212,7 +212,7 @@ def _forward(q, k, v, *, scale, layout, causal, core, bias, segment_ids, window,
     # once: [B, Hq, Nq, D] -> [B, Hkv, rep·Nq, D], head-major rows, exactly
     # the kernel's h // rep mapping. Sound only when nothing depends on a
     # row's sequence position: non-causal, no window or segments, and a bias
-    # without a head dim (decode's cache-slot mask), tiled head-major when
+    # without a head dim (e.g. a [1, 1, 1, Nk] key mask), tiled head-major when
     # it has rows. The softcap passes through. Under the JAX condition, so
     # both fold the same calls.
     B, Hq, Nq, D = q.shape

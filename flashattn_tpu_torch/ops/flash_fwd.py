@@ -8,9 +8,13 @@ in the kernel (the serving path of ops/quant.py); the causal mask and the
 window also cover K2 (``_fwd_causal_resident_kernel`` and
 ``fwd_macro_padded``, the whole-sequence banded routes). The kernel body is
 ``csrc/fwd_tile.cuh`` (its header says what bounds it and what it leaves for
-later), instantiated per option family in ``csrc/flash_fwd*.cu``. :func:`fwd` launches it for CUDA tensors and
-computes the plain :func:`fwd_reference` for CPU tensors -- the device of the
-input decides, and a CUDA tensor never reaches the plain version.
+later), instantiated per option family in ``csrc/flash_fwd*.cu``. The calls
+that decoding makes (:func:`decode_route`) go to a kernel of their own, a
+split-KV forward with cp.async pipelining (``csrc/decode_tile.cuh`` in
+``csrc/flash_decode*.cu``), whose splits are merged in LSE space; its plain
+version is :func:`decode_reference`. :func:`fwd` launches a kernel for CUDA
+tensors and computes the plain :func:`fwd_reference` for CPU tensors -- the
+device of the input decides, and a CUDA tensor never reaches a plain version.
 
 Strides: the kernel takes (batch, head, seq) strides, so the ``[B, N, H, D]``
 projections of the models and their KV caches arrive as transposed views
@@ -23,6 +27,7 @@ neither is ever expanded.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -41,6 +46,18 @@ KV_DTYPE_CODE = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 _LOG2E = 1.0 / math.log(2.0)
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
+# The decode route (csrc/decode_tile.cuh): at most this many query rows per KV
+# head (the JAX fold bound, flashattn_tpu/ops/flash.py:1052-1077), the head
+# dims it is instantiated for, the keys of one KV tile (a split holds whole
+# tiles), the fewest tiles a split holds, and the CTAs per SM the split count
+# fills without passing (two waves of the two CTAs that fit an SM at D 128: a
+# third, partly empty wave cost a quarter of the kernel's time).
+DECODE_MAX_ROWS = 32
+DECODE_HEAD_DIMS = (64, 128)
+DECODE_TILE = 64
+DECODE_MIN_TILES = 4
+DECODE_CTAS_PER_SM = 4
+H100_SMS = 132
 
 
 def check_window(window):
@@ -231,14 +248,149 @@ def _check_quant(k, v, k_scale, v_scale, B: int, Hkv: int, Nk: int):
                              f"({B}, {Hkv}, {Nk}) on {k.device}")
 
 
-def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself if the kernel can address it -- unit head-dim stride,
-    other strides multiples of 8 elements, an address aligned to 8 elements
-    (16 bytes for bf16, 8 for int8 / fp8: the width of one load) -- else a
-    contiguous copy."""
-    ok = (x.stride(-1) == 1 and x.data_ptr() % (8 * x.element_size()) == 0
-          and all(s % 8 == 0 for s, n in zip(x.stride()[:3], x.shape[:3]) if n > 1))
+def _kernel_ready(x: torch.Tensor, align: int | None = None) -> torch.Tensor:
+    """``x`` itself if the kernel can address it -- unit head-dim stride, an
+    address and other strides aligned to ``align`` bytes (default 8
+    elements: 16 bytes for bf16, 8 for int8 / fp8, the width of one of the
+    dense K1's loads; the decode kernel's 16-byte copies ask for 16) -- else
+    a contiguous copy."""
+    esize = x.element_size()
+    align = 8 * esize if align is None else align
+    ok = (x.stride(-1) == 1 and x.data_ptr() % align == 0
+          and all(s * esize % align == 0 for s, n in zip(x.stride()[:3], x.shape[:3]) if n > 1))
     return x if ok else x.contiguous()
+
+
+def decode_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int) -> bool:
+    """Whether a CUDA K1 call goes to the decode kernel: at most
+    ``DECODE_MAX_ROWS`` query rows per KV head (``rows = Hq / Hkv · Nq``, the
+    GQA fold's rows), not causal, no segment ids, no window, and a head dim of
+    64 or 128 (the only ones instantiated; other head dims keep the dense
+    route). Every call ``decode_step`` makes qualifies, with or without a
+    bias, a softcap or int8 / fp8 K/V."""
+    return (rows <= DECODE_MAX_ROWS and not causal and segment_ids is None
+            and kernel_window(check_window(window)) == (-1, -1)
+            and head_dim in DECODE_HEAD_DIMS)
+
+
+def decode_splits(B: int, Hkv: int, Nk: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """``(splits, split_len)`` of the decode kernel's grid (split, KV head,
+    batch) over ``Nk`` keys: as many splits as keep the grid within
+    ``DECODE_CTAS_PER_SM`` CTAs per SM (at least one), but no split under
+    ``DECODE_MIN_TILES`` KV tiles; each split a whole number of
+    ``DECODE_TILE``-key tiles, and none empty (split s holds keys [s ·
+    split_len, min((s + 1) · split_len, Nk))). ``Nk == 0`` gives one empty
+    split."""
+    if Nk <= 0:
+        return 1, DECODE_TILE
+    want = DECODE_CTAS_PER_SM * sms // (B * Hkv)
+    splits = max(1, min(want, Nk // (DECODE_TILE * DECODE_MIN_TILES)))
+    split_len = -(-Nk // (DECODE_TILE * splits)) * DECODE_TILE
+    return -(-Nk // split_len), split_len
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def decode_reference(q, k, v, *, scale: float, kv_valid_len: int | None = None, bias=None,
+                     k_scale=None, v_scale=None, softcap=None, splits: int | None = None):
+    """Plain PyTorch of the decode kernel: ``(O, LSE)`` as :func:`fwd` gives
+    them, through the kernel's split / merge algebra in f32.
+
+    The keys below ``kv_valid_len`` are cut as :func:`decode_splits` cuts
+    them on an H100's 132 SMs, or, given ``splits``, into runs of
+    ``ceil(kv_valid_len / splits)`` keys (the algebra holds for any cut; on
+    another card pass ``splits=decode_splits(..., sms)[0]``). Per split:
+    scores ``x = s · scale · log2 e`` (the column's ``k_scale`` first for
+    int8 / fp8 K; with ``softcap``, ``cap · log2 e · tanh(s · scale /
+    cap)``), plus ``bias · log2 e`` floored at the mask value; the split's
+    unnormalized partial ``m = max x``, ``l = Σ 2^(x − m)``, ``acc = Σ
+    2^(x − m) · v_scale · v``. The merge drops a partial whose ``m`` is at or
+    below half the mask value and combines the rest in LSE space: ``O = Σ
+    2^(m_s − M) acc_s / Σ 2^(m_s − M) l_s``, ``LSE = M ln 2 + log L``; a row
+    with no live partial is dead (O = 0, LSE = ln2 · mask value)."""
+    B, Hq, Nq, D = q.shape
+    Hkv, Nk = k.shape[1], k.shape[2]
+    nkv = Nk if kv_valid_len is None else int(kv_valid_len)
+    dead_lse = math.log(2.0) * DEFAULT_MASK_VALUE
+    if nkv == 0:
+        return (torch.zeros_like(q),
+                torch.full((B, Hq, Nq), dead_lse, dtype=torch.float32, device=q.device))
+    kf, vf = k[:, :, :nkv].float(), v[:, :, :nkv].float()
+    if k_scale is not None:
+        kf = kf * k_scale[:, :, :nkv].float()[..., None]
+        vf = vf * v_scale[:, :, :nkv].float()[..., None]
+    kf, vf = _expand_kv(kf, vf, Hq)
+    mask = torch.tensor(DEFAULT_MASK_VALUE, dtype=torch.float32, device=q.device)
+    with _full_f32_matmul():
+        s = torch.matmul(q.float(), kf.transpose(-1, -2))
+        if softcap is not None:
+            x = softcap * _LOG2E * torch.tanh(s * (scale / softcap))
+        else:
+            x = s * (scale * _LOG2E)
+        if bias is not None:
+            x = torch.maximum(x + bias[..., :nkv].float() * _LOG2E, mask)
+        if splits is None:
+            splits, split_len = decode_splits(B, Hkv, nkv)
+        else:
+            split_len = -(-nkv // splits)
+        ms, ls, accs = [], [], []
+        for lo in range(0, nkv, split_len):
+            xs = x[..., lo:lo + split_len]
+            m = xs.amax(dim=-1)
+            p = torch.exp2(xs - m[..., None])
+            ms.append(m)
+            ls.append(p.sum(dim=-1))
+            accs.append(torch.matmul(p, vf[:, :, lo:lo + split_len]))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    live = m > 0.5 * DEFAULT_MASK_VALUE
+    m_max = torch.where(live, m, torch.full_like(m, -math.inf)).amax(dim=0)
+    alive = live.any(dim=0)
+    w = torch.where(live, torch.exp2(m - torch.where(alive, m_max, 0.0)), 0.0)
+    l_sum = (w * l).sum(dim=0)
+    o = (w[..., None] * acc).sum(dim=0) / torch.where(alive, l_sum, 1.0)[..., None]
+    lse = torch.where(alive, m_max * math.log(2.0) + torch.log(torch.where(alive, l_sum, 1.0)),
+                      dead_lse)
+    o = torch.where(alive[..., None], o, 0.0)
+    return o.to(q.dtype), lse
+
+
+def _decode(q, k, v, *, scale, kv_valid_len, bias, k_scale, v_scale, softcap):
+    """Launch the decode kernel (and, with more than one split, its merge)
+    and count the launch."""
+    B, Hq, Nq, D = q.shape
+    Hkv = k.shape[1]
+    q, k, v = _kernel_ready(q), _kernel_ready(k, 16), _kernel_ready(v, 16)
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    splits, split_len = decode_splits(B, Hkv, kv_valid_len, _sm_count(q.device.index or 0))
+    part_acc = part_ml = None
+    if splits > 1:
+        rows = Hq // Hkv * Nq
+        part_acc = torch.empty((B, Hkv, splits, rows, D), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B, Hkv, splits, rows, 2), dtype=torch.float32, device=q.device)
+    bias, bias_strides = kernel_bias(bias)
+    scales = (None, None) if k_scale is None else (k_scale.float(), v_scale.float())
+    scale_strides = [x for s in scales for x in (s.stride() if s is not None else (0, 0, 0))]
+    ptrs = [None if x is None else x.data_ptr() for x in (bias, *scales, part_acc, part_ml)]
+    with torch.cuda.device(q.device):
+        rc = native.kernels().fa_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *ptrs,
+            KV_DTYPE_CODE[k.dtype], B, Hq, Hkv, Nq, D, kv_valid_len, splits, split_len,
+            float(scale), softcap or 0.0, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], *bias_strides, *scale_strides,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    native.check(rc, "flash_decode kernel launch")
+    _count_variants(k.dtype, bias, False, softcap)
+    fwd.launches_decode += 1
+    if splits > 1:
+        fwd.launches_merge += 1
+    return o, lse
 
 
 def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool = False,
@@ -257,11 +409,15 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     CPU tensors take :func:`fwd_reference`. CUDA tensors launch the kernel,
     which takes a bf16 ``q`` (and bf16, int8 or fp8 K/V) with ``D % 8 == 0``
     and ``D <= 256``, and segment ids or a window only without bias or
-    quantized K/V; anything else raises. ``fwd.launches`` counts every kernel launch;
+    quantized K/V; anything else raises. A CUDA call that :func:`decode_route`
+    accepts launches the split-KV decode kernel (and its merge), every other
+    the dense kernel. ``fwd.launches`` counts every K1 launch, dense or decode;
     ``fwd.launches_bias`` those of bf16 K/V with a bias,
     ``fwd.launches_int8`` / ``fwd.launches_fp8`` those of quantized K/V (with
-    or without a bias), ``fwd.launches_window`` those with a window and
-    ``fwd.launches_softcap`` those with a softcap.
+    or without a bias), ``fwd.launches_window`` those with a window,
+    ``fwd.launches_softcap`` those with a softcap, ``fwd.launches_decode``
+    those of the decode kernel and ``fwd.launches_merge`` those of its merge
+    kernel (a call with more than one split).
     """
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"q/k/v must be rank-4, got {q.shape}, {k.shape}, {v.shape}")
@@ -310,6 +466,11 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     if B > 65535 or Hq > 65535:
         raise ValueError(f"B={B} and Hq={Hq} must each be at most 65535 (CUDA grid limit)")
 
+    if decode_route(rows=Hq // Hkv * Nq, causal=causal, segment_ids=segment_ids, window=window,
+                    head_dim=D):
+        return _decode(q, k, v, scale=scale, kv_valid_len=kv_valid_len, bias=bias,
+                       k_scale=k_scale, v_scale=v_scale, softcap=softcap)
+
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
     o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides
     lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
@@ -330,10 +491,16 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     native.check(rc, "flash_fwd kernel launch")
+    _count_variants(k.dtype, bias, windowed, softcap)
+    return o, lse
+
+
+def _count_variants(kv_dtype, bias, windowed: bool, softcap) -> None:
+    """Count one K1 launch and its variant (after a launch that succeeded)."""
     fwd.launches += 1
-    if k.dtype == torch.int8:
+    if kv_dtype == torch.int8:
         fwd.launches_int8 += 1
-    elif k.dtype == torch.float8_e4m3fn:
+    elif kv_dtype == torch.float8_e4m3fn:
         fwd.launches_fp8 += 1
     elif bias is not None:
         fwd.launches_bias += 1
@@ -341,7 +508,6 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
         fwd.launches_window += 1
     if softcap is not None:
         fwd.launches_softcap += 1
-    return o, lse
 
 
 fwd.launches = 0
@@ -350,3 +516,5 @@ fwd.launches_int8 = 0
 fwd.launches_fp8 = 0
 fwd.launches_window = 0
 fwd.launches_softcap = 0
+fwd.launches_decode = 0
+fwd.launches_merge = 0

@@ -2,8 +2,9 @@
 
 Port of flashattn_tpu/ops/gemm.py: kernel K9 (``_matmul_kernel``), a
 production-shaped tiled matmul with f32 accumulation, kept as the GEMM
-cross-check for the attention kernels. The kernel is ``csrc/gemm.cu``; its
-header says how it is tiled and what bounds it. :func:`matmul` launches it
+cross-check for the attention kernels. The kernel is ``csrc/gemm.cu`` (TMA
+loads into a 4-stage shared-memory ring, wgmma warpgroups); its header says
+how it is tiled and what bounds it. :func:`matmul` launches it
 for CUDA tensors and computes the plain :func:`matmul_reference` for CPU
 tensors -- the device of the input decides, and a CUDA tensor never reaches
 the plain version.
@@ -70,7 +71,9 @@ def matmul(
         raise NotImplementedError(f"no K9 kernel for device {a.device}")
     if out_dtype not in OUT_DTYPES:
         raise NotImplementedError(f"the CUDA K9 writes bf16 or f32, not {out_dtype}")
-    a, b = a.contiguous(), b.contiguous()
+    # TMA reads from 16-byte-aligned bases.
+    a, b = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
+            else x.clone(memory_format=torch.contiguous_format) for x in (a, b))
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     with torch.cuda.device(a.device):
         rc = native.kernels().fa_gemm_bf16(

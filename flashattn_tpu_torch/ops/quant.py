@@ -103,8 +103,8 @@ def flash_attention_quantized(
     ``q``: full-precision queries; ``qkv``: from :func:`quantize_kv`, with
     scales ``[B, Hkv, Nk]`` (``[B, Nk, Hkv]`` in the BNHD layout, read
     through their strides without a copy). ``bias``: additive logits bias
-    broadcastable to ``[B, H, Nq, Nk]`` (e.g. decode's not-yet-written
-    cache-slot mask). On a CUDA tensor K1 dequantizes inside the kernel; on
+    broadcastable to ``[B, H, Nq, Nk]`` (e.g. the JAX decode step's
+    not-yet-written cache-slot mask). On a CUDA tensor K1 dequantizes inside the kernel; on
     the CPU its plain version attends over the dequantized cache in f32.
     """
     in_dtype = q.dtype
@@ -123,7 +123,7 @@ def flash_attention_quantized(
     # GQA decode fold (same as flash_attention): tiny-Nq non-causal queries
     # against a GQA cache fold rep q-heads into the Q-tile rows so each
     # quantized KV tile is read once instead of rep times. Head-broadcast
-    # biases (decode's cache-slot mask) are fold-safe.
+    # biases (a [1, 1, 1, Nk] key mask) are fold-safe.
     rep_fold = Hq // Hkv
     if bias is not None:
         while bias.ndim < 4:

@@ -110,6 +110,21 @@ def kernels() -> ctypes.CDLL:
         i64, i64, i64, i64, i64, i64,       # k_scale, v_scale (batch, head, seq) strides
         ptr,                                # cudaStream_t
     ]
+    lib.fa_decode.restype = i32
+    lib.fa_decode.argtypes = [
+        ptr, ptr, ptr, ptr, ptr,            # q, k, v, o, lse
+        ptr, ptr, ptr,                      # bias, k_scale, v_scale (f32, or None)
+        ptr, ptr,                           # part_acc, part_ml (f32 scratch, or None)
+        i32,                                # K/V dtype code (ops/flash_fwd.KV_DTYPE_CODE)
+        i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, Nq, D, kv_valid_len
+        i32, i32,                           # splits, split_len
+        ctypes.c_float, ctypes.c_float,     # scale, softcap (0: none)
+        i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
+        i64, i64, i64, i64, i64, i64,       # v, o (batch, head, seq) strides
+        i64, i64, i64,                      # bias (batch, head, row) strides
+        i64, i64, i64, i64, i64, i64,       # k_scale, v_scale (batch, head, seq) strides
+        ptr,                                # cudaStream_t
+    ]
     bwd_head = [ptr, ptr, ptr, ptr, ptr, ptr]  # q, k, v, dO, lse, delta
     bwd_dims = [
         i32, i32, i32, i32, i32, i32, i32,  # B, Hq, Hkv, Nq, Nk, D, kv_valid_len

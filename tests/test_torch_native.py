@@ -133,6 +133,20 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
      "K7 ring_fwd_kernel<128>"),
     ("_ZN12_GLOBAL__N_115ring_bwd_kernelILi64EEEvNS_13RingBwdParamsE",
      "K8 ring_bwd_kernel<64>"),
+    ("_ZN12_GLOBAL__N_113decode_kernelILi128ELi0ELb1ELb0EEEvN2fa12DecodeParamsE",
+     "K1 decode bias decode_kernel<128, 0, 1, 0>"),
+    ("_ZN12_GLOBAL__N_113decode_kernelILi128ELi0ELb1ELb1EEEvN2fa12DecodeParamsE",
+     "K1 decode softcap bias decode_kernel<128, 0, 1, 1>"),
+    ("_ZN12_GLOBAL__N_113decode_kernelILi64ELi1ELb0ELb0EEEvN2fa12DecodeParamsE",
+     "K1 decode int8 decode_kernel<64, 1, 0, 0>"),
+    ("_ZN12_GLOBAL__N_113decode_kernelILi128ELi2ELb1ELb0EEEvN2fa12DecodeParamsE",
+     "K1 decode fp8 bias decode_kernel<128, 2, 1, 0>"),
+    ("_ZN12_GLOBAL__N_119decode_merge_kernelEN2fa12DecodeParamsE",
+     "K1 decode merge decode_merge_kernel"),
+    ("_ZN12_GLOBAL__N_117gemm_wgmma_kernelILb0EEEv14CUtensorMap_stS1_Pvii",
+     "K9 gemm_wgmma_kernel<0>"),
+    ("_ZN12_GLOBAL__N_113decode_kernelILi128ELi0EEEvN2fa12DecodeParamsE",
+     "unrecognised instantiation decode_kernel<128, 0>"),
     ("_ZN12_GLOBAL__N_110fwd_kernelILi64ELb0EEEvN2fa9FwdParamsE",
      "unrecognised instantiation fwd_kernel<64, 0>"),
     ("_Z11some_kernelv", "unrecognised instantiation _Z11some_kernelv"),
