@@ -16,14 +16,17 @@ events, median over 7 trials of the mean of 20 launches):
 * ``unet``: K1 non-causal, B1 H8 N4096 D40, BNHD (SD1.5's level-0 attention);
 * ``lm``: K1 causal at chip_smoke's "lm" shape, B1 Hq16 Hkv8 N2048 D128, BNHD;
 * ``k3``: K3 causal at the ``lm`` shape;
-* ``decode``, ``decode_int8``, ``decode_fp8``: K1 with the cache-slot bias,
+* ``decode``, ``decode_int8``, ``decode_fp8``: K1's decode route (the
+  split-KV decode kernel and its merge) with the cache-slot bias,
   q [8, 8, 2, 128] against bf16 / int8 / fp8 K/V [8, 8, 8192, 128]
-  (bench_decode's folded decode attention, half live: the dense K1 before
-  the decode route, the split-KV decode kernel and its merge after);
+  (bench_decode's folded decode attention, half live);
 * ``k1_seg``, ``k5``, ``k6``: K1 with segment ids, K5 and K6 at bench_lm's
   packed cell, B2 Hq16 Hkv8 N4096 D128 causal, 8 documents per row;
 * ``k3_win``, ``k5_cap``, ``k6_cap``: K3 with the SWA window, and K5 / K6
   with the window and softcap 50, at B1 Hq16 Hkv8 N8192 D128;
+* ``k1_bias``: K1 with path A's key-padding bias [4, 1, N, N] at B4 H16
+  N2048 D128, BNHD (the dense K1 before K1's bias route, the TMA + wgmma
+  bias kernel after);
 * ``gemm``: K9 at 4096^3, bf16 out.
 
 The children take their helpers and shapes from this checkout's
@@ -48,21 +51,20 @@ import chip_smoke
 
 SMOKE = pathlib.Path(__file__).resolve().with_name("chip_smoke.py")
 # The instantiation each case launches (chip_smoke.instantiation_name), or
-# (the first tree's, the second's) where the redesigned decode route and K9
-# launch another kernel than the earlier design.
+# (the first tree's, the second's) where K1's bias route launches another
+# kernel than the dense K1 of a parent before it.
 CASE_KERNELS = {"unet": "K1 fwd_kernel<48, 0, 0, 0>", "lm": "K1 fwd_kernel<128, 0, 0, 0>",
                 "k3": "K3 dkv_kernel<128, 1>",
-                "decode": ("K1 bias fwd_kernel<128, 0, 1, 0>",
-                           "K1 decode bias decode_kernel<128, 0, 1, 0>"),
-                "decode_int8": ("K1 int8 bias fwd_kernel<128, 0, 1, 1>",
-                                "K1 decode int8 bias decode_kernel<128, 1, 1, 0>"),
-                "decode_fp8": ("K1 fp8 bias fwd_kernel<128, 0, 1, 2>",
-                               "K1 decode fp8 bias decode_kernel<128, 2, 1, 0>"),
+                "decode": "K1 decode bias decode_kernel<128, 0, 1, 0>",
+                "decode_int8": "K1 decode int8 bias decode_kernel<128, 1, 1, 0>",
+                "decode_fp8": "K1 decode fp8 bias decode_kernel<128, 2, 1, 0>",
                 "k1_seg": "K1 segments fwd_kernel<128, 1, 0, 0>", "k5": "K5 dkv_kernel<128, 0>",
                 "k6": "K6 dq_kernel<128>", "k3_win": "K3 window dkv_window_kernel<128, 1, 0>",
                 "k5_cap": "K5 softcap window dkv_window_kernel<128, 0, 1>",
                 "k6_cap": "K6 softcap window dq_window_kernel<128, 1>",
-                "gemm": ("K9 gemm_kernel<0>", "K9 gemm_wgmma_kernel<0>")}
+                "k1_bias": ("K1 bias fwd_kernel<128, 0, 1, 0>",
+                            "K1 bias sm90 fwd_bias_sm90_kernel<128>"),
+                "gemm": "K9 gemm_wgmma_kernel<0>"}
 
 LOAD_SMOKE = r'''
 import importlib.util, json, sys, torch
@@ -131,6 +133,12 @@ for name, kw in (("k3_win", dict(scale=D ** -0.5, causal=causal, window=window))
     else:
         out["k5_cap"] = ms(lambda: flash_bwd.dkv(q, k, v, do, lse, delta, **kw))
         out["k6_cap"] = ms(lambda: flash_bwd.dq(q, k, v, do, lse, delta, **kw))
+B, N = len(cs.ATTN_LENGTHS), cs.ATTN_SEQ
+q, k, v = (cs._bnhd(x) for x in make_qkv(10, B, 16, N, 128, dtype=torch.bfloat16,
+                                         device="cuda"))
+pad = cs._padding_bias(cs.ATTN_LENGTHS, N)
+out["k1_bias"] = ms(lambda: flash_fwd.fwd(q, k, v, scale=128 ** -0.5, bias=pad))
+del q, k, v, pad
 a, b = (x[0, 0].contiguous() for x in make_qkv(9, 1, 1, 4096, 4096, dtype=torch.bfloat16,
                                                 device="cuda")[:2])
 out["gemm"] = ms(lambda: gemm.matmul(a, b))

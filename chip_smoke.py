@@ -10,7 +10,9 @@ segment ids and the two-kernel backward K5 (dK/dV) + K6 (dQ) of packed
 training, K1's decode route (the split-KV decode kernel and its merge: bias,
 softcap + bias, int8 / fp8 K/V, against its plain split / merge version and
 the dense plain K1), the sliding-window and soft-capped variants of K1, K3,
-K5 and K6, K5 and K6 with a bias (K6 with dbias), and the probes K9 (the
+K5 and K6, K1's bias route (a TMA + wgmma forward that streams the f32 bias
+through shared memory, with wgmma and no mma.sync in its SASS), K5 and K6
+with a bias (K6 with dbias), and the probes K9 (the
 TMA + wgmma GEMM, with HGMMA and no HMMA in its SASS) and K10 (tensor-core
 peak). Then it drives the port's paths and checks that each went through
 its kernels:
@@ -44,7 +46,8 @@ its kernels:
   MultiHeadDotProductAttention (integrations/torch_nn.py, 16 heads of 128,
   impl "fused") on x [4, 2048, 2048] bf16 with a key-padding mask of row
   lengths 2048-512: loss and gradient gates fused vs exact, then 10 AdamW
-  steps per arm -- K1, K5 and K6 with the bias; first K5 with a bias and K6
+  steps per arm -- K1 on its bias route, K5 and K6 with the bias; first K1
+  on its bias route at every bias shape it takes, K5 with a bias and K6
   with a bias and dbias against their plain versions at the LM's attention
   shape with a learned [1, 16, 2048, 2048] bias, and flash_attention(bias=)
   end to end against autograd through the f32 oracle;
@@ -126,6 +129,9 @@ SOFTCAP = 50.0
 # dense bf16 tensor-core FLOP/s and HBM3 bytes/s.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# phase_build's ptxas report ({instantiation: (registers, stack, spill
+# stores, spill loads)}), read again where a phase logs a kernel's registers.
+BUILD_STATS: dict = {}
 
 
 def log(phase: str, msg: str) -> None:
@@ -297,6 +303,7 @@ def phase_build() -> None:
     log("build", f"{sources} built from {native.CSRC.relative_to(native.CSRC.parent.parent)} "
                  f"into {lib.name} in {time.perf_counter() - t0:.2f} s")
     stats = ptxas_stats(out)
+    BUILD_STATS.update(stats)
     for name, (regs, stack, spill_st, spill_ld) in stats.items():
         log("build", f"{name}: {regs} registers, {stack} B stack frame, {spill_st} B spill "
                      f"stores, {spill_ld} B spill loads")
@@ -318,10 +325,11 @@ def ptxas_stats(out: str) -> dict:
 
 
 def instantiation_name(mangled: str) -> str:
-    """The kernel (K1 and its variant, K1's decode route, K3, K5, K6, K7-K10)
-    and template arguments of a mangled instantiation name from ptxas, e.g.
-    ``K1 int8 bias fwd_kernel<128, 0, 1, 1>``, ``K1 decode fp8 bias
-    decode_kernel<128, 2, 1, 0>`` or ``K5 softcap dkv_softcap_kernel<128>``
+    """The kernel (K1 and its variant, K1's decode and bias routes, K3, K5,
+    K6, K7-K10) and template arguments of a mangled instantiation name from
+    ptxas, e.g. ``K1 int8 bias fwd_kernel<128, 0, 1, 1>``, ``K1 decode fp8
+    bias decode_kernel<128, 2, 1, 0>``, ``K1 bias sm90
+    fwd_bias_sm90_kernel<128>`` or ``K5 softcap dkv_softcap_kernel<128>``
     (K9 is ``gemm_wgmma_kernel``; the earlier ``gemm_kernel`` is still named,
     for chip_ab.py's parent builds); an unrecognised name comes back marked
     as such, never raising."""
@@ -336,6 +344,10 @@ def instantiation_name(mangled: str) -> str:
         variant = {0: "", 1: " int8", 2: " fp8"}.get(args[1], f" kv{args[1]}")
         return (f"K1 decode{variant}{' softcap' if args[3] else ''}{' bias' if args[2] else ''} "
                 f"{label}")
+    bias_sm90 = re.search(r"fwd_bias_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if bias_sm90:  # K1's bias route, fwd_bias_sm90_kernel<D>
+        args = re.findall(r"L[a-z]+(-?\d+)E", bias_sm90.group(1))
+        return f"K1 bias sm90 fwd_bias_sm90_kernel<{', '.join(args)}>"
     wgmma = re.search(r"gemm_wgmma_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if wgmma:  # K9, gemm_wgmma_kernel<OUT_F32>
         args = re.findall(r"L[a-z]+(-?\d+)E", wgmma.group(1))
@@ -883,6 +895,7 @@ def _reset_launches() -> None:
 
     flash_fwd.fwd.launches = flash_bwd_fused.bwd.launches = 0
     flash_fwd.fwd.launches_bias = flash_fwd.fwd.launches_int8 = flash_fwd.fwd.launches_fp8 = 0
+    flash_fwd.fwd.launches_bias_sm90 = 0
     flash_fwd.fwd.launches_window = flash_fwd.fwd.launches_softcap = 0
     flash_fwd.fwd.launches_decode = flash_fwd.fwd.launches_merge = 0
     flash_bwd.dkv.launches = flash_bwd.dq.launches = 0
@@ -894,13 +907,15 @@ def _reset_launches() -> None:
 def _launches() -> dict:
     """Every kernel's launch count; "K1" counts all K1 launches, "K1 bias",
     "K1 int8", "K1 fp8", "K1 window" and "K1 softcap" those of its variants
-    (a launch with a window and a softcap counts in both); "K5 bias" and "K6
+    (a launch with a window and a softcap counts in both), "K1 bias sm90"
+    those of K1's bias route (also counted in "K1 bias"); "K5 bias" and "K6
     bias" the K5 / K6 launches with a bias, "K6 dbias" those that also wrote
     dbias."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, gemm, roofline
     from flashattn_tpu_torch.parallel import ring_kernel
 
     return {"K1": flash_fwd.fwd.launches, "K1 bias": flash_fwd.fwd.launches_bias,
+            "K1 bias sm90": flash_fwd.fwd.launches_bias_sm90,
             "K1 int8": flash_fwd.fwd.launches_int8, "K1 fp8": flash_fwd.fwd.launches_fp8,
             "K1 window": flash_fwd.fwd.launches_window,
             "K1 softcap": flash_fwd.fwd.launches_softcap,
@@ -1757,6 +1772,19 @@ ATTN_WIDTH = dict(num_heads=16, in_features=2048, qkv_features=2048)
 ATTN_LENGTHS = (2048, 1536, 1024, 512)
 ATTN_SEQ = 2048
 BIAS_SHAPE = (2, 16, 8, 2048, 128)
+# K1's bias route beside path A's and the LM's biases (phase_bias_check):
+# (tag, B, Hq, Hkv, Nq, Nk, D, kv_valid_len, causal, bias kind) -- a
+# row-broadcast [B, 1, 1, Nk] key mask, a ragged Nq with kv_valid_len < Nk
+# (causal, GQA, a [B, Hq, Nq, Nk] bias), D 64 with a key-padding bias
+# [B, 1, N, N] of dead rows, and Nk 2046, whose bias rows the wrapper pads to
+# 16 bytes (its last copy reads the two live columns of a 4-column chunk).
+BIAS_ROUTE_CASES = [("row-broadcast", 4, 16, 16, 2048, 2048, 128, 2048, False, "keys"),
+                    ("ragged", 2, 16, 8, 1000, 2048, 128, 1500, True, "full"),
+                    ("D64", 2, 8, 8, 1536, 1536, 64, 1536, False, "padding"),
+                    ("Nk 2046", 2, 16, 16, 1024, 2046, 128, 2046, False, "full")]
+# A dense call with a bias that bias_route refuses (D 96): the dense K1's bf16
+# bias instantiation (flash_fwd_bias.cu), held to the same limits.
+BIAS_TILE_CASE = ("D96 dense kernel", 2, 16, 16, 2048, 2048, 96, 2048, False, "padding")
 # phase_roofline: K9 at 4096^3 and at the JAX test's 512 x 256 x 384; K10
 # checked at size 256 with 4 iterations and timed at the JAX probe's default
 # (size 512, 1024 iterations); the chained torch.matmul at size 4096.
@@ -1814,6 +1842,84 @@ def _bias_e2e(tag: str, q, k, v, bias, do, **fkw):
     return got[3]
 
 
+def _bias_route_case(seed: int, B, Hq, Hkv, Nq, Nk, D, kind):
+    """q, k (GROW) and v as _grown gives them, and the case's f32 bias: "keys"
+    a [B, 1, 1, Nk] key mask (each batch row's last keys at the mask value)
+    plus a normal draw, "full" a normal [B, Hq, Nq, Nk], "padding" the
+    key-padding bias [B, 1, N, N] of lengths (N, 0.45 N)."""
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+
+    q, k, v = _grown(seed, B, Hq, Nq, D, Nk, Hkv)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    if kind == "padding":
+        return q, k, v, _padding_bias((Nq, int(0.45 * Nq)), Nq)
+    if kind == "keys":
+        bias = torch.randn((B, 1, 1, Nk), generator=gen, device=DEVICE)
+        cut = torch.arange(Nk, device=DEVICE) >= Nk - 64 * (1 + torch.arange(B, device=DEVICE))[
+            :, None]
+        return q, k, v, torch.where(cut[:, None, None], DEFAULT_MASK_VALUE, bias)
+    return q, k, v, torch.randn((B, Hq, Nq, Nk), generator=gen, device=DEVICE)
+
+
+def _bias_route_check(tag: str, q, k, v, sm90: bool = True, **kw) -> float:
+    """K1 with a bias -- one launch, of the sm90 bias kernel (``sm90``) or of
+    the dense kernel -- against fwd_reference on f32 copies of the same bf16
+    inputs: O within FWD_TOL[bf16] and relative L2 WINDOW_REL_L2, LSE within
+    LSE_ATOL on live rows, dead rows' O exactly 0. Returns O's max error."""
+    from flashattn_tpu_torch.ops import flash_fwd
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, Tolerance, check_close
+
+    before = flash_fwd.fwd.launches_bias, flash_fwd.fwd.launches_bias_sm90
+    o, lse = flash_fwd.fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    launched = (flash_fwd.fwd.launches_bias - before[0],
+                flash_fwd.fwd.launches_bias_sm90 - before[1])
+    o_want, lse_want = flash_fwd.fwd_reference(q.float(), k.float(), v.float(), **kw)
+    live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
+    ok_o, msg_o = check_close(o, o_want, FWD_TOL[torch.bfloat16], "O")
+    ok_l, msg_l = check_close(lse[live], lse_want[live], Tolerance(LSE_ATOL, 0.0), "LSE")
+    err_o = (o.float() - o_want).abs().max().item()
+    rel = _rel(o.float(), o_want)
+    dead_zero = bool((o[~live] == 0).all())
+    log("bias", f"{tag}: K1 bias / K1 bias sm90 launches {launched}, O max_abs_err "
+                f"{err_o:.3e} (budget {O_TOL_NAME}), relative L2 {rel:.2e} (limit "
+                f"{WINDOW_REL_L2}) / max|ref| {o_want.abs().max().item():.3f}, LSE live rows "
+                f"max_abs_err "
+                f"{(lse[live] - lse_want[live]).abs().max().item():.3e} (budget {LSE_ATOL}); "
+                f"dead rows {int((~live).sum())}, their O exactly 0: {dead_zero}")
+    if launched != (1, int(sm90)):
+        fail(f"K1 bias / K1 bias sm90 launched {launched} times at {tag}, expected "
+             f"{(1, int(sm90))}")
+    if not (ok_o and ok_l):
+        fail(f"K1 with a bias disagrees with fwd_reference at {tag}: {msg_o}; {msg_l}")
+    if not rel <= WINDOW_REL_L2:
+        fail(f"K1 with a bias: O relative L2 {rel:.3e} above {WINDOW_REL_L2} at {tag}")
+    if not dead_zero:
+        fail(f"K1 with a bias: dead rows' O not exactly 0 at {tag}")
+    del o, lse, o_want, lse_want
+    torch.cuda.empty_cache()
+    return err_o
+
+
+def _bias_route_sass() -> None:
+    """The bias kernel's SASS (cuobjdump): HGMMA (wgmma) and no HMMA
+    (mma.sync) at D 64 and 128; its registers and spills from the build."""
+    from flashattn_tpu_torch.ops import flash_fwd
+    from flashattn_tpu_torch.utils import native
+
+    names = {f"K1 bias sm90 fwd_bias_sm90_kernel<{d}>" for d in flash_fwd.BIAS_HEAD_DIMS}
+    ops = sass_opcodes(native.BUILD_DIR / native.LIB_NAME, names)
+    for name in sorted(names):
+        c = ops.get(name, collections.Counter())
+        regs = BUILD_STATS.get(name)
+        log("bias", f"{name}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA, {sum(c.values())} SASS "
+                    f"instructions; " + ("registers, stack, spill stores / loads "
+                                         f"{regs}" if regs else "no ptxas report in this run"))
+        if not c["HGMMA"] or c["HMMA"]:
+            fail(f"{name}: {c['HGMMA']} HGMMA and {c['HMMA']} HMMA, expected wgmma only")
+
+
 def phase_bias_check() -> dict:
     """K1, K5 and K6 with a bias, and K6's dbias, against their plain
     versions (_fwd_bwd_check, q and k scaled by GROW): at path A's attention
@@ -1826,12 +1932,23 @@ def phase_bias_check() -> dict:
     flash_attention(bias=) end to end against autograd through the f32 oracle
     (_bias_e2e): the learned bias, a trainable [2, 1, 1, N] padding bias,
     softcap + the learned bias, and the GQA decode fold with a [B, 1, Nq, Nk]
-    bias, whose repeated rows sum back (4 K6 dbias launches). Times K1, K5
-    and K6 with the mask arm's bias and K6 with dbias with the learned arm's,
-    beside their plain versions and SDPA, and K6 with and without dbias at
-    the causal shape beside its bound."""
+    bias, whose repeated rows sum back (4 K6 dbias launches). Every K1 call
+    without a softcap here takes K1's bias route (the sm90 bias kernel, one
+    launch each), the soft-capped ones the dense kernel; the route is also
+    held alone (_bias_route_check) on BIAS_ROUTE_CASES, the dense kernel's
+    bias instantiation on BIAS_TILE_CASE, and, after the numeric gates, the
+    bias kernel's SASS has wgmma and no mma.sync. Times K1 on both arms'
+    biases (beside the dense K1 without a bias at that shape), K5 and K6 with the mask arm's bias and
+    K6 with dbias with the learned arm's, beside their plain versions and
+    SDPA, and K6 with and without dbias at the causal shape beside its
+    bound."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
     from flashattn_tpu_torch.utils.testing import make_qkv
+
+    def on_route(tag: str, before: int, want: int) -> None:
+        got = flash_fwd.fwd.launches_bias_sm90 - before
+        if got != want:
+            fail(f"K1's bias route launched {got} times at {tag}, expected {want}")
 
     res = {}
     B, N = len(ATTN_LENGTHS), ATTN_SEQ
@@ -1841,9 +1958,11 @@ def phase_bias_check() -> dict:
     do = _bnhd(make_qkv(1401, B, H, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
     pad = _padding_bias(ATTN_LENGTHS, N)
     kw = dict(scale=D ** -0.5, bias=pad)
+    before = flash_fwd.fwd.launches_bias_sm90
     out = _fwd_bwd_check(f"path A's attention B{B} H{H} N{N} D{D} non-causal, key-padding bias "
                          f"[{B}, 1, {N}, {N}] of lengths {ATTN_LENGTHS}", q, k, v, do,
                          phase="bias", **kw)
+    on_route("path A's mask arm", before, 1)
     if not out["dead"]:
         fail("the key-padding case has no dead row")
     args = out["args"]
@@ -1857,7 +1976,10 @@ def phase_bias_check() -> dict:
         "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw), reps=3, trials=3),
         **bound(tensor_bytes(q, k, v, pad, q) + stats, pair_flops(q, k, matmuls=2, **mask)),
         "library_ms": sdpa_ms(q, k, v, attn_mask=pad),
-        "library_call": "scaled_dot_product_attention(attn_mask=the key-padding bias)"}
+        "library_call": "scaled_dot_product_attention(attn_mask=the key-padding bias)",
+        # The dense K1 (fwd_tile.cuh) without a bias at this shape: the body's
+        # cost apart from the bias's.
+        "fwd_tile_no_bias_ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, scale=D ** -0.5))}
     res["k5_bias"] = {
         "max_abs_err": out["bwd_err"], "ms": cuda_ms(lambda: flash_bwd.dkv(*args, **kw)),
         "plain_ms": cuda_ms(lambda: flash_bwd.dkv_reference(*args, **kw), reps=2, trials=3),
@@ -1868,8 +1990,10 @@ def phase_bias_check() -> dict:
         "plain_ms": cuda_ms(lambda: flash_bwd.dq_reference(*args, **kw), reps=2, trials=3),
         **bound(tensor_bytes(*args, pad) + grad, pair_flops(q, k, matmuls=3, **mask)),
         **bwd_library}
-    log("bias", f"path A's attention: K1 bias {res['k1_bias']['ms']:.4f} ms (plain "
-                f"{res['k1_bias']['plain_ms']:.4f}, SDPA {res['k1_bias']['library_ms']:.4f}), "
+    log("bias", f"path A's attention: K1 bias sm90 {res['k1_bias']['ms']:.4f} ms (plain "
+                f"{res['k1_bias']['plain_ms']:.4f}, SDPA {res['k1_bias']['library_ms']:.4f}, bound "
+                f"{res['k1_bias']['bound_ms']:.4f} {res['k1_bias']['bound_by']}; the dense K1 "
+                f"without a bias {res['k1_bias']['fwd_tile_no_bias_ms']:.4f}), "
                 f"K5 bias {res['k5_bias']['ms']:.4f} ms (plain {res['k5_bias']['plain_ms']:.4f}), "
                 f"K6 bias {res['k6_bias']['ms']:.4f} ms (plain {res['k6_bias']['plain_ms']:.4f}), "
                 f"SDPA's backward {bwd_library['library_ms']:.4f} ms (median CUDA-event time)")
@@ -1885,9 +2009,22 @@ def phase_bias_check() -> dict:
     q, k, v = _grown(1410, B, H, N, D, N, H)
     do = _bnhd(make_qkv(1411, B, H, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
     kw = dict(scale=D ** -0.5, bias=combined)
+    before = flash_fwd.fwd.launches_bias_sm90
     out = _fwd_bwd_check(f"path A's learned arm B{B} H{H} N{N} D{D} non-causal, bias [{B}, {H}, "
                          f"{N}, {N}] (key padding + learned [1, {H}, {N}, {N}]), dbias", q, k, v, do,
                          phase="bias", want_dbias=True, **kw)
+    on_route("path A's learned arm", before, 1)
+    # Its bound counts the whole [B, H, N, N] f32 bias, 1.07 GB.
+    res["k1_bias_learned"] = {
+        "max_abs_err": out["fwd_err"], "ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, **kw)),
+        "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw), reps=3, trials=3),
+        **bound(tensor_bytes(q, k, v, combined, q) + stats, pair_flops(q, k, matmuls=2, **mask)),
+        "library_ms": sdpa_ms(q, k, v, attn_mask=combined),
+        "library_call": "scaled_dot_product_attention(attn_mask=the [B, H, N, N] f32 bias)"}
+    log("bias", f"path A's learned arm: K1 bias sm90 {res['k1_bias_learned']['ms']:.4f} ms (plain "
+                f"{res['k1_bias_learned']['plain_ms']:.4f}, SDPA "
+                f"{res['k1_bias_learned']['library_ms']:.4f}, bound "
+                f"{res['k1_bias_learned']['bound_ms']:.4f} {res['k1_bias_learned']['bound_by']})")
     # SDPA takes a bias that requires grad only in the query's dtype.
     args, leaf = out["args"], combined.to(torch.bfloat16).requires_grad_(True)
     res["k6_dbias"] = {
@@ -1917,9 +2054,12 @@ def phase_bias_check() -> dict:
         do = _bnhd(make_qkv(1404, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
         kw = dict(scale=D ** -0.5, causal=True, bias=learned,
                   **({} if cap is None else {"softcap": cap}))
+        before = flash_fwd.fwd.launches_bias_sm90
         out = _fwd_bwd_check(f"learned bias [1, {Hq}, {N}, {N}] B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} "
                              f"causal{'' if cap is None else f', softcap {cap}'}, dbias",
                              q, k, v, do, phase="bias", want_dbias=True, **kw)
+        # A softcap keeps the dense kernel.
+        on_route(f"the causal LM's learned bias, cap {cap}", before, int(cap is None))
         above = int((out["dbias"][..., upper] != 0).sum())
         log("bias", f"dbias above the causal diagonal: {above} nonzero of "
                     f"{B * Hq * int(upper.sum())}")
@@ -1929,6 +2069,15 @@ def phase_bias_check() -> dict:
             lm = out
         del q, k, v, do, out
         torch.cuda.empty_cache()
+
+    for i, case in enumerate([*BIAS_ROUTE_CASES, BIAS_TILE_CASE]):
+        tag, b, hq, hkv, nq, nk, d, valid, causal, kind = case
+        q, k, v, bias = _bias_route_case(1420 + 2 * i, b, hq, hkv, nq, nk, d, kind)
+        _bias_route_check(f"K1 with a bias, {tag}: B{b} Hq{hq} Hkv{hkv} Nq{nq} Nk{nk} D{d} "
+                          f"kv_valid_len {valid}{' causal' if causal else ''}, bias "
+                          f"{list(bias.shape)}", q, k, v, sm90=case is not BIAS_TILE_CASE,
+                          scale=d ** -0.5, kv_valid_len=valid, causal=causal, bias=bias)
+        del q, k, v, bias
 
     args, kw = lm["args"], dict(scale=D ** -0.5, causal=True, bias=learned)
     # The batch-broadcast bias is read once over the attended pairs (on and
@@ -1970,8 +2119,12 @@ def phase_bias_check() -> dict:
               qd, k, v, rows, dod)
     res["e2e"] = _launches()
     log("bias", f"launches during the end-to-end checks: {res['e2e']}")
-    if res["e2e"]["K6 dbias"] != 4 or res["e2e"]["K3"]:
-        fail(f"the end-to-end bias checks launched {res['e2e']}, expected K6 dbias = 4, no K3")
+    # K1's bias route: the learned and the padding bias (the softcap keeps the
+    # dense kernel, the fold the decode kernel).
+    if res["e2e"]["K6 dbias"] != 4 or res["e2e"]["K3"] or res["e2e"]["K1 bias sm90"] != 2:
+        fail(f"the end-to-end bias checks launched {res['e2e']}, expected K6 dbias = 4, K1 bias "
+             f"sm90 = 2, no K3")
+    _bias_route_sass()
     return res
 
 
@@ -2098,12 +2251,12 @@ def _path_a(arm: str, x, target, valid, mask, rel0) -> dict:
         del params, opt
     n, dbias = LM_STEPS, (0 if rel0 is None else LM_STEPS)
     log("bias_train", f"{arm} arm, launches during the fused steps: {res['launches']} (expected "
-                      f"K1 = K1 bias = K5 = K5 bias = K6 = K6 bias = {n}, K6 dbias = {dbias}, no "
-                      f"K3)")
-    if res["launches"] != _expect(K1=n, K1_bias=n, K5=n, K5_bias=n, K6=n, K6_bias=n,
-                                  K6_dbias=dbias):
-        fail(f"path A's {arm} arm launched {res['launches']}, expected K1 = K1 bias = K5 = K5 "
-             f"bias = K6 = K6 bias = {n}, K6 dbias = {dbias} and no other")
+                      f"K1 = K1 bias = K1 bias sm90 = K5 = K5 bias = K6 = K6 bias = {n}, K6 dbias "
+                      f"= {dbias}, no K3)")
+    if res["launches"] != _expect(K1=n, K1_bias=n, K1_bias_sm90=n, K5=n, K5_bias=n, K6=n,
+                                  K6_bias=n, K6_dbias=dbias):
+        fail(f"path A's {arm} arm launched {res['launches']}, expected K1 = K1 bias = K1 bias "
+             f"sm90 = K5 = K5 bias = K6 = K6 bias = {n}, K6 dbias = {dbias} and no other")
     del fused, exact
     torch.cuda.empty_cache()
     return res
@@ -2542,10 +2695,10 @@ def main() -> None:
     bias_train = timed(phase_bias_train)
     roof = timed(phase_roofline)
     ring = timed(phase_ring)
-    fwd_src, bwd_src, split_src, win_src, cap_win_src, split_win_src, bias_src = (
+    fwd_src, bwd_src, split_src, win_src, cap_win_src, split_win_src, bias_src, bias_sm90_src = (
         f"flashattn_tpu_torch/csrc/flash_{d}.cu"
         for d in ("fwd", "bwd", "bwd_split", "fwd_window", "fwd_softcap_window",
-                  "bwd_split_window", "bwd_split_bias"))
+                  "bwd_split_window", "bwd_split_bias", "fwd_bias_sm90"))
     # K1's decode route: the decode kernel and, where a call has more than one
     # split, its merge kernel, both launched by flash_fwd.fwd's one C call
     # (their times are the call's); launches are the decode kernel's.
@@ -2596,10 +2749,15 @@ def main() -> None:
          "route": "cuda", "source": split_win_src,
          "replaces": "flashattn_tpu/ops/flash_bwd.py:234",
          "launches": cap["train"]["K6"], **win["k6_softcap"]},
-        {"name": "flash_fwd bias (K1 + key-padding bias, path A)", "route": "cuda",
-         "source": "flashattn_tpu_torch/csrc/flash_fwd_bias.cu",
+        {"name": "flash_fwd_bias_sm90 (K1's bias route, wgmma: key-padding bias, path A's mask "
+                 "arm)", "route": "cuda", "source": bias_sm90_src,
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
-         "launches": bias_train["mask"]["launches"]["K1 bias"], **bias["k1_bias"]},
+         "launches": bias_train["mask"]["launches"]["K1 bias sm90"], **bias["k1_bias"]},
+        {"name": "flash_fwd_bias_sm90 (K1's bias route, wgmma: [4, 16, N, N] bias, path A's "
+                 "learned arm)", "route": "cuda", "source": bias_sm90_src,
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+         "launches": bias_train["learned"]["launches"]["K1 bias sm90"],
+         **bias["k1_bias_learned"]},
         {"name": "flash_bwd_split dkv bias (K5 + bias)", "route": "cuda", "source": bias_src,
          "replaces": "flashattn_tpu/ops/flash_bwd.py:139",
          "launches": bias_train["mask"]["launches"]["K5 bias"], **bias["k5_bias"]},

@@ -1,8 +1,10 @@
 // K1 with an additive bias on bf16 K/V (flashattn_tpu/ops/flash_fwd.py:319-320):
 // the instantiations of fwd_tile.cuh's kernel that a dense call with a bias
-// (path A's key-padding mask) runs, in a source of their own so that nvcc
-// builds them in parallel with the other K1 families. Reached through fa_fwd
-// (flash_fwd.cu).
+// and without a softcap runs when ops/flash_fwd.py::bias_route refuses it (a
+// head dim other than 64 or 128; path A's calls take the wgmma kernel of
+// flash_fwd_bias_sm90.cu), in a source of their own
+// so that nvcc builds them in parallel with the other K1 families. Reached
+// through fa_fwd (flash_fwd.cu).
 
 #include "fwd_tile.cuh"
 

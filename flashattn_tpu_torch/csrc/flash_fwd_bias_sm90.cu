@@ -1,0 +1,98 @@
+// K1's bias route for Hopper (sm_90a): the C entry fa_fwd_bias_sm90 and the
+// two instantiations (D 64 and 128) of fwd_bias_tile.cuh's kernel. What it
+// replaces, what bounds it and its design are in fwd_bias_tile.cuh; the
+// route (ops/flash_fwd.py::bias_route) is decided in Python, and every other
+// K1 call with a bias keeps fwd_tile.cuh (fa_fwd, flash_fwd.cu).
+
+#include "fwd_bias_tile.cuh"
+
+namespace {
+
+// A TMA map over a bf16 [B, H, N, D] tensor addressed by (batch, head, seq)
+// strides in elements with a unit D stride: dims (D, N, H, B), boxes of 64
+// columns x `rows` rows of one (batch, head). A dim of extent 1 takes a
+// 16-byte stride: its index is always 0.
+bool make_bhnd_map(CUtensorMap* map, const void* ptr, int batch, int heads, int n, int d,
+                   int64_t sb, int64_t sh, int64_t sn, int rows) {
+  auto bytes = [](int64_t s, int extent) {
+    return static_cast<cuuint64_t>(extent == 1 ? 16 : s * 2);
+  };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {bytes(sn, n), bytes(sh, heads), bytes(sb, batch)};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  return make_map_bf16(map, ptr, 4, dims, strides, box);
+}
+
+// TMA's strides: positive multiples of 16 bytes (8 bf16) on dims of extent > 1.
+bool tma_strides(int64_t sb, int b, int64_t sh, int h, int64_t sn, int n) {
+  auto ok = [](int64_t s, int extent) { return extent == 1 || (s > 0 && s % 8 == 0); };
+  return ok(sb, b) && ok(sh, h) && ok(sn, n);
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// O and LSE for q [B, Hq, Nq, D] and k/v [B, Hkv, Nk, D] bf16 (unit stride on
+// D, other strides in elements) with an additive f32 bias [B|1, Hq|1, Nq|1,
+// Nk] (unit column stride, (batch, head, row) strides in elements, 0 on
+// broadcast dims); o has q's shape, lse is [B, Hq, Nq] f32 contiguous.
+// Requires D 64 or 128, Hq % Hkv == 0, 1 <= Nq, 0 <= kv_valid_len <= Nk,
+// B <= 65535; q, k, v and bias 16-byte aligned, q / k / v strides multiples
+// of 8 elements and the bias's of 4 (16-byte bias rows), o 4-byte aligned
+// with even strides. causal != 0 masks kv_pos > q_pos (zero offsets).
+// Returns a cudaError_t (0 on success; cudaErrorInvalidValue for arguments
+// it does not take, cudaErrorNotSupported when cuTensorMapEncodeTiled is
+// missing or refuses a tensor map).
+int fa_fwd_bias_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
+                     const void* bias, int batch, int hq, int hkv, int nq, int d,
+                     int kv_valid_len, int causal, float scale, int64_t q_sb, int64_t q_sh,
+                     int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn, int64_t v_sb,
+                     int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh, int64_t o_sn,
+                     int64_t bias_sb, int64_t bias_sh, int64_t bias_sn, void* stream) {
+  // The K/V maps' sequence extent (at least 1: a map has no empty dim; with
+  // kv_valid_len 0 no KV tile is loaded).
+  const int nkv = kv_valid_len > 0 ? kv_valid_len : 1;
+  if ((d != 64 && d != 128) || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
+      hq % hkv != 0 || nq < 1 || (nq + FB_BLOCK_M - 1) / FB_BLOCK_M > 65535 ||
+      kv_valid_len < 0 || bias == nullptr || !aligned(q, 16) || !aligned(k, 16) ||
+      !aligned(v, 16) || !aligned(bias, 16) || !aligned(o, 4) ||
+      !tma_strides(q_sb, batch, q_sh, hq, q_sn, nq) ||
+      !tma_strides(k_sb, batch, k_sh, hkv, k_sn, nkv) ||
+      !tma_strides(v_sb, batch, v_sh, hkv, v_sn, nkv) || bias_sb % 4 || bias_sh % 4 ||
+      bias_sn % 4 || o_sb % 2 || o_sh % 2 || o_sn % 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  alignas(64) CUtensorMap tm_q;
+  alignas(64) CUtensorMap tm_k;
+  alignas(64) CUtensorMap tm_v;
+  if (!make_bhnd_map(&tm_q, q, batch, hq, nq, d, q_sb, q_sh, q_sn, FB_BLOCK_M) ||
+      !make_bhnd_map(&tm_k, k, batch, hkv, nkv, d, k_sb, k_sh, k_sn, FB_BLOCK_N) ||
+      !make_bhnd_map(&tm_v, v, batch, hkv, nkv, d, v_sb, v_sh, v_sn, FB_BLOCK_N)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  fa::FwdBiasParams p;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.bias = static_cast<const float*>(bias);
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
+  p.bias_sb = bias_sb; p.bias_sh = bias_sh; p.bias_sn = bias_sn;
+  p.hq = hq;
+  p.rep = hq / hkv;
+  p.nq = nq;
+  p.kv_valid_len = kv_valid_len;
+  p.causal = causal != 0;
+  p.scale_log2 = scale * fa::LOG2E;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = d == 64 ? fwd_bias_sm90_launch<64>(tm_q, tm_k, tm_v, p, batch, s)
+                                : fwd_bias_sm90_launch<128>(tm_q, tm_k, tm_v, p, batch, s);
+  return static_cast<int>(e);
+}
+
+}  // extern "C"

@@ -95,7 +95,12 @@
 // tiles. Decode-shaped calls (at most 32 query rows per KV head after the
 // GQA fold, not causal, no window or segment ids, D 64 or 128) do not reach
 // this kernel: ops/flash_fwd.py::decode_route sends them to the split-KV
-// decode kernel of decode_tile.cuh. This simple design leaves for later PRs:
+// decode kernel of decode_tile.cuh. Nor do the dense calls with a bias on
+// bf16 K/V at D 64 or 128 without a softcap (ops/flash_fwd.py::bias_route):
+// they take the wgmma kernel of fwd_bias_tile.cuh. The bias calls left here
+// are those with a softcap, with int8 / fp8 K/V or at other head dims. This
+// simple design
+// leaves for later PRs:
 // wgmma on 64-row warpgroup tiles, TMA loads into a multi-stage ring with
 // mbarriers (or cp.async double buffering), warp specialisation and a
 // persistent grid.

@@ -40,9 +40,7 @@
 // through cudaGetDriverEntryPoint so the library links no libcuda, and passed
 // as __grid_constant__ kernel parameters.
 
-#include <cuda.h>
-
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -58,64 +56,6 @@ constexpr int B_BOX = GEMM_BK * 64 * 2;        // one 64 x 64 box of B
 constexpr int B_TILE = GEMM_BK * GEMM_BN * 2;
 constexpr int STAGE_BYTES = A_TILE + B_TILE;
 constexpr int GEMM_SMEM = 1024 + GEMM_STAGES * STAGE_BYTES + 2 * GEMM_STAGES * 8;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Spin until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 2-D TMA box (c0 innermost) into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor with the 128-byte swizzle (layout type 1).
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
-         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
-}
-
-// Keeps the compiler from moving accesses of the accumulators across the
-// asynchronous wgmma that read and write them.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // D (64 x 256, f32) += A (64 x 16, K-major) B (16 x 256, N-major: trans-b 1).
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
@@ -208,7 +148,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
       mbar_wait(&full[s], (kt / GEMM_STAGES) & 1);
       const unsigned char* a_t = smem + s * STAGE_BYTES + half * 64 * 128;
       const unsigned char* b_t = smem + s * STAGE_BYTES + A_TILE;
-      fence_acc(d);
+      fence_regs(d);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
@@ -218,11 +158,11 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       // The previous step's products have retired: release its stage.
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-      fence_acc(d);
+      fence_regs(d);
       if (kt > 0 && tid == 0) mbar_arrive(&empty[(kt - 1) % GEMM_STAGES]);
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_acc(d);
+    fence_regs(d);
 
     // d[4j + (0, 1)]: row g, columns 8j + 2t + (0, 1); d[4j + (2, 3)]: row g + 8.
     const int warp = tid / 32;
@@ -248,37 +188,13 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through cudaGetDriverEntryPoint (null if absent).
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess) {
-      return static_cast<EncodeTiled>(nullptr);
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // A 2-D bf16 row-major [rows, cols] tensor map with boxes of box_rows x 64
 // columns (128 bytes, the 128-byte swizzle's span); out-of-bounds reads zeros.
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_map_bf16(map, ptr, 2, dims, strides, box);
 }
 
 }  // namespace

@@ -12,9 +12,14 @@ later), instantiated per option family in ``csrc/flash_fwd*.cu``. The calls
 that decoding makes (:func:`decode_route`) go to a kernel of their own, a
 split-KV forward with cp.async pipelining (``csrc/decode_tile.cuh`` in
 ``csrc/flash_decode*.cu``), whose splits are merged in LSE space; its plain
-version is :func:`decode_reference`. :func:`fwd` launches a kernel for CUDA
-tensors and computes the plain :func:`fwd_reference` for CPU tensors -- the
-device of the input decides, and a CUDA tensor never reaches a plain version.
+version is :func:`decode_reference`. The dense calls with a bias that
+:func:`bias_route` takes go to a Hopper kernel of their own, a TMA + wgmma
+forward that streams the f32 bias tile through shared memory
+(``csrc/fwd_bias_tile.cuh`` in ``csrc/flash_fwd_bias_sm90.cu``); it computes
+K1's function, so its plain version is :func:`fwd_reference`. :func:`fwd`
+launches a kernel for CUDA tensors and computes the plain
+:func:`fwd_reference` for CPU tensors -- the device of the input decides, and
+a CUDA tensor never reaches a plain version.
 
 Strides: the kernel takes (batch, head, seq) strides, so the ``[B, N, H, D]``
 projections of the models and their KV caches arrive as transposed views
@@ -58,6 +63,11 @@ DECODE_TILE = 64
 DECODE_MIN_TILES = 4
 DECODE_CTAS_PER_SM = 4
 H100_SMS = 132
+# The bias route (csrc/fwd_bias_tile.cuh): the head dims it is instantiated
+# for, and the f32 elements of one of its 16-byte bias copies (a bias whose
+# strides are not a multiple of it is copied with its rows padded to one).
+BIAS_HEAD_DIMS = (64, 128)
+BIAS_ROW_ALIGN = 4
 
 
 def check_window(window):
@@ -248,16 +258,18 @@ def _check_quant(k, v, k_scale, v_scale, B: int, Hkv: int, Nk: int):
                              f"({B}, {Hkv}, {Nk}) on {k.device}")
 
 
-def _kernel_ready(x: torch.Tensor, align: int | None = None) -> torch.Tensor:
+def _kernel_ready(x: torch.Tensor, align: int | None = None, *, tma: bool = False) -> torch.Tensor:
     """``x`` itself if the kernel can address it -- unit head-dim stride, an
     address and other strides aligned to ``align`` bytes (default 8
     elements: 16 bytes for bf16, 8 for int8 / fp8, the width of one of the
-    dense K1's loads; the decode kernel's 16-byte copies ask for 16) -- else
-    a contiguous copy."""
+    dense K1's loads; the decode kernel's 16-byte copies ask for 16) and,
+    for a TMA map's operand (``tma``), no zero stride on a dim of extent > 1
+    (an expanded view) -- else a contiguous copy."""
     esize = x.element_size()
     align = 8 * esize if align is None else align
     ok = (x.stride(-1) == 1 and x.data_ptr() % align == 0
-          and all(s * esize % align == 0 for s, n in zip(x.stride()[:3], x.shape[:3]) if n > 1))
+          and all(s * esize % align == 0 and (s or not tma)
+                  for s, n in zip(x.stride()[:3], x.shape[:3]) if n > 1))
     return x if ok else x.contiguous()
 
 
@@ -271,6 +283,20 @@ def decode_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int)
     return (rows <= DECODE_MAX_ROWS and not causal and segment_ids is None
             and kernel_window(check_window(window)) == (-1, -1)
             and head_dim in DECODE_HEAD_DIMS)
+
+
+def bias_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int, bias,
+               kv_dtype, softcap) -> bool:
+    """Whether a CUDA K1 call goes to the Hopper bias kernel
+    (``csrc/fwd_bias_tile.cuh``): a call that :func:`decode_route` does not
+    take (it is checked first), with a ``bias``, bf16 K/V, no softcap, no
+    segment ids or window, and a head dim of 64 or 128. Every other call with
+    a bias keeps the dense kernel (``csrc/fwd_tile.cuh``)."""
+    return (bias is not None and kv_dtype == torch.bfloat16 and softcap is None
+            and segment_ids is None and kernel_window(check_window(window)) == (-1, -1)
+            and head_dim in BIAS_HEAD_DIMS
+            and not decode_route(rows=rows, causal=causal, segment_ids=segment_ids,
+                                 window=window, head_dim=head_dim))
 
 
 def decode_splits(B: int, Hkv: int, Nk: int, sms: int = H100_SMS) -> tuple[int, int]:
@@ -393,6 +419,52 @@ def _decode(q, k, v, *, scale, kv_valid_len, bias, k_scale, v_scale, softcap):
     return o, lse
 
 
+def sm90_bias(bias) -> tuple[torch.Tensor, tuple[int, int, int]]:
+    """``bias`` as the bias kernel's 16-byte copies read it: :func:`kernel_bias`
+    if its address and strides allow them, else a copy whose rows are padded
+    with zeros to a multiple of ``BIAS_ROW_ALIGN`` columns (the kernel reads
+    no column at or past ``kv_valid_len``, so none of the padding)."""
+    bias, strides = kernel_bias(bias)
+    if bias.data_ptr() % 16 or any(s % BIAS_ROW_ALIGN for s in strides):
+        nk = bias.shape[-1]
+        padded = bias.new_zeros((*bias.shape[:-1], nk + -nk % BIAS_ROW_ALIGN))
+        padded[..., :nk] = bias
+        bias, strides = kernel_bias(padded[..., :nk])
+    return bias, strides
+
+
+def _launch_bias_sm90(lib, q, k, v, o, lse, bias, bias_strides, *, scale, kv_valid_len,
+                      causal, stream) -> int:
+    """Call ``lib.fa_fwd_bias_sm90`` with the arguments of one launch (the
+    C entry's order, ``native.FWD_BIAS_SM90_ARGTYPES``); returns its
+    cudaError_t."""
+    B, Hq, Nq, D = q.shape
+    return lib.fa_fwd_bias_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bias.data_ptr(),
+        B, Hq, k.shape[1], Nq, D, kv_valid_len, int(bool(causal)), float(scale),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], *bias_strides,
+        stream)
+
+
+def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, bias):
+    """Launch the Hopper bias kernel and count the launch."""
+    B, Hq, Nq, D = q.shape
+    q, k, v = (_kernel_ready(x, tma=True) for x in (q, k, v))
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    bias, bias_strides = sm90_bias(bias)
+    with torch.cuda.device(q.device):
+        rc = _launch_bias_sm90(native.kernels(), q, k, v, o, lse, bias, bias_strides,
+                               scale=scale, kv_valid_len=kv_valid_len, causal=causal,
+                               stream=torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(rc, "flash_fwd_bias_sm90 kernel launch")
+    _count_variants(k.dtype, bias, False, None)
+    fwd.launches_bias_sm90 += 1
+    return o, lse
+
+
 def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool = False,
         segment_ids=None, bias=None, k_scale=None, v_scale=None, window=None, softcap=None):
     """K1: ``(O [B,Hq,Nq,D] in q.dtype, LSE [B,Hq,Nq] f32)``.
@@ -410,9 +482,11 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     which takes a bf16 ``q`` (and bf16, int8 or fp8 K/V) with ``D % 8 == 0``
     and ``D <= 256``, and segment ids or a window only without bias or
     quantized K/V; anything else raises. A CUDA call that :func:`decode_route`
-    accepts launches the split-KV decode kernel (and its merge), every other
-    the dense kernel. ``fwd.launches`` counts every K1 launch, dense or decode;
-    ``fwd.launches_bias`` those of bf16 K/V with a bias,
+    accepts launches the split-KV decode kernel (and its merge), one that
+    :func:`bias_route` accepts the Hopper bias kernel, every other the dense
+    kernel. ``fwd.launches`` counts every K1 launch, dense, bias route or
+    decode; ``fwd.launches_bias`` those of bf16 K/V with a bias (on any
+    kernel), ``fwd.launches_bias_sm90`` those of the bias kernel,
     ``fwd.launches_int8`` / ``fwd.launches_fp8`` those of quantized K/V (with
     or without a bias), ``fwd.launches_window`` those with a window,
     ``fwd.launches_softcap`` those with a softcap, ``fwd.launches_decode``
@@ -470,6 +544,10 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
                     head_dim=D):
         return _decode(q, k, v, scale=scale, kv_valid_len=kv_valid_len, bias=bias,
                        k_scale=k_scale, v_scale=v_scale, softcap=softcap)
+    if bias_route(rows=Hq // Hkv * Nq, causal=causal, segment_ids=segment_ids, window=window,
+                  head_dim=D, bias=bias, kv_dtype=k.dtype, softcap=softcap):
+        return _bias_sm90(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
+                          bias=bias)
 
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
     o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides
@@ -512,6 +590,7 @@ def _count_variants(kv_dtype, bias, windowed: bool, softcap) -> None:
 
 fwd.launches = 0
 fwd.launches_bias = 0
+fwd.launches_bias_sm90 = 0
 fwd.launches_int8 = 0
 fwd.launches_fp8 = 0
 fwd.launches_window = 0

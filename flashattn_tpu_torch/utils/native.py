@@ -27,6 +27,18 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# The C entry of K1's bias route (csrc/flash_fwd_bias_sm90.cu).
+FWD_BIAS_SM90_ARGTYPES = [
+    _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # q, k, v, o, lse, bias (f32)
+    _I32, _I32, _I32, _I32, _I32,        # B, Hq, Hkv, Nq, D
+    _I32, _I32,                          # kv_valid_len, causal
+    ctypes.c_float,                      # scale
+    _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
+    _I64, _I64, _I64, _I64, _I64, _I64,  # v, o (batch, head, seq) strides
+    _I64, _I64, _I64,                    # bias (batch, head, row) strides
+    _PTR,                                # cudaStream_t
+]
 
 
 def find_nvcc() -> str:
@@ -110,6 +122,8 @@ def kernels() -> ctypes.CDLL:
         i64, i64, i64, i64, i64, i64,       # k_scale, v_scale (batch, head, seq) strides
         ptr,                                # cudaStream_t
     ]
+    lib.fa_fwd_bias_sm90.restype = i32
+    lib.fa_fwd_bias_sm90.argtypes = FWD_BIAS_SM90_ARGTYPES
     lib.fa_decode.restype = i32
     lib.fa_decode.argtypes = [
         ptr, ptr, ptr, ptr, ptr,            # q, k, v, o, lse

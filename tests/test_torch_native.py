@@ -145,6 +145,8 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
      "K1 decode merge decode_merge_kernel"),
     ("_ZN12_GLOBAL__N_117gemm_wgmma_kernelILb0EEEv14CUtensorMap_stS1_Pvii",
      "K9 gemm_wgmma_kernel<0>"),
+    ("_ZN12_GLOBAL__N_120fwd_bias_sm90_kernelILi128EEEv14CUtensorMap_stS1_S1_N2fa13FwdBiasParamsE",
+     "K1 bias sm90 fwd_bias_sm90_kernel<128>"),
     ("_ZN12_GLOBAL__N_113decode_kernelILi128ELi0EEEvN2fa12DecodeParamsE",
      "unrecognised instantiation decode_kernel<128, 0>"),
     ("_ZN12_GLOBAL__N_110fwd_kernelILi64ELb0EEEvN2fa9FwdParamsE",
