@@ -27,7 +27,11 @@ events, median over 7 trials of the mean of 20 launches):
 * ``k1_bias``: K1 with path A's key-padding bias [4, 1, N, N] at B4 H16
   N2048 D128, BNHD (the dense K1 before K1's bias route, the TMA + wgmma
   bias kernel after);
-* ``gemm``: K9 at 4096^3, bf16 out.
+* ``gemm``: K9 at 4096^3, bf16 out;
+* ``ring_fwd``, ``ring_bwd``: K7 and K8 on one full off-diagonal chunk pair
+  of the ring's main shape (rank 1's 4096 query rows against rank 0's K/V,
+  B1 Hq16 Hkv8 D128 causal; the mma.sync kernels of a parent whose
+  ``csrc/ring.cu`` had them, the TMA + wgmma kernels after).
 
 The children take their helpers and shapes from this checkout's
 chip_smoke.py, and pass only arguments that both checkouts take. Prints the
@@ -64,7 +68,9 @@ CASE_KERNELS = {"unet": "K1 fwd_kernel<48, 0, 0, 0>", "lm": "K1 fwd_kernel<128, 
                 "k6_cap": "K6 softcap window dq_window_kernel<128, 1>",
                 "k1_bias": ("K1 bias fwd_kernel<128, 0, 1, 0>",
                             "K1 bias sm90 fwd_bias_sm90_kernel<128>"),
-                "gemm": "K9 gemm_wgmma_kernel<0>"}
+                "gemm": "K9 gemm_wgmma_kernel<0>",
+                "ring_fwd": ("K7 ring_fwd_kernel<128>", "K7 ring_fwd_sm90_kernel<128>"),
+                "ring_bwd": ("K8 ring_bwd_kernel<128>", "K8 ring_bwd_sm90_kernel<128>")}
 
 LOAD_SMOKE = r'''
 import importlib.util, json, sys, torch
@@ -142,6 +148,24 @@ del q, k, v, pad
 a, b = (x[0, 0].contiguous() for x in make_qkv(9, 1, 1, 4096, 4096, dtype=torch.bfloat16,
                                                 device="cuda")[:2])
 out["gemm"] = ms(lambda: gemm.matmul(a, b))
+del a, b
+from flashattn_tpu_torch.parallel import ring_kernel as rk
+c, hq, hkv = cs.RING_CHUNK, 16, 8
+q, k, v = make_qkv(11, 1, hq, 2 * c, 128, Hkv=hkv, dtype=torch.bfloat16, device="cuda")
+do = make_qkv(12, 1, hq, 2 * c, 128, dtype=torch.bfloat16, device="cuda")[0]
+o, lse = rk.run_virtual_ring(q, k, v, ranks=2, causal=True)
+q2 = rk._prescale(q, 128 ** -0.5)
+lse1, delta1 = lse[:, :, c:].contiguous(), (do.float() * o.float()).sum(-1)[:, :, c:].contiguous()
+f32 = dict(dtype=torch.float32, device="cuda")
+acc, m, l = (torch.zeros((1, hq, c, 128), **f32), torch.zeros((1, hq, c), **f32),
+             torch.ones((1, hq, c), **f32))
+o1, lse_c = torch.empty_like(q2[:, :, c:]), torch.empty((1, hq, c), **f32)
+dq, dk, dv = (torch.zeros((1, h, c, 128), **f32) for h in (hq, hkv, hkv))
+pos = dict(q_base=c, kv_off=0, causal=True)
+out["ring_fwd"] = ms(lambda: rk.ring_fwd_step(q2[:, :, c:], k[:, :, :c], v[:, :, :c], acc, m, l,
+                                             o1, lse_c, **pos))
+out["ring_bwd"] = ms(lambda: rk.ring_bwd_step(q2[:, :, c:], k[:, :, :c], v[:, :, :c],
+                                             do[:, :, c:], lse1, delta1, dq, dk, dv, **pos))
 print("AB " + json.dumps(out), flush=True)
 '''
 

@@ -60,7 +60,9 @@ its kernels:
   gradients through ring_attention_kernel_sharded with exactly 10 K7 and 10
   K8 launches causal (7 with a 2048-token window, 16 non-causal), against
   the plain ring and single-device K1 / K3, also at 8 ranks with GQA, at one
-  rank, and through a one-rank NCCL process group.
+  rank, at D 64 and D 96 with a band edge inside the tiles, and through a
+  one-rank NCCL process group; K7 and K8 (TMA + wgmma) with HGMMA, UTMALDG
+  and no HMMA in their SASS.
 
 Every kernel's line in the kernels JSON carries its time, its plain version's
 time, its bound (the larger of the bytes it must move at 3.35 TB/s and its
@@ -330,7 +332,8 @@ def instantiation_name(mangled: str) -> str:
     ptxas, e.g. ``K1 int8 bias fwd_kernel<128, 0, 1, 1>``, ``K1 decode fp8
     bias decode_kernel<128, 2, 1, 0>``, ``K1 bias sm90
     fwd_bias_sm90_kernel<128>`` or ``K5 softcap dkv_softcap_kernel<128>``
-    (K9 is ``gemm_wgmma_kernel``; the earlier ``gemm_kernel`` is still named,
+    (K9 is ``gemm_wgmma_kernel``, K7 / K8 ``ring_{fwd,bwd}_sm90_kernel``; the
+    earlier ``gemm_kernel`` and ``ring_{fwd,bwd}_kernel`` are still named,
     for chip_ab.py's parent builds); an unrecognised name comes back marked
     as such, never raising."""
     if "decode_merge_kernel" in mangled:
@@ -352,8 +355,14 @@ def instantiation_name(mangled: str) -> str:
     if wgmma:  # K9, gemm_wgmma_kernel<OUT_F32>
         args = re.findall(r"L[a-z]+(-?\d+)E", wgmma.group(1))
         return f"K9 gemm_wgmma_kernel<{', '.join(args)}>"
+    ring90 = re.search(r"ring_(fwd|bwd)_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if ring90:  # K7 / K8 as TMA + wgmma kernels, ring_{fwd,bwd}_sm90_kernel<D>
+        args = re.findall(r"L[a-z]+(-?\d+)E", ring90.group(2))
+        return (f"{'K7' if ring90.group(1) == 'fwd' else 'K8'} "
+                f"ring_{ring90.group(1)}_sm90_kernel<{', '.join(args)}>")
     ring = re.search(r"ring_(fwd|bwd)_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
-    if ring:  # before the K1 pattern, which "ring_fwd_kernel" would also match
+    if ring:  # the mma.sync K7 / K8 of a parent's csrc/ring.cu; before the K1
+        # pattern, which "ring_fwd_kernel" would also match
         args = re.findall(r"L[a-z]+(-?\d+)E", ring.group(2))
         return (f"{'K7' if ring.group(1) == 'fwd' else 'K8'} "
                 f"ring_{ring.group(1)}_kernel<{', '.join(args)}>")
@@ -372,9 +381,8 @@ def instantiation_name(mangled: str) -> str:
     # fwd_softcap_kernel<DP, SEG, BIAS>, fwd_window_kernel<DP, SEG, CAP>; K3/K5
     # dkv_kernel<DP, DQ>, dkv_softcap_kernel<DP>, dkv_window_kernel<DP, DQ, CAP>;
     # K6 dq_kernel<DP>, dq_softcap_kernel<DP>, dq_window_kernel<DP, CAP>; K5/K6
-    # with a bias dkv_bias_kernel<DP, CAP>, dq_bias_kernel<DP, CAP>. K7
-    # ring_fwd_kernel<DP>, K8 ring_bwd_kernel<DP>, K9 gemm_kernel<OUT_F32>,
-    # K10 roofline_kernel<CHAINS> (above).
+    # with a bias dkv_bias_kernel<DP, CAP>, dq_bias_kernel<DP, CAP>. K7 / K8,
+    # K9 and K10: above.
     params = {("fwd", ""): ("seg", "bias", "kv"), ("fwd", "_softcap"): ("seg", "bias"),
               ("fwd", "_window"): ("seg", "cap"), ("dkv", ""): ("dq",), ("dkv", "_softcap"): (),
               ("dkv", "_window"): ("dq", "cap"), ("dkv", "_bias"): ("cap",), ("dq", ""): (),
@@ -1902,22 +1910,23 @@ def _bias_route_check(tag: str, q, k, v, sm90: bool = True, **kw) -> float:
     return err_o
 
 
-def _bias_route_sass() -> None:
-    """The bias kernel's SASS (cuobjdump): HGMMA (wgmma) and no HMMA
-    (mma.sync) at D 64 and 128; its registers and spills from the build."""
-    from flashattn_tpu_torch.ops import flash_fwd
+def _tma_wgmma_sass(phase: str, names: set) -> None:
+    """The SASS (cuobjdump) of the TMA + wgmma instantiations ``names``:
+    HGMMA (wgmma), UTMALDG (TMA loads) and no HMMA (mma.sync); their
+    registers and spills from the build's ptxas report when phase_build ran."""
     from flashattn_tpu_torch.utils import native
 
-    names = {f"K1 bias sm90 fwd_bias_sm90_kernel<{d}>" for d in flash_fwd.BIAS_HEAD_DIMS}
     ops = sass_opcodes(native.BUILD_DIR / native.LIB_NAME, names)
     for name in sorted(names):
         c = ops.get(name, collections.Counter())
         regs = BUILD_STATS.get(name)
-        log("bias", f"{name}: {c['HGMMA']} HGMMA, {c['HMMA']} HMMA, {sum(c.values())} SASS "
-                    f"instructions; " + ("registers, stack, spill stores / loads "
-                                         f"{regs}" if regs else "no ptxas report in this run"))
-        if not c["HGMMA"] or c["HMMA"]:
-            fail(f"{name}: {c['HGMMA']} HGMMA and {c['HMMA']} HMMA, expected wgmma only")
+        log(phase, f"{name}: {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG, {c['HMMA']} HMMA, "
+                   f"{sum(c.values())} SASS instructions; " + (
+                       f"registers, stack, spill stores / loads {regs}" if regs
+                       else "no ptxas report in this run"))
+        if not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"]:
+            fail(f"{name}: {c['HGMMA']} HGMMA, {c['UTMALDG']} UTMALDG and {c['HMMA']} HMMA, "
+                 "expected TMA loads and wgmma only")
 
 
 def phase_bias_check() -> dict:
@@ -2124,7 +2133,8 @@ def phase_bias_check() -> dict:
     if res["e2e"]["K6 dbias"] != 4 or res["e2e"]["K3"] or res["e2e"]["K1 bias sm90"] != 2:
         fail(f"the end-to-end bias checks launched {res['e2e']}, expected K6 dbias = 4, K1 bias "
              f"sm90 = 2, no K3")
-    _bias_route_sass()
+    _tma_wgmma_sass("bias", {f"K1 bias sm90 fwd_bias_sm90_kernel<{d}>"
+                             for d in flash_fwd.BIAS_HEAD_DIMS})
     return res
 
 
@@ -2421,29 +2431,34 @@ def phase_roofline() -> dict:
 # Ring attention (parallel/ring_kernel.py): context-parallel long-context
 # training at the LM's attention width (bench_lm.py:122-125: Hq16 Hkv8 D128,
 # bf16, B1), the global sequence split over RING_RANKS virtual ranks of
-# RING_CHUNK tokens. (name, ranks, chunk, Hq, Hkv, causal, window, GROW,
+# RING_CHUNK tokens. (name, ranks, chunk, Hq, Hkv, D, causal, window, GROW,
 # expected K7 = K8 launches): the main shape causal and with a 2048-token
 # window (q, k at GROW x unit scale: a pair missed at a band edge moves an
 # output by O(1)), non-causal, 8 ranks with GQA 16/2 (the JAX package's slow
-# 8-device case), and one rank, which must give what K1 / K3 give.
+# 8-device case), one rank, which must give what K1 / K3 give, and two small
+# windowed cases at D 64 and D 96 (q, k at GROW): a band edge of 127 inside
+# every 128-row tile, and a head dim whose second 64-column TMA box the
+# kernels fill with zeros.
 RING_RANKS, RING_CHUNK = 4, 4096
 RING_WINDOW = (2048, -1)
-RING_CASES = [("causal", 4, 4096, 16, 8, True, None, 1, 10),
-              ("window", 4, 4096, 16, 8, True, RING_WINDOW, GROW, 7),
-              ("non-causal", 4, 1024, 16, 8, False, None, 1, 16),
-              ("8 ranks GQA 16/2", 8, 1024, 16, 2, True, None, 1, 36),
-              ("1 rank", 1, 4096, 16, 8, True, None, 1, 1)]
+RING_CASES = [("causal", 4, 4096, 16, 8, 128, True, None, 1, 10),
+              ("window", 4, 4096, 16, 8, 128, True, RING_WINDOW, GROW, 7),
+              ("non-causal", 4, 1024, 16, 8, 128, False, None, 1, 16),
+              ("8 ranks GQA 16/2", 8, 1024, 16, 2, 128, True, None, 1, 36),
+              ("1 rank", 1, 4096, 16, 8, 128, True, None, 1, 1),
+              ("D64 window edge", 2, 512, 4, 2, 64, True, (127, -1), GROW, 3),
+              ("D96 window edge", 2, 512, 4, 2, 96, True, (127, -1), GROW, 3)]
 # One direction of the H100 SXM's NVLink (the hopper guide's table).
 NVLINK_BYTES_PER_S = 450e9
 
 
-def _ring_inputs(seed: int, ranks: int, chunk: int, hq: int, hkv: int, grow: int):
-    """q, k (x grow), v and dO, bf16 [1, H, ranks * chunk, 128]."""
+def _ring_inputs(seed: int, ranks: int, chunk: int, hq: int, hkv: int, d: int, grow: int):
+    """q, k (x grow), v and dO, bf16 [1, H, ranks * chunk, d]."""
     from flashattn_tpu_torch.utils.testing import make_qkv
 
     n = ranks * chunk
-    q, k, v = make_qkv(seed, 1, hq, n, 128, Hkv=hkv, device=DEVICE)
-    do = make_qkv(seed + 1, 1, hq, n, 128, device=DEVICE)[0]
+    q, k, v = make_qkv(seed, 1, hq, n, d, Hkv=hkv, device=DEVICE)
+    do = make_qkv(seed + 1, 1, hq, n, d, device=DEVICE)[0]
     return tuple(x.to(torch.bfloat16) for x in (grow * q, grow * k, v, do))
 
 
@@ -2499,11 +2514,12 @@ def phase_ring() -> dict:
     K7 = K8 launch counts (the counters reset just before), held against the
     plain ring (run_virtual_ring(plain=True): the same rotation with the
     steps' plain versions, on f32 copies) and against single-device K1 / K3
-    on the global sequence; then a one-rank NCCL process group through
-    ring_attention_kernel(group=). Times K7 and K8 per step (a diagonal and
-    a full off-diagonal chunk pair), the whole ring forward and backward,
-    the plain ring, K1 / K3 and SDPA at the global shape, and prints the
-    bytes one rotation would put on NVLink."""
+    on the global sequence; then K7's and K8's SASS (_tma_wgmma_sass) and a
+    one-rank NCCL process group through ring_attention_kernel(group=). Times
+    K7 and K8 per step (a diagonal and a full off-diagonal chunk pair) and
+    the whole ring forward and backward, each with its TFLOP/s, the plain
+    ring, K1 / K3 and SDPA at the global shape, and prints the bytes one
+    rotation would put on NVLink."""
     import torch.distributed as dist
 
     from flashattn_tpu_torch.ops import flash_bwd_fused, flash_fwd
@@ -2511,9 +2527,9 @@ def phase_ring() -> dict:
     from flashattn_tpu_torch.parallel import ring_kernel as rk
 
     res = {}
-    for i, (name, ranks, chunk, hq, hkv, causal, window, grow, expect) in enumerate(RING_CASES):
-        q, k, v, do = _ring_inputs(1400 + 10 * i, ranks, chunk, hq, hkv, grow)
-        tag = (f"{name}: {ranks} ranks x {chunk} B1 Hq{hq} Hkv{hkv} D128 "
+    for i, (name, ranks, chunk, hq, hkv, d, causal, window, grow, expect) in enumerate(RING_CASES):
+        q, k, v, do = _ring_inputs(1400 + 10 * i, ranks, chunk, hq, hkv, d, grow)
+        tag = (f"{name}: {ranks} ranks x {chunk} B1 Hq{hq} Hkv{hkv} D{d} "
                f"{'causal' if causal else 'non-causal'}"
                f"{'' if window is None else f' window {window}'}{'' if grow == 1 else f' (q, k x{grow})'}")
         kw = dict(causal=causal, window=window)
@@ -2536,7 +2552,7 @@ def phase_ring() -> dict:
         # with scale ln2 -- the same scores, so the bf16 rounding of q2 (the
         # JAX ring's practice, ring_kernel.py:886) stays out of the gate --
         # and dL/dq = dL/dq2 · scale·log2e.
-        q2, s2q = rk._prescale(q, 128 ** -0.5), 128 ** -0.5 * rk.LOG2E
+        q2, s2q = rk._prescale(q, d ** -0.5), d ** -0.5 * rk.LOG2E
         o1, lse1 = flash_fwd.fwd(q2, k, v, scale=rk.LN2, **kw)
         delta = (do.float() * o1.float()).sum(-1)
         g3 = flash_bwd_fused.bwd(q2, k, v, do, lse1, delta, scale=rk.LN2, **kw)
@@ -2551,6 +2567,8 @@ def phase_ring() -> dict:
             res[name] = {"err": err, "counts": counts, "inputs": (q, k, v, do), "kw": kw}
         del o, dq, dk, dv, got, plain, single, g3, o1, q2, leaves
         torch.cuda.empty_cache()
+    _tma_wgmma_sass("ring", {f"{k} ring_{w}_sm90_kernel<{d}>"
+                             for k, w in (("K7", "fwd"), ("K8", "bwd")) for d in (64, 128)})
 
     # One rank of a real process group: NCCL, world size 1, an in-process store.
     q, k, v, do, want = one
@@ -2566,7 +2584,7 @@ def phase_ring() -> dict:
              for n, a in zip(("o", "dq", "dk", "dv"), (o, *grads))]
     log("ring", f"one-rank NCCL group (world size 1) vs the one virtual rank: O / dQ / dK / dV "
                 f"max_abs_diff {', '.join(f'{d:.3e}' for d in diffs)} (limit {O_TOL_NAME} atol "
-                f"0.02: dQ's atomics add in a varying order)")
+                f"0.02: dQ's bulk reductions add in a varying order)")
     if not max(diffs) <= 2e-2:
         fail(f"the one-rank NCCL ring differs from the virtual rank: {diffs}")
     del one, want, o, grads, leaves
@@ -2622,23 +2640,30 @@ def phase_ring() -> dict:
                                              dq_c, dk_c, dv_c, **pos), reps=5, trials=3))
     pair = dict(kv_valid_len=n, causal=True, segment_ids=None)
     fwd_bytes, bwd_bytes = _ring_bytes(RING_RANKS, c, hq, hkv, True, None)
+    fwd_flops, bwd_flops = pair_flops(q, k, matmuls=2, **pair), pair_flops(q, k, matmuls=5, **pair)
     k7 = {"max_abs_err": res["causal"]["err"][0], "ms": fwd_ms, "plain_ms": plain_fwd_ms,
-          **bound(fwd_bytes, pair_flops(q, k, matmuls=2, **pair)), "library_ms": sdpa_fwd,
+          **bound(fwd_bytes, fwd_flops), "library_ms": sdpa_fwd,
           "library_call": f"scaled_dot_product_attention(is_causal=True, enable_gqa=True) on "
                           f"the global [1, {hq}, {n}, 128]"}
     k8 = {"max_abs_err": res["causal"]["err"][1], "ms": bwd_ms, "plain_ms": plain_bwd_ms,
-          **bound(bwd_bytes, pair_flops(q, k, matmuls=5, **pair)), "library_ms": sdpa_bwd,
+          **bound(bwd_bytes, bwd_flops), "library_ms": sdpa_bwd,
           "library_call": "the backward of scaled_dot_product_attention(is_causal=True) on the "
                           "global sequence"}
     kv_rot, dkv_rot = 2 * 2 * hkv * c * 128, 2 * 4 * hkv * c * 128
     log("ring", f"{RING_RANKS} ranks x {c} B1 Hq{hq} Hkv{hkv} D128 causal bf16: forward ring "
-                f"{fwd_ms:.4f} ms, backward ring {bwd_ms:.4f} ms; plain ring {plain_fwd_ms:.2f} / {plain_bwd_ms:.2f} ms; "
+                f"{fwd_ms:.4f} ms ({fwd_flops / fwd_ms / 1e9:.1f} TFLOP/s), backward ring "
+                f"{bwd_ms:.4f} ms ({bwd_flops / bwd_ms / 1e9:.1f} TFLOP/s); plain ring "
+                f"{plain_fwd_ms:.2f} / {plain_bwd_ms:.2f} ms; "
                 f"single-device K1 {k1_ms:.4f} ms, K3 {k3_ms:.4f} ms at N{n}; SDPA "
                 f"{sdpa_fwd:.4f} / backward {sdpa_bwd:.4f} ms; bound {k7['bound_ms']:.4f} "
                 f"({k7['bound_by']}) / {k8['bound_ms']:.4f} ms ({k8['bound_by']}) "
                 f"(median CUDA-event time)")
     for label, (f_ms, b_ms) in step_ms.items():
-        log("ring", f"one step, {label} {c} x {c} chunk pair: K7 {f_ms:.4f} ms, K8 {b_ms:.4f} ms")
+        # Pairs a step attends: the diagonal chunk's lower triangle, or all.
+        pairs = hq * (c * (c + 1) // 2 if label == "diagonal" else c * c)
+        log("ring", f"one step, {label} {c} x {c} chunk pair: K7 {f_ms:.4f} ms "
+                    f"({2 * 2 * 128 * pairs / f_ms / 1e9:.1f} TFLOP/s), K8 {b_ms:.4f} ms "
+                    f"({5 * 2 * 128 * pairs / b_ms / 1e9:.1f} TFLOP/s)")
     log("ring", f"bytes one rotation would put on NVLink per rank (computed, not measured): K/V "
                 f"bf16 {kv_rot / 1e6:.1f} MB ({kv_rot / NVLINK_BYTES_PER_S * 1e3:.4f} ms at 450 "
                 f"GB/s), dK/dV f32 {dkv_rot / 1e6:.1f} MB "
@@ -2775,12 +2800,14 @@ def main() -> None:
          "source": "flashattn_tpu_torch/csrc/roofline.cu",
          "replaces": "flashattn_tpu/ops/roofline.py:28", "launches": roof["launches"]["K10"],
          **roof["k10"]},
-        {"name": "ring fwd step (K7)", "route": "cuda", "source": "flashattn_tpu_torch/csrc/ring.cu",
+        {"name": "ring fwd step (K7, TMA + wgmma)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/ring_fwd.cu",
          "replaces": "flashattn_tpu/parallel/ring_kernel.py:74, "
                      "flashattn_tpu/parallel/ring_kernel.py:257, "
                      "flashattn_tpu/parallel/ring_kernel.py:357",
          "launches": ring["launches"]["K7"], **ring["k7"]},
-        {"name": "ring bwd step (K8)", "route": "cuda", "source": "flashattn_tpu_torch/csrc/ring.cu",
+        {"name": "ring bwd step (K8, TMA + wgmma)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/ring_bwd.cu",
          "replaces": "flashattn_tpu/parallel/ring_kernel.py:389",
          "launches": ring["launches"]["K8"], **ring["k8"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

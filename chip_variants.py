@@ -1,0 +1,236 @@
+"""Time the design variants of the ring kernels K7 / K8 against the committed ones, on one GPU.
+
+    python3 chip_variants.py
+
+Each variant is the committed ``csrc/ring_fwd.cu`` or ``csrc/ring_bwd.cu``
+with one design choice undone by a text patch, built alone (nvcc, all at
+once, ``ptxas -v``) into its own library under ``flashattn_tpu_torch/build/
+variants/`` and called through the wrappers' argument packing
+(``ring_kernel._launch_fwd`` / ``_launch_bwd``):
+
+* ``K8``: as committed (S^T first, P^T rounded to bf16 for dV and to fp16
+  for dS^T, then dP^T beside dV; the dQ tile staged and added by one bulk
+  reduction);
+* ``K8 S+dP together``: S^T and dP^T issued together, dS^T from the f32 P^T
+  (the first design: more registers live at once);
+* ``K8 bf16 P in dS``: dS^T from the bf16 P^T that dV takes, no fp16 copy;
+* ``K8 232 registers``: the consumers given 232 registers (setmaxnreg) and
+  the producer 40, in place of 240 and 24;
+* ``K8 red.v4``: dQ added from registers by ``red.global.add.v4.f32``, no
+  stage and no bulk reduction;
+* ``K7``: as committed (a 4-stage K / V ring); ``K7 6 stages``.
+
+At the ring's main shape (B1 Hq16 Hkv8 D128 causal, chunks of 4096) each K8
+variant's step is held against ``ring_bwd_step_reference`` (max abs and
+relative L2 errors of dQ, dK, dV, printed), then every variant is timed in
+turns (3 rounds, each variant once a round, chip_smoke.cuda_ms) on the
+off-diagonal and the diagonal chunk pair. Prints the card's name and power
+limit first.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import statistics
+import subprocess
+
+import torch
+
+import chip_smoke as cs
+
+
+def _between(src: str, start: str, end: str, new: str) -> str:
+    a = src.index(start)
+    b = src.index(end, a) + len(end)
+    return src[:a] + new + src[b:]
+
+
+def _together(src: str) -> str:
+    src = src.replace("""      issue_qk<D, RB_BLOCK_N, RB_BLOCK_M>(sc, k_s, q_st);
+      wgmma_wait<0>();
+""", """      issue_qk<D, RB_BLOCK_N, RB_BLOCK_M>(sc, k_s, q_st);
+      issue_qk<D, RB_BLOCK_N, RB_BLOCK_M>(dp, v_s, do_st);
+      wgmma_wait<1>();
+""")
+    return _between(src, "      // P^T in bf16 (the A fragments", "      pack_p(da, dp);\n", """\
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 dl = lds_f2(dlt_addr + 32 * jj);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          dp[4 * jj + 2 * r] = sc[4 * jj + 2 * r] * (dp[4 * jj + 2 * r] - dl.x);
+          dp[4 * jj + 2 * r + 1] = sc[4 * jj + 2 * r + 1] * (dp[4 * jj + 2 * r + 1] - dl.y);
+        }
+      }
+      uint32_t pa[4][4], da[4][4];
+      pack_p(pa, sc);
+      pack_p(da, dp);
+      issue_pv<D, RB_BLOCK_M>(dv, pa, do_st);
+""")
+
+
+def _bf16_p(src: str) -> str:
+    return _between(src, "      uint32_t pa[4][4], ph[16], da[4][4];", "      pack_p(da, dp);\n", """\
+      uint32_t pa[4][4], da[4][4];
+      pack_p(pa, sc);
+      issue_qk<D, RB_BLOCK_N, RB_BLOCK_M>(dp, v_s, do_st);
+      issue_pv<D, RB_BLOCK_M>(dv, pa, do_st);
+      wgmma_wait<1>();
+      fence_regs(dp);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 dl = lds_f2(dlt_addr + 32 * jj);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t pp = pa[jj / 2][2 * (jj & 1) + r];
+          dp[4 * jj + 2 * r] = __uint_as_float(pp << 16) * (dp[4 * jj + 2 * r] - dl.x);
+          dp[4 * jj + 2 * r + 1] =
+              __uint_as_float(pp & 0xffff0000u) * (dp[4 * jj + 2 * r + 1] - dl.y);
+        }
+      }
+      pack_p(da, dp);
+""")
+
+
+def _red_v4(src: str) -> str:
+    src = src.replace("      if (issuer) bulk_wait_read();", "")
+    return _between(src, "        // dq[4jj + 2r + e]: query row", "        named_arrive(2, 256);\n      }\n",
+                    """\
+        // Even t adds row g's 4 columns 8jj + 2t.., odd t row g + 8's from 2t - 2.
+        float* dq_g = p.dq + ((static_cast<int64_t>(b) * p.hq + h) * p.nq + m0) * p.d + half * 64;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const bool odd = t & 1;
+          const float rx = __shfl_xor_sync(0xffffffffu, odd ? dq[4 * jj] : dq[4 * jj + 2], 1);
+          const float ry = __shfl_xor_sync(0xffffffffu, odd ? dq[4 * jj + 1] : dq[4 * jj + 3], 1);
+          const float4 x = odd ? make_float4(rx, ry, dq[4 * jj + 2], dq[4 * jj + 3])
+                               : make_float4(dq[4 * jj], dq[4 * jj + 1], rx, ry);
+          const int col = 8 * jj + 2 * (t & 2);
+          if (half * 64 + col < p.d) {
+            asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\\n" ::"l"(
+                             dq_g + (warp * 16 + g + (odd ? 8 : 0)) * p.d + col),
+                         "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
+                         : "memory");
+          }
+        }
+      }
+""")
+
+
+# name: (source, patch)
+VARIANTS = {
+    "K8": ("ring_bwd.cu", None),
+    "K8 S+dP together": ("ring_bwd.cu", _together),
+    "K8 bf16 P in dS": ("ring_bwd.cu", _bf16_p),
+    "K8 232 registers": ("ring_bwd.cu", lambda s: s.replace(
+        "setmaxnreg.dec.sync.aligned.u32 24", "setmaxnreg.dec.sync.aligned.u32 40").replace(
+        "setmaxnreg.inc.sync.aligned.u32 240", "setmaxnreg.inc.sync.aligned.u32 232")),
+    "K8 red.v4": ("ring_bwd.cu", _red_v4),
+    "K7": ("ring_fwd.cu", None),
+    "K7 6 stages": ("ring_fwd.cu", lambda s: s.replace("static constexpr int STAGES = 4;",
+                                                       "static constexpr int STAGES = 6;")),
+}
+
+
+def build() -> dict:
+    """{name: loaded library} with each variant's ptxas registers and spills printed."""
+    from flashattn_tpu_torch.utils import native
+
+    root = native.BUILD_DIR / "variants"
+    procs = {}
+    for i, (name, (src, patch)) in enumerate(VARIANTS.items()):
+        d = root / str(i)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(native.CSRC, d)
+        text = (d / src).read_text()
+        if patch is not None:
+            new = patch(text)
+            assert new != text, f"the patch of {name} no longer applies"
+            (d / src).write_text(new)
+        procs[name] = (d, subprocess.Popen(
+            [native.find_nvcc(), *native.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
+             str(d / "lib.so"), str(d / src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    libs = {}
+    for name, (d, proc) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"chip_variants: {name} failed to build:\n{err[-4000:]}")
+        for entry, (regs, stack, st, ld) in cs.ptxas_stats(err + out).items():
+            print(f"[build] {name}: {entry}: {regs} registers, {stack} B stack, {st} / {ld} B "
+                  "spill stores / loads", flush=True)
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        fn = lib.fa_ring_bwd_bf16 if name.startswith("K8") else lib.fa_ring_fwd_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = (native.RING_BWD_ARGTYPES if name.startswith("K8")
+                       else native.RING_FWD_ARGTYPES)
+        libs[name] = lib
+    return libs
+
+
+def main() -> None:
+    from flashattn_tpu_torch.parallel import ring_kernel as rk
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    libs = build()
+    c, hq, hkv, d = cs.RING_CHUNK, 16, 8, 128
+    q, k, v = make_qkv(21, 1, hq, 2 * c, d, Hkv=hkv, dtype=torch.bfloat16, device="cuda")
+    do = make_qkv(22, 1, hq, 2 * c, d, dtype=torch.bfloat16, device="cuda")[0]
+    o, lse = rk.run_virtual_ring(q, k, v, ranks=2, causal=True)
+    q2 = rk._prescale(q, d ** -0.5)
+    rows = lambda x, r: x.narrow(2, r * c, c)  # noqa: E731
+    lse1 = rows(lse, 1).contiguous()
+    delta1 = rows((do.float() * o.float()).sum(-1), 1).contiguous()
+    f32 = dict(dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    steps = {"off-diagonal": 0, "diagonal": 1}  # the K/V chunk rank 1 holds
+
+    def bwd_args(src):
+        grads = [torch.zeros((1, h, c, d), **f32) for h in (hq, hkv, hkv)]
+        return ((rows(q2, 1), rows(k, src), rows(v, src), rows(do, 1), lse1, delta1, *grads),
+                dict(q_base=c, kv_off=src * c, causal=True, window=None))
+
+    for label, src in steps.items():
+        args, pos = bwd_args(src)
+        rk.ring_bwd_step_reference(*args, **pos)
+        want = args[-3:]
+        for name, lib in libs.items():
+            if name.startswith("K8"):
+                got, pos = bwd_args(src)
+                rc = rk._launch_bwd(lib, *got, stream=stream, **pos)
+                torch.cuda.synchronize()
+                errs = [((a - b).abs().max().item(), ((a - b).norm() / b.norm()).item())
+                        for a, b in zip(got[-3:], want)]
+                print(f"[check] {name} {label}: rc {rc}, dQ / dK / dV max abs err "
+                      + " / ".join(f"{e:.3e}" for e, _ in errs) + ", relative L2 "
+                      + " / ".join(f"{r:.3e}" for _, r in errs), flush=True)
+
+    acc, m, l = (torch.zeros((1, hq, c, d), **f32), torch.zeros((1, hq, c), **f32),
+                 torch.ones((1, hq, c), **f32))
+    o1, lse_c = torch.empty_like(rows(q2, 1)), torch.empty((1, hq, c), **f32)
+    times = {}
+    for rnd in range(3):
+        for name, lib in (libs.items() if rnd % 2 == 0 else reversed(libs.items())):
+            for label, src in steps.items():
+                if name.startswith("K8"):
+                    args, pos = bwd_args(src)
+                    fn = lambda: rk._launch_bwd(lib, *args, stream=stream, **pos)  # noqa: E731
+                else:
+                    pos = dict(q_base=c, kv_off=src * c, causal=True, window=None,
+                               first=src == 1, last=False)
+                    fn = lambda: rk._launch_fwd(  # noqa: E731
+                        lib, rows(q2, 1), rows(k, src), rows(v, src), acc, m, l, o1, lse_c,
+                        stream=stream, **pos)
+                times.setdefault((name, label), []).append(cs.cuda_ms(fn, reps=10, trials=3))
+    for (name, label), ts in times.items():
+        print(f"[time] {name} {label}: {' / '.join(f'{x:.4f}' for x in ts)} ms, median "
+              f"{statistics.median(ts):.4f}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

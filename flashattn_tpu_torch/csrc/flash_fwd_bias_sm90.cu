@@ -6,36 +6,6 @@
 
 #include "fwd_bias_tile.cuh"
 
-namespace {
-
-// A TMA map over a bf16 [B, H, N, D] tensor addressed by (batch, head, seq)
-// strides in elements with a unit D stride: dims (D, N, H, B), boxes of 64
-// columns x `rows` rows of one (batch, head). A dim of extent 1 takes a
-// 16-byte stride: its index is always 0.
-bool make_bhnd_map(CUtensorMap* map, const void* ptr, int batch, int heads, int n, int d,
-                   int64_t sb, int64_t sh, int64_t sn, int rows) {
-  auto bytes = [](int64_t s, int extent) {
-    return static_cast<cuuint64_t>(extent == 1 ? 16 : s * 2);
-  };
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {bytes(sn, n), bytes(sh, heads), bytes(sb, batch)};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  return make_map_bf16(map, ptr, 4, dims, strides, box);
-}
-
-// TMA's strides: positive multiples of 16 bytes (8 bf16) on dims of extent > 1.
-bool tma_strides(int64_t sb, int b, int64_t sh, int h, int64_t sn, int n) {
-  auto ok = [](int64_t s, int extent) { return extent == 1 || (s > 0 && s % 8 == 0); };
-  return ok(sb, b) && ok(sh, h) && ok(sn, n);
-}
-
-bool aligned(const void* p, uintptr_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
-}  // namespace
-
 extern "C" {
 
 // O and LSE for q [B, Hq, Nq, D] and k/v [B, Hkv, Nk, D] bf16 (unit stride on

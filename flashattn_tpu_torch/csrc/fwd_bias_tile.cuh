@@ -112,135 +112,6 @@ __device__ __forceinline__ int bias_slot(int r, int c) {
   return r * FB_BLOCK_N + 4 * (c ^ ((r & 3) << 1));
 }
 
-// S (64 x 64, f32) = A (64 x 16, K-major) B (16 x 64, K-major), added to S
-// unless `accumulate` is 0.
-__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "},"
-      " %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// D (64 x 64, f32) += A (64 x 16, registers) B (16 x 64, N-major: trans-b 1).
-__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
-                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// D (64 x 128, f32) += A (64 x 16, registers) B (16 x 128, N-major: trans-b 1).
-__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
-                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t desc_v) {
-  if constexpr (D == 64) {
-    wgmma_rs_m64n64k16(o, a, desc_v);
-  } else {
-    wgmma_rs_m64n128k16(o, a, desc_v);
-  }
-}
-
-// Issue S = Q K^T for one warpgroup's 64 rows x 64 keys (q_s: its rows of the
-// Q tile; k_s: the stage's K): k-step kk is 32 bytes into the swizzled rows
-// of 64-column box kk / 4.
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&sc)[32], const unsigned char* q_s,
-                                         const unsigned char* k_s) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wgmma_ss_m64n64k16(
-        sc, smem_desc(q_s + (kk / 4) * FB_BLOCK_M * FB_BOX_ROW + (kk % 4) * 32, 16, 1024),
-        smem_desc(k_s + (kk / 4) * FB_BLOCK_N * FB_BOX_ROW + (kk % 4) * 32, 16, 1024), kk);
-  }
-  wgmma_commit();
-}
-
-// Issue O += P V: the A fragment of k-step kk is the probabilities of keys
-// 16kk..16kk+15; V's k-step is 16 rows (2048 bytes) down its boxes, the next
-// 64 columns one 8192-byte box on.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[4][4],
-                                         const unsigned char* v_s) {
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < FB_BLOCK_N / 16; ++kk) {
-    wgmma_pv<D>(o, pa[kk], smem_desc(v_s + kk * 16 * FB_BOX_ROW, FB_BLOCK_N * FB_BOX_ROW, 1024));
-  }
-  wgmma_commit();
-}
-
-// Two f32 from shared memory at a 32-bit shared address.
-__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
-  float2 v;
-  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
-  return v;
-}
-
-// 2^x in one MUFU.EX2 (exp2f adds a denormal fix-up: three more
-// instructions); a result below 2^-126 flushes to 0, a weight no f32 sum of
-// probabilities of at least 1 can hold.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // One tile's scores to probabilities, sc[4jj + 2r + e] being row g + 8r,
 // column 8jj + 2t + e: scale into the log2 domain in f32, add the bias, floor
 // at the mask value (a bias at the mask value times log2 e would overflow to
@@ -289,16 +160,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], uint32_t b_addr, u
     const float pe = ex2(sc[i] - m_i[(i >> 1) & 1]);
     l_i[(i >> 1) & 1] += pe;
     sc[i] = pe;
-  }
-}
-
-// P in bf16 as the A fragments of P V's four k-steps: the accumulators of
-// columns 16kk..16kk+15 are exactly k-step kk's fragment.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4], const float (&sc)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
   }
 }
 
@@ -433,7 +294,7 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
     mbar_wait(q_full, 0);
     for (int j = 0; j < n_mine; ++j) {
       mbar_wait(&full[j % S::STAGES], (j / S::STAGES) & 1);
-      issue_qk<D>(sc, q_s, stage(j));
+      issue_qk<D, FB_BLOCK_M, FB_BLOCK_N>(sc, q_s, stage(j));
       wgmma_wait<0>();
       fence_regs(sc);
       if (masked(j)) {
@@ -446,7 +307,7 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       pack_p(pa, sc);
-      issue_pv<D>(o, pa, stage(j) + S::KV);
+      issue_pv<D, FB_BLOCK_N>(o, pa, stage(j) + S::KV);
       wgmma_wait<0>();
       fence_regs(o);
 #pragma unroll

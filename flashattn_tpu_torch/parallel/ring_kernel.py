@@ -14,7 +14,7 @@ by remote DMA from inside it. Here the host runs the ring:
   chunk wholly outside the band (:func:`ring._chunk_needed`) is never
   launched, and the first and last live steps are flags of the launch (K7
   starts the state on the first and finalizes O and LSE on the last;
-  ``csrc/ring.cu`` says how);
+  ``csrc/ring_fwd.cu`` says how; ``csrc/ring_bwd.cu`` is K8);
 * the rotation goes through a transport with two implementations:
   :class:`VirtualRanks` (P ranks' chunks in one process, a rotation is a
   ``copy_`` of each rank's slot into its right neighbour's landing slot) and
@@ -66,7 +66,7 @@ MAX_HEAD_DIM = 128
 
 def _block_sizes(nq: int, nk: int) -> tuple[int, int]:
     """The JAX kernel's tile sizes, which fix the chunk contract of
-    :func:`supported` (the CUDA kernels tile by 64 inside them)."""
+    :func:`supported` (the CUDA kernels tile by 128 rows inside them)."""
     return min(512, nq), min(512, nk)
 
 
@@ -182,9 +182,12 @@ def _check_step_args(name: str, q2, k, v, bf16, f32) -> None:
     """Raise unless a step's tensors are as its kernel addresses them: q2
     ``[B, Hq, nq, D]``, k and v ``[B, Hkv, nk, D]`` with one set of strides,
     the ``bf16`` tensors (name: tensor, q2's shape) with a unit head-dim
-    stride and other strides and address on 8-element boundaries, the
-    ``f32`` buffers (name: (tensor or None, shape)) f32 and contiguous, all
-    on q2's device. Nothing is copied: the outputs are written in place."""
+    stride, other strides on 8-element boundaries and nonzero on dims of
+    extent > 1, and a 16-byte-aligned address (what a TMA map takes: a rank's
+    chunk view of a global tensor passes as it is), the ``f32`` buffers
+    (name: (tensor or None, shape)) f32, contiguous and 16-byte aligned (the
+    kernels' bulk copies), all on q2's device. Nothing is copied: the outputs
+    are written in place."""
     B, Hq, nq, D = q2.shape
     if (k.shape != v.shape or k.ndim != 4 or k.shape[0] != B or k.shape[3] != D
             or Hq % k.shape[1] or k.stride() != v.stride()):
@@ -196,18 +199,44 @@ def _check_step_args(name: str, q2, k, v, bf16, f32) -> None:
             raise ValueError(f"{name}: {key} {x.dtype} {tuple(x.shape)} on {x.device}, "
                              f"q2 {tuple(q2.shape)} on {q2.device}")
         if not (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-                and all(st % 8 == 0 for st in x.stride()[:3])):
+                and all(st % 8 == 0 and (st or n == 1)
+                        for st, n in zip(x.stride()[:3], x.shape[:3]))):
             raise ValueError(f"{name}: {key} strides {x.stride()} or address break the "
-                             "kernel's 16-byte loads")
+                             "kernel's 16-byte loads (its TMA boxes)")
     for key, (x, shape) in f32.items():
         if x is not None and (x.dtype != torch.float32 or tuple(x.shape) != shape
-                              or not x.is_contiguous() or x.device != q2.device):
-            raise ValueError(f"{name}: {key} must be contiguous f32 {shape} on {q2.device}, "
-                             f"got {x.dtype} {tuple(x.shape)}")
+                              or not x.is_contiguous() or x.device != q2.device
+                              or x.data_ptr() % 16):
+            raise ValueError(f"{name}: {key} must be contiguous f32 {shape}, 16-byte aligned, "
+                             f"on {q2.device}, got {x.dtype} {tuple(x.shape)}")
 
 
 def _ptr(x):
     return None if x is None else x.data_ptr()
+
+
+def _launch_fwd(lib, q2, k, v, acc, m, l, o, lse, *, q_base, kv_off, causal, window, first,
+                last, stream) -> int:
+    """Call ``lib.fa_ring_fwd_bf16`` with the arguments of one K7 launch (the
+    C entry's order, ``native.RING_FWD_ARGTYPES``); returns its cudaError_t."""
+    B, Hq, nq, D = q2.shape
+    return lib.fa_ring_fwd_bf16(
+        q2.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(acc), _ptr(m), _ptr(l), o.data_ptr(),
+        lse.data_ptr(), B, Hq, k.shape[1], nq, k.shape[2], D, int(q_base), int(kv_off),
+        int(bool(causal)), *kernel_window(window), int(bool(first)), int(bool(last)),
+        *q2.stride()[:3], *k.stride()[:3], *o.stride()[:3], stream)
+
+
+def _launch_bwd(lib, q2, k, v, do, lse, delta, dq, dk, dv, *, q_base, kv_off, causal, window,
+                stream) -> int:
+    """Call ``lib.fa_ring_bwd_bf16`` with the arguments of one K8 launch (the
+    C entry's order, ``native.RING_BWD_ARGTYPES``); returns its cudaError_t."""
+    B, Hq, nq, D = q2.shape
+    return lib.fa_ring_bwd_bf16(
+        q2.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Hq, k.shape[1], nq,
+        k.shape[2], D, int(q_base), int(kv_off), int(bool(causal)), *kernel_window(window),
+        *q2.stride()[:3], *k.stride()[:3], *do.stride()[:3], stream)
 
 
 def ring_fwd_step(q2, k, v, acc, m, l, o, lse, *, q_base: int, kv_off: int,
@@ -216,9 +245,10 @@ def ring_fwd_step(q2, k, v, acc, m, l, o, lse, *, q_base: int, kv_off: int,
     """K7: one forward ring step of one rank, in place (arguments as
     :func:`ring_fwd_step_reference`). CPU tensors take the plain version;
     CUDA tensors launch the kernel -- bf16, D ≤ 128 a multiple of 8, chunks
-    of multiples of 64 rows, ``acc``/``m``/``l``/``lse`` contiguous, ``k`` and
-    ``v`` with one set of strides -- or raise. ``ring_fwd_step.launches``
-    counts kernel launches."""
+    of multiples of 128 rows, the bf16 tensors as a TMA map takes them
+    (:func:`_check_step_args`), ``acc``/``m``/``l``/``lse`` contiguous,
+    ``k`` and ``v`` with one set of strides -- or raise.
+    ``ring_fwd_step.launches`` counts kernel launches."""
     if q2.device.type == "cpu":
         return ring_fwd_step_reference(q2, k, v, acc, m, l, o, lse, q_base=q_base,
                                        kv_off=kv_off, causal=causal, window=window,
@@ -232,13 +262,9 @@ def ring_fwd_step(q2, k, v, acc, m, l, o, lse, *, q_base: int, kv_off: int,
         raise ValueError("K7: a step that is not both the first and the last reads or "
                          "writes the state acc, m, l")
     with torch.cuda.device(q2.device):
-        rc = native.kernels().fa_ring_fwd_bf16(
-            q2.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(acc), _ptr(m), _ptr(l),
-            o.data_ptr(), lse.data_ptr(), B, Hq, k.shape[1], nq, k.shape[2], D, int(q_base),
-            int(kv_off), int(bool(causal)), *kernel_window(window), int(first), int(last),
-            *q2.stride()[:3], *k.stride()[:3], *o.stride()[:3],
-            torch.cuda.current_stream(q2.device).cuda_stream,
-        )
+        rc = _launch_fwd(native.kernels(), q2, k, v, acc, m, l, o, lse, q_base=q_base,
+                         kv_off=kv_off, causal=causal, window=window, first=first, last=last,
+                         stream=torch.cuda.current_stream(q2.device).cuda_stream)
     native.check(rc, "ring_fwd kernel launch")
     ring_fwd_step.launches += 1
 
@@ -248,7 +274,7 @@ def ring_bwd_step(q2, k, v, do, lse, delta, dq, dk, dv, *, q_base: int, kv_off: 
     """K8: one backward ring step of one rank, in place (arguments as
     :func:`ring_bwd_step_reference`). CPU tensors take the plain version;
     CUDA tensors launch the kernel (as :func:`ring_fwd_step`; ``dq`` is
-    added by atomics and must start at 0) or raise.
+    added to by the kernel's bulk reductions and must start at 0) or raise.
     ``ring_bwd_step.launches`` counts kernel launches."""
     if q2.device.type == "cpu":
         return ring_bwd_step_reference(q2, k, v, do, lse, delta, dq, dk, dv, q_base=q_base,
@@ -260,13 +286,9 @@ def ring_bwd_step(q2, k, v, do, lse, delta, dq, dk, dv, *, q_base: int, kv_off: 
         "lse": (lse, stats), "delta": (delta, stats), "dq": (dq, (*stats, D)),
         "dk": (dk, tuple(k.shape)), "dv": (dv, tuple(k.shape))})
     with torch.cuda.device(q2.device):
-        rc = native.kernels().fa_ring_bwd_bf16(
-            q2.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Hq, k.shape[1],
-            nq, k.shape[2], D, int(q_base), int(kv_off), int(bool(causal)),
-            *kernel_window(window), *q2.stride()[:3], *k.stride()[:3], *do.stride()[:3],
-            torch.cuda.current_stream(q2.device).cuda_stream,
-        )
+        rc = _launch_bwd(native.kernels(), q2, k, v, do, lse, delta, dq, dk, dv, q_base=q_base,
+                         kv_off=kv_off, causal=causal, window=window,
+                         stream=torch.cuda.current_stream(q2.device).cuda_stream)
     native.check(rc, "ring_bwd kernel launch")
     ring_bwd_step.launches += 1
 

@@ -40,6 +40,30 @@ FWD_BIAS_SM90_ARGTYPES = [
     _PTR,                                # cudaStream_t
 ]
 
+_RING_DIMS = [
+    _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, nq, nk, D
+    _I32, _I32,                          # q_base, kv_off (global positions)
+    _I32, _I32, _I32,                    # causal, window left, window right (-1: none)
+]
+# The C entries of the ring kernels K7 (csrc/ring_fwd.cu) and K8 (csrc/ring_bwd.cu).
+RING_FWD_ARGTYPES = [
+    _PTR, _PTR, _PTR,                    # q (x scale x log2 e), k, v
+    _PTR, _PTR, _PTR,                    # acc, m, l: the running state (f32)
+    _PTR, _PTR,                          # o, lse (written on the last step)
+    *_RING_DIMS, _I32, _I32,             # first, last
+    _I64, _I64, _I64, _I64, _I64, _I64,  # q, k/v (batch, head, seq) strides
+    _I64, _I64, _I64,                    # o (batch, head, seq) strides
+    _PTR,                                # cudaStream_t
+]
+RING_BWD_ARGTYPES = [
+    _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # q (x scale x log2 e), k, v, dO, lse, delta
+    _PTR, _PTR, _PTR,                    # dq (f32, zeroed), dk, dv (f32 accumulators)
+    *_RING_DIMS,
+    _I64, _I64, _I64, _I64, _I64, _I64,  # q, k/v (batch, head, seq) strides
+    _I64, _I64, _I64,                    # dO (batch, head, seq) strides
+    _PTR,                                # cudaStream_t
+]
+
 
 def find_nvcc() -> str:
     cands = []
@@ -187,30 +211,10 @@ def kernels() -> ctypes.CDLL:
         i32, i32,                           # size, iters
         ptr,                                # cudaStream_t
     ]
-    ring_tail = [
-        i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, nq, nk, D
-        i32, i32,                           # q_base, kv_off (global positions)
-        i32, i32, i32,                      # causal, window left, window right (-1: none)
-    ]
     lib.fa_ring_fwd_bf16.restype = i32
-    lib.fa_ring_fwd_bf16.argtypes = [
-        ptr, ptr, ptr,                      # q (x scale x log2 e), k, v
-        ptr, ptr, ptr,                      # acc, m, l: the running state (f32)
-        ptr, ptr,                           # o, lse (written on the last step)
-        *ring_tail, i32, i32,               # first, last
-        i64, i64, i64, i64, i64, i64,       # q, k/v (batch, head, seq) strides
-        i64, i64, i64,                      # o (batch, head, seq) strides
-        ptr,                                # cudaStream_t
-    ]
+    lib.fa_ring_fwd_bf16.argtypes = RING_FWD_ARGTYPES
     lib.fa_ring_bwd_bf16.restype = i32
-    lib.fa_ring_bwd_bf16.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,       # q (x scale x log2 e), k, v, dO, lse, delta
-        ptr, ptr, ptr,                      # dq (f32, zeroed), dk, dv (f32 accumulators)
-        *ring_tail,
-        i64, i64, i64, i64, i64, i64,       # q, k/v (batch, head, seq) strides
-        i64, i64, i64,                      # dO (batch, head, seq) strides
-        ptr,                                # cudaStream_t
-    ]
+    lib.fa_ring_bwd_bf16.argtypes = RING_BWD_ARGTYPES
     lib.fa_error_string.restype = ctypes.c_char_p
     lib.fa_error_string.argtypes = [i32]
     return lib

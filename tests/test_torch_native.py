@@ -133,6 +133,10 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
      "K7 ring_fwd_kernel<128>"),
     ("_ZN12_GLOBAL__N_115ring_bwd_kernelILi64EEEvNS_13RingBwdParamsE",
      "K8 ring_bwd_kernel<64>"),
+    ("_ZN44_GLOBAL__N__0a86ef51_11_ring_fwd_cu_3defb56e20ring_fwd_sm90_kernelILi128EEEv14"
+     "CUtensorMap_stS1_S1_NS_13RingFwdParamsE", "K7 ring_fwd_sm90_kernel<128>"),
+    ("_ZN44_GLOBAL__N__9117ad47_11_ring_bwd_cu_b9a5bb9420ring_bwd_sm90_kernelILi64EEEv14"
+     "CUtensorMap_stS1_S1_S1_NS_13RingBwdParamsE", "K8 ring_bwd_sm90_kernel<64>"),
     ("_ZN12_GLOBAL__N_113decode_kernelILi128ELi0ELb1ELb0EEEvN2fa12DecodeParamsE",
      "K1 decode bias decode_kernel<128, 0, 1, 0>"),
     ("_ZN12_GLOBAL__N_113decode_kernelILi128ELi0ELb1ELb1EEEvN2fa12DecodeParamsE",
