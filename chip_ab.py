@@ -27,6 +27,11 @@ events, median over 7 trials of the mean of 20 launches):
 * ``k1_bias``: K1 with path A's key-padding bias [4, 1, N, N] at B4 H16
   N2048 D128, BNHD (the dense K1 before K1's bias route, the TMA + wgmma
   bias kernel after);
+* ``bias_bwd``, ``bias_bwd_dbias``: the backward of path A's mask arm (that
+  bias, no dbias) and of its learned arm (the [4, 16, N, N] bias with dbias)
+  at the same shape: ``flash_bwd.dkv`` then ``flash_bwd.dq`` (K5 + K6) in a
+  parent before K5 + K6's bias route, ``flash_bwd.bias_bwd`` (one TMA +
+  wgmma kernel) after;
 * ``gemm``: K9 at 4096^3, bf16 out;
 * ``ring_fwd``, ``ring_bwd``: K7 and K8 on one full off-diagonal chunk pair
   of the ring's main shape (rank 1's 4096 query rows against rank 0's K/V,
@@ -55,8 +60,8 @@ import chip_smoke
 
 SMOKE = pathlib.Path(__file__).resolve().with_name("chip_smoke.py")
 # The instantiation each case launches (chip_smoke.instantiation_name), or
-# (the first tree's, the second's) where K1's bias route launches another
-# kernel than the dense K1 of a parent before it.
+# (the first tree's, the second's) where a redesigned route launches another
+# kernel than a parent before it; " + " joins the kernels one case launches.
 CASE_KERNELS = {"unet": "K1 fwd_kernel<48, 0, 0, 0>", "lm": "K1 fwd_kernel<128, 0, 0, 0>",
                 "k3": "K3 dkv_kernel<128, 1>",
                 "decode": "K1 decode bias decode_kernel<128, 0, 1, 0>",
@@ -68,6 +73,11 @@ CASE_KERNELS = {"unet": "K1 fwd_kernel<48, 0, 0, 0>", "lm": "K1 fwd_kernel<128, 
                 "k6_cap": "K6 softcap window dq_window_kernel<128, 1>",
                 "k1_bias": ("K1 bias fwd_kernel<128, 0, 1, 0>",
                             "K1 bias sm90 fwd_bias_sm90_kernel<128>"),
+                "bias_bwd": ("K5 bias dkv_bias_kernel<128, 0> + K6 bias dq_bias_kernel<128, 0>",
+                             "bias bwd sm90 bwd_bias_sm90_kernel<128, 0>"),
+                "bias_bwd_dbias": ("K5 bias dkv_bias_kernel<128, 0> + K6 bias "
+                                   "dq_bias_kernel<128, 0>",
+                                   "bias bwd sm90 bwd_bias_sm90_kernel<128, 1>"),
                 "gemm": "K9 gemm_wgmma_kernel<0>",
                 "ring_fwd": ("K7 ring_fwd_kernel<128>", "K7 ring_fwd_sm90_kernel<128>"),
                 "ring_bwd": ("K8 ring_bwd_kernel<128>", "K8 ring_bwd_sm90_kernel<128>")}
@@ -144,7 +154,21 @@ q, k, v = (cs._bnhd(x) for x in make_qkv(10, B, 16, N, 128, dtype=torch.bfloat16
                                          device="cuda"))
 pad = cs._padding_bias(cs.ATTN_LENGTHS, N)
 out["k1_bias"] = ms(lambda: flash_fwd.fwd(q, k, v, scale=128 ** -0.5, bias=pad))
-del q, k, v, pad
+do = cs._bnhd(make_qkv(13, B, 16, N, 128, dtype=torch.bfloat16, device="cuda")[0])
+learned = pad + torch.randn((1, 16, N, N), generator=torch.Generator(device="cuda").manual_seed(14),
+                            device="cuda")
+route = getattr(flash_bwd, "bias_bwd", None)  # none in a parent before K5 + K6's bias route
+for name, bias, want_dbias in (("bias_bwd", pad, False), ("bias_bwd_dbias", learned, True)):
+    kw = dict(scale=128 ** -0.5, bias=bias)
+    o, lse = flash_fwd.fwd(q, k, v, **kw)
+    args = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
+    if route is None:
+        out[name] = ms(lambda: (flash_bwd.dkv(*args, **kw),
+                                flash_bwd.dq(*args, want_dbias=want_dbias, **kw)))
+    else:
+        out[name] = ms(lambda: route(*args, want_dbias=want_dbias, **kw))
+del q, k, v, do, pad, learned, o, lse, args
+torch.cuda.empty_cache()
 a, b = (x[0, 0].contiguous() for x in make_qkv(9, 1, 1, 4096, 4096, dtype=torch.bfloat16,
                                                 device="cuda")[:2])
 out["gemm"] = ms(lambda: gemm.matmul(a, b))
@@ -204,10 +228,13 @@ def main() -> None:
         names = (name, name) if isinstance(name, str) else name
         cols = []
         for t, c, o, nm in zip(args.trees, code, ops, names):
-            regs, stack = c["ptxas"].get(nm, (None, None))[:2]
-            cols.append(f"{t} {nm}: {regs} registers, {stack} B stack, "
-                        f"{sum(o.get(nm, {}).values())} SASS instructions")
-        a, b = (o.get(nm, collections.Counter()) for o, nm in zip(ops, names))
+            stats = [c["ptxas"].get(x, (None, None))[:2] for x in nm.split(" + ")]
+            cols.append(f"{t} {nm}: {' + '.join(str(r) for r, _ in stats)} registers, "
+                        f"{' + '.join(str(st) for _, st in stats)} B stack, "
+                        f"{sum(sum(o.get(x, {}).values()) for x in nm.split(' + '))} SASS "
+                        "instructions")
+        a, b = (sum((o.get(x, collections.Counter()) for x in nm.split(" + ")),
+                    collections.Counter()) for o, nm in zip(ops, names))
         diff = sorted(set(a) | set(b), key=lambda x: -abs(b[x] - a[x]))[:8]
         print(f"[code] {case}: {'; '.join(cols)}; opcodes that differ most "
               f"(first -> second): " + ", ".join(f"{x} {a[x]} -> {b[x]}" for x in diff), flush=True)

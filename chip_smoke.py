@@ -328,10 +328,11 @@ def ptxas_stats(out: str) -> dict:
 
 def instantiation_name(mangled: str) -> str:
     """The kernel (K1 and its variant, K1's decode and bias routes, K3, K5,
-    K6, K7-K10) and template arguments of a mangled instantiation name from
-    ptxas, e.g. ``K1 int8 bias fwd_kernel<128, 0, 1, 1>``, ``K1 decode fp8
-    bias decode_kernel<128, 2, 1, 0>``, ``K1 bias sm90
-    fwd_bias_sm90_kernel<128>`` or ``K5 softcap dkv_softcap_kernel<128>``
+    K6, K5 + K6's bias route, K7-K10) and template arguments of a mangled
+    instantiation name from ptxas, e.g. ``K1 int8 bias fwd_kernel<128, 0, 1,
+    1>``, ``K1 decode fp8 bias decode_kernel<128, 2, 1, 0>``, ``K1 bias sm90
+    fwd_bias_sm90_kernel<128>``, ``bias bwd sm90 bwd_bias_sm90_kernel<128,
+    1>`` or ``K5 softcap dkv_softcap_kernel<128>``
     (K9 is ``gemm_wgmma_kernel``, K7 / K8 ``ring_{fwd,bwd}_sm90_kernel``; the
     earlier ``gemm_kernel`` and ``ring_{fwd,bwd}_kernel`` are still named,
     for chip_ab.py's parent builds); an unrecognised name comes back marked
@@ -351,6 +352,10 @@ def instantiation_name(mangled: str) -> str:
     if bias_sm90:  # K1's bias route, fwd_bias_sm90_kernel<D>
         args = re.findall(r"L[a-z]+(-?\d+)E", bias_sm90.group(1))
         return f"K1 bias sm90 fwd_bias_sm90_kernel<{', '.join(args)}>"
+    bias_bwd = re.search(r"bwd_bias_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if bias_bwd:  # K5 + K6's bias route, bwd_bias_sm90_kernel<D, DBIAS>
+        args = re.findall(r"L[a-z]+(-?\d+)E", bias_bwd.group(1))
+        return f"bias bwd sm90 bwd_bias_sm90_kernel<{', '.join(args)}>"
     wgmma = re.search(r"gemm_wgmma_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if wgmma:  # K9, gemm_wgmma_kernel<OUT_F32>
         args = re.findall(r"L[a-z]+(-?\d+)E", wgmma.group(1))
@@ -908,6 +913,7 @@ def _reset_launches() -> None:
     flash_fwd.fwd.launches_decode = flash_fwd.fwd.launches_merge = 0
     flash_bwd.dkv.launches = flash_bwd.dq.launches = 0
     flash_bwd.dkv.launches_bias = flash_bwd.dq.launches_bias = flash_bwd.dq.launches_dbias = 0
+    flash_bwd.bias_bwd.launches = flash_bwd.bias_bwd.launches_dbias = 0
     gemm.matmul.launches = roofline.roofline_call.launches = 0
     ring_kernel.ring_fwd_step.launches = ring_kernel.ring_bwd_step.launches = 0
 
@@ -918,7 +924,8 @@ def _launches() -> dict:
     (a launch with a window and a softcap counts in both), "K1 bias sm90"
     those of K1's bias route (also counted in "K1 bias"); "K5 bias" and "K6
     bias" the K5 / K6 launches with a bias, "K6 dbias" those that also wrote
-    dbias."""
+    dbias; "bias bwd" the launches of K5 + K6's bias route (one kernel for
+    both), "bias bwd dbias" those that wrote dbias."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, gemm, roofline
     from flashattn_tpu_torch.parallel import ring_kernel
 
@@ -931,6 +938,8 @@ def _launches() -> dict:
             "K3": flash_bwd_fused.bwd.launches, "K5": flash_bwd.dkv.launches,
             "K5 bias": flash_bwd.dkv.launches_bias, "K6": flash_bwd.dq.launches,
             "K6 bias": flash_bwd.dq.launches_bias, "K6 dbias": flash_bwd.dq.launches_dbias,
+            "bias bwd": flash_bwd.bias_bwd.launches,
+            "bias bwd dbias": flash_bwd.bias_bwd.launches_dbias,
             "K7": ring_kernel.ring_fwd_step.launches, "K8": ring_kernel.ring_bwd_step.launches,
             "K9": gemm.matmul.launches, "K10": roofline.roofline_call.launches}
 
@@ -1455,13 +1464,15 @@ def _grown(seed, B, Hq, Nq, D, Nk, Hkv):
 def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: bool = False,
                    **kw) -> dict:
     """K1 (flash_fwd.fwd) and its backward -- K3, or K5 + K6 with segment ids,
-    a softcap or a bias, as flash_attention routes it, K6 also writing dbias
-    with ``want_dbias`` -- against their plain versions on f32 copies of the
-    same bf16 inputs: O within FWD_TOL[bf16], LSE within 1e-3 on live rows,
-    dQ/dK/dV (and dbias) within BWD_TOL[bf16], each of O, dQ, dK, dV (and
-    dbias) within WINDOW_REL_L2 relative L2 (printed with max|ref|), dead
-    rows' O and dQ exactly 0. Returns the max errors, dbias, and the (q, k,
-    v, do, lse, delta) the backward took."""
+    a softcap or a bias, K6 also writing dbias with ``want_dbias`` -- against
+    their plain versions on f32 copies of the same bf16 inputs: O within
+    FWD_TOL[bf16], LSE within 1e-3 on live rows, dQ/dK/dV (and dbias) within
+    BWD_TOL[bf16], each of O, dQ, dK, dV (and dbias) within WINDOW_REL_L2
+    relative L2 (printed with max|ref|), dead rows' O and dQ exactly 0. Where
+    flash_attention sends the backward to K5 + K6's bias route
+    (``flash_bwd.bias_bwd_route``), that kernel is held too
+    (_bias_bwd_check), beside K5 + K6. Returns the max errors, dbias (K6's and
+    the route's), and the (q, k, v, do, lse, delta) the backward took."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
     from flashattn_tpu_torch.utils.testing import (
@@ -1512,10 +1523,76 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     if not dead_zero:
         fail(f"dead rows at {tag}: O or dQ not exactly 0")
     dbias = got[1] if want_dbias else None
-    del o, got, want, f32
+    del o, got, want
+    out = {"fwd_err": err_o, "bwd_err": err_g, "args": args, "dead": int(dead.sum()),
+           "dbias": dbias}
+    if flash_bwd.bias_bwd_route(
+            rows=q.shape[1] // k.shape[1] * q.shape[2], causal=kw.get("causal", False),
+            segment_ids=kw.get("segment_ids"), window=kw.get("window"), head_dim=q.shape[-1],
+            bias=kw.get("bias"), dtype=q.dtype, softcap=kw.get("softcap")):
+        route = _bias_bwd_check(tag, args, f32, want_dbias=want_dbias, phase=phase, **kw)
+        out.update(route_err=route["err"], route_dbias=route["dbias"])
+    del f32
     torch.cuda.empty_cache()
-    return {"fwd_err": err_o, "bwd_err": err_g, "args": args, "dead": int(dead.sum()),
-            "dbias": dbias}
+    return out
+
+
+def _bias_bwd_check(tag: str, args, f32, *, want_dbias: bool, phase: str = "bias",
+                    **kw) -> dict:
+    """K5 + K6's bias route (flash_bwd.bias_bwd, one launch, of the dbias
+    variant with ``want_dbias``) on ``args`` = (q, k, v, do, lse, delta)
+    against bias_bwd_reference on ``f32``, f32 copies of (q, k, v, do), and
+    the same lse and delta: dQ, dK, dV (per KV head) and dbias within
+    BWD_TOL[bf16] and each within WINDOW_REL_L2 relative L2 (printed with
+    max|ref|); dead rows' dQ and dbias exactly 0, and with causal dbias
+    exactly 0 above the diagonal. Returns the max error and dbias."""
+    from flashattn_tpu_torch.ops import flash_bwd
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+    from flashattn_tpu_torch.utils.testing import BWD_TOL, grad_gate
+
+    kw = {n: kw[n] for n in ("scale", "causal", "kv_valid_len", "bias") if n in kw}
+    before = flash_bwd.bias_bwd.launches, flash_bwd.bias_bwd.launches_dbias
+    got = flash_bwd.bias_bwd(*args, want_dbias=want_dbias, **kw)
+    torch.cuda.synchronize()
+    launched = (flash_bwd.bias_bwd.launches - before[0],
+                flash_bwd.bias_bwd.launches_dbias - before[1])
+    want = flash_bwd.bias_bwd_reference(*f32, *args[4:], want_dbias=want_dbias, **kw)
+    names = ("dq", "dk", "dv", *(("dbias",) if want_dbias else ()))
+    got, want = got[:len(names)], want[:len(names)]
+    g_tol = BWD_TOL[torch.bfloat16]
+    ok, why, err, _ = grad_gate(got, want, g_tol, names=names)
+    rel = {n: (_rel(a, e), e.abs().max().item()) for n, a, e in zip(names, got, want)}
+    dead = args[4] <= math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
+    dead_zero = bool((got[0][dead] == 0).all()) and (
+        not want_dbias or bool((got[3][dead] == 0).all()))
+    above = 0
+    if want_dbias and kw.get("causal"):
+        nq, nk = got[3].shape[-2:]
+        upper = torch.arange(nk, device=DEVICE)[None] > torch.arange(nq, device=DEVICE)[:, None]
+        above = int((got[3][..., upper] != 0).sum())
+    log(phase, f"{tag}: K5 + K6 bias route (bias bwd / bias bwd dbias launches {launched}) "
+               f"dQ/dK/dV{'/dbias' if want_dbias else ''} max_abs_err {err:.3e} (budget "
+               f"BWD_TOL[bf16] atol {g_tol.atol} rtol {g_tol.rtol}); relative L2 (limit "
+               f"{WINDOW_REL_L2}) / max|ref|: "
+               + ", ".join(f"{n} {r:.2e} / {m:.3f}" for n, (r, m) in rel.items())
+               + f"; dead rows {int(dead.sum())}, their dQ{' and dbias' if want_dbias else ''} "
+               f"exactly 0: {dead_zero}" + (f"; dbias above the causal diagonal: {above} nonzero"
+                                            if want_dbias and kw.get("causal") else ""))
+    if launched != (1, int(want_dbias)):
+        fail(f"the bias route's backward launched {launched} times at {tag}, expected "
+             f"{(1, int(want_dbias))}")
+    if not ok:
+        fail(f"the bias route's backward disagrees with bias_bwd_reference at {tag}: {why}")
+    if not all(r <= WINDOW_REL_L2 for r, _ in rel.values()):
+        fail(f"the bias route's backward: relative L2 error above {WINDOW_REL_L2} at {tag}: "
+             f"{rel}")
+    if not dead_zero:
+        fail(f"the bias route's backward: dead rows' dQ or dbias not exactly 0 at {tag}")
+    if above:
+        fail(f"the bias route's dbias is not exactly 0 above the causal diagonal at {tag}")
+    dbias = got[3] if want_dbias else None
+    del got, want
+    return {"err": err, "dbias": dbias}
 
 
 def phase_window_check() -> dict:
@@ -1930,27 +2007,31 @@ def _tma_wgmma_sass(phase: str, names: set) -> None:
 
 
 def phase_bias_check() -> dict:
-    """K1, K5 and K6 with a bias, and K6's dbias, against their plain
-    versions (_fwd_bwd_check, q and k scaled by GROW): at path A's attention
-    (B4 H16 N2048 D128 non-causal) with its mask arm's bias (the key-padding
-    bias [4, 1, N, N] of ATTN_LENGTHS, with dead rows; no dbias, as a mask
-    wants none) and its learned arm's (that bias plus a learned [1, 16, N, N]
-    one, [4, 16, N, N], with dbias); at the LM's attention shape B2 Hq16 Hkv8
-    N2048 D128 causal with a learned [1, 16, N, N] bias, without and with
-    softcap 50 (dbias, exactly 0 above the diagonal). Then
-    flash_attention(bias=) end to end against autograd through the f32 oracle
-    (_bias_e2e): the learned bias, a trainable [2, 1, 1, N] padding bias,
-    softcap + the learned bias, and the GQA decode fold with a [B, 1, Nq, Nk]
-    bias, whose repeated rows sum back (4 K6 dbias launches). Every K1 call
-    without a softcap here takes K1's bias route (the sm90 bias kernel, one
-    launch each), the soft-capped ones the dense kernel; the route is also
-    held alone (_bias_route_check) on BIAS_ROUTE_CASES, the dense kernel's
-    bias instantiation on BIAS_TILE_CASE, and, after the numeric gates, the
-    bias kernel's SASS has wgmma and no mma.sync. Times K1 on both arms'
-    biases (beside the dense K1 without a bias at that shape), K5 and K6 with the mask arm's bias and
-    K6 with dbias with the learned arm's, beside their plain versions and
-    SDPA, and K6 with and without dbias at the causal shape beside its
-    bound."""
+    """K1, K5 and K6 with a bias, K6's dbias, and K5 + K6's bias route (one
+    kernel for both, with and without dbias) against their plain versions
+    (_fwd_bwd_check, q and k scaled by GROW): at path A's attention (B4 H16
+    N2048 D128 non-causal) with its mask arm's bias (the key-padding bias [4,
+    1, N, N] of ATTN_LENGTHS, with dead rows; no dbias, as a mask wants none)
+    and its learned arm's (that bias plus a learned [1, 16, N, N] one, [4, 16,
+    N, N], with dbias); at the LM's attention shape B2 Hq16 Hkv8 N2048 D128
+    causal with a learned [1, 16, N, N] bias, without and with softcap 50
+    (dbias, exactly 0 above the diagonal; the capped call keeps K5 + K6).
+    Then flash_attention(bias=) end to end against autograd through the f32
+    oracle (_bias_e2e): the learned bias, a trainable [2, 1, 1, N] padding
+    bias, softcap + the learned bias, and the GQA decode fold with a [B, 1,
+    Nq, Nk] bias, whose repeated rows sum back (2 launches of the route's
+    backward with dbias, 2 of K6 with dbias: the capped call and the fold).
+    Every K1 call without a softcap here takes K1's bias route (the sm90 bias
+    kernel, one launch each), the soft-capped ones the dense kernel; the
+    route is also held alone (_bias_route_check, and its backward with dbias,
+    _bias_bwd_check) on BIAS_ROUTE_CASES, the dense kernel's bias
+    instantiation on BIAS_TILE_CASE, and, after the numeric gates, the two
+    Hopper bias kernels' SASS has wgmma and no mma.sync. Times K1 on both
+    arms' biases (beside the dense K1 without a bias at that shape), the
+    route's backward on both arms, K5 and K6 with the mask arm's bias and K6
+    with dbias with the learned arm's (the design before the route), beside
+    their plain versions and SDPA's backward, and the route and K6 with and
+    without dbias at the causal shape."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
     from flashattn_tpu_torch.utils.testing import make_qkv
 
@@ -1999,13 +2080,25 @@ def phase_bias_check() -> dict:
         "plain_ms": cuda_ms(lambda: flash_bwd.dq_reference(*args, **kw), reps=2, trials=3),
         **bound(tensor_bytes(*args, pad) + grad, pair_flops(q, k, matmuls=3, **mask)),
         **bwd_library}
+    # K5 + K6's bias route, the backward path A takes: 5 products, dQ, dK, dV out.
+    res["bias_bwd"] = {
+        "max_abs_err": out["route_err"], "ms": cuda_ms(lambda: flash_bwd.bias_bwd(*args, **kw)),
+        "plain_ms": cuda_ms(lambda: flash_bwd.bias_bwd_reference(*args, **kw), reps=2,
+                            trials=3),
+        **bound(tensor_bytes(*args, pad) + 3 * grad, pair_flops(q, k, matmuls=5, **mask)),
+        **bwd_library}
     log("bias", f"path A's attention: K1 bias sm90 {res['k1_bias']['ms']:.4f} ms (plain "
                 f"{res['k1_bias']['plain_ms']:.4f}, SDPA {res['k1_bias']['library_ms']:.4f}, bound "
                 f"{res['k1_bias']['bound_ms']:.4f} {res['k1_bias']['bound_by']}; the dense K1 "
                 f"without a bias {res['k1_bias']['fwd_tile_no_bias_ms']:.4f}), "
-                f"K5 bias {res['k5_bias']['ms']:.4f} ms (plain {res['k5_bias']['plain_ms']:.4f}), "
-                f"K6 bias {res['k6_bias']['ms']:.4f} ms (plain {res['k6_bias']['plain_ms']:.4f}), "
-                f"SDPA's backward {bwd_library['library_ms']:.4f} ms (median CUDA-event time)")
+                f"K5 + K6's bias route {res['bias_bwd']['ms']:.4f} ms (plain "
+                f"{res['bias_bwd']['plain_ms']:.4f}, bound {res['bias_bwd']['bound_ms']:.4f} "
+                f"{res['bias_bwd']['bound_by']}, "
+                f"{pair_flops(q, k, matmuls=5, **mask) / res['bias_bwd']['ms'] / 1e9:.0f} "
+                f"TFLOP/s); before it K5 bias {res['k5_bias']['ms']:.4f} ms (plain "
+                f"{res['k5_bias']['plain_ms']:.4f}), K6 bias {res['k6_bias']['ms']:.4f} ms (plain "
+                f"{res['k6_bias']['plain_ms']:.4f}); SDPA's backward {bwd_library['library_ms']:.4f}"
+                f" ms (median CUDA-event time)")
     del q, k, v, do, args, out
     torch.cuda.empty_cache()
 
@@ -2036,6 +2129,10 @@ def phase_bias_check() -> dict:
                 f"{res['k1_bias_learned']['bound_ms']:.4f} {res['k1_bias_learned']['bound_by']})")
     # SDPA takes a bias that requires grad only in the query's dtype.
     args, leaf = out["args"], combined.to(torch.bfloat16).requires_grad_(True)
+    dbias_library = dict(
+        library_ms=sdpa_ms(q, k, v, do=do, attn_mask=leaf, bias_leaf=leaf),
+        library_call=("the backward of scaled_dot_product_attention(attn_mask=the [B, H, N, N] "
+                      "bias in bf16, which requires grad) (dQ, dK, dV and dbias in one call)"))
     res["k6_dbias"] = {
         "max_abs_err": out["bwd_err"],
         "ms": cuda_ms(lambda: flash_bwd.dq(*args, want_dbias=True, **kw)),
@@ -2043,14 +2140,27 @@ def phase_bias_check() -> dict:
                             trials=3),
         **bound(tensor_bytes(*args, combined, out["dbias"]) + grad,
                 pair_flops(q, k, matmuls=3, **mask)),
-        "library_ms": sdpa_ms(q, k, v, do=do, attn_mask=leaf, bias_leaf=leaf),
-        "library_call": ("the backward of scaled_dot_product_attention(attn_mask=the [B, H, N, N] "
-                         "bias in bf16, which requires grad) (dQ, dK, dV and dbias in one call)")}
+        **dbias_library}
     no_dbias = cuda_ms(lambda: flash_bwd.dq(*args, **kw))
-    log("bias", f"path A's learned arm: K6 with dbias {res['k6_dbias']['ms']:.4f} ms (plain "
-                f"{res['k6_dbias']['plain_ms']:.4f}), without dbias {no_dbias:.4f} ms; bound "
-                f"{res['k6_dbias']['bound_ms']:.4f} ms ({res['k6_dbias']['bound_by']}); SDPA's "
-                f"backward with dbias {res['k6_dbias']['library_ms']:.4f} ms")
+    # The route with dbias: the whole [B, H, N, N] f32 bias read and dbias written.
+    res["bias_bwd_dbias"] = {
+        "max_abs_err": out["route_err"],
+        "ms": cuda_ms(lambda: flash_bwd.bias_bwd(*args, want_dbias=True, **kw)),
+        "plain_ms": cuda_ms(lambda: flash_bwd.bias_bwd_reference(*args, want_dbias=True, **kw),
+                            reps=2, trials=3),
+        **bound(tensor_bytes(*args, combined, out["route_dbias"]) + 3 * grad,
+                pair_flops(q, k, matmuls=5, **mask)),
+        **dbias_library}
+    route_no_dbias = cuda_ms(lambda: flash_bwd.bias_bwd(*args, **kw))
+    log("bias", f"path A's learned arm: K5 + K6's bias route with dbias "
+                f"{res['bias_bwd_dbias']['ms']:.4f} ms (plain "
+                f"{res['bias_bwd_dbias']['plain_ms']:.4f}), without dbias {route_no_dbias:.4f} "
+                f"ms; bound {res['bias_bwd_dbias']['bound_ms']:.4f} ms "
+                f"({res['bias_bwd_dbias']['bound_by']}); before it K6 with dbias "
+                f"{res['k6_dbias']['ms']:.4f} ms (plain {res['k6_dbias']['plain_ms']:.4f}), "
+                f"without dbias {no_dbias:.4f} ms, bound {res['k6_dbias']['bound_ms']:.4f} ms "
+                f"({res['k6_dbias']['bound_by']}); SDPA's backward with dbias "
+                f"{res['k6_dbias']['library_ms']:.4f} ms")
     del q, k, v, do, args, out, combined, leaf
     torch.cuda.empty_cache()
 
@@ -2082,10 +2192,20 @@ def phase_bias_check() -> dict:
     for i, case in enumerate([*BIAS_ROUTE_CASES, BIAS_TILE_CASE]):
         tag, b, hq, hkv, nq, nk, d, valid, causal, kind = case
         q, k, v, bias = _bias_route_case(1420 + 2 * i, b, hq, hkv, nq, nk, d, kind)
-        _bias_route_check(f"K1 with a bias, {tag}: B{b} Hq{hq} Hkv{hkv} Nq{nq} Nk{nk} D{d} "
-                          f"kv_valid_len {valid}{' causal' if causal else ''}, bias "
-                          f"{list(bias.shape)}", q, k, v, sm90=case is not BIAS_TILE_CASE,
-                          scale=d ** -0.5, kv_valid_len=valid, causal=causal, bias=bias)
+        what = (f"{tag}: B{b} Hq{hq} Hkv{hkv} Nq{nq} Nk{nk} D{d} kv_valid_len {valid}"
+                f"{' causal' if causal else ''}, bias {list(bias.shape)}")
+        rkw = dict(scale=d ** -0.5, kv_valid_len=valid, causal=causal, bias=bias)
+        _bias_route_check(f"K1 with a bias, {what}", q, k, v, sm90=case is not BIAS_TILE_CASE,
+                          **rkw)
+        if case is not BIAS_TILE_CASE:
+            # The route's backward with dbias, on the plain forward's LSE and Delta.
+            do = _bnhd(make_qkv(1440 + i, b, hq, nq, d, dtype=torch.bfloat16, device=DEVICE)[0])
+            f32 = [x.float() for x in (q, k, v, do)]
+            o_ref, lse_ref = flash_fwd.fwd_reference(*f32[:3], **rkw)
+            _bias_bwd_check(f"the bias route's backward, {what}, dbias",
+                            (q, k, v, do, lse_ref, (f32[3] * o_ref).sum(-1)), f32,
+                            want_dbias=True, **rkw)
+            del do, f32, o_ref, lse_ref
         del q, k, v, bias
 
     args, kw = lm["args"], dict(scale=D ** -0.5, causal=True, bias=learned)
@@ -2097,9 +2217,11 @@ def phase_bias_check() -> dict:
                                     segment_ids=None))
     with_dbias = cuda_ms(lambda: flash_bwd.dq(*args, want_dbias=True, **kw))
     no_dbias = cuda_ms(lambda: flash_bwd.dq(*args, **kw))
-    log("bias", f"learned bias B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal: K6 with dbias "
-                f"{with_dbias:.4f} ms, without dbias {no_dbias:.4f} ms; bound "
-                f"{causal_bound['bound_ms']:.4f} ms ({causal_bound['bound_by']})")
+    route = cuda_ms(lambda: flash_bwd.bias_bwd(*args, want_dbias=True, **kw))
+    log("bias", f"learned bias B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal: K5 + K6's bias route "
+                f"with dbias {route:.4f} ms; K6 with dbias {with_dbias:.4f} ms, without dbias "
+                f"{no_dbias:.4f} ms; K6's bound {causal_bound['bound_ms']:.4f} ms "
+                f"({causal_bound['bound_by']})")
     del args, lm
     torch.cuda.empty_cache()
 
@@ -2128,13 +2250,18 @@ def phase_bias_check() -> dict:
               qd, k, v, rows, dod)
     res["e2e"] = _launches()
     log("bias", f"launches during the end-to-end checks: {res['e2e']}")
-    # K1's bias route: the learned and the padding bias (the softcap keeps the
-    # dense kernel, the fold the decode kernel).
-    if res["e2e"]["K6 dbias"] != 4 or res["e2e"]["K3"] or res["e2e"]["K1 bias sm90"] != 2:
-        fail(f"the end-to-end bias checks launched {res['e2e']}, expected K6 dbias = 4, K1 bias "
-             f"sm90 = 2, no K3")
+    # K1's bias route and its backward: the learned and the padding bias (the
+    # softcap keeps the dense kernel and K5 + K6, the fold the decode kernel
+    # and K5 + K6).
+    e2e = {n: res["e2e"][n] for n in ("K6 dbias", "bias bwd", "bias bwd dbias", "K1 bias sm90",
+                                      "K3")}
+    if e2e != {"K6 dbias": 2, "bias bwd": 2, "bias bwd dbias": 2, "K1 bias sm90": 2, "K3": 0}:
+        fail(f"the end-to-end bias checks launched {res['e2e']}, expected K6 dbias = bias bwd = "
+             f"bias bwd dbias = K1 bias sm90 = 2, no K3")
     _tma_wgmma_sass("bias", {f"K1 bias sm90 fwd_bias_sm90_kernel<{d}>"
-                             for d in flash_fwd.BIAS_HEAD_DIMS})
+                             for d in flash_fwd.BIAS_HEAD_DIMS}
+                    | {f"bias bwd sm90 bwd_bias_sm90_kernel<{d}, {w}>"
+                       for d in flash_fwd.BIAS_HEAD_DIMS for w in (0, 1)})
     return res
 
 
@@ -2261,12 +2388,12 @@ def _path_a(arm: str, x, target, valid, mask, rel0) -> dict:
         del params, opt
     n, dbias = LM_STEPS, (0 if rel0 is None else LM_STEPS)
     log("bias_train", f"{arm} arm, launches during the fused steps: {res['launches']} (expected "
-                      f"K1 = K1 bias = K1 bias sm90 = K5 = K5 bias = K6 = K6 bias = {n}, K6 dbias "
-                      f"= {dbias}, no K3)")
-    if res["launches"] != _expect(K1=n, K1_bias=n, K1_bias_sm90=n, K5=n, K5_bias=n, K6=n,
-                                  K6_bias=n, K6_dbias=dbias):
+                      f"K1 = K1 bias = K1 bias sm90 = bias bwd = {n}, bias bwd dbias = {dbias}, "
+                      f"no K5, K6 or K3)")
+    if res["launches"] != _expect(K1=n, K1_bias=n, K1_bias_sm90=n, bias_bwd=n,
+                                  bias_bwd_dbias=dbias):
         fail(f"path A's {arm} arm launched {res['launches']}, expected K1 = K1 bias = K1 bias "
-             f"sm90 = K5 = K5 bias = K6 = K6 bias = {n}, K6 dbias = {dbias} and no other")
+             f"sm90 = bias bwd = {n}, bias bwd dbias = {dbias} and no other")
     del fused, exact
     torch.cuda.empty_cache()
     return res
@@ -2783,15 +2910,28 @@ def main() -> None:
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
          "launches": bias_train["learned"]["launches"]["K1 bias sm90"],
          **bias["k1_bias_learned"]},
+        {"name": "bwd_bias_sm90 (K5 + K6's bias route, wgmma: key-padding bias, path A's mask "
+                 "arm)", "route": "cuda", "source": "flashattn_tpu_torch/csrc/bwd_bias_sm90.cu",
+         "replaces": "flashattn_tpu/ops/flash_bwd.py:139, flashattn_tpu/ops/flash_bwd.py:234",
+         "launches": bias_train["mask"]["launches"]["bias bwd"], **bias["bias_bwd"]},
+        {"name": "bwd_bias_sm90 dbias (K5 + K6's bias route, wgmma: [4, 16, N, N] bias and "
+                 "dbias, path A's learned arm)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/bwd_bias_sm90.cu",
+         "replaces": "flashattn_tpu/ops/flash_bwd.py:139, flashattn_tpu/ops/flash_bwd.py:234",
+         "launches": bias_train["learned"]["launches"]["bias bwd dbias"],
+         **bias["bias_bwd_dbias"]},
+        # K5 / K6 with a bias where the route refuses the call (a softcap, the
+        # decode fold): launches from phase_bias_check's end-to-end checks,
+        # times at path A's shape (the design the route replaced there).
         {"name": "flash_bwd_split dkv bias (K5 + bias)", "route": "cuda", "source": bias_src,
          "replaces": "flashattn_tpu/ops/flash_bwd.py:139",
-         "launches": bias_train["mask"]["launches"]["K5 bias"], **bias["k5_bias"]},
+         "launches": bias["e2e"]["K5 bias"], **bias["k5_bias"]},
         {"name": "flash_bwd_split dq bias (K6 + bias, no dbias)", "route": "cuda",
          "source": bias_src, "replaces": "flashattn_tpu/ops/flash_bwd.py:234",
-         "launches": bias_train["mask"]["launches"]["K6 bias"], **bias["k6_bias"]},
-        {"name": "flash_bwd_split dq dbias (K6 + bias + dbias, path A's learned arm)",
-         "route": "cuda", "source": bias_src, "replaces": "flashattn_tpu/ops/flash_bwd.py:234",
-         "launches": bias_train["learned"]["launches"]["K6 dbias"], **bias["k6_dbias"]},
+         "launches": bias["e2e"]["K6 bias"], **bias["k6_bias"]},
+        {"name": "flash_bwd_split dq dbias (K6 + bias + dbias)", "route": "cuda",
+         "source": bias_src, "replaces": "flashattn_tpu/ops/flash_bwd.py:234",
+         "launches": bias["e2e"]["K6 dbias"], **bias["k6_dbias"]},
         {"name": "gemm (K9, TMA + wgmma)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/gemm.cu",
          "replaces": "flashattn_tpu/ops/gemm.py:22", "launches": roof["launches"]["K9"],

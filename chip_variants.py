@@ -1,12 +1,13 @@
-"""Time the design variants of the ring kernels K7 / K8 against the committed ones, on one GPU.
+"""Time the design variants of the TMA + wgmma kernels against the committed ones, on one GPU.
 
-    python3 chip_variants.py
+    python3 chip_variants.py [ring] [bias]
 
-Each variant is the committed ``csrc/ring_fwd.cu`` or ``csrc/ring_bwd.cu``
+(both families without an argument). Each variant is a committed source
 with one design choice undone by a text patch, built alone (nvcc, all at
 once, ``ptxas -v``) into its own library under ``flashattn_tpu_torch/build/
-variants/`` and called through the wrappers' argument packing
-(``ring_kernel._launch_fwd`` / ``_launch_bwd``):
+variants/`` and called through the wrappers' argument packing. Family
+``ring``, ``csrc/ring_fwd.cu`` / ``csrc/ring_bwd.cu`` through
+``ring_kernel._launch_fwd`` / ``_launch_bwd``:
 
 * ``K8``: as committed (S^T first, P^T rounded to bf16 for dV and to fp16
   for dS^T, then dP^T beside dV; the dQ tile staged and added by one bulk
@@ -24,8 +25,30 @@ At the ring's main shape (B1 Hq16 Hkv8 D128 causal, chunks of 4096) each K8
 variant's step is held against ``ring_bwd_step_reference`` (max abs and
 relative L2 errors of dQ, dK, dV, printed), then every variant is timed in
 turns (3 rounds, each variant once a round, chip_smoke.cuda_ms) on the
-off-diagonal and the diagonal chunk pair. Prints the card's name and power
-limit first.
+off-diagonal and the diagonal chunk pair.
+
+Family ``bias``, K5 + K6's bias route ``csrc/bwd_bias_sm90.cu`` through
+``flash_bwd._launch_bias_bwd``:
+
+* ``bias bwd``: as committed (the bias stage released once P^T is formed,
+  dbias by streaming stores, dQ by one bulk reduction per tile);
+* ``bias bwd no dQ``: no dQ product, stage or reduction (dQ stays 0): what
+  dQ costs inside the KV-major pass, against a Q-major K6 of its own;
+* ``bias bwd bias to the end``: each warp releases the bias stage with the
+  (Q, dO) stage, at the tile's end, so the next tile's bias is not loaded
+  under this tile's products;
+* ``bias bwd plain dbias stores``: dbias by plain stores, not ``st.global.cs``;
+* ``bias bwd 232 registers``: the consumers given 232 registers and the
+  producer 40;
+* ``bias bwd no dQ reduction``, ``bias bwd no dQ stage writes``: dQ's
+  product and stage kept without the bulk reduction, or its product and
+  reduction without the stage's writes (dQ wrong in both): which of the two
+  makes dQ's cost.
+
+At path A's shape (B4 H16 N2048 D128) with its mask arm's key-padding bias
+[4, 1, N, N] (no dbias) and its learned arm's [4, 16, N, N] bias (dbias),
+each variant is held against ``bias_bwd_reference`` (errors printed), then
+timed in turns as the ring's. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -34,6 +57,7 @@ import ctypes
 import shutil
 import statistics
 import subprocess
+import sys
 
 import torch
 
@@ -120,6 +144,21 @@ def _red_v4(src: str) -> str:
 """)
 
 
+def _no_dq(src: str) -> str:
+    return src.replace("const bool does_dq = half < BOXES;", "const bool does_dq = false;").replace(
+        "      if (issuer_warp) {\n        named_sync(2, 256);",
+        "      if (false) {\n        named_sync(2, 256);")
+
+
+def _bias_to_end(src: str) -> str:
+    src = src.replace("""      __syncwarp();
+      if (lane == 0) mbar_arrive(&bias_empty[bs]);  // this warp is done with the bias tile
+""", "")
+    return src.replace("if (lane == 0) mbar_arrive(&empty[s]);",
+                       "if (lane == 0) {\n        mbar_arrive(&empty[s]);\n"
+                       "        mbar_arrive(&bias_empty[bs]);\n      }")
+
+
 # name: (source, patch)
 VARIANTS = {
     "K8": ("ring_bwd.cu", None),
@@ -132,16 +171,37 @@ VARIANTS = {
     "K7": ("ring_fwd.cu", None),
     "K7 6 stages": ("ring_fwd.cu", lambda s: s.replace("static constexpr int STAGES = 4;",
                                                        "static constexpr int STAGES = 6;")),
+    "bias bwd": ("bwd_bias_sm90.cu", None),
+    "bias bwd no dQ": ("bwd_bias_sm90.cu", _no_dq),
+    "bias bwd bias to the end": ("bwd_bias_sm90.cu", _bias_to_end),
+    "bias bwd plain dbias stores": ("bwd_bias_sm90.cu", lambda s: s.replace(
+        "__stcs(dst, d0)", "*dst = d0").replace("__stcs(dst + p.nk, d1)", "dst[p.nk] = d1")),
+    "bias bwd no dQ reduction": ("bwd_bias_sm90.cu", lambda s: s.replace(
+        "        if (lane == 0) {\n          // Only the tile's rows below Nq",
+        "        if (false) {\n          // Only the tile's rows below Nq")),
+    "bias bwd no dQ stage writes": ("bwd_bias_sm90.cu", lambda s: s.replace(
+        "            *reinterpret_cast<float2*>(srow + 8 * jj + 2 * t) =",
+        "            if (p.nq < 0) *reinterpret_cast<float2*>(srow + 8 * jj + 2 * t) =")),
+    "bias bwd 232 registers": ("bwd_bias_sm90.cu", lambda s: s.replace(
+        "setmaxnreg.dec.sync.aligned.u32 24", "setmaxnreg.dec.sync.aligned.u32 40").replace(
+        "setmaxnreg.inc.sync.aligned.u32 240", "setmaxnreg.inc.sync.aligned.u32 232")),
 }
+# The C entry, its argument types and the family of each source.
+ENTRIES = {"ring_bwd.cu": ("fa_ring_bwd_bf16", "RING_BWD_ARGTYPES", "ring"),
+           "ring_fwd.cu": ("fa_ring_fwd_bf16", "RING_FWD_ARGTYPES", "ring"),
+           "bwd_bias_sm90.cu": ("fa_bwd_bias_sm90", "BWD_BIAS_SM90_ARGTYPES", "bias")}
 
 
-def build() -> dict:
-    """{name: loaded library} with each variant's ptxas registers and spills printed."""
+def build(families) -> dict:
+    """{name: loaded library} of the variants of ``families``, with each
+    variant's ptxas registers and spills printed."""
     from flashattn_tpu_torch.utils import native
 
     root = native.BUILD_DIR / "variants"
     procs = {}
     for i, (name, (src, patch)) in enumerate(VARIANTS.items()):
+        if ENTRIES[src][2] not in families:
+            continue
         d = root / str(i)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(native.CSRC, d)
@@ -163,21 +223,18 @@ def build() -> dict:
             print(f"[build] {name}: {entry}: {regs} registers, {stack} B stack, {st} / {ld} B "
                   "spill stores / loads", flush=True)
         lib = ctypes.CDLL(str(d / "lib.so"))
-        fn = lib.fa_ring_bwd_bf16 if name.startswith("K8") else lib.fa_ring_fwd_bf16
+        entry, argtypes, _ = ENTRIES[VARIANTS[name][0]]
+        fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = (native.RING_BWD_ARGTYPES if name.startswith("K8")
-                       else native.RING_FWD_ARGTYPES)
+        fn.argtypes = getattr(native, argtypes)
         libs[name] = lib
     return libs
 
 
-def main() -> None:
+def ring(libs: dict) -> None:
     from flashattn_tpu_torch.parallel import ring_kernel as rk
     from flashattn_tpu_torch.utils.testing import make_qkv
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    libs = build()
     c, hq, hkv, d = cs.RING_CHUNK, 16, 8, 128
     q, k, v = make_qkv(21, 1, hq, 2 * c, d, Hkv=hkv, dtype=torch.bfloat16, device="cuda")
     do = make_qkv(22, 1, hq, 2 * c, d, dtype=torch.bfloat16, device="cuda")[0]
@@ -227,9 +284,75 @@ def main() -> None:
                         lib, rows(q2, 1), rows(k, src), rows(v, src), acc, m, l, o1, lse_c,
                         stream=stream, **pos)
                 times.setdefault((name, label), []).append(cs.cuda_ms(fn, reps=10, trials=3))
+    _report(times)
+
+
+def _report(times: dict) -> None:
     for (name, label), ts in times.items():
         print(f"[time] {name} {label}: {' / '.join(f'{x:.4f}' for x in ts)} ms, median "
               f"{statistics.median(ts):.4f}", flush=True)
+
+
+def bias(libs: dict) -> None:
+    from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    B, N, H, D = len(cs.ATTN_LENGTHS), cs.ATTN_SEQ, 16, 128
+    q, k, v = cs._grown(31, B, H, N, D, N, H)
+    do = cs._bnhd(make_qkv(32, B, H, N, D, dtype=torch.bfloat16, device="cuda")[0])
+    pad = cs._padding_bias(cs.ATTN_LENGTHS, N)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    arms = {"mask": (pad, False),
+            "learned": (pad + torch.randn((1, H, N, N), generator=gen, device="cuda"), True)}
+    f32 = [x.float() for x in (q, k, v, do)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(lib, arm):
+        bias_, want_dbias = arms[arm]
+        lse, delta = stats[arm]
+        dq = torch.zeros((B, H, N, D), dtype=torch.float32, device="cuda")
+        dk, dv = (torch.empty((B, H, N, D), dtype=torch.float32, device="cuda") for _ in "kv")
+        dbias = torch.empty((B, H, N, N), dtype=torch.float32, device="cuda") if want_dbias else None
+        b, strides = flash_fwd.sm90_bias(bias_)
+        rc = flash_bwd._launch_bias_bwd(lib, q, k, v, do, lse, delta, b, strides, dq, dk, dv,
+                                        dbias, scale=D ** -0.5, causal=False, kv_valid_len=N,
+                                        nq_pad=N, stream=stream)
+        return rc, (dq, dk, dv, dbias)
+
+    stats = {}
+    for arm, (bias_, want_dbias) in arms.items():
+        o, lse = flash_fwd.fwd_reference(*f32[:3], scale=D ** -0.5, bias=bias_)
+        stats[arm] = (lse, (f32[3] * o).sum(-1))
+        want = flash_bwd.bias_bwd_reference(*f32, *stats[arm], scale=D ** -0.5, bias=bias_,
+                                            want_dbias=want_dbias)
+        for name, lib in libs.items():
+            rc, got = call(lib, arm)
+            torch.cuda.synchronize()
+            errs = [((a - w).abs().max().item(), cs._rel(a, w))
+                    for a, w in zip(got, want) if w is not None]
+            print(f"[check] {name} {arm} arm: rc {rc}, dQ / dK / dV"
+                  f"{' / dbias' if want_dbias else ''} max abs err "
+                  + " / ".join(f"{e:.3e}" for e, _ in errs) + ", relative L2 "
+                  + " / ".join(f"{r:.3e}" for _, r in errs), flush=True)
+        del want
+        torch.cuda.empty_cache()
+    times = {}
+    for rnd in range(3):
+        for name, lib in (libs.items() if rnd % 2 == 0 else reversed(libs.items())):
+            for arm in arms:
+                times.setdefault((name, arm), []).append(
+                    cs.cuda_ms(lambda: call(lib, arm), reps=10, trials=3))
+    _report(times)
+
+
+def main() -> None:
+    families = sys.argv[1:] or ["ring", "bias"]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    libs = build(families)
+    for family, run in (("ring", ring), ("bias", bias)):
+        if family in families:
+            run({n: lib for n, lib in libs.items() if ENTRIES[VARIANTS[n][0]][2] == family})
 
 
 if __name__ == "__main__":

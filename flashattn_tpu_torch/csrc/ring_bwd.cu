@@ -57,8 +57,6 @@
 //   * Shared memory at D 128: K, V 64 KB; 2 x (Q2, dO) 64 KB; dS^T 2 x 16 KB;
 //     the dQ stage 32 KB; 194 KB in all.
 
-#include <cuda_fp16.h>
-
 #include "sm90.cuh"
 
 namespace {
@@ -69,15 +67,6 @@ constexpr int RB_BLOCK_N = 128;  // KV rows per CTA: two consumer warpgroups of 
 constexpr int RB_BLOCK_M = 64;   // query rows per streamed tile
 constexpr int RB_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr float NEG_GUARD = 0.5f * MASK_VALUE;
-
-__device__ __forceinline__ uint32_t pack_half(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 unpack_half(uint32_t v) {
-  return __half22float2(*reinterpret_cast<const __half2*>(&v));
-}
 
 struct RingBwdParams {
   const float* lse;    // [B, Hq, nq] contiguous, natural log (-inf: dead row)

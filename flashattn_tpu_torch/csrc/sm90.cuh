@@ -1,15 +1,17 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels (K9 in
 // gemm.cu, K1's bias route in fwd_bias_tile.cuh, the ring kernels K7 / K8 in
-// ring_fwd.cu / ring_bwd.cu): mbarriers, TMA tile loads, bulk copies and bulk
-// reductions, cp.async completion on an mbarrier, named barriers, the wgmma
-// shared-memory descriptor of the 128-byte swizzle and the wgmma products the
-// attention kernels issue, and bf16 tensor maps built on the host by
-// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so that the
-// library links no libcuda.
+// ring_fwd.cu / ring_bwd.cu, K5 + K6's bias route in bwd_bias_sm90.cu):
+// mbarriers, TMA tile loads, bulk copies and bulk reductions, cp.async
+// completion on an mbarrier, named barriers, the wgmma shared-memory
+// descriptor of the 128-byte swizzle and the wgmma products the attention
+// kernels issue, and tensor maps built on the host by cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint so that the library links no
+// libcuda.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_fp16.h>
 
 #include "common.cuh"
 
@@ -317,6 +319,17 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4], const float (&sc)[3
 #pragma unroll
     for (int i = 0; i < 4; ++i) pa[kk][i] = fa::pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
   }
+}
+
+// Two f32 as fp16 in one register (.x, the low half, = lo), and back: the
+// backward kernels' copy of P^T for dS^T (10 mantissa bits to bf16's 7).
+__device__ __forceinline__ uint32_t pack_half(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_half(uint32_t v) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&v));
 }
 
 // Two f32 from shared memory at a 32-bit shared address.

@@ -6,7 +6,8 @@ forward runs K1 (``ops/flash_fwd.py``); the gradient, behind a
 ``torch.autograd.Function``, runs the single-pass backward K3
 (``ops/flash_bwd_fused.py``) or, with segment ids, a softcap or a bias, the
 two-kernel backward K5 + K6 (``ops/flash_bwd.py``), whose K6 also gives
-dbias -- the routing of the JAX ``_flash_core_bwd``. The GQA decode fold is
+dbias -- the routing of the JAX ``_flash_core_bwd`` -- or, after K1's bias
+route, one kernel for both (``flash_bwd.bias_bwd``). The GQA decode fold is
 ported: a tiny-Nq non-causal GQA call without a window folds each KV head's
 query heads into the Q rows, so the cache is read once. The arguments keep
 the JAX signature; those the port's kernels do not take yet raise
@@ -126,8 +127,10 @@ class _FlashCore(torch.autograd.Function):
     window and the softcap; the backward routes as the JAX
     ``_flash_core_bwd``: K3 when there are no segment ids, no softcap and no
     bias (its fused branch, with the window), else K5 then K6 (its two-kernel
-    branch). K6 writes dbias only when the bias needs a gradient; it comes
-    back reduced over the bias's broadcast dims, in the bias's dtype."""
+    branch), or, where the forward took K1's bias route
+    (``flash_bwd.bias_bwd_route``), the one kernel that computes both. dbias
+    is written only when the bias needs a gradient; it comes back reduced over
+    the bias's broadcast dims, in the bias's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seg_q, seg_kv, scale, kv_valid_len, causal, window,
@@ -153,18 +156,27 @@ class _FlashCore(torch.autograd.Function):
         kw = dict(scale=ctx.scale, causal=ctx.causal, kv_valid_len=ctx.kv_valid_len,
                   window=ctx.window)
         dbias = None
+        segment_ids = None if seg_q is None else (seg_q, seg_kv)
+        want_dbias = bias is not None and ctx.needs_input_grad[3]
         if seg_q is None and ctx.softcap is None and bias is None:
             dq, dk, dv = flash_bwd_fused.bwd(q, k, v, do, lse, delta, **kw)
+        elif flash_bwd.bias_bwd_route(rows=Hq // Hkv * q.shape[2], causal=ctx.causal,
+                                      segment_ids=segment_ids, window=ctx.window, head_dim=D,
+                                      bias=bias, dtype=q.dtype, softcap=ctx.softcap):
+            # K1's bias route's backward: K5 + K6 in one launch, dK/dV per KV head.
+            dq, dk, dv, dbias = flash_bwd.bias_bwd(
+                q, k, v, do, lse, delta, scale=ctx.scale, causal=ctx.causal,
+                kv_valid_len=ctx.kv_valid_len, bias=bias, want_dbias=want_dbias)
         else:
-            kw["segment_ids"] = None if seg_q is None else (seg_q, seg_kv)
-            kw.update(softcap=ctx.softcap, bias=bias)
+            kw.update(segment_ids=segment_ids, softcap=ctx.softcap, bias=bias)
             dk, dv = flash_bwd.dkv(q, k, v, do, lse, delta, **kw)
-            if bias is not None and ctx.needs_input_grad[3]:
+            if want_dbias:
                 dq, dbias = flash_bwd.dq(q, k, v, do, lse, delta, want_dbias=True, **kw)
-                dbias = _reduce_dbias(dbias, bias)
             else:
                 dq = flash_bwd.dq(q, k, v, do, lse, delta, **kw)
-        if Hq != Hkv:  # GQA: dK/dV come per query head; sum each KV head's group
+        if dbias is not None:
+            dbias = _reduce_dbias(dbias, bias)
+        if dk.shape[1] != Hkv:  # GQA: dK/dV came per query head; sum each KV head's group
             dk = dk.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
             dv = dv.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, None, None, None, None,

@@ -17,6 +17,11 @@ each KV head and casts, dQ ``[B, Hq, Nq, D]``, written once and so
 deterministic (K3's dQ is summed by atomics), and on request the full f32
 dbias ``[B, Hq, Nq, Nk]``, which ``ops/flash.py`` reduces over the bias's
 broadcast dims.
+
+Where the forward took K1's bias route (:func:`bias_bwd_route`), one
+launch of a Hopper kernel (``csrc/bwd_bias_sm90.cu``) computes what K5 and
+K6 compute together: :func:`bias_bwd` returns dQ, dK / dV per *KV* head and,
+on request, dbias, and :func:`bias_bwd_reference` is its plain version.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from __future__ import annotations
 import torch
 
 from flashattn_tpu_torch.ops.flash_fwd import (
+    BIAS_HEAD_DIMS,
     _kernel_ready,
+    bias_route,
     check_bias,
     check_segment_ids,
     check_softcap,
@@ -33,6 +40,7 @@ from flashattn_tpu_torch.ops.flash_fwd import (
     kernel_segment_ids,
     kernel_window,
     pair_mask,
+    sm90_bias,
 )
 from flashattn_tpu_torch.ops.oracle import _expand_kv, _full_f32_matmul
 from flashattn_tpu_torch.utils import native
@@ -268,3 +276,121 @@ dkv.launches_bias = 0
 dq.launches = 0
 dq.launches_bias = 0
 dq.launches_dbias = 0
+
+
+def bias_bwd_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int, bias,
+                   dtype, softcap) -> bool:
+    """Whether a backward goes to the Hopper bias kernel
+    (``csrc/bwd_bias_sm90.cu``) in place of K5 then K6: exactly where the
+    forward took K1's bias route (``flash_fwd.bias_route``: a bias, bf16, D 64
+    or 128, no softcap, segment ids or window, not decode-shaped), ``rows``
+    being the forward's ``Hq / Hkv · Nq``. Every other call with a bias keeps
+    K5 and K6. :func:`bias_bwd` decides the device: a CPU tensor takes the
+    plain version."""
+    return bias_route(rows=rows, causal=causal, segment_ids=segment_ids, window=window,
+                      head_dim=head_dim, bias=bias, kv_dtype=dtype, softcap=softcap)
+
+
+def bias_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
+                       kv_valid_len: int | None = None, bias, want_dbias: bool = False):
+    """Plain PyTorch K5 + K6 over one :func:`recompute_p_ds`: ``(dQ, dK, dV,
+    dbias)``, f32, dQ ``[B, Hq, Nq, D]``, dK / dV ``[B, Hkv, Nk, D]`` summed
+    over each KV head's query heads (as the kernel writes them), dbias the
+    full ``[B, Hq, Nq, Nk]`` P (dP − Δ) with ``want_dbias``, else None."""
+    p, ds, qf, kf, _, dof, dl = recompute_p_ds(
+        q, k, v, do, lse, delta, scale=scale, causal=causal, kv_valid_len=kv_valid_len,
+        bias=bias)
+    B, Hq, _, D = q.shape
+    Hkv, Nk = k.shape[1], k.shape[2]
+    with _full_f32_matmul():
+        dq_ = torch.matmul(ds, kf)
+        dk = torch.matmul(ds.transpose(-1, -2), qf).view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
+        dv = torch.matmul(p.transpose(-1, -2), dof).view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
+    return dq_, dk, dv, (dl if want_dbias else None)
+
+
+# The kernel's Q tile: the LSE / Δ rows it bulk-copies, padded to a multiple.
+BIAS_BWD_BLOCK_M = 64
+
+
+def _launch_bias_bwd(lib, q, k, v, do, lse, delta, bias, bias_strides, dq_, dk, dv, dbias, *,
+                     scale, causal, kv_valid_len, nq_pad, stream) -> int:
+    """Call ``lib.fa_bwd_bias_sm90`` with the arguments of one launch (the C
+    entry's order, ``native.BWD_BIAS_SM90_ARGTYPES``); returns its
+    cudaError_t."""
+    B, Hq, Nq, D = q.shape
+    return lib.fa_bwd_bias_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), bias.data_ptr(), dq_.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if dbias is None else dbias.data_ptr(), B, Hq, k.shape[1], Nq, k.shape[2], D,
+        kv_valid_len, int(bool(causal)), nq_pad, float(scale), *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *bias_strides, stream)
+
+
+def _padded_rows(x, nq_pad: int):
+    """``x`` [B, Hq, Nq] as f32 with rows of ``nq_pad`` (zeros past Nq), the
+    kernel's LSE / Δ layout; ``x`` itself when already so."""
+    x = x.float().contiguous()
+    if x.shape[-1] == nq_pad:
+        return x
+    out = x.new_zeros((*x.shape[:-1], nq_pad))
+    out[..., :x.shape[-1]] = x
+    return out
+
+
+def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
+             kv_valid_len: int | None = None, bias, want_dbias: bool = False):
+    """K5 + K6 with a bias in one launch: ``(dQ, dK, dV, dbias)`` in f32, dQ
+    ``[B, Hq, Nq, D]``, dK / dV ``[B, Hkv, Nk, D]`` per KV head (summed over
+    its query heads), dbias the full ``[B, Hq, Nq, Nk]`` with ``want_dbias``,
+    else None.
+
+    Arguments as :func:`dkv`, ``bias`` ``[B|1, Hq|1, Nq|1, Nk]`` required.
+    CPU tensors take :func:`bias_bwd_reference`. CUDA tensors launch the
+    Hopper kernel, which takes what :func:`bias_bwd_route` sends it (bf16,
+    D 64 or 128); anything else raises. ``bias_bwd.launches`` counts kernel
+    launches, ``bias_bwd.launches_dbias`` those that wrote dbias.
+    """
+    kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len)
+    if bias is None:
+        raise ValueError("bias_bwd needs a bias")
+    B, Hq, Nq, D = q.shape
+    Hkv, Nk = k.shape[1], k.shape[2]
+    check_bias(bias, B, Hq, Nq, Nk, q.device)
+    kw = dict(scale=scale, causal=causal, kv_valid_len=kv_valid_len, bias=bias)
+    if q.device.type == "cpu":
+        return bias_bwd_reference(q, k, v, do, lse, delta, want_dbias=want_dbias, **kw)
+    check_kernel_args(q, "K5 + K6 bias route")
+    if D not in BIAS_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the CUDA K5 + K6 bias route takes head dims {BIAS_HEAD_DIMS}, got D={D} "
+            "(bias_bwd_route sends the others to K5 and K6)")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq_ = torch.zeros((B, Hq, Nq, D), **f32)
+    dk = torch.empty((B, Hkv, Nk, D), **f32)
+    dv = torch.empty((B, Hkv, Nk, D), **f32)
+    dbias = None
+    if want_dbias:
+        # The kernel writes the tiles it visits; causal and the KV tail leave others.
+        skipped = causal or kv_valid_len < Nk
+        dbias = (torch.zeros if skipped else torch.empty)((B, Hq, Nq, Nk), **f32)
+    if Nq == 0 or Nk == 0 or B == 0 or Hq == 0:  # an empty grid is not a valid launch
+        return dq_, dk.zero_(), dv.zero_(), None if dbias is None else dbias.zero_()
+    q, k, v, do = (_kernel_ready(x, tma=True) for x in (q, k, v, do))
+    nq_pad = -(-Nq // BIAS_BWD_BLOCK_M) * BIAS_BWD_BLOCK_M
+    lse, delta = _padded_rows(lse, nq_pad), _padded_rows(delta, nq_pad)
+    bias, bias_strides = sm90_bias(bias)
+    with torch.cuda.device(q.device):
+        rc = _launch_bias_bwd(native.kernels(), q, k, v, do, lse, delta, bias, bias_strides,
+                              dq_, dk, dv, dbias, scale=scale, causal=causal,
+                              kv_valid_len=kv_valid_len, nq_pad=nq_pad,
+                              stream=torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(rc, "bwd_bias_sm90 kernel launch")
+    bias_bwd.launches += 1
+    if want_dbias:
+        bias_bwd.launches_dbias += 1
+    return dq_, dk, dv, dbias
+
+
+bias_bwd.launches = 0
+bias_bwd.launches_dbias = 0

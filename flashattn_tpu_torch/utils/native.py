@@ -40,6 +40,21 @@ FWD_BIAS_SM90_ARGTYPES = [
     _PTR,                                # cudaStream_t
 ]
 
+# The C entry of K5 + K6's bias route (csrc/bwd_bias_sm90.cu).
+BWD_BIAS_SM90_ARGTYPES = [
+    _PTR, _PTR, _PTR, _PTR,              # q, k, v, dO
+    _PTR, _PTR,                          # lse, delta (f32 rows padded to nq_pad)
+    _PTR,                                # bias (f32)
+    _PTR, _PTR, _PTR, _PTR,              # dq (f32, zeroed), dk, dv (f32), dbias (f32, or None)
+    _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, Nq, Nk, D
+    _I32, _I32, _I32,                    # kv_valid_len, causal, nq_pad
+    ctypes.c_float,                      # scale
+    _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
+    _I64, _I64, _I64, _I64, _I64, _I64,  # v, dO (batch, head, seq) strides
+    _I64, _I64, _I64,                    # bias (batch, head, row) strides
+    _PTR,                                # cudaStream_t
+]
+
 _RING_DIMS = [
     _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, nq, nk, D
     _I32, _I32,                          # q_base, kv_off (global positions)
@@ -211,6 +226,8 @@ def kernels() -> ctypes.CDLL:
         i32, i32,                           # size, iters
         ptr,                                # cudaStream_t
     ]
+    lib.fa_bwd_bias_sm90.restype = i32
+    lib.fa_bwd_bias_sm90.argtypes = BWD_BIAS_SM90_ARGTYPES
     lib.fa_ring_fwd_bf16.restype = i32
     lib.fa_ring_fwd_bf16.argtypes = RING_FWD_ARGTYPES
     lib.fa_ring_bwd_bf16.restype = i32

@@ -151,6 +151,10 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
      "K9 gemm_wgmma_kernel<0>"),
     ("_ZN12_GLOBAL__N_120fwd_bias_sm90_kernelILi128EEEv14CUtensorMap_stS1_S1_N2fa13FwdBiasParamsE",
      "K1 bias sm90 fwd_bias_sm90_kernel<128>"),
+    ("_ZN49_GLOBAL__N__81d9f6ab_16_bwd_bias_sm90_cu_2c83e9c620bwd_bias_sm90_kernelILi128ELb1EEE"
+     "v14CUtensorMap_stS1_S1_S1_S1_NS_13BwdBiasParamsE", "bias bwd sm90 bwd_bias_sm90_kernel<128, 1>"),
+    ("_ZN49_GLOBAL__N__81d9f6ab_16_bwd_bias_sm90_cu_2c83e9c620bwd_bias_sm90_kernelILi64ELb0EEE"
+     "v14CUtensorMap_stS1_S1_S1_S1_NS_13BwdBiasParamsE", "bias bwd sm90 bwd_bias_sm90_kernel<64, 0>"),
     ("_ZN12_GLOBAL__N_113decode_kernelILi128ELi0EEEvN2fa12DecodeParamsE",
      "unrecognised instantiation decode_kernel<128, 0>"),
     ("_ZN12_GLOBAL__N_110fwd_kernelILi64ELb0EEEvN2fa9FwdParamsE",
