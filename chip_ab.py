@@ -15,15 +15,18 @@ events, median over 7 trials of the mean of 20 launches):
 
 * ``unet``: K1 non-causal, B1 H8 N4096 D40, BNHD (SD1.5's level-0 attention);
 * ``lm``: K1 causal at chip_smoke's "lm" shape, B1 Hq16 Hkv8 N2048 D128, BNHD;
-* ``k3``: K3 causal at the ``lm`` shape;
+* ``k3``: K3 causal at the ``lm`` shape (the mma.sync ``fwd_tile.cuh`` K1
+  and ``dkv_tile.cuh`` K3 of a parent before K1's dense route and K3's
+  Hopper kernel, their TMA + wgmma kernels after);
 * ``decode``, ``decode_int8``, ``decode_fp8``: K1's decode route (the
   split-KV decode kernel and its merge) with the cache-slot bias,
   q [8, 8, 2, 128] against bf16 / int8 / fp8 K/V [8, 8, 8192, 128]
   (bench_decode's folded decode attention, half live);
 * ``k1_seg``, ``k5``, ``k6``: K1 with segment ids, K5 and K6 at bench_lm's
   packed cell, B2 Hq16 Hkv8 N4096 D128 causal, 8 documents per row;
-* ``k3_win``, ``k5_cap``, ``k6_cap``: K3 with the SWA window, and K5 / K6
-  with the window and softcap 50, at B1 Hq16 Hkv8 N8192 D128;
+* ``k1_win``, ``k3_win``, ``k5_cap``, ``k6_cap``: K1 and K3 with the SWA
+  window, and K5 / K6 with the window and softcap 50, at B1 Hq16 Hkv8 N8192
+  D128;
 * ``k1_bias``: K1 with path A's key-padding bias [4, 1, N, N] at B4 H16
   N2048 D128, BNHD (the dense K1 before K1's bias route, the TMA + wgmma
   bias kernel after);
@@ -42,6 +45,9 @@ The children take their helpers and shapes from this checkout's
 chip_smoke.py, and pass only arguments that both checkouts take. Prints the
 card's name and power limit, one line per child, then per case each
 checkout's times, their medians and the second's median over the first's.
+K5's instantiations lost K3's dQ template argument with K3's Hopper kernel
+(``dkv_kernel<128, 0>`` became ``dkv_kernel<128>``); the SASS report names a
+parent's by the later name, so that they count as the same instantiation.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ import collections
 import json
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -62,14 +69,21 @@ SMOKE = pathlib.Path(__file__).resolve().with_name("chip_smoke.py")
 # The instantiation each case launches (chip_smoke.instantiation_name), or
 # (the first tree's, the second's) where a redesigned route launches another
 # kernel than a parent before it; " + " joins the kernels one case launches.
-CASE_KERNELS = {"unet": "K1 fwd_kernel<48, 0, 0, 0>", "lm": "K1 fwd_kernel<128, 0, 0, 0>",
-                "k3": "K3 dkv_kernel<128, 1>",
+CASE_KERNELS = {"unet": ("K1 fwd_kernel<48, 0, 0, 0>",
+                         "K1 dense sm90 fwd_dense_sm90_kernel<64, 0>"),
+                "lm": ("K1 fwd_kernel<128, 0, 0, 0>",
+                       "K1 dense sm90 fwd_dense_sm90_kernel<128, 0>"),
+                "k3": ("K3 dkv_kernel<128, 1>", "K3 sm90 bwd_sm90_kernel<128>"),
                 "decode": "K1 decode bias decode_kernel<128, 0, 1, 0>",
                 "decode_int8": "K1 decode int8 bias decode_kernel<128, 1, 1, 0>",
                 "decode_fp8": "K1 decode fp8 bias decode_kernel<128, 2, 1, 0>",
-                "k1_seg": "K1 segments fwd_kernel<128, 1, 0, 0>", "k5": "K5 dkv_kernel<128, 0>",
-                "k6": "K6 dq_kernel<128>", "k3_win": "K3 window dkv_window_kernel<128, 1, 0>",
-                "k5_cap": "K5 softcap window dkv_window_kernel<128, 0, 1>",
+                "k1_seg": ("K1 segments fwd_kernel<128, 1, 0, 0>",
+                           "K1 dense sm90 segments fwd_dense_sm90_kernel<128, 1>"),
+                "k5": "K5 dkv_kernel<128>", "k6": "K6 dq_kernel<128>",
+                "k1_win": ("K1 window fwd_window_kernel<128, 0, 0>",
+                           "K1 dense sm90 fwd_dense_sm90_kernel<128, 0>"),
+                "k3_win": ("K3 window dkv_window_kernel<128, 1, 0>", "K3 sm90 bwd_sm90_kernel<128>"),
+                "k5_cap": "K5 softcap window dkv_window_kernel<128, 1>",
                 "k6_cap": "K6 softcap window dq_window_kernel<128, 1>",
                 "k1_bias": ("K1 bias fwd_kernel<128, 0, 1, 0>",
                             "K1 bias sm90 fwd_bias_sm90_kernel<128>"),
@@ -145,6 +159,7 @@ for name, kw in (("k3_win", dict(scale=D ** -0.5, causal=causal, window=window))
     o, lse = flash_fwd.fwd(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
     if name == "k3_win":
+        out["k1_win"] = ms(lambda: flash_fwd.fwd(q, k, v, **kw))
         out[name] = ms(lambda: flash_bwd_fused.bwd(q, k, v, do, lse, delta, **kw))
     else:
         out["k5_cap"] = ms(lambda: flash_bwd.dkv(q, k, v, do, lse, delta, **kw))
@@ -194,6 +209,12 @@ print("AB " + json.dumps(out), flush=True)
 '''
 
 
+def _canonical(name: str) -> str:
+    """A parent's K5 instantiation under its later name (K3's dQ argument,
+    0 for K5, dropped); every other name as it is."""
+    return re.sub(r"^(K5[^<]* dkv(?:_window)?_kernel<\d+), 0([,>])", r"\1\2", name)
+
+
 def child(tree: pathlib.Path, code: str, tag: str) -> dict:
     """Run ``code`` in ``tree`` (its package first on the path) and return the
     JSON of its output line that starts with ``tag``."""
@@ -223,7 +244,10 @@ def main() -> None:
         code.append(child(t, CODE, "CODE"))
         print(f"[code] {shown}: {len(code[-1]['ptxas'])} instantiations built in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-    ops = [chip_smoke.sass_opcodes(c["lib"], set(c["ptxas"])) for c in code]
+    ops = [{_canonical(n): c for n, c in chip_smoke.sass_opcodes(x["lib"], set(x["ptxas"])).items()}
+           for x in code]
+    for x in code:
+        x["ptxas"] = {_canonical(n): v for n, v in x["ptxas"].items()}
     for case, name in CASE_KERNELS.items():
         names = (name, name) if isinstance(name, str) else name
         cols = []

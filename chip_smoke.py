@@ -5,9 +5,10 @@
 Builds the port's kernels from ``flashattn_tpu_torch/csrc/`` with nvcc (one
 nvcc per source, in parallel) and holds each against its plain PyTorch version
 at the shapes its paths give it: K1 non-causal (serving), K1 causal (which
-also stands for K2), the backward K3 (which also stands for K4), K1 with
-segment ids and the two-kernel backward K5 (dK/dV) + K6 (dQ) of packed
-training, K1's decode route (the split-KV decode kernel and its merge: bias,
+also stands for K2) and K1 with segment ids on K1's dense route (a TMA +
+wgmma forward, with wgmma and no mma.sync in its SASS), the backward K3
+(which also stands for K4; TMA + wgmma too), the two-kernel backward K5
+(dK/dV) + K6 (dQ) of packed training, K1's decode route (the split-KV decode kernel and its merge: bias,
 softcap + bias, int8 / fp8 K/V, against its plain split / merge version and
 the dense plain K1), the sliding-window and soft-capped variants of K1, K3,
 K5 and K6, K1's bias route (a TMA + wgmma forward that streams the f32 bias
@@ -327,12 +328,14 @@ def ptxas_stats(out: str) -> dict:
 
 
 def instantiation_name(mangled: str) -> str:
-    """The kernel (K1 and its variant, K1's decode and bias routes, K3, K5,
-    K6, K5 + K6's bias route, K7-K10) and template arguments of a mangled
-    instantiation name from ptxas, e.g. ``K1 int8 bias fwd_kernel<128, 0, 1,
-    1>``, ``K1 decode fp8 bias decode_kernel<128, 2, 1, 0>``, ``K1 bias sm90
-    fwd_bias_sm90_kernel<128>``, ``bias bwd sm90 bwd_bias_sm90_kernel<128,
-    1>`` or ``K5 softcap dkv_softcap_kernel<128>``
+    """The kernel (K1 and its variant, K1's decode, bias and dense routes,
+    K3, K5, K6, K5 + K6's bias route, K7-K10) and template arguments of a
+    mangled instantiation name from ptxas, e.g. ``K1 int8 bias
+    fwd_kernel<128, 0, 1, 1>``, ``K1 decode fp8 bias decode_kernel<128, 2, 1,
+    0>``, ``K1 bias sm90 fwd_bias_sm90_kernel<128>``, ``K1 dense sm90
+    segments fwd_dense_sm90_kernel<128, 1>``, ``K3 sm90
+    bwd_sm90_kernel<64>``, ``bias bwd sm90 bwd_bias_sm90_kernel<128, 1>`` or
+    ``K5 softcap dkv_softcap_kernel<128>``
     (K9 is ``gemm_wgmma_kernel``, K7 / K8 ``ring_{fwd,bwd}_sm90_kernel``; the
     earlier ``gemm_kernel`` and ``ring_{fwd,bwd}_kernel`` are still named,
     for chip_ab.py's parent builds); an unrecognised name comes back marked
@@ -348,6 +351,15 @@ def instantiation_name(mangled: str) -> str:
         variant = {0: "", 1: " int8", 2: " fp8"}.get(args[1], f" kv{args[1]}")
         return (f"K1 decode{variant}{' softcap' if args[3] else ''}{' bias' if args[2] else ''} "
                 f"{label}")
+    dense_sm90 = re.search(r"fwd_dense_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if dense_sm90:  # K1's dense route, fwd_dense_sm90_kernel<D, SEG>
+        args = re.findall(r"L[a-z]+(-?\d+)E", dense_sm90.group(1))
+        seg = " segments" if len(args) == 2 and args[1] == "1" else ""
+        return f"K1 dense sm90{seg} fwd_dense_sm90_kernel<{', '.join(args)}>"
+    k3_sm90 = re.search(r"\d(?:bwd_sm90_kernel)I((?:L[a-z]+-?\d+E)+)E", mangled)
+    if k3_sm90:  # K3 on Hopper, bwd_sm90_kernel<D> (not ring_bwd_sm90_kernel)
+        args = re.findall(r"L[a-z]+(-?\d+)E", k3_sm90.group(1))
+        return f"K3 sm90 bwd_sm90_kernel<{', '.join(args)}>"
     bias_sm90 = re.search(r"fwd_bias_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if bias_sm90:  # K1's bias route, fwd_bias_sm90_kernel<D>
         args = re.findall(r"L[a-z]+(-?\d+)E", bias_sm90.group(1))
@@ -383,16 +395,19 @@ def instantiation_name(mangled: str) -> str:
     args = [int(a) for a in re.findall(r"L[a-z]+(-?\d+)E", m.group(3))]
     label = f"{kind}{family}_kernel<{', '.join(map(str, args))}>"
     # Template arguments after DP, by kernel: K1 fwd_kernel<DP, SEG, BIAS, KV>,
-    # fwd_softcap_kernel<DP, SEG, BIAS>, fwd_window_kernel<DP, SEG, CAP>; K3/K5
-    # dkv_kernel<DP, DQ>, dkv_softcap_kernel<DP>, dkv_window_kernel<DP, DQ, CAP>;
-    # K6 dq_kernel<DP>, dq_softcap_kernel<DP>, dq_window_kernel<DP, CAP>; K5/K6
-    # with a bias dkv_bias_kernel<DP, CAP>, dq_bias_kernel<DP, CAP>. K7 / K8,
-    # K9 and K10: above.
+    # fwd_softcap_kernel<DP, SEG, BIAS>, fwd_window_kernel<DP, SEG, CAP>; K5
+    # dkv_kernel<DP>, dkv_softcap_kernel<DP>, dkv_window_kernel<DP, CAP> (and,
+    # in a parent that had the mma.sync K3, dkv_kernel<DP, DQ> and
+    # dkv_window_kernel<DP, DQ, CAP>); K6 dq_kernel<DP>, dq_softcap_kernel<DP>,
+    # dq_window_kernel<DP, CAP>; K5/K6 with a bias dkv_bias_kernel<DP, CAP>,
+    # dq_bias_kernel<DP, CAP>. The TMA + wgmma kernels: above.
     params = {("fwd", ""): ("seg", "bias", "kv"), ("fwd", "_softcap"): ("seg", "bias"),
-              ("fwd", "_window"): ("seg", "cap"), ("dkv", ""): ("dq",), ("dkv", "_softcap"): (),
-              ("dkv", "_window"): ("dq", "cap"), ("dkv", "_bias"): ("cap",), ("dq", ""): (),
+              ("fwd", "_window"): ("seg", "cap"), ("dkv", ""): (), ("dkv", "_softcap"): (),
+              ("dkv", "_window"): ("cap",), ("dkv", "_bias"): ("cap",), ("dq", ""): (),
               ("dq", "_softcap"): (), ("dq", "_window"): ("cap",),
               ("dq", "_bias"): ("cap",)}.get((kind, family))
+    if kind == "dkv" and family in ("", "_window") and len(args) == 2 + len(params):
+        params = ("dq", *params)
     if params is None or len(args) != 1 + len(params):
         return f"unrecognised instantiation {label}"
     a = dict(zip(params, args[1:]))
@@ -451,8 +466,11 @@ def phase_kernel_check() -> dict:
                            device=DEVICE)
         if bnhd:
             q, k, v = (_bnhd(x) for x in (q, k, v))
+        before = _launches()
         o, lse = flash_fwd.fwd(q, k, v, scale=D ** -0.5)
         torch.cuda.synchronize()
+        # D <= 128: K1's dense route; D 160 keeps fwd_tile.cuh.
+        _routed(f"K1 at {name}", before, K1=1, K1_dense_sm90=int(D <= 128))
         o_want, lse_want = flash_fwd.fwd_reference(q.float(), k.float(), v.float(), scale=D ** -0.5)
         ok_o, msg_o = check_close(o, o_want, o_tol, "O")
         ok_l, msg_l = check_close(lse, lse_want, lse_tol, "LSE")
@@ -498,8 +516,10 @@ def phase_causal_check() -> dict:
     for i, (name, B, Hq, Hkv, Nq, Nk, D) in enumerate(CAUSAL_CASES):
         q, k, v = (_bnhd(x) for x in make_qkv(200 + i, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv,
                                                dtype=torch.bfloat16, device=DEVICE))
+        before = _launches()
         o, lse = flash_fwd.fwd(q, k, v, scale=D ** -0.5, causal=True)
         torch.cuda.synchronize()
+        _routed(f"K1 causal at {name}", before, K1=1, K1_dense_sm90=1)
         o_want, lse_want = flash_fwd.fwd_reference(q.float(), k.float(), v.float(),
                                                    scale=D ** -0.5, causal=True)
         ok_o, msg_o = check_close(o, o_want, o_tol, "O")
@@ -530,9 +550,12 @@ def phase_causal_check() -> dict:
 
 def phase_bwd_check() -> dict:
     """K3 against bwd_reference on f32 copies of the same bf16 inputs, with
-    the same LSE and Delta (from the f32 forward). Budget BWD_TOL[bf16] per
-    element on dQ, dK and dV: the kernel feeds P and dS to the tensor cores
-    in bf16, and its dQ atomics sum in an order that changes from run to run."""
+    the same LSE and Delta (from the f32 forward), one launch of its Hopper
+    kernel each. Budget BWD_TOL[bf16] per element on dQ, dK and dV: the
+    kernel feeds P and dS to the tensor cores in bf16, and its dQ bulk
+    reductions add in an order that changes from run to run. Then, after
+    those numeric gates, the SASS of K1's dense route and of K3
+    (_tma_wgmma_sass): wgmma and TMA, no mma.sync."""
     from flashattn_tpu_torch.ops import flash_bwd_fused, flash_fwd
     from flashattn_tpu_torch.utils.testing import BWD_TOL, grad_gate, make_qkv
     from flashattn_tpu_torch.utils.timing import attention_flops
@@ -552,9 +575,11 @@ def phase_bwd_check() -> dict:
         o32, lse = flash_fwd.fwd_reference(q.float(), k.float(), v.float(), scale=scale,
                                            causal=causal, kv_valid_len=kvl)
         delta = (do.float() * o32).sum(-1)
+        before = _launches()
         got = flash_bwd_fused.bwd(q, k, v, do, lse, delta, scale=scale, causal=causal,
                                   kv_valid_len=kvl)
         torch.cuda.synchronize()
+        _routed(f"K3 at {name}", before, K3=1, K3_sm90=1)
         want = flash_bwd_fused.bwd_reference(q.float(), k.float(), v.float(), do.float(), lse,
                                              delta, scale=scale, causal=causal, kv_valid_len=kvl)
         ok, why, gmd, _ = grad_gate(got, want, tol)
@@ -582,6 +607,10 @@ def phase_bwd_check() -> dict:
                   f"({tf / res['ms']:.1f} TFLOP/s), plain version {res['plain_ms']:.4f} ms "
                   f"({tf / res['plain_ms']:.1f} TFLOP/s), bound {res['bound_ms']:.4f} ms, SDPA "
                   f"backward {res['library_ms']:.4f} ms (median CUDA-event time)")
+    _tma_wgmma_sass("kernel", {f"K1 dense sm90{' segments' if seg else ''} "
+                               f"fwd_dense_sm90_kernel<{d}, {seg}>"
+                               for d in (64, 128) for seg in (0, 1)}
+                    | {f"K3 sm90 bwd_sm90_kernel<{d}>" for d in (64, 128)})
     return res
 
 
@@ -647,8 +676,10 @@ def phase_seg_check() -> dict:
                                                dtype=torch.bfloat16, device=DEVICE))
         do = _bnhd(make_qkv(600 + i, B, Hq, Nq, D, dtype=torch.bfloat16, device=DEVICE)[0])
         kw = dict(scale=D ** -0.5, causal=causal, segment_ids=_seg_case_ids(kind, 700 + i, B, Nq, Nk))
+        before = _launches()
         o, lse = flash_fwd.fwd(q, k, v, **kw)
         torch.cuda.synchronize()
+        _routed(f"K1 with segments at {name}", before, K1=1, K1_dense_sm90=1)
         f32 = [x.float() for x in (q, k, v, do)]
         o_want, lse_want = flash_fwd.fwd_reference(*f32[:3], **kw)
         live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
@@ -717,6 +748,18 @@ def phase_seg_check() -> dict:
             "the backward of flex_attention (torch.compile) with the causal document mask "
             "(dQ, dK and dV in one call)"))
     causal_ms = cuda_ms(lambda: flash_fwd.fwd(q, k, v, scale=kw["scale"], causal=True))
+    # The dense route's call is the segment inputs' few small launches
+    # (flash_fwd.sm90_segments: one aminmax per side) and then the kernel; each
+    # alone, the kernel on inputs made once.
+    from flashattn_tpu_torch.utils import native
+
+    seg = flash_fwd.sm90_segments(kw["segment_ids"], N, N)
+    o_k, lse_k = torch.empty_like(q), torch.empty((B, Hq, N), dtype=torch.float32, device=DEVICE)
+    stream = torch.cuda.current_stream().cuda_stream
+    alone_ms = cuda_ms(lambda: flash_fwd._launch_dense_sm90(
+        native.kernels(), q, k, v, o_k, lse_k, seg, scale=kw["scale"], kv_valid_len=N, causal=True,
+        window=None, stream=stream))
+    seg_ms = cuda_ms(lambda: flash_fwd.sm90_segments(kw["segment_ids"], N, N))
     log("seg", f"packed shape B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal, 8 documents per row, bf16: "
                f"K1 with segments {res['k1']['ms']:.4f} ms (plain {res['k1']['plain_ms']:.4f}), "
                f"K5 {res['k5']['ms']:.4f} ms (plain {res['k5']['plain_ms']:.4f}), "
@@ -724,7 +767,9 @@ def phase_seg_check() -> dict:
                f"flex_attention {res['k1']['library_ms']:.4f} ms, its backward "
                f"{bwd_ms:.4f} ms (median CUDA-event time)")
     log("seg", f"not gated: K1 causal without segments at the same shape {causal_ms:.4f} ms; "
-               f"K1 with segments / K1 causal = {res['k1']['ms'] / causal_ms:.3f}")
+               f"K1 with segments / K1 causal = {res['k1']['ms'] / causal_ms:.3f}; of the K1 call, "
+               f"the kernel alone {alone_ms:.4f} ms, the segment inputs alone (sm90_segments) "
+               f"{seg_ms:.4f} ms")
 
     B, Hq, Hkv, N, _, D = CAUSAL_CASES[0][1:]
     q, k, v = (_bnhd(x) for x in make_qkv(800, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16,
@@ -782,7 +827,7 @@ def phase_slice() -> int:
     launches = None
     for arm in ("fused", "xla"):
         if arm == "fused":
-            flash_fwd.fwd.launches = 0
+            _reset_launches()
         secs = []
         for ctx_r, noise_r in requests:
             torch.cuda.synchronize()
@@ -794,17 +839,18 @@ def phase_slice() -> int:
             if lat.shape != shape or not torch.isfinite(lat).all():
                 fail(f"{arm} sample is not finite or has shape {tuple(lat.shape)}")
         if arm == "fused":
-            launches = flash_fwd.fwd.launches
+            launches = _launches()
         s_req = statistics.mean(secs)
         log("slice", f"{arm}: {REQUESTS} requests x {STEPS} Euler steps, "
                      f"{s_req:.4f} s/request ({', '.join(f'{s:.4f}' for s in secs)}), "
                      f"{STEPS / s_req:.2f} it/s, latents finite")
-    log("slice", f"K1 launches during the fused requests: {launches} (expected "
-                 f"{per_forward} per forward from _exact_is_faster x {STEPS} steps x "
-                 f"{REQUESTS} requests = {expected})")
-    if launches != expected:
-        fail(f"K1 launched {launches} times on the main path, expected {expected}")
-    return launches
+    log("slice", f"launches during the fused requests: {launches} (expected K1 = K1 dense sm90 "
+                 f"= {per_forward} per forward from _exact_is_faster x {STEPS} steps x "
+                 f"{REQUESTS} requests = {expected}, no other)")
+    if launches != _expect(K1=expected, K1_dense_sm90=expected):
+        fail(f"the U-Net launched {launches} on the main path, expected K1 = K1 dense sm90 = "
+             f"{expected} and no other")
+    return launches["K1 dense sm90"]
 
 
 def _rel_l2(a: dict, b: dict) -> float:
@@ -908,7 +954,8 @@ def _reset_launches() -> None:
 
     flash_fwd.fwd.launches = flash_bwd_fused.bwd.launches = 0
     flash_fwd.fwd.launches_bias = flash_fwd.fwd.launches_int8 = flash_fwd.fwd.launches_fp8 = 0
-    flash_fwd.fwd.launches_bias_sm90 = 0
+    flash_fwd.fwd.launches_bias_sm90 = flash_fwd.fwd.launches_dense_sm90 = 0
+    flash_bwd_fused.bwd.launches_sm90 = 0
     flash_fwd.fwd.launches_window = flash_fwd.fwd.launches_softcap = 0
     flash_fwd.fwd.launches_decode = flash_fwd.fwd.launches_merge = 0
     flash_bwd.dkv.launches = flash_bwd.dq.launches = 0
@@ -922,7 +969,9 @@ def _launches() -> dict:
     """Every kernel's launch count; "K1" counts all K1 launches, "K1 bias",
     "K1 int8", "K1 fp8", "K1 window" and "K1 softcap" those of its variants
     (a launch with a window and a softcap counts in both), "K1 bias sm90"
-    those of K1's bias route (also counted in "K1 bias"); "K5 bias" and "K6
+    those of K1's bias route (also counted in "K1 bias"), "K1 dense sm90"
+    those of K1's dense route (a window's also in "K1 window"); "K3" all K3
+    launches, "K3 sm90" those of its Hopper kernel; "K5 bias" and "K6
     bias" the K5 / K6 launches with a bias, "K6 dbias" those that also wrote
     dbias; "bias bwd" the launches of K5 + K6's bias route (one kernel for
     both), "bias bwd dbias" those that wrote dbias."""
@@ -931,11 +980,13 @@ def _launches() -> dict:
 
     return {"K1": flash_fwd.fwd.launches, "K1 bias": flash_fwd.fwd.launches_bias,
             "K1 bias sm90": flash_fwd.fwd.launches_bias_sm90,
+            "K1 dense sm90": flash_fwd.fwd.launches_dense_sm90,
             "K1 int8": flash_fwd.fwd.launches_int8, "K1 fp8": flash_fwd.fwd.launches_fp8,
             "K1 window": flash_fwd.fwd.launches_window,
             "K1 softcap": flash_fwd.fwd.launches_softcap,
             "K1 decode": flash_fwd.fwd.launches_decode, "K1 merge": flash_fwd.fwd.launches_merge,
-            "K3": flash_bwd_fused.bwd.launches, "K5": flash_bwd.dkv.launches,
+            "K3": flash_bwd_fused.bwd.launches, "K3 sm90": flash_bwd_fused.bwd.launches_sm90,
+            "K5": flash_bwd.dkv.launches,
             "K5 bias": flash_bwd.dkv.launches_bias, "K6": flash_bwd.dq.launches,
             "K6 bias": flash_bwd.dq.launches_bias, "K6 dbias": flash_bwd.dq.launches_dbias,
             "bias bwd": flash_bwd.bias_bwd.launches,
@@ -947,6 +998,16 @@ def _launches() -> dict:
 def _expect(**counts) -> dict:
     """A launch-count dict with every kernel not named at 0."""
     return {**dict.fromkeys(_launches(), 0), **{k.replace("_", " "): v for k, v in counts.items()}}
+
+
+def _routed(tag: str, before: dict, **want) -> None:
+    """Fail unless the launches since ``before`` (a _launches() dict) are
+    exactly ``want`` (named as _expect's arguments) and no other: a kernel
+    check's call went through the route it is meant to hold."""
+    now = _launches()
+    got = {n: now[n] - before[n] for n in now if now[n] != before[n]}
+    if got != {k.replace("_", " "): v for k, v in want.items() if v}:
+        fail(f"{tag} launched {got}, expected {want}")
 
 
 def phase_train() -> tuple[int, int]:
@@ -961,11 +1022,12 @@ def phase_train() -> tuple[int, int]:
     counts = _launches()
     _lm_steps(cfg, tokens, "xla", phase="train", label="xla")
     expected = cfg.n_layers * LM_STEPS
-    log("train", f"launches during the fused steps: {counts} (expected K1 = K3 = "
-                 f"{cfg.n_layers} layers x {LM_STEPS} steps = {expected}, no other)")
-    if counts != _expect(K1=expected, K3=expected):
-        fail(f"LM steps launched {counts}, expected K1 = K3 = {expected} and no other")
-    return counts["K1"], counts["K3"]
+    log("train", f"launches during the fused steps: {counts} (expected K1 = K1 dense sm90 = K3 "
+                 f"= K3 sm90 = {cfg.n_layers} layers x {LM_STEPS} steps = {expected}, no other)")
+    if counts != _expect(K1=expected, K1_dense_sm90=expected, K3=expected, K3_sm90=expected):
+        fail(f"LM steps launched {counts}, expected K1 = K1 dense sm90 = K3 = K3 sm90 = "
+             f"{expected} and no other")
+    return counts["K1 dense sm90"], counts["K3 sm90"]
 
 
 def phase_packed_train() -> dict:
@@ -991,11 +1053,12 @@ def phase_packed_train() -> dict:
     plain_s = _lm_steps(cfg, tokens, "fused", phase="packed", label="fused, unpacked")
     expected = cfg.n_layers * LM_STEPS
     log("packed", f"packed step / unpacked step at [{B}, {N + 1}]: {packed_s / plain_s:.3f}")
-    log("packed", f"launches during the packed fused steps: {counts} (expected K1 = K5 = K6 = "
-                  f"{cfg.n_layers} layers x {LM_STEPS} steps = {expected}, no other)")
-    if counts != _expect(K1=expected, K5=expected, K6=expected):
-        fail(f"packed LM steps launched {counts}, expected K1 = K5 = K6 = {expected} and no "
-             "other")
+    log("packed", f"launches during the packed fused steps: {counts} (expected K1 = K1 dense "
+                  f"sm90 = K5 = K6 = {cfg.n_layers} layers x {LM_STEPS} steps = {expected}, no "
+                  "other)")
+    if counts != _expect(K1=expected, K1_dense_sm90=expected, K5=expected, K6=expected):
+        fail(f"packed LM steps launched {counts}, expected K1 = K1 dense sm90 = K5 = K6 = "
+             f"{expected} and no other")
     return counts
 
 
@@ -1414,10 +1477,11 @@ def band_ranges(n_outer: int, n_inner: int, outer: int, inner: int, lo, hi):
     """The inner rows a banded kernel visits for each ``outer``-row tile:
     ``(o0, begin, end)``, the ``inner``-aligned tiles from ``begin`` that meet
     the band [o0 - lo, o0 + outer - 1 + hi] (None: unbounded), up to ``end``
-    -- the ranges that csrc/fwd_tile.cuh and dq_tile.cuh (Q tiles outer, KV
-    tiles inner) and csrc/dkv_tile.cuh (KV tiles outer, with lo and hi
-    swapped) compute, restated here only to print how many tile pairs they
-    visit. Whether the kernels' own ranges hold the band is shown by
+    -- the ranges that the forwards (csrc/fwd_sm90_tile.cuh, fwd_tile.cuh) and
+    K6 (dq_tile.cuh) (Q tiles outer, KV tiles inner) and the KV-major
+    backwards (csrc/bwd_sm90_tile.cuh, dkv_tile.cuh: KV tiles outer, with lo
+    and hi swapped) compute, restated here only to print how many tile pairs
+    they visit. Whether the kernels' own ranges hold the band is shown by
     phase_window_check's edge cases on the card."""
     for o0 in range(0, n_outer, outer):
         begin = 0 if lo is None else max(0, o0 - lo) // inner * inner
@@ -1478,8 +1542,14 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     from flashattn_tpu_torch.utils.testing import (
         BWD_TOL, FWD_TOL, Tolerance, check_close, grad_gate)
 
+    before = _launches()
     o, lse = flash_fwd.fwd(q, k, v, **kw)
     torch.cuda.synchronize()
+    # Without a bias or a softcap at D <= 128: K1's dense route.
+    dense = "bias" not in kw and "softcap" not in kw and q.shape[-1] <= 128
+    if dense:
+        _routed(f"K1 at {tag}", before, K1=1, K1_dense_sm90=1,
+                K1_window=int(flash_fwd.kernel_window(kw.get("window")) != (-1, -1)))
     f32 = [x.float() for x in (q, k, v, do)]
     o_want, lse_want = flash_fwd.fwd_reference(*f32[:3], **kw)
     live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
@@ -1490,7 +1560,10 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     args = (q, k, v, do, lse_want, delta)
     split = any(n in kw for n in ("softcap", "segment_ids", "bias"))
     if not split:
+        before = _launches()
         got = flash_bwd_fused.bwd(*args, **kw)
+        torch.cuda.synchronize()
+        _routed(f"K3 at {tag}", before, K3=1, K3_sm90=1)
         want = flash_bwd_fused.bwd_reference(*f32, lse_want, delta, **kw)
         names = ("dq", "dk", "dv")
     else:
@@ -1657,9 +1730,10 @@ def phase_window_check() -> dict:
           "library_ms": sdpa_ms(q, k, v, do=do, attn_mask=band),
           "library_call": "the backward of scaled_dot_product_attention(attn_mask=band)"}
     k3_full = cuda_ms(lambda: flash_bwd_fused.bwd(*args, **full))
-    bm = 64 if D <= 64 else 32  # K3's Q tile (csrc/dkv_tile.cuh block_m)
-    tiles = {"K1": (band_tiles(N, N, 64, 64, wl, 0), band_tiles(N, N, 64, 64, None, 0)),
-             "K3": (band_tiles(N, N, 64, bm, 0, wl), band_tiles(N, N, 64, bm, 0, None))}
+    # K1's dense route: Q tiles of 128 rows, KV tiles of 64; K3: KV tiles of
+    # 128 rows, Q tiles of 64 (csrc/fwd_sm90_tile.cuh, bwd_sm90_tile.cuh).
+    tiles = {"K1": (band_tiles(N, N, 128, 64, wl, 0), band_tiles(N, N, 128, 64, None, 0)),
+             "K3": (band_tiles(N, N, 128, 64, 0, wl), band_tiles(N, N, 128, 64, 0, None))}
     for name, res_k, full_ms in (("K1", k1, k1_full), ("K3", k3, k3_full)):
         visited, causal_pairs = tiles[name]
         log("window", f"{name} window {kw['window']} causal at B{B} Hq{Hq} Hkv{Hkv} N{N} D{D}: "
@@ -1770,10 +1844,12 @@ def phase_swa_train() -> dict:
                        label="fused, full causal")
     n = cfg.n_layers * LM_STEPS
     log("swa", f"windowed step / full-causal step at [1, {SWA_SEQ + 1}]: {swa_s / full_s:.3f}")
-    log("swa", f"launches during the windowed steps: {counts} (expected K1 = K1 window = K3 = "
-               f"{cfg.n_layers} layers x {LM_STEPS} steps = {n}, no other)")
-    if counts != _expect(K1=n, K1_window=n, K3=n):
-        fail(f"SWA steps launched {counts}, expected K1 = K1 window = K3 = {n} and no other")
+    log("swa", f"launches during the windowed steps: {counts} (expected K1 = K1 window = K1 "
+               f"dense sm90 = K3 = K3 sm90 = {cfg.n_layers} layers x {LM_STEPS} steps = {n}, no "
+               "other)")
+    if counts != _expect(K1=n, K1_window=n, K1_dense_sm90=n, K3=n, K3_sm90=n):
+        fail(f"SWA steps launched {counts}, expected K1 = K1 window = K1 dense sm90 = K3 = K3 "
+             f"sm90 = {n} and no other")
 
     cfg = dataclasses.replace(cfg, remat=True)
     tokens = torch.randint(0, cfg.vocab_size, (1, SWA_REMAT_SEQ + 1), generator=gen,
@@ -1783,10 +1859,11 @@ def phase_swa_train() -> dict:
               steps=SWA_REMAT_STEPS, warmup=1)
     remat = _launches()
     n = cfg.n_layers * SWA_REMAT_STEPS
-    log("swa", f"launches during the remat steps: {remat} (expected K1 = K1 window = 2 x {n} "
-               f"(forward and its recomputation), K3 = {n})")
-    if remat != _expect(K1=2 * n, K1_window=2 * n, K3=n):
-        fail(f"SWA remat steps launched {remat}, expected K1 = K1 window = {2 * n}, K3 = {n}")
+    log("swa", f"launches during the remat steps: {remat} (expected K1 = K1 window = K1 dense "
+               f"sm90 = 2 x {n} (forward and its recomputation), K3 = K3 sm90 = {n})")
+    if remat != _expect(K1=2 * n, K1_window=2 * n, K1_dense_sm90=2 * n, K3=n, K3_sm90=n):
+        fail(f"SWA remat steps launched {remat}, expected K1 = K1 window = K1 dense sm90 = "
+             f"{2 * n}, K3 = K3 sm90 = {n}")
     return counts
 
 
@@ -2027,7 +2104,7 @@ def phase_bias_check() -> dict:
     _bias_bwd_check) on BIAS_ROUTE_CASES, the dense kernel's bias
     instantiation on BIAS_TILE_CASE, and, after the numeric gates, the two
     Hopper bias kernels' SASS has wgmma and no mma.sync. Times K1 on both
-    arms' biases (beside the dense K1 without a bias at that shape), the
+    arms' biases (beside K1's dense route without a bias at that shape), the
     route's backward on both arms, K5 and K6 with the mask arm's bias and K6
     with dbias with the learned arm's (the design before the route), beside
     their plain versions and SDPA's backward, and the route and K6 with and
@@ -2067,9 +2144,9 @@ def phase_bias_check() -> dict:
         **bound(tensor_bytes(q, k, v, pad, q) + stats, pair_flops(q, k, matmuls=2, **mask)),
         "library_ms": sdpa_ms(q, k, v, attn_mask=pad),
         "library_call": "scaled_dot_product_attention(attn_mask=the key-padding bias)",
-        # The dense K1 (fwd_tile.cuh) without a bias at this shape: the body's
-        # cost apart from the bias's.
-        "fwd_tile_no_bias_ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, scale=D ** -0.5))}
+        # K1's dense route (flash_fwd_sm90.cu) without a bias at this shape: the
+        # shared body's cost apart from the bias's.
+        "dense_sm90_no_bias_ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, scale=D ** -0.5))}
     res["k5_bias"] = {
         "max_abs_err": out["bwd_err"], "ms": cuda_ms(lambda: flash_bwd.dkv(*args, **kw)),
         "plain_ms": cuda_ms(lambda: flash_bwd.dkv_reference(*args, **kw), reps=2, trials=3),
@@ -2089,8 +2166,8 @@ def phase_bias_check() -> dict:
         **bwd_library}
     log("bias", f"path A's attention: K1 bias sm90 {res['k1_bias']['ms']:.4f} ms (plain "
                 f"{res['k1_bias']['plain_ms']:.4f}, SDPA {res['k1_bias']['library_ms']:.4f}, bound "
-                f"{res['k1_bias']['bound_ms']:.4f} {res['k1_bias']['bound_by']}; the dense K1 "
-                f"without a bias {res['k1_bias']['fwd_tile_no_bias_ms']:.4f}), "
+                f"{res['k1_bias']['bound_ms']:.4f} {res['k1_bias']['bound_by']}; K1's dense route "
+                f"without a bias {res['k1_bias']['dense_sm90_no_bias_ms']:.4f}), "
                 f"K5 + K6's bias route {res['bias_bwd']['ms']:.4f} ms (plain "
                 f"{res['bias_bwd']['plain_ms']:.4f}, bound {res['bias_bwd']['bound_ms']:.4f} "
                 f"{res['bias_bwd']['bound_by']}, "
@@ -2683,9 +2760,8 @@ def phase_ring() -> dict:
         o1, lse1 = flash_fwd.fwd(q2, k, v, scale=rk.LN2, **kw)
         delta = (do.float() * o1.float()).sum(-1)
         g3 = flash_bwd_fused.bwd(q2, k, v, do, lse1, delta, scale=rk.LN2, **kw)
-        rep = hq // hkv
         single = {"o": o1, "lse": lse1, "dq": g3[0] * s2q,
-                  **{n: g.view(1, hkv, rep, *g.shape[2:]).sum(2)
+                  **{n: g.view(1, hkv, g.shape[1] // hkv, *g.shape[2:]).sum(2)
                      for n, g in zip(("dk", "dv"), g3[1:])}}
         _ring_gate(tag, got, single, "single-device K1 / K3")
         if name == "1 rank":
@@ -2847,9 +2923,9 @@ def main() -> None:
     bias_train = timed(phase_bias_train)
     roof = timed(phase_roofline)
     ring = timed(phase_ring)
-    fwd_src, bwd_src, split_src, win_src, cap_win_src, split_win_src, bias_src, bias_sm90_src = (
+    fwd_src, bwd_src, split_src, cap_win_src, split_win_src, bias_src, bias_sm90_src = (
         f"flashattn_tpu_torch/csrc/flash_{d}.cu"
-        for d in ("fwd", "bwd", "bwd_split", "fwd_window", "fwd_softcap_window",
+        for d in ("fwd_sm90", "bwd_sm90", "bwd_split", "fwd_softcap_window",
                   "bwd_split_window", "bwd_split_bias", "fwd_bias_sm90"))
     # K1's decode route: the decode kernel and, where a call has more than one
     # split, its merge kernel, both launched by flash_fwd.fwd's one C call
@@ -2865,15 +2941,18 @@ def main() -> None:
             ("fp8", "fp8 K/V", "flash_decode_quant", "fp8", dec["fp8"]),
             ("bf16 soft-capped", "softcap", "flash_decode", "softcap", cap["decode"]))]
     print(json.dumps({"kernels": [
-        {"name": "flash_fwd (K1)", "route": "cuda", "source": fwd_src,
-         "replaces": "flashattn_tpu/ops/flash_fwd.py:115", "launches": launches, **k1},
-        {"name": "flash_fwd causal (K1 causal, K2)", "route": "cuda", "source": fwd_src,
+        {"name": "flash_fwd_sm90 (K1's dense route, wgmma: SD1.5 U-Net self-attention, D 40)",
+         "route": "cuda", "source": fwd_src, "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+         "launches": launches, **k1},
+        {"name": "flash_fwd_sm90 causal (K1's dense route, wgmma: LM causal, K2)",
+         "route": "cuda", "source": fwd_src,
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:516",
          "launches": k1c_launches, **k1c},
-        {"name": "flash_fwd segments (K1 causal + segment ids)", "route": "cuda",
-         "source": fwd_src, "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
-         "launches": packed["K1"], **seg["k1"]},
-        {"name": "flash_bwd (K3, K4)", "route": "cuda", "source": bwd_src,
+        {"name": "flash_fwd_sm90 segments (K1's dense route, wgmma: packed LM, causal + "
+                 "segment ids)", "route": "cuda", "source": fwd_src,
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+         "launches": packed["K1 dense sm90"], **seg["k1"]},
+        {"name": "flash_bwd_sm90 (K3, wgmma: LM causal, K4)", "route": "cuda", "source": bwd_src,
          "replaces": "flashattn_tpu/ops/flash_bwd_fused.py:110, "
                      "flashattn_tpu/ops/flash_bwd_fused.py:336",
          "launches": k3_launches, **k3},
@@ -2882,14 +2961,15 @@ def main() -> None:
         {"name": "flash_bwd_split dq (K6)", "route": "cuda", "source": split_src,
          "replaces": "flashattn_tpu/ops/flash_bwd.py:234", "launches": packed["K6"],
          **seg["k6"]}, *decode_kernels,
-        {"name": "flash_fwd window (K1 causal + sliding window, K2 windowed)", "route": "cuda",
-         "source": win_src,
+        {"name": "flash_fwd_sm90 window (K1's dense route, wgmma: SWA, causal + sliding "
+                 "window, K2 windowed)", "route": "cuda", "source": fwd_src,
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:852",
-         "launches": swa["K1 window"], **win["k1_window"]},
-        {"name": "flash_bwd window (K3, K4 windowed)", "route": "cuda", "source": bwd_src,
+         "launches": swa["K1 dense sm90"], **win["k1_window"]},
+        {"name": "flash_bwd_sm90 window (K3, wgmma: SWA, K4 windowed)", "route": "cuda",
+         "source": bwd_src,
          "replaces": "flashattn_tpu/ops/flash_bwd_fused.py:110, "
                      "flashattn_tpu/ops/flash_bwd_fused.py:651",
-         "launches": swa["K3"], **win["k3_window"]},
+         "launches": swa["K3 sm90"], **win["k3_window"]},
         {"name": "flash_fwd softcap (K1 + logit softcap + sliding window)", "route": "cuda",
          "source": cap_win_src, "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
          "launches": cap["train"]["K1 softcap"], **win["k1_softcap"]},

@@ -1,11 +1,12 @@
 """Time the design variants of the TMA + wgmma kernels against the committed ones, on one GPU.
 
-    python3 chip_variants.py [ring] [bias]
+    python3 chip_variants.py [ring] [bias] [k3]
 
-(both families without an argument). Each variant is a committed source
-with one design choice undone by a text patch, built alone (nvcc, all at
-once, ``ptxas -v``) into its own library under ``flashattn_tpu_torch/build/
-variants/`` and called through the wrappers' argument packing. Family
+(every family without an argument). Each variant is a committed source
+with one design choice undone by text patches (of the source, or of the
+header that holds its body, or of both), built alone (nvcc, all at once, ``ptxas -v``) into its own library under
+``flashattn_tpu_torch/build/variants/`` and called through the wrappers'
+argument packing. Family
 ``ring``, ``csrc/ring_fwd.cu`` / ``csrc/ring_bwd.cu`` through
 ``ring_kernel._launch_fwd`` / ``_launch_bwd``:
 
@@ -27,7 +28,8 @@ relative L2 errors of dQ, dK, dV, printed), then every variant is timed in
 turns (3 rounds, each variant once a round, chip_smoke.cuda_ms) on the
 off-diagonal and the diagonal chunk pair.
 
-Family ``bias``, K5 + K6's bias route ``csrc/bwd_bias_sm90.cu`` through
+Family ``bias``, K5 + K6's bias route ``csrc/bwd_bias_sm90.cu`` (its body
+``csrc/bwd_sm90_tile.cuh``, which the patches change) through
 ``flash_bwd._launch_bias_bwd``:
 
 * ``bias bwd``: as committed (the bias stage released once P^T is formed,
@@ -48,7 +50,23 @@ Family ``bias``, K5 + K6's bias route ``csrc/bwd_bias_sm90.cu`` through
 At path A's shape (B4 H16 N2048 D128) with its mask arm's key-padding bias
 [4, 1, N, N] (no dbias) and its learned arm's [4, 16, N, N] bias (dbias),
 each variant is held against ``bias_bwd_reference`` (errors printed), then
-timed in turns as the ring's. Prints the card's name and power limit first.
+timed in turns as the ring's.
+
+Family ``k3``, K3 ``csrc/flash_bwd_sm90.cu`` (its body
+``csrc/bwd_sm90_tile.cuh``) through ``flash_bwd_fused._launch``, the grid's
+two owners of a CTA:
+
+* ``K3``: as committed, one CTA per (query head, KV tile of 128), dK / dV
+  per query head, summed over each KV head's group by the caller;
+* ``K3 per KV head``: one CTA per (KV head, KV tile), its Hq / Hkv query
+  heads in turn, dK / dV per KV head (half the CTAs at GQA 16 / 8): the
+  grid's x extent and the body's owner patched.
+
+At the LM's shape (B1 Hq16 Hkv8 N2048 D128 causal) and the SWA shape (N8192,
+window 2047 to the left, causal) each is held against ``bwd_reference``
+(dK / dV summed over the group), then timed in turns, the caller's sum of
+the committed kernel's per-query-head dK / dV included. Prints the card's name and power limit
+first.
 """
 
 from __future__ import annotations
@@ -151,45 +169,59 @@ def _no_dq(src: str) -> str:
 
 
 def _bias_to_end(src: str) -> str:
-    src = src.replace("""      __syncwarp();
-      if (lane == 0) mbar_arrive(&bias_empty[bs]);  // this warp is done with the bias tile
+    src = src.replace("""      if constexpr (BIAS) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&bias_empty[bs]);  // this warp is done with the bias tile
+      }
 """, "")
     return src.replace("if (lane == 0) mbar_arrive(&empty[s]);",
                        "if (lane == 0) {\n        mbar_arrive(&empty[s]);\n"
                        "        mbar_arrive(&bias_empty[bs]);\n      }")
 
 
-# name: (source, patch)
+def _regs(s: str) -> str:
+    return s.replace("setmaxnreg.dec.sync.aligned.u32 24", "setmaxnreg.dec.sync.aligned.u32 40"
+                     ).replace("setmaxnreg.inc.sync.aligned.u32 240",
+                               "setmaxnreg.inc.sync.aligned.u32 232")
+
+
+BIAS_BODY = "bwd_sm90_tile.cuh"
+# name: (source, ((the file a patch changes, patch), ...)).
 VARIANTS = {
-    "K8": ("ring_bwd.cu", None),
-    "K8 S+dP together": ("ring_bwd.cu", _together),
-    "K8 bf16 P in dS": ("ring_bwd.cu", _bf16_p),
-    "K8 232 registers": ("ring_bwd.cu", lambda s: s.replace(
-        "setmaxnreg.dec.sync.aligned.u32 24", "setmaxnreg.dec.sync.aligned.u32 40").replace(
-        "setmaxnreg.inc.sync.aligned.u32 240", "setmaxnreg.inc.sync.aligned.u32 232")),
-    "K8 red.v4": ("ring_bwd.cu", _red_v4),
-    "K7": ("ring_fwd.cu", None),
-    "K7 6 stages": ("ring_fwd.cu", lambda s: s.replace("static constexpr int STAGES = 4;",
-                                                       "static constexpr int STAGES = 6;")),
-    "bias bwd": ("bwd_bias_sm90.cu", None),
-    "bias bwd no dQ": ("bwd_bias_sm90.cu", _no_dq),
-    "bias bwd bias to the end": ("bwd_bias_sm90.cu", _bias_to_end),
-    "bias bwd plain dbias stores": ("bwd_bias_sm90.cu", lambda s: s.replace(
-        "__stcs(dst, d0)", "*dst = d0").replace("__stcs(dst + p.nk, d1)", "dst[p.nk] = d1")),
-    "bias bwd no dQ reduction": ("bwd_bias_sm90.cu", lambda s: s.replace(
+    "K8": ("ring_bwd.cu", ()),
+    "K8 S+dP together": ("ring_bwd.cu", (("ring_bwd.cu", _together),)),
+    "K8 bf16 P in dS": ("ring_bwd.cu", (("ring_bwd.cu", _bf16_p),)),
+    "K8 232 registers": ("ring_bwd.cu", (("ring_bwd.cu", _regs),)),
+    "K8 red.v4": ("ring_bwd.cu", (("ring_bwd.cu", _red_v4),)),
+    "K7": ("ring_fwd.cu", ()),
+    "K7 6 stages": ("ring_fwd.cu", (("ring_fwd.cu", lambda s: s.replace(
+        "static constexpr int STAGES = 4;", "static constexpr int STAGES = 6;")),)),
+    "bias bwd": ("bwd_bias_sm90.cu", ()),
+    "bias bwd no dQ": ("bwd_bias_sm90.cu", ((BIAS_BODY, _no_dq),)),
+    "bias bwd bias to the end": ("bwd_bias_sm90.cu", ((BIAS_BODY, _bias_to_end),)),
+    "bias bwd plain dbias stores": ("bwd_bias_sm90.cu", ((BIAS_BODY, lambda s: s.replace(
+        "__stcs(dst, d0)", "*dst = d0").replace("__stcs(dst + p.nk, d1)", "dst[p.nk] = d1")),)),
+    "bias bwd no dQ reduction": ("bwd_bias_sm90.cu", ((BIAS_BODY, lambda s: s.replace(
         "        if (lane == 0) {\n          // Only the tile's rows below Nq",
-        "        if (false) {\n          // Only the tile's rows below Nq")),
-    "bias bwd no dQ stage writes": ("bwd_bias_sm90.cu", lambda s: s.replace(
+        "        if (false) {\n          // Only the tile's rows below Nq")),)),
+    "bias bwd no dQ stage writes": ("bwd_bias_sm90.cu", ((BIAS_BODY, lambda s: s.replace(
         "            *reinterpret_cast<float2*>(srow + 8 * jj + 2 * t) =",
-        "            if (p.nq < 0) *reinterpret_cast<float2*>(srow + 8 * jj + 2 * t) =")),
-    "bias bwd 232 registers": ("bwd_bias_sm90.cu", lambda s: s.replace(
-        "setmaxnreg.dec.sync.aligned.u32 24", "setmaxnreg.dec.sync.aligned.u32 40").replace(
-        "setmaxnreg.inc.sync.aligned.u32 240", "setmaxnreg.inc.sync.aligned.u32 232")),
+        "            if (p.nq < 0) *reinterpret_cast<float2*>(srow + 8 * jj + 2 * t) =")),)),
+    "bias bwd 232 registers": ("bwd_bias_sm90.cu", ((BIAS_BODY, _regs),)),
+    "K3": ("flash_bwd_sm90.cu", ()),
+    "K3 per KV head": ("flash_bwd_sm90.cu", (
+        ("flash_bwd_sm90.cu", lambda s: s.replace("const dim3 grid(p.hq, ",
+                                                  "const dim3 grid(p.hq / p.rep, ")),
+        (BIAS_BODY, lambda s: s.replace("    h0 = blockIdx.x;\n    hk = h0 / p.rep;\n"
+                                        "    heads = 1;\n",
+                                        "    hk = blockIdx.x;\n    h0 = hk * p.rep;\n"
+                                        "    heads = p.rep;\n")))),
 }
 # The C entry, its argument types and the family of each source.
 ENTRIES = {"ring_bwd.cu": ("fa_ring_bwd_bf16", "RING_BWD_ARGTYPES", "ring"),
            "ring_fwd.cu": ("fa_ring_fwd_bf16", "RING_FWD_ARGTYPES", "ring"),
-           "bwd_bias_sm90.cu": ("fa_bwd_bias_sm90", "BWD_BIAS_SM90_ARGTYPES", "bias")}
+           "bwd_bias_sm90.cu": ("fa_bwd_bias_sm90", "BWD_BIAS_SM90_ARGTYPES", "bias"),
+           "flash_bwd_sm90.cu": ("fa_bwd_sm90", "BWD_SM90_ARGTYPES", "k3")}
 
 
 def build(families) -> dict:
@@ -199,17 +231,17 @@ def build(families) -> dict:
 
     root = native.BUILD_DIR / "variants"
     procs = {}
-    for i, (name, (src, patch)) in enumerate(VARIANTS.items()):
+    for i, (name, (src, patches)) in enumerate(VARIANTS.items()):
         if ENTRIES[src][2] not in families:
             continue
         d = root / str(i)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(native.CSRC, d)
-        text = (d / src).read_text()
-        if patch is not None:
-            new = patch(text)
-            assert new != text, f"the patch of {name} no longer applies"
-            (d / src).write_text(new)
+        for target, fn in patches:
+            text = (d / target).read_text()
+            new = fn(text)
+            assert new != text, f"a patch of {name} no longer applies to {target}"
+            (d / target).write_text(new)
         procs[name] = (d, subprocess.Popen(
             [native.find_nvcc(), *native.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o",
              str(d / "lib.so"), str(d / src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -345,12 +377,63 @@ def bias(libs: dict) -> None:
     _report(times)
 
 
+def k3(libs: dict) -> None:
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    stream = torch.cuda.current_stream().cuda_stream
+    shapes = {"LM": (cs.LM_SEQ, dict(causal=True, window=None)),
+              "SWA": (cs.SWA_SEQ, dict(causal=True, window=(cs.SWA_WINDOW - 1, -1)))}
+    B, Hq, Hkv, D = 1, 16, 8, 128
+    calls = {}
+    for shape, (n, band) in shapes.items():
+        q, k, v = (cs._bnhd(x) for x in make_qkv(41, B, Hq, n, D, Hkv=Hkv, dtype=torch.bfloat16,
+                                                  device="cuda"))
+        do = cs._bnhd(make_qkv(42, B, Hq, n, D, dtype=torch.bfloat16, device="cuda")[0])
+        kw = dict(scale=D ** -0.5, **band)
+        o, lse = flash_fwd.fwd(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        nq_pad = -(-n // flash_bwd_fused.BLOCK_M) * flash_bwd_fused.BLOCK_M
+        stats = flash_bwd._padded_rows(lse, nq_pad), flash_bwd._padded_rows(delta, nq_pad)
+        want = flash_bwd_fused.bwd_reference(*(x.float() for x in (q, k, v, do)), lse, delta,
+                                             **kw)
+        want = (want[0], *(w.view(B, Hkv, Hq // Hkv, n, D).sum(2) for w in want[1:]))
+        for name, lib in libs.items():
+            owners = Hkv if name == "K3 per KV head" else Hq
+
+            def call(lib=lib, owners=owners, q=q, k=k, v=v, do=do, stats=stats, kw=kw, n=n,
+                     nq_pad=nq_pad):
+                dq = torch.zeros((B, Hq, n, D), dtype=torch.float32, device="cuda")
+                dk, dv = (torch.empty((B, owners, n, D), dtype=torch.float32, device="cuda")
+                          for _ in "kv")
+                rc = flash_bwd_fused._launch(lib, q, k, v, do, *stats, dq, dk, dv,
+                                             kv_valid_len=n, nq_pad=nq_pad, stream=stream, **kw)
+                if owners == Hq:  # the caller's sum over each KV head's group
+                    dk, dv = (x.view(B, Hkv, Hq // Hkv, n, D).sum(2) for x in (dk, dv))
+                return rc, (dq, dk, dv)
+
+            rc, got = call()
+            torch.cuda.synchronize()
+            errs = [((a - w).abs().max().item(), cs._rel(a, w)) for a, w in zip(got, want)]
+            print(f"[check] {name} {shape}: rc {rc}, dQ / dK / dV max abs err "
+                  + " / ".join(f"{e:.3e}" for e, _ in errs) + ", relative L2 "
+                  + " / ".join(f"{r:.3e}" for _, r in errs), flush=True)
+            calls[(name, shape)] = call
+        del want
+        torch.cuda.empty_cache()
+    times = {}
+    for rnd in range(3):
+        for key, call in (calls.items() if rnd % 2 == 0 else reversed(calls.items())):
+            times.setdefault(key, []).append(cs.cuda_ms(call, reps=10, trials=3))
+    _report(times)
+
+
 def main() -> None:
-    families = sys.argv[1:] or ["ring", "bias"]
+    families = sys.argv[1:] or ["ring", "bias", "k3"]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     libs = build(families)
-    for family, run in (("ring", ring), ("bias", bias)):
+    for family, run in (("ring", ring), ("bias", bias), ("k3", k3)):
         if family in families:
             run({n: lib for n, lib in libs.items() if ENTRIES[VARIANTS[n][0]][2] == family})
 

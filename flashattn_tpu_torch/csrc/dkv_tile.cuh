@@ -1,8 +1,9 @@
-// The KV-tile backward body shared by K3 (csrc/flash_bwd.cu: dK, dV and dQ
-// by f32 atomics) and K5 (csrc/flash_bwd_split.cu: dK and dV only, with
-// optional segment ids, logit soft-capping or an additive bias). Each kernel is its own
-// instantiation and launch; the header of each .cu says what it replaces and
-// what bounds it.
+// The KV-tile backward body of K5 (csrc/flash_bwd_split*.cu: dK and dV, with
+// optional segment ids, logit soft-capping, a window or an additive bias).
+// Each option family is its own instantiation and launch; the header of each
+// .cu says what it replaces and what bounds it. (K3, the single-pass
+// backward that also gives dQ, is bwd_sm90_tile.cuh's TMA + wgmma body in
+// csrc/flash_bwd_sm90.cu.)
 //
 // One CTA per (64-row KV tile, q-head, batch) keeps dK and dV in registers
 // and loops over the Q tiles that can see its KV tile: with causal or a
@@ -14,9 +15,9 @@
 //
 //   S = Q K^T (recomputed)      P = exp2(S * scale * log2e - LSE * log2e)
 //   dV += P^T dO                dP = dO V^T         dS = P * (dP - Delta) * scale
-//   dK += dS^T Q                (K3 only) dQ += dS K
+//   dK += dS^T Q
 //
-// so dK (and dQ) carry `scale` exactly once. With softcap (K5 only,
+// so dK carries `scale` exactly once. With softcap (
 // flashattn_tpu/ops/flash_bwd.py:92-96, 220), t = tanh(S * scale / cap),
 // P = exp2(cap * log2e * t - LSE * log2e), and dS gains the cap's Jacobian:
 // dS = P * (dP - Delta) * (1 - t^2) * scale. t is recomputed per element in
@@ -25,14 +26,12 @@
 //   * Each of the 4 warps owns 16 KV rows and computes the transposed scores
 //     S^T = K Q^T and dP^T = V dO^T directly, so P^T and dS^T are already the
 //     A operands of dV += P^T dO and dK += dS^T Q, straight from registers.
-//     K3 sends only dS (bf16) through shared memory, because dQ = dS K sums
-//     over all 64 KV rows of the tile; its A fragments come by ldmatrix.trans.
 //   * The Q tile is 64 rows for head dims up to 64 and 32 rows above, so that
 //     at D=128 the 128 f32 dK+dV accumulators and the two 16x32 score tiles
 //     fit a thread's registers without spilling (`-Xptxas -v`).
 //   * GQA: K/V are read at head h / rep without materialising the repeat;
 //     dK/dV are written per query head (f32) and ops/flash.py reduces them.
-//   * Bias (K5 only, flash_bwd.py:97-98): the f32 [B|1, H|1, Nq|1, Nk] bias
+//   * Bias (flash_bwd.py:97-98): the f32 [B|1, H|1, Nq|1, Nk] bias
 //     of the forward, read through (batch, head, row) strides that are 0 on
 //     broadcast dims, is added in the forward's log2 domain and floored at
 //     the mask value there (fwd_tile.cuh), x = s * scale * log2e +
@@ -67,7 +66,7 @@ struct BwdParams {
   const __nv_bfloat16* dout;
   const float* lse;    // [B, Hq, Nq] contiguous, natural log
   const float* delta;  // [B, Hq, Nq] contiguous
-  float* dq;           // [B, Hq, Nq, D] contiguous (K3: zeroed, accumulated atomically)
+  float* dq;           // [B, Hq, Nq, D] contiguous (K6)
   float* dk;           // [B, Hq, Nk, D] contiguous, per query head
   float* dv;           // [B, Hq, Nk, D] contiguous, per query head
   const int* seg_q;    // [B, Nq] segment ids (row stride seg_q_sb), or null
@@ -113,42 +112,33 @@ __host__ __device__ constexpr int block_m() {
   return DP <= 64 ? 64 : 32;  // Q rows per inner step
 }
 
-template <int DP, bool DQ>
+template <int DP>
 __host__ __device__ constexpr size_t dkv_smem_bytes() {
-  // K, V [64][DP+8]; Q, dO [BM][DP+8]; dS^T [64][BM+8] (bf16, K3 only);
-  // LSE, Delta [BM] (f32); Q segment ids [BM] (int)
+  // K, V [64][DP+8]; Q, dO [BM][DP+8]; LSE, Delta [BM] (f32); Q segment ids
+  // [BM] (int)
   return static_cast<size_t>(2 * BLOCK_N + 2 * block_m<DP>()) * (DP + 8) * 2 +
-         (DQ ? static_cast<size_t>(BLOCK_N) * (block_m<DP>() + 8) * 2 : 0) +
          3 * block_m<DP>() * 4;
 }
 
-// DQ = true: K3 (also adds dQ by atomics; takes no segments, no softcap).
-// DQ = false: K5 (dK and dV only; segments when p.seg_q is not null).
-// CAP: logit soft-capping (K5 only). WIN: the sliding window (p.lo, p.hi;
-// without it the band is causal's). BIAS: the additive bias p.bias (K5 only,
-// without a window or segments, as K1 takes it).
-template <int DP, bool DQ, bool CAP, bool WIN, bool BIAS = false>
+// Segments when p.seg_q is not null. CAP: logit soft-capping. WIN: the
+// sliding window (p.lo, p.hi; without it the band is causal's). BIAS: the
+// additive bias p.bias (without a window or segments, as K1 takes it).
+template <int DP, bool CAP, bool WIN, bool BIAS = false>
 __device__ __forceinline__ void dkv_tile(const BwdParams& p) {
-  static_assert(!(DQ && CAP), "soft-capped gradients run K5 + K6, never K3");
-  static_assert(!(BIAS && (DQ || WIN)), "a bias runs K5 + K6 without a window, never K3");
+  static_assert(!(BIAS && WIN), "a bias runs K5 without a window");
   constexpr int BLOCK_M = block_m<DP>();
   constexpr int STRIDE = DP + 8;          // shared row stride of the [rows][DP] tiles
-  constexpr int DS_STRIDE = BLOCK_M + 8;  // shared row stride of dS^T [64][BLOCK_M]
   constexpr int KS_D = DP / 16;           // k-steps over the head dim (S^T, dP^T)
   constexpr int NT_Q = BLOCK_M / 8;       // n-tiles over q of S^T / dP^T
   constexpr int KS_Q = BLOCK_M / 16;      // k-steps over q (dV, dK)
   constexpr int NT_D = DP / 8;            // n-tiles over the head dim (dK, dV)
-  constexpr int KS_N = BLOCK_N / 16;      // k-steps over kv (dQ)
-  constexpr int ROW_GROUPS = BLOCK_M / 16;               // 16-row groups of a dQ tile
-  constexpr int WARPS_PER_GROUP = NUM_WARPS / ROW_GROUPS;  // they split the head dim
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* s_k = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* s_v = s_k + BLOCK_N * STRIDE;
   __nv_bfloat16* s_q = s_v + BLOCK_N * STRIDE;
   __nv_bfloat16* s_do = s_q + BLOCK_M * STRIDE;
-  __nv_bfloat16* s_ds = s_do + BLOCK_M * STRIDE;
-  float* s_lse = reinterpret_cast<float*>(s_ds + (DQ ? BLOCK_N * DS_STRIDE : 0));  // LSE * log2 e
+  float* s_lse = reinterpret_cast<float*>(s_do + BLOCK_M * STRIDE);  // LSE * log2 e
   float* s_dlt = s_lse + BLOCK_M;
   int* s_segq = reinterpret_cast<int*>(s_dlt + BLOCK_M);
 
@@ -193,21 +183,17 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p) {
   const __nv_bfloat16* s_vw = s_v + warp * 16 * STRIDE;
   const int kv_row0 = n0 + warp * 16 + g;  // KV index of fragment row g (and g + 8)
   // ldmatrix.trans lane -> (row, col): B fragments of two n-tiles from a
-  // row-major [k][n] tile, and the A fragment of a row-major [k][m] tile
-  // (the transposed dS^T).
+  // row-major [k][n] tile.
   const int tb_row = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int tb_col = (lane >> 4) * 8;
-  const int ta_row = (lane & 7) + ((lane >> 4) & 1) * 8;
-  const int ta_col = ((lane >> 3) & 1) * 8;
 
   const __nv_bfloat16* q_g = p.q + b * p.q_sb + h * p.q_sh;
   const float* bias_bh = BIAS ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
   const __nv_bfloat16* do_g = p.dout + b * p.do_sb + h * p.do_sh;
   const int64_t row_base = (static_cast<int64_t>(b) * p.hq + h) * p.nq;
-  float* dq_g = p.dq + row_base * p.d;
 
-  // Segments (K5 only): the ids of KV rows g and g + 8 and the KV tile's range.
-  const bool seg = !DQ && p.seg_q != nullptr;
+  // Segments: the ids of KV rows g and g + 8 and the KV tile's range.
+  const bool seg = p.seg_q != nullptr;
   const int* q_ids = seg ? p.seg_q + b * p.seg_q_sb : nullptr;
   int kv_seg[2] = {0, 0};
   int2 kv_range = make_int2(0, 0);
@@ -328,53 +314,6 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p) {
         mma_bf16_16816(dk_acc[2 * dt + 1], ad, bq[2], bq[3]);
       }
     }
-
-    if constexpr (DQ) {
-      // dS^T (bf16) to shared memory: dQ = dS K sums over all 64 KV rows.
-#pragma unroll
-      for (int nt = 0; nt < NT_Q; ++nt) {
-        __nv_bfloat16* row = s_ds + (warp * 16 + g) * DS_STRIDE + nt * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(row) = pack_bf16(dp[nt][0], dp[nt][1]);
-        *reinterpret_cast<uint32_t*>(row + 8 * DS_STRIDE) = pack_bf16(dp[nt][2], dp[nt][3]);
-      }
-      __syncthreads();
-
-      // dQ rows [m0 + 16 rg, +16) += dS K; warps of one row group split the
-      // head dim. f32 atomics: every KV tile's CTA adds into the same dQ rows.
-      const int rg = warp % ROW_GROUPS;
-      uint32_t a[KS_N][4];
-#pragma unroll
-      for (int kk = 0; kk < KS_N; ++kk) {
-        ldmatrix_x4_trans(a[kk], s_ds + (kk * 16 + ta_row) * DS_STRIDE + rg * 16 + ta_col);
-      }
-      const int r0 = m0 + rg * 16 + g;
-      for (int dt = warp / ROW_GROUPS; dt < DP / 16; dt += WARPS_PER_GROUP) {
-        float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-        for (int kk = 0; kk < KS_N; ++kk) {
-          uint32_t bk[4];
-          ldmatrix_x4_trans(bk, s_k + (kk * 16 + tb_row) * STRIDE + dt * 16 + tb_col);
-          mma_bf16_16816(c[0], a[kk], bk[0], bk[1]);
-          mma_bf16_16816(c[1], a[kk], bk[2], bk[3]);
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = dt * 16 + j * 8 + 2 * t;
-          if (col < p.d) {
-            if (r0 < p.nq) {
-              float* dst = dq_g + static_cast<int64_t>(r0) * p.d + col;
-              atomicAdd(dst, c[j][0]);
-              atomicAdd(dst + 1, c[j][1]);
-            }
-            if (r0 + 8 < p.nq) {
-              float* dst = dq_g + static_cast<int64_t>(r0 + 8) * p.d + col;
-              atomicAdd(dst, c[j][2]);
-              atomicAdd(dst + 1, c[j][3]);
-            }
-          }
-        }
-      }
-    }
   }
 
   // dK, dV of this warp's 16 KV rows, per query head, f32.
@@ -397,43 +336,43 @@ __device__ __forceinline__ void dkv_tile(const BwdParams& p) {
   }
 }
 
-template <int DP, bool DQ>
+template <int DP>
 __global__ void __launch_bounds__(NUM_THREADS) dkv_kernel(const BwdParams p) {
-  dkv_tile<DP, DQ, false, false>(p);
+  dkv_tile<DP, false, false>(p);
 }
 
 // K5 with logit soft-capping.
 template <int DP>
 __global__ void __launch_bounds__(NUM_THREADS) dkv_softcap_kernel(const BwdParams p) {
-  dkv_tile<DP, false, true, false>(p);
+  dkv_tile<DP, true, false>(p);
 }
 
-// K3 (DQ) or K5 with the window, K5 also with softcap.
-template <int DP, bool DQ, bool CAP>
+// K5 with the window, with or without softcap.
+template <int DP, bool CAP>
 __global__ void __launch_bounds__(NUM_THREADS) dkv_window_kernel(const BwdParams p) {
-  dkv_tile<DP, DQ, CAP, true>(p);
+  dkv_tile<DP, CAP, true>(p);
 }
 
 // K5 with a bias, with or without softcap.
 template <int DP, bool CAP>
 __global__ void __launch_bounds__(NUM_THREADS) dkv_bias_kernel(const BwdParams p) {
-  dkv_tile<DP, false, CAP, false, true>(p);
+  dkv_tile<DP, CAP, false, true>(p);
 }
 
 // One launch of the KV-tile kernel of these options: one CTA per (64-row KV
 // tile, q-head, batch).
-template <int DP, bool DQ, bool CAP, bool WIN, bool BIAS = false>
+template <int DP, bool CAP, bool WIN, bool BIAS = false>
 cudaError_t launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<DP, DQ>();
+  constexpr size_t smem = dkv_smem_bytes<DP>();
   void (*kernel)(const BwdParams);
   if constexpr (BIAS) {
     kernel = dkv_bias_kernel<DP, CAP>;
   } else if constexpr (WIN) {
-    kernel = dkv_window_kernel<DP, DQ, CAP>;
+    kernel = dkv_window_kernel<DP, CAP>;
   } else if constexpr (CAP) {
     kernel = dkv_softcap_kernel<DP>;
   } else {
-    kernel = dkv_kernel<DP, DQ>;
+    kernel = dkv_kernel<DP>;
   }
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -442,7 +381,7 @@ cudaError_t launch_dkv(const BwdParams& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Fill BwdParams from the C entries' common arguments (shared by K3, K5, K6);
+// Fill BwdParams from the C entries' common arguments (shared by K5 and K6);
 // strides: q, k, v, dO (batch, head, seq), then seg_q, seg_kv (batch).
 // (wl, wr) is the window (a negative bound: none); softcap 0 is no cap. No
 // bias: K5 and K6 set p.bias and its strides themselves.

@@ -123,8 +123,8 @@ int fa_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dou
   if (wl >= 0 || wr >= 0) return static_cast<int>(fa::dkv_window_bf16(p, batch, s, cap));
   return static_cast<int>(dispatch_head_dim(d, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
-    return cap ? launch_dkv<DP, false, true, false>(p, batch, s)
-               : launch_dkv<DP, false, false, false>(p, batch, s);
+    return cap ? launch_dkv<DP, true, false>(p, batch, s)
+               : launch_dkv<DP, false, false>(p, batch, s);
   }));
 }
 

@@ -13,8 +13,8 @@
 cudaError_t fa::dkv_bias_bf16(const BwdParams& p, int batch, cudaStream_t stream, bool cap) {
   return dispatch_head_dim(p.d, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
-    return cap ? launch_dkv<DP, false, true, false, true>(p, batch, stream)
-               : launch_dkv<DP, false, false, false, true>(p, batch, stream);
+    return cap ? launch_dkv<DP, true, false, true>(p, batch, stream)
+               : launch_dkv<DP, false, false, true>(p, batch, stream);
   });
 }
 

@@ -11,8 +11,8 @@
 cudaError_t fa::dkv_window_bf16(const BwdParams& p, int batch, cudaStream_t stream, bool cap) {
   return dispatch_head_dim(p.d, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
-    return cap ? launch_dkv<DP, false, true, true>(p, batch, stream)
-               : launch_dkv<DP, false, false, true>(p, batch, stream);
+    return cap ? launch_dkv<DP, true, true>(p, batch, stream)
+               : launch_dkv<DP, false, true>(p, batch, stream);
   });
 }
 

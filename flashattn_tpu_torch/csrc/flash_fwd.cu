@@ -1,5 +1,7 @@
 // K1, the FlashAttention-2 forward for Hopper (sm_90a): bf16 K/V without bias
-// or softcap, with or without segment ids, and the C entry of every K1 variant.
+// or softcap, with or without segment ids, at head dims above 128 (below, K1's
+// dense route in flash_fwd_sm90.cu takes these calls), and the C entry of every
+// fwd_tile.cuh variant.
 //
 // The kernel body, what it replaces (flashattn_tpu/ops/flash_fwd.py::
 // _fwd_kernel, and by causal or a window _fwd_causal_resident_kernel and
@@ -14,8 +16,8 @@
 #include "fwd_tile.cuh"
 
 cudaError_t fa::fwd_bf16(const FwdParams& p, int batch, cudaStream_t stream) {
-  return p.seg_q != nullptr ? fwd_launch<true, false, KV_BF16>(p, batch, stream)
-                            : fwd_launch<false, false, KV_BF16>(p, batch, stream);
+  return p.seg_q != nullptr ? fwd_launch_wide<true, false>(p, batch, stream)
+                            : fwd_launch_wide<false, false>(p, batch, stream);
 }
 
 extern "C" {
@@ -29,7 +31,8 @@ extern "C" {
 //     (batch, head, row) strides, 0 on broadcast dims (null: no bias).
 //   k_scale / v_scale: f32 per-token scales [B, Hkv, Nk] with the given
 //     strides; required for int8 / fp8 K/V, null for bf16.
-// Requires 8 <= D <= 256 with D % 8 == 0, Hq % Hkv == 0,
+// Requires 8 <= D <= 256 with D % 8 == 0 (above 128 for bf16 K/V without a
+// bias or softcap: fa_fwd_sm90 takes the others), Hq % Hkv == 0,
 // 0 <= kv_valid_len <= Nk, Nq >= 1; int8 / fp8 K/V rows 8-byte aligned.
 // causal != 0 masks kv_pos > q_pos (zero offsets); the window (wl, wr) masks
 // kv_pos < q_pos - wl (wl >= 0) and kv_pos > q_pos + wr (wr >= 0), a negative

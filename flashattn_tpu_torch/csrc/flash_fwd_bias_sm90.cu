@@ -1,10 +1,31 @@
 // K1's bias route for Hopper (sm_90a): the C entry fa_fwd_bias_sm90 and the
-// two instantiations (D 64 and 128) of fwd_bias_tile.cuh's kernel. What it
-// replaces, what bounds it and its design are in fwd_bias_tile.cuh; the
-// route (ops/flash_fwd.py::bias_route) is decided in Python, and every other
-// K1 call with a bias keeps fwd_tile.cuh (fa_fwd, flash_fwd.cu).
+// two instantiations (D 64 and 128) of fwd_sm90_tile.cuh's body with the bias
+// stream, as fwd_bias_sm90_kernel. What it replaces, what bounds it and its
+// design are in fwd_sm90_tile.cuh; the route (ops/flash_fwd.py::bias_route)
+// is decided in Python, and every other K1 call with a bias keeps
+// fwd_tile.cuh (fa_fwd, flash_fwd.cu).
 
-#include "fwd_bias_tile.cuh"
+#include "fwd_sm90_tile.cuh"
+
+namespace {
+
+template <int D>
+__global__ void __launch_bounds__(FB_THREADS, 1)
+    fwd_bias_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, const FwdBiasParams p) {
+  fwd_sm90_body<D, true, false>(tm_q, tm_k, tm_v, p);
+}
+
+template <int D>
+cudaError_t fwd_bias_sm90_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                 const CUtensorMap& tm_v, const FwdBiasParams& p, int batch,
+                                 cudaStream_t stream) {
+  return fwd_sm90_launch(fwd_bias_sm90_kernel<D>, FbSmem<D>::BYTES, tm_q, tm_k, tm_v, p, batch,
+                         stream);
+}
+
+}  // namespace
 
 extern "C" {
 

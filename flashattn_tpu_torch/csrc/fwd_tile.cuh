@@ -92,18 +92,20 @@
 // What bounds it: at the U-Net shape (B1 H8 N4096 D40) the softmax's exp2 /
 // FMA / shuffle work on the 64x64 score tile competes with the thin matrix
 // products, and synchronous global->shared loads stall the warps between
-// tiles. Decode-shaped calls (at most 32 query rows per KV head after the
-// GQA fold, not causal, no window or segment ids, D 64 or 128) do not reach
-// this kernel: ops/flash_fwd.py::decode_route sends them to the split-KV
-// decode kernel of decode_tile.cuh. Nor do the dense calls with a bias on
-// bf16 K/V at D 64 or 128 without a softcap (ops/flash_fwd.py::bias_route):
-// they take the wgmma kernel of fwd_bias_tile.cuh. The bias calls left here
-// are those with a softcap, with int8 / fp8 K/V or at other head dims. This
-// simple design
-// leaves for later PRs:
-// wgmma on 64-row warpgroup tiles, TMA loads into a multi-stage ring with
-// mbarriers (or cp.async double buffering), warp specialisation and a
-// persistent grid.
+// tiles. So ops/flash_fwd.py sends most calls elsewhere, and this body keeps
+// those that no Hopper route takes: D 129-256; the softcap; int8 / fp8 K/V
+// that are not decode-shaped; a bias that the bias route refuses (with a
+// softcap, with int8 / fp8 K/V, or at a head dim other than 64 and 128).
+// Decode-shaped calls (at most 32 query rows per KV head after the GQA fold,
+// not causal, no window or segment ids, D 64 or 128) take the split-KV decode
+// kernel of decode_tile.cuh (ops/flash_fwd.py::decode_route); the dense calls
+// with a bias on bf16 K/V at D 64 or 128 without a softcap the bias route of
+// fwd_sm90_tile.cuh (bias_route); and every other call on bf16 K/V without a
+// bias or softcap at D <= 128, with or without causal, a window or segment
+// ids, the dense route of fwd_sm90_tile.cuh (dense_route). So the families of
+// those calls here, fwd_kernel<DP, SEG, false, KV_BF16> and
+// fwd_window_kernel<DP, SEG, false>, are instantiated above D 128 only
+// (fwd_launch_wide).
 
 #pragma once
 
@@ -471,6 +473,24 @@ cudaError_t fwd_launch_dp(const FwdParams& p, int batch, cudaStream_t stream) {
   const dim3 grid((p.nq + FWD_BLOCK_M - 1) / FWD_BLOCK_M, p.hq, batch);
   kernel<<<grid, FWD_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// bf16 K/V without a bias or softcap, with or without segment ids or the
+// window (WIN): one instantiation per padded head dim above 128, the calls
+// that K1's dense route (fa_fwd_sm90) does not take; a smaller D is refused.
+template <bool SEG, bool WIN>
+cudaError_t fwd_launch_wide(const FwdParams& p, int batch, cudaStream_t s) {
+  switch ((p.d + 15) / 16 * 16) {
+    case 144: return fwd_launch_dp<144, SEG, false, KV_BF16, false, WIN>(p, batch, s);
+    case 160: return fwd_launch_dp<160, SEG, false, KV_BF16, false, WIN>(p, batch, s);
+    case 176: return fwd_launch_dp<176, SEG, false, KV_BF16, false, WIN>(p, batch, s);
+    case 192: return fwd_launch_dp<192, SEG, false, KV_BF16, false, WIN>(p, batch, s);
+    case 208: return fwd_launch_dp<208, SEG, false, KV_BF16, false, WIN>(p, batch, s);
+    case 224: return fwd_launch_dp<224, SEG, false, KV_BF16, false, WIN>(p, batch, s);
+    case 240: return fwd_launch_dp<240, SEG, false, KV_BF16, false, WIN>(p, batch, s);
+    case 256: return fwd_launch_dp<256, SEG, false, KV_BF16, false, WIN>(p, batch, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // One instantiation per padded head dim (a multiple of 16 up to 256).

@@ -29,7 +29,7 @@
 // GFLOP against ~70 MB of Q, K / V and f32 state: operations, 0.139 ms at 989
 // TFLOP/s. The mma.sync design this replaces (64-row CTAs of 4 warps,
 // synchronous K / V loads between two block barriers per tile) ran it at
-// ~123 TFLOP/s. This design is K1's bias route (fwd_bias_tile.cuh) without
+// ~123 TFLOP/s. This design is K1's bias route (fwd_sm90_tile.cuh) without
 // the bias stream:
 //
 //   * One CTA owns 128 Q rows of one (batch, q head): warpgroup 0 is the

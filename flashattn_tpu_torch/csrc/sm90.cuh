@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels (K9 in
-// gemm.cu, K1's bias route in fwd_bias_tile.cuh, the ring kernels K7 / K8 in
-// ring_fwd.cu / ring_bwd.cu, K5 + K6's bias route in bwd_bias_sm90.cu):
+// gemm.cu, K1's bias and dense routes in fwd_sm90_tile.cuh, the ring kernels
+// K7 / K8 in ring_fwd.cu / ring_bwd.cu, K3 and K5 + K6's bias route in
+// bwd_sm90_tile.cuh):
 // mbarriers, TMA tile loads, bulk copies and bulk reductions, cp.async
 // completion on an mbarrier, named barriers, the wgmma shared-memory
 // descriptor of the 128-byte swizzle and the wgmma products the attention

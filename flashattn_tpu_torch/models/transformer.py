@@ -22,7 +22,7 @@ The parameters keep the JAX pytree's names and shapes -- ``embed``, ``ln_f``,
 ``[d_model, H, d_head]`` -- and the forward keeps the JAX einsums, so
 ``models.convert.transformer_from_jax`` is a plain copy (and
 ``kv_cache_from_jax`` carries a cache over). The sharded step is not ported
-yet (ROADMAP queue 1, item 8). :class:`Transformer`, :func:`init_transformer`
+yet (ROADMAP queue 1, item 1.3). :class:`Transformer`, :func:`init_transformer`
 and :func:`init_kv_cache` build on the card unless given ``device=``.
 """
 

@@ -3,11 +3,12 @@
 Port of flashattn_tpu/ops/flash_bwd_fused.py: kernel K3 (``_bwd_fused_kernel``)
 and, with ``causal`` or a ``window``, K4 (``_bwd_causal_resident_kernel`` and
 ``_bwd_macro_windowed``, the banded whole-sequence routes), for no bias, KV
-tail, GQA. Soft-capped gradients take K5 + K6, as in the JAX package. The kernel is
-``csrc/flash_bwd.cu``; its header says what bounds it and what it leaves for
-later. :func:`bwd` launches it for CUDA tensors and computes the plain
-:func:`bwd_reference` for CPU tensors -- the device of the input decides, and
-a CUDA tensor never reaches the plain version.
+tail, GQA. Soft-capped gradients, segment ids and a bias take K5 + K6 (or,
+after K1's bias route, its backward), as in the JAX package. The kernel is the Hopper TMA + wgmma
+backward of ``csrc/flash_bwd_sm90.cu`` (body ``csrc/bwd_sm90_tile.cuh``);
+its header says what bounds it. :func:`bwd` launches it for CUDA tensors and
+computes the plain :func:`bwd_reference` for CPU tensors -- the device of the
+input decides, and a CUDA tensor never reaches the plain version.
 
 Both return f32 gradients with dK/dV per *query* head (``[B, Hq, Nk, D]``);
 ``ops/flash.py`` reduces them over the query heads of each KV head and casts,
@@ -18,10 +19,18 @@ from __future__ import annotations
 
 import torch
 
-from flashattn_tpu_torch.ops.flash_bwd import check_args, check_kernel_args, recompute_p_ds
+from flashattn_tpu_torch.ops.flash_bwd import (
+    _padded_rows,
+    check_args,
+    check_kernel_args,
+    recompute_p_ds,
+)
 from flashattn_tpu_torch.ops.flash_fwd import _kernel_ready, check_window, kernel_window
 from flashattn_tpu_torch.ops.oracle import _full_f32_matmul
 from flashattn_tpu_torch.utils import native
+
+# The kernel's Q tile: the LSE / Δ rows it bulk-copies, padded to a multiple.
+BLOCK_M = 64
 
 
 def bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -45,6 +54,19 @@ def bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False
     return dq, dk, dv
 
 
+def _launch(lib, q, k, v, do, lse, delta, dq, dk, dv, *, scale, causal, kv_valid_len, window,
+            nq_pad, stream) -> int:
+    """Call ``lib.fa_bwd_sm90`` with the arguments of one launch (the C
+    entry's order, ``native.BWD_SM90_ARGTYPES``); returns its cudaError_t."""
+    B, Hq, Nq, D = q.shape
+    return lib.fa_bwd_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Hq, k.shape[1], Nq,
+        k.shape[2], D, kv_valid_len, int(bool(causal)), *kernel_window(window), nq_pad,
+        float(scale), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        stream)
+
+
 def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
         kv_valid_len: int | None = None, window=None):
     """K3/K4: ``(dQ [B,Hq,Nq,D], dK, dV [B,Hq,Nk,D])`` in f32.
@@ -52,9 +74,10 @@ def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     ``q``/``do`` ``[B,Hq,Nq,D]``, ``k``/``v`` ``[B,Hkv,Nk,D]`` in one dtype;
     ``lse`` (natural log, from the forward) and ``delta`` = rowsum(dO·O),
     ``[B,Hq,Nq]`` f32; ``window`` as in ``flash_fwd.fwd``. CPU tensors take
-    :func:`bwd_reference`. CUDA tensors launch the kernel, which takes bf16
-    with ``D % 8 == 0`` and ``D <= 128``; anything else raises.
-    ``bwd.launches`` counts kernel launches.
+    :func:`bwd_reference`. CUDA tensors launch the Hopper kernel, which takes
+    bf16 with ``D % 8 == 0`` and ``D <= 128``; anything else raises.
+    ``bwd.launches`` counts K3 launches, ``bwd.launches_sm90`` those of the
+    Hopper kernel (every one: it is K3's only kernel).
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len)
     window = check_window(window)
@@ -64,26 +87,24 @@ def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     check_kernel_args(q, "K3")
     B, Hq, Nq, D = q.shape
     Nk = k.shape[2]
-    q, k, v, do = (_kernel_ready(x) for x in (q, k, v, do))
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
     f32 = dict(dtype=torch.float32, device=q.device)
-    dq = torch.zeros((B, Hq, Nq, D), **f32)  # accumulated with atomics
+    dq = torch.zeros((B, Hq, Nq, D), **f32)  # added to by one bulk reduction a tile
     dk = torch.empty((B, Hq, Nk, D), **f32)
     dv = torch.empty((B, Hq, Nk, D), **f32)
     if Nq == 0 or Nk == 0 or B == 0 or Hq == 0:  # an empty grid is not a valid launch
         return dq, dk.zero_(), dv.zero_()
+    q, k, v, do = (_kernel_ready(x, tma=True) for x in (q, k, v, do))
+    nq_pad = -(-Nq // BLOCK_M) * BLOCK_M
+    lse, delta = _padded_rows(lse, nq_pad), _padded_rows(delta, nq_pad)
     with torch.cuda.device(q.device):
-        rc = native.kernels().fa_bwd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, Hq, k.shape[1], Nq, Nk, D, kv_valid_len, int(bool(causal)),
-            *kernel_window(window), float(scale),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    native.check(rc, "flash_bwd kernel launch")
+        rc = _launch(native.kernels(), q, k, v, do, lse, delta, dq, dk, dv, scale=scale,
+                     causal=causal, kv_valid_len=kv_valid_len, window=window, nq_pad=nq_pad,
+                     stream=torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(rc, "flash_bwd_sm90 kernel launch")
     bwd.launches += 1
+    bwd.launches_sm90 += 1
     return dq, dk, dv
 
 
 bwd.launches = 0
+bwd.launches_sm90 = 0

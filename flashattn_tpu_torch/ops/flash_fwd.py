@@ -12,14 +12,19 @@ later), instantiated per option family in ``csrc/flash_fwd*.cu``. The calls
 that decoding makes (:func:`decode_route`) go to a kernel of their own, a
 split-KV forward with cp.async pipelining (``csrc/decode_tile.cuh`` in
 ``csrc/flash_decode*.cu``), whose splits are merged in LSE space; its plain
-version is :func:`decode_reference`. The dense calls with a bias that
-:func:`bias_route` takes go to a Hopper kernel of their own, a TMA + wgmma
-forward that streams the f32 bias tile through shared memory
-(``csrc/fwd_bias_tile.cuh`` in ``csrc/flash_fwd_bias_sm90.cu``); it computes
-K1's function, so its plain version is :func:`fwd_reference`. :func:`fwd`
-launches a kernel for CUDA tensors and computes the plain
-:func:`fwd_reference` for CPU tensors -- the device of the input decides, and
-a CUDA tensor never reaches a plain version.
+version is :func:`decode_reference`. The other calls on bf16 K/V without a
+softcap at head dims up to 128 go to a Hopper TMA + wgmma forward
+(``csrc/fwd_sm90_tile.cuh``): those with a bias that :func:`bias_route`
+takes to its bias route, which streams the f32 bias tile through shared
+memory (``csrc/flash_fwd_bias_sm90.cu``), and those without a bias
+(:func:`dense_route`: causal or not, with a window or segment ids or
+neither, any tail) to its dense route (``csrc/flash_fwd_sm90.cu``). Both
+compute K1's function, so their plain version is :func:`fwd_reference`; the
+``fwd_tile.cuh`` body keeps the calls they refuse (D above 128, a softcap,
+quantized K/V, a bias at other head dims). :func:`fwd` launches a kernel for
+CUDA tensors and computes the plain :func:`fwd_reference` for CPU tensors --
+the device of the input decides, and a CUDA tensor never reaches a plain
+version.
 
 Strides: the kernel takes (batch, head, seq) strides, so the ``[B, N, H, D]``
 projections of the models and their KV caches arrive as transposed views
@@ -63,11 +68,18 @@ DECODE_TILE = 64
 DECODE_MIN_TILES = 4
 DECODE_CTAS_PER_SM = 4
 H100_SMS = 132
-# The bias route (csrc/fwd_bias_tile.cuh): the head dims it is instantiated
+# The bias route (csrc/fwd_sm90_tile.cuh): the head dims it is instantiated
 # for, and the f32 elements of one of its 16-byte bias copies (a bias whose
 # strides are not a multiple of it is copied with its rows padded to one).
 BIAS_HEAD_DIMS = (64, 128)
 BIAS_ROW_ALIGN = 4
+# The dense route (csrc/fwd_sm90_tile.cuh): head dims that are multiples of 8
+# up to this (instantiated at 64 and 128, the TMA boxes reading zeros past
+# D); its Q tile (rows per CTA) and KV tile (keys per pipeline stage), the
+# tiles of its segment-id ranges.
+DENSE_MAX_HEAD_DIM = 128
+SM90_Q_TILE = 128
+SM90_KV_TILE = 64
 
 
 def check_window(window):
@@ -288,15 +300,68 @@ def decode_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int)
 def bias_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int, bias,
                kv_dtype, softcap) -> bool:
     """Whether a CUDA K1 call goes to the Hopper bias kernel
-    (``csrc/fwd_bias_tile.cuh``): a call that :func:`decode_route` does not
+    (``csrc/fwd_sm90_tile.cuh``): a call that :func:`decode_route` does not
     take (it is checked first), with a ``bias``, bf16 K/V, no softcap, no
     segment ids or window, and a head dim of 64 or 128. Every other call with
-    a bias keeps the dense kernel (``csrc/fwd_tile.cuh``)."""
+    a bias keeps the ``csrc/fwd_tile.cuh`` kernel."""
     return (bias is not None and kv_dtype == torch.bfloat16 and softcap is None
             and segment_ids is None and kernel_window(check_window(window)) == (-1, -1)
             and head_dim in BIAS_HEAD_DIMS
             and not decode_route(rows=rows, causal=causal, segment_ids=segment_ids,
                                  window=window, head_dim=head_dim))
+
+
+def dense_route(*, head_dim: int, bias, kv_dtype, softcap) -> bool:
+    """Whether a CUDA K1 call that the decode and bias routes left (:func:`fwd`
+    checks them first) goes to the Hopper dense kernel
+    (``csrc/flash_fwd_sm90.cu``): bf16 K/V without a bias or a softcap, at a
+    head dim up to ``DENSE_MAX_HEAD_DIM`` (a multiple of 8, as every CUDA K1
+    call's) -- causal or not, with or without a window or segment ids, at any
+    Nq and kv_valid_len. The calls it refuses keep the ``csrc/fwd_tile.cuh``
+    kernel (D above 128, a softcap, int8 / fp8 K/V, a bias the bias route
+    refuses)."""
+    return (bias is None and kv_dtype == torch.bfloat16 and softcap is None
+            and head_dim <= DENSE_MAX_HEAD_DIM)
+
+
+def _whole_tiles(ids: torch.Tensor, n_valid: int, tile: int) -> torch.Tensor:
+    """``ids[:, :n_valid]`` (``n_valid`` >= 1) as ``[B, tiles, tile]``, the
+    last tile padded with its last id (which moves no tile's min or max): a
+    view, without a copy, where the ids' layout allows one."""
+    x = ids[:, :n_valid]
+    pad = -n_valid % tile
+    if pad:
+        x = torch.cat((x, x[:, -1:].expand(-1, pad)), dim=1)
+    return x.reshape(x.shape[0], -1, tile)
+
+
+def seg_tile_ranges(ids: torch.Tensor, n_valid: int, tile: int) -> torch.Tensor:
+    """``[B, ceil(n_valid / tile), 2]`` int32: the (min, max) id of each
+    ``tile``-long run of ``ids[:, :n_valid]`` (the last run ragged), by one
+    ``aminmax`` over the ids cut to whole tiles. Two tiles hold a pair of
+    equal ids only if their ranges meet (exact for sorted, packed ids;
+    conservative for any), the test of the JAX package's ``_seg_block_flags``
+    (flashattn_tpu/ops/flash.py:312), whose padded rows the port never
+    reads."""
+    return torch.stack(_whole_tiles(ids.to(torch.int32), n_valid, tile).aminmax(dim=-1), dim=-1)
+
+
+def sm90_segments(segment_ids, Nq: int, kv_valid_len: int):
+    """The dense kernel's segment inputs for ``(seg_q [B, Nq], seg_kv [B,
+    Nk])``: seg_q as int32 with a unit row stride; seg_kv's first
+    kv_valid_len ids, contiguous, each row padded to whole KV tiles (one
+    16-byte-aligned bulk copy a tile); the id ranges of each ``SM90_Q_TILE``
+    rows of seg_q and each ``SM90_KV_TILE`` keys of seg_kv
+    (:func:`seg_tile_ranges`). None without segments or keys. A handful of
+    small launches: the wrapper's host time is part of each K1 call."""
+    if segment_ids is None or kv_valid_len == 0:
+        return None
+    seg_q, seg_kv = (x.to(torch.int32) for x in segment_ids)
+    if seg_q.stride(-1) != 1:
+        seg_q = seg_q.contiguous()
+    kv = _whole_tiles(seg_kv, kv_valid_len, SM90_KV_TILE).contiguous()
+    return (seg_q, kv.view(kv.shape[0], -1), seg_tile_ranges(seg_q, Nq, SM90_Q_TILE),
+            torch.stack(kv.aminmax(dim=-1), dim=-1))
 
 
 def decode_splits(B: int, Hkv: int, Nk: int, sms: int = H100_SMS) -> tuple[int, int]:
@@ -465,6 +530,64 @@ def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, bias):
     return o, lse
 
 
+def _launch_dense_sm90(lib, q, k, v, o, lse, seg, *, scale, kv_valid_len, causal, window,
+                      stream) -> int:
+    """Call ``lib.fa_fwd_sm90`` with the arguments of one launch (the C
+    entry's order, ``native.FWD_SM90_ARGTYPES``), ``seg`` being
+    :func:`sm90_segments`' tensors or None; returns its cudaError_t."""
+    B, Hq, Nq, D = q.shape
+    seg_ptrs = (None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg)
+    return lib.fa_fwd_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *seg_ptrs,
+        B, Hq, k.shape[1], Nq, D, kv_valid_len, int(bool(causal)), *kernel_window(window),
+        float(scale), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        0 if seg is None else seg[0].stride(0), stream)
+
+
+def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids):
+    """Launch the Hopper dense kernel and count the launch."""
+    B, Hq, Nq, D = q.shape
+    q, k, v = (_kernel_ready(x, tma=True) for x in (q, k, v))
+    o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides
+    lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:  # an empty grid is not a valid launch
+        return o, lse
+    seg = sm90_segments(segment_ids, Nq, kv_valid_len)
+    with torch.cuda.device(q.device):
+        rc = _launch_dense_sm90(native.kernels(), q, k, v, o, lse, seg, scale=scale,
+                                kv_valid_len=kv_valid_len, causal=causal, window=window,
+                                stream=torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(rc, "flash_fwd_sm90 kernel launch")
+    _count_variants(k.dtype, None, kernel_window(window) != (-1, -1), None)
+    fwd.launches_dense_sm90 += 1
+    return o, lse
+
+
+def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool) -> None:
+    """Raise for what no CUDA K1 kernel takes: another device, a q that is
+    not bf16, D not a multiple of 8 or above ``MAX_HEAD_DIM``, segment ids or
+    a window with a bias or quantized K/V, a grid past the CUDA limits."""
+    B, Hq, _, D = q.shape
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"no K1 kernel for device {q.device}")
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the CUDA K1 takes bfloat16, got {q.dtype} (an f32 FMA instantiation "
+            "is a ROADMAP queue 2 K1 item)")
+    if D % 8 or D > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"the CUDA K1 takes head dims that are multiples of 8 up to "
+            f"{MAX_HEAD_DIM}, got D={D} (ROADMAP queue 2 K1 item)")
+    if segment_ids is not None and (bias is not None or k_scale is not None):
+        raise NotImplementedError(
+            f"the CUDA K1 takes segment ids without bias or quantized K/V ({_ROADMAP_K1})")
+    if windowed and (bias is not None or k_scale is not None):
+        raise NotImplementedError(
+            f"the CUDA K1 takes a window without bias or quantized K/V ({_ROADMAP_K1})")
+    if B > 65535 or Hq > 65535:
+        raise ValueError(f"B={B} and Hq={Hq} must each be at most 65535 (CUDA grid limit)")
+
+
 def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool = False,
         segment_ids=None, bias=None, k_scale=None, v_scale=None, window=None, softcap=None):
     """K1: ``(O [B,Hq,Nq,D] in q.dtype, LSE [B,Hq,Nq] f32)``.
@@ -483,10 +606,12 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     and ``D <= 256``, and segment ids or a window only without bias or
     quantized K/V; anything else raises. A CUDA call that :func:`decode_route`
     accepts launches the split-KV decode kernel (and its merge), one that
-    :func:`bias_route` accepts the Hopper bias kernel, every other the dense
-    kernel. ``fwd.launches`` counts every K1 launch, dense, bias route or
-    decode; ``fwd.launches_bias`` those of bf16 K/V with a bias (on any
+    :func:`bias_route` accepts the Hopper bias kernel, one that
+    :func:`dense_route` accepts the Hopper dense kernel, every other the
+    ``fwd_tile.cuh`` kernel. ``fwd.launches`` counts every K1 launch, on any
+    kernel; ``fwd.launches_bias`` those of bf16 K/V with a bias (on any
     kernel), ``fwd.launches_bias_sm90`` those of the bias kernel,
+    ``fwd.launches_dense_sm90`` those of the Hopper dense kernel,
     ``fwd.launches_int8`` / ``fwd.launches_fp8`` those of quantized K/V (with
     or without a bias), ``fwd.launches_window`` those with a window,
     ``fwd.launches_softcap`` those with a softcap, ``fwd.launches_decode``
@@ -520,25 +645,9 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
         return fwd_reference(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
                              segment_ids=segment_ids, bias=bias, k_scale=k_scale,
                              v_scale=v_scale, window=window, softcap=softcap)
-    if q.device.type != "cuda":
-        raise NotImplementedError(f"no K1 kernel for device {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the CUDA K1 takes bfloat16, got {q.dtype} (an f32 FMA instantiation "
-            "is a ROADMAP queue 2 K1 item)")
-    if D % 8 or D > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA K1 takes head dims that are multiples of 8 up to "
-            f"{MAX_HEAD_DIM}, got D={D} (ROADMAP queue 2 K1 item)")
-    if segment_ids is not None and (bias is not None or k_scale is not None):
-        raise NotImplementedError(
-            f"the CUDA K1 takes segment ids without bias or quantized K/V ({_ROADMAP_K1})")
     windowed = kernel_window(window) != (-1, -1)
-    if windowed and (bias is not None or k_scale is not None):
-        raise NotImplementedError(
-            f"the CUDA K1 takes a window without bias or quantized K/V ({_ROADMAP_K1})")
-    if B > 65535 or Hq > 65535:
-        raise ValueError(f"B={B} and Hq={Hq} must each be at most 65535 (CUDA grid limit)")
+    _check_kernel_args(q, segment_ids=segment_ids, bias=bias, k_scale=k_scale,
+                       windowed=windowed)
 
     if decode_route(rows=Hq // Hkv * Nq, causal=causal, segment_ids=segment_ids, window=window,
                     head_dim=D):
@@ -548,6 +657,9 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
                   head_dim=D, bias=bias, kv_dtype=k.dtype, softcap=softcap):
         return _bias_sm90(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
                           bias=bias)
+    if dense_route(head_dim=D, bias=bias, kv_dtype=k.dtype, softcap=softcap):
+        return _dense_sm90(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
+                           window=window, segment_ids=segment_ids)
 
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
     o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides
@@ -591,6 +703,7 @@ def _count_variants(kv_dtype, bias, windowed: bool, softcap) -> None:
 fwd.launches = 0
 fwd.launches_bias = 0
 fwd.launches_bias_sm90 = 0
+fwd.launches_dense_sm90 = 0
 fwd.launches_int8 = 0
 fwd.launches_fp8 = 0
 fwd.launches_window = 0

@@ -40,6 +40,33 @@ FWD_BIAS_SM90_ARGTYPES = [
     _PTR,                                # cudaStream_t
 ]
 
+# The C entry of K1's dense route (csrc/flash_fwd_sm90.cu).
+FWD_SM90_ARGTYPES = [
+    _PTR, _PTR, _PTR, _PTR, _PTR,        # q, k, v, o, lse
+    _PTR, _PTR, _PTR, _PTR,              # seg_q, seg_kv (padded), q_range, kv_range (or None)
+    _I32, _I32, _I32, _I32, _I32,        # B, Hq, Hkv, Nq, D
+    _I32, _I32, _I32, _I32,              # kv_valid_len, causal, window left, right (-1: none)
+    ctypes.c_float,                      # scale
+    _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
+    _I64, _I64, _I64, _I64, _I64, _I64,  # v, o (batch, head, seq) strides
+    _I64,                                # seg_q batch stride
+    _PTR,                                # cudaStream_t
+]
+
+# The C entry of K3 (csrc/flash_bwd_sm90.cu).
+BWD_SM90_ARGTYPES = [
+    _PTR, _PTR, _PTR, _PTR,              # q, k, v, dO
+    _PTR, _PTR,                          # lse, delta (f32 rows padded to nq_pad)
+    _PTR, _PTR, _PTR,                    # dq (f32, zeroed), dk, dv (f32)
+    _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, Nq, Nk, D
+    _I32, _I32, _I32, _I32,              # kv_valid_len, causal, window left, right (-1: none)
+    _I32,                                # nq_pad
+    ctypes.c_float,                      # scale
+    _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
+    _I64, _I64, _I64, _I64, _I64, _I64,  # v, dO (batch, head, seq) strides
+    _PTR,                                # cudaStream_t
+]
+
 # The C entry of K5 + K6's bias route (csrc/bwd_bias_sm90.cu).
 BWD_BIAS_SM90_ARGTYPES = [
     _PTR, _PTR, _PTR, _PTR,              # q, k, v, dO
@@ -163,6 +190,8 @@ def kernels() -> ctypes.CDLL:
     ]
     lib.fa_fwd_bias_sm90.restype = i32
     lib.fa_fwd_bias_sm90.argtypes = FWD_BIAS_SM90_ARGTYPES
+    lib.fa_fwd_sm90.restype = i32
+    lib.fa_fwd_sm90.argtypes = FWD_SM90_ARGTYPES
     lib.fa_decode.restype = i32
     lib.fa_decode.argtypes = [
         ptr, ptr, ptr, ptr, ptr,            # q, k, v, o, lse
@@ -187,14 +216,10 @@ def kernels() -> ctypes.CDLL:
         i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
         i64, i64, i64, i64, i64, i64,       # v, dO (batch, head, seq) strides
     ]
-    # scale, softcap (0: none) for K5 and K6; K3 takes the scale only.
+    # scale, softcap (0: none) for K5 and K6.
     bwd_tail = [*bwd_dims, ctypes.c_float, ctypes.c_float, *bwd_strides]
-    lib.fa_bwd_bf16.restype = i32
-    lib.fa_bwd_bf16.argtypes = [
-        *bwd_head, ptr, ptr, ptr,           # dq (f32, zeroed), dk, dv (f32)
-        *bwd_dims, ctypes.c_float, *bwd_strides,
-        ptr,                                # cudaStream_t
-    ]
+    lib.fa_bwd_sm90.restype = i32
+    lib.fa_bwd_sm90.argtypes = BWD_SM90_ARGTYPES
     lib.fa_bwd_dkv_bf16.restype = i32
     split_tail = [
         *bwd_tail, i64, i64,                # seg_q, seg_kv batch strides

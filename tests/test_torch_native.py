@@ -155,6 +155,15 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
      "v14CUtensorMap_stS1_S1_S1_S1_NS_13BwdBiasParamsE", "bias bwd sm90 bwd_bias_sm90_kernel<128, 1>"),
     ("_ZN49_GLOBAL__N__81d9f6ab_16_bwd_bias_sm90_cu_2c83e9c620bwd_bias_sm90_kernelILi64ELb0EEE"
      "v14CUtensorMap_stS1_S1_S1_S1_NS_13BwdBiasParamsE", "bias bwd sm90 bwd_bias_sm90_kernel<64, 0>"),
+    ("_ZN12_GLOBAL__N_121fwd_dense_sm90_kernelILi128ELb1EEEv14CUtensorMap_stS1_S1_N2fa14"
+     "FwdDenseParamsE", "K1 dense sm90 segments fwd_dense_sm90_kernel<128, 1>"),
+    ("_ZN12_GLOBAL__N_121fwd_dense_sm90_kernelILi64ELb0EEEv14CUtensorMap_stS1_S1_N2fa14"
+     "FwdDenseParamsE", "K1 dense sm90 fwd_dense_sm90_kernel<64, 0>"),
+    ("_ZN49_GLOBAL__N__1c2d3e4f_16_flash_bwd_sm90_cu_5a6b7c8d15bwd_sm90_kernelILi128EEEv14"
+     "CUtensorMap_stS1_S1_S1_NS_14BwdDenseParamsE", "K3 sm90 bwd_sm90_kernel<128>"),
+    ("_ZN12_GLOBAL__N_110dkv_kernelILi128EEEvN2fa9BwdParamsE", "K5 dkv_kernel<128>"),
+    ("_ZN12_GLOBAL__N_117dkv_window_kernelILi64ELb1EEEvN2fa9BwdParamsE",
+     "K5 softcap window dkv_window_kernel<64, 1>"),
     ("_ZN12_GLOBAL__N_113decode_kernelILi128ELi0EEEvN2fa12DecodeParamsE",
      "unrecognised instantiation decode_kernel<128, 0>"),
     ("_ZN12_GLOBAL__N_110fwd_kernelILi64ELb0EEEvN2fa9FwdParamsE",
