@@ -22,11 +22,14 @@ events, median over 7 trials of the mean of 20 launches):
   split-KV decode kernel and its merge) with the cache-slot bias,
   q [8, 8, 2, 128] against bf16 / int8 / fp8 K/V [8, 8, 8192, 128]
   (bench_decode's folded decode attention, half live);
-* ``k1_seg``, ``k5``, ``k6``: K1 with segment ids, K5 and K6 at bench_lm's
-  packed cell, B2 Hq16 Hkv8 N4096 D128 causal, 8 documents per row;
-* ``k1_win``, ``k3_win``, ``k5_cap``, ``k6_cap``: K1 and K3 with the SWA
-  window, and K5 / K6 with the window and softcap 50, at B1 Hq16 Hkv8 N8192
-  D128;
+* ``k1_seg``, ``split_seg``: K1 with segment ids and its backward at
+  bench_lm's packed cell, B2 Hq16 Hkv8 N4096 D128 causal, 8 documents per
+  row: ``flash_bwd.dkv`` then ``flash_bwd.dq`` (K5 + K6, mma.sync) in a
+  parent before K5 + K6's split route, ``flash_bwd.split_bwd`` (one TMA +
+  wgmma kernel) after;
+* ``k1_win``, ``k3_win``, ``split_cap``: K1 and K3 with the SWA window, and
+  the backward with the window and softcap 50 (K5 + K6, or the split
+  route, as ``split_seg``), at B1 Hq16 Hkv8 N8192 D128;
 * ``k1_bias``: K1 with path A's key-padding bias [4, 1, N, N] at B4 H16
   N2048 D128, BNHD (the dense K1 before K1's bias route, the TMA + wgmma
   bias kernel after);
@@ -79,12 +82,14 @@ CASE_KERNELS = {"unet": ("K1 fwd_kernel<48, 0, 0, 0>",
                 "decode_fp8": "K1 decode fp8 bias decode_kernel<128, 2, 1, 0>",
                 "k1_seg": ("K1 segments fwd_kernel<128, 1, 0, 0>",
                            "K1 dense sm90 segments fwd_dense_sm90_kernel<128, 1>"),
-                "k5": "K5 dkv_kernel<128>", "k6": "K6 dq_kernel<128>",
+                "split_seg": ("K5 dkv_kernel<128> + K6 dq_kernel<128>",
+                              "K5 + K6 split sm90 segments bwd_split_sm90_kernel<128, 1, 0>"),
                 "k1_win": ("K1 window fwd_window_kernel<128, 0, 0>",
                            "K1 dense sm90 fwd_dense_sm90_kernel<128, 0>"),
                 "k3_win": ("K3 window dkv_window_kernel<128, 1, 0>", "K3 sm90 bwd_sm90_kernel<128>"),
-                "k5_cap": "K5 softcap window dkv_window_kernel<128, 1>",
-                "k6_cap": "K6 softcap window dq_window_kernel<128, 1>",
+                "split_cap": ("K5 softcap window dkv_window_kernel<128, 1> + K6 softcap window "
+                              "dq_window_kernel<128, 1>",
+                              "K5 + K6 split sm90 softcap bwd_split_sm90_kernel<128, 0, 1>"),
                 "k1_bias": ("K1 bias fwd_kernel<128, 0, 1, 0>",
                             "K1 bias sm90 fwd_bias_sm90_kernel<128>"),
                 "bias_bwd": ("K5 bias dkv_bias_kernel<128, 0> + K6 bias dq_bias_kernel<128, 0>",
@@ -119,6 +124,13 @@ def ms(fn):
 
 native.kernels()
 out = {}
+split = getattr(flash_bwd, "split_bwd", None)  # none in a parent before K5 + K6's split route
+
+def split_bwd(*args, **kw):
+    if split is not None:
+        return split(*args, **kw)
+    return flash_bwd.dkv(*args, **kw), flash_bwd.dq(*args, **kw)
+
 q, k, v = (cs._bnhd(x) for x in make_qkv(1, 1, 8, 4096, 40, dtype=torch.bfloat16, device="cuda"))
 out["unet"] = ms(lambda: flash_fwd.fwd(q, k, v, scale=40 ** -0.5))
 _, B, Hq, Hkv, N, _, D = cs.CAUSAL_CASES[0]
@@ -147,23 +159,21 @@ kw = dict(scale=D ** -0.5, causal=True, segment_ids=(ids, ids))
 o, lse = flash_fwd.fwd(q, k, v, **kw)
 delta = (do.float() * o.float()).sum(-1)
 out["k1_seg"] = ms(lambda: flash_fwd.fwd(q, k, v, **kw))
-out["k5"] = ms(lambda: flash_bwd.dkv(q, k, v, do, lse, delta, **kw))
-out["k6"] = ms(lambda: flash_bwd.dq(q, k, v, do, lse, delta, **kw))
+out["split_seg"] = ms(lambda: split_bwd(q, k, v, do, lse, delta, **kw))
 _, B, Hq, Hkv, N, _, D, causal, window = cs.WINDOW_CASES[0]
 q, k, v = (cs._bnhd(x) for x in make_qkv(7, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16,
                                          device="cuda"))
 do = cs._bnhd(make_qkv(8, B, Hq, N, D, dtype=torch.bfloat16, device="cuda")[0])
 for name, kw in (("k3_win", dict(scale=D ** -0.5, causal=causal, window=window)),
-                 ("k5_cap", dict(scale=D ** -0.5, causal=causal, window=window,
-                                 softcap=cs.SOFTCAP))):
+                 ("split_cap", dict(scale=D ** -0.5, causal=causal, window=window,
+                                    softcap=cs.SOFTCAP))):
     o, lse = flash_fwd.fwd(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
     if name == "k3_win":
         out["k1_win"] = ms(lambda: flash_fwd.fwd(q, k, v, **kw))
         out[name] = ms(lambda: flash_bwd_fused.bwd(q, k, v, do, lse, delta, **kw))
     else:
-        out["k5_cap"] = ms(lambda: flash_bwd.dkv(q, k, v, do, lse, delta, **kw))
-        out["k6_cap"] = ms(lambda: flash_bwd.dq(q, k, v, do, lse, delta, **kw))
+        out[name] = ms(lambda: split_bwd(q, k, v, do, lse, delta, **kw))
 B, N = len(cs.ATTN_LENGTHS), cs.ATTN_SEQ
 q, k, v = (cs._bnhd(x) for x in make_qkv(10, B, 16, N, 128, dtype=torch.bfloat16,
                                          device="cuda"))

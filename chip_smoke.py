@@ -8,12 +8,14 @@ at the shapes its paths give it: K1 non-causal (serving), K1 causal (which
 also stands for K2) and K1 with segment ids on K1's dense route (a TMA +
 wgmma forward, with wgmma and no mma.sync in its SASS), the backward K3
 (which also stands for K4; TMA + wgmma too), the two-kernel backward K5
-(dK/dV) + K6 (dQ) of packed training, K1's decode route (the split-KV decode kernel and its merge: bias,
-softcap + bias, int8 / fp8 K/V, against its plain split / merge version and
-the dense plain K1), the sliding-window and soft-capped variants of K1, K3,
-K5 and K6, K1's bias route (a TMA + wgmma forward that streams the f32 bias
-through shared memory, with wgmma and no mma.sync in its SASS), K5 and K6
-with a bias (K6 with dbias), and the probes K9 (the
+(dK/dV) + K6 (dQ) of packed and soft-capped training as one TMA + wgmma
+launch (the split route, with wgmma and no mma.sync in its SASS), K1's
+decode route (the split-KV decode kernel and its merge: bias, softcap +
+bias, int8 / fp8 K/V, against its plain split / merge version and the dense
+plain K1), the sliding-window and soft-capped variants of K1, K3 and the
+split route, K1's bias route (a TMA + wgmma forward that streams the f32
+bias through shared memory, with wgmma and no mma.sync in its SASS), K5 and
+K6 with a bias (K6 with dbias), and the probes K9 (the
 TMA + wgmma GEMM, with HGMMA and no HMMA in its SASS) and K10 (tensor-core
 peak). Then it drives the port's paths and checks that each went through
 its kernels:
@@ -334,12 +336,14 @@ def instantiation_name(mangled: str) -> str:
     fwd_kernel<128, 0, 1, 1>``, ``K1 decode fp8 bias decode_kernel<128, 2, 1,
     0>``, ``K1 bias sm90 fwd_bias_sm90_kernel<128>``, ``K1 dense sm90
     segments fwd_dense_sm90_kernel<128, 1>``, ``K3 sm90
-    bwd_sm90_kernel<64>``, ``bias bwd sm90 bwd_bias_sm90_kernel<128, 1>`` or
-    ``K5 softcap dkv_softcap_kernel<128>``
-    (K9 is ``gemm_wgmma_kernel``, K7 / K8 ``ring_{fwd,bwd}_sm90_kernel``; the
-    earlier ``gemm_kernel`` and ``ring_{fwd,bwd}_kernel`` are still named,
-    for chip_ab.py's parent builds); an unrecognised name comes back marked
-    as such, never raising."""
+    bwd_sm90_kernel<64>``, ``bias bwd sm90 bwd_bias_sm90_kernel<128, 1>``,
+    ``K5 + K6 split sm90 segments softcap bwd_split_sm90_kernel<128, 1, 1>``
+    or ``K5 softcap bias dkv_bias_kernel<128, 1>`` (K9 is
+    ``gemm_wgmma_kernel``, K7 / K8 ``ring_{fwd,bwd}_sm90_kernel``; the
+    earlier ``gemm_kernel``, ``ring_{fwd,bwd}_kernel`` and K5 / K6 without a
+    bias (``dkv_kernel``, ``dq_softcap_kernel``, ``dkv_window_kernel``, ...)
+    are still named, for chip_ab.py's parent builds); an unrecognised name
+    comes back marked as such, never raising."""
     if "decode_merge_kernel" in mangled:
         return "K1 decode merge decode_merge_kernel"
     dec = re.search(r"decode_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
@@ -364,6 +368,14 @@ def instantiation_name(mangled: str) -> str:
     if bias_sm90:  # K1's bias route, fwd_bias_sm90_kernel<D>
         args = re.findall(r"L[a-z]+(-?\d+)E", bias_sm90.group(1))
         return f"K1 bias sm90 fwd_bias_sm90_kernel<{', '.join(args)}>"
+    split = re.search(r"bwd_split_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if split:  # K5 + K6 without a bias, bwd_split_sm90_kernel<D, SEG, CAP>
+        args = re.findall(r"L[a-z]+(-?\d+)E", split.group(1))
+        if len(args) != 3:
+            return f"unrecognised instantiation bwd_split_sm90_kernel<{', '.join(args)}>"
+        return (f"K5 + K6 split sm90{' segments' if args[1] == '1' else ''}"
+                f"{' softcap' if args[2] == '1' else ''} "
+                f"bwd_split_sm90_kernel<{', '.join(args)}>")
     bias_bwd = re.search(r"bwd_bias_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if bias_bwd:  # K5 + K6's bias route, bwd_bias_sm90_kernel<D, DBIAS>
         args = re.findall(r"L[a-z]+(-?\d+)E", bias_bwd.group(1))
@@ -657,13 +669,16 @@ def _seg_case_ids(kind: str, seed: int, B: int, Nq: int, Nk: int):
 
 
 def phase_seg_check() -> dict:
-    """K1 with segments, K5 and K6 against their plain versions on f32 copies
-    of the same bf16 inputs (K5/K6 with the LSE and Delta of the f32
-    forward): O within FWD_TOL[bf16], LSE within 1e-3 on live rows, dQ/dK/dV
-    within BWD_TOL[bf16]; the dead rows' O and dQ exactly 0. Times each kernel
-    at bench_lm's packed shape beside its plain version, and prints, ungated,
-    K1 with segments against K1 causal there and K5 + K6 against K3 at the
-    unpacked "lm" shape."""
+    """K1 with segments and K5 + K6's split route (flash_bwd.split_bwd: one
+    launch for both) against their plain versions on f32 copies of the same
+    bf16 inputs (the backward with the LSE and Delta of the f32 forward): O
+    within FWD_TOL[bf16], LSE within 1e-3 on live rows, dQ/dK/dV within
+    BWD_TOL[bf16]; the dead rows' O and dQ exactly 0; each call through its
+    route, exactly once. Times both at bench_lm's packed shape beside their
+    plain versions, flex_attention and its backward, prints, ungated, K1 with
+    segments against K1 causal there and the split route against K3 causal
+    without segments, and checks the split route's SASS (HGMMA, UTMALDG, no
+    HMMA)."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
     from flashattn_tpu_torch.utils.testing import (
@@ -688,44 +703,41 @@ def phase_seg_check() -> dict:
         err1 = (o.float() - o_want).abs().max().item()
         delta = (f32[3] * o_want.float()).sum(-1)
         args = (q, k, v, do, lse_want, delta)
-        dk, dv = flash_bwd.dkv(*args, **kw)
-        dq = flash_bwd.dq(*args, **kw)
+        before = _launches()
+        got = flash_bwd.split_bwd(*args, **kw)
         torch.cuda.synchronize()
-        ok5, why5, err5, _ = grad_gate((dk, dv), flash_bwd.dkv_reference(
-            *f32, lse_want, delta, **kw), g_tol, names=("dk", "dv"))
-        ok6, why6, err6, _ = grad_gate((dq,), (flash_bwd.dq_reference(
-            *f32, lse_want, delta, **kw),), g_tol, names=("dq",))
+        _routed(f"K5 + K6's split route at {name}", before, split_bwd=1)
+        ok_b, why_b, err_b, _ = grad_gate(got, flash_bwd.split_bwd_reference(
+            *f32, lse_want, delta, **kw), g_tol, names=("dq", "dk", "dv"))
         dead = ~live
-        dead_zero = bool((o[dead] == 0).all() and (dq[dead] == 0).all())
+        dead_zero = bool((o[dead] == 0).all() and (got[0][dead] == 0).all())
         log("seg", f"{name} B{B} Hq{Hq} Hkv{Hkv} Nq{Nq} Nk{Nk} D{D} "
                    f"{'causal' if causal else 'non-causal'} {kind} ids: K1 O max_abs_err "
                    f"{err1:.3e} (budget {O_TOL_NAME}), LSE live rows max_abs_err "
                    f"{(lse[live] - lse_want[live]).abs().max().item():.3e} (budget {LSE_ATOL}); "
-                   f"K5 dK/dV {err5:.3e}, K6 dQ {err6:.3e} (budget BWD_TOL[bf16] atol "
+                   f"K5 + K6 split route dQ/dK/dV {err_b:.3e} (budget BWD_TOL[bf16] atol "
                    f"{g_tol.atol} rtol {g_tol.rtol}); dead rows {int(dead.sum())}, their O "
                    f"and dQ exactly 0: {dead_zero}")
         if not (ok_o and ok_l):
             fail(f"K1 with segments disagrees with fwd_reference at {name}: {msg_o}; {msg_l}")
-        if not (ok5 and ok6):
-            fail(f"K5/K6 disagree with their plain versions at {name}: {why5}; {why6}")
+        if not ok_b:
+            fail(f"K5 + K6's split route disagrees with split_bwd_reference at {name}: {why_b}")
         if not dead_zero:
             fail(f"dead rows at {name}: O or dQ not exactly 0")
         if kind == "dead" and not dead.any():
             fail("the dead-row case has no dead row")
         if name == "packed":
-            res = {"k1": {"max_abs_err": err1}, "k5": {"max_abs_err": err5},
-                   "k6": {"max_abs_err": err6}}
+            res = {"k1": {"max_abs_err": err1}, "split": {"max_abs_err": err_b}}
             packed = (q, k, v, do, lse_want, delta, kw)
+        del got, f32
 
     q, k, v, do, lse_want, delta, kw = packed
     args = (q, k, v, do, lse_want, delta)
     B, Hq, Hkv, N, _, D = SEG_CASES[0][1:7]
     timed = {"k1": (lambda: flash_fwd.fwd(q, k, v, **kw),
                     lambda: flash_fwd.fwd_reference(q, k, v, **kw)),
-             "k5": (lambda: flash_bwd.dkv(*args, **kw),
-                    lambda: flash_bwd.dkv_reference(*args, **kw)),
-             "k6": (lambda: flash_bwd.dq(*args, **kw),
-                    lambda: flash_bwd.dq_reference(*args, **kw))}
+             "split": (lambda: flash_bwd.split_bwd(*args, **kw),
+                       lambda: flash_bwd.split_bwd_reference(*args, **kw))}
     for key, (kernel, plain) in timed.items():
         res[key]["ms"] = cuda_ms(kernel)
         res[key]["plain_ms"] = cuda_ms(plain, reps=3)
@@ -735,19 +747,18 @@ def phase_seg_check() -> dict:
     grad = 4 * B * Hq * N * D  # one f32 gradient of q's shape
     res["k1"].update(bound(tensor_bytes(q, k, v, q) + stats + ids,
                            pair_flops(q, k, matmuls=2, **mask)))
-    res["k5"].update(bound(tensor_bytes(q, k, v, do) + 2 * stats + ids + 2 * grad,
-                           pair_flops(q, k, matmuls=4, **mask)))
-    res["k6"].update(bound(tensor_bytes(q, k, v, do) + 2 * stats + ids + grad,
-                           pair_flops(q, k, matmuls=3, **mask)))
+    # In: q, k, v, dO, LSE, Delta, the ids; out: dQ, and dK / dV per q head (f32).
+    res["split"].update(bound(tensor_bytes(q, k, v, do) + 2 * stats + ids + 3 * grad,
+                              pair_flops(q, k, matmuls=5, **mask)))
     docs = band_mod(None, kw["segment_ids"][0])
     res["k1"].update(library_ms=flex_ms(q, k, v, scale=kw["scale"], mask_mod=docs),
                      library_call="flex_attention (torch.compile) with the causal document mask")
-    bwd_ms = flex_ms(q, k, v, scale=kw["scale"], do=do, mask_mod=docs)
-    for key in ("k5", "k6"):
-        res[key].update(library_ms=bwd_ms, library_call=(
-            "the backward of flex_attention (torch.compile) with the causal document mask "
-            "(dQ, dK and dV in one call)"))
+    res["split"].update(
+        library_ms=flex_ms(q, k, v, scale=kw["scale"], do=do, mask_mod=docs),
+        library_call="the backward of flex_attention (torch.compile) with the causal document "
+                     "mask (dQ, dK and dV in one call)")
     causal_ms = cuda_ms(lambda: flash_fwd.fwd(q, k, v, scale=kw["scale"], causal=True))
+    k3_ms = cuda_ms(lambda: flash_bwd_fused.bwd(*args, scale=kw["scale"], causal=True))
     # The dense route's call is the segment inputs' few small launches
     # (flash_fwd.sm90_segments: one aminmax per side) and then the kernel; each
     # alone, the kernel on inputs made once.
@@ -760,31 +771,22 @@ def phase_seg_check() -> dict:
         native.kernels(), q, k, v, o_k, lse_k, seg, scale=kw["scale"], kv_valid_len=N, causal=True,
         window=None, stream=stream))
     seg_ms = cuda_ms(lambda: flash_fwd.sm90_segments(kw["segment_ids"], N, N))
+    tf = pair_flops(q, k, matmuls=5, **mask) / 1e9
     log("seg", f"packed shape B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal, 8 documents per row, bf16: "
                f"K1 with segments {res['k1']['ms']:.4f} ms (plain {res['k1']['plain_ms']:.4f}), "
-               f"K5 {res['k5']['ms']:.4f} ms (plain {res['k5']['plain_ms']:.4f}), "
-               f"K6 {res['k6']['ms']:.4f} ms (plain {res['k6']['plain_ms']:.4f}); "
-               f"flex_attention {res['k1']['library_ms']:.4f} ms, its backward "
-               f"{bwd_ms:.4f} ms (median CUDA-event time)")
+               f"K5 + K6 split route {res['split']['ms']:.4f} ms ({tf / res['split']['ms']:.1f} "
+               f"TFLOP/s; plain {res['split']['plain_ms']:.4f}, bound "
+               f"{res['split']['bound_ms']:.4f} {res['split']['bound_by']}); flex_attention "
+               f"{res['k1']['library_ms']:.4f} ms, its backward {res['split']['library_ms']:.4f} "
+               "ms (median CUDA-event time)")
     log("seg", f"not gated: K1 causal without segments at the same shape {causal_ms:.4f} ms; "
                f"K1 with segments / K1 causal = {res['k1']['ms'] / causal_ms:.3f}; of the K1 call, "
                f"the kernel alone {alone_ms:.4f} ms, the segment inputs alone (sm90_segments) "
-               f"{seg_ms:.4f} ms")
-
-    B, Hq, Hkv, N, _, D = CAUSAL_CASES[0][1:]
-    q, k, v = (_bnhd(x) for x in make_qkv(800, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16,
-                                           device=DEVICE))
-    do = _bnhd(make_qkv(801, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
-    o32, lse = flash_fwd.fwd_reference(q.float(), k.float(), v.float(), scale=D ** -0.5,
-                                       causal=True)
-    args = (q, k, v, do, lse, (do.float() * o32).sum(-1))
-    kw = dict(scale=D ** -0.5, causal=True)
-    k3_ms = cuda_ms(lambda: flash_bwd_fused.bwd(*args, **kw))
-    k5_ms = cuda_ms(lambda: flash_bwd.dkv(*args, **kw))
-    k6_ms = cuda_ms(lambda: flash_bwd.dq(*args, **kw))
-    log("seg", f"not gated: lm shape B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal, no segments: K3 "
-               f"{k3_ms:.4f} ms, K5 + K6 {k5_ms:.4f} + {k6_ms:.4f} = {k5_ms + k6_ms:.4f} ms "
-               f"({(k5_ms + k6_ms) / k3_ms:.3f}x K3: the deterministic two-pass dQ)")
+               f"{seg_ms:.4f} ms; K3 causal without segments {k3_ms:.4f} ms, the split route / "
+               f"K3 = {res['split']['ms'] / k3_ms:.3f}")
+    _tma_wgmma_sass("seg", {f"K5 + K6 split sm90{' segments' if sg else ''}"
+                           f"{' softcap' if cp else ''} bwd_split_sm90_kernel<{d}, {sg}, {cp}>"
+                           for d in (64, 128) for sg, cp in ((1, 0), (0, 1), (1, 1))})
     return res
 
 
@@ -961,6 +963,7 @@ def _reset_launches() -> None:
     flash_bwd.dkv.launches = flash_bwd.dq.launches = 0
     flash_bwd.dkv.launches_bias = flash_bwd.dq.launches_bias = flash_bwd.dq.launches_dbias = 0
     flash_bwd.bias_bwd.launches = flash_bwd.bias_bwd.launches_dbias = 0
+    flash_bwd.split_bwd.launches = 0
     gemm.matmul.launches = roofline.roofline_call.launches = 0
     ring_kernel.ring_fwd_step.launches = ring_kernel.ring_bwd_step.launches = 0
 
@@ -974,7 +977,9 @@ def _launches() -> dict:
     launches, "K3 sm90" those of its Hopper kernel; "K5 bias" and "K6
     bias" the K5 / K6 launches with a bias, "K6 dbias" those that also wrote
     dbias; "bias bwd" the launches of K5 + K6's bias route (one kernel for
-    both), "bias bwd dbias" those that wrote dbias."""
+    both), "bias bwd dbias" those that wrote dbias; "split bwd" those of K5
+    + K6 without a bias (one kernel for both, with segment ids and / or the
+    softcap)."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, gemm, roofline
     from flashattn_tpu_torch.parallel import ring_kernel
 
@@ -991,6 +996,7 @@ def _launches() -> dict:
             "K6 bias": flash_bwd.dq.launches_bias, "K6 dbias": flash_bwd.dq.launches_dbias,
             "bias bwd": flash_bwd.bias_bwd.launches,
             "bias bwd dbias": flash_bwd.bias_bwd.launches_dbias,
+            "split bwd": flash_bwd.split_bwd.launches,
             "K7": ring_kernel.ring_fwd_step.launches, "K8": ring_kernel.ring_bwd_step.launches,
             "K9": gemm.matmul.launches, "K10": roofline.roofline_call.launches}
 
@@ -1054,10 +1060,10 @@ def phase_packed_train() -> dict:
     expected = cfg.n_layers * LM_STEPS
     log("packed", f"packed step / unpacked step at [{B}, {N + 1}]: {packed_s / plain_s:.3f}")
     log("packed", f"launches during the packed fused steps: {counts} (expected K1 = K1 dense "
-                  f"sm90 = K5 = K6 = {cfg.n_layers} layers x {LM_STEPS} steps = {expected}, no "
-                  "other)")
-    if counts != _expect(K1=expected, K1_dense_sm90=expected, K5=expected, K6=expected):
-        fail(f"packed LM steps launched {counts}, expected K1 = K1 dense sm90 = K5 = K6 = "
+                  f"sm90 = split bwd = {cfg.n_layers} layers x {LM_STEPS} steps = {expected}, "
+                  "no K5, K6 or other)")
+    if counts != _expect(K1=expected, K1_dense_sm90=expected, split_bwd=expected):
+        fail(f"packed LM steps launched {counts}, expected K1 = K1 dense sm90 = split bwd = "
              f"{expected} and no other")
     return counts
 
@@ -1477,10 +1483,10 @@ def band_ranges(n_outer: int, n_inner: int, outer: int, inner: int, lo, hi):
     """The inner rows a banded kernel visits for each ``outer``-row tile:
     ``(o0, begin, end)``, the ``inner``-aligned tiles from ``begin`` that meet
     the band [o0 - lo, o0 + outer - 1 + hi] (None: unbounded), up to ``end``
-    -- the ranges that the forwards (csrc/fwd_sm90_tile.cuh, fwd_tile.cuh) and
-    K6 (dq_tile.cuh) (Q tiles outer, KV tiles inner) and the KV-major
-    backwards (csrc/bwd_sm90_tile.cuh, dkv_tile.cuh: KV tiles outer, with lo
-    and hi swapped) compute, restated here only to print how many tile pairs
+    -- the ranges that the forwards (csrc/fwd_sm90_tile.cuh, fwd_tile.cuh: Q
+    tiles outer, KV tiles inner) and the KV-major backward
+    (csrc/bwd_sm90_tile.cuh: KV tiles outer, with lo and hi swapped) compute,
+    restated here only to print how many tile pairs
     they visit. Whether the kernels' own ranges hold the band is shown by
     phase_window_check's edge cases on the card."""
     for o0 in range(0, n_outer, outer):
@@ -1527,9 +1533,10 @@ def _grown(seed, B, Hq, Nq, D, Nk, Hkv):
 
 def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: bool = False,
                    **kw) -> dict:
-    """K1 (flash_fwd.fwd) and its backward -- K3, or K5 + K6 with segment ids,
-    a softcap or a bias, K6 also writing dbias with ``want_dbias`` -- against
-    their plain versions on f32 copies of the same bf16 inputs: O within
+    """K1 (flash_fwd.fwd) and its backward -- K3; K5 + K6's split route (one
+    launch, flash_bwd.split_bwd) with segment ids or a softcap and no bias;
+    or K5 + K6 with a bias, K6 also writing dbias with ``want_dbias`` --
+    against their plain versions on f32 copies of the same bf16 inputs: O within
     FWD_TOL[bf16], LSE within 1e-3 on live rows, dQ/dK/dV (and dbias) within
     BWD_TOL[bf16], each of O, dQ, dK, dV (and dbias) within WINDOW_REL_L2
     relative L2 (printed with max|ref|), dead rows' O and dQ exactly 0. Where
@@ -1559,12 +1566,23 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     delta = (f32[3] * o_want.float()).sum(-1)
     args = (q, k, v, do, lse_want, delta)
     split = any(n in kw for n in ("softcap", "segment_ids", "bias"))
+    route = flash_bwd.split_sm90_route(head_dim=q.shape[-1], bias=kw.get("bias"), dtype=q.dtype,
+                                       segment_ids=kw.get("segment_ids"),
+                                       softcap=kw.get("softcap"))
+    bwd_name = "K3" if not split else "K5 + K6 split route" if route else "K5 + K6"
     if not split:
         before = _launches()
         got = flash_bwd_fused.bwd(*args, **kw)
         torch.cuda.synchronize()
         _routed(f"K3 at {tag}", before, K3=1, K3_sm90=1)
         want = flash_bwd_fused.bwd_reference(*f32, lse_want, delta, **kw)
+        names = ("dq", "dk", "dv")
+    elif route:
+        before = _launches()
+        got = flash_bwd.split_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        _routed(f"K5 + K6's split route at {tag}", before, split_bwd=1)
+        want = flash_bwd.split_bwd_reference(*f32, lse_want, delta, **kw)
         names = ("dq", "dk", "dv")
     else:
         dq = flash_bwd.dq(*args, want_dbias=want_dbias, **kw)
@@ -1582,7 +1600,7 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
            for n, a, e in zip(("O", *names), (o, *got), (o_want, *want))}
     log(phase, f"{tag}: K1 O max_abs_err {err_o:.3e} (budget {O_TOL_NAME}), LSE live rows "
                   f"max_abs_err {(lse[live] - lse_want[live]).abs().max().item():.3e} (budget "
-                  f"{LSE_ATOL}); {'K5 + K6' if split else 'K3'} dQ/dK/dV "
+                  f"{LSE_ATOL}); {bwd_name} dQ/dK/dV "
                   f"max_abs_err {err_g:.3e} (budget BWD_TOL[bf16] atol {g_tol.atol} rtol "
                   f"{g_tol.rtol}); relative L2 (limit {WINDOW_REL_L2}) / max|ref|: "
                   + ", ".join(f"{n} {r:.2e} / {m:.3f}" for n, (r, m) in rel.items())
@@ -1671,10 +1689,11 @@ def _bias_bwd_check(tag: str, args, f32, *, want_dbias: bool, phase: str = "bias
 def phase_window_check() -> dict:
     """The sliding-window and soft-capped variants against their plain
     versions (_fwd_bwd_check), all on q, k scaled by GROW: K1 and K3 with
-    each window of WINDOW_CASES; K1 and K5 + K6 with a window and segment
-    ids, without and with softcap 50; K1 and K5 + K6 with softcap 50 and the
-    SWA window at bench_lm's long shape; K1 with softcap and the cache-slot
-    bias at bench_decode's shape, GQA-folded. Times each at the path's shape
+    each window of WINDOW_CASES; K1 and K5 + K6's split route with a window
+    and segment ids, without and with softcap 50, and with segment ids and
+    the softcap without a window; K1 and the split route with softcap 50 and
+    the SWA window at bench_lm's long shape; K1 with softcap and the
+    cache-slot bias at bench_decode's shape, GQA-folded. Times each at the path's shape
     beside its plain version and its library call, the kernels with a window
     beside the same kernel full-causal (gated: at most 0.6x), and prints the
     tile pairs each visits."""
@@ -1695,18 +1714,22 @@ def phase_window_check() -> dict:
         if name == "swa":
             swa = out["args"], kw, out["fwd_err"], out["bwd_err"]
         del q, k, v, do, out
-    # Packed documents with a window, without and with softcap: K1's windowed
-    # segment variants and K5 + K6's windowed ones, at bench_lm's packed shape.
+    # Packed documents with a window, without and with softcap, and with the
+    # softcap alone: K1 with the window and segment ids (its dense route, or
+    # fwd_tile.cuh with the cap) and K5 + K6's split route, at bench_lm's
+    # packed shape.
     B, Hq, Hkv, N, _, D = SEG_CASES[0][1:7]
     ids = packed_ids(B, N + 1)[:, :N]
-    for cap in (None, SOFTCAP):
+    for cap, window in ((None, (GATE_WINDOW - 1, -1)), (SOFTCAP, (GATE_WINDOW - 1, -1)),
+                        (SOFTCAP, None)):
         q, k, v = _grown(1050, B, Hq, N, D, N, Hkv)
         do = _bnhd(make_qkv(1051, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
-        kw = dict(scale=D ** -0.5, causal=True, window=(GATE_WINDOW - 1, -1),
-                  segment_ids=(ids, ids), **({} if cap is None else {"softcap": cap}))
-        _fwd_bwd_check(f"packed B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal, 8 documents per row, "
-                       f"window {kw['window']}{'' if cap is None else f', softcap {cap}'}",
-                       q, k, v, do, **kw)
+        kw = dict(scale=D ** -0.5, causal=True, segment_ids=(ids, ids),
+                  **({} if window is None else {"window": window}),
+                  **({} if cap is None else {"softcap": cap}))
+        _fwd_bwd_check(f"packed B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal, 8 documents per row"
+                       f"{'' if window is None else f', window {window}'}"
+                       f"{'' if cap is None else f', softcap {cap}'}", q, k, v, do, **kw)
         del q, k, v, do
 
     (q, k, v, do, lse, delta), kw, k1_err, k3_err = swa
@@ -1768,25 +1791,23 @@ def phase_window_check() -> dict:
                                              reps=3, trials=3),
                          **bound(tensor_bytes(q, k, v, q) + stats,
                                  pair_flops(q, k, matmuls=2, **mask)), **fwd_library}
-    res["k5_softcap"] = {"max_abs_err": out["bwd_err"],
-                         "ms": cuda_ms(lambda: flash_bwd.dkv(*args, **kw)),
-                         "plain_ms": cuda_ms(lambda: flash_bwd.dkv_reference(*args, **kw),
-                                             reps=2, trials=3),
-                         **bound(tensor_bytes(*args) + 2 * grad,
-                                 pair_flops(q, k, matmuls=4, **mask)), **bwd_library}
-    res["k6_softcap"] = {"max_abs_err": out["bwd_err"],
-                         "ms": cuda_ms(lambda: flash_bwd.dq(*args, **kw)),
-                         "plain_ms": cuda_ms(lambda: flash_bwd.dq_reference(*args, **kw),
-                                             reps=2, trials=3),
-                         **bound(tensor_bytes(*args) + grad,
-                                 pair_flops(q, k, matmuls=3, **mask)), **bwd_library}
+    # In: q, k, v, dO, LSE, Delta; out: dQ, and dK / dV per q head (f32).
+    res["split_softcap"] = {"max_abs_err": out["bwd_err"],
+                            "ms": cuda_ms(lambda: flash_bwd.split_bwd(*args, **kw)),
+                            "plain_ms": cuda_ms(
+                                lambda: flash_bwd.split_bwd_reference(*args, **kw), reps=2,
+                                trials=3),
+                            **bound(tensor_bytes(*args) + 3 * grad,
+                                    pair_flops(q, k, matmuls=5, **mask)), **bwd_library}
+    sc = res["split_softcap"]
     log("window", f"softcap at the SWA shape: K1 {res['k1_softcap']['ms']:.4f} ms (plain "
                   f"{res['k1_softcap']['plain_ms']:.4f}, flex_attention "
-                  f"{fwd_library['library_ms']:.4f}), K5 {res['k5_softcap']['ms']:.4f} ms "
-                  f"(plain {res['k5_softcap']['plain_ms']:.4f}), K6 {res['k6_softcap']['ms']:.4f} "
-                  f"ms (plain {res['k6_softcap']['plain_ms']:.4f}), flex_attention's backward "
-                  f"{bwd_library['library_ms']:.4f} ms; K1 window without the cap "
-                  f"{k1['ms']:.4f} ms, K3 window {k3['ms']:.4f} ms (median CUDA-event time)")
+                  f"{fwd_library['library_ms']:.4f}), K5 + K6 split route {sc['ms']:.4f} ms "
+                  f"({pair_flops(q, k, matmuls=5, **mask) / 1e9 / sc['ms']:.1f} TFLOP/s; plain "
+                  f"{sc['plain_ms']:.4f}, bound {sc['bound_ms']:.4f} {sc['bound_by']}), "
+                  f"flex_attention's backward {bwd_library['library_ms']:.4f} ms; K1 window "
+                  f"without the cap {k1['ms']:.4f} ms, K3 window {k3['ms']:.4f} ms (median "
+                  "CUDA-event time)")
     del q, k, v, do, args, out
     torch.cuda.empty_cache()
 
@@ -1871,7 +1892,8 @@ def phase_softcap() -> dict:
     """Soft-capped training and decode. Training: the LM with logit_softcap
     50 and sliding_window 512, gates at [1, 2049] as phase_swa_train's; then
     LM_STEPS fused steps at [1, 8193] with the cap and sliding_window 2048:
-    exactly K1 = K1 window = K1 softcap = K5 = K6 = layers x steps, no K3.
+    exactly K1 = K1 window = K1 softcap = split bwd (K5 + K6's split route)
+    = layers x steps, no K3, K5 or K6.
     Decode: bench_decode's LM with the cap and sliding_window 2048 on a bf16
     cache, decode against the teacher-forced forward (_decode_gate; the
     forward runs K1 with the window and the cap), ms/token at cache lengths
@@ -1892,10 +1914,10 @@ def phase_softcap() -> dict:
     train = _launches()
     n = cfg.n_layers * LM_STEPS
     log("softcap", f"launches during the soft-capped steps: {train} (expected K1 = K1 window = "
-                   f"K1 softcap = K5 = K6 = {n}, no K3)")
-    if train != _expect(K1=n, K1_window=n, K1_softcap=n, K5=n, K6=n):
-        fail(f"soft-capped steps launched {train}, expected K1 = K1 window = K1 softcap = K5 = "
-             f"K6 = {n} and no other")
+                   f"K1 softcap = split bwd = {n}, no K3, K5 or K6)")
+    if train != _expect(K1=n, K1_window=n, K1_softcap=n, split_bwd=n):
+        fail(f"soft-capped steps launched {train}, expected K1 = K1 window = K1 softcap = split "
+             f"bwd = {n} and no other")
 
     cfg = TransformerConfig(**DECODE_WIDTH, sliding_window=SWA_WINDOW, logit_softcap=SOFTCAP)
     model = init_transformer(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
@@ -2923,10 +2945,11 @@ def main() -> None:
     bias_train = timed(phase_bias_train)
     roof = timed(phase_roofline)
     ring = timed(phase_ring)
-    fwd_src, bwd_src, split_src, cap_win_src, split_win_src, bias_src, bias_sm90_src = (
+    fwd_src, bwd_src, split_src, cap_win_src, bias_src, bias_sm90_src = (
         f"flashattn_tpu_torch/csrc/flash_{d}.cu"
-        for d in ("fwd_sm90", "bwd_sm90", "bwd_split", "fwd_softcap_window",
-                  "bwd_split_window", "bwd_split_bias", "fwd_bias_sm90"))
+        for d in ("fwd_sm90", "bwd_sm90", "bwd_split_sm90", "fwd_softcap_window",
+                  "bwd_split_bias", "fwd_bias_sm90"))
+    split_replaces = "flashattn_tpu/ops/flash_bwd.py:139, flashattn_tpu/ops/flash_bwd.py:234"
     # K1's decode route: the decode kernel and, where a call has more than one
     # split, its merge kernel, both launched by flash_fwd.fwd's one C call
     # (their times are the call's); launches are the decode kernel's.
@@ -2956,11 +2979,10 @@ def main() -> None:
          "replaces": "flashattn_tpu/ops/flash_bwd_fused.py:110, "
                      "flashattn_tpu/ops/flash_bwd_fused.py:336",
          "launches": k3_launches, **k3},
-        {"name": "flash_bwd_split dkv (K5)", "route": "cuda", "source": split_src,
-         "replaces": "flashattn_tpu/ops/flash_bwd.py:139", "launches": packed["K5"], **seg["k5"]},
-        {"name": "flash_bwd_split dq (K6)", "route": "cuda", "source": split_src,
-         "replaces": "flashattn_tpu/ops/flash_bwd.py:234", "launches": packed["K6"],
-         **seg["k6"]}, *decode_kernels,
+        {"name": "flash_bwd_split_sm90 segments (K5 + K6 in one launch, wgmma: packed LM, "
+                 "causal + segment ids)", "route": "cuda", "source": split_src,
+         "replaces": split_replaces, "launches": packed["split bwd"], **seg["split"]},
+        *decode_kernels,
         {"name": "flash_fwd_sm90 window (K1's dense route, wgmma: SWA, causal + sliding "
                  "window, K2 windowed)", "route": "cuda", "source": fwd_src,
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:852",
@@ -2973,14 +2995,10 @@ def main() -> None:
         {"name": "flash_fwd softcap (K1 + logit softcap + sliding window)", "route": "cuda",
          "source": cap_win_src, "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
          "launches": cap["train"]["K1 softcap"], **win["k1_softcap"]},
-        {"name": "flash_bwd_split dkv softcap (K5 + logit softcap + sliding window)",
-         "route": "cuda", "source": split_win_src,
-         "replaces": "flashattn_tpu/ops/flash_bwd.py:139",
-         "launches": cap["train"]["K5"], **win["k5_softcap"]},
-        {"name": "flash_bwd_split dq softcap (K6 + logit softcap + sliding window)",
-         "route": "cuda", "source": split_win_src,
-         "replaces": "flashattn_tpu/ops/flash_bwd.py:234",
-         "launches": cap["train"]["K6"], **win["k6_softcap"]},
+        {"name": "flash_bwd_split_sm90 softcap (K5 + K6 in one launch, wgmma: soft-capped SWA, "
+                 "logit softcap + sliding window)", "route": "cuda", "source": split_src,
+         "replaces": split_replaces, "launches": cap["train"]["split bwd"],
+         **win["split_softcap"]},
         {"name": "flash_fwd_bias_sm90 (K1's bias route, wgmma: key-padding bias, path A's mask "
                  "arm)", "route": "cuda", "source": bias_sm90_src,
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
@@ -3000,8 +3018,8 @@ def main() -> None:
          "replaces": "flashattn_tpu/ops/flash_bwd.py:139, flashattn_tpu/ops/flash_bwd.py:234",
          "launches": bias_train["learned"]["launches"]["bias bwd dbias"],
          **bias["bias_bwd_dbias"]},
-        # K5 / K6 with a bias where the route refuses the call (a softcap, the
-        # decode fold): launches from phase_bias_check's end-to-end checks,
+        # K5 / K6 with a bias where the bias route refuses the call (a softcap,
+        # the decode fold): launches from phase_bias_check's end-to-end checks,
         # times at path A's shape (the design the route replaced there).
         {"name": "flash_bwd_split dkv bias (K5 + bias)", "route": "cuda", "source": bias_src,
          "replaces": "flashattn_tpu/ops/flash_bwd.py:139",

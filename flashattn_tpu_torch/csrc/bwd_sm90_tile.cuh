@@ -1,9 +1,10 @@
 // The single-pass TMA + wgmma attention backward for Hopper (sm_90a), KV-major:
-// the body of K3 (flash_bwd_sm90.cu) and of K5 + K6's bias route
-// (bwd_bias_sm90.cu), one launch writing dQ, dK, dV and, with a bias that
-// needs a gradient, dbias. K8's design (ring_bwd.cu, FlashAttention-3's
-// backward); each source's header says what its family replaces and what
-// bounds it.
+// the body of K3 (flash_bwd_sm90.cu), of K5 + K6's bias route
+// (bwd_bias_sm90.cu) and of K5 + K6 without a bias (flash_bwd_split_sm90.cu:
+// segment ids, the logit softcap), one launch writing dQ, dK, dV and, with a
+// bias that needs a gradient, dbias. K8's design (ring_bwd.cu,
+// FlashAttention-3's backward); each source's header says what its family
+// replaces and what bounds it.
 //
 // With the forward's LSE (natural log; ln2 * mask on a dead row) and Delta =
 // rowsum(dO * O) it computes, for each (query row i, key j) that attends,
@@ -14,6 +15,9 @@
 //       diagonal; else the band of K1's dense route, row i sees column j iff
 //       i - lo <= j <= i + hi) and on a dead row (LSE log2 e <= mask / 2);
 //   dL = P (dP - Delta), dP = dO V^T;  dS = dL scale;
+//   with the softcap (CAP): x = cap log2 e t, t = tanh(S scale / cap), and
+//       dS = dL (1 - t^2) scale (the JAX kernel's, flash_bwd.py:92-96, :220);
+//   with segment ids (SEG): P exactly 0 on a pair whose ids differ;
 //   dV = P^T dO,  dK = dS^T Q,  dQ = dS K,  dbias = dL (f32, before scale:
 //       the JAX kernel's, flashattn_tpu/ops/flash_bwd.py:97-98, :135, :300-302).
 // dQ and dK each carry `scale` exactly once. dQ is added into a zeroed f32 dQ.
@@ -35,7 +39,9 @@
 //     as 64 and 128).
 //   * Per consumer and Q tile, K8's order: S^T = K Q^T by wgmma from shared
 //     memory; P^T in registers, rounded at once to bf16 (dV's A) and fp16
-//     (for dS^T: bf16's 7 mantissa bits put dQ / dK 40% further off in K8);
+//     (for dS^T: bf16's 7 mantissa bits put dQ / dK 40% further off in K8;
+//     with CAP it holds P^T (1 - t^2), which is all dS^T needs, so the
+//     Jacobian takes no register beyond the pair in flight);
 //     then dP^T = V dO^T and dV += P^T dO (A from registers) together;
 //     dL^T = P^T (dP^T - Delta) (stored as dbias from the accumulator
 //     fragments with DBIAS), dS^T = dL^T scale; dK += dS^T Q.
@@ -62,6 +68,17 @@
 //     the next tile's bias while dP^T, dV, dK and dQ of this tile run. dbias
 //     is stored from the dL^T fragments (8 lanes write 32 contiguous bytes of
 //     one dbias row: whole sectors, streaming stores).
+//   * With segment ids (SEG, flash_bwd_split_sm90.cu): the wrapper gives each
+//     Q tile's (64 rows) and each KV tile's (128 keys) [min, max] id, as the
+//     forward's dense route takes them (ops/flash_fwd.py::sm90_segments). Warp
+//     0 compacts, once, the Q tiles of the band whose range meets the CTA's
+//     KV tile's into a list in shared memory (the room the bias stage takes
+//     in the BIAS family), each marked when both tiles are one single
+//     document; producer and consumers walk that one list. The KV tile's 128
+//     ids come with K and V, each Q tile's 64 (the wrapper pads the rows to
+//     whole tiles) by a bulk copy on the stage's barrier; pairs are tested
+//     per id only on tiles that a document edge cuts. An empty list leaves
+//     the tile's dK / dV rows zero, as a tile past kv_valid_len.
 
 #pragma once
 
@@ -76,6 +93,7 @@ constexpr int BB_BLOCK_M = 64;   // query rows per streamed tile
 constexpr int BB_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int BB_BIAS_BOX = 32;  // f32 columns per bias box: the 128-byte swizzle's span
 constexpr float NEG_GUARD = 0.5f * MASK_VALUE;
+constexpr int BB_SEG_LIST = 4096;  // SEG: the most Q tiles one CTA can visit (Nq <= 262144)
 
 struct BwdBiasParams {
   const float* lse;    // [B, Hq, nq_pad] f32, natural log (ln2 * mask: a dead row)
@@ -102,13 +120,26 @@ struct BwdDenseParams {
   float scale, scale_log2;
 };
 
+// K5 + K6 without a bias: K3's, the segment ids (SEG) and the softcap (CAP).
+struct BwdSplitParams : BwdDenseParams {
+  const int* seg_q;      // [B, q_tiles * 64] ids, contiguous, rows padded to whole tiles
+  const int* seg_kv;     // [B, kv_tiles * 128] ids, contiguous, rows padded to whole tiles
+  const int2* q_range;   // [B, q_tiles] (min, max) id of each 64-row Q tile's rows below Nq
+  const int2* kv_range;  // [B, kv_tiles] (min, max) of each 128-key tile's keys below kv_valid_len
+  int q_tiles, kv_tiles;   // ceil(Nq / 64), ceil(kv_valid_len / 128)
+  float cap_scale, cap_log2;  // CAP: scale / cap, cap * log2(e)
+};
+
 // Shared-memory layout (bytes, from a 1024-byte-aligned base): K and V (D /
 // 64 boxes of 128 rows), 2 stages of (Q, dO) (D / 64 boxes of 64 rows each),
 // 2 dS^T buffers (128 KV rows x 64 query columns, 128-byte swizzle), the f32
 // dQ stage [64][D], with BIAS BSTAGES bias tiles (4 boxes of 64 rows x 32
-// f32), the LSE and Delta rows [2][64] each, then the mbarriers kv_full,
-// full[2], empty[2] and with BIAS bias_full[BSTAGES], bias_empty[BSTAGES].
-template <int D, bool BIAS = true>
+// f32), with SEG the ids (the KV tile's [128], each stage's Q tile's
+// [2][64]), the list's length (padded to 16 bytes) and the list
+// [BB_SEG_LIST], the LSE and Delta rows [2][64] each, then the mbarriers
+// kv_full, full[2], empty[2] and with BIAS bias_full[BSTAGES],
+// bias_empty[BSTAGES].
+template <int D, bool BIAS = true, bool SEG = false>
 struct BbSmem {
   static constexpr int BSTAGES = BIAS ? (D == 64 ? 2 : 1) : 0;
   static constexpr int KV = BB_BLOCK_N * D * 2;
@@ -122,7 +153,12 @@ struct BbSmem {
   static constexpr int OFF_DST = OFF_STAGE + 2 * STAGE;
   static constexpr int OFF_DQ = OFF_DST + 2 * DST;
   static constexpr int OFF_BIAS = OFF_DQ + BB_BLOCK_M * D * 4;
-  static constexpr int OFF_STATS = OFF_BIAS + BSTAGES * BIAS_TILE;
+  static constexpr int OFF_SEG = OFF_BIAS + BSTAGES * BIAS_TILE;
+  static constexpr int SEG_Q = BB_BLOCK_N * 4;              // offsets in the SEG region
+  static constexpr int SEG_COUNT = SEG_Q + 2 * BB_BLOCK_M * 4;
+  static constexpr int SEG_LIST = SEG_COUNT + 16;
+  static constexpr int SEG_BYTES = SEG ? SEG_LIST + BB_SEG_LIST * 4 : 0;
+  static constexpr int OFF_STATS = OFF_SEG + SEG_BYTES;
   static constexpr int BARS = OFF_STATS + 2 * 2 * BB_BLOCK_M * 4;
   static constexpr int BYTES = 1024 + BARS + (5 + 2 * BSTAGES) * 8;
   static_assert(KV % 1024 == 0 && QT % 1024 == 0 && DST % 1024 == 0 && BIAS_BOX % 1024 == 0 &&
@@ -137,19 +173,21 @@ __device__ __forceinline__ float lds_f1(uint32_t addr) {
   return v;
 }
 
-// The body of both families: BIAS, K5 + K6's bias route (Params
-// BwdBiasParams, dbias with DBIAS); else K3 (Params BwdDenseParams). p comes
+// The body of every family: BIAS, K5 + K6's bias route (Params
+// BwdBiasParams, dbias with DBIAS); else K3 (Params BwdDenseParams) or, with
+// SEG and / or CAP, K5 + K6 without a bias (Params BwdSplitParams). p comes
 // by value: bound by reference to the kernel's parameter, its fields were
 // reloaded in the P^T loop and its masks became branches (+160 SASS
 // instructions in each bias-route instantiation, 4.7% slower on path A's
 // backward: chip_ab.py).
-template <int D, bool BIAS, bool DBIAS, typename Params>
+template <int D, bool BIAS, bool DBIAS, bool SEG = false, bool CAP = false, typename Params>
 __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                               const CUtensorMap& tm_v, const CUtensorMap& tm_do,
                                               const CUtensorMap* tm_bias, const Params p) {
   static_assert(D == 64 || D == 128, "instantiated for D 64 and 128");
   static_assert(BIAS || !DBIAS, "dbias needs the bias");
-  using S = BbSmem<D, BIAS>;
+  static_assert(!(BIAS && (SEG || CAP)), "the bias route takes no segment ids or softcap");
+  using S = BbSmem<D, BIAS, SEG>;
   constexpr int BOXES = D / 64;
   constexpr int BST = BIAS ? S::BSTAGES : 1;
   extern __shared__ unsigned char smem_raw[];
@@ -161,6 +199,12 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
   uint64_t* bias_full = empty + 2;
   uint64_t* bias_empty = bias_full + BST;
   float* s_stats = reinterpret_cast<float*>(smem + S::OFF_STATS);  // lse[2][64], delta[2][64]
+  // SEG: the KV tile's ids, the stages' Q ids, the list of Q tiles (2 * tile
+  // + whether both tiles are one document) and its length.
+  int* seg_kv_s = reinterpret_cast<int*>(smem + S::OFF_SEG);
+  int* seg_q_s = reinterpret_cast<int*>(smem + S::OFF_SEG + S::SEG_Q);
+  int* seg_count = reinterpret_cast<int*>(smem + S::OFF_SEG + S::SEG_COUNT);
+  int* seg_list = reinterpret_cast<int*>(smem + S::OFF_SEG + S::SEG_LIST);
 
   // The CTA's owner (BIAS: its KV head hk, the query heads hk * rep + hr;
   // else the query head h0 of KV head hk), its KV tile n0 and
@@ -191,9 +235,31 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
     n_m = n0 < p.kv_valid_len && m_end > m_begin
               ? (m_end - m_begin + BB_BLOCK_M - 1) / BB_BLOCK_M
               : 0;
+    if constexpr (SEG) {
+      // Warp 0 keeps the band's Q tiles whose id range meets the KV tile's,
+      // in order, 32 a ballot; the barrier below publishes the list.
+      if (n_m > 0 && threadIdx.x < 32) {
+        const int2 k_rng = p.kv_range[blockIdx.z * p.kv_tiles + n_tile];
+        const int t0 = m_begin / BB_BLOCK_M;
+        int n = 0;
+        for (int c = 0; c < n_m; c += 32) {
+          const int i = c + threadIdx.x;
+          bool meet = false, one = false;
+          if (i < n_m) {
+            const int2 q_rng = p.q_range[blockIdx.z * p.q_tiles + t0 + i];  // bwd seg tile range
+            meet = ranges_meet(q_rng, k_rng);
+            one = q_rng.x == q_rng.y && k_rng.x == k_rng.y && q_rng.x == k_rng.x;
+          }
+          const unsigned kept = __ballot_sync(0xffffffffu, meet);
+          if (meet) seg_list[n + __popc(kept & ((1u << threadIdx.x) - 1))] = 2 * (t0 + i) + one;
+          n += __popc(kept);
+        }
+        if (threadIdx.x == 0) *seg_count = n;  // bwd seg list length
+      }
+    }
   }
   const int b = blockIdx.z;
-  const int total = heads * n_m;  // (query head, Q tile) pairs, head-major
+  int total = heads * n_m;  // (query head, Q tile) pairs, head-major
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   auto stage = [&](int j) { return smem + S::OFF_STAGE + (j & 1) * S::STAGE; };
@@ -214,28 +280,39 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  if constexpr (SEG) total = total > 0 ? *seg_count : 0;  // the listed Q tiles
 
   if (wg == 0) {
     // Producer: thread 0 issues the copies.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == 0 && total > 0) {
-      mbar_expect_tx(kv_full, 2 * S::KV);
+      mbar_expect_tx(kv_full, 2 * S::KV + (SEG ? BB_BLOCK_N * 4 : 0));
 #pragma unroll
       for (int x = 0; x < BOXES; ++x) {
         tma_load_4d(smem + x * BB_BLOCK_N * SW128_ROW, &tm_k, kv_full, 64 * x, n0, hk, b);
         tma_load_4d(smem + S::OFF_V + x * BB_BLOCK_N * SW128_ROW, &tm_v, kv_full, 64 * x, n0,
                     hk, b);
       }
+      if constexpr (SEG) {
+        bulk_load(seg_kv_s, p.seg_kv + static_cast<int64_t>(b) * p.kv_tiles * BB_BLOCK_N + n0,
+                  BB_BLOCK_N * 4, kv_full);
+      }
       uint32_t bias_bytes = 0;
       if constexpr (BIAS) bias_bytes = BB_BLOCK_N / BB_BIAS_BOX * p.bias_rows * SW128_ROW;
       for (int j = 0; j < total; ++j) {
         const int s = j & 1;
-        const int hr = j / n_m;
-        const int m0 = m_begin + (j - hr * n_m) * BB_BLOCK_M;
+        int hr, m0;
+        if constexpr (SEG) {
+          hr = 0;
+          m0 = (seg_list[j] >> 1) * BB_BLOCK_M;
+        } else {
+          hr = j / n_m;
+          m0 = m_begin + (j - hr * n_m) * BB_BLOCK_M;
+        }
         const int h = h0 + hr;
         unsigned char* st = stage(j);
         mbar_wait(&empty[s], ((j >> 1) & 1) ^ 1);  // round 0 passes at once
-        mbar_expect_tx(&full[s], 2 * S::QT + 2 * BB_BLOCK_M * 4);
+        mbar_expect_tx(&full[s], 2 * S::QT + 2 * BB_BLOCK_M * 4 + (SEG ? BB_BLOCK_M * 4 : 0));
 #pragma unroll
         for (int x = 0; x < BOXES; ++x) {
           tma_load_4d(st + x * BB_BLOCK_M * SW128_ROW, &tm_q, &full[s], 64 * x, m0, h, b);
@@ -245,6 +322,11 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
         const int64_t row = (static_cast<int64_t>(b) * p.hq + h) * p.nq_pad + m0;
         bulk_load(s_stats + s * BB_BLOCK_M, p.lse + row, BB_BLOCK_M * 4, &full[s]);
         bulk_load(s_stats + (2 + s) * BB_BLOCK_M, p.delta + row, BB_BLOCK_M * 4, &full[s]);
+        if constexpr (SEG) {
+          bulk_load(seg_q_s + s * BB_BLOCK_M,
+                    p.seg_q + static_cast<int64_t>(b) * p.q_tiles * BB_BLOCK_M + m0,
+                    BB_BLOCK_M * 4, &full[s]);
+        }
         if constexpr (BIAS) {
           const int bs = j % BST;
           mbar_wait(&bias_empty[bs], ((j / BST) & 1) ^ 1);
@@ -306,10 +388,27 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
     for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
     if (total > 0) mbar_wait(kv_full, 0);
+    // SEG: the ids of this thread's KV rows kv0 and kv0 + 8.
+    int kv_seg[2] = {0, 0};
+    if constexpr (SEG) {
+      if (total > 0) {
+        kv_seg[0] = seg_kv_s[kv0 - n0];
+        kv_seg[1] = seg_kv_s[kv0 - n0 + 8];
+      }
+    }
     for (int j = 0; j < total; ++j) {
       const int s = j & 1;
-      const int hr = j / n_m;
-      const int m0 = m_begin + (j - hr * n_m) * BB_BLOCK_M;
+      int hr, m0;
+      bool one_doc = false;  // SEG: the Q tile and the KV tile are one single document
+      if constexpr (SEG) {
+        const int entry = seg_list[j];
+        hr = 0;
+        m0 = (entry >> 1) * BB_BLOCK_M;
+        one_doc = entry & 1;
+      } else {
+        hr = j / n_m;
+        m0 = m_begin + (j - hr * n_m) * BB_BLOCK_M;
+      }
       const int h = h0 + hr;
       const unsigned char* q_st = stage(j);
       const unsigned char* do_st = q_st + S::QT;
@@ -337,6 +436,9 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
       const uint32_t lse_addr = smem_u32(s_stats + s * BB_BLOCK_M + 2 * t);
       const uint32_t dlt_addr = smem_u32(s_stats + (2 + s) * BB_BLOCK_M + 2 * t);
       const uint32_t bias_addr = smem_u32(bias_tile(j));
+      const int* q_ids = seg_q_s + s * BB_BLOCK_M + 2 * t;  // SEG: this thread's query ids
+      // P^T in fp16 for dS^T; with CAP formed in the loop as P^T (1 - t^2).
+      uint32_t ph[16];
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const float2 lv = lds_f2(lse_addr + 32 * jj);
@@ -347,6 +449,7 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
         }
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
+          float jac[2];  // CAP: 1 - t^2 of the pair
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * jj + 2 * r + e;
@@ -354,6 +457,11 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
             if constexpr (BIAS) {
               const float bv = lds_f1(bias_addr + b_off[r][e] + jj * jj_step);
               x = fmaxf(sc[i] * p.scale_log2 + bv * LOG2E, MASK_VALUE);
+            } else if constexpr (CAP) {
+              // The forward's accurate tanhf (fwd_tile.cuh), not tanh.approx.
+              const float tc = tanhf(sc[i] * p.cap_scale);
+              x = p.cap_log2 * tc;
+              jac[e] = 1.f - tc * tc;  // bwd softcap jacobian
             } else {
               x = sc[i] * p.scale_log2;
             }
@@ -372,6 +480,31 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
             }
             sc[i] = pe;
           }
+          if constexpr (CAP) {
+            ph[2 * jj + r] =
+                pack_half(sc[4 * jj + 2 * r] * jac[0], sc[4 * jj + 2 * r + 1] * jac[1]);
+          }
+        }
+      }
+      if constexpr (SEG) {
+        // A document edge cuts the tiles: P^T = 0 (and, with CAP, its half
+        // in ph) on the pairs whose ids differ, two query ids a load.
+        if (!one_doc) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int2 qi = *reinterpret_cast<const int2*>(q_ids + 8 * jj);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              if (qi.x != kv_seg[r]) {  // bwd seg pair mask
+                sc[4 * jj + 2 * r] = 0.f;
+                if constexpr (CAP) ph[2 * jj + r] &= 0xffff0000u;
+              }
+              if (qi.y != kv_seg[r]) {
+                sc[4 * jj + 2 * r + 1] = 0.f;
+                if constexpr (CAP) ph[2 * jj + r] &= 0x0000ffffu;
+              }
+            }
+          }
         }
       }
       if constexpr (BIAS) {
@@ -381,16 +514,19 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
 
       // P^T in bf16 (the A fragments of dV's product) and in fp16 (for dS^T)
       // before dP^T = V dO^T is issued, as K8 orders them.
-      uint32_t pa[4][4], ph[16], da[4][4];
+      uint32_t pa[4][4], da[4][4];
       pack_p(pa, sc);
+      if constexpr (!CAP) {
 #pragma unroll
-      for (int i = 0; i < 16; ++i) ph[i] = pack_half(sc[2 * i], sc[2 * i + 1]);
+        for (int i = 0; i < 16; ++i) ph[i] = pack_half(sc[2 * i], sc[2 * i + 1]);
+      }
       issue_qk<D, BB_BLOCK_N, BB_BLOCK_M>(dp, v_s, do_st);
       issue_pv<D, BB_BLOCK_M>(dv, pa, do_st);
       wgmma_wait<1>();  // dP^T has retired
       fence_regs(dp);
       // dL^T = P^T (dP^T - Delta) is dbias; dS^T = dL^T scale in place of
-      // dP^T. ph[2jj + r] holds row g + 8r, columns 8jj + 2t and + 1.
+      // dP^T (with CAP, ph's P^T (1 - t^2) makes it dL^T (1 - t^2) scale).
+      // ph[2jj + r] holds row g + 8r, columns 8jj + 2t and + 1.
       float* db_row = nullptr;
       if constexpr (DBIAS) {
         db_row = p.dbias + ((static_cast<int64_t>(b) * p.hq + h) * p.nq + m0) * p.nk + kv0;

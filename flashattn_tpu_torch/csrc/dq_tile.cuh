@@ -1,6 +1,6 @@
-// K6's body (dQ of the two-kernel backward, and dbias) and its launcher,
-// shared by flash_bwd_split.cu (without a window), flash_bwd_split_window.cu
-// (with one) and flash_bwd_split_bias.cu (with a bias); the header of
+// K6's body with an additive bias (dQ of the two-kernel backward, and
+// dbias) and its launcher, instantiated in flash_bwd_split_bias.cu for the
+// bias calls that the Hopper bias route refuses; the header of
 // flash_bwd_split.cu says what K6 replaces, how it is laid out and what
 // bounds it. K5's body is dkv_tile.cuh's.
 //
@@ -22,16 +22,13 @@ constexpr int DQ_BLOCK_M = 64;  // Q rows per K6 CTA: 4 warps x 16 rows
 
 template <int DP>
 constexpr size_t dq_smem_bytes() {
-  // Q, dO [64][DP+8] and K, V [64][DP+8] (bf16); the KV tile's segment ids
-  return static_cast<size_t>(2 * DQ_BLOCK_M + 2 * BLOCK_N) * (DP + 8) * 2 + BLOCK_N * 4;
+  // Q, dO [64][DP+8] and K, V [64][DP+8] (bf16)
+  return static_cast<size_t>(2 * DQ_BLOCK_M + 2 * BLOCK_N) * (DP + 8) * 2;
 }
 
-// CAP: logit soft-capping; WIN: the sliding window (p.lo, p.hi; without it
-// the band is causal's); BIAS: the additive bias p.bias (without a window or
-// segments, as K1 takes it), and dbias into p.dbias unless it is null.
-template <int DP, bool CAP, bool WIN, bool BIAS = false>
+// CAP: logit soft-capping; dbias into p.dbias unless it is null.
+template <int DP, bool CAP>
 __device__ __forceinline__ void dq_tile(const BwdParams& p) {
-  static_assert(!(BIAS && WIN), "K1 takes a bias without a window");
   constexpr int BLOCK_M = DQ_BLOCK_M;
   constexpr int STRIDE = DP + 8;      // shared row stride (see load_tile)
   constexpr int KS_D = DP / 16;       // k-steps over the head dim (S, dP)
@@ -44,7 +41,6 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p) {
   __nv_bfloat16* s_do = s_q + BLOCK_M * STRIDE;
   __nv_bfloat16* s_k = s_do + BLOCK_M * STRIDE;
   __nv_bfloat16* s_v = s_k + BLOCK_N * STRIDE;
-  int* s_seg = reinterpret_cast<int*>(s_v + BLOCK_N * STRIDE);  // the KV tile's segment ids
 
   // Causal: heavy (late) Q tiles first, so the tail of the grid is short.
   const int m_tile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
@@ -78,22 +74,10 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p) {
     const int row = row0 + 8 * r;
     lse2[r] = row < p.nq ? p.lse[row_base + row] * LOG2E : 0.f;
     dlt[r] = row < p.nq ? p.delta[row_base + row] : 0.f;
-    if (BIAS && row < p.nq) {
+    if (row < p.nq) {
       bias_row[r] = p.bias + b * p.bias_sb + h * p.bias_sh + static_cast<int64_t>(row) * p.bias_sn;
       dead[r] = lse2[r] <= 0.5f * MASK_VALUE;
     }
-  }
-
-  // Segments: the ids of rows g and g + 8 and the id range of the Q tile.
-  const bool seg = p.seg_q != nullptr;
-  const int* kv_ids = seg ? p.seg_kv + b * p.seg_kv_sb : nullptr;
-  int q_seg[2] = {0, 0};
-  int2 q_range = make_int2(0, 0);
-  if (seg) {
-    const int* q_ids = p.seg_q + b * p.seg_q_sb;
-    q_range = warp_id_range(q_ids + m0, q_rows);
-    q_seg[0] = row0 < p.nq ? q_ids[row0] : 0;
-    q_seg[1] = row0 + 8 < p.nq ? q_ids[row0 + 8] : 0;
   }
 
   float acc[NT_D][4];
@@ -107,28 +91,19 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p) {
   const __nv_bfloat16* k_g = p.k + b * p.k_sb + hk * p.k_sh;
   const __nv_bfloat16* v_g = p.v + b * p.v_sb + hk * p.v_sh;
   const int nkv = p.kv_valid_len;
-  // Causal: only KV tiles whose first column is <= this tile's last row; with
-  // a window, only those that meet columns [m0 - lo, m0 + 63 + hi].
-  int n_begin = 0;
-  int n_end = p.causal ? min(nkv, m0 + BLOCK_M) : nkv;
-  if constexpr (WIN) {
-    n_begin = p.lo < NO_BOUND ? max(0, m0 - p.lo) / BLOCK_N * BLOCK_N : 0;
-    n_end = p.hi < NO_BOUND ? min(nkv, m0 + BLOCK_M + p.hi) : nkv;
-  }
-  const int n_tiles = (n_end - n_begin + BLOCK_N - 1) / BLOCK_N;
+  // Causal: only KV tiles whose first column is <= this tile's last row.
+  const int n_end = p.causal ? min(nkv, m0 + BLOCK_M) : nkv;
+  const int n_tiles = (n_end + BLOCK_N - 1) / BLOCK_N;
   // ldmatrix.trans lane -> (row, col) of the 16x16 K block it addresses.
   const int k_row = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int k_col = (lane >> 4) * 8;
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = n_begin + j * BLOCK_N;
+    const int n0 = j * BLOCK_N;
     const int kv_rows = min(BLOCK_N, nkv - n0);
-    // A tile of other documents only: skip it (uniform across the CTA).
-    if (seg && !ranges_meet(q_range, warp_id_range(kv_ids + n0, kv_rows))) continue;
     __syncthreads();  // the previous tile is consumed (and s_q, s_do are complete)
     load_tile<DP, BLOCK_N, NUM_THREADS>(s_k, k_g + n0 * p.k_sn, p.k_sn, kv_rows, p.d);
     load_tile<DP, BLOCK_N, NUM_THREADS>(s_v, v_g + n0 * p.v_sn, p.v_sn, kv_rows, p.d);
-    if (seg && threadIdx.x < kv_rows) s_seg[threadIdx.x] = kv_ids[n0 + threadIdx.x];
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 columns.
@@ -158,13 +133,12 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p) {
       }
     }
 
-    // P = exp2(S scale log2e - LSE log2e), exactly 0 where masked (KV tail,
-    // pairs outside the band on edge tiles, pairs of two segments);
-    // dS = P (dP - Delta) scale, in place of S (with softcap, P from the
-    // capped score and dS through the cap's Jacobian 1 - t^2).
-    const bool edge = WIN ? n0 + BLOCK_N - 1 - m0 > p.hi || m0 + BLOCK_M - 1 - n0 > p.lo
-                          : p.causal && n0 + BLOCK_N - 1 > m0;
-    const bool need_mask = seg || n0 + BLOCK_N > nkv || edge;
+    // P = exp2(x - LSE log2e), exactly 0 where masked (KV tail, pairs above
+    // the causal diagonal on edge tiles); dS = P (dP - Delta) scale, in place
+    // of S (with softcap, P from the capped score and dS through the cap's
+    // Jacobian 1 - t^2).
+    const bool edge = p.causal && n0 + BLOCK_N - 1 > m0;
+    const bool need_mask = n0 + BLOCK_N > nkv || edge;
 #pragma unroll
     for (int nt = 0; nt < NT_S; ++nt) {
       float dl[4];  // dbias = P (dP - Delta), the capped logits' gradient
@@ -173,33 +147,18 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p) {
         const int col = n0 + nt * 8 + 2 * t + (e & 1);
         const int r = e >> 1;
         const int row = row0 + 8 * r;
-        const bool masked =
-            need_mask && (col >= nkv ||
-                          (WIN ? col - row > p.hi || row - col > p.lo : p.causal && col > row) ||
-                          (seg && s_seg[col - n0] != q_seg[r]));
-        if constexpr (BIAS) {
-          // Kept apart from the branches below: folded into them, the bias
-          // changed how nvcc compiled K6 without one (+25% time at the
-          // packed shape on the H100).
-          const bool off = masked || dead[r];
-          const float tc = CAP && !off ? tanhf(s[nt][e] * p.cap_scale) : 0.f;
-          float x = CAP ? tc * p.cap_log2 : s[nt][e] * p.scale_log2;
-          if (!off && bias_row[r] != nullptr) {
-            x = fmaxf(x + __ldg(bias_row[r] + col) * LOG2E, MASK_VALUE);  // K6 bias add
-          }
-          const float pe = off ? 0.f : exp2f(x - lse2[r]);
-          dl[e] = pe * (dp[nt][e] - dlt[r]);
-          s[nt][e] = dl[e] * (CAP ? (1.f - tc * tc) * p.scale : p.scale);
-        } else if constexpr (CAP) {
-          const float tc = masked ? 0.f : tanhf(s[nt][e] * p.cap_scale);
-          const float pe = masked ? 0.f : exp2f(tc * p.cap_log2 - lse2[r]);
-          s[nt][e] = pe * (dp[nt][e] - dlt[r]) * ((1.f - tc * tc) * p.scale);
-        } else {
-          const float pe = masked ? 0.f : exp2f(s[nt][e] * p.scale_log2 - lse2[r]);
-          s[nt][e] = pe * (dp[nt][e] - dlt[r]) * p.scale;
+        const bool masked = need_mask && (col >= nkv || (p.causal && col > row));
+        const bool off = masked || dead[r];
+        const float tc = CAP && !off ? tanhf(s[nt][e] * p.cap_scale) : 0.f;
+        float x = CAP ? tc * p.cap_log2 : s[nt][e] * p.scale_log2;
+        if (!off && bias_row[r] != nullptr) {
+          x = fmaxf(x + __ldg(bias_row[r] + col) * LOG2E, MASK_VALUE);  // K6 bias add
         }
+        const float pe = off ? 0.f : exp2f(x - lse2[r]);
+        dl[e] = pe * (dp[nt][e] - dlt[r]);
+        s[nt][e] = dl[e] * (CAP ? (1.f - tc * tc) * p.scale : p.scale);
       }
-      if (BIAS && p.dbias != nullptr) {
+      if (p.dbias != nullptr) {
         // Rows g and g + 8, columns col, col + 1 (< Nk); rows past Nq are not stored.
         const int col = n0 + nt * 8 + 2 * t;
 #pragma unroll
@@ -252,40 +211,16 @@ __device__ __forceinline__ void dq_tile(const BwdParams& p) {
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(NUM_THREADS) dq_kernel(const BwdParams p) {
-  dq_tile<DP, false, false>(p);
-}
-
-template <int DP>
-__global__ void __launch_bounds__(NUM_THREADS) dq_softcap_kernel(const BwdParams p) {
-  dq_tile<DP, true, false>(p);
-}
-
-template <int DP, bool CAP>
-__global__ void __launch_bounds__(NUM_THREADS) dq_window_kernel(const BwdParams p) {
-  dq_tile<DP, CAP, true>(p);
-}
-
 template <int DP, bool CAP>
 __global__ void __launch_bounds__(NUM_THREADS) dq_bias_kernel(const BwdParams p) {
-  dq_tile<DP, CAP, false, true>(p);
+  dq_tile<DP, CAP>(p);
 }
 
 // One launch of K6 with these options: one CTA per (64-row Q tile, q-head, batch).
-template <int DP, bool CAP, bool WIN, bool BIAS = false>
+template <int DP, bool CAP>
 cudaError_t launch_dq(const BwdParams& p, int batch, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<DP>();
-  void (*kernel)(const BwdParams);
-  if constexpr (BIAS) {
-    kernel = dq_bias_kernel<DP, CAP>;
-  } else if constexpr (WIN) {
-    kernel = dq_window_kernel<DP, CAP>;
-  } else if constexpr (CAP) {
-    kernel = dq_softcap_kernel<DP>;
-  } else {
-    kernel = dq_kernel<DP>;
-  }
+  auto kernel = dq_bias_kernel<DP, CAP>;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.nq + DQ_BLOCK_M - 1) / DQ_BLOCK_M, p.hq, batch);

@@ -5,9 +5,10 @@ segment ids (packed sequences), logit soft-capping and an additive bias: the
 forward runs K1 (``ops/flash_fwd.py``); the gradient, behind a
 ``torch.autograd.Function``, runs the single-pass backward K3
 (``ops/flash_bwd_fused.py``) or, with segment ids, a softcap or a bias, the
-two-kernel backward K5 + K6 (``ops/flash_bwd.py``), whose K6 also gives
-dbias -- the routing of the JAX ``_flash_core_bwd`` -- or, after K1's bias
-route, one kernel for both (``flash_bwd.bias_bwd``). The GQA decode fold is
+two-kernel backward K5 + K6 (``ops/flash_bwd.py``) -- the routing of the JAX
+``_flash_core_bwd`` -- as one Hopper kernel for both: after K1's bias route
+``flash_bwd.bias_bwd`` (with dbias), without a bias ``flash_bwd.split_bwd``;
+K5 then K6, whose K6 also gives dbias, for a bias that route refuses. The GQA decode fold is
 ported: a tiny-Nq non-causal GQA call without a window folds each KV head's
 query heads into the Q rows, so the cache is read once. The arguments keep
 the JAX signature; those the port's kernels do not take yet raise
@@ -126,11 +127,14 @@ class _FlashCore(torch.autograd.Function):
     """K1 forward saving ``(q, k, v, o, lse)``, the segment ids, the bias, the
     window and the softcap; the backward routes as the JAX
     ``_flash_core_bwd``: K3 when there are no segment ids, no softcap and no
-    bias (its fused branch, with the window), else K5 then K6 (its two-kernel
-    branch), or, where the forward took K1's bias route
-    (``flash_bwd.bias_bwd_route``), the one kernel that computes both. dbias
-    is written only when the bias needs a gradient; it comes back reduced over
-    the bias's broadcast dims, in the bias's dtype."""
+    bias (its fused branch, with the window), else its two-kernel branch,
+    K5 + K6: where the forward took K1's bias route
+    (``flash_bwd.bias_bwd_route``) one kernel that computes both with the
+    bias; without a bias (``flash_bwd.split_sm90_route``) one kernel that
+    computes both with the segment ids and / or the softcap; else (a bias
+    that route refuses) K5 then K6. dbias is written only when the bias
+    needs a gradient; it comes back reduced over the bias's broadcast dims,
+    in the bias's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seg_q, seg_kv, scale, kv_valid_len, causal, window,
@@ -167,6 +171,11 @@ class _FlashCore(torch.autograd.Function):
             dq, dk, dv, dbias = flash_bwd.bias_bwd(
                 q, k, v, do, lse, delta, scale=ctx.scale, causal=ctx.causal,
                 kv_valid_len=ctx.kv_valid_len, bias=bias, want_dbias=want_dbias)
+        elif flash_bwd.split_sm90_route(head_dim=D, bias=bias, dtype=q.dtype,
+                                        segment_ids=segment_ids, softcap=ctx.softcap):
+            # Segment ids and / or the softcap without a bias: K5 + K6 in one launch.
+            dq, dk, dv = flash_bwd.split_bwd(q, k, v, do, lse, delta, segment_ids=segment_ids,
+                                             softcap=ctx.softcap, **kw)
         else:
             kw.update(segment_ids=segment_ids, softcap=ctx.softcap, bias=bias)
             dk, dv = flash_bwd.dkv(q, k, v, do, lse, delta, **kw)
@@ -296,8 +305,8 @@ def flash_attention(
     Returns:
       Attention output, same shape/layout/dtype as ``q``. CPU tensors run the
       plain PyTorch versions, CUDA tensors the kernels (bf16; fp16 is cast to
-      bf16 and back): K1 forward; K3 backward, or K5 + K6 with segment ids, a
-      softcap or a bias (head dims up to 128). Tiny-Nq non-causal GQA calls without a
+      bf16 and back): K1 forward; K3 backward, or K5 + K6 (one launch) with
+      segment ids, a softcap or a bias (head dims up to 128). Tiny-Nq non-causal GQA calls without a
       window (``Nq·Hq/Hkv <= 32``) run folded, one KV head's query heads as Q
       rows.
     """

@@ -3,25 +3,29 @@
 Port of flashattn_tpu/ops/flash_bwd.py: kernels K5 (``_dkv_kernel``, dK and
 dV) and K6 (``_dq_kernel``, dQ and dbias), for KV tail, GQA, causal, a sliding
 window, segment ids (packed sequences), logit soft-capping and an additive
-bias (not with a window or segment ids, as K1 takes it). Both kernels' C
-entries are in ``csrc/flash_bwd_split.cu``; its header says what bounds them
-and what they leave for later. :func:`dkv` and :func:`dq` launch them for CUDA tensors and
-compute the plain :func:`dkv_reference` / :func:`dq_reference` for CPU
-tensors -- the device of the input decides, and a CUDA tensor never reaches
-the plain version.
+bias (not with a window or segment ids, as K1 takes it). Each recomputes P
+and dS from the forward's LSE and Δ (:func:`recompute_p_ds`, the JAX
+``_recompute_p_ds``); on CUDA tensors one Hopper launch computes what both
+compute, by route -- the device of the input decides, and a CUDA tensor
+never reaches a plain version:
 
-Both recompute P and dS from the forward's LSE and Δ (:func:`recompute_p_ds`,
-the JAX ``_recompute_p_ds``) and return f32 gradients: dK/dV per *query* head
-(``[B, Hq, Nk, D]``), which ``ops/flash.py`` reduces over the query heads of
-each KV head and casts, dQ ``[B, Hq, Nq, D]``, written once and so
-deterministic (K3's dQ is summed by atomics), and on request the full f32
-dbias ``[B, Hq, Nq, Nk]``, which ``ops/flash.py`` reduces over the bias's
-broadcast dims.
+* without a bias, with segment ids and / or a softcap
+  (:func:`split_sm90_route`): :func:`split_bwd`, the TMA + wgmma body of K3
+  with both options (``csrc/flash_bwd_split_sm90.cu``), returns dQ and dK /
+  dV per *query* head; :func:`split_bwd_reference` is its plain version;
+* where the forward took K1's bias route (:func:`bias_bwd_route`):
+  :func:`bias_bwd` (``csrc/bwd_bias_sm90.cu``) returns dQ, dK / dV per *KV*
+  head and, on request, dbias; :func:`bias_bwd_reference` is its plain
+  version;
+* a bias that route refuses (with a softcap, the GQA decode fold, D 96):
+  :func:`dkv` and :func:`dq`, the ``mma.sync`` kernels of
+  ``csrc/flash_bwd_split.cu`` (bodies ``dkv_tile.cuh`` / ``dq_tile.cuh``),
+  with their plain :func:`dkv_reference` / :func:`dq_reference`; dK / dV
+  per query head, dQ written once, and on request the full f32 dbias
+  ``[B, Hq, Nq, Nk]``.
 
-Where the forward took K1's bias route (:func:`bias_bwd_route`), one
-launch of a Hopper kernel (``csrc/bwd_bias_sm90.cu``) computes what K5 and
-K6 compute together: :func:`bias_bwd` returns dQ, dK / dV per *KV* head and,
-on request, dbias, and :func:`bias_bwd_reference` is its plain version.
+``ops/flash.py`` reduces per-query-head dK / dV over each KV head's query
+heads, dbias over the bias's broadcast dims, and casts.
 """
 
 from __future__ import annotations
@@ -37,10 +41,10 @@ from flashattn_tpu_torch.ops.flash_fwd import (
     check_softcap,
     check_window,
     kernel_bias,
-    kernel_segment_ids,
     kernel_window,
     pair_mask,
     sm90_bias,
+    sm90_segments,
 )
 from flashattn_tpu_torch.ops.oracle import _expand_kv, _full_f32_matmul
 from flashattn_tpu_torch.utils import native
@@ -168,7 +172,11 @@ def _split_kwargs(q, k, v, do, lse, delta, *, scale, causal, kv_valid_len, segme
 
 def _check_split_kernel_args(q, name: str, *, bias, segment_ids, window) -> None:
     check_kernel_args(q, name)
-    if bias is not None and (segment_ids is not None or kernel_window(window) != (-1, -1)):
+    if bias is None:
+        raise NotImplementedError(
+            f"the CUDA {name} takes a bias; without one K5 + K6 run as one Hopper launch, "
+            "flash_bwd.split_bwd (split_sm90_route: segment ids or a softcap; K3 otherwise)")
+    if segment_ids is not None or kernel_window(window) != (-1, -1):
         raise NotImplementedError(
             f"the CUDA {name} takes a bias without segment ids or a window, as K1 does "
             "(ROADMAP queue 2, K1 options)")
@@ -176,21 +184,21 @@ def _check_split_kernel_args(q, name: str, *, bias, segment_ids, window) -> None
 
 def _launch(entry: str, q, k, v, do, lse, delta, outs, *, scale, causal, kv_valid_len,
             segment_ids, window, softcap, bias) -> None:
-    """Launch K5 or K6 (``entry``) writing ``outs`` (None: a null pointer),
-    on q's current stream."""
+    """Launch K5 or K6 (``entry``) with a bias writing ``outs`` (None: a null
+    pointer), on q's current stream; ``segment_ids`` and ``window`` are None
+    (``_check_split_kernel_args`` refuses them with a bias)."""
     B, Hq, Nq, D = q.shape
     q, k, v, do = (_kernel_ready(x) for x in (q, k, v, do))
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
-    _seg_ids, seg_ptrs, seg_strides = kernel_segment_ids(segment_ids)
     bias, bias_strides = kernel_bias(bias)
     with torch.cuda.device(q.device):
         rc = getattr(native.kernels(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *seg_ptrs, None if bias is None else bias.data_ptr(),
+            delta.data_ptr(), bias.data_ptr(),
             *(None if o is None else o.data_ptr() for o in outs),
             B, Hq, k.shape[1], Nq, k.shape[2], D, kv_valid_len, int(bool(causal)),
-            *kernel_window(window), float(scale), softcap or 0.0,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *seg_strides,
+            float(scale), softcap or 0.0,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             *bias_strides, torch.cuda.current_stream(q.device).cuda_stream,
         )
     native.check(rc, f"{entry} kernel launch")
@@ -207,8 +215,9 @@ def dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     (``[B|1, Hq|1, Nq|1, Nk]``) as in ``flash_fwd.fwd``. CPU tensors take
     :func:`dkv_reference`. CUDA tensors launch the kernel, which takes bf16
     with ``D % 8 == 0`` and ``D <= 128``, and a bias without segment ids or a
-    window; anything else raises. ``dkv.launches`` counts kernel launches,
-    ``dkv.launches_bias`` those with a bias.
+    window (without a bias: :func:`split_bwd`); anything else raises.
+    ``dkv.launches`` counts kernel launches, ``dkv.launches_bias`` those with
+    a bias.
     """
     kw = _split_kwargs(q, k, v, do, lse, delta, scale=scale, causal=causal,
                        kv_valid_len=kv_valid_len, segment_ids=segment_ids, window=window,
@@ -237,10 +246,11 @@ def dq(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     f32 ``[B, Hq, Nq, Nk]`` gradient of the bias, P (dP − Δ).
 
     Arguments as :func:`dkv`. CPU tensors take :func:`dq_reference`; CUDA
-    tensors launch the kernel or raise. Without ``want_dbias`` the kernel
-    gets a null dbias pointer and writes none. ``dq.launches`` counts kernel
-    launches, ``dq.launches_bias`` those with a bias (with or without dbias),
-    ``dq.launches_dbias`` those that wrote dbias.
+    tensors launch the kernel (with a bias, as :func:`dkv`) or raise.
+    Without ``want_dbias`` the kernel gets a null dbias pointer and writes
+    none. ``dq.launches`` counts kernel launches, ``dq.launches_bias`` those
+    with a bias (with or without dbias), ``dq.launches_dbias`` those that
+    wrote dbias.
     """
     if want_dbias and bias is None:
         raise ValueError("want_dbias needs a bias")
@@ -309,8 +319,12 @@ def bias_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = 
     return dq_, dk, dv, (dl if want_dbias else None)
 
 
-# The kernel's Q tile: the LSE / Δ rows it bulk-copies, padded to a multiple.
-BIAS_BWD_BLOCK_M = 64
+# The tiles of the Hopper backward body (csrc/bwd_sm90_tile.cuh: K3, the bias
+# and split routes): its Q tile (the LSE / Δ rows and, with segment ids, the
+# query ids it bulk-copies, padded to a multiple) and its KV tile (the keys
+# of one CTA, the tiles of the key ids' ranges).
+SM90_BWD_Q_TILE = 64
+SM90_BWD_KV_TILE = 128
 
 
 def _launch_bias_bwd(lib, q, k, v, do, lse, delta, bias, bias_strides, dq_, dk, dv, dbias, *,
@@ -377,7 +391,7 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     if Nq == 0 or Nk == 0 or B == 0 or Hq == 0:  # an empty grid is not a valid launch
         return dq_, dk.zero_(), dv.zero_(), None if dbias is None else dbias.zero_()
     q, k, v, do = (_kernel_ready(x, tma=True) for x in (q, k, v, do))
-    nq_pad = -(-Nq // BIAS_BWD_BLOCK_M) * BIAS_BWD_BLOCK_M
+    nq_pad = -(-Nq // SM90_BWD_Q_TILE) * SM90_BWD_Q_TILE
     lse, delta = _padded_rows(lse, nq_pad), _padded_rows(delta, nq_pad)
     bias, bias_strides = sm90_bias(bias)
     with torch.cuda.device(q.device):
@@ -394,3 +408,103 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
 
 bias_bwd.launches = 0
 bias_bwd.launches_dbias = 0
+
+
+# The most Q tiles a CTA of the split route lists (csrc/bwd_sm90_tile.cuh,
+# BB_SEG_LIST).
+SPLIT_MAX_Q_TILES = 4096
+
+
+def split_sm90_route(*, head_dim: int, bias, dtype, segment_ids, softcap) -> bool:
+    """Whether a backward that K3 does not take (segment ids, a softcap or a
+    bias) goes to the one Hopper launch of :func:`split_bwd` in place of K5
+    then K6: bf16, no bias, a head dim up to ``MAX_HEAD_DIM`` (a multiple of
+    8, as every CUDA backward's), and segment ids or a softcap -- with or
+    without causal, a window, GQA or a tail. The calls with a bias take
+    :func:`bias_bwd` or keep K5 + K6. :func:`split_bwd` decides the device: a
+    CPU tensor takes the plain version."""
+    return (bias is None and dtype == torch.bfloat16 and head_dim <= MAX_HEAD_DIM
+            and (segment_ids is not None or softcap is not None))
+
+
+def split_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
+                        kv_valid_len: int | None = None, segment_ids=None, window=None,
+                        softcap=None):
+    """Plain PyTorch K5 + K6 without a bias over one :func:`recompute_p_ds`:
+    ``(dQ [B, Hq, Nq, D], dK, dV [B, Hq, Nk, D])``, f32, dK / dV per query
+    head (as the kernel writes them): dQ = dS K, dK = dSᵀ Q, dV = Pᵀ dO."""
+    p, ds, qf, kf, _, dof, _ = recompute_p_ds(
+        q, k, v, do, lse, delta, scale=scale, causal=causal, kv_valid_len=kv_valid_len,
+        segment_ids=segment_ids, window=window, softcap=softcap)
+    with _full_f32_matmul():
+        return (torch.matmul(ds, kf), torch.matmul(ds.transpose(-1, -2), qf),
+                torch.matmul(p.transpose(-1, -2), dof))
+
+
+def _launch_split(lib, q, k, v, do, lse, delta, dq_, dk, dv, seg, *, scale, causal,
+                  kv_valid_len, window, softcap, nq_pad, stream) -> int:
+    """Call ``lib.fa_bwd_split_sm90`` with the arguments of one launch (the C
+    entry's order, ``native.BWD_SPLIT_SM90_ARGTYPES``), ``seg`` being
+    ``flash_fwd.sm90_segments``' tensors at the kernel's tiles or None;
+    returns its cudaError_t."""
+    B, Hq, Nq, D = q.shape
+    seg_ptrs = (None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg)
+    return lib.fa_bwd_split_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq_.data_ptr(), dk.data_ptr(), dv.data_ptr(), *seg_ptrs, B, Hq,
+        k.shape[1], Nq, k.shape[2], D, kv_valid_len, int(bool(causal)), *kernel_window(window),
+        nq_pad, float(scale), softcap or 0.0, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *do.stride()[:3], stream)
+
+
+def split_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
+              kv_valid_len: int | None = None, segment_ids=None, window=None, softcap=None):
+    """K5 + K6 without a bias in one launch: ``(dQ [B, Hq, Nq, D], dK, dV
+    [B, Hq, Nk, D])`` in f32, dK / dV per query head.
+
+    Arguments as :func:`dkv` without ``bias``; ``segment_ids`` or
+    ``softcap`` (or both) required -- the call with neither is K3's
+    (``flash_bwd_fused.bwd``). CPU tensors take :func:`split_bwd_reference`.
+    CUDA tensors launch the Hopper kernel, which takes bf16 with ``D % 8 ==
+    0``, ``D <= 128`` and, with segment ids, ``Nq <= 64 · SPLIT_MAX_Q_TILES``;
+    anything else raises. dQ is summed over the KV tiles by the card's L2
+    (one bulk reduction per tile), so its last bits may differ from run to
+    run. ``split_bwd.launches`` counts kernel launches.
+    """
+    kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len, segment_ids)
+    window, softcap = check_window(window), check_softcap(softcap)
+    if segment_ids is None and softcap is None:
+        raise ValueError("split_bwd takes segment ids or a softcap (without either: "
+                         "flash_bwd_fused.bwd, K3)")
+    kw = dict(scale=scale, causal=causal, kv_valid_len=kv_valid_len, segment_ids=segment_ids,
+              window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return split_bwd_reference(q, k, v, do, lse, delta, **kw)
+    check_kernel_args(q, "K5 + K6 split route")
+    B, Hq, Nq, D = q.shape
+    Nk = k.shape[2]
+    if segment_ids is not None and -(-Nq // SM90_BWD_Q_TILE) > SPLIT_MAX_Q_TILES:
+        raise ValueError(f"Nq={Nq} with segment ids: the split route's kernel visits at most "
+                         f"{SPLIT_MAX_Q_TILES} Q tiles of {SM90_BWD_Q_TILE} rows")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq_ = torch.zeros((B, Hq, Nq, D), **f32)  # added to by one bulk reduction a tile
+    dk = torch.empty((B, Hq, Nk, D), **f32)
+    dv = torch.empty((B, Hq, Nk, D), **f32)
+    if Nq == 0 or Nk == 0 or B == 0 or Hq == 0 or kv_valid_len == 0:
+        return dq_, dk.zero_(), dv.zero_()  # no key attends: an empty grid is not a valid launch
+    q, k, v, do = (_kernel_ready(x, tma=True) for x in (q, k, v, do))
+    nq_pad = -(-Nq // SM90_BWD_Q_TILE) * SM90_BWD_Q_TILE
+    lse, delta = _padded_rows(lse, nq_pad), _padded_rows(delta, nq_pad)
+    seg = sm90_segments(segment_ids, Nq, kv_valid_len, q_tile=SM90_BWD_Q_TILE,
+                        kv_tile=SM90_BWD_KV_TILE, pad_q=True)
+    with torch.cuda.device(q.device):
+        rc = _launch_split(native.kernels(), q, k, v, do, lse, delta, dq_, dk, dv, seg,
+                           scale=scale, causal=causal, kv_valid_len=kv_valid_len, window=window,
+                           softcap=softcap, nq_pad=nq_pad,
+                           stream=torch.cuda.current_stream(q.device).cuda_stream)
+    native.check(rc, "flash_bwd_split_sm90 kernel launch")
+    split_bwd.launches += 1
+    return dq_, dk, dv
+
+
+split_bwd.launches = 0

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from flashattn_tpu_torch.ops.flash_bwd import (
+    SM90_BWD_Q_TILE,
     _padded_rows,
     check_args,
     check_kernel_args,
@@ -28,9 +29,6 @@ from flashattn_tpu_torch.ops.flash_bwd import (
 from flashattn_tpu_torch.ops.flash_fwd import _kernel_ready, check_window, kernel_window
 from flashattn_tpu_torch.ops.oracle import _full_f32_matmul
 from flashattn_tpu_torch.utils import native
-
-# The kernel's Q tile: the LSE / Δ rows it bulk-copies, padded to a multiple.
-BLOCK_M = 64
 
 
 def bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -94,7 +92,7 @@ def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     if Nq == 0 or Nk == 0 or B == 0 or Hq == 0:  # an empty grid is not a valid launch
         return dq, dk.zero_(), dv.zero_()
     q, k, v, do = (_kernel_ready(x, tma=True) for x in (q, k, v, do))
-    nq_pad = -(-Nq // BLOCK_M) * BLOCK_M
+    nq_pad = -(-Nq // SM90_BWD_Q_TILE) * SM90_BWD_Q_TILE
     lse, delta = _padded_rows(lse, nq_pad), _padded_rows(delta, nq_pad)
     with torch.cuda.device(q.device):
         rc = _launch(native.kernels(), q, k, v, do, lse, delta, dq, dk, dv, scale=scale,

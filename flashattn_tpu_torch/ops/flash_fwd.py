@@ -346,22 +346,30 @@ def seg_tile_ranges(ids: torch.Tensor, n_valid: int, tile: int) -> torch.Tensor:
     return torch.stack(_whole_tiles(ids.to(torch.int32), n_valid, tile).aminmax(dim=-1), dim=-1)
 
 
-def sm90_segments(segment_ids, Nq: int, kv_valid_len: int):
-    """The dense kernel's segment inputs for ``(seg_q [B, Nq], seg_kv [B,
-    Nk])``: seg_q as int32 with a unit row stride; seg_kv's first
-    kv_valid_len ids, contiguous, each row padded to whole KV tiles (one
-    16-byte-aligned bulk copy a tile); the id ranges of each ``SM90_Q_TILE``
-    rows of seg_q and each ``SM90_KV_TILE`` keys of seg_kv
-    (:func:`seg_tile_ranges`). None without segments or keys. A handful of
-    small launches: the wrapper's host time is part of each K1 call."""
+def sm90_segments(segment_ids, Nq: int, kv_valid_len: int, *, q_tile: int = SM90_Q_TILE,
+                  kv_tile: int = SM90_KV_TILE, pad_q: bool = False):
+    """A Hopper kernel's segment inputs for ``(seg_q [B, Nq], seg_kv [B,
+    Nk])``: seg_q as int32 with a unit row stride (with ``pad_q``, its rows
+    contiguous and padded to whole ``q_tile`` tiles, one bulk copy a tile);
+    seg_kv's first kv_valid_len ids, contiguous, each row padded to whole
+    ``kv_tile`` tiles (one 16-byte-aligned bulk copy a tile); the id ranges
+    of each ``q_tile`` rows of seg_q and each ``kv_tile`` keys of seg_kv
+    (:func:`seg_tile_ranges`). The defaults are K1's dense route's tiles;
+    the backward (``flash_bwd.split_bwd``) asks for its own. None without
+    segments or keys. A handful of small launches: the wrapper's host time is
+    part of each kernel call."""
     if segment_ids is None or kv_valid_len == 0:
         return None
     seg_q, seg_kv = (x.to(torch.int32) for x in segment_ids)
-    if seg_q.stride(-1) != 1:
-        seg_q = seg_q.contiguous()
-    kv = _whole_tiles(seg_kv, kv_valid_len, SM90_KV_TILE).contiguous()
-    return (seg_q, kv.view(kv.shape[0], -1), seg_tile_ranges(seg_q, Nq, SM90_Q_TILE),
-            torch.stack(kv.aminmax(dim=-1), dim=-1))
+    if pad_q:
+        q = _whole_tiles(seg_q, Nq, q_tile).contiguous()
+        seg_q, q_rng = q.view(q.shape[0], -1), torch.stack(q.aminmax(dim=-1), dim=-1)
+    else:
+        if seg_q.stride(-1) != 1:
+            seg_q = seg_q.contiguous()
+        q_rng = seg_tile_ranges(seg_q, Nq, q_tile)
+    kv = _whole_tiles(seg_kv, kv_valid_len, kv_tile).contiguous()
+    return seg_q, kv.view(kv.shape[0], -1), q_rng, torch.stack(kv.aminmax(dim=-1), dim=-1)
 
 
 def decode_splits(B: int, Hkv: int, Nk: int, sms: int = H100_SMS) -> tuple[int, int]:

@@ -67,6 +67,21 @@ BWD_SM90_ARGTYPES = [
     _PTR,                                # cudaStream_t
 ]
 
+# The C entry of K5 + K6 without a bias (csrc/flash_bwd_split_sm90.cu).
+BWD_SPLIT_SM90_ARGTYPES = [
+    _PTR, _PTR, _PTR, _PTR,              # q, k, v, dO
+    _PTR, _PTR,                          # lse, delta (f32 rows padded to nq_pad)
+    _PTR, _PTR, _PTR,                    # dq (f32, zeroed), dk, dv (f32)
+    _PTR, _PTR, _PTR, _PTR,              # seg_q, seg_kv (padded), q_range, kv_range (or None)
+    _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, Nq, Nk, D
+    _I32, _I32, _I32, _I32,              # kv_valid_len, causal, window left, right (-1: none)
+    _I32,                                # nq_pad
+    ctypes.c_float, ctypes.c_float,      # scale, softcap (0: none)
+    _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
+    _I64, _I64, _I64, _I64, _I64, _I64,  # v, dO (batch, head, seq) strides
+    _PTR,                                # cudaStream_t
+]
+
 # The C entry of K5 + K6's bias route (csrc/bwd_bias_sm90.cu).
 BWD_BIAS_SM90_ARGTYPES = [
     _PTR, _PTR, _PTR, _PTR,              # q, k, v, dO
@@ -207,35 +222,31 @@ def kernels() -> ctypes.CDLL:
         i64, i64, i64, i64, i64, i64,       # k_scale, v_scale (batch, head, seq) strides
         ptr,                                # cudaStream_t
     ]
-    bwd_head = [ptr, ptr, ptr, ptr, ptr, ptr]  # q, k, v, dO, lse, delta
-    bwd_dims = [
-        i32, i32, i32, i32, i32, i32, i32,  # B, Hq, Hkv, Nq, Nk, D, kv_valid_len
-        i32, i32, i32,                      # causal, window left, window right (-1: none)
-    ]
-    bwd_strides = [
-        i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
-        i64, i64, i64, i64, i64, i64,       # v, dO (batch, head, seq) strides
-    ]
-    # scale, softcap (0: none) for K5 and K6.
-    bwd_tail = [*bwd_dims, ctypes.c_float, ctypes.c_float, *bwd_strides]
     lib.fa_bwd_sm90.restype = i32
     lib.fa_bwd_sm90.argtypes = BWD_SM90_ARGTYPES
-    lib.fa_bwd_dkv_bf16.restype = i32
+    lib.fa_bwd_split_sm90.restype = i32
+    lib.fa_bwd_split_sm90.argtypes = BWD_SPLIT_SM90_ARGTYPES
+    # K5 and K6 with a bias (csrc/flash_bwd_split.cu).
     split_tail = [
-        *bwd_tail, i64, i64,                # seg_q, seg_kv batch strides
+        i32, i32, i32, i32, i32, i32, i32,  # B, Hq, Hkv, Nq, Nk, D, kv_valid_len
+        i32,                                # causal
+        ctypes.c_float, ctypes.c_float,     # scale, softcap (0: none)
+        i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
+        i64, i64, i64, i64, i64, i64,       # v, dO (batch, head, seq) strides
         i64, i64, i64,                      # bias (batch, head, row) strides
         ptr,                                # cudaStream_t
     ]
+    lib.fa_bwd_dkv_bf16.restype = i32
     lib.fa_bwd_dkv_bf16.argtypes = [
-        *bwd_head, ptr, ptr,                # seg_q, seg_kv (int32 ids, or None)
-        ptr,                                # bias (f32, or None)
+        ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, dO, lse, delta
+        ptr,                                # bias (f32)
         ptr, ptr,                           # dk, dv (f32)
         *split_tail,
     ]
     lib.fa_bwd_dq_bf16.restype = i32
     lib.fa_bwd_dq_bf16.argtypes = [
-        *bwd_head, ptr, ptr,                # seg_q, seg_kv (int32 ids, or None)
-        ptr,                                # bias (f32, or None)
+        ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, dO, lse, delta
+        ptr,                                # bias (f32)
         ptr, ptr,                           # dq, dbias (f32; dbias None: not wanted)
         *split_tail,
     ]

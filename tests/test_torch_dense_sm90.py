@@ -152,7 +152,8 @@ def card(monkeypatch):
     calls = []
     typed = {"fa_fwd_sm90": native.FWD_SM90_ARGTYPES, "fa_bwd_sm90": native.BWD_SM90_ARGTYPES,
              "fa_fwd_bias_sm90": native.FWD_BIAS_SM90_ARGTYPES,
-             "fa_bwd_bias_sm90": native.BWD_BIAS_SM90_ARGTYPES}
+             "fa_bwd_bias_sm90": native.BWD_BIAS_SM90_ARGTYPES,
+             "fa_bwd_split_sm90": native.BWD_SPLIT_SM90_ARGTYPES}
     lib = types.SimpleNamespace(**{n: _recorder(n, a, calls) for n, a in typed.items()})
     for name in ("fa_fwd", "fa_decode", "fa_bwd_dkv_bf16", "fa_bwd_dq_bf16"):
         setattr(lib, name, lambda *args, name=name: calls.append((name, args)) or 0)
@@ -223,17 +224,17 @@ def test_fwd_routes_on_a_simulated_card(card, case):
 
 # flash_attention's forward and backward on a simulated card: the LM-like
 # causal GQA call, the SWA window and a call with neither take K1's dense
-# route and K3's Hopper kernel; the packed LM keeps K5 + K6 behind the dense
-# route; a bias takes the bias route and its one-kernel backward; the
-# softcap keeps fwd_tile.cuh and K5 + K6.
+# route and K3's Hopper kernel; the packed LM takes K5 + K6's one-launch
+# split route behind the dense route; a bias takes the bias route and its
+# one-kernel backward; the softcap keeps fwd_tile.cuh, then the split route.
 GRAD_CASES = {"causal GQA": (dict(causal=True), ["fa_fwd_sm90", "fa_bwd_sm90"]),
               "window": (dict(causal=True, window=(100, -1)), ["fa_fwd_sm90", "fa_bwd_sm90"]),
               "no mask": ({}, ["fa_fwd_sm90", "fa_bwd_sm90"]),
               "bias": (dict(bias=True), ["fa_fwd_bias_sm90", "fa_bwd_bias_sm90"]),
               "packed": (dict(causal=True, segment_ids=True),
-                         ["fa_fwd_sm90", "fa_bwd_dkv_bf16", "fa_bwd_dq_bf16"]),
+                         ["fa_fwd_sm90", "fa_bwd_split_sm90"]),
               "softcap": (dict(causal=True, logit_softcap=50.0),
-                          ["fa_fwd", "fa_bwd_dkv_bf16", "fa_bwd_dq_bf16"])}
+                          ["fa_fwd", "fa_bwd_split_sm90"])}
 
 
 @pytest.mark.parametrize("case", list(GRAD_CASES))

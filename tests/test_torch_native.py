@@ -162,6 +162,18 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
     ("_ZN49_GLOBAL__N__1c2d3e4f_16_flash_bwd_sm90_cu_5a6b7c8d15bwd_sm90_kernelILi128EEEv14"
      "CUtensorMap_stS1_S1_S1_NS_14BwdDenseParamsE", "K3 sm90 bwd_sm90_kernel<128>"),
     ("_ZN12_GLOBAL__N_110dkv_kernelILi128EEEvN2fa9BwdParamsE", "K5 dkv_kernel<128>"),
+    ("_ZN56_GLOBAL__N__f1f55981_23_flash_bwd_split_sm90_cu_75bfd99921bwd_split_sm90_kernelILi128E"
+     "Lb1ELb0EEEv14CUtensorMap_stS1_S1_S1_NS_14BwdSplitParamsE",
+     "K5 + K6 split sm90 segments bwd_split_sm90_kernel<128, 1, 0>"),
+    ("_ZN56_GLOBAL__N__f1f55981_23_flash_bwd_split_sm90_cu_75bfd99921bwd_split_sm90_kernelILi64E"
+     "Lb0ELb1EEEv14CUtensorMap_stS1_S1_S1_NS_14BwdSplitParamsE",
+     "K5 + K6 split sm90 softcap bwd_split_sm90_kernel<64, 0, 1>"),
+    ("_ZN56_GLOBAL__N__f1f55981_23_flash_bwd_split_sm90_cu_75bfd99921bwd_split_sm90_kernelILi128E"
+     "Lb1ELb1EEEv14CUtensorMap_stS1_S1_S1_NS_14BwdSplitParamsE",
+     "K5 + K6 split sm90 segments softcap bwd_split_sm90_kernel<128, 1, 1>"),
+    ("_ZN56_GLOBAL__N__f1f55981_23_flash_bwd_split_sm90_cu_75bfd99921bwd_split_sm90_kernelILi128E"
+     "Lb1EEEv14CUtensorMap_stS1_S1_S1_NS_14BwdSplitParamsE",
+     "unrecognised instantiation bwd_split_sm90_kernel<128, 1>"),
     ("_ZN12_GLOBAL__N_117dkv_window_kernelILi64ELb1EEEvN2fa9BwdParamsE",
      "K5 softcap window dkv_window_kernel<64, 1>"),
     ("_ZN12_GLOBAL__N_113decode_kernelILi128ELi0EEEvN2fa12DecodeParamsE",
