@@ -12,10 +12,13 @@ wgmma forward, with wgmma and no mma.sync in its SASS), the backward K3
 launch (the split route, with wgmma and no mma.sync in its SASS), K1's
 decode route (the split-KV decode kernel and its merge: bias, softcap +
 bias, int8 / fp8 K/V, against its plain split / merge version and the dense
-plain K1), the sliding-window and soft-capped variants of K1, K3 and the
-split route, K1's bias route (a TMA + wgmma forward that streams the f32
-bias through shared memory, with wgmma and no mma.sync in its SASS), K5 and
-K6 with a bias (K6 with dbias), and the probes K9 (the
+plain K1), the sliding-window and soft-capped variants of K1 (the cap on
+its dense route too), K3 and the split route, K1's bias route (a TMA +
+wgmma forward that streams the f32 bias through shared memory, with and
+without the softcap, at every head dim up to 128, with wgmma and no
+mma.sync in its SASS), K5 + K6 with a bias as one TMA + wgmma launch (the
+bias route's backward: with and without dbias and the softcap, the GQA
+decode fold's calls, every head dim up to 128), and the probes K9 (the
 TMA + wgmma GEMM, with HGMMA and no HMMA in its SASS) and K10 (tensor-core
 peak). Then it drives the port's paths and checks that each went through
 its kernels:
@@ -49,11 +52,12 @@ its kernels:
   MultiHeadDotProductAttention (integrations/torch_nn.py, 16 heads of 128,
   impl "fused") on x [4, 2048, 2048] bf16 with a key-padding mask of row
   lengths 2048-512: loss and gradient gates fused vs exact, then 10 AdamW
-  steps per arm -- K1 on its bias route, K5 and K6 with the bias; first K1
-  on its bias route at every bias shape it takes, K5 with a bias and K6
-  with a bias and dbias against their plain versions at the LM's attention
-  shape with a learned [1, 16, 2048, 2048] bias, and flash_attention(bias=)
-  end to end against autograd through the f32 oracle;
+  steps per arm -- K1 on its bias route, K5 + K6 as its backward; first K1
+  on its bias route and its backward at every bias shape they take (with
+  and without the softcap, at D 40, 96 and 128, the decode fold's
+  backward) against their plain versions, at the LM's attention shape with
+  a learned [1, 16, 2048, 2048] bias, and flash_attention(bias=) end to end
+  against autograd through the f32 oracle;
 * the roofline probes (path B): K9 (gemm.matmul) at 4096^3 and K10
   (measure_mxu_peak_tflops) against their plain versions, K10's HMMA count in
   the SASS, and the measured mma.sync and chained torch.matmul peaks beside
@@ -244,11 +248,14 @@ def flex_ms(q, k, v, *, scale: float, do=None, score_mod=None, mask_mod=None) ->
 
 def softcap_mod(cap: float, bias=None):
     """flex_attention's ``score_mod`` of K1's softcap: ``cap·tanh(s/cap)`` on
-    the scaled score, then ``bias [1, 1, 1, Nk]`` by key (the HF Gemma-2
+    the scaled score, then ``bias [B|1, H|1, Nq|1, Nk]`` (the HF Gemma-2
     order, flash_fwd.py:310-318)."""
     def mod(score, b, h, q_idx, kv_idx):
         score = cap * torch.tanh(score / cap)
-        return score if bias is None else score + bias[0, 0, 0, kv_idx]
+        if bias is None:
+            return score
+        i = [x if n > 1 else 0 for x, n in zip((b, h, q_idx), bias.shape[:3])]
+        return score + bias[i[0], i[1], i[2], kv_idx]
     return mod
 
 
@@ -334,16 +341,19 @@ def instantiation_name(mangled: str) -> str:
     K3, K5, K6, K5 + K6's bias route, K7-K10) and template arguments of a
     mangled instantiation name from ptxas, e.g. ``K1 int8 bias
     fwd_kernel<128, 0, 1, 1>``, ``K1 decode fp8 bias decode_kernel<128, 2, 1,
-    0>``, ``K1 bias sm90 fwd_bias_sm90_kernel<128>``, ``K1 dense sm90
-    segments fwd_dense_sm90_kernel<128, 1>``, ``K3 sm90
-    bwd_sm90_kernel<64>``, ``bias bwd sm90 bwd_bias_sm90_kernel<128, 1>``,
+    0>``, ``K1 bias sm90 softcap fwd_bias_sm90_kernel<128, 1>``, ``K1 dense
+    sm90 segments fwd_dense_sm90_kernel<128, 1, 0>``, ``K3 sm90
+    bwd_sm90_kernel<64>``, ``bias bwd sm90 softcap
+    bwd_bias_sm90_kernel<128, 1, 1>``,
     ``K5 + K6 split sm90 segments softcap bwd_split_sm90_kernel<128, 1, 1>``
     or ``K5 softcap bias dkv_bias_kernel<128, 1>`` (K9 is
     ``gemm_wgmma_kernel``, K7 / K8 ``ring_{fwd,bwd}_sm90_kernel``; the
     earlier ``gemm_kernel``, ``ring_{fwd,bwd}_kernel`` and K5 / K6 without a
     bias (``dkv_kernel``, ``dq_softcap_kernel``, ``dkv_window_kernel``, ...)
-    are still named, for chip_ab.py's parent builds); an unrecognised name
-    comes back marked as such, never raising."""
+    are still named, for chip_ab.py's parent builds, as are the Hopper
+    kernels of a parent before they took the softcap, with one template
+    argument fewer); an unrecognised name comes back marked as such, never
+    raising."""
     if "decode_merge_kernel" in mangled:
         return "K1 decode merge decode_merge_kernel"
     dec = re.search(r"decode_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
@@ -356,18 +366,20 @@ def instantiation_name(mangled: str) -> str:
         return (f"K1 decode{variant}{' softcap' if args[3] else ''}{' bias' if args[2] else ''} "
                 f"{label}")
     dense_sm90 = re.search(r"fwd_dense_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
-    if dense_sm90:  # K1's dense route, fwd_dense_sm90_kernel<D, SEG>
+    if dense_sm90:  # K1's dense route, fwd_dense_sm90_kernel<D, SEG, CAP>
         args = re.findall(r"L[a-z]+(-?\d+)E", dense_sm90.group(1))
-        seg = " segments" if len(args) == 2 and args[1] == "1" else ""
-        return f"K1 dense sm90{seg} fwd_dense_sm90_kernel<{', '.join(args)}>"
+        seg = " segments" if len(args) >= 2 and args[1] == "1" else ""
+        cap = " softcap" if len(args) == 3 and args[2] == "1" else ""
+        return f"K1 dense sm90{seg}{cap} fwd_dense_sm90_kernel<{', '.join(args)}>"
     k3_sm90 = re.search(r"\d(?:bwd_sm90_kernel)I((?:L[a-z]+-?\d+E)+)E", mangled)
     if k3_sm90:  # K3 on Hopper, bwd_sm90_kernel<D> (not ring_bwd_sm90_kernel)
         args = re.findall(r"L[a-z]+(-?\d+)E", k3_sm90.group(1))
         return f"K3 sm90 bwd_sm90_kernel<{', '.join(args)}>"
     bias_sm90 = re.search(r"fwd_bias_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
-    if bias_sm90:  # K1's bias route, fwd_bias_sm90_kernel<D>
+    if bias_sm90:  # K1's bias route, fwd_bias_sm90_kernel<D, CAP>
         args = re.findall(r"L[a-z]+(-?\d+)E", bias_sm90.group(1))
-        return f"K1 bias sm90 fwd_bias_sm90_kernel<{', '.join(args)}>"
+        cap = " softcap" if len(args) == 2 and args[1] == "1" else ""
+        return f"K1 bias sm90{cap} fwd_bias_sm90_kernel<{', '.join(args)}>"
     split = re.search(r"bwd_split_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if split:  # K5 + K6 without a bias, bwd_split_sm90_kernel<D, SEG, CAP>
         args = re.findall(r"L[a-z]+(-?\d+)E", split.group(1))
@@ -377,9 +389,10 @@ def instantiation_name(mangled: str) -> str:
                 f"{' softcap' if args[2] == '1' else ''} "
                 f"bwd_split_sm90_kernel<{', '.join(args)}>")
     bias_bwd = re.search(r"bwd_bias_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
-    if bias_bwd:  # K5 + K6's bias route, bwd_bias_sm90_kernel<D, DBIAS>
+    if bias_bwd:  # K5 + K6's bias route, bwd_bias_sm90_kernel<D, DBIAS, CAP>
         args = re.findall(r"L[a-z]+(-?\d+)E", bias_bwd.group(1))
-        return f"bias bwd sm90 bwd_bias_sm90_kernel<{', '.join(args)}>"
+        cap = " softcap" if len(args) == 3 and args[2] == "1" else ""
+        return f"bias bwd sm90{cap} bwd_bias_sm90_kernel<{', '.join(args)}>"
     wgmma = re.search(r"gemm_wgmma_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if wgmma:  # K9, gemm_wgmma_kernel<OUT_F32>
         args = re.findall(r"L[a-z]+(-?\d+)E", wgmma.group(1))
@@ -619,9 +632,10 @@ def phase_bwd_check() -> dict:
                   f"({tf / res['ms']:.1f} TFLOP/s), plain version {res['plain_ms']:.4f} ms "
                   f"({tf / res['plain_ms']:.1f} TFLOP/s), bound {res['bound_ms']:.4f} ms, SDPA "
                   f"backward {res['library_ms']:.4f} ms (median CUDA-event time)")
-    _tma_wgmma_sass("kernel", {f"K1 dense sm90{' segments' if seg else ''} "
-                               f"fwd_dense_sm90_kernel<{d}, {seg}>"
-                               for d in (64, 128) for seg in (0, 1)}
+    _tma_wgmma_sass("kernel", {f"K1 dense sm90{' segments' if seg else ''}"
+                               f"{' softcap' if cap else ''} "
+                               f"fwd_dense_sm90_kernel<{d}, {seg}, {cap}>"
+                               for d in (64, 128) for seg in (0, 1) for cap in (0, 1)}
                     | {f"K3 sm90 bwd_sm90_kernel<{d}>" for d in (64, 128)})
     return res
 
@@ -769,7 +783,7 @@ def phase_seg_check() -> dict:
     stream = torch.cuda.current_stream().cuda_stream
     alone_ms = cuda_ms(lambda: flash_fwd._launch_dense_sm90(
         native.kernels(), q, k, v, o_k, lse_k, seg, scale=kw["scale"], kv_valid_len=N, causal=True,
-        window=None, stream=stream))
+        window=None, softcap=None, stream=stream))
     seg_ms = cuda_ms(lambda: flash_fwd.sm90_segments(kw["segment_ids"], N, N))
     tf = pair_flops(q, k, matmuls=5, **mask) / 1e9
     log("seg", f"packed shape B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal, 8 documents per row, bf16: "
@@ -960,8 +974,6 @@ def _reset_launches() -> None:
     flash_bwd_fused.bwd.launches_sm90 = 0
     flash_fwd.fwd.launches_window = flash_fwd.fwd.launches_softcap = 0
     flash_fwd.fwd.launches_decode = flash_fwd.fwd.launches_merge = 0
-    flash_bwd.dkv.launches = flash_bwd.dq.launches = 0
-    flash_bwd.dkv.launches_bias = flash_bwd.dq.launches_bias = flash_bwd.dq.launches_dbias = 0
     flash_bwd.bias_bwd.launches = flash_bwd.bias_bwd.launches_dbias = 0
     flash_bwd.split_bwd.launches = 0
     gemm.matmul.launches = roofline.roofline_call.launches = 0
@@ -973,13 +985,13 @@ def _launches() -> dict:
     "K1 int8", "K1 fp8", "K1 window" and "K1 softcap" those of its variants
     (a launch with a window and a softcap counts in both), "K1 bias sm90"
     those of K1's bias route (also counted in "K1 bias"), "K1 dense sm90"
-    those of K1's dense route (a window's also in "K1 window"); "K3" all K3
-    launches, "K3 sm90" those of its Hopper kernel; "K5 bias" and "K6
-    bias" the K5 / K6 launches with a bias, "K6 dbias" those that also wrote
-    dbias; "bias bwd" the launches of K5 + K6's bias route (one kernel for
-    both), "bias bwd dbias" those that wrote dbias; "split bwd" those of K5
-    + K6 without a bias (one kernel for both, with segment ids and / or the
-    softcap)."""
+    those of K1's dense route (a window's also in "K1 window", a cap's in
+    "K1 softcap"); "K3" all K3 launches, "K3 sm90" those of its Hopper
+    kernel; "bias bwd" the launches of K5 + K6's bias route (one kernel for
+    both, with a bias and, if any, the softcap), "bias bwd dbias" those that
+    wrote dbias; "split bwd" those of K5 + K6 without a bias (one kernel for
+    both, with segment ids and / or the softcap). K5 and K6 have no kernel of
+    their own: every CUDA backward that is not K3's takes one of the two."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, gemm, roofline
     from flashattn_tpu_torch.parallel import ring_kernel
 
@@ -991,9 +1003,6 @@ def _launches() -> dict:
             "K1 softcap": flash_fwd.fwd.launches_softcap,
             "K1 decode": flash_fwd.fwd.launches_decode, "K1 merge": flash_fwd.fwd.launches_merge,
             "K3": flash_bwd_fused.bwd.launches, "K3 sm90": flash_bwd_fused.bwd.launches_sm90,
-            "K5": flash_bwd.dkv.launches,
-            "K5 bias": flash_bwd.dkv.launches_bias, "K6": flash_bwd.dq.launches,
-            "K6 bias": flash_bwd.dq.launches_bias, "K6 dbias": flash_bwd.dq.launches_dbias,
             "bias bwd": flash_bwd.bias_bwd.launches,
             "bias bwd dbias": flash_bwd.bias_bwd.launches_dbias,
             "split bwd": flash_bwd.split_bwd.launches,
@@ -1521,6 +1530,23 @@ WINDOW_CASES = [("swa", 1, 16, 8, SWA_SEQ, SWA_SEQ, 128, True, (SWA_WINDOW - 1, 
 # P and dS gives ~2e-3 at the SWA shape).
 GROW = 4
 WINDOW_REL_L2 = 1e-2
+# The softcap at a head dim run in a wider box: (B, Hq, Hkv, N, D, cap), a cap
+# small enough that the grown scores saturate its tanh.
+CAP_D40_CASE = (2, 8, 4, 1300, 40, 5.0)
+# fwd_tile.cuh's bf16 families with a softcap or a bias, which it keeps above
+# D 128 only (fwd_launch_wide; Gemma-2's D 256 with cap 50 runs there), at
+# B1 Hq8 Hkv4 D160, the forward only (no CUDA backward takes D above 128):
+# (tag, Nq, Nk, causal, window, ids kind as _seg_case_ids, bias, softcap,
+# has dead rows) -- the dead rows of a window past the keys, of a segment no
+# key carries and of key padding; cap 5 saturates the grown scores' tanh.
+WIDE_D = 160
+WIDE_CASES = [("softcap", 1024, 1024, True, None, None, False, 5.0, False),
+              ("softcap + window", 1300, 1024, False, (64, -1), None, False, 5.0, True),
+              ("softcap + ids", 1024, 1024, False, None, "dead", False, 5.0, True),
+              ("softcap + window + ids", 1024, 1024, True, (200, -1), "random", False, 5.0,
+               False),
+              ("bias", 1024, 1024, False, None, None, True, None, True),
+              ("softcap + bias", 1024, 1024, False, None, None, True, 5.0, True)]
 
 
 def _grown(seed, B, Hq, Nq, D, Nk, Hkv):
@@ -1533,17 +1559,18 @@ def _grown(seed, B, Hq, Nq, D, Nk, Hkv):
 
 def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: bool = False,
                    **kw) -> dict:
-    """K1 (flash_fwd.fwd) and its backward -- K3; K5 + K6's split route (one
-    launch, flash_bwd.split_bwd) with segment ids or a softcap and no bias;
-    or K5 + K6 with a bias, K6 also writing dbias with ``want_dbias`` --
-    against their plain versions on f32 copies of the same bf16 inputs: O within
+    """K1 (flash_fwd.fwd) and, unless ``do`` is None, its backward -- K3; K5 +
+    K6's split route (one launch, flash_bwd.split_bwd) with segment ids or a
+    softcap and no bias; K5 + K6's bias route (one launch, flash_bwd.bias_bwd,
+    _bias_bwd_check) with a bias, writing dbias with ``want_dbias`` -- against
+    their plain versions on f32 copies of the same bf16 inputs: O within
     FWD_TOL[bf16], LSE within 1e-3 on live rows, dQ/dK/dV (and dbias) within
     BWD_TOL[bf16], each of O, dQ, dK, dV (and dbias) within WINDOW_REL_L2
-    relative L2 (printed with max|ref|), dead rows' O and dQ exactly 0. Where
-    flash_attention sends the backward to K5 + K6's bias route
-    (``flash_bwd.bias_bwd_route``), that kernel is held too
-    (_bias_bwd_check), beside K5 + K6. Returns the max errors, dbias (K6's and
-    the route's), and the (q, k, v, do, lse, delta) the backward took."""
+    relative L2 (printed with max|ref|), dead rows' O and dQ exactly 0; K1 on
+    its route, one launch counted with its bias, window and cap: at D <= 128
+    the bias route with a bias, else the dense route; above D 128
+    ``fwd_tile.cuh`` (neither). Returns the max errors, dbias, and the (q, k,
+    v, do, lse, delta) the backward took."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
     from flashattn_tpu_torch.utils.testing import (
@@ -1552,78 +1579,76 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     before = _launches()
     o, lse = flash_fwd.fwd(q, k, v, **kw)
     torch.cuda.synchronize()
-    # Without a bias or a softcap at D <= 128: K1's dense route.
-    dense = "bias" not in kw and "softcap" not in kw and q.shape[-1] <= 128
-    if dense:
-        _routed(f"K1 at {tag}", before, K1=1, K1_dense_sm90=1,
-                K1_window=int(flash_fwd.kernel_window(kw.get("window")) != (-1, -1)))
-    f32 = [x.float() for x in (q, k, v, do)]
+    variants = dict(K1_window=int(flash_fwd.kernel_window(kw.get("window")) != (-1, -1)),
+                    K1_softcap=int("softcap" in kw))
+    sm90 = int(q.shape[-1] <= 128)
+    if "bias" in kw:  # K1's bias route (the paths' bias calls are not decode-shaped)
+        _routed(f"K1 at {tag}", before, K1=1, K1_bias=1, K1_bias_sm90=sm90, **variants)
+    else:  # K1's dense route
+        _routed(f"K1 at {tag}", before, K1=1, K1_dense_sm90=sm90, **variants)
+    f32 = [x.float() for x in (q, k, v) + (() if do is None else (do,))]
     o_want, lse_want = flash_fwd.fwd_reference(*f32[:3], **kw)
     live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
     ok_o, msg_o = check_close(o, o_want, FWD_TOL[torch.bfloat16], "O")
     ok_l, msg_l = check_close(lse[live], lse_want[live], Tolerance(LSE_ATOL, 0.0), "LSE")
     err_o = (o.float() - o_want).abs().max().item()
+    rel_o = _rel(o.float(), o_want)
+    dead = ~live
+    dead_o = bool((o[dead] == 0).all())
+    log(phase, f"{tag}: K1 O max_abs_err {err_o:.3e} (budget {O_TOL_NAME}), relative L2 "
+               f"{rel_o:.2e} (limit {WINDOW_REL_L2}) / max|ref| {o_want.abs().max().item():.3f}, "
+               f"LSE live rows max_abs_err "
+               f"{(lse[live] - lse_want[live]).abs().max().item():.3e} (budget {LSE_ATOL}); "
+               f"dead rows {int(dead.sum())}, their O exactly 0: {dead_o}")
+    if not (ok_o and ok_l):
+        fail(f"K1 disagrees with fwd_reference at {tag}: {msg_o}; {msg_l}")
+    if not rel_o <= WINDOW_REL_L2:
+        fail(f"K1: O relative L2 {rel_o:.3e} above {WINDOW_REL_L2} at {tag}")
+    if not dead_o:
+        fail(f"dead rows at {tag}: O not exactly 0")
+    if do is None:
+        return {"fwd_err": err_o, "dead": int(dead.sum())}
     delta = (f32[3] * o_want.float()).sum(-1)
     args = (q, k, v, do, lse_want, delta)
-    split = any(n in kw for n in ("softcap", "segment_ids", "bias"))
-    route = flash_bwd.split_sm90_route(head_dim=q.shape[-1], bias=kw.get("bias"), dtype=q.dtype,
-                                       segment_ids=kw.get("segment_ids"),
-                                       softcap=kw.get("softcap"))
-    bwd_name = "K3" if not split else "K5 + K6 split route" if route else "K5 + K6"
-    if not split:
+    out = {"fwd_err": err_o, "args": args, "dead": int(dead.sum()), "dbias": None}
+    del o, o_want
+    if "bias" in kw:
+        route = _bias_bwd_check(tag, args, f32, want_dbias=want_dbias, phase=phase, **kw)
+        out.update(bwd_err=route["err"], dbias=route["dbias"])
+        del f32
+        torch.cuda.empty_cache()
+        return out
+    if not any(n in kw for n in ("softcap", "segment_ids")):
         before = _launches()
         got = flash_bwd_fused.bwd(*args, **kw)
         torch.cuda.synchronize()
         _routed(f"K3 at {tag}", before, K3=1, K3_sm90=1)
         want = flash_bwd_fused.bwd_reference(*f32, lse_want, delta, **kw)
-        names = ("dq", "dk", "dv")
-    elif route:
+        bwd_name = "K3"
+    else:
         before = _launches()
         got = flash_bwd.split_bwd(*args, **kw)
         torch.cuda.synchronize()
         _routed(f"K5 + K6's split route at {tag}", before, split_bwd=1)
         want = flash_bwd.split_bwd_reference(*f32, lse_want, delta, **kw)
-        names = ("dq", "dk", "dv")
-    else:
-        dq = flash_bwd.dq(*args, want_dbias=want_dbias, **kw)
-        dq_want = flash_bwd.dq_reference(*f32, lse_want, delta, want_dbias=want_dbias, **kw)
-        got = (*(dq if want_dbias else (dq,)), *flash_bwd.dkv(*args, **kw))
-        want = (*(dq_want if want_dbias else (dq_want,)),
-                *flash_bwd.dkv_reference(*f32, lse_want, delta, **kw))
-        names = ("dq (K6)", *(("dbias (K6)",) if want_dbias else ()), "dk (K5)", "dv (K5)")
-    torch.cuda.synchronize()
+        bwd_name = "K5 + K6 split route"
+    names = ("dq", "dk", "dv")
     g_tol = BWD_TOL[torch.bfloat16]
     ok_g, why_g, err_g, _ = grad_gate(got, want, g_tol, names=names)
-    dead = ~live
-    dead_zero = bool((o[dead] == 0).all() and (got[0][dead] == 0).all())
-    rel = {n: (_rel(a.float(), e), e.abs().max().item())
-           for n, a, e in zip(("O", *names), (o, *got), (o_want, *want))}
-    log(phase, f"{tag}: K1 O max_abs_err {err_o:.3e} (budget {O_TOL_NAME}), LSE live rows "
-                  f"max_abs_err {(lse[live] - lse_want[live]).abs().max().item():.3e} (budget "
-                  f"{LSE_ATOL}); {bwd_name} dQ/dK/dV "
-                  f"max_abs_err {err_g:.3e} (budget BWD_TOL[bf16] atol {g_tol.atol} rtol "
-                  f"{g_tol.rtol}); relative L2 (limit {WINDOW_REL_L2}) / max|ref|: "
-                  + ", ".join(f"{n} {r:.2e} / {m:.3f}" for n, (r, m) in rel.items())
-                  + f"; dead rows {int(dead.sum())}, their O and dQ exactly 0: {dead_zero}")
-    if not (ok_o and ok_l):
-        fail(f"K1 disagrees with fwd_reference at {tag}: {msg_o}; {msg_l}")
+    dead_dq = bool((got[0][dead] == 0).all())
+    rel = {n: (_rel(a.float(), e), e.abs().max().item()) for n, a, e in zip(names, got, want)}
+    log(phase, f"{tag}: {bwd_name} dQ/dK/dV max_abs_err {err_g:.3e} (budget BWD_TOL[bf16] atol "
+               f"{g_tol.atol} rtol {g_tol.rtol}); relative L2 (limit {WINDOW_REL_L2}) / "
+               f"max|ref|: " + ", ".join(f"{n} {r:.2e} / {m:.3f}" for n, (r, m) in rel.items())
+               + f"; dead rows' dQ exactly 0: {dead_dq}")
     if not ok_g:
         fail(f"the backward disagrees with its plain version at {tag}: {why_g}")
     if not all(r <= WINDOW_REL_L2 for r, _ in rel.values()):
         fail(f"relative L2 error above {WINDOW_REL_L2} at {tag}: {rel}")
-    if not dead_zero:
-        fail(f"dead rows at {tag}: O or dQ not exactly 0")
-    dbias = got[1] if want_dbias else None
-    del o, got, want
-    out = {"fwd_err": err_o, "bwd_err": err_g, "args": args, "dead": int(dead.sum()),
-           "dbias": dbias}
-    if flash_bwd.bias_bwd_route(
-            rows=q.shape[1] // k.shape[1] * q.shape[2], causal=kw.get("causal", False),
-            segment_ids=kw.get("segment_ids"), window=kw.get("window"), head_dim=q.shape[-1],
-            bias=kw.get("bias"), dtype=q.dtype, softcap=kw.get("softcap")):
-        route = _bias_bwd_check(tag, args, f32, want_dbias=want_dbias, phase=phase, **kw)
-        out.update(route_err=route["err"], route_dbias=route["dbias"])
-    del f32
+    if not dead_dq:
+        fail(f"dead rows at {tag}: dQ not exactly 0")
+    out["bwd_err"] = err_g
+    del got, want, f32
     torch.cuda.empty_cache()
     return out
 
@@ -1631,17 +1656,18 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
 def _bias_bwd_check(tag: str, args, f32, *, want_dbias: bool, phase: str = "bias",
                     **kw) -> dict:
     """K5 + K6's bias route (flash_bwd.bias_bwd, one launch, of the dbias
-    variant with ``want_dbias``) on ``args`` = (q, k, v, do, lse, delta)
-    against bias_bwd_reference on ``f32``, f32 copies of (q, k, v, do), and
-    the same lse and delta: dQ, dK, dV (per KV head) and dbias within
-    BWD_TOL[bf16] and each within WINDOW_REL_L2 relative L2 (printed with
-    max|ref|); dead rows' dQ and dbias exactly 0, and with causal dbias
-    exactly 0 above the diagonal. Returns the max error and dbias."""
+    variant with ``want_dbias``, with the softcap in ``kw`` if any) on
+    ``args`` = (q, k, v, do, lse, delta) against bias_bwd_reference on
+    ``f32``, f32 copies of (q, k, v, do), and the same lse and delta: dQ, dK,
+    dV (per KV head) and dbias within BWD_TOL[bf16] and each within
+    WINDOW_REL_L2 relative L2 (printed with max|ref|); dead rows' dQ and
+    dbias exactly 0, and with causal dbias exactly 0 above the diagonal.
+    Returns the max error and dbias."""
     from flashattn_tpu_torch.ops import flash_bwd
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
     from flashattn_tpu_torch.utils.testing import BWD_TOL, grad_gate
 
-    kw = {n: kw[n] for n in ("scale", "causal", "kv_valid_len", "bias") if n in kw}
+    kw = {n: kw[n] for n in ("scale", "causal", "kv_valid_len", "bias", "softcap") if n in kw}
     before = flash_bwd.bias_bwd.launches, flash_bwd.bias_bwd.launches_dbias
     got = flash_bwd.bias_bwd(*args, want_dbias=want_dbias, **kw)
     torch.cuda.synchronize()
@@ -1686,17 +1712,50 @@ def _bias_bwd_check(tag: str, args, f32, *, want_dbias: bool, phase: str = "bias
     return {"err": err, "dbias": dbias}
 
 
+def _wide_fwd_check() -> None:
+    """K1 on fwd_tile.cuh above D 128 (WIDE_CASES), the forward only
+    (_fwd_bwd_check without dO): one launch each, on neither Hopper route."""
+    B, Hq, Hkv, D = 1, 8, 4, WIDE_D
+    for i, (name, nq, nk, causal, window, ids, biased, cap, dead) in enumerate(WIDE_CASES):
+        q, k, v = _grown(1070 + i, B, Hq, nq, D, nk, Hkv)
+        kw = dict(scale=D ** -0.5, causal=causal)
+        if window is not None:
+            kw["window"] = window
+        if ids is not None:
+            kw["segment_ids"] = _seg_case_ids(ids, 1080 + i, B, nq, nk)
+        if biased:
+            gen = torch.Generator(device=DEVICE).manual_seed(1090 + i)
+            kw["bias"] = _padding_bias((700,), nk) + torch.randn((1, Hq, nq, nk), generator=gen,
+                                                                  device=DEVICE)
+        if cap is not None:
+            kw["softcap"] = cap
+        out = _fwd_bwd_check(f"fwd_tile.cuh {name}: B{B} Hq{Hq} Hkv{Hkv} Nq{nq} Nk{nk} D{D}"
+                             f"{' causal' if causal else ''}"
+                             f"{'' if window is None else f', window {window}'}"
+                             f"{'' if ids is None else f', {ids} ids'}"
+                             f"{', key padding + normal bias' if biased else ''}"
+                             f"{'' if cap is None else f', softcap {cap}'}", q, k, v, None, **kw)
+        if dead and not out["dead"]:
+            fail(f"the D {D} case {name} has no dead row")
+        del q, k, v, kw
+
+
 def phase_window_check() -> dict:
     """The sliding-window and soft-capped variants against their plain
     versions (_fwd_bwd_check), all on q, k scaled by GROW: K1 and K3 with
     each window of WINDOW_CASES; K1 and K5 + K6's split route with a window
     and segment ids, without and with softcap 50, and with segment ids and
-    the softcap without a window; K1 and the split route with softcap 50 and
-    the SWA window at bench_lm's long shape; K1 with softcap and the
-    cache-slot bias at bench_decode's shape, GQA-folded. Times each at the path's shape
-    beside its plain version and its library call, the kernels with a window
-    beside the same kernel full-causal (gated: at most 0.6x), and prints the
-    tile pairs each visits."""
+    the softcap without a window; K1 and the split route at D 40 with cap 5
+    (CAP_D40_CASE: a D 64 instantiation reading zeros past D, the cap
+    saturating); K1 alone on fwd_tile.cuh at D 160 with the cap, the cap and
+    a window and / or segment ids, a bias, the cap and a bias (WIDE_CASES,
+    each one launch that neither Hopper route counts); K1 and the split
+    route with softcap 50 and the SWA window at bench_lm's long shape (every
+    capped K1 on its dense route); K1 with softcap and the cache-slot bias at
+    bench_decode's shape, GQA-folded. Times each at the path's shape beside
+    its plain version and its library call, the kernels with a window beside
+    the same kernel full-causal (gated: at most 0.6x), and prints the tile
+    pairs each visits."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
     from flashattn_tpu_torch.ops.flash import flash_attention
     from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close, make_qkv
@@ -1715,9 +1774,9 @@ def phase_window_check() -> dict:
             swa = out["args"], kw, out["fwd_err"], out["bwd_err"]
         del q, k, v, do, out
     # Packed documents with a window, without and with softcap, and with the
-    # softcap alone: K1 with the window and segment ids (its dense route, or
-    # fwd_tile.cuh with the cap) and K5 + K6's split route, at bench_lm's
-    # packed shape.
+    # softcap alone: K1 with the window and segment ids (its dense route, with
+    # and without the cap) and K5 + K6's split route, at bench_lm's packed
+    # shape.
     B, Hq, Hkv, N, _, D = SEG_CASES[0][1:7]
     ids = packed_ids(B, N + 1)[:, :N]
     for cap, window in ((None, (GATE_WINDOW - 1, -1)), (SOFTCAP, (GATE_WINDOW - 1, -1)),
@@ -1731,6 +1790,13 @@ def phase_window_check() -> dict:
                        f"{'' if window is None else f', window {window}'}"
                        f"{'' if cap is None else f', softcap {cap}'}", q, k, v, do, **kw)
         del q, k, v, do
+    B, Hq, Hkv, N, D, cap = CAP_D40_CASE
+    q, k, v = _grown(1060, B, Hq, N, D, N, Hkv)
+    do = _bnhd(make_qkv(1061, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
+    _fwd_bwd_check(f"D{D} B{B} Hq{Hq} Hkv{Hkv} N{N} causal, softcap {cap}", q, k, v, do,
+                   scale=D ** -0.5, causal=True, softcap=cap)
+    del q, k, v, do
+    _wide_fwd_check()
 
     (q, k, v, do, lse, delta), kw, k1_err, k3_err = swa
     B, Hq, Hkv, N, _, D = WINDOW_CASES[0][1:7]
@@ -1800,7 +1866,8 @@ def phase_window_check() -> dict:
                             **bound(tensor_bytes(*args) + 3 * grad,
                                     pair_flops(q, k, matmuls=5, **mask)), **bwd_library}
     sc = res["split_softcap"]
-    log("window", f"softcap at the SWA shape: K1 {res['k1_softcap']['ms']:.4f} ms (plain "
+    log("window", f"softcap at the SWA shape: K1's dense route {res['k1_softcap']['ms']:.4f} ms "
+                  f"(bound {res['k1_softcap']['bound_ms']:.4f} {res['k1_softcap']['bound_by']}; plain "
                   f"{res['k1_softcap']['plain_ms']:.4f}, flex_attention "
                   f"{fwd_library['library_ms']:.4f}), K5 + K6 split route {sc['ms']:.4f} ms "
                   f"({pair_flops(q, k, matmuls=5, **mask) / 1e9 / sc['ms']:.1f} TFLOP/s; plain "
@@ -1892,8 +1959,8 @@ def phase_softcap() -> dict:
     """Soft-capped training and decode. Training: the LM with logit_softcap
     50 and sliding_window 512, gates at [1, 2049] as phase_swa_train's; then
     LM_STEPS fused steps at [1, 8193] with the cap and sliding_window 2048:
-    exactly K1 = K1 window = K1 softcap = split bwd (K5 + K6's split route)
-    = layers x steps, no K3, K5 or K6.
+    exactly K1 = K1 dense sm90 = K1 window = K1 softcap = split bwd (K5 +
+    K6's split route) = layers x steps, no other (no fwd_tile.cuh K1, no K3).
     Decode: bench_decode's LM with the cap and sliding_window 2048 on a bf16
     cache, decode against the teacher-forced forward (_decode_gate; the
     forward runs K1 with the window and the cap), ms/token at cache lengths
@@ -1913,11 +1980,11 @@ def phase_softcap() -> dict:
               label=f"fused, logit_softcap {SOFTCAP}, sliding_window {SWA_WINDOW}")
     train = _launches()
     n = cfg.n_layers * LM_STEPS
-    log("softcap", f"launches during the soft-capped steps: {train} (expected K1 = K1 window = "
-                   f"K1 softcap = split bwd = {n}, no K3, K5 or K6)")
-    if train != _expect(K1=n, K1_window=n, K1_softcap=n, split_bwd=n):
-        fail(f"soft-capped steps launched {train}, expected K1 = K1 window = K1 softcap = split "
-             f"bwd = {n} and no other")
+    log("softcap", f"launches during the soft-capped steps: {train} (expected K1 = K1 dense sm90 "
+                   f"= K1 window = K1 softcap = split bwd = {n}, no other)")
+    if train != _expect(K1=n, K1_dense_sm90=n, K1_window=n, K1_softcap=n, split_bwd=n):
+        fail(f"soft-capped steps launched {train}, expected K1 = K1 dense sm90 = K1 window = K1 "
+             f"softcap = split bwd = {n} and no other")
 
     cfg = TransformerConfig(**DECODE_WIDTH, sliding_window=SWA_WINDOW, logit_softcap=SOFTCAP)
     model = init_transformer(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
@@ -1956,19 +2023,24 @@ ATTN_WIDTH = dict(num_heads=16, in_features=2048, qkv_features=2048)
 ATTN_LENGTHS = (2048, 1536, 1024, 512)
 ATTN_SEQ = 2048
 BIAS_SHAPE = (2, 16, 8, 2048, 128)
-# K1's bias route beside path A's and the LM's biases (phase_bias_check):
-# (tag, B, Hq, Hkv, Nq, Nk, D, kv_valid_len, causal, bias kind) -- a
-# row-broadcast [B, 1, 1, Nk] key mask, a ragged Nq with kv_valid_len < Nk
-# (causal, GQA, a [B, Hq, Nq, Nk] bias), D 64 with a key-padding bias
-# [B, 1, N, N] of dead rows, and Nk 2046, whose bias rows the wrapper pads to
-# 16 bytes (its last copy reads the two live columns of a 4-column chunk).
-BIAS_ROUTE_CASES = [("row-broadcast", 4, 16, 16, 2048, 2048, 128, 2048, False, "keys"),
-                    ("ragged", 2, 16, 8, 1000, 2048, 128, 1500, True, "full"),
-                    ("D64", 2, 8, 8, 1536, 1536, 64, 1536, False, "padding"),
-                    ("Nk 2046", 2, 16, 16, 1024, 2046, 128, 2046, False, "full")]
-# A dense call with a bias that bias_route refuses (D 96): the dense K1's bf16
-# bias instantiation (flash_fwd_bias.cu), held to the same limits.
-BIAS_TILE_CASE = ("D96 dense kernel", 2, 16, 16, 2048, 2048, 96, 2048, False, "padding")
+# K1's bias route and its backward beside path A's and the LM's biases
+# (phase_bias_check): (tag, B, Hq, Hkv, Nq, Nk, D, kv_valid_len, causal, bias
+# kind, softcap) -- a row-broadcast [B, 1, 1, Nk] key mask, a ragged Nq with
+# kv_valid_len < Nk (causal, GQA, a [B, Hq, Nq, Nk] bias), D 64 with a
+# key-padding bias [B, 1, N, N] of dead rows, Nk 2046, whose bias rows the
+# wrapper pads to 16 bytes (its last copy reads the two live columns of a
+# 4-column chunk), D 96 and a ragged causal GQA D 40 with cap 5 (run in the
+# D 128 / D 64 instantiations, boxes reading zeros past D), and the GQA
+# decode fold's call with cap 50 (Hq16 / Hkv8 at Nq 2 folded into 4 rows of
+# each KV head, its [B, 1, Nq, Nk] bias repeated per query head: the decode
+# kernel forward, the bias route backward).
+BIAS_ROUTE_CASES = [("row-broadcast", 4, 16, 16, 2048, 2048, 128, 2048, False, "keys", None),
+                    ("ragged", 2, 16, 8, 1000, 2048, 128, 1500, True, "full", None),
+                    ("D64", 2, 8, 8, 1536, 1536, 64, 1536, False, "padding", None),
+                    ("Nk 2046", 2, 16, 16, 1024, 2046, 128, 2046, False, "full", None),
+                    ("D96", 2, 16, 16, 2048, 2048, 96, 2048, False, "padding", None),
+                    ("D40 ragged", 2, 8, 4, 1000, 1500, 40, 1300, True, "full", 5.0),
+                    ("decode fold", 2, 8, 8, 4, 2048, 128, 2048, False, "rows", SOFTCAP)]
 # phase_roofline: K9 at 4096^3 and at the JAX test's 512 x 256 x 384; K10
 # checked at size 256 with 4 iterations and timed at the JAX probe's default
 # (size 512, 1024 iterations); the chained torch.matmul at size 4096.
@@ -2029,8 +2101,9 @@ def _bias_e2e(tag: str, q, k, v, bias, do, **fkw):
 def _bias_route_case(seed: int, B, Hq, Hkv, Nq, Nk, D, kind):
     """q, k (GROW) and v as _grown gives them, and the case's f32 bias: "keys"
     a [B, 1, 1, Nk] key mask (each batch row's last keys at the mask value)
-    plus a normal draw, "full" a normal [B, Hq, Nq, Nk], "padding" the
-    key-padding bias [B, 1, N, N] of lengths (N, 0.45 N)."""
+    plus a normal draw, "full" a normal [B, Hq, Nq, Nk], "rows" a normal
+    [B, 1, Nq / 2, Nk] repeated twice along the rows (the decode fold's),
+    "padding" the key-padding bias [B, 1, N, N] of lengths (N, 0.45 N)."""
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
 
     q, k, v = _grown(seed, B, Hq, Nq, D, Nk, Hkv)
@@ -2042,23 +2115,35 @@ def _bias_route_case(seed: int, B, Hq, Hkv, Nq, Nk, D, kind):
         cut = torch.arange(Nk, device=DEVICE) >= Nk - 64 * (1 + torch.arange(B, device=DEVICE))[
             :, None]
         return q, k, v, torch.where(cut[:, None, None], DEFAULT_MASK_VALUE, bias)
+    if kind == "rows":
+        return q, k, v, torch.randn((B, 1, Nq // 2, Nk), generator=gen,
+                                    device=DEVICE).repeat(1, 1, 2, 1)
     return q, k, v, torch.randn((B, Hq, Nq, Nk), generator=gen, device=DEVICE)
 
 
-def _bias_route_check(tag: str, q, k, v, sm90: bool = True, **kw) -> float:
-    """K1 with a bias -- one launch, of the sm90 bias kernel (``sm90``) or of
-    the dense kernel -- against fwd_reference on f32 copies of the same bf16
-    inputs: O within FWD_TOL[bf16] and relative L2 WINDOW_REL_L2, LSE within
-    LSE_ATOL on live rows, dead rows' O exactly 0. Returns O's max error."""
+def _bias_route_check(tag: str, q, k, v, **kw) -> float:
+    """K1 with a bias -- one launch, of the sm90 bias kernel, or of the decode
+    kernel (and its merge, with more than one split) where decode_route
+    takes the call, counted with its bias and cap -- against fwd_reference on
+    f32 copies of the same bf16 inputs: O within FWD_TOL[bf16] and relative
+    L2 WINDOW_REL_L2, LSE within LSE_ATOL on live rows, dead rows' O exactly
+    0. Returns O's max error."""
     from flashattn_tpu_torch.ops import flash_fwd
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
     from flashattn_tpu_torch.utils.testing import FWD_TOL, Tolerance, check_close
 
-    before = flash_fwd.fwd.launches_bias, flash_fwd.fwd.launches_bias_sm90
+    b, hq, nq, d = q.shape
+    hkv = k.shape[1]
+    if flash_fwd.decode_route(rows=hq // hkv * nq, causal=kw.get("causal", False),
+                              segment_ids=None, window=None, head_dim=d):
+        route, where = dict(K1_decode=1, K1_merge=_decode_merges(b, hkv, kw["kv_valid_len"])), \
+            "the decode kernel"
+    else:
+        route, where = dict(K1_bias_sm90=1), "the bias route"
+    before = _launches()
     o, lse = flash_fwd.fwd(q, k, v, **kw)
     torch.cuda.synchronize()
-    launched = (flash_fwd.fwd.launches_bias - before[0],
-                flash_fwd.fwd.launches_bias_sm90 - before[1])
+    _routed(f"K1 at {tag}", before, K1=1, K1_bias=1, K1_softcap=int("softcap" in kw), **route)
     o_want, lse_want = flash_fwd.fwd_reference(q.float(), k.float(), v.float(), **kw)
     live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
     ok_o, msg_o = check_close(o, o_want, FWD_TOL[torch.bfloat16], "O")
@@ -2066,15 +2151,12 @@ def _bias_route_check(tag: str, q, k, v, sm90: bool = True, **kw) -> float:
     err_o = (o.float() - o_want).abs().max().item()
     rel = _rel(o.float(), o_want)
     dead_zero = bool((o[~live] == 0).all())
-    log("bias", f"{tag}: K1 bias / K1 bias sm90 launches {launched}, O max_abs_err "
+    log("bias", f"{tag}: K1 on {where}, O max_abs_err "
                 f"{err_o:.3e} (budget {O_TOL_NAME}), relative L2 {rel:.2e} (limit "
                 f"{WINDOW_REL_L2}) / max|ref| {o_want.abs().max().item():.3f}, LSE live rows "
                 f"max_abs_err "
                 f"{(lse[live] - lse_want[live]).abs().max().item():.3e} (budget {LSE_ATOL}); "
                 f"dead rows {int((~live).sum())}, their O exactly 0: {dead_zero}")
-    if launched != (1, int(sm90)):
-        fail(f"K1 bias / K1 bias sm90 launched {launched} times at {tag}, expected "
-             f"{(1, int(sm90))}")
     if not (ok_o and ok_l):
         fail(f"K1 with a bias disagrees with fwd_reference at {tag}: {msg_o}; {msg_l}")
     if not rel <= WINDOW_REL_L2:
@@ -2106,161 +2188,152 @@ def _tma_wgmma_sass(phase: str, names: set) -> None:
 
 
 def phase_bias_check() -> dict:
-    """K1, K5 and K6 with a bias, K6's dbias, and K5 + K6's bias route (one
-    kernel for both, with and without dbias) against their plain versions
-    (_fwd_bwd_check, q and k scaled by GROW): at path A's attention (B4 H16
-    N2048 D128 non-causal) with its mask arm's bias (the key-padding bias [4,
-    1, N, N] of ATTN_LENGTHS, with dead rows; no dbias, as a mask wants none)
-    and its learned arm's (that bias plus a learned [1, 16, N, N] one, [4, 16,
-    N, N], with dbias); at the LM's attention shape B2 Hq16 Hkv8 N2048 D128
-    causal with a learned [1, 16, N, N] bias, without and with softcap 50
-    (dbias, exactly 0 above the diagonal; the capped call keeps K5 + K6).
+    """K1 with a bias, with and without the softcap, and K5 + K6's bias route
+    (one kernel for both, with and without dbias and the cap) against their
+    plain versions (_fwd_bwd_check, q and k scaled by GROW; every K1 call on
+    the bias route, every backward one launch of the route): at path A's
+    attention (B4 H16 N2048 D128 non-causal) with its mask arm's bias (the
+    key-padding bias [4, 1, N, N] of ATTN_LENGTHS, with dead rows; no dbias,
+    as a mask wants none) and at D 96; with its learned arm's (that bias plus
+    a learned [1, 16, N, N] one, [4, 16, N, N], with dbias), without and with
+    softcap 50; at the LM's attention shape B2 Hq16 Hkv8 N2048 D128 causal
+    with a learned [1, 16, N, N] bias, without and with softcap 50 (dbias,
+    exactly 0 above the diagonal). The route is also held alone
+    (_bias_route_check, and its backward with dbias, _bias_bwd_check) on
+    BIAS_ROUTE_CASES (D 96, D 40 with a cap, the decode fold among them).
     Then flash_attention(bias=) end to end against autograd through the f32
     oracle (_bias_e2e): the learned bias, a trainable [2, 1, 1, N] padding
     bias, softcap + the learned bias, and the GQA decode fold with a [B, 1,
-    Nq, Nk] bias, whose repeated rows sum back (2 launches of the route's
-    backward with dbias, 2 of K6 with dbias: the capped call and the fold).
-    Every K1 call without a softcap here takes K1's bias route (the sm90 bias
-    kernel, one launch each), the soft-capped ones the dense kernel; the
-    route is also held alone (_bias_route_check, and its backward with dbias,
-    _bias_bwd_check) on BIAS_ROUTE_CASES, the dense kernel's bias
-    instantiation on BIAS_TILE_CASE, and, after the numeric gates, the two
-    Hopper bias kernels' SASS has wgmma and no mma.sync. Times K1 on both
-    arms' biases (beside K1's dense route without a bias at that shape), the
-    route's backward on both arms, K5 and K6 with the mask arm's bias and K6
-    with dbias with the learned arm's (the design before the route), beside
-    their plain versions and SDPA's backward, and the route and K6 with and
-    without dbias at the causal shape."""
+    Nq, Nk] bias, whose repeated rows sum back: 3 launches of K1's bias
+    route (the fold's forward is the decode kernel's), 4 of the route's
+    backward, all with dbias, no K3 and no split route. After the numeric
+    gates the two Hopper bias kernels' SASS has wgmma and no mma.sync. Times
+    K1 on both arms' biases (beside K1's dense route without a bias at that
+    shape) and with the cap, the route's backward on both arms, with the cap
+    (with and without dbias) and at D 96, beside their plain versions, SDPA's
+    backward (flex_attention's with the cap), and the route at the causal
+    shape."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
     from flashattn_tpu_torch.utils.testing import make_qkv
-
-    def on_route(tag: str, before: int, want: int) -> None:
-        got = flash_fwd.fwd.launches_bias_sm90 - before
-        if got != want:
-            fail(f"K1's bias route launched {got} times at {tag}, expected {want}")
 
     res = {}
     B, N = len(ATTN_LENGTHS), ATTN_SEQ
     H = ATTN_WIDTH["num_heads"]
     D = ATTN_WIDTH["qkv_features"] // H
-    q, k, v = _grown(1400, B, H, N, D, N, H)
-    do = _bnhd(make_qkv(1401, B, H, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
     pad = _padding_bias(ATTN_LENGTHS, N)
-    kw = dict(scale=D ** -0.5, bias=pad)
-    before = flash_fwd.fwd.launches_bias_sm90
-    out = _fwd_bwd_check(f"path A's attention B{B} H{H} N{N} D{D} non-causal, key-padding bias "
-                         f"[{B}, 1, {N}, {N}] of lengths {ATTN_LENGTHS}", q, k, v, do,
-                         phase="bias", **kw)
-    on_route("path A's mask arm", before, 1)
-    if not out["dead"]:
-        fail("the key-padding case has no dead row")
-    args = out["args"]
-    stats, grad = 4 * B * H * N, 4 * B * H * N * D
+    stats = 4 * B * H * N
     mask = dict(kv_valid_len=N, causal=False, segment_ids=None)
-    bwd_library = dict(library_ms=sdpa_ms(q, k, v, do=do, attn_mask=pad), library_call=(
-        "the backward of scaled_dot_product_attention(attn_mask=the key-padding bias) (dQ, dK "
-        "and dV in one call)"))
-    res["k1_bias"] = {
-        "max_abs_err": out["fwd_err"], "ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, **kw)),
-        "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw), reps=3, trials=3),
-        **bound(tensor_bytes(q, k, v, pad, q) + stats, pair_flops(q, k, matmuls=2, **mask)),
-        "library_ms": sdpa_ms(q, k, v, attn_mask=pad),
-        "library_call": "scaled_dot_product_attention(attn_mask=the key-padding bias)",
-        # K1's dense route (flash_fwd_sm90.cu) without a bias at this shape: the
-        # shared body's cost apart from the bias's.
-        "dense_sm90_no_bias_ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, scale=D ** -0.5))}
-    res["k5_bias"] = {
-        "max_abs_err": out["bwd_err"], "ms": cuda_ms(lambda: flash_bwd.dkv(*args, **kw)),
-        "plain_ms": cuda_ms(lambda: flash_bwd.dkv_reference(*args, **kw), reps=2, trials=3),
-        **bound(tensor_bytes(*args, pad) + 2 * grad, pair_flops(q, k, matmuls=4, **mask)),
-        **bwd_library}
-    res["k6_bias"] = {
-        "max_abs_err": out["bwd_err"], "ms": cuda_ms(lambda: flash_bwd.dq(*args, **kw)),
-        "plain_ms": cuda_ms(lambda: flash_bwd.dq_reference(*args, **kw), reps=2, trials=3),
-        **bound(tensor_bytes(*args, pad) + grad, pair_flops(q, k, matmuls=3, **mask)),
-        **bwd_library}
-    # K5 + K6's bias route, the backward path A takes: 5 products, dQ, dK, dV out.
-    res["bias_bwd"] = {
-        "max_abs_err": out["route_err"], "ms": cuda_ms(lambda: flash_bwd.bias_bwd(*args, **kw)),
-        "plain_ms": cuda_ms(lambda: flash_bwd.bias_bwd_reference(*args, **kw), reps=2,
-                            trials=3),
-        **bound(tensor_bytes(*args, pad) + 3 * grad, pair_flops(q, k, matmuls=5, **mask)),
-        **bwd_library}
+    flops = {}
+    for d in (D, 96):
+        q, k, v = _grown(1400 if d == D else 1430, B, H, N, d, N, H)
+        do = _bnhd(make_qkv(1401 if d == D else 1431, B, H, N, d, dtype=torch.bfloat16,
+                            device=DEVICE)[0])
+        kw = dict(scale=d ** -0.5, bias=pad)
+        _reset_launches()
+        out = _fwd_bwd_check(f"path A's attention B{B} H{H} N{N} D{d} non-causal, key-padding "
+                             f"bias [{B}, 1, {N}, {N}] of lengths {ATTN_LENGTHS}", q, k, v, do,
+                             phase="bias", **kw)
+        if not out["dead"]:
+            fail("the key-padding case has no dead row")
+        args, grad = out["args"], 4 * B * H * N * d
+        res[f"launches_d{d}"] = _launches()["bias bwd"]
+        flops[d] = pair_flops(q, k, matmuls=5, **mask)
+        bwd_library = dict(library_ms=sdpa_ms(q, k, v, do=do, attn_mask=pad), library_call=(
+            "the backward of scaled_dot_product_attention(attn_mask=the key-padding bias) (dQ, "
+            "dK and dV in one call)"))
+        # K5 + K6's bias route, the backward path A takes: 5 products, dQ, dK, dV out.
+        res["bias_bwd" if d == D else "bias_bwd_d96"] = {
+            "max_abs_err": out["bwd_err"],
+            "ms": cuda_ms(lambda: flash_bwd.bias_bwd(*args, **kw)),
+            "plain_ms": cuda_ms(lambda: flash_bwd.bias_bwd_reference(*args, **kw), reps=2,
+                                trials=3),
+            **bound(tensor_bytes(*args, pad) + 3 * grad, flops[d]), **bwd_library}
+        if d == D:
+            res["k1_bias"] = {
+                "max_abs_err": out["fwd_err"], "ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, **kw)),
+                "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw), reps=3,
+                                    trials=3),
+                **bound(tensor_bytes(q, k, v, pad, q) + stats,
+                        pair_flops(q, k, matmuls=2, **mask)),
+                "library_ms": sdpa_ms(q, k, v, attn_mask=pad),
+                "library_call": "scaled_dot_product_attention(attn_mask=the key-padding bias)",
+                # K1's dense route (flash_fwd_sm90.cu) without a bias at this shape: the
+                # shared body's cost apart from the bias's.
+                "dense_sm90_no_bias_ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, scale=d ** -0.5))}
+        del q, k, v, do, args, out
+        torch.cuda.empty_cache()
     log("bias", f"path A's attention: K1 bias sm90 {res['k1_bias']['ms']:.4f} ms (plain "
                 f"{res['k1_bias']['plain_ms']:.4f}, SDPA {res['k1_bias']['library_ms']:.4f}, bound "
                 f"{res['k1_bias']['bound_ms']:.4f} {res['k1_bias']['bound_by']}; K1's dense route "
-                f"without a bias {res['k1_bias']['dense_sm90_no_bias_ms']:.4f}), "
-                f"K5 + K6's bias route {res['bias_bwd']['ms']:.4f} ms (plain "
-                f"{res['bias_bwd']['plain_ms']:.4f}, bound {res['bias_bwd']['bound_ms']:.4f} "
-                f"{res['bias_bwd']['bound_by']}, "
-                f"{pair_flops(q, k, matmuls=5, **mask) / res['bias_bwd']['ms'] / 1e9:.0f} "
-                f"TFLOP/s); before it K5 bias {res['k5_bias']['ms']:.4f} ms (plain "
-                f"{res['k5_bias']['plain_ms']:.4f}), K6 bias {res['k6_bias']['ms']:.4f} ms (plain "
-                f"{res['k6_bias']['plain_ms']:.4f}); SDPA's backward {bwd_library['library_ms']:.4f}"
-                f" ms (median CUDA-event time)")
-    del q, k, v, do, args, out
-    torch.cuda.empty_cache()
+                f"without a bias {res['k1_bias']['dense_sm90_no_bias_ms']:.4f}); K5 + K6's bias "
+                + "; ".join(f"route at D {d} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+                            f"{r['bound_ms']:.4f} {r['bound_by']}, {flops[d] / r['ms'] / 1e9:.0f} "
+                            f"TFLOP/s; SDPA's backward {r['library_ms']:.4f})"
+                            for d, r in ((D, res["bias_bwd"]), (96, res["bias_bwd_d96"])))
+                + " (median CUDA-event time)")
 
     # Path A's learned arm: flash_attention_fn adds the key-padding bias and
     # the learned relative-position bias [1, H, N, N] into one [B, H, N, N] f32
-    # bias that requires grad, so K6 writes dbias over every pair.
+    # bias that requires grad, so the route writes dbias over every pair;
+    # then the same with Gemma-2's cap.
     gen = torch.Generator(device=DEVICE).manual_seed(1409)
     combined = pad + torch.randn((1, H, N, N), generator=gen, device=DEVICE)
     del pad
     q, k, v = _grown(1410, B, H, N, D, N, H)
     do = _bnhd(make_qkv(1411, B, H, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
-    kw = dict(scale=D ** -0.5, bias=combined)
-    before = flash_fwd.fwd.launches_bias_sm90
-    out = _fwd_bwd_check(f"path A's learned arm B{B} H{H} N{N} D{D} non-causal, bias [{B}, {H}, "
-                         f"{N}, {N}] (key padding + learned [1, {H}, {N}, {N}]), dbias", q, k, v, do,
-                         phase="bias", want_dbias=True, **kw)
-    on_route("path A's learned arm", before, 1)
-    # Its bound counts the whole [B, H, N, N] f32 bias, 1.07 GB.
-    res["k1_bias_learned"] = {
-        "max_abs_err": out["fwd_err"], "ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, **kw)),
-        "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw), reps=3, trials=3),
-        **bound(tensor_bytes(q, k, v, combined, q) + stats, pair_flops(q, k, matmuls=2, **mask)),
-        "library_ms": sdpa_ms(q, k, v, attn_mask=combined),
-        "library_call": "scaled_dot_product_attention(attn_mask=the [B, H, N, N] f32 bias)"}
-    log("bias", f"path A's learned arm: K1 bias sm90 {res['k1_bias_learned']['ms']:.4f} ms (plain "
-                f"{res['k1_bias_learned']['plain_ms']:.4f}, SDPA "
-                f"{res['k1_bias_learned']['library_ms']:.4f}, bound "
-                f"{res['k1_bias_learned']['bound_ms']:.4f} {res['k1_bias_learned']['bound_by']})")
-    # SDPA takes a bias that requires grad only in the query's dtype.
-    args, leaf = out["args"], combined.to(torch.bfloat16).requires_grad_(True)
-    dbias_library = dict(
-        library_ms=sdpa_ms(q, k, v, do=do, attn_mask=leaf, bias_leaf=leaf),
-        library_call=("the backward of scaled_dot_product_attention(attn_mask=the [B, H, N, N] "
-                      "bias in bf16, which requires grad) (dQ, dK, dV and dbias in one call)"))
-    res["k6_dbias"] = {
-        "max_abs_err": out["bwd_err"],
-        "ms": cuda_ms(lambda: flash_bwd.dq(*args, want_dbias=True, **kw)),
-        "plain_ms": cuda_ms(lambda: flash_bwd.dq_reference(*args, want_dbias=True, **kw), reps=2,
-                            trials=3),
-        **bound(tensor_bytes(*args, combined, out["dbias"]) + grad,
-                pair_flops(q, k, matmuls=3, **mask)),
-        **dbias_library}
-    no_dbias = cuda_ms(lambda: flash_bwd.dq(*args, **kw))
-    # The route with dbias: the whole [B, H, N, N] f32 bias read and dbias written.
-    res["bias_bwd_dbias"] = {
-        "max_abs_err": out["route_err"],
-        "ms": cuda_ms(lambda: flash_bwd.bias_bwd(*args, want_dbias=True, **kw)),
-        "plain_ms": cuda_ms(lambda: flash_bwd.bias_bwd_reference(*args, want_dbias=True, **kw),
-                            reps=2, trials=3),
-        **bound(tensor_bytes(*args, combined, out["route_dbias"]) + 3 * grad,
-                pair_flops(q, k, matmuls=5, **mask)),
-        **dbias_library}
-    route_no_dbias = cuda_ms(lambda: flash_bwd.bias_bwd(*args, **kw))
-    log("bias", f"path A's learned arm: K5 + K6's bias route with dbias "
-                f"{res['bias_bwd_dbias']['ms']:.4f} ms (plain "
-                f"{res['bias_bwd_dbias']['plain_ms']:.4f}), without dbias {route_no_dbias:.4f} "
-                f"ms; bound {res['bias_bwd_dbias']['bound_ms']:.4f} ms "
-                f"({res['bias_bwd_dbias']['bound_by']}); before it K6 with dbias "
-                f"{res['k6_dbias']['ms']:.4f} ms (plain {res['k6_dbias']['plain_ms']:.4f}), "
-                f"without dbias {no_dbias:.4f} ms, bound {res['k6_dbias']['bound_ms']:.4f} ms "
-                f"({res['k6_dbias']['bound_by']}); SDPA's backward with dbias "
-                f"{res['k6_dbias']['library_ms']:.4f} ms")
-    del q, k, v, do, args, out, combined, leaf
+    grad = 4 * B * H * N * D
+    for cap in (None, SOFTCAP):
+        kw = dict(scale=D ** -0.5, bias=combined, **({} if cap is None else {"softcap": cap}))
+        out = _fwd_bwd_check(f"path A's learned arm B{B} H{H} N{N} D{D} non-causal, bias [{B}, "
+                             f"{H}, {N}, {N}] (key padding + learned [1, {H}, {N}, {N}])"
+                             f"{'' if cap is None else f', softcap {cap}'}, dbias", q, k, v, do,
+                             phase="bias", want_dbias=True, **kw)
+        args = out["args"]
+        k1_ms = cuda_ms(lambda: flash_fwd.fwd(q, k, v, **kw))
+        # The route with dbias: the whole [B, H, N, N] f32 bias read and dbias written.
+        row = {"max_abs_err": out["bwd_err"],
+               "ms": cuda_ms(lambda: flash_bwd.bias_bwd(*args, want_dbias=True, **kw)),
+               "plain_ms": cuda_ms(lambda: flash_bwd.bias_bwd_reference(*args, want_dbias=True,
+                                                                        **kw),
+                                   reps=2, trials=3),
+               "no_dbias_ms": cuda_ms(lambda: flash_bwd.bias_bwd(*args, **kw)),
+               **bound(tensor_bytes(*args, combined, out["dbias"]) + 3 * grad,
+                       pair_flops(q, k, matmuls=5, **mask))}
+        if cap is None:
+            # SDPA takes a bias that requires grad only in the query's dtype.
+            leaf = combined.to(torch.bfloat16).requires_grad_(True)
+            row.update(library_ms=sdpa_ms(q, k, v, do=do, attn_mask=leaf, bias_leaf=leaf),
+                       library_call=(
+                           "the backward of scaled_dot_product_attention(attn_mask=the [B, H, "
+                           "N, N] bias in bf16, which requires grad) (dQ, dK, dV and dbias in "
+                           "one call)"))
+            del leaf
+            res["bias_bwd_dbias"] = row
+            # Its bound counts the whole [B, H, N, N] f32 bias, 1.07 GB.
+            res["k1_bias_learned"] = {
+                "max_abs_err": out["fwd_err"], "ms": k1_ms,
+                "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw), reps=3,
+                                    trials=3),
+                **bound(tensor_bytes(q, k, v, combined, q) + stats,
+                        pair_flops(q, k, matmuls=2, **mask)),
+                "library_ms": sdpa_ms(q, k, v, attn_mask=combined),
+                "library_call": "scaled_dot_product_attention(attn_mask=the [B, H, N, N] f32 bias)"}
+        else:
+            row.update(library_ms=flex_ms(q, k, v, do=do, scale=kw["scale"],
+                                          score_mod=softcap_mod(cap, combined)),
+                       library_call=("the backward of flex_attention (torch.compile) with the "
+                                     "softcap and bias score_mod (dQ, dK and dV; no dbias: the "
+                                     "bias it reads does not require grad)"),
+                       k1_ms=k1_ms)
+            res["bias_bwd_softcap"] = row
+        log("bias", f"path A's learned arm{'' if cap is None else f', softcap {cap}'}: K1 bias "
+                    f"sm90 {k1_ms:.4f} ms; K5 + K6's bias route with dbias {row['ms']:.4f} ms "
+                    f"(plain {row['plain_ms']:.4f}), without dbias {row['no_dbias_ms']:.4f} ms; "
+                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); library "
+                    f"{row['library_ms']:.4f} ms ({row['library_call']})")
+        del args, out
+        torch.cuda.empty_cache()
+    del q, k, v, do, combined
     torch.cuda.empty_cache()
 
     B, Hq, Hkv, N, D = BIAS_SHAPE
@@ -2272,95 +2345,86 @@ def phase_bias_check() -> dict:
         do = _bnhd(make_qkv(1404, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
         kw = dict(scale=D ** -0.5, causal=True, bias=learned,
                   **({} if cap is None else {"softcap": cap}))
-        before = flash_fwd.fwd.launches_bias_sm90
         out = _fwd_bwd_check(f"learned bias [1, {Hq}, {N}, {N}] B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} "
                              f"causal{'' if cap is None else f', softcap {cap}'}, dbias",
                              q, k, v, do, phase="bias", want_dbias=True, **kw)
-        # A softcap keeps the dense kernel.
-        on_route(f"the causal LM's learned bias, cap {cap}", before, int(cap is None))
         above = int((out["dbias"][..., upper] != 0).sum())
         log("bias", f"dbias above the causal diagonal: {above} nonzero of "
                     f"{B * Hq * int(upper.sum())}")
         if above:
-            fail(f"K6's dbias is not exactly 0 above the causal diagonal (cap {cap})")
+            fail(f"the route's dbias is not exactly 0 above the causal diagonal (cap {cap})")
         if cap is None:
-            lm = out
+            args = out["args"]
+            route = cuda_ms(lambda: flash_bwd.bias_bwd(*args, want_dbias=True, **kw))
+            log("bias", f"learned bias B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal: K5 + K6's bias "
+                        f"route with dbias {route:.4f} ms")
+            del args
         del q, k, v, do, out
         torch.cuda.empty_cache()
 
-    for i, case in enumerate([*BIAS_ROUTE_CASES, BIAS_TILE_CASE]):
-        tag, b, hq, hkv, nq, nk, d, valid, causal, kind = case
+    for i, case in enumerate(BIAS_ROUTE_CASES):
+        tag, b, hq, hkv, nq, nk, d, valid, causal, kind, cap = case
         q, k, v, bias = _bias_route_case(1420 + 2 * i, b, hq, hkv, nq, nk, d, kind)
         what = (f"{tag}: B{b} Hq{hq} Hkv{hkv} Nq{nq} Nk{nk} D{d} kv_valid_len {valid}"
-                f"{' causal' if causal else ''}, bias {list(bias.shape)}")
-        rkw = dict(scale=d ** -0.5, kv_valid_len=valid, causal=causal, bias=bias)
-        _bias_route_check(f"K1 with a bias, {what}", q, k, v, sm90=case is not BIAS_TILE_CASE,
-                          **rkw)
-        if case is not BIAS_TILE_CASE:
-            # The route's backward with dbias, on the plain forward's LSE and Delta.
-            do = _bnhd(make_qkv(1440 + i, b, hq, nq, d, dtype=torch.bfloat16, device=DEVICE)[0])
-            f32 = [x.float() for x in (q, k, v, do)]
-            o_ref, lse_ref = flash_fwd.fwd_reference(*f32[:3], **rkw)
-            _bias_bwd_check(f"the bias route's backward, {what}, dbias",
-                            (q, k, v, do, lse_ref, (f32[3] * o_ref).sum(-1)), f32,
-                            want_dbias=True, **rkw)
-            del do, f32, o_ref, lse_ref
-        del q, k, v, bias
-
-    args, kw = lm["args"], dict(scale=D ** -0.5, causal=True, bias=learned)
-    # The batch-broadcast bias is read once over the attended pairs (on and
-    # below the diagonal); dbias [B, Hq, N, N] is written whole.
-    causal_bound = bound(tensor_bytes(*args, lm["dbias"]) + 4 * Hq * N * (N + 1) // 2
-                         + 4 * B * Hq * N * D,
-                         pair_flops(args[0], args[1], matmuls=3, kv_valid_len=N, causal=True,
-                                    segment_ids=None))
-    with_dbias = cuda_ms(lambda: flash_bwd.dq(*args, want_dbias=True, **kw))
-    no_dbias = cuda_ms(lambda: flash_bwd.dq(*args, **kw))
-    route = cuda_ms(lambda: flash_bwd.bias_bwd(*args, want_dbias=True, **kw))
-    log("bias", f"learned bias B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal: K5 + K6's bias route "
-                f"with dbias {route:.4f} ms; K6 with dbias {with_dbias:.4f} ms, without dbias "
-                f"{no_dbias:.4f} ms; K6's bound {causal_bound['bound_ms']:.4f} ms "
-                f"({causal_bound['bound_by']})")
-    del args, lm
+                f"{' causal' if causal else ''}, bias {list(bias.shape)}"
+                f"{'' if cap is None else f', softcap {cap}'}")
+        rkw = dict(scale=d ** -0.5, kv_valid_len=valid, causal=causal, bias=bias,
+                   **({} if cap is None else {"softcap": cap}))
+        _bias_route_check(f"K1 with a bias, {what}", q, k, v, **rkw)
+        # The route's backward with dbias, on the plain forward's LSE and Delta.
+        do = _bnhd(make_qkv(1440 + i, b, hq, nq, d, dtype=torch.bfloat16, device=DEVICE)[0])
+        f32 = [x.float() for x in (q, k, v, do)]
+        o_ref, lse_ref = flash_fwd.fwd_reference(*f32[:3], **rkw)
+        _bias_bwd_check(f"the bias route's backward, {what}, dbias",
+                        (q, k, v, do, lse_ref, (f32[3] * o_ref).sum(-1)), f32,
+                        want_dbias=True, **rkw)
+        del q, k, v, bias, do, f32, o_ref, lse_ref
     torch.cuda.empty_cache()
 
     # End to end at unit scale: these gradients also carry the bf16 rounding
     # of O and of Delta = rowsum(dO * O), which at GROW scale alone exceeds
     # BWD_TOL[bf16] elementwise (dQ off by 9.8e-2 at |ref| 6.4e-2 on the H100).
-    _reset_launches()
+    # Each call's launches are counted from 0, then summed.
+    def counted(*args, **fkw):
+        _reset_launches()
+        out = _bias_e2e(*args, **fkw)
+        return out, _launches()
+
     q, k, v = (_bnhd(x) for x in make_qkv(1405, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16,
                                            device=DEVICE))
     do = _bnhd(make_qkv(1406, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
-    dbias = _bias_e2e(f"learned bias [1, {Hq}, {N}, {N}], B{B} Hq{Hq} Hkv{Hkv} causal", q, k, v,
-                      learned, do, causal=True)
+    dbias, n_learned = counted(f"learned bias [1, {Hq}, {N}, {N}], B{B} Hq{Hq} Hkv{Hkv} causal",
+                               q, k, v, learned, do, causal=True)
     if (dbias[..., upper] != 0).any():
         fail("the reduced dbias is not exactly 0 above the causal diagonal")
     lengths = torch.tensor([N, 3 * N // 4], device=DEVICE)
     slots = torch.where(torch.arange(N, device=DEVICE)[None] < lengths[:, None], 0.0, -1e9)
-    _bias_e2e(f"trainable padding bias [{B}, 1, 1, {N}], causal", q, k, v,
-              slots[:, None, None], do, causal=True)
-    _bias_e2e(f"softcap {SOFTCAP} + learned bias, causal", q, k, v, learned, do, causal=True,
-              logit_softcap=SOFTCAP)
+    _, n_slots = counted(f"trainable padding bias [{B}, 1, 1, {N}], causal", q, k, v,
+                         slots[:, None, None], do, causal=True)
+    _, res["e2e_softcap"] = counted(f"softcap {SOFTCAP} + learned bias, causal", q, k, v,
+                                    learned, do, causal=True, logit_softcap=SOFTCAP)
     nq = 2  # rep * Nq = 4 rows per KV head: folded
     qd = _bnhd(make_qkv(1407, B, Hq, nq, D, dtype=torch.bfloat16, device=DEVICE)[0])
     dod = _bnhd(make_qkv(1408, B, Hq, nq, D, dtype=torch.bfloat16, device=DEVICE)[0])
     rows = torch.randn((B, 1, nq, N), generator=gen, device=DEVICE)
-    _bias_e2e(f"GQA decode fold Nq{nq}, bias [{B}, 1, {nq}, {N}] (rows repeated per q head)",
-              qd, k, v, rows, dod)
-    res["e2e"] = _launches()
+    _, n_fold = counted(f"GQA decode fold Nq{nq}, bias [{B}, 1, {nq}, {N}] (rows repeated per "
+                        "q head)", qd, k, v, rows, dod)
+    res["e2e"] = {n: n_learned[n] + n_slots[n] + res["e2e_softcap"][n] + n_fold[n]
+                  for n in n_learned}
     log("bias", f"launches during the end-to-end checks: {res['e2e']}")
-    # K1's bias route and its backward: the learned and the padding bias (the
-    # softcap keeps the dense kernel and K5 + K6, the fold the decode kernel
-    # and K5 + K6).
-    e2e = {n: res["e2e"][n] for n in ("K6 dbias", "bias bwd", "bias bwd dbias", "K1 bias sm90",
-                                      "K3")}
-    if e2e != {"K6 dbias": 2, "bias bwd": 2, "bias bwd dbias": 2, "K1 bias sm90": 2, "K3": 0}:
-        fail(f"the end-to-end bias checks launched {res['e2e']}, expected K6 dbias = bias bwd = "
-             f"bias bwd dbias = K1 bias sm90 = 2, no K3")
-    _tma_wgmma_sass("bias", {f"K1 bias sm90 fwd_bias_sm90_kernel<{d}>"
-                             for d in flash_fwd.BIAS_HEAD_DIMS}
-                    | {f"bias bwd sm90 bwd_bias_sm90_kernel<{d}, {w}>"
-                       for d in flash_fwd.BIAS_HEAD_DIMS for w in (0, 1)})
+    # K1's bias route (the learned, the padding and the capped bias; the fold's
+    # forward is the decode kernel's) and its backward on all four, with dbias.
+    e2e = {n: res["e2e"][n] for n in ("K1 bias sm90", "K1 decode", "bias bwd", "bias bwd dbias",
+                                      "K3", "split bwd")}
+    want = {"K1 bias sm90": 3, "K1 decode": 1, "bias bwd": 4, "bias bwd dbias": 4, "K3": 0,
+            "split bwd": 0}
+    if e2e != want:
+        fail(f"the end-to-end bias checks launched {res['e2e']}, expected {want}")
+    _tma_wgmma_sass("bias", {f"K1 bias sm90{' softcap' if c else ''} "
+                             f"fwd_bias_sm90_kernel<{d}, {c}>" for d in (64, 128) for c in (0, 1)}
+                    | {f"bias bwd sm90{' softcap' if c else ''} "
+                       f"bwd_bias_sm90_kernel<{d}, {w}, {c}>"
+                       for d in (64, 128) for w in (0, 1) for c in (0, 1)})
     return res
 
 
@@ -2945,10 +3009,10 @@ def main() -> None:
     bias_train = timed(phase_bias_train)
     roof = timed(phase_roofline)
     ring = timed(phase_ring)
-    fwd_src, bwd_src, split_src, cap_win_src, bias_src, bias_sm90_src = (
+    fwd_src, bwd_src, split_src, bias_sm90_src = (
         f"flashattn_tpu_torch/csrc/flash_{d}.cu"
-        for d in ("fwd_sm90", "bwd_sm90", "bwd_split_sm90", "fwd_softcap_window",
-                  "bwd_split_bias", "fwd_bias_sm90"))
+        for d in ("fwd_sm90", "bwd_sm90", "bwd_split_sm90", "fwd_bias_sm90"))
+    bias_bwd_src = "flashattn_tpu_torch/csrc/bwd_bias_sm90.cu"
     split_replaces = "flashattn_tpu/ops/flash_bwd.py:139, flashattn_tpu/ops/flash_bwd.py:234"
     # K1's decode route: the decode kernel and, where a call has more than one
     # split, its merge kernel, both launched by flash_fwd.fwd's one C call
@@ -2992,9 +3056,10 @@ def main() -> None:
          "replaces": "flashattn_tpu/ops/flash_bwd_fused.py:110, "
                      "flashattn_tpu/ops/flash_bwd_fused.py:651",
          "launches": swa["K3 sm90"], **win["k3_window"]},
-        {"name": "flash_fwd softcap (K1 + logit softcap + sliding window)", "route": "cuda",
-         "source": cap_win_src, "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
-         "launches": cap["train"]["K1 softcap"], **win["k1_softcap"]},
+        {"name": "flash_fwd_sm90 softcap (K1's dense route, wgmma: soft-capped SWA, logit "
+                 "softcap + sliding window)", "route": "cuda", "source": fwd_src,
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:852",
+         "launches": cap["train"]["K1 dense sm90"], **win["k1_softcap"]},
         {"name": "flash_bwd_split_sm90 softcap (K5 + K6 in one launch, wgmma: soft-capped SWA, "
                  "logit softcap + sliding window)", "route": "cuda", "source": split_src,
          "replaces": split_replaces, "launches": cap["train"]["split bwd"],
@@ -3009,27 +3074,26 @@ def main() -> None:
          "launches": bias_train["learned"]["launches"]["K1 bias sm90"],
          **bias["k1_bias_learned"]},
         {"name": "bwd_bias_sm90 (K5 + K6's bias route, wgmma: key-padding bias, path A's mask "
-                 "arm)", "route": "cuda", "source": "flashattn_tpu_torch/csrc/bwd_bias_sm90.cu",
-         "replaces": "flashattn_tpu/ops/flash_bwd.py:139, flashattn_tpu/ops/flash_bwd.py:234",
+                 "arm)", "route": "cuda", "source": bias_bwd_src, "replaces": split_replaces,
          "launches": bias_train["mask"]["launches"]["bias bwd"], **bias["bias_bwd"]},
         {"name": "bwd_bias_sm90 dbias (K5 + K6's bias route, wgmma: [4, 16, N, N] bias and "
-                 "dbias, path A's learned arm)", "route": "cuda",
-         "source": "flashattn_tpu_torch/csrc/bwd_bias_sm90.cu",
-         "replaces": "flashattn_tpu/ops/flash_bwd.py:139, flashattn_tpu/ops/flash_bwd.py:234",
+                 "dbias, path A's learned arm)", "route": "cuda", "source": bias_bwd_src,
+         "replaces": split_replaces,
          "launches": bias_train["learned"]["launches"]["bias bwd dbias"],
          **bias["bias_bwd_dbias"]},
-        # K5 / K6 with a bias where the bias route refuses the call (a softcap,
-        # the decode fold): launches from phase_bias_check's end-to-end checks,
-        # times at path A's shape (the design the route replaced there).
-        {"name": "flash_bwd_split dkv bias (K5 + bias)", "route": "cuda", "source": bias_src,
-         "replaces": "flashattn_tpu/ops/flash_bwd.py:139",
-         "launches": bias["e2e"]["K5 bias"], **bias["k5_bias"]},
-        {"name": "flash_bwd_split dq bias (K6 + bias, no dbias)", "route": "cuda",
-         "source": bias_src, "replaces": "flashattn_tpu/ops/flash_bwd.py:234",
-         "launches": bias["e2e"]["K6 bias"], **bias["k6_bias"]},
-        {"name": "flash_bwd_split dq dbias (K6 + bias + dbias)", "route": "cuda",
-         "source": bias_src, "replaces": "flashattn_tpu/ops/flash_bwd.py:234",
-         "launches": bias["e2e"]["K6 dbias"], **bias["k6_dbias"]},
+        # The bias route's backward with the softcap and at D 96, the calls
+        # that K5 + K6 on mma.sync took before it: no path of the port makes
+        # them, so "path" is null and the launches are a check's, each
+        # counted from 0 (phase_bias_check: the soft-capped end-to-end call,
+        # the D 96 check at path A's shape); times at path A's shape.
+        {"name": "bwd_bias_sm90 softcap (K5 + K6's bias route, wgmma: [4, 16, N, N] bias, "
+                 "softcap 50 and dbias, path A's learned arm)", "route": "cuda",
+         "source": bias_bwd_src, "replaces": split_replaces, "path": None,
+         "launches": bias["e2e_softcap"]["bias bwd dbias"], **bias["bias_bwd_softcap"]},
+        {"name": "bwd_bias_sm90 D 96 (K5 + K6's bias route, wgmma: key-padding bias at D 96, "
+                 "run in the D 128 instantiation)", "route": "cuda", "source": bias_bwd_src,
+         "replaces": split_replaces, "path": None, "launches": bias["launches_d96"],
+         **bias["bias_bwd_d96"]},
         {"name": "gemm (K9, TMA + wgmma)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/gemm.cu",
          "replaces": "flashattn_tpu/ops/gemm.py:22", "launches": roof["launches"]["K9"],

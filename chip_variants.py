@@ -1,6 +1,6 @@
 """Time the design variants of the TMA + wgmma kernels against the committed ones, on one GPU.
 
-    python3 chip_variants.py [ring] [bias] [k3]
+    python3 chip_variants.py [ring] [bias] [k3] [k1cap]
 
 (every family without an argument). Each variant is a committed source
 with one design choice undone by text patches (of the source, or of the
@@ -65,13 +65,28 @@ two owners of a CTA:
 At the LM's shape (B1 Hq16 Hkv8 N2048 D128 causal) and the SWA shape (N8192,
 window 2047 to the left, causal) each is held against ``bwd_reference``
 (dK / dV summed over the group), then timed in turns, the caller's sum of
-the committed kernel's per-query-head dK / dV included. Prints the card's name and power limit
-first.
+the committed kernel's per-query-head dK / dV included.
+
+Family ``k1cap``, K1's dense route ``csrc/flash_fwd_sm90.cu`` (its body
+``csrc/fwd_sm90_tile.cuh``) through ``flash_fwd._launch_dense_sm90``, with
+the logit softcap:
+
+* ``K1 cap``: as committed, the accurate ``tanhf`` (an exponential and a
+  reciprocal on the MUFU pipe per score, beside the softmax's ex2);
+* ``K1 cap tanh.approx``: one ``tanh.approx.f32`` per score (a single MUFU
+  operation, ~2^-11 relative error), which the backward's recompute would
+  then have to share.
+
+At the soft-capped SWA shape (B1 Hq16 Hkv8 N8192 D128, window 2047 to the
+left, causal, cap 50, q and k at 4x) each is held against ``fwd_reference``
+(O's max abs and relative L2 errors, LSE's max abs error, printed), then
+timed in turns. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import shutil
 import statistics
 import subprocess
@@ -185,6 +200,14 @@ def _regs(s: str) -> str:
                                "setmaxnreg.inc.sync.aligned.u32 232")
 
 
+def _tanh_approx(src: str) -> str:
+    return src.replace(
+        "if constexpr (CAP) return cap_log2 * tanhf(s * cap_scale);  // K1 sm90 tanh",
+        "if constexpr (CAP) {\n    float t;\n"
+        "    asm(\"tanh.approx.f32 %0, %1;\" : \"=f\"(t) : \"f\"(s * cap_scale));\n"
+        "    return cap_log2 * t;\n  }")
+
+
 BIAS_BODY = "bwd_sm90_tile.cuh"
 # name: (source, ((the file a patch changes, patch), ...)).
 VARIANTS = {
@@ -200,7 +223,7 @@ VARIANTS = {
     "bias bwd no dQ": ("bwd_bias_sm90.cu", ((BIAS_BODY, _no_dq),)),
     "bias bwd bias to the end": ("bwd_bias_sm90.cu", ((BIAS_BODY, _bias_to_end),)),
     "bias bwd plain dbias stores": ("bwd_bias_sm90.cu", ((BIAS_BODY, lambda s: s.replace(
-        "__stcs(dst, d0)", "*dst = d0").replace("__stcs(dst + p.nk, d1)", "dst[p.nk] = d1")),)),
+        "__stcs(dst, b0)", "*dst = b0").replace("__stcs(dst + p.nk, b1)", "dst[p.nk] = b1")),)),
     "bias bwd no dQ reduction": ("bwd_bias_sm90.cu", ((BIAS_BODY, lambda s: s.replace(
         "        if (lane == 0) {\n          // Only the tile's rows below Nq",
         "        if (false) {\n          // Only the tile's rows below Nq")),)),
@@ -216,12 +239,15 @@ VARIANTS = {
                                         "    heads = 1;\n",
                                         "    hk = blockIdx.x;\n    h0 = hk * p.rep;\n"
                                         "    heads = p.rep;\n")))),
+    "K1 cap": ("flash_fwd_sm90.cu", ()),
+    "K1 cap tanh.approx": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _tanh_approx),)),
 }
 # The C entry, its argument types and the family of each source.
 ENTRIES = {"ring_bwd.cu": ("fa_ring_bwd_bf16", "RING_BWD_ARGTYPES", "ring"),
            "ring_fwd.cu": ("fa_ring_fwd_bf16", "RING_FWD_ARGTYPES", "ring"),
            "bwd_bias_sm90.cu": ("fa_bwd_bias_sm90", "BWD_BIAS_SM90_ARGTYPES", "bias"),
-           "flash_bwd_sm90.cu": ("fa_bwd_sm90", "BWD_SM90_ARGTYPES", "k3")}
+           "flash_bwd_sm90.cu": ("fa_bwd_sm90", "BWD_SM90_ARGTYPES", "k3"),
+           "flash_fwd_sm90.cu": ("fa_fwd_sm90", "FWD_SM90_ARGTYPES", "k1cap")}
 
 
 def build(families) -> dict:
@@ -348,7 +374,7 @@ def bias(libs: dict) -> None:
         b, strides = flash_fwd.sm90_bias(bias_)
         rc = flash_bwd._launch_bias_bwd(lib, q, k, v, do, lse, delta, b, strides, dq, dk, dv,
                                         dbias, scale=D ** -0.5, causal=False, kv_valid_len=N,
-                                        nq_pad=N, stream=stream)
+                                        nq_pad=N, softcap=None, stream=stream)
         return rc, (dq, dk, dv, dbias)
 
     stats = {}
@@ -393,7 +419,7 @@ def k3(libs: dict) -> None:
         kw = dict(scale=D ** -0.5, **band)
         o, lse = flash_fwd.fwd(q, k, v, **kw)
         delta = (do.float() * o.float()).sum(-1)
-        nq_pad = -(-n // flash_bwd_fused.BLOCK_M) * flash_bwd_fused.BLOCK_M
+        nq_pad = -(-n // flash_bwd.SM90_BWD_Q_TILE) * flash_bwd.SM90_BWD_Q_TILE
         stats = flash_bwd._padded_rows(lse, nq_pad), flash_bwd._padded_rows(delta, nq_pad)
         want = flash_bwd_fused.bwd_reference(*(x.float() for x in (q, k, v, do)), lse, delta,
                                              **kw)
@@ -428,12 +454,46 @@ def k3(libs: dict) -> None:
     _report(times)
 
 
+def k1cap(libs: dict) -> None:
+    from flashattn_tpu_torch.ops import flash_fwd
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+
+    B, Hq, Hkv, N, D = 1, 16, 8, cs.SWA_SEQ, 128
+    q, k, v = cs._grown(51, B, Hq, N, D, N, Hkv)
+    kw = dict(scale=D ** -0.5, causal=True, window=(cs.SWA_WINDOW - 1, -1), softcap=cs.SOFTCAP)
+    o_want, lse_want = flash_fwd.fwd_reference(q, k, v, **kw)
+    live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
+    stream = torch.cuda.current_stream().cuda_stream
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, N), dtype=torch.float32, device="cuda")
+
+    def call(lib):
+        return flash_fwd._launch_dense_sm90(lib, q, k, v, o, lse, None, kv_valid_len=N,
+                                            stream=stream, **kw)
+
+    for name, lib in libs.items():
+        rc = call(lib)
+        torch.cuda.synchronize()
+        print(f"[check] {name}: rc {rc}, O max abs err "
+              f"{(o.float() - o_want).abs().max().item():.3e}, relative L2 "
+              f"{cs._rel(o.float(), o_want):.3e}, LSE max abs err "
+              f"{(lse[live] - lse_want[live]).abs().max().item():.3e}", flush=True)
+    del o_want, lse_want
+    torch.cuda.empty_cache()
+    times = {}
+    for rnd in range(3):
+        for name, lib in (libs.items() if rnd % 2 == 0 else reversed(libs.items())):
+            times.setdefault((name, "SWA"), []).append(
+                cs.cuda_ms(lambda: call(lib), reps=10, trials=3))
+    _report(times)
+
+
 def main() -> None:
-    families = sys.argv[1:] or ["ring", "bias", "k3"]
+    families = sys.argv[1:] or ["ring", "bias", "k3", "k1cap"]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     libs = build(families)
-    for family, run in (("ring", ring), ("bias", bias), ("k3", k3)):
+    for family, run in (("ring", ring), ("bias", bias), ("k3", k3), ("k1cap", k1cap)):
         if family in families:
             run({n: lib for n, lib in libs.items() if ENTRIES[VARIANTS[n][0]][2] == family})
 

@@ -1,14 +1,20 @@
 // K5 + K6 with an additive bias for Hopper (sm_90a): bwd_sm90_tile.cuh's
 // single-pass TMA + wgmma backward with its bias stage, which writes dQ, dK,
 // dV and, when the bias needs a gradient, dbias in one KV-major pass, as
-// bwd_bias_sm90_kernel; and the C entry fa_bwd_bias_sm90.
+// bwd_bias_sm90_kernel<D, DBIAS, CAP> (D 64 and 128, with and without dbias
+// and the logit softcap: 8 instantiations; a head dim below D that is a
+// multiple of 8 runs in them, the TMA boxes reading zeros past it); and the C
+// entry fa_bwd_bias_sm90.
 //
 // Replaces the TPU kernels flashattn_tpu/ops/flash_bwd.py::_dkv_kernel (K5,
-// :139) and ::_dq_kernel (K6, :234) on the calls whose forward took K1's bias
-// route (ops/flash_bwd.py::bias_bwd_route: bf16, D 64 or 128, a bias, no
-// softcap, segment ids or window, not decode-shaped): the formulas, the
-// masks (the KV tail, the Q tail, the top-left causal diagonal, dead rows)
-// and the design are in bwd_sm90_tile.cuh. dK / dV come per KV head (summed
+// :139) and ::_dq_kernel (K6, :234) on every backward with a bias
+// (ops/flash_bwd.py::bias_bwd_route: bf16, D <= 128, no segment ids or
+// window -- with or without the softcap, decode-shaped or not, as the JAX
+// package pairs a bias with them): the formulas, the masks (the KV tail,
+// the Q tail, the top-left causal diagonal, dead rows) and the design are
+// in bwd_sm90_tile.cuh. With the softcap, dbias is the gradient of the
+// capped logit, dL, written before the cap's Jacobian multiplies it into dS
+// (flashattn_tpu/ops/flash_bwd.py:300-304). dK / dV come per KV head (summed
 // over its Hq / Hkv query heads inside the CTA); dQ is added into a zeroed
 // f32 dQ; dbias is written on every (Q tile, KV tile) pair the kernel visits
 // (the caller zero-fills it when causal or kv_valid_len < Nk leaves pairs
@@ -18,10 +24,10 @@
 // products are 344 GFLOP, 0.35 ms at 989 TFLOP/s: operations, with the mask
 // arm's [4, 1, N, N] bias (67 MB); the learned arm's [4, 16, N, N] bias and
 // its dbias are 1.07 GB each way, 0.64 ms at 3.35 TB/s: bytes. The mma.sync
-// pair this replaces (K5 in dkv_tile.cuh, 4 warps x 16 KV rows per CTA with
-// 32-row Q steps between block barriers and one dependent scalar __ldg of
-// the bias per score; K6 in dq_tile.cuh recomputing S and dP: 7 products
-// where a KV-major pass needs 5) ran it at 58 / 83 TFLOP/s. Grid (KV head,
+// pair this replaces (K5 and K6 on mma.sync, 4 warps x 16 KV rows per CTA
+// with 32-row Q steps between block barriers and one dependent scalar load
+// of the bias per score, K6 recomputing S and dP: 7 products where a
+// KV-major pass needs 5) ran it at 58 / 83 TFLOP/s. Grid (KV head,
 // KV tile, batch): the head varies fastest, so the CTAs that share a
 // [B, 1, N, N] bias tile stream it together and read it from HBM once. One
 // thread issues the copies, the bias's too, so the producer keeps 24
@@ -33,27 +39,44 @@
 
 namespace {
 
-template <int D, bool DBIAS>
+template <int D, bool DBIAS, bool CAP>
 __global__ void __launch_bounds__(BB_THREADS, 1)
     bwd_bias_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
                          const __grid_constant__ CUtensorMap tm_do,
                          const __grid_constant__ CUtensorMap tm_bias, const BwdBiasParams p) {
-  bwd_sm90_body<D, true, DBIAS>(tm_q, tm_k, tm_v, tm_do, &tm_bias, p);
+  bwd_sm90_body<D, true, DBIAS, false, CAP>(tm_q, tm_k, tm_v, tm_do, &tm_bias, p);
 }
 
-template <int D, bool DBIAS>
+template <int D, bool DBIAS, bool CAP>
 cudaError_t bwd_bias_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                             const CUtensorMap& tm_v, const CUtensorMap& tm_do,
                             const CUtensorMap& tm_bias, const BwdBiasParams& p, int hkv,
                             int batch, cudaStream_t stream) {
-  auto kernel = bwd_bias_sm90_kernel<D, DBIAS>;
+  auto kernel = bwd_bias_sm90_kernel<D, DBIAS, CAP>;
   const cudaError_t e = allow_smem(kernel, BbSmem<D>::BYTES);
   if (e != cudaSuccess) return e;
   const dim3 grid(hkv, (p.nk + BB_BLOCK_N - 1) / BB_BLOCK_N, batch);
   kernel<<<grid, BB_THREADS, BbSmem<D>::BYTES, stream>>>(tm_q, tm_k, tm_v, tm_do, tm_bias, p);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t bwd_bias_dispatch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                              const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+                              const CUtensorMap& tm_bias, const BwdBiasParams& p, bool dbias,
+                              bool cap, int hkv, int batch, cudaStream_t s) {
+  if (dbias && cap) {
+    return bwd_bias_launch<D, true, true>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
+  }
+  if (dbias) {
+    return bwd_bias_launch<D, true, false>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
+  }
+  if (cap) {
+    return bwd_bias_launch<D, false, true>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
+  }
+  return bwd_bias_launch<D, false, false>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
 }
 
 // The bias's TMA map: an f32 [B|1, H|1, Nq|1, Nk] tensor read through its
@@ -92,27 +115,30 @@ extern "C" {
 // to), 16-byte aligned; dk / dv [B, Hkv, Nk, D] f32 contiguous, written
 // (summed over each KV head's query heads), 8-byte aligned; dbias null, or
 // [B, Hq, Nq, Nk] f32 contiguous, written on every (64-row Q tile, 128-row KV
-// tile) pair that causal and kv_valid_len leave (zero it first otherwise).
-// Requires D 64 or 128, Hq % Hkv == 0, Nq, Nk >= 1, 0 <= kv_valid_len <= Nk,
-// B <= 65535. causal != 0 masks kv_pos > q_pos (top-left, zero offsets).
+// tile) pair that causal and kv_valid_len leave (zero it first otherwise);
+// softcap > 0 the forward's logit cap (dbias then the gradient of the capped
+// logit), 0 none. Requires 8 <= D <= 128 with D % 8 == 0, Hq % Hkv == 0,
+// Nq, Nk >= 1, 0 <= kv_valid_len <= Nk, B <= 65535. causal != 0 masks
+// kv_pos > q_pos (top-left, zero offsets).
 // Returns a cudaError_t (0: success; cudaErrorInvalidValue for arguments it
 // does not take, cudaErrorNotSupported when cuTensorMapEncodeTiled is
 // missing or refuses a tensor map).
 int fa_bwd_bias_sm90(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, const void* bias, void* dq, void* dk,
                      void* dv, void* dbias, int batch, int hq, int hkv, int nq, int nk, int d,
-                     int kv_valid_len, int causal, int nq_pad, float scale, int64_t q_sb,
-                     int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn,
-                     int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t do_sb, int64_t do_sh,
-                     int64_t do_sn, int64_t bias_sb, int64_t bias_sh, int64_t bias_sn,
-                     void* stream) {
+                     int kv_valid_len, int causal, int nq_pad, float scale, float softcap,
+                     int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh,
+                     int64_t k_sn, int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t do_sb,
+                     int64_t do_sh, int64_t do_sn, int64_t bias_sb, int64_t bias_sh,
+                     int64_t bias_sn, void* stream) {
   // The K/V and bias maps' key extent (at least 1: a map has no empty dim;
   // with kv_valid_len 0 no tile is loaded).
   const int nkv = kv_valid_len > 0 ? kv_valid_len : 1;
-  if ((d != 64 && d != 128) || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
+  if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
       hq % hkv != 0 || nq < 1 || nk < 1 || (nk + BB_BLOCK_N - 1) / BB_BLOCK_N > 65535 ||
       kv_valid_len < 0 || kv_valid_len > nk || nq_pad < nq || nq_pad % BB_BLOCK_M ||
-      bias == nullptr || !aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16) ||
+      !(softcap >= 0.f) || bias == nullptr || !aligned(q, 16) || !aligned(k, 16) ||
+      !aligned(v, 16) ||
       !aligned(dout, 16) || !aligned(lse, 16) || !aligned(delta, 16) || !aligned(bias, 16) ||
       !aligned(dq, 16) || !aligned(dk, 8) || !aligned(dv, 8) || !aligned(dbias, 4) ||
       !tma_strides(q_sb, batch, q_sh, hq, q_sn, nq) ||
@@ -150,20 +176,21 @@ int fa_bwd_bias_sm90(const void* q, const void* k, const void* v, const void* do
   p.nk = nk;
   p.kv_valid_len = kv_valid_len;
   p.causal = causal != 0;
+  p.d = d;
   p.bias_rows = bias_rows;
   p.bias_b = bias_sb != 0;
   p.bias_h = bias_sh != 0;
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
+  const bool cap = softcap > 0.f;
+  p.cap_scale = cap ? scale / softcap : 0.f;
+  p.cap_log2 = softcap * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (d == 64) {
-    e = dbias ? bwd_bias_launch<64, true>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s)
-              : bwd_bias_launch<64, false>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
-  } else {
-    e = dbias ? bwd_bias_launch<128, true>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s)
-              : bwd_bias_launch<128, false>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
-  }
+  const bool db = dbias != nullptr;
+  const cudaError_t e =
+      d <= 64 ? bwd_bias_dispatch<64>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, db, cap, hkv, batch, s)
+              : bwd_bias_dispatch<128>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, db, cap, hkv, batch,
+                                       s);
   return static_cast<int>(e);
 }
 

@@ -15,8 +15,11 @@
 //       diagonal; else the band of K1's dense route, row i sees column j iff
 //       i - lo <= j <= i + hi) and on a dead row (LSE log2 e <= mask / 2);
 //   dL = P (dP - Delta), dP = dO V^T;  dS = dL scale;
-//   with the softcap (CAP): x = cap log2 e t, t = tanh(S scale / cap), and
-//       dS = dL (1 - t^2) scale (the JAX kernel's, flash_bwd.py:92-96, :220);
+//   with the softcap (CAP): x = cap log2 e t (+ bias log2 e, floored as
+//       above), t = tanh(S scale / cap), and dS = dL (1 - t^2) scale (the
+//       JAX kernel's, flash_bwd.py:92-98, :220); dbias is still dL, the
+//       gradient of the capped logit, taken before the Jacobian
+//       (flash_bwd.py:300-304);
 //   with segment ids (SEG): P exactly 0 on a pair whose ids differ;
 //   dV = P^T dO,  dK = dS^T Q,  dQ = dS K,  dbias = dL (f32, before scale:
 //       the JAX kernel's, flashattn_tpu/ops/flash_bwd.py:97-98, :135, :300-302).
@@ -36,19 +39,21 @@
 //     tiles of 64 query rows, with their LSE and Delta (bulk copies from rows
 //     the caller pads to a multiple of 64), stream through a 2-stage
 //     full / empty mbarrier ring. Maps past D read zeros (D 40 and 80 run
-//     as 64 and 128).
+//     as 64 and 128, every family).
 //   * Per consumer and Q tile, K8's order: S^T = K Q^T by wgmma from shared
 //     memory; P^T in registers, rounded at once to bf16 (dV's A) and fp16
 //     (for dS^T: bf16's 7 mantissa bits put dQ / dK 40% further off in K8;
 //     with CAP it holds P^T (1 - t^2), which is all dS^T needs, so the
-//     Jacobian takes no register beyond the pair in flight);
+//     Jacobian takes no register beyond the pair in flight; with CAP and
+//     DBIAS a second fp16 copy holds P^T itself, for dbias = dL^T before the
+//     Jacobian);
 //     then dP^T = V dO^T and dV += P^T dO (A from registers) together;
 //     dL^T = P^T (dP^T - Delta) (stored as dbias from the accumulator
 //     fragments with DBIAS), dS^T = dL^T scale; dK += dS^T Q.
 //   * dQ = dS K by wgmma from the double-buffered bf16 dS^T in shared memory
 //     (M-major A) against K (N-major B), each consumer for 64 of D's
-//     columns, staged as f32 [64][d] (the dense family: exactly d columns, so
-//     a padded column never reaches dQ) and added to dQ by ONE
+//     columns, staged as f32 [64][d] (exactly d columns, so a padded column
+//     never reaches dQ) and added to dQ by ONE
 //     cp.reduce.async.bulk per tile of the tile's q_rows * d * 4 bytes: dQ is
 //     [B, Hq, Nq, d] contiguous, so a full 64 rows on the last, partial Q
 //     tile, or a row of D > d columns, would add into the next rows.
@@ -102,10 +107,11 @@ struct BwdBiasParams {
   float* dk;           // [B, Hkv, Nk, D] f32 contiguous, written
   float* dv;
   float* dbias;        // [B, Hq, Nq, Nk] f32 contiguous (the DBIAS instantiations)
-  int hq, rep, nq, nq_pad, nk, kv_valid_len, causal;
+  int hq, rep, nq, nq_pad, nk, kv_valid_len, causal, d;
   int bias_rows;       // rows of a bias box: 64, or 1 for a row-broadcast bias
   int bias_b, bias_h;  // whether the bias has the batch / head dim (else: coordinate 0)
   float scale, scale_log2;
+  float cap_scale, cap_log2;  // CAP: scale / cap, cap * log2(e)
 };
 
 // K3's parameters (the family without a bias).
@@ -174,9 +180,10 @@ __device__ __forceinline__ float lds_f1(uint32_t addr) {
 }
 
 // The body of every family: BIAS, K5 + K6's bias route (Params
-// BwdBiasParams, dbias with DBIAS); else K3 (Params BwdDenseParams) or, with
-// SEG and / or CAP, K5 + K6 without a bias (Params BwdSplitParams). p comes
-// by value: bound by reference to the kernel's parameter, its fields were
+// BwdBiasParams, dbias with DBIAS, the softcap with CAP); else K3 (Params
+// BwdDenseParams) or, with SEG and / or CAP, K5 + K6 without a bias (Params
+// BwdSplitParams); each any head dim p.d up to D. p
+// comes by value: bound by reference to the kernel's parameter, its fields were
 // reloaded in the P^T loop and its masks became branches (+160 SASS
 // instructions in each bias-route instantiation, 4.7% slower on path A's
 // backward: chip_ab.py).
@@ -186,7 +193,7 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
                                               const CUtensorMap* tm_bias, const Params p) {
   static_assert(D == 64 || D == 128, "instantiated for D 64 and 128");
   static_assert(BIAS || !DBIAS, "dbias needs the bias");
-  static_assert(!(BIAS && (SEG || CAP)), "the bias route takes no segment ids or softcap");
+  static_assert(!(BIAS && SEG), "the bias route takes no segment ids");
   using S = BbSmem<D, BIAS, SEG>;
   constexpr int BOXES = D / 64;
   constexpr int BST = BIAS ? S::BSTAGES : 1;
@@ -357,10 +364,8 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
     const bool issuer_warp = half == 0 && warp == 0;
     const bool issuer = issuer_warp && lane == 0;
     const bool does_dq = half < BOXES;  // this warpgroup's 64 columns of dQ
-    // d: the columns of dQ / dK / dV (BIAS: D; else at most D, the boxes
-    // reading zeros past it).
-    int d = D;
-    if constexpr (!BIAS) d = p.d;
+    // d: the columns of dQ / dK / dV, p.d <= D (the boxes read zeros past it).
+    const int d = p.d;
 
     // The bias of S^T's element (KV row g + 8r, query column 8jj + 2t + e) in
     // the swizzled tile: box (its KV column) / 32, row 8jj + 2t + e (row 0
@@ -439,6 +444,8 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
       const int* q_ids = seg_q_s + s * BB_BLOCK_M + 2 * t;  // SEG: this thread's query ids
       // P^T in fp16 for dS^T; with CAP formed in the loop as P^T (1 - t^2).
       uint32_t ph[16];
+      // CAP with DBIAS: P^T in fp16 as well, for dbias = dL^T (before the Jacobian).
+      uint32_t pl[CAP && DBIAS ? 16 : 1];
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const float2 lv = lds_f2(lse_addr + 32 * jj);
@@ -454,16 +461,17 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * jj + 2 * r + e;
             float x;
-            if constexpr (BIAS) {
-              const float bv = lds_f1(bias_addr + b_off[r][e] + jj * jj_step);
-              x = fmaxf(sc[i] * p.scale_log2 + bv * LOG2E, MASK_VALUE);
-            } else if constexpr (CAP) {
-              // The forward's accurate tanhf (fwd_tile.cuh), not tanh.approx.
+            if constexpr (CAP) {
+              // The forward's accurate tanhf (fwd_sm90_tile.cuh), not tanh.approx.
               const float tc = tanhf(sc[i] * p.cap_scale);
               x = p.cap_log2 * tc;
               jac[e] = 1.f - tc * tc;  // bwd softcap jacobian
             } else {
               x = sc[i] * p.scale_log2;
+            }
+            if constexpr (BIAS) {
+              const float bv = lds_f1(bias_addr + b_off[r][e] + jj * jj_step);
+              x = fmaxf(x + bv * LOG2E, MASK_VALUE);
             }
             float pe = ex2(x - l2[e]);
             if (edge) {
@@ -516,16 +524,18 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
       // before dP^T = V dO^T is issued, as K8 orders them.
       uint32_t pa[4][4], da[4][4];
       pack_p(pa, sc);
-      if constexpr (!CAP) {
 #pragma unroll
-        for (int i = 0; i < 16; ++i) ph[i] = pack_half(sc[2 * i], sc[2 * i + 1]);
+      for (int i = 0; i < 16; ++i) {
+        if constexpr (!CAP) ph[i] = pack_half(sc[2 * i], sc[2 * i + 1]);
+        if constexpr (CAP && DBIAS) pl[i] = pack_half(sc[2 * i], sc[2 * i + 1]);
       }
       issue_qk<D, BB_BLOCK_N, BB_BLOCK_M>(dp, v_s, do_st);
       issue_pv<D, BB_BLOCK_M>(dv, pa, do_st);
       wgmma_wait<1>();  // dP^T has retired
       fence_regs(dp);
       // dL^T = P^T (dP^T - Delta) is dbias; dS^T = dL^T scale in place of
-      // dP^T (with CAP, ph's P^T (1 - t^2) makes it dL^T (1 - t^2) scale).
+      // dP^T (with CAP, ph's P^T (1 - t^2) makes it dL^T (1 - t^2) scale,
+      // and dbias comes from pl's P^T: the Jacobian is not dbias's).
       // ph[2jj + r] holds row g + 8r, columns 8jj + 2t and + 1.
       float* db_row = nullptr;
       if constexpr (DBIAS) {
@@ -540,11 +550,17 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
           const float d0 = pv.x * (dp[4 * jj + 2 * r] - dl.x);
           const float d1 = pv.y * (dp[4 * jj + 2 * r + 1] - dl.y);
           if constexpr (DBIAS) {
+            float b0 = d0, b1 = d1;
+            if constexpr (CAP) {
+              const float2 pd = unpack_half(pl[2 * jj + r]);  // bwd cap dbias
+              b0 = pd.x * (dp[4 * jj + 2 * r] - dl.x);
+              b1 = pd.y * (dp[4 * jj + 2 * r + 1] - dl.y);
+            }
             const int row = m0 + 8 * jj + 2 * t;
             if (kv0 + 8 * r < p.nk) {
               float* dst = db_row + (8 * jj + 2 * t) * p.nk + 8 * r;
-              if (row < p.nq) __stcs(dst, d0);
-              if (row + 1 < p.nq) __stcs(dst + p.nk, d1);
+              if (row < p.nq) __stcs(dst, b0);
+              if (row + 1 < p.nq) __stcs(dst + p.nk, b1);
             }
           }
           dp[4 * jj + 2 * r] = d0 * p.scale;
@@ -610,9 +626,7 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
           float* srow = dq_stage + (warp * 16 + g + 8 * r) * d + half * 64;
 #pragma unroll
           for (int jj = 0; jj < 8; ++jj) {
-            if constexpr (!BIAS) {
-              if (half * 64 + 8 * jj + 2 * t >= d) continue;  // K3 dQ stage columns
-            }
+            if (half * 64 + 8 * jj + 2 * t >= d) continue;  // K3 dQ stage columns
             *reinterpret_cast<float2*>(srow + 8 * jj + 2 * t) =
                 make_float2(dq[4 * jj + 2 * r], dq[4 * jj + 2 * r + 1]);
           }
@@ -650,9 +664,7 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
       float* dv_row = p.dv + (row0 + 8 * r) * d;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj) {
-        if constexpr (!BIAS) {
-          if (8 * jj + 2 * t >= d) continue;
-        }
+        if (8 * jj + 2 * t >= d) continue;
         *reinterpret_cast<float2*>(dk_row + 8 * jj + 2 * t) =
             make_float2(dk[4 * jj + 2 * r], dk[4 * jj + 2 * r + 1]);
         *reinterpret_cast<float2*>(dv_row + 8 * jj + 2 * t) =

@@ -41,7 +41,7 @@ constexpr float LN2 = 0.6931471805599453f;
 // ops/oracle.py DEFAULT_MASK_VALUE: -0.7 * float32 max, finite so that a
 // fully masked tile never computes -inf - (-inf).
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
-// An unbounded side of the causal / window band (FwdParams / BwdParams lo, hi).
+// An unbounded side of the causal / window band (the kernels' lo, hi).
 constexpr int NO_BOUND = 1 << 30;
 
 // The band of flashattn_tpu/ops/flash_fwd.py::_range_predicates as (lo, hi):

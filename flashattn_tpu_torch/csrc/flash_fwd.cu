@@ -1,7 +1,8 @@
 // K1, the FlashAttention-2 forward for Hopper (sm_90a): bf16 K/V without bias
 // or softcap, with or without segment ids, at head dims above 128 (below, K1's
 // dense route in flash_fwd_sm90.cu takes these calls), and the C entry of every
-// fwd_tile.cuh variant.
+// fwd_tile.cuh variant: every bf16 family at D above 128, int8 / fp8 K/V at
+// every D.
 //
 // The kernel body, what it replaces (flashattn_tpu/ops/flash_fwd.py::
 // _fwd_kernel, and by causal or a window _fwd_causal_resident_kernel and
@@ -16,8 +17,8 @@
 #include "fwd_tile.cuh"
 
 cudaError_t fa::fwd_bf16(const FwdParams& p, int batch, cudaStream_t stream) {
-  return p.seg_q != nullptr ? fwd_launch_wide<true, false>(p, batch, stream)
-                            : fwd_launch_wide<false, false>(p, batch, stream);
+  return p.seg_q != nullptr ? fwd_launch_wide<true, false, false, false>(p, batch, stream)
+                            : fwd_launch_wide<false, false, false, false>(p, batch, stream);
 }
 
 extern "C" {
@@ -31,8 +32,8 @@ extern "C" {
 //     (batch, head, row) strides, 0 on broadcast dims (null: no bias).
 //   k_scale / v_scale: f32 per-token scales [B, Hkv, Nk] with the given
 //     strides; required for int8 / fp8 K/V, null for bf16.
-// Requires 8 <= D <= 256 with D % 8 == 0 (above 128 for bf16 K/V without a
-// bias or softcap: fa_fwd_sm90 takes the others), Hq % Hkv == 0,
+// Requires 8 <= D <= 256 with D % 8 == 0 (above 128 for bf16 K/V:
+// fa_fwd_sm90 and fa_fwd_bias_sm90 take the others), Hq % Hkv == 0,
 // 0 <= kv_valid_len <= Nk, Nq >= 1; int8 / fp8 K/V rows 8-byte aligned.
 // causal != 0 masks kv_pos > q_pos (zero offsets); the window (wl, wr) masks
 // kv_pos < q_pos - wl (wl >= 0) and kv_pos > q_pos + wr (wr >= 0), a negative

@@ -1,28 +1,33 @@
 // K1's bias route for Hopper (sm_90a): the C entry fa_fwd_bias_sm90 and the
-// two instantiations (D 64 and 128) of fwd_sm90_tile.cuh's body with the bias
-// stream, as fwd_bias_sm90_kernel. What it replaces, what bounds it and its
-// design are in fwd_sm90_tile.cuh; the route (ops/flash_fwd.py::bias_route)
-// is decided in Python, and every other K1 call with a bias keeps
-// fwd_tile.cuh (fa_fwd, flash_fwd.cu).
+// four instantiations (D 64 and 128, without and with the logit softcap) of
+// fwd_sm90_tile.cuh's body with the bias stream, as fwd_bias_sm90_kernel<D,
+// CAP>; every D <= 128 that is a multiple of 8 runs in the D 64 or 128 one,
+// its TMA boxes reading zeros past D. What it replaces, what bounds it and
+// its design are in fwd_sm90_tile.cuh; the route (ops/flash_fwd.py::
+// bias_route) is decided in Python, and the other K1 calls with a bias keep
+// fwd_tile.cuh (fa_fwd, flash_fwd.cu): D above 128 and quantized K/V, or the
+// decode kernel (decode_tile.cuh).
 
 #include "fwd_sm90_tile.cuh"
 
 namespace {
 
-template <int D>
+template <int D, bool CAP>
 __global__ void __launch_bounds__(FB_THREADS, 1)
     fwd_bias_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v, const FwdBiasParams p) {
-  fwd_sm90_body<D, true, false>(tm_q, tm_k, tm_v, p);
+  fwd_sm90_body<D, true, false, CAP>(tm_q, tm_k, tm_v, p);
 }
 
 template <int D>
 cudaError_t fwd_bias_sm90_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
-                                 const CUtensorMap& tm_v, const FwdBiasParams& p, int batch,
-                                 cudaStream_t stream) {
-  return fwd_sm90_launch(fwd_bias_sm90_kernel<D>, FbSmem<D>::BYTES, tm_q, tm_k, tm_v, p, batch,
-                         stream);
+                                 const CUtensorMap& tm_v, const FwdBiasParams& p, bool cap,
+                                 int batch, cudaStream_t stream) {
+  return cap ? fwd_sm90_launch(fwd_bias_sm90_kernel<D, true>, FbSmem<D>::BYTES, tm_q, tm_k,
+                               tm_v, p, batch, stream)
+             : fwd_sm90_launch(fwd_bias_sm90_kernel<D, false>, FbSmem<D>::BYTES, tm_q, tm_k,
+                               tm_v, p, batch, stream);
 }
 
 }  // namespace
@@ -33,25 +38,28 @@ extern "C" {
 // D, other strides in elements) with an additive f32 bias [B|1, Hq|1, Nq|1,
 // Nk] (unit column stride, (batch, head, row) strides in elements, 0 on
 // broadcast dims); o has q's shape, lse is [B, Hq, Nq] f32 contiguous.
-// Requires D 64 or 128, Hq % Hkv == 0, 1 <= Nq, 0 <= kv_valid_len <= Nk,
-// B <= 65535; q, k, v and bias 16-byte aligned, q / k / v strides multiples
-// of 8 elements and the bias's of 4 (16-byte bias rows), o 4-byte aligned
-// with even strides. causal != 0 masks kv_pos > q_pos (zero offsets).
+// softcap > 0 caps the scaled scores at softcap * tanh(s / softcap) before
+// the bias is added, 0 none. Requires 8 <= D <= 128 with D % 8 == 0, Hq % Hkv
+// == 0, 1 <= Nq, 0 <= kv_valid_len <= Nk, B <= 65535; q, k, v and bias
+// 16-byte aligned, q / k / v strides multiples of 8 elements and the bias's
+// of 4 (16-byte bias rows), o 4-byte aligned with even strides. causal != 0 masks kv_pos > q_pos (zero offsets).
 // Returns a cudaError_t (0 on success; cudaErrorInvalidValue for arguments
 // it does not take, cudaErrorNotSupported when cuTensorMapEncodeTiled is
 // missing or refuses a tensor map).
 int fa_fwd_bias_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
                      const void* bias, int batch, int hq, int hkv, int nq, int d,
-                     int kv_valid_len, int causal, float scale, int64_t q_sb, int64_t q_sh,
-                     int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn, int64_t v_sb,
-                     int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh, int64_t o_sn,
-                     int64_t bias_sb, int64_t bias_sh, int64_t bias_sn, void* stream) {
+                     int kv_valid_len, int causal, float scale, float softcap, int64_t q_sb,
+                     int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn,
+                     int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh,
+                     int64_t o_sn, int64_t bias_sb, int64_t bias_sh, int64_t bias_sn,
+                     void* stream) {
   // The K/V maps' sequence extent (at least 1: a map has no empty dim; with
   // kv_valid_len 0 no KV tile is loaded).
   const int nkv = kv_valid_len > 0 ? kv_valid_len : 1;
-  if ((d != 64 && d != 128) || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
+  if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
       hq % hkv != 0 || nq < 1 || (nq + FB_BLOCK_M - 1) / FB_BLOCK_M > 65535 ||
-      kv_valid_len < 0 || bias == nullptr || !aligned(q, 16) || !aligned(k, 16) ||
+      kv_valid_len < 0 || !(softcap >= 0.f) || bias == nullptr || !aligned(q, 16) ||
+      !aligned(k, 16) ||
       !aligned(v, 16) || !aligned(bias, 16) || !aligned(o, 4) ||
       !tma_strides(q_sb, batch, q_sh, hq, q_sn, nq) ||
       !tma_strides(k_sb, batch, k_sh, hkv, k_sn, nkv) ||
@@ -77,12 +85,16 @@ int fa_fwd_bias_sm90(const void* q, const void* k, const void* v, void* o, void*
   p.hq = hq;
   p.rep = hq / hkv;
   p.nq = nq;
+  p.d = d;
   p.kv_valid_len = kv_valid_len;
   p.causal = causal != 0;
   p.scale_log2 = scale * fa::LOG2E;
+  const bool cap = softcap > 0.f;
+  p.cap_scale = cap ? scale / softcap : 0.f;
+  p.cap_log2 = softcap * fa::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = d == 64 ? fwd_bias_sm90_launch<64>(tm_q, tm_k, tm_v, p, batch, s)
-                                : fwd_bias_sm90_launch<128>(tm_q, tm_k, tm_v, p, batch, s);
+  const cudaError_t e = d <= 64 ? fwd_bias_sm90_launch<64>(tm_q, tm_k, tm_v, p, cap, batch, s)
+                                : fwd_bias_sm90_launch<128>(tm_q, tm_k, tm_v, p, cap, batch, s);
   return static_cast<int>(e);
 }
 

@@ -1,35 +1,44 @@
 // K1's dense route for Hopper (sm_90a): the C entry fa_fwd_sm90 and the
-// four instantiations (D 64 and 128, without and with segment ids) of
-// fwd_sm90_tile.cuh's body without the bias stream, as fwd_dense_sm90_kernel.
-// The causal / window band and the tails are runtime ints, as in K7
-// (ring_fwd.cu), and segment ids the one compile-time option: a runtime
-// segment flag cost fwd_tile's K1 without segments 50% (PERF.md §6). What
-// it replaces, what bounds it and its design are in fwd_sm90_tile.cuh; the
-// route (ops/flash_fwd.py::dense_route) is decided in Python, and the calls
-// it refuses keep fwd_tile.cuh (fa_fwd, flash_fwd.cu).
+// eight instantiations (D 64 and 128, without and with segment ids, without
+// and with the logit softcap) of fwd_sm90_tile.cuh's body without the bias
+// stream, as fwd_dense_sm90_kernel<D, SEG, CAP>. The causal / window band and
+// the tails are runtime ints, as in K7 (ring_fwd.cu), and segment ids and
+// the softcap the compile-time options: a runtime segment flag cost
+// fwd_tile's K1 without segments 50% (PERF.md §6), and the cap puts a tanhf
+// on every score. What it replaces, what bounds it and its design are in
+// fwd_sm90_tile.cuh; the route (ops/flash_fwd.py::dense_route) is decided in
+// Python, and the calls it refuses keep fwd_tile.cuh (fa_fwd, flash_fwd.cu).
 
 #include "fwd_sm90_tile.cuh"
 
 namespace {
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool CAP>
 __global__ void __launch_bounds__(FB_THREADS, 1)
     fwd_dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v, const FwdDenseParams p) {
-  fwd_sm90_body<D, false, SEG>(tm_q, tm_k, tm_v, p);
+  fwd_sm90_body<D, false, SEG, CAP>(tm_q, tm_k, tm_v, p);
 }
 
-template <int D>
+template <int D, bool CAP>
 cudaError_t fwd_dense_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                              const CUtensorMap& tm_v, const FwdDenseParams& p, int batch,
                              cudaStream_t stream) {
   constexpr int smem = FbSmem<D, false>::BYTES;
   return p.seg_q != nullptr
-             ? fwd_sm90_launch(fwd_dense_sm90_kernel<D, true>, smem, tm_q, tm_k, tm_v, p, batch,
-                               stream)
-             : fwd_sm90_launch(fwd_dense_sm90_kernel<D, false>, smem, tm_q, tm_k, tm_v, p, batch,
-                               stream);
+             ? fwd_sm90_launch(fwd_dense_sm90_kernel<D, true, CAP>, smem, tm_q, tm_k, tm_v, p,
+                               batch, stream)
+             : fwd_sm90_launch(fwd_dense_sm90_kernel<D, false, CAP>, smem, tm_q, tm_k, tm_v, p,
+                               batch, stream);
+}
+
+template <int D>
+cudaError_t fwd_dense_dispatch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                               const CUtensorMap& tm_v, const FwdDenseParams& p, bool cap,
+                               int batch, cudaStream_t stream) {
+  return cap ? fwd_dense_launch<D, true>(tm_q, tm_k, tm_v, p, batch, stream)
+             : fwd_dense_launch<D, false>(tm_q, tm_k, tm_v, p, batch, stream);
 }
 
 }  // namespace
@@ -50,6 +59,7 @@ extern "C" {
 //     contiguous: the id range of each 128-row Q tile's rows below Nq and of
 //     each 64-key tile's keys below kv_valid_len,
 // with q_tiles = ceil(Nq / 128) and kv_tiles = ceil(kv_valid_len / 64).
+// softcap > 0 caps the scaled scores at softcap * tanh(s / softcap), 0 none.
 // Requires 8 <= D <= 128 with D % 8 == 0, Hq % Hkv == 0, 1 <= Nq,
 // 0 <= kv_valid_len <= Nk, B <= 65535; q, k, v 16-byte aligned with strides
 // that are multiples of 8 elements and nonzero on dims of extent > 1 (TMA's);
@@ -60,16 +70,18 @@ extern "C" {
 int fa_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
                 const void* seg_q, const void* seg_kv, const void* q_range, const void* kv_range,
                 int batch, int hq, int hkv, int nq, int d, int kv_valid_len, int causal, int wl,
-                int wr, float scale, int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t k_sb,
-                int64_t k_sh, int64_t k_sn, int64_t v_sb, int64_t v_sh, int64_t v_sn,
-                int64_t o_sb, int64_t o_sh, int64_t o_sn, int64_t seg_q_sb, void* stream) {
+                int wr, float scale, float softcap, int64_t q_sb, int64_t q_sh, int64_t q_sn,
+                int64_t k_sb, int64_t k_sh, int64_t k_sn, int64_t v_sb, int64_t v_sh,
+                int64_t v_sn, int64_t o_sb, int64_t o_sh, int64_t o_sn, int64_t seg_q_sb,
+                void* stream) {
   // The K/V maps' sequence extent (at least 1: a map has no empty dim; with
   // kv_valid_len 0 no KV tile is loaded).
   const int nkv = kv_valid_len > 0 ? kv_valid_len : 1;
   const bool seg = seg_q != nullptr;
   if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
       hq % hkv != 0 || nq < 1 || (nq + FB_BLOCK_M - 1) / FB_BLOCK_M > 65535 ||
-      kv_valid_len < 0 || !aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16) ||
+      kv_valid_len < 0 || !(softcap >= 0.f) || !aligned(q, 16) || !aligned(k, 16) ||
+      !aligned(v, 16) ||
       !aligned(o, 4) || !tma_strides(q_sb, batch, q_sh, hq, q_sn, nq) ||
       !tma_strides(k_sb, batch, k_sh, hkv, k_sn, nkv) ||
       !tma_strides(v_sb, batch, v_sh, hkv, v_sn, nkv) || o_sb % 2 || o_sh % 2 || o_sn % 2 ||
@@ -104,9 +116,12 @@ int fa_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
   p.q_tiles = (nq + FB_BLOCK_M - 1) / FB_BLOCK_M;
   p.kv_tiles = (kv_valid_len + FB_BLOCK_N - 1) / FB_BLOCK_N;
   p.scale_log2 = scale * fa::LOG2E;
+  const bool cap = softcap > 0.f;
+  p.cap_scale = cap ? scale / softcap : 0.f;
+  p.cap_log2 = softcap * fa::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = d <= 64 ? fwd_dense_launch<64>(tm_q, tm_k, tm_v, p, batch, s)
-                                : fwd_dense_launch<128>(tm_q, tm_k, tm_v, p, batch, s);
+  const cudaError_t e = d <= 64 ? fwd_dense_dispatch<64>(tm_q, tm_k, tm_v, p, cap, batch, s)
+                                : fwd_dense_dispatch<128>(tm_q, tm_k, tm_v, p, cap, batch, s);
   return static_cast<int>(e);
 }
 

@@ -10,6 +10,6 @@
 #include "fwd_tile.cuh"
 
 cudaError_t fa::fwd_window_bf16(const FwdParams& p, int batch, cudaStream_t stream) {
-  return p.seg_q != nullptr ? fwd_launch_wide<true, true>(p, batch, stream)
-                            : fwd_launch_wide<false, true>(p, batch, stream);
+  return p.seg_q != nullptr ? fwd_launch_wide<true, false, false, true>(p, batch, stream)
+                            : fwd_launch_wide<false, false, false, true>(p, batch, stream);
 }

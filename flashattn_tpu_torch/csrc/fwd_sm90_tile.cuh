@@ -8,22 +8,28 @@
 // :115) and, with causal or a window, the whole-sequence banded
 // _fwd_causal_resident_kernel (K2, :516) and fwd_macro_padded (:957).
 // Both families compute what fwd_tile.cuh computes for their calls: scores
-// x = s * scale * log2 e (+ bias * log2 e, floored at the finite mask
-// value), the masks, the online softmax in the log2 domain with f32 (m, l,
+// x = s * scale * log2 e (with the logit softcap, CAP: x = cap * log2 e *
+// tanh(s * scale / cap), the scale inside the tanh), + bias * log2 e floored
+// at the finite mask value, then the masks (JAX's order,
+// flashattn_tpu/ops/flash_fwd.py:310-320), the online softmax in the log2 domain with f32 (m, l,
 // acc), O in bf16 and the LSE in natural log; a row whose largest score is
 // at or below half the mask value is dead (O = 0, LSE = ln2 * mask, bit for
 // bit the convention K3 / K5 / K6 read). GQA maps query head h to KV head
 // h / rep; Q, K, V and O are strided views.
 //
-//   * The bias route (ops/flash_fwd.py::bias_route): bf16 Q/K/V, D 64 or
-//     128, an additive f32 bias [B|1, H|1, Nq|1, Nk] read through (batch,
+//   * Both routes take any D that is a multiple of 8 up to 128,
+//     instantiated at 64 and 128: D 40, 80 or 96 read zeros past D from the
+//     TMA boxes, and O's columns >= D are never written. Both take the
+//     softcap (CAP, a template flag): the accurate tanhf, which the
+//     backward's recompute uses too -- a P that differs from the backward's
+//     breaks sum(P) = 1 behind Delta.
+//   * The bias route (ops/flash_fwd.py::bias_route): bf16 Q/K/V, an
+//     additive f32 bias [B|1, H|1, Nq|1, Nk] read through (batch,
 //     head, row) strides that are 0 on broadcast dims, columns only below
 //     kv_valid_len and rows only below Nq; the KV tail and the top-left
-//     causal mask; no softcap, segment ids or window.
+//     causal mask; no segment ids or window.
 //   * The dense route (ops/flash_fwd.py::dense_route): bf16 Q/K/V without a
-//     bias, a softcap or quantized K/V, any D that is a multiple of 8 up to
-//     128 (instantiated at 64 and 128: D 40 and 80 read zeros past D from
-//     the TMA boxes and O's columns >= D are never written); the KV tail
+//     bias or quantized K/V; the KV tail
 //     below kv_valid_len and a ragged Q tail; the band of flash_fwd.py::
 //     _range_predicates in absolute positions with zero offsets, also when
 //     Nq != Nk -- row i sees column j iff i - lo <= j <= i + hi, hi 0 with
@@ -40,7 +46,11 @@
 // of it: 0.32 ms at 3.35 TB/s, bytes. fwd_tile ran them at ~100 and 56
 // TFLOP/s: mma.sync at 16 rows per warp, synchronous K / V loads between two
 // block barriers, and (with a bias) one dependent scalar bias load per
-// score. This design:
+// score. With the softcap at the SWA shape (B1 Hq16 Hkv8 N8192 D128, window
+// 2047, cap 50) the products are 0.12 ms of operations, and each score's
+// tanhf puts two more MUFU operations (an exponential and a reciprocal) and
+// ~15 FMA-pipe instructions beside the softmax's one ex2: fwd_tile took 0.84
+// ms there. This design:
 //
 //   * One CTA owns 128 Q rows of one (batch, head): warpgroup 0 is the
 //     producer (setmaxnreg gives its registers away), warpgroups 1 and 2 the
@@ -86,7 +96,8 @@
 //     others are masked per pair from the rows' ids (read once) and the
 //     tile's 64 ids (padded by the wrapper to whole tiles), which come by a
 //     bulk copy on the stage's barrier.
-//   * The softmax spends one MUFU.EX2 per score. With a right bound
+//   * The softmax spends one MUFU.EX2 per score (with CAP, tanhf's
+//     exponential and reciprocal too). With a right bound
 //     (causal) the longest Q tiles go first, so the tail of the grid is
 //     short.
 // Tried on the card and left out (H100, path A's mask arm; PERF.md §6):
@@ -106,8 +117,9 @@ struct FwdBiasParams {
   const float* bias;   // f32, unit column stride, 16-byte-aligned rows
   int64_t o_sb, o_sh, o_sn;
   int64_t bias_sb, bias_sh, bias_sn;  // 0 on broadcast dims
-  int hq, rep, nq, kv_valid_len, causal;
-  float scale_log2;  // softmax scale * log2(e)
+  int hq, rep, nq, d, kv_valid_len, causal;
+  float scale_log2;           // softmax scale * log2(e)
+  float cap_scale, cap_log2;  // CAP: scale / cap, cap * log2(e)
 };
 
 // The dense route's parameters (SEG: the segment ids and their tile ranges).
@@ -124,6 +136,7 @@ struct FwdDenseParams {
   int lo, hi;              // band: row - lo <= col <= row + hi (NO_BOUND: none)
   int q_tiles, kv_tiles;   // ceil(Nq / 128), ceil(kv_valid_len / 64)
   float scale_log2;        // softmax scale * log2(e)
+  float cap_scale, cap_log2;  // CAP: scale / cap, cap * log2(e)
 };
 
 }  // namespace fa
@@ -156,6 +169,16 @@ struct FbSmem {
   static_assert(BYTES <= 232448, "a block's shared memory on sm_90");
 };
 
+// The log2-domain score of raw score s: s * scale * log2 e, or with CAP
+// cap * log2 e * tanh(s * scale / cap) -- the accurate tanhf, the one the
+// backward recomputes (bwd_sm90_tile.cuh), not tanh.approx.
+template <bool CAP>
+__device__ __forceinline__ float log2_score(float s, float scale_log2, float cap_scale,
+                                            float cap_log2) {
+  if constexpr (CAP) return cap_log2 * tanhf(s * cap_scale);  // K1 sm90 tanh
+  return s * scale_log2;
+}
+
 // Where column chunk c (4 floats) of row r of the bias tile is stored, in
 // floats from the tile's start (the permutation of the header's notes).
 __device__ __forceinline__ int bias_slot(int r, int c) {
@@ -163,7 +186,8 @@ __device__ __forceinline__ int bias_slot(int r, int c) {
 }
 
 // One tile's scores to probabilities, sc[4jj + 2r + e] being row g + 8r,
-// column 8jj + 2t + e: scale into the log2 domain in f32, add the bias, floor
+// column 8jj + 2t + e: scale (with CAP, cap) into the log2 domain in f32
+// (log2_score), add the bias, floor
 // at the mask value (a bias at the mask value times log2 e would overflow to
 // -inf, and a tile of -inf only would make the rescale NaN), and with MASKED
 // (a tile over the KV tail or causal's diagonal) set the tail and causal's
@@ -172,11 +196,12 @@ __device__ __forceinline__ int bias_slot(int r, int c) {
 // permutation: b_addr has bits 5-6 = row % 4 and bits 3-4 = t), row g + 8's
 // b_step bytes on (0 for a row-broadcast bias). Returns the rescale factor of
 // the earlier tiles' O in alpha.
-template <bool MASKED>
+template <bool MASKED, bool CAP>
 __device__ __forceinline__ void softmax_tile(float (&sc)[32], uint32_t b_addr, uint32_t b_step,
                                              int n0, int t, int row0, int nkv, bool causal,
-                                             float scale_log2, float (&m_i)[2],
-                                             float (&l_i)[2], float (&alpha)[2]) {
+                                             float scale_log2, float cap_scale, float cap_log2,
+                                             float (&m_i)[2], float (&l_i)[2],
+                                             float (&alpha)[2]) {
   float mx[2] = {m_i[0], m_i[1]};
 #pragma unroll
   for (int jj = 0; jj < FB_BLOCK_N / 8; ++jj) {
@@ -187,7 +212,13 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], uint32_t b_addr, u
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = 4 * jj + 2 * r + e;
-        float x = fmaxf(sc[i] * scale_log2 + bias2[e] * LOG2E, MASK_VALUE);
+        float x;
+        if constexpr (CAP) {
+          x = log2_score<CAP>(sc[i], scale_log2, cap_scale, cap_log2);  // K1 bias sm90 cap
+          x = fmaxf(x + bias2[e] * LOG2E, MASK_VALUE);
+        } else {
+          x = fmaxf(sc[i] * scale_log2 + bias2[e] * LOG2E, MASK_VALUE);
+        }
         if (MASKED) {
           const int col = n0 + 8 * jj + 2 * t + e;
           if (col >= nkv || (causal && col > row0 + 8 * r)) x = MASK_VALUE;
@@ -214,17 +245,18 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], uint32_t b_addr, u
 }
 
 // The dense route's softmax of one tile, sc[4jj + 2r + e] being row row0 +
-// 8r, column col0 + 8jj + 2t + e (absolute positions): scale into the log2
-// domain in f32 and, with MASKED (a tile that the band, the KV tail or, with
+// 8r, column col0 + 8jj + 2t + e (absolute positions): scale (with CAP, cap)
+// into the log2 domain in f32 (log2_score) and, with MASKED (a tile that the band, the KV tail or, with
 // SEG, a document edge cuts), set to the mask value the pairs outside the
 // band, the columns at or past nkv and, with SEG, the pairs whose ids differ
 // (ids: the tile's 64 key ids in shared memory, q_seg the rows'); then the
 // online max and sum. Returns the rescale factor of the earlier tiles' O in
 // alpha.
-template <bool MASKED, bool SEG>
+template <bool MASKED, bool SEG, bool CAP>
 __device__ __forceinline__ void dense_softmax_tile(float (&sc)[32], int col0, int row0, int t,
                                                    int lo, int hi, int nkv, const int* ids,
                                                    const int (&q_seg)[2], float scale_log2,
+                                                   float cap_scale, float cap_log2,
                                                    float (&m_i)[2], float (&l_i)[2],
                                                    float (&alpha)[2]) {
   float mx[2] = {m_i[0], m_i[1]};
@@ -237,7 +269,7 @@ __device__ __forceinline__ void dense_softmax_tile(float (&sc)[32], int col0, in
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = 4 * jj + 2 * r + e;
-        float x = sc[i] * scale_log2;
+        float x = log2_score<CAP>(sc[i], scale_log2, cap_scale, cap_log2);
         if (MASKED) {
           const int col = col0 + 8 * jj + 2 * t + e;
           const int row = row0 + 8 * r;
@@ -272,8 +304,8 @@ __device__ __forceinline__ int2 kv_tile_range(const FwdDenseParams& p, int b, in
 
 // The body of both families: BIAS, the bias route (Params FwdBiasParams,
 // SEG false); else the dense route (Params FwdDenseParams), SEG with
-// segment ids.
-template <int D, bool BIAS, bool SEG, typename Params>
+// segment ids; CAP, in both, the logit softcap.
+template <int D, bool BIAS, bool SEG, bool CAP, typename Params>
 __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                               const CUtensorMap& tm_v, const Params& p) {
   static_assert(D == 64 || D == 128, "instantiated for D 64 and 128");
@@ -463,11 +495,13 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
         wgmma_wait<0>();
         fence_regs(sc);
         if (masked(j)) {
-          softmax_tile<true>(sc, bias_of(j), b_step, j * FB_BLOCK_N, t, row0, nkv, p.causal,
-                             p.scale_log2, m_i, l_i, alpha);
+          softmax_tile<true, CAP>(sc, bias_of(j), b_step, j * FB_BLOCK_N, t, row0, nkv,
+                                  p.causal, p.scale_log2, p.cap_scale, p.cap_log2, m_i, l_i,
+                                  alpha);
         } else {
-          softmax_tile<false>(sc, bias_of(j), b_step, j * FB_BLOCK_N, t, row0, nkv, p.causal,
-                              p.scale_log2, m_i, l_i, alpha);
+          softmax_tile<false, CAP>(sc, bias_of(j), b_step, j * FB_BLOCK_N, t, row0, nkv,
+                                   p.causal, p.scale_log2, p.cap_scale, p.cap_log2, m_i, l_i,
+                                   alpha);
         }
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
@@ -514,11 +548,13 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
                             (SEG && !(q_one_doc && k_rng.x == k_rng.y && k_rng.x == q_rng.x));
           const int* ids = reinterpret_cast<const int*>(smem + S::SEG + s * FB_BLOCK_N * 4);
           if (edge) {
-            dense_softmax_tile<true, SEG>(sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg,
-                                          p.scale_log2, m_i, l_i, alpha);
+            dense_softmax_tile<true, SEG, CAP>(sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg,
+                                               p.scale_log2, p.cap_scale, p.cap_log2, m_i, l_i,
+                                               alpha);
           } else {
-            dense_softmax_tile<false, SEG>(sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg,
-                                           p.scale_log2, m_i, l_i, alpha);
+            dense_softmax_tile<false, SEG, CAP>(sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg,
+                                                p.scale_log2, p.cap_scale, p.cap_log2, m_i, l_i,
+                                                alpha);
           }
 #pragma unroll
           for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
@@ -534,8 +570,8 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
       }
     }
 
-    // Epilogue: O = acc / l, LSE = m ln2 + log l; ragged rows masked on store
-    // (the dense route: and O's columns >= D, zeros the boxes read).
+    // Epilogue: O = acc / l, LSE = m ln2 + log l; ragged rows and O's
+    // columns >= D (zeros the boxes read) masked on store.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float l = l_i[r];
@@ -549,9 +585,7 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
         __nv_bfloat16* o_row = p.o + b * p.o_sb + h * p.o_sh + static_cast<int64_t>(row) * p.o_sn;
 #pragma unroll
         for (int jj = 0; jj < D / 8; ++jj) {
-          if constexpr (!BIAS) {
-            if (8 * jj + 2 * t >= p.d) continue;
-          }
+          if (8 * jj + 2 * t >= p.d) continue;
           *reinterpret_cast<uint32_t*>(o_row + 8 * jj + 2 * t) =
               pack_bf16(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
         }

@@ -93,19 +93,17 @@
 // FMA / shuffle work on the 64x64 score tile competes with the thin matrix
 // products, and synchronous global->shared loads stall the warps between
 // tiles. So ops/flash_fwd.py sends most calls elsewhere, and this body keeps
-// those that no Hopper route takes: D 129-256; the softcap; int8 / fp8 K/V
-// that are not decode-shaped; a bias that the bias route refuses (with a
-// softcap, with int8 / fp8 K/V, or at a head dim other than 64 and 128).
-// Decode-shaped calls (at most 32 query rows per KV head after the GQA fold,
-// not causal, no window or segment ids, D 64 or 128) take the split-KV decode
-// kernel of decode_tile.cuh (ops/flash_fwd.py::decode_route); the dense calls
-// with a bias on bf16 K/V at D 64 or 128 without a softcap the bias route of
-// fwd_sm90_tile.cuh (bias_route); and every other call on bf16 K/V without a
-// bias or softcap at D <= 128, with or without causal, a window or segment
-// ids, the dense route of fwd_sm90_tile.cuh (dense_route). So the families of
-// those calls here, fwd_kernel<DP, SEG, false, KV_BF16> and
-// fwd_window_kernel<DP, SEG, false>, are instantiated above D 128 only
-// (fwd_launch_wide).
+// those that no Hopper route takes: D 129-256, and int8 / fp8 K/V that are
+// not decode-shaped. Decode-shaped calls (at most 32 query rows per KV head
+// after the GQA fold, not causal, no window or segment ids, D 64 or 128)
+// take the split-KV decode kernel of decode_tile.cuh
+// (ops/flash_fwd.py::decode_route); the other calls with a bias on bf16 K/V
+// at D <= 128, with or without the softcap, the bias route of
+// fwd_sm90_tile.cuh (bias_route); and every other call on bf16 K/V at D <=
+// 128, with or without causal, a window, segment ids or the softcap, the
+// dense route of fwd_sm90_tile.cuh (dense_route). So every bf16 family here
+// -- fwd_kernel<DP, SEG, BIAS, KV_BF16>, fwd_softcap_kernel and
+// fwd_window_kernel -- is instantiated above D 128 only (fwd_launch_wide).
 
 #pragma once
 
@@ -475,20 +473,21 @@ cudaError_t fwd_launch_dp(const FwdParams& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 K/V without a bias or softcap, with or without segment ids or the
-// window (WIN): one instantiation per padded head dim above 128, the calls
-// that K1's dense route (fa_fwd_sm90) does not take; a smaller D is refused.
-template <bool SEG, bool WIN>
+// bf16 K/V, with or without segment ids, a bias, the softcap or the window
+// (WIN): one instantiation per padded head dim above 128, the calls that
+// K1's Hopper routes (fa_fwd_sm90, fa_fwd_bias_sm90) do not take; a smaller
+// D is refused.
+template <bool SEG, bool BIAS, bool CAP, bool WIN>
 cudaError_t fwd_launch_wide(const FwdParams& p, int batch, cudaStream_t s) {
   switch ((p.d + 15) / 16 * 16) {
-    case 144: return fwd_launch_dp<144, SEG, false, KV_BF16, false, WIN>(p, batch, s);
-    case 160: return fwd_launch_dp<160, SEG, false, KV_BF16, false, WIN>(p, batch, s);
-    case 176: return fwd_launch_dp<176, SEG, false, KV_BF16, false, WIN>(p, batch, s);
-    case 192: return fwd_launch_dp<192, SEG, false, KV_BF16, false, WIN>(p, batch, s);
-    case 208: return fwd_launch_dp<208, SEG, false, KV_BF16, false, WIN>(p, batch, s);
-    case 224: return fwd_launch_dp<224, SEG, false, KV_BF16, false, WIN>(p, batch, s);
-    case 240: return fwd_launch_dp<240, SEG, false, KV_BF16, false, WIN>(p, batch, s);
-    case 256: return fwd_launch_dp<256, SEG, false, KV_BF16, false, WIN>(p, batch, s);
+    case 144: return fwd_launch_dp<144, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
+    case 160: return fwd_launch_dp<160, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
+    case 176: return fwd_launch_dp<176, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
+    case 192: return fwd_launch_dp<192, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
+    case 208: return fwd_launch_dp<208, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
+    case 224: return fwd_launch_dp<224, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
+    case 240: return fwd_launch_dp<240, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
+    case 256: return fwd_launch_dp<256, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
     default: return cudaErrorInvalidValue;
   }
 }

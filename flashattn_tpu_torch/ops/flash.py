@@ -128,11 +128,11 @@ class _FlashCore(torch.autograd.Function):
     window and the softcap; the backward routes as the JAX
     ``_flash_core_bwd``: K3 when there are no segment ids, no softcap and no
     bias (its fused branch, with the window), else its two-kernel branch,
-    K5 + K6: where the forward took K1's bias route
-    (``flash_bwd.bias_bwd_route``) one kernel that computes both with the
-    bias; without a bias (``flash_bwd.split_sm90_route``) one kernel that
-    computes both with the segment ids and / or the softcap; else (a bias
-    that route refuses) K5 then K6. dbias is written only when the bias
+    K5 + K6: with a bias (``flash_bwd.bias_bwd_route``) one kernel that
+    computes both with the bias and, if any, the softcap; without a bias
+    (``flash_bwd.split_sm90_route``) one kernel that computes both with the
+    segment ids and / or the softcap; else (what neither route takes: f32, D
+    above 128) K5 then K6, which raise on a CUDA tensor. dbias is written only when the bias
     needs a gradient; it comes back reduced over the bias's broadcast dims,
     in the bias's dtype."""
 
@@ -164,13 +164,13 @@ class _FlashCore(torch.autograd.Function):
         want_dbias = bias is not None and ctx.needs_input_grad[3]
         if seg_q is None and ctx.softcap is None and bias is None:
             dq, dk, dv = flash_bwd_fused.bwd(q, k, v, do, lse, delta, **kw)
-        elif flash_bwd.bias_bwd_route(rows=Hq // Hkv * q.shape[2], causal=ctx.causal,
-                                      segment_ids=segment_ids, window=ctx.window, head_dim=D,
-                                      bias=bias, dtype=q.dtype, softcap=ctx.softcap):
-            # K1's bias route's backward: K5 + K6 in one launch, dK/dV per KV head.
+        elif flash_bwd.bias_bwd_route(head_dim=D, bias=bias, dtype=q.dtype,
+                                      segment_ids=segment_ids, window=ctx.window):
+            # A bias, with or without the softcap: K5 + K6 in one launch, dK/dV per KV head.
             dq, dk, dv, dbias = flash_bwd.bias_bwd(
                 q, k, v, do, lse, delta, scale=ctx.scale, causal=ctx.causal,
-                kv_valid_len=ctx.kv_valid_len, bias=bias, want_dbias=want_dbias)
+                kv_valid_len=ctx.kv_valid_len, bias=bias, softcap=ctx.softcap,
+                want_dbias=want_dbias)
         elif flash_bwd.split_sm90_route(head_dim=D, bias=bias, dtype=q.dtype,
                                         segment_ids=segment_ids, softcap=ctx.softcap):
             # Segment ids and / or the softcap without a bias: K5 + K6 in one launch.

@@ -13,17 +13,15 @@ never reaches a plain version:
   (:func:`split_sm90_route`): :func:`split_bwd`, the TMA + wgmma body of K3
   with both options (``csrc/flash_bwd_split_sm90.cu``), returns dQ and dK /
   dV per *query* head; :func:`split_bwd_reference` is its plain version;
-* where the forward took K1's bias route (:func:`bias_bwd_route`):
-  :func:`bias_bwd` (``csrc/bwd_bias_sm90.cu``) returns dQ, dK / dV per *KV*
-  head and, on request, dbias; :func:`bias_bwd_reference` is its plain
-  version;
-* a bias that route refuses (with a softcap, the GQA decode fold, D 96):
-  :func:`dkv` and :func:`dq`, the ``mma.sync`` kernels of
-  ``csrc/flash_bwd_split.cu`` (bodies ``dkv_tile.cuh`` / ``dq_tile.cuh``),
-  with their plain :func:`dkv_reference` / :func:`dq_reference`; dK / dV
-  per query head, dQ written once, and on request the full f32 dbias
-  ``[B, Hq, Nq, Nk]``.
+* with a bias (:func:`bias_bwd_route`, with or without the softcap, at every
+  head dim up to 128, the GQA decode fold's calls too): :func:`bias_bwd`
+  (``csrc/bwd_bias_sm90.cu``) returns dQ, dK / dV per *KV* head and, on
+  request, dbias; :func:`bias_bwd_reference` is its plain version.
 
+:func:`dkv` and :func:`dq` keep K5's and K6's plain versions
+(:func:`dkv_reference` / :func:`dq_reference`: dK / dV per query head, and
+on request the full f32 dbias ``[B, Hq, Nq, Nk]``) for CPU tensors; on a
+CUDA tensor they raise, naming the route that takes the call.
 ``ops/flash.py`` reduces per-query-head dK / dV over each KV head's query
 heads, dbias over the bias's broadcast dims, and casts.
 """
@@ -33,14 +31,11 @@ from __future__ import annotations
 import torch
 
 from flashattn_tpu_torch.ops.flash_fwd import (
-    BIAS_HEAD_DIMS,
     _kernel_ready,
-    bias_route,
     check_bias,
     check_segment_ids,
     check_softcap,
     check_window,
-    kernel_bias,
     kernel_window,
     pair_mask,
     sm90_bias,
@@ -170,38 +165,15 @@ def _split_kwargs(q, k, v, do, lse, delta, *, scale, causal, kv_valid_len, segme
                 window=check_window(window), softcap=check_softcap(softcap), bias=bias)
 
 
-def _check_split_kernel_args(q, name: str, *, bias, segment_ids, window) -> None:
+def _no_split_kernel(q, name: str, *, bias) -> None:
+    """Raise for a CUDA call of :func:`dkv` / :func:`dq`: one Hopper launch
+    computes K5 and K6 together, :func:`bias_bwd` with a bias and
+    :func:`split_bwd` (or K3) without."""
     check_kernel_args(q, name)
-    if bias is None:
-        raise NotImplementedError(
-            f"the CUDA {name} takes a bias; without one K5 + K6 run as one Hopper launch, "
-            "flash_bwd.split_bwd (split_sm90_route: segment ids or a softcap; K3 otherwise)")
-    if segment_ids is not None or kernel_window(window) != (-1, -1):
-        raise NotImplementedError(
-            f"the CUDA {name} takes a bias without segment ids or a window, as K1 does "
-            "(ROADMAP queue 2, K1 options)")
-
-
-def _launch(entry: str, q, k, v, do, lse, delta, outs, *, scale, causal, kv_valid_len,
-            segment_ids, window, softcap, bias) -> None:
-    """Launch K5 or K6 (``entry``) with a bias writing ``outs`` (None: a null
-    pointer), on q's current stream; ``segment_ids`` and ``window`` are None
-    (``_check_split_kernel_args`` refuses them with a bias)."""
-    B, Hq, Nq, D = q.shape
-    q, k, v, do = (_kernel_ready(x) for x in (q, k, v, do))
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
-    bias, bias_strides = kernel_bias(bias)
-    with torch.cuda.device(q.device):
-        rc = getattr(native.kernels(), entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), bias.data_ptr(),
-            *(None if o is None else o.data_ptr() for o in outs),
-            B, Hq, k.shape[1], Nq, k.shape[2], D, kv_valid_len, int(bool(causal)),
-            float(scale), softcap or 0.0,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            *bias_strides, torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    native.check(rc, f"{entry} kernel launch")
+    route = ("flash_bwd.bias_bwd (bias_bwd_route)" if bias is not None else
+             "flash_bwd.split_bwd (split_sm90_route: segment ids or a softcap; K3 otherwise)")
+    raise NotImplementedError(
+        f"the CUDA {name} runs with K5 and K6 as one Hopper launch: {route}")
 
 
 def dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -213,44 +185,26 @@ def dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     ``lse`` (natural log, from the forward) and ``delta`` = rowsum(dO·O),
     ``[B,Hq,Nq]`` f32; ``segment_ids``, ``window``, ``softcap`` and ``bias``
     (``[B|1, Hq|1, Nq|1, Nk]``) as in ``flash_fwd.fwd``. CPU tensors take
-    :func:`dkv_reference`. CUDA tensors launch the kernel, which takes bf16
-    with ``D % 8 == 0`` and ``D <= 128``, and a bias without segment ids or a
-    window (without a bias: :func:`split_bwd`); anything else raises.
-    ``dkv.launches`` counts kernel launches, ``dkv.launches_bias`` those with
-    a bias.
+    :func:`dkv_reference`. CUDA tensors raise: K5 runs with K6 in one launch,
+    :func:`bias_bwd` with a bias, :func:`split_bwd` (or K3) without.
     """
     kw = _split_kwargs(q, k, v, do, lse, delta, scale=scale, causal=causal,
                        kv_valid_len=kv_valid_len, segment_ids=segment_ids, window=window,
                        softcap=softcap, bias=bias)
     if q.device.type == "cpu":
         return dkv_reference(q, k, v, do, lse, delta, **kw)
-    _check_split_kernel_args(q, "K5", bias=bias, segment_ids=segment_ids, window=window)
-    B, Hq, Nq, D = q.shape
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dk = torch.empty((B, Hq, k.shape[2], D), **f32)
-    dv = torch.empty((B, Hq, k.shape[2], D), **f32)
-    if Nq == 0 or k.shape[2] == 0 or B == 0 or Hq == 0:  # an empty grid is not a valid launch
-        return dk.zero_(), dv.zero_()
-    _launch("fa_bwd_dkv_bf16", q, k, v, do, lse, delta, (dk, dv), **kw)
-    dkv.launches += 1
-    if bias is not None:
-        dkv.launches_bias += 1
-    return dk, dv
+    _no_split_kernel(q, "K5", bias=bias)
 
 
 def dq(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
        kv_valid_len: int | None = None, segment_ids=None, window=None, softcap=None,
        bias=None, want_dbias: bool = False):
-    """K6: dQ ``[B, Hq, Nq, D]`` in f32, written once (deterministic); with
-    ``want_dbias`` (which needs ``bias``), ``(dQ, dbias)``, dbias the full
-    f32 ``[B, Hq, Nq, Nk]`` gradient of the bias, P (dP − Δ).
+    """K6: dQ ``[B, Hq, Nq, D]`` in f32; with ``want_dbias`` (which needs
+    ``bias``), ``(dQ, dbias)``, dbias the full f32 ``[B, Hq, Nq, Nk]``
+    gradient of the bias, P (dP − Δ).
 
     Arguments as :func:`dkv`. CPU tensors take :func:`dq_reference`; CUDA
-    tensors launch the kernel (with a bias, as :func:`dkv`) or raise.
-    Without ``want_dbias`` the kernel gets a null dbias pointer and writes
-    none. ``dq.launches`` counts kernel launches, ``dq.launches_bias`` those
-    with a bias (with or without dbias), ``dq.launches_dbias`` those that
-    wrote dbias.
+    tensors raise, as :func:`dkv`.
     """
     if want_dbias and bias is None:
         raise ValueError("want_dbias needs a bias")
@@ -259,57 +213,34 @@ def dq(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
                        softcap=softcap, bias=bias)
     if q.device.type == "cpu":
         return dq_reference(q, k, v, do, lse, delta, want_dbias=want_dbias, **kw)
-    _check_split_kernel_args(q, "K6", bias=bias, segment_ids=segment_ids, window=window)
-    B, Hq, Nq, D = q.shape
-    Nk = k.shape[2]
-    out = torch.empty((B, Hq, Nq, D), dtype=torch.float32, device=q.device)
-    dbias = None
-    if want_dbias:
-        # K6 writes the tiles it visits; causal and the KV tail leave others.
-        skipped = causal or kw["kv_valid_len"] < Nk
-        dbias = (torch.zeros if skipped else torch.empty)(
-            (B, Hq, Nq, Nk), dtype=torch.float32, device=q.device)
-    if Nq == 0 or Nk == 0 or B == 0 or Hq == 0:  # an empty grid is not a valid launch
-        out.zero_()
-        return (out, dbias.zero_()) if want_dbias else out
-    _launch("fa_bwd_dq_bf16", q, k, v, do, lse, delta, (out, dbias), **kw)
-    dq.launches += 1
-    if bias is not None:
-        dq.launches_bias += 1
-    if want_dbias:
-        dq.launches_dbias += 1
-    return (out, dbias) if want_dbias else out
+    _no_split_kernel(q, "K6", bias=bias)
 
 
-dkv.launches = 0
-dkv.launches_bias = 0
-dq.launches = 0
-dq.launches_bias = 0
-dq.launches_dbias = 0
-
-
-def bias_bwd_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int, bias,
-                   dtype, softcap) -> bool:
+def bias_bwd_route(*, head_dim: int, bias, dtype, segment_ids, window) -> bool:
     """Whether a backward goes to the Hopper bias kernel
-    (``csrc/bwd_bias_sm90.cu``) in place of K5 then K6: exactly where the
-    forward took K1's bias route (``flash_fwd.bias_route``: a bias, bf16, D 64
-    or 128, no softcap, segment ids or window, not decode-shaped), ``rows``
-    being the forward's ``Hq / Hkv · Nq``. Every other call with a bias keeps
-    K5 and K6. :func:`bias_bwd` decides the device: a CPU tensor takes the
-    plain version."""
-    return bias_route(rows=rows, causal=causal, segment_ids=segment_ids, window=window,
-                      head_dim=head_dim, bias=bias, kv_dtype=dtype, softcap=softcap)
+    (``csrc/bwd_bias_sm90.cu``), K5 and K6 in one launch: every call with a
+    bias in bf16 at a head dim up to ``MAX_HEAD_DIM`` (a multiple of 8, as
+    every CUDA backward's) without segment ids or a window (K1 takes a bias
+    with neither) -- causal or not, with or without the softcap, the GQA
+    decode fold's calls too, whichever K1 route the forward took.
+    :func:`bias_bwd` decides the device: a CPU tensor takes the plain
+    version."""
+    return (bias is not None and dtype == torch.bfloat16 and head_dim <= MAX_HEAD_DIM
+            and segment_ids is None and kernel_window(check_window(window)) == (-1, -1))
 
 
 def bias_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
-                       kv_valid_len: int | None = None, bias, want_dbias: bool = False):
+                       kv_valid_len: int | None = None, bias, softcap=None,
+                       want_dbias: bool = False):
     """Plain PyTorch K5 + K6 over one :func:`recompute_p_ds`: ``(dQ, dK, dV,
     dbias)``, f32, dQ ``[B, Hq, Nq, D]``, dK / dV ``[B, Hkv, Nk, D]`` summed
     over each KV head's query heads (as the kernel writes them), dbias the
-    full ``[B, Hq, Nq, Nk]`` P (dP − Δ) with ``want_dbias``, else None."""
+    full ``[B, Hq, Nq, Nk]`` P (dP − Δ) with ``want_dbias``, else None. With
+    ``softcap`` dS carries the cap's Jacobian and dbias does not (the
+    gradient of the capped logit)."""
     p, ds, qf, kf, _, dof, dl = recompute_p_ds(
         q, k, v, do, lse, delta, scale=scale, causal=causal, kv_valid_len=kv_valid_len,
-        bias=bias)
+        bias=bias, softcap=softcap)
     B, Hq, _, D = q.shape
     Hkv, Nk = k.shape[1], k.shape[2]
     with _full_f32_matmul():
@@ -328,7 +259,7 @@ SM90_BWD_KV_TILE = 128
 
 
 def _launch_bias_bwd(lib, q, k, v, do, lse, delta, bias, bias_strides, dq_, dk, dv, dbias, *,
-                     scale, causal, kv_valid_len, nq_pad, stream) -> int:
+                     scale, causal, kv_valid_len, nq_pad, softcap, stream) -> int:
     """Call ``lib.fa_bwd_bias_sm90`` with the arguments of one launch (the C
     entry's order, ``native.BWD_BIAS_SM90_ARGTYPES``); returns its
     cudaError_t."""
@@ -337,8 +268,9 @@ def _launch_bias_bwd(lib, q, k, v, do, lse, delta, bias, bias_strides, dq_, dk, 
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), bias.data_ptr(), dq_.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if dbias is None else dbias.data_ptr(), B, Hq, k.shape[1], Nq, k.shape[2], D,
-        kv_valid_len, int(bool(causal)), nq_pad, float(scale), *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *bias_strides, stream)
+        kv_valid_len, int(bool(causal)), nq_pad, float(scale), softcap or 0.0,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *bias_strides,
+        stream)
 
 
 def _padded_rows(x, nq_pad: int):
@@ -353,16 +285,17 @@ def _padded_rows(x, nq_pad: int):
 
 
 def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
-             kv_valid_len: int | None = None, bias, want_dbias: bool = False):
+             kv_valid_len: int | None = None, bias, softcap=None, want_dbias: bool = False):
     """K5 + K6 with a bias in one launch: ``(dQ, dK, dV, dbias)`` in f32, dQ
     ``[B, Hq, Nq, D]``, dK / dV ``[B, Hkv, Nk, D]`` per KV head (summed over
     its query heads), dbias the full ``[B, Hq, Nq, Nk]`` with ``want_dbias``,
     else None.
 
-    Arguments as :func:`dkv`, ``bias`` ``[B|1, Hq|1, Nq|1, Nk]`` required.
-    CPU tensors take :func:`bias_bwd_reference`. CUDA tensors launch the
-    Hopper kernel, which takes what :func:`bias_bwd_route` sends it (bf16,
-    D 64 or 128); anything else raises. ``bias_bwd.launches`` counts kernel
+    Arguments as :func:`dkv`, ``bias`` ``[B|1, Hq|1, Nq|1, Nk]`` required,
+    ``softcap`` the forward's cap or None. CPU tensors take
+    :func:`bias_bwd_reference`. CUDA tensors launch the Hopper kernel, which
+    takes what :func:`bias_bwd_route` sends it (bf16, ``D % 8 == 0``, ``D <=
+    128``); anything else raises. ``bias_bwd.launches`` counts kernel
     launches, ``bias_bwd.launches_dbias`` those that wrote dbias.
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len)
@@ -371,14 +304,11 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     B, Hq, Nq, D = q.shape
     Hkv, Nk = k.shape[1], k.shape[2]
     check_bias(bias, B, Hq, Nq, Nk, q.device)
-    kw = dict(scale=scale, causal=causal, kv_valid_len=kv_valid_len, bias=bias)
+    softcap = check_softcap(softcap)
+    kw = dict(scale=scale, causal=causal, kv_valid_len=kv_valid_len, bias=bias, softcap=softcap)
     if q.device.type == "cpu":
         return bias_bwd_reference(q, k, v, do, lse, delta, want_dbias=want_dbias, **kw)
     check_kernel_args(q, "K5 + K6 bias route")
-    if D not in BIAS_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the CUDA K5 + K6 bias route takes head dims {BIAS_HEAD_DIMS}, got D={D} "
-            "(bias_bwd_route sends the others to K5 and K6)")
     f32 = dict(dtype=torch.float32, device=q.device)
     dq_ = torch.zeros((B, Hq, Nq, D), **f32)
     dk = torch.empty((B, Hkv, Nk, D), **f32)
@@ -397,7 +327,7 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     with torch.cuda.device(q.device):
         rc = _launch_bias_bwd(native.kernels(), q, k, v, do, lse, delta, bias, bias_strides,
                               dq_, dk, dv, dbias, scale=scale, causal=causal,
-                              kv_valid_len=kv_valid_len, nq_pad=nq_pad,
+                              kv_valid_len=kv_valid_len, nq_pad=nq_pad, softcap=softcap,
                               stream=torch.cuda.current_stream(q.device).cuda_stream)
     native.check(rc, "bwd_bias_sm90 kernel launch")
     bias_bwd.launches += 1
@@ -421,8 +351,8 @@ def split_sm90_route(*, head_dim: int, bias, dtype, segment_ids, softcap) -> boo
     then K6: bf16, no bias, a head dim up to ``MAX_HEAD_DIM`` (a multiple of
     8, as every CUDA backward's), and segment ids or a softcap -- with or
     without causal, a window, GQA or a tail. The calls with a bias take
-    :func:`bias_bwd` or keep K5 + K6. :func:`split_bwd` decides the device: a
-    CPU tensor takes the plain version."""
+    :func:`bias_bwd`. :func:`split_bwd` decides the device: a CPU tensor
+    takes the plain version."""
     return (bias is None and dtype == torch.bfloat16 and head_dim <= MAX_HEAD_DIM
             and (segment_ids is not None or softcap is not None))
 

@@ -12,16 +12,16 @@ later), instantiated per option family in ``csrc/flash_fwd*.cu``. The calls
 that decoding makes (:func:`decode_route`) go to a kernel of their own, a
 split-KV forward with cp.async pipelining (``csrc/decode_tile.cuh`` in
 ``csrc/flash_decode*.cu``), whose splits are merged in LSE space; its plain
-version is :func:`decode_reference`. The other calls on bf16 K/V without a
-softcap at head dims up to 128 go to a Hopper TMA + wgmma forward
-(``csrc/fwd_sm90_tile.cuh``): those with a bias that :func:`bias_route`
-takes to its bias route, which streams the f32 bias tile through shared
-memory (``csrc/flash_fwd_bias_sm90.cu``), and those without a bias
-(:func:`dense_route`: causal or not, with a window or segment ids or
+version is :func:`decode_reference`. The other calls on bf16 K/V at head
+dims up to 128, with or without the softcap, go to a Hopper TMA + wgmma
+forward (``csrc/fwd_sm90_tile.cuh``): those with a bias
+(:func:`bias_route`) to its bias route, which streams the f32 bias tile
+through shared memory (``csrc/flash_fwd_bias_sm90.cu``), and those without
+a bias (:func:`dense_route`: causal or not, with a window or segment ids or
 neither, any tail) to its dense route (``csrc/flash_fwd_sm90.cu``). Both
 compute K1's function, so their plain version is :func:`fwd_reference`; the
-``fwd_tile.cuh`` body keeps the calls they refuse (D above 128, a softcap,
-quantized K/V, a bias at other head dims). :func:`fwd` launches a kernel for
+``fwd_tile.cuh`` body keeps the calls they refuse (D above 128, quantized
+K/V). :func:`fwd` launches a kernel for
 CUDA tensors and computes the plain :func:`fwd_reference` for CPU tensors --
 the device of the input decides, and a CUDA tensor never reaches a plain
 version.
@@ -68,16 +68,14 @@ DECODE_TILE = 64
 DECODE_MIN_TILES = 4
 DECODE_CTAS_PER_SM = 4
 H100_SMS = 132
-# The bias route (csrc/fwd_sm90_tile.cuh): the head dims it is instantiated
-# for, and the f32 elements of one of its 16-byte bias copies (a bias whose
-# strides are not a multiple of it is copied with its rows padded to one).
-BIAS_HEAD_DIMS = (64, 128)
-BIAS_ROW_ALIGN = 4
-# The dense route (csrc/fwd_sm90_tile.cuh): head dims that are multiples of 8
-# up to this (instantiated at 64 and 128, the TMA boxes reading zeros past
-# D); its Q tile (rows per CTA) and KV tile (keys per pipeline stage), the
-# tiles of its segment-id ranges.
+# The Hopper routes (csrc/fwd_sm90_tile.cuh, dense and bias): head dims that
+# are multiples of 8 up to this (instantiated at 64 and 128, the TMA boxes
+# reading zeros past D); the f32 elements of one of the bias route's 16-byte
+# bias copies (a bias whose strides are not a multiple of it is copied with
+# its rows padded to one); the dense route's Q tile (rows per CTA) and KV
+# tile (keys per pipeline stage), the tiles of its segment-id ranges.
 DENSE_MAX_HEAD_DIM = 128
+BIAS_ROW_ALIGN = 4
 SM90_Q_TILE = 128
 SM90_KV_TILE = 64
 
@@ -298,30 +296,30 @@ def decode_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int)
 
 
 def bias_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int, bias,
-               kv_dtype, softcap) -> bool:
+               kv_dtype) -> bool:
     """Whether a CUDA K1 call goes to the Hopper bias kernel
     (``csrc/fwd_sm90_tile.cuh``): a call that :func:`decode_route` does not
-    take (it is checked first), with a ``bias``, bf16 K/V, no softcap, no
-    segment ids or window, and a head dim of 64 or 128. Every other call with
-    a bias keeps the ``csrc/fwd_tile.cuh`` kernel."""
-    return (bias is not None and kv_dtype == torch.bfloat16 and softcap is None
+    take (it is checked first), with a ``bias``, bf16 K/V, no segment ids or
+    window, and a head dim up to ``DENSE_MAX_HEAD_DIM`` (a multiple of 8, as
+    every CUDA K1 call's), with or without a softcap. Every other call with a
+    bias keeps the ``csrc/fwd_tile.cuh`` kernel (D above 128, int8 / fp8
+    K/V)."""
+    return (bias is not None and kv_dtype == torch.bfloat16
             and segment_ids is None and kernel_window(check_window(window)) == (-1, -1)
-            and head_dim in BIAS_HEAD_DIMS
+            and head_dim <= DENSE_MAX_HEAD_DIM
             and not decode_route(rows=rows, causal=causal, segment_ids=segment_ids,
                                  window=window, head_dim=head_dim))
 
 
-def dense_route(*, head_dim: int, bias, kv_dtype, softcap) -> bool:
+def dense_route(*, head_dim: int, bias, kv_dtype) -> bool:
     """Whether a CUDA K1 call that the decode and bias routes left (:func:`fwd`
     checks them first) goes to the Hopper dense kernel
-    (``csrc/flash_fwd_sm90.cu``): bf16 K/V without a bias or a softcap, at a
-    head dim up to ``DENSE_MAX_HEAD_DIM`` (a multiple of 8, as every CUDA K1
-    call's) -- causal or not, with or without a window or segment ids, at any
+    (``csrc/flash_fwd_sm90.cu``): bf16 K/V without a bias, at a head dim up to
+    ``DENSE_MAX_HEAD_DIM`` (a multiple of 8, as every CUDA K1 call's) --
+    causal or not, with or without a window, segment ids or a softcap, at any
     Nq and kv_valid_len. The calls it refuses keep the ``csrc/fwd_tile.cuh``
-    kernel (D above 128, a softcap, int8 / fp8 K/V, a bias the bias route
-    refuses)."""
-    return (bias is None and kv_dtype == torch.bfloat16 and softcap is None
-            and head_dim <= DENSE_MAX_HEAD_DIM)
+    kernel (D above 128, int8 / fp8 K/V)."""
+    return bias is None and kv_dtype == torch.bfloat16 and head_dim <= DENSE_MAX_HEAD_DIM
 
 
 def _whole_tiles(ids: torch.Tensor, n_valid: int, tile: int) -> torch.Tensor:
@@ -507,7 +505,7 @@ def sm90_bias(bias) -> tuple[torch.Tensor, tuple[int, int, int]]:
 
 
 def _launch_bias_sm90(lib, q, k, v, o, lse, bias, bias_strides, *, scale, kv_valid_len,
-                      causal, stream) -> int:
+                      causal, softcap, stream) -> int:
     """Call ``lib.fa_fwd_bias_sm90`` with the arguments of one launch (the
     C entry's order, ``native.FWD_BIAS_SM90_ARGTYPES``); returns its
     cudaError_t."""
@@ -515,11 +513,11 @@ def _launch_bias_sm90(lib, q, k, v, o, lse, bias, bias_strides, *, scale, kv_val
     return lib.fa_fwd_bias_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bias.data_ptr(),
         B, Hq, k.shape[1], Nq, D, kv_valid_len, int(bool(causal)), float(scale),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], *bias_strides,
-        stream)
+        softcap or 0.0, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *bias_strides, stream)
 
 
-def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, bias):
+def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, bias, softcap):
     """Launch the Hopper bias kernel and count the launch."""
     B, Hq, Nq, D = q.shape
     q, k, v = (_kernel_ready(x, tma=True) for x in (q, k, v))
@@ -531,15 +529,16 @@ def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, bias):
     with torch.cuda.device(q.device):
         rc = _launch_bias_sm90(native.kernels(), q, k, v, o, lse, bias, bias_strides,
                                scale=scale, kv_valid_len=kv_valid_len, causal=causal,
+                               softcap=softcap,
                                stream=torch.cuda.current_stream(q.device).cuda_stream)
     native.check(rc, "flash_fwd_bias_sm90 kernel launch")
-    _count_variants(k.dtype, bias, False, None)
+    _count_variants(k.dtype, bias, False, softcap)
     fwd.launches_bias_sm90 += 1
     return o, lse
 
 
 def _launch_dense_sm90(lib, q, k, v, o, lse, seg, *, scale, kv_valid_len, causal, window,
-                      stream) -> int:
+                      softcap, stream) -> int:
     """Call ``lib.fa_fwd_sm90`` with the arguments of one launch (the C
     entry's order, ``native.FWD_SM90_ARGTYPES``), ``seg`` being
     :func:`sm90_segments`' tensors or None; returns its cudaError_t."""
@@ -548,11 +547,11 @@ def _launch_dense_sm90(lib, q, k, v, o, lse, seg, *, scale, kv_valid_len, causal
     return lib.fa_fwd_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *seg_ptrs,
         B, Hq, k.shape[1], Nq, D, kv_valid_len, int(bool(causal)), *kernel_window(window),
-        float(scale), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        0 if seg is None else seg[0].stride(0), stream)
+        float(scale), softcap or 0.0, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *o.stride()[:3], 0 if seg is None else seg[0].stride(0), stream)
 
 
-def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids):
+def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, softcap):
     """Launch the Hopper dense kernel and count the launch."""
     B, Hq, Nq, D = q.shape
     q, k, v = (_kernel_ready(x, tma=True) for x in (q, k, v))
@@ -564,9 +563,10 @@ def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids):
     with torch.cuda.device(q.device):
         rc = _launch_dense_sm90(native.kernels(), q, k, v, o, lse, seg, scale=scale,
                                 kv_valid_len=kv_valid_len, causal=causal, window=window,
+                                softcap=softcap,
                                 stream=torch.cuda.current_stream(q.device).cuda_stream)
     native.check(rc, "flash_fwd_sm90 kernel launch")
-    _count_variants(k.dtype, None, kernel_window(window) != (-1, -1), None)
+    _count_variants(k.dtype, None, kernel_window(window) != (-1, -1), softcap)
     fwd.launches_dense_sm90 += 1
     return o, lse
 
@@ -662,12 +662,12 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
         return _decode(q, k, v, scale=scale, kv_valid_len=kv_valid_len, bias=bias,
                        k_scale=k_scale, v_scale=v_scale, softcap=softcap)
     if bias_route(rows=Hq // Hkv * Nq, causal=causal, segment_ids=segment_ids, window=window,
-                  head_dim=D, bias=bias, kv_dtype=k.dtype, softcap=softcap):
+                  head_dim=D, bias=bias, kv_dtype=k.dtype):
         return _bias_sm90(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
-                          bias=bias)
-    if dense_route(head_dim=D, bias=bias, kv_dtype=k.dtype, softcap=softcap):
+                          bias=bias, softcap=softcap)
+    if dense_route(head_dim=D, bias=bias, kv_dtype=k.dtype):
         return _dense_sm90(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
-                           window=window, segment_ids=segment_ids)
+                           window=window, segment_ids=segment_ids, softcap=softcap)
 
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
     o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides

@@ -33,7 +33,7 @@ FWD_BIAS_SM90_ARGTYPES = [
     _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # q, k, v, o, lse, bias (f32)
     _I32, _I32, _I32, _I32, _I32,        # B, Hq, Hkv, Nq, D
     _I32, _I32,                          # kv_valid_len, causal
-    ctypes.c_float,                      # scale
+    ctypes.c_float, ctypes.c_float,      # scale, softcap (0: none)
     _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
     _I64, _I64, _I64, _I64, _I64, _I64,  # v, o (batch, head, seq) strides
     _I64, _I64, _I64,                    # bias (batch, head, row) strides
@@ -46,7 +46,7 @@ FWD_SM90_ARGTYPES = [
     _PTR, _PTR, _PTR, _PTR,              # seg_q, seg_kv (padded), q_range, kv_range (or None)
     _I32, _I32, _I32, _I32, _I32,        # B, Hq, Hkv, Nq, D
     _I32, _I32, _I32, _I32,              # kv_valid_len, causal, window left, right (-1: none)
-    ctypes.c_float,                      # scale
+    ctypes.c_float, ctypes.c_float,      # scale, softcap (0: none)
     _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
     _I64, _I64, _I64, _I64, _I64, _I64,  # v, o (batch, head, seq) strides
     _I64,                                # seg_q batch stride
@@ -90,7 +90,7 @@ BWD_BIAS_SM90_ARGTYPES = [
     _PTR, _PTR, _PTR, _PTR,              # dq (f32, zeroed), dk, dv (f32), dbias (f32, or None)
     _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, Nq, Nk, D
     _I32, _I32, _I32,                    # kv_valid_len, causal, nq_pad
-    ctypes.c_float,                      # scale
+    ctypes.c_float, ctypes.c_float,      # scale, softcap (0: none)
     _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
     _I64, _I64, _I64, _I64, _I64, _I64,  # v, dO (batch, head, seq) strides
     _I64, _I64, _I64,                    # bias (batch, head, row) strides
@@ -226,30 +226,6 @@ def kernels() -> ctypes.CDLL:
     lib.fa_bwd_sm90.argtypes = BWD_SM90_ARGTYPES
     lib.fa_bwd_split_sm90.restype = i32
     lib.fa_bwd_split_sm90.argtypes = BWD_SPLIT_SM90_ARGTYPES
-    # K5 and K6 with a bias (csrc/flash_bwd_split.cu).
-    split_tail = [
-        i32, i32, i32, i32, i32, i32, i32,  # B, Hq, Hkv, Nq, Nk, D, kv_valid_len
-        i32,                                # causal
-        ctypes.c_float, ctypes.c_float,     # scale, softcap (0: none)
-        i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
-        i64, i64, i64, i64, i64, i64,       # v, dO (batch, head, seq) strides
-        i64, i64, i64,                      # bias (batch, head, row) strides
-        ptr,                                # cudaStream_t
-    ]
-    lib.fa_bwd_dkv_bf16.restype = i32
-    lib.fa_bwd_dkv_bf16.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, dO, lse, delta
-        ptr,                                # bias (f32)
-        ptr, ptr,                           # dk, dv (f32)
-        *split_tail,
-    ]
-    lib.fa_bwd_dq_bf16.restype = i32
-    lib.fa_bwd_dq_bf16.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr,       # q, k, v, dO, lse, delta
-        ptr,                                # bias (f32)
-        ptr, ptr,                           # dq, dbias (f32; dbias None: not wanted)
-        *split_tail,
-    ]
     lib.fa_gemm_bf16.restype = i32
     lib.fa_gemm_bf16.argtypes = [
         ptr, ptr, ptr,                      # a [M, K], b [K, N] (bf16), out [M, N]

@@ -38,32 +38,35 @@ from flashattn_tpu_torch.utils.testing import BWD_TOL, assert_close, make_qkv
 N = 2048  # path A's sequence
 
 
-def _route(rows=N, causal=False, segment_ids=None, window=None, head_dim=128,
-           bias_shape=(4, 1, N, N), dtype=torch.bfloat16, softcap=None):
+def _route(segment_ids=None, window=None, head_dim=128, bias_shape=(4, 1, N, N),
+           dtype=torch.bfloat16):
     # A meta tensor: the rule reads the bias's shape only.
     bias = None if bias_shape is None else torch.empty(bias_shape, device="meta")
-    return flash_bwd.bias_bwd_route(rows=rows, causal=causal, segment_ids=segment_ids,
-                                    window=window, head_dim=head_dim, bias=bias, dtype=dtype,
-                                    softcap=softcap)
+    return flash_bwd.bias_bwd_route(head_dim=head_dim, bias=bias, dtype=dtype,
+                                    segment_ids=segment_ids, window=window)
 
 
-# The calls the route takes, those of K1's bias route: path A's two arms, the
-# causal LM with GQA (2 x N folded rows) and a learned [1, 16, N, N] bias,
-# D 64 with a padding bias, a row-broadcast key mask, a ragged Nq, and an Nk
-# that is not a multiple of 4 (the wrapper pads the bias's rows: sm90_bias).
+# The calls the route takes, every backward with a bias in bf16 at D <= 128:
+# path A's two arms, the causal LM's learned [1, 16, N, N] bias, D 64 with a
+# padding bias, D 96 and 40 and 8 (run in the D 128 / 64 boxes), a
+# row-broadcast key mask, a ragged Nq, an Nk that is not a multiple of 4
+# (the wrapper pads the bias's rows: sm90_bias), and the decode fold's
+# [B, 1, rep * Nq, Nk] bias. Causal, the rows per KV head and the softcap
+# are not the rule's to read: it takes every such call.
 ROUTE_TAKES = {"path A mask": {}, "path A learned": dict(bias_shape=(4, 16, N, N)),
-               "causal GQA": dict(rows=2 * N, causal=True, bias_shape=(1, 16, N, N)),
+               "causal GQA": dict(bias_shape=(1, 16, N, N)),
                "D 64": dict(head_dim=64, bias_shape=(2, 1, 1536, 1536)),
+               "D 96": dict(head_dim=96), "D 40": dict(head_dim=40), "D 8": dict(head_dim=8),
                "row-broadcast": dict(bias_shape=(4, 1, 1, N)),
-               "ragged Nq": dict(rows=1000, causal=True, bias_shape=(2, 16, 1000, N)),
-               "Nk 2046": dict(bias_shape=(4, 1, N, N - 2))}
-# Those it refuses, which keep K5 then K6: the soft-capped LM bias, D 96 and
-# the other head dims, an f32 call, the decode-shaped fold, segment ids, a
-# window, and no bias at all (K3's).
-ROUTE_REFUSES = {"no bias": dict(bias_shape=None), "softcap": dict(softcap=50.0),
-                 "f32": dict(dtype=torch.float32), "D 96": dict(head_dim=96),
-                 "D 40": dict(head_dim=40),
-                 "decode-shaped": dict(rows=4, bias_shape=(2, 1, 2, N)),
+               "ragged Nq": dict(bias_shape=(2, 16, 1000, N)),
+               "Nk 2046": dict(bias_shape=(4, 1, N, N - 2)),
+               "decode-shaped": dict(bias_shape=(2, 1, 8, N))}
+# Those it refuses: head dims above 128, f32 and fp16 calls, segment ids and
+# a window (K1 takes a bias with neither), and no bias at all (K3's or the
+# split route's).
+ROUTE_REFUSES = {"no bias": dict(bias_shape=None),
+                 "f32": dict(dtype=torch.float32), "fp16": dict(dtype=torch.float16),
+                 "D 136": dict(head_dim=136),
                  "segment ids": dict(segment_ids=(torch.zeros(4, N), torch.zeros(4, N))),
                  "window": dict(window=(128, -1))}
 
@@ -125,7 +128,7 @@ def test_bias_bwd_reference_matches_jax_kernels(case):
     q, k, v = make_qkv(60, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv)
     do = make_qkv(61, B, Hq, Nq, D)[0]
     bias = _bias(kind, B, Hq, Nq, Nk, np.random.default_rng(62))
-    assert _route(rows=Hq // Hkv * Nq, causal=causal, head_dim=D, bias_shape=bias.shape)
+    assert _route(head_dim=D, bias_shape=bias.shape)
     kw = dict(scale=D ** -0.5, causal=causal, kv_valid_len=valid, bias=torch.from_numpy(bias))
     o, lse = flash_fwd.fwd_reference(q, k, v, **kw)
     dq, dk, dv, dbias = flash_bwd.bias_bwd_reference(q, k, v, do, lse, (do * o).sum(-1),
@@ -184,19 +187,19 @@ def test_launch_packs_the_c_arguments(causal, want_dbias):
     lib, seen = _fake_library()
     rc = flash_bwd._launch_bias_bwd(lib, q, k, v, do, stats, stats, bias, strides, dq, dk, dv,
                                     dbias, scale=0.125, causal=causal, kv_valid_len=100,
-                                    nq_pad=128, stream=4096)
+                                    nq_pad=128, softcap=None, stream=4096)
     assert rc == 0 and len(seen) == 1
     args = seen[0]
-    assert len(args) == len(native.BWD_BIAS_SM90_ARGTYPES) == 37
+    assert len(args) == len(native.BWD_BIAS_SM90_ARGTYPES) == 38
     assert args[:10] == tuple(x.data_ptr() for x in (q, k, v, do, stats, stats, bias, dq, dk, dv))
     assert args[10] == (dbias.data_ptr() if want_dbias else None)
     assert args[11:20] == (B, Hq, Hkv, Nq, Nk, D, 100, int(causal), 128)
-    assert args[20] == 0.125
-    assert args[21:24] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
-    assert args[24:27] == (Nk * Hkv * D, D, Hkv * D)
-    assert args[27:30] == args[24:27] and args[30:33] == args[21:24]  # dO: a clone of q
-    assert args[33:36] == (Nq * Nk, 0, Nk)  # bias [B, 1, Nq, Nk]: head broadcast
-    assert args[36] == 4096
+    assert args[20:22] == (0.125, 0.0)  # the scale, no softcap
+    assert args[22:25] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
+    assert args[25:28] == (Nk * Hkv * D, D, Hkv * D)
+    assert args[28:31] == args[25:28] and args[31:34] == args[22:25]  # dO: a clone of q
+    assert args[34:37] == (Nq * Nk, 0, Nk)  # bias [B, 1, Nq, Nk]: head broadcast
+    assert args[37] == 4096
 
 
 def test_padded_rows_pads_lse_to_the_kernel_tile():

@@ -35,33 +35,34 @@ N = 2048  # path A's sequence
 
 
 def _route(rows=N, causal=False, segment_ids=None, window=None, head_dim=128,
-           bias_shape=(4, 1, N, N), kv_dtype=torch.bfloat16, softcap=None):
+           bias_shape=(4, 1, N, N), kv_dtype=torch.bfloat16):
     # A meta tensor: the rule reads the bias's shape only.
     bias = None if bias_shape is None else torch.empty(bias_shape, device="meta")
     return flash_fwd.bias_route(rows=rows, causal=causal, segment_ids=segment_ids,
-                                window=window, head_dim=head_dim, bias=bias, kv_dtype=kv_dtype,
-                                softcap=softcap)
+                                window=window, head_dim=head_dim, bias=bias, kv_dtype=kv_dtype)
 
 
 # The calls the route takes: path A's attention (B4 H16 N2048 D128 with the
 # mask arm's [4, 1, N, N] and the learned arm's [4, 16, N, N] bias), the
 # causal LM with GQA (Hq16 / Hkv8: 2 x N folded rows) and a learned
-# [1, 16, N, N] bias, D 64, a row-broadcast [B, 1, 1, Nk] key mask, a ragged
-# Nq of 1000 against Nk 2048, and an Nk that is not a multiple of 4 (the
-# wrapper pads such a bias's rows to 16 bytes: sm90_bias).
+# [1, 16, N, N] bias, D 64, D 40 and 96 (run in the D 64 / 128 boxes), a
+# row-broadcast [B, 1, 1, Nk] key mask, a ragged Nq of 1000 against Nk 2048,
+# and an Nk that is not a multiple of 4 (the wrapper pads such a bias's rows
+# to 16 bytes: sm90_bias). The softcap is not the rule's to read: every
+# capped call with a bias takes it too.
 ROUTE_TAKES = {"path A mask": {}, "path A learned": dict(bias_shape=(4, 16, N, N)),
                "causal GQA": dict(rows=2 * N, causal=True, bias_shape=(1, 16, N, N)),
                "D 64": dict(head_dim=64, bias_shape=(2, 1, 1536, 1536)),
+               "D 40": dict(head_dim=40), "D 96": dict(head_dim=96),
                "row-broadcast": dict(bias_shape=(4, 1, 1, N)),
                "ragged Nq": dict(rows=1000, causal=True, bias_shape=(2, 16, 1000, N)),
                "empty window": dict(window=(-1, -1)),
                "Nk 2047": dict(bias_shape=(4, 1, N, N - 1)),
                "Nk 2046": dict(bias_shape=(4, 1, 1, N - 2))}
-ROUTE_REFUSES = {"no bias": dict(bias_shape=None), "softcap": dict(softcap=50.0),
+ROUTE_REFUSES = {"no bias": dict(bias_shape=None),
                  "int8 K/V": dict(kv_dtype=torch.int8),
                  "fp8 K/V": dict(kv_dtype=torch.float8_e4m3fn),
-                 "D 40": dict(head_dim=40), "D 96": dict(head_dim=96),
-                 "D 256": dict(head_dim=256),
+                 "D 136": dict(head_dim=136), "D 256": dict(head_dim=256),
                  "decode-shaped": dict(rows=2, bias_shape=(8, 1, 1, 8192)),
                  "segment ids": dict(segment_ids=(torch.zeros(4, N), torch.zeros(4, N))),
                  "window": dict(window=(128, -1))}
@@ -100,7 +101,7 @@ def test_bias_route_takes_every_call_of_the_attention_module(arm, monkeypatch):
         calls.append(flash_fwd.bias_route(
             rows=q.shape[1] // k.shape[1] * q.shape[2], causal=kw.get("causal", False),
             segment_ids=kw.get("segment_ids"), window=kw.get("window"), head_dim=q.shape[-1],
-            bias=kw.get("bias"), kv_dtype=k.dtype, softcap=kw.get("softcap")))
+            bias=kw.get("bias"), kv_dtype=k.dtype))
         return real(q, k, v, **kw)
 
     monkeypatch.setattr(flash_fwd, "fwd", spy)
@@ -192,18 +193,18 @@ def test_launch_packs_the_c_arguments(causal):
     bias, strides = flash_fwd.kernel_bias(torch.zeros((B, 1, 1, Nk)))
     lib, seen = _fake_library()
     rc = flash_fwd._launch_bias_sm90(lib, q, k, v, o, lse, bias, strides, scale=0.125,
-                                     kv_valid_len=100, causal=causal, stream=4096)
+                                     kv_valid_len=100, causal=causal, softcap=None, stream=4096)
     assert rc == 0 and len(seen) == 1
     args = seen[0]
-    assert len(args) == len(native.FWD_BIAS_SM90_ARGTYPES) == 30
+    assert len(args) == len(native.FWD_BIAS_SM90_ARGTYPES) == 31
     assert args[:6] == tuple(x.data_ptr() for x in (q, k, v, o, lse, bias))
     assert args[6:13] == (B, Hq, Hkv, Nq, D, 100, int(causal))
-    assert args[13] == 0.125
-    assert args[14:17] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
-    assert args[17:20] == (Nk * Hkv * D, D, Hkv * D)
-    assert args[20:23] == args[17:20] and args[23:26] == args[14:17]
-    assert args[26:29] == (Nk, 0, 0)  # bias [B, 1, 1, Nk]: head and row broadcast
-    assert args[29] == 4096
+    assert args[13:15] == (0.125, 0.0)  # the scale, no softcap
+    assert args[15:18] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
+    assert args[18:21] == (Nk * Hkv * D, D, Hkv * D)
+    assert args[21:24] == args[18:21] and args[24:27] == args[15:18]
+    assert args[27:30] == (Nk, 0, 0)  # bias [B, 1, 1, Nk]: head and row broadcast
+    assert args[30] == 4096
 
 
 def test_tma_ready_copies_only_what_a_tensor_map_cannot_address():

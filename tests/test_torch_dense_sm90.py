@@ -40,22 +40,21 @@ from flashattn_tpu_torch.utils.testing import BWD_TOL, FWD_TOL, assert_close, ma
 N = 2048  # the LM's sequence
 
 
-def _dense(head_dim=128, bias=None, kv_dtype=torch.bfloat16, softcap=None):
-    return flash_fwd.dense_route(head_dim=head_dim, bias=bias, kv_dtype=kv_dtype,
-                                 softcap=softcap)
+def _dense(head_dim=128, bias=None, kv_dtype=torch.bfloat16):
+    return flash_fwd.dense_route(head_dim=head_dim, bias=bias, kv_dtype=kv_dtype)
 
 
-# The head dims K1's dense route takes on bf16 K/V without a bias or a
-# softcap: the LM's 128, the U-Net's 40, and those run in a wider box (8, 80,
-# 96). Causal, a window, segment ids and the rows per KV head are not its
-# test: fwd's order (decode, bias, dense) decides those, on a simulated card
-# below.
+# The head dims K1's dense route takes on bf16 K/V without a bias: the LM's
+# 128, the U-Net's 40, and those run in a wider box (8, 80, 96). Causal, a
+# window, segment ids, the softcap and the rows per KV head are not its test:
+# the rule does not read them, and fwd's order (decode, bias, dense) decides
+# the rows, on a simulated card below.
 DENSE_TAKES = {"LM D 128": {}, "U-Net D 40": dict(head_dim=40), "D 64": dict(head_dim=64),
                "D 80": dict(head_dim=80), "D 96": dict(head_dim=96), "D 8": dict(head_dim=8)}
-# Those it refuses, which keep fwd_tile.cuh (D above 128, the softcap, int8 /
-# fp8 K/V) or take the bias route (a bias).
+# Those it refuses, which keep fwd_tile.cuh (D above 128, int8 / fp8 K/V) or
+# take the bias route (a bias).
 DENSE_REFUSES = {"D 160": dict(head_dim=160), "D 136": dict(head_dim=136),
-                 "softcap": dict(softcap=50.0), "int8 K/V": dict(kv_dtype=torch.int8),
+                 "int8 K/V": dict(kv_dtype=torch.int8),
                  "fp8 K/V": dict(kv_dtype=torch.float8_e4m3fn),
                  "bias": dict(bias=torch.empty((1, 1, 1, N), device="meta"))}
 
@@ -98,18 +97,18 @@ def test_dense_launch_packs_the_c_arguments(segments):
     lib = types.SimpleNamespace(fa_fwd_sm90=_recorder("fa_fwd_sm90", native.FWD_SM90_ARGTYPES,
                                                       seen))
     rc = flash_fwd._launch_dense_sm90(lib, q, k, v, o, lse, seg, scale=0.125, kv_valid_len=140,
-                                      causal=True, window=(100, -1), stream=4096)
+                                      causal=True, window=(100, -1), softcap=None, stream=4096)
     assert rc == 0 and len(seen) == 1
     args = seen[0][1]
-    assert len(args) == len(native.FWD_SM90_ARGTYPES) == 33
+    assert len(args) == len(native.FWD_SM90_ARGTYPES) == 34
     assert args[:5] == tuple(x.data_ptr() for x in (q, k, v, o, lse))
     assert args[5:9] == ((None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg))
     assert args[9:18] == (B, Hq, Hkv, Nq, D, 140, 1, 100, -1)
-    assert args[18] == 0.125
-    assert args[19:22] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
-    assert args[22:25] == (Nk * Hkv * D, D, Hkv * D)
-    assert args[25:28] == args[22:25] and args[28:31] == args[19:22]
-    assert args[31] == (Nq if segments else 0) and args[32] == 4096
+    assert args[18:20] == (0.125, 0.0)  # the scale, no softcap
+    assert args[20:23] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
+    assert args[23:26] == (Nk * Hkv * D, D, Hkv * D)
+    assert args[26:29] == args[23:26] and args[29:32] == args[20:23]
+    assert args[32] == (Nq if segments else 0) and args[33] == 4096
 
 
 @pytest.mark.parametrize("window", [None, (64, 7)])
@@ -155,7 +154,7 @@ def card(monkeypatch):
              "fa_bwd_bias_sm90": native.BWD_BIAS_SM90_ARGTYPES,
              "fa_bwd_split_sm90": native.BWD_SPLIT_SM90_ARGTYPES}
     lib = types.SimpleNamespace(**{n: _recorder(n, a, calls) for n, a in typed.items()})
-    for name in ("fa_fwd", "fa_decode", "fa_bwd_dkv_bf16", "fa_bwd_dq_bf16"):
+    for name in ("fa_fwd", "fa_decode"):
         setattr(lib, name, lambda *args, name=name: calls.append((name, args)) or 0)
     monkeypatch.setattr(native, "kernels", lambda: lib)
     monkeypatch.setattr(flash_fwd, "_check_kernel_args", lambda q, **kw: None)
@@ -178,7 +177,7 @@ def _meta_qkv(B, Hq, Hkv, Nq, Nk, D, dtype=torch.bfloat16):
 # (B, Hq, Hkv, Nq, Nk, D, options, the C entry): the LM, the U-Net's self-
 # and cross-attention, the packed LM, the SWA window, a two-sided window, a
 # ragged D 96 call, the decode-shaped calls that the decode kernel refuses
-# (D 40; causal), and what stays elsewhere -- D 160 and the softcap on
+# (D 40; causal), the softcap, and what stays elsewhere -- D 160 on
 # fwd_tile.cuh (fa_fwd), a bias on the bias route, a decode-shaped call at
 # D 128 on the decode kernel.
 FWD_CASES = {"LM causal": (1, 16, 8, 256, 256, 128, dict(causal=True), "fa_fwd_sm90"),
@@ -193,7 +192,7 @@ FWD_CASES = {"LM causal": (1, 16, 8, 256, 256, 128, dict(causal=True), "fa_fwd_s
              "decode-shaped D 40": (2, 4, 2, 1, 512, 40, {}, "fa_fwd_sm90"),
              "decode-shaped causal": (2, 4, 2, 4, 512, 128, dict(causal=True), "fa_fwd_sm90"),
              "D 160": (1, 2, 2, 128, 128, 160, {}, "fa_fwd"),
-             "softcap": (1, 4, 2, 128, 128, 128, dict(causal=True, softcap=50.0), "fa_fwd"),
+             "softcap": (1, 4, 2, 128, 128, 128, dict(causal=True, softcap=50.0), "fa_fwd_sm90"),
              "bias": (1, 4, 4, 128, 128, 128, dict(bias=True), "fa_fwd_bias_sm90"),
              "decode-shaped": (2, 4, 2, 1, 512, 128, {}, "fa_decode")}
 
@@ -219,14 +218,14 @@ def test_fwd_routes_on_a_simulated_card(card, case):
         assert [a for a, n in zip(o.stride(), q.shape) if n > 1] == [
             a for a, n in zip(q.stride(), q.shape) if n > 1]
         args = card[0][1]
-        assert args[31] == (Nq if "segment_ids" in kw else 0)  # the ids' batch stride
+        assert args[32] == (Nq if "segment_ids" in kw else 0)  # the ids' batch stride
 
 
 # flash_attention's forward and backward on a simulated card: the LM-like
 # causal GQA call, the SWA window and a call with neither take K1's dense
 # route and K3's Hopper kernel; the packed LM takes K5 + K6's one-launch
 # split route behind the dense route; a bias takes the bias route and its
-# one-kernel backward; the softcap keeps fwd_tile.cuh, then the split route.
+# one-kernel backward; the softcap takes the dense route, then the split route.
 GRAD_CASES = {"causal GQA": (dict(causal=True), ["fa_fwd_sm90", "fa_bwd_sm90"]),
               "window": (dict(causal=True, window=(100, -1)), ["fa_fwd_sm90", "fa_bwd_sm90"]),
               "no mask": ({}, ["fa_fwd_sm90", "fa_bwd_sm90"]),
@@ -234,7 +233,7 @@ GRAD_CASES = {"causal GQA": (dict(causal=True), ["fa_fwd_sm90", "fa_bwd_sm90"]),
               "packed": (dict(causal=True, segment_ids=True),
                          ["fa_fwd_sm90", "fa_bwd_split_sm90"]),
               "softcap": (dict(causal=True, logit_softcap=50.0),
-                          ["fa_fwd", "fa_bwd_split_sm90"])}
+                          ["fa_fwd_sm90", "fa_bwd_split_sm90"])}
 
 
 @pytest.mark.parametrize("case", list(GRAD_CASES))

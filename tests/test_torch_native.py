@@ -162,6 +162,18 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
     ("_ZN49_GLOBAL__N__1c2d3e4f_16_flash_bwd_sm90_cu_5a6b7c8d15bwd_sm90_kernelILi128EEEv14"
      "CUtensorMap_stS1_S1_S1_NS_14BwdDenseParamsE", "K3 sm90 bwd_sm90_kernel<128>"),
     ("_ZN12_GLOBAL__N_110dkv_kernelILi128EEEvN2fa9BwdParamsE", "K5 dkv_kernel<128>"),
+    ("_ZN12_GLOBAL__N_121fwd_dense_sm90_kernelILi128ELb1ELb1EEEv14CUtensorMap_stS1_S1_N2fa14"
+     "FwdDenseParamsE", "K1 dense sm90 segments softcap fwd_dense_sm90_kernel<128, 1, 1>"),
+    ("_ZN12_GLOBAL__N_121fwd_dense_sm90_kernelILi64ELb0ELb1EEEv14CUtensorMap_stS1_S1_N2fa14"
+     "FwdDenseParamsE", "K1 dense sm90 softcap fwd_dense_sm90_kernel<64, 0, 1>"),
+    ("_ZN12_GLOBAL__N_120fwd_bias_sm90_kernelILi128ELb1EEEv14CUtensorMap_stS1_S1_N2fa13"
+     "FwdBiasParamsE", "K1 bias sm90 softcap fwd_bias_sm90_kernel<128, 1>"),
+    ("_ZN49_GLOBAL__N__81d9f6ab_16_bwd_bias_sm90_cu_2c83e9c620bwd_bias_sm90_kernelILi128ELb1ELb1E"
+     "EEv14CUtensorMap_stS1_S1_S1_S1_NS_13BwdBiasParamsE",
+     "bias bwd sm90 softcap bwd_bias_sm90_kernel<128, 1, 1>"),
+    ("_ZN49_GLOBAL__N__81d9f6ab_16_bwd_bias_sm90_cu_2c83e9c620bwd_bias_sm90_kernelILi64ELb0ELb0E"
+     "EEv14CUtensorMap_stS1_S1_S1_S1_NS_13BwdBiasParamsE",
+     "bias bwd sm90 bwd_bias_sm90_kernel<64, 0, 0>"),
     ("_ZN56_GLOBAL__N__f1f55981_23_flash_bwd_split_sm90_cu_75bfd99921bwd_split_sm90_kernelILi128E"
      "Lb1ELb0EEEv14CUtensorMap_stS1_S1_S1_NS_14BwdSplitParamsE",
      "K5 + K6 split sm90 segments bwd_split_sm90_kernel<128, 1, 0>"),

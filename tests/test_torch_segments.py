@@ -208,12 +208,12 @@ def test_fwd_reference_segments_and_kv_tail():
 
 
 def test_segments_on_cpu_launch_no_kernel():
-    before = (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches, flash_bwd.dkv.launches,
-              flash_bwd.dq.launches)
+    before = (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches, flash_bwd.split_bwd.launches,
+              flash_bwd.bias_bwd.launches)
     q, k, v = make_qkv(23, 1, 2, 130, 32, dtype=torch.bfloat16)
     q.requires_grad_(True)
     seg = torch.from_numpy(packed_ids(24, 1, 130))
     flashattn_tpu_torch.flash_attention(q, k, v, causal=True, segment_ids=seg).float().sum().backward()
     assert q.grad is not None
-    assert (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches, flash_bwd.dkv.launches,
-            flash_bwd.dq.launches) == before
+    assert (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches, flash_bwd.split_bwd.launches,
+            flash_bwd.bias_bwd.launches) == before

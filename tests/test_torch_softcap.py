@@ -202,8 +202,8 @@ def test_softcap_bias_gradient_and_quantized_kv_raise():
 
 
 def _counts():
-    return (flash_fwd.fwd.launches, flash_fwd.fwd.launches_softcap, flash_bwd.dkv.launches,
-            flash_bwd.dq.launches)
+    return (flash_fwd.fwd.launches, flash_fwd.fwd.launches_softcap, flash_bwd.split_bwd.launches,
+            flash_bwd.bias_bwd.launches)
 
 
 def test_softcap_on_cpu_launches_no_kernel():

@@ -52,8 +52,8 @@ ROUTE_TAKES = {"packed D 128": {}, "softcap": dict(segment_ids=None, softcap=50.
                "ids + softcap": dict(softcap=5.0), "D 40": dict(head_dim=40),
                "D 8": dict(head_dim=8), "D 96 softcap": dict(head_dim=96, segment_ids=None,
                                                             softcap=30.0)}
-# Those it refuses: K3's (neither option), the bias calls (the bias route or
-# K5 + K6), head dims above 128, f32.
+# Those it refuses: K3's (neither option), the bias calls (the bias route),
+# head dims above 128, f32.
 ROUTE_REFUSES = {"neither": dict(segment_ids=None),
                  "bias + softcap": dict(segment_ids=None, softcap=50.0,
                                         bias=torch.empty((1, 1, 1, 8), device="meta")),
@@ -138,7 +138,7 @@ def card(monkeypatch):
              "fa_bwd_bias_sm90": native.BWD_BIAS_SM90_ARGTYPES,
              "fa_bwd_split_sm90": native.BWD_SPLIT_SM90_ARGTYPES}
     lib = types.SimpleNamespace(**{n: _recorder(n, a, calls) for n, a in typed.items()})
-    for name in ("fa_fwd", "fa_decode", "fa_bwd_dkv_bf16", "fa_bwd_dq_bf16"):
+    for name in ("fa_fwd", "fa_decode"):
         setattr(lib, name, lambda *args, name=name: calls.append((name, args)) or 0)
     monkeypatch.setattr(native, "kernels", lambda: lib)
     monkeypatch.setattr(flash_fwd, "_check_kernel_args", lambda q, **kw: None)
@@ -161,24 +161,24 @@ def _meta_qkv(B, Hq, Hkv, Nq, Nk, D):
 # (Nq, Nk, D, options, the C entries of the forward and the backward): the
 # packed LM, tuple ids with Nq != Nk, ids with a window, the softcap alone,
 # with a window (the soft-capped SWA path) and with ids all take the split
-# route; neither option takes K3; a bias the bias route takes goes there; a
-# capped bias and a D 96 bias keep K5 + K6.
+# route (behind K1's dense route, the cap's too); neither option takes K3; a
+# bias goes to the bias routes, a capped bias and a D 96 bias too.
 SPLIT = "fa_bwd_split_sm90"
 GRAD_CASES = {
     "packed": (300, 300, 64, dict(causal=True, segment_ids="one"), ["fa_fwd_sm90", SPLIT]),
     "tuple ids Nq != Nk": (200, 330, 64, dict(segment_ids="tuple"), ["fa_fwd_sm90", SPLIT]),
     "ids + window": (300, 300, 128, dict(causal=True, window=(100, -1), segment_ids="one"),
                      ["fa_fwd_sm90", SPLIT]),
-    "softcap": (300, 300, 64, dict(causal=True, logit_softcap=50.0), ["fa_fwd", SPLIT]),
+    "softcap": (300, 300, 64, dict(causal=True, logit_softcap=50.0), ["fa_fwd_sm90", SPLIT]),
     "softcap + window": (300, 300, 128, dict(causal=True, window=(100, -1),
-                                             logit_softcap=50.0), ["fa_fwd", SPLIT]),
+                                             logit_softcap=50.0), ["fa_fwd_sm90", SPLIT]),
     "softcap + ids": (300, 300, 40, dict(segment_ids="one", logit_softcap=30.0),
-                      ["fa_fwd", SPLIT]),
+                      ["fa_fwd_sm90", SPLIT]),
     "neither": (300, 300, 64, dict(causal=True), ["fa_fwd_sm90", "fa_bwd_sm90"]),
     "bias route": (300, 300, 64, dict(bias=True), ["fa_fwd_bias_sm90", "fa_bwd_bias_sm90"]),
     "capped bias": (300, 300, 64, dict(bias=True, logit_softcap=50.0),
-                    ["fa_fwd", "fa_bwd_dkv_bf16", "fa_bwd_dq_bf16"]),
-    "D 96 bias": (300, 300, 96, dict(bias=True), ["fa_fwd", "fa_bwd_dkv_bf16", "fa_bwd_dq_bf16"]),
+                    ["fa_fwd_bias_sm90", "fa_bwd_bias_sm90"]),
+    "D 96 bias": (300, 300, 96, dict(bias=True), ["fa_fwd_bias_sm90", "fa_bwd_bias_sm90"]),
 }
 
 

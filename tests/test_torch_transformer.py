@@ -282,15 +282,15 @@ def test_packed_fused_and_xla_agree(jax_params):
     and the packed step runs K1, K5 and K6's plain versions on the CPU (no
     kernel launch)."""
     model = transformer_from_jax(jax_params, PCFG, device="cpu")
-    before = (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches, flash_bwd.dkv.launches,
-              flash_bwd.dq.launches)
+    before = (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches, flash_bwd.split_bwd.launches,
+              flash_bwd.bias_bwd.launches)
     lf, gf = _loss_and_grads(model, attn_impl="fused", segment_ids=_seg())
     lx, gx = _loss_and_grads(model, attn_impl="xla", segment_ids=_seg())
     assert abs(lf - lx) < 1e-5
     for name in gf:
         assert_close(gf[name], gx[name], BWD_TOL[torch.float32], name)
-    assert (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches, flash_bwd.dkv.launches,
-            flash_bwd.dq.launches) == before
+    assert (flash_fwd.fwd.launches, flash_bwd_fused.bwd.launches, flash_bwd.split_bwd.launches,
+            flash_bwd.bias_bwd.launches) == before
 
 
 @pytest.mark.parametrize("option", sorted(OPTIONS))
