@@ -69,7 +69,14 @@ its kernels:
   the plain ring and single-device K1 / K3, also at 8 ranks with GQA, at one
   rank, at D 64 and D 96 with a band edge inside the tiles, and through a
   one-rank NCCL process group; K7 and K8 (TMA + wgmma) with HGMMA, UTMALDG
-  and no HMMA in their SASS.
+  and no HMMA in their SASS;
+* the distribution layer (context-parallel LM training on a (1, 2, 4)
+  virtual mesh, 8 ranks on one card): K1's dense route and K3 / the split
+  route with q / kv offsets at every chunk-pair kind against their plain
+  versions; ring, zigzag, Ulysses and head-parallel attention against
+  single-device flash_attention; the sharded LM step at full width in three
+  layouts, its loss against the single-device lm_loss and its gradients
+  against an f32 copy of the model, with exact launch counts.
 
 Every kernel's line in the kernels JSON carries its time, its plain version's
 time, its bound (the larger of the bytes it must move at 3.35 TB/s and its
@@ -228,6 +235,9 @@ def flex_ms(q, k, v, *, scale: float, do=None, score_mod=None, mask_mod=None) ->
     from torch._functorch import config as functorch_config
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
+    # Each call compiles afresh: past dynamo's recompile limit on
+    # flex_attention's code a compiled call would quietly run eager.
+    torch._dynamo.reset()
     flex = torch.compile(flex_attention)
     block = None if mask_mod is None else create_block_mask(
         mask_mod, q.shape[0], None, q.shape[2], k.shape[2], device=q.device)
@@ -2980,6 +2990,478 @@ def phase_ring() -> dict:
     return {"k7": k7, "k8": k8, "launches": counts}
 
 
+# ---------------------------------------------------------------------------
+# The distribution layer: q / kv offsets on K1's dense route, K3 and the split
+# route (the chunk pairs of the parallel paths), the paths themselves, and the
+# sharded LM step on a virtual mesh.
+
+# The sharded step (data, model, seq): 8 virtual ranks on one card, each with
+# 8 query and 4 KV heads of 128 and 2048 of the 8192 tokens.
+SHARDED_MESH = (1, 2, 4)
+SHARDED_SEQ = 8192
+SHARDED_LR = 1e-3
+SHARDED_STEPS = 4  # lr=1e-3 steps on one batch, the first a warm-up: the loss must fall
+SHARDED_LOSS_TOL = 2e-2
+SHARDED_TIMED = 3  # timed lr=0 steps per layout after the counted one: median and spread
+# The leaves whose sharded gradient (step.loss_and_grads) is held against
+# autograd of the single-device lm_loss on an f32 copy of the model: the
+# embedding and layer 0's attention projections, whose gradients run through
+# every layer's attention (RoPE positions, the ring's partials and merge, the
+# halo'd targets). Per leaf, the relative L2 over every rank's shard must stay
+# within SHARDED_GRAD_FLOOR_X times the bf16 floor: the single-device bf16
+# step's own distance from the f32 model, measured in the same run.
+SHARDED_GRAD_LEAVES = ("embed", "layers.0.wq", "layers.0.wk", "layers.0.wv", "layers.0.wo")
+SHARDED_GRAD_FLOOR_X = 1.5
+# 8 packed documents whose edges miss the 2048-token shard edges: the
+# second, fourth and sixth straddle one.
+SHARDED_DOC_EDGES = (1536, 2560, 3584, 4608, 5632, 6656, 7680)
+# The chunk pairs of the paths at a rank's width (B1 Hq8 Hkv4 D128): (name,
+# Nq, Nk, options, q_offset, kv_offset) -- a diagonal pair, the contiguous
+# ring's neighbour pair (every pair live; the timed one), an off-diagonal pair
+# with delta > Nq, a window pair whose shifted left bound is negative and whose
+# last row sees no key, zigzag's q_hi x k_lo, a ragged tail, delta < 0 (whole
+# Q tiles that meet no KV tile, whole KV tiles that no row reaches) and the
+# packed ring's neighbour pair, one document across the edge (the split
+# route; timed too). q and k are drawn at GROW x unit scale.
+OFFSET_CASES = [("diagonal", 2048, 2048, dict(causal=True), 4096, 4096),
+                ("ring neighbour", 2048, 2048, dict(causal=True), 2048, 0),
+                ("off-diagonal delta > Nq", 2048, 2048, dict(causal=True), 6144, 0),
+                ("window lo < 0", 2048, 2048, dict(causal=True, window=(2047, -1)), 2048, 0),
+                ("zigzag q_hi x k_lo", 1024, 1024, dict(causal=True), 7168, 1024),
+                ("ragged tail", 1000, 1100, dict(causal=True), 1536, 512),
+                ("delta < 0", 2048, 2048, dict(causal=True), 0, 1024),
+                ("packed neighbour", 2048, 2048, dict(causal=True, ids=True), 2048, 0)]
+PATH_RANKS = 4
+
+
+def straddling_ids(n: int) -> torch.Tensor:
+    """The packed documents of SHARDED_DOC_EDGES, int32 ``[1, n]``."""
+    edges = torch.tensor(SHARDED_DOC_EDGES, device=DEVICE)
+    return torch.bucketize(torch.arange(n, device=DEVICE), edges, right=True).to(torch.int32)[None]
+
+
+def _offsets_case(tag: str, q, k, v, do, kw) -> dict:
+    """K1's dense route and its backward (K3; the split route with segment
+    ids) at one chunk pair's offsets against fwd_reference and
+    bwd_reference / split_bwd_reference with the same offsets, on f32 copies
+    of the bf16 inputs: O within FWD_TOL[bf16], LSE within 1e-3 on live
+    rows, dQ / dK / dV within BWD_TOL[bf16], each within relative L2
+    WINDOW_REL_L2; dead rows O = dQ = 0 exactly and LSE = ln2 · mask (to one
+    f32 ulp); the keys that no row reaches dK = dV = 0 exactly; one launch
+    each."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+    from flashattn_tpu_torch.utils.testing import (
+        BWD_TOL, FWD_TOL, Tolerance, check_close, grad_gate)
+
+    windowed = int("window" in kw)
+    before = _launches()
+    o, lse = flash_fwd.fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _routed(f"K1 at {tag}", before, K1=1, K1_dense_sm90=1, K1_window=windowed)
+    f32 = [x.float() for x in (q, k, v, do)]
+    o_want, lse_want = flash_fwd.fwd_reference(*f32[:3], **kw)
+    dead_lse = math.log(2.0) * DEFAULT_MASK_VALUE
+    live = lse_want > dead_lse * 0.5
+    dead = ~live
+    ok_o, msg_o = check_close(o, o_want, FWD_TOL[torch.bfloat16], "O")
+    ok_l, msg_l = check_close(lse[live], lse_want[live], Tolerance(LSE_ATOL, 0.0), "LSE")
+    # ln2 · mask as the kernel forms it in f32 and as the plain version in
+    # f64 differ by one ulp
+    dead_ok = bool((o[dead] == 0).all()) and bool(
+        ((lse[dead] - dead_lse).abs() <= abs(dead_lse) * 2.0 ** -23).all())
+    rel_o = _rel(o.float(), o_want)
+    err_o = (o.float() - o_want).abs().max().item()
+    delta = (f32[3] * o_want).sum(-1)
+    args = (q, k, v, do, lse_want, delta)
+    before = _launches()
+    if "segment_ids" in kw:
+        got = flash_bwd.split_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        _routed(f"the split route at {tag}", before, split_bwd=1)
+        want = flash_bwd.split_bwd_reference(*f32, lse_want, delta, **kw)
+    else:
+        got = flash_bwd_fused.bwd(*args, **kw)
+        torch.cuda.synchronize()
+        _routed(f"K3 at {tag}", before, K3=1, K3_sm90=1)
+        want = flash_bwd_fused.bwd_reference(*f32, lse_want, delta, **kw)
+    names = ("dq", "dk", "dv")
+    ok_g, why_g, err_g, _ = grad_gate(got, want, BWD_TOL[torch.bfloat16], names=names)
+    rel = {n: _rel(a.float(), e) for n, a, e in zip(names, got, want) if e.norm() > 0}
+    keep = flash_fwd.pair_mask(q.shape[2], k.shape[2], kv_valid_len=k.shape[2],
+                               causal=kw["causal"], segment_ids=kw.get("segment_ids"),
+                               device=DEVICE, window=kw.get("window"),
+                               q_offset=kw["q_offset"], kv_offset=kw["kv_offset"])
+    unreached = ~keep.any(dim=-2)[0, 0]
+    zero_ok = (bool((got[0][dead] == 0).all()) and bool((got[1][:, :, unreached] == 0).all())
+               and bool((got[2][:, :, unreached] == 0).all()))
+    log("offsets", f"{tag}: q_offset {kw['q_offset']} kv_offset {kw['kv_offset']}, "
+                   f"Nq{q.shape[2]} Nk{k.shape[2]}: K1 O max_abs_err {err_o:.3e} (budget "
+                   f"{O_TOL_NAME}), relative L2 {rel_o:.2e}, LSE live max_abs_err "
+                   f"{(lse[live] - lse_want[live]).abs().max().item() if live.any() else 0:.3e}; "
+                   f"dQ/dK/dV max_abs_err {err_g:.3e} (budget BWD_TOL[bf16]), relative L2 "
+                   + ", ".join(f"{n} {r:.2e}" for n, r in rel.items())
+                   + f" (limit {WINDOW_REL_L2}); dead rows {int(dead.sum())} (O, dQ 0, LSE ln2 "
+                   f"mask: {dead_ok}), keys no row reaches {int(unreached.sum())} (dK, dV 0: "
+                   f"{zero_ok})")
+    if not (ok_o and ok_l and ok_g):
+        fail(f"offsets at {tag}: the kernels disagree with their plain versions: {msg_o}; "
+             f"{msg_l}; {why_g}")
+    if not (rel_o <= WINDOW_REL_L2 or not live.any()) or not all(
+            r <= WINDOW_REL_L2 for r in rel.values()):
+        fail(f"offsets at {tag}: relative L2 above {WINDOW_REL_L2}: O {rel_o}, {rel}")
+    if not (dead_ok and zero_ok):
+        fail(f"offsets at {tag}: dead rows or unreached keys not exactly 0")
+    return {"fwd_err": err_o, "bwd_err": err_g}
+
+
+def _offsets_timing(q, k, v, do, kw) -> tuple[dict, dict]:
+    """K1's dense route and its backward (K3, or the split route with ids) at
+    one chunk pair's offsets: times beside their plain versions, the bound
+    over the pairs attended (chip_smoke.bound), and one library call on the
+    same pair -- SDPA with the pair's band as ``attn_mask``, or compiled
+    flex_attention with the offset ``mask_mod`` where there are ids."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+
+    ids = kw.get("segment_ids")
+    fwd = lambda: flash_fwd.fwd(q, k, v, **kw)  # noqa: E731
+    o, lse = fwd()
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    bwd, bwd_ref = ((flash_bwd.split_bwd, flash_bwd.split_bwd_reference) if ids is not None
+                    else (flash_bwd_fused.bwd, flash_bwd_fused.bwd_reference))
+    mask = dict(kv_valid_len=k.shape[2], causal=True, segment_ids=ids, q_offset=kw["q_offset"],
+                kv_offset=kw["kv_offset"])
+    B, Hq, Nq, D = q.shape
+    Nk = k.shape[2]
+    stats = 4 * B * Hq * Nq
+    fwd_row = {"ms": cuda_ms(fwd),
+               "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw), reps=5),
+               **bound(tensor_bytes(q, k, v, q) + stats, pair_flops(q, k, matmuls=2, **mask))}
+    bwd_row = {"ms": cuda_ms(lambda: bwd(*args, **kw)),
+               "plain_ms": cuda_ms(lambda: bwd_ref(*args, **kw), reps=5),
+               **bound(tensor_bytes(q, k, v, do) + 2 * stats + 4 * (q.numel() + 2 * Hq * Nk * D),
+                       pair_flops(q, k, matmuls=5, **mask))}
+    if ids is None:
+        band = flash_fwd.pair_mask(Nq, Nk, device=DEVICE, **mask)[0, 0]
+        fwd_row["library_ms"] = sdpa_ms(q, k, v, attn_mask=band)
+        bwd_row["library_ms"] = sdpa_ms(q, k, v, do=do, attn_mask=band)
+        call = "scaled_dot_product_attention(attn_mask=the pair's band, enable_gqa=True)"
+    else:
+        seg_q, seg_kv = ids
+        dq_off = kw["q_offset"] - kw["kv_offset"]
+
+        def mod(b, h, qi, kj):
+            return (qi + dq_off >= kj) & (seg_q[b, qi] == seg_kv[b, kj])
+
+        fwd_row["library_ms"] = flex_ms(q, k, v, scale=kw["scale"], mask_mod=mod)
+        bwd_row["library_ms"] = flex_ms(q, k, v, scale=kw["scale"], do=do, mask_mod=mod)
+        call = "flex_attention (torch.compile) with the offset causal + segment mask_mod"
+    fwd_row["library_call"] = call
+    bwd_row["library_call"] = f"the backward of {call}"
+    return fwd_row, bwd_row
+
+
+def _offsets_check() -> dict:
+    """Every OFFSET_CASES pair through _offsets_case; the ring neighbour pair
+    and the packed neighbour pair timed (_offsets_timing)."""
+    ids = straddling_ids(SHARDED_SEQ)
+    rows = {}
+    for i, (name, Nq, Nk, opts, q_off, kv_off) in enumerate(OFFSET_CASES):
+        q, k, v = _grown(1700 + i, 1, 8, Nq, 128, Nk, 4)
+        do = _bnhd(make_do(1750 + i, 1, 8, Nq, 128))
+        kw = dict(scale=128 ** -0.5, q_offset=q_off, kv_offset=kv_off, **opts)
+        if kw.pop("ids", False):
+            kw["segment_ids"] = (ids[:, q_off:q_off + Nq].contiguous(),
+                                 ids[:, kv_off:kv_off + Nk].contiguous())
+        err = _offsets_case(name, q, k, v, do, kw)
+        if name in ("ring neighbour", "packed neighbour"):
+            fwd_row, bwd_row = _offsets_timing(q, k, v, do, kw)
+            fwd_row["max_abs_err"], bwd_row["max_abs_err"] = err["fwd_err"], err["bwd_err"]
+            rows[name] = (fwd_row, bwd_row)
+            for what, row in (("K1", fwd_row), ("backward", bwd_row)):
+                log("offsets", f"{name} pair B1 Hq8 Hkv4 N{Nq} D128 bf16, {what}: "
+                               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
+                               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+                               f"{row['library_ms']:.4f} ms (median CUDA-event time)")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return rows
+
+
+def make_do(seed, B, H, N, D):
+    """A bf16 output cotangent [B, N, H, D] (a BNHD view of it is the path's)."""
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    return make_qkv(seed, B, H, N, D, device=DEVICE)[0].to(torch.bfloat16)
+
+
+def _path_gate(tag: str, got, want) -> None:
+    """A parallel path against the single-device flash_attention on the same
+    bf16 inputs: O within FWD_TOL[bf16] and relative L2 REL_L2_LIMIT, dQ /
+    dK / dV within relative L2 GRAD_REL_L2_LIMIT."""
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close
+
+    ok_o, msg_o = check_close(got[0], want[0], FWD_TOL[torch.bfloat16], "O")
+    rel = {n: _rel(a.float(), b.float()) for n, a, b in zip(("o", "dq", "dk", "dv"), got, want)}
+    log("paths", f"{tag} vs single-device flash_attention: O max_abs_err "
+                 f"{(got[0].float() - want[0].float()).abs().max().item():.3e} (budget "
+                 f"{O_TOL_NAME}); relative L2 " + ", ".join(f"{n} {r:.2e}" for n, r in rel.items())
+                 + f" (limits {REL_L2_LIMIT} / {GRAD_REL_L2_LIMIT})")
+    if not ok_o or rel["o"] > REL_L2_LIMIT or max(rel[n] for n in ("dq", "dk", "dv")) > \
+            GRAD_REL_L2_LIMIT:
+        fail(f"{tag} disagrees with single-device flash_attention: {msg_o}; {rel}")
+
+
+def _parallel_paths_check() -> dict:
+    """Ring (causal, a (2047, -1) window, segment ids), zigzag and Ulysses
+    attention on a seq = 4 VirtualMesh and head-parallel attention on model
+    = 2, at the LM's attention B1 Hq16 Hkv8 N8192 D128 (q, k at GROW x unit
+    scale), forward and gradients against single-device flash_attention,
+    with exact launch counts: the live chunk pairs of each ring (10 causal,
+    7 windowed, 2P + 1 = 9 per rank zigzag), one call per rank for Ulysses
+    and head-parallel; no K7 / K8, bias route or fwd_tile.cuh launch."""
+    from flashattn_tpu_torch import flash_attention
+    from flashattn_tpu_torch.parallel import (
+        head_parallel_attention, make_mesh, ring_attention_sharded,
+        zigzag_ring_attention_sharded)
+    from flashattn_tpu_torch.parallel.ulysses import ulysses_attention_sharded
+
+    P = PATH_RANKS
+    q, k, v, do = _ring_inputs(1800, P, SHARDED_SEQ // P, 16, 8, 128, GROW)
+    ids = straddling_ids(SHARDED_SEQ)
+    seq, tp = make_mesh(seq=P), make_mesh(model=2)
+    window = (2047, -1)
+    ring_pairs = P * (P + 1) // 2
+    win_pairs = 2 * P - 1
+    zz_pairs = P * (2 * P + 1)
+
+    def k1k3(n, **extra):
+        return dict(K1=n, K1_dense_sm90=n, K3=n, K3_sm90=n, **extra)
+
+    cases = [("ring causal", ring_attention_sharded(seq, causal=True), dict(causal=True), (),
+              k1k3(ring_pairs)),
+             ("ring window (2047, -1)", ring_attention_sharded(seq, causal=True, window=window),
+              dict(causal=True, window=window), (), k1k3(win_pairs, K1_window=win_pairs)),
+             ("ring segment ids", ring_attention_sharded(seq, causal=True, with_segment_ids=True),
+              dict(causal=True, segment_ids=ids), (ids,),
+              dict(K1=ring_pairs, K1_dense_sm90=ring_pairs, split_bwd=ring_pairs)),
+             ("zigzag", zigzag_ring_attention_sharded(seq), dict(causal=True), (),
+              k1k3(zz_pairs)),
+             ("ulysses", ulysses_attention_sharded(seq, causal=True), dict(causal=True), (),
+              k1k3(P)),
+             ("head-parallel, model 2", head_parallel_attention(tp, causal=True),
+              dict(causal=True), (), k1k3(2))]
+    refs = {}
+    launches = {}
+    for name, fn, single_kw, extra, want in cases:
+        key = tuple(sorted((n, str(x)) for n, x in single_kw.items()))
+        if key not in refs:
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            o = flash_attention(*leaves, **single_kw)
+            refs[key] = (o.detach(), *torch.autograd.grad(o, leaves, do))
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        _reset_launches()
+        o = fn(*leaves, *extra)
+        grads = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        counts = _launches()
+        log("paths", f"{name} (B1 Hq16 Hkv8 N{SHARDED_SEQ} D128, q, k x{GROW}): launches "
+                     f"{ {n: c for n, c in counts.items() if c} } (expected {want})")
+        if counts != _expect(**want):
+            fail(f"{name} launched {counts}, expected {want} and no other")
+        _path_gate(name, (o.detach(), *grads), refs[key])
+        launches[name] = counts
+        del o, grads, leaves
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _kernel_share(prof) -> tuple[float, float]:
+    """(device ms of the ring's K1 / K3 / split launches, device ms of every
+    kernel) from a torch.profiler run over CUDA activity."""
+    names = ("fwd_dense_sm90_kernel", "bwd_sm90_kernel", "bwd_split_sm90_kernel")
+    attn = total = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        t = getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+        total += t
+        if any(n in e.key for n in names):
+            attn += t
+    return attn / 1e3, total / 1e3
+
+
+def _grad_rel_l2(mesh, grads, ref, specs) -> dict:
+    """Per leaf of ``ref`` (global single-device gradients): the relative L2
+    error of the ranks' sharded gradients ``grads`` against ``ref`` cut by
+    the same specs, over every local rank's shard, in f32."""
+    out = {}
+    for name, want in ref.items():
+        err = den = 0.0
+        for g, w in zip((g[name] for g in grads), mesh.shard(want, specs[name])):
+            err += (g.float() - w.float()).square().sum().item()
+            den += w.float().square().sum().item()
+        out[name] = math.sqrt(err / den) if den > 0 else math.inf
+    return out
+
+
+def _sharded_lm() -> dict:
+    """bench_lm's LM at full width and depth (443.1 M parameters, bf16, seeded
+    weights) through models.transformer.make_sharded_train_step on a
+    SHARDED_MESH VirtualMesh at [1, SHARDED_SEQ] tokens, in three layouts:
+    contiguous, zigzag and packed (8 documents, three straddling a shard
+    edge). Per layout one lr=0 step with the counters reset just before --
+    its loss within SHARDED_LOSS_TOL of the single-device lm_loss (packed:
+    the packed lm_loss), exact launch counts (per step: layers x model ranks
+    x the live chunk pairs of a seq group: 10 contiguous, 2P + 1 = 9 per
+    rank zigzag; the split route and no K3 packed; nothing else) -- then the
+    step's gradients (step.loss_and_grads) of SHARDED_GRAD_LEAVES against
+    autograd of the same lm_loss on an f32 copy of the model, each within
+    SHARDED_GRAD_FLOOR_X times the single-device bf16 step's distance from
+    it, SHARDED_TIMED timed lr=0 steps (median ms/step with its spread,
+    tokens/s, peak GB) and one more under torch.profiler (the device time of
+    every kernel and of the ring's K1 / K3 / split launches, beside the wall
+    time). Contiguous: then SHARDED_STEPS lr=1e-3 steps on the same batch
+    whose loss must fall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flashattn_tpu_torch.models import transformer as T
+    from flashattn_tpu_torch.parallel import make_mesh
+
+    cfg = T.TransformerConfig(**LM_WIDTH)  # bf16
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = T.init_transformer(cfg, gen, device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SHARDED_SEQ), generator=gen, device=DEVICE)
+    ids = straddling_ids(SHARDED_SEQ)
+    named = dict(model.named_parameters())
+    m32 = T.Transformer(dataclasses.replace(cfg, dtype=torch.float32, remat=True), device=DEVICE)
+    m32.load_state_dict(model.state_dict())
+    named32 = dict(m32.named_parameters())
+    ref, truth, floor = {}, {}, {}
+    for name, seg in (("contiguous", None), ("packed", ids)):
+        loss = T.lm_loss(model, tokens, cfg, segment_ids=seg)
+        g16 = torch.autograd.grad(loss, [named[n] for n in SHARDED_GRAD_LEAVES])
+        loss32 = T.lm_loss(m32, tokens, m32.cfg, attn_impl="xla", segment_ids=seg)
+        g32 = torch.autograd.grad(loss32, [named32[n] for n in SHARDED_GRAD_LEAVES])
+        ref[name], truth[name] = loss.item(), dict(zip(SHARDED_GRAD_LEAVES, g32))
+        floor[name] = {n: _rel_l2({n: a}, {n: b}) for n, a, b in zip(SHARDED_GRAD_LEAVES, g16, g32)}
+        del loss, g16, loss32, g32
+    del m32, named32
+    torch.cuda.empty_cache()
+    for d in (ref, truth, floor):
+        d["zigzag"] = d["contiguous"]
+    mesh = make_mesh(*SHARDED_MESH)
+    data, tp, sp = SHARDED_MESH
+    groups = cfg.n_layers * data * tp
+    ring, zz = sp * (sp + 1) // 2, sp * (2 * sp + 1)
+    layouts = {"contiguous": (None, dict(K1=groups * ring, K1_dense_sm90=groups * ring,
+                                         K3=groups * ring, K3_sm90=groups * ring)),
+               "zigzag": (None, dict(K1=groups * zz, K1_dense_sm90=groups * zz,
+                                     K3=groups * zz, K3_sm90=groups * zz)),
+               "packed": (ids, dict(K1=groups * ring, K1_dense_sm90=groups * ring,
+                                    split_bwd=groups * ring))}
+    n_tok = tokens.shape[1] - 1  # positions with a target
+    tag = (f"LM {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params on a "
+           f"(data {data}, model {tp}, seq {sp}) VirtualMesh, {list(tokens.shape)} tokens")
+    out = {}
+    for layout, (seg, want) in layouts.items():
+        extra = () if seg is None else (seg,)
+        shards = T.shard_params(model, mesh)
+        opt = [T.adamw_init(p) for p in shards]
+        step, specs, _ = T.make_sharded_train_step(
+            mesh, cfg, lr=0.0, seq_layout="zigzag" if layout == "zigzag" else "contiguous",
+            with_segment_ids=seg is not None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        _, _, loss = step(shards, opt, tokens, *extra)
+        torch.cuda.synchronize()
+        counts = _launches()
+        loss = loss.item()
+        _, grads = step.loss_and_grads(shards, tokens, *extra)
+        rel = _grad_rel_l2(mesh, grads, truth[layout], specs)
+        del grads
+        secs = []
+        for _ in range(SHARDED_TIMED):
+            t0 = time.perf_counter()
+            step(shards, opt, tokens, *extra)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        step_s = statistics.median(secs)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(shards, opt, tokens, *extra)
+            torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+        attn_ms, dev_ms = _kernel_share(prof)
+        log("sharded", f"{tag}, {layout}: lr=0 loss {loss:.5f}, single-device lm_loss "
+                       f"{ref[layout]:.5f}, |diff| {abs(loss - ref[layout]):.2e} (limit "
+                       f"{SHARDED_LOSS_TOL}); gradients' relative L2 against the f32 model "
+                       + ", ".join(f"{n} {e:.3e} (bf16 floor {floor[layout][n]:.3e})"
+                                   for n, e in rel.items())
+                       + f" (limit {SHARDED_GRAD_FLOOR_X} x floor); {step_s * 1e3:.1f} ms/step "
+                       f"(median of "
+                       f"{SHARDED_TIMED} after the counted step: "
+                       f"{', '.join(f'{x * 1e3:.1f}' for x in secs)}), {n_tok / step_s:.0f} "
+                       f"tokens/s, peak {peak:.2f} GB; launches "
+                       f"{ {n: c for n, c in counts.items() if c} } (expected {want})")
+        share = (f"{attn_ms:.2f} ms of {dev_ms:.2f} ms of kernel time "
+                 f"({100 * attn_ms / dev_ms:.1f}%)" if dev_ms > 0 else "not measured (the "
+                 "profiler saw no device time)")
+        log("sharded", f"{layout}: one profiled step, {prof_ms:.1f} ms wall; the ring's "
+                       f"K1 / K3 / split launches take {share}")
+        if counts != _expect(**want):
+            fail(f"the sharded step ({layout}) launched {counts}, expected {want} and no other")
+        if not abs(loss - ref[layout]) <= SHARDED_LOSS_TOL:
+            fail(f"the sharded step's loss ({layout}) {loss} vs single-device {ref[layout]}")
+        if not all(e <= SHARDED_GRAD_FLOOR_X * floor[layout][n] for n, e in rel.items()):
+            fail(f"the sharded step's gradients ({layout}) vs the f32 model: {rel}, above "
+                 f"{SHARDED_GRAD_FLOOR_X} x the bf16 floor {floor[layout]}")
+        out[layout] = {"counts": counts, "ms": step_s * 1e3, "ms_all": [x * 1e3 for x in secs],
+                       "peak_gb": peak, "loss": loss, "grad_rel_l2": rel,
+                       "grad_floor": floor[layout], "attn_ms": attn_ms,
+                       "device_ms": dev_ms, "profiled_wall_ms": prof_ms}
+        if layout == "contiguous":
+            del shards, opt
+            shards = T.shard_params(model, mesh)
+            opt = [T.adamw_init(p) for p in shards]
+            train, _, _ = T.make_sharded_train_step(mesh, cfg, lr=SHARDED_LR)
+            losses, secs = [], []
+            for _ in range(SHARDED_STEPS):
+                t0 = time.perf_counter()
+                _, _, lo = train(shards, opt, tokens)
+                losses.append(lo.item())
+                secs.append(time.perf_counter() - t0)
+            step_s = statistics.median(secs[1:])
+            log("sharded", f"{layout}: {SHARDED_STEPS} AdamW steps at lr {SHARDED_LR} on one "
+                           f"batch, {step_s * 1e3:.1f} ms/step "
+                           f"({', '.join(f'{x * 1e3:.1f}' for x in secs)}), {n_tok / step_s:.0f} "
+                           f"tokens/s (median after 1 warm-up step); loss "
+                           + " -> ".join(f"{x:.4f}" for x in losses))
+            if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+                fail(f"sharded training: losses {losses} not finite or not falling")
+            out[layout]["train_ms"] = step_s * 1e3
+        del shards, opt
+        torch.cuda.empty_cache()
+    del model, truth
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_train() -> dict:
+    """The distribution layer on one card: q / kv offsets on K1's dense
+    route, K3 and the split route at every chunk-pair kind the paths make
+    (_offsets_check), ring / zigzag / Ulysses / head-parallel attention
+    against single-device flash_attention (_parallel_paths_check), and the
+    dp x tp x sp LM step at full width on an 8-rank VirtualMesh
+    (_sharded_lm)."""
+    rows = _offsets_check()
+    paths = _parallel_paths_check()
+    lm = _sharded_lm()
+    return {"rows": rows, "paths": paths, "lm": lm}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -3009,6 +3491,7 @@ def main() -> None:
     bias_train = timed(phase_bias_train)
     roof = timed(phase_roofline)
     ring = timed(phase_ring)
+    sharded = timed(phase_sharded_train)
     fwd_src, bwd_src, split_src, bias_sm90_src = (
         f"flashattn_tpu_torch/csrc/flash_{d}.cu"
         for d in ("fwd_sm90", "bwd_sm90", "bwd_split_sm90", "fwd_bias_sm90"))
@@ -3111,7 +3594,24 @@ def main() -> None:
         {"name": "ring bwd step (K8, TMA + wgmma)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/ring_bwd.cu",
          "replaces": "flashattn_tpu/parallel/ring_kernel.py:389",
-         "launches": ring["launches"]["K8"], **ring["k8"]}]}), flush=True)
+         "launches": ring["launches"]["K8"], **ring["k8"]},
+        # The chunk pairs of the sharded LM step (phase_sharded_train): its
+        # contiguous step's launches and its packed step's.
+        {"name": "K1 dense sm90 offsets (flash_fwd_sm90, wgmma: the contiguous ring's "
+                 "neighbour chunk pair, B1 Hq8 Hkv4 2048 x 2048 D128)", "route": "cuda",
+         "source": fwd_src, "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+         "launches": sharded["lm"]["contiguous"]["counts"]["K1 dense sm90"],
+         **sharded["rows"]["ring neighbour"][0]},
+        {"name": "K3 sm90 offsets (flash_bwd_sm90, wgmma: the contiguous ring's neighbour "
+                 "chunk pair)", "route": "cuda", "source": bwd_src,
+         "replaces": "flashattn_tpu/ops/flash_bwd_fused.py:110",
+         "launches": sharded["lm"]["contiguous"]["counts"]["K3 sm90"],
+         **sharded["rows"]["ring neighbour"][1]},
+        {"name": "split sm90 offsets (flash_bwd_split_sm90, wgmma: the packed ring's "
+                 "neighbour chunk pair, one document across the edge)", "route": "cuda",
+         "source": split_src, "replaces": split_replaces,
+         "launches": sharded["lm"]["packed"]["counts"]["split bwd"],
+         **sharded["rows"]["packed neighbour"][1]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

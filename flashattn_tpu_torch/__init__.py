@@ -12,11 +12,28 @@ Public API::
     o = flash_attention(q, k, v)                              # [B,H,N,D]
     o = flash_attention(q, k, v, layout="BNHD")               # [B,N,H,D]
     o = scaled_dot_product_attention(q, k, v, layout="BNHD")  # SDPA-style adapter
+
+The distribution layer (``parallel/``: ``make_mesh``, head-parallel, ring,
+zigzag and Ulysses attention) is exported here too, as
+``flashattn_tpu.parallel`` exports it.
 """
 
 from flashattn_tpu_torch.ops.flash import flash_attention, flash_attention_with_lse
 from flashattn_tpu_torch.ops.oracle import attention_reference
 from flashattn_tpu_torch.ops.sdpa import scaled_dot_product_attention
+from flashattn_tpu_torch.parallel import (
+    head_parallel_attention,
+    make_mesh,
+    ring_attention,
+    ring_attention_kernel,
+    ring_attention_kernel_sharded,
+    ring_attention_sharded,
+    ulysses_attention,
+    zigzag_ring_attention,
+    zigzag_ring_attention_sharded,
+    zigzag_shard,
+    zigzag_unshard,
+)
 
 __version__ = "0.1.0"
 
@@ -25,5 +42,16 @@ __all__ = [
     "flash_attention_with_lse",
     "scaled_dot_product_attention",
     "attention_reference",
+    "make_mesh",
+    "head_parallel_attention",
+    "ring_attention",
+    "ring_attention_sharded",
+    "ring_attention_kernel",
+    "ring_attention_kernel_sharded",
+    "ulysses_attention",
+    "zigzag_ring_attention",
+    "zigzag_ring_attention_sharded",
+    "zigzag_shard",
+    "zigzag_unshard",
     "__version__",
 ]

@@ -44,12 +44,22 @@ constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;
 // An unbounded side of the causal / window band (the kernels' lo, hi).
 constexpr int NO_BOUND = 1 << 30;
 
-// The band of flashattn_tpu/ops/flash_fwd.py::_range_predicates as (lo, hi):
-// row i sees column j iff i - lo <= j <= i + hi. A negative window bound is
-// no bound on that side; causal makes the right bound 0, whatever wr is.
-inline void band_bounds(int causal, int wl, int wr, int* lo, int* hi) {
-  *lo = wl >= 0 ? (wl < NO_BOUND ? wl : NO_BOUND) : NO_BOUND;
-  *hi = causal ? 0 : wr >= 0 ? (wr < NO_BOUND ? wr : NO_BOUND) : NO_BOUND;
+// The band of flashattn_tpu/ops/flash_fwd.py::_range_predicates as (lo, hi),
+// in the tensors' local positions: row i sees column j iff i - lo <= j <= i +
+// hi. A negative window bound is no bound on that side; causal makes the
+// right bound 0, whatever wr is. The JAX masks compare absolute positions,
+// q_offset + i and kv_offset + j: a chunk pair at delta = q_offset -
+// kv_offset shifts each bound that exists, hi + delta and lo - delta, and a
+// side without one keeps NO_BOUND. A shifted bound may be negative (a band
+// that misses the diagonal, or whole rows or KV tiles); it is clamped to
+// [-NO_BOUND, NO_BOUND], which no position reaches.
+inline void band_bounds(int causal, int wl, int wr, int* lo, int* hi, int64_t delta = 0) {
+  auto shifted = [](int64_t b) {
+    return static_cast<int>(b < -NO_BOUND ? -NO_BOUND : b > NO_BOUND ? NO_BOUND : b);
+  };
+  *lo = wl >= 0 && wl < NO_BOUND ? shifted(static_cast<int64_t>(wl) - delta) : NO_BOUND;
+  *hi = causal ? shifted(delta)
+               : wr >= 0 && wr < NO_BOUND ? shifted(static_cast<int64_t>(wr) + delta) : NO_BOUND;
 }
 
 __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],

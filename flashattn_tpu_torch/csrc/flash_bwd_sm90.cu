@@ -65,9 +65,11 @@ extern "C" {
 // contiguous, nq_pad a multiple of 64 >= Nq (the rows past Nq are read and
 // not used), 16-byte aligned; dq [B, Hq, Nq, D] f32 contiguous, zeroed (added
 // to), 16-byte aligned; dk / dv [B, Hq, Nk, D] f32 contiguous, written,
-// 8-byte aligned, per query head. causal != 0 masks kv_pos > q_pos
-// (top-left, zero offsets); the window (wl, wr) masks kv_pos < q_pos - wl
-// (wl >= 0) and kv_pos > q_pos + wr (wr >= 0), a negative bound being none.
+// 8-byte aligned, per query head. Positions are absolute, q_pos = q_off +
+// row and kv_pos = kv_off + key: causal != 0 masks kv_pos > q_pos; the
+// window (wl, wr) masks kv_pos < q_pos - wl (wl >= 0) and kv_pos > q_pos + wr
+// (wr >= 0), a negative bound being none. A KV tile that no row reaches
+// writes zero dK / dV rows.
 // Requires 8 <= D <= 128 with D % 8 == 0, Hq % Hkv == 0, Nq, Nk >= 1,
 // 0 <= kv_valid_len <= Nk, B <= 65535. Returns a cudaError_t (0: success;
 // cudaErrorInvalidValue for arguments it does not take,
@@ -75,10 +77,10 @@ extern "C" {
 // tensor map).
 int fa_bwd_sm90(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                 const void* delta, void* dq, void* dk, void* dv, int batch, int hq, int hkv,
-                int nq, int nk, int d, int kv_valid_len, int causal, int wl, int wr, int nq_pad,
-                float scale, int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh,
-                int64_t k_sn, int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t do_sb,
-                int64_t do_sh, int64_t do_sn, void* stream) {
+                int nq, int nk, int d, int kv_valid_len, int causal, int wl, int wr, int q_off,
+                int kv_off, int nq_pad, float scale, int64_t q_sb, int64_t q_sh, int64_t q_sn,
+                int64_t k_sb, int64_t k_sh, int64_t k_sn, int64_t v_sb, int64_t v_sh,
+                int64_t v_sn, int64_t do_sb, int64_t do_sh, int64_t do_sn, void* stream) {
   // The K/V maps' key extent (at least 1: a map has no empty dim; with
   // kv_valid_len 0 no tile is loaded).
   const int nkv = kv_valid_len > 0 ? kv_valid_len : 1;
@@ -118,7 +120,8 @@ int fa_bwd_sm90(const void* q, const void* k, const void* v, const void* dout, c
   p.nk = nk;
   p.kv_valid_len = kv_valid_len;
   p.d = d;
-  band_bounds(causal, wl, wr, &p.lo, &p.hi);
+  band_bounds(causal, wl, wr, &p.lo, &p.hi,
+              static_cast<int64_t>(q_off) - kv_off);
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

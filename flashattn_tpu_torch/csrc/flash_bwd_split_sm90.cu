@@ -71,7 +71,7 @@ extern "C" {
 // logit softcap. The arguments of K3's fa_bwd_sm90 (flash_bwd_sm90.cu) --
 // q / dout [B, Hq, Nq, D] and k / v [B, Hkv, Nk, D] bf16 with TMA's strides,
 // lse / delta [B, Hq, nq_pad] f32, dq zeroed and added to, dk / dv per query
-// head, causal and the window (wl, wr) -- and:
+// head, causal, the window (wl, wr) and the offsets (q_off, kv_off) -- and:
 //   seg_q [B, q_tiles * 64] and seg_kv [B, kv_tiles * 128] int32 contiguous,
 //     16-byte aligned: the ids of the rows below Nq and of the keys below
 //     kv_valid_len, each row padded to whole tiles (the padding is never
@@ -90,8 +90,8 @@ int fa_bwd_split_sm90(const void* q, const void* k, const void* v, const void* d
                       const void* lse, const void* delta, void* dq, void* dk, void* dv,
                       const void* seg_q, const void* seg_kv, const void* q_range,
                       const void* kv_range, int batch, int hq, int hkv, int nq, int nk, int d,
-                      int kv_valid_len, int causal, int wl, int wr, int nq_pad, float scale,
-                      float softcap, int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t k_sb,
+                      int kv_valid_len, int causal, int wl, int wr, int q_off, int kv_off,
+                      int nq_pad, float scale, float softcap, int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t k_sb,
                       int64_t k_sh, int64_t k_sn, int64_t v_sb, int64_t v_sh, int64_t v_sn,
                       int64_t do_sb, int64_t do_sh, int64_t do_sn, void* stream) {
   const int nkv = kv_valid_len > 0 ? kv_valid_len : 1;
@@ -137,7 +137,8 @@ int fa_bwd_split_sm90(const void* q, const void* k, const void* v, const void* d
   p.nk = nk;
   p.kv_valid_len = kv_valid_len;
   p.d = d;
-  band_bounds(causal, wl, wr, &p.lo, &p.hi);
+  band_bounds(causal, wl, wr, &p.lo, &p.hi,
+              static_cast<int64_t>(q_off) - kv_off);
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
   p.seg_q = static_cast<const int*>(seg_q);

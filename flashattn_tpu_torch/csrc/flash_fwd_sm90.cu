@@ -47,9 +47,12 @@ extern "C" {
 
 // O and LSE for q [B, Hq, Nq, D] and k/v [B, Hkv, Nk, D] bf16 (unit stride on
 // D, other strides in elements); o has q's shape, lse is [B, Hq, Nq] f32
-// contiguous. causal != 0 masks kv_pos > q_pos (top-left, zero offsets); the
-// window (wl, wr) masks kv_pos < q_pos - wl (wl >= 0) and kv_pos > q_pos + wr
-// (wr >= 0), a negative bound being none. Segment ids: all four pointers or
+// contiguous. Positions are absolute, q_pos = q_off + row and kv_pos = kv_off
+// + key (a chunk pair of a sequence-parallel caller): causal != 0 masks
+// kv_pos > q_pos; the window (wl, wr) masks kv_pos < q_pos - wl (wl >= 0) and
+// kv_pos > q_pos + wr (wr >= 0), a negative bound being none. A row that
+// sees no key (a band that misses it, or a Q tile that meets no KV tile) is
+// dead: O = 0 and LSE = ln2 * mask. Segment ids: all four pointers or
 // none --
 //   seg_q [B, Nq] int32, unit stride along the rows, batch stride seg_q_sb;
 //   seg_kv [B, kv_tiles * 64] int32 contiguous: the ids of the keys below
@@ -70,10 +73,10 @@ extern "C" {
 int fa_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
                 const void* seg_q, const void* seg_kv, const void* q_range, const void* kv_range,
                 int batch, int hq, int hkv, int nq, int d, int kv_valid_len, int causal, int wl,
-                int wr, float scale, float softcap, int64_t q_sb, int64_t q_sh, int64_t q_sn,
-                int64_t k_sb, int64_t k_sh, int64_t k_sn, int64_t v_sb, int64_t v_sh,
-                int64_t v_sn, int64_t o_sb, int64_t o_sh, int64_t o_sn, int64_t seg_q_sb,
-                void* stream) {
+                int wr, int q_off, int kv_off, float scale, float softcap, int64_t q_sb,
+                int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn,
+                int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh,
+                int64_t o_sn, int64_t seg_q_sb, void* stream) {
   // The K/V maps' sequence extent (at least 1: a map has no empty dim; with
   // kv_valid_len 0 no KV tile is loaded).
   const int nkv = kv_valid_len > 0 ? kv_valid_len : 1;
@@ -112,7 +115,8 @@ int fa_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
   p.nq = nq;
   p.d = d;
   p.kv_valid_len = kv_valid_len;
-  band_bounds(causal, wl, wr, &p.lo, &p.hi);
+  band_bounds(causal, wl, wr, &p.lo, &p.hi,
+              static_cast<int64_t>(q_off) - kv_off);
   p.q_tiles = (nq + FB_BLOCK_M - 1) / FB_BLOCK_M;
   p.kv_tiles = (kv_valid_len + FB_BLOCK_N - 1) / FB_BLOCK_N;
   p.scale_log2 = scale * fa::LOG2E;

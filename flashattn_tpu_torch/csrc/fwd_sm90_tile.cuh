@@ -31,10 +31,13 @@
 //   * The dense route (ops/flash_fwd.py::dense_route): bf16 Q/K/V without a
 //     bias or quantized K/V; the KV tail
 //     below kv_valid_len and a ragged Q tail; the band of flash_fwd.py::
-//     _range_predicates in absolute positions with zero offsets, also when
-//     Nq != Nk -- row i sees column j iff i - lo <= j <= i + hi, hi 0 with
-//     causal, else the window's right bound, lo the window's left one
-//     (NO_BOUND on an unbounded side), as K7 takes it (ring_fwd.cu); and
+//     _range_predicates, also when Nq != Nk -- row i sees column j iff i -
+//     lo <= j <= i + hi, hi 0 with causal, else the window's right bound, lo
+//     the window's left one (NO_BOUND on an unbounded side), as K7 takes it
+//     (ring_fwd.cu), both shifted by a chunk pair's q_offset - kv_offset
+//     (common.cuh band_bounds): a shifted band may miss the diagonal, whole
+//     rows or the whole CTA, whose rows are then dead (no KV tile visited:
+//     m stays -inf, under the dead-row test); and
 //     segment ids (seg_q [B, Nq], seg_kv [B, Nk]: pair (i, j) attends iff
 //     the ids are equal), AND-composed with the other masks, a row that
 //     matches no key being dead.

@@ -8,7 +8,9 @@ arrays) and the port's :class:`UNet` and :class:`Transformer` have the same
 paths; only U-Net conv kernels change layout, HWIO -> OIHW. With the weights
 carried over, both compute the same function, which is how the tests hold the
 port to the JAX models. A KV cache of the JAX ``init_kv_cache`` /
-``decode_step`` carries over with :func:`kv_cache_from_jax`.
+``decode_step`` carries over with :func:`kv_cache_from_jax`, and the LM's
+weights straight into the ranks' shards of a mesh with
+:func:`sharded_transformer_from_jax`.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from flashattn_tpu_torch.integrations.torch_nn import FlashMultiHeadDotProductAttention
-from flashattn_tpu_torch.models.transformer import Transformer, TransformerConfig
+from flashattn_tpu_torch.models.transformer import Transformer, TransformerConfig, shard_params
 from flashattn_tpu_torch.models.unet import UNet, UNetConfig
 
 
@@ -69,6 +71,14 @@ def transformer_from_jax(params, cfg: TransformerConfig, device="cuda") -> Trans
     arrays), cast to ``cfg.dtype``. Every leaf keeps its shape. Raises
     ValueError if the trees' paths or shapes differ."""
     return _load(Transformer(cfg, device=device), params, conv_hwio=False)
+
+
+def sharded_transformer_from_jax(params, cfg: TransformerConfig, mesh) -> list[dict]:
+    """The per-rank parameter shards that ``make_sharded_train_step`` takes
+    (``transformer.shard_params``), on ``mesh``'s device, from the JAX pytree
+    ``params`` (numpy leaves) -- the weights the JAX step's ``param_specs``
+    would shard, so both packages train the same model."""
+    return shard_params(transformer_from_jax(params, cfg, device=mesh.device), mesh)
 
 
 def mhdpa_from_flax(params, *, num_heads: int, causal: bool = False, window=None,

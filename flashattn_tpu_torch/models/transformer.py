@@ -21,9 +21,13 @@ The parameters keep the JAX pytree's names and shapes -- ``embed``, ``ln_f``,
 ``layers.{i}.{ln1,wq,wk,wv,wo,ln2,w_gate,w_up,w_down}``, ``wq`` as
 ``[d_model, H, d_head]`` -- and the forward keeps the JAX einsums, so
 ``models.convert.transformer_from_jax`` is a plain copy (and
-``kv_cache_from_jax`` carries a cache over). The sharded step is not ported
-yet (ROADMAP queue 1, item 1.3). :class:`Transformer`, :func:`init_transformer`
-and :func:`init_kv_cache` build on the card unless given ``device=``.
+``kv_cache_from_jax`` carries a cache over). :func:`make_sharded_train_step`
+is the dp x tp x sp training step on a mesh (``parallel/mesh.py``): heads and
+MLP columns on ``model``, the sequence on ``seq`` through differentiable ring
+attention (contiguous or zigzag), the batch on ``data`` (and ``slice``);
+:func:`shard_params` cuts the parameters into the ranks' shards.
+:class:`Transformer`, :func:`init_transformer` and :func:`init_kv_cache`
+build on the card unless given ``device=``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ from flashattn_tpu_torch.ops.oracle import attention_reference
 from flashattn_tpu_torch.ops.quant import (
     QuantizedKV, flash_attention_quantized, quantize_kv, resolve_quant_dtype,
 )
+from flashattn_tpu_torch.parallel.ring import ring_attention
+from flashattn_tpu_torch.parallel.zigzag import zigzag_order, zigzag_ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -373,3 +379,248 @@ def decode_step(model: Transformer, cache: dict, token, cfg: TransformerConfig):
     logits = torch.einsum("bnd,vd->bnv", x, model.embed)[:, 0]
     cache["length"] = pos + 1
     return logits.float(), cache
+
+
+# ───────────────────────── sharded training step ─────────────────────────────
+
+
+def shard_params_leaf_rules(cfg: TransformerConfig) -> dict[str, tuple]:
+    """The sharding of each layer parameter for tp (the ``model`` axis), as a
+    PartitionSpec tuple per dim (``()``: replicated) -- the JAX rules."""
+    del cfg
+    return {
+        "ln1": (), "ln2": (),
+        "wq": (None, "model", None), "wk": (None, "model", None),
+        "wv": (None, "model", None), "wo": ("model", None, None),
+        "w_gate": (None, "model"), "w_up": (None, "model"),
+        "w_down": ("model", None),
+    }
+
+
+def _param_specs(cfg: TransformerConfig) -> dict[str, tuple]:
+    """The spec of every parameter, by the port's flat names."""
+    rules = shard_params_leaf_rules(cfg)
+    specs = {"embed": (), "ln_f": ()}
+    for i in range(cfg.n_layers):
+        specs.update({f"layers.{i}.{k}": spec for k, spec in rules.items()})
+    return specs
+
+
+def shard_params(model: Transformer, mesh) -> list[dict]:
+    """Each local rank's parameters: ``model``'s cut by the leaf rules on the
+    rank's ``model`` coordinate, one dict per local rank of ``mesh`` (in
+    ``mesh.ranks`` order), each leaf a contiguous copy on the mesh's device,
+    owned by its rank (AdamW updates it in place)."""
+    specs = _param_specs(model.cfg)
+    shards = [dict() for _ in mesh.ranks]
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            for i, x in enumerate(mesh.shard(p.detach(), specs[name])):
+                shards[i][name] = x.to(mesh.device).clone(memory_format=torch.contiguous_format)
+    return shards
+
+
+def _zigzag_positions(seq_idx: int, n_local: int, sp: int, device=None):
+    """Global positions of a rank's zigzag-layout local rows: natural chunks
+    (d, 2·sp−1−d) of length n_local/2 concatenated."""
+    c = n_local // 2
+    ar = torch.arange(c, device=device)
+    return torch.cat([ar + seq_idx * c, ar + (2 * sp - 1 - seq_idx) * c])
+
+
+def _local_forward_sharded(params, tokens, cfg, mesh, *, zigzag=False, segment_ids=None,
+                           positions=None):
+    """The per-rank forward over ``mesh``'s local ranks: ``params`` holds each
+    rank's tp-sharded heads and MLP columns, ``tokens`` each rank's
+    ``[B/dp, N/sp]`` chunk (lists, one entry per local rank). Ring attention
+    over ``seq`` -- plain (contiguous layout) or zigzag, RoPE positions
+    following the layout -- and a psum over ``model`` after ``wo`` and
+    ``w_down``. ``segment_ids`` / ``positions``: each rank's chunks for
+    packed batches (contiguous layout; the positions are computed on the
+    global ids by the caller, since a document may straddle ranks). Returns
+    each rank's logits ``[B/dp, N/sp, vocab]`` f32."""
+    sp = mesh.shape["seq"]
+    seq_idx = mesh.axis_index("seq")
+    if positions is None:
+        positions = []
+        for t, si in zip(tokens, seq_idx):
+            B, N = t.shape
+            pos = (_zigzag_positions(si, N, sp, t.device) if zigzag
+                   else torch.arange(N, device=t.device) + si * N)
+            positions.append(pos[None].expand(B, N))
+    xs = [p["embed"][t] for p, t in zip(params, tokens)]
+    ranks = range(len(xs))
+    for li in range(cfg.n_layers):
+        layer = [{k: p[f"layers.{li}.{k}"] for k in shard_params_leaf_rules(cfg)}
+                 for p in params]
+        qs, ks, vs = [], [], []
+        for r in ranks:
+            h = _rms_norm(xs[r], layer[r]["ln1"])
+            q = torch.einsum("bnd,dhe->bnhe", h, layer[r]["wq"])
+            k = torch.einsum("bnd,dhe->bnhe", h, layer[r]["wk"])
+            v = torch.einsum("bnd,dhe->bnhe", h, layer[r]["wv"])
+            # [B, N/sp, Hloc, D] -> BHND views for the ring
+            qs.append(_rope(q, positions[r], cfg.rope_theta).transpose(1, 2))
+            ks.append(_rope(k, positions[r], cfg.rope_theta).transpose(1, 2))
+            vs.append(v.transpose(1, 2))
+        if zigzag:
+            os = zigzag_ring_attention(qs, ks, vs, mesh=mesh, axis="seq")
+        else:
+            os = ring_attention(qs, ks, vs, mesh=mesh, axis="seq", causal=True,
+                                segment_ids=segment_ids)
+        # wo is row-sharded over heads: partial sums, psum over tp
+        attn = mesh.psum([torch.einsum("bnhe,hed->bnd", o.transpose(1, 2), layer[r]["wo"])
+                          for r, o in zip(ranks, os)], "model")
+        xs = [x + a.to(x.dtype) for x, a in zip(xs, attn)]
+        mlp = []
+        for r in ranks:
+            h2 = _rms_norm(xs[r], layer[r]["ln2"])
+            gate = F.silu(torch.einsum("bnd,df->bnf", h2, layer[r]["w_gate"]).float()
+                          ).to(xs[r].dtype)
+            up = torch.einsum("bnd,df->bnf", h2, layer[r]["w_up"])
+            mlp.append(torch.einsum("bnf,fd->bnd", gate * up, layer[r]["w_down"]))
+        xs = [x + m.to(x.dtype) for x, m in zip(xs, mesh.psum(mlp, "model"))]
+    return [torch.einsum("bnd,vd->bnv", _rms_norm(x, p["ln_f"]), p["embed"]).float()
+            for x, p in zip(xs, params)]
+
+
+def make_sharded_train_step(mesh, cfg: TransformerConfig, *, lr=1e-3,
+                            seq_layout="contiguous", with_segment_ids=False):
+    """Build ``step(params, opt_state, tokens) -> (params, opt_state, loss)``
+    over a (data, model, seq) mesh (``parallel/mesh.make_mesh``), and return
+    ``(step, param_specs, opt_specs)`` as the JAX function does.
+
+    Parallelism map:
+      * data  -- batch DP (and the ``slice`` axis, outermost, as extra DP);
+        gradients psum'd across it;
+      * model -- TP: attention heads and MLP columns sharded, activations
+        replicated, a psum after ``wo`` and ``w_down``;
+      * seq   -- SP: the sequence sharded; differentiable ring attention
+        rotates K/V between the ranks; the gradients of replicated
+        parameters psum'd across it.
+
+    ``params`` are the ranks' shards (:func:`shard_params`), ``opt_state``
+    one :func:`adamw_init` state per local rank; ``tokens`` the global ``[B,
+    N]`` batch in natural order (the step shards it; with ``seq_layout=
+    "zigzag"`` it permutes it into the causally load-balanced layout first:
+    RoPE positions, masks and the next-token loss follow the layout, so the
+    loss is the contiguous one). Next-token targets take a one-token halo
+    from the next ``seq`` rank (two under zigzag), and the global final
+    position is masked out, so the loss equals the single-device
+    :func:`lm_loss` of the same tokens. ``with_segment_ids``: the step takes
+    ``(params, opt_state, tokens, segment_ids)`` for packed batches -- the
+    kv ids rotate with K/V, RoPE positions restart per document (computed on
+    the global ids), and the loss masks document boundaries, the target's
+    id taking the same halo. Contiguous layout only.
+
+    The gradient is the true gradient of that loss (what autograd of the
+    single-device :func:`lm_loss` gives): the backward runs once through one
+    copy of the loss, and each leaf's per-rank gradients are psum'd over the
+    axes its spec replicates it on. The JAX step's gradient comes out
+    multiplied by the size of the mesh axes that its loss psum crosses
+    (under ``shard_map(check_vma=False)`` the transpose of ``psum`` is
+    ``psum``); AdamW almost cancels that factor (ROADMAP queue 3). The step
+    updates ``params`` and the moments in place and returns the loss as a
+    0-d f32 tensor. ``step.loss_and_grads(params, tokens[, segment_ids])``
+    gives the loss and the reduced per-rank gradients without the update."""
+    if seq_layout not in ("contiguous", "zigzag"):
+        raise ValueError(f"unknown seq_layout {seq_layout!r}")
+    zz = seq_layout == "zigzag"
+    if with_segment_ids and zz:
+        raise ValueError(
+            "packed batches (with_segment_ids) require "
+            "seq_layout='contiguous' — the zigzag layout does not thread "
+            "segment ids yet")
+    batch_axes = ("slice", "data") if "slice" in mesh.shape else ("data",)
+    pspecs = _param_specs(cfg)
+    opt_specs = {"mu": pspecs, "nu": pspecs, "count": ()}
+    tok_spec = (batch_axes, "seq")
+    sp = mesh.shape["seq"]
+    loss_axes = (*batch_axes, "seq")
+    down = [(i, (i - 1) % sp) for i in range(sp)]  # rank i receives rank i + 1's
+
+    def local_losses(params, tokens, seg, positions):
+        logits = _local_forward_sharded(params, tokens, cfg, mesh, zigzag=zz, segment_ids=seg,
+                                        positions=positions)
+        seq_idx = mesh.axis_index("seq")
+        nloc = tokens[0].shape[1]
+        if zz:
+            # Two halos, one per zigzag half: lo (natural chunk d) is followed
+            # by chunk d+1 = rank d+1's lo half -- except on the last rank,
+            # whose lo chunk sp-1 is followed by its OWN hi half (chunk sp).
+            # hi (chunk 2sp-1-d) is followed by chunk 2sp-d = rank d-1's hi
+            # half; rank 0's hi is the global tail, masked below.
+            c = nloc // 2
+            nxt_lo = mesh.ppermute([t[:, :1] for t in tokens], "seq", down)
+            nxt_hi = mesh.ppermute([t[:, c:c + 1] for t in tokens], "seq",
+                                   [(i, (i + 1) % sp) for i in range(sp)])
+            targets, gpos = [], []
+            for t, lo, hi, si in zip(tokens, nxt_lo, nxt_hi, seq_idx):
+                lo = t[:, c:c + 1] if si == sp - 1 else lo
+                targets.append(torch.cat([t[:, 1:c], lo, t[:, c + 1:], hi], dim=1))
+                gpos.append(_zigzag_positions(si, nloc, sp, t.device)[None])
+        else:
+            nxt = mesh.ppermute([t[:, :1] for t in tokens], "seq", down)
+            targets = [torch.cat([t[:, 1:], n], dim=1) for t, n in zip(tokens, nxt)]
+            gpos = [(si * nloc + torch.arange(nloc, device=t.device))[None]
+                    for t, si in zip(tokens, seq_idx)]
+        valids = [(g < sp * nloc - 1).expand(t.shape) for g, t in zip(gpos, tokens)]
+        if seg is not None:
+            # a document's last token must not predict the next document's
+            # first: the target's id takes the same one-token halo
+            nxt_seg = mesh.ppermute([s[:, :1] for s in seg], "seq", down)
+            valids = [vl & (s == torch.cat([s[:, 1:], n], dim=1))
+                      for vl, s, n in zip(valids, seg, nxt_seg)]
+        counts = mesh.psum([vl.sum() for vl in valids], loss_axes)
+        out = []
+        for lg, tg, vl, n in zip(logits, targets, valids, counts):
+            ll = torch.log_softmax(lg, dim=-1).gather(-1, tg[..., None])[..., 0]
+            out.append(torch.where(vl, -ll, 0.0).sum() / n.clamp_min(1))
+        return out
+
+    def reduce_axes(spec):
+        return loss_axes if "model" in spec else (*batch_axes, "model", "seq")
+
+    def loss_and_grads(params, tokens, segment_ids=None):
+        """``(loss, grads)``: the loss as a 0-d f32 tensor and, per local
+        rank, ``{name: gradient}`` reduced over the axes that replicate the
+        leaf (the true gradient of the rank's shard)."""
+        seg = positions = None
+        if zz:
+            tokens = tokens[:, torch.from_numpy(zigzag_order(tokens.shape[1], sp)).to(
+                tokens.device)]
+        if segment_ids is not None:
+            # RoPE positions restart per packed document; a document may
+            # straddle seq ranks, so they come from the GLOBAL ids.
+            seg = mesh.shard(segment_ids, tok_spec)
+            positions = mesh.shard(segment_positions(segment_ids), tok_spec)
+        toks = mesh.shard(tokens, tok_spec)
+        names = list(pspecs)
+        with torch.enable_grad():
+            leaves = [{n: p[n].detach().requires_grad_(True) for n in names} for p in params]
+            losses = local_losses(leaves, toks, seg, positions)
+            # Every model rank holds the same loss: their mean is the loss,
+            # and its backward the true gradient once the per-rank parts are
+            # psum'd below.
+            total = sum(losses) / mesh.shape["model"]
+            flat = torch.autograd.grad(total, [lf[n] for lf in leaves for n in names])
+        with torch.no_grad():
+            grads = [dict(zip(names, flat[i * len(names):(i + 1) * len(names)]))
+                     for i in range(len(params))]
+            for n in names:
+                for g, x in zip(grads, mesh.psum([g[n] for g in grads], reduce_axes(pspecs[n]))):
+                    g[n] = x
+            loss = mesh.psum([x.detach() for x in losses], loss_axes)[0]
+        return loss, grads
+
+    def step(params, opt_state, tokens, segment_ids=None):
+        if with_segment_ids != (segment_ids is not None):
+            raise TypeError("segment_ids is required exactly when with_segment_ids=True")
+        loss, grads = loss_and_grads(params, tokens, segment_ids)
+        for p, st, g in zip(params, opt_state, grads):
+            _, new = adamw_update(g, st, p, lr=lr)
+            st["count"] = new["count"]
+        return params, opt_state, loss
+
+    step.loss_and_grads = loss_and_grads
+    return step, pspecs, opt_specs

@@ -13,8 +13,11 @@ ported: a tiny-Nq non-causal GQA call without a window folds each KV head's
 query heads into the Q rows, so the cache is read once. The arguments keep
 the JAX signature; those the port's kernels do not take yet raise
 ``NotImplementedError`` naming their ROADMAP item, on every device: the bias
-together with segment ids, nonzero offsets, and the ``block_sizes`` and
-``compute_dtype`` options. The TPU routing tiers
+together with segment ids, the ``block_sizes`` and ``compute_dtype``
+options, and q / kv offsets that change the result (a causal mask or a
+window, ``q_offset != kv_offset``) with a bias or above head dim 128. The
+offsets of sequence-parallel callers (``parallel/``) run on K1's dense route
+and, in the backward, K3 or the split route, whose band they shift. The TPU routing tiers
 (unaligned/causal decompositions, macro/resident routing) and K3's VMEM bound
 on its dQ scratch are not ported: the CUDA kernels mask the KV tail, the Q
 tail, the causal and window band and the segments themselves, so one launch
@@ -28,7 +31,6 @@ import torch
 from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
 
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
-_ROADMAP_OFFSETS = "ROADMAP queue 2, item 2: dynamic q/kv offsets"
 
 
 def _dispatch_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -99,12 +101,10 @@ def _normalize_segment_ids(segment_ids, q, k):
     return tuple(ids.to(device=q.device, dtype=torch.int32) for ids in (seg_q, seg_kv))
 
 
-def _reject_unported(*, bias, segment_ids, block_sizes, q_offset, kv_offset, compute_dtype):
+def _reject_unported(*, bias, segment_ids, block_sizes, compute_dtype):
     unported = {
         "bias together with segment_ids": (bias is not None and segment_ids is not None,
                                            _ROADMAP_K1),
-        "nonzero q_offset/kv_offset": (int(q_offset) != 0 or int(kv_offset) != 0,
-                                       _ROADMAP_OFFSETS),
         "block_sizes": (block_sizes is not None, _ROADMAP_K1),
         "compute_dtype": (compute_dtype is not None, _ROADMAP_K1),
     }
@@ -125,7 +125,7 @@ def _reduce_dbias(dbias, bias):
 
 class _FlashCore(torch.autograd.Function):
     """K1 forward saving ``(q, k, v, o, lse)``, the segment ids, the bias, the
-    window and the softcap; the backward routes as the JAX
+    window, the softcap and the offsets; the backward routes as the JAX
     ``_flash_core_bwd``: K3 when there are no segment ids, no softcap and no
     bias (its fused branch, with the window), else its two-kernel branch,
     K5 + K6: with a bias (``flash_bwd.bias_bwd_route``) one kernel that
@@ -138,14 +138,14 @@ class _FlashCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seg_q, seg_kv, scale, kv_valid_len, causal, window,
-                softcap):
+                softcap, offsets):
         segment_ids = None if seg_q is None else (seg_q, seg_kv)
         o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
                                segment_ids=segment_ids, bias=bias, window=window,
-                               softcap=softcap)
+                               softcap=softcap, q_offset=offsets[0], kv_offset=offsets[1])
         ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_kv, bias)
         ctx.scale, ctx.kv_valid_len, ctx.causal = scale, kv_valid_len, causal
-        ctx.window, ctx.softcap = window, softcap
+        ctx.window, ctx.softcap, ctx.offsets = window, softcap, offsets
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -158,7 +158,7 @@ class _FlashCore(torch.autograd.Function):
         # Δ = rowsum(dO ⊙ O) in f32, outside the kernel (XLA's job in the JAX package).
         delta = (do.float() * o.float()).sum(-1)
         kw = dict(scale=ctx.scale, causal=ctx.causal, kv_valid_len=ctx.kv_valid_len,
-                  window=ctx.window)
+                  window=ctx.window, q_offset=ctx.offsets[0], kv_offset=ctx.offsets[1])
         dbias = None
         segment_ids = None if seg_q is None else (seg_q, seg_kv)
         want_dbias = bias is not None and ctx.needs_input_grad[3]
@@ -189,7 +189,7 @@ class _FlashCore(torch.autograd.Function):
             dk = dk.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
             dv = dv.view(B, Hkv, Hq // Hkv, Nk, D).sum(2)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, None, None, None, None,
-                None, None, None)
+                None, None, None, None)
 
 
 class _FlashForwardOnly(torch.autograd.Function):
@@ -199,11 +199,11 @@ class _FlashForwardOnly(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seg_q, seg_kv, scale, kv_valid_len, causal, window,
-                softcap):
+                softcap, offsets):
         segment_ids = None if seg_q is None else (seg_q, seg_kv)
         o, lse = flash_fwd.fwd(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
                                segment_ids=segment_ids, bias=bias, window=window,
-                               softcap=softcap)
+                               softcap=softcap, q_offset=offsets[0], kv_offset=offsets[1])
         ctx.mark_non_differentiable(lse)
         return o, lse
 
@@ -215,12 +215,14 @@ class _FlashForwardOnly(torch.autograd.Function):
 
 
 def _forward(q, k, v, *, scale, layout, causal, core, bias, segment_ids, window,
-             logit_softcap, fold=False, **unported):
+             logit_softcap, q_offset, kv_offset, fold=False, **unported):
     q, k, v = _to_bhnd(q, layout), _to_bhnd(k, layout), _to_bhnd(v, layout)
     _validate(q, k, v, bias)
-    _reject_unported(bias=bias, segment_ids=segment_ids, **unported)
-    # As the JAX function normalises them (flash.py:1093-1095, 1164-1171).
+    # As the JAX function normalises them (flash.py:1083-1095, 1158-1171);
+    # offsets that leave the result as it is become (0, 0).
     window = None if window is None else tuple(int(w) for w in window)
+    offsets = flash_fwd.band_offsets(causal, window, q_offset, kv_offset)
+    _reject_unported(bias=bias, segment_ids=segment_ids, **unported)
     softcap = None if logit_softcap is None else float(logit_softcap)
     in_dtype = q.dtype
     if scale is None:
@@ -246,11 +248,11 @@ def _forward(q, k, v, *, scale, layout, causal, core, bias, segment_ids, window,
         o, lse = _forward(
             q.reshape(B, k.shape[1], rep * Nq, D), k, v, scale=scale, layout="BHND",
             causal=False, core=core, bias=bias, segment_ids=None, window=None,
-            logit_softcap=softcap, **unported)
+            logit_softcap=softcap, q_offset=0, kv_offset=0, **unported)
         return _from_bhnd(o.reshape(B, Hq, Nq, D).to(in_dtype), layout), lse
     seg_q, seg_kv = _normalize_segment_ids(segment_ids, q, k)
     o, lse = core.apply(q, k, v, bias, seg_q, seg_kv, float(scale), k.shape[2], bool(causal),
-                        window, softcap)
+                        window, softcap, offsets)
     return _from_bhnd(o.to(in_dtype), layout), lse
 
 
@@ -264,8 +266,8 @@ def flash_attention(
     scale: float | None = None,
     layout: str = "BHND",
     block_sizes=None,
-    q_offset: int = 0,
-    kv_offset: int = 0,
+    q_offset: int | torch.Tensor = 0,
+    kv_offset: int | torch.Tensor = 0,
     window: tuple[int, int] | None = None,
     segment_ids=None,
     logit_softcap: float | None = None,
@@ -277,11 +279,20 @@ def flash_attention(
       q/k/v: ``[B, H, N, D]`` (layout="BHND") or ``[B, N, H, D]``
         (layout="BNHD"). K/V may have fewer heads (GQA) as long as they divide
         Q's head count. ``Nk`` may differ from ``Nq``.
-      causal: mask ``kv_pos > q_pos``, top-left aligned (position 0 of Q
-        and of K/V coincide, also when ``Nq != Nk``).
+      causal: mask ``kv_pos > q_pos``, top-left aligned with zero offsets
+        (position 0 of Q and of K/V coincide, also when ``Nq != Nk``).
+      q_offset/kv_offset: absolute positions of the first query row and the
+        first key (for sequence-parallel callers): ``q_pos = q_offset + i``,
+        ``kv_pos = kv_offset + j`` in the causal and window masks (the KV
+        tail and the segment ids stay local). Host ints, or 0-d integer
+        tensors read once with ``.item()``. Offsets that change the result
+        (a causal mask or a window, ``q_offset != kv_offset``) run on the
+        kernels without a bias at head dims up to 128; with a bias or above
+        D 128 they raise ``NotImplementedError`` (ROADMAP queue 2, item 2).
+        ``q_offset == kv_offset`` is the call without offsets, bit for bit.
       window: sliding window ``(left, right)``: position pair (i, j) may
-        attend iff ``i - left <= j <= i + right`` (absolute positions, zero
-        offsets); -1 disables that side (Mistral-style local attention is
+        attend iff ``i - left <= j <= i + right`` (absolute positions); -1
+        disables that side (Mistral-style local attention is
         ``causal=True, window=(w - 1, -1)``). Tiles outside the band are
         skipped, so cost scales with the window, not N².
       scale: softmax scale, default ``D ** -0.5``.
@@ -299,9 +310,8 @@ def flash_attention(
       logit_softcap: Gemma-2-style soft-capping: the scaled logits become
         ``cap·tanh(s/cap)`` before the bias and the masks, differentiable
         through the cap's ``1 − tanh²`` Jacobian.
-      block_sizes, q_offset, kv_offset, compute_dtype: the JAX package's
-        options; not ported yet, each raises ``NotImplementedError`` when
-        given (nonzero offsets only).
+      block_sizes, compute_dtype: the JAX package's options; not ported
+        yet, each raises ``NotImplementedError`` when given.
     Returns:
       Attention output, same shape/layout/dtype as ``q``. CPU tensors run the
       plain PyTorch versions, CUDA tensors the kernels (bf16; fp16 is cast to
@@ -328,8 +338,8 @@ def flash_attention_with_lse(
     scale: float | None = None,
     layout: str = "BHND",
     block_sizes=None,
-    q_offset: int = 0,
-    kv_offset: int = 0,
+    q_offset: int | torch.Tensor = 0,
+    kv_offset: int | torch.Tensor = 0,
     window: tuple[int, int] | None = None,
     segment_ids=None,
     logit_softcap: float | None = None,

@@ -32,11 +32,13 @@ import torch
 
 from flashattn_tpu_torch.ops.flash_fwd import (
     _kernel_ready,
+    band_offsets,
     check_bias,
     check_segment_ids,
     check_softcap,
     check_window,
     kernel_window,
+    offsets_refusal,
     pair_mask,
     sm90_bias,
     sm90_segments,
@@ -49,14 +51,15 @@ MAX_HEAD_DIM = 128
 
 def recompute_p_ds(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
                    kv_valid_len: int | None = None, segment_ids=None, window=None,
-                   softcap=None, bias=None):
+                   softcap=None, bias=None, q_offset: int = 0, kv_offset: int = 0):
     """``(P, dS, Q, K, V, dO, dL)`` in f32, K/V expanded to the query heads.
 
     P = exp(S·scale + bias − LSE), dL = P (dP − Δ) and dS = dL · scale,
     ``[B, Hq, Nq, Nk]``, with P = 0 exactly for pairs that the forward
     masked (:func:`pair_mask`: keys at or past ``kv_valid_len``, ``kv_pos >
-    q_pos`` when ``causal``, pairs outside ``window``, unequal segment ids),
-    so a dead row contributes nothing. ``bias`` (broadcastable to
+    q_pos`` when ``causal``, pairs outside ``window``, in absolute positions
+    ``q_offset + i`` and ``kv_offset + j``, unequal segment ids), so a dead
+    row contributes nothing. ``bias`` (broadcastable to
     ``[B, Hq, Nq, Nk]``) is added to the scaled, capped logits, as the JAX
     ``_recompute_p_ds`` adds it (flash_bwd.py:97-98). With ``softcap``:
     t = tanh(S·scale / softcap), P = exp(softcap·t + bias − LSE) and dS gains
@@ -70,7 +73,8 @@ def recompute_p_ds(q, k, v, do, lse, delta, *, scale: float, causal: bool = Fals
     kf, vf = _expand_kv(k, v, H)
     qf, dof = q.float(), do.float()
     keep = pair_mask(Nq, Nk, kv_valid_len=kv_valid_len, causal=causal,
-                     segment_ids=segment_ids, device=q.device, window=window)
+                     segment_ids=segment_ids, device=q.device, window=window,
+                     q_offset=q_offset, kv_offset=kv_offset)
     with _full_f32_matmul():
         s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
         jac = None
@@ -89,25 +93,27 @@ def recompute_p_ds(q, k, v, do, lse, delta, *, scale: float, causal: bool = Fals
 
 def dkv_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
                   kv_valid_len: int | None = None, segment_ids=None, window=None,
-                  softcap=None, bias=None):
+                  softcap=None, bias=None, q_offset: int = 0, kv_offset: int = 0):
     """Plain PyTorch K5: ``(dK, dV)`` ``[B, Hq, Nk, D]`` f32, per query head:
     dV = Pᵀ dO, dK = dSᵀ Q (:func:`recompute_p_ds`)."""
     p, ds, qf, _, _, dof, _ = recompute_p_ds(
         q, k, v, do, lse, delta, scale=scale, causal=causal, kv_valid_len=kv_valid_len,
-        segment_ids=segment_ids, window=window, softcap=softcap, bias=bias)
+        segment_ids=segment_ids, window=window, softcap=softcap, bias=bias, q_offset=q_offset,
+        kv_offset=kv_offset)
     with _full_f32_matmul():
         return torch.matmul(ds.transpose(-1, -2), qf), torch.matmul(p.transpose(-1, -2), dof)
 
 
 def dq_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
                  kv_valid_len: int | None = None, segment_ids=None, window=None, softcap=None,
-                 bias=None, want_dbias: bool = False):
+                 bias=None, want_dbias: bool = False, q_offset: int = 0, kv_offset: int = 0):
     """Plain PyTorch K6: dQ = dS K, ``[B, Hq, Nq, D]`` f32; with
     ``want_dbias``, ``(dQ, dbias)`` where dbias = P (dP − Δ) is the full f32
     ``[B, Hq, Nq, Nk]``, 0 on masked pairs (:func:`recompute_p_ds`)."""
     _, ds, _, kf, _, _, dl = recompute_p_ds(
         q, k, v, do, lse, delta, scale=scale, causal=causal, kv_valid_len=kv_valid_len,
-        segment_ids=segment_ids, window=window, softcap=softcap, bias=bias)
+        segment_ids=segment_ids, window=window, softcap=softcap, bias=bias, q_offset=q_offset,
+        kv_offset=kv_offset)
     with _full_f32_matmul():
         dq_ = torch.matmul(ds, kf)
     return (dq_, dl) if want_dbias else dq_
@@ -156,13 +162,16 @@ def check_kernel_args(q, name: str) -> None:
 
 
 def _split_kwargs(q, k, v, do, lse, delta, *, scale, causal, kv_valid_len, segment_ids,
-                  window, softcap, bias) -> dict:
+                  window, softcap, bias, q_offset, kv_offset) -> dict:
     """Validate a :func:`dkv` / :func:`dq` call and return the keyword
     arguments of its kernel or plain version, ``kv_valid_len`` resolved."""
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len, segment_ids)
     check_bias(bias, q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.device)
+    window = check_window(window)
+    q_offset, kv_offset = band_offsets(causal, window, q_offset, kv_offset)
     return dict(scale=scale, causal=causal, kv_valid_len=kv_valid_len, segment_ids=segment_ids,
-                window=check_window(window), softcap=check_softcap(softcap), bias=bias)
+                window=window, softcap=check_softcap(softcap), bias=bias, q_offset=q_offset,
+                kv_offset=kv_offset)
 
 
 def _no_split_kernel(q, name: str, *, bias) -> None:
@@ -178,19 +187,19 @@ def _no_split_kernel(q, name: str, *, bias) -> None:
 
 def dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
         kv_valid_len: int | None = None, segment_ids=None, window=None, softcap=None,
-        bias=None):
+        bias=None, q_offset: int = 0, kv_offset: int = 0):
     """K5: ``(dK, dV)`` ``[B, Hq, Nk, D]`` in f32, per query head.
 
     ``q``/``do`` ``[B,Hq,Nq,D]``, ``k``/``v`` ``[B,Hkv,Nk,D]`` in one dtype;
     ``lse`` (natural log, from the forward) and ``delta`` = rowsum(dO·O),
-    ``[B,Hq,Nq]`` f32; ``segment_ids``, ``window``, ``softcap`` and ``bias``
-    (``[B|1, Hq|1, Nq|1, Nk]``) as in ``flash_fwd.fwd``. CPU tensors take
+    ``[B,Hq,Nq]`` f32; ``segment_ids``, ``window``, ``softcap``, ``bias``
+    (``[B|1, Hq|1, Nq|1, Nk]``) and the offsets as in ``flash_fwd.fwd``. CPU tensors take
     :func:`dkv_reference`. CUDA tensors raise: K5 runs with K6 in one launch,
     :func:`bias_bwd` with a bias, :func:`split_bwd` (or K3) without.
     """
     kw = _split_kwargs(q, k, v, do, lse, delta, scale=scale, causal=causal,
                        kv_valid_len=kv_valid_len, segment_ids=segment_ids, window=window,
-                       softcap=softcap, bias=bias)
+                       softcap=softcap, bias=bias, q_offset=q_offset, kv_offset=kv_offset)
     if q.device.type == "cpu":
         return dkv_reference(q, k, v, do, lse, delta, **kw)
     _no_split_kernel(q, "K5", bias=bias)
@@ -198,7 +207,7 @@ def dkv(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
 
 def dq(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
        kv_valid_len: int | None = None, segment_ids=None, window=None, softcap=None,
-       bias=None, want_dbias: bool = False):
+       bias=None, want_dbias: bool = False, q_offset: int = 0, kv_offset: int = 0):
     """K6: dQ ``[B, Hq, Nq, D]`` in f32; with ``want_dbias`` (which needs
     ``bias``), ``(dQ, dbias)``, dbias the full f32 ``[B, Hq, Nq, Nk]``
     gradient of the bias, P (dP − Δ).
@@ -210,7 +219,7 @@ def dq(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
         raise ValueError("want_dbias needs a bias")
     kw = _split_kwargs(q, k, v, do, lse, delta, scale=scale, causal=causal,
                        kv_valid_len=kv_valid_len, segment_ids=segment_ids, window=window,
-                       softcap=softcap, bias=bias)
+                       softcap=softcap, bias=bias, q_offset=q_offset, kv_offset=kv_offset)
     if q.device.type == "cpu":
         return dq_reference(q, k, v, do, lse, delta, want_dbias=want_dbias, **kw)
     _no_split_kernel(q, "K6", bias=bias)
@@ -285,7 +294,8 @@ def _padded_rows(x, nq_pad: int):
 
 
 def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
-             kv_valid_len: int | None = None, bias, softcap=None, want_dbias: bool = False):
+             kv_valid_len: int | None = None, bias, softcap=None, want_dbias: bool = False,
+             q_offset: int = 0, kv_offset: int = 0):
     """K5 + K6 with a bias in one launch: ``(dQ, dK, dV, dbias)`` in f32, dQ
     ``[B, Hq, Nq, D]``, dK / dV ``[B, Hkv, Nk, D]`` per KV head (summed over
     its query heads), dbias the full ``[B, Hq, Nq, Nk]`` with ``want_dbias``,
@@ -295,13 +305,18 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     ``softcap`` the forward's cap or None. CPU tensors take
     :func:`bias_bwd_reference`. CUDA tensors launch the Hopper kernel, which
     takes what :func:`bias_bwd_route` sends it (bf16, ``D % 8 == 0``, ``D <=
-    128``); anything else raises. ``bias_bwd.launches`` counts kernel
-    launches, ``bias_bwd.launches_dbias`` those that wrote dbias.
+    128``); anything else raises, as do offsets that change the result
+    (``flash_fwd.offsets_refusal``), on every device: K1's bias route takes
+    none. ``bias_bwd.launches`` counts kernel launches,
+    ``bias_bwd.launches_dbias`` those that wrote dbias.
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len)
     if bias is None:
         raise ValueError("bias_bwd needs a bias")
     B, Hq, Nq, D = q.shape
+    if band_offsets(causal, None, q_offset, kv_offset) != (0, 0):
+        raise NotImplementedError(
+            f"K5 + K6's bias route: {offsets_refusal(head_dim=D, bias=bias, quantized=False)}")
     Hkv, Nk = k.shape[1], k.shape[2]
     check_bias(bias, B, Hq, Nq, Nk, q.device)
     softcap = check_softcap(softcap)
@@ -359,20 +374,22 @@ def split_sm90_route(*, head_dim: int, bias, dtype, segment_ids, softcap) -> boo
 
 def split_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
                         kv_valid_len: int | None = None, segment_ids=None, window=None,
-                        softcap=None):
+                        softcap=None, q_offset: int = 0, kv_offset: int = 0):
     """Plain PyTorch K5 + K6 without a bias over one :func:`recompute_p_ds`:
     ``(dQ [B, Hq, Nq, D], dK, dV [B, Hq, Nk, D])``, f32, dK / dV per query
     head (as the kernel writes them): dQ = dS K, dK = dSᵀ Q, dV = Pᵀ dO."""
     p, ds, qf, kf, _, dof, _ = recompute_p_ds(
         q, k, v, do, lse, delta, scale=scale, causal=causal, kv_valid_len=kv_valid_len,
-        segment_ids=segment_ids, window=window, softcap=softcap)
+        segment_ids=segment_ids, window=window, softcap=softcap, q_offset=q_offset,
+        kv_offset=kv_offset)
     with _full_f32_matmul():
         return (torch.matmul(ds, kf), torch.matmul(ds.transpose(-1, -2), qf),
                 torch.matmul(p.transpose(-1, -2), dof))
 
 
 def _launch_split(lib, q, k, v, do, lse, delta, dq_, dk, dv, seg, *, scale, causal,
-                  kv_valid_len, window, softcap, nq_pad, stream) -> int:
+                  kv_valid_len, window, softcap, nq_pad, stream, q_offset: int = 0,
+                  kv_offset: int = 0) -> int:
     """Call ``lib.fa_bwd_split_sm90`` with the arguments of one launch (the C
     entry's order, ``native.BWD_SPLIT_SM90_ARGTYPES``), ``seg`` being
     ``flash_fwd.sm90_segments``' tensors at the kernel's tiles or None;
@@ -383,17 +400,19 @@ def _launch_split(lib, q, k, v, do, lse, delta, dq_, dk, dv, seg, *, scale, caus
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq_.data_ptr(), dk.data_ptr(), dv.data_ptr(), *seg_ptrs, B, Hq,
         k.shape[1], Nq, k.shape[2], D, kv_valid_len, int(bool(causal)), *kernel_window(window),
-        nq_pad, float(scale), softcap or 0.0, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *do.stride()[:3], stream)
+        q_offset, kv_offset, nq_pad, float(scale), softcap or 0.0, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], stream)
 
 
 def split_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
-              kv_valid_len: int | None = None, segment_ids=None, window=None, softcap=None):
+              kv_valid_len: int | None = None, segment_ids=None, window=None, softcap=None,
+              q_offset: int = 0, kv_offset: int = 0):
     """K5 + K6 without a bias in one launch: ``(dQ [B, Hq, Nq, D], dK, dV
     [B, Hq, Nk, D])`` in f32, dK / dV per query head.
 
-    Arguments as :func:`dkv` without ``bias``; ``segment_ids`` or
-    ``softcap`` (or both) required -- the call with neither is K3's
+    Arguments as :func:`dkv` without ``bias`` (the offsets too: the band
+    shifted by ``q_offset - kv_offset``, a KV tile that no row reaches
+    writing zero dK / dV); ``segment_ids`` or ``softcap`` (or both) required -- the call with neither is K3's
     (``flash_bwd_fused.bwd``). CPU tensors take :func:`split_bwd_reference`.
     CUDA tensors launch the Hopper kernel, which takes bf16 with ``D % 8 ==
     0``, ``D <= 128`` and, with segment ids, ``Nq <= 64 · SPLIT_MAX_Q_TILES``;
@@ -406,8 +425,9 @@ def split_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     if segment_ids is None and softcap is None:
         raise ValueError("split_bwd takes segment ids or a softcap (without either: "
                          "flash_bwd_fused.bwd, K3)")
+    q_offset, kv_offset = band_offsets(causal, window, q_offset, kv_offset)
     kw = dict(scale=scale, causal=causal, kv_valid_len=kv_valid_len, segment_ids=segment_ids,
-              window=window, softcap=softcap)
+              window=window, softcap=softcap, q_offset=q_offset, kv_offset=kv_offset)
     if q.device.type == "cpu":
         return split_bwd_reference(q, k, v, do, lse, delta, **kw)
     check_kernel_args(q, "K5 + K6 split route")
@@ -431,7 +451,8 @@ def split_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
         rc = _launch_split(native.kernels(), q, k, v, do, lse, delta, dq_, dk, dv, seg,
                            scale=scale, causal=causal, kv_valid_len=kv_valid_len, window=window,
                            softcap=softcap, nq_pad=nq_pad,
-                           stream=torch.cuda.current_stream(q.device).cuda_stream)
+                           stream=torch.cuda.current_stream(q.device).cuda_stream,
+                           q_offset=q_offset, kv_offset=kv_offset)
     native.check(rc, "flash_bwd_split_sm90 kernel launch")
     split_bwd.launches += 1
     return dq_, dk, dv

@@ -26,25 +26,33 @@ from flashattn_tpu_torch.ops.flash_bwd import (
     check_kernel_args,
     recompute_p_ds,
 )
-from flashattn_tpu_torch.ops.flash_fwd import _kernel_ready, check_window, kernel_window
+from flashattn_tpu_torch.ops.flash_fwd import (
+    _kernel_ready,
+    band_offsets,
+    check_window,
+    kernel_window,
+)
 from flashattn_tpu_torch.ops.oracle import _full_f32_matmul
 from flashattn_tpu_torch.utils import native
 
 
 def bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
-                  kv_valid_len: int | None = None, window=None):
+                  kv_valid_len: int | None = None, window=None, q_offset: int = 0,
+                  kv_offset: int = 0):
     """Plain PyTorch K3: ``(dQ [B,Hq,Nq,D], dK, dV [B,Hq,Nk,D])``, all f32.
 
     The formulas of the JAX package's ``_bwd_xla_quadrant``
     (P = exp(S·scale − LSE), dS = P (dP − Δ) scale, dV = Pᵀ dO, dK = dSᵀ Q,
     dQ = dS K) over K/V expanded to the query heads, with P = 0 for pairs
-    that the forward masked: ``kv_pos > q_pos`` when ``causal`` (top-left,
-    zero offsets), pairs outside ``window``, and keys at or past
-    ``kv_valid_len``, whose dK/dV are 0 (``flash_bwd.recompute_p_ds``).
+    that the forward masked: ``kv_pos > q_pos`` when ``causal`` and pairs
+    outside ``window``, in absolute positions ``q_offset + i`` and
+    ``kv_offset + j``, and keys at or past ``kv_valid_len``, whose dK/dV are
+    0 (``flash_bwd.recompute_p_ds``).
     """
     p, ds, qf, kf, _, dof, _ = recompute_p_ds(q, k, v, do, lse, delta, scale=scale,
                                               causal=causal, kv_valid_len=kv_valid_len,
-                                              window=window)
+                                              window=window, q_offset=q_offset,
+                                              kv_offset=kv_offset)
     with _full_f32_matmul():
         dv = torch.matmul(p.transpose(-1, -2), dof)
         dk = torch.matmul(ds.transpose(-1, -2), qf)
@@ -53,25 +61,26 @@ def bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False
 
 
 def _launch(lib, q, k, v, do, lse, delta, dq, dk, dv, *, scale, causal, kv_valid_len, window,
-            nq_pad, stream) -> int:
+            nq_pad, stream, q_offset: int = 0, kv_offset: int = 0) -> int:
     """Call ``lib.fa_bwd_sm90`` with the arguments of one launch (the C
     entry's order, ``native.BWD_SM90_ARGTYPES``); returns its cudaError_t."""
     B, Hq, Nq, D = q.shape
     return lib.fa_bwd_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Hq, k.shape[1], Nq,
-        k.shape[2], D, kv_valid_len, int(bool(causal)), *kernel_window(window), nq_pad,
-        float(scale), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        stream)
+        k.shape[2], D, kv_valid_len, int(bool(causal)), *kernel_window(window), q_offset,
+        kv_offset, nq_pad, float(scale), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *do.stride()[:3], stream)
 
 
 def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
-        kv_valid_len: int | None = None, window=None):
+        kv_valid_len: int | None = None, window=None, q_offset: int = 0, kv_offset: int = 0):
     """K3/K4: ``(dQ [B,Hq,Nq,D], dK, dV [B,Hq,Nk,D])`` in f32.
 
     ``q``/``do`` ``[B,Hq,Nq,D]``, ``k``/``v`` ``[B,Hkv,Nk,D]`` in one dtype;
     ``lse`` (natural log, from the forward) and ``delta`` = rowsum(dO·O),
-    ``[B,Hq,Nq]`` f32; ``window`` as in ``flash_fwd.fwd``. CPU tensors take
+    ``[B,Hq,Nq]`` f32; ``window`` and the offsets as in ``flash_fwd.fwd`` (a
+    KV tile that no row reaches writes zero dK / dV). CPU tensors take
     :func:`bwd_reference`. CUDA tensors launch the Hopper kernel, which takes
     bf16 with ``D % 8 == 0`` and ``D <= 128``; anything else raises.
     ``bwd.launches`` counts K3 launches, ``bwd.launches_sm90`` those of the
@@ -79,9 +88,11 @@ def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len)
     window = check_window(window)
+    q_offset, kv_offset = band_offsets(causal, window, q_offset, kv_offset)
     if q.device.type == "cpu":
         return bwd_reference(q, k, v, do, lse, delta, scale=scale, causal=causal,
-                             kv_valid_len=kv_valid_len, window=window)
+                             kv_valid_len=kv_valid_len, window=window, q_offset=q_offset,
+                             kv_offset=kv_offset)
     check_kernel_args(q, "K3")
     B, Hq, Nq, D = q.shape
     Nk = k.shape[2]
@@ -97,7 +108,8 @@ def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     with torch.cuda.device(q.device):
         rc = _launch(native.kernels(), q, k, v, do, lse, delta, dq, dk, dv, scale=scale,
                      causal=causal, kv_valid_len=kv_valid_len, window=window, nq_pad=nq_pad,
-                     stream=torch.cuda.current_stream(q.device).cuda_stream)
+                     stream=torch.cuda.current_stream(q.device).cuda_stream, q_offset=q_offset,
+                     kv_offset=kv_offset)
     native.check(rc, "flash_bwd_sm90 kernel launch")
     bwd.launches += 1
     bwd.launches_sm90 += 1

@@ -56,6 +56,7 @@ KV_DTYPE_CODE = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 _LOG2E = 1.0 / math.log(2.0)
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
+_ROADMAP_OFFSETS = "ROADMAP queue 2, item 2: q / kv offsets on the other routes"
 # The decode route (csrc/decode_tile.cuh): at most this many query rows per KV
 # head (the JAX fold bound, flashattn_tpu/ops/flash.py:1052-1077), the head
 # dims it is instantiated for, the keys of one KV tile (a split holds whole
@@ -109,17 +110,31 @@ def kernel_window(window) -> tuple[int, int]:
     return tuple(w if w >= 0 else -1 for w in window)
 
 
+def band_offsets(causal: bool, window, q_offset, kv_offset) -> tuple[int, int]:
+    """``(q_offset, kv_offset)`` as host ints where they change the result --
+    a causal mask or a window bound, and ``q_offset != kv_offset`` -- else
+    ``(0, 0)``: the masks compare positions only through ``q_offset -
+    kv_offset``, so such a call is the call without offsets, bit for bit. A
+    0-d integer tensor is read once with ``.item()``."""
+    q_offset, kv_offset = (int(x.item()) if isinstance(x, torch.Tensor) else int(x)
+                           for x in (q_offset, kv_offset))
+    banded = causal or kernel_window(check_window(window)) != (-1, -1)
+    return (q_offset, kv_offset) if banded and q_offset != kv_offset else (0, 0)
+
+
 def pair_mask(Nq: int, Nk: int, *, kv_valid_len: int, causal: bool, segment_ids,
-              device, window=None) -> torch.Tensor:
+              device, window=None, q_offset: int = 0, kv_offset: int = 0) -> torch.Tensor:
     """The (query, key) pairs that attend, ``[B or 1, 1, Nq, Nk]`` bool: keys
-    below ``kv_valid_len``; with ``causal``, ``kv_pos <= q_pos`` (top-left,
-    zero offsets); with ``window = (left, right)``, ``q_pos - left <= kv_pos
-    <= q_pos + right`` (absolute positions, a negative bound being none);
-    with ``segment_ids = (seg_q [B, Nq], seg_kv [B, Nk])``, equal ids. The
-    masks AND-compose, as in the kernels."""
+    below ``kv_valid_len``; with ``causal``, ``kv_pos <= q_pos``; with
+    ``window = (left, right)``, ``q_pos - left <= kv_pos <= q_pos + right`` (a
+    negative bound being none), in absolute positions ``q_pos = q_offset +
+    i`` and ``kv_pos = kv_offset + j``; with ``segment_ids = (seg_q [B, Nq],
+    seg_kv [B, Nk])``, equal ids. ``kv_valid_len`` and the ids stay local.
+    The masks AND-compose, as in the kernels."""
     cols = torch.arange(Nk, device=device)[None, :]
     rows = torch.arange(Nq, device=device)[:, None]
     keep = (cols < kv_valid_len).expand(Nq, Nk)
+    rows = rows + (q_offset - kv_offset)  # the band compares q_pos - kv_pos only
     if causal:
         keep = keep & (cols <= rows)
     wl, wr = kernel_window(window)
@@ -136,14 +151,15 @@ def pair_mask(Nq: int, Nk: int, *, kv_valid_len: int, causal: bool, segment_ids,
 
 def fwd_reference(q, k, v, *, scale: float, kv_valid_len: int | None = None,
                   causal: bool = False, segment_ids=None, bias=None, k_scale=None,
-                  v_scale=None, window=None, softcap=None):
+                  v_scale=None, window=None, softcap=None, q_offset: int = 0,
+                  kv_offset: int = 0):
     """Plain PyTorch K1: ``(O, LSE)`` for ``q [B,Hq,Nq,D]``, ``k/v [B,Hkv,Nk,D]``.
 
     The exact f32 oracle over the first ``kv_valid_len`` keys (the kernel's
     finite mask value gives those past it a weight of exactly 0); ``causal``
-    masks ``kv_pos > q_pos``, top-left aligned (zero offsets); ``window =
-    (left, right)`` keeps ``q_pos - left <= kv_pos <= q_pos + right``
-    (absolute positions, a negative bound being none);
+    masks ``kv_pos > q_pos``; ``window = (left, right)`` keeps ``q_pos - left
+    <= kv_pos <= q_pos + right`` (a negative bound being none), in absolute
+    positions ``q_pos = q_offset + i``, ``kv_pos = kv_offset + j``;
     ``segment_ids = (seg_q [B, Nq], seg_kv [B, Nk])`` lets a pair attend only
     when its ids are equal; ``softcap`` caps the scaled scores at
     ``softcap · tanh(s / softcap)``; ``bias`` (broadcastable to
@@ -160,12 +176,13 @@ def fwd_reference(q, k, v, *, scale: float, kv_valid_len: int | None = None,
         v = v.float() * v_scale.float()[..., None]
     kv_valid_len = k.shape[2] if kv_valid_len is None else kv_valid_len
     if (segment_ids is not None or bias is not None or window is not None
-            or softcap is not None):
+            or softcap is not None or q_offset != kv_offset):
         return _masked_reference(q, k, v, scale=scale, bias=bias, softcap=softcap,
                                  keep=pair_mask(q.shape[2], k.shape[2],
                                                 kv_valid_len=kv_valid_len, causal=causal,
                                                 segment_ids=segment_ids, device=q.device,
-                                                window=window))
+                                                window=window, q_offset=q_offset,
+                                                kv_offset=kv_offset))
     if kv_valid_len == 0:
         lse = torch.full(q.shape[:3], math.log(2.0) * DEFAULT_MASK_VALUE,
                          dtype=torch.float32, device=q.device)
@@ -538,7 +555,7 @@ def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, bias, softcap):
 
 
 def _launch_dense_sm90(lib, q, k, v, o, lse, seg, *, scale, kv_valid_len, causal, window,
-                      softcap, stream) -> int:
+                      softcap, stream, q_offset: int = 0, kv_offset: int = 0) -> int:
     """Call ``lib.fa_fwd_sm90`` with the arguments of one launch (the C
     entry's order, ``native.FWD_SM90_ARGTYPES``), ``seg`` being
     :func:`sm90_segments`' tensors or None; returns its cudaError_t."""
@@ -547,11 +564,12 @@ def _launch_dense_sm90(lib, q, k, v, o, lse, seg, *, scale, kv_valid_len, causal
     return lib.fa_fwd_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *seg_ptrs,
         B, Hq, k.shape[1], Nq, D, kv_valid_len, int(bool(causal)), *kernel_window(window),
-        float(scale), softcap or 0.0, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *o.stride()[:3], 0 if seg is None else seg[0].stride(0), stream)
+        q_offset, kv_offset, float(scale), softcap or 0.0, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *o.stride()[:3], 0 if seg is None else seg[0].stride(0), stream)
 
 
-def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, softcap):
+def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, softcap,
+                q_offset, kv_offset):
     """Launch the Hopper dense kernel and count the launch."""
     B, Hq, Nq, D = q.shape
     q, k, v = (_kernel_ready(x, tma=True) for x in (q, k, v))
@@ -564,11 +582,25 @@ def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, so
         rc = _launch_dense_sm90(native.kernels(), q, k, v, o, lse, seg, scale=scale,
                                 kv_valid_len=kv_valid_len, causal=causal, window=window,
                                 softcap=softcap,
-                                stream=torch.cuda.current_stream(q.device).cuda_stream)
+                                stream=torch.cuda.current_stream(q.device).cuda_stream,
+                                q_offset=q_offset, kv_offset=kv_offset)
     native.check(rc, "flash_fwd_sm90 kernel launch")
     _count_variants(k.dtype, None, kernel_window(window) != (-1, -1), softcap)
     fwd.launches_dense_sm90 += 1
     return o, lse
+
+
+def offsets_refusal(*, head_dim: int, bias, quantized: bool) -> str | None:
+    """Why a K1 call with offsets that change its result (:func:`band_offsets`)
+    has no kernel yet, naming the route and its ROADMAP item, or None where
+    K1's dense route takes it. The decode route takes no band, so offsets
+    never change its calls."""
+    route = ("the bias route" if bias is not None else "quantized K/V" if quantized
+             else f"fwd_tile.cuh above D {DENSE_MAX_HEAD_DIM}"
+             if head_dim > DENSE_MAX_HEAD_DIM else None)
+    if route is None:
+        return None
+    return f"q / kv offsets are not ported to {route} yet ({_ROADMAP_OFFSETS})"
 
 
 def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool) -> None:
@@ -597,12 +629,17 @@ def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool) -> None
 
 
 def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool = False,
-        segment_ids=None, bias=None, k_scale=None, v_scale=None, window=None, softcap=None):
+        segment_ids=None, bias=None, k_scale=None, v_scale=None, window=None, softcap=None,
+        q_offset: int = 0, kv_offset: int = 0):
     """K1: ``(O [B,Hq,Nq,D] in q.dtype, LSE [B,Hq,Nq] f32)``.
 
-    ``causal`` masks ``kv_pos > q_pos``, top-left aligned (zero offsets);
-    ``window = (left, right)`` keeps ``q_pos - left <= kv_pos <= q_pos +
-    right`` (a negative bound is none; with ``causal`` the right bound is 0);
+    ``causal`` masks ``kv_pos > q_pos``; ``window = (left, right)`` keeps
+    ``q_pos - left <= kv_pos <= q_pos + right`` (a negative bound is none;
+    with ``causal`` the right bound is 0), in absolute positions ``q_pos =
+    q_offset + i`` and ``kv_pos = kv_offset + j`` (host ints or 0-d tensors; 0
+    and 0: the top-left alignment, also when Nq != Nk; offsets that change
+    the result raise on every device where K1's dense route would not take
+    them, :func:`offsets_refusal`);
     ``segment_ids = (seg_q [B, Nq], seg_kv [B, Nk])`` (integers) lets a pair
     attend only when its ids are equal; ``softcap`` (a positive float) caps
     the scaled scores at ``softcap · tanh(s / softcap)``; ``bias``
@@ -648,11 +685,17 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     if softcap is not None and k_scale is not None:
         raise ValueError("logit_softcap is not supported with quantized K/V (the JAX "
                          "flash_attention_quantized has no softcap path)")
+    q_offset, kv_offset = band_offsets(causal, window, q_offset, kv_offset)
+    refusal = q_offset != kv_offset and offsets_refusal(head_dim=D, bias=bias,
+                                                        quantized=k_scale is not None)
+    if refusal:
+        raise NotImplementedError(f"K1: {refusal}")
 
     if q.device.type == "cpu":
         return fwd_reference(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
                              segment_ids=segment_ids, bias=bias, k_scale=k_scale,
-                             v_scale=v_scale, window=window, softcap=softcap)
+                             v_scale=v_scale, window=window, softcap=softcap,
+                             q_offset=q_offset, kv_offset=kv_offset)
     windowed = kernel_window(window) != (-1, -1)
     _check_kernel_args(q, segment_ids=segment_ids, bias=bias, k_scale=k_scale,
                        windowed=windowed)
@@ -667,7 +710,8 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
                           bias=bias, softcap=softcap)
     if dense_route(head_dim=D, bias=bias, kv_dtype=k.dtype):
         return _dense_sm90(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
-                           window=window, segment_ids=segment_ids, softcap=softcap)
+                           window=window, segment_ids=segment_ids, softcap=softcap,
+                           q_offset=q_offset, kv_offset=kv_offset)
 
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
     o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides

@@ -46,6 +46,7 @@ FWD_SM90_ARGTYPES = [
     _PTR, _PTR, _PTR, _PTR,              # seg_q, seg_kv (padded), q_range, kv_range (or None)
     _I32, _I32, _I32, _I32, _I32,        # B, Hq, Hkv, Nq, D
     _I32, _I32, _I32, _I32,              # kv_valid_len, causal, window left, right (-1: none)
+    _I32, _I32,                          # q_offset, kv_offset (absolute positions)
     ctypes.c_float, ctypes.c_float,      # scale, softcap (0: none)
     _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
     _I64, _I64, _I64, _I64, _I64, _I64,  # v, o (batch, head, seq) strides
@@ -60,6 +61,7 @@ BWD_SM90_ARGTYPES = [
     _PTR, _PTR, _PTR,                    # dq (f32, zeroed), dk, dv (f32)
     _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, Nq, Nk, D
     _I32, _I32, _I32, _I32,              # kv_valid_len, causal, window left, right (-1: none)
+    _I32, _I32,                          # q_offset, kv_offset (absolute positions)
     _I32,                                # nq_pad
     ctypes.c_float,                      # scale
     _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
@@ -75,6 +77,7 @@ BWD_SPLIT_SM90_ARGTYPES = [
     _PTR, _PTR, _PTR, _PTR,              # seg_q, seg_kv (padded), q_range, kv_range (or None)
     _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, Nq, Nk, D
     _I32, _I32, _I32, _I32,              # kv_valid_len, causal, window left, right (-1: none)
+    _I32, _I32,                          # q_offset, kv_offset (absolute positions)
     _I32,                                # nq_pad
     ctypes.c_float, ctypes.c_float,      # scale, softcap (0: none)
     _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides

@@ -84,10 +84,11 @@ def _bnhd(*xs):
 
 @pytest.mark.parametrize("segments", [False, True])
 def test_dense_launch_packs_the_c_arguments(segments):
-    """fa_fwd_sm90 on BNHD views with GQA, a window and (or not) segment ids:
-    every pointer (the four segment inputs null without them), dim, the
-    window as the C entry's (wl, wr), the scale, every stride, the ids'
-    batch stride and the stream, in the C entry's order."""
+    """fa_fwd_sm90 on BNHD views with GQA, a window, q / kv offsets and (or
+    not) segment ids: every pointer (the four segment inputs null without
+    them), dim, the window as the C entry's (wl, wr), the offsets, the scale,
+    every stride, the ids' batch stride and the stream, in the C entry's
+    order."""
     B, Hq, Hkv, Nq, Nk, D = 2, 4, 2, 200, 150, 64
     q, k, v = _bnhd(*make_qkv(80, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv))
     o, lse = torch.empty_like(q), torch.empty((B, Hq, Nq))
@@ -97,25 +98,27 @@ def test_dense_launch_packs_the_c_arguments(segments):
     lib = types.SimpleNamespace(fa_fwd_sm90=_recorder("fa_fwd_sm90", native.FWD_SM90_ARGTYPES,
                                                       seen))
     rc = flash_fwd._launch_dense_sm90(lib, q, k, v, o, lse, seg, scale=0.125, kv_valid_len=140,
-                                      causal=True, window=(100, -1), softcap=None, stream=4096)
+                                      causal=True, window=(100, -1), softcap=None, stream=4096,
+                                      q_offset=600, kv_offset=200)
     assert rc == 0 and len(seen) == 1
     args = seen[0][1]
-    assert len(args) == len(native.FWD_SM90_ARGTYPES) == 34
+    assert len(args) == len(native.FWD_SM90_ARGTYPES) == 36
     assert args[:5] == tuple(x.data_ptr() for x in (q, k, v, o, lse))
     assert args[5:9] == ((None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg))
     assert args[9:18] == (B, Hq, Hkv, Nq, D, 140, 1, 100, -1)
-    assert args[18:20] == (0.125, 0.0)  # the scale, no softcap
-    assert args[20:23] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
-    assert args[23:26] == (Nk * Hkv * D, D, Hkv * D)
-    assert args[26:29] == args[23:26] and args[29:32] == args[20:23]
-    assert args[32] == (Nq if segments else 0) and args[33] == 4096
+    assert args[18:20] == (600, 200)  # q_offset, kv_offset
+    assert args[20:22] == (0.125, 0.0)  # the scale, no softcap
+    assert args[22:25] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
+    assert args[25:28] == (Nk * Hkv * D, D, Hkv * D)
+    assert args[28:31] == args[25:28] and args[31:34] == args[22:25]
+    assert args[34] == (Nq if segments else 0) and args[35] == 4096
 
 
 @pytest.mark.parametrize("window", [None, (64, 7)])
 def test_k3_launch_packs_the_c_arguments(window):
     """fa_bwd_sm90 on BNHD views with GQA: every pointer, dim, the window,
-    the LSE rows' pitch, the scale, every stride and the stream, in the C
-    entry's order."""
+    the offsets, the LSE rows' pitch, the scale, every stride and the stream,
+    in the C entry's order."""
     B, Hq, Hkv, Nq, Nk, D = 2, 4, 2, 96, 130, 80
     q, k, v = _bnhd(*make_qkv(81, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv))
     do = q.clone()
@@ -127,17 +130,18 @@ def test_k3_launch_packs_the_c_arguments(window):
                                                       seen))
     rc = flash_bwd_fused._launch(lib, q, k, v, do, stats, stats, dq, dk, dv, scale=0.25,
                                  causal=False, kv_valid_len=120, window=window, nq_pad=128,
-                                 stream=4096)
+                                 stream=4096, q_offset=96, kv_offset=-64)
     assert rc == 0 and len(seen) == 1
     args = seen[0][1]
-    assert len(args) == len(native.BWD_SM90_ARGTYPES) == 34
+    assert len(args) == len(native.BWD_SM90_ARGTYPES) == 36
     assert args[:9] == tuple(x.data_ptr() for x in (q, k, v, do, stats, stats, dq, dk, dv))
-    assert args[9:20] == (B, Hq, Hkv, Nq, Nk, D, 120, 0, *flash_fwd.kernel_window(window), 128)
-    assert args[20] == 0.25
-    assert args[21:24] == (Nq * Hq * D, D, Hq * D)
-    assert args[24:27] == (Nk * Hkv * D, D, Hkv * D)
-    assert args[27:30] == args[24:27] and args[30:33] == args[21:24]
-    assert args[33] == 4096
+    assert args[9:19] == (B, Hq, Hkv, Nq, Nk, D, 120, 0, *flash_fwd.kernel_window(window))
+    assert args[19:22] == (96, -64, 128)  # q_offset, kv_offset, the LSE rows' pitch
+    assert args[22] == 0.25
+    assert args[23:26] == (Nq * Hq * D, D, Hq * D)
+    assert args[26:29] == (Nk * Hkv * D, D, Hkv * D)
+    assert args[29:32] == args[26:29] and args[32:35] == args[23:26]
+    assert args[35] == 4096
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +222,7 @@ def test_fwd_routes_on_a_simulated_card(card, case):
         assert [a for a, n in zip(o.stride(), q.shape) if n > 1] == [
             a for a, n in zip(q.stride(), q.shape) if n > 1]
         args = card[0][1]
-        assert args[32] == (Nq if "segment_ids" in kw else 0)  # the ids' batch stride
+        assert args[34] == (Nq if "segment_ids" in kw else 0)  # the ids' batch stride
 
 
 # flash_attention's forward and backward on a simulated card: the LM-like
@@ -255,7 +259,7 @@ def test_flash_core_routes_on_a_simulated_card(card, case):
     assert (flash_bwd_fused.bwd.launches, flash_bwd_fused.bwd.launches_sm90) == (
         before[0] + k3, before[1] + k3)
     if k3:  # the LSE rows padded to 64
-        assert card[1][1][19] == 320
+        assert card[1][1][21] == 320
 
 
 def test_cpu_tensors_never_reach_a_kernel(monkeypatch):

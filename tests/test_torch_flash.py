@@ -83,23 +83,26 @@ def test_flash_attention_low_precision_vs_f32_oracle(dtype, D, Nk, Hkv, layout):
 
 _SEG = {"segment_ids": torch.zeros(1, 64, dtype=torch.int32)}
 # The JAX options, each raising until its kernel option is ported. The bias,
-# the window and the softcap are ported in both directions (the window and
-# the softcap also with segment ids): their cases hold the output and the
-# gradient against the oracle.
-PORTED = {"bias", "window", "logit_softcap", "segment_ids+window", "segment_ids+logit_softcap"}
+# the window, the softcap and the q / kv offsets are ported in both
+# directions (the window, the softcap and the offsets also with segment ids):
+# their cases hold the output and the gradient against the oracle. Offsets
+# with a bias still raise.
+PORTED = {"bias", "window", "logit_softcap", "segment_ids+window", "segment_ids+logit_softcap",
+          "q_offset", "kv_offset", "segment_ids+q_offset"}
 UNPORTED = {
     "bias": {"bias": torch.zeros(1, 1, 64, 64)},
     "window": {"window": (8, 8)},
     "logit_softcap": {"logit_softcap": 5.0},
-    "q_offset": {"q_offset": 3},
-    "kv_offset": {"kv_offset": 3},
+    "q_offset": {"causal": True, "q_offset": 3},
+    "kv_offset": {"causal": True, "kv_offset": 3},
+    "bias+q_offset": {"bias": torch.zeros(1, 1, 64, 64), "causal": True, "q_offset": 3},
     "block_sizes": {"block_sizes": object()},
     "compute_dtype": {"compute_dtype": torch.float32},
     # segment ids are ported; combined with an unported option they still raise
     "segment_ids+bias": {**_SEG, "bias": torch.zeros(1, 1, 64, 64)},
     "segment_ids+window": {**_SEG, "window": (8, 8)},
     "segment_ids+logit_softcap": {**_SEG, "logit_softcap": 5.0},
-    "segment_ids+q_offset": {**_SEG, "q_offset": 3},
+    "segment_ids+q_offset": {**_SEG, "causal": True, "q_offset": 3},
 }
 
 

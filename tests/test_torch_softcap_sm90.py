@@ -247,13 +247,13 @@ def test_dense_launch_packs_the_cap(segments):
                                       causal=True, window=(64, -1), softcap=30.0, stream=4096)
     assert rc == 0 and len(seen) == 1
     args = seen[0][1]
-    assert len(args) == len(native.FWD_SM90_ARGTYPES) == 34
+    assert len(args) == len(native.FWD_SM90_ARGTYPES) == 36
     assert args[:5] == tuple(x.data_ptr() for x in (q, k, v, o, lse))
     assert args[5:9] == ((None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg))
-    assert args[9:18] == (B, Hq, Hkv, Nq, D, 130, 1, 64, -1)
-    assert args[18:20] == (0.125, 30.0)
-    assert args[20:23] == (Nq * Hq * D, D, Hq * D)
-    assert args[32] == (Nq if segments else 0) and args[33] == 4096
+    assert args[9:20] == (B, Hq, Hkv, Nq, D, 130, 1, 64, -1, 0, 0)
+    assert args[20:22] == (0.125, 30.0)
+    assert args[22:25] == (Nq * Hq * D, D, Hq * D)
+    assert args[34] == (Nq if segments else 0) and args[35] == 4096
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -397,7 +397,7 @@ def test_flash_core_routes_on_a_simulated_card(card, case):
     assert flash_fwd.fwd.launches_softcap == before[0] + capped
     args = card[0][1]
     if entries[0] == "fa_fwd_sm90":
-        assert args[19] == kw["logit_softcap"]  # the cap, after the scale
+        assert args[21] == kw["logit_softcap"]  # the cap, after the scale
     elif entries[0] == "fa_fwd_bias_sm90":
         assert args[14] == kw.get("logit_softcap", 0.0)
     if entries[1] == "fa_bwd_bias_sm90":

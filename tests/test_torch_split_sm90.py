@@ -109,15 +109,16 @@ def test_split_launch_packs_the_c_arguments(segments):
                                  nq_pad=128, stream=4096)
     assert rc == 0 and len(seen) == 1
     args = seen[0][1]
-    assert len(args) == len(native.BWD_SPLIT_SM90_ARGTYPES) == 39
+    assert len(args) == len(native.BWD_SPLIT_SM90_ARGTYPES) == 41
     assert args[:9] == tuple(x.data_ptr() for x in (q, k, v, do, stats, stats, dq, dk, dv))
     assert args[9:13] == ((None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg))
-    assert args[13:24] == (B, Hq, Hkv, Nq, Nk, D, 290, 1, 64, 7, 128)
-    assert args[24:26] == (0.25, 30.0)
-    assert args[26:29] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
-    assert args[29:32] == (Nk * Hkv * D, D, Hkv * D)
-    assert args[32:35] == args[29:32] and args[35:38] == args[26:29]
-    assert args[38] == 4096
+    assert args[13:23] == (B, Hq, Hkv, Nq, Nk, D, 290, 1, 64, 7)
+    assert args[23:26] == (0, 0, 128)  # no offsets, the LSE rows' pitch
+    assert args[26:28] == (0.25, 30.0)
+    assert args[28:31] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
+    assert args[31:34] == (Nk * Hkv * D, D, Hkv * D)
+    assert args[34:37] == args[31:34] and args[37:40] == args[28:31]
+    assert args[40] == 4096
     if segments:  # the ids in rows of whole tiles, one range per tile
         assert seg[0].shape == (B, 128) and seg[1].shape == (B, 384)
         assert seg[2].shape == (B, 2, 2) and seg[3].shape == (B, 3, 2)
@@ -205,8 +206,8 @@ def test_flash_core_routes_the_split_backward(card, case):
     assert flash_bwd.split_bwd.launches == before + split
     if split:
         args = card[1][1]
-        assert args[23] == -(-Nq // 64) * 64  # the LSE / Δ rows padded to 64
-        assert args[25] == kw.get("logit_softcap", 0.0)
+        assert args[25] == -(-Nq // 64) * 64  # the LSE / Δ rows padded to 64
+        assert args[27] == kw.get("logit_softcap", 0.0)
         assert args[20:23] == (int(kw.get("causal", False)),
                                *flash_fwd.kernel_window(kw.get("window")))
 

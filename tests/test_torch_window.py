@@ -173,15 +173,25 @@ def test_window_routes_to_k3(monkeypatch):
 
 
 def test_window_offsets_and_bias_gradient_still_raise():
-    """Nonzero offsets raise with their ROADMAP item, also with a window; the
-    forward with a bias and a window is ported, and on the CPU its gradient
-    too (dQ and dbias against autograd through the oracle; the card's
-    kernels take a bias without a window)."""
+    """Offsets with a window run (against the oracle at the same offsets);
+    those the kernels do not take yet raise with their ROADMAP item on every
+    device: with a bias, above D 128 and on quantized K/V (``offsets_refusal``
+    names it). The forward with a bias and a window is
+    ported, and on the CPU its gradient too (dQ and dbias against autograd
+    through the oracle; the card's kernels take a bias without a window)."""
     q, k, v = make_qkv(8, 1, 2, 64, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 2"):
-        flashattn_tpu_torch.flash_attention(q, k, v, window=(8, 8), q_offset=3)
+    assert_close(flashattn_tpu_torch.flash_attention(q, k, v, window=(8, 8), q_offset=3),
+                 oracle.attention_reference(q, k, v, window=(8, 8), q_offset=3),
+                 FWD_TOL[torch.float32])
     bias = torch.from_numpy(np.random.default_rng(9).standard_normal((1, 2, 64, 64),
                                                                       dtype=np.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 2"):
+        flashattn_tpu_torch.flash_attention(q, k, v, window=(8, 8), q_offset=3, bias=bias)
+    wide = make_qkv(8, 1, 2, 64, 160)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 2"):
+        flashattn_tpu_torch.flash_attention(*wide, window=(8, 8), q_offset=3)
+    assert "ROADMAP queue 2, item 2" in flash_fwd.offsets_refusal(head_dim=64, bias=None,
+                                                                  quantized=True)
     o = flashattn_tpu_torch.flash_attention(q, k, v, window=(8, 8), bias=bias)
     assert_close(o, oracle.attention_reference(q, k, v, window=(8, 8), bias=bias),
                  FWD_TOL[torch.float32])
