@@ -76,11 +76,23 @@ its kernels:
   versions; ring, zigzag, Ulysses and head-parallel attention against
   single-device flash_attention; the sharded LM step at full width in three
   layouts, its loss against the single-device lm_loss and its gradients
-  against an f32 copy of the model, with exact launch counts.
+  against an f32 copy of the model, with exact launch counts;
+* f32: K1's f32 route and the f32 backward body (3xTF32 on
+  mma.sync) against their plain versions with TF32 off at ragged shapes,
+  GQA, causal, a window, segment ids, the cap and the ring's offsets; the
+  reference's adversarial shape (B3 H7 N1537 D111 Nkv1234, D padded to 112)
+  in bf16 and f32 through flash_attention; fp16 with
+  ``compute_dtype=float32``; the LM of bench_lm.py at full width in f32
+  (gates fused vs xla, 4 AdamW steps, unpacked and packed) with exact
+  launches on the f32 kernels only;
+* the port's entry points (``flashattn_tpu_torch/entry.py``): ``entry()``'s
+  U-Net denoise step and ``dryrun_multichip(8)`` (the f32 LM on a virtual
+  8-rank mesh, contiguous, packed and two slices).
 
 Every kernel's line in the kernels JSON carries its time, its plain version's
 time, its bound (the larger of the bytes it must move at 3.35 TB/s and its
-tensor-core FLOPs at 989 TFLOP/s, the H100 SXM's datasheet peaks) and the
+tensor-core FLOPs at 989 TFLOP/s, the H100 SXM's datasheet peaks; the f32
+kernels' FLOPs at 165 TFLOP/s, the TF32 peak over three) and the
 time of one PyTorch call that computes the same function
 (``scaled_dot_product_attention``, forward or backward; ``flex_attention``
 compiled by ``torch.compile`` where a softcap or segment ids rule SDPA out),
@@ -145,6 +157,10 @@ SOFTCAP = 50.0
 # dense bf16 tensor-core FLOP/s and HBM3 bytes/s.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# The least time of an f32-accurate product: the dense TF32 peak (495
+# TFLOP/s) over three, the rate of 3xTF32 (a single TF32 pass keeps ~3
+# decimal digits; FFMA peaks at 67 TFLOP/s).
+PEAK_F32_ACCURATE_FLOPS = 495e12 / 3
 # phase_build's ptxas report ({instantiation: (registers, stack, spill
 # stores, spill loads)}), read again where a phase logs a kernel's registers.
 BUILD_STATS: dict = {}
@@ -179,10 +195,12 @@ def tensor_bytes(*xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs if x is not None)
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
     """The least time the card could take: the larger of ``nbytes`` over the
-    HBM rate and ``flops`` over the bf16 tensor-core rate, and which one."""
-    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    HBM rate and ``flops`` over ``peak_flops`` (the bf16 tensor-core rate by
+    default; PEAK_F32_ACCURATE_FLOPS for f32-accurate products), and which
+    one."""
+    t_bytes, t_ops = nbytes / PEAK_HBM_BYTES * 1e3, flops / peak_flops * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -199,22 +217,28 @@ def pair_flops(q, k, *, matmuls: int, **mask) -> float:
     return 2.0 * D * pairs * matmuls
 
 
-def sdpa_ms(q, k, v, *, do=None, bias_leaf=None, **kw) -> float:
+def sdpa_ms(q, k, v, *, do=None, bias_leaf=None, backend=None, **kw) -> float:
     """The library yardstick: one ``scaled_dot_product_attention`` call at
-    its best backend on the same inputs (``enable_gqa`` for Hkv < Hq), or,
-    with ``do``, the one backward call of that attention (dQ, dK, dV from the
-    saved forward, and the gradient of ``bias_leaf``, a tensor that requires
-    grad and from which ``attn_mask`` was computed: SDPA's dbias). Timed
-    here, used nowhere in the port."""
-    import torch.nn.functional as F
+    its best backend (or, given ``backend``, a ``torch.nn.attention.
+    SDPBackend``, at that one) on the same inputs (``enable_gqa`` for Hkv <
+    Hq), or, with ``do``, the one backward call of that attention (dQ, dK, dV
+    from the saved forward, and the gradient of ``bias_leaf``, a tensor that
+    requires grad and from which ``attn_mask`` was computed: SDPA's dbias).
+    Timed here, used nowhere in the port."""
+    import contextlib
 
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    only = contextlib.nullcontext() if backend is None else sdpa_kernel(backend)
     kw.setdefault("enable_gqa", k.shape[1] != q.shape[1])
     if do is None:
-        with torch.no_grad():
+        with torch.no_grad(), only:
             return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, **kw), reps=5,
                            trials=3)
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
+    with only:
+        out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
     leaves = (qg, kg, vg) + (() if bias_leaf is None else (bias_leaf,))
     return cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
                    reps=5, trials=3)
@@ -348,8 +372,10 @@ def ptxas_stats(out: str) -> dict:
 
 def instantiation_name(mangled: str) -> str:
     """The kernel (K1 and its variant, K1's decode, bias and dense routes,
-    K3, K5, K6, K5 + K6's bias route, K7-K10) and template arguments of a
-    mangled instantiation name from ptxas, e.g. ``K1 int8 bias
+    K3, K5, K6, K5 + K6's bias route, the f32 routes, K7-K10) and template
+    arguments of a mangled instantiation name from ptxas, e.g. ``K1 f32
+    segments fwd_f32_kernel<128, 1, 0>``, ``bwd f32 softcap
+    bwd_f32_kernel<64, 0, 1>``, ``K1 int8 bias
     fwd_kernel<128, 0, 1, 1>``, ``K1 decode fp8 bias decode_kernel<128, 2, 1,
     0>``, ``K1 bias sm90 softcap fwd_bias_sm90_kernel<128, 1>``, ``K1 dense
     sm90 segments fwd_dense_sm90_kernel<128, 1, 0>``, ``K3 sm90
@@ -381,6 +407,14 @@ def instantiation_name(mangled: str) -> str:
         seg = " segments" if len(args) >= 2 and args[1] == "1" else ""
         cap = " softcap" if len(args) == 3 and args[2] == "1" else ""
         return f"K1 dense sm90{seg}{cap} fwd_dense_sm90_kernel<{', '.join(args)}>"
+    f32 = re.search(r"(fwd|bwd)_f32_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if f32:  # the f32 routes, fwd_f32_kernel / bwd_f32_kernel<DB, SEG, CAP>
+        args = re.findall(r"L[a-z]+(-?\d+)E", f32.group(2))
+        if len(args) != 3:
+            return f"unrecognised instantiation {f32.group(1)}_f32_kernel<{', '.join(args)}>"
+        return (f"{'K1 f32' if f32.group(1) == 'fwd' else 'bwd f32'}"
+                f"{' segments' if args[1] == '1' else ''}{' softcap' if args[2] == '1' else ''} "
+                f"{f32.group(1)}_f32_kernel<{', '.join(args)}>")
     k3_sm90 = re.search(r"\d(?:bwd_sm90_kernel)I((?:L[a-z]+-?\d+E)+)E", mangled)
     if k3_sm90:  # K3 on Hopper, bwd_sm90_kernel<D> (not ring_bwd_sm90_kernel)
         args = re.findall(r"L[a-z]+(-?\d+)E", k3_sm90.group(1))
@@ -986,6 +1020,7 @@ def _reset_launches() -> None:
     flash_fwd.fwd.launches_decode = flash_fwd.fwd.launches_merge = 0
     flash_bwd.bias_bwd.launches = flash_bwd.bias_bwd.launches_dbias = 0
     flash_bwd.split_bwd.launches = 0
+    flash_fwd.fwd.launches_f32 = flash_bwd._f32_bwd_launch.launches = 0
     gemm.matmul.launches = roofline.roofline_call.launches = 0
     ring_kernel.ring_fwd_step.launches = ring_kernel.ring_bwd_step.launches = 0
 
@@ -1000,8 +1035,12 @@ def _launches() -> dict:
     kernel; "bias bwd" the launches of K5 + K6's bias route (one kernel for
     both, with a bias and, if any, the softcap), "bias bwd dbias" those that
     wrote dbias; "split bwd" those of K5 + K6 without a bias (one kernel for
-    both, with segment ids and / or the softcap). K5 and K6 have no kernel of
-    their own: every CUDA backward that is not K3's takes one of the two."""
+    both, with segment ids and / or the softcap); "K1 f32" the launches of
+    K1's f32 kernel (also counted in "K1", and in "K1 window" / "K1
+    softcap"), "bwd f32" those of the f32 backward body, which K3's f32
+    calls (also counted in "K3") and the split route's (in "split bwd")
+    launch. K5 and K6 have no kernel of their own: every CUDA backward that
+    is not K3's takes one of the routes."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, gemm, roofline
     from flashattn_tpu_torch.parallel import ring_kernel
 
@@ -1016,6 +1055,7 @@ def _launches() -> dict:
             "bias bwd": flash_bwd.bias_bwd.launches,
             "bias bwd dbias": flash_bwd.bias_bwd.launches_dbias,
             "split bwd": flash_bwd.split_bwd.launches,
+            "K1 f32": flash_fwd.fwd.launches_f32, "bwd f32": flash_bwd._f32_bwd_launch.launches,
             "K7": ring_kernel.ring_fwd_step.launches, "K8": ring_kernel.ring_bwd_step.launches,
             "K9": gemm.matmul.launches, "K10": roofline.roofline_call.launches}
 
@@ -3462,6 +3502,426 @@ def phase_sharded_train() -> dict:
     return {"rows": rows, "paths": paths, "lm": lm}
 
 
+# ───────────── the f32 routes (K1's f32 kernel, the f32 backward body) ─────────────
+
+# (tag, B, Hq, Hkv, Nq, Nk, D, kw, ids kind as _seg_case_ids or None): ragged
+# Nq 127 / 129 and Nk 63 / 77 with Nq != Nk, D 32 / 64 / 128 (D 32 in the
+# D 64 box), GQA, causal, a window with both bounds, segment ids (a tuple at
+# Nq != Nk, packed, and rows of a segment no key carries: dead rows), the
+# cap, all of them at once over several tiles, and the contiguous ring's
+# chunk pairs (the neighbour pair, every pair live; kv_offset past q_offset:
+# dead rows and keys no row reaches).
+F32_CASES = [
+    ("Nq127 Nk63 causal GQA 4/2", 2, 4, 2, 127, 63, 64, dict(causal=True), None),
+    ("Nq129 Nk77 window (40, 3) D32", 1, 4, 4, 129, 77, 32, dict(window=(40, 3)), None),
+    ("Nq127 Nk129 causal ids", 2, 4, 2, 127, 129, 128, dict(causal=True), "tuple"),
+    ("Nq129 Nk63 cap 5", 1, 4, 2, 129, 63, 128, dict(softcap=5.0), None),
+    ("N1000 GQA 16/8 causal + window + packed ids + cap 50", 1, 16, 8, 1000, 1000, 128,
+     dict(causal=True, window=(255, -1), softcap=50.0), "packed"),
+    ("N300 dead rows", 1, 8, 8, 300, 300, 64, {}, "dead"),
+    ("ring neighbour (512, 0)", 1, 8, 4, 512, 512, 128,
+     dict(causal=True, q_offset=512, kv_offset=0), None),
+    ("ring kv past q (0, 512)", 1, 8, 4, 1024, 512, 128,
+     dict(causal=True, q_offset=0, kv_offset=512), None),
+]
+# The reference's adversarial shape (flashattn_tpu/utils/testing.py:25-26,
+# precision_test.py:34-38): B3 H7 N1537 D111 Nkv1234, non-causal, through
+# flash_attention (D padded to 112) in bf16 and in f32.
+ADVERSARIAL = (3, 7, 1537, 111, 1234)
+# fp16 inputs with compute_dtype=float32 (the JAX package's fp16 accuracy
+# cell, B1 H8 N1024 D64, at B2): O in fp16 carries fp16's rounding, 2^-11 of
+# |O| <= ~1, so its budget is 1e-3 absolute and relative; it must also beat
+# the same call computed in bf16.
+FP16_F32_SHAPE = (2, 8, 1024, 64)
+FP16_F32_TOL = (1e-3, 1e-3)
+# The f32 LM (bench_lm.py's width, f32): gates at [1, 2049] fused vs xla, both
+# f32 -- the loss within F32_LOSS_TOL and all gradients within
+# F32_GRAD_REL_L2 relative L2 (the bf16 limit is 3e-2; f32 arms that differ
+# only in the attention's summation order sit orders below) -- then
+# F32_STEPS lr=1e-3 AdamW steps whose loss falls; unpacked, then 8 packed
+# documents.
+F32_LOSS_TOL = 1e-3
+F32_GRAD_REL_L2 = 1e-3
+F32_STEPS = 4
+
+
+def _f32_tf32_off() -> None:
+    """Pin the plain versions to full f32: no TF32 in matmuls or cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _f32_case(tag: str, q, k, v, do, kw) -> dict:
+    """K1's f32 kernel and the f32 backward body (K3 without ids or a cap,
+    the split route with either) against fwd_reference and bwd_reference /
+    split_bwd_reference with TF32 off, all inputs f32: O within FWD_TOL[f32],
+    LSE within FWD_TOL[f32] on live rows, dQ / dK / dV within BWD_TOL[f32];
+    dead rows O = dQ = 0 exactly and LSE = ln2 · mask (to one f32 ulp); keys
+    no row reaches dK = dV = 0 exactly; exactly one launch of each, on the
+    f32 kernels and no other."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+    from flashattn_tpu_torch.utils.testing import BWD_TOL, FWD_TOL, check_close, grad_gate
+
+    kw = dict(scale=q.shape[-1] ** -0.5, **kw)
+    variants = dict(K1_window=int("window" in kw), K1_softcap=int("softcap" in kw))
+    before = _launches()
+    o, lse = flash_fwd.fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _routed(f"K1 f32 at {tag}", before, K1=1, K1_f32=1, **variants)
+    o_want, lse_want = flash_fwd.fwd_reference(q, k, v, **kw)
+    dead_lse = math.log(2.0) * DEFAULT_MASK_VALUE
+    live = lse_want > dead_lse * 0.5
+    dead = ~live
+    tol_f, tol_b = FWD_TOL[torch.float32], BWD_TOL[torch.float32]
+    ok_o, msg_o = check_close(o, o_want, tol_f, "O")
+    ok_l, msg_l = check_close(lse[live], lse_want[live], tol_f, "LSE")
+    dead_ok = bool((o[dead] == 0).all()) and bool(
+        ((lse[dead] - dead_lse).abs() <= abs(dead_lse) * 2.0 ** -23).all())
+    err_o = (o - o_want).abs().max().item()
+    err_l = (lse[live] - lse_want[live]).abs().max().item() if live.any() else 0.0
+    delta = (do * o_want).sum(-1)
+    args = (q, k, v, do, lse_want, delta)
+    split = "segment_ids" in kw or "softcap" in kw
+    before = _launches()
+    if split:
+        got = flash_bwd.split_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        _routed(f"the f32 split route at {tag}", before, split_bwd=1, bwd_f32=1)
+        want = flash_bwd.split_bwd_reference(*args, **kw)
+    else:
+        got = flash_bwd_fused.bwd(*args, **kw)
+        torch.cuda.synchronize()
+        _routed(f"K3 f32 at {tag}", before, K3=1, bwd_f32=1)
+        want = flash_bwd_fused.bwd_reference(*args, **kw)
+    names = ("dq", "dk", "dv")
+    ok_g, why_g, err_g, _ = grad_gate(got, want, tol_b, names=names)
+    keep = flash_fwd.pair_mask(q.shape[2], k.shape[2], kv_valid_len=k.shape[2],
+                               causal=kw.get("causal", False),
+                               segment_ids=kw.get("segment_ids"), device=DEVICE,
+                               window=kw.get("window"), q_offset=kw.get("q_offset", 0),
+                               kv_offset=kw.get("kv_offset", 0))
+    unreached = ~keep.any(dim=-2).any(dim=0)[0]
+    zero_ok = (bool((got[0][dead] == 0).all()) and bool((got[1][:, :, unreached] == 0).all())
+               and bool((got[2][:, :, unreached] == 0).all()))
+    log("f32", f"{tag}: K1 f32 O max_abs_err {err_o:.3e}, LSE live max_abs_err {err_l:.3e} "
+               f"(budget FWD_TOL[f32] {tol_f.atol} + {tol_f.rtol}|ref|, max|O ref| "
+               f"{o_want.abs().max().item():.3f}); {'split route' if split else 'K3'} f32 "
+               f"dQ/dK/dV max_abs_err {err_g:.3e} (budget BWD_TOL[f32] {tol_b.atol} + "
+               f"{tol_b.rtol}|ref|, max|ref| "
+               f"{max(x.abs().max().item() for x in want):.3f}); dead rows {int(dead.sum())} "
+               f"(O, dQ 0, LSE ln2 mask: {dead_ok}), keys no row reaches "
+               f"{int(unreached.sum())} (dK, dV 0: {zero_ok})")
+    if not (ok_o and ok_l and ok_g):
+        fail(f"f32 at {tag}: the kernels disagree with their plain versions: {msg_o}; {msg_l}; "
+             f"{why_g}")
+    if not (dead_ok and zero_ok):
+        fail(f"f32 at {tag}: dead rows or unreached keys not exactly 0")
+    return {"fwd_err": err_o, "bwd_err": err_g}
+
+
+def _adversarial(dtype) -> dict:
+    """flash_attention at ADVERSARIAL in ``dtype``, forward and backward
+    (autograd), against autograd of the f32 oracle on the same values:
+    FWD_TOL / BWD_TOL of ``dtype``; one launch each of K1's and the
+    backward's kernels for ``dtype`` (bf16: the dense route and K3's Hopper
+    kernel; f32: the f32 kernels), none other."""
+    from flashattn_tpu_torch.ops.flash import flash_attention
+    from flashattn_tpu_torch.ops.oracle import attention_reference
+    from flashattn_tpu_torch.utils.testing import (
+        BWD_TOL, FWD_TOL, check_close, grad_gate, make_qkv)
+
+    B, H, N, D, Nk = ADVERSARIAL
+    q, k, v = (x.to(dtype) for x in make_qkv(16, B, H, N, D, Nk=Nk, device=DEVICE))
+    do = make_qkv(17, B, H, N, D, device=DEVICE)[0].to(dtype)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    before = _launches()
+    o = flash_attention(*leaves)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    tag = f"B{B} H{H} N{N} D{D} Nkv{Nk} {str(dtype).split('.')[-1]}"
+    if dtype == torch.float32:
+        _routed(f"flash_attention at {tag}", before, K1=1, K1_f32=1, K3=1, bwd_f32=1)
+    else:
+        _routed(f"flash_attention at {tag}", before, K1=1, K1_dense_sm90=1, K3=1, K3_sm90=1)
+    ref = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+    o_want = attention_reference(*ref)
+    want = torch.autograd.grad(o_want, ref, do.float())
+    ok_o, msg_o = check_close(o, o_want.detach(), FWD_TOL[dtype], "O")
+    ok_g, why_g, err_g, _ = grad_gate(grads, want, BWD_TOL[dtype])
+    err_o = (o.float() - o_want).abs().max().item()
+    log("f32", f"adversarial {tag} through flash_attention: O max_abs_err {err_o:.3e} (budget "
+               f"FWD_TOL[{str(dtype).split('.')[-1]}] {FWD_TOL[dtype].atol}), dQ/dK/dV "
+               f"max_abs_err {err_g:.3e} (budget BWD_TOL {BWD_TOL[dtype].atol} + "
+               f"{BWD_TOL[dtype].rtol}|ref|)")
+    if not (ok_o and ok_g):
+        fail(f"adversarial {tag}: {msg_o}; {why_g}")
+    return {"fwd_err": err_o, "bwd_err": err_g}
+
+
+def _fp16_compute_f32() -> dict:
+    """fp16 inputs through flash_attention with compute_dtype=float32 (the f32
+    kernels, one launch each way) against the f32 oracle on the fp16 values:
+    O within FP16_F32_TOL and closer than the default bf16 compute."""
+    from flashattn_tpu_torch.ops.flash import flash_attention
+    from flashattn_tpu_torch.ops.oracle import attention_reference
+    from flashattn_tpu_torch.utils.testing import Tolerance, check_close, make_qkv
+
+    B, H, N, D = FP16_F32_SHAPE
+    q, k, v = (x.half() for x in make_qkv(18, B, H, N, D, device=DEVICE))
+    want = attention_reference(q.float(), k.float(), v.float(), causal=True)
+    before = _launches()
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    o = flash_attention(*leaves, causal=True, compute_dtype=torch.float32)
+    grads = torch.autograd.grad(o, leaves, torch.ones_like(o))
+    torch.cuda.synchronize()
+    _routed("fp16 with compute_dtype=float32", before, K1=1, K1_f32=1, K3=1, bwd_f32=1)
+    o_bf16 = flash_attention(q, k, v, causal=True)
+    err, err_bf16 = ((x.float() - want).abs().max().item() for x in (o, o_bf16))
+    ok, msg = check_close(o, want, Tolerance(*FP16_F32_TOL), "O")
+    log("f32", f"fp16 B{B} H{H} N{N} D{D} causal: compute_dtype=float32 O max_abs_err "
+               f"{err:.3e} (budget {FP16_F32_TOL}), default bf16 compute {err_bf16:.3e}; "
+               f"O / gradients in {o.dtype} / {grads[0].dtype}")
+    if not (ok and err < err_bf16 and o.dtype == grads[0].dtype == torch.float16):
+        fail(f"fp16 with compute_dtype=float32: {msg}; bf16 compute {err_bf16:.3e}")
+    return {"err": err, "err_bf16": err_bf16}
+
+
+def _sdpa_backend(q, k, v, **kw) -> str:
+    """The backend of one ``scaled_dot_product_attention`` call on these
+    inputs, read from a profile: the number of CUDA kernels it launches and
+    the three that take the most device time (a fused backend is one
+    kernel; the math backend is GEMMs around a softmax)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    kw.setdefault("enable_gqa", k.shape[1] != q.shape[1])
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages() if e.device_time_total > 0),
+                    key=lambda e: -e.device_time_total)
+    top = "; ".join(f"{e.key[:70]} {e.device_time_total / 1e3:.3f} ms" for e in events[:3])
+    return f"{len(events)} kernels, most time in: {top}" if events else "no CUDA kernel profiled"
+
+
+def _f32_library_ms(q, k, v, do, lib_kw) -> dict:
+    """SDPA on the f32 inputs (TF32 off) at the two backends that take f32:
+    the math backend with ``enable_gqa`` (the one SDPA picks for Hkv < Hq)
+    and the memory-efficient backend on K / V expanded to the query heads
+    before timing (it takes no GQA); for the forward (``do`` None) or the
+    backward. The faster one's ms and name."""
+    from torch.nn.attention import SDPBackend
+
+    group = q.shape[1] // k.shape[1]
+    kx, vx = (x.repeat_interleave(group, 1) for x in (k, v))
+    times = {"math backend": sdpa_ms(q, k, v, do=do, backend=SDPBackend.MATH, **lib_kw)}
+    try:
+        times["memory-efficient backend, K / V expanded"] = sdpa_ms(
+            q, kx, vx, do=do, backend=SDPBackend.EFFICIENT_ATTENTION, **lib_kw)
+    except RuntimeError as e:  # the backend refused these inputs: the math time stands
+        log("f32", f"SDPA's memory-efficient backend refused: {str(e)[:200]}")
+    name = min(times, key=times.get)
+    log("f32", f"SDPA f32 {'backward' if do is not None else 'forward'}: "
+               + ", ".join(f"{n} {t:.4f} ms" for n, t in times.items()))
+    return {"library_ms": times[name], "library": f"SDPA f32, {name}"}
+
+
+def _f32_timing(packed: bool) -> tuple[dict, dict]:
+    """K1's f32 kernel and the f32 backward at the f32 LM's attention (B1
+    Hq16 Hkv8 N2048 D128 causal; ``packed``: 8 documents, the split route):
+    each held against its plain version on these inputs (TF32 off; O within
+    FWD_TOL[f32], LSE within it on live rows; dQ / dK / dV within
+    BWD_TOL[f32]), its error in its row; ms, the plain versions' ms, the
+    bounds (bytes at 3.35 TB/s, the pairs' products at
+    PEAK_F32_ACCURATE_FLOPS) and the faster SDPA backend on the same f32
+    inputs (a boolean block mask for the documents)."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+    from flashattn_tpu_torch.utils.testing import (
+        BWD_TOL, FWD_TOL, check_close, grad_gate, make_qkv)
+
+    B, Hq, Hkv, N, D = 1, 16, 8, LM_SEQ, 128
+    q, k, v = make_qkv(19, B, Hq, N, D, Hkv=Hkv, device=DEVICE)
+    do = make_qkv(20, B, Hq, N, D, device=DEVICE)[0]
+    ids = packed_ids(B, N) if packed else None
+    kw = dict(scale=D ** -0.5, causal=True,
+              segment_ids=None if ids is None else (ids, ids))
+    tag = (f"{'packed ' if packed else ''}B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal"
+           f"{' + 8 documents' if packed else ''}")
+    o, lse = flash_fwd.fwd(q, k, v, **kw)
+    o_want, lse_want = flash_fwd.fwd_reference(q, k, v, **kw)
+    live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
+    tol_f, tol_b = FWD_TOL[torch.float32], BWD_TOL[torch.float32]
+    ok_o, msg_o = check_close(o, o_want, tol_f, "O")
+    ok_l, msg_l = check_close(lse[live], lse_want[live], tol_f, "LSE")
+    err_o = (o - o_want).abs().max().item()
+    err_l = (lse[live] - lse_want[live]).abs().max().item()
+    delta = (do * o).sum(-1)
+    bwd = flash_bwd.split_bwd if packed else flash_bwd_fused.bwd
+    bwd_ref = flash_bwd.split_bwd_reference if packed else flash_bwd_fused.bwd_reference
+    if not packed:
+        kw.pop("segment_ids")
+    args = (q, k, v, do, lse, delta)
+    got, want = bwd(*args, **kw), bwd_ref(*args, **kw)
+    ok_g, why_g, err_g, _ = grad_gate(got, want, tol_b)
+    log("f32", f"{tag} (the timed inputs): K1 f32 O max_abs_err {err_o:.3e}, LSE live "
+               f"max_abs_err {err_l:.3e} (budget FWD_TOL[f32] {tol_f.atol} + {tol_f.rtol}|ref|, "
+               f"max|O ref| {o_want.abs().max().item():.3f}); "
+               f"{'split route' if packed else 'K3'} f32 dQ/dK/dV max_abs_err {err_g:.3e} "
+               f"(budget BWD_TOL[f32] {tol_b.atol} + {tol_b.rtol}|ref|, max|ref| "
+               f"{max(x.abs().max().item() for x in want):.3f})")
+    if not (ok_o and ok_l and ok_g):
+        fail(f"f32 at {tag}: the kernels disagree with their plain versions: {msg_o}; "
+             f"{msg_l}; {why_g}")
+    del got, want, o_want, lse_want
+    mask = dict(kv_valid_len=N, causal=True, segment_ids=kw.get("segment_ids"))
+    lib_kw = (dict(is_causal=True) if ids is None else
+              dict(attn_mask=flash_fwd.pair_mask(N, N, device=DEVICE, **mask)))
+    rows = []
+    for name, fn, plain, matmuls, nbytes, err, lib_do in (
+            ("fwd", lambda: flash_fwd.fwd(q, k, v, **kw),
+             lambda: flash_fwd.fwd_reference(q, k, v, **kw), 2,
+             tensor_bytes(q, k, v, o, lse), err_o, None),
+            ("bwd", lambda: bwd(*args, **kw), lambda: bwd_ref(*args, **kw), 5,
+             tensor_bytes(q, k, v, do, lse, delta, q, q, q), err_g, do)):
+        row = {"max_abs_err": err, "ms": cuda_ms(fn, reps=10, trials=5),
+               "plain_ms": cuda_ms(plain, reps=2, trials=3),
+               **bound(nbytes, pair_flops(q, k, matmuls=matmuls, **mask),
+                       PEAK_F32_ACCURATE_FLOPS),
+               **_f32_library_ms(q, k, v, lib_do, lib_kw)}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        log("f32", f"{name} at {tag}: {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {row['bound_share']:.1%} of "
+                   f"it), {row['library']} {row['library_ms']:.4f} ms")
+    log("f32", f"SDPA's f32 dispatch there (enable_gqa): {_sdpa_backend(q, k, v, **lib_kw)}")
+    return rows[0], rows[1]
+
+
+def phase_f32_check() -> dict:
+    """K1's f32 kernel and the f32 backward body against their plain versions
+    (TF32 off) on every F32_CASES entry, q and k at GROW x unit scale (O(1)
+    outputs: a missed band edge or a single-pass TF32 product shows); the
+    adversarial shape in bf16 and f32 through flash_attention; fp16 with
+    compute_dtype=float32; then the kernels held against their plain
+    versions and timed at the f32 LM's attention (_f32_timing)."""
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    _f32_tf32_off()
+    errs = []
+    for i, (tag, B, Hq, Hkv, Nq, Nk, D, kw, ids) in enumerate(F32_CASES):
+        q, k, v = make_qkv(300 + i, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv, device=DEVICE)
+        do = make_qkv(400 + i, B, Hq, Nq, D, device=DEVICE)[0]
+        kw = dict(kw)
+        if ids is not None:
+            kw["segment_ids"] = _seg_case_ids(ids, 500 + i, B, Nq, Nk)
+        # [B, N, H, D] views, as the models hand them over
+        q, k, v, do = (_bnhd(x) for x in (GROW * q, GROW * k, v, do))
+        errs.append(_f32_case(tag, q, k, v, do, kw))
+    adv = {str(dt).split(".")[-1]: _adversarial(dt) for dt in (torch.bfloat16, torch.float32)}
+    fp16 = _fp16_compute_f32()
+    fwd, bwd = _f32_timing(packed=False)
+    fwd_p, bwd_p = _f32_timing(packed=True)
+    worst = {n: max(e[n] for e in errs) for n in ("fwd_err", "bwd_err")}
+    log("f32", f"all {len(F32_CASES)} cases: worst O {worst['fwd_err']:.3e}, worst dQ/dK/dV "
+               f"{worst['bwd_err']:.3e}")
+    return {"fwd": fwd, "bwd": bwd, "fwd_packed": fwd_p, "bwd_packed": bwd_p,
+            "cases_worst": worst, "adversarial": adv, "fp16": fp16}
+
+
+def _f32_lm_gates(cfg, tokens, segment_ids, tag: str) -> None:
+    """The f32 LM's gates, fused against xla on the same seed-0 weights: the
+    loss within F32_LOSS_TOL, all gradients within F32_GRAD_REL_L2 relative
+    L2, both finite."""
+    from flashattn_tpu_torch.models.transformer import init_transformer, lm_loss
+
+    model = init_transformer(cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+
+    def loss_and_grads(arm):
+        model.zero_grad(set_to_none=True)
+        loss = lm_loss(model, tokens, cfg, attn_impl=arm, segment_ids=segment_ids)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    lf, gf = loss_and_grads("fused")
+    lx, gx = loss_and_grads("xla")
+    rel = _rel_l2(gf, gx)
+    finite = math.isfinite(lf) and all(torch.isfinite(t).all() for t in gf.values())
+    log("f32 train", f"{tag} LM ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+                     f"params, f32) on {list(tokens.shape)} tokens: loss fused {lf:.6f}, xla "
+                     f"{lx:.6f}, |diff| {abs(lf - lx):.2e} (limit {F32_LOSS_TOL}); gradients "
+                     f"relative L2 {rel:.3e} (limit {F32_GRAD_REL_L2})")
+    if not (finite and abs(lf - lx) <= F32_LOSS_TOL and rel <= F32_GRAD_REL_L2):
+        fail(f"f32 LM gates ({tag}): loss {lf} vs {lx}, gradients relative L2 {rel}")
+    del model, gf, gx
+    torch.cuda.empty_cache()
+
+
+def phase_f32_train() -> dict:
+    """bench_lm's LM at full width in f32 (LM_WIDTH, dtype float32): the
+    gates at [1, 2049], then F32_STEPS fused lr=1e-3 AdamW steps whose loss
+    falls, with exactly n_layers x F32_STEPS launches of K1's f32 kernel and
+    of the f32 backward (as K3) and none of a bf16 kernel; then the same
+    with 8 packed documents (the f32 backward as the split route)."""
+    from flashattn_tpu_torch.models.transformer import TransformerConfig
+
+    _f32_tf32_off()
+    cfg = TransformerConfig(**LM_WIDTH, dtype=torch.float32)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_SEQ + 1), generator=gen, device=DEVICE)
+    expected = cfg.n_layers * F32_STEPS
+    counts = {}
+    for tag, ids, bwd in (("unpacked", None, "K3"), ("packed", packed_ids(1, LM_SEQ + 1),
+                                                     "split_bwd")):
+        _f32_lm_gates(cfg, tokens, ids, tag)
+        _reset_launches()
+        _lm_steps(cfg, tokens, "fused", ids, phase="f32 train", label=f"f32 fused, {tag}",
+                  steps=F32_STEPS, warmup=1)
+        counts[tag] = _launches()
+        want = _expect(K1=expected, K1_f32=expected, bwd_f32=expected, **{bwd: expected})
+        log("f32 train", f"{tag}: launches {counts[tag]} (expected K1 = K1 f32 = "
+                         f"{bwd.replace('_', ' ')} = bwd f32 = {cfg.n_layers} layers x "
+                         f"{F32_STEPS} steps = {expected}, no bf16 kernel)")
+        if counts[tag] != want:
+            fail(f"f32 LM steps ({tag}) launched {counts[tag]}, expected {want}")
+    return counts
+
+
+def phase_entry() -> dict:
+    """The port's entry points on the card: ``entry()``'s denoise step (its
+    output's shape, dtype and finiteness; the launches it made -- none: every
+    attention there takes the exact path) and ``dryrun_multichip(8)`` (three
+    finite losses, launches only on the f32 kernels)."""
+    from flashattn_tpu_torch import entry as E
+
+    _reset_launches()
+    fn, args = E.entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launched = {n: c for n, c in _launches().items() if c}
+    log("entry", f"entry(): {tuple(out.shape)} {out.dtype}, finite "
+                 f"{bool(torch.isfinite(out).all())}, max|out| {out.abs().max().item():.3e}; "
+                 f"launches {launched} (the exact path everywhere at this size)")
+    if tuple(out.shape) != (1, 32, 32, 4) or out.dtype != torch.float32 or not bool(
+            torch.isfinite(out).all()):
+        fail(f"entry(): output {tuple(out.shape)} {out.dtype} not [1, 32, 32, 4] f32 finite")
+    del fn, args, out
+    _reset_launches()
+    losses = E.dryrun_multichip(8)
+    counts = _launches()
+    other = {n: c for n, c in counts.items()
+             if c and n not in ("K1", "K1 f32", "K3", "split bwd", "bwd f32")}
+    log("entry", f"dryrun_multichip(8): losses {losses}, launches "
+                 f"{ {n: c for n, c in counts.items() if c} }")
+    if (len(losses) != 3 or not all(math.isfinite(x) for x in losses) or other
+            or counts["K1 f32"] == 0 or counts["K1"] != counts["K1 f32"]
+            or counts["bwd f32"] != counts["K3"] + counts["split bwd"] or counts["bwd f32"] == 0):
+        fail(f"dryrun_multichip(8): losses {losses}, launches {counts}: expected three finite "
+             "losses on the f32 kernels only")
+    return {"dryrun": counts, "losses": losses}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -3492,6 +3952,9 @@ def main() -> None:
     roof = timed(phase_roofline)
     ring = timed(phase_ring)
     sharded = timed(phase_sharded_train)
+    f32 = timed(phase_f32_check)
+    f32_train = timed(phase_f32_train)
+    timed(phase_entry)
     fwd_src, bwd_src, split_src, bias_sm90_src = (
         f"flashattn_tpu_torch/csrc/flash_{d}.cu"
         for d in ("fwd_sm90", "bwd_sm90", "bwd_split_sm90", "fwd_bias_sm90"))
@@ -3611,7 +4074,30 @@ def main() -> None:
                  "neighbour chunk pair, one document across the edge)", "route": "cuda",
          "source": split_src, "replaces": split_replaces,
          "launches": sharded["lm"]["packed"]["counts"]["split bwd"],
-         **sharded["rows"]["packed neighbour"][1]}]}), flush=True)
+         **sharded["rows"]["packed neighbour"][1]},
+        # The f32 routes at the f32 LM's attention (B1 Hq16 Hkv8 N2048 D128
+        # causal), launches from phase_f32_train's steps, errors against the
+        # plain versions on the timed inputs; bound at 3xTF32's rate
+        # (PEAK_F32_ACCURATE_FLOPS); library: the faster of SDPA's math and
+        # memory-efficient backends on the f32 inputs, TF32 off, with the
+        # documents as a boolean mask ("library" names it).
+        {"name": "flash_fwd_f32 causal (K1's f32 route, 3xTF32 mma.sync: f32 LM causal, K2)",
+         "route": "cuda", "source": "flashattn_tpu_torch/csrc/flash_fwd_f32.cu",
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:516",
+         "launches": f32_train["unpacked"]["K1 f32"], **f32["fwd"]},
+        {"name": "flash_bwd_f32 (K3 on f32, 3xTF32 mma.sync: f32 LM causal, K4)",
+         "route": "cuda", "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu",
+         "replaces": "flashattn_tpu/ops/flash_bwd_fused.py:110, "
+                     "flashattn_tpu/ops/flash_bwd_fused.py:336",
+         "launches": f32_train["unpacked"]["bwd f32"], **f32["bwd"]},
+        {"name": "flash_fwd_f32 segments (K1's f32 route: packed f32 LM, causal + segment ids)",
+         "route": "cuda", "source": "flashattn_tpu_torch/csrc/flash_fwd_f32.cu",
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+         "launches": f32_train["packed"]["K1 f32"], **f32["fwd_packed"]},
+        {"name": "flash_bwd_f32 segments (K5 + K6 on f32 in one launch: packed f32 LM, causal "
+                 "+ segment ids)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu", "replaces": split_replaces,
+         "launches": f32_train["packed"]["bwd f32"], **f32["bwd_packed"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -437,10 +437,14 @@ def _local_forward_sharded(params, tokens, cfg, mesh, *, zigzag=False, segment_i
     following the layout -- and a psum over ``model`` after ``wo`` and
     ``w_down``. ``segment_ids`` / ``positions``: each rank's chunks for
     packed batches (contiguous layout; the positions are computed on the
-    global ids by the caller, since a document may straddle ranks). Returns
+    global ids by the caller, since a document may straddle ranks).
+    ``cfg.sliding_window`` is the ring's window ``(sliding_window - 1, -1)``
+    in global positions (contiguous layout; :func:`make_sharded_train_step`
+    refuses it under zigzag, and refuses ``cfg.logit_softcap``). Returns
     each rank's logits ``[B/dp, N/sp, vocab]`` f32."""
     sp = mesh.shape["seq"]
     seq_idx = mesh.axis_index("seq")
+    window = (cfg.sliding_window - 1, -1) if cfg.sliding_window else None
     if positions is None:
         positions = []
         for t, si in zip(tokens, seq_idx):
@@ -466,7 +470,7 @@ def _local_forward_sharded(params, tokens, cfg, mesh, *, zigzag=False, segment_i
         if zigzag:
             os = zigzag_ring_attention(qs, ks, vs, mesh=mesh, axis="seq")
         else:
-            os = ring_attention(qs, ks, vs, mesh=mesh, axis="seq", causal=True,
+            os = ring_attention(qs, ks, vs, mesh=mesh, axis="seq", causal=True, window=window,
                                 segment_ids=segment_ids)
         # wo is row-sharded over heads: partial sums, psum over tp
         attn = mesh.psum([torch.einsum("bnhe,hed->bnd", o.transpose(1, 2), layer[r]["wo"])
@@ -507,7 +511,11 @@ def make_sharded_train_step(mesh, cfg: TransformerConfig, *, lr=1e-3,
     loss is the contiguous one). Next-token targets take a one-token halo
     from the next ``seq`` rank (two under zigzag), and the global final
     position is masked out, so the loss equals the single-device
-    :func:`lm_loss` of the same tokens. ``with_segment_ids``: the step takes
+    :func:`lm_loss` of the same tokens -- with ``cfg.sliding_window`` too,
+    as the ring's window in global positions (contiguous layout). Neither
+    package's ring takes a logit cap and the zigzag ring is causal only, so
+    ``cfg.logit_softcap``, and ``cfg.sliding_window`` under zigzag, raise
+    ValueError here rather than train another model. ``with_segment_ids``: the step takes
     ``(params, opt_state, tokens, segment_ids)`` for packed batches -- the
     kv ids rotate with K/V, RoPE positions restart per document (computed on
     the global ids), and the loss masks document boundaries, the target's
@@ -526,6 +534,14 @@ def make_sharded_train_step(mesh, cfg: TransformerConfig, *, lr=1e-3,
     if seq_layout not in ("contiguous", "zigzag"):
         raise ValueError(f"unknown seq_layout {seq_layout!r}")
     zz = seq_layout == "zigzag"
+    if cfg.logit_softcap:
+        raise ValueError(
+            f"logit_softcap={cfg.logit_softcap}: the sharded step's ring attention takes "
+            "no logit cap (nor does the JAX package's), so it cannot compute lm_loss")
+    if cfg.sliding_window and zz:
+        raise ValueError(
+            f"sliding_window={cfg.sliding_window} requires seq_layout='contiguous': the "
+            "zigzag ring is causal only")
     if with_segment_ids and zz:
         raise ValueError(
             "packed batches (with_segment_ids) require "

@@ -13,9 +13,12 @@ ported: a tiny-Nq non-causal GQA call without a window folds each KV head's
 query heads into the Q rows, so the cache is read once. The arguments keep
 the JAX signature; those the port's kernels do not take yet raise
 ``NotImplementedError`` naming their ROADMAP item, on every device: the bias
-together with segment ids, the ``block_sizes`` and ``compute_dtype``
-options, and q / kv offsets that change the result (a causal mask or a
-window, ``q_offset != kv_offset``) with a bias or above head dim 128. The
+together with segment ids, the ``block_sizes`` option, and q / kv offsets
+that change the result (a causal mask or a window, ``q_offset !=
+kv_offset``) with a bias or above head dim 128. ``compute_dtype`` picks the
+kernels' dtype as in the JAX package (bf16 or f32; f32 inputs run the f32
+kernels on the card), and a head dim that is not a multiple of 8 is
+zero-padded to one, as the JAX function pads D. The
 offsets of sequence-parallel callers (``parallel/``) run on K1's dense route
 and, in the backward, K3 or the split route, whose band they shift. The TPU routing tiers
 (unaligned/causal decompositions, macro/resident routing) and K3's VMEM bound
@@ -33,9 +36,17 @@ from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
 
 
-def _dispatch_dtype(dtype: torch.dtype) -> torch.dtype:
-    """Kernel dtype per input dtype (the JAX package's policy): bf16 and f32
-    run as they are; fp16 and anything else cast to bf16."""
+def _dispatch_dtype(dtype: torch.dtype, compute_dtype=None) -> torch.dtype:
+    """Kernel dtype per input dtype (the JAX package's policy,
+    flashattn_tpu/ops/flash.py:224-247): ``compute_dtype`` when given, which
+    must be bf16 or f32 (ValueError otherwise); else bf16 and f32 run as they
+    are, fp16 and anything else cast to bf16. ``compute_dtype=torch.float32``
+    is the accurate route for fp16 inputs: their 10 mantissa bits survive in
+    f32, not in bf16's 7."""
+    if compute_dtype is not None:
+        if compute_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"compute_dtype must be bfloat16 or float32, got {compute_dtype}")
+        return compute_dtype
     if dtype in (torch.bfloat16, torch.float32):
         return dtype
     return torch.bfloat16
@@ -101,12 +112,11 @@ def _normalize_segment_ids(segment_ids, q, k):
     return tuple(ids.to(device=q.device, dtype=torch.int32) for ids in (seg_q, seg_kv))
 
 
-def _reject_unported(*, bias, segment_ids, block_sizes, compute_dtype):
+def _reject_unported(*, bias, segment_ids, block_sizes):
     unported = {
         "bias together with segment_ids": (bias is not None and segment_ids is not None,
                                            _ROADMAP_K1),
         "block_sizes": (block_sizes is not None, _ROADMAP_K1),
-        "compute_dtype": (compute_dtype is not None, _ROADMAP_K1),
     }
     for name, (given, item) in unported.items():
         if given:
@@ -130,9 +140,10 @@ class _FlashCore(torch.autograd.Function):
     bias (its fused branch, with the window), else its two-kernel branch,
     K5 + K6: with a bias (``flash_bwd.bias_bwd_route``) one kernel that
     computes both with the bias and, if any, the softcap; without a bias
-    (``flash_bwd.split_sm90_route``) one kernel that computes both with the
-    segment ids and / or the softcap; else (what neither route takes: f32, D
-    above 128) K5 then K6, which raise on a CUDA tensor. dbias is written only when the bias
+    (``flash_bwd.split_sm90_route``, bf16 or f32) one kernel that computes
+    both with the segment ids and / or the softcap; else (what no route
+    takes: D above 128, f32 with a bias) K5 then K6, which raise on a CUDA
+    tensor. dbias is written only when the bias
     needs a gradient; it comes back reduced over the bias's broadcast dims,
     in the bias's dtype."""
 
@@ -173,7 +184,8 @@ class _FlashCore(torch.autograd.Function):
                 want_dbias=want_dbias)
         elif flash_bwd.split_sm90_route(head_dim=D, bias=bias, dtype=q.dtype,
                                         segment_ids=segment_ids, softcap=ctx.softcap):
-            # Segment ids and / or the softcap without a bias: K5 + K6 in one launch.
+            # Segment ids and / or the softcap without a bias: K5 + K6 in one
+            # launch (the Hopper kernel in bf16, the f32 body in f32).
             dq, dk, dv = flash_bwd.split_bwd(q, k, v, do, lse, delta, segment_ids=segment_ids,
                                              softcap=ctx.softcap, **kw)
         else:
@@ -215,7 +227,7 @@ class _FlashForwardOnly(torch.autograd.Function):
 
 
 def _forward(q, k, v, *, scale, layout, causal, core, bias, segment_ids, window,
-             logit_softcap, q_offset, kv_offset, fold=False, **unported):
+             logit_softcap, q_offset, kv_offset, compute_dtype=None, fold=False, **unported):
     q, k, v = _to_bhnd(q, layout), _to_bhnd(k, layout), _to_bhnd(v, layout)
     _validate(q, k, v, bias)
     # As the JAX function normalises them (flash.py:1083-1095, 1158-1171);
@@ -227,7 +239,7 @@ def _forward(q, k, v, *, scale, layout, causal, core, bias, segment_ids, window,
     in_dtype = q.dtype
     if scale is None:
         scale = float(q.shape[-1]) ** -0.5
-    kdt = _dispatch_dtype(in_dtype)
+    kdt = _dispatch_dtype(in_dtype, compute_dtype)
     q, k, v = q.to(kdt), k.to(kdt), v.to(kdt)
     # GQA decode fold (flash.py:1052-1077): tiny-Nq queries against a GQA
     # cache would read each KV tile rep = Hq/Hkv times (one CTA per q head).
@@ -251,8 +263,18 @@ def _forward(q, k, v, *, scale, layout, causal, core, bias, segment_ids, window,
             logit_softcap=softcap, q_offset=0, kv_offset=0, **unported)
         return _from_bhnd(o.reshape(B, Hq, Nq, D).to(in_dtype), layout), lse
     seg_q, seg_kv = _normalize_segment_ids(segment_ids, q, k)
+    # The kernels take head dims that are multiples of 8 (flash.py:151-157
+    # pads D too): zero columns of q and k add 0 to every score and zero
+    # columns of v give zero columns of O, which are cut off again; dO comes
+    # back padded by the slice's autograd, and dQ / dK / dV cut to D by the
+    # pad's. The scale above is the true D's.
+    pad = -D % 8
+    if pad:
+        q, k, v = (torch.nn.functional.pad(x, (0, pad)) for x in (q, k, v))
     o, lse = core.apply(q, k, v, bias, seg_q, seg_kv, float(scale), k.shape[2], bool(causal),
                         window, softcap, offsets)
+    if pad:
+        o = o[..., :D]
     return _from_bhnd(o.to(in_dtype), layout), lse
 
 
@@ -310,15 +332,23 @@ def flash_attention(
       logit_softcap: Gemma-2-style soft-capping: the scaled logits become
         ``cap·tanh(s/cap)`` before the bias and the masks, differentiable
         through the cap's ``1 − tanh²`` Jacobian.
-      block_sizes, compute_dtype: the JAX package's options; not ported
-        yet, each raises ``NotImplementedError`` when given.
+      compute_dtype: the kernels' dtype, ``torch.bfloat16`` or
+        ``torch.float32`` (anything else is a ``ValueError``), in place of
+        the input dtype's (bf16 and f32 as they are, fp16 cast to bf16). The
+        output and the gradients come back in the input dtype.
+        ``compute_dtype=torch.float32`` is the accurate route for fp16
+        inputs.
+      block_sizes: the JAX package's tile option; not ported yet, raises
+        ``NotImplementedError`` when given.
     Returns:
       Attention output, same shape/layout/dtype as ``q``. CPU tensors run the
-      plain PyTorch versions, CUDA tensors the kernels (bf16; fp16 is cast to
-      bf16 and back): K1 forward; K3 backward, or K5 + K6 (one launch) with
-      segment ids, a softcap or a bias (head dims up to 128). Tiny-Nq non-causal GQA calls without a
-      window (``Nq·Hq/Hkv <= 32``) run folded, one KV head's query heads as Q
-      rows.
+      plain PyTorch versions, CUDA tensors the kernels in the compute dtype
+      (bf16 or f32; fp16 is cast to bf16 and back unless ``compute_dtype``
+      says f32): K1 forward; K3 backward, or K5 + K6 (one launch) with
+      segment ids, a softcap or a bias (head dims up to 128; f32 takes no
+      bias yet). A head dim that is not a multiple of 8 runs zero-padded to
+      one. Tiny-Nq non-causal GQA calls without a window (``Nq·Hq/Hkv <=
+      32``) run folded, one KV head's query heads as Q rows.
     """
     o, _ = _forward(
         q, k, v, scale=scale, layout=layout, causal=causal, core=_FlashCore, bias=bias,

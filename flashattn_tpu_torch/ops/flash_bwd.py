@@ -11,12 +11,17 @@ never reaches a plain version:
 
 * without a bias, with segment ids and / or a softcap
   (:func:`split_sm90_route`): :func:`split_bwd`, the TMA + wgmma body of K3
-  with both options (``csrc/flash_bwd_split_sm90.cu``), returns dQ and dK /
-  dV per *query* head; :func:`split_bwd_reference` is its plain version;
+  with both options (``csrc/flash_bwd_split_sm90.cu``) in bf16, the f32 body
+  in f32, returns dQ and dK / dV per *query* head;
+  :func:`split_bwd_reference` is its plain version;
 * with a bias (:func:`bias_bwd_route`, with or without the softcap, at every
   head dim up to 128, the GQA decode fold's calls too): :func:`bias_bwd`
   (``csrc/bwd_bias_sm90.cu``) returns dQ, dK / dV per *KV* head and, on
   request, dbias; :func:`bias_bwd_reference` is its plain version.
+
+On f32 inputs the split route and K3 (``flash_bwd_fused.bwd``) both launch
+one f32 body (:func:`_f32_bwd_launch`, ``csrc/flash_bwd_f32.cu``: 3xTF32 on
+mma.sync); the bias route stays bf16.
 
 :func:`dkv` and :func:`dq` keep K5's and K6's plain versions
 (:func:`dkv_reference` / :func:`dq_reference`: dK / dV per query head, and
@@ -145,14 +150,15 @@ def check_args(q, k, v, do, lse, delta, kv_valid_len, segment_ids=None) -> int:
 
 
 def check_kernel_args(q, name: str) -> None:
-    """Raise for what the CUDA backward kernels (K3, K5, K6) do not take."""
+    """Raise for what the CUDA backward kernels (K3, K5, K6) do not take: a
+    dtype other than bf16 and f32 (the bias route takes no f32 yet:
+    :func:`bias_bwd` refuses it), D not a multiple of 8 or above
+    ``MAX_HEAD_DIM``, a grid past the CUDA limits."""
     B, Hq, _, D = q.shape
     if q.device.type != "cuda":
         raise NotImplementedError(f"no {name} kernel for device {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the CUDA {name} takes bfloat16, got {q.dtype} (an f32 instantiation is a "
-            "ROADMAP queue 2 item)")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"the CUDA {name} takes bfloat16 or float32, got {q.dtype}")
     if D % 8 or D > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"the CUDA {name} takes head dims that are multiples of 8 up to {MAX_HEAD_DIM}, "
@@ -324,6 +330,10 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     if q.device.type == "cpu":
         return bias_bwd_reference(q, k, v, do, lse, delta, want_dbias=want_dbias, **kw)
     check_kernel_args(q, "K5 + K6 bias route")
+    if q.dtype == torch.float32:
+        raise NotImplementedError(
+            "the CUDA K5 + K6 bias route takes no float32 yet (ROADMAP queue 2, f32 rows: the "
+            "bias routes)")
     f32 = dict(dtype=torch.float32, device=q.device)
     dq_ = torch.zeros((B, Hq, Nq, D), **f32)
     dk = torch.empty((B, Hkv, Nk, D), **f32)
@@ -362,14 +372,15 @@ SPLIT_MAX_Q_TILES = 4096
 
 def split_sm90_route(*, head_dim: int, bias, dtype, segment_ids, softcap) -> bool:
     """Whether a backward that K3 does not take (segment ids, a softcap or a
-    bias) goes to the one Hopper launch of :func:`split_bwd` in place of K5
-    then K6: bf16, no bias, a head dim up to ``MAX_HEAD_DIM`` (a multiple of
-    8, as every CUDA backward's), and segment ids or a softcap -- with or
-    without causal, a window, GQA or a tail. The calls with a bias take
-    :func:`bias_bwd`. :func:`split_bwd` decides the device: a CPU tensor
-    takes the plain version."""
-    return (bias is None and dtype == torch.bfloat16 and head_dim <= MAX_HEAD_DIM
-            and (segment_ids is not None or softcap is not None))
+    bias) goes to the one launch of :func:`split_bwd` in place of K5 then
+    K6: bf16 (the Hopper kernel) or f32 (the f32 body), no bias, a head dim
+    up to ``MAX_HEAD_DIM`` (a multiple of 8, as every CUDA backward's), and
+    segment ids or a softcap -- with or without causal, a window, offsets,
+    GQA or a tail. The calls with a bias take :func:`bias_bwd`.
+    :func:`split_bwd` decides the device: a CPU tensor takes the plain
+    version."""
+    return (bias is None and dtype in (torch.bfloat16, torch.float32)
+            and head_dim <= MAX_HEAD_DIM and (segment_ids is not None or softcap is not None))
 
 
 def split_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -389,14 +400,15 @@ def split_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool =
 
 def _launch_split(lib, q, k, v, do, lse, delta, dq_, dk, dv, seg, *, scale, causal,
                   kv_valid_len, window, softcap, nq_pad, stream, q_offset: int = 0,
-                  kv_offset: int = 0) -> int:
-    """Call ``lib.fa_bwd_split_sm90`` with the arguments of one launch (the C
-    entry's order, ``native.BWD_SPLIT_SM90_ARGTYPES``), ``seg`` being
-    ``flash_fwd.sm90_segments``' tensors at the kernel's tiles or None;
+                  kv_offset: int = 0, entry: str = "fa_bwd_split_sm90") -> int:
+    """Call ``lib.fa_bwd_split_sm90`` -- or ``entry``, ``"fa_bwd_f32"`` for
+    the f32 body, whose arguments are the same -- with the arguments of one
+    launch (the C entry's order, ``native.BWD_SPLIT_SM90_ARGTYPES``), ``seg``
+    being ``flash_fwd.sm90_segments``' tensors at the kernel's tiles or None;
     returns its cudaError_t."""
     B, Hq, Nq, D = q.shape
     seg_ptrs = (None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg)
-    return lib.fa_bwd_split_sm90(
+    return getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq_.data_ptr(), dk.data_ptr(), dv.data_ptr(), *seg_ptrs, B, Hq,
         k.shape[1], Nq, k.shape[2], D, kv_valid_len, int(bool(causal)), *kernel_window(window),
@@ -415,10 +427,11 @@ def split_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     writing zero dK / dV); ``segment_ids`` or ``softcap`` (or both) required -- the call with neither is K3's
     (``flash_bwd_fused.bwd``). CPU tensors take :func:`split_bwd_reference`.
     CUDA tensors launch the Hopper kernel, which takes bf16 with ``D % 8 ==
-    0``, ``D <= 128`` and, with segment ids, ``Nq <= 64 · SPLIT_MAX_Q_TILES``;
-    anything else raises. dQ is summed over the KV tiles by the card's L2
-    (one bulk reduction per tile), so its last bits may differ from run to
-    run. ``split_bwd.launches`` counts kernel launches.
+    0``, ``D <= 128`` and, with segment ids, ``Nq <= 64 · SPLIT_MAX_Q_TILES``,
+    or, on f32, the f32 body (:func:`_f32_bwd_launch`); anything else raises. dQ is
+    summed over the KV tiles by the card's L2 (one bulk reduction per tile,
+    or atomics in f32), so its last bits may differ from run to run.
+    ``split_bwd.launches`` counts the route's launches, on either kernel.
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len, segment_ids)
     window, softcap = check_window(window), check_softcap(softcap)
@@ -431,6 +444,10 @@ def split_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     if q.device.type == "cpu":
         return split_bwd_reference(q, k, v, do, lse, delta, **kw)
     check_kernel_args(q, "K5 + K6 split route")
+    if q.dtype == torch.float32:
+        out = _f32_bwd_launch(q, k, v, do, lse, delta, **kw)
+        split_bwd.launches += 1
+        return out
     B, Hq, Nq, D = q.shape
     Nk = k.shape[2]
     if segment_ids is not None and -(-Nq // SM90_BWD_Q_TILE) > SPLIT_MAX_Q_TILES:
@@ -459,3 +476,47 @@ def split_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
 
 
 split_bwd.launches = 0
+
+
+# The f32 body's Q tile (query rows per step, the LSE / Delta rows and, with
+# segment ids, the query ids it copies, padded to a multiple) and KV tile (the
+# keys of one CTA): csrc/bwd_f32_tile.cuh.
+F32_BWD_Q_TILE = 32
+F32_BWD_KV_TILE = 128
+
+
+def _f32_bwd_launch(q, k, v, do, lse, delta, *, scale: float, causal: bool,
+                    kv_valid_len: int, segment_ids, window, softcap, q_offset: int,
+                    kv_offset: int):
+    """Launch the f32 backward body (``csrc/flash_bwd_f32.cu``) -- K3 without
+    segment ids or a softcap, K5 + K6 without a bias with either -- on the
+    CUDA f32 call that :func:`split_bwd` or ``flash_bwd_fused.bwd`` has
+    checked and normalised: ``(dQ [B, Hq, Nq, D], dK, dV [B, Hq, Nk, D])`` in
+    f32, dK / dV per query head. dQ is added to by atomics, so its last bits
+    may differ from run to run. ``_f32_bwd_launch.launches`` counts its
+    launches."""
+    B, Hq, Nq, D = q.shape
+    Nk = k.shape[2]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq_ = torch.zeros((B, Hq, Nq, D), **f32)  # added to by atomics
+    dk = torch.empty((B, Hq, Nk, D), **f32)
+    dv = torch.empty((B, Hq, Nk, D), **f32)
+    if Nq == 0 or Nk == 0 or B == 0 or Hq == 0:  # an empty grid is not a valid launch
+        return dq_, dk.zero_(), dv.zero_()
+    q, k, v, do = (_kernel_ready(x, 16) for x in (q, k, v, do))
+    nq_pad = -(-Nq // F32_BWD_Q_TILE) * F32_BWD_Q_TILE
+    lse, delta = _padded_rows(lse, nq_pad), _padded_rows(delta, nq_pad)
+    seg = sm90_segments(segment_ids, Nq, kv_valid_len, q_tile=F32_BWD_Q_TILE,
+                        kv_tile=F32_BWD_KV_TILE, pad_q=True)
+    with torch.cuda.device(q.device):
+        rc = _launch_split(native.kernels(), q, k, v, do, lse, delta, dq_, dk, dv, seg,
+                           scale=scale, causal=causal, kv_valid_len=kv_valid_len, window=window,
+                           softcap=softcap, nq_pad=nq_pad,
+                           stream=torch.cuda.current_stream(q.device).cuda_stream,
+                           q_offset=q_offset, kv_offset=kv_offset, entry="fa_bwd_f32")
+    native.check(rc, "flash_bwd_f32 kernel launch")
+    _f32_bwd_launch.launches += 1
+    return dq_, dk, dv
+
+
+_f32_bwd_launch.launches = 0

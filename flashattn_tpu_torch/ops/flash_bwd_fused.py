@@ -6,7 +6,9 @@ and, with ``causal`` or a ``window``, K4 (``_bwd_causal_resident_kernel`` and
 tail, GQA. Soft-capped gradients, segment ids and a bias take K5 + K6 (or,
 after K1's bias route, its backward), as in the JAX package. The kernel is the Hopper TMA + wgmma
 backward of ``csrc/flash_bwd_sm90.cu`` (body ``csrc/bwd_sm90_tile.cuh``);
-its header says what bounds it. :func:`bwd` launches it for CUDA tensors and
+its header says what bounds it; on f32 inputs K3 is the f32 body
+``csrc/flash_bwd_f32.cu`` (``flash_bwd._f32_bwd_launch``, shared with the
+split route). :func:`bwd` launches it for CUDA tensors and
 computes the plain :func:`bwd_reference` for CPU tensors -- the device of the
 input decides, and a CUDA tensor never reaches the plain version.
 
@@ -21,6 +23,7 @@ import torch
 
 from flashattn_tpu_torch.ops.flash_bwd import (
     SM90_BWD_Q_TILE,
+    _f32_bwd_launch,
     _padded_rows,
     check_args,
     check_kernel_args,
@@ -82,9 +85,10 @@ def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     ``[B,Hq,Nq]`` f32; ``window`` and the offsets as in ``flash_fwd.fwd`` (a
     KV tile that no row reaches writes zero dK / dV). CPU tensors take
     :func:`bwd_reference`. CUDA tensors launch the Hopper kernel, which takes
-    bf16 with ``D % 8 == 0`` and ``D <= 128``; anything else raises.
-    ``bwd.launches`` counts K3 launches, ``bwd.launches_sm90`` those of the
-    Hopper kernel (every one: it is K3's only kernel).
+    bf16 with ``D % 8 == 0`` and ``D <= 128``, or on f32 the f32 body
+    (``flash_bwd._f32_bwd_launch``); anything else raises. ``bwd.launches`` counts
+    K3 launches on either kernel, ``bwd.launches_sm90`` those of the Hopper
+    kernel (every bf16 one).
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len)
     window = check_window(window)
@@ -94,6 +98,12 @@ def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
                              kv_valid_len=kv_valid_len, window=window, q_offset=q_offset,
                              kv_offset=kv_offset)
     check_kernel_args(q, "K3")
+    if q.dtype == torch.float32:
+        out = _f32_bwd_launch(q, k, v, do, lse, delta, scale=scale, causal=causal,
+                              kv_valid_len=kv_valid_len, segment_ids=None, window=window,
+                              softcap=None, q_offset=q_offset, kv_offset=kv_offset)
+        bwd.launches += 1
+        return out
     B, Hq, Nq, D = q.shape
     Nk = k.shape[2]
     f32 = dict(dtype=torch.float32, device=q.device)

@@ -21,7 +21,10 @@ a bias (:func:`dense_route`: causal or not, with a window or segment ids or
 neither, any tail) to its dense route (``csrc/flash_fwd_sm90.cu``). Both
 compute K1's function, so their plain version is :func:`fwd_reference`; the
 ``fwd_tile.cuh`` body keeps the calls they refuse (D above 128, quantized
-K/V). :func:`fwd` launches a kernel for
+K/V). Every call on an f32 q (:func:`f32_route`) goes to an f32 kernel of its
+own (``csrc/fwd_f32_tile.cuh`` in ``csrc/flash_fwd_f32.cu``: 3xTF32 on
+mma.sync, the dense route's options at f32 accuracy), decode shapes too; its
+plain version is :func:`fwd_reference` as well. :func:`fwd` launches a kernel for
 CUDA tensors and computes the plain :func:`fwd_reference` for CPU tensors --
 the device of the input decides, and a CUDA tensor never reaches a plain
 version.
@@ -77,8 +80,16 @@ H100_SMS = 132
 # tile (keys per pipeline stage), the tiles of its segment-id ranges.
 DENSE_MAX_HEAD_DIM = 128
 BIAS_ROW_ALIGN = 4
+# The f32 route's ROADMAP item: what it does not take yet (a bias, quantized
+# K/V, head dims above 128).
+_ROADMAP_F32 = "ROADMAP queue 2, f32 rows"
+
 SM90_Q_TILE = 128
 SM90_KV_TILE = 64
+# The f32 route's Q tile (rows per CTA) and KV tile (keys per stage), the
+# tiles of its segment-id ranges (csrc/fwd_f32_tile.cuh).
+F32_Q_TILE = 128
+F32_KV_TILE = 64
 
 
 def check_window(window):
@@ -339,6 +350,16 @@ def dense_route(*, head_dim: int, bias, kv_dtype) -> bool:
     return bias is None and kv_dtype == torch.bfloat16 and head_dim <= DENSE_MAX_HEAD_DIM
 
 
+def f32_route(*, dtype) -> bool:
+    """Whether a CUDA K1 call goes to the f32 kernel (``csrc/flash_fwd_f32.cu``):
+    every call on an f32 q -- causal or not, with or without a window, segment
+    ids, a softcap or q / kv offsets, at any Nq (decode shapes too) and head
+    dims up to ``DENSE_MAX_HEAD_DIM``. :func:`fwd` checks it before the bf16
+    routes, and ``_check_kernel_args`` refuses the f32 calls it does not take
+    (a bias, quantized K/V, D above 128); no f32 call reaches a bf16 kernel."""
+    return dtype == torch.float32
+
+
 def _whole_tiles(ids: torch.Tensor, n_valid: int, tile: int) -> torch.Tensor:
     """``ids[:, :n_valid]`` (``n_valid`` >= 1) as ``[B, tiles, tile]``, the
     last tile padded with its last id (which moves no tile's min or max): a
@@ -555,13 +576,15 @@ def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, bias, softcap):
 
 
 def _launch_dense_sm90(lib, q, k, v, o, lse, seg, *, scale, kv_valid_len, causal, window,
-                      softcap, stream, q_offset: int = 0, kv_offset: int = 0) -> int:
-    """Call ``lib.fa_fwd_sm90`` with the arguments of one launch (the C
-    entry's order, ``native.FWD_SM90_ARGTYPES``), ``seg`` being
+                      softcap, stream, q_offset: int = 0, kv_offset: int = 0,
+                      entry: str = "fa_fwd_sm90") -> int:
+    """Call ``lib.fa_fwd_sm90`` -- or ``entry``, ``"fa_fwd_f32"`` for the f32
+    route, whose arguments are the same -- with the arguments of one launch
+    (the C entry's order, ``native.FWD_SM90_ARGTYPES``), ``seg`` being
     :func:`sm90_segments`' tensors or None; returns its cudaError_t."""
     B, Hq, Nq, D = q.shape
     seg_ptrs = (None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg)
-    return lib.fa_fwd_sm90(
+    return getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *seg_ptrs,
         B, Hq, k.shape[1], Nq, D, kv_valid_len, int(bool(causal)), *kernel_window(window),
         q_offset, kv_offset, float(scale), softcap or 0.0, *q.stride()[:3], *k.stride()[:3],
@@ -590,6 +613,28 @@ def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, so
     return o, lse
 
 
+def _dense_f32(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, softcap,
+               q_offset, kv_offset):
+    """Launch the f32 kernel and count the launch."""
+    B, Hq, Nq, D = q.shape
+    q, k, v = (_kernel_ready(x, 16) for x in (q, k, v))
+    o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides
+    lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:  # an empty grid is not a valid launch
+        return o, lse
+    seg = sm90_segments(segment_ids, Nq, kv_valid_len, q_tile=F32_Q_TILE, kv_tile=F32_KV_TILE)
+    with torch.cuda.device(q.device):
+        rc = _launch_dense_sm90(native.kernels(), q, k, v, o, lse, seg, scale=scale,
+                                kv_valid_len=kv_valid_len, causal=causal, window=window,
+                                softcap=softcap,
+                                stream=torch.cuda.current_stream(q.device).cuda_stream,
+                                q_offset=q_offset, kv_offset=kv_offset, entry="fa_fwd_f32")
+    native.check(rc, "flash_fwd_f32 kernel launch")
+    _count_variants(k.dtype, None, kernel_window(window) != (-1, -1), softcap)
+    fwd.launches_f32 += 1
+    return o, lse
+
+
 def offsets_refusal(*, head_dim: int, bias, quantized: bool) -> str | None:
     """Why a K1 call with offsets that change its result (:func:`band_offsets`)
     has no kernel yet, naming the route and its ROADMAP item, or None where
@@ -605,15 +650,24 @@ def offsets_refusal(*, head_dim: int, bias, quantized: bool) -> str | None:
 
 def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool) -> None:
     """Raise for what no CUDA K1 kernel takes: another device, a q that is
-    not bf16, D not a multiple of 8 or above ``MAX_HEAD_DIM``, segment ids or
-    a window with a bias or quantized K/V, a grid past the CUDA limits."""
+    neither bf16 nor f32, an f32 q with a bias, quantized K/V or D above
+    ``DENSE_MAX_HEAD_DIM`` (the f32 route's refusals), D not a multiple of 8
+    or above ``MAX_HEAD_DIM``, segment ids or a window with a bias or
+    quantized K/V, a grid past the CUDA limits."""
     B, Hq, _, D = q.shape
     if q.device.type != "cuda":
         raise NotImplementedError(f"no K1 kernel for device {q.device}")
-    if q.dtype != torch.bfloat16:
+    if q.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
-            f"the CUDA K1 takes bfloat16, got {q.dtype} (an f32 FMA instantiation "
-            "is a ROADMAP queue 2 K1 item)")
+            f"the CUDA K1 takes bfloat16 or float32, got {q.dtype} (flash_attention casts "
+            "other dtypes to bfloat16)")
+    if q.dtype == torch.float32:
+        what = ("a bias" if bias is not None else "quantized K/V" if k_scale is not None
+                else f"head dims above {DENSE_MAX_HEAD_DIM}" if D > DENSE_MAX_HEAD_DIM else None)
+        if what:
+            raise NotImplementedError(
+                f"the CUDA K1's f32 route takes no {what} yet ({_ROADMAP_F32}); the bf16 "
+                "routes take it")
     if D % 8 or D > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"the CUDA K1 takes head dims that are multiples of 8 up to "
@@ -649,7 +703,9 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     CPU tensors take :func:`fwd_reference`. CUDA tensors launch the kernel,
     which takes a bf16 ``q`` (and bf16, int8 or fp8 K/V) with ``D % 8 == 0``
     and ``D <= 256``, and segment ids or a window only without bias or
-    quantized K/V; anything else raises. A CUDA call that :func:`decode_route`
+    quantized K/V, or an f32 q, k and v without a bias at ``D <= 128``;
+    anything else raises. An f32 call (:func:`f32_route`) launches the f32
+    kernel; a bf16 CUDA call that :func:`decode_route`
     accepts launches the split-KV decode kernel (and its merge), one that
     :func:`bias_route` accepts the Hopper bias kernel, one that
     :func:`dense_route` accepts the Hopper dense kernel, every other the
@@ -657,6 +713,7 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     kernel; ``fwd.launches_bias`` those of bf16 K/V with a bias (on any
     kernel), ``fwd.launches_bias_sm90`` those of the bias kernel,
     ``fwd.launches_dense_sm90`` those of the Hopper dense kernel,
+    ``fwd.launches_f32`` those of the f32 kernel,
     ``fwd.launches_int8`` / ``fwd.launches_fp8`` those of quantized K/V (with
     or without a bias), ``fwd.launches_window`` those with a window,
     ``fwd.launches_softcap`` those with a softcap, ``fwd.launches_decode``
@@ -699,6 +756,11 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     windowed = kernel_window(window) != (-1, -1)
     _check_kernel_args(q, segment_ids=segment_ids, bias=bias, k_scale=k_scale,
                        windowed=windowed)
+
+    if f32_route(dtype=q.dtype):
+        return _dense_f32(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
+                          window=window, segment_ids=segment_ids, softcap=softcap,
+                          q_offset=q_offset, kv_offset=kv_offset)
 
     if decode_route(rows=Hq // Hkv * Nq, causal=causal, segment_ids=segment_ids, window=window,
                     head_dim=D):
@@ -756,6 +818,7 @@ fwd.launches = 0
 fwd.launches_bias = 0
 fwd.launches_bias_sm90 = 0
 fwd.launches_dense_sm90 = 0
+fwd.launches_f32 = 0
 fwd.launches_int8 = 0
 fwd.launches_fp8 = 0
 fwd.launches_window = 0

@@ -100,6 +100,13 @@ BWD_BIAS_SM90_ARGTYPES = [
     _PTR,                                # cudaStream_t
 ]
 
+# The C entries of the f32 routes: K1's (csrc/flash_fwd_f32.cu) takes the
+# arguments of K1's dense route, the f32 backward's (csrc/flash_bwd_f32.cu,
+# K3 and K5 + K6 without a bias) those of the split route, segment ids and
+# the softcap optional.
+FWD_F32_ARGTYPES = FWD_SM90_ARGTYPES
+BWD_F32_ARGTYPES = BWD_SPLIT_SM90_ARGTYPES
+
 _RING_DIMS = [
     _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, nq, nk, D
     _I32, _I32,                          # q_base, kv_off (global positions)
@@ -229,6 +236,10 @@ def kernels() -> ctypes.CDLL:
     lib.fa_bwd_sm90.argtypes = BWD_SM90_ARGTYPES
     lib.fa_bwd_split_sm90.restype = i32
     lib.fa_bwd_split_sm90.argtypes = BWD_SPLIT_SM90_ARGTYPES
+    lib.fa_fwd_f32.restype = i32
+    lib.fa_fwd_f32.argtypes = FWD_F32_ARGTYPES
+    lib.fa_bwd_f32.restype = i32
+    lib.fa_bwd_f32.argtypes = BWD_F32_ARGTYPES
     lib.fa_gemm_bf16.restype = i32
     lib.fa_gemm_bf16.argtypes = [
         ptr, ptr, ptr,                      # a [M, K], b [K, N] (bf16), out [M, N]

@@ -88,7 +88,7 @@ _SEG = {"segment_ids": torch.zeros(1, 64, dtype=torch.int32)}
 # their cases hold the output and the gradient against the oracle. Offsets
 # with a bias still raise.
 PORTED = {"bias", "window", "logit_softcap", "segment_ids+window", "segment_ids+logit_softcap",
-          "q_offset", "kv_offset", "segment_ids+q_offset"}
+          "q_offset", "kv_offset", "segment_ids+q_offset", "compute_dtype"}
 UNPORTED = {
     "bias": {"bias": torch.zeros(1, 1, 64, 64)},
     "window": {"window": (8, 8)},
@@ -108,7 +108,9 @@ UNPORTED = {
 
 def _oracle_kw(kw):
     """The oracle's spelling of flash_attention's options: a (q_ids, kv_ids)
-    tuple for a single segment-id tensor."""
+    tuple for a single segment-id tensor; no ``compute_dtype`` (the oracle
+    computes in f32, the dtype these inputs ask for)."""
+    kw = {n: x for n, x in kw.items() if n != "compute_dtype"}
     seg = kw.get("segment_ids")
     return kw if seg is None else {**kw, "segment_ids": (seg, seg)}
 

@@ -107,7 +107,9 @@ def test_dead_rows_give_zero_dq_and_nothing_to_dkv():
 
 @pytest.mark.parametrize("segmented", [False, True])
 def test_backward_routes_like_jax(monkeypatch, segmented):
-    """With segment ids the backward runs K5 then K6 and not K3; without them K3 only."""
+    """With segment ids the backward runs the JAX package's two-kernel
+    branch, K5 + K6 (here in one launch, ``split_bwd``), and not K3 or the
+    separate K5 / K6; without them K3 only."""
     calls = []
 
     def spy(name, fn):
@@ -117,6 +119,7 @@ def test_backward_routes_like_jax(monkeypatch, segmented):
         return wrapped
 
     monkeypatch.setattr(flash_bwd_fused, "bwd", spy("K3", flash_bwd_fused.bwd))
+    monkeypatch.setattr(flash_bwd, "split_bwd", spy("K5 + K6", flash_bwd.split_bwd))
     monkeypatch.setattr(flash_bwd, "dkv", spy("K5", flash_bwd.dkv))
     monkeypatch.setattr(flash_bwd, "dq", spy("K6", flash_bwd.dq))
     q, k, v = make_qkv(51, 1, 4, 64, 32, Hkv=2)
@@ -125,7 +128,7 @@ def test_backward_routes_like_jax(monkeypatch, segmented):
     o = flashattn_tpu_torch.flash_attention(q, k, v, causal=True, segment_ids=seg)
     assert calls == []
     o.sum().backward()
-    assert calls == (["K5", "K6"] if segmented else ["K3"])
+    assert calls == (["K5 + K6"] if segmented else ["K3"])
 
 
 @pytest.mark.parametrize("fn", ["dkv", "dq"])

@@ -24,6 +24,12 @@ tp-sharded leaves are psum'd over ``model`` as well -- each shard receives
 the sum of every shard's gradient. AdamW hides the uniform factor, so one
 lr=1e-3 step of both packages agrees on a mesh with ``model`` 1 and, on a
 (2, 2, 2) mesh, on the replicated leaves.
+
+The step applies ``cfg.sliding_window`` in the contiguous layout (its loss
+and gradients are the single-device windowed ones) and refuses a window
+under zigzag and any logit cap, which its ring cannot apply; the JAX step
+drops the window silently, a third deviation of the reference
+(``test_jax_step_drops_the_window``).
 """
 
 import numpy as np
@@ -229,3 +235,88 @@ def test_step_rejections():
     step, _, _ = T.make_sharded_train_step(mesh, CFG, with_segment_ids=True)
     with pytest.raises(TypeError, match="segment_ids"):
         step([], [], torch.zeros(1, 64, dtype=torch.long))
+
+
+# Fault 4: a window of 4 tokens, whose rows reach across the 16-token seq
+# shards of a (1, 2, 4) mesh at their first rows; at these weights it moves
+# the loss by 1.6e-2 to 1.8e-2, past twice LOSS_TOL, so a dropped window
+# fails the loss gate.
+WINDOW = 4
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "packed"])
+def test_windowed_sharded_step_is_the_single_device_loss(jax_side, packed):
+    """The contiguous step applies cfg.sliding_window as the ring's window
+    (sliding_window - 1, -1) in global positions: its loss is the
+    single-device lm_loss with the window, the port's and the JAX
+    package's, within LOSS_TOL -- and not the loss without it -- and its
+    gradients are jax.grad of the JAX lm_loss with the window (BWD_TOL[f32]);
+    with packed documents too."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from flashattn_tpu.models.transformer import lm_loss
+
+    cfg, params, np_params = jax_side
+    jcfg = dataclasses.replace(cfg, sliding_window=WINDOW)
+    pcfg = dataclasses.replace(CFG, sliding_window=WINDOW)
+    tokens = _tokens(11, 2, 64)
+    ids = None
+    if packed:
+        ids = np.broadcast_to((np.arange(64) >= 37).astype(np.int32), (2, 64)).copy()
+    mesh = make_mesh(1, 2, 4, devices="cpu")
+    step, specs, _ = T.make_sharded_train_step(mesh, pcfg, with_segment_ids=packed)
+    ids_t = None if ids is None else torch.from_numpy(ids)
+    loss, grads = step.loss_and_grads(sharded_transformer_from_jax(np_params, pcfg, mesh),
+                                      torch.from_numpy(tokens), ids_t)
+    model = transformer_from_jax(np_params, pcfg, device="cpu")
+    with torch.no_grad():
+        single = float(T.lm_loss(model, torch.from_numpy(tokens).long(), pcfg,
+                                 segment_ids=ids_t))
+        unwindowed = float(T.lm_loss(model, torch.from_numpy(tokens).long(), CFG,
+                                     segment_ids=ids_t))
+    kw = {} if ids is None else {"segment_ids": jnp.asarray(ids)}
+    want_loss, want = jax.value_and_grad(lm_loss)(params, jnp.asarray(tokens), jcfg, **kw)
+    assert abs(float(loss) - single) < LOSS_TOL, (float(loss), single)
+    assert abs(float(loss) - float(want_loss)) < LOSS_TOL, (float(loss), float(want_loss))
+    assert abs(single - unwindowed) > 2 * LOSS_TOL  # the window binds
+    for name in specs:
+        got = mesh.unshard([g[name] for g in grads], specs[name])
+        assert_close(got, _jax_leaf(want, name), BWD_TOL[torch.float32], name)
+
+
+@pytest.mark.parametrize("opts,layout,match", [
+    ({"sliding_window": WINDOW}, "zigzag", "sliding_window"),
+    ({"logit_softcap": 30.0}, "contiguous", "logit_softcap"),
+    ({"logit_softcap": 30.0, "sliding_window": WINDOW}, "zigzag", "logit_softcap")],
+    ids=["zigzag window", "cap", "zigzag cap"])
+def test_sharded_step_refuses_what_its_ring_cannot_apply(opts, layout, match):
+    """The zigzag ring is causal only and neither package's ring takes a
+    logit cap: the step raises, naming the option, when it is built."""
+    import dataclasses
+
+    mesh = make_mesh(1, 1, 2, devices="cpu")
+    with pytest.raises(ValueError, match=match):
+        T.make_sharded_train_step(mesh, dataclasses.replace(CFG, **opts), seq_layout=layout)
+
+
+def test_jax_step_drops_the_window(jax_side):
+    """A deviation of the reference (ROADMAP queue 3): the JAX step calls its
+    ring with causal=True alone, so with a sliding window its lr=0 loss is
+    the loss without one, not the JAX lm_loss with the window."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from flashattn_tpu.models.transformer import lm_loss
+
+    cfg, params, _ = jax_side
+    jcfg = dataclasses.replace(cfg, sliding_window=WINDOW)
+    tokens = _tokens(12, 2, 64)
+    _, _, windowed = _jax_step(jcfg, params, (1, 1, 4), tokens, lr=0.0)
+    _, _, plain = _jax_step(cfg, params, (1, 1, 4), tokens, lr=0.0)
+    true = float(lm_loss(params, jnp.asarray(tokens), jcfg))
+    assert abs(float(windowed) - float(plain)) < 1e-5
+    assert abs(float(windowed) - true) > 2 * LOSS_TOL

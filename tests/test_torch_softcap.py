@@ -111,8 +111,8 @@ def test_softcap_grads_match_jax(jax_softcap, causal):
 
 def test_softcap_with_segments_and_window_routes_to_k5_k6(jax_softcap, monkeypatch):
     """Softcap composed with segment ids and a window (no bias): the
-    gradients of the JAX package's, and the backward is K5 then K6, never
-    K3."""
+    gradients of the JAX package's, and the backward is K5 + K6 (one launch,
+    ``split_bwd``), never K3 or the separate K5 / K6."""
     calls = []
 
     def spy(name, fn):
@@ -122,12 +122,13 @@ def test_softcap_with_segments_and_window_routes_to_k5_k6(jax_softcap, monkeypat
         return wrapped
 
     monkeypatch.setattr(flash_bwd_fused, "bwd", spy("K3", flash_bwd_fused.bwd))
+    monkeypatch.setattr(flash_bwd, "split_bwd", spy("K5 + K6", flash_bwd.split_bwd))
     monkeypatch.setattr(flash_bwd, "dkv", spy("K5", flash_bwd.dkv))
     monkeypatch.setattr(flash_bwd, "dq", spy("K6", flash_bwd.dq))
     q, k, v, seg = _seg_qkv()
     got = _grads(lambda a, b, c: (flashattn_tpu_torch.flash_attention(
         a, b, c, segment_ids=torch.from_numpy(seg), **SEG_KW) ** 2).sum(), q, k, v)
-    assert calls == [("K5", CAP, (96, -1)), ("K6", CAP, (96, -1))]
+    assert calls == [("K5 + K6", CAP, (96, -1))]
     for name, g, w in zip(("dq", "dk", "dv"), got, jax_softcap[2]):
         assert_close(g, w, BWD_TOL[torch.float32], name)
 

@@ -45,21 +45,23 @@ def _route(head_dim=128, bias=None, dtype=torch.bfloat16, segment_ids=(IDS, IDS)
                                       segment_ids=segment_ids, softcap=softcap)
 
 
-# The backwards it takes: bf16 without a bias, segment ids and / or a softcap,
-# at the LM's D 128 and the head dims run in a wider box (8, 40, 96); causal,
-# a window and the tails are not its test (the kernel takes every one).
+# The backwards it takes: bf16 or f32 without a bias, segment ids and / or a
+# softcap, at the LM's D 128 and the head dims run in a wider box (8, 40,
+# 96); causal, a window and the tails are not its test (the kernel takes
+# every one).
 ROUTE_TAKES = {"packed D 128": {}, "softcap": dict(segment_ids=None, softcap=50.0),
                "ids + softcap": dict(softcap=5.0), "D 40": dict(head_dim=40),
                "D 8": dict(head_dim=8), "D 96 softcap": dict(head_dim=96, segment_ids=None,
-                                                            softcap=30.0)}
+                                                            softcap=30.0),
+               "f32": dict(dtype=torch.float32)}
 # Those it refuses: K3's (neither option), the bias calls (the bias route),
-# head dims above 128, f32.
+# head dims above 128, fp16.
 ROUTE_REFUSES = {"neither": dict(segment_ids=None),
                  "bias + softcap": dict(segment_ids=None, softcap=50.0,
                                         bias=torch.empty((1, 1, 1, 8), device="meta")),
                  "bias": dict(bias=torch.empty((1, 1, 1, 8), device="meta")),
                  "D 136": dict(head_dim=136), "D 160 softcap": dict(head_dim=160, softcap=5.0),
-                 "f32": dict(dtype=torch.float32), "fp16": dict(dtype=torch.float16)}
+                 "fp16": dict(dtype=torch.float16)}
 
 
 @pytest.mark.parametrize("case", list(ROUTE_TAKES))
