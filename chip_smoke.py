@@ -77,8 +77,11 @@ its kernels:
   single-device flash_attention; the sharded LM step at full width in three
   layouts, its loss against the single-device lm_loss and its gradients
   against an f32 copy of the model, with exact launch counts;
-* f32: K1's f32 route and the f32 backward body (3xTF32 on
-  mma.sync) against their plain versions with TF32 off at ragged shapes,
+* f32: the operand split into three bf16 pieces, as the f32 C entries
+  launch it, against its plain version bit for bit (read back from their
+  scratch); K1's f32 route and the f32 backward body (TMA + wgmma, six
+  bf16 products per f32 product, with wgmma and TMA and no mma.sync in
+  their SASS) against their plain versions with TF32 off at ragged shapes,
   GQA, causal, a window, segment ids, the cap and the ring's offsets; the
   reference's adversarial shape (B3 H7 N1537 D111 Nkv1234, D padded to 112)
   in bf16 and f32 through flash_attention; fp16 with
@@ -92,7 +95,7 @@ its kernels:
 Every kernel's line in the kernels JSON carries its time, its plain version's
 time, its bound (the larger of the bytes it must move at 3.35 TB/s and its
 tensor-core FLOPs at 989 TFLOP/s, the H100 SXM's datasheet peaks; the f32
-kernels' FLOPs at 165 TFLOP/s, the TF32 peak over three) and the
+kernels' FLOPs at 165 TFLOP/s, the bf16 peak over six) and the
 time of one PyTorch call that computes the same function
 (``scaled_dot_product_attention``, forward or backward; ``flex_attention``
 compiled by ``torch.compile`` where a softcap or segment ids rule SDPA out),
@@ -107,6 +110,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -157,9 +161,11 @@ SOFTCAP = 50.0
 # dense bf16 tensor-core FLOP/s and HBM3 bytes/s.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
-# The least time of an f32-accurate product: the dense TF32 peak (495
-# TFLOP/s) over three, the rate of 3xTF32 (a single TF32 pass keeps ~3
-# decimal digits; FFMA peaks at 67 TFLOP/s).
+# The least time of an f32-accurate product: six bf16 products of three-piece
+# operands at the bf16 peak, 989 / 6 TFLOP/s -- the dense TF32 peak (495
+# TFLOP/s) over three, 3xTF32's rate, to 0.1%, the value kept since the f32
+# kernels' first rows (a single TF32 or bf16 pass keeps ~3 decimal digits;
+# FFMA peaks at 67 TFLOP/s).
 PEAK_F32_ACCURATE_FLOPS = 495e12 / 3
 # phase_build's ptxas report ({instantiation: (registers, stack, spill
 # stores, spill loads)}), read again where a phase logs a kernel's registers.
@@ -392,6 +398,8 @@ def instantiation_name(mangled: str) -> str:
     raising."""
     if "decode_merge_kernel" in mangled:
         return "K1 decode merge decode_merge_kernel"
+    if "split_bf16x3_kernel" in mangled:  # the f32 routes' operand split
+        return "split bf16x3 split_bf16x3_kernel"
     dec = re.search(r"decode_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if dec:  # K1's decode route: decode_kernel<D, KV, BIAS, CAP>
         args = [int(a) for a in re.findall(r"L[a-z]+(-?\d+)E", dec.group(1))]
@@ -1021,6 +1029,7 @@ def _reset_launches() -> None:
     flash_bwd.bias_bwd.launches = flash_bwd.bias_bwd.launches_dbias = 0
     flash_bwd.split_bwd.launches = 0
     flash_fwd.fwd.launches_f32 = flash_bwd._f32_bwd_launch.launches = 0
+    flash_fwd.fwd.launches_split = flash_bwd._f32_bwd_launch.launches_split = 0
     gemm.matmul.launches = roofline.roofline_call.launches = 0
     ring_kernel.ring_fwd_step.launches = ring_kernel.ring_bwd_step.launches = 0
 
@@ -1039,8 +1048,11 @@ def _launches() -> dict:
     K1's f32 kernel (also counted in "K1", and in "K1 window" / "K1
     softcap"), "bwd f32" those of the f32 backward body, which K3's f32
     calls (also counted in "K3") and the split route's (in "split bwd")
-    launch. K5 and K6 have no kernel of their own: every CUDA backward that
-    is not K3's takes one of the routes."""
+    launch; "split bf16x3" those of the f32 routes' operand split (one
+    before each K1 f32 launch, of q, k and v, and one before each bwd f32
+    launch, of q, k, v and dO, both from the f32 C entries). K5 and K6 have
+    no kernel of their own: every CUDA backward that is not K3's takes one
+    of the routes."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, gemm, roofline
     from flashattn_tpu_torch.parallel import ring_kernel
 
@@ -1056,6 +1068,8 @@ def _launches() -> dict:
             "bias bwd dbias": flash_bwd.bias_bwd.launches_dbias,
             "split bwd": flash_bwd.split_bwd.launches,
             "K1 f32": flash_fwd.fwd.launches_f32, "bwd f32": flash_bwd._f32_bwd_launch.launches,
+            "split bf16x3": (flash_fwd.fwd.launches_split
+                             + flash_bwd._f32_bwd_launch.launches_split),
             "K7": ring_kernel.ring_fwd_step.launches, "K8": ring_kernel.ring_bwd_step.launches,
             "K9": gemm.matmul.launches, "K10": roofline.roofline_call.launches}
 
@@ -3508,9 +3522,9 @@ def phase_sharded_train() -> dict:
 # Nq 127 / 129 and Nk 63 / 77 with Nq != Nk, D 32 / 64 / 128 (D 32 in the
 # D 64 box), GQA, causal, a window with both bounds, segment ids (a tuple at
 # Nq != Nk, packed, and rows of a segment no key carries: dead rows), the
-# cap, all of them at once over several tiles, and the contiguous ring's
-# chunk pairs (the neighbour pair, every pair live; kv_offset past q_offset:
-# dead rows and keys no row reaches).
+# cap, all of them at once over several tiles, the contiguous ring's chunk
+# pairs (the neighbour pair, every pair live; kv_offset past q_offset: dead
+# rows and keys no row reaches), and a decode shape (one query row, GQA).
 F32_CASES = [
     ("Nq127 Nk63 causal GQA 4/2", 2, 4, 2, 127, 63, 64, dict(causal=True), None),
     ("Nq129 Nk77 window (40, 3) D32", 1, 4, 4, 129, 77, 32, dict(window=(40, 3)), None),
@@ -3523,6 +3537,7 @@ F32_CASES = [
      dict(causal=True, q_offset=512, kv_offset=0), None),
     ("ring kv past q (0, 512)", 1, 8, 4, 1024, 512, 128,
      dict(causal=True, q_offset=0, kv_offset=512), None),
+    ("decode Nq1 Nk500 GQA 8/2", 2, 8, 2, 1, 500, 128, {}, None),
 ]
 # The reference's adversarial shape (flashattn_tpu/utils/testing.py:25-26,
 # precision_test.py:34-38): B3 H7 N1537 D111 Nkv1234, non-causal, through
@@ -3543,6 +3558,144 @@ FP16_F32_TOL = (1e-3, 1e-3)
 F32_LOSS_TOL = 1e-3
 F32_GRAD_REL_L2 = 1e-3
 F32_STEPS = 4
+
+
+@contextlib.contextmanager
+def _scratch_kept():
+    """Keep, in order, every scratch that the f32 wrappers allocate for their
+    C entries' split (f32_split.scratch), so that the pieces the card wrote
+    there can be read after the call."""
+    from flashattn_tpu_torch.ops import f32_split
+
+    kept, make = [], f32_split.scratch
+    f32_split.scratch = lambda *a: kept.append(make(*a)) or kept[-1]
+    try:
+        yield kept
+    finally:
+        f32_split.scratch = make
+
+
+def _pieces_check(tag: str, pieces, operands, kv_valid_len: int) -> float:
+    """The pieces that an f32 C entry's one split launch wrote into
+    ``pieces`` (its scratch; the forward's operands q, k, v, the backward's
+    q, k, v, dO, k and v cut to kv_valid_len) against split_reference of
+    each, bit for bit; fails on any difference. Prints the pieces' sum
+    against each operand, relative to |x|. Returns the largest |kernel piece
+    - plain piece| (0 when bit for bit)."""
+    from flashattn_tpu_torch.ops import f32_split
+
+    xs = [x[:, :, :kv_valid_len] if i in (1, 2) else x for i, x in enumerate(operands)]
+    D = xs[0].shape[-1]
+    got = f32_split.operands(pieces, [tuple(x.shape[:3]) for x in xs], D)
+    same, err, rel = True, 0.0, 0.0
+    for g, x in zip(got, xs):
+        want = f32_split.split_reference(x)
+        same = same and torch.equal(g.view(torch.int16), want.view(torch.int16))
+        err = max(err, (g.float() - want.float()).abs().max().item())
+        big = x.abs() > 1e-30  # the sum's error relative to |x| (subnormals: absolute)
+        rel = max(rel, ((g.float().sum(0)[..., :D] - x).abs()[big] / x.abs()[big]).max().item())
+    log("f32", f"split at {tag} ({len(xs)} operands in one launch, kv_valid_len "
+               f"{kv_valid_len}): pieces bit for bit {same}, max |kernel - plain| {err:.3e}; "
+               f"|x0 + x1 + x2 - x| / |x| max {rel:.3e} (2^-24 = {2.0 ** -24:.3e})")
+    if not same:
+        fail(f"the split at {tag}: the kernel's pieces differ from split_reference's")
+    return err
+
+
+def _split_checked(tag: str, q, k, v, do, kw) -> float:
+    """K1's f32 call and the f32 backward's (K3's) on these inputs, the
+    launches exactly one kernel and one split each way, and the pieces each
+    split wrote held against split_reference (_pieces_check); the larger of
+    the two errors."""
+    from flashattn_tpu_torch.ops import flash_bwd_fused, flash_fwd
+
+    nkv = kw.get("kv_valid_len", k.shape[2])
+    before = _launches()
+    with _scratch_kept() as kept:
+        o, lse = flash_fwd.fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+    _routed(f"K1 f32 at {tag}", before, K1=1, K1_f32=1, split_bf16x3=1)
+    err = _pieces_check(f"{tag}, K1 f32", kept[0], (q, k, v), nkv)
+    before = _launches()
+    with _scratch_kept() as kept:
+        flash_bwd_fused.bwd(q, k, v, do, lse, (do * o).sum(-1), **kw)
+        torch.cuda.synchronize()
+    _routed(f"K3 f32 at {tag}", before, K3=1, bwd_f32=1, split_bf16x3=1)
+    return max(err, _pieces_check(f"{tag}, bwd f32", kept[0], (q, k, v, do), nkv))
+
+
+def _split_check() -> None:
+    """The f32 routes' operand split (csrc/split_bf16x3.cu) as the f32 C
+    entries launch it -- once before K1's f32 kernel for q, k and v, once
+    before the f32 backward for q, k, v and dO, each operand found by its
+    block index -- read back from the scratch the wrappers allocated and
+    held against split_reference bit for bit (_split_checked), on: the f32
+    LM's shape as the models hand it over ([B, N, H, D] views, 16-byte
+    loads); D 111 as flash_attention hands it over (padded to D 112 with a
+    zero column: the kernels take D % 8 == 0); D 104 as [B, N, H, D] views one
+    element into a wider row (4-byte loads: neither the address nor the
+    strides are 16-byte multiples), GQA 6 / 3, Nq 300, Nk 400 cut to
+    kv_valid_len 350; D 40 contiguous with special values in v (zeros of both
+    signs, powers of two, f32's large and tiny exponents, subnormals, bf16's
+    largest value). _f32_timing checks the split on the inputs it times."""
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE)
+
+    special = torch.tensor([0.0, -0.0, 1.0, -2.0, 2.0 ** -20, 2.0 ** 100, 1e38, -3e38, 1e-30,
+                            -1e-38, 1e-40, 1.4e-45, 3.3895e38, 1.0 + 2.0 ** -23], device=DEVICE)
+    v40 = randn(2, 3, 50, 40)
+    v40.view(-1)[:special.numel()] = special
+
+    def pad111(*shape):  # flash_attention's zero column past D 111
+        return torch.nn.functional.pad(_bnhd(randn(*shape, 111)), (0, 1))
+
+    def off104(*shape):  # a [B, N, H, D] view one element into a 105-wide row
+        B, H, N = shape
+        return randn(B, N, H, 105)[..., 1:].transpose(1, 2)
+
+    cases = {
+        "the f32 LM's shape, [B, N, H, D] views": (
+            _bnhd(randn(1, 16, LM_SEQ, 128)), _bnhd(randn(1, 8, LM_SEQ, 128)),
+            _bnhd(randn(1, 8, LM_SEQ, 128)), _bnhd(randn(1, 16, LM_SEQ, 128)),
+            dict(causal=True)),
+        "D 111 padded to 112, H 7, N 300": (
+            pad111(2, 7, 300), pad111(2, 7, 300), pad111(2, 7, 300), pad111(2, 7, 300),
+            dict(causal=True)),
+        "D 104 views at an odd offset, GQA 6/3, Nq 300, Nk 400, kv_valid_len 350": (
+            off104(2, 6, 300), off104(2, 3, 400), off104(2, 3, 400), off104(2, 6, 300),
+            dict(kv_valid_len=350)),
+        "D 40 contiguous, special values in v": (
+            randn(2, 3, 50, 40), randn(2, 3, 50, 40), v40, randn(2, 3, 50, 40), {}),
+    }
+    for tag, (q, k, v, do, kw) in cases.items():
+        _split_checked(tag, q, k, v, do, dict(scale=q.shape[-1] ** -0.5, **kw))
+    del cases
+    torch.cuda.empty_cache()
+
+
+def _split_device_ms(fn, reps: int = 20) -> float:
+    """Device ms of one launch of the split kernel as an f32 wrapper ``fn``
+    makes it (its C entry launches the split, then its attention kernel):
+    the mean over the split launches that a torch.profiler run over CUDA
+    activity records in ``reps`` calls (it can record fewer: 8 of 10 on an
+    H100 in a process that had run the profiler before); fails if it
+    records fewer than half of them or no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if "split_bf16x3_kernel" in e.key]
+    n, t = sum(e.count for e in events), sum(e.device_time_total for e in events)
+    log("f32", f"the profiler recorded {n} of the {reps} split launches, {t:.1f} us")
+    if n < reps / 2 or n > reps or t <= 0:
+        fail(f"the profiler saw {n} split launches ({t} us) in {reps} f32 calls")
+    return t / n / 1e3
 
 
 def _f32_tf32_off() -> None:
@@ -3568,7 +3721,7 @@ def _f32_case(tag: str, q, k, v, do, kw) -> dict:
     before = _launches()
     o, lse = flash_fwd.fwd(q, k, v, **kw)
     torch.cuda.synchronize()
-    _routed(f"K1 f32 at {tag}", before, K1=1, K1_f32=1, **variants)
+    _routed(f"K1 f32 at {tag}", before, K1=1, K1_f32=1, split_bf16x3=1, **variants)
     o_want, lse_want = flash_fwd.fwd_reference(q, k, v, **kw)
     dead_lse = math.log(2.0) * DEFAULT_MASK_VALUE
     live = lse_want > dead_lse * 0.5
@@ -3587,12 +3740,13 @@ def _f32_case(tag: str, q, k, v, do, kw) -> dict:
     if split:
         got = flash_bwd.split_bwd(*args, **kw)
         torch.cuda.synchronize()
-        _routed(f"the f32 split route at {tag}", before, split_bwd=1, bwd_f32=1)
+        _routed(f"the f32 split route at {tag}", before, split_bwd=1, bwd_f32=1,
+                split_bf16x3=1)
         want = flash_bwd.split_bwd_reference(*args, **kw)
     else:
         got = flash_bwd_fused.bwd(*args, **kw)
         torch.cuda.synchronize()
-        _routed(f"K3 f32 at {tag}", before, K3=1, bwd_f32=1)
+        _routed(f"K3 f32 at {tag}", before, K3=1, bwd_f32=1, split_bf16x3=1)
         want = flash_bwd_fused.bwd_reference(*args, **kw)
     names = ("dq", "dk", "dv")
     ok_g, why_g, err_g, _ = grad_gate(got, want, tol_b, names=names)
@@ -3641,7 +3795,8 @@ def _adversarial(dtype) -> dict:
     torch.cuda.synchronize()
     tag = f"B{B} H{H} N{N} D{D} Nkv{Nk} {str(dtype).split('.')[-1]}"
     if dtype == torch.float32:
-        _routed(f"flash_attention at {tag}", before, K1=1, K1_f32=1, K3=1, bwd_f32=1)
+        _routed(f"flash_attention at {tag}", before, K1=1, K1_f32=1, K3=1, bwd_f32=1,
+                split_bf16x3=2)
     else:
         _routed(f"flash_attention at {tag}", before, K1=1, K1_dense_sm90=1, K3=1, K3_sm90=1)
     ref = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
@@ -3675,7 +3830,8 @@ def _fp16_compute_f32() -> dict:
     o = flash_attention(*leaves, causal=True, compute_dtype=torch.float32)
     grads = torch.autograd.grad(o, leaves, torch.ones_like(o))
     torch.cuda.synchronize()
-    _routed("fp16 with compute_dtype=float32", before, K1=1, K1_f32=1, K3=1, bwd_f32=1)
+    _routed("fp16 with compute_dtype=float32", before, K1=1, K1_f32=1, K3=1, bwd_f32=1,
+            split_bf16x3=2)
     o_bf16 = flash_attention(q, k, v, causal=True)
     err, err_bf16 = ((x.float() - want).abs().max().item() for x in (o, o_bf16))
     ok, msg = check_close(o, want, Tolerance(*FP16_F32_TOL), "O")
@@ -3727,7 +3883,7 @@ def _f32_library_ms(q, k, v, do, lib_kw) -> dict:
     return {"library_ms": times[name], "library": f"SDPA f32, {name}"}
 
 
-def _f32_timing(packed: bool) -> tuple[dict, dict]:
+def _f32_timing(packed: bool) -> tuple[dict, dict, dict]:
     """K1's f32 kernel and the f32 backward at the f32 LM's attention (B1
     Hq16 Hkv8 N2048 D128 causal; ``packed``: 8 documents, the split route):
     each held against its plain version on these inputs (TF32 off; O within
@@ -3735,8 +3891,14 @@ def _f32_timing(packed: bool) -> tuple[dict, dict]:
     BWD_TOL[f32]), its error in its row; ms, the plain versions' ms, the
     bounds (bytes at 3.35 TB/s, the pairs' products at
     PEAK_F32_ACCURATE_FLOPS) and the faster SDPA backend on the same f32
-    inputs (a boolean block mask for the documents)."""
-    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    inputs (a boolean block mask for the documents). Third, the split's row:
+    the pieces that the checked calls' splits wrote held against
+    split_reference bit for bit (_pieces_check), their largest difference
+    its error; ms the device time of the forward's split launch (q, k and v,
+    as K1's f32 C entry launches it; the backward's, which adds dO, beside
+    it) from torch.profiler; the plain version on q, k and v; the bound,
+    the bytes it moves."""
+    from flashattn_tpu_torch.ops import f32_split, flash_bwd, flash_bwd_fused, flash_fwd
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
     from flashattn_tpu_torch.utils.testing import (
         BWD_TOL, FWD_TOL, check_close, grad_gate, make_qkv)
@@ -3749,7 +3911,10 @@ def _f32_timing(packed: bool) -> tuple[dict, dict]:
               segment_ids=None if ids is None else (ids, ids))
     tag = (f"{'packed ' if packed else ''}B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal"
            f"{' + 8 documents' if packed else ''}")
-    o, lse = flash_fwd.fwd(q, k, v, **kw)
+    with _scratch_kept() as kept:
+        o, lse = flash_fwd.fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+    split_err = _pieces_check(f"{tag}, K1 f32 (the timed inputs)", kept[0], (q, k, v), N)
     o_want, lse_want = flash_fwd.fwd_reference(q, k, v, **kw)
     live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
     tol_f, tol_b = FWD_TOL[torch.float32], BWD_TOL[torch.float32]
@@ -3763,7 +3928,13 @@ def _f32_timing(packed: bool) -> tuple[dict, dict]:
     if not packed:
         kw.pop("segment_ids")
     args = (q, k, v, do, lse, delta)
-    got, want = bwd(*args, **kw), bwd_ref(*args, **kw)
+    with _scratch_kept() as kept:
+        got = bwd(*args, **kw)
+        torch.cuda.synchronize()
+    split_err = max(split_err, _pieces_check(f"{tag}, bwd f32 (the timed inputs)", kept[0],
+                                             (q, k, v, do), N))
+    del kept
+    want = bwd_ref(*args, **kw)
     ok_g, why_g, err_g, _ = grad_gate(got, want, tol_b)
     log("f32", f"{tag} (the timed inputs): K1 f32 O max_abs_err {err_o:.3e}, LSE live "
                f"max_abs_err {err_l:.3e} (budget FWD_TOL[f32] {tol_f.atol} + {tol_f.rtol}|ref|, "
@@ -3796,19 +3967,34 @@ def _f32_timing(packed: bool) -> tuple[dict, dict]:
                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {row['bound_share']:.1%} of "
                    f"it), {row['library']} {row['library_ms']:.4f} ms")
     log("f32", f"SDPA's f32 dispatch there (enable_gqa): {_sdpa_backend(q, k, v, **lib_kw)}")
-    return rows[0], rows[1]
+    nbytes = tensor_bytes(q, k, v) * 10 // 4  # f32 read once, three bf16 pieces written (D 128)
+    split = {"max_abs_err": split_err, "ms": _split_device_ms(lambda: flash_fwd.fwd(q, k, v, **kw)),
+             "bwd_launch_ms": _split_device_ms(lambda: bwd(*args, **kw)),
+             "plain_ms": cuda_ms(lambda: [f32_split.split_reference(x) for x in (q, k, v)],
+                                 reps=5, trials=3),
+             **bound(nbytes, 0.0), "library_ms": None}
+    split["bound_share"] = split["bound_ms"] / split["ms"]
+    log("f32", f"split at {tag}: K1 f32's launch (q, k, v) {split['ms']:.4f} ms device time, "
+               f"the backward's (and dO) {split['bwd_launch_ms']:.4f} ms; plain (q, k, v) "
+               f"{split['plain_ms']:.4f} ms; bound {split['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} "
+               f"MB; {split['bound_share']:.1%} of it); pieces bit for bit, max |kernel - plain| "
+               f"{split_err:.3e}")
+    return rows[0], rows[1], split
 
 
 def phase_f32_check() -> dict:
-    """K1's f32 kernel and the f32 backward body against their plain versions
-    (TF32 off) on every F32_CASES entry, q and k at GROW x unit scale (O(1)
-    outputs: a missed band edge or a single-pass TF32 product shows); the
-    adversarial shape in bf16 and f32 through flash_attention; fp16 with
-    compute_dtype=float32; then the kernels held against their plain
-    versions and timed at the f32 LM's attention (_f32_timing)."""
+    """The split as the f32 C entries launch it against its plain version
+    (_split_check); K1's f32 kernel and the f32 backward body against their
+    plain versions (TF32 off) on every F32_CASES entry, q and k at GROW x
+    unit scale (O(1) outputs: a missed band edge or a single-pass TF32
+    product shows); the adversarial shape in bf16 and f32 through
+    flash_attention; fp16 with compute_dtype=float32; then the kernels and
+    the split held against their plain versions and timed at the f32 LM's
+    attention (_f32_timing)."""
     from flashattn_tpu_torch.utils.testing import make_qkv
 
     _f32_tf32_off()
+    _split_check()
     errs = []
     for i, (tag, B, Hq, Hkv, Nq, Nk, D, kw, ids) in enumerate(F32_CASES):
         q, k, v = make_qkv(300 + i, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv, device=DEVICE)
@@ -3821,12 +4007,16 @@ def phase_f32_check() -> dict:
         errs.append(_f32_case(tag, q, k, v, do, kw))
     adv = {str(dt).split(".")[-1]: _adversarial(dt) for dt in (torch.bfloat16, torch.float32)}
     fp16 = _fp16_compute_f32()
-    fwd, bwd = _f32_timing(packed=False)
-    fwd_p, bwd_p = _f32_timing(packed=True)
+    fwd, bwd, split = _f32_timing(packed=False)
+    fwd_p, bwd_p, _ = _f32_timing(packed=True)
     worst = {n: max(e[n] for e in errs) for n in ("fwd_err", "bwd_err")}
     log("f32", f"all {len(F32_CASES)} cases: worst O {worst['fwd_err']:.3e}, worst dQ/dK/dV "
                f"{worst['bwd_err']:.3e}")
-    return {"fwd": fwd, "bwd": bwd, "fwd_packed": fwd_p, "bwd_packed": bwd_p,
+    _tma_wgmma_sass("f32", {f"{name}{' segments' if sg else ''}{' softcap' if cp else ''} "
+                            f"{kind}_f32_kernel<{d}, {sg}, {cp}>"
+                            for name, kind in (("K1 f32", "fwd"), ("bwd f32", "bwd"))
+                            for d in (64, 128) for sg in (0, 1) for cp in (0, 1)})
+    return {"fwd": fwd, "bwd": bwd, "fwd_packed": fwd_p, "bwd_packed": bwd_p, "split": split,
             "cases_worst": worst, "adversarial": adv, "fp16": fp16}
 
 
@@ -3879,10 +4069,12 @@ def phase_f32_train() -> dict:
         _lm_steps(cfg, tokens, "fused", ids, phase="f32 train", label=f"f32 fused, {tag}",
                   steps=F32_STEPS, warmup=1)
         counts[tag] = _launches()
-        want = _expect(K1=expected, K1_f32=expected, bwd_f32=expected, **{bwd: expected})
+        want = _expect(K1=expected, K1_f32=expected, bwd_f32=expected, split_bf16x3=2 * expected,
+                       **{bwd: expected})
         log("f32 train", f"{tag}: launches {counts[tag]} (expected K1 = K1 f32 = "
                          f"{bwd.replace('_', ' ')} = bwd f32 = {cfg.n_layers} layers x "
-                         f"{F32_STEPS} steps = {expected}, no bf16 kernel)")
+                         f"{F32_STEPS} steps = {expected}, split bf16x3 = 2 x {expected}, no "
+                         "bf16 kernel)")
         if counts[tag] != want:
             fail(f"f32 LM steps ({tag}) launched {counts[tag]}, expected {want}")
     return counts
@@ -3911,12 +4103,13 @@ def phase_entry() -> dict:
     losses = E.dryrun_multichip(8)
     counts = _launches()
     other = {n: c for n, c in counts.items()
-             if c and n not in ("K1", "K1 f32", "K3", "split bwd", "bwd f32")}
+             if c and n not in ("K1", "K1 f32", "K3", "split bwd", "bwd f32", "split bf16x3")}
     log("entry", f"dryrun_multichip(8): losses {losses}, launches "
                  f"{ {n: c for n, c in counts.items() if c} }")
     if (len(losses) != 3 or not all(math.isfinite(x) for x in losses) or other
             or counts["K1 f32"] == 0 or counts["K1"] != counts["K1 f32"]
-            or counts["bwd f32"] != counts["K3"] + counts["split bwd"] or counts["bwd f32"] == 0):
+            or counts["bwd f32"] != counts["K3"] + counts["split bwd"] or counts["bwd f32"] == 0
+            or counts["split bf16x3"] != counts["K1 f32"] + counts["bwd f32"]):
         fail(f"dryrun_multichip(8): losses {losses}, launches {counts}: expected three finite "
              "losses on the f32 kernels only")
     return {"dryrun": counts, "losses": losses}
@@ -4077,27 +4270,49 @@ def main() -> None:
          **sharded["rows"]["packed neighbour"][1]},
         # The f32 routes at the f32 LM's attention (B1 Hq16 Hkv8 N2048 D128
         # causal), launches from phase_f32_train's steps, errors against the
-        # plain versions on the timed inputs; bound at 3xTF32's rate
+        # plain versions on the timed inputs; each time includes the split of
+        # its operands; bound at six bf16 products per f32 product
         # (PEAK_F32_ACCURATE_FLOPS); library: the faster of SDPA's math and
         # memory-efficient backends on the f32 inputs, TF32 off, with the
-        # documents as a boolean mask ("library" names it).
-        {"name": "flash_fwd_f32 causal (K1's f32 route, 3xTF32 mma.sync: f32 LM causal, K2)",
-         "route": "cuda", "source": "flashattn_tpu_torch/csrc/flash_fwd_f32.cu",
+        # documents as a boolean mask ("library" names it); "before": the
+        # 3xTF32 mma.sync bodies' times that these replaced (earlier chip runs
+        # on an H100 80GB HBM3 at 700 W, PERF.md §6), not measured here.
+        {"name": "flash_fwd_f32 causal (K1's f32 route, TMA + wgmma on bf16 pieces: f32 LM "
+                 "causal, K2)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/flash_fwd_f32.cu",
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:516",
-         "launches": f32_train["unpacked"]["K1 f32"], **f32["fwd"]},
-        {"name": "flash_bwd_f32 (K3 on f32, 3xTF32 mma.sync: f32 LM causal, K4)",
+         "launches": f32_train["unpacked"]["K1 f32"],
+         "before": "0.757-0.782 ms (the 3xTF32 mma.sync body)", **f32["fwd"]},
+        {"name": "flash_bwd_f32 (K3 on f32, TMA + wgmma on bf16 pieces: f32 LM causal, K4)",
          "route": "cuda", "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu",
          "replaces": "flashattn_tpu/ops/flash_bwd_fused.py:110, "
                      "flashattn_tpu/ops/flash_bwd_fused.py:336",
-         "launches": f32_train["unpacked"]["bwd f32"], **f32["bwd"]},
-        {"name": "flash_fwd_f32 segments (K1's f32 route: packed f32 LM, causal + segment ids)",
-         "route": "cuda", "source": "flashattn_tpu_torch/csrc/flash_fwd_f32.cu",
+         "launches": f32_train["unpacked"]["bwd f32"],
+         "before": "2.044-2.080 ms (the 3xTF32 mma.sync body)", **f32["bwd"]},
+        {"name": "flash_fwd_f32 segments (K1's f32 route, TMA + wgmma on bf16 pieces: packed f32 "
+                 "LM, causal + segment ids)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/flash_fwd_f32.cu",
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
-         "launches": f32_train["packed"]["K1 f32"], **f32["fwd_packed"]},
-        {"name": "flash_bwd_f32 segments (K5 + K6 on f32 in one launch: packed f32 LM, causal "
-                 "+ segment ids)", "route": "cuda",
+         "launches": f32_train["packed"]["K1 f32"],
+         "before": "0.227-0.261 ms (the 3xTF32 mma.sync body)", **f32["fwd_packed"]},
+        {"name": "flash_bwd_f32 segments (K5 + K6 on f32 in one launch, TMA + wgmma on bf16 "
+                 "pieces: packed f32 LM, causal + segment ids)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu", "replaces": split_replaces,
-         "launches": f32_train["packed"]["bwd f32"], **f32["bwd_packed"]}]}), flush=True)
+         "launches": f32_train["packed"]["bwd f32"],
+         "before": "0.569-0.599 ms (the 3xTF32 mma.sync body)", **f32["bwd_packed"]},
+        # The f32 routes' operand split: no TPU kernel of its own (the MXU
+        # splits its f32 operands under Precision.HIGHEST); launches from the
+        # unpacked f32 steps (one in each f32 C entry: q, k, v before K1 f32,
+        # q, k, v, dO before the backward); error and device time of the
+        # launches that K1 f32's and the backward's C entries made on the
+        # f32 LM's timed inputs ("ms": K1 f32's, "bwd_launch_ms" the
+        # backward's), read from the scratch the wrappers allocated.
+        {"name": "split_bf16x3 (the f32 routes' operand split: q, k, v of the f32 LM's "
+                 "attention in one launch, as K1's f32 C entry makes it)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/split_bf16x3.cu",
+         "replaces": "none (Precision.HIGHEST's bf16 split inside the MXU: "
+                     "flashattn_tpu/ops/flash_fwd.py:232)",
+         "launches": f32_train["unpacked"]["split bf16x3"], **f32["split"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

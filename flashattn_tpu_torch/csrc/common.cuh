@@ -71,59 +71,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The f32 routes (fwd_f32_tile.cuh, bwd_f32_tile.cuh): 3xTF32 on
-// mma.sync.m16n8k8.tf32 with f32 accumulation. A TF32 operand keeps 10
-// mantissa bits, so one pass computes a product to ~3 decimal digits (the
-// JAX package measured that demotion at 7e-3, flashattn_tpu/ops/flash_fwd.py:
-// 230-236). Each f32 operand x is split into hi = tf32(x) and lo = tf32(x -
-// hi), and a b accumulates lo_a hi_b + hi_a lo_b + hi_a hi_b (the small terms
-// first); the dropped lo_a lo_b is ~2^-22 of the product, f32's own class.
-//
-// Fragment layout of m16n8k8.tf32 (g = lane / 4, t = lane % 4):
-//   A (16x8, row-major): a0 = (g, t), a1 = (g+8, t), a2 = (g, t+4), a3 = (g+8, t+4)
-//   B (8x8, "col"):      b0 = (k t, n g), b1 = (k t+4, n g)
-//   C (16x8):            c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
-// A C fragment is an A fragment when the 8 k-slots are taken as the columns
-// in the order (0, 2, 4, 6, 1, 3, 5, 7): slot t is column 2t and slot t + 4
-// column 2t + 1, so a = (c0, c2, c1, c3); the B operand of that product
-// reads its k rows 2t and 2t + 1 in the same order.
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x as (hi, lo) TF32 halves.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-template <int N>
-__device__ __forceinline__ void split_tf32(const float (&x)[N], uint32_t (&hi)[N],
-                                           uint32_t (&lo)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
-}
-
-__device__ __forceinline__ void mma_tf32_1688(float (&c)[4], const uint32_t (&a)[4],
-                                              const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b to f32 accuracy, a and b given as their TF32 (hi, lo) halves.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
-                                           const uint32_t (&b_lo)[2]) {
-  mma_tf32_1688(c, a_lo, b_hi);  // f32 small terms
-  mma_tf32_1688(c, a_hi, b_lo);  // f32 small terms
-  mma_tf32_1688(c, a_hi, b_hi);
-}
-
 // 16 bytes global -> shared by cp.async; src_bytes 0 zero-fills the 16 bytes
 // and reads nothing (src must still be a valid address).
 __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, int src_bytes) {
@@ -140,27 +87,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copy rows [row0, row0 + ROWS) of an f32 [n, d] matrix at `base` (row
-// stride `sn` elements, unit column stride, 16-byte aligned rows) into a
-// ROWS x (DB + 4) shared tile by cp.async, 4 floats a copy: tile row r comes
-// from row row0 + r when r < n_valid, columns below d (a multiple of 4);
-// every other element of the DB columns is zero-filled (read from nowhere:
-// `base` stands in as the address). The row stride DB + 4 floats puts rows g
-// and columns t of a fragment load (4g + t) on distinct banks.
-template <int DB, int ROWS, int THREADS>
-__device__ __forceinline__ void load_f32_tile(float* smem, const float* base, int64_t row0,
-                                              int64_t sn, int n_valid, int d) {
-  constexpr int CHUNKS = DB / 4;
-#pragma unroll 4
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
-    const int r = idx / CHUNKS;
-    const int c = idx % CHUNKS;
-    const bool ok = r < n_valid && 4 * c < d;
-    cp_async_16(smem + r * (DB + 4) + 4 * c, ok ? base + (row0 + r) * sn + 4 * c : base,
-                ok ? 16 : 0);
-  }
 }
 
 // Four 8x8 b16 matrices, transposed on load: lanes 8i..8i+7 address the rows

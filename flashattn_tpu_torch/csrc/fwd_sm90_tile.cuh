@@ -254,8 +254,9 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], uint32_t b_addr, u
 // band, the columns at or past nkv and, with SEG, the pairs whose ids differ
 // (ids: the tile's 64 key ids in shared memory, q_seg the rows'); then the
 // online max and sum. Returns the rescale factor of the earlier tiles' O in
-// alpha.
-template <bool MASKED, bool SEG, bool CAP>
+// alpha. ACCURATE (K1's f32 route, flash_fwd_f32.cu) takes the exponentials
+// by exp2f: FWD_TOL[f32] leaves no room for ex2.approx.
+template <bool MASKED, bool SEG, bool CAP, bool ACCURATE = false>
 __device__ __forceinline__ void dense_softmax_tile(float (&sc)[32], int col0, int row0, int t,
                                                    int lo, int hi, int nkv, const int* ids,
                                                    const int (&q_seg)[2], float scale_log2,
@@ -288,13 +289,14 @@ __device__ __forceinline__ void dense_softmax_tile(float (&sc)[32], int col0, in
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    alpha[r] = ex2(m_i[r] - mx[r]);
+    alpha[r] = ACCURATE ? exp2f(m_i[r] - mx[r]) : ex2(m_i[r] - mx[r]);
     m_i[r] = mx[r];
     l_i[r] *= alpha[r];
   }
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    const float pe = ex2(sc[i] - m_i[(i >> 1) & 1]);
+    const float x = sc[i] - m_i[(i >> 1) & 1];
+    const float pe = ACCURATE ? exp2f(x) : ex2(x);
     l_i[(i >> 1) & 1] += pe;
     sc[i] = pe;
   }

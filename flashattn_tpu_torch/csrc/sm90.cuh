@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels (K9 in
 // gemm.cu, K1's bias and dense routes in fwd_sm90_tile.cuh, the ring kernels
 // K7 / K8 in ring_fwd.cu / ring_bwd.cu, K3 and K5 + K6's bias route in
-// bwd_sm90_tile.cuh):
+// bwd_sm90_tile.cuh, the f32 routes in flash_fwd_f32.cu / flash_bwd_f32.cu):
 // mbarriers, TMA tile loads, bulk copies and bulk reductions, cp.async
 // completion on an mbarrier, named barriers, the wgmma shared-memory
 // descriptor of the 128-byte swizzle and the wgmma products the attention
@@ -278,6 +278,64 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[
 
 // Bytes per row of a 64-column bf16 TMA box: the 128-byte swizzle's span.
 constexpr int SW128_ROW = 128;
+
+// The f32 backward's wgmma product (flash_bwd_f32.cu): D (64 x 32, f32) = A
+// (64 x 16) B (16 x 32), both from shared memory, B K-major, A K-major (TA
+// 0) or M-major (TA 1); added to D unless `accumulate` is 0.
+template <int TA>
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "},"
+      " %16, %17, p, 1, 1, %19, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA));
+}
+
+// Product x of the six (A piece, B piece) bf16 products of an f32 product,
+// the small ones first: (2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0).
+__host__ __device__ constexpr int pair_a(int x) { return x == 0 ? 2 : x == 1 || x == 3 ? 1 : 0; }
+__host__ __device__ constexpr int pair_b(int x) { return x == 2 ? 2 : x == 1 || x == 4 ? 1 : 0; }
+
+// The three bf16 pieces of a and b (the split of ops/f32_split.py, round to
+// nearest even; the differences are exact in f32), piece p of the pair in
+// w[p] (.x, the low half, = a's).
+__device__ __forceinline__ void split3_pair(float a, float b, uint32_t (&w)[3]) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    w[p] = *reinterpret_cast<const uint32_t*>(&v);
+    a -= __low2float(v);
+    b -= __high2float(v);
+  }
+}
+
+// An accumulator fragment (the layout of P, dS^T: sc[8kk + 2i] and + 1 are
+// k-step kk's A register i) as the A fragments of its K / 16 k-steps, one set
+// per bf16 piece: a[p][kk] the A fragment of piece p at k-step kk.
+template <int KSTEPS>
+__device__ __forceinline__ void split3_frags(uint32_t (&a)[3][KSTEPS][4],
+                                             const float (&sc)[8 * KSTEPS]) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t w[3];
+      split3_pair(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1], w);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) a[p][kk][i] = w[p];
+    }
+  }
+}
 
 // Issue S = A B^T for one warpgroup's 64 rows of A x 64 rows of B over D
 // columns, both K-major tiles of D / 64 swizzled boxes of 64 columns (A's

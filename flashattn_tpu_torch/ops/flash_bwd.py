@@ -20,8 +20,9 @@ never reaches a plain version:
   request, dbias; :func:`bias_bwd_reference` is its plain version.
 
 On f32 inputs the split route and K3 (``flash_bwd_fused.bwd``) both launch
-one f32 body (:func:`_f32_bwd_launch`, ``csrc/flash_bwd_f32.cu``: 3xTF32 on
-mma.sync); the bias route stays bf16.
+one f32 body (:func:`_f32_bwd_launch`, ``csrc/flash_bwd_f32.cu``: TMA +
+wgmma on the three bf16 pieces of each f32 operand, ``ops/f32_split.py``, six
+bf16 products per f32 product); the bias route stays bf16.
 
 :func:`dkv` and :func:`dq` keep K5's and K6's plain versions
 (:func:`dkv_reference` / :func:`dq_reference`: dK / dV per query head, and
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from flashattn_tpu_torch.ops import f32_split
 from flashattn_tpu_torch.ops.flash_fwd import (
     _kernel_ready,
     band_offsets,
@@ -400,20 +402,23 @@ def split_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool =
 
 def _launch_split(lib, q, k, v, do, lse, delta, dq_, dk, dv, seg, *, scale, causal,
                   kv_valid_len, window, softcap, nq_pad, stream, q_offset: int = 0,
-                  kv_offset: int = 0, entry: str = "fa_bwd_split_sm90") -> int:
-    """Call ``lib.fa_bwd_split_sm90`` -- or ``entry``, ``"fa_bwd_f32"`` for
-    the f32 body, whose arguments are the same -- with the arguments of one
-    launch (the C entry's order, ``native.BWD_SPLIT_SM90_ARGTYPES``), ``seg``
-    being ``flash_fwd.sm90_segments``' tensors at the kernel's tiles or None;
-    returns its cudaError_t."""
+                  kv_offset: int = 0, pieces: torch.Tensor | None = None) -> int:
+    """Call ``lib.fa_bwd_split_sm90`` -- or, given ``pieces`` (the bf16
+    scratch of ``f32_split.scratch``), ``lib.fa_bwd_f32``, whose arguments
+    are the same with ``pieces`` after dv -- with the arguments of one launch
+    (the C entry's order, ``native.BWD_SPLIT_SM90_ARGTYPES`` /
+    ``BWD_F32_ARGTYPES``), ``seg`` being ``flash_fwd.sm90_segments``' tensors
+    at the kernel's tiles or None; returns its cudaError_t."""
     B, Hq, Nq, D = q.shape
     seg_ptrs = (None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg)
-    return getattr(lib, entry)(
+    entry, scratch = ((lib.fa_bwd_split_sm90, ()) if pieces is None
+                      else (lib.fa_bwd_f32, (pieces.data_ptr(),)))
+    return entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq_.data_ptr(), dk.data_ptr(), dv.data_ptr(), *seg_ptrs, B, Hq,
-        k.shape[1], Nq, k.shape[2], D, kv_valid_len, int(bool(causal)), *kernel_window(window),
-        q_offset, kv_offset, nq_pad, float(scale), softcap or 0.0, *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], stream)
+        delta.data_ptr(), dq_.data_ptr(), dk.data_ptr(), dv.data_ptr(), *scratch, *seg_ptrs,
+        B, Hq, k.shape[1], Nq, k.shape[2], D, kv_valid_len, int(bool(causal)),
+        *kernel_window(window), q_offset, kv_offset, nq_pad, float(scale), softcap or 0.0,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], stream)
 
 
 def split_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -429,8 +434,8 @@ def split_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     CUDA tensors launch the Hopper kernel, which takes bf16 with ``D % 8 ==
     0``, ``D <= 128`` and, with segment ids, ``Nq <= 64 · SPLIT_MAX_Q_TILES``,
     or, on f32, the f32 body (:func:`_f32_bwd_launch`); anything else raises. dQ is
-    summed over the KV tiles by the card's L2 (one bulk reduction per tile,
-    or atomics in f32), so its last bits may differ from run to run.
+    summed over the KV tiles by the card's L2 (one bulk reduction per tile),
+    so its last bits may differ from run to run.
     ``split_bwd.launches`` counts the route's launches, on either kernel.
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len, segment_ids)
@@ -480,30 +485,33 @@ split_bwd.launches = 0
 
 # The f32 body's Q tile (query rows per step, the LSE / Delta rows and, with
 # segment ids, the query ids it copies, padded to a multiple) and KV tile (the
-# keys of one CTA): csrc/bwd_f32_tile.cuh.
+# keys of one CTA): csrc/flash_bwd_f32.cu.
 F32_BWD_Q_TILE = 32
-F32_BWD_KV_TILE = 128
+F32_BWD_KV_TILE = 64
 
 
 def _f32_bwd_launch(q, k, v, do, lse, delta, *, scale: float, causal: bool,
                     kv_valid_len: int, segment_ids, window, softcap, q_offset: int,
                     kv_offset: int):
-    """Launch the f32 backward body (``csrc/flash_bwd_f32.cu``) -- K3 without
-    segment ids or a softcap, K5 + K6 without a bias with either -- on the
-    CUDA f32 call that :func:`split_bwd` or ``flash_bwd_fused.bwd`` has
-    checked and normalised: ``(dQ [B, Hq, Nq, D], dK, dV [B, Hq, Nk, D])`` in
-    f32, dK / dV per query head. dQ is added to by atomics, so its last bits
-    may differ from run to run. ``_f32_bwd_launch.launches`` counts its
-    launches."""
+    """Launch the f32 backward body's C entry (``csrc/flash_bwd_f32.cu``: the
+    split of q, k, v and do into their bf16 pieces, then the kernel -- K3
+    without segment ids or a softcap, K5 + K6 without a bias with either) on
+    the CUDA f32 call that :func:`split_bwd` or ``flash_bwd_fused.bwd`` has
+    checked and normalised (the forward's pieces are not kept): ``(dQ [B,
+    Hq, Nq, D], dK, dV [B, Hq, Nk, D])`` in f32, dK / dV per query head. dQ
+    is added to by one bulk reduction a tile, so its last bits may differ
+    from run to run. ``_f32_bwd_launch.launches`` counts the kernel's
+    launches, ``_f32_bwd_launch.launches_split`` the split's."""
     B, Hq, Nq, D = q.shape
     Nk = k.shape[2]
     f32 = dict(dtype=torch.float32, device=q.device)
-    dq_ = torch.zeros((B, Hq, Nq, D), **f32)  # added to by atomics
+    dq_ = torch.zeros((B, Hq, Nq, D), **f32)  # added to by one bulk reduction a tile
     dk = torch.empty((B, Hq, Nk, D), **f32)
     dv = torch.empty((B, Hq, Nk, D), **f32)
-    if Nq == 0 or Nk == 0 or B == 0 or Hq == 0:  # an empty grid is not a valid launch
-        return dq_, dk.zero_(), dv.zero_()
-    q, k, v, do = (_kernel_ready(x, 16) for x in (q, k, v, do))
+    if Nq == 0 or Nk == 0 or B == 0 or Hq == 0 or kv_valid_len == 0:
+        return dq_, dk.zero_(), dv.zero_()  # no key attends: an empty grid is not a valid launch
+    q, k, v, do = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, do))
+    pieces = f32_split.scratch(2 * B * Hq * Nq, B * k.shape[1] * kv_valid_len, D, q.device)
     nq_pad = -(-Nq // F32_BWD_Q_TILE) * F32_BWD_Q_TILE
     lse, delta = _padded_rows(lse, nq_pad), _padded_rows(delta, nq_pad)
     seg = sm90_segments(segment_ids, Nq, kv_valid_len, q_tile=F32_BWD_Q_TILE,
@@ -513,10 +521,12 @@ def _f32_bwd_launch(q, k, v, do, lse, delta, *, scale: float, causal: bool,
                            scale=scale, causal=causal, kv_valid_len=kv_valid_len, window=window,
                            softcap=softcap, nq_pad=nq_pad,
                            stream=torch.cuda.current_stream(q.device).cuda_stream,
-                           q_offset=q_offset, kv_offset=kv_offset, entry="fa_bwd_f32")
+                           q_offset=q_offset, kv_offset=kv_offset, pieces=pieces)
     native.check(rc, "flash_bwd_f32 kernel launch")
     _f32_bwd_launch.launches += 1
+    _f32_bwd_launch.launches_split += 1
     return dq_, dk, dv
 
 
 _f32_bwd_launch.launches = 0
+_f32_bwd_launch.launches_split = 0

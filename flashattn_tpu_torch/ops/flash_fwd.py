@@ -22,9 +22,10 @@ neither, any tail) to its dense route (``csrc/flash_fwd_sm90.cu``). Both
 compute K1's function, so their plain version is :func:`fwd_reference`; the
 ``fwd_tile.cuh`` body keeps the calls they refuse (D above 128, quantized
 K/V). Every call on an f32 q (:func:`f32_route`) goes to an f32 kernel of its
-own (``csrc/fwd_f32_tile.cuh`` in ``csrc/flash_fwd_f32.cu``: 3xTF32 on
-mma.sync, the dense route's options at f32 accuracy), decode shapes too; its
-plain version is :func:`fwd_reference` as well. :func:`fwd` launches a kernel for
+own (``csrc/flash_fwd_f32.cu``: the dense route's TMA + wgmma scheme and
+options on the three bf16 pieces of each f32 operand, ``ops/f32_split.py``,
+six bf16 products per f32 product), decode shapes too; its plain version is
+:func:`fwd_reference` as well. :func:`fwd` launches a kernel for
 CUDA tensors and computes the plain :func:`fwd_reference` for CPU tensors --
 the device of the input decides, and a CUDA tensor never reaches a plain
 version.
@@ -45,6 +46,7 @@ import math
 
 import torch
 
+from flashattn_tpu_torch.ops import f32_split
 from flashattn_tpu_torch.ops.oracle import (
     DEFAULT_MASK_VALUE,
     _expand_kv,
@@ -86,10 +88,10 @@ _ROADMAP_F32 = "ROADMAP queue 2, f32 rows"
 
 SM90_Q_TILE = 128
 SM90_KV_TILE = 64
-# The f32 route's Q tile (rows per CTA) and KV tile (keys per stage), the
-# tiles of its segment-id ranges (csrc/fwd_f32_tile.cuh).
-F32_Q_TILE = 128
-F32_KV_TILE = 64
+# The f32 route's Q tile (rows per CTA) and KV tile (keys per slot), the
+# tiles of its segment-id ranges (csrc/flash_fwd_f32.cu): the dense route's.
+F32_Q_TILE = SM90_Q_TILE
+F32_KV_TILE = SM90_KV_TILE
 
 
 def check_window(window):
@@ -577,18 +579,23 @@ def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, bias, softcap):
 
 def _launch_dense_sm90(lib, q, k, v, o, lse, seg, *, scale, kv_valid_len, causal, window,
                       softcap, stream, q_offset: int = 0, kv_offset: int = 0,
-                      entry: str = "fa_fwd_sm90") -> int:
-    """Call ``lib.fa_fwd_sm90`` -- or ``entry``, ``"fa_fwd_f32"`` for the f32
-    route, whose arguments are the same -- with the arguments of one launch
-    (the C entry's order, ``native.FWD_SM90_ARGTYPES``), ``seg`` being
-    :func:`sm90_segments`' tensors or None; returns its cudaError_t."""
+                      pieces: torch.Tensor | None = None) -> int:
+    """Call ``lib.fa_fwd_sm90`` -- or, given ``pieces`` (the bf16 scratch of
+    ``f32_split.scratch``), ``lib.fa_fwd_f32``, whose arguments are the same
+    with ``pieces`` after lse -- with the arguments of one launch (the C
+    entry's order, ``native.FWD_SM90_ARGTYPES`` / ``FWD_F32_ARGTYPES``),
+    ``seg`` being :func:`sm90_segments`' tensors or None; returns its
+    cudaError_t."""
     B, Hq, Nq, D = q.shape
     seg_ptrs = (None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg)
-    return getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *seg_ptrs,
-        B, Hq, k.shape[1], Nq, D, kv_valid_len, int(bool(causal)), *kernel_window(window),
-        q_offset, kv_offset, float(scale), softcap or 0.0, *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], *o.stride()[:3], 0 if seg is None else seg[0].stride(0), stream)
+    entry, scratch = ((lib.fa_fwd_sm90, ()) if pieces is None
+                      else (lib.fa_fwd_f32, (pieces.data_ptr(),)))
+    return entry(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *scratch,
+        *seg_ptrs, B, Hq, k.shape[1], Nq, D, kv_valid_len, int(bool(causal)),
+        *kernel_window(window), q_offset, kv_offset, float(scale), softcap or 0.0,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        0 if seg is None else seg[0].stride(0), stream)
 
 
 def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, softcap,
@@ -615,23 +622,26 @@ def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, so
 
 def _dense_f32(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, softcap,
                q_offset, kv_offset):
-    """Launch the f32 kernel and count the launch."""
+    """Launch the f32 kernel's C entry -- the split of q, k and v into their
+    bf16 pieces, then the kernel -- and count both launches."""
     B, Hq, Nq, D = q.shape
-    q, k, v = (_kernel_ready(x, 16) for x in (q, k, v))
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides
     lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:  # an empty grid is not a valid launch
         return o, lse
+    pieces = f32_split.scratch(B * Hq * Nq, B * k.shape[1] * kv_valid_len, D, q.device)
     seg = sm90_segments(segment_ids, Nq, kv_valid_len, q_tile=F32_Q_TILE, kv_tile=F32_KV_TILE)
     with torch.cuda.device(q.device):
         rc = _launch_dense_sm90(native.kernels(), q, k, v, o, lse, seg, scale=scale,
                                 kv_valid_len=kv_valid_len, causal=causal, window=window,
                                 softcap=softcap,
                                 stream=torch.cuda.current_stream(q.device).cuda_stream,
-                                q_offset=q_offset, kv_offset=kv_offset, entry="fa_fwd_f32")
+                                q_offset=q_offset, kv_offset=kv_offset, pieces=pieces)
     native.check(rc, "flash_fwd_f32 kernel launch")
     _count_variants(k.dtype, None, kernel_window(window) != (-1, -1), softcap)
     fwd.launches_f32 += 1
+    fwd.launches_split += 1
     return o, lse
 
 
@@ -713,7 +723,8 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     kernel; ``fwd.launches_bias`` those of bf16 K/V with a bias (on any
     kernel), ``fwd.launches_bias_sm90`` those of the bias kernel,
     ``fwd.launches_dense_sm90`` those of the Hopper dense kernel,
-    ``fwd.launches_f32`` those of the f32 kernel,
+    ``fwd.launches_f32`` those of the f32 kernel, ``fwd.launches_split``
+    those of the split of its operands (``f32_split``, one before each),
     ``fwd.launches_int8`` / ``fwd.launches_fp8`` those of quantized K/V (with
     or without a bias), ``fwd.launches_window`` those with a window,
     ``fwd.launches_softcap`` those with a softcap, ``fwd.launches_decode``
@@ -819,6 +830,7 @@ fwd.launches_bias = 0
 fwd.launches_bias_sm90 = 0
 fwd.launches_dense_sm90 = 0
 fwd.launches_f32 = 0
+fwd.launches_split = 0
 fwd.launches_int8 = 0
 fwd.launches_fp8 = 0
 fwd.launches_window = 0

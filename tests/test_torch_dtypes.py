@@ -34,7 +34,7 @@ import torch
 import flashattn_tpu
 import flashattn_tpu_torch
 from flashattn_tpu.ops import oracle as jax_oracle
-from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+from flashattn_tpu_torch.ops import f32_split, flash_bwd, flash_bwd_fused, flash_fwd
 from flashattn_tpu_torch.utils import native
 from flashattn_tpu_torch.utils.testing import BWD_TOL, FWD_TOL, Tolerance, assert_close, make_qkv
 
@@ -276,10 +276,11 @@ def _bnhd(*xs):
 def test_f32_forward_packs_the_c_arguments(segments):
     """fa_fwd_f32 on f32 BNHD views with GQA, a window, offsets, the cap and
     (or not) segment ids at the f32 route's tiles: K1's dense route's
-    argument list, in its order."""
+    argument list, in its order, with the pieces' scratch after lse."""
     B, Hq, Hkv, Nq, Nk, D = 2, 4, 2, 200, 150, 64
     q, k, v = _bnhd(*make_qkv(40, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv))
     o, lse = torch.empty_like(q), torch.empty((B, Hq, Nq))
+    pieces = f32_split.scratch(B * Hq * Nq, B * Hkv * 140, D, "cpu")
     ids = (torch.arange(Nq).repeat(B, 1) // 50, torch.arange(Nk).repeat(B, 1) // 50)
     seg = (flash_fwd.sm90_segments(ids, Nq, 140, q_tile=flash_fwd.F32_Q_TILE,
                                    kv_tile=flash_fwd.F32_KV_TILE) if segments else None)
@@ -288,57 +289,60 @@ def test_f32_forward_packs_the_c_arguments(segments):
                                                      seen))
     rc = flash_fwd._launch_dense_sm90(lib, q, k, v, o, lse, seg, scale=0.125, kv_valid_len=140,
                                       causal=True, window=(100, -1), softcap=30.0, stream=4096,
-                                      q_offset=600, kv_offset=200, entry="fa_fwd_f32")
+                                      q_offset=600, kv_offset=200, pieces=pieces)
     assert rc == 0 and [name for name, _ in seen] == ["fa_fwd_f32"]
     args = seen[0][1]
-    assert len(args) == len(native.FWD_F32_ARGTYPES) == 36
-    assert args[:5] == tuple(x.data_ptr() for x in (q, k, v, o, lse))
-    assert args[5:9] == ((None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg))
-    assert args[9:20] == (B, Hq, Hkv, Nq, D, 140, 1, 100, -1, 600, 200)
-    assert args[20:22] == (0.125, 30.0)
-    assert args[22:25] == (Nq * Hq * D, D, Hq * D)
-    assert args[25:28] == (Nk * Hkv * D, D, Hkv * D)
-    assert args[28:31] == args[25:28] and args[31:34] == args[22:25]
-    assert args[34] == (Nq if segments else 0) and args[35] == 4096
+    assert len(args) == len(native.FWD_F32_ARGTYPES) == 37
+    assert args[:6] == tuple(x.data_ptr() for x in (q, k, v, o, lse, pieces))
+    assert args[6:10] == ((None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg))
+    assert args[10:21] == (B, Hq, Hkv, Nq, D, 140, 1, 100, -1, 600, 200)
+    assert args[21:23] == (0.125, 30.0)
+    assert args[23:26] == (Nq * Hq * D, D, Hq * D)
+    assert args[26:29] == (Nk * Hkv * D, D, Hkv * D)
+    assert args[29:32] == args[26:29] and args[32:35] == args[23:26]
+    assert args[35] == (Nq if segments else 0) and args[36] == 4096
 
 
 @pytest.mark.parametrize("segments", [False, True])
 def test_f32_backward_packs_the_c_arguments(segments):
     """fa_bwd_f32 on f32 BNHD views with GQA, a window, offsets and (or not)
-    segment ids at the f32 body's tiles (32-row Q tiles, 128-key KV tiles,
-    the query ids padded): the split route's argument list, in its order."""
+    segment ids at the f32 body's tiles (32-row Q tiles, 64-key KV tiles,
+    the query ids padded): the split route's argument list, in its order,
+    with the pieces' scratch after dv."""
     B, Hq, Hkv, Nq, Nk, D = 2, 4, 2, 96, 130, 80
     q, k, v = _bnhd(*make_qkv(41, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv))
     do = q.clone()
     stats = torch.zeros((B, Hq, 96))
     dq = torch.zeros((B, Hq, Nq, D))
     dk, dv = torch.empty((B, Hq, Nk, D)), torch.empty((B, Hq, Nk, D))
+    pieces = f32_split.scratch(2 * B * Hq * Nq, B * Hkv * 120, D, "cpu")
     ids = (torch.arange(Nq).repeat(B, 1) // 40, torch.arange(Nk).repeat(B, 1) // 40)
     seg = (flash_fwd.sm90_segments(ids, Nq, 120, q_tile=flash_bwd.F32_BWD_Q_TILE,
                                    kv_tile=flash_bwd.F32_BWD_KV_TILE, pad_q=True)
            if segments else None)
     if segments:
         assert seg[0].shape == (B, 96) and seg[1].shape == (B, 128)
-        assert seg[2].shape == (B, 3, 2) and seg[3].shape == (B, 1, 2)
+        assert seg[2].shape == (B, 3, 2) and seg[3].shape == (B, 2, 2)
     seen = []
     lib = types.SimpleNamespace(fa_bwd_f32=_recorder("fa_bwd_f32", native.BWD_F32_ARGTYPES,
                                                      seen))
     rc = flash_bwd._launch_split(lib, q, k, v, do, stats, stats, dq, dk, dv, seg, scale=0.25,
                                  causal=False, kv_valid_len=120, window=(64, 7), softcap=None,
                                  nq_pad=96, stream=4096, q_offset=96, kv_offset=-64,
-                                 entry="fa_bwd_f32")
+                                 pieces=pieces)
     assert rc == 0 and [name for name, _ in seen] == ["fa_bwd_f32"]
     args = seen[0][1]
-    assert len(args) == len(native.BWD_F32_ARGTYPES) == 41
-    assert args[:9] == tuple(x.data_ptr() for x in (q, k, v, do, stats, stats, dq, dk, dv))
-    assert args[9:13] == ((None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg))
-    assert args[13:23] == (B, Hq, Hkv, Nq, Nk, D, 120, 0, 64, 7)
-    assert args[23:26] == (96, -64, 96)  # q_offset, kv_offset, the LSE rows' pitch
-    assert args[26:28] == (0.25, 0.0)
-    assert args[28:31] == (Nq * Hq * D, D, Hq * D)
-    assert args[31:34] == (Nk * Hkv * D, D, Hkv * D)
-    assert args[34:37] == args[31:34] and args[37:40] == args[28:31]
-    assert args[40] == 4096
+    assert len(args) == len(native.BWD_F32_ARGTYPES) == 42
+    assert args[:10] == tuple(x.data_ptr()
+                              for x in (q, k, v, do, stats, stats, dq, dk, dv, pieces))
+    assert args[10:14] == ((None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg))
+    assert args[14:24] == (B, Hq, Hkv, Nq, Nk, D, 120, 0, 64, 7)
+    assert args[24:27] == (96, -64, 96)  # q_offset, kv_offset, the LSE rows' pitch
+    assert args[27:29] == (0.25, 0.0)
+    assert args[29:32] == (Nq * Hq * D, D, Hq * D)
+    assert args[32:35] == (Nk * Hkv * D, D, Hkv * D)
+    assert args[35:38] == args[32:35] and args[38:41] == args[29:32]
+    assert args[41] == 4096
 
 
 # ---------------------------------------------------------------------------
@@ -414,7 +418,8 @@ def test_flash_attention_routes_on_a_simulated_card(card, case):
     assert q.grad.shape == q.shape and q.grad.dtype == dtype
     assert [name for name, _ in card] == entries
     d_kernel = -(-D // 8) * 8
-    assert card[0][1][13] == d_kernel  # the kernels see D padded to a multiple of 8
+    d_arg = 14 if card[0][0] == "fa_fwd_f32" else 13  # fa_fwd_f32 takes its pieces after lse
+    assert card[0][1][d_arg] == d_kernel  # the kernels see D padded to a multiple of 8
     f32 = entries[0] == "fa_fwd_f32"
     split = "segment_ids" in kw or "logit_softcap" in kw
     after = (flash_fwd.fwd.launches_f32, flash_bwd._f32_bwd_launch.launches,
