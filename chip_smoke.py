@@ -88,6 +88,14 @@ its kernels:
   ``compute_dtype=float32``; the LM of bench_lm.py at full width in f32
   (gates fused vs xla, 4 AdamW steps, unpacked and packed) with exact
   launches on the f32 kernels only;
+* head dims above 128 in the backward: K3's and the split route's D 256
+  form (TMA + wgmma, 64 keys a CTA, the two consumers splitting D; with
+  HGMMA and UTMALDG and no mma.sync in their SASS) against their plain
+  versions at D 256 / 192 / 136, ragged, GQA, causal, windows, every ids
+  kind, the cap, ids with the cap and K3 with offsets; then the LM of
+  bench_lm.py with 8 query and 4 KV heads of 256 (Gemma 2's attention
+  geometry) training unpacked, with logit_softcap 50 and packed, each with
+  the fused-vs-xla gates and exact launches on the D 256 forms;
 * the port's entry points (``flashattn_tpu_torch/entry.py``): ``entry()``'s
   U-Net denoise step and ``dryrun_multichip(8)`` (the f32 LM on a virtual
   8-rank mesh, contiguous, packed and two slices).
@@ -223,14 +231,16 @@ def pair_flops(q, k, *, matmuls: int, **mask) -> float:
     return 2.0 * D * pairs * matmuls
 
 
-def sdpa_ms(q, k, v, *, do=None, bias_leaf=None, backend=None, **kw) -> float:
+def sdpa_ms(q, k, v, *, do=None, bias_leaf=None, backend=None, device: bool = False,
+            **kw) -> float:
     """The library yardstick: one ``scaled_dot_product_attention`` call at
     its best backend (or, given ``backend``, a ``torch.nn.attention.
     SDPBackend``, at that one) on the same inputs (``enable_gqa`` for Hkv <
     Hq), or, with ``do``, the one backward call of that attention (dQ, dK, dV
     from the saved forward, and the gradient of ``bias_leaf``, a tensor that
     requires grad and from which ``attn_mask`` was computed: SDPA's dbias).
-    Timed here, used nowhere in the port."""
+    Its CUDA-event time, or with ``device`` the device time of its kernels
+    alone (kernels_ms). Timed here, used nowhere in the port."""
     import contextlib
 
     import torch.nn.functional as F
@@ -240,14 +250,54 @@ def sdpa_ms(q, k, v, *, do=None, bias_leaf=None, backend=None, **kw) -> float:
     kw.setdefault("enable_gqa", k.shape[1] != q.shape[1])
     if do is None:
         with torch.no_grad(), only:
-            return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, **kw), reps=5,
-                           trials=3)
+            fn = lambda: F.scaled_dot_product_attention(q, k, v, **kw)  # noqa: E731
+            return kernels_ms(fn) if device else cuda_ms(fn, reps=5, trials=3)
     qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
     with only:
         out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
     leaves = (qg, kg, vg) + (() if bias_leaf is None else (bias_leaf,))
-    return cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
-                   reps=5, trials=3)
+    fn = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)  # noqa: E731
+    return kernels_ms(fn) if device else cuda_ms(fn, reps=5, trials=3)
+
+
+def _profiled(fn, reps: int, enough) -> list:
+    """The key_averages() of a torch.profiler run over CUDA activity in
+    ``reps`` calls of ``fn`` (after one call outside it), run again, three
+    runs at most, while ``enough`` of them is false: in a process that ran
+    the profiler before, CUPTI can drop some launches of a run, or all of
+    them (0 of 20 seen once on an H100)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = list(prof.key_averages())
+        if enough(events):
+            break
+    return events
+
+
+def _self_device_us(e) -> float:
+    t = getattr(e, "self_device_time_total", None)
+    return getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+
+
+def kernels_ms(fn, reps: int = 20) -> float:
+    """Device ms of one call of ``fn`` in its kernels alone, the host's time
+    between them left out: from a torch.profiler run over CUDA activity in
+    ``reps`` calls (_profiled), each kernel's mean device time times its
+    launches a call (its count over ``reps``, rounded: the profiler can miss
+    a launch), summed; fails if it records no kernel."""
+    events = _profiled(fn, reps, lambda ev: any(_self_device_us(e) > 0 for e in ev))
+    total = sum(_self_device_us(e) / e.count * max(1, round(e.count / reps))
+                for e in events if _self_device_us(e) > 0 and e.count > 0)
+    if total <= 0:
+        fail("the profiler recorded no kernel of the call")
+    return total / 1e3
 
 
 def flex_ms(q, k, v, *, scale: float, do=None, score_mod=None, mask_mod=None) -> float:
@@ -329,6 +379,15 @@ def predicted_fused_calls(cfg, h: int, w: int, ctx_len: int) -> int:
             calls += fused_per_block
         h, w = -(-h // 2), -(-w // 2)
     return calls
+
+
+def _card_state() -> str:
+    """The card's SM clock (now and its maximum), power draw and temperature,
+    as nvidia-smi reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def phase_env() -> None:
@@ -980,10 +1039,15 @@ def _lm_gates(cfg, tokens, segment_ids, grad_limit: float | None, phase: str) ->
 
 
 def _lm_steps(cfg, tokens, arm: str, segment_ids=None, *, phase: str, label: str,
-              steps: int = LM_STEPS, warmup: int = LM_WARMUP) -> float:
+              steps: int = LM_STEPS, warmup: int = LM_WARMUP, profile: dict | None = None
+              ) -> float:
     """``steps`` AdamW steps from the seed-0 weights; logs ms/step (median
     after ``warmup`` warm-up steps), tokens/s, peak GB and the losses, fails
-    unless the losses are finite and falling, and returns s/step."""
+    unless the losses are finite and falling, and returns s/step. Given
+    ``profile`` (a dict), one more step runs under torch.profiler and
+    ``profile`` gains its wall ms, the device ms of every kernel, the device
+    ms of each kernel by name, and the card's clocks, power and temperature
+    read just after it."""
     from flashattn_tpu_torch.models.transformer import (
         adamw_init, adamw_update, init_transformer, lm_loss)
 
@@ -993,15 +1057,36 @@ def _lm_steps(cfg, tokens, arm: str, segment_ids=None, *, phase: str, label: str
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, secs = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
+
+    def step():
         model.zero_grad(set_to_none=True)
         loss = lm_loss(model, tokens, cfg, attn_impl=arm, segment_ids=segment_ids)
         loss.backward()
         adamw_update({n: p.grad for n, p in params.items()}, opt, params)
         torch.cuda.synchronize()
+        return loss
+
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step()
         secs.append(time.perf_counter() - t0)
         losses.append(loss.item())
+    if profile is not None:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        t0 = time.perf_counter()
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+        profile["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        profile["card"] = _card_state()
+        by_name = {}
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            t = getattr(e, "self_cuda_time_total", 0.0) if t is None else t
+            if t > 0:
+                by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3
+        profile["kernels_ms"] = by_name
+        profile["device_ms"] = sum(by_name.values())
     peak = torch.cuda.max_memory_allocated() / 1e9
     step_s = statistics.median(secs[warmup:])
     n_tokens = tokens.shape[0] * (tokens.shape[1] - 1)
@@ -1023,7 +1108,8 @@ def _reset_launches() -> None:
     flash_fwd.fwd.launches = flash_bwd_fused.bwd.launches = 0
     flash_fwd.fwd.launches_bias = flash_fwd.fwd.launches_int8 = flash_fwd.fwd.launches_fp8 = 0
     flash_fwd.fwd.launches_bias_sm90 = flash_fwd.fwd.launches_dense_sm90 = 0
-    flash_bwd_fused.bwd.launches_sm90 = 0
+    flash_bwd_fused.bwd.launches_sm90 = flash_bwd_fused.bwd.launches_d256 = 0
+    flash_bwd.split_bwd.launches_d256 = 0
     flash_fwd.fwd.launches_window = flash_fwd.fwd.launches_softcap = 0
     flash_fwd.fwd.launches_decode = flash_fwd.fwd.launches_merge = 0
     flash_bwd.bias_bwd.launches = flash_bwd.bias_bwd.launches_dbias = 0
@@ -1041,14 +1127,15 @@ def _launches() -> dict:
     those of K1's bias route (also counted in "K1 bias"), "K1 dense sm90"
     those of K1's dense route (a window's also in "K1 window", a cap's in
     "K1 softcap"); "K3" all K3 launches, "K3 sm90" those of its Hopper
-    kernel; "bias bwd" the launches of K5 + K6's bias route (one kernel for
-    both, with a bias and, if any, the softcap), "bias bwd dbias" those that
-    wrote dbias; "split bwd" those of K5 + K6 without a bias (one kernel for
-    both, with segment ids and / or the softcap); "K1 f32" the launches of
-    K1's f32 kernel (also counted in "K1", and in "K1 window" / "K1
-    softcap"), "bwd f32" those of the f32 backward body, which K3's f32
-    calls (also counted in "K3") and the split route's (in "split bwd")
-    launch; "split bf16x3" those of the f32 routes' operand split (one
+    kernel, "K3 d256" those of its D 256 form (bf16 above D 128); "bias
+    bwd" the launches of K5 + K6's bias route (one kernel for both, with a
+    bias and, if any, the softcap), "bias bwd dbias" those that wrote dbias;
+    "split bwd" those of K5 + K6 without a bias (one kernel for both, with
+    segment ids and / or the softcap), "split bwd d256" those of its D 256
+    form; "K1 f32" the launches of K1's f32 kernel (also counted in "K1",
+    and in "K1 window" / "K1 softcap"), "bwd f32" those of the f32 backward
+    body, which K3's f32 calls (also counted in "K3") and the split route's
+    (in "split bwd") launch; "split bf16x3" those of the f32 routes' operand split (one
     before each K1 f32 launch, of q, k and v, and one before each bwd f32
     launch, of q, k, v and dO, both from the f32 C entries). K5 and K6 have
     no kernel of their own: every CUDA backward that is not K3's takes one
@@ -1064,9 +1151,11 @@ def _launches() -> dict:
             "K1 softcap": flash_fwd.fwd.launches_softcap,
             "K1 decode": flash_fwd.fwd.launches_decode, "K1 merge": flash_fwd.fwd.launches_merge,
             "K3": flash_bwd_fused.bwd.launches, "K3 sm90": flash_bwd_fused.bwd.launches_sm90,
+            "K3 d256": flash_bwd_fused.bwd.launches_d256,
             "bias bwd": flash_bwd.bias_bwd.launches,
             "bias bwd dbias": flash_bwd.bias_bwd.launches_dbias,
             "split bwd": flash_bwd.split_bwd.launches,
+            "split bwd d256": flash_bwd.split_bwd.launches_d256,
             "K1 f32": flash_fwd.fwd.launches_f32, "bwd f32": flash_bwd._f32_bwd_launch.launches,
             "split bf16x3": (flash_fwd.fwd.launches_split
                              + flash_bwd._f32_bwd_launch.launches_split),
@@ -1599,7 +1688,9 @@ WINDOW_REL_L2 = 1e-2
 CAP_D40_CASE = (2, 8, 4, 1300, 40, 5.0)
 # fwd_tile.cuh's bf16 families with a softcap or a bias, which it keeps above
 # D 128 only (fwd_launch_wide; Gemma-2's D 256 with cap 50 runs there), at
-# B1 Hq8 Hkv4 D160, the forward only (no CUDA backward takes D above 128):
+# B1 Hq8 Hkv4 D160, the forward (phase_window_check's _wide_fwd_check; the
+# cases without a bias also through the split route's D 256 form in
+# phase_wide_bwd_check, since no CUDA backward takes a bias above D 128):
 # (tag, Nq, Nk, causal, window, ids kind as _seg_case_ids, bias, softcap,
 # has dead rows) -- the dead rows of a window past the keys, of a segment no
 # key carries and of key padding; cap 5 saturates the grown scores' tanh.
@@ -3681,16 +3772,13 @@ def _split_device_ms(fn, reps: int = 20) -> float:
     the mean over the split launches that a torch.profiler run over CUDA
     activity records in ``reps`` calls (it can record fewer: 8 of 10 on an
     H100 in a process that had run the profiler before); fails if it
-    records fewer than half of them or no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    records fewer than half of them or no device time (in each of the runs
+    that _profiled makes)."""
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if "split_bf16x3_kernel" in e.key]
+    def splits(events):
+        return [e for e in events if "split_bf16x3_kernel" in e.key]
+
+    events = splits(_profiled(fn, reps, lambda ev: sum(e.count for e in splits(ev)) >= reps / 2))
     n, t = sum(e.count for e in events), sum(e.device_time_total for e in events)
     log("f32", f"the profiler recorded {n} of the {reps} split launches, {t:.1f} us")
     if n < reps / 2 or n > reps or t <= 0:
@@ -4080,6 +4168,366 @@ def phase_f32_train() -> dict:
     return counts
 
 
+# Head dims above 128 in the backward (csrc/bwd_sm90_wide.cuh): K3's and the
+# split route's D 256 form against their plain versions on q, k grown by
+# GROW, (tag, D, B, Hq, Hkv, Nq, Nk, kv_valid_len, causal, window, ids kind
+# as _seg_case_ids, softcap, (q_offset, kv_offset)): D 256, 192 and 136 (run
+# in the 256 box), ragged Nq and Nk with kv_valid_len below Nk, GQA 8/4 and
+# 8/1, causal with Nq < Nk and Nq > Nk, windows, each ids kind, the cap, ids
+# with the cap, and K3 with offsets that leave dead rows and unreached keys.
+WIDE_BWD_CASES = [
+    ("causal", 256, 1, 8, 4, 1024, 1024, None, True, None, None, None, None),
+    ("ragged GQA 8/1", 256, 2, 8, 1, 127, 77, 70, False, None, None, None, None),
+    ("causal Nq < Nk", 256, 1, 8, 4, 129, 1300, 1200, True, None, None, None, None),
+    ("window", 192, 1, 8, 4, 1024, 1300, 1250, False, (64, 32), None, None, None),
+    ("causal window", 136, 1, 8, 1, 1024, 1024, None, True, (200, -1), None, None, None),
+    ("window dead rows", 256, 1, 8, 4, 1300, 1024, None, False, (64, -1), None, None, None),
+    ("packed", 256, 2, 8, 4, 1024, 1024, None, True, None, "packed", None, None),
+    ("random ids", 192, 2, 8, 4, 1024, 1024, None, True, None, "random", None, None),
+    ("tuple ids", 136, 2, 8, 1, 129, 1300, 1200, False, None, "tuple", None, None),
+    ("dead ids", 256, 1, 8, 4, 1024, 1024, None, False, None, "dead", None, None),
+    ("softcap", 256, 1, 8, 4, 1024, 1024, None, True, None, None, 5.0, None),
+    ("softcap ragged", 136, 2, 8, 1, 127, 77, 70, False, None, None, 5.0, None),
+    ("ids + softcap", 256, 2, 8, 4, 1024, 1024, None, True, None, "random", 5.0, None),
+    ("ids + softcap + window", 192, 1, 8, 4, 1024, 1024, None, True, (200, -1), "packed",
+     SOFTCAP, None),
+    ("offsets", 256, 1, 8, 4, 1024, 1024, None, True, None, None, None, (512, 1024)),
+]
+# The LM with heads of 256 (Gemma 2's attention geometry: 8 query and 4 KV
+# heads of 256 in bench_lm's d_model 2048), its steps (the median of 3 after
+# one) and its attention, where phase_wide_bwd_check times the kernels.
+WIDE_LM_WIDTH = dict(LM_WIDTH, n_heads=8, n_kv_heads=4, d_head=256)
+WIDE_STEPS = 4
+# The D 256 LM's attention kernels in a profile, by a part of their names: K1
+# on fwd_tile.cuh (fwd_kernel, fwd_softcap_kernel), K3's and the split
+# route's D 256 forms.
+WIDE_ATTN_KERNELS = {"K1": ("fwd_kernel", "fwd_softcap_kernel"), "K3": ("bwd_sm90_kernel",),
+                     "split": ("bwd_split_sm90_kernel",)}
+WIDE_SHAPE = (1, 8, 4, LM_SEQ, 256)  # B, Hq, Hkv, N, D
+
+
+def _wide_bwd_case(tag: str, q, k, v, do, **kw) -> dict:
+    """K3 (neither segment ids nor the cap in ``kw``) or the split route at a
+    head dim above 128 -- one launch of its D 256 form -- against its plain
+    version on f32 copies of the same bf16 inputs, with the LSE and Delta of
+    the plain forward: dQ / dK / dV within BWD_TOL[bf16] and each within
+    WINDOW_REL_L2 relative L2 (printed with max|ref|), dead rows' dQ and the
+    dK / dV rows of keys that no live row reaches exactly 0. Returns the max
+    error, the dead rows and the unreached keys."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+    from flashattn_tpu_torch.utils.testing import BWD_TOL, grad_gate
+
+    f32 = [x.float() for x in (q, k, v, do)]
+    o_want, lse = flash_fwd.fwd_reference(*f32[:3], **kw)
+    delta = (f32[3] * o_want).sum(-1)
+    del o_want
+    args = (q, k, v, do, lse, delta)
+    split = "softcap" in kw or "segment_ids" in kw
+    before = _launches()
+    if split:
+        got = flash_bwd.split_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        _routed(f"the split route's D 256 form at {tag}", before, split_bwd=1, split_bwd_d256=1)
+        want = flash_bwd.split_bwd_reference(*f32, lse, delta, **kw)
+    else:
+        got = flash_bwd_fused.bwd(*args, **kw)
+        torch.cuda.synchronize()
+        _routed(f"K3's D 256 form at {tag}", before, K3=1, K3_sm90=1, K3_d256=1)
+        want = flash_bwd_fused.bwd_reference(*f32, lse, delta, **kw)
+    names = ("dq", "dk", "dv")
+    g_tol = BWD_TOL[torch.bfloat16]
+    ok, why, err, _ = grad_gate(got, want, g_tol, names=names)
+    rel = {n: (_rel(a.float(), e), e.abs().max().item()) for n, a, e in zip(names, got, want)}
+    live = lse > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
+    Nq, Nk = q.shape[2], k.shape[2]
+    keep = flash_fwd.pair_mask(
+        Nq, Nk, kv_valid_len=kw.get("kv_valid_len", Nk), causal=kw.get("causal", False),
+        segment_ids=kw.get("segment_ids"), device=q.device, window=kw.get("window"),
+        q_offset=kw.get("q_offset", 0), kv_offset=kw.get("kv_offset", 0))
+    reached = (keep & live[..., None]).any(-2)  # [B, Hq, Nk]: keys some live row attends
+    dead_zero = bool((got[0][~live] == 0).all())
+    unreached_zero = bool((got[1][~reached] == 0).all() and (got[2][~reached] == 0).all())
+    n_dead, n_unreached = int((~live).sum()), int((~reached).sum())
+    log("wide", f"{tag}: {'split route' if split else 'K3'} D 256 form dQ/dK/dV max_abs_err "
+                f"{err:.3e} (budget BWD_TOL[bf16] atol {g_tol.atol} rtol {g_tol.rtol}); "
+                f"relative L2 (limit {WINDOW_REL_L2}) / max|ref|: "
+                + ", ".join(f"{n} {r:.2e} / {m:.3f}" for n, (r, m) in rel.items())
+                + f"; dead rows {n_dead}, their dQ exactly 0: {dead_zero}; unreached "
+                f"(head, key) rows {n_unreached}, their dK / dV exactly 0: {unreached_zero}")
+    if not ok:
+        fail(f"the D 256 backward disagrees with its plain version at {tag}: {why}")
+    if not all(r <= WINDOW_REL_L2 for r, _ in rel.values()):
+        fail(f"the D 256 backward: relative L2 error above {WINDOW_REL_L2} at {tag}: {rel}")
+    if not dead_zero:
+        fail(f"the D 256 backward: dead rows' dQ not exactly 0 at {tag}")
+    if not unreached_zero:
+        fail(f"the D 256 backward: unreached keys' dK / dV not exactly 0 at {tag}")
+    del got, want, f32
+    torch.cuda.empty_cache()
+    return {"err": err, "dead": n_dead, "unreached": n_unreached}
+
+
+def _sdpa_backends_ms(q, k, v, *, do=None, **kw) -> dict:
+    """SDPA on these inputs at its own choice of backend and at each fused
+    backend that takes them (flash, memory-efficient, cuDNN; GQA by
+    ``enable_gqa``, or on K / V expanded to the query heads where a backend
+    refuses it), the forward or, with ``do``, the backward: the times by
+    backend (logged), and the fastest fused backend's ms and name as
+    ``library_ms`` / ``library_call``."""
+    from torch.nn.attention import SDPBackend
+
+    what = "backward" if do is not None else "forward"
+    group = q.shape[1] // k.shape[1]
+    times, device = {}, {}
+    for name, backend in (("its own choice", None), ("flash", SDPBackend.FLASH_ATTENTION),
+                          ("memory-efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("cuDNN", SDPBackend.CUDNN_ATTENTION)):
+        try:
+            times[name] = sdpa_ms(q, k, v, do=do, backend=backend, **kw)
+            device[name] = sdpa_ms(q, k, v, do=do, backend=backend, device=True, **kw)
+        except RuntimeError:
+            kx, vx = (x.repeat_interleave(group, 1) for x in (k, v))
+            expanded = f"{name}, K / V expanded"
+            try:
+                times[expanded] = sdpa_ms(q, kx, vx, do=do, backend=backend, **kw)
+                device[expanded] = sdpa_ms(q, kx, vx, do=do, backend=backend, device=True, **kw)
+            except RuntimeError as e:  # the backend takes neither form
+                log("wide", f"SDPA's {name} backend refused the {what}: {str(e)[:160]}")
+            del kx, vx
+    log("wide", f"SDPA {what} by backend, the call's CUDA-event ms / its kernels' device ms: "
+                + ", ".join(f"{n} {t:.4f} / {device[n]:.4f}" for n, t in times.items()))
+    fused = {n: t for n, t in times.items() if n != "its own choice"} or times
+    name = min(fused, key=fused.get)
+    return {"library_ms": fused[name],
+            "library_call": f"the {what} of scaled_dot_product_attention(is_causal=True), "
+                            f"{name} backend",
+            "library_by_backend": times, "library_device_ms_by_backend": device}
+
+
+def _wide_timing() -> dict:
+    """K3's and the split route's D 256 forms (the cap; packed ids) and K1 on
+    fwd_tile.cuh at the D 256 LM's attention, B1 Hq8 Hkv4 N2048 D256 causal,
+    on unit-scale bf16 views of [B, N, H, D] (the model's layout): each one
+    launch on its route, held against its plain version on the timed inputs
+    (O within FWD_TOL[bf16], dQ / dK / dV within BWD_TOL[bf16], each within
+    WINDOW_REL_L2 relative L2; a miss fails), its median CUDA-event time
+    beside the plain version's, its bound (pair_flops over the attended
+    pairs; the bytes of the inputs and of the outputs as the function returns
+    them: O, dQ, dK / dV in the input dtype, dK / dV at Hkv heads) and one
+    library call's: SDPA (forward, backward; each fused backend timed,
+    _sdpa_backends_ms), flex_attention's backward with the cap or the
+    documents. Each row also gives its kernels' device time alone
+    (``kernel_ms``, kernels_ms; the ids' call computes their tile ranges
+    first), and SDPA's rows each backend's (``library_device_ms_by_backend``)."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.utils.testing import (
+        BWD_TOL, FWD_TOL, check_close, grad_gate, make_qkv)
+
+    B, Hq, Hkv, N, D = WIDE_SHAPE
+    q, k, v = (_bnhd(x) for x in make_qkv(1500, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16,
+                                           device=DEVICE))
+    do = _bnhd(make_qkv(1501, B, Hq, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
+    scale = D ** -0.5
+    ids = packed_ids(B, N + 1)[:, :N]
+    stats = 4 * B * Hq * N
+    res = {}
+    f32 = [x.float() for x in (q, k, v, do)]
+    # K1 on fwd_tile.cuh (no Hopper route above D 128).
+    before = _launches()
+    o = flash_fwd.fwd(q, k, v, scale=scale, causal=True)[0]
+    torch.cuda.synchronize()
+    _routed("K1 at the D 256 LM's attention", before, K1=1)
+    o_want = flash_fwd.fwd_reference(*f32[:3], scale=scale, causal=True)[0]
+    ok_o, msg_o = check_close(o, o_want, FWD_TOL[torch.bfloat16], "O")
+    rel_o = _rel(o.float(), o_want)
+    log("wide", f"K1 at B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal: O {msg_o}; relative L2 "
+                f"{rel_o:.2e} (limit {WINDOW_REL_L2})")
+    if not ok_o or not rel_o <= WINDOW_REL_L2:
+        fail(f"K1 at the D 256 LM's attention disagrees with its plain version: {msg_o}; "
+             f"relative L2 {rel_o}")
+    res["k1"] = {"max_abs_err": (o.float() - o_want).abs().max().item(),
+                 "ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, scale=scale, causal=True)),
+                 "kernel_ms": kernels_ms(lambda: flash_fwd.fwd(q, k, v, scale=scale, causal=True)),
+                 "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(
+                     q, k, v, scale=scale, causal=True), reps=3),
+                 **bound(tensor_bytes(q, k, v, q) + stats,
+                         pair_flops(q, k, matmuls=2, kv_valid_len=N, causal=True,
+                                    segment_ids=None)),
+                 **_sdpa_backends_ms(q, k, v, is_causal=True)}
+    del o, o_want
+    cases = {"k3": ({}, "K3", dict(K3=1, K3_sm90=1, K3_d256=1)),
+             "split_cap": (dict(softcap=SOFTCAP), "split", dict(split_bwd=1, split_bwd_d256=1)),
+             "split_seg": (dict(segment_ids=(ids, ids)), "split",
+                           dict(split_bwd=1, split_bwd_d256=1))}
+    names, g_tol = ("dq", "dk", "dv"), BWD_TOL[torch.bfloat16]
+    for key, (opt, route, want_launches) in cases.items():
+        kw = dict(scale=scale, causal=True, **opt)
+        o32, lse = flash_fwd.fwd_reference(*f32[:3], **kw)
+        delta = (f32[3] * o32).sum(-1)
+        del o32
+        args = (q, k, v, do, lse, delta)
+        kernel, plain = ((flash_bwd_fused.bwd, flash_bwd_fused.bwd_reference) if route == "K3"
+                         else (flash_bwd.split_bwd, flash_bwd.split_bwd_reference))
+        before = _launches()
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        _routed(f"{key} at the D 256 LM's attention", before, **want_launches)
+        want = plain(*f32, lse, delta, **kw)
+        ok, why, err, _ = grad_gate(got, want, g_tol, names=names)
+        rel = {n: _rel(a.float(), e) for n, a, e in zip(names, got, want)}
+        log("wide", f"{key} at B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal: dQ/dK/dV max_abs_err "
+                    f"{err:.3e} (budget BWD_TOL[bf16] atol {g_tol.atol} rtol {g_tol.rtol}); "
+                    f"relative L2 (limit {WINDOW_REL_L2}) "
+                    + ", ".join(f"{n} {r:.2e}" for n, r in rel.items()))
+        if not ok:
+            fail(f"{key} at the D 256 LM's attention disagrees with its plain version: {why}")
+        if not all(r <= WINDOW_REL_L2 for r in rel.values()):
+            fail(f"{key} at the D 256 LM's attention: relative L2 above {WINDOW_REL_L2}: {rel}")
+        del got, want
+        mask = dict(kv_valid_len=N, causal=True, segment_ids=opt.get("segment_ids"))
+        # In: q, k, v, dO, LSE, Delta (and the ids); out: dQ, dK, dV as the
+        # function returns them (the input dtype; dK / dV at Hkv heads).
+        row = {"max_abs_err": err, "ms": cuda_ms(lambda: kernel(*args, **kw)),
+               "plain_ms": cuda_ms(lambda: plain(*args, **kw), reps=3),
+               **bound(tensor_bytes(q, k, v, do, lse, delta) + tensor_bytes(q, k, v)
+                       + (tensor_bytes(ids, ids) if "segment_ids" in opt else 0),
+                       pair_flops(q, k, matmuls=5, **mask))}
+        # The kernel's device time alone: the ids' call computes their tile
+        # ranges first.
+        row["kernel_ms"] = kernels_ms(lambda: kernel(*args, **kw))
+        if key == "k3":
+            row.update(_sdpa_backends_ms(q, k, v, do=do, is_causal=True))
+        elif key == "split_cap":
+            row.update(library_ms=flex_ms(q, k, v, scale=scale, do=do,
+                                          score_mod=softcap_mod(SOFTCAP), mask_mod=band_mod(None)),
+                       library_call="the backward of flex_attention (torch.compile) with the cap "
+                                    "and the causal mask")
+        else:
+            row.update(library_ms=flex_ms(q, k, v, scale=scale, do=do,
+                                          mask_mod=band_mod(None, ids)),
+                       library_call="the backward of flex_attention (torch.compile) with the "
+                                    "causal document mask")
+        res[key] = row
+        torch.cuda.empty_cache()
+    for key, row in res.items():
+        alone = f" (the kernel alone {row['kernel_ms']:.4f})"
+        log("wide", f"{key} at B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal bf16: {row['ms']:.4f} ms"
+                    f"{alone}, plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                    f"{row['bound_by']}, library {row['library_ms']:.4f} ({row['library_call']}); "
+                    f"max_abs_err {row['max_abs_err']:.3e} (median CUDA-event time)")
+    return res
+
+
+def phase_wide_bwd_check() -> dict:
+    """K3's and the split route's D 256 form (csrc/bwd_sm90_wide.cuh) against
+    their plain versions (_wide_bwd_case) on WIDE_BWD_CASES and, backward
+    only, on WIDE_CASES' shapes without a bias (D 160, the cap with a window
+    and / or ids); then the times at the D 256 LM's attention (_wide_timing)
+    and, after those numeric gates, the four D 256 instantiations' SASS
+    (_tma_wgmma_sass: HGMMA, UTMALDG, no HMMA)."""
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    cases = list(WIDE_BWD_CASES) + [
+        (f"D {WIDE_D} {name}", WIDE_D, 1, 8, 4, nq, nk, None, causal, window, ids, cap, None)
+        for name, nq, nk, causal, window, ids, biased, cap, _ in WIDE_CASES if not biased]
+    dead = unreached = 0
+    for i, (name, D, B, Hq, Hkv, Nq, Nk, kvl, causal, window, ids, cap, offsets) in enumerate(
+            cases):
+        q, k, v = _grown(1200 + i, B, Hq, Nq, D, Nk, Hkv)
+        do = _bnhd(make_qkv(1300 + i, B, Hq, Nq, D, dtype=torch.bfloat16, device=DEVICE)[0])
+        kw = dict(scale=D ** -0.5, causal=causal)
+        if kvl is not None:
+            kw["kv_valid_len"] = kvl
+        if window is not None:
+            kw["window"] = window
+        if ids is not None:
+            kw["segment_ids"] = _seg_case_ids(ids, 1400 + i, B, Nq, Nk)
+        if cap is not None:
+            kw["softcap"] = cap
+        if offsets is not None:
+            kw["q_offset"], kw["kv_offset"] = offsets
+        out = _wide_bwd_case(
+            f"{name}: D{D} B{B} Hq{Hq} Hkv{Hkv} Nq{Nq} Nk{Nk}"
+            f"{'' if kvl is None else f' kv_valid_len {kvl}'}{' causal' if causal else ''}"
+            f"{'' if window is None else f', window {window}'}"
+            f"{'' if ids is None else f', {ids} ids'}{'' if cap is None else f', softcap {cap}'}"
+            f"{'' if offsets is None else f', q / kv offsets {offsets}'}", q, k, v, do, **kw)
+        dead += out["dead"]
+        unreached += out["unreached"]
+        del q, k, v, do, kw
+    if not dead or not unreached:
+        fail(f"the D 256 cases hold {dead} dead rows and {unreached} unreached keys: the "
+             "exact-zero gates were not exercised")
+    res = _wide_timing()
+    _tma_wgmma_sass("wide", {"K3 sm90 bwd_sm90_kernel<256>"} | {
+        f"K5 + K6 split sm90{' segments' if sg else ''}{' softcap' if cp else ''} "
+        f"bwd_split_sm90_kernel<256, {sg}, {cp}>" for sg, cp in ((1, 0), (0, 1), (1, 1))})
+    return res
+
+
+def phase_wide_train() -> dict:
+    """The LM with heads of 256 (WIDE_LM_WIDTH: bench_lm's width, 8 query and 4
+    KV heads of 256, bf16) in three variants -- unpacked at [1, 2049]; with
+    logit_softcap 50 (Gemma 2's cap); packed, 8 documents a row -- each with
+    the fused-vs-xla gates of _lm_gates (the packed one at [1, 2049], 1.5x
+    the bf16 floor), then WIDE_STEPS fused AdamW steps (packed at [2, 4097])
+    and one more under torch.profiler (its wall and kernel time, the
+    attention kernels' share, the card's clocks after it), with exact
+    launches: K1 on fwd_tile.cuh and K3's D 256 form, K1 capped and the split
+    route's D 256 form, K1 with ids and the split route's D 256 form, n_layers
+    x (WIDE_STEPS + 1) each and no other. Returns the launch counts, ms/step
+    and the profiled step's times per variant."""
+    from flashattn_tpu_torch.models.transformer import TransformerConfig
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    tokens = torch.randint(0, WIDE_LM_WIDTH["vocab_size"], (1, LM_SEQ + 1), generator=gen,
+                           device=DEVICE)
+    B, N = PACKED_SHAPE
+    packed_tokens = torch.randint(0, WIDE_LM_WIDTH["vocab_size"], (B, N + 1), generator=gen,
+                                  device=DEVICE)
+    n = WIDE_LM_WIDTH["n_layers"] * (WIDE_STEPS + 1)  # the timed steps and the profiled one
+    variants = {
+        "unpacked": (TransformerConfig(**WIDE_LM_WIDTH), None, tokens, None,
+                     dict(K1=n, K3=n, K3_sm90=n, K3_d256=n)),
+        "softcap": (TransformerConfig(**WIDE_LM_WIDTH, logit_softcap=SOFTCAP), None, tokens,
+                    None, dict(K1=n, K1_softcap=n, split_bwd=n, split_bwd_d256=n)),
+        "packed": (TransformerConfig(**WIDE_LM_WIDTH), packed_ids(1, LM_SEQ + 1), packed_tokens,
+                   packed_ids(B, N + 1), dict(K1=n, split_bwd=n, split_bwd_d256=n))}
+    out = {}
+    for tag, (cfg, gate_ids, step_tokens, step_ids, counts) in variants.items():
+        _lm_gates(cfg, tokens, gate_ids, None, "wide train")
+        _reset_launches()
+        prof = {}
+        step_s = _lm_steps(cfg, step_tokens, "fused", step_ids, phase="wide train",
+                           label=f"fused, heads of 256, {tag}", steps=WIDE_STEPS, warmup=1,
+                           profile=prof)
+        got = _launches()
+        want = _expect(**counts)
+        log("wide train", f"{tag}: launches {got} (expected "
+                          f"{', '.join(f'{k} {v}' for k, v in counts.items())}, no other)")
+        if got != want:
+            fail(f"the D 256 LM's steps ({tag}) launched {got}, expected {want}")
+        attn = {n: sum(t for key, t in prof["kernels_ms"].items() if any(m in key for m in ms))
+                for n, ms in WIDE_ATTN_KERNELS.items()}
+        top = sorted(prof["kernels_ms"].items(), key=lambda kv: -kv[1])[:5]
+        kernel_time = (f"{prof['device_ms']:.2f} ms of kernel time (the device idles "
+                       f"{100 * (1.0 - prof['device_ms'] / prof['wall_ms']):.1f}%)"
+                       if prof["device_ms"] > 0 else
+                       "kernel time not measured (the profiler saw no device time)")
+        log("wide train", f"{tag}: one profiled step, {prof['wall_ms']:.2f} ms wall, "
+                          f"{kernel_time}; attention "
+                          + ", ".join(f"{n} {t:.2f} ms" for n, t in attn.items())
+                          + "; most time in: "
+                          + "; ".join(f"{n[:60]} {t:.2f} ms" for n, t in top)
+                          + f"; card after it (SM clock, max SM clock, power, temperature): "
+                          f"{prof['card']}")
+        out[tag] = {"launches": got, "ms_per_step": step_s * 1e3,
+                    "profiled_wall_ms": prof["wall_ms"], "profiled_device_ms": prof["device_ms"],
+                    "profiled_attention_ms": attn}
+    return out
+
+
 def phase_entry() -> dict:
     """The port's entry points on the card: ``entry()``'s denoise step (its
     output's shape, dtype and finiteness; the launches it made -- none: every
@@ -4147,6 +4595,8 @@ def main() -> None:
     sharded = timed(phase_sharded_train)
     f32 = timed(phase_f32_check)
     f32_train = timed(phase_f32_train)
+    wide = timed(phase_wide_bwd_check)
+    wide_train = timed(phase_wide_train)
     timed(phase_entry)
     fwd_src, bwd_src, split_src, bias_sm90_src = (
         f"flashattn_tpu_torch/csrc/flash_{d}.cu"
@@ -4312,7 +4762,30 @@ def main() -> None:
          "source": "flashattn_tpu_torch/csrc/split_bf16x3.cu",
          "replaces": "none (Precision.HIGHEST's bf16 split inside the MXU: "
                      "flashattn_tpu/ops/flash_fwd.py:232)",
-         "launches": f32_train["unpacked"]["split bf16x3"], **f32["split"]}]}), flush=True)
+         "launches": f32_train["unpacked"]["split bf16x3"], **f32["split"]},
+        # The LM with heads of 256 (phase_wide_train), at its attention (B1
+        # Hq8 Hkv4 N2048 D256 causal, phase_wide_bwd_check's _wide_timing):
+        # K1 on the mma.sync fwd_tile.cuh (no Hopper route above D 128), K3's
+        # and the split route's D 256 forms; launches from the variants' steps.
+        {"name": "flash_fwd fwd_tile.cuh D 256 causal (K1, mma.sync: the LM with heads of 256)",
+         "route": "cuda", "source": "flashattn_tpu_torch/csrc/fwd_tile.cuh",
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:516",
+         "launches": wide_train["unpacked"]["launches"]["K1"], **wide["k1"]},
+        {"name": "flash_bwd_sm90 D 256 (K3's D 256 form, wgmma: the LM with heads of 256, "
+                 "causal, K4)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/bwd_sm90_wide.cuh",
+         "replaces": "flashattn_tpu/ops/flash_bwd_fused.py:110, "
+                     "flashattn_tpu/ops/flash_bwd_fused.py:336",
+         "launches": wide_train["unpacked"]["launches"]["K3 d256"], **wide["k3"]},
+        {"name": "flash_bwd_split_sm90 D 256 softcap (K5 + K6's D 256 form in one launch, wgmma: "
+                 "the LM with heads of 256, logit softcap 50)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/bwd_sm90_wide.cuh", "replaces": split_replaces,
+         "launches": wide_train["softcap"]["launches"]["split bwd d256"], **wide["split_cap"]},
+        {"name": "flash_bwd_split_sm90 D 256 segments (K5 + K6's D 256 form in one launch, "
+                 "wgmma: the packed LM with heads of 256)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/bwd_sm90_wide.cuh", "replaces": split_replaces,
+         "launches": wide_train["packed"]["launches"]["split bwd d256"], **wide["split_seg"]}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

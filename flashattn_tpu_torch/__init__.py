@@ -18,7 +18,7 @@ zigzag and Ulysses attention) is exported here too, as
 ``flashattn_tpu.parallel`` exports it.
 """
 
-from flashattn_tpu_torch.ops.flash import flash_attention, flash_attention_with_lse
+from flashattn_tpu_torch.ops.flash import BlockSizes, flash_attention, flash_attention_with_lse
 from flashattn_tpu_torch.ops.oracle import attention_reference
 from flashattn_tpu_torch.ops.sdpa import scaled_dot_product_attention
 from flashattn_tpu_torch.parallel import (
@@ -38,6 +38,7 @@ from flashattn_tpu_torch.parallel import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "BlockSizes",
     "flash_attention",
     "flash_attention_with_lse",
     "scaled_dot_product_attention",

@@ -129,20 +129,6 @@ struct F32BwdSmem {
   static_assert(BYTES <= 232448, "a block's shared memory on sm_90");
 };
 
-// A value the compiler cannot see through, so that what is derived from it
-// is computed where it is used: the wgmma descriptors made from one by adding
-// 16-byte offsets (to the start address, bits 0-13), which the compiler would
-// otherwise hoist out of the Q-tile loop, two registers each.
-__device__ __forceinline__ uint64_t opaque(uint64_t desc) {
-  asm volatile("" : "+l"(desc));
-  return desc;
-}
-
-__device__ __forceinline__ int opaque(int x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
-
 // acc = the six bf16 products of A's pieces (a_s: piece 0, pieces
 // a_piece bytes apart) and B's (b_s: a stacked K-major tile, piece p at rows
 // 32p..), the small terms first, over K_STEPS k-steps of 16 along the

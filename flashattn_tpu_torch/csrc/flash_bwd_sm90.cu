@@ -1,7 +1,9 @@
 // K3, the single-pass FlashAttention backward, for Hopper (sm_90a):
 // bwd_sm90_tile.cuh's TMA + wgmma body without the bias stage, as
 // bwd_sm90_kernel (D 64 and 128; every D <= 128 that is a multiple of 8 by the
-// TMA boxes' zero fill), and the C entry fa_bwd_sm90.
+// TMA boxes' zero fill), its D 256 form on bwd_sm90_wide.cuh's body
+// (bwd_sm90_kernel<256>: 64 keys a CTA, the two consumers splitting D; every
+// D 136-256 by the zero fill), and the C entry fa_bwd_sm90.
 //
 // Replaces the TPU kernels flashattn_tpu/ops/flash_bwd_fused.py::
 // _bwd_fused_kernel (K3, :110) and, with causal or a sliding window, the
@@ -29,7 +31,7 @@
 // grid of query heads (256 CTAs, the longest first) fills the SMs again as
 // CTAs finish. chip_variants.py k3 times the KV-head grid as a patch.
 
-#include "bwd_sm90_tile.cuh"
+#include "bwd_sm90_wide.cuh"
 
 namespace {
 
@@ -39,7 +41,11 @@ __global__ void __launch_bounds__(BB_THREADS, 1)
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
                     const __grid_constant__ CUtensorMap tm_do, const BwdDenseParams p) {
-  bwd_sm90_body<D, false, false>(tm_q, tm_k, tm_v, tm_do, nullptr, p);
+  if constexpr (D == BW_D) {
+    bwd_wide_body<false, false>(tm_q, tm_k, tm_v, tm_do, p);
+  } else {
+    bwd_sm90_body<D, false, false>(tm_q, tm_k, tm_v, tm_do, nullptr, p);
+  }
 }
 
 template <int D>
@@ -47,10 +53,12 @@ cudaError_t bwd_sm90_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                             const CUtensorMap& tm_v, const CUtensorMap& tm_do,
                             const BwdDenseParams& p, int batch, cudaStream_t stream) {
   auto kernel = bwd_sm90_kernel<D>;
-  const cudaError_t e = allow_smem(kernel, BbSmem<D, false>::BYTES);
+  constexpr int smem = bwd_smem_bytes<D>();
+  constexpr int block_n = bwd_block_n(D);
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(p.hq, (p.nk + BB_BLOCK_N - 1) / BB_BLOCK_N, batch);
-  kernel<<<grid, BB_THREADS, BbSmem<D, false>::BYTES, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
+  const dim3 grid(p.hq, (p.nk + block_n - 1) / block_n, batch);
+  kernel<<<grid, BB_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
   return cudaGetLastError();
 }
 
@@ -70,7 +78,7 @@ extern "C" {
 // window (wl, wr) masks kv_pos < q_pos - wl (wl >= 0) and kv_pos > q_pos + wr
 // (wr >= 0), a negative bound being none. A KV tile that no row reaches
 // writes zero dK / dV rows.
-// Requires 8 <= D <= 128 with D % 8 == 0, Hq % Hkv == 0, Nq, Nk >= 1,
+// Requires 8 <= D <= 256 with D % 8 == 0, Hq % Hkv == 0, Nq, Nk >= 1,
 // 0 <= kv_valid_len <= Nk, B <= 65535. Returns a cudaError_t (0: success;
 // cudaErrorInvalidValue for arguments it does not take,
 // cudaErrorNotSupported when cuTensorMapEncodeTiled is missing or refuses a
@@ -84,8 +92,10 @@ int fa_bwd_sm90(const void* q, const void* k, const void* v, const void* dout, c
   // The K/V maps' key extent (at least 1: a map has no empty dim; with
   // kv_valid_len 0 no tile is loaded).
   const int nkv = kv_valid_len > 0 ? kv_valid_len : 1;
-  if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
-      hq % hkv != 0 || nq < 1 || nk < 1 || (nk + BB_BLOCK_N - 1) / BB_BLOCK_N > 65535 ||
+  const int box_d = bwd_box_d(d);
+  const int kv_rows = bwd_block_n(box_d);  // keys a CTA (the K / V boxes' rows)
+  if (d < 8 || d > BW_D || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
+      hq % hkv != 0 || nq < 1 || nk < 1 || (nk + kv_rows - 1) / kv_rows > 65535 ||
       kv_valid_len < 0 || kv_valid_len > nk ||
       nq_pad < nq || nq_pad % BB_BLOCK_M || !aligned(q, 16) || !aligned(k, 16) ||
       !aligned(v, 16) || !aligned(dout, 16) || !aligned(lse, 16) || !aligned(delta, 16) ||
@@ -102,8 +112,8 @@ int fa_bwd_sm90(const void* q, const void* k, const void* v, const void* dout, c
   alignas(64) CUtensorMap tm_v;
   alignas(64) CUtensorMap tm_do;
   if (!make_bhnd_map(&tm_q, q, batch, hq, nq, d, q_sb, q_sh, q_sn, BB_BLOCK_M) ||
-      !make_bhnd_map(&tm_k, k, batch, hkv, nkv, d, k_sb, k_sh, k_sn, BB_BLOCK_N) ||
-      !make_bhnd_map(&tm_v, v, batch, hkv, nkv, d, v_sb, v_sh, v_sn, BB_BLOCK_N) ||
+      !make_bhnd_map(&tm_k, k, batch, hkv, nkv, d, k_sb, k_sh, k_sn, kv_rows) ||
+      !make_bhnd_map(&tm_v, v, batch, hkv, nkv, d, v_sb, v_sh, v_sn, kv_rows) ||
       !make_bhnd_map(&tm_do, dout, batch, hq, nq, d, do_sb, do_sh, do_sn, BB_BLOCK_M)) {
     return static_cast<int>(cudaErrorNotSupported);
   }
@@ -125,8 +135,10 @@ int fa_bwd_sm90(const void* q, const void* k, const void* v, const void* dout, c
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = d <= 64 ? bwd_sm90_launch<64>(tm_q, tm_k, tm_v, tm_do, p, batch, s)
-                                : bwd_sm90_launch<128>(tm_q, tm_k, tm_v, tm_do, p, batch, s);
+  const cudaError_t e =
+      box_d == 64    ? bwd_sm90_launch<64>(tm_q, tm_k, tm_v, tm_do, p, batch, s)
+      : box_d == 128 ? bwd_sm90_launch<128>(tm_q, tm_k, tm_v, tm_do, p, batch, s)
+                     : bwd_sm90_launch<BW_D>(tm_q, tm_k, tm_v, tm_do, p, batch, s);
   return static_cast<int>(e);
 }
 

@@ -1,8 +1,10 @@
 // K5 + K6 without a bias for Hopper (sm_90a): bwd_sm90_tile.cuh's TMA + wgmma
 // body without the bias stage, with segment ids (SEG) and / or the logit
 // softcap (CAP), as bwd_split_sm90_kernel (D 64 and 128; every D <= 128 that
-// is a multiple of 8 by the TMA boxes' zero fill), and the C entry
-// fa_bwd_split_sm90.
+// is a multiple of 8 by the TMA boxes' zero fill), its D 256 form on
+// bwd_sm90_wide.cuh's body (bwd_split_sm90_kernel<256, SEG, CAP>: 64 keys a
+// CTA, the two consumers splitting D; every D 136-256 by the zero fill), and
+// the C entry fa_bwd_split_sm90.
 //
 // Replaces the TPU kernels flashattn_tpu/ops/flash_bwd.py::_dkv_kernel (K5,
 // :139) and _dq_kernel (K6, :234), the pair that the JAX package's
@@ -27,7 +29,7 @@
 // accurate tanhf per attended pair (~20 instructions on the FMA and MUFU
 // pipes) sits beside the products.
 
-#include "bwd_sm90_tile.cuh"
+#include "bwd_sm90_wide.cuh"
 
 namespace {
 
@@ -37,7 +39,11 @@ __global__ void __launch_bounds__(BB_THREADS, 1)
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           const __grid_constant__ CUtensorMap tm_do, const BwdSplitParams p) {
-  bwd_sm90_body<D, false, false, SEG, CAP>(tm_q, tm_k, tm_v, tm_do, nullptr, p);
+  if constexpr (D == BW_D) {
+    bwd_wide_body<SEG, CAP>(tm_q, tm_k, tm_v, tm_do, p);
+  } else {
+    bwd_sm90_body<D, false, false, SEG, CAP>(tm_q, tm_k, tm_v, tm_do, nullptr, p);
+  }
 }
 
 template <int D, bool SEG, bool CAP>
@@ -45,10 +51,11 @@ cudaError_t split_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const
                          const CUtensorMap& tm_do, const BwdSplitParams& p, int batch,
                          cudaStream_t stream) {
   auto kernel = bwd_split_sm90_kernel<D, SEG, CAP>;
-  constexpr int smem = BbSmem<D, false, SEG>::BYTES;
+  constexpr int smem = bwd_smem_bytes<D, SEG>();
+  constexpr int block_n = bwd_block_n(D);
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(p.hq, (p.nk + BB_BLOCK_N - 1) / BB_BLOCK_N, batch);
+  const dim3 grid(p.hq, (p.nk + block_n - 1) / block_n, batch);
   kernel<<<grid, BB_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
   return cudaGetLastError();
 }
@@ -80,7 +87,8 @@ extern "C" {
 //     contiguous: the id range of each 64-row Q tile's rows below Nq and of
 //     each 128-key tile's keys below kv_valid_len,
 // with q_tiles = ceil(Nq / 64) <= 4096 and kv_tiles = ceil(kv_valid_len /
-// 128): all four pointers or none (pair (i, j) attends iff seg_q[i] ==
+// 128) at every head dim (the D 256 form's 64-key CTAs read their 128-key
+// tile's range): all four pointers or none (pair (i, j) attends iff seg_q[i] ==
 // seg_kv[j]); softcap > 0 the forward's logit cap, 0 none. At least one of
 // the two: the call with neither is K3's. Returns a cudaError_t (0: success;
 // cudaErrorInvalidValue for arguments it does not take,
@@ -98,8 +106,10 @@ int fa_bwd_split_sm90(const void* q, const void* k, const void* v, const void* d
   const bool seg = seg_q != nullptr;
   const bool cap = softcap > 0.f;
   const int q_tiles = (nq + BB_BLOCK_M - 1) / BB_BLOCK_M;
-  if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
-      hq % hkv != 0 || nq < 1 || nk < 1 || (nk + BB_BLOCK_N - 1) / BB_BLOCK_N > 65535 ||
+  const int box_d = bwd_box_d(d);
+  const int kv_rows = bwd_block_n(box_d);  // keys a CTA (the K / V boxes' rows)
+  if (d < 8 || d > BW_D || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
+      hq % hkv != 0 || nq < 1 || nk < 1 || (nk + kv_rows - 1) / kv_rows > 65535 ||
       kv_valid_len < 0 || kv_valid_len > nk || nq_pad < nq || nq_pad % BB_BLOCK_M ||
       !(softcap >= 0.f) || (!seg && !cap) || seg != (seg_kv != nullptr) ||
       seg != (q_range != nullptr) || seg != (kv_range != nullptr) ||
@@ -119,8 +129,8 @@ int fa_bwd_split_sm90(const void* q, const void* k, const void* v, const void* d
   alignas(64) CUtensorMap tm_v;
   alignas(64) CUtensorMap tm_do;
   if (!make_bhnd_map(&tm_q, q, batch, hq, nq, d, q_sb, q_sh, q_sn, BB_BLOCK_M) ||
-      !make_bhnd_map(&tm_k, k, batch, hkv, nkv, d, k_sb, k_sh, k_sn, BB_BLOCK_N) ||
-      !make_bhnd_map(&tm_v, v, batch, hkv, nkv, d, v_sb, v_sh, v_sn, BB_BLOCK_N) ||
+      !make_bhnd_map(&tm_k, k, batch, hkv, nkv, d, k_sb, k_sh, k_sn, kv_rows) ||
+      !make_bhnd_map(&tm_v, v, batch, hkv, nkv, d, v_sb, v_sh, v_sn, kv_rows) ||
       !make_bhnd_map(&tm_do, dout, batch, hq, nq, d, do_sb, do_sh, do_sn, BB_BLOCK_M)) {
     return static_cast<int>(cudaErrorNotSupported);
   }
@@ -151,8 +161,9 @@ int fa_bwd_split_sm90(const void* q, const void* k, const void* v, const void* d
   p.cap_log2 = softcap * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      d <= 64 ? split_dispatch<64>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, batch, s)
-              : split_dispatch<128>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, batch, s);
+      box_d == 64    ? split_dispatch<64>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, batch, s)
+      : box_d == 128 ? split_dispatch<128>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, batch, s)
+                     : split_dispatch<BW_D>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, batch, s);
   return static_cast<int>(e);
 }
 

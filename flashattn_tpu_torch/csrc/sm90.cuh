@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels (K9 in
 // gemm.cu, K1's bias and dense routes in fwd_sm90_tile.cuh, the ring kernels
 // K7 / K8 in ring_fwd.cu / ring_bwd.cu, K3 and K5 + K6's bias route in
-// bwd_sm90_tile.cuh, the f32 routes in flash_fwd_f32.cu / flash_bwd_f32.cu):
+// bwd_sm90_tile.cuh, K3 and the split route at D 256 in bwd_sm90_wide.cuh,
+// the f32 routes in flash_fwd_f32.cu / flash_bwd_f32.cu):
 // mbarriers, TMA tile loads, bulk copies and bulk reductions, cp.async
 // completion on an mbarrier, named barriers, the wgmma shared-memory
 // descriptor of the 128-byte swizzle and the wgmma products the attention
@@ -93,6 +94,21 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint3
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
          static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
+}
+
+// A value the compiler cannot see through, so that what is derived from it
+// is computed where it is used: the wgmma descriptors made from one by adding
+// 16-byte offsets (to the start address, bits 0-13), which the compiler would
+// otherwise hoist out of the Q-tile loop, two registers each (flash_bwd_f32.cu,
+// bwd_sm90_wide.cuh).
+__device__ __forceinline__ uint64_t opaque(uint64_t desc) {
+  asm volatile("" : "+l"(desc));
+  return desc;
+}
+
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
 // Keeps the compiler from moving accesses of registers across the
@@ -264,6 +280,35 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, K-major) B (16 x 128, N-major: trans-b 1),
+// both from shared memory (bwd_sm90_wide.cuh's dV += P^T dO and dK += dS^T Q).
+__device__ __forceinline__ void wgmma_ss_kn_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                     uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "},"
+      " %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 template <int D>

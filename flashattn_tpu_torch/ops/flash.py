@@ -13,12 +13,14 @@ ported: a tiny-Nq non-causal GQA call without a window folds each KV head's
 query heads into the Q rows, so the cache is read once. The arguments keep
 the JAX signature; those the port's kernels do not take yet raise
 ``NotImplementedError`` naming their ROADMAP item, on every device: the bias
-together with segment ids, the ``block_sizes`` option, and q / kv offsets
-that change the result (a causal mask or a window, ``q_offset !=
-kv_offset``) with a bias or above head dim 128. ``compute_dtype`` picks the
+together with segment ids, and q / kv offsets that change the result (a
+causal mask or a window, ``q_offset != kv_offset``) with a bias or above
+head dim 128. ``compute_dtype`` picks the
 kernels' dtype as in the JAX package (bf16 or f32; f32 inputs run the f32
 kernels on the card), and a head dim that is not a multiple of 8 is
-zero-padded to one, as the JAX function pads D. The
+zero-padded to one, as the JAX function pads D. :class:`BlockSizes` and the
+``block_sizes`` option keep the JAX package's class and checks; the Hopper
+kernels' tiles are their design, so the option leaves the result as it is. The
 offsets of sequence-parallel callers (``parallel/``) run on K1's dense route
 and, in the backward, K3 or the split route, whose band they shift. The TPU routing tiers
 (unaligned/causal decompositions, macro/resident routing) and K3's VMEM bound
@@ -29,11 +31,47 @@ covers every shape the JAX tiers split up.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
 
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
+NUM_LANES = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSizes:
+    """The JAX package's kernel tile sizes (flashattn_tpu/ops/flash.py:36-57),
+    with its defaults and checks: each ``block_q*`` a multiple of 16, each
+    ``block_k*`` a multiple of 128 (``ValueError`` otherwise).
+
+    The port's Hopper kernels keep their own tiles, which their shared memory
+    and registers fix: K1's dense, bias and f32 routes take 128 Q rows a CTA
+    (against 64-key KV tiles), its decode route 16-row Q tiles; K3 and the
+    split route 128 KV rows a CTA against 64-row Q tiles, their D 256 form 64
+    keys against 64-row Q tiles, the f32 backward 64 keys against 32 rows; the
+    bias route's backward 128 KV rows against 64 rows. ``flash_attention``
+    takes a ``BlockSizes`` and computes the same function with or without
+    one."""
+
+    block_q: int = 256
+    block_k: int = 256
+    block_q_dkv: int = 128
+    block_k_dkv: int = 256
+    block_q_dq: int = 256
+    block_k_dq: int = 128
+
+    def __post_init__(self):
+        for f in dataclasses.fields(self):
+            val = getattr(self, f.name)
+            if f.name.startswith("block_q"):
+                if val % 16 != 0:
+                    raise ValueError(f"{f.name}={val} must be a multiple of 16")
+            elif val % NUM_LANES != 0:
+                raise ValueError(f"{f.name}={val} must be a multiple of {NUM_LANES}")
+
 
 
 def _dispatch_dtype(dtype: torch.dtype, compute_dtype=None) -> torch.dtype:
@@ -112,16 +150,11 @@ def _normalize_segment_ids(segment_ids, q, k):
     return tuple(ids.to(device=q.device, dtype=torch.int32) for ids in (seg_q, seg_kv))
 
 
-def _reject_unported(*, bias, segment_ids, block_sizes):
-    unported = {
-        "bias together with segment_ids": (bias is not None and segment_ids is not None,
-                                           _ROADMAP_K1),
-        "block_sizes": (block_sizes is not None, _ROADMAP_K1),
-    }
-    for name, (given, item) in unported.items():
-        if given:
-            raise NotImplementedError(
-                f"flash_attention: {name} is not ported to the CUDA K1 yet ({item})")
+def _reject_unported(*, bias, segment_ids):
+    if bias is not None and segment_ids is not None:
+        raise NotImplementedError(
+            "flash_attention: bias together with segment_ids is not ported to the CUDA K1 yet "
+            f"({_ROADMAP_K1})")
 
 
 def _reduce_dbias(dbias, bias):
@@ -137,15 +170,18 @@ class _FlashCore(torch.autograd.Function):
     """K1 forward saving ``(q, k, v, o, lse)``, the segment ids, the bias, the
     window, the softcap and the offsets; the backward routes as the JAX
     ``_flash_core_bwd``: K3 when there are no segment ids, no softcap and no
-    bias (its fused branch, with the window), else its two-kernel branch,
-    K5 + K6: with a bias (``flash_bwd.bias_bwd_route``) one kernel that
-    computes both with the bias and, if any, the softcap; without a bias
-    (``flash_bwd.split_sm90_route``, bf16 or f32) one kernel that computes
-    both with the segment ids and / or the softcap; else (what no route
-    takes: D above 128, f32 with a bias) K5 then K6, which raise on a CUDA
-    tensor. dbias is written only when the bias
-    needs a gradient; it comes back reduced over the bias's broadcast dims,
-    in the bias's dtype."""
+    bias (its fused branch, with the window: on the card bf16 at every D up
+    to 256, its D 256 form above 128, and f32 up to 128), else its
+    two-kernel branch, K5 + K6: with a bias (``flash_bwd.bias_bwd_route``,
+    bf16 up to D 128) one kernel that computes both with the bias and, if
+    any, the softcap; without a bias (``flash_bwd.split_sm90_route``, bf16
+    up to D 256 -- the D 256 form above 128 -- or f32 up to 128) one kernel
+    that computes both with the segment ids and / or the softcap; else (what
+    no route takes: a bias above D 128, f32 with a bias) K5 then K6, which
+    raise on a CUDA tensor naming their ROADMAP item; K3 and the split route
+    raise so for f32 above D 128 and for D above 256. dbias is written only
+    when the bias needs a gradient; it comes back reduced over the bias's
+    broadcast dims, in the bias's dtype."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seg_q, seg_kv, scale, kv_valid_len, causal, window,
@@ -227,14 +263,17 @@ class _FlashForwardOnly(torch.autograd.Function):
 
 
 def _forward(q, k, v, *, scale, layout, causal, core, bias, segment_ids, window,
-             logit_softcap, q_offset, kv_offset, compute_dtype=None, fold=False, **unported):
+             logit_softcap, q_offset, kv_offset, compute_dtype=None, fold=False,
+             block_sizes=None):
     q, k, v = _to_bhnd(q, layout), _to_bhnd(k, layout), _to_bhnd(v, layout)
     _validate(q, k, v, bias)
     # As the JAX function normalises them (flash.py:1083-1095, 1158-1171);
     # offsets that leave the result as it is become (0, 0).
     window = None if window is None else tuple(int(w) for w in window)
     offsets = flash_fwd.band_offsets(causal, window, q_offset, kv_offset)
-    _reject_unported(bias=bias, segment_ids=segment_ids, **unported)
+    _reject_unported(bias=bias, segment_ids=segment_ids)
+    if block_sizes is not None and not isinstance(block_sizes, BlockSizes):
+        raise TypeError(f"block_sizes must be a BlockSizes, got {type(block_sizes).__name__}")
     softcap = None if logit_softcap is None else float(logit_softcap)
     in_dtype = q.dtype
     if scale is None:
@@ -248,19 +287,20 @@ def _forward(q, k, v, *, scale, layout, causal, core, bias, segment_ids, window,
     # the kernel's h // rep mapping. Sound only when nothing depends on a
     # row's sequence position: non-causal, no window or segments, and a bias
     # without a head dim (e.g. a [1, 1, 1, Nk] key mask), tiled head-major when
-    # it has rows. The softcap passes through. Under the JAX condition, so
-    # both fold the same calls.
+    # it has rows. The softcap passes through. Under the JAX condition, less
+    # its ``block_sizes is None``: the Hopper kernels take no tile sizes, so
+    # a BlockSizes changes nothing here.
     B, Hq, Nq, D = q.shape
     rep = Hq // k.shape[1]
     if (fold and rep > 1 and not causal and window is None
             and (bias is None or bias.shape[1] == 1) and segment_ids is None
-            and Nq * rep <= 32 and unported["block_sizes"] is None):
+            and Nq * rep <= 32):
         if bias is not None and bias.shape[2] > 1:
             bias = bias.repeat(1, 1, rep, 1)
         o, lse = _forward(
             q.reshape(B, k.shape[1], rep * Nq, D), k, v, scale=scale, layout="BHND",
             causal=False, core=core, bias=bias, segment_ids=None, window=None,
-            logit_softcap=softcap, q_offset=0, kv_offset=0, **unported)
+            logit_softcap=softcap, q_offset=0, kv_offset=0)
         return _from_bhnd(o.reshape(B, Hq, Nq, D).to(in_dtype), layout), lse
     seg_q, seg_kv = _normalize_segment_ids(segment_ids, q, k)
     # The kernels take head dims that are multiples of 8 (flash.py:151-157
@@ -338,17 +378,20 @@ def flash_attention(
         output and the gradients come back in the input dtype.
         ``compute_dtype=torch.float32`` is the accurate route for fp16
         inputs.
-      block_sizes: the JAX package's tile option; not ported yet, raises
-        ``NotImplementedError`` when given.
+      block_sizes: the JAX package's tile option, a :class:`BlockSizes`
+        (``TypeError`` otherwise). The Hopper kernels' tiles are their design
+        (:class:`BlockSizes` names them per route), so the result is the
+        same function, and the call runs as it would without one.
     Returns:
       Attention output, same shape/layout/dtype as ``q``. CPU tensors run the
       plain PyTorch versions, CUDA tensors the kernels in the compute dtype
       (bf16 or f32; fp16 is cast to bf16 and back unless ``compute_dtype``
       says f32): K1 forward; K3 backward, or K5 + K6 (one launch) with
-      segment ids, a softcap or a bias (head dims up to 128; f32 takes no
-      bias yet). A head dim that is not a multiple of 8 runs zero-padded to
-      one. Tiny-Nq non-causal GQA calls without a window (``Nq·Hq/Hkv <=
-      32``) run folded, one KV head's query heads as Q rows.
+      segment ids, a softcap or a bias (bf16 head dims up to 256 without a
+      bias, up to 128 with one; f32 up to 128 and without a bias). A head
+      dim that is not a multiple of 8 runs zero-padded to one. Tiny-Nq
+      non-causal GQA calls without a window (``Nq·Hq/Hkv <= 32``) run
+      folded, one KV head's query heads as Q rows.
     """
     o, _ = _forward(
         q, k, v, scale=scale, layout=layout, causal=causal, core=_FlashCore, bias=bias,

@@ -11,11 +11,12 @@ never reaches a plain version:
 
 * without a bias, with segment ids and / or a softcap
   (:func:`split_sm90_route`): :func:`split_bwd`, the TMA + wgmma body of K3
-  with both options (``csrc/flash_bwd_split_sm90.cu``) in bf16, the f32 body
-  in f32, returns dQ and dK / dV per *query* head;
+  with both options (``csrc/flash_bwd_split_sm90.cu``; its D 256 form above
+  D 128, ``csrc/bwd_sm90_wide.cuh``) in bf16, the f32 body in f32, returns dQ
+  and dK / dV per *query* head;
   :func:`split_bwd_reference` is its plain version;
 * with a bias (:func:`bias_bwd_route`, with or without the softcap, at every
-  head dim up to 128, the GQA decode fold's calls too): :func:`bias_bwd`
+  head dim up to ``BIAS_MAX_HEAD_DIM``, the GQA decode fold's calls too): :func:`bias_bwd`
   (``csrc/bwd_bias_sm90.cu``) returns dQ, dK / dV per *KV* head and, on
   request, dbias; :func:`bias_bwd_reference` is its plain version.
 
@@ -53,7 +54,14 @@ from flashattn_tpu_torch.ops.flash_fwd import (
 from flashattn_tpu_torch.ops.oracle import _expand_kv, _full_f32_matmul
 from flashattn_tpu_torch.utils import native
 
-MAX_HEAD_DIM = 128
+# Head dims of the CUDA backward routes: K3 and the split route take bf16 up
+# to MAX_HEAD_DIM (D 136-256 in the D 256 form, csrc/bwd_sm90_wide.cuh); the
+# bias route and the f32 body stop at 128.
+MAX_HEAD_DIM = 256
+BIAS_MAX_HEAD_DIM = 128
+F32_MAX_HEAD_DIM = 128
+_ROADMAP_BIAS_WIDE = "ROADMAP queue 2, functions item 6: the bias route above D 128"
+_ROADMAP_F32_WIDE = "ROADMAP queue 2, f32 rows item 5: above D 128"
 
 
 def recompute_p_ds(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -152,21 +160,42 @@ def check_args(q, k, v, do, lse, delta, kv_valid_len, segment_ids=None) -> int:
 
 
 def check_kernel_args(q, name: str) -> None:
-    """Raise for what the CUDA backward kernels (K3, K5, K6) do not take: a
-    dtype other than bf16 and f32 (the bias route takes no f32 yet:
-    :func:`bias_bwd` refuses it), D not a multiple of 8 or above
-    ``MAX_HEAD_DIM``, a grid past the CUDA limits."""
-    B, Hq, _, D = q.shape
+    """Raise for a call that no CUDA backward kernel (K3, K5, K6) takes: a
+    tensor off the card, then :func:`check_kernel_dims`."""
     if q.device.type != "cuda":
         raise NotImplementedError(f"no {name} kernel for device {q.device}")
+    check_kernel_dims(q, name)
+
+
+def check_kernel_dims(q, name: str) -> None:
+    """Raise for what the CUDA backward kernels do not take, whatever the
+    device: a dtype other than bf16 and f32 (the bias route takes no f32 yet:
+    :func:`bias_bwd` refuses it), D not a multiple of 8 or above
+    ``MAX_HEAD_DIM``, f32 above ``F32_MAX_HEAD_DIM``, a grid past the CUDA
+    limits. A bias above ``BIAS_MAX_HEAD_DIM`` is the bias route's refusal
+    (:func:`bias_bwd`, :func:`dkv`, :func:`dq`)."""
+    B, Hq, _, D = q.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"the CUDA {name} takes bfloat16 or float32, got {q.dtype}")
     if D % 8 or D > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"the CUDA {name} takes head dims that are multiples of 8 up to {MAX_HEAD_DIM}, "
-            f"got D={D} (ROADMAP queue 2, backward head dims above 128)")
+            f"got D={D} (ROADMAP queue 2, K1 options: head dims above 256)")
+    if q.dtype == torch.float32 and D > F32_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"the CUDA {name} takes float32 at head dims up to {F32_MAX_HEAD_DIM}, got D={D} "
+            f"({_ROADMAP_F32_WIDE})")
     if B > 65535 or Hq > 65535:
         raise ValueError(f"B={B} and Hq={Hq} must each be at most 65535 (CUDA grid limit)")
+
+
+def _refuse_wide_bias(q, name: str) -> None:
+    """Raise for a bias above ``BIAS_MAX_HEAD_DIM``: no CUDA backward takes
+    one (the bias route stops at 128)."""
+    if q.shape[-1] > BIAS_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"the CUDA {name} takes a bias at head dims up to {BIAS_MAX_HEAD_DIM}, got "
+            f"D={q.shape[-1]} ({_ROADMAP_BIAS_WIDE})")
 
 
 def _split_kwargs(q, k, v, do, lse, delta, *, scale, causal, kv_valid_len, segment_ids,
@@ -185,8 +214,11 @@ def _split_kwargs(q, k, v, do, lse, delta, *, scale, causal, kv_valid_len, segme
 def _no_split_kernel(q, name: str, *, bias) -> None:
     """Raise for a CUDA call of :func:`dkv` / :func:`dq`: one Hopper launch
     computes K5 and K6 together, :func:`bias_bwd` with a bias and
-    :func:`split_bwd` (or K3) without."""
+    :func:`split_bwd` (or K3) without; a bias above ``BIAS_MAX_HEAD_DIM``
+    has no route yet and names its ROADMAP item."""
     check_kernel_args(q, name)
+    if bias is not None:
+        _refuse_wide_bias(q, name)
     route = ("flash_bwd.bias_bwd (bias_bwd_route)" if bias is not None else
              "flash_bwd.split_bwd (split_sm90_route: segment ids or a softcap; K3 otherwise)")
     raise NotImplementedError(
@@ -236,13 +268,13 @@ def dq(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
 def bias_bwd_route(*, head_dim: int, bias, dtype, segment_ids, window) -> bool:
     """Whether a backward goes to the Hopper bias kernel
     (``csrc/bwd_bias_sm90.cu``), K5 and K6 in one launch: every call with a
-    bias in bf16 at a head dim up to ``MAX_HEAD_DIM`` (a multiple of 8, as
+    bias in bf16 at a head dim up to ``BIAS_MAX_HEAD_DIM`` (a multiple of 8, as
     every CUDA backward's) without segment ids or a window (K1 takes a bias
     with neither) -- causal or not, with or without the softcap, the GQA
     decode fold's calls too, whichever K1 route the forward took.
     :func:`bias_bwd` decides the device: a CPU tensor takes the plain
     version."""
-    return (bias is not None and dtype == torch.bfloat16 and head_dim <= MAX_HEAD_DIM
+    return (bias is not None and dtype == torch.bfloat16 and head_dim <= BIAS_MAX_HEAD_DIM
             and segment_ids is None and kernel_window(check_window(window)) == (-1, -1))
 
 
@@ -273,6 +305,10 @@ def bias_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = 
 # of one CTA, the tiles of the key ids' ranges).
 SM90_BWD_Q_TILE = 64
 SM90_BWD_KV_TILE = 128
+# The head dims above which K3's and the split route's C entries launch their
+# D 256 form (csrc/bwd_sm90_wide.cuh: 64 keys a CTA; it reads the 128-key
+# tiles' id ranges all the same).
+SM90_BWD_NARROW_MAX = 128
 
 
 def _launch_bias_bwd(lib, q, k, v, do, lse, delta, bias, bias_strides, dq_, dk, dv, dbias, *,
@@ -313,7 +349,7 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     ``softcap`` the forward's cap or None. CPU tensors take
     :func:`bias_bwd_reference`. CUDA tensors launch the Hopper kernel, which
     takes what :func:`bias_bwd_route` sends it (bf16, ``D % 8 == 0``, ``D <=
-    128``); anything else raises, as do offsets that change the result
+    BIAS_MAX_HEAD_DIM``); anything else raises, as do offsets that change the result
     (``flash_fwd.offsets_refusal``), on every device: K1's bias route takes
     none. ``bias_bwd.launches`` counts kernel launches,
     ``bias_bwd.launches_dbias`` those that wrote dbias.
@@ -332,6 +368,7 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     if q.device.type == "cpu":
         return bias_bwd_reference(q, k, v, do, lse, delta, want_dbias=want_dbias, **kw)
     check_kernel_args(q, "K5 + K6 bias route")
+    _refuse_wide_bias(q, "K5 + K6 bias route")
     if q.dtype == torch.float32:
         raise NotImplementedError(
             "the CUDA K5 + K6 bias route takes no float32 yet (ROADMAP queue 2, f32 rows: the "
@@ -375,14 +412,16 @@ SPLIT_MAX_Q_TILES = 4096
 def split_sm90_route(*, head_dim: int, bias, dtype, segment_ids, softcap) -> bool:
     """Whether a backward that K3 does not take (segment ids, a softcap or a
     bias) goes to the one launch of :func:`split_bwd` in place of K5 then
-    K6: bf16 (the Hopper kernel) or f32 (the f32 body), no bias, a head dim
-    up to ``MAX_HEAD_DIM`` (a multiple of 8, as every CUDA backward's), and
-    segment ids or a softcap -- with or without causal, a window, offsets,
-    GQA or a tail. The calls with a bias take :func:`bias_bwd`.
+    K6: bf16 (the Hopper kernel, its D 256 form above D 128) at a head dim up
+    to ``MAX_HEAD_DIM`` or f32 (the f32 body) up to ``F32_MAX_HEAD_DIM`` (a
+    multiple of 8, as every CUDA backward's), no bias, and segment ids or a
+    softcap -- with or without causal, a window, offsets, GQA or a tail. The
+    calls with a bias take :func:`bias_bwd`.
     :func:`split_bwd` decides the device: a CPU tensor takes the plain
     version."""
+    limit = F32_MAX_HEAD_DIM if dtype == torch.float32 else MAX_HEAD_DIM
     return (bias is None and dtype in (torch.bfloat16, torch.float32)
-            and head_dim <= MAX_HEAD_DIM and (segment_ids is not None or softcap is not None))
+            and head_dim <= limit and (segment_ids is not None or softcap is not None))
 
 
 def split_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -432,11 +471,13 @@ def split_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     writing zero dK / dV); ``segment_ids`` or ``softcap`` (or both) required -- the call with neither is K3's
     (``flash_bwd_fused.bwd``). CPU tensors take :func:`split_bwd_reference`.
     CUDA tensors launch the Hopper kernel, which takes bf16 with ``D % 8 ==
-    0``, ``D <= 128`` and, with segment ids, ``Nq <= 64 · SPLIT_MAX_Q_TILES``,
-    or, on f32, the f32 body (:func:`_f32_bwd_launch`); anything else raises. dQ is
+    0``, ``D <= 256`` (its D 256 form above 128) and, with segment ids, ``Nq
+    <= 64 · SPLIT_MAX_Q_TILES``, or, on f32 up to D 128, the f32 body
+    (:func:`_f32_bwd_launch`); anything else raises. dQ is
     summed over the KV tiles by the card's L2 (one bulk reduction per tile),
     so its last bits may differ from run to run.
-    ``split_bwd.launches`` counts the route's launches, on either kernel.
+    ``split_bwd.launches`` counts the route's launches, on either kernel,
+    ``split_bwd.launches_d256`` those of its D 256 form (bf16 above D 128).
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len, segment_ids)
     window, softcap = check_window(window), check_softcap(softcap)
@@ -477,10 +518,12 @@ def split_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
                            q_offset=q_offset, kv_offset=kv_offset)
     native.check(rc, "flash_bwd_split_sm90 kernel launch")
     split_bwd.launches += 1
+    split_bwd.launches_d256 += int(D > SM90_BWD_NARROW_MAX)
     return dq_, dk, dv
 
 
 split_bwd.launches = 0
+split_bwd.launches_d256 = 0
 
 
 # The f32 body's Q tile (query rows per step, the LSE / Delta rows and, with

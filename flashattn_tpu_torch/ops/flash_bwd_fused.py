@@ -5,7 +5,8 @@ and, with ``causal`` or a ``window``, K4 (``_bwd_causal_resident_kernel`` and
 ``_bwd_macro_windowed``, the banded whole-sequence routes), for no bias, KV
 tail, GQA. Soft-capped gradients, segment ids and a bias take K5 + K6 (or,
 after K1's bias route, its backward), as in the JAX package. The kernel is the Hopper TMA + wgmma
-backward of ``csrc/flash_bwd_sm90.cu`` (body ``csrc/bwd_sm90_tile.cuh``);
+backward of ``csrc/flash_bwd_sm90.cu`` (body ``csrc/bwd_sm90_tile.cuh``, and
+above D 128 its D 256 form ``csrc/bwd_sm90_wide.cuh``);
 its header says what bounds it; on f32 inputs K3 is the f32 body
 ``csrc/flash_bwd_f32.cu`` (``flash_bwd._f32_bwd_launch``, shared with the
 split route). :func:`bwd` launches it for CUDA tensors and
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from flashattn_tpu_torch.ops.flash_bwd import (
+    SM90_BWD_NARROW_MAX,
     SM90_BWD_Q_TILE,
     _f32_bwd_launch,
     _padded_rows,
@@ -85,10 +87,11 @@ def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     ``[B,Hq,Nq]`` f32; ``window`` and the offsets as in ``flash_fwd.fwd`` (a
     KV tile that no row reaches writes zero dK / dV). CPU tensors take
     :func:`bwd_reference`. CUDA tensors launch the Hopper kernel, which takes
-    bf16 with ``D % 8 == 0`` and ``D <= 128``, or on f32 the f32 body
-    (``flash_bwd._f32_bwd_launch``); anything else raises. ``bwd.launches`` counts
+    bf16 with ``D % 8 == 0`` and ``D <= 256`` (its D 256 form above 128), or
+    on f32 up to D 128 the f32 body (``flash_bwd._f32_bwd_launch``); anything
+    else raises. ``bwd.launches`` counts
     K3 launches on either kernel, ``bwd.launches_sm90`` those of the Hopper
-    kernel (every bf16 one).
+    kernel (every bf16 one), ``bwd.launches_d256`` those of its D 256 form.
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len)
     window = check_window(window)
@@ -123,8 +126,10 @@ def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     native.check(rc, "flash_bwd_sm90 kernel launch")
     bwd.launches += 1
     bwd.launches_sm90 += 1
+    bwd.launches_d256 += int(D > SM90_BWD_NARROW_MAX)
     return dq, dk, dv
 
 
 bwd.launches = 0
 bwd.launches_sm90 = 0
+bwd.launches_d256 = 0

@@ -164,12 +164,6 @@ def test_other_compute_dtypes_raise(fn, compute):
         getattr(flashattn_tpu_torch, fn)(q, k, v, compute_dtype=compute)
 
 
-def test_block_sizes_still_raises():
-    q, k, v = make_qkv(37, 1, 2, 16, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flashattn_tpu_torch.flash_attention(q, k, v, block_sizes=object())
-
-
 # ---------------------------------------------------------------------------
 # The route functions.
 

@@ -83,12 +83,12 @@ def test_flash_attention_low_precision_vs_f32_oracle(dtype, D, Nk, Hkv, layout):
 
 _SEG = {"segment_ids": torch.zeros(1, 64, dtype=torch.int32)}
 # The JAX options, each raising until its kernel option is ported. The bias,
-# the window, the softcap and the q / kv offsets are ported in both
-# directions (the window, the softcap and the offsets also with segment ids):
-# their cases hold the output and the gradient against the oracle. Offsets
-# with a bias still raise.
+# the window, the softcap, the q / kv offsets and block_sizes are ported in
+# both directions (the window, the softcap and the offsets also with segment
+# ids): their cases hold the output and the gradient against the oracle.
+# Offsets with a bias still raise.
 PORTED = {"bias", "window", "logit_softcap", "segment_ids+window", "segment_ids+logit_softcap",
-          "q_offset", "kv_offset", "segment_ids+q_offset", "compute_dtype"}
+          "q_offset", "kv_offset", "segment_ids+q_offset", "compute_dtype", "block_sizes"}
 UNPORTED = {
     "bias": {"bias": torch.zeros(1, 1, 64, 64)},
     "window": {"window": (8, 8)},
@@ -96,7 +96,7 @@ UNPORTED = {
     "q_offset": {"causal": True, "q_offset": 3},
     "kv_offset": {"causal": True, "kv_offset": 3},
     "bias+q_offset": {"bias": torch.zeros(1, 1, 64, 64), "causal": True, "q_offset": 3},
-    "block_sizes": {"block_sizes": object()},
+    "block_sizes": {"block_sizes": flashattn_tpu_torch.BlockSizes(block_q=64, block_k=128)},
     "compute_dtype": {"compute_dtype": torch.float32},
     # segment ids are ported; combined with an unported option they still raise
     "segment_ids+bias": {**_SEG, "bias": torch.zeros(1, 1, 64, 64)},
@@ -109,8 +109,9 @@ UNPORTED = {
 def _oracle_kw(kw):
     """The oracle's spelling of flash_attention's options: a (q_ids, kv_ids)
     tuple for a single segment-id tensor; no ``compute_dtype`` (the oracle
-    computes in f32, the dtype these inputs ask for)."""
-    kw = {n: x for n, x in kw.items() if n != "compute_dtype"}
+    computes in f32, the dtype these inputs ask for) and no ``block_sizes``
+    (the same function at any tiles)."""
+    kw = {n: x for n, x in kw.items() if n not in ("compute_dtype", "block_sizes")}
     seg = kw.get("segment_ids")
     return kw if seg is None else {**kw, "segment_ids": (seg, seg)}
 

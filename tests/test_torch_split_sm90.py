@@ -47,20 +47,22 @@ def _route(head_dim=128, bias=None, dtype=torch.bfloat16, segment_ids=(IDS, IDS)
 
 # The backwards it takes: bf16 or f32 without a bias, segment ids and / or a
 # softcap, at the LM's D 128 and the head dims run in a wider box (8, 40,
-# 96); causal, a window and the tails are not its test (the kernel takes
-# every one).
+# 96; in bf16 136 and 160, in the D 256 form); causal, a window and the
+# tails are not its test (the kernel takes every one).
 ROUTE_TAKES = {"packed D 128": {}, "softcap": dict(segment_ids=None, softcap=50.0),
                "ids + softcap": dict(softcap=5.0), "D 40": dict(head_dim=40),
                "D 8": dict(head_dim=8), "D 96 softcap": dict(head_dim=96, segment_ids=None,
                                                             softcap=30.0),
-               "f32": dict(dtype=torch.float32)}
+               "f32": dict(dtype=torch.float32),
+               "D 136": dict(head_dim=136), "D 160 softcap": dict(head_dim=160, softcap=5.0)}
 # Those it refuses: K3's (neither option), the bias calls (the bias route),
-# head dims above 128, fp16.
+# head dims above 256, f32 above 128, fp16.
 ROUTE_REFUSES = {"neither": dict(segment_ids=None),
                  "bias + softcap": dict(segment_ids=None, softcap=50.0,
                                         bias=torch.empty((1, 1, 1, 8), device="meta")),
                  "bias": dict(bias=torch.empty((1, 1, 1, 8), device="meta")),
-                 "D 136": dict(head_dim=136), "D 160 softcap": dict(head_dim=160, softcap=5.0),
+                 "D 264": dict(head_dim=264), "f32 D 136": dict(head_dim=136,
+                                                                dtype=torch.float32),
                  "fp16": dict(dtype=torch.float16)}
 
 
