@@ -88,14 +88,18 @@ its kernels:
   ``compute_dtype=float32``; the LM of bench_lm.py at full width in f32
   (gates fused vs xla, 4 AdamW steps, unpacked and packed) with exact
   launches on the f32 kernels only;
-* head dims above 128 in the backward: K3's and the split route's D 256
-  form (TMA + wgmma, 64 keys a CTA, the two consumers splitting D; with
-  HGMMA and UTMALDG and no mma.sync in their SASS) against their plain
-  versions at D 256 / 192 / 136, ragged, GQA, causal, windows, every ids
-  kind, the cap, ids with the cap and K3 with offsets; then the LM of
-  bench_lm.py with 8 query and 4 KV heads of 256 (Gemma 2's attention
-  geometry) training unpacked, with logit_softcap 50 and packed, each with
-  the fused-vs-xla gates and exact launches on the D 256 forms;
+* head dims above 128: K1's dense route's D 256 form (TMA + wgmma, two
+  (K, V) stages; with HGMMA and UTMALDG and no mma.sync in its SASS) at D
+  160 / 136 / 256 with the cap, windows, ids, q / kv offsets, dead rows and
+  one query row; K3's and the split route's D 256 form (TMA + wgmma, 64 keys
+  a CTA, the two consumers splitting D; with HGMMA and UTMALDG and no
+  mma.sync in their SASS) against their plain versions at D 256 / 192 /
+  136, ragged, GQA, causal, windows, every ids kind, the cap, ids with the
+  cap and K3 with offsets; then the LM of bench_lm.py with 8 query and 4 KV
+  heads of 256 (Gemma 2's attention geometry) training unpacked, with
+  logit_softcap 50 and packed, each with the fused-vs-xla gates and exact
+  launches on the D 256 forms, and its contiguous sharded step on a (1, 1,
+  4) virtual mesh (K1 and K3 with q / kv offsets at D 256);
 * the port's entry points (``flashattn_tpu_torch/entry.py``): ``entry()``'s
   U-Net denoise step and ``dryrun_multichip(8)`` (the f32 LM on a virtual
   8-rank mesh, contiguous, packed and two slices).
@@ -300,6 +304,46 @@ def kernels_ms(fn, reps: int = 20) -> float:
     return total / 1e3
 
 
+def host_ms(fn, *, reps: int = 200, trials: int = 5) -> float:
+    """The host's own ms per call of ``fn``: median over ``trials`` of the
+    host clock over ``reps`` calls enqueued back to back, the card
+    synchronized before and after the clock but not within it. Where it
+    exceeds the kernel's device time, cuda_ms reads the host's time."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(trials):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / reps)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def host_profile(fn, *, reps: int = 200, top: int = 8) -> list:
+    """cProfile of ``reps`` calls of ``fn`` (after a warm-up): the ``top``
+    functions by their own host time, as (name, calls, own ms a call of
+    ``fn``). cProfile's own overhead inflates each entry; their order is the
+    reading."""
+    import cProfile
+    import pstats
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(reps):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    rows = [(f"{'/'.join(f.split(os.sep)[-2:])}:{line}({name})", calls, tt * 1e3 / reps)
+            for (f, line, name), (_, calls, tt, _, _) in pstats.Stats(prof).stats.items()]
+    return sorted(rows, key=lambda r: -r[2])[:top]
+
+
 def flex_ms(q, k, v, *, scale: float, do=None, score_mod=None, mask_mod=None) -> float:
     """The library yardstick where no SDPA call computes the function (a
     logit softcap, segment ids): one call of ``flex_attention`` compiled by
@@ -441,7 +485,7 @@ def instantiation_name(mangled: str) -> str:
     arguments of a mangled instantiation name from ptxas, e.g. ``K1 f32
     segments fwd_f32_kernel<128, 1, 0>``, ``bwd f32 softcap
     bwd_f32_kernel<64, 0, 1>``, ``K1 int8 bias
-    fwd_kernel<128, 0, 1, 1>``, ``K1 decode fp8 bias decode_kernel<128, 2, 1,
+    fwd_kernel<128, 1, 1>``, ``K1 decode fp8 bias decode_kernel<128, 2, 1,
     0>``, ``K1 bias sm90 softcap fwd_bias_sm90_kernel<128, 1>``, ``K1 dense
     sm90 segments fwd_dense_sm90_kernel<128, 1, 0>``, ``K3 sm90
     bwd_sm90_kernel<64>``, ``bias bwd sm90 softcap
@@ -530,7 +574,9 @@ def instantiation_name(mangled: str) -> str:
     kind, family = m.group(1), m.group(2) or ""
     args = [int(a) for a in re.findall(r"L[a-z]+(-?\d+)E", m.group(3))]
     label = f"{kind}{family}_kernel<{', '.join(map(str, args))}>"
-    # Template arguments after DP, by kernel: K1 fwd_kernel<DP, SEG, BIAS, KV>,
+    # Template arguments after DP, by kernel: K1 fwd_kernel<DP, BIAS, KV> and
+    # fwd_softcap_kernel<DP> (a bias implied), and in a parent before the
+    # dense route's D 256 form fwd_kernel<DP, SEG, BIAS, KV>,
     # fwd_softcap_kernel<DP, SEG, BIAS>, fwd_window_kernel<DP, SEG, CAP>; K5
     # dkv_kernel<DP>, dkv_softcap_kernel<DP>, dkv_window_kernel<DP, CAP> (and,
     # in a parent that had the mma.sync K3, dkv_kernel<DP, DQ> and
@@ -544,15 +590,21 @@ def instantiation_name(mangled: str) -> str:
               ("dq", "_bias"): ("cap",)}.get((kind, family))
     if kind == "dkv" and family in ("", "_window") and len(args) == 2 + len(params):
         params = ("dq", *params)
+    if kind == "fwd" and family in ("", "_softcap") and len(args) == len(params):
+        params = params[1:]  # no SEG
+    if kind == "fwd" and family == "_softcap" and len(args) == 1:
+        params = ()
     if params is None or len(args) != 1 + len(params):
         return f"unrecognised instantiation {label}"
     a = dict(zip(params, args[1:]))
+    if kind == "fwd" and family == "_softcap" and not params:
+        a["bias"] = 1
     cap = family == "_softcap" or a.get("cap")
     window = family == "_window"
     if kind == "fwd":
         variant = {0: "", 1: " int8", 2: " fp8"}.get(a.get("kv", 0), f" kv{a.get('kv')}")
         return (f"K1{variant}{' softcap' if cap else ''}{' window' if window else ''}"
-                f"{' bias' if a.get('bias') else ''}{' segments' if a['seg'] else ''} {label}")
+                f"{' bias' if a.get('bias') else ''}{' segments' if a.get('seg') else ''} {label}")
     name = "K6" if kind == "dq" else "K3" if a.get("dq") else "K5"
     return (f"{name}{' softcap' if cap else ''}{' window' if window else ''}"
             f"{' bias' if family == '_bias' else ''} {label}")
@@ -605,8 +657,8 @@ def phase_kernel_check() -> dict:
         before = _launches()
         o, lse = flash_fwd.fwd(q, k, v, scale=D ** -0.5)
         torch.cuda.synchronize()
-        # D <= 128: K1's dense route; D 160 keeps fwd_tile.cuh.
-        _routed(f"K1 at {name}", before, K1=1, K1_dense_sm90=int(D <= 128))
+        # K1's dense route; D 160 on its D 256 form.
+        _routed(f"K1 at {name}", before, K1=1, K1_dense_sm90=1, K1_dense_d256=int(D > 128))
         o_want, lse_want = flash_fwd.fwd_reference(q.float(), k.float(), v.float(), scale=D ** -0.5)
         ok_o, msg_o = check_close(o, o_want, o_tol, "O")
         ok_l, msg_l = check_close(lse, lse_want, lse_tol, "LSE")
@@ -734,9 +786,9 @@ def phase_bwd_check() -> dict:
         *args, scale=D ** -0.5, causal=True), reps=5)
     tf = attention_flops(B, Hq, N, N, D, causal=True, mode="bwd") / 1e9
     q, k, v, do = args[:4]
-    # In: q, k, v, dO (bf16), LSE, Delta (f32); out: dQ, and dK/dV per q head (f32).
-    res.update(bound(tensor_bytes(q, k, v, do, *args[4:]) + 4 * (q.numel() + 2 * Hq * N * D),
-                     tf * 1e9))
+    # In: q, k, v, dO (bf16), LSE, Delta (f32); out: dQ, dK, dV as the
+    # function returns them (bf16; dK / dV at Hkv heads).
+    res.update(bound(tensor_bytes(q, k, v, do, *args[4:]) + tensor_bytes(q, k, v), tf * 1e9))
     res["library_ms"] = sdpa_ms(q, k, v, do=do, is_causal=True)
     res["library_call"] = "the backward of scaled_dot_product_attention(is_causal=True)"
     log("kernel", f"lm shape B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal bf16: K3 {res['ms']:.4f} ms "
@@ -869,11 +921,11 @@ def phase_seg_check() -> dict:
     mask = dict(kv_valid_len=N, causal=True, segment_ids=kw["segment_ids"])
     ids = tensor_bytes(*kw["segment_ids"])
     stats = 4 * B * Hq * N  # one f32 per row: LSE or Delta
-    grad = 4 * B * Hq * N * D  # one f32 gradient of q's shape
     res["k1"].update(bound(tensor_bytes(q, k, v, q) + stats + ids,
                            pair_flops(q, k, matmuls=2, **mask)))
-    # In: q, k, v, dO, LSE, Delta, the ids; out: dQ, and dK / dV per q head (f32).
-    res["split"].update(bound(tensor_bytes(q, k, v, do) + 2 * stats + ids + 3 * grad,
+    # In: q, k, v, dO, LSE, Delta, the ids; out: dQ, dK, dV as the function
+    # returns them (bf16; dK / dV at Hkv heads).
+    res["split"].update(bound(tensor_bytes(q, k, v, do) + 2 * stats + ids + tensor_bytes(q, k, v),
                               pair_flops(q, k, matmuls=5, **mask)))
     docs = band_mod(None, kw["segment_ids"][0])
     res["k1"].update(library_ms=flex_ms(q, k, v, scale=kw["scale"], mask_mod=docs),
@@ -1108,6 +1160,7 @@ def _reset_launches() -> None:
     flash_fwd.fwd.launches = flash_bwd_fused.bwd.launches = 0
     flash_fwd.fwd.launches_bias = flash_fwd.fwd.launches_int8 = flash_fwd.fwd.launches_fp8 = 0
     flash_fwd.fwd.launches_bias_sm90 = flash_fwd.fwd.launches_dense_sm90 = 0
+    flash_fwd.fwd.launches_dense_d256 = 0
     flash_bwd_fused.bwd.launches_sm90 = flash_bwd_fused.bwd.launches_d256 = 0
     flash_bwd.split_bwd.launches_d256 = 0
     flash_fwd.fwd.launches_window = flash_fwd.fwd.launches_softcap = 0
@@ -1126,7 +1179,8 @@ def _launches() -> dict:
     (a launch with a window and a softcap counts in both), "K1 bias sm90"
     those of K1's bias route (also counted in "K1 bias"), "K1 dense sm90"
     those of K1's dense route (a window's also in "K1 window", a cap's in
-    "K1 softcap"); "K3" all K3 launches, "K3 sm90" those of its Hopper
+    "K1 softcap"), "K1 dense d256" those of its D 256 form (bf16 above D
+    128); "K3" all K3 launches, "K3 sm90" those of its Hopper
     kernel, "K3 d256" those of its D 256 form (bf16 above D 128); "bias
     bwd" the launches of K5 + K6's bias route (one kernel for both, with a
     bias and, if any, the softcap), "bias bwd dbias" those that wrote dbias;
@@ -1146,6 +1200,7 @@ def _launches() -> dict:
     return {"K1": flash_fwd.fwd.launches, "K1 bias": flash_fwd.fwd.launches_bias,
             "K1 bias sm90": flash_fwd.fwd.launches_bias_sm90,
             "K1 dense sm90": flash_fwd.fwd.launches_dense_sm90,
+            "K1 dense d256": flash_fwd.fwd.launches_dense_d256,
             "K1 int8": flash_fwd.fwd.launches_int8, "K1 fp8": flash_fwd.fwd.launches_fp8,
             "K1 window": flash_fwd.fwd.launches_window,
             "K1 softcap": flash_fwd.fwd.launches_softcap,
@@ -1496,6 +1551,15 @@ def _rel(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
+def _dead_lse() -> float:
+    """A dead row's LSE as the kernels write it: LN2 * MASK_VALUE, two f32
+    constants multiplied in f32 (csrc/common.cuh), one ulp from the plain
+    versions' f64 product."""
+    def f32(x):
+        return torch.tensor(x, dtype=torch.float32)
+    return (f32(0.6931471805599453) * (f32(-0.7) * f32(3.4028234663852886e38))).item()
+
+
 def phase_decode() -> dict:
     """The serving slice at bench_decode's width and depth (821 M params).
 
@@ -1686,14 +1750,14 @@ WINDOW_REL_L2 = 1e-2
 # The softcap at a head dim run in a wider box: (B, Hq, Hkv, N, D, cap), a cap
 # small enough that the grown scores saturate its tanh.
 CAP_D40_CASE = (2, 8, 4, 1300, 40, 5.0)
-# fwd_tile.cuh's bf16 families with a softcap or a bias, which it keeps above
-# D 128 only (fwd_launch_wide; Gemma-2's D 256 with cap 50 runs there), at
-# B1 Hq8 Hkv4 D160, the forward (phase_window_check's _wide_fwd_check; the
-# cases without a bias also through the split route's D 256 form in
-# phase_wide_bwd_check, since no CUDA backward takes a bias above D 128):
-# (tag, Nq, Nk, causal, window, ids kind as _seg_case_ids, bias, softcap,
-# has dead rows) -- the dead rows of a window past the keys, of a segment no
-# key carries and of key padding; cap 5 saturates the grown scores' tanh.
+# Head dims above 128 in the forward at B1 Hq8 Hkv4 D160 (phase_window_check's
+# _wide_fwd_check): without a bias K1's dense route's D 256 form (D 160 in
+# its box), with a bias fwd_tile.cuh (fwd_launch_wide); the cases without a
+# bias also through the split route's D 256 form in phase_wide_bwd_check,
+# since no CUDA backward takes a bias above D 128: (tag, Nq, Nk, causal,
+# window, ids kind as _seg_case_ids, bias, softcap, has dead rows) -- the
+# dead rows of a window past the keys, of a segment no key carries and of
+# key padding; cap 5 saturates the grown scores' tanh.
 WIDE_D = 160
 WIDE_CASES = [("softcap", 1024, 1024, True, None, None, False, 5.0, False),
               ("softcap + window", 1300, 1024, False, (64, -1), None, False, 5.0, True),
@@ -1702,6 +1766,14 @@ WIDE_CASES = [("softcap", 1024, 1024, True, None, None, False, 5.0, False),
                False),
               ("bias", 1024, 1024, False, None, None, True, None, True),
               ("softcap + bias", 1024, 1024, False, None, None, True, 5.0, True)]
+# The D 256 form alone, forward only: (tag, D, Hkv, Nq, Nk, causal, (q_offset,
+# kv_offset), has dead rows) at B1 Hq8 -- a contiguous ring's neighbour chunk
+# pair (q_offset = Nq: every pair live), a pair whose band misses the first
+# 512 rows whole (dead rows), D 136 ragged with GQA 8/1, and one query row.
+WIDE_FWD_CASES = [("ring chunk pair", 256, 4, 1024, 1024, True, (1024, 0), False),
+                  ("band misses rows", 256, 4, 1024, 1024, True, (0, 512), True),
+                  ("ragged GQA 8/1", 136, 1, 1300, 1000, True, (0, 0), False),
+                  ("Nq 1", 256, 4, 1, 1000, False, (0, 0), False)]
 
 
 def _grown(seed, B, Hq, Nq, D, Nk, Hkv):
@@ -1721,11 +1793,12 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     their plain versions on f32 copies of the same bf16 inputs: O within
     FWD_TOL[bf16], LSE within 1e-3 on live rows, dQ/dK/dV (and dbias) within
     BWD_TOL[bf16], each of O, dQ, dK, dV (and dbias) within WINDOW_REL_L2
-    relative L2 (printed with max|ref|), dead rows' O and dQ exactly 0; K1 on
-    its route, one launch counted with its bias, window and cap: at D <= 128
-    the bias route with a bias, else the dense route; above D 128
-    ``fwd_tile.cuh`` (neither). Returns the max errors, dbias, and the (q, k,
-    v, do, lse, delta) the backward took."""
+    relative L2 (printed with max|ref|), dead rows' O and dQ exactly 0 and
+    their LSE exactly ln2 · mask as the kernels form it in f32; K1 on its
+    route, one launch counted with its bias, window and cap: with a bias the
+    bias route at D <= 128, ``fwd_tile.cuh`` above; without, the dense route
+    (its D 256 form above D 128). Returns the max errors, dbias, and the (q,
+    k, v, do, lse, delta) the backward took."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
     from flashattn_tpu_torch.utils.testing import (
@@ -1736,31 +1809,32 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     torch.cuda.synchronize()
     variants = dict(K1_window=int(flash_fwd.kernel_window(kw.get("window")) != (-1, -1)),
                     K1_softcap=int("softcap" in kw))
-    sm90 = int(q.shape[-1] <= 128)
+    wide = int(q.shape[-1] > 128)
     if "bias" in kw:  # K1's bias route (the paths' bias calls are not decode-shaped)
-        _routed(f"K1 at {tag}", before, K1=1, K1_bias=1, K1_bias_sm90=sm90, **variants)
+        _routed(f"K1 at {tag}", before, K1=1, K1_bias=1, K1_bias_sm90=1 - wide, **variants)
     else:  # K1's dense route
-        _routed(f"K1 at {tag}", before, K1=1, K1_dense_sm90=sm90, **variants)
+        _routed(f"K1 at {tag}", before, K1=1, K1_dense_sm90=1, K1_dense_d256=wide, **variants)
     f32 = [x.float() for x in (q, k, v) + (() if do is None else (do,))]
     o_want, lse_want = flash_fwd.fwd_reference(*f32[:3], **kw)
     live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
     ok_o, msg_o = check_close(o, o_want, FWD_TOL[torch.bfloat16], "O")
     ok_l, msg_l = check_close(lse[live], lse_want[live], Tolerance(LSE_ATOL, 0.0), "LSE")
     err_o = (o.float() - o_want).abs().max().item()
-    rel_o = _rel(o.float(), o_want)
     dead = ~live
-    dead_o = bool((o[dead] == 0).all())
+    dead_o = bool((o[dead] == 0).all()) and bool((lse[dead] == _dead_lse()).all())
+    rel_o = _rel(o.float(), o_want) if live.any() else 0.0
     log(phase, f"{tag}: K1 O max_abs_err {err_o:.3e} (budget {O_TOL_NAME}), relative L2 "
                f"{rel_o:.2e} (limit {WINDOW_REL_L2}) / max|ref| {o_want.abs().max().item():.3f}, "
                f"LSE live rows max_abs_err "
-               f"{(lse[live] - lse_want[live]).abs().max().item():.3e} (budget {LSE_ATOL}); "
-               f"dead rows {int(dead.sum())}, their O exactly 0: {dead_o}")
+               f"{(lse[live] - lse_want[live]).abs().max().item() if live.any() else 0:.3e} "
+               f"(budget {LSE_ATOL}); dead rows {int(dead.sum())}, their O exactly 0 and LSE "
+               f"exactly ln2 · mask: {dead_o}")
     if not (ok_o and ok_l):
         fail(f"K1 disagrees with fwd_reference at {tag}: {msg_o}; {msg_l}")
     if not rel_o <= WINDOW_REL_L2:
         fail(f"K1: O relative L2 {rel_o:.3e} above {WINDOW_REL_L2} at {tag}")
     if not dead_o:
-        fail(f"dead rows at {tag}: O not exactly 0")
+        fail(f"dead rows at {tag}: O not exactly 0 or LSE not exactly ln2 · mask")
     if do is None:
         return {"fwd_err": err_o, "dead": int(dead.sum())}
     delta = (f32[3] * o_want.float()).sum(-1)
@@ -1868,8 +1942,11 @@ def _bias_bwd_check(tag: str, args, f32, *, want_dbias: bool, phase: str = "bias
 
 
 def _wide_fwd_check() -> None:
-    """K1 on fwd_tile.cuh above D 128 (WIDE_CASES), the forward only
-    (_fwd_bwd_check without dO): one launch each, on neither Hopper route."""
+    """K1 above D 128 (WIDE_CASES, then WIDE_FWD_CASES), the forward only
+    (_fwd_bwd_check without dO): one launch each, of the dense route's D 256
+    form without a bias and of fwd_tile.cuh with one; then, after those
+    numeric gates, the D 256 form's four instantiations' SASS
+    (_tma_wgmma_sass: HGMMA, UTMALDG, no HMMA)."""
     B, Hq, Hkv, D = 1, 8, 4, WIDE_D
     for i, (name, nq, nk, causal, window, ids, biased, cap, dead) in enumerate(WIDE_CASES):
         q, k, v = _grown(1070 + i, B, Hq, nq, D, nk, Hkv)
@@ -1884,7 +1961,8 @@ def _wide_fwd_check() -> None:
                                                                   device=DEVICE)
         if cap is not None:
             kw["softcap"] = cap
-        out = _fwd_bwd_check(f"fwd_tile.cuh {name}: B{B} Hq{Hq} Hkv{Hkv} Nq{nq} Nk{nk} D{D}"
+        route = "fwd_tile.cuh" if biased else "the D 256 form"
+        out = _fwd_bwd_check(f"{route} {name}: B{B} Hq{Hq} Hkv{Hkv} Nq{nq} Nk{nk} D{D}"
                              f"{' causal' if causal else ''}"
                              f"{'' if window is None else f', window {window}'}"
                              f"{'' if ids is None else f', {ids} ids'}"
@@ -1893,6 +1971,18 @@ def _wide_fwd_check() -> None:
         if dead and not out["dead"]:
             fail(f"the D {D} case {name} has no dead row")
         del q, k, v, kw
+    for i, (name, d, hkv, nq, nk, causal, (qo, ko), dead) in enumerate(WIDE_FWD_CASES):
+        q, k, v = _grown(1095 + i, B, Hq, nq, d, nk, hkv)
+        out = _fwd_bwd_check(f"the D 256 form {name}: B{B} Hq{Hq} Hkv{hkv} Nq{nq} Nk{nk} D{d}"
+                             f"{' causal' if causal else ''}, q / kv offsets {(qo, ko)}",
+                             q, k, v, None, scale=d ** -0.5, causal=causal, q_offset=qo,
+                             kv_offset=ko)
+        if dead != bool(out["dead"]):
+            fail(f"the D {d} case {name} has {out['dead']} dead rows")
+        del q, k, v
+    _tma_wgmma_sass("window", {
+        f"K1 dense sm90{' segments' if sg else ''}{' softcap' if cp else ''} "
+        f"fwd_dense_sm90_kernel<256, {sg}, {cp}>" for sg in (0, 1) for cp in (0, 1)})
 
 
 def phase_window_check() -> dict:
@@ -1902,9 +1992,11 @@ def phase_window_check() -> dict:
     and segment ids, without and with softcap 50, and with segment ids and
     the softcap without a window; K1 and the split route at D 40 with cap 5
     (CAP_D40_CASE: a D 64 instantiation reading zeros past D, the cap
-    saturating); K1 alone on fwd_tile.cuh at D 160 with the cap, the cap and
-    a window and / or segment ids, a bias, the cap and a bias (WIDE_CASES,
-    each one launch that neither Hopper route counts); K1 and the split
+    saturating); K1 alone above D 128 (_wide_fwd_check): at D 160 with the
+    cap, the cap and a window and / or segment ids (the dense route's D 256
+    form), a bias, the cap and a bias (fwd_tile.cuh) (WIDE_CASES), and the
+    D 256 form at a ring's chunk pair, with dead rows, at D 136 ragged GQA
+    and at one query row (WIDE_FWD_CASES), each one launch; K1 and the split
     route with softcap 50 and the SWA window at bench_lm's long shape (every
     capped K1 on its dense route); K1 with softcap and the cache-slot bias at
     bench_decode's shape, GQA-folded. Times each at the path's shape beside
@@ -1958,7 +2050,7 @@ def phase_window_check() -> dict:
     wl = kw["window"][0]
     mask = dict(kv_valid_len=N, causal=True, segment_ids=None, window=kw["window"])
     band = flash_fwd.pair_mask(N, N, device=DEVICE, **mask)[0, 0]
-    stats, grad = 4 * B * Hq * N, 4 * B * Hq * N * D
+    stats = 4 * B * Hq * N
     full = dict(scale=kw["scale"], causal=True)
     k1 = {"max_abs_err": k1_err, "ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, **kw)),
           "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw), reps=3, trials=3),
@@ -1970,7 +2062,9 @@ def phase_window_check() -> dict:
     k3 = {"max_abs_err": k3_err, "ms": cuda_ms(lambda: flash_bwd_fused.bwd(*args, **kw)),
           "plain_ms": cuda_ms(lambda: flash_bwd_fused.bwd_reference(*args, **kw), reps=2,
                               trials=3),
-          **bound(tensor_bytes(*args) + 3 * grad, pair_flops(q, k, matmuls=5, **mask)),
+          # out: dQ, dK, dV as the function returns them (bf16; dK / dV at Hkv heads)
+          **bound(tensor_bytes(*args) + tensor_bytes(q, k, v),
+                  pair_flops(q, k, matmuls=5, **mask)),
           "library_ms": sdpa_ms(q, k, v, do=do, attn_mask=band),
           "library_call": "the backward of scaled_dot_product_attention(attn_mask=band)"}
     k3_full = cuda_ms(lambda: flash_bwd_fused.bwd(*args, **full))
@@ -2012,13 +2106,14 @@ def phase_window_check() -> dict:
                                              reps=3, trials=3),
                          **bound(tensor_bytes(q, k, v, q) + stats,
                                  pair_flops(q, k, matmuls=2, **mask)), **fwd_library}
-    # In: q, k, v, dO, LSE, Delta; out: dQ, and dK / dV per q head (f32).
+    # In: q, k, v, dO, LSE, Delta; out: dQ, dK, dV as the function returns
+    # them (bf16; dK / dV at Hkv heads).
     res["split_softcap"] = {"max_abs_err": out["bwd_err"],
                             "ms": cuda_ms(lambda: flash_bwd.split_bwd(*args, **kw)),
                             "plain_ms": cuda_ms(
                                 lambda: flash_bwd.split_bwd_reference(*args, **kw), reps=2,
                                 trials=3),
-                            **bound(tensor_bytes(*args) + 3 * grad,
+                            **bound(tensor_bytes(*args) + tensor_bytes(q, k, v),
                                     pair_flops(q, k, matmuls=5, **mask)), **bwd_library}
     sc = res["split_softcap"]
     log("window", f"softcap at the SWA shape: K1's dense route {res['k1_softcap']['ms']:.4f} ms "
@@ -2390,19 +2485,21 @@ def phase_bias_check() -> dict:
                              phase="bias", **kw)
         if not out["dead"]:
             fail("the key-padding case has no dead row")
-        args, grad = out["args"], 4 * B * H * N * d
+        args = out["args"]
         res[f"launches_d{d}"] = _launches()["bias bwd"]
         flops[d] = pair_flops(q, k, matmuls=5, **mask)
         bwd_library = dict(library_ms=sdpa_ms(q, k, v, do=do, attn_mask=pad), library_call=(
             "the backward of scaled_dot_product_attention(attn_mask=the key-padding bias) (dQ, "
             "dK and dV in one call)"))
-        # K5 + K6's bias route, the backward path A takes: 5 products, dQ, dK, dV out.
+        # K5 + K6's bias route, the backward path A takes: 5 products; dQ, dK,
+        # dV out as the function returns them (bf16; dK / dV at Hkv heads).
         res["bias_bwd" if d == D else "bias_bwd_d96"] = {
             "max_abs_err": out["bwd_err"],
             "ms": cuda_ms(lambda: flash_bwd.bias_bwd(*args, **kw)),
             "plain_ms": cuda_ms(lambda: flash_bwd.bias_bwd_reference(*args, **kw), reps=2,
                                 trials=3),
-            **bound(tensor_bytes(*args, pad) + 3 * grad, flops[d]), **bwd_library}
+            **bound(tensor_bytes(*args, pad) + tensor_bytes(q, k, v), flops[d]),
+            **bwd_library}
         if d == D:
             res["k1_bias"] = {
                 "max_abs_err": out["fwd_err"], "ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, **kw)),
@@ -2436,7 +2533,6 @@ def phase_bias_check() -> dict:
     del pad
     q, k, v = _grown(1410, B, H, N, D, N, H)
     do = _bnhd(make_qkv(1411, B, H, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
-    grad = 4 * B * H * N * D
     for cap in (None, SOFTCAP):
         kw = dict(scale=D ** -0.5, bias=combined, **({} if cap is None else {"softcap": cap}))
         out = _fwd_bwd_check(f"path A's learned arm B{B} H{H} N{N} D{D} non-causal, bias [{B}, "
@@ -2445,14 +2541,15 @@ def phase_bias_check() -> dict:
                              phase="bias", want_dbias=True, **kw)
         args = out["args"]
         k1_ms = cuda_ms(lambda: flash_fwd.fwd(q, k, v, **kw))
-        # The route with dbias: the whole [B, H, N, N] f32 bias read and dbias written.
+        # The route with dbias: the whole [B, H, N, N] f32 bias read and dbias
+        # written; dQ, dK, dV as the function returns them.
         row = {"max_abs_err": out["bwd_err"],
                "ms": cuda_ms(lambda: flash_bwd.bias_bwd(*args, want_dbias=True, **kw)),
                "plain_ms": cuda_ms(lambda: flash_bwd.bias_bwd_reference(*args, want_dbias=True,
                                                                         **kw),
                                    reps=2, trials=3),
                "no_dbias_ms": cuda_ms(lambda: flash_bwd.bias_bwd(*args, **kw)),
-               **bound(tensor_bytes(*args, combined, out["dbias"]) + 3 * grad,
+               **bound(tensor_bytes(*args, combined, out["dbias"]) + tensor_bytes(q, k, v),
                        pair_flops(q, k, matmuls=5, **mask))}
         if cap is None:
             # SDPA takes a bias that requires grad only in the query's dtype.
@@ -3285,7 +3382,8 @@ def _offsets_timing(q, k, v, do, kw) -> tuple[dict, dict]:
                **bound(tensor_bytes(q, k, v, q) + stats, pair_flops(q, k, matmuls=2, **mask))}
     bwd_row = {"ms": cuda_ms(lambda: bwd(*args, **kw)),
                "plain_ms": cuda_ms(lambda: bwd_ref(*args, **kw), reps=5),
-               **bound(tensor_bytes(q, k, v, do) + 2 * stats + 4 * (q.numel() + 2 * Hq * Nk * D),
+               # out: dQ, dK, dV as the function returns them (bf16; dK / dV at Hkv heads)
+               **bound(tensor_bytes(q, k, v, do) + 2 * stats + tensor_bytes(q, k, v),
                        pair_flops(q, k, matmuls=5, **mask))}
     if ids is None:
         band = flash_fwd.pair_mask(Nq, Nk, device=DEVICE, **mask)[0, 0]
@@ -3450,6 +3548,31 @@ def _grad_rel_l2(mesh, grads, ref, specs) -> dict:
     return out
 
 
+def _lm_truth(model, cfg, tokens, segs: dict) -> tuple[dict, dict, dict]:
+    """Per layout of ``segs`` (name: segment ids or None): the single-device
+    bf16 lm_loss, the gradients of SHARDED_GRAD_LEAVES of an f32 copy of the
+    model (the xla arm, with remat) and the bf16 step's relative L2 distance
+    from them (the floor a sharded step's gradients are gated by)."""
+    from flashattn_tpu_torch.models import transformer as T
+
+    named = dict(model.named_parameters())
+    m32 = T.Transformer(dataclasses.replace(cfg, dtype=torch.float32, remat=True), device=DEVICE)
+    m32.load_state_dict(model.state_dict())
+    named32 = dict(m32.named_parameters())
+    ref, truth, floor = {}, {}, {}
+    for name, seg in segs.items():
+        loss = T.lm_loss(model, tokens, cfg, segment_ids=seg)
+        g16 = torch.autograd.grad(loss, [named[n] for n in SHARDED_GRAD_LEAVES])
+        loss32 = T.lm_loss(m32, tokens, m32.cfg, attn_impl="xla", segment_ids=seg)
+        g32 = torch.autograd.grad(loss32, [named32[n] for n in SHARDED_GRAD_LEAVES])
+        ref[name], truth[name] = loss.item(), dict(zip(SHARDED_GRAD_LEAVES, g32))
+        floor[name] = {n: _rel_l2({n: a}, {n: b}) for n, a, b in zip(SHARDED_GRAD_LEAVES, g16, g32)}
+        del loss, g16, loss32, g32
+    del m32, named32
+    torch.cuda.empty_cache()
+    return ref, truth, floor
+
+
 def _sharded_lm() -> dict:
     """bench_lm's LM at full width and depth (443.1 M parameters, bf16, seeded
     weights) through models.transformer.make_sharded_train_step on a
@@ -3478,21 +3601,7 @@ def _sharded_lm() -> dict:
     model = T.init_transformer(cfg, gen, device=DEVICE)
     tokens = torch.randint(0, cfg.vocab_size, (1, SHARDED_SEQ), generator=gen, device=DEVICE)
     ids = straddling_ids(SHARDED_SEQ)
-    named = dict(model.named_parameters())
-    m32 = T.Transformer(dataclasses.replace(cfg, dtype=torch.float32, remat=True), device=DEVICE)
-    m32.load_state_dict(model.state_dict())
-    named32 = dict(m32.named_parameters())
-    ref, truth, floor = {}, {}, {}
-    for name, seg in (("contiguous", None), ("packed", ids)):
-        loss = T.lm_loss(model, tokens, cfg, segment_ids=seg)
-        g16 = torch.autograd.grad(loss, [named[n] for n in SHARDED_GRAD_LEAVES])
-        loss32 = T.lm_loss(m32, tokens, m32.cfg, attn_impl="xla", segment_ids=seg)
-        g32 = torch.autograd.grad(loss32, [named32[n] for n in SHARDED_GRAD_LEAVES])
-        ref[name], truth[name] = loss.item(), dict(zip(SHARDED_GRAD_LEAVES, g32))
-        floor[name] = {n: _rel_l2({n: a}, {n: b}) for n, a, b in zip(SHARDED_GRAD_LEAVES, g16, g32)}
-        del loss, g16, loss32, g32
-    del m32, named32
-    torch.cuda.empty_cache()
+    ref, truth, floor = _lm_truth(model, cfg, tokens, {"contiguous": None, "packed": ids})
     for d in (ref, truth, floor):
         d["zigzag"] = d["contiguous"]
     mesh = make_mesh(*SHARDED_MESH)
@@ -4198,12 +4307,16 @@ WIDE_BWD_CASES = [
 # one) and its attention, where phase_wide_bwd_check times the kernels.
 WIDE_LM_WIDTH = dict(LM_WIDTH, n_heads=8, n_kv_heads=4, d_head=256)
 WIDE_STEPS = 4
-# The D 256 LM's attention kernels in a profile, by a part of their names: K1
-# on fwd_tile.cuh (fwd_kernel, fwd_softcap_kernel), K3's and the split
-# route's D 256 forms.
-WIDE_ATTN_KERNELS = {"K1": ("fwd_kernel", "fwd_softcap_kernel"), "K3": ("bwd_sm90_kernel",),
+# The D 256 LM's attention kernels in a profile, by a part of their names: K1's
+# dense route's D 256 form, K3's and the split route's D 256 forms.
+WIDE_ATTN_KERNELS = {"K1": ("fwd_dense_sm90_kernel",), "K3": ("bwd_sm90_kernel",),
                      "split": ("bwd_split_sm90_kernel",)}
 WIDE_SHAPE = (1, 8, 4, LM_SEQ, 256)  # B, Hq, Hkv, N, D
+# Its contiguous sharded step (phase_wide_train): layers, mesh (data, model,
+# seq) and tokens.
+WIDE_SHARDED_LAYERS = 2
+WIDE_SHARDED_MESH = (1, 1, 4)
+WIDE_SHARDED_SEQ = 4096
 
 
 def _wide_bwd_case(tag: str, q, k, v, do, **kw) -> dict:
@@ -4306,8 +4419,8 @@ def _sdpa_backends_ms(q, k, v, *, do=None, **kw) -> dict:
 
 
 def _wide_timing() -> dict:
-    """K3's and the split route's D 256 forms (the cap; packed ids) and K1 on
-    fwd_tile.cuh at the D 256 LM's attention, B1 Hq8 Hkv4 N2048 D256 causal,
+    """K3's and the split route's D 256 forms (the cap; packed ids) and K1's
+    dense route's at the D 256 LM's attention, B1 Hq8 Hkv4 N2048 D256 causal,
     on unit-scale bf16 views of [B, N, H, D] (the model's layout): each one
     launch on its route, held against its plain version on the timed inputs
     (O within FWD_TOL[bf16], dQ / dK / dV within BWD_TOL[bf16], each within
@@ -4321,6 +4434,7 @@ def _wide_timing() -> dict:
     (``kernel_ms``, kernels_ms; the ids' call computes their tile ranges
     first), and SDPA's rows each backend's (``library_device_ms_by_backend``)."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.utils import native
     from flashattn_tpu_torch.utils.testing import (
         BWD_TOL, FWD_TOL, check_close, grad_gate, make_qkv)
 
@@ -4333,11 +4447,11 @@ def _wide_timing() -> dict:
     stats = 4 * B * Hq * N
     res = {}
     f32 = [x.float() for x in (q, k, v, do)]
-    # K1 on fwd_tile.cuh (no Hopper route above D 128).
+    # K1's dense route's D 256 form.
     before = _launches()
     o = flash_fwd.fwd(q, k, v, scale=scale, causal=True)[0]
     torch.cuda.synchronize()
-    _routed("K1 at the D 256 LM's attention", before, K1=1)
+    _routed("K1 at the D 256 LM's attention", before, K1=1, K1_dense_sm90=1, K1_dense_d256=1)
     o_want = flash_fwd.fwd_reference(*f32[:3], scale=scale, causal=True)[0]
     ok_o, msg_o = check_close(o, o_want, FWD_TOL[torch.bfloat16], "O")
     rel_o = _rel(o.float(), o_want)
@@ -4346,9 +4460,22 @@ def _wide_timing() -> dict:
     if not ok_o or not rel_o <= WINDOW_REL_L2:
         fail(f"K1 at the D 256 LM's attention disagrees with its plain version: {msg_o}; "
              f"relative L2 {rel_o}")
+    k1 = lambda: flash_fwd.fwd(q, k, v, scale=scale, causal=True)  # noqa: E731
+    # The host's side of the call: flash_fwd.fwd whole, and its C entry alone
+    # (ctypes, the three tensor maps, the launch) on the same operands, the
+    # outputs allocated once; the C entry's launches here are not counted.
+    lib, o_c = native.kernels(), torch.empty_like(q)
+    lse_c = torch.empty((B, Hq, N), dtype=torch.float32, device=DEVICE)
+    stream = torch.cuda.current_stream().cuda_stream
+    c_entry = lambda: flash_fwd._launch_dense_sm90(  # noqa: E731
+        lib, q, k, v, o_c, lse_c, None, scale=scale, kv_valid_len=N, causal=True, window=None,
+        softcap=None, stream=stream)
+    host = {"host_ms": host_ms(k1), "c_entry_host_ms": host_ms(c_entry)}
+    for name, calls, ms in host_profile(k1):
+        log("wide", f"K1 D 256 host profile: {name}: {calls} calls, {ms:.4f} ms a call")
+    del o_c, lse_c
     res["k1"] = {"max_abs_err": (o.float() - o_want).abs().max().item(),
-                 "ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, scale=scale, causal=True)),
-                 "kernel_ms": kernels_ms(lambda: flash_fwd.fwd(q, k, v, scale=scale, causal=True)),
+                 "ms": cuda_ms(k1), "kernel_ms": kernels_ms(k1), **host,
                  "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(
                      q, k, v, scale=scale, causal=True), reps=3),
                  **bound(tensor_bytes(q, k, v, q) + stats,
@@ -4412,6 +4539,9 @@ def _wide_timing() -> dict:
         torch.cuda.empty_cache()
     for key, row in res.items():
         alone = f" (the kernel alone {row['kernel_ms']:.4f})"
+        if "host_ms" in row:
+            alone += (f", host {row['host_ms']:.4f} a call (its C entry alone "
+                      f"{row['c_entry_host_ms']:.4f})")
         log("wide", f"{key} at B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal bf16: {row['ms']:.4f} ms"
                     f"{alone}, plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
                     f"{row['bound_by']}, library {row['library_ms']:.4f} ({row['library_call']}); "
@@ -4474,10 +4604,11 @@ def phase_wide_train() -> dict:
     the bf16 floor), then WIDE_STEPS fused AdamW steps (packed at [2, 4097])
     and one more under torch.profiler (its wall and kernel time, the
     attention kernels' share, the card's clocks after it), with exact
-    launches: K1 on fwd_tile.cuh and K3's D 256 form, K1 capped and the split
+    launches: K1's dense route's D 256 form and K3's, K1 capped and the split
     route's D 256 form, K1 with ids and the split route's D 256 form, n_layers
-    x (WIDE_STEPS + 1) each and no other. Returns the launch counts, ms/step
-    and the profiled step's times per variant."""
+    x (WIDE_STEPS + 1) each and no other; then one contiguous sharded step
+    of the LM (_sharded_lm_wide). Returns the launch counts, ms/step and the
+    profiled step's times per variant, and the sharded step's gates."""
     from flashattn_tpu_torch.models.transformer import TransformerConfig
 
     gen = torch.Generator(device=DEVICE).manual_seed(4)
@@ -4487,13 +4618,14 @@ def phase_wide_train() -> dict:
     packed_tokens = torch.randint(0, WIDE_LM_WIDTH["vocab_size"], (B, N + 1), generator=gen,
                                   device=DEVICE)
     n = WIDE_LM_WIDTH["n_layers"] * (WIDE_STEPS + 1)  # the timed steps and the profiled one
+    k1 = dict(K1=n, K1_dense_sm90=n, K1_dense_d256=n)
     variants = {
         "unpacked": (TransformerConfig(**WIDE_LM_WIDTH), None, tokens, None,
-                     dict(K1=n, K3=n, K3_sm90=n, K3_d256=n)),
+                     dict(**k1, K3=n, K3_sm90=n, K3_d256=n)),
         "softcap": (TransformerConfig(**WIDE_LM_WIDTH, logit_softcap=SOFTCAP), None, tokens,
-                    None, dict(K1=n, K1_softcap=n, split_bwd=n, split_bwd_d256=n)),
+                    None, dict(**k1, K1_softcap=n, split_bwd=n, split_bwd_d256=n)),
         "packed": (TransformerConfig(**WIDE_LM_WIDTH), packed_ids(1, LM_SEQ + 1), packed_tokens,
-                   packed_ids(B, N + 1), dict(K1=n, split_bwd=n, split_bwd_d256=n))}
+                   packed_ids(B, N + 1), dict(**k1, split_bwd=n, split_bwd_d256=n))}
     out = {}
     for tag, (cfg, gate_ids, step_tokens, step_ids, counts) in variants.items():
         _lm_gates(cfg, tokens, gate_ids, None, "wide train")
@@ -4525,7 +4657,75 @@ def phase_wide_train() -> dict:
         out[tag] = {"launches": got, "ms_per_step": step_s * 1e3,
                     "profiled_wall_ms": prof["wall_ms"], "profiled_device_ms": prof["device_ms"],
                     "profiled_attention_ms": attn}
+    out["sharded"] = _sharded_lm_wide()
     return out
+
+
+def _sharded_lm_wide() -> dict:
+    """The LM with heads of 256 (WIDE_LM_WIDTH) at WIDE_SHARDED_LAYERS layers
+    through make_sharded_train_step on a WIDE_SHARDED_MESH VirtualMesh at [1,
+    WIDE_SHARDED_SEQ] tokens, contiguous: one lr=0 step with the counters
+    reset just before -- its loss within SHARDED_LOSS_TOL of the
+    single-device lm_loss, exact launches (layers x the 10 live chunk pairs
+    of 4 seq ranks on K1's dense route's D 256 form and K3's, every pair off
+    the diagonal with q / kv offsets) -- its gradients of
+    SHARDED_GRAD_LEAVES (step.loss_and_grads) within SHARDED_GRAD_FLOOR_X
+    times the single-device bf16 step's distance from an f32 copy of the
+    model (_lm_truth), and the median of SHARDED_TIMED timed steps."""
+    from flashattn_tpu_torch.models import transformer as T
+    from flashattn_tpu_torch.parallel import make_mesh
+
+    cfg = T.TransformerConfig(**dict(WIDE_LM_WIDTH, n_layers=WIDE_SHARDED_LAYERS))
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    model = T.init_transformer(cfg, gen, device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab_size, (1, WIDE_SHARDED_SEQ), generator=gen,
+                           device=DEVICE)
+    ref, truth, floor = (d["contiguous"] for d in _lm_truth(model, cfg, tokens,
+                                                            {"contiguous": None}))
+    mesh = make_mesh(*WIDE_SHARDED_MESH)
+    data, tp, sp = WIDE_SHARDED_MESH
+    pairs = cfg.n_layers * data * tp * sp * (sp + 1) // 2
+    want = dict(K1=pairs, K1_dense_sm90=pairs, K1_dense_d256=pairs, K3=pairs, K3_sm90=pairs,
+                K3_d256=pairs)
+    shards = T.shard_params(model, mesh)
+    opt = [T.adamw_init(p) for p in shards]
+    step, specs, _ = T.make_sharded_train_step(mesh, cfg, lr=0.0)
+    _reset_launches()
+    _, _, got = step(shards, opt, tokens)
+    torch.cuda.synchronize()
+    counts = _launches()
+    got = got.item()
+    _, grads = step.loss_and_grads(shards, tokens)
+    rel = _grad_rel_l2(mesh, grads, truth, specs)
+    del grads
+    secs = []
+    for _ in range(SHARDED_TIMED):
+        t0 = time.perf_counter()
+        step(shards, opt, tokens)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    log("wide train", f"sharded step, {cfg.n_layers} layers of the LM with heads of 256 on a "
+                      f"(data {data}, model {tp}, seq {sp}) VirtualMesh, {list(tokens.shape)} "
+                      f"tokens, contiguous: lr=0 loss {got:.5f}, single-device lm_loss {ref:.5f}, "
+                      f"|diff| {abs(got - ref):.2e} (limit {SHARDED_LOSS_TOL}); gradients' "
+                      "relative L2 against the f32 model "
+                      + ", ".join(f"{n} {e:.3e} (bf16 floor {floor[n]:.3e})"
+                                  for n, e in rel.items())
+                      + f" (limit {SHARDED_GRAD_FLOOR_X} x floor); "
+                      f"{statistics.median(secs) * 1e3:.1f} ms/step (median of "
+                      f"{', '.join(f'{x * 1e3:.1f}' for x in secs)}); launches "
+                      f"{ {n: c for n, c in counts.items() if c} } (expected {want})")
+    if counts != _expect(**want):
+        fail(f"the D 256 sharded step launched {counts}, expected {want} and no other")
+    if not abs(got - ref) <= SHARDED_LOSS_TOL:
+        fail(f"the D 256 sharded step's loss {got} vs single-device {ref}")
+    if not all(e <= SHARDED_GRAD_FLOOR_X * floor[n] for n, e in rel.items()):
+        fail(f"the D 256 sharded step's gradients vs the f32 model: {rel}, above "
+             f"{SHARDED_GRAD_FLOOR_X} x the bf16 floor {floor}")
+    del shards, opt, model
+    torch.cuda.empty_cache()
+    return {"counts": counts, "loss": got, "single_device_loss": ref, "grad_rel_l2": rel,
+            "grad_floor": floor, "ms": statistics.median(secs) * 1e3}
 
 
 def phase_entry() -> dict:
@@ -4724,32 +4924,26 @@ def main() -> None:
         # its operands; bound at six bf16 products per f32 product
         # (PEAK_F32_ACCURATE_FLOPS); library: the faster of SDPA's math and
         # memory-efficient backends on the f32 inputs, TF32 off, with the
-        # documents as a boolean mask ("library" names it); "before": the
-        # 3xTF32 mma.sync bodies' times that these replaced (earlier chip runs
-        # on an H100 80GB HBM3 at 700 W, PERF.md §6), not measured here.
+        # documents as a boolean mask ("library" names it).
         {"name": "flash_fwd_f32 causal (K1's f32 route, TMA + wgmma on bf16 pieces: f32 LM "
                  "causal, K2)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/flash_fwd_f32.cu",
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:516",
-         "launches": f32_train["unpacked"]["K1 f32"],
-         "before": "0.757-0.782 ms (the 3xTF32 mma.sync body)", **f32["fwd"]},
+         "launches": f32_train["unpacked"]["K1 f32"], **f32["fwd"]},
         {"name": "flash_bwd_f32 (K3 on f32, TMA + wgmma on bf16 pieces: f32 LM causal, K4)",
          "route": "cuda", "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu",
          "replaces": "flashattn_tpu/ops/flash_bwd_fused.py:110, "
                      "flashattn_tpu/ops/flash_bwd_fused.py:336",
-         "launches": f32_train["unpacked"]["bwd f32"],
-         "before": "2.044-2.080 ms (the 3xTF32 mma.sync body)", **f32["bwd"]},
+         "launches": f32_train["unpacked"]["bwd f32"], **f32["bwd"]},
         {"name": "flash_fwd_f32 segments (K1's f32 route, TMA + wgmma on bf16 pieces: packed f32 "
                  "LM, causal + segment ids)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/flash_fwd_f32.cu",
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
-         "launches": f32_train["packed"]["K1 f32"],
-         "before": "0.227-0.261 ms (the 3xTF32 mma.sync body)", **f32["fwd_packed"]},
+         "launches": f32_train["packed"]["K1 f32"], **f32["fwd_packed"]},
         {"name": "flash_bwd_f32 segments (K5 + K6 on f32 in one launch, TMA + wgmma on bf16 "
                  "pieces: packed f32 LM, causal + segment ids)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu", "replaces": split_replaces,
-         "launches": f32_train["packed"]["bwd f32"],
-         "before": "0.569-0.599 ms (the 3xTF32 mma.sync body)", **f32["bwd_packed"]},
+         "launches": f32_train["packed"]["bwd f32"], **f32["bwd_packed"]},
         # The f32 routes' operand split: no TPU kernel of its own (the MXU
         # splits its f32 operands under Precision.HIGHEST); launches from the
         # unpacked f32 steps (one in each f32 C entry: q, k, v before K1 f32,
@@ -4765,12 +4959,13 @@ def main() -> None:
          "launches": f32_train["unpacked"]["split bf16x3"], **f32["split"]},
         # The LM with heads of 256 (phase_wide_train), at its attention (B1
         # Hq8 Hkv4 N2048 D256 causal, phase_wide_bwd_check's _wide_timing):
-        # K1 on the mma.sync fwd_tile.cuh (no Hopper route above D 128), K3's
-        # and the split route's D 256 forms; launches from the variants' steps.
-        {"name": "flash_fwd fwd_tile.cuh D 256 causal (K1, mma.sync: the LM with heads of 256)",
-         "route": "cuda", "source": "flashattn_tpu_torch/csrc/fwd_tile.cuh",
+        # K1's dense route's, K3's and the split route's D 256 forms;
+        # launches from the variants' steps.
+        {"name": "flash_fwd_sm90 D 256 causal (K1's dense route's D 256 form, wgmma: the LM "
+                 "with heads of 256, K2)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/fwd_sm90_tile.cuh",
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:516",
-         "launches": wide_train["unpacked"]["launches"]["K1"], **wide["k1"]},
+         "launches": wide_train["unpacked"]["launches"]["K1 dense d256"], **wide["k1"]},
         {"name": "flash_bwd_sm90 D 256 (K3's D 256 form, wgmma: the LM with heads of 256, "
                  "causal, K4)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/bwd_sm90_wide.cuh",

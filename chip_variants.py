@@ -1,6 +1,6 @@
 """Time the design variants of the TMA + wgmma kernels against the committed ones, on one GPU.
 
-    python3 chip_variants.py [ring] [bias] [k3] [k1cap] [f32]
+    python3 chip_variants.py [ring] [bias] [k3] [k1cap] [k1wide] [f32]
 
 (every family without an argument). Each variant is a committed source
 with one design choice undone by text patches (of the source, or of the
@@ -81,6 +81,27 @@ At the soft-capped SWA shape (B1 Hq16 Hkv8 N8192 D128, window 2047 to the
 left, causal, cap 50, q and k at 4x) each is held against ``fwd_reference``
 (O's max abs and relative L2 errors, LSE's max abs error, printed), then
 timed in turns.
+
+Family ``k1wide``, K1's dense route's D 256 form (``csrc/flash_fwd_sm90.cu``,
+its body ``csrc/fwd_sm90_tile.cuh``) through ``flash_fwd._launch_dense_sm90``:
+
+* ``K1 D256``: as committed (two (K, V) stages, K and V of a stage on one
+  barrier, K's boxes issued before V's; 24 producer and 240 consumer
+  registers);
+* ``K1 D256 interleaved``: K's and V's boxes issued in turn, the dense
+  route's earlier order;
+* ``K1 D256 K / V barriers``: K and V on barriers of their own, so that S =
+  Q K^T starts once K has landed and V's copy runs under it (the first
+  design);
+* ``K1 D256 224 registers``: the D <= 128 split, 56 producer and 224
+  consumer registers.
+
+At the D 256 LM's attention (B1 Hq8 Hkv4 N2048 D256 causal) each is held
+against ``fwd_reference`` (O's max abs and relative L2 errors, LSE's max abs
+error, printed), then timed in turns over 10 rounds, there, non-causal
+(every KV tile visited) and at the D 128 LM's attention (B1 Hq16 Hkv8 N2048
+D128 causal: the copy order is shared), and each round's pairs against the
+committed form are counted.
 
 Family ``f32``, the f32 backward ``csrc/flash_bwd_f32.cu`` (built with the
 split ``csrc/split_bf16x3.cu``, which its C entry launches first) through
@@ -231,6 +252,77 @@ def _tanh_approx(src: str) -> str:
         "if constexpr (CAP) {\n    float t;\n"
         "    asm(\"tanh.approx.f32 %0, %1;\" : \"=f\"(t) : \"f\"(s * cap_scale));\n"
         "    return cap_log2 * t;\n  }")
+
+
+# K and V of each (K, V) stage at D 256 on barriers of their own (v_full).
+_KV_BARRIERS = (
+    ("  static constexpr int STAGES = D == 256 ? 2 : D == 64 || !BIAS ? 4 : 3;\n",
+     "  static constexpr int STAGES = D == 256 ? 2 : D == 64 || !BIAS ? 4 : 3;\n"
+     "  static constexpr bool KV_SPLIT = D == 256;\n"),
+    ("BYTES = 1024 + BARS + (1 + 2 * STAGES) * 8;",
+     "BYTES = 1024 + BARS + (1 + (KV_SPLIT ? 3 : 2) * STAGES) * 8;"),
+    ("  uint64_t* empty = full + S::STAGES;\n",
+     "  uint64_t* empty = full + S::STAGES;\n"
+     "  uint64_t* v_full = S::KV_SPLIT ? empty + S::STAGES : full;\n"),
+    ("      mbar_init(&empty[s], 8);  // one arrival per consumer warp\n",
+     "      mbar_init(&empty[s], 8);  // one arrival per consumer warp\n"
+     "      if (S::KV_SPLIT) mbar_init(&v_full[s], 1);\n"),
+    ("        mbar_expect_tx(&full[s], 2 * S::KV + (SEG ? FB_BLOCK_N * 4 : 0));\n",
+     "        mbar_expect_tx(&full[s], (S::KV_SPLIT ? 1 : 2) * S::KV + (SEG ? FB_BLOCK_N * 4 : 0));\n"
+     "        if (S::KV_SPLIT) mbar_expect_tx(&v_full[s], S::KV);\n"),
+    ("          tma_load_4d(st + S::KV + x * FB_BLOCK_N * FB_BOX_ROW, &tm_v, &full[s], 64 * x, n0, hk,\n",
+     "          tma_load_4d(st + S::KV + x * FB_BLOCK_N * FB_BOX_ROW, &tm_v, &v_full[s], 64 * x, n0, hk,\n"),
+    ("""          pack_p(pa, sc);
+          issue_pv<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);""",
+     """          pack_p(pa, sc);
+          if (S::KV_SPLIT) mbar_wait(&v_full[s], (it / S::STAGES) & 1);
+          issue_pv<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);"""),
+    ("""          for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+        }
+        release(it);""", """          for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+        } else if (S::KV_SPLIT) {
+          mbar_wait(&v_full[s], (it / S::STAGES) & 1);
+        }
+        release(it);"""),
+)
+
+
+# K's and V's boxes of each stage issued in turn (K0 V0 K1 V1 ...), the earlier order.
+_INTERLEAVED = ("""#pragma unroll
+        for (int x = 0; x < BOXES; ++x) {
+          tma_load_4d(st + x * FB_BLOCK_N * FB_BOX_ROW, &tm_k, &full[s], 64 * x, n0, hk, b);
+        }
+#pragma unroll
+        for (int x = 0; x < BOXES; ++x) {
+          tma_load_4d(st + S::KV""", """#pragma unroll
+        for (int x = 0; x < BOXES; ++x) {
+          tma_load_4d(st + x * FB_BLOCK_N * FB_BOX_ROW, &tm_k, &full[s], 64 * x, n0, hk, b);
+          tma_load_4d(st + S::KV""")
+
+
+def _interleaved(src: str) -> str:
+    assert src.count(_INTERLEAVED[0]) == 1, "the interleaved-copies patch no longer applies"
+    return src.replace(*_INTERLEAVED)
+
+
+def _kv_barriers(src: str) -> str:
+    for old, new in _KV_BARRIERS:
+        assert src.count(old) == 1, f"the K / V barriers patch no longer applies at {old[:60]!r}"
+        src = src.replace(old, new)
+    return src
+
+
+# The D 256 form's register split as at D <= 128: 56 producer, 224 consumer.
+_REGS_56_224 = (
+    ("constexpr int PRODUCER_REGS = D == 256 ? 24 : 56;", "constexpr int PRODUCER_REGS = 56;"),
+    ("constexpr int CONSUMER_REGS = D == 256 ? 240 : 224;", "constexpr int CONSUMER_REGS = 224;"))
+
+
+def _regs_56_224(src: str) -> str:
+    for old, new in _REGS_56_224:
+        assert src.count(old) == 1, f"the 224-register patch no longer applies at {old!r}"
+        src = src.replace(old, new)
+    return src
 
 
 def _n64(src: str) -> str:
@@ -440,6 +532,10 @@ VARIANTS = {
                                         "    heads = p.rep;\n")))),
     "K1 cap": ("flash_fwd_sm90.cu", ()),
     "K1 cap tanh.approx": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _tanh_approx),)),
+    "K1 D256": ("flash_fwd_sm90.cu", ()),
+    "K1 D256 interleaved": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _interleaved),)),
+    "K1 D256 K / V barriers": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _kv_barriers),)),
+    "K1 D256 224 registers": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _regs_56_224),)),
     "bwd f32": ("flash_bwd_f32.cu", ()),
     "bwd f32 unroll 6": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", lambda s: s.replace(
         "#pragma unroll 1  // unrolled,", "#pragma unroll 6  // unrolled,")),)),
@@ -458,6 +554,15 @@ ENTRIES = {"ring_bwd.cu": ("fa_ring_bwd_bf16", "RING_BWD_ARGTYPES", "ring"),
            "flash_bwd_sm90.cu": ("fa_bwd_sm90", "BWD_SM90_ARGTYPES", "k3"),
            "flash_fwd_sm90.cu": ("fa_fwd_sm90", "FWD_SM90_ARGTYPES", "k1cap"),
            "flash_bwd_f32.cu": ("fa_bwd_f32", "BWD_F32_ARGTYPES", "f32")}
+# Variants whose family is not their source's.
+FAMILY = {"K1 D256": "k1wide", "K1 D256 interleaved": "k1wide", "K1 D256 K / V barriers": "k1wide",
+          "K1 D256 224 registers": "k1wide"}
+
+
+def _family(name: str) -> str:
+    return FAMILY.get(name, ENTRIES[VARIANTS[name][0]][2])
+
+
 # Sources a variant's library is linked with beside its own.
 EXTRA_SOURCES = {"flash_bwd_f32.cu": ("split_bf16x3.cu",)}
 
@@ -472,7 +577,7 @@ def build(families) -> dict:
     root = native.BUILD_DIR / "variants"
     procs = {}
     for i, (name, (src, patches)) in enumerate(VARIANTS.items()):
-        if ENTRIES[src][2] not in families:
+        if _family(name) not in families:
             continue
         d = root / str(i)
         shutil.rmtree(d, ignore_errors=True)
@@ -708,6 +813,56 @@ def k1cap(libs: dict) -> None:
     _report(times)
 
 
+def k1wide(libs: dict) -> None:
+    from flashattn_tpu_torch.ops import flash_fwd
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    def inputs(B, Hq, Hkv, N, D):
+        q, k, v = (cs._bnhd(x) for x in make_qkv(71, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16,
+                                                  device="cuda"))
+        return q, k, v, torch.empty_like(q), torch.empty((B, Hq, N), dtype=torch.float32,
+                                                          device="cuda")
+
+    B, Hq, Hkv, N, D = cs.WIDE_SHAPE
+    q, k, v, o, lse = inputs(B, Hq, Hkv, N, D)
+    kw = dict(scale=D ** -0.5, causal=True, window=None, softcap=None)
+    o_want, lse_want = flash_fwd.fwd_reference(q.float(), k.float(), v.float(), scale=D ** -0.5,
+                                               causal=True)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(lib):
+        return flash_fwd._launch_dense_sm90(lib, q, k, v, o, lse, None, kv_valid_len=q.shape[2],
+                                            stream=stream, **kw)
+
+    for name, lib in libs.items():
+        o.zero_()
+        rc = call(lib)
+        torch.cuda.synchronize()
+        print(f"[check] {name}: rc {rc}, O max abs err "
+              f"{(o.float() - o_want).abs().max().item():.3e}, relative L2 "
+              f"{cs._rel(o.float(), o_want):.3e}, LSE max abs err "
+              f"{(lse - lse_want).abs().max().item():.3e}", flush=True)
+    del o_want, lse_want
+    torch.cuda.empty_cache()
+    times = {}
+    for label, causal in (("LM D256", True), ("non-causal D256", False), ("LM D128", True)):
+        kw["causal"] = causal
+        if label == "LM D128":
+            q, k, v, o, lse = inputs(1, 16, 8, N, 128)
+            kw["scale"] = 128 ** -0.5
+        for rnd in range(10):
+            for name, lib in (libs.items() if rnd % 2 == 0 else reversed(libs.items())):
+                times.setdefault((name, label), []).append(
+                    cs.cuda_ms(lambda: call(lib), reps=20, trials=3))
+    _report(times)
+    for (name, label), ts in times.items():
+        if name != "K1 D256":
+            base = times[("K1 D256", label)]
+            wins = sum(t < b for t, b in zip(ts, base))
+            print(f"[pairs] {name} {label}: faster than the committed form in {wins} of "
+                  f"{len(ts)} rounds", flush=True)
+
+
 def f32(libs: dict) -> None:
     from flashattn_tpu_torch.ops import f32_split, flash_bwd, flash_bwd_fused, flash_fwd
     from flashattn_tpu_torch.utils.testing import make_qkv
@@ -750,14 +905,14 @@ def f32(libs: dict) -> None:
 
 
 def main() -> None:
-    families = sys.argv[1:] or ["ring", "bias", "k3", "k1cap", "f32"]
+    families = sys.argv[1:] or ["ring", "bias", "k3", "k1cap", "k1wide", "f32"]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     libs = build(families)
     for family, run in (("ring", ring), ("bias", bias), ("k3", k3), ("k1cap", k1cap),
-                        ("f32", f32)):
+                        ("k1wide", k1wide), ("f32", f32)):
         if family in families:
-            run({n: lib for n, lib in libs.items() if ENTRIES[VARIANTS[n][0]][2] == family})
+            run({n: lib for n, lib in libs.items() if _family(n) == family})
 
 
 if __name__ == "__main__":

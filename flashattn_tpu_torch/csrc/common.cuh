@@ -1,6 +1,6 @@
 // Device helpers shared by the port's attention kernels (sm_90a):
 // mma.sync m16n8k16 bf16 with f32 accumulation, ldmatrix, 16-byte tile
-// loads into padded shared memory, and segment-id ranges for tile skipping.
+// loads into padded shared memory, and the test of two segment-id ranges.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
@@ -126,25 +126,6 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat
     }
     *reinterpret_cast<uint4*>(smem + r * STRIDE + c * 8) = val;
   }
-}
-
-// Packed-sequence tile skipping (flashattn_tpu/ops/flash.py::_seg_block_flags):
-// the (min, max) of the segment ids ids[0, n), identical in every lane of the
-// calling warp. Every warp of a CTA computes it from the same ids, so a skip
-// decided on it is uniform across the CTA. n == 0 gives an empty range.
-__device__ __forceinline__ int2 warp_id_range(const int* ids, int n) {
-  int lo = 0x7fffffff;
-  int hi = -0x7fffffff - 1;
-  for (int i = threadIdx.x % 32; i < n; i += 32) {
-    lo = min(lo, ids[i]);
-    hi = max(hi, ids[i]);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-  }
-  return make_int2(lo, hi);
 }
 
 // Two tiles can hold a matching pair only if their id ranges intersect; a

@@ -8,5 +8,5 @@
 #include "fwd_tile.cuh"
 
 cudaError_t fa::fwd_bias_bf16(const FwdParams& p, int batch, cudaStream_t stream) {
-  return fwd_launch_wide<false, true, false, false>(p, batch, stream);
+  return fwd_launch_wide<false>(p, batch, stream);
 }

@@ -7,6 +7,6 @@
 #include "fwd_tile.cuh"
 
 cudaError_t fa::fwd_fp8(const FwdParams& p, int batch, cudaStream_t stream) {
-  return p.bias != nullptr ? fwd_launch<false, true, KV_FP8>(p, batch, stream)
-                           : fwd_launch<false, false, KV_FP8>(p, batch, stream);
+  return p.bias != nullptr ? fwd_launch<true, KV_FP8>(p, batch, stream)
+                           : fwd_launch<false, KV_FP8>(p, batch, stream);
 }

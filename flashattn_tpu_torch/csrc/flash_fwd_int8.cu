@@ -7,6 +7,6 @@
 #include "fwd_tile.cuh"
 
 cudaError_t fa::fwd_int8(const FwdParams& p, int batch, cudaStream_t stream) {
-  return p.bias != nullptr ? fwd_launch<false, true, KV_INT8>(p, batch, stream)
-                           : fwd_launch<false, false, KV_INT8>(p, batch, stream);
+  return p.bias != nullptr ? fwd_launch<true, KV_INT8>(p, batch, stream)
+                           : fwd_launch<false, KV_INT8>(p, batch, stream);
 }

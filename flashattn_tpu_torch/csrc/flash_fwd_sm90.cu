@@ -1,13 +1,16 @@
 // K1's dense route for Hopper (sm_90a): the C entry fa_fwd_sm90 and the
-// eight instantiations (D 64 and 128, without and with segment ids, without
-// and with the logit softcap) of fwd_sm90_tile.cuh's body without the bias
-// stream, as fwd_dense_sm90_kernel<D, SEG, CAP>. The causal / window band and
+// twelve instantiations (D 64, 128 and 256, without and with segment ids,
+// without and with the logit softcap) of fwd_sm90_tile.cuh's body without
+// the bias stream, as fwd_dense_sm90_kernel<D, SEG, CAP>. D 256 takes every
+// head dim from 136 (its TMA boxes read zeros past D): since it, no bf16
+// call without a bias reaches fwd_tile.cuh. The causal / window band and
 // the tails are runtime ints, as in K7 (ring_fwd.cu), and segment ids and
 // the softcap the compile-time options: a runtime segment flag cost
 // fwd_tile's K1 without segments 50% (PERF.md §6), and the cap puts a tanhf
 // on every score. What it replaces, what bounds it and its design are in
 // fwd_sm90_tile.cuh; the route (ops/flash_fwd.py::dense_route) is decided in
-// Python, and the calls it refuses keep fwd_tile.cuh (fa_fwd, flash_fwd.cu).
+// Python, and the calls it refuses (a bias, int8 / fp8 K/V) go to other
+// kernels.
 
 #include "fwd_sm90_tile.cuh"
 
@@ -63,7 +66,7 @@ extern "C" {
 //     each 64-key tile's keys below kv_valid_len,
 // with q_tiles = ceil(Nq / 128) and kv_tiles = ceil(kv_valid_len / 64).
 // softcap > 0 caps the scaled scores at softcap * tanh(s / softcap), 0 none.
-// Requires 8 <= D <= 128 with D % 8 == 0, Hq % Hkv == 0, 1 <= Nq,
+// Requires 8 <= D <= 256 with D % 8 == 0, Hq % Hkv == 0, 1 <= Nq,
 // 0 <= kv_valid_len <= Nk, B <= 65535; q, k, v 16-byte aligned with strides
 // that are multiples of 8 elements and nonzero on dims of extent > 1 (TMA's);
 // o 4-byte aligned with even strides; seg_kv 16-byte aligned. Returns a
@@ -81,7 +84,7 @@ int fa_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
   // kv_valid_len 0 no KV tile is loaded).
   const int nkv = kv_valid_len > 0 ? kv_valid_len : 1;
   const bool seg = seg_q != nullptr;
-  if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
+  if (d < 8 || d > 256 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
       hq % hkv != 0 || nq < 1 || (nq + FB_BLOCK_M - 1) / FB_BLOCK_M > 65535 ||
       kv_valid_len < 0 || !(softcap >= 0.f) || !aligned(q, 16) || !aligned(k, 16) ||
       !aligned(v, 16) ||
@@ -116,7 +119,7 @@ int fa_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
   p.d = d;
   p.kv_valid_len = kv_valid_len;
   band_bounds(causal, wl, wr, &p.lo, &p.hi,
-              static_cast<int64_t>(q_off) - kv_off);
+              static_cast<int64_t>(q_off) - kv_off);  // K1 dense offsets
   p.q_tiles = (nq + FB_BLOCK_M - 1) / FB_BLOCK_M;
   p.kv_tiles = (kv_valid_len + FB_BLOCK_N - 1) / FB_BLOCK_N;
   p.scale_log2 = scale * fa::LOG2E;
@@ -124,8 +127,10 @@ int fa_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
   p.cap_scale = cap ? scale / softcap : 0.f;
   p.cap_log2 = softcap * fa::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = d <= 64 ? fwd_dense_dispatch<64>(tm_q, tm_k, tm_v, p, cap, batch, s)
-                                : fwd_dense_dispatch<128>(tm_q, tm_k, tm_v, p, cap, batch, s);
+  const cudaError_t e =
+      d <= 64    ? fwd_dense_dispatch<64>(tm_q, tm_k, tm_v, p, cap, batch, s)
+      : d <= 128 ? fwd_dense_dispatch<128>(tm_q, tm_k, tm_v, p, cap, batch, s)
+                 : fwd_dense_dispatch<256>(tm_q, tm_k, tm_v, p, cap, batch, s);
   return static_cast<int>(e);
 }
 

@@ -17,9 +17,10 @@
 // bit the convention K3 / K5 / K6 read). GQA maps query head h to KV head
 // h / rep; Q, K, V and O are strided views.
 //
-//   * Both routes take any D that is a multiple of 8 up to 128,
-//     instantiated at 64 and 128: D 40, 80 or 96 read zeros past D from the
-//     TMA boxes, and O's columns >= D are never written. Both take the
+//   * The bias route takes any D that is a multiple of 8 up to 128, the
+//     dense route any up to 256, instantiated at 64, 128 and (dense) 256:
+//     D 40, 80, 96 or 136-248 read zeros past D from the TMA boxes, and O's
+//     columns >= D are never written. Both take the
 //     softcap (CAP, a template flag): the accurate tanhf, which the
 //     backward's recompute uses too -- a P that differs from the backward's
 //     breaks sum(P) = 1 behind Delta.
@@ -85,8 +86,8 @@
 //     one row) stay conflict-free. Grid (head, Q tile, batch): the head
 //     varies fastest, so the 16 CTAs that share a [B, 1, N, N] bias tile run
 //     together and read it from HBM once.
-//   * The dense route: 4 stages of (K, V) and one thread issuing every copy
-//     (K7's producer). The CTA visits only the KV tiles that meet its rows'
+//   * The dense route: 4 stages of (K, V) (2 at D 256) and one thread
+//     issuing every copy (K7's producer). The CTA visits only the KV tiles that meet its rows'
 //     band, [m0 - lo, m0 + 127 + hi], so a window of w costs ~w columns a
 //     row; each warpgroup skips (and releases unread) the tiles that miss its
 //     own 64 rows, and masks only the tiles that the band, the KV tail or a
@@ -99,6 +100,14 @@
 //     others are masked per pair from the rows' ids (read once) and the
 //     tile's 64 ids (padded by the wrapper to whole tiles), which come by a
 //     bulk copy on the stage's barrier.
+//   * D 256 (the dense route; Gemma 2's heads): Q takes 64 KB and a (K, V)
+//     stage 64 KB, so the ring has 2 stages (FbSmem); a consumer keeps O's
+//     128 f32 accumulators, so setmaxnreg gives it 240 registers and the
+//     producer 24; P V is one wgmma m64n256k16 a k-step (sm90.cuh). At the
+//     LM's attention (B1 Hq8 Hkv4 N2048 D256 causal) the grid is 8 x 16 =
+//     128 CTAs, one wave on 132 SMs: the longest visits 32 KV tiles, 268
+//     MFLOP, 0.036 ms at one SM's share of 989 TFLOP/s, the floor of this
+//     grid there.
 //   * The softmax spends one MUFU.EX2 per score (with CAP, tanhf's
 //     exponential and reciprocal too). With a right bound
 //     (causal) the longest Q tiles go first, so the tail of the grid is
@@ -156,10 +165,13 @@ constexpr int FB_BOX_ROW = 128;  // bytes per row of a 64-column bf16 box (the s
 // Shared-memory layout (bytes, from a 1024-byte-aligned base): Q, then per
 // stage K, V (each D / 64 boxes of 64 columns) and, with BIAS, the bias
 // tile; without, the 64 segment ids of each stage; then the mbarriers
-// q_full, full[STAGES], empty[STAGES].
+// q_full, full[STAGES], empty[STAGES]. D 256 (the dense route only): Q 64 KB
+// and 2 stages of (K, V) 64 KB, 193 KB in all; a third stage would pass 227
+// KB. (K and V on barriers of their own, so that S = Q K^T starts once K has
+// landed, measured no faster: chip_variants.py k1wide.)
 template <int D, bool BIAS = true>
 struct FbSmem {
-  static constexpr int STAGES = D == 64 || !BIAS ? 4 : 3;
+  static constexpr int STAGES = D == 256 ? 2 : D == 64 || !BIAS ? 4 : 3;
   static constexpr int Q = FB_BLOCK_M * D * 2;
   static constexpr int KV = FB_BLOCK_N * D * 2;
   static constexpr int BIAS_TILE = BIAS ? FB_BLOCK_M * FB_BLOCK_N * 4 : 0;
@@ -313,9 +325,18 @@ __device__ __forceinline__ int2 kv_tile_range(const FwdDenseParams& p, int b, in
 template <int D, bool BIAS, bool SEG, bool CAP, typename Params>
 __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                               const CUtensorMap& tm_v, const Params& p) {
-  static_assert(D == 64 || D == 128, "instantiated for D 64 and 128");
+  static_assert(D == 64 || D == 128 || (D == 256 && !BIAS),
+                "instantiated for D 64 and 128, and the dense route's D 256");
   static_assert(!(BIAS && SEG), "the bias route takes no segment ids");
   using S = FbSmem<D, BIAS>;
+  // setmaxnreg's split of the registers between the producer and each
+  // consumer warpgroup (56 + 2 x 224 = 24 + 2 x 240): at D 256 a consumer
+  // keeps o[128], sc[32] and pa[16], so the producer (one thread issuing
+  // copies) goes down to 24 and the consumers up to 240, as
+  // FlashAttention-3's Hopper forward splits them (56 / 224 there: 4-14%
+  // slower, chip_variants.py k1wide).
+  constexpr int PRODUCER_REGS = D == 256 ? 24 : 56;
+  constexpr int CONSUMER_REGS = D == 256 ? 240 : 224;
   constexpr int BOXES = D / 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -370,7 +391,7 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
   __syncthreads();
 
   if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     const int hk = h / p.rep;  // GQA: the BlockSpec index map h // rep
     if constexpr (BIAS) {
       // Producer: thread 0 issues the TMA loads, all 128 threads the bias copies.
@@ -437,10 +458,17 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
         const int n0 = n_begin + j * FB_BLOCK_N;
         unsigned char* st = stage(it);
         mbar_wait(&empty[s], ((it / S::STAGES) & 1) ^ 1);  // round 0 passes at once
+        // K's boxes, then V's: each tensor's rows read whole, one after the
+        // other (K's and V's boxes in turn measured 7% slower at the D 256
+        // LM's attention and 12% non-causal, no different at D 128;
+        // chip_variants.py k1wide).
         mbar_expect_tx(&full[s], 2 * S::KV + (SEG ? FB_BLOCK_N * 4 : 0));
 #pragma unroll
         for (int x = 0; x < BOXES; ++x) {
           tma_load_4d(st + x * FB_BLOCK_N * FB_BOX_ROW, &tm_k, &full[s], 64 * x, n0, hk, b);
+        }
+#pragma unroll
+        for (int x = 0; x < BOXES; ++x) {
           tma_load_4d(st + S::KV + x * FB_BLOCK_N * FB_BOX_ROW, &tm_v, &full[s], 64 * x, n0, hk,
                       b);
         }
@@ -454,7 +482,7 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
     }
   } else {
     // Consumers: warpgroup 1 owns rows m0..m0+63, warpgroup 2 rows m0+64..m0+127.
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int half = wg - 1;
     const int warp = tid / 32;
     const int lane = tid % 32;

@@ -1,14 +1,19 @@
-// FlashAttention-2 forward for Hopper (sm_90a), bf16 tensor cores: the
-// kernel body shared by the K1 sources.
+// FlashAttention-2 forward for Hopper (sm_90a) on mma.sync: the kernel body
+// of the K1 calls that no TMA + wgmma route takes -- an additive bias above
+// D 128 (flash_fwd_bias.cu; with the logit softcap, flash_fwd_softcap.cu)
+// and int8 / fp8 K/V that are not decode-shaped (flash_fwd_int8.cu,
+// flash_fwd_fp8.cu, with or without a bias) -- reached through fa_fwd
+// (flash_fwd.cu). Every bf16 call without a bias goes to K1's dense route
+// (fwd_sm90_tile.cuh, D <= 256), a bias at D <= 128 to its bias route.
 //
-// Replaces the TPU kernels flashattn_tpu/ops/flash_fwd.py::_fwd_kernel (K1,
-// :115) on its flat and dense-grid routes, and, with causal, the whole-sequence
-// banded flashattn_tpu/ops/flash_fwd.py::_fwd_causal_resident_kernel (K2,
-// :516): KV tail, GQA, optional top-left causal mask, segment ids, an additive
-// bias, and int8 / fp8 e4m3 K/V with per-token f32 scales. It computes what
-// those kernels compute -- O = softmax(Q K^T * scale + bias) V with the online
-// softmax in the log2 domain, f32 running max / sum / accumulator, and the row
-// LSE in natural log (m * ln2 + log l) -- but is not a block-by-block copy:
+// Replaces, for those calls, the TPU kernels flashattn_tpu/ops/flash_fwd.py::
+// _fwd_kernel (K1, :115) and, with causal, _fwd_causal_resident_kernel (K2,
+// :516): KV tail, GQA, an optional top-left causal mask, an additive bias,
+// the logit softcap and int8 / fp8 e4m3 K/V with per-token f32 scales. It
+// computes what those kernels compute -- O = softmax(Q K^T * scale + bias) V
+// with the online softmax in the log2 domain, f32 running max / sum /
+// accumulator, and the row LSE in natural log (m * ln2 + log l) -- but is
+// not a block-by-block copy:
 //
 //   * The TPU walks KV tiles on a sequential grid axis and carries (m, l, acc)
 //     in VMEM scratch between grid steps. Here CTAs run in parallel in no
@@ -24,33 +29,15 @@
 //   * K/V tail rows are never read past kv_valid_len; their scores are set to
 //     the finite mask value (ops/oracle.py DEFAULT_MASK_VALUE) before the max.
 //     A ragged Q tail is masked on store. A row that sees no valid key
-//     (kv_valid_len == 0, or no key of its segment) stores zeros and
-//     lse = ln2 * mask, the package's dead-row convention.
-//   * Causal and sliding window (absolute positions, top-left aligned with
-//     zero offsets, also when Nq != Nk; flash_fwd.py::_range_predicates):
-//     row i sees column j iff i - lo <= j <= i + hi, where hi is 0 with
-//     causal, else the window's right bound, and lo the window's left bound
-//     (NO_BOUND on an unbounded side). The CTA of Q tile m0 visits only the
-//     KV tiles that meet columns [m0 - lo, m0 + 63 + hi] -- the tile
-//     skipping that K2 gets from its static tile table, so a window of w
-//     costs ~w columns per row, not N -- and masks with the finite mask value
-//     only on the edge tiles that hold a pair outside the band. A row that
-//     the band leaves no column (Nq > Nk + lo) is a dead row. Without a
-//     window the band is causal's alone: KV tiles up to the diagonal, masked
-//     col > row on the diagonal tiles. With causal, CTAs are issued
-//     longest-first (the last Q tile gets blockIdx.x == 0).
+//     (kv_valid_len == 0) stores zeros and lse = ln2 * mask, the package's
+//     dead-row convention.
+//   * Causal (top-left aligned, also when Nq != Nk): the CTA of Q tile m0
+//     visits only the KV tiles whose first column is <= its last row and
+//     masks col > row on the diagonal tiles; CTAs are issued longest-first
+//     (the last Q tile gets blockIdx.x == 0).
 //   * Q/K/V/O are addressed through (batch, head, seq) strides in elements
 //     with a unit head-dim stride, so the models' [B, N, H, D] projections
 //     and KV caches reach the kernel as transposed views without a copy.
-//   * Segments (packed sequences): with int32 ids seg_q [B, Nq] and seg_kv
-//     [B, Nk], pair (i, j) attends iff seg_q[i] == seg_kv[j], AND-composed
-//     with causal and the KV tail. The ids are read only below Nq and
-//     kv_valid_len, so the TPU's -1/-2 padding sentinels have no counterpart.
-//     A KV tile whose id range is disjoint from the Q tile's is skipped
-//     before it is loaded (flash.py::_seg_block_flags, computed per tile in
-//     the kernel), so packed attention costs the sum of the per-document
-//     areas; the pairs of a visited tile are masked per element. A row that
-//     matches no key is a dead row like a kv_valid_len == 0 row.
 //   * Bias (flash_fwd.py:319-320): an f32 [B|1, H|1, Nq|1, Nk] tensor read
 //     through (batch, head, row) strides that are 0 on broadcast dims, with a
 //     unit column stride, so a [1, 1, 1, Nk] key mask is never
@@ -73,37 +60,18 @@
 //     order) and the masks. tanhf is the accurate one (no fast-math): the
 //     backward's 1 - t^2 amplifies its error near saturation.
 //
-// Segments, bias, softcap, the window and the K/V element type are template
-// parameters: a runtime segment flag measured 0.234 -> 0.350 ms on K1 without
-// segments at the U-Net shape (register pressure, PERF.md), and the window's
-// two ints as runtime parameters measured +13.7% there, so each
-// instantiation carries only the options it takes (the window's bounds stay
-// runtime ints, read only by the windowed instantiations); softcap puts a
-// tanhf on every score. The sources instantiate (flash_fwd.cu) bf16 with and
-// without segments, (flash_fwd_bias.cu) bf16 with bias, (flash_fwd_int8.cu,
-// flash_fwd_fp8.cu) quantized K/V with and without bias,
-// (flash_fwd_softcap.cu) softcap on bf16 K/V with segments, with bias or with
-// neither, and (flash_fwd_window.cu, flash_fwd_softcap_window.cu) the window
-// on bf16 K/V without bias, with or without segments, without and with
-// softcap, each compiled by its own nvcc in parallel. Each family is a
-// kernel of its own name -- fwd_kernel, fwd_softcap_kernel,
-// fwd_window_kernel -- around the one body fwd_tile.
+// The bias, the softcap and the K/V element type are template parameters,
+// so each instantiation carries only the options it takes (a runtime
+// segment flag once cost this body 50%, PERF.md): fwd_kernel<DP, BIAS, KV>
+// for a bias on bf16 K/V above D 128 and for int8 / fp8 K/V at every padded
+// D, fwd_softcap_kernel<DP> for the softcap with a bias above D 128.
 //
-// What bounds it: at the U-Net shape (B1 H8 N4096 D40) the softmax's exp2 /
-// FMA / shuffle work on the 64x64 score tile competes with the thin matrix
-// products, and synchronous global->shared loads stall the warps between
-// tiles. So ops/flash_fwd.py sends most calls elsewhere, and this body keeps
-// those that no Hopper route takes: D 129-256, and int8 / fp8 K/V that are
-// not decode-shaped. Decode-shaped calls (at most 32 query rows per KV head
-// after the GQA fold, not causal, no window or segment ids, D 64 or 128)
-// take the split-KV decode kernel of decode_tile.cuh
-// (ops/flash_fwd.py::decode_route); the other calls with a bias on bf16 K/V
-// at D <= 128, with or without the softcap, the bias route of
-// fwd_sm90_tile.cuh (bias_route); and every other call on bf16 K/V at D <=
-// 128, with or without causal, a window, segment ids or the softcap, the
-// dense route of fwd_sm90_tile.cuh (dense_route). So every bf16 family here
-// -- fwd_kernel<DP, SEG, BIAS, KV_BF16>, fwd_softcap_kernel and
-// fwd_window_kernel -- is instantiated above D 128 only (fwd_launch_wide).
+// What bounds it: mma.sync at 16 rows per warp, synchronous global->shared
+// loads between two block barriers, and one dependent scalar bias load per
+// score: K1 on this body ran at ~100 TFLOP/s where the TMA + wgmma routes
+// reach 234-358 (PERF.md §6). What it keeps is off the main paths: a bias
+// above D 128 has no backward on the card, and decode-shaped quantized calls
+// take decode_tile.cuh.
 
 #pragma once
 
@@ -120,8 +88,6 @@ struct FwdParams {
   const void* v;
   __nv_bfloat16* o;
   float* lse;          // [B, Hq, Nq] contiguous
-  const int* seg_q;    // [B, Nq] segment ids (row stride seg_q_sb), or null
-  const int* seg_kv;   // [B, Nk] segment ids (row stride seg_kv_sb), or null
   const float* bias;   // f32, unit column stride, or null
   const float* k_scale;  // [B, Hkv, Nk] f32 per-token scales (quantized K/V)
   const float* v_scale;
@@ -129,13 +95,10 @@ struct FwdParams {
   int64_t k_sb, k_sh, k_sn;
   int64_t v_sb, v_sh, v_sn;
   int64_t o_sb, o_sh, o_sn;
-  int64_t seg_q_sb, seg_kv_sb;
   int64_t bias_sb, bias_sh, bias_sn;  // 0 on broadcast dims
   int64_t ks_sb, ks_sh, ks_sn;
   int64_t vs_sb, vs_sh, vs_sn;
   int hq, rep, nq, d, kv_valid_len, causal;
-  // Band: row i sees column j iff i - lo <= j <= i + hi (NO_BOUND: no bound).
-  int lo, hi;
   float scale_log2;  // softmax scale * log2(e)
   float cap_scale;   // softcap: softmax scale / cap
   float cap_log2;    // softcap: cap * log2(e)
@@ -143,14 +106,11 @@ struct FwdParams {
 
 // One launch of an instantiation family over every padded head dim; defined
 // in the source that instantiates the family.
-cudaError_t fwd_bf16(const FwdParams& p, int batch, cudaStream_t stream);       // flash_fwd.cu
 cudaError_t fwd_bias_bf16(const FwdParams& p, int batch, cudaStream_t stream);  // flash_fwd_bias.cu
 cudaError_t fwd_int8(const FwdParams& p, int batch, cudaStream_t stream);       // flash_fwd_int8.cu
 cudaError_t fwd_fp8(const FwdParams& p, int batch, cudaStream_t stream);        // flash_fwd_fp8.cu
-cudaError_t fwd_softcap_bf16(const FwdParams& p, int batch, cudaStream_t stream);  // flash_fwd_softcap.cu
-cudaError_t fwd_window_bf16(const FwdParams& p, int batch, cudaStream_t stream);   // flash_fwd_window.cu
-cudaError_t fwd_softcap_window_bf16(const FwdParams& p, int batch,
-                                    cudaStream_t stream);  // flash_fwd_softcap_window.cu
+cudaError_t fwd_softcap_bias_bf16(const FwdParams& p, int batch,
+                                  cudaStream_t stream);  // flash_fwd_softcap.cu
 
 }  // namespace fa
 
@@ -202,10 +162,9 @@ __device__ __forceinline__ void load_kv_tile(__nv_bfloat16* smem,
   }
 }
 
-// SEG: segment ids; BIAS: additive bias; KV: K/V element type (quantized
-// when not KV_BF16, with p.k_scale / p.v_scale); CAP: logit soft-capping;
-// WIN: the sliding window (p.lo, p.hi; without it the band is causal's).
-template <int DP, bool SEG, bool BIAS, int KV, bool CAP, bool WIN>
+// BIAS: additive bias; KV: K/V element type (quantized when not KV_BF16,
+// with p.k_scale / p.v_scale); CAP: logit soft-capping.
+template <int DP, bool BIAS, int KV, bool CAP>
 __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
   constexpr bool QUANT = KV != KV_BF16;
   static_assert(!(CAP && QUANT), "softcap takes bf16 K/V only (the JAX ValueError)");
@@ -222,8 +181,7 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
   __nv_bfloat16* s_q = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* s_k = s_q + BLOCK_M * STRIDE;
   __nv_bfloat16* s_v = s_k + BLOCK_N * STRIDE;
-  // The KV tile's segment ids, or its K and V scales.
-  int* s_seg = reinterpret_cast<int*>(s_v + BLOCK_N * STRIDE);
+  // The KV tile's K and V scales.
   float* s_ks = reinterpret_cast<float*>(s_v + BLOCK_N * STRIDE);
   float* s_vs = s_ks + BLOCK_N;
 
@@ -256,30 +214,14 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
 
   const __nv_bfloat16* s_qw = s_q + warp * 16 * STRIDE;
   const int nkv = p.kv_valid_len;
-  // Causal: only KV tiles whose first column is <= this tile's last row; with
-  // a window, only those that meet columns [m0 - lo, m0 + 63 + hi].
-  int n_begin = 0;
-  int n_end = p.causal ? min(nkv, m0 + BLOCK_M) : nkv;
-  if constexpr (WIN) {
-    n_begin = p.lo < NO_BOUND ? max(0, m0 - p.lo) / BLOCK_N * BLOCK_N : 0;
-    n_end = p.hi < NO_BOUND ? min(nkv, m0 + BLOCK_M + p.hi) : nkv;
-  }
-  const int n_tiles = (n_end - n_begin + BLOCK_N - 1) / BLOCK_N;
+  // Causal: only KV tiles whose first column is <= this tile's last row.
+  const int n_end = p.causal ? min(nkv, m0 + BLOCK_M) : nkv;
+  const int n_tiles = (n_end + BLOCK_N - 1) / BLOCK_N;
   // ldmatrix.trans lane -> (row, col) of the 16x16 V block it addresses.
   const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int v_col = (lane >> 4) * 8;
 
-  // Segments: the ids of rows g and g + 8 and the id range of the Q tile.
   const int row0 = m0 + warp * 16 + g;
-  const int* kv_ids = SEG ? p.seg_kv + b * p.seg_kv_sb : nullptr;
-  int q_seg[2] = {0, 0};
-  int2 q_range = make_int2(0, 0);
-  if (SEG) {
-    const int* q_ids = p.seg_q + b * p.seg_q_sb;
-    q_range = warp_id_range(q_ids + m0, min(BLOCK_M, p.nq - m0));
-    q_seg[0] = row0 < p.nq ? q_ids[row0] : 0;
-    q_seg[1] = row0 + 8 < p.nq ? q_ids[row0 + 8] : 0;
-  }
   // Bias: the rows g and g + 8 (null past Nq: those rows are never stored).
   const float* bias_row[2] = {nullptr, nullptr};
   if (BIAS) {
@@ -291,14 +233,11 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
   const float* vs_g = QUANT ? p.v_scale + b * p.vs_sb + hk * p.vs_sh : nullptr;
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = n_begin + j * BLOCK_N;
+    const int n0 = j * BLOCK_N;
     const int kv_rows = min(BLOCK_N, nkv - n0);
-    // A tile of other documents only: skip it (uniform across the CTA).
-    if (SEG && !ranges_meet(q_range, warp_id_range(kv_ids + n0, kv_rows))) continue;
     __syncthreads();  // the previous tile is consumed (and s_q is complete)
     load_kv_tile<DP, BLOCK_N, FWD_THREADS, KV>(s_k, k_g + n0 * p.k_sn, p.k_sn, kv_rows, p.d);
     load_kv_tile<DP, BLOCK_N, FWD_THREADS, KV>(s_v, v_g + n0 * p.v_sn, p.v_sn, kv_rows, p.d);
-    if (SEG && threadIdx.x < kv_rows) s_seg[threadIdx.x] = kv_ids[n0 + threadIdx.x];
     if (QUANT && threadIdx.x < BLOCK_N) {
       // 0 past the tail: those columns carry P = 0, and 0 * 0 stays 0.
       const bool live = threadIdx.x < kv_rows;
@@ -328,12 +267,9 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
 
     // Scale into the log2 domain in f32 (with quantized K, the column's K
     // scale first; with softcap, through the cap); add the bias; mask the KV
-    // tail, on edge tiles the pairs outside the band (causal's upper triangle
-    // col > row; with a window col - row > hi or row - col > lo), and pairs of
-    // two segments.
+    // tail and, on causal's diagonal tiles, its upper triangle col > row.
     const bool tail = n0 + BLOCK_N > nkv;
-    const bool edge = WIN ? n0 + BLOCK_N - 1 - m0 > p.hi || m0 + BLOCK_M - 1 - n0 > p.lo
-                          : p.causal && n0 + BLOCK_N - 1 > m0;
+    const bool edge = p.causal && n0 + BLOCK_N - 1 > m0;
     float mx[2] = {m_i[0], m_i[1]};
 #pragma unroll
     for (int nt = 0; nt < NT_S; ++nt) {
@@ -354,10 +290,7 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
           x = fmaxf(x + __ldg(bias_row[e >> 1] + col) * LOG2E, MASK_VALUE);
         }
         const int row = row0 + 8 * (e >> 1);
-        const bool out = WIN ? col - row > p.hi || row - col > p.lo : col > row;
-        if ((tail && col >= nkv) || (edge && out) || (SEG && s_seg[cl] != q_seg[e >> 1])) {
-          x = MASK_VALUE;
-        }
+        if ((tail && col >= nkv) || (edge && col > row)) x = MASK_VALUE;
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -435,36 +368,29 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
   }
 }
 
-template <int DP, bool SEG, bool BIAS, int KV>
+template <int DP, bool BIAS, int KV>
 __global__ void __launch_bounds__(FWD_THREADS) fwd_kernel(const FwdParams p) {
-  fwd_tile<DP, SEG, BIAS, KV, false, false>(p);
+  fwd_tile<DP, BIAS, KV, false>(p);
 }
 
-template <int DP, bool SEG, bool BIAS>
+// The softcap with a bias (bf16 K/V above D 128: the call that K1's bias
+// route takes at D <= 128).
+template <int DP>
 __global__ void __launch_bounds__(FWD_THREADS) fwd_softcap_kernel(const FwdParams p) {
-  fwd_tile<DP, SEG, BIAS, KV_BF16, true, false>(p);
+  fwd_tile<DP, true, KV_BF16, true>(p);
 }
 
-// The window, on bf16 K/V without bias (the paths that take one).
-template <int DP, bool SEG, bool CAP>
-__global__ void __launch_bounds__(FWD_THREADS) fwd_window_kernel(const FwdParams p) {
-  fwd_tile<DP, SEG, false, KV_BF16, CAP, true>(p);
-}
-
-template <int DP, bool SEG, bool BIAS, int KV, bool CAP, bool WIN>
+template <int DP, bool BIAS, int KV, bool CAP>
 cudaError_t fwd_launch_dp(const FwdParams& p, int batch, cudaStream_t stream) {
-  static_assert(!WIN || (!BIAS && KV == KV_BF16), "the window takes bf16 K/V without bias");
+  static_assert(!CAP || (BIAS && KV == KV_BF16), "the softcap family takes a bias on bf16 K/V");
   size_t smem = static_cast<size_t>(FWD_BLOCK_M + 2 * FWD_BLOCK_N) * (DP + 8) *
                 sizeof(__nv_bfloat16);
-  if (SEG) smem += FWD_BLOCK_N * sizeof(int);
   if (KV != KV_BF16) smem += 2 * FWD_BLOCK_N * sizeof(float);
   void (*kernel)(const FwdParams);
-  if constexpr (WIN) {
-    kernel = fwd_window_kernel<DP, SEG, CAP>;
-  } else if constexpr (CAP) {
-    kernel = fwd_softcap_kernel<DP, SEG, BIAS>;
+  if constexpr (CAP) {
+    kernel = fwd_softcap_kernel<DP>;
   } else {
-    kernel = fwd_kernel<DP, SEG, BIAS, KV>;
+    kernel = fwd_kernel<DP, BIAS, KV>;
   }
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -473,45 +399,45 @@ cudaError_t fwd_launch_dp(const FwdParams& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 K/V, with or without segment ids, a bias, the softcap or the window
-// (WIN): one instantiation per padded head dim above 128, the calls that
-// K1's Hopper routes (fa_fwd_sm90, fa_fwd_bias_sm90) do not take; a smaller
-// D is refused.
-template <bool SEG, bool BIAS, bool CAP, bool WIN>
+// bf16 K/V with a bias, with or without the softcap: one instantiation per
+// padded head dim above 128, the calls that K1's bias route
+// (fa_fwd_bias_sm90) does not take; a smaller D is refused.
+template <bool CAP>
 cudaError_t fwd_launch_wide(const FwdParams& p, int batch, cudaStream_t s) {
   switch ((p.d + 15) / 16 * 16) {
-    case 144: return fwd_launch_dp<144, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
-    case 160: return fwd_launch_dp<160, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
-    case 176: return fwd_launch_dp<176, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
-    case 192: return fwd_launch_dp<192, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
-    case 208: return fwd_launch_dp<208, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
-    case 224: return fwd_launch_dp<224, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
-    case 240: return fwd_launch_dp<240, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
-    case 256: return fwd_launch_dp<256, SEG, BIAS, KV_BF16, CAP, WIN>(p, batch, s);
+    case 144: return fwd_launch_dp<144, true, KV_BF16, CAP>(p, batch, s);
+    case 160: return fwd_launch_dp<160, true, KV_BF16, CAP>(p, batch, s);
+    case 176: return fwd_launch_dp<176, true, KV_BF16, CAP>(p, batch, s);
+    case 192: return fwd_launch_dp<192, true, KV_BF16, CAP>(p, batch, s);
+    case 208: return fwd_launch_dp<208, true, KV_BF16, CAP>(p, batch, s);
+    case 224: return fwd_launch_dp<224, true, KV_BF16, CAP>(p, batch, s);
+    case 240: return fwd_launch_dp<240, true, KV_BF16, CAP>(p, batch, s);
+    case 256: return fwd_launch_dp<256, true, KV_BF16, CAP>(p, batch, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// One instantiation per padded head dim (a multiple of 16 up to 256).
-template <bool SEG, bool BIAS, int KV, bool CAP = false, bool WIN = false>
+// Quantized K/V, with or without a bias: one instantiation per padded head
+// dim (a multiple of 16 up to 256).
+template <bool BIAS, int KV>
 cudaError_t fwd_launch(const FwdParams& p, int batch, cudaStream_t s) {
   switch ((p.d + 15) / 16 * 16) {
-    case 16: return fwd_launch_dp<16, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 32: return fwd_launch_dp<32, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 48: return fwd_launch_dp<48, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 64: return fwd_launch_dp<64, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 80: return fwd_launch_dp<80, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 96: return fwd_launch_dp<96, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 112: return fwd_launch_dp<112, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 128: return fwd_launch_dp<128, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 144: return fwd_launch_dp<144, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 160: return fwd_launch_dp<160, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 176: return fwd_launch_dp<176, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 192: return fwd_launch_dp<192, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 208: return fwd_launch_dp<208, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 224: return fwd_launch_dp<224, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    case 240: return fwd_launch_dp<240, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
-    default: return fwd_launch_dp<256, SEG, BIAS, KV, CAP, WIN>(p, batch, s);
+    case 16: return fwd_launch_dp<16, BIAS, KV, false>(p, batch, s);
+    case 32: return fwd_launch_dp<32, BIAS, KV, false>(p, batch, s);
+    case 48: return fwd_launch_dp<48, BIAS, KV, false>(p, batch, s);
+    case 64: return fwd_launch_dp<64, BIAS, KV, false>(p, batch, s);
+    case 80: return fwd_launch_dp<80, BIAS, KV, false>(p, batch, s);
+    case 96: return fwd_launch_dp<96, BIAS, KV, false>(p, batch, s);
+    case 112: return fwd_launch_dp<112, BIAS, KV, false>(p, batch, s);
+    case 128: return fwd_launch_dp<128, BIAS, KV, false>(p, batch, s);
+    case 144: return fwd_launch_dp<144, BIAS, KV, false>(p, batch, s);
+    case 160: return fwd_launch_dp<160, BIAS, KV, false>(p, batch, s);
+    case 176: return fwd_launch_dp<176, BIAS, KV, false>(p, batch, s);
+    case 192: return fwd_launch_dp<192, BIAS, KV, false>(p, batch, s);
+    case 208: return fwd_launch_dp<208, BIAS, KV, false>(p, batch, s);
+    case 224: return fwd_launch_dp<224, BIAS, KV, false>(p, batch, s);
+    case 240: return fwd_launch_dp<240, BIAS, KV, false>(p, batch, s);
+    default: return fwd_launch_dp<256, BIAS, KV, false>(p, batch, s);
   }
 }
 

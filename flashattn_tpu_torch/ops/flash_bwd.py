@@ -360,7 +360,7 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     B, Hq, Nq, D = q.shape
     if band_offsets(causal, None, q_offset, kv_offset) != (0, 0):
         raise NotImplementedError(
-            f"K5 + K6's bias route: {offsets_refusal(head_dim=D, bias=bias, quantized=False)}")
+            f"K5 + K6's bias route: {offsets_refusal(bias=bias, quantized=False)}")
     Hkv, Nk = k.shape[1], k.shape[2]
     check_bias(bias, B, Hq, Nq, Nk, q.device)
     softcap = check_softcap(softcap)

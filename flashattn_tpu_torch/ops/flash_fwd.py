@@ -6,23 +6,24 @@ segment ids (packed sequences), an optional additive bias, optional logit
 soft-capping, and int8 / fp8 e4m3 K/V with per-token f32 scales dequantized
 in the kernel (the serving path of ops/quant.py); the causal mask and the
 window also cover K2 (``_fwd_causal_resident_kernel`` and
-``fwd_macro_padded``, the whole-sequence banded routes). The kernel body is
-``csrc/fwd_tile.cuh`` (its header says what bounds it and what it leaves for
-later), instantiated per option family in ``csrc/flash_fwd*.cu``. The calls
-that decoding makes (:func:`decode_route`) go to a kernel of their own, a
+``fwd_macro_padded``, the whole-sequence banded routes). The calls that
+decoding makes (:func:`decode_route`) go to a kernel of their own, a
 split-KV forward with cp.async pipelining (``csrc/decode_tile.cuh`` in
 ``csrc/flash_decode*.cu``), whose splits are merged in LSE space; its plain
-version is :func:`decode_reference`. The other calls on bf16 K/V at head
-dims up to 128, with or without the softcap, go to a Hopper TMA + wgmma
-forward (``csrc/fwd_sm90_tile.cuh``): those with a bias
+version is :func:`decode_reference`. The other calls on bf16 K/V, with or
+without the softcap, go to a Hopper TMA + wgmma forward
+(``csrc/fwd_sm90_tile.cuh``): those with a bias at head dims up to 128
 (:func:`bias_route`) to its bias route, which streams the f32 bias tile
 through shared memory (``csrc/flash_fwd_bias_sm90.cu``), and those without
-a bias (:func:`dense_route`: causal or not, with a window or segment ids or
-neither, any tail) to its dense route (``csrc/flash_fwd_sm90.cu``). Both
+a bias at every head dim up to 256 (:func:`dense_route`: causal or not,
+with a window, segment ids or q / kv offsets or neither, any tail) to its
+dense route (``csrc/flash_fwd_sm90.cu``; D 136-256 on its D 256 form). Both
 compute K1's function, so their plain version is :func:`fwd_reference`; the
-``fwd_tile.cuh`` body keeps the calls they refuse (D above 128, quantized
-K/V). Every call on an f32 q (:func:`f32_route`) goes to an f32 kernel of its
-own (``csrc/flash_fwd_f32.cu``: the dense route's TMA + wgmma scheme and
+``mma.sync`` body ``csrc/fwd_tile.cuh`` (instantiated per option family in
+``csrc/flash_fwd*.cu``) keeps the calls they refuse: a bias above D 128 and
+int8 / fp8 K/V that are not decode-shaped. Every call on an f32 q
+(:func:`f32_route`) goes to an f32 kernel of its own
+(``csrc/flash_fwd_f32.cu``: the dense route's TMA + wgmma scheme and
 options on the three bf16 pieces of each f32 operand, ``ops/f32_split.py``,
 six bf16 products per f32 product), decode shapes too; its plain version is
 :func:`fwd_reference` as well. :func:`fwd` launches a kernel for
@@ -74,12 +75,14 @@ DECODE_TILE = 64
 DECODE_MIN_TILES = 4
 DECODE_CTAS_PER_SM = 4
 H100_SMS = 132
-# The Hopper routes (csrc/fwd_sm90_tile.cuh, dense and bias): head dims that
-# are multiples of 8 up to this (instantiated at 64 and 128, the TMA boxes
-# reading zeros past D); the f32 elements of one of the bias route's 16-byte
-# bias copies (a bias whose strides are not a multiple of it is copied with
-# its rows padded to one); the dense route's Q tile (rows per CTA) and KV
-# tile (keys per pipeline stage), the tiles of its segment-id ranges.
+# The bias route and the f32 route (csrc/fwd_sm90_tile.cuh,
+# csrc/flash_fwd_f32.cu): head dims that are multiples of 8 up to this
+# (instantiated at 64 and 128, the TMA boxes reading zeros past D); the dense
+# route takes every head dim up to MAX_HEAD_DIM (its D 256 form above this).
+# The f32 elements of one of the bias route's 16-byte bias copies (a bias
+# whose strides are not a multiple of it is copied with its rows padded to
+# one); the dense route's Q tile (rows per CTA) and KV tile (keys per
+# pipeline stage), the tiles of its segment-id ranges.
 DENSE_MAX_HEAD_DIM = 128
 BIAS_ROW_ALIGN = 4
 # The f32 route's ROADMAP item: what it does not take yet (a bias, quantized
@@ -243,17 +246,6 @@ def check_segment_ids(segment_ids, B: int, Nq: int, Nk: int, device):
                              f"({B}, {n}) on {device}")
 
 
-def kernel_segment_ids(segment_ids):
-    """``(seg_q, seg_kv)`` as the kernels read them -- int32 with unit stride
-    along the sequence -- and the C arguments for them: ``(ids, (seg_q ptr,
-    seg_kv ptr), (seg_q batch stride, seg_kv batch stride))``; null pointers
-    without segments. Keep ``ids`` alive until the launch is enqueued."""
-    if segment_ids is None:
-        return None, (None, None), (0, 0)
-    ids = tuple(s.to(torch.int32).contiguous() for s in segment_ids)
-    return ids, tuple(s.data_ptr() for s in ids), tuple(s.stride(0) for s in ids)
-
-
 def check_bias(bias, B: int, Hq: int, Nq: int, Nk: int, device):
     """Validate a kernel-level ``bias``: None, or a floating tensor of shape
     ``(B|1, Hq|1, Nq|1, Nk)`` on ``device``."""
@@ -332,7 +324,7 @@ def bias_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int, b
     take (it is checked first), with a ``bias``, bf16 K/V, no segment ids or
     window, and a head dim up to ``DENSE_MAX_HEAD_DIM`` (a multiple of 8, as
     every CUDA K1 call's), with or without a softcap. Every other call with a
-    bias keeps the ``csrc/fwd_tile.cuh`` kernel (D above 128, int8 / fp8
+    bias goes to the ``csrc/fwd_tile.cuh`` kernel (D above 128, int8 / fp8
     K/V)."""
     return (bias is not None and kv_dtype == torch.bfloat16
             and segment_ids is None and kernel_window(check_window(window)) == (-1, -1)
@@ -344,12 +336,13 @@ def bias_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int, b
 def dense_route(*, head_dim: int, bias, kv_dtype) -> bool:
     """Whether a CUDA K1 call that the decode and bias routes left (:func:`fwd`
     checks them first) goes to the Hopper dense kernel
-    (``csrc/flash_fwd_sm90.cu``): bf16 K/V without a bias, at a head dim up to
-    ``DENSE_MAX_HEAD_DIM`` (a multiple of 8, as every CUDA K1 call's) --
-    causal or not, with or without a window, segment ids or a softcap, at any
-    Nq and kv_valid_len. The calls it refuses keep the ``csrc/fwd_tile.cuh``
-    kernel (D above 128, int8 / fp8 K/V)."""
-    return bias is None and kv_dtype == torch.bfloat16 and head_dim <= DENSE_MAX_HEAD_DIM
+    (``csrc/flash_fwd_sm90.cu``): bf16 K/V without a bias, at every head dim
+    up to ``MAX_HEAD_DIM`` (a multiple of 8, as every CUDA K1 call's; D 136-256
+    on its D 256 form) -- causal or not, with or without a window, segment
+    ids, q / kv offsets or a softcap, at any Nq (a decode-shaped call at D 256
+    too) and kv_valid_len. The calls it refuses go to the ``csrc/fwd_tile.cuh``
+    kernel (a bias above D 128, int8 / fp8 K/V)."""
+    return bias is None and kv_dtype == torch.bfloat16 and head_dim <= MAX_HEAD_DIM
 
 
 def f32_route(*, dtype) -> bool:
@@ -617,6 +610,8 @@ def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, so
     native.check(rc, "flash_fwd_sm90 kernel launch")
     _count_variants(k.dtype, None, kernel_window(window) != (-1, -1), softcap)
     fwd.launches_dense_sm90 += 1
+    if D > DENSE_MAX_HEAD_DIM:
+        fwd.launches_dense_d256 += 1
     return o, lse
 
 
@@ -645,14 +640,12 @@ def _dense_f32(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, sof
     return o, lse
 
 
-def offsets_refusal(*, head_dim: int, bias, quantized: bool) -> str | None:
+def offsets_refusal(*, bias, quantized: bool) -> str | None:
     """Why a K1 call with offsets that change its result (:func:`band_offsets`)
     has no kernel yet, naming the route and its ROADMAP item, or None where
-    K1's dense route takes it. The decode route takes no band, so offsets
-    never change its calls."""
-    route = ("the bias route" if bias is not None else "quantized K/V" if quantized
-             else f"fwd_tile.cuh above D {DENSE_MAX_HEAD_DIM}"
-             if head_dim > DENSE_MAX_HEAD_DIM else None)
+    K1's dense route takes it (every head dim up to 256). The decode route
+    takes no band, so offsets never change its calls."""
+    route = ("the bias route" if bias is not None else "quantized K/V" if quantized else None)
     if route is None:
         return None
     return f"q / kv offsets are not ported to {route} yet ({_ROADMAP_OFFSETS})"
@@ -718,11 +711,13 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     kernel; a bf16 CUDA call that :func:`decode_route`
     accepts launches the split-KV decode kernel (and its merge), one that
     :func:`bias_route` accepts the Hopper bias kernel, one that
-    :func:`dense_route` accepts the Hopper dense kernel, every other the
+    :func:`dense_route` accepts (every bf16 call without a bias) the Hopper
+    dense kernel, every other (a bias above D 128, quantized K/V) the
     ``fwd_tile.cuh`` kernel. ``fwd.launches`` counts every K1 launch, on any
     kernel; ``fwd.launches_bias`` those of bf16 K/V with a bias (on any
     kernel), ``fwd.launches_bias_sm90`` those of the bias kernel,
-    ``fwd.launches_dense_sm90`` those of the Hopper dense kernel,
+    ``fwd.launches_dense_sm90`` those of the Hopper dense kernel
+    (``fwd.launches_dense_d256`` those of its D 256 form, D 136-256),
     ``fwd.launches_f32`` those of the f32 kernel, ``fwd.launches_split``
     those of the split of its operands (``f32_split``, one before each),
     ``fwd.launches_int8`` / ``fwd.launches_fp8`` those of quantized K/V (with
@@ -754,8 +749,7 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
         raise ValueError("logit_softcap is not supported with quantized K/V (the JAX "
                          "flash_attention_quantized has no softcap path)")
     q_offset, kv_offset = band_offsets(causal, window, q_offset, kv_offset)
-    refusal = q_offset != kv_offset and offsets_refusal(head_dim=D, bias=bias,
-                                                        quantized=k_scale is not None)
+    refusal = q_offset != kv_offset and offsets_refusal(bias=bias, quantized=k_scale is not None)
     if refusal:
         raise NotImplementedError(f"K1: {refusal}")
 
@@ -791,18 +785,17 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:  # an empty grid is not a valid launch
         return o, lse
-    _seg_ids, seg_ptrs, seg_strides = kernel_segment_ids(segment_ids)
     bias, bias_strides = kernel_bias(bias)
     scales = (None, None) if k_scale is None else (k_scale.float(), v_scale.float())
     scale_strides = [x for s in scales for x in (s.stride() if s is not None else (0, 0, 0))]
     ptrs = [None if x is None else x.data_ptr() for x in (bias, *scales)]
     with torch.cuda.device(q.device):
         rc = native.kernels().fa_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *seg_ptrs,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             *ptrs, KV_DTYPE_CODE[k.dtype], B, Hq, Hkv, Nq, D, kv_valid_len,
-            int(bool(causal)), *kernel_window(window), float(scale), softcap or 0.0,
+            int(bool(causal)), float(scale), softcap or 0.0,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *o.stride()[:3], *seg_strides, *bias_strides, *scale_strides,
+            *o.stride()[:3], *bias_strides, *scale_strides,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     native.check(rc, "flash_fwd kernel launch")
@@ -829,6 +822,7 @@ fwd.launches = 0
 fwd.launches_bias = 0
 fwd.launches_bias_sm90 = 0
 fwd.launches_dense_sm90 = 0
+fwd.launches_dense_d256 = 0
 fwd.launches_f32 = 0
 fwd.launches_split = 0
 fwd.launches_int8 = 0

@@ -28,6 +28,20 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# The C entry of K1 on fwd_tile.cuh (csrc/flash_fwd.cu).
+FWD_ARGTYPES = [
+    _PTR, _PTR, _PTR, _PTR, _PTR,        # q, k, v, o, lse
+    _PTR, _PTR, _PTR,                    # bias, k_scale, v_scale (f32, or None)
+    _I32,                                # K/V dtype code (ops/flash_fwd.KV_DTYPE_CODE)
+    _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, Nq, D, kv_valid_len
+    _I32,                                # causal
+    ctypes.c_float, ctypes.c_float,      # scale, softcap (0: none)
+    _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
+    _I64, _I64, _I64, _I64, _I64, _I64,  # v, o (batch, head, seq) strides
+    _I64, _I64, _I64,                    # bias (batch, head, row) strides
+    _I64, _I64, _I64, _I64, _I64, _I64,  # k_scale, v_scale (batch, head, seq) strides
+    _PTR,                                # cudaStream_t
+]
 # The C entry of K1's bias route (csrc/flash_fwd_bias_sm90.cu).
 FWD_BIAS_SM90_ARGTYPES = [
     _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # q, k, v, o, lse, bias (f32)
@@ -199,21 +213,7 @@ def kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.fa_fwd.restype = i32
-    lib.fa_fwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,            # q, k, v, o, lse
-        ptr, ptr,                           # seg_q, seg_kv (int32 ids, or None)
-        ptr, ptr, ptr,                      # bias, k_scale, v_scale (f32, or None)
-        i32,                                # K/V dtype code (ops/flash_fwd.KV_DTYPE_CODE)
-        i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, Nq, D, kv_valid_len
-        i32, i32, i32,                      # causal, window left, window right (-1: none)
-        ctypes.c_float, ctypes.c_float,     # scale, softcap (0: none)
-        i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
-        i64, i64, i64, i64, i64, i64,       # v, o (batch, head, seq) strides
-        i64, i64,                           # seg_q, seg_kv batch strides
-        i64, i64, i64,                      # bias (batch, head, row) strides
-        i64, i64, i64, i64, i64, i64,       # k_scale, v_scale (batch, head, seq) strides
-        ptr,                                # cudaStream_t
-    ]
+    lib.fa_fwd.argtypes = FWD_ARGTYPES
     lib.fa_fwd_bias_sm90.restype = i32
     lib.fa_fwd_bias_sm90.argtypes = FWD_BIAS_SM90_ARGTYPES
     lib.fa_fwd_sm90.restype = i32

@@ -45,18 +45,23 @@ def _dense(head_dim=128, bias=None, kv_dtype=torch.bfloat16):
 
 
 # The head dims K1's dense route takes on bf16 K/V without a bias: the LM's
-# 128, the U-Net's 40, and those run in a wider box (8, 80, 96). Causal, a
+# 128, the U-Net's 40, those run in a wider box (8, 80, 96) and, on its D 256
+# form, Gemma 2's 256 and those run in its box (136, 160, 192). Causal, a
 # window, segment ids, the softcap and the rows per KV head are not its test:
 # the rule does not read them, and fwd's order (decode, bias, dense) decides
 # the rows, on a simulated card below.
 DENSE_TAKES = {"LM D 128": {}, "U-Net D 40": dict(head_dim=40), "D 64": dict(head_dim=64),
-               "D 80": dict(head_dim=80), "D 96": dict(head_dim=96), "D 8": dict(head_dim=8)}
-# Those it refuses, which keep fwd_tile.cuh (D above 128, int8 / fp8 K/V) or
-# take the bias route (a bias).
-DENSE_REFUSES = {"D 160": dict(head_dim=160), "D 136": dict(head_dim=136),
-                 "int8 K/V": dict(kv_dtype=torch.int8),
+               "D 80": dict(head_dim=80), "D 96": dict(head_dim=96), "D 8": dict(head_dim=8),
+               "D 160": dict(head_dim=160), "D 136": dict(head_dim=136),
+               "D 192": dict(head_dim=192), "D 256": dict(head_dim=256)}
+# Those it refuses, which go to fwd_tile.cuh (a bias above D 128, int8 / fp8
+# K/V) or take the bias route (a bias).
+DENSE_REFUSES = {"int8 K/V": dict(kv_dtype=torch.int8),
                  "fp8 K/V": dict(kv_dtype=torch.float8_e4m3fn),
-                 "bias": dict(bias=torch.empty((1, 1, 1, N), device="meta"))}
+                 "bias": dict(bias=torch.empty((1, 1, 1, N), device="meta")),
+                 "bias at D 160": dict(head_dim=160,
+                                       bias=torch.empty((1, 1, 1, N), device="meta")),
+                 "int8 K/V at D 256": dict(head_dim=256, kv_dtype=torch.int8)}
 
 
 @pytest.mark.parametrize("case", list(DENSE_TAKES))
@@ -112,6 +117,32 @@ def test_dense_launch_packs_the_c_arguments(segments):
     assert args[25:28] == (Nk * Hkv * D, D, Hkv * D)
     assert args[28:31] == args[25:28] and args[31:34] == args[22:25]
     assert args[34] == (Nq if segments else 0) and args[35] == 4096
+
+
+@pytest.mark.parametrize("D", [160, 256])
+def test_dense_launch_packs_wide_head_dims(D):
+    """fa_fwd_sm90 at a head dim its D 256 form takes (D 160 in the 256
+    box, D 256), causal with q / kv offsets (a contiguous ring's chunk
+    pair): D as passed (the C entry picks the box), the offsets and the
+    strides of the BNHD views packed as at D <= 128."""
+    B, Hq, Hkv, Nq, Nk = 1, 4, 2, 130, 70
+    q, k, v = _bnhd(*make_qkv(81, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv))
+    o, lse = torch.empty_like(q), torch.empty((B, Hq, Nq))
+    seen = []
+    lib = types.SimpleNamespace(fa_fwd_sm90=_recorder("fa_fwd_sm90", native.FWD_SM90_ARGTYPES,
+                                                      seen))
+    rc = flash_fwd._launch_dense_sm90(lib, q, k, v, o, lse, None, scale=D ** -0.5,
+                                      kv_valid_len=Nk, causal=True, window=None, softcap=None,
+                                      stream=8192, q_offset=Nq, kv_offset=0)
+    assert rc == 0 and [name for name, _ in seen] == ["fa_fwd_sm90"]
+    args = seen[0][1]
+    assert args[5:9] == (None,) * 4
+    assert args[9:18] == (B, Hq, Hkv, Nq, D, Nk, 1, -1, -1)
+    assert args[18:20] == (Nq, 0)  # q_offset, kv_offset
+    assert args[20] == pytest.approx(D ** -0.5) and args[21] == 0.0
+    assert args[22:25] == (Nq * Hq * D, D, Hq * D)
+    assert args[25:28] == (Nk * Hkv * D, D, Hkv * D)
+    assert args[34:] == (0, 8192)
 
 
 @pytest.mark.parametrize("window", [None, (64, 7)])
@@ -181,7 +212,8 @@ def _meta_qkv(B, Hq, Hkv, Nq, Nk, D, dtype=torch.bfloat16):
 # (B, Hq, Hkv, Nq, Nk, D, options, the C entry): the LM, the U-Net's self-
 # and cross-attention, the packed LM, the SWA window, a two-sided window, a
 # ragged D 96 call, the decode-shaped calls that the decode kernel refuses
-# (D 40; causal), the softcap, and what stays elsewhere -- D 160 on
+# (D 40; causal), the softcap, D 160 and a decode-shaped call at D 256 on the
+# dense route's D 256 form, and what stays elsewhere -- a bias above D 128 on
 # fwd_tile.cuh (fa_fwd), a bias on the bias route, a decode-shaped call at
 # D 128 on the decode kernel.
 FWD_CASES = {"LM causal": (1, 16, 8, 256, 256, 128, dict(causal=True), "fa_fwd_sm90"),
@@ -195,7 +227,9 @@ FWD_CASES = {"LM causal": (1, 16, 8, 256, 256, 128, dict(causal=True), "fa_fwd_s
              "ragged D 96": (1, 4, 2, 1537, 77, 96, {}, "fa_fwd_sm90"),
              "decode-shaped D 40": (2, 4, 2, 1, 512, 40, {}, "fa_fwd_sm90"),
              "decode-shaped causal": (2, 4, 2, 4, 512, 128, dict(causal=True), "fa_fwd_sm90"),
-             "D 160": (1, 2, 2, 128, 128, 160, {}, "fa_fwd"),
+             "D 160": (1, 2, 2, 128, 128, 160, {}, "fa_fwd_sm90"),
+             "decode-shaped D 256": (2, 4, 2, 1, 512, 256, {}, "fa_fwd_sm90"),
+             "bias at D 160": (1, 2, 2, 128, 128, 160, dict(bias=True), "fa_fwd"),
              "softcap": (1, 4, 2, 128, 128, 128, dict(causal=True, softcap=50.0), "fa_fwd_sm90"),
              "bias": (1, 4, 4, 128, 128, 128, dict(bias=True), "fa_fwd_bias_sm90"),
              "decode-shaped": (2, 4, 2, 1, 512, 128, {}, "fa_decode")}
@@ -211,18 +245,66 @@ def test_fwd_routes_on_a_simulated_card(card, case):
                                   for n in (Nq, Nk))
     if kw.pop("bias", False):
         kw["bias"] = torch.zeros((1, 1, 1, Nk), device="meta")
-    before = (flash_fwd.fwd.launches, flash_fwd.fwd.launches_dense_sm90)
+    counters = lambda: (flash_fwd.fwd.launches, flash_fwd.fwd.launches_dense_sm90,  # noqa: E731
+                        flash_fwd.fwd.launches_dense_d256)
+    before = counters()
     o, lse = flash_fwd.fwd(q, k, v, scale=D ** -0.5, **kw)
     assert [name for name, _ in card] == [entry]
     assert o.shape == q.shape and lse.shape == (B, Hq, Nq)
     dense = entry == "fa_fwd_sm90"
-    assert (flash_fwd.fwd.launches, flash_fwd.fwd.launches_dense_sm90) == (
-        before[0] + 1, before[1] + dense)
+    assert counters() == (before[0] + 1, before[1] + dense, before[2] + (dense and D > 128))
     if dense:  # O in q's (BNHD) strides on every dim of extent > 1, as the kernel writes it
         assert [a for a, n in zip(o.stride(), q.shape) if n > 1] == [
             a for a, n in zip(q.stride(), q.shape) if n > 1]
         args = card[0][1]
         assert args[34] == (Nq if "segment_ids" in kw else 0)  # the ids' batch stride
+
+
+# (D, K/V dtype, options) of the calls fwd_tile.cuh keeps: a bias above D 128
+# (with and without the softcap, causal) and quantized K/V (int8 with a
+# per-query-row bias, fp8 causal without one).
+FA_FWD_CASES = {"bias at D 160": (160, torch.bfloat16, dict(bias=(1, 1, 1))),
+                "capped bias at D 256": (256, torch.bfloat16,
+                                         dict(bias=(2, 1, 1), causal=True, softcap=30.0)),
+                "int8 K/V at D 64 with a row bias": (64, torch.int8, dict(bias=(1, 4, 100))),
+                "fp8 K/V at D 128": (128, torch.float8_e4m3fn, dict(causal=True))}
+
+
+@pytest.mark.parametrize("case", list(FA_FWD_CASES))
+def test_fa_fwd_packs_the_c_arguments(card, case):
+    """fa_fwd on BNHD views with GQA and kv_valid_len < Nk: every pointer
+    (null scales on bf16), the K/V dtype code, dim, causal, the scale and
+    softcap, every stride (0 on the bias's broadcast dims) and the stream,
+    in the C entry's typed order -- no segment-id or window argument."""
+    D, kv_dtype, opts = FA_FWD_CASES[case]
+    B, Hq, Hkv, Nq, Nk = 2, 4, 2, 100, 150
+    q, k, v = _meta_qkv(B, Hq, Hkv, Nq, Nk, D, dtype=kv_dtype)
+    kw = dict(opts)
+    bias_shape = kw.pop("bias", None)
+    if bias_shape:
+        kw["bias"] = torch.zeros((*bias_shape, Nk), device="meta")
+    quant = kv_dtype != torch.bfloat16
+    if quant:
+        kw["k_scale"], kw["v_scale"] = (torch.ones((B, Hkv, Nk), device="meta") for _ in "kv")
+    native.kernels().fa_fwd = _recorder("fa_fwd", native.FWD_ARGTYPES, card)
+    flash_fwd.fwd(q, k, v, scale=0.125, kv_valid_len=120, **kw)
+    assert [name for name, _ in card] == ["fa_fwd"]
+    args = card[0][1]
+    assert len(args) == len(native.FWD_ARGTYPES) == 40
+    assert args[8:16] == (flash_fwd.KV_DTYPE_CODE[kv_dtype], B, Hq, Hkv, Nq, D, 120,
+                          int(kw.get("causal", False)))
+    assert args[16] == 0.125 and args[17] == pytest.approx(kw.get("softcap", 0.0))
+    assert args[18:21] == (Nq * Hq * D, D, Hq * D)
+    assert args[21:24] == args[24:27] == (Nk * Hkv * D, D, Hkv * D)
+    assert args[27:30] == args[18:21]  # O in q's strides
+    if bias_shape:
+        want = tuple(0 if n == 1 else s for n, s in zip(bias_shape, (
+            bias_shape[1] * bias_shape[2] * Nk, bias_shape[2] * Nk, Nk)))
+        assert args[30:33] == want
+    else:
+        assert args[30:33] == (0, 0, 0)
+    assert args[33:39] == ((Hkv * Nk, Nk, 1) * 2 if quant else (0,) * 6)
+    assert args[39] == 77
 
 
 # flash_attention's forward and backward on a simulated card: the LM-like

@@ -198,6 +198,13 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
      "unrecognised instantiation decode_kernel<128, 0>"),
     ("_ZN12_GLOBAL__N_110fwd_kernelILi64ELb0EEEvN2fa9FwdParamsE",
      "unrecognised instantiation fwd_kernel<64, 0>"),
+    ("_ZN12_GLOBAL__N_110fwd_kernelILi144ELb1ELi0EEEvN2fa9FwdParamsE",
+     "K1 bias fwd_kernel<144, 1, 0>"),
+    ("_ZN12_GLOBAL__N_110fwd_kernelILi64ELb0ELi2EEEvN2fa9FwdParamsE", "K1 fp8 fwd_kernel<64, 0, 2>"),
+    ("_ZN12_GLOBAL__N_118fwd_softcap_kernelILi256EEEvN2fa9FwdParamsE",
+     "K1 softcap bias fwd_softcap_kernel<256>"),
+    ("_ZN12_GLOBAL__N_121fwd_dense_sm90_kernelILi256ELb1ELb0EEEv14CUtensorMap_stS1_S1_N2fa14"
+     "FwdDenseParamsE", "K1 dense sm90 segments fwd_dense_sm90_kernel<256, 1, 0>"),
     ("_Z11some_kernelv", "unrecognised instantiation _Z11some_kernelv"),
 ])
 def test_register_report_names_every_instantiation(mangled, name):

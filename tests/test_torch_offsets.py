@@ -348,18 +348,29 @@ def test_offsets_reach_the_c_entries(card, case):
 
 def test_offsets_refused_off_the_dense_route():
     """The routes that take no offsets yet refuse them, naming ROADMAP queue
-    2, item 2, on every device: a bias (K1 and the bias route's backward),
-    a head dim above 128 (fwd_tile.cuh) and quantized K/V; offsets that
-    change nothing pass everywhere."""
+    2, item 2, on every device: a bias (K1 and the bias route's backward)
+    and quantized K/V; offsets that change nothing pass everywhere. A head
+    dim above 128 takes them (K1's dense route's D 256 form; its plain
+    version here): the output and gradients against the JAX flash_attention
+    with the same offsets (its rows before the offset see no key: the
+    gradients against the JAX oracle's)."""
     q, k, v = make_qkv(50, 1, 2, 64, 32)
     bias = torch.zeros(1, 1, 64, 64)
     item = "ROADMAP queue 2, item 2"
     with pytest.raises(NotImplementedError, match=item):
         flashattn_tpu_torch.flash_attention(q, k, v, bias=bias, causal=True, q_offset=64)
     flashattn_tpu_torch.flash_attention(q, k, v, bias=bias, q_offset=64)  # no band: runs
-    with pytest.raises(NotImplementedError, match=item):
-        flashattn_tpu_torch.flash_attention(*make_qkv(51, 1, 2, 64, 160), causal=True,
-                                            kv_offset=3)
+    wq, wk, wv = make_qkv(51, 1, 2, 64, 160)
+    wdo = make_qkv(52, 1, 2, 64, 160)[0]
+    kw = dict(causal=True)
+    assert _dead_rows(wq, wk, kw, 0, 3)
+    want_o = _jax_grads(wq, wk, wv, wdo, kw, 0, 3)[0]
+    want_g = _jax_grads(wq, wk, wv, wdo, kw, 0, 3, fn=_jax_oracle())[1]
+    leaves = [x.clone().requires_grad_(True) for x in (wq, wk, wv)]
+    o = flashattn_tpu_torch.flash_attention(*leaves, kv_offset=3, **kw)
+    assert_close(o.detach(), want_o, F32_FWD, "O at D 160")
+    for name, got, want in zip(("dq", "dk", "dv"), torch.autograd.grad(o, leaves, wdo), want_g):
+        assert_close(got, want, F32_BWD, f"{name} at D 160")
     stats = torch.zeros(1, 2, 64)
     with pytest.raises(NotImplementedError, match=item):
         flash_bwd.bias_bwd(q, k, v, q, stats, stats, scale=0.2, causal=True, bias=bias,

@@ -86,11 +86,11 @@ def _jax_step(cfg, params, shape, tokens, *, lr, seg=None, layout="contiguous"):
     return step(params, adamw_init(params), jnp.asarray(tokens), *extra)
 
 
-def _port_step(np_params, shape, tokens, *, lr, seg=None, layout="contiguous"):
+def _port_step(np_params, shape, tokens, *, lr, seg=None, layout="contiguous", cfg=CFG):
     """One port sharded step on a VirtualMesh: (mesh, shards, loss)."""
     mesh = make_mesh(*shape, devices="cpu")
-    shards = sharded_transformer_from_jax(np_params, CFG, mesh)
-    step, _, _ = T.make_sharded_train_step(mesh, CFG, lr=lr, seq_layout=layout,
+    shards = sharded_transformer_from_jax(np_params, cfg, mesh)
+    step, _, _ = T.make_sharded_train_step(mesh, cfg, lr=lr, seq_layout=layout,
                                            with_segment_ids=seg is not None)
     extra = () if seg is None else (torch.from_numpy(seg),)
     _, _, loss = step(shards, [T.adamw_init(p) for p in shards], torch.from_numpy(tokens),
@@ -120,6 +120,33 @@ def test_lr0_loss_matches_jax_and_single_device(jax_side, shape):
     with torch.no_grad():
         single = float(T.lm_loss(transformer_from_jax(np_params, CFG, device="cpu"),
                                  torch.from_numpy(tokens).long(), CFG))
+    assert abs(got - float(want)) < LOSS_TOL, (got, float(want))
+    assert abs(got - single) < LOSS_TOL, (got, single)
+
+
+def test_lr0_loss_matches_jax_and_single_device_d256():
+    """Heads of 256 (2 query heads, 1 KV head, two layers, d_model 64): the
+    ring's chunk pairs take q / kv offsets above D 128 too (K1's dense
+    route's D 256 form on the card, its plain version here), so the
+    contiguous step on (1, 1, 4) runs, and its lr=0 loss is the JAX step's
+    and the single-device lm_loss's."""
+    import jax
+    import jax.numpy as jnp
+
+    from flashattn_tpu.models.transformer import TransformerConfig, init_transformer
+
+    dims = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=2, n_kv_heads=1, d_head=256,
+                d_ff=128)
+    cfg = T.TransformerConfig(**dims, dtype=torch.float32)
+    jcfg = TransformerConfig(**dims, dtype=jnp.float32)
+    params = init_transformer(jax.random.PRNGKey(1), jcfg)
+    np_params = jax.tree_util.tree_map(np.asarray, params)
+    tokens = _tokens(11, 2, 64)
+    _, _, want = _jax_step(jcfg, params, (1, 1, 4), tokens, lr=0.0)
+    _, _, got = _port_step(np_params, (1, 1, 4), tokens, lr=0.0, cfg=cfg)
+    with torch.no_grad():
+        single = float(T.lm_loss(transformer_from_jax(np_params, cfg, device="cpu"),
+                                 torch.from_numpy(tokens).long(), cfg))
     assert abs(got - float(want)) < LOSS_TOL, (got, float(want))
     assert abs(got - single) < LOSS_TOL, (got, single)
 

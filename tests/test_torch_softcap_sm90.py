@@ -430,6 +430,27 @@ def test_no_bf16_call_up_to_d128_reaches_fwd_tile(card, name, D):
     assert [c for c, _ in card] == [want]
 
 
+@pytest.mark.parametrize("D", [160, 256])
+@pytest.mark.parametrize("name", list(OPTIONS))
+def test_no_bf16_call_without_a_bias_reaches_fwd_tile(card, name, D):
+    """Above D 128 no bf16 forward without a bias reaches fwd_tile.cuh
+    (fa_fwd): each option's call takes K1's dense route (its D 256 form);
+    the calls with a bias, which no Hopper route takes above D 128, still
+    reach fa_fwd."""
+    B, Hq, Hkv, N = 2, 4, 2, 200
+    q, k, v = _meta_qkv(B, Hq, Hkv, N, N, D)
+    kw = dict(OPTIONS[name])
+    if kw.pop("segment_ids", False):
+        kw["segment_ids"] = (torch.zeros((B, N), dtype=torch.int32, device="meta"),) * 2
+    if "bias" in kw:
+        kw["bias"] = _meta_bias(kw["bias"], B, Hq, N, N).detach()
+    before = flash_fwd.fwd.launches_dense_d256
+    flash_fwd.fwd(q, k, v, scale=D ** -0.5, softcap=kw.pop("logit_softcap", None), **kw)
+    want = "fa_fwd" if "bias" in kw else "fa_fwd_sm90"
+    assert [c for c, _ in card] == [want]
+    assert flash_fwd.fwd.launches_dense_d256 == before + (want == "fa_fwd_sm90")
+
+
 @pytest.mark.parametrize("fn", ["dkv", "dq"])
 def test_split_kernels_with_a_bias_name_the_route(card, fn):
     """On the card K5 and K6 keep no kernel: with a bias they raise

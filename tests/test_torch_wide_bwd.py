@@ -161,8 +161,9 @@ def _meta_qkv(B, Hq, Hkv, Nq, Nk, D, dtype=torch.bfloat16):
 
 
 BWD = {"K3": "fa_bwd_sm90", "split": "fa_bwd_split_sm90"}
-# (D, N, options, the backward's route): bf16 above D 128 behind K1's
-# fwd_tile.cuh (fa_fwd), on K3 or the split route, each a D 256 launch.
+# (D, N, options, the backward's route): bf16 above D 128 behind K1's dense
+# route (fa_fwd_sm90, its D 256 form), on K3 or the split route, each a D 256
+# launch.
 ROUTES = {"causal D 256": (256, 300, dict(causal=True), "K3"),
           "window D 192": (192, 300, dict(causal=True, window=(100, -1)), "K3"),
           "softcap D 256": (256, 300, dict(causal=True, logit_softcap=50.0), "split"),
@@ -178,13 +179,16 @@ def test_bf16_wide_head_dims_reach_the_d256_form(card, case):
     kw = dict(opts)
     if kw.pop("segment_ids", False):
         kw["segment_ids"] = torch.zeros((B, N), dtype=torch.int32, device="meta")
-    before = (flash_bwd_fused.bwd.launches_d256, flash_bwd.split_bwd.launches_d256)
+    counters = lambda: (flash_fwd.fwd.launches_dense_d256,  # noqa: E731
+                        flash_bwd_fused.bwd.launches_d256, flash_bwd.split_bwd.launches_d256)
+    before = counters()
     o = flashattn_tpu_torch.flash_attention(q, k, v, **kw)
     grads = torch.autograd.grad(o, (q, k, v), torch.empty_like(o))
-    assert [name for name, _ in card] == ["fa_fwd", BWD[route]]
+    assert [name for name, _ in card] == ["fa_fwd_sm90", BWD[route]]
+    assert card[0][1][13] == D  # the head dim the forward's C entry takes
     assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
-    after = (flash_bwd_fused.bwd.launches_d256, flash_bwd.split_bwd.launches_d256)
-    assert after == (before[0] + (route == "K3"), before[1] + (route == "split"))
+    assert counters() == (before[0] + 1, before[1] + (route == "K3"),
+                          before[2] + (route == "split"))
     args = card[1][1]
     assert args[14 if route == "K3" else 18] == D  # the head dim the C entry takes
     assert args[21 if route == "K3" else 25] == -(-N // 64) * 64  # LSE / Δ rows padded to 64

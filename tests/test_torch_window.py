@@ -173,10 +173,11 @@ def test_window_routes_to_k3(monkeypatch):
 
 
 def test_window_offsets_and_bias_gradient_still_raise():
-    """Offsets with a window run (against the oracle at the same offsets);
-    those the kernels do not take yet raise with their ROADMAP item on every
-    device: with a bias, above D 128 and on quantized K/V (``offsets_refusal``
-    names it). The forward with a bias and a window is
+    """Offsets with a window run (against the oracle at the same offsets),
+    also above D 128 (at D 160 against the JAX flash_attention with the same
+    window and offsets, output and gradients); those the kernels do not take
+    yet raise with their ROADMAP item on every device: with a bias and on
+    quantized K/V (``offsets_refusal`` names it). The forward with a bias and a window is
     ported, and on the CPU its gradient too (dQ and dbias against autograd
     through the oracle; the card's kernels take a bias without a window)."""
     q, k, v = make_qkv(8, 1, 2, 64, 32)
@@ -188,10 +189,17 @@ def test_window_offsets_and_bias_gradient_still_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 2"):
         flashattn_tpu_torch.flash_attention(q, k, v, window=(8, 8), q_offset=3, bias=bias)
     wide = make_qkv(8, 1, 2, 64, 160)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 2"):
-        flashattn_tpu_torch.flash_attention(*wide, window=(8, 8), q_offset=3)
-    assert "ROADMAP queue 2, item 2" in flash_fwd.offsets_refusal(head_dim=64, bias=None,
-                                                                  quantized=True)
+    want_o = np.array(flashattn_tpu.flash_attention(*_jax(*wide), window=(8, 8), q_offset=3))
+    want_g = jax.grad(lambda a, b, c: (flashattn_tpu.flash_attention(
+        a, b, c, window=(8, 8), q_offset=3) ** 2).sum(), (0, 1, 2))(*_jax(*wide))
+    got_o = flashattn_tpu_torch.flash_attention(*wide, window=(8, 8), q_offset=3)
+    assert_close(got_o, want_o, FWD_TOL[torch.float32], "O at D 160")
+    got_g = _grads(lambda a, b, c: (flashattn_tpu_torch.flash_attention(
+        a, b, c, window=(8, 8), q_offset=3) ** 2).sum(), *wide)
+    for name, got, want in zip(("dq", "dk", "dv"), got_g, want_g):
+        assert_close(got, np.array(want), BWD_TOL[torch.float32], f"{name} at D 160")
+    assert "ROADMAP queue 2, item 2" in flash_fwd.offsets_refusal(bias=None, quantized=True)
+    assert flash_fwd.offsets_refusal(bias=None, quantized=False) is None
     o = flashattn_tpu_torch.flash_attention(q, k, v, window=(8, 8), bias=bias)
     assert_close(o, oracle.attention_reference(q, k, v, window=(8, 8), bias=bias),
                  FWD_TOL[torch.float32])
