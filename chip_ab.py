@@ -57,9 +57,11 @@ K5's instantiations lost K3's dQ template argument with K3's Hopper kernel
 (``dkv_kernel<128, 0>`` became ``dkv_kernel<128>``), and the Hopper K1
 routes and the bias route's backward gained the softcap's (``fwd_dense_sm90_
 kernel<128, 0>`` became ``<128, 0, 0>``, ``fwd_bias_sm90_kernel<128>``
-``<128, 0>``, ``bwd_bias_sm90_kernel<128, 1>`` ``<128, 1, 0>``); the SASS
-report names a parent's by the later name, so that they count as the same
-instantiation.
+``<128, 0>``, ``bwd_bias_sm90_kernel<128, 1>`` ``<128, 1, 0>``), then the
+bias routes segment ids' (``fwd_bias_sm90_kernel<128, 0>`` became ``<128, 0,
+0>`` with SEG second, ``bwd_bias_sm90_kernel<128, 1, 0>`` ``<128, 1, 0, 0>``
+with SEG last); the SASS report names a parent's by the later name, so that
+they count as the same instantiation.
 """
 
 from __future__ import annotations
@@ -94,14 +96,14 @@ CASE_KERNELS = {"unet": "K1 dense sm90 fwd_dense_sm90_kernel<64, 0, 0>",
                 "split_cap": "K5 + K6 split sm90 softcap bwd_split_sm90_kernel<128, 0, 1>",
                 "k1_cap": ("K1 softcap window fwd_window_kernel<128, 0, 1>",
                            "K1 dense sm90 softcap fwd_dense_sm90_kernel<128, 0, 1>"),
-                "k1_bias": "K1 bias sm90 fwd_bias_sm90_kernel<128, 0>",
-                "bias_bwd": "bias bwd sm90 bwd_bias_sm90_kernel<128, 0, 0>",
-                "bias_bwd_dbias": "bias bwd sm90 bwd_bias_sm90_kernel<128, 1, 0>",
+                "k1_bias": "K1 bias sm90 fwd_bias_sm90_kernel<128, 0, 0>",
+                "bias_bwd": "bias bwd sm90 bwd_bias_sm90_kernel<128, 0, 0, 0>",
+                "bias_bwd_dbias": "bias bwd sm90 bwd_bias_sm90_kernel<128, 1, 0, 0>",
                 "bias_bwd_cap": ("K5 softcap bias dkv_bias_kernel<128, 1> + K6 softcap bias "
                                  "dq_bias_kernel<128, 1>",
-                                 "bias bwd sm90 softcap bwd_bias_sm90_kernel<128, 1, 1>"),
+                                 "bias bwd sm90 softcap bwd_bias_sm90_kernel<128, 1, 1, 0>"),
                 "bias_bwd_d96": ("K5 bias dkv_bias_kernel<96, 0> + K6 bias dq_bias_kernel<96, 0>",
-                                 "bias bwd sm90 bwd_bias_sm90_kernel<128, 0, 0>"),
+                                 "bias bwd sm90 bwd_bias_sm90_kernel<128, 0, 0, 0>"),
                 "gemm": "K9 gemm_wgmma_kernel<0>",
                 "ring_fwd": "K7 ring_fwd_sm90_kernel<128>",
                 "ring_bwd": "K8 ring_bwd_sm90_kernel<128>"}
@@ -242,11 +244,14 @@ print("AB " + json.dumps(out), flush=True)
 def _canonical(name: str) -> str:
     """A parent's instantiation under its later name: K5's without K3's dQ
     argument (0 for K5), the Hopper K1 routes' and the bias route
-    backward's with the softcap's (0); every other name as it is."""
+    backward's with the softcap's (0), the bias routes' with segment ids'
+    (0); every other name as it is."""
     name = re.sub(r"^(K5[^<]* dkv(?:_window)?_kernel<\d+), 0([,>])", r"\1\2", name)
     name = re.sub(r"^(bias bwd sm90[^<]*<\d+, \d+)>$", r"\1, 0>", name)
-    return re.sub(r"^((?:K1 dense sm90[^<]*<\d+, \d+)|(?:K1 bias sm90[^<]*<\d+))>$",
-                  r"\1, 0>", name)
+    name = re.sub(r"^(bias bwd sm90[^<]*<\d+, \d+, \d+)>$", r"\1, 0>", name)
+    name = re.sub(r"^(K1 bias sm90[^<]*<\d+)>$", r"\1, 0>", name)
+    name = re.sub(r"^(K1 bias sm90[^<]*<\d+), (\d+)>$", r"\1, 0, \2>", name)
+    return re.sub(r"^(K1 dense sm90[^<]*<\d+, \d+)>$", r"\1, 0>", name)
 
 
 def child(tree: pathlib.Path, code: str, tag: str, cases: list = ()) -> dict:

@@ -124,9 +124,11 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
+import pathlib
 import re
 import statistics
 import subprocess
@@ -352,19 +354,9 @@ def flex_ms(q, k, v, *, scale: float, do=None, score_mod=None, mask_mod=None) ->
     one backward call (dQ, dK and dV together). The warm-up compiles it
     (Inductor's and Triton's caches go to the port's build directory). Timed
     here, used nowhere in the port."""
-    from flashattn_tpu_torch.utils import native
-
-    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
-        os.environ.setdefault(var, str(native.BUILD_DIR / sub))
     from torch._functorch import config as functorch_config
-    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
-    # Each call compiles afresh: past dynamo's recompile limit on
-    # flex_attention's code a compiled call would quietly run eager.
-    torch._dynamo.reset()
-    flex = torch.compile(flex_attention)
-    block = None if mask_mod is None else create_block_mask(
-        mask_mod, q.shape[0], None, q.shape[2], k.shape[2], device=q.device)
+    flex, block = _compiled_flex(q, k, mask_mod)
     kw = dict(score_mod=score_mod, block_mask=block, scale=scale,
               enable_gqa=k.shape[1] != q.shape[1])
     q, k, v = (x.contiguous() for x in (q, k, v))
@@ -378,6 +370,44 @@ def flex_ms(q, k, v, *, scale: float, do=None, score_mod=None, mask_mod=None) ->
         out = flex(qg, kg, vg, **kw)
         return cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
                        reps=5, trials=3)
+
+
+def _compiled_flex(q, k, mask_mod):
+    """flex_attention compiled afresh by torch.compile (Inductor's and
+    Triton's caches in the port's build directory) and the block mask of
+    ``mask_mod`` (None without one) at these shapes. Afresh: past dynamo's
+    recompile limit on flex_attention's code a compiled call would quietly
+    run eager."""
+    from flashattn_tpu_torch.utils import native
+
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(native.BUILD_DIR / sub))
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    torch._dynamo.reset()
+    block = None if mask_mod is None else create_block_mask(
+        mask_mod, q.shape[0], None, q.shape[2], k.shape[2], device=q.device)
+    return torch.compile(flex_attention), block
+
+
+def flex_fwd_bwd_ms(q, k, v, do, *, scale: float, score_mod=None, mask_mod=None) -> tuple:
+    """flex_ms's forward and backward times from one compile: the compiled
+    flex_attention on inputs that require grad (the training graph, whose
+    forward is what the backward then differentiates), its forward call
+    timed as it is, then its one backward call (dQ, dK and dV). Timed here,
+    used nowhere in the port."""
+    from torch._functorch import config as functorch_config
+
+    flex, block = _compiled_flex(q, k, mask_mod)
+    kw = dict(score_mod=score_mod, block_mask=block, scale=scale,
+              enable_gqa=k.shape[1] != q.shape[1])
+    qg, kg, vg = (x.contiguous().detach().requires_grad_(True) for x in (q, k, v))
+    with functorch_config.patch(donated_buffer=False):
+        fwd = cuda_ms(lambda: flex(qg, kg, vg, **kw), reps=5, trials=3)
+        out = flex(qg, kg, vg, **kw)
+        bwd = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
+                      reps=5, trials=3)
+    return fwd, bwd
 
 
 def softcap_mod(cap: float, bias=None):
@@ -531,10 +561,11 @@ def instantiation_name(mangled: str) -> str:
         args = re.findall(r"L[a-z]+(-?\d+)E", k3_sm90.group(1))
         return f"K3 sm90 bwd_sm90_kernel<{', '.join(args)}>"
     bias_sm90 = re.search(r"fwd_bias_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
-    if bias_sm90:  # K1's bias route, fwd_bias_sm90_kernel<D, CAP>
+    if bias_sm90:  # K1's bias route, fwd_bias_sm90_kernel<D, SEG, CAP> (<D, CAP> before ids)
         args = re.findall(r"L[a-z]+(-?\d+)E", bias_sm90.group(1))
-        cap = " softcap" if len(args) == 2 and args[1] == "1" else ""
-        return f"K1 bias sm90{cap} fwd_bias_sm90_kernel<{', '.join(args)}>"
+        seg = " segments" if len(args) == 3 and args[1] == "1" else ""
+        cap = " softcap" if len(args) in (2, 3) and args[-1] == "1" else ""
+        return f"K1 bias sm90{seg}{cap} fwd_bias_sm90_kernel<{', '.join(args)}>"
     split = re.search(r"bwd_split_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if split:  # K5 + K6 without a bias, bwd_split_sm90_kernel<D, SEG, CAP>
         args = re.findall(r"L[a-z]+(-?\d+)E", split.group(1))
@@ -544,10 +575,11 @@ def instantiation_name(mangled: str) -> str:
                 f"{' softcap' if args[2] == '1' else ''} "
                 f"bwd_split_sm90_kernel<{', '.join(args)}>")
     bias_bwd = re.search(r"bwd_bias_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
-    if bias_bwd:  # K5 + K6's bias route, bwd_bias_sm90_kernel<D, DBIAS, CAP>
+    if bias_bwd:  # K5 + K6's bias route, bwd_bias_sm90_kernel<D, DBIAS, CAP, SEG>
         args = re.findall(r"L[a-z]+(-?\d+)E", bias_bwd.group(1))
-        cap = " softcap" if len(args) == 3 and args[2] == "1" else ""
-        return f"bias bwd sm90{cap} bwd_bias_sm90_kernel<{', '.join(args)}>"
+        seg = " segments" if len(args) == 4 and args[3] == "1" else ""
+        cap = " softcap" if len(args) in (3, 4) and args[2] == "1" else ""
+        return f"bias bwd sm90{seg}{cap} bwd_bias_sm90_kernel<{', '.join(args)}>"
     wgmma = re.search(r"gemm_wgmma_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if wgmma:  # K9, gemm_wgmma_kernel<OUT_F32>
         args = re.findall(r"L[a-z]+(-?\d+)E", wgmma.group(1))
@@ -613,18 +645,28 @@ def instantiation_name(mangled: str) -> str:
 def sass_opcodes(lib, names: set) -> dict:
     """{instantiation name: Counter of SASS opcodes} for the kernels of the
     library ``lib`` named in ``names`` (:func:`instantiation_name`), from
-    ``cuobjdump -sass``."""
+    ``cuobjdump -sass`` (read once per build of the library: _sass_counts)."""
+    lib = pathlib.Path(lib)
+    counts = _sass_counts(str(lib), lib.stat().st_mtime if lib.exists() else None)
+    return {n: c for n, c in counts.items() if n in names}
+
+
+@functools.lru_cache(maxsize=4)
+def _sass_counts(lib: str, mtime) -> dict:
+    """{instantiation name: Counter of SASS opcodes} of every kernel of the
+    library ``lib`` as built at ``mtime`` (its modification time): one
+    ``cuobjdump -sass`` and one parse, which the phases that read the SASS
+    share."""
     from flashattn_tpu_torch.utils import native
 
     cuobjdump = os.path.join(os.path.dirname(native.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
                           check=True).stdout
     ops, current = {}, None
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            name = instantiation_name(fn.group(1))
-            current = ops.setdefault(name, collections.Counter()) if name in names else None
+            current = ops.setdefault(instantiation_name(fn.group(1)), collections.Counter())
             continue
         op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)", line)
         if current is not None and op:
@@ -1882,21 +1924,40 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     return out
 
 
+def _poison_cache(nbytes: int) -> None:
+    """Leave ``nbytes`` of the caching allocator's free memory filled with
+    NaN: the next large tensors that ``torch.empty`` hands out are carved
+    from it, so an element a kernel leaves unwritten reads NaN, not the
+    zeros of fresh device memory."""
+    torch.cuda.empty_cache()
+    poison = torch.full((nbytes // 4,), float("nan"), device=DEVICE)
+    torch.cuda.synchronize()
+    del poison
+
+
 def _bias_bwd_check(tag: str, args, f32, *, want_dbias: bool, phase: str = "bias",
                     **kw) -> dict:
     """K5 + K6's bias route (flash_bwd.bias_bwd, one launch, of the dbias
-    variant with ``want_dbias``, with the softcap in ``kw`` if any) on
-    ``args`` = (q, k, v, do, lse, delta) against bias_bwd_reference on
-    ``f32``, f32 copies of (q, k, v, do), and the same lse and delta: dQ, dK,
-    dV (per KV head) and dbias within BWD_TOL[bf16] and each within
-    WINDOW_REL_L2 relative L2 (printed with max|ref|); dead rows' dQ and
-    dbias exactly 0, and with causal dbias exactly 0 above the diagonal.
-    Returns the max error and dbias."""
-    from flashattn_tpu_torch.ops import flash_bwd
+    variant with ``want_dbias``, with the softcap, the window, the offsets
+    and the segment ids in ``kw`` if any) on ``args`` = (q, k, v, do, lse,
+    delta) against bias_bwd_reference on ``f32``, f32 copies of (q, k, v,
+    do), and the same lse and delta: dQ, dK, dV (per KV head) and dbias
+    within BWD_TOL[bf16] and each within WINDOW_REL_L2 relative L2 (printed
+    with max|ref|); dead rows' dQ and dbias exactly 0, and dbias exactly 0
+    on every pair the masks drop (flash_fwd.pair_mask: the band, the ids,
+    the KV tail), read from memory that the allocator hands out NaN-filled
+    (_poison_cache), so that a pair the kernel leaves unwritten, and that
+    the wrapper did not zero, fails. Returns the max error and dbias."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
     from flashattn_tpu_torch.utils.testing import BWD_TOL, grad_gate
 
-    kw = {n: kw[n] for n in ("scale", "causal", "kv_valid_len", "bias", "softcap") if n in kw}
+    kw = {n: kw[n] for n in ("scale", "causal", "kv_valid_len", "bias", "softcap", "window",
+                             "segment_ids", "q_offset", "kv_offset") if n in kw}
+    q, k = args[:2]
+    if want_dbias:
+        b, hq, nq, d = q.shape
+        _poison_cache(8 * (b * hq * nq * (k.shape[2] + d) + 2 * b * k.shape[1] * k.shape[2] * d))
     before = flash_bwd.bias_bwd.launches, flash_bwd.bias_bwd.launches_dbias
     got = flash_bwd.bias_bwd(*args, want_dbias=want_dbias, **kw)
     torch.cuda.synchronize()
@@ -1911,19 +1972,24 @@ def _bias_bwd_check(tag: str, args, f32, *, want_dbias: bool, phase: str = "bias
     dead = args[4] <= math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
     dead_zero = bool((got[0][dead] == 0).all()) and (
         not want_dbias or bool((got[3][dead] == 0).all()))
-    above = 0
-    if want_dbias and kw.get("causal"):
+    masked, n_masked = 0, 0
+    if want_dbias:
         nq, nk = got[3].shape[-2:]
-        upper = torch.arange(nk, device=DEVICE)[None] > torch.arange(nq, device=DEVICE)[:, None]
-        above = int((got[3][..., upper] != 0).sum())
+        drop = ~flash_fwd.pair_mask(
+            nq, nk, kv_valid_len=kw.get("kv_valid_len", nk), causal=kw.get("causal", False),
+            segment_ids=kw.get("segment_ids"), device=DEVICE, window=kw.get("window"),
+            q_offset=kw.get("q_offset", 0), kv_offset=kw.get("kv_offset", 0)
+        ).expand(got[3].shape)
+        masked, n_masked = int((got[3][drop] != 0).sum()), int(drop.sum())
+        del drop
     log(phase, f"{tag}: K5 + K6 bias route (bias bwd / bias bwd dbias launches {launched}) "
                f"dQ/dK/dV{'/dbias' if want_dbias else ''} max_abs_err {err:.3e} (budget "
                f"BWD_TOL[bf16] atol {g_tol.atol} rtol {g_tol.rtol}); relative L2 (limit "
                f"{WINDOW_REL_L2}) / max|ref|: "
                + ", ".join(f"{n} {r:.2e} / {m:.3f}" for n, (r, m) in rel.items())
                + f"; dead rows {int(dead.sum())}, their dQ{' and dbias' if want_dbias else ''} "
-               f"exactly 0: {dead_zero}" + (f"; dbias above the causal diagonal: {above} nonzero"
-                                            if want_dbias and kw.get("causal") else ""))
+               f"exactly 0: {dead_zero}" + (f"; dbias on the {n_masked} pairs the masks drop: "
+                                            f"{masked} not exactly 0" if want_dbias else ""))
     if launched != (1, int(want_dbias)):
         fail(f"the bias route's backward launched {launched} times at {tag}, expected "
              f"{(1, int(want_dbias))}")
@@ -1934,8 +2000,9 @@ def _bias_bwd_check(tag: str, args, f32, *, want_dbias: bool, phase: str = "bias
              f"{rel}")
     if not dead_zero:
         fail(f"the bias route's backward: dead rows' dQ or dbias not exactly 0 at {tag}")
-    if above:
-        fail(f"the bias route's dbias is not exactly 0 above the causal diagonal at {tag}")
+    if masked:
+        fail(f"the bias route's dbias is not exactly 0 on {masked} pairs the masks drop at "
+             f"{tag}")
     dbias = got[3] if want_dbias else None
     del got, want
     return {"err": err, "dbias": dbias}
@@ -2418,6 +2485,19 @@ def _bias_route_check(tag: str, q, k, v, **kw) -> float:
     return err_o
 
 
+def bias_route_instantiations(*, seg: bool) -> set:
+    """The instantiations of K1's bias route (fwd_bias_sm90_kernel<D, SEG,
+    CAP>) and of K5 + K6's (bwd_bias_sm90_kernel<D, DBIAS, CAP, SEG>) with or
+    without segment ids, as instantiation_name names them: 4 + 8."""
+    sg = int(seg)
+    tag = " segments" if seg else ""
+    return ({f"K1 bias sm90{tag}{' softcap' if c else ''} fwd_bias_sm90_kernel<{d}, {sg}, {c}>"
+             for d in (64, 128) for c in (0, 1)}
+            | {f"bias bwd sm90{tag}{' softcap' if c else ''} "
+               f"bwd_bias_sm90_kernel<{d}, {w}, {c}, {sg}>"
+               for d in (64, 128) for w in (0, 1) for c in (0, 1)})
+
+
 def _tma_wgmma_sass(phase: str, names: set) -> None:
     """The SASS (cuobjdump) of the TMA + wgmma instantiations ``names``:
     HGMMA (wgmma), UTMALDG (TMA loads) and no HMMA (mma.sync); their
@@ -2672,20 +2752,254 @@ def phase_bias_check() -> dict:
             "split bwd": 0}
     if e2e != want:
         fail(f"the end-to-end bias checks launched {res['e2e']}, expected {want}")
-    _tma_wgmma_sass("bias", {f"K1 bias sm90{' softcap' if c else ''} "
-                             f"fwd_bias_sm90_kernel<{d}, {c}>" for d in (64, 128) for c in (0, 1)}
-                    | {f"bias bwd sm90{' softcap' if c else ''} "
-                       f"bwd_bias_sm90_kernel<{d}, {w}, {c}>"
-                       for d in (64, 128) for w in (0, 1) for c in (0, 1)})
+    _tma_wgmma_sass("bias", bias_route_instantiations(seg=False))
+    return res
+
+
+# phase_bias_band_check: the bias routes with a band, segment ids and q / kv
+# offsets at B2 Hq8 Hkv4 (GQA: dK / dV summed per KV head), each case at D 64
+# and D 128: (tag, Nq, Nk, causal, window, ids, (q_offset, kv_offset), bias
+# kind, softcap, dbias, has dead rows). Bias kinds as _band_bias makes them:
+# "mask" path A's mask arm (key padding [B, 1, N, N] of lengths (N, 0.45 N):
+# dead rows), "learned" its learned arm (that plus a normal [1, Hq, N, N]),
+# "keys" a row-broadcast [B, 1, 1, Nk], "full" a normal [B, Hq, Nq, Nk].
+# "docs": 8 documents a row (packed_ids) whose document 3 no key carries
+# (its rows dead, its keys unread).
+BAND_WINDOW = (256, 256)  # Longformer's attention_window of 512
+BAND_CASES = [
+    ("window, mask arm", 2048, 2048, False, BAND_WINDOW, None, (0, 0), "mask", None, False, True),
+    ("window, learned arm", 2048, 2048, False, BAND_WINDOW, None, (0, 0), "learned", None, True,
+     True),
+    ("window, learned arm, softcap", 2048, 2048, False, BAND_WINDOW, None, (0, 0), "learned",
+     SOFTCAP, True, True),
+    ("causal window, mask arm", 2048, 2048, True, (256, -1), None, (0, 0), "mask", None, False,
+     True),
+    ("causal window, learned arm", 2048, 2048, True, (256, -1), None, (0, 0), "learned", None,
+     True, True),
+    ("causal window, learned arm, softcap", 2048, 2048, True, (256, -1), None, (0, 0), "learned",
+     SOFTCAP, True, True),
+    ("8 documents, row-broadcast bias", 2048, 2048, False, None, "docs", (0, 0), "keys", None,
+     True, True),
+    ("8 documents, causal, full bias", 2048, 2048, True, None, "docs", (0, 0), "full", None,
+     True, True),
+    ("causal, q_off - kv_off = 2048", 2048, 2048, True, None, None, (2048, 0), "full", None, True,
+     False),
+    ("causal, q_off - kv_off = -64", 2048, 2048, True, None, None, (0, 64), "full", None, True,
+     True),
+    ("ragged Nq 1300, Nk 1024, window", 1300, 1024, False, (300, 300), None, (0, 0), "full", None,
+     True, False)]
+
+
+def _band_bias(kind: str, seed: int, B: int, Hq: int, Nq: int, Nk: int) -> torch.Tensor:
+    """A BAND_CASES bias (f32) of ``kind``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    if kind in ("mask", "learned"):
+        bias = _padding_bias((Nq, int(0.45 * Nq)), Nq)
+        if kind == "learned":
+            bias = bias + torch.randn((1, Hq, Nq, Nk), generator=gen, device=DEVICE)
+        return bias
+    shape = (B, 1, 1, Nk) if kind == "keys" else (B, Hq, Nq, Nk)
+    return torch.randn(shape, generator=gen, device=DEVICE)
+
+
+def _band_ids(B: int, Nq: int, Nk: int):
+    """8 documents a row (packed_ids) on the queries; on the keys the same,
+    but document 3 renamed, so that its query rows match no key."""
+    seg_q = packed_ids(B, Nq)
+    seg_kv = packed_ids(B, Nk)
+    return seg_q, torch.where(seg_kv == 3, 100, seg_kv)
+
+
+def bias_mod(bias):
+    """flex_attention's ``score_mod`` of an additive ``bias [B|1, H|1, Nq|1,
+    Nk]`` on the scaled score."""
+    def mod(score, b, h, q_idx, kv_idx):
+        i = [x if n > 1 else 0 for x, n in zip((b, h, q_idx), bias.shape[:3])]
+        return score + bias[i[0], i[1], i[2], kv_idx]
+    return mod
+
+
+def window_doc_mod(window=None, ids=None):
+    """flex_attention's ``mask_mod`` of a window ``(left, right)`` (a
+    negative bound: none) and of segment ids ``ids [B, N]``."""
+    def mod(b, h, q_idx, kv_idx):
+        keep = q_idx >= 0
+        if window is not None and window[0] >= 0:
+            keep = keep & (q_idx - kv_idx <= window[0])
+        if window is not None and window[1] >= 0:
+            keep = keep & (kv_idx - q_idx <= window[1])
+        if ids is not None:
+            keep = keep & (ids[b, q_idx] == ids[b, kv_idx])
+        return keep
+    return mod
+
+
+def _band_library(q, k, v, do, bias, mask, *, window=None, ids=None, dbias=False) -> tuple:
+    """The library yardsticks of a bias route call with a band or segment ids
+    at these inputs, forward and backward: SDPA with ``attn_mask`` = the f32
+    bias with the band or the documents folded in (``mask``: the pairs that
+    attend; the mask value elsewhere) -- with ``dbias`` its backward takes
+    the gradient of a bf16 copy of the bias, SDPA's dbias -- and
+    flex_attention compiled by torch.compile with the bias as ``score_mod``
+    and the band or the documents as ``mask_mod`` (flex_fwd_bwd_ms: one
+    compile for both; no dbias: the bias it reads does not require grad).
+    Each dict's ``library_ms`` is the faster, ``library_call`` names it."""
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+
+    fold = torch.where(mask, 0.0, DEFAULT_MASK_VALUE)
+    sdpa = [sdpa_ms(q, k, v, attn_mask=bias + fold)]
+    if dbias:
+        leaf = bias.to(torch.bfloat16).requires_grad_(True)
+        sdpa.append(sdpa_ms(q, k, v, do=do, attn_mask=leaf + fold.to(torch.bfloat16),
+                            bias_leaf=leaf))
+        sdpa_bwd = ("scaled_dot_product_attention(attn_mask=the bias in bf16, which requires "
+                    "grad, plus the folded mask) (dQ, dK, dV and dbias in one call)")
+        del leaf
+    else:
+        sdpa.append(sdpa_ms(q, k, v, do=do, attn_mask=bias + fold))
+        sdpa_bwd = "scaled_dot_product_attention(attn_mask=the f32 bias + folded mask)"
+    flex = flex_fwd_bwd_ms(q, k, v, do, scale=q.shape[-1] ** -0.5, score_mod=bias_mod(bias),
+                           mask_mod=window_doc_mod(window, ids))
+    flex_call = (f"flex_attention (torch.compile) with the bias as score_mod and the "
+                 f"{'documents' if ids is not None else 'band'} as mask_mod")
+    out = []
+    for what, t_sdpa, sdpa_call, t_flex in (
+            ("", sdpa[0], "scaled_dot_product_attention(attn_mask=the f32 bias + folded mask)",
+             flex[0]),
+            ("the backward of ", sdpa[1], sdpa_bwd, flex[1])):
+        best = min((t_sdpa, what + sdpa_call), (t_flex, what + flex_call))
+        out.append({"library_ms": best[0], "library_call": best[1], "sdpa_ms": t_sdpa,
+                    "flex_ms": t_flex})
+    return tuple(out)
+
+
+def _band_timing() -> dict:
+    """K1's and K5 + K6's bias routes at path A's shape (B4 H16 N2048 D128,
+    bf16, q and k at GROW), each first held against its plain version
+    (_fwd_bwd_check): with the window BAND_WINDOW on both arms' biases (the
+    mask arm without dbias, the learned arm with), and with 8 documents a
+    row (_band_ids' query ids on both sides: packed path A's) and a learned
+    [1, 16, N, N] bias with dbias. Each row: its time (median CUDA-event),
+    its plain version's, the library's (_band_library) and its bound over
+    the pairs attended (pair_flops; the bias's bytes over those pairs too,
+    dbias written whole)."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    B, N = len(ATTN_LENGTHS), ATTN_SEQ
+    H = ATTN_WIDTH["num_heads"]
+    D = ATTN_WIDTH["qkv_features"] // H
+    pad = _padding_bias(ATTN_LENGTHS, N)
+    gen = torch.Generator(device=DEVICE).manual_seed(1460)
+    rel = torch.randn((1, H, N, N), generator=gen, device=DEVICE)
+    ids = packed_ids(B, N)
+    q, k, v = _grown(1461, B, H, N, D, N, H)
+    do = _bnhd(make_qkv(1462, B, H, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
+    stats = 4 * B * H * N
+    res = {}
+    for name, bias, extra, dbias in (
+            ("window_mask", pad, dict(window=BAND_WINDOW), False),
+            ("window_learned", pad + rel, dict(window=BAND_WINDOW), True),
+            ("docs_learned", rel, dict(segment_ids=(ids, ids)), True)):
+        kw = dict(scale=D ** -0.5, bias=bias, **extra)
+        mask_kw = dict(kv_valid_len=N, causal=False, window=extra.get("window"),
+                       segment_ids=extra.get("segment_ids"))
+        keep = flash_fwd.pair_mask(N, N, device=DEVICE, **mask_kw)
+        share = float(keep.expand(B, 1, N, N).float().mean())
+        out = _fwd_bwd_check(f"path A's shape B{B} H{H} N{N} D{D}, {name.replace('_', ', ')} "
+                             f"bias {list(bias.shape)}", q, k, v, do, phase="band",
+                             want_dbias=dbias, **kw)
+        args = out["args"]
+        bias_bytes = tensor_bytes(bias) * share
+        lib_fwd, lib_bwd = _band_library(q, k, v, do, bias, keep, window=extra.get("window"),
+                                         ids=ids if "segment_ids" in extra else None,
+                                         dbias=dbias)
+        res[f"k1_{name}"] = {
+            "max_abs_err": out["fwd_err"],
+            "ms": cuda_ms(lambda: flash_fwd.fwd(q, k, v, **kw)),
+            "plain_ms": cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw), reps=3, trials=3),
+            **bound(tensor_bytes(q, k, v, q) + bias_bytes + stats,
+                    pair_flops(q, k, matmuls=2, **mask_kw)),
+            **lib_fwd}
+        res[f"bwd_{name}"] = {
+            "max_abs_err": out["bwd_err"],
+            "ms": cuda_ms(lambda: flash_bwd.bias_bwd(*args, want_dbias=dbias, **kw)),
+            "plain_ms": cuda_ms(lambda: flash_bwd.bias_bwd_reference(
+                *args, want_dbias=dbias, **kw), reps=2, trials=3),
+            **bound(tensor_bytes(*args, q, k, v) + bias_bytes
+                    + (tensor_bytes(out["dbias"]) if dbias else 0),
+                    pair_flops(q, k, matmuls=5, **mask_kw)),
+            **lib_bwd}
+        for key in (f"k1_{name}", f"bwd_{name}"):
+            r = res[key]
+            log("band", f"{key} at path A's shape: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+                        f"bound {r['bound_ms']:.4f} {r['bound_by']}, {share:.3f} of the pairs; "
+                        f"SDPA {r['sdpa_ms']:.4f}, flex {r['flex_ms']:.4f}; library "
+                        f"{r['library_call']})")
+        del out, args, keep
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_bias_band_check() -> dict:
+    """The bias routes with a band, segment ids and q / kv offsets: K1's
+    (fwd_bias_sm90_kernel, SEG with ids) and K5 + K6's (bwd_bias_sm90_kernel)
+    against their plain versions on BAND_CASES at D 64 and D 128
+    (_fwd_bwd_check: q and k at GROW; one launch each on its route; O, LSE,
+    dQ, dK, dV and dbias within their budgets and WINDOW_REL_L2; dead rows'
+    O exactly 0 and LSE exactly ln2 · mask, their dQ and dbias exactly 0;
+    dbias exactly 0 on every pair the masks drop, read from NaN-filled
+    memory). Then the SASS of the 12 instantiations with segment ids (HGMMA,
+    UTMALDG, no HMMA) with their registers and spills, and the routes timed
+    at path A's shape (_band_timing)."""
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    B, Hq, Hkv = 2, 8, 4
+    t0 = time.perf_counter()
+    i = 0
+    for d in (64, 128):
+        for case in BAND_CASES:
+            tag, nq, nk, causal, window, ids, (qo, ko), kind, cap, dbias, dead = case
+            q, k, v = _grown(1470 + i, B, Hq, nq, d, nk, Hkv)
+            do = _bnhd(make_qkv(1500 + i, B, Hq, nq, d, dtype=torch.bfloat16, device=DEVICE)[0])
+            kw = dict(scale=d ** -0.5, causal=causal, bias=_band_bias(kind, 1530 + i, B, Hq, nq,
+                                                                      nk))
+            if window is not None:
+                kw["window"] = window
+            if ids is not None:
+                kw["segment_ids"] = _band_ids(B, nq, nk)
+            if (qo, ko) != (0, 0):
+                kw.update(q_offset=qo, kv_offset=ko)
+            if cap is not None:
+                kw["softcap"] = cap
+            out = _fwd_bwd_check(f"{tag}: B{B} Hq{Hq} Hkv{Hkv} Nq{nq} Nk{nk} D{d}"
+                                 f"{' causal' if causal else ''}"
+                                 f"{'' if window is None else f', window {window}'}"
+                                 f"{'' if (qo, ko) == (0, 0) else f', offsets {(qo, ko)}'}, "
+                                 f"{kind} bias {list(kw['bias'].shape)}"
+                                 f"{'' if cap is None else f', softcap {cap}'}"
+                                 f"{', dbias' if dbias else ''}", q, k, v, do, phase="band",
+                                 want_dbias=dbias, **kw)
+            if dead != bool(out["dead"]):
+                fail(f"the band case {tag} at D {d} has {out['dead']} dead rows")
+            del q, k, v, do, kw, out
+            torch.cuda.empty_cache()
+            i += 1
+    log("band", f"{len(BAND_CASES)} cases at D 64 and D 128 checked in "
+                f"{time.perf_counter() - t0:.1f} s")
+    _tma_wgmma_sass("band", bias_route_instantiations(seg=True))
+    t0 = time.perf_counter()
+    res = _band_timing()
+    log("band", f"timed at path A's shape in {time.perf_counter() - t0:.1f} s")
     return res
 
 
 def _plain_mhdpa(m, x, bias):
     """The module's function written out apart from the port: the
     projections in the parameters' dtype, then softmax(q k^T · D^-1/2 + bias)
-    v in f32 with the f32 ``bias`` [B|1, H, N, N], cast back. A gate's
-    reference: it shares no code with flash_attention_fn, the SDPA adapter
-    or the kernels."""
+    v in f32 with the f32 ``bias`` [B|1, H, N, N] (a band or documents
+    folded in at the mask value), cast back. A gate's reference: it shares
+    no code with flash_attention_fn, the SDPA adapter or the kernels."""
     q, k, v = ((torch.einsum("bnf,fhd->bhnd", x, p.kernel) + p.bias[:, None]).float()
                for p in (m.query, m.key, m.value))
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * q.shape[-1] ** -0.5 + bias
@@ -2693,27 +3007,43 @@ def _plain_mhdpa(m, x, bias):
     return torch.einsum("bhnd,hdf->bnf", o, m.out.kernel) + m.out.bias
 
 
-def _path_a(arm: str, x, target, valid, mask, rel0) -> dict:
+def _path_a(arm: str, x, target, valid, mask, rel0, *, window=None, ids=None) -> dict:
     """One arm of path A: FlashMultiHeadDotProductAttention (ATTN_WIDTH,
     bf16) on ``x`` with the key-padding ``mask`` and, where ``rel0`` is given,
     a trainable relative-position bias initialised to it (f32, passed as the
-    module's ``bias``); an MSE loss over the valid rows. Loss and gradient
-    gates: the bf16 floor is the plain bf16 function (_plain_mhdpa on the
-    bf16 weights) against the plain f32 one on the unrounded weights; the
-    fused and exact (impl "exact", the SDPA adapter's oracle) arms are each
-    held to 1.5x that floor against the f32 one, over all gradients and,
-    with a learned bias, over its gradient alone. Then LM_STEPS AdamW steps
-    per arm (the learned bias trained with the weights), the launches of the
-    fused steps counted."""
+    module's ``bias``); an MSE loss over the valid rows. With ``window``
+    the module is built with it (Longformer's local window; its "exact"
+    impl runs the same flash_attention, so only the fused arm runs). With
+    ``ids`` [B, N] (packed rows, no mask) the module's projections feed
+    flash_attention(bias=the trainable bias, segment_ids=ids, layout="BNHD")
+    and its output projection (the torch.nn module takes no ids, as the flax
+    one takes none); fused arm only. Loss and gradient gates: the bf16 floor
+    is the plain bf16 function (_plain_mhdpa on the bf16 weights, the band
+    or the documents folded into its bias) against the plain f32 one on the
+    unrounded weights; the fused and exact (impl "exact", the SDPA
+    adapter's oracle) arms are each held to 1.5x that floor against the f32
+    one, over all gradients and, with a learned bias, over its gradient
+    alone. Then LM_STEPS AdamW steps per arm (the learned bias trained with
+    the weights), the launches of the fused steps counted: every K1 call
+    on K1's bias route (with the window, its window variant), every
+    backward one launch of K5 + K6's."""
     from flashattn_tpu_torch.integrations import FlashMultiHeadDotProductAttention
     from flashattn_tpu_torch.models.transformer import adamw_init, adamw_update
+    from flashattn_tpu_torch.ops import flash_fwd
+    from flashattn_tpu_torch.ops.flash import flash_attention
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
 
     B, N, F = x.shape
+    impls = ("fused",) if window is not None or ids is not None else ("fused", "exact")
+    # The pairs that attend, folded into the plain function's bias.
+    keep = flash_fwd.pair_mask(N, N, kv_valid_len=N, causal=False, window=window,
+                               segment_ids=None if ids is None else (ids, ids), device=DEVICE)
+    if mask is not None:
+        keep = keep & mask
 
     def build(impl, dtype=torch.bfloat16):
         m = FlashMultiHeadDotProductAttention(
-            **ATTN_WIDTH, impl=impl, dtype=dtype, device=DEVICE,
+            **ATTN_WIDTH, window=window, impl=impl, dtype=dtype, device=DEVICE,
             generator=torch.Generator(device=DEVICE).manual_seed(0))
         rel = None if rel0 is None else torch.nn.Parameter(rel0.clone())
         return m, rel
@@ -2721,8 +3051,11 @@ def _path_a(arm: str, x, target, valid, mask, rel0) -> dict:
     def loss_of(m, rel, plain=False):
         dtype = m.out.kernel.dtype
         if plain:
-            bias = torch.where(mask, 0.0, DEFAULT_MASK_VALUE)
+            bias = torch.where(keep, 0.0, DEFAULT_MASK_VALUE)
             y = _plain_mhdpa(m, x.to(dtype), bias if rel is None else bias + rel)
+        elif ids is not None:
+            q, k, v = (proj(x.to(dtype), 1) for proj in (m.query, m.key, m.value))
+            y = m.out(flash_attention(q, k, v, bias=rel, segment_ids=ids, layout="BNHD"), 2)
         else:
             y = m(x.to(dtype), mask=mask, bias=rel)
         return ((y.float() - target) ** 2 * valid[..., None]).sum() / (valid.sum() * F)
@@ -2738,9 +3071,9 @@ def _path_a(arm: str, x, target, valid, mask, rel0) -> dict:
         loss.backward()
         return loss.item(), {n: p.grad for n, p in params.items()}
 
-    fused, exact = build("fused"), build("exact")
-    n_params = sum(p.numel() for p in params_of(*fused).values())
-    got = {"fused": loss_and_grads(*fused), "exact": loss_and_grads(*exact)}
+    models = {impl: build(impl) for impl in impls}
+    n_params = sum(p.numel() for p in params_of(*models["fused"]).values())
+    got = {impl: loss_and_grads(*models[impl]) for impl in impls}
     l16, g16 = loss_and_grads(*build("exact"), plain=True)
     l32, g32 = loss_and_grads(*build("exact", torch.float32), plain=True)
     for name, (loss, g) in (*got.items(), ("plain bf16", (l16, g16)), ("plain f32", (l32, g32))):
@@ -2752,17 +3085,20 @@ def _path_a(arm: str, x, target, valid, mask, rel0) -> dict:
     errs = {name: {"loss": abs(loss - l32), "gradients": _rel_l2(g, g32),
                    **{n: _rel_l2({n: g[n]}, {n: g32[n]}) for n in only}}
             for name, (loss, g) in got.items()}
-    what = f"key-padding mask of lengths {ATTN_LENGTHS}" + (
-        "" if rel0 is None else f" + a trainable bias {list(rel0.shape)} f32")
+    what = ((f"key-padding mask of lengths {ATTN_LENGTHS}" if mask is not None else
+             "8 documents a row (segment ids)")
+            + ("" if window is None else f", window {window}")
+            + ("" if rel0 is None else f" + a trainable bias {list(rel0.shape)} f32"))
     log("bias_train", f"{arm} arm: FlashMultiHeadDotProductAttention ({n_params / 1e6:.1f} M "
                       f"params, {ATTN_WIDTH['num_heads']} heads of "
                       f"{ATTN_WIDTH['qkv_features'] // ATTN_WIDTH['num_heads']}, bf16) on x "
-                      f"[{B}, {N}, {F}], {what}: loss fused {got['fused'][0]:.7f}, exact "
-                      f"{got['exact'][0]:.7f}, plain bf16 {l16:.7f}, plain f32 {l32:.7f}; "
-                      + "; ".join(f"{key} against plain f32: fused {errs['fused'][key]:.3e}, exact "
-                                  f"{errs['exact'][key]:.3e} (limit 1.5 x bf16 floor "
-                                  f"{floors[key]:.3e}, plain bf16 vs plain f32)"
-                                  for key in floors))
+                      f"[{B}, {N}, {F}], {what}: loss "
+                      + ", ".join(f"{n} {got[n][0]:.7f}" for n in impls)
+                      + f", plain bf16 {l16:.7f}, plain f32 {l32:.7f}; "
+                      + "; ".join(f"{key} against plain f32: "
+                                  + ", ".join(f"{n} {errs[n][key]:.3e}" for n in impls)
+                                  + f" (limit 1.5 x bf16 floor {floors[key]:.3e}, plain bf16 "
+                                    "vs plain f32)" for key in floors))
     for name, err in errs.items():
         for key, floor in floors.items():
             if not err[key] <= 1.5 * floor:
@@ -2771,7 +3107,7 @@ def _path_a(arm: str, x, target, valid, mask, rel0) -> dict:
     del got, g16, g32
 
     res = {}
-    for name, (model, rel) in (("fused", fused), ("exact", exact)):
+    for name, (model, rel) in models.items():
         params = params_of(model, rel)
         opt = adamw_init(params)
         torch.cuda.synchronize()
@@ -2802,14 +3138,15 @@ def _path_a(arm: str, x, target, valid, mask, rel0) -> dict:
             fail(f"path A {arm} arm, {name} training: losses {losses} not finite or not falling")
         del params, opt
     n, dbias = LM_STEPS, (0 if rel0 is None else LM_STEPS)
+    win = n if window is not None else 0
     log("bias_train", f"{arm} arm, launches during the fused steps: {res['launches']} (expected "
-                      f"K1 = K1 bias = K1 bias sm90 = bias bwd = {n}, bias bwd dbias = {dbias}, "
-                      f"no K5, K6 or K3)")
-    if res["launches"] != _expect(K1=n, K1_bias=n, K1_bias_sm90=n, bias_bwd=n,
+                      f"K1 = K1 bias = K1 bias sm90 = bias bwd = {n}, K1 window = {win}, bias "
+                      f"bwd dbias = {dbias}, no K5, K6, K3, split route or fwd_tile.cuh K1)")
+    if res["launches"] != _expect(K1=n, K1_bias=n, K1_bias_sm90=n, K1_window=win, bias_bwd=n,
                                   bias_bwd_dbias=dbias):
         fail(f"path A's {arm} arm launched {res['launches']}, expected K1 = K1 bias = K1 bias "
-             f"sm90 = bias bwd = {n}, bias bwd dbias = {dbias} and no other")
-    del fused, exact
+             f"sm90 = bias bwd = {n}, K1 window = {win}, bias bwd dbias = {dbias} and no other")
+    del models
     torch.cuda.empty_cache()
     return res
 
@@ -2821,7 +3158,11 @@ def phase_bias_train() -> dict:
     an MSE loss over the valid rows against a random target at the output's
     scale, in two arms (_path_a): the mask alone, which needs no dbias, and
     the mask plus a trainable relative-position bias [1, 16, N, N] (a T5 /
-    Swin-style learned bias), whose gradient K6's dbias gives."""
+    Swin-style learned bias), whose gradient K6's dbias gives. Then
+    windowed path A, the module with Longformer's local window BAND_WINDOW,
+    on both arms; and packed path A, 8 documents a row (packed_ids) with the
+    trainable bias through flash_attention(bias=, segment_ids=) between the
+    module's projections, over every row."""
     from flashattn_tpu_torch.integrations import make_attention_mask
 
     gen = torch.Generator(device=DEVICE).manual_seed(4)
@@ -2836,6 +3177,13 @@ def phase_bias_train() -> dict:
     res = {"mask": _path_a("mask", x, target, valid, mask, None)}
     rel0 = torch.randn((1, ATTN_WIDTH["num_heads"], N, N), generator=gen, device=DEVICE)
     res["learned"] = _path_a("learned", x, target, valid, mask, rel0)
+    res["window_mask"] = _path_a("windowed mask", x, target, valid, mask, None,
+                                 window=BAND_WINDOW)
+    res["window_learned"] = _path_a("windowed learned", x, target, valid, mask, rel0,
+                                    window=BAND_WINDOW)
+    every = torch.ones_like(valid)
+    res["packed"] = _path_a("packed learned", x, target, every, None, rel0,
+                            ids=packed_ids(B, N))
     return res
 
 
@@ -4763,6 +5111,125 @@ def phase_entry() -> dict:
     return {"dryrun": counts, "losses": losses}
 
 
+# phase_utilities: the LM whose training it checkpoints (LM_WIDTH at this
+# depth: the 8-layer model's weights and AdamW moments are 4.4 GB on disk)
+# and the steps before the checkpoint.
+CKPT_LAYERS = 2
+CKPT_STEPS = 2
+
+
+def phase_utilities() -> dict:
+    """The utilities on the card. utils/checkpoint.py: the LM (LM_WIDTH at
+    CKPT_LAYERS layers, bf16, [1, LM_SEQ + 1] tokens) takes CKPT_STEPS AdamW
+    steps, is checkpointed (weights, AdamW state, step) under
+    latest_step_dir's layout in the build directory, and takes one more step
+    (the uninterrupted run); a fresh model and a fresh AdamW state restored
+    from the checkpoint (``like=`` them) take that step again: its loss must
+    equal the uninterrupted step's bit for bit (the forward has no
+    atomics), and the restored state its saved dtypes. utils/profiling.py:
+    capture_attention_trace at its defaults (B1 H24 N4096 D128) writes a
+    Chrome trace that must name K1's dense route (fwd_dense_sm90_kernel) and
+    K3 (bwd_sm90_kernel); dump_kernel_ir writes flash_fwd_sm90.cu's PTX
+    (naming the kernel, with wgmma) and the library's SASS (with HGMMA)."""
+    import dataclasses
+    import shutil
+
+    from flashattn_tpu_torch.models.transformer import (
+        TransformerConfig, adamw_init, adamw_update, init_transformer, lm_loss)
+    from flashattn_tpu_torch.utils import checkpoint, native, profiling
+
+    cfg = dataclasses.replace(TransformerConfig(**LM_WIDTH), n_layers=CKPT_LAYERS)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_SEQ + 1),
+                           generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE)
+
+    def fresh():
+        model = init_transformer(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                                 device=DEVICE)
+        params = dict(model.named_parameters())
+        return model, params, adamw_init(params)
+
+    def step(model, params, opt):
+        model.zero_grad(set_to_none=True)
+        loss = lm_loss(model, tokens, cfg)
+        loss.backward()
+        opt = adamw_update({n: p.grad for n, p in params.items()}, opt, params)[1]
+        return loss.item(), opt
+
+    root = native.BUILD_DIR / "checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    model, params, opt = fresh()
+    losses = []
+    for _ in range(CKPT_STEPS):
+        loss, opt = step(model, params, opt)
+        losses.append(loss)
+    t0 = time.perf_counter()
+    path = checkpoint.save(str(root / str(CKPT_STEPS) / "state.pt"),
+                           {"params": params, "opt": opt, "step": CKPT_STEPS})
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path) / 1e9
+    uninterrupted, _ = step(model, params, opt)
+    del model, params, opt
+    torch.cuda.empty_cache()
+    model, params, opt = fresh()
+    t0 = time.perf_counter()
+    state = checkpoint.restore(os.path.join(checkpoint.latest_step_dir(str(root)), "state.pt"),
+                               like={"params": params, "opt": opt, "step": 0})
+    restore_s = time.perf_counter() - t0
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(state["params"][n])
+    opt = state["opt"]
+    counts = (state["step"], opt["count"])
+    resumed, _ = step(model, params, opt)
+    dtypes = ({p.dtype for p in state["params"].values()}, {m.dtype for m in opt["mu"].values()})
+    log("utilities", f"checkpoint of the LM ({sum(p.numel() for p in params.values()) / 1e6:.0f} "
+                     f"M params, {cfg.n_layers} layers, bf16) after step {CKPT_STEPS}: "
+                     f"{size:.2f} GB written in {save_s:.2f} s, restored in {restore_s:.2f} s; "
+                     f"losses {losses}, step {CKPT_STEPS + 1} uninterrupted {uninterrupted!r}, "
+                     f"resumed {resumed!r}; restored dtypes {dtypes}, step and AdamW count "
+                     f"{counts}")
+    del model, params, opt, state
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if (resumed != uninterrupted or dtypes != ({torch.bfloat16}, {torch.float32})
+            or counts != (CKPT_STEPS, CKPT_STEPS)):
+        fail(f"the resumed step's loss {resumed!r} is not the uninterrupted one's "
+             f"{uninterrupted!r}, or the restored dtypes {dtypes} are not bf16 / f32, or the "
+             f"step and AdamW count {counts} are not {CKPT_STEPS}")
+
+    trace_dir = native.BUILD_DIR / "trace"
+    # CUPTI can drop a capture's kernels in a process that profiled before
+    # (_profiled): up to three captures.
+    for attempt in range(3):
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        t0 = time.perf_counter()
+        out = profiling.capture_attention_trace(str(trace_dir))
+        with open(os.path.join(out, profiling.TRACE_FILE)) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        kernels = {k: sorted(n for n in names if k in n)
+                   for k in ("fwd_dense_sm90_kernel", "bwd_sm90_kernel")}
+        log("utilities", f"capture_attention_trace (B1 H24 N4096 D128, fwd + bwd), capture "
+                         f"{attempt + 1}, in {time.perf_counter() - t0:.1f} s: {len(names)} event "
+                         f"names; K1 / K3 kernels named: {kernels}; regions flash_fwd "
+                         f"{'flash_fwd' in names}, flash_bwd {'flash_bwd' in names}")
+        if all(kernels.values()):
+            break
+    if not all(kernels.values()) or not {"flash_fwd", "flash_bwd"} <= names:
+        fail(f"the attention trace names no K1 or K3 kernel, or misses a region: {kernels}")
+    t0 = time.perf_counter()
+    ir = profiling.dump_kernel_ir(str(native.BUILD_DIR / "ir"), sources=("flash_fwd_sm90.cu",))
+    ptx = open(ir["ptx"][0]).read()
+    sass = open(ir["sass"]).read()
+    log("utilities", f"dump_kernel_ir in {time.perf_counter() - t0:.1f} s: PTX {len(ptx)} bytes "
+                     f"({ptx.count('wgmma.mma_async')} wgmma.mma_async), SASS {len(sass)} bytes "
+                     f"({sass.count('HGMMA')} HGMMA)")
+    if "fwd_dense_sm90_kernel" not in ptx or "wgmma.mma_async" not in ptx or "HGMMA" not in sass:
+        fail("dump_kernel_ir: the PTX or the SASS lacks K1's dense route or its wgmma")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    shutil.rmtree(native.BUILD_DIR / "ir", ignore_errors=True)
+    return {"resumed_loss": resumed, "checkpoint_gb": size}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
@@ -4776,6 +5243,7 @@ def main() -> None:
 
     timed(phase_env)
     timed(phase_build)
+    timed(phase_utilities)
     k1 = timed(phase_kernel_check)
     k1c = timed(phase_causal_check)
     k3 = timed(phase_bwd_check)
@@ -4789,6 +5257,7 @@ def main() -> None:
     swa = timed(phase_swa_train)
     cap = timed(phase_softcap)
     bias = timed(phase_bias_check)
+    band = timed(phase_bias_band_check)
     bias_train = timed(phase_bias_train)
     roof = timed(phase_roofline)
     ring = timed(phase_ring)
@@ -4883,6 +5352,39 @@ def main() -> None:
                  "run in the D 128 instantiation)", "route": "cuda", "source": bias_bwd_src,
          "replaces": split_replaces, "path": None, "launches": bias["launches_d96"],
          **bias["bias_bwd_d96"]},
+        # The bias routes with a band or segment ids (phase_bias_band_check's
+        # rows at path A's shape, B4 H16 N2048 D128); launches from windowed
+        # and packed path A's fused steps (phase_bias_train).
+        {"name": "flash_fwd_bias_sm90 window (K1's bias route, wgmma: key-padding bias, window "
+                 "(256, 256), windowed path A's mask arm)", "route": "cuda",
+         "source": bias_sm90_src, "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+         "launches": bias_train["window_mask"]["launches"]["K1 bias sm90"],
+         **band["k1_window_mask"]},
+        {"name": "flash_fwd_bias_sm90 window (K1's bias route, wgmma: [4, 16, N, N] bias, window "
+                 "(256, 256), windowed path A's learned arm)", "route": "cuda",
+         "source": bias_sm90_src, "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+         "launches": bias_train["window_learned"]["launches"]["K1 bias sm90"],
+         **band["k1_window_learned"]},
+        {"name": "flash_fwd_bias_sm90 segments (K1's bias route, wgmma: [1, 16, N, N] bias, 8 "
+                 "documents a row, packed path A)", "route": "cuda", "source": bias_sm90_src,
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+         "launches": bias_train["packed"]["launches"]["K1 bias sm90"],
+         **band["k1_docs_learned"]},
+        {"name": "bwd_bias_sm90 window (K5 + K6's bias route, wgmma: key-padding bias, window "
+                 "(256, 256), windowed path A's mask arm)", "route": "cuda",
+         "source": bias_bwd_src, "replaces": split_replaces,
+         "launches": bias_train["window_mask"]["launches"]["bias bwd"],
+         **band["bwd_window_mask"]},
+        {"name": "bwd_bias_sm90 window dbias (K5 + K6's bias route, wgmma: [4, 16, N, N] bias and "
+                 "dbias, window (256, 256), windowed path A's learned arm)", "route": "cuda",
+         "source": bias_bwd_src, "replaces": split_replaces,
+         "launches": bias_train["window_learned"]["launches"]["bias bwd dbias"],
+         **band["bwd_window_learned"]},
+        {"name": "bwd_bias_sm90 segments dbias (K5 + K6's bias route, wgmma: [1, 16, N, N] bias "
+                 "and dbias, 8 documents a row, packed path A)", "route": "cuda",
+         "source": bias_bwd_src, "replaces": split_replaces,
+         "launches": bias_train["packed"]["launches"]["bias bwd dbias"],
+         **band["bwd_docs_learned"]},
         {"name": "gemm (K9, TMA + wgmma)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/gemm.cu",
          "replaces": "flashattn_tpu/ops/gemm.py:22", "launches": roof["launches"]["K9"],

@@ -267,23 +267,24 @@ _KV_BARRIERS = (
     ("      mbar_init(&empty[s], 8);  // one arrival per consumer warp\n",
      "      mbar_init(&empty[s], 8);  // one arrival per consumer warp\n"
      "      if (S::KV_SPLIT) mbar_init(&v_full[s], 1);\n"),
-    ("        mbar_expect_tx(&full[s], 2 * S::KV + (SEG ? FB_BLOCK_N * 4 : 0));\n",
+    ("k1wide).\n        mbar_expect_tx(&full[s], 2 * S::KV + (SEG ? FB_BLOCK_N * 4 : 0));\n",
+     "k1wide).\n"
      "        mbar_expect_tx(&full[s], (S::KV_SPLIT ? 1 : 2) * S::KV + (SEG ? FB_BLOCK_N * 4 : 0));\n"
      "        if (S::KV_SPLIT) mbar_expect_tx(&v_full[s], S::KV);\n"),
     ("          tma_load_4d(st + S::KV + x * FB_BLOCK_N * FB_BOX_ROW, &tm_v, &full[s], 64 * x, n0, hk,\n",
      "          tma_load_4d(st + S::KV + x * FB_BLOCK_N * FB_BOX_ROW, &tm_v, &v_full[s], 64 * x, n0, hk,\n"),
-    ("""          pack_p(pa, sc);
-          issue_pv<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);""",
-     """          pack_p(pa, sc);
-          if (S::KV_SPLIT) mbar_wait(&v_full[s], (it / S::STAGES) & 1);
-          issue_pv<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);"""),
-    ("""          for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
-        }
-        release(it);""", """          for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
-        } else if (S::KV_SPLIT) {
-          mbar_wait(&v_full[s], (it / S::STAGES) & 1);
-        }
-        release(it);"""),
+    ("""        pack_p(pa, sc);
+        issue_pv<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);""",
+     """        pack_p(pa, sc);
+        if (S::KV_SPLIT) mbar_wait(&v_full[s], (it / S::STAGES) & 1);
+        issue_pv<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);"""),
+    ("""        for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+      }
+      release(it);""", """        for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+      } else if (S::KV_SPLIT) {
+        mbar_wait(&v_full[s], (it / S::STAGES) & 1);
+      }
+      release(it);"""),
 )
 
 

@@ -1,24 +1,24 @@
 // K5 + K6 with an additive bias for Hopper (sm_90a): bwd_sm90_tile.cuh's
 // single-pass TMA + wgmma backward with its bias stage, which writes dQ, dK,
 // dV and, when the bias needs a gradient, dbias in one KV-major pass, as
-// bwd_bias_sm90_kernel<D, DBIAS, CAP> (D 64 and 128, with and without dbias
-// and the logit softcap: 8 instantiations; a head dim below D that is a
-// multiple of 8 runs in them, the TMA boxes reading zeros past it); and the C
-// entry fa_bwd_bias_sm90.
+// bwd_bias_sm90_kernel<D, DBIAS, CAP, SEG> (D 64 and 128, with and without
+// dbias, the logit softcap and segment ids: 16 instantiations; a head dim
+// below D that is a multiple of 8 runs in them, the TMA boxes reading zeros
+// past it); and the C entry fa_bwd_bias_sm90.
 //
 // Replaces the TPU kernels flashattn_tpu/ops/flash_bwd.py::_dkv_kernel (K5,
 // :139) and ::_dq_kernel (K6, :234) on every backward with a bias
-// (ops/flash_bwd.py::bias_bwd_route: bf16, D <= 128, no segment ids or
-// window -- with or without the softcap, decode-shaped or not, as the JAX
+// (ops/flash_bwd.py::bias_bwd_route: bf16, D <= 128 -- causal, a window,
+// q / kv offsets, segment ids, the softcap, decode-shaped or not, as the JAX
 // package pairs a bias with them): the formulas, the masks (the KV tail,
-// the Q tail, the top-left causal diagonal, dead rows) and the design are
-// in bwd_sm90_tile.cuh. With the softcap, dbias is the gradient of the
-// capped logit, dL, written before the cap's Jacobian multiplies it into dS
+// the Q tail, the band, the ids, dead rows) and the design are in
+// bwd_sm90_tile.cuh. With the softcap, dbias is the gradient of the capped
+// logit, dL, written before the cap's Jacobian multiplies it into dS
 // (flashattn_tpu/ops/flash_bwd.py:300-304). dK / dV come per KV head (summed
 // over its Hq / Hkv query heads inside the CTA); dQ is added into a zeroed
-// f32 dQ; dbias is written on every (Q tile, KV tile) pair the kernel visits
-// (the caller zero-fills it when causal or kv_valid_len < Nk leaves pairs
-// unvisited).
+// f32 dQ; dbias is written on every (Q tile, KV tile) pair the kernel visits,
+// 0 on its pairs that the band or the ids mask (the caller zero-fills it
+// when the band, the ids or kv_valid_len < Nk leave pairs unvisited).
 //
 // What bounds it: at path A's shape (B4 H16 N2048 D128, non-causal) the five
 // products are 344 GFLOP, 0.35 ms at 989 TFLOP/s: operations, with the mask
@@ -39,27 +39,40 @@
 
 namespace {
 
-template <int D, bool DBIAS, bool CAP>
+template <int D, bool DBIAS, bool CAP, bool SEG>
 __global__ void __launch_bounds__(BB_THREADS, 1)
     bwd_bias_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v,
                          const __grid_constant__ CUtensorMap tm_do,
                          const __grid_constant__ CUtensorMap tm_bias, const BwdBiasParams p) {
-  bwd_sm90_body<D, true, DBIAS, false, CAP>(tm_q, tm_k, tm_v, tm_do, &tm_bias, p);
+  bwd_sm90_body<D, true, DBIAS, SEG, CAP>(tm_q, tm_k, tm_v, tm_do, &tm_bias, p);
 }
 
-template <int D, bool DBIAS, bool CAP>
+template <int D, bool DBIAS, bool CAP, bool SEG>
 cudaError_t bwd_bias_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                             const CUtensorMap& tm_v, const CUtensorMap& tm_do,
                             const CUtensorMap& tm_bias, const BwdBiasParams& p, int hkv,
                             int batch, cudaStream_t stream) {
-  auto kernel = bwd_bias_sm90_kernel<D, DBIAS, CAP>;
-  const cudaError_t e = allow_smem(kernel, BbSmem<D>::BYTES);
+  auto kernel = bwd_bias_sm90_kernel<D, DBIAS, CAP, SEG>;
+  constexpr int smem = BbSmem<D, true, SEG>::BYTES;
+  const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(hkv, (p.nk + BB_BLOCK_N - 1) / BB_BLOCK_N, batch);
-  kernel<<<grid, BB_THREADS, BbSmem<D>::BYTES, stream>>>(tm_q, tm_k, tm_v, tm_do, tm_bias, p);
+  kernel<<<grid, BB_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, tm_bias, p);
   return cudaGetLastError();
+}
+
+template <int D, bool DBIAS, bool CAP>
+cudaError_t bwd_bias_seg(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                         const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+                         const CUtensorMap& tm_bias, const BwdBiasParams& p, int hkv, int batch,
+                         cudaStream_t s) {
+  return p.seg_q != nullptr
+             ? bwd_bias_launch<D, DBIAS, CAP, true>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv,
+                                                     batch, s)
+             : bwd_bias_launch<D, DBIAS, CAP, false>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv,
+                                                      batch, s);
 }
 
 template <int D>
@@ -68,15 +81,15 @@ cudaError_t bwd_bias_dispatch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                               const CUtensorMap& tm_bias, const BwdBiasParams& p, bool dbias,
                               bool cap, int hkv, int batch, cudaStream_t s) {
   if (dbias && cap) {
-    return bwd_bias_launch<D, true, true>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
+    return bwd_bias_seg<D, true, true>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
   }
   if (dbias) {
-    return bwd_bias_launch<D, true, false>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
+    return bwd_bias_seg<D, true, false>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
   }
   if (cap) {
-    return bwd_bias_launch<D, false, true>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
+    return bwd_bias_seg<D, false, true>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
   }
-  return bwd_bias_launch<D, false, false>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
+  return bwd_bias_seg<D, false, false>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
 }
 
 // The bias's TMA map: an f32 [B|1, H|1, Nq|1, Nk] tensor read through its
@@ -115,18 +128,23 @@ extern "C" {
 // to), 16-byte aligned; dk / dv [B, Hkv, Nk, D] f32 contiguous, written
 // (summed over each KV head's query heads), 8-byte aligned; dbias null, or
 // [B, Hq, Nq, Nk] f32 contiguous, written on every (64-row Q tile, 128-row KV
-// tile) pair that causal and kv_valid_len leave (zero it first otherwise);
-// softcap > 0 the forward's logit cap (dbias then the gradient of the capped
-// logit), 0 none. Requires 8 <= D <= 128 with D % 8 == 0, Hq % Hkv == 0,
-// Nq, Nk >= 1, 0 <= kv_valid_len <= Nk, B <= 65535. causal != 0 masks
-// kv_pos > q_pos (top-left, zero offsets).
+// tile) pair that the band, the ids and kv_valid_len leave (zero it first
+// otherwise); causal, the window (wl, wr), the offsets (q_off, kv_off) and
+// the segment ids (seg_q, seg_kv, q_range, kv_range at 64-row Q tiles and
+// 128-key KV tiles, all four or none, q_tiles = ceil(Nq / 64)) as in
+// fa_bwd_split_sm90 (flash_bwd_split_sm90.cu); softcap > 0 the forward's
+// logit cap (dbias then the gradient of the capped logit), 0 none. Requires
+// 8 <= D <= 128 with D % 8 == 0, Hq % Hkv == 0, Nq, Nk >= 1, 0 <=
+// kv_valid_len <= Nk, B <= 65535.
 // Returns a cudaError_t (0: success; cudaErrorInvalidValue for arguments it
 // does not take, cudaErrorNotSupported when cuTensorMapEncodeTiled is
 // missing or refuses a tensor map).
 int fa_bwd_bias_sm90(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, const void* bias, void* dq, void* dk,
-                     void* dv, void* dbias, int batch, int hq, int hkv, int nq, int nk, int d,
-                     int kv_valid_len, int causal, int nq_pad, float scale, float softcap,
+                     void* dv, void* dbias, const void* seg_q, const void* seg_kv,
+                     const void* q_range, const void* kv_range, int batch, int hq, int hkv,
+                     int nq, int nk, int d, int kv_valid_len, int causal, int wl, int wr,
+                     int q_off, int kv_off, int nq_pad, float scale, float softcap,
                      int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh,
                      int64_t k_sn, int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t do_sb,
                      int64_t do_sh, int64_t do_sn, int64_t bias_sb, int64_t bias_sh,
@@ -134,6 +152,7 @@ int fa_bwd_bias_sm90(const void* q, const void* k, const void* v, const void* do
   // The K/V and bias maps' key extent (at least 1: a map has no empty dim;
   // with kv_valid_len 0 no tile is loaded).
   const int nkv = kv_valid_len > 0 ? kv_valid_len : 1;
+  const bool seg = seg_q != nullptr;
   if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
       hq % hkv != 0 || nq < 1 || nk < 1 || (nk + BB_BLOCK_N - 1) / BB_BLOCK_N > 65535 ||
       kv_valid_len < 0 || kv_valid_len > nk || nq_pad < nq || nq_pad % BB_BLOCK_M ||
@@ -145,7 +164,11 @@ int fa_bwd_bias_sm90(const void* q, const void* k, const void* v, const void* do
       !tma_strides(k_sb, batch, k_sh, hkv, k_sn, nkv) ||
       !tma_strides(v_sb, batch, v_sh, hkv, v_sn, nkv) ||
       !tma_strides(do_sb, batch, do_sh, hq, do_sn, nq) || bias_sb % 4 || bias_sh % 4 ||
-      bias_sn % 4 || bias_sb < 0 || bias_sh < 0 || bias_sn < 0) {
+      bias_sn % 4 || bias_sb < 0 || bias_sh < 0 || bias_sn < 0 ||
+      seg != (seg_kv != nullptr) || seg != (q_range != nullptr) ||
+      seg != (kv_range != nullptr) ||
+      (seg && (!aligned(seg_q, 16) || !aligned(seg_kv, 4) || !aligned(q_range, 8) ||
+               !aligned(kv_range, 8)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -175,8 +198,14 @@ int fa_bwd_bias_sm90(const void* q, const void* k, const void* v, const void* do
   p.nq_pad = nq_pad;
   p.nk = nk;
   p.kv_valid_len = kv_valid_len;
-  p.causal = causal != 0;
   p.d = d;
+  band_bounds(causal, wl, wr, &p.lo, &p.hi, static_cast<int64_t>(q_off) - kv_off);
+  p.seg_q = static_cast<const int*>(seg_q);
+  p.seg_kv = static_cast<const int*>(seg_kv);
+  p.q_range = static_cast<const int2*>(q_range);
+  p.kv_range = static_cast<const int2*>(kv_range);
+  p.q_tiles = (nq + BB_BLOCK_M - 1) / BB_BLOCK_M;
+  p.kv_tiles = (kv_valid_len + BB_BLOCK_N - 1) / BB_BLOCK_N;
   p.bias_rows = bias_rows;
   p.bias_b = bias_sb != 0;
   p.bias_h = bias_sh != 0;

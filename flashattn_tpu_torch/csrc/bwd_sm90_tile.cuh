@@ -11,9 +11,9 @@
 //   x = S scale log2 e (+ bias log2 e, floored at the mask value, as K1's
 //       bias route forms it: fwd_sm90_tile.cuh), S = Q K^T on the unscaled Q;
 //   P = exp2(x - LSE log2 e), exactly 0 on keys at or past kv_valid_len, on
-//       rows past Nq, outside the band (BIAS: above the top-left causal
-//       diagonal; else the band of K1's dense route, row i sees column j iff
-//       i - lo <= j <= i + hi) and on a dead row (LSE log2 e <= mask / 2);
+//       rows past Nq, outside the band (K1's, row i sees column j iff i - lo
+//       <= j <= i + hi: causal, a window, q / kv offsets) and on a dead row
+//       (LSE log2 e <= mask / 2);
 //   dL = P (dP - Delta), dP = dO V^T;  dS = dL scale;
 //   with the softcap (CAP): x = cap log2 e t (+ bias log2 e, floored as
 //       above), t = tanh(S scale / cap), and dS = dL (1 - t^2) scale (the
@@ -84,6 +84,16 @@
 //     whole tiles) by a bulk copy on the stage's barrier; pairs are tested
 //     per id only on tiles that a document edge cuts. An empty list leaves
 //     the tile's dK / dV rows zero, as a tile past kv_valid_len.
+//   * With segment ids and the bias (BIAS and SEG, bwd_bias_sm90.cu): at D
+//     128 the family leaves 968 B of shared memory, which holds neither the
+//     list (16 KB) nor the KV tile's ids beside two stages' Q ids (1 KB).
+//     So the KV tile's ids go to registers (each consumer thread reads its
+//     two rows' ids from global memory once: they are fixed for the CTA),
+//     each stage's 64 Q ids come by the bulk copy on the stage's barrier
+//     (512 B for two stages), and the producer and the consumers each test
+//     every (query head, Q tile) pair of the band against the KV tile's id
+//     range as they walk them -- the ranges every thread reads, so all walk
+//     the same pairs -- in place of a list.
 
 #pragma once
 
@@ -99,20 +109,6 @@ constexpr int BB_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int BB_BIAS_BOX = 32;  // f32 columns per bias box: the 128-byte swizzle's span
 constexpr float NEG_GUARD = 0.5f * MASK_VALUE;
 constexpr int BB_SEG_LIST = 4096;  // SEG: the most Q tiles one CTA can visit (Nq <= 262144)
-
-struct BwdBiasParams {
-  const float* lse;    // [B, Hq, nq_pad] f32, natural log (ln2 * mask: a dead row)
-  const float* delta;  // [B, Hq, nq_pad] f32
-  float* dq;           // [B, Hq, Nq, D] f32 contiguous, zeroed
-  float* dk;           // [B, Hkv, Nk, D] f32 contiguous, written
-  float* dv;
-  float* dbias;        // [B, Hq, Nq, Nk] f32 contiguous (the DBIAS instantiations)
-  int hq, rep, nq, nq_pad, nk, kv_valid_len, causal, d;
-  int bias_rows;       // rows of a bias box: 64, or 1 for a row-broadcast bias
-  int bias_b, bias_h;  // whether the bias has the batch / head dim (else: coordinate 0)
-  float scale, scale_log2;
-  float cap_scale, cap_log2;  // CAP: scale / cap, cap * log2(e)
-};
 
 // K3's parameters (the family without a bias).
 struct BwdDenseParams {
@@ -136,13 +132,21 @@ struct BwdSplitParams : BwdDenseParams {
   float cap_scale, cap_log2;  // CAP: scale / cap, cap * log2(e)
 };
 
+// K5 + K6's bias route: the split route's (dk / dv [B, Hkv, Nk, d] per KV
+// head) and the bias.
+struct BwdBiasParams : BwdSplitParams {
+  float* dbias;        // [B, Hq, Nq, Nk] f32 contiguous (the DBIAS instantiations)
+  int bias_rows;       // rows of a bias box: 64, or 1 for a row-broadcast bias
+  int bias_b, bias_h;  // whether the bias has the batch / head dim (else: coordinate 0)
+};
+
 // Shared-memory layout (bytes, from a 1024-byte-aligned base): K and V (D /
 // 64 boxes of 128 rows), 2 stages of (Q, dO) (D / 64 boxes of 64 rows each),
 // 2 dS^T buffers (128 KV rows x 64 query columns, 128-byte swizzle), the f32
 // dQ stage [64][D], with BIAS BSTAGES bias tiles (4 boxes of 64 rows x 32
-// f32), with SEG the ids (the KV tile's [128], each stage's Q tile's
-// [2][64]), the list's length (padded to 16 bytes) and the list
-// [BB_SEG_LIST], the LSE and Delta rows [2][64] each, then the mbarriers
+// f32), with SEG the ids (without BIAS the KV tile's [128]; each stage's Q
+// tile's [2][64]; without BIAS the list's length, padded to 16 bytes, and
+// the list [BB_SEG_LIST]), the LSE and Delta rows [2][64] each, then the mbarriers
 // kv_full, full[2], empty[2] and with BIAS bias_full[BSTAGES],
 // bias_empty[BSTAGES].
 template <int D, bool BIAS = true, bool SEG = false>
@@ -160,10 +164,10 @@ struct BbSmem {
   static constexpr int OFF_DQ = OFF_DST + 2 * DST;
   static constexpr int OFF_BIAS = OFF_DQ + BB_BLOCK_M * D * 4;
   static constexpr int OFF_SEG = OFF_BIAS + BSTAGES * BIAS_TILE;
-  static constexpr int SEG_Q = BB_BLOCK_N * 4;              // offsets in the SEG region
+  static constexpr int SEG_Q = BIAS ? 0 : BB_BLOCK_N * 4;   // offsets in the SEG region
   static constexpr int SEG_COUNT = SEG_Q + 2 * BB_BLOCK_M * 4;
   static constexpr int SEG_LIST = SEG_COUNT + 16;
-  static constexpr int SEG_BYTES = SEG ? SEG_LIST + BB_SEG_LIST * 4 : 0;
+  static constexpr int SEG_BYTES = !SEG ? 0 : BIAS ? SEG_COUNT : SEG_LIST + BB_SEG_LIST * 4;
   static constexpr int OFF_STATS = OFF_SEG + SEG_BYTES;
   static constexpr int BARS = OFF_STATS + 2 * 2 * BB_BLOCK_M * 4;
   static constexpr int BYTES = 1024 + BARS + (5 + 2 * BSTAGES) * 8;
@@ -180,9 +184,10 @@ __device__ __forceinline__ float lds_f1(uint32_t addr) {
 }
 
 // The body of every family: BIAS, K5 + K6's bias route (Params
-// BwdBiasParams, dbias with DBIAS, the softcap with CAP); else K3 (Params
-// BwdDenseParams) or, with SEG and / or CAP, K5 + K6 without a bias (Params
-// BwdSplitParams); each any head dim p.d up to D. p
+// BwdBiasParams, dbias with DBIAS, segment ids with SEG, the softcap with
+// CAP); else K3 (Params BwdDenseParams) or, with SEG and / or CAP, K5 + K6
+// without a bias (Params BwdSplitParams); each any head dim p.d up to D, the
+// band as runtime ints. p
 // comes by value: bound by reference to the kernel's parameter, its fields were
 // reloaded in the P^T loop and its masks became branches (+160 SASS
 // instructions in each bias-route instantiation, 4.7% slower on path A's
@@ -193,7 +198,6 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
                                               const CUtensorMap* tm_bias, const Params p) {
   static_assert(D == 64 || D == 128, "instantiated for D 64 and 128");
   static_assert(BIAS || !DBIAS, "dbias needs the bias");
-  static_assert(!(BIAS && SEG), "the bias route takes no segment ids");
   using S = BbSmem<D, BIAS, SEG>;
   constexpr int BOXES = D / 64;
   constexpr int BST = BIAS ? S::BSTAGES : 1;
@@ -207,62 +211,62 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
   uint64_t* bias_empty = bias_full + BST;
   float* s_stats = reinterpret_cast<float*>(smem + S::OFF_STATS);  // lse[2][64], delta[2][64]
   // SEG: the KV tile's ids, the stages' Q ids, the list of Q tiles (2 * tile
-  // + whether both tiles are one document) and its length.
+  // + whether both tiles are one document) and its length (the stages' Q ids
+  // alone with BIAS).
   int* seg_kv_s = reinterpret_cast<int*>(smem + S::OFF_SEG);
   int* seg_q_s = reinterpret_cast<int*>(smem + S::OFF_SEG + S::SEG_Q);
   int* seg_count = reinterpret_cast<int*>(smem + S::OFF_SEG + S::SEG_COUNT);
   int* seg_list = reinterpret_cast<int*>(smem + S::OFF_SEG + S::SEG_LIST);
 
   // The CTA's owner (BIAS: its KV head hk, the query heads hk * rep + hr;
-  // else the query head h0 of KV head hk), its KV tile n0 and
-  // the Q tiles from m_begin (n_m of them) that meet the tile's band; none
-  // when the tile lies past kv_valid_len -- its dK / dV rows are then zeros.
-  int hk, h0, heads, n0, m_begin, n_m;
+  // else the query head h0 of KV head hk), its KV tile n0 and the Q tiles
+  // from m_begin (n_m of them) that meet the tile's band; none when the tile
+  // lies past kv_valid_len -- its dK / dV rows are then zeros.
+  int hk, h0, heads;
   if constexpr (BIAS) {
     hk = blockIdx.x;
     h0 = hk * p.rep;
     heads = p.rep;
-    n0 = blockIdx.y * BB_BLOCK_N;  // first KV row of the tile
-    // The Q tiles that meet the tile (top-left causal: rows from n0 on).
-    m_begin = p.causal ? n0 : 0;
-    n_m = n0 < p.kv_valid_len && m_begin < p.nq ? (p.nq - m_begin + BB_BLOCK_M - 1) / BB_BLOCK_M
-                                                 : 0;
   } else {
     h0 = blockIdx.x;
     hk = h0 / p.rep;
     heads = 1;
-    // A left bound alone: the late KV tiles meet the most Q tiles; run them
-    // first (causal's first tiles are its longest already).
-    const int n_tile =
-        p.lo < NO_BOUND && p.hi >= NO_BOUND ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-    n0 = n_tile * BB_BLOCK_N;
-    // Rows [n0 - hi, n0 + 127 + lo] meet the tile's columns.
-    m_begin = p.hi < NO_BOUND ? max(0, n0 - p.hi) / BB_BLOCK_M * BB_BLOCK_M : 0;
-    const int m_end = p.lo < NO_BOUND ? min(p.nq, n0 + BB_BLOCK_N + p.lo) : p.nq;
-    n_m = n0 < p.kv_valid_len && m_end > m_begin
-              ? (m_end - m_begin + BB_BLOCK_M - 1) / BB_BLOCK_M
-              : 0;
-    if constexpr (SEG) {
-      // Warp 0 keeps the band's Q tiles whose id range meets the KV tile's,
-      // in order, 32 a ballot; the barrier below publishes the list.
-      if (n_m > 0 && threadIdx.x < 32) {
-        const int2 k_rng = p.kv_range[blockIdx.z * p.kv_tiles + n_tile];
-        const int t0 = m_begin / BB_BLOCK_M;
-        int n = 0;
-        for (int c = 0; c < n_m; c += 32) {
-          const int i = c + threadIdx.x;
-          bool meet = false, one = false;
-          if (i < n_m) {
-            const int2 q_rng = p.q_range[blockIdx.z * p.q_tiles + t0 + i];  // bwd seg tile range
-            meet = ranges_meet(q_rng, k_rng);
-            one = q_rng.x == q_rng.y && k_rng.x == k_rng.y && q_rng.x == k_rng.x;
-          }
-          const unsigned kept = __ballot_sync(0xffffffffu, meet);
-          if (meet) seg_list[n + __popc(kept & ((1u << threadIdx.x) - 1))] = 2 * (t0 + i) + one;
-          n += __popc(kept);
+  }
+  // A left bound alone: the late KV tiles meet the most Q tiles; run them
+  // first (causal's first tiles are its longest already).
+  const int n_tile =
+      p.lo < NO_BOUND && p.hi >= NO_BOUND ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int n0 = n_tile * BB_BLOCK_N;  // first KV row of the tile
+  // Rows [n0 - hi, n0 + 127 + lo] meet the tile's columns.
+  const int m_begin = p.hi < NO_BOUND ? max(0, n0 - p.hi) / BB_BLOCK_M * BB_BLOCK_M : 0;
+  const int m_end = p.lo < NO_BOUND ? min(p.nq, n0 + BB_BLOCK_N + p.lo) : p.nq;
+  const int n_m = n0 < p.kv_valid_len && m_end > m_begin
+                      ? (m_end - m_begin + BB_BLOCK_M - 1) / BB_BLOCK_M
+                      : 0;
+  // SEG: the KV tile's id range.
+  int2 k_rng = make_int2(0, 0);
+  if constexpr (SEG) {
+    if (n_m > 0) k_rng = p.kv_range[blockIdx.z * p.kv_tiles + n_tile];
+  }
+  if constexpr (SEG && !BIAS) {
+    // Warp 0 keeps the band's Q tiles whose id range meets the KV tile's,
+    // in order, 32 a ballot; the barrier below publishes the list.
+    if (n_m > 0 && threadIdx.x < 32) {
+      const int t0 = m_begin / BB_BLOCK_M;
+      int n = 0;
+      for (int c = 0; c < n_m; c += 32) {
+        const int i = c + threadIdx.x;
+        bool meet = false, one = false;
+        if (i < n_m) {
+          const int2 q_rng = p.q_range[blockIdx.z * p.q_tiles + t0 + i];  // bwd seg tile range
+          meet = ranges_meet(q_rng, k_rng);
+          one = q_rng.x == q_rng.y && k_rng.x == k_rng.y && q_rng.x == k_rng.x;
         }
-        if (threadIdx.x == 0) *seg_count = n;  // bwd seg list length
+        const unsigned kept = __ballot_sync(0xffffffffu, meet);
+        if (meet) seg_list[n + __popc(kept & ((1u << threadIdx.x) - 1))] = 2 * (t0 + i) + one;
+        n += __popc(kept);
       }
+      if (threadIdx.x == 0) *seg_count = n;  // bwd seg list length
     }
   }
   const int b = blockIdx.z;
@@ -271,6 +275,29 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
   const int tid = threadIdx.x % 128;
   auto stage = [&](int j) { return smem + S::OFF_STAGE + (j & 1) * S::STAGE; };
   auto bias_tile = [&](int j) { return smem + S::OFF_BIAS + (j % BST) * S::BIAS_TILE; };
+  // Pair i of the walk: its query head h0 + hr, its Q tile's first row m0,
+  // whether the Q tile and the KV tile are one single document (SEG), and
+  // whether the pair is visited (SEG with BIAS: its Q tile's id range meets
+  // the KV tile's); j, the visits before it, numbers the stages.
+  auto pair_of = [&](int i, int& hr, int& m0, bool& one_doc) {
+    one_doc = false;
+    if constexpr (SEG && !BIAS) {
+      const int entry = seg_list[i];
+      hr = 0;
+      m0 = (entry >> 1) * BB_BLOCK_M;
+      one_doc = entry & 1;
+      return true;
+    } else {
+      hr = i / n_m;
+      m0 = m_begin + (i - hr * n_m) * BB_BLOCK_M;
+      if constexpr (SEG) {
+        const int2 q_rng = p.q_range[blockIdx.z * p.q_tiles + m0 / BB_BLOCK_M];
+        one_doc = q_rng.x == q_rng.y && k_rng.x == k_rng.y && q_rng.x == k_rng.x;
+        return ranges_meet(q_rng, k_rng);  // bias bwd seg tile range
+      }
+      return true;
+    }
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -287,35 +314,31 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if constexpr (SEG) total = total > 0 ? *seg_count : 0;  // the listed Q tiles
+  if constexpr (SEG && !BIAS) total = total > 0 ? *seg_count : 0;  // the listed Q tiles
 
   if (wg == 0) {
     // Producer: thread 0 issues the copies.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == 0 && total > 0) {
-      mbar_expect_tx(kv_full, 2 * S::KV + (SEG ? BB_BLOCK_N * 4 : 0));
+      mbar_expect_tx(kv_full, 2 * S::KV + (SEG && !BIAS ? BB_BLOCK_N * 4 : 0));
 #pragma unroll
       for (int x = 0; x < BOXES; ++x) {
         tma_load_4d(smem + x * BB_BLOCK_N * SW128_ROW, &tm_k, kv_full, 64 * x, n0, hk, b);
         tma_load_4d(smem + S::OFF_V + x * BB_BLOCK_N * SW128_ROW, &tm_v, kv_full, 64 * x, n0,
                     hk, b);
       }
-      if constexpr (SEG) {
+      if constexpr (SEG && !BIAS) {
         bulk_load(seg_kv_s, p.seg_kv + static_cast<int64_t>(b) * p.kv_tiles * BB_BLOCK_N + n0,
                   BB_BLOCK_N * 4, kv_full);
       }
       uint32_t bias_bytes = 0;
       if constexpr (BIAS) bias_bytes = BB_BLOCK_N / BB_BIAS_BOX * p.bias_rows * SW128_ROW;
-      for (int j = 0; j < total; ++j) {
-        const int s = j & 1;
+      int j = 0;  // pairs visited
+      for (int i = 0; i < total; ++i) {
         int hr, m0;
-        if constexpr (SEG) {
-          hr = 0;
-          m0 = (seg_list[j] >> 1) * BB_BLOCK_M;
-        } else {
-          hr = j / n_m;
-          m0 = m_begin + (j - hr * n_m) * BB_BLOCK_M;
-        }
+        bool one_doc;
+        if (!pair_of(i, hr, m0, one_doc)) continue;
+        const int s = j & 1;
         const int h = h0 + hr;
         unsigned char* st = stage(j);
         mbar_wait(&empty[s], ((j >> 1) & 1) ^ 1);  // round 0 passes at once
@@ -345,6 +368,7 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
                         p.bias_rows == 1 ? 0 : m0, p.bias_h ? h : 0, p.bias_b ? b : 0);
           }
         }
+        ++j;
       }
     }
   } else {
@@ -393,27 +417,27 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
     for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
     if (total > 0) mbar_wait(kv_full, 0);
-    // SEG: the ids of this thread's KV rows kv0 and kv0 + 8.
+    // SEG: the ids of this thread's KV rows kv0 and kv0 + 8 (with BIAS from
+    // global memory: the wrapper pads seg_kv's rows to whole tiles).
     int kv_seg[2] = {0, 0};
     if constexpr (SEG) {
       if (total > 0) {
-        kv_seg[0] = seg_kv_s[kv0 - n0];
-        kv_seg[1] = seg_kv_s[kv0 - n0 + 8];
+        if constexpr (BIAS) {
+          const int* ids = p.seg_kv + static_cast<int64_t>(b) * p.kv_tiles * BB_BLOCK_N + kv0;
+          kv_seg[0] = ids[0];  // bias bwd seg ids
+          kv_seg[1] = ids[8];
+        } else {
+          kv_seg[0] = seg_kv_s[kv0 - n0];
+          kv_seg[1] = seg_kv_s[kv0 - n0 + 8];
+        }
       }
     }
-    for (int j = 0; j < total; ++j) {
-      const int s = j & 1;
+    int j = 0;  // pairs visited
+    for (int i = 0; i < total; ++i) {
       int hr, m0;
-      bool one_doc = false;  // SEG: the Q tile and the KV tile are one single document
-      if constexpr (SEG) {
-        const int entry = seg_list[j];
-        hr = 0;
-        m0 = (entry >> 1) * BB_BLOCK_M;
-        one_doc = entry & 1;
-      } else {
-        hr = j / n_m;
-        m0 = m_begin + (j - hr * n_m) * BB_BLOCK_M;
-      }
+      bool one_doc;  // SEG: the Q tile and the KV tile are one single document
+      if (!pair_of(i, hr, m0, one_doc)) continue;
+      const int s = j & 1;
       const int h = h0 + hr;
       const unsigned char* q_st = stage(j);
       const unsigned char* do_st = q_st + S::QT;
@@ -431,13 +455,8 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
       // P^T: sc[4jj + 2r + e] is KV row kv0 + 8r, query row m0 + 8jj + 2t + e;
       // a dead row's LSE becomes +inf (P = 0 exactly). Edge tiles: those that
       // the tails or the band cut for this warpgroup's rows.
-      bool edge;
-      if constexpr (BIAS) {
-        edge = m0 + BB_BLOCK_M > p.nq || cw + 64 > p.kv_valid_len || (p.causal && m0 < cw + 63);
-      } else {
-        edge = m0 + BB_BLOCK_M > p.nq || cw + 64 > p.kv_valid_len || cw + 63 - m0 > p.hi ||
-               m0 + 63 - cw > p.lo;
-      }
+      const bool edge = m0 + BB_BLOCK_M > p.nq || cw + 64 > p.kv_valid_len ||
+                        cw + 63 - m0 > p.hi || m0 + 63 - cw > p.lo;
       const uint32_t lse_addr = smem_u32(s_stats + s * BB_BLOCK_M + 2 * t);
       const uint32_t dlt_addr = smem_u32(s_stats + (2 + s) * BB_BLOCK_M + 2 * t);
       const uint32_t bias_addr = smem_u32(bias_tile(j));
@@ -477,13 +496,9 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
             if (edge) {
               const int col = kv0 + 8 * r;
               const int row = m0 + 8 * jj + 2 * t + e;
-              if constexpr (BIAS) {
-                if (row >= p.nq || col >= p.kv_valid_len || (p.causal && col > row)) pe = 0.f;
-              } else {
-                if (row >= p.nq || col >= p.kv_valid_len || col - row > p.hi ||
-                    row - col > p.lo) {  // K3 band mask
-                  pe = 0.f;
-                }
+              if (row >= p.nq || col >= p.kv_valid_len || col - row > p.hi ||
+                  row - col > p.lo) {  // K3 band mask
+                pe = 0.f;
               }
             }
             sc[i] = pe;
@@ -497,7 +512,7 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
       if constexpr (SEG) {
         // A document edge cuts the tiles: P^T = 0 (and, with CAP, its half
         // in ph) on the pairs whose ids differ, two query ids a load.
-        if (!one_doc) {
+        if (!one_doc) {  // bwd seg edge
 #pragma unroll
           for (int jj = 0; jj < 8; ++jj) {
             const int2 qi = *reinterpret_cast<const int2*>(q_ids + 8 * jj);
@@ -646,6 +661,7 @@ __device__ __forceinline__ void bwd_sm90_body(const CUtensorMap& tm_q, const CUt
       } else {
         named_arrive(2, 256);
       }
+      ++j;
     }
     if (issuer) bulk_wait();
 

@@ -1,33 +1,46 @@
 // K1's bias route for Hopper (sm_90a): the C entry fa_fwd_bias_sm90 and the
-// four instantiations (D 64 and 128, without and with the logit softcap) of
-// fwd_sm90_tile.cuh's body with the bias stream, as fwd_bias_sm90_kernel<D,
-// CAP>; every D <= 128 that is a multiple of 8 runs in the D 64 or 128 one,
-// its TMA boxes reading zeros past D. What it replaces, what bounds it and
-// its design are in fwd_sm90_tile.cuh; the route (ops/flash_fwd.py::
-// bias_route) is decided in Python, and the other K1 calls with a bias keep
-// fwd_tile.cuh (fa_fwd, flash_fwd.cu): D above 128 and quantized K/V, or the
-// decode kernel (decode_tile.cuh).
+// eight instantiations (D 64 and 128, without and with segment ids, without
+// and with the logit softcap) of fwd_sm90_tile.cuh's body with the bias
+// stream, as fwd_bias_sm90_kernel<D, SEG, CAP>; every D <= 128 that is a
+// multiple of 8 runs in the D 64 or 128 one, its TMA boxes reading zeros past
+// D. The band (causal, a window, q / kv offsets) is runtime ints, as in the
+// dense route (flash_fwd_sm90.cu), whose argument list this entry's extends
+// by the bias. What it replaces, what bounds it and its design are in
+// fwd_sm90_tile.cuh; the route (ops/flash_fwd.py::bias_route) is decided in
+// Python, and the other K1 calls with a bias keep fwd_tile.cuh (fa_fwd,
+// flash_fwd.cu): D above 128 and quantized K/V, or the decode kernel
+// (decode_tile.cuh).
 
 #include "fwd_sm90_tile.cuh"
 
 namespace {
 
-template <int D, bool CAP>
+template <int D, bool SEG, bool CAP>
 __global__ void __launch_bounds__(FB_THREADS, 1)
     fwd_bias_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v, const FwdBiasParams p) {
-  fwd_sm90_body<D, true, false, CAP>(tm_q, tm_k, tm_v, p);
+  fwd_sm90_body<D, true, SEG, CAP>(tm_q, tm_k, tm_v, p);
+}
+
+template <int D, bool CAP>
+cudaError_t fwd_bias_sm90_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                 const CUtensorMap& tm_v, const FwdBiasParams& p, int batch,
+                                 cudaStream_t stream) {
+  constexpr int smem = FbSmem<D>::BYTES;
+  return p.seg_q != nullptr
+             ? fwd_sm90_launch(fwd_bias_sm90_kernel<D, true, CAP>, smem, tm_q, tm_k, tm_v, p,
+                               batch, stream)
+             : fwd_sm90_launch(fwd_bias_sm90_kernel<D, false, CAP>, smem, tm_q, tm_k, tm_v, p,
+                               batch, stream);
 }
 
 template <int D>
-cudaError_t fwd_bias_sm90_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
-                                 const CUtensorMap& tm_v, const FwdBiasParams& p, bool cap,
-                                 int batch, cudaStream_t stream) {
-  return cap ? fwd_sm90_launch(fwd_bias_sm90_kernel<D, true>, FbSmem<D>::BYTES, tm_q, tm_k,
-                               tm_v, p, batch, stream)
-             : fwd_sm90_launch(fwd_bias_sm90_kernel<D, false>, FbSmem<D>::BYTES, tm_q, tm_k,
-                               tm_v, p, batch, stream);
+cudaError_t fwd_bias_sm90_dispatch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                   const CUtensorMap& tm_v, const FwdBiasParams& p, bool cap,
+                                   int batch, cudaStream_t stream) {
+  return cap ? fwd_bias_sm90_launch<D, true>(tm_q, tm_k, tm_v, p, batch, stream)
+             : fwd_bias_sm90_launch<D, false>(tm_q, tm_k, tm_v, p, batch, stream);
 }
 
 }  // namespace
@@ -37,25 +50,34 @@ extern "C" {
 // O and LSE for q [B, Hq, Nq, D] and k/v [B, Hkv, Nk, D] bf16 (unit stride on
 // D, other strides in elements) with an additive f32 bias [B|1, Hq|1, Nq|1,
 // Nk] (unit column stride, (batch, head, row) strides in elements, 0 on
-// broadcast dims); o has q's shape, lse is [B, Hq, Nq] f32 contiguous.
-// softcap > 0 caps the scaled scores at softcap * tanh(s / softcap) before
-// the bias is added, 0 none. Requires 8 <= D <= 128 with D % 8 == 0, Hq % Hkv
-// == 0, 1 <= Nq, 0 <= kv_valid_len <= Nk, B <= 65535; q, k, v and bias
-// 16-byte aligned, q / k / v strides multiples of 8 elements and the bias's
-// of 4 (16-byte bias rows), o 4-byte aligned with even strides. causal != 0 masks kv_pos > q_pos (zero offsets).
-// Returns a cudaError_t (0 on success; cudaErrorInvalidValue for arguments
-// it does not take, cudaErrorNotSupported when cuTensorMapEncodeTiled is
-// missing or refuses a tensor map).
+// broadcast dims); o has q's shape, lse is [B, Hq, Nq] f32 contiguous. The
+// other arguments are fa_fwd_sm90's (flash_fwd_sm90.cu), with their meaning:
+// causal, the window (wl, wr) and the offsets (q_off, kv_off) in absolute
+// positions, the segment ids (seg_q, seg_kv, q_range, kv_range at 128-row Q
+// tiles and 64-key KV tiles: all four or none), the softcap (> 0 caps the
+// scaled scores at softcap * tanh(s / softcap) before the bias is added, 0
+// none); a row that sees no key, or whose every score is at the mask value,
+// is dead (O = 0, LSE = ln2 * mask). Requires 8 <= D <= 128 with D % 8 == 0,
+// Hq % Hkv == 0, 1 <= Nq, 0 <= kv_valid_len <= Nk, B <= 65535; q, k, v and
+// bias 16-byte aligned, q / k / v strides multiples of 8 elements and the
+// bias's of 4 (16-byte bias rows), o 4-byte aligned with even strides,
+// seg_kv 16-byte aligned. Returns a cudaError_t (0 on success;
+// cudaErrorInvalidValue for arguments it does not take,
+// cudaErrorNotSupported when cuTensorMapEncodeTiled is missing or refuses a
+// tensor map).
 int fa_fwd_bias_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
-                     const void* bias, int batch, int hq, int hkv, int nq, int d,
-                     int kv_valid_len, int causal, float scale, float softcap, int64_t q_sb,
-                     int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn,
-                     int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh,
-                     int64_t o_sn, int64_t bias_sb, int64_t bias_sh, int64_t bias_sn,
+                     const void* bias, const void* seg_q, const void* seg_kv,
+                     const void* q_range, const void* kv_range, int batch, int hq, int hkv,
+                     int nq, int d, int kv_valid_len, int causal, int wl, int wr, int q_off,
+                     int kv_off, float scale, float softcap, int64_t q_sb, int64_t q_sh,
+                     int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn, int64_t v_sb,
+                     int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh, int64_t o_sn,
+                     int64_t bias_sb, int64_t bias_sh, int64_t bias_sn, int64_t seg_q_sb,
                      void* stream) {
   // The K/V maps' sequence extent (at least 1: a map has no empty dim; with
   // kv_valid_len 0 no KV tile is loaded).
   const int nkv = kv_valid_len > 0 ? kv_valid_len : 1;
+  const bool seg = seg_q != nullptr;
   if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
       hq % hkv != 0 || nq < 1 || (nq + FB_BLOCK_M - 1) / FB_BLOCK_M > 65535 ||
       kv_valid_len < 0 || !(softcap >= 0.f) || bias == nullptr || !aligned(q, 16) ||
@@ -64,7 +86,9 @@ int fa_fwd_bias_sm90(const void* q, const void* k, const void* v, void* o, void*
       !tma_strides(q_sb, batch, q_sh, hq, q_sn, nq) ||
       !tma_strides(k_sb, batch, k_sh, hkv, k_sn, nkv) ||
       !tma_strides(v_sb, batch, v_sh, hkv, v_sn, nkv) || bias_sb % 4 || bias_sh % 4 ||
-      bias_sn % 4 || o_sb % 2 || o_sh % 2 || o_sn % 2) {
+      bias_sn % 4 || o_sb % 2 || o_sh % 2 || o_sn % 2 || seg != (seg_kv != nullptr) ||
+      seg != (q_range != nullptr) || seg != (kv_range != nullptr) ||
+      (seg && !aligned(seg_kv, 16))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -80,21 +104,28 @@ int fa_fwd_bias_sm90(const void* q, const void* k, const void* v, void* o, void*
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = static_cast<float*>(lse);
   p.bias = static_cast<const float*>(bias);
+  p.seg_q = static_cast<const int*>(seg_q);
+  p.seg_kv = static_cast<const int*>(seg_kv);
+  p.q_range = static_cast<const int2*>(q_range);
+  p.kv_range = static_cast<const int2*>(kv_range);
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
   p.bias_sb = bias_sb; p.bias_sh = bias_sh; p.bias_sn = bias_sn;
+  p.seg_q_sb = seg_q_sb;
   p.hq = hq;
   p.rep = hq / hkv;
   p.nq = nq;
   p.d = d;
   p.kv_valid_len = kv_valid_len;
-  p.causal = causal != 0;
+  band_bounds(causal, wl, wr, &p.lo, &p.hi, static_cast<int64_t>(q_off) - kv_off);
+  p.q_tiles = (nq + FB_BLOCK_M - 1) / FB_BLOCK_M;
+  p.kv_tiles = (kv_valid_len + FB_BLOCK_N - 1) / FB_BLOCK_N;
   p.scale_log2 = scale * fa::LOG2E;
   const bool cap = softcap > 0.f;
   p.cap_scale = cap ? scale / softcap : 0.f;
   p.cap_log2 = softcap * fa::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = d <= 64 ? fwd_bias_sm90_launch<64>(tm_q, tm_k, tm_v, p, cap, batch, s)
-                                : fwd_bias_sm90_launch<128>(tm_q, tm_k, tm_v, p, cap, batch, s);
+  const cudaError_t e = d <= 64 ? fwd_bias_sm90_dispatch<64>(tm_q, tm_k, tm_v, p, cap, batch, s)
+                                : fwd_bias_sm90_dispatch<128>(tm_q, tm_k, tm_v, p, cap, batch, s);
   return static_cast<int>(e);
 }
 

@@ -1,8 +1,8 @@
 // K1 for Hopper (sm_90a): one warp-specialised TMA + wgmma forward body
 // with two instantiation families -- K1's bias route, which streams the f32
 // bias tile through shared memory (flash_fwd_bias_sm90.cu), and K1's dense
-// route, with the causal / window band, segment ids and any tail
-// (flash_fwd_sm90.cu).
+// route (flash_fwd_sm90.cu) -- both with the causal / window band, q / kv
+// offsets, segment ids and any tail.
 //
 // Replaces the TPU kernel flashattn_tpu/ops/flash_fwd.py::_fwd_kernel (K1,
 // :115) and, with causal or a window, the whole-sequence banded
@@ -27,8 +27,10 @@
 //   * The bias route (ops/flash_fwd.py::bias_route): bf16 Q/K/V, an
 //     additive f32 bias [B|1, H|1, Nq|1, Nk] read through (batch,
 //     head, row) strides that are 0 on broadcast dims, columns only below
-//     kv_valid_len and rows only below Nq; the KV tail and the top-left
-//     causal mask; no segment ids or window.
+//     kv_valid_len and rows only below Nq; and every mask of the dense
+//     route below -- the KV tail, the band (causal, a window, q / kv
+//     offsets) and segment ids -- the bias added before them, as the JAX
+//     kernel adds it (flashattn_tpu/ops/flash_fwd.py:291-320).
 //   * The dense route (ops/flash_fwd.py::dense_route): bf16 Q/K/V without a
 //     bias or quantized K/V; the KV tail
 //     below kv_valid_len and a ragged Q tail; the band of flash_fwd.py::
@@ -85,7 +87,15 @@
 //     32 distinct banks, while the copies (8 lanes, 8 consecutive chunks of
 //     one row) stay conflict-free. Grid (head, Q tile, batch): the head
 //     varies fastest, so the 16 CTAs that share a [B, 1, N, N] bias tile run
-//     together and read it from HBM once.
+//     together and read it from HBM once. The band and the segment ids are
+//     the dense route's (below): every producer thread walks the same tile
+//     list -- the band's tiles from n_begin whose id range meets the Q
+//     tile's, from the ranges every thread reads -- so the 128 arrivals of
+//     each full barrier stay whole, and copies the bias from the tile's
+//     absolute column; with SEG thread 0 adds the tile's 64 ids to the
+//     stage's barrier. The 3 stages' ids (768 B) fit beside the D 128 ring
+//     (229,376 B of Q and stages, ~1.2 KB below the 227 KB limit); a fourth
+//     stage does not.
 //   * The dense route: 4 stages of (K, V) (2 at D 256) and one thread
 //     issuing every copy (K7's producer). The CTA visits only the KV tiles that meet its rows'
 //     band, [m0 - lo, m0 + 127 + hi], so a window of w costs ~w columns a
@@ -123,17 +133,6 @@
 
 namespace fa {
 
-struct FwdBiasParams {
-  __nv_bfloat16* o;
-  float* lse;          // [B, Hq, Nq] contiguous
-  const float* bias;   // f32, unit column stride, 16-byte-aligned rows
-  int64_t o_sb, o_sh, o_sn;
-  int64_t bias_sb, bias_sh, bias_sn;  // 0 on broadcast dims
-  int hq, rep, nq, d, kv_valid_len, causal;
-  float scale_log2;           // softmax scale * log2(e)
-  float cap_scale, cap_log2;  // CAP: scale / cap, cap * log2(e)
-};
-
 // The dense route's parameters (SEG: the segment ids and their tile ranges).
 struct FwdDenseParams {
   __nv_bfloat16* o;
@@ -151,6 +150,12 @@ struct FwdDenseParams {
   float cap_scale, cap_log2;  // CAP: scale / cap, cap * log2(e)
 };
 
+// The bias route's: the dense route's and the bias.
+struct FwdBiasParams : FwdDenseParams {
+  const float* bias;   // f32, unit column stride, 16-byte-aligned rows
+  int64_t bias_sb, bias_sh, bias_sn;  // 0 on broadcast dims
+};
+
 }  // namespace fa
 
 namespace {
@@ -164,7 +169,7 @@ constexpr int FB_BOX_ROW = 128;  // bytes per row of a 64-column bf16 box (the s
 
 // Shared-memory layout (bytes, from a 1024-byte-aligned base): Q, then per
 // stage K, V (each D / 64 boxes of 64 columns) and, with BIAS, the bias
-// tile; without, the 64 segment ids of each stage; then the mbarriers
+// tile; then the 64 segment ids of each stage; then the mbarriers
 // q_full, full[STAGES], empty[STAGES]. D 256 (the dense route only): Q 64 KB
 // and 2 stages of (K, V) 64 KB, 193 KB in all; a third stage would pass 227
 // KB. (K and V on barriers of their own, so that S = Q K^T starts once K has
@@ -176,8 +181,8 @@ struct FbSmem {
   static constexpr int KV = FB_BLOCK_N * D * 2;
   static constexpr int BIAS_TILE = BIAS ? FB_BLOCK_M * FB_BLOCK_N * 4 : 0;
   static constexpr int STAGE = 2 * KV + BIAS_TILE;
-  static constexpr int SEG = BIAS ? 0 : Q + STAGES * STAGE;  // int[STAGES][64]
-  static constexpr int BARS = Q + STAGES * STAGE + (BIAS ? 0 : STAGES * FB_BLOCK_N * 4);
+  static constexpr int SEG = Q + STAGES * STAGE;  // int[STAGES][64]
+  static constexpr int BARS = SEG + STAGES * FB_BLOCK_N * 4;
   static constexpr int BYTES = 1024 + BARS + (1 + 2 * STAGES) * 8;
   static_assert(Q % 1024 == 0 && KV % 1024 == 0 && BIAS_TILE % 1024 == 0,
                 "the 128-byte swizzle repeats every 1024 bytes");
@@ -200,81 +205,29 @@ __device__ __forceinline__ int bias_slot(int r, int c) {
   return r * FB_BLOCK_N + 4 * (c ^ ((r & 3) << 1));
 }
 
-// One tile's scores to probabilities, sc[4jj + 2r + e] being row g + 8r,
-// column 8jj + 2t + e: scale (with CAP, cap) into the log2 domain in f32
-// (log2_score), add the bias, floor
-// at the mask value (a bias at the mask value times log2 e would overflow to
-// -inf, and a tile of -inf only would make the rescale NaN), and with MASKED
-// (a tile over the KV tail or causal's diagonal) set the tail and causal's
-// upper triangle to the mask value; then the online max and sum. The bias of
-// column 8jj + 2t of row g is at shared address b_addr ^ 32jj (bias_slot's
-// permutation: b_addr has bits 5-6 = row % 4 and bits 3-4 = t), row g + 8's
-// b_step bytes on (0 for a row-broadcast bias). Returns the rescale factor of
-// the earlier tiles' O in alpha.
-template <bool MASKED, bool CAP>
-__device__ __forceinline__ void softmax_tile(float (&sc)[32], uint32_t b_addr, uint32_t b_step,
-                                             int n0, int t, int row0, int nkv, bool causal,
-                                             float scale_log2, float cap_scale, float cap_log2,
-                                             float (&m_i)[2], float (&l_i)[2],
-                                             float (&alpha)[2]) {
-  float mx[2] = {m_i[0], m_i[1]};
-#pragma unroll
-  for (int jj = 0; jj < FB_BLOCK_N / 8; ++jj) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float2 bv = lds_f2((b_addr ^ (32 * jj)) + r * b_step);
-      const float bias2[2] = {bv.x, bv.y};  // K1 bias sm90 read
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int i = 4 * jj + 2 * r + e;
-        float x;
-        if constexpr (CAP) {
-          x = log2_score<CAP>(sc[i], scale_log2, cap_scale, cap_log2);  // K1 bias sm90 cap
-          x = fmaxf(x + bias2[e] * LOG2E, MASK_VALUE);
-        } else {
-          x = fmaxf(sc[i] * scale_log2 + bias2[e] * LOG2E, MASK_VALUE);
-        }
-        if (MASKED) {
-          const int col = n0 + 8 * jj + 2 * t + e;
-          if (col >= nkv || (causal && col > row0 + 8 * r)) x = MASK_VALUE;
-        }
-        sc[i] = x;
-        mx[r] = fmaxf(mx[r], x);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    alpha[r] = ex2(m_i[r] - mx[r]);
-    m_i[r] = mx[r];
-    l_i[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const float pe = ex2(sc[i] - m_i[(i >> 1) & 1]);
-    l_i[(i >> 1) & 1] += pe;
-    sc[i] = pe;
-  }
-}
-
-// The dense route's softmax of one tile, sc[4jj + 2r + e] being row row0 +
+// One tile's scores to probabilities, sc[4jj + 2r + e] being row row0 +
 // 8r, column col0 + 8jj + 2t + e (absolute positions): scale (with CAP, cap)
-// into the log2 domain in f32 (log2_score) and, with MASKED (a tile that the band, the KV tail or, with
-// SEG, a document edge cuts), set to the mask value the pairs outside the
-// band, the columns at or past nkv and, with SEG, the pairs whose ids differ
-// (ids: the tile's 64 key ids in shared memory, q_seg the rows'); then the
-// online max and sum. Returns the rescale factor of the earlier tiles' O in
-// alpha. ACCURATE (K1's f32 route, flash_fwd_f32.cu) takes the exponentials
-// by exp2f: FWD_TOL[f32] leaves no room for ex2.approx.
-template <bool MASKED, bool SEG, bool CAP, bool ACCURATE = false>
+// into the log2 domain in f32 (log2_score); with BIAS add the bias and floor
+// at the mask value (a bias at the mask value times log2 e would overflow to
+// -inf, and a tile of -inf only would make the rescale NaN); with MASKED (a
+// tile that the band, the KV tail or, with SEG, a document edge cuts) set to
+// the mask value the pairs outside the band, the columns at or past nkv and,
+// with SEG, the pairs whose ids differ (ids: the tile's 64 key ids in shared
+// memory, q_seg the rows'); then the online max and sum. Returns the rescale
+// factor of the earlier tiles' O in alpha. ACCURATE (K1's f32 route,
+// flash_fwd_f32.cu) takes the exponentials by exp2f: FWD_TOL[f32] leaves no
+// room for ex2.approx. The bias of column 8jj + 2t of row g is at shared
+// address b_addr ^ 32jj (bias_slot's permutation: b_addr has bits 5-6 = row
+// % 4 and bits 3-4 = t), row g + 8's b_step bytes on (0 for a row-broadcast
+// bias).
+template <bool MASKED, bool SEG, bool CAP, bool ACCURATE = false, bool BIAS = false>
 __device__ __forceinline__ void dense_softmax_tile(float (&sc)[32], int col0, int row0, int t,
                                                    int lo, int hi, int nkv, const int* ids,
                                                    const int (&q_seg)[2], float scale_log2,
                                                    float cap_scale, float cap_log2,
                                                    float (&m_i)[2], float (&l_i)[2],
-                                                   float (&alpha)[2]) {
+                                                   float (&alpha)[2], uint32_t b_addr = 0,
+                                                   uint32_t b_step = 0) {
   float mx[2] = {m_i[0], m_i[1]};
 #pragma unroll
   for (int jj = 0; jj < FB_BLOCK_N / 8; ++jj) {
@@ -282,10 +235,14 @@ __device__ __forceinline__ void dense_softmax_tile(float (&sc)[32], int col0, in
     if (SEG && MASKED) kv_seg = *reinterpret_cast<const int2*>(ids + 8 * jj + 2 * t);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
+      float2 bv = make_float2(0.f, 0.f);
+      if constexpr (BIAS) bv = lds_f2((b_addr ^ (32 * jj)) + r * b_step);
+      const float bias2[2] = {bv.x, bv.y};  // K1 bias sm90 read
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = 4 * jj + 2 * r + e;
         float x = log2_score<CAP>(sc[i], scale_log2, cap_scale, cap_log2);
+        if constexpr (BIAS) x = fmaxf(x + bias2[e] * LOG2E, MASK_VALUE);
         if (MASKED) {
           const int col = col0 + 8 * jj + 2 * t + e;
           const int row = row0 + 8 * r;
@@ -319,15 +276,14 @@ __device__ __forceinline__ int2 kv_tile_range(const FwdDenseParams& p, int b, in
   return p.kv_range[b * p.kv_tiles + tile];
 }
 
-// The body of both families: BIAS, the bias route (Params FwdBiasParams,
-// SEG false); else the dense route (Params FwdDenseParams), SEG with
-// segment ids; CAP, in both, the logit softcap.
+// The body of both families: BIAS, the bias route (Params FwdBiasParams);
+// else the dense route (Params FwdDenseParams); in both SEG with segment ids
+// and CAP with the logit softcap, the band as runtime ints.
 template <int D, bool BIAS, bool SEG, bool CAP, typename Params>
 __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                               const CUtensorMap& tm_v, const Params& p) {
   static_assert(D == 64 || D == 128 || (D == 256 && !BIAS),
                 "instantiated for D 64 and 128, and the dense route's D 256");
-  static_assert(!(BIAS && SEG), "the bias route takes no segment ids");
   using S = FbSmem<D, BIAS>;
   // setmaxnreg's split of the registers between the producer and each
   // consumer warpgroup (56 + 2 x 224 = 24 + 2 x 240): at D 256 a consumer
@@ -346,38 +302,32 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
   uint64_t* empty = full + S::STAGES;
 
   const int h = blockIdx.x;
-  int m_tile;
-  if constexpr (BIAS) {
-    // Causal: heavy (late) Q tiles first, so the tail of the grid is short.
-    m_tile = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  } else {
-    // A right bound (causal): the late Q tiles meet the most KV tiles.
-    m_tile = p.hi < NO_BOUND ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  }
+  // A right bound (causal): the late Q tiles meet the most KV tiles, so they
+  // go first and the tail of the grid is short.
+  const int m_tile = p.hi < NO_BOUND ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int m0 = m_tile * FB_BLOCK_M;
   const int b = blockIdx.z;
   const int nkv = p.kv_valid_len;
-  // The KV tiles from n_begin that meet the CTA's rows: causal, only those
-  // whose first column is <= the CTA's last row; with a band, those that meet
-  // columns [m0 - lo, m0 + 127 + hi].
+  // The KV tiles from n_begin that meet the CTA's rows' band, columns
+  // [m0 - lo, m0 + 127 + hi].
   int n_begin = 0;
-  int n_end;
-  if constexpr (BIAS) {
-    n_end = p.causal ? min(nkv, m0 + FB_BLOCK_M) : nkv;
-  } else {
-    if (p.lo < NO_BOUND) n_begin = max(0, m0 - p.lo) / FB_BLOCK_N * FB_BLOCK_N;
-    n_end = p.hi < NO_BOUND ? min(nkv, m0 + FB_BLOCK_M + p.hi) : nkv;
-  }
+  if (p.lo < NO_BOUND) n_begin = max(0, m0 - p.lo) / FB_BLOCK_N * FB_BLOCK_N;
+  const int n_end = p.hi < NO_BOUND ? min(nkv, m0 + FB_BLOCK_M + p.hi) : nkv;
   const int n_tiles = n_end > n_begin ? (n_end - n_begin + FB_BLOCK_N - 1) / FB_BLOCK_N : 0;
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   auto stage = [&](int j) { return smem + S::Q + (j % S::STAGES) * S::STAGE; };
   // SEG: the Q tile's id range, and whether KV tile j (from n_begin) holds a
-  // key of it. Every thread reads the same ranges, so the producer and both
-  // consumer warpgroups walk the same tiles.
+  // key of it. Every thread reads the same ranges, so the producer (each of
+  // its threads, with the bias) and both consumer warpgroups walk the same
+  // tiles.
   int2 q_rng = make_int2(0, 0);
   if constexpr (SEG) q_rng = p.q_range[b * p.q_tiles + m_tile];
   const int t_begin = n_begin / FB_BLOCK_N;
+  auto skipped = [&](int j) {
+    if constexpr (SEG) return !ranges_meet(q_rng, kv_tile_range(p, b, t_begin + j));
+    return false;
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -412,33 +362,42 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
       const float* bias_src = p.bias + b * p.bias_sb + h * p.bias_sh  // K1 bias sm90 head
                               + (m0 + r0) * p.bias_sn + 4 * c;
       const int64_t src_step = 8 * p.bias_sn;
+      int it = 0;  // tiles issued
       for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % S::STAGES;
-        const int n0 = j * FB_BLOCK_N;
-        unsigned char* st = stage(j);
-        mbar_wait(&empty[s], ((j / S::STAGES) & 1) ^ 1);  // round 0 passes at once
+        if (skipped(j)) continue;
+        const int s = it % S::STAGES;
+        const int n0 = n_begin + j * FB_BLOCK_N;  // the tile's first column
+        unsigned char* st = stage(it);
+        mbar_wait(&empty[s], ((it / S::STAGES) & 1) ^ 1);  // round 0 passes at once
         if (tid == 0) {
-          mbar_expect_tx(&full[s], 2 * S::KV);
+          mbar_expect_tx(&full[s], 2 * S::KV + (SEG ? FB_BLOCK_N * 4 : 0));
 #pragma unroll
           for (int x = 0; x < BOXES; ++x) {
             tma_load_4d(st + x * FB_BLOCK_N * FB_BOX_ROW, &tm_k, &full[s], 64 * x, n0, hk, b);
             tma_load_4d(st + S::KV + x * FB_BLOCK_N * FB_BOX_ROW, &tm_v, &full[s], 64 * x, n0,
                         hk, b);
           }
+          if constexpr (SEG) {
+            bulk_load(smem + S::SEG + s * FB_BLOCK_N * 4,
+                      p.seg_kv + static_cast<int64_t>(b) * p.kv_tiles * FB_BLOCK_N + n0,
+                      FB_BLOCK_N * 4, &full[s]);
+          }
         }
         const int col_bytes = 4 * min(max(nkv - n0 - 4 * c, 0), 4);
         float* dst = reinterpret_cast<float*>(st + 2 * S::KV) + bias_slot(r0, c);
+        const float* src = bias_src + n0;  // K1 bias sm90 column
         if (bias_rows == 1) {
-          if (r0 == 0) cp_async_16_zfill(dst, col_bytes ? bias_src + n0 : p.bias, col_bytes);
+          if (r0 == 0) cp_async_16_zfill(dst, col_bytes ? src : p.bias, col_bytes);
         } else {
 #pragma unroll
           for (int i = 0; i < FB_BLOCK_M / 8; ++i) {
             const int bytes = r0 + 8 * i < rows_valid ? col_bytes : 0;
-            cp_async_16_zfill(dst + 8 * i * FB_BLOCK_N,
-                              bytes ? bias_src + n0 + i * src_step : p.bias, bytes);
+            cp_async_16_zfill(dst + 8 * i * FB_BLOCK_N, bytes ? src + i * src_step : p.bias,
+                              bytes);
           }
         }
         cp_async_mbar_arrive(&full[s]);
+        ++it;
       }
       asm volatile("cp.async.wait_all;\n" ::: "memory");
     } else if (tid == 0) {
@@ -451,9 +410,7 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
       }
       int it = 0;  // tiles issued
       for (int j = 0; j < n_tiles; ++j) {
-        if constexpr (SEG) {
-          if (!ranges_meet(q_rng, kv_tile_range(p, b, t_begin + j))) continue;
-        }
+        if (skipped(j)) continue;
         const int s = it % S::STAGES;
         const int n0 = n_begin + j * FB_BLOCK_N;
         unsigned char* st = stage(it);
@@ -506,101 +463,65 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
     float l_i[2] = {0.f, 0.f};
     float sc[32], alpha[2];
     uint32_t pa[4][4];
+    // SEG: the ids of rows g and g + 8 (rows past Nq are never stored).
+    int q_seg[2] = {0, 0};
+    if constexpr (SEG) {
+      const int* q_ids = p.seg_q + b * p.seg_q_sb;
+      q_seg[0] = row0 < p.nq ? q_ids[row0] : 0;
+      q_seg[1] = row0 + 8 < p.nq ? q_ids[row0 + 8] : 0;
+    }
+    const bool q_one_doc = q_rng.x == q_rng.y;
+    // BIAS: this thread's bias, its row of the tile (row 0 of a
+    // row-broadcast bias), chunk 2jj + t / 2 at bias_slot's place
+    // (dense_softmax_tile).
+    uint32_t b_off = 0, b_step = 0;
     if constexpr (BIAS) {
-      // Causal: the tiles that meet this warpgroup's rows (the rest, past its
-      // diagonal, are released unread).
-      const int n_mine = p.causal ? min(n_tiles, (r_first + 64 + FB_BLOCK_N - 1) / FB_BLOCK_N)
-                                  : n_tiles;
-      // This thread's bias: its row of the tile (row 0 of a row-broadcast
-      // bias), chunk 2jj + t / 2 at bias_slot's place (softmax_tile).
       const int b_row = p.bias_sn ? tr : 0;
-      const uint32_t b_off = 4 * (b_row * FB_BLOCK_N + 8 * (b_row & 3) + 2 * t);
-      const uint32_t b_step = p.bias_sn ? 4 * 8 * FB_BLOCK_N : 0;
-      auto bias_of = [&](int j) { return smem_u32(stage(j) + 2 * S::KV) + b_off; };
-      auto masked = [&](int j) {
-        return j * FB_BLOCK_N + FB_BLOCK_N > nkv ||
-               (p.causal && j * FB_BLOCK_N + FB_BLOCK_N - 1 > r_first);
-      };
-      mbar_wait(q_full, 0);
-      for (int j = 0; j < n_mine; ++j) {
-        mbar_wait(&full[j % S::STAGES], (j / S::STAGES) & 1);
-        issue_qk<D, FB_BLOCK_M, FB_BLOCK_N>(sc, q_s, stage(j));
+      b_off = 4 * (b_row * FB_BLOCK_N + 8 * (b_row & 3) + 2 * t);
+      b_step = p.bias_sn ? 4 * 8 * FB_BLOCK_N : 0;
+    }
+    mbar_wait(q_full, 0);
+    int it = 0;  // tiles visited, in the producer's order
+    for (int j = 0; j < n_tiles; ++j) {
+      int2 k_rng = make_int2(0, 0);
+      if constexpr (SEG) {
+        k_rng = kv_tile_range(p, b, t_begin + j);
+        if (!ranges_meet(q_rng, k_rng)) continue;
+      }
+      const int s = it % S::STAGES;
+      const int c0 = n_begin + j * FB_BLOCK_N;  // the tile's first column
+      mbar_wait(&full[s], (it / S::STAGES) & 1);
+      // A tile that meets this warpgroup's band, [r_first - lo, r_first +
+      // 63 + hi]; the others are released unread.
+      if (c0 <= r_first + 63 + p.hi && c0 + FB_BLOCK_N - 1 >= r_first - p.lo) {
+        issue_qk<D, FB_BLOCK_M, FB_BLOCK_N>(sc, q_s, stage(it));
         wgmma_wait<0>();
         fence_regs(sc);
-        if (masked(j)) {
-          softmax_tile<true, CAP>(sc, bias_of(j), b_step, j * FB_BLOCK_N, t, row0, nkv,
-                                  p.causal, p.scale_log2, p.cap_scale, p.cap_log2, m_i, l_i,
-                                  alpha);
+        const bool edge = c0 + FB_BLOCK_N > nkv || c0 + FB_BLOCK_N - 1 - r_first > p.hi ||
+                          r_first + 63 - c0 > p.lo ||
+                          (SEG && !(q_one_doc && k_rng.x == k_rng.y && k_rng.x == q_rng.x));
+        const int* ids = reinterpret_cast<const int*>(smem + S::SEG + s * FB_BLOCK_N * 4);
+        const uint32_t b_addr = BIAS ? smem_u32(stage(it) + 2 * S::KV) + b_off : 0;
+        if (edge) {
+          dense_softmax_tile<true, SEG, CAP, false, BIAS>(
+              sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, p.cap_scale,
+              p.cap_log2, m_i, l_i, alpha, b_addr, b_step);
         } else {
-          softmax_tile<false, CAP>(sc, bias_of(j), b_step, j * FB_BLOCK_N, t, row0, nkv,
-                                   p.causal, p.scale_log2, p.cap_scale, p.cap_log2, m_i, l_i,
-                                   alpha);
+          dense_softmax_tile<false, SEG, CAP, false, BIAS>(
+              sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, p.cap_scale,
+              p.cap_log2, m_i, l_i, alpha, b_addr, b_step);
         }
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
         pack_p(pa, sc);
-        issue_pv<D, FB_BLOCK_N>(o, pa, stage(j) + S::KV);
+        issue_pv<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);
         wgmma_wait<0>();
         fence_regs(o);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
-        release(j);
       }
-      for (int j = n_mine; j < n_tiles; ++j) {
-        mbar_wait(&full[j % S::STAGES], (j / S::STAGES) & 1);
-        release(j);
-      }
-    } else {
-      // SEG: the ids of rows g and g + 8 (rows past Nq are never stored).
-      int q_seg[2] = {0, 0};
-      if constexpr (SEG) {
-        const int* q_ids = p.seg_q + b * p.seg_q_sb;
-        q_seg[0] = row0 < p.nq ? q_ids[row0] : 0;
-        q_seg[1] = row0 + 8 < p.nq ? q_ids[row0 + 8] : 0;
-      }
-      const bool q_one_doc = q_rng.x == q_rng.y;
-      mbar_wait(q_full, 0);
-      int it = 0;  // tiles visited, in the producer's order
-      for (int j = 0; j < n_tiles; ++j) {
-        int2 k_rng = make_int2(0, 0);
-        if constexpr (SEG) {
-          k_rng = kv_tile_range(p, b, t_begin + j);
-          if (!ranges_meet(q_rng, k_rng)) continue;
-        }
-        const int s = it % S::STAGES;
-        const int c0 = n_begin + j * FB_BLOCK_N;  // the tile's first column
-        mbar_wait(&full[s], (it / S::STAGES) & 1);
-        // A tile that meets this warpgroup's band, [r_first - lo, r_first +
-        // 63 + hi]; the others are released unread.
-        if (c0 <= r_first + 63 + p.hi && c0 + FB_BLOCK_N - 1 >= r_first - p.lo) {
-          issue_qk<D, FB_BLOCK_M, FB_BLOCK_N>(sc, q_s, stage(it));
-          wgmma_wait<0>();
-          fence_regs(sc);
-          const bool edge = c0 + FB_BLOCK_N > nkv || c0 + FB_BLOCK_N - 1 - r_first > p.hi ||
-                            r_first + 63 - c0 > p.lo ||
-                            (SEG && !(q_one_doc && k_rng.x == k_rng.y && k_rng.x == q_rng.x));
-          const int* ids = reinterpret_cast<const int*>(smem + S::SEG + s * FB_BLOCK_N * 4);
-          if (edge) {
-            dense_softmax_tile<true, SEG, CAP>(sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg,
-                                               p.scale_log2, p.cap_scale, p.cap_log2, m_i, l_i,
-                                               alpha);
-          } else {
-            dense_softmax_tile<false, SEG, CAP>(sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg,
-                                                p.scale_log2, p.cap_scale, p.cap_log2, m_i, l_i,
-                                                alpha);
-          }
-#pragma unroll
-          for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-          pack_p(pa, sc);
-          issue_pv<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);
-          wgmma_wait<0>();
-          fence_regs(o);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
-        }
-        release(it);
-        ++it;
-      }
+      release(it);
+      ++it;
     }
 
     // Epilogue: O = acc / l, LSE = m ln2 + log l; ragged rows and O's

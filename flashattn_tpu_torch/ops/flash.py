@@ -12,10 +12,11 @@ K5 then K6, whose K6 also gives dbias, for a bias that route refuses. The GQA de
 ported: a tiny-Nq non-causal GQA call without a window folds each KV head's
 query heads into the Q rows, so the cache is read once. The arguments keep
 the JAX signature; those the port's kernels do not take yet raise
-``NotImplementedError`` naming their ROADMAP item, on every device: the bias
-together with segment ids, and q / kv offsets that change the result (a
-causal mask or a window, ``q_offset != kv_offset``) with a bias or above
-head dim 128. ``compute_dtype`` picks the
+``NotImplementedError`` naming their ROADMAP item: on every device q / kv
+offsets that change the result (a causal mask or a window, ``q_offset !=
+kv_offset``) with quantized K/V; on the card f32 with a bias, and a bias
+above head dim 128 with segment ids, a window or such offsets, or in the
+backward. ``compute_dtype`` picks the
 kernels' dtype as in the JAX package (bf16 or f32; f32 inputs run the f32
 kernels on the card), and a head dim that is not a multiple of 8 is
 zero-padded to one, as the JAX function pads D. :class:`BlockSizes` and the
@@ -37,7 +38,6 @@ import torch
 
 from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
 
-_ROADMAP_K1 = "ROADMAP queue 2, K1 options"
 NUM_LANES = 128
 
 
@@ -150,13 +150,6 @@ def _normalize_segment_ids(segment_ids, q, k):
     return tuple(ids.to(device=q.device, dtype=torch.int32) for ids in (seg_q, seg_kv))
 
 
-def _reject_unported(*, bias, segment_ids):
-    if bias is not None and segment_ids is not None:
-        raise NotImplementedError(
-            "flash_attention: bias together with segment_ids is not ported to the CUDA K1 yet "
-            f"({_ROADMAP_K1})")
-
-
 def _reduce_dbias(dbias, bias):
     """The full f32 dbias ``[B, Hq, Nq, Nk]`` summed over every dim where
     ``bias`` has size 1 and cast to its dtype (JAX flash.py:944-954)."""
@@ -174,8 +167,9 @@ class _FlashCore(torch.autograd.Function):
     to 256, its D 256 form above 128, and f32 up to 128), else its
     two-kernel branch, K5 + K6: with a bias (``flash_bwd.bias_bwd_route``,
     bf16 up to D 128) one kernel that computes both with the bias and, if
-    any, the softcap; without a bias (``flash_bwd.split_sm90_route``, bf16
-    up to D 256 -- the D 256 form above 128 -- or f32 up to 128) one kernel
+    any, the softcap, the window, the offsets and the segment ids; without a
+    bias (``flash_bwd.split_sm90_route``, bf16 up to D 256 -- the D 256 form
+    above 128 -- or f32 up to 128) one kernel
     that computes both with the segment ids and / or the softcap; else (what
     no route takes: a bias above D 128, f32 with a bias) K5 then K6, which
     raise on a CUDA tensor naming their ROADMAP item; K3 and the split route
@@ -211,13 +205,12 @@ class _FlashCore(torch.autograd.Function):
         want_dbias = bias is not None and ctx.needs_input_grad[3]
         if seg_q is None and ctx.softcap is None and bias is None:
             dq, dk, dv = flash_bwd_fused.bwd(q, k, v, do, lse, delta, **kw)
-        elif flash_bwd.bias_bwd_route(head_dim=D, bias=bias, dtype=q.dtype,
-                                      segment_ids=segment_ids, window=ctx.window):
-            # A bias, with or without the softcap: K5 + K6 in one launch, dK/dV per KV head.
+        elif flash_bwd.bias_bwd_route(head_dim=D, bias=bias, dtype=q.dtype):
+            # A bias, with or without the softcap, a window, offsets or
+            # segment ids: K5 + K6 in one launch, dK/dV per KV head.
             dq, dk, dv, dbias = flash_bwd.bias_bwd(
-                q, k, v, do, lse, delta, scale=ctx.scale, causal=ctx.causal,
-                kv_valid_len=ctx.kv_valid_len, bias=bias, softcap=ctx.softcap,
-                want_dbias=want_dbias)
+                q, k, v, do, lse, delta, bias=bias, softcap=ctx.softcap, want_dbias=want_dbias,
+                segment_ids=segment_ids, **kw)
         elif flash_bwd.split_sm90_route(head_dim=D, bias=bias, dtype=q.dtype,
                                         segment_ids=segment_ids, softcap=ctx.softcap):
             # Segment ids and / or the softcap without a bias: K5 + K6 in one
@@ -271,7 +264,6 @@ def _forward(q, k, v, *, scale, layout, causal, core, bias, segment_ids, window,
     # offsets that leave the result as it is become (0, 0).
     window = None if window is None else tuple(int(w) for w in window)
     offsets = flash_fwd.band_offsets(causal, window, q_offset, kv_offset)
-    _reject_unported(bias=bias, segment_ids=segment_ids)
     if block_sizes is not None and not isinstance(block_sizes, BlockSizes):
         raise TypeError(f"block_sizes must be a BlockSizes, got {type(block_sizes).__name__}")
     softcap = None if logit_softcap is None else float(logit_softcap)
@@ -349,8 +341,8 @@ def flash_attention(
         tail and the segment ids stay local). Host ints, or 0-d integer
         tensors read once with ``.item()``. Offsets that change the result
         (a causal mask or a window, ``q_offset != kv_offset``) run on the
-        kernels without a bias at head dims up to 128; with a bias or above
-        D 128 they raise ``NotImplementedError`` (ROADMAP queue 2, item 2).
+        Hopper kernels, with or without a bias; on quantized K/V they raise
+        ``NotImplementedError`` (ROADMAP queue 2, item 2).
         ``q_offset == kv_offset`` is the call without offsets, bit for bit.
       window: sliding window ``(left, right)``: position pair (i, j) may
         attend iff ``i - left <= j <= i + right`` (absolute positions); -1
@@ -362,8 +354,8 @@ def flash_attention(
         broadcast, and are read with stride 0 by the kernels), cast to f32
         once, added after the softcap. Differentiable: when it requires grad,
         its gradient ``P (dP − Δ)`` (K6's dbias) comes back summed over its
-        size-1 dims, in its dtype. Not with ``segment_ids`` yet
-        (``NotImplementedError``), nor with a window on the card.
+        size-1 dims, in its dtype. With segment ids, a window and offsets
+        too (on the card in bf16 at head dims up to 128).
       segment_ids: packed sequences: integer ids ``[B, N]`` (needs
         ``Nq == Nk``) or a ``(q_ids [B, Nq], kv_ids [B, Nk])`` tuple, ids
         >= 0. Pair (i, j) attends iff ``q_ids[i] == kv_ids[j]`` (AND-composed

@@ -2,8 +2,8 @@
 
 Port of flashattn_tpu/ops/flash_bwd.py: kernels K5 (``_dkv_kernel``, dK and
 dV) and K6 (``_dq_kernel``, dQ and dbias), for KV tail, GQA, causal, a sliding
-window, segment ids (packed sequences), logit soft-capping and an additive
-bias (not with a window or segment ids, as K1 takes it). Each recomputes P
+window, q / kv offsets, segment ids (packed sequences), logit soft-capping
+and an additive bias, in any combination. Each recomputes P
 and dS from the forward's LSE and Δ (:func:`recompute_p_ds`, the JAX
 ``_recompute_p_ds``); on CUDA tensors one Hopper launch computes what both
 compute, by route -- the device of the input decides, and a CUDA tensor
@@ -15,8 +15,9 @@ never reaches a plain version:
   D 128, ``csrc/bwd_sm90_wide.cuh``) in bf16, the f32 body in f32, returns dQ
   and dK / dV per *query* head;
   :func:`split_bwd_reference` is its plain version;
-* with a bias (:func:`bias_bwd_route`, with or without the softcap, at every
-  head dim up to ``BIAS_MAX_HEAD_DIM``, the GQA decode fold's calls too): :func:`bias_bwd`
+* with a bias (:func:`bias_bwd_route`, with or without the softcap, a
+  window, q / kv offsets or segment ids, at every head dim up to
+  ``BIAS_MAX_HEAD_DIM``, the GQA decode fold's calls too): :func:`bias_bwd`
   (``csrc/bwd_bias_sm90.cu``) returns dQ, dK / dV per *KV* head and, on
   request, dbias; :func:`bias_bwd_reference` is its plain version.
 
@@ -46,7 +47,6 @@ from flashattn_tpu_torch.ops.flash_fwd import (
     check_softcap,
     check_window,
     kernel_window,
-    offsets_refusal,
     pair_mask,
     sm90_bias,
     sm90_segments,
@@ -265,31 +265,33 @@ def dq(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     _no_split_kernel(q, "K6", bias=bias)
 
 
-def bias_bwd_route(*, head_dim: int, bias, dtype, segment_ids, window) -> bool:
+def bias_bwd_route(*, head_dim: int, bias, dtype) -> bool:
     """Whether a backward goes to the Hopper bias kernel
     (``csrc/bwd_bias_sm90.cu``), K5 and K6 in one launch: every call with a
     bias in bf16 at a head dim up to ``BIAS_MAX_HEAD_DIM`` (a multiple of 8, as
-    every CUDA backward's) without segment ids or a window (K1 takes a bias
-    with neither) -- causal or not, with or without the softcap, the GQA
-    decode fold's calls too, whichever K1 route the forward took.
-    :func:`bias_bwd` decides the device: a CPU tensor takes the plain
-    version."""
-    return (bias is not None and dtype == torch.bfloat16 and head_dim <= BIAS_MAX_HEAD_DIM
-            and segment_ids is None and kernel_window(check_window(window)) == (-1, -1))
+    every CUDA backward's) -- causal or not, with or without a window, q / kv
+    offsets, segment ids or the softcap, the GQA decode fold's calls too,
+    whichever K1 route the forward took. :func:`bias_bwd` decides the
+    device: a CPU tensor takes the plain version."""
+    return bias is not None and dtype == torch.bfloat16 and head_dim <= BIAS_MAX_HEAD_DIM
 
 
 def bias_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
                        kv_valid_len: int | None = None, bias, softcap=None,
-                       want_dbias: bool = False):
+                       want_dbias: bool = False, segment_ids=None, window=None,
+                       q_offset: int = 0, kv_offset: int = 0):
     """Plain PyTorch K5 + K6 over one :func:`recompute_p_ds`: ``(dQ, dK, dV,
     dbias)``, f32, dQ ``[B, Hq, Nq, D]``, dK / dV ``[B, Hkv, Nk, D]`` summed
     over each KV head's query heads (as the kernel writes them), dbias the
-    full ``[B, Hq, Nq, Nk]`` P (dP − Δ) with ``want_dbias``, else None. With
-    ``softcap`` dS carries the cap's Jacobian and dbias does not (the
-    gradient of the capped logit)."""
+    full ``[B, Hq, Nq, Nk]`` P (dP − Δ) with ``want_dbias``, else None, 0 on
+    every pair the masks drop (the KV tail, the band of ``causal``,
+    ``window`` and the offsets, unequal ``segment_ids``). With ``softcap``
+    dS carries the cap's Jacobian and dbias does not (the gradient of the
+    capped logit)."""
     p, ds, qf, kf, _, dof, dl = recompute_p_ds(
         q, k, v, do, lse, delta, scale=scale, causal=causal, kv_valid_len=kv_valid_len,
-        bias=bias, softcap=softcap)
+        bias=bias, softcap=softcap, segment_ids=segment_ids, window=window, q_offset=q_offset,
+        kv_offset=kv_offset)
     B, Hq, _, D = q.shape
     Hkv, Nk = k.shape[1], k.shape[2]
     with _full_f32_matmul():
@@ -311,19 +313,22 @@ SM90_BWD_KV_TILE = 128
 SM90_BWD_NARROW_MAX = 128
 
 
-def _launch_bias_bwd(lib, q, k, v, do, lse, delta, bias, bias_strides, dq_, dk, dv, dbias, *,
-                     scale, causal, kv_valid_len, nq_pad, softcap, stream) -> int:
+def _launch_bias_bwd(lib, q, k, v, do, lse, delta, bias, bias_strides, dq_, dk, dv, dbias,
+                     seg=None, *, scale, causal, kv_valid_len, nq_pad, softcap, stream,
+                     window=None, q_offset: int = 0, kv_offset: int = 0) -> int:
     """Call ``lib.fa_bwd_bias_sm90`` with the arguments of one launch (the C
-    entry's order, ``native.BWD_BIAS_SM90_ARGTYPES``); returns its
-    cudaError_t."""
+    entry's order, ``native.BWD_BIAS_SM90_ARGTYPES``), ``seg`` being
+    ``flash_fwd.sm90_segments``' tensors at the kernel's tiles or None;
+    returns its cudaError_t."""
     B, Hq, Nq, D = q.shape
+    seg_ptrs = (None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg)
     return lib.fa_bwd_bias_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), bias.data_ptr(), dq_.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        None if dbias is None else dbias.data_ptr(), B, Hq, k.shape[1], Nq, k.shape[2], D,
-        kv_valid_len, int(bool(causal)), nq_pad, float(scale), softcap or 0.0,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *bias_strides,
-        stream)
+        None if dbias is None else dbias.data_ptr(), *seg_ptrs, B, Hq, k.shape[1], Nq,
+        k.shape[2], D, kv_valid_len, int(bool(causal)), *kernel_window(window), q_offset,
+        kv_offset, nq_pad, float(scale), softcap or 0.0, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *do.stride()[:3], *bias_strides, stream)
 
 
 def _padded_rows(x, nq_pad: int):
@@ -339,32 +344,33 @@ def _padded_rows(x, nq_pad: int):
 
 def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
              kv_valid_len: int | None = None, bias, softcap=None, want_dbias: bool = False,
-             q_offset: int = 0, kv_offset: int = 0):
+             segment_ids=None, window=None, q_offset: int = 0, kv_offset: int = 0):
     """K5 + K6 with a bias in one launch: ``(dQ, dK, dV, dbias)`` in f32, dQ
     ``[B, Hq, Nq, D]``, dK / dV ``[B, Hkv, Nk, D]`` per KV head (summed over
     its query heads), dbias the full ``[B, Hq, Nq, Nk]`` with ``want_dbias``,
-    else None.
+    else None, exactly 0 on every pair the masks drop.
 
     Arguments as :func:`dkv`, ``bias`` ``[B|1, Hq|1, Nq|1, Nk]`` required,
-    ``softcap`` the forward's cap or None. CPU tensors take
+    ``softcap`` the forward's cap or None, the window, the offsets and the
+    segment ids as the forward took them. CPU tensors take
     :func:`bias_bwd_reference`. CUDA tensors launch the Hopper kernel, which
     takes what :func:`bias_bwd_route` sends it (bf16, ``D % 8 == 0``, ``D <=
-    BIAS_MAX_HEAD_DIM``); anything else raises, as do offsets that change the result
-    (``flash_fwd.offsets_refusal``), on every device: K1's bias route takes
-    none. ``bias_bwd.launches`` counts kernel launches,
+    BIAS_MAX_HEAD_DIM``); anything else raises. dQ is summed over the KV tiles by the card's L2
+    (one bulk reduction per tile), so its last bits may differ from run to
+    run. ``bias_bwd.launches`` counts kernel launches,
     ``bias_bwd.launches_dbias`` those that wrote dbias.
     """
-    kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len)
+    kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len, segment_ids)
     if bias is None:
         raise ValueError("bias_bwd needs a bias")
     B, Hq, Nq, D = q.shape
-    if band_offsets(causal, None, q_offset, kv_offset) != (0, 0):
-        raise NotImplementedError(
-            f"K5 + K6's bias route: {offsets_refusal(bias=bias, quantized=False)}")
+    window = check_window(window)
+    q_offset, kv_offset = band_offsets(causal, window, q_offset, kv_offset)
     Hkv, Nk = k.shape[1], k.shape[2]
     check_bias(bias, B, Hq, Nq, Nk, q.device)
     softcap = check_softcap(softcap)
-    kw = dict(scale=scale, causal=causal, kv_valid_len=kv_valid_len, bias=bias, softcap=softcap)
+    kw = dict(scale=scale, causal=causal, kv_valid_len=kv_valid_len, bias=bias, softcap=softcap,
+              segment_ids=segment_ids, window=window, q_offset=q_offset, kv_offset=kv_offset)
     if q.device.type == "cpu":
         return bias_bwd_reference(q, k, v, do, lse, delta, want_dbias=want_dbias, **kw)
     check_kernel_args(q, "K5 + K6 bias route")
@@ -379,8 +385,10 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     dv = torch.empty((B, Hkv, Nk, D), **f32)
     dbias = None
     if want_dbias:
-        # The kernel writes the tiles it visits; causal and the KV tail leave others.
-        skipped = causal or kv_valid_len < Nk
+        # The kernel writes the tiles it visits; the band (causal, a window),
+        # the segment ids and the KV tail leave others (dbias_skips).
+        skipped = dbias_skips(causal=causal, window=window, segment_ids=segment_ids,
+                              kv_valid_len=kv_valid_len, nk=Nk)
         dbias = (torch.zeros if skipped else torch.empty)((B, Hq, Nq, Nk), **f32)
     if Nq == 0 or Nk == 0 or B == 0 or Hq == 0:  # an empty grid is not a valid launch
         return dq_, dk.zero_(), dv.zero_(), None if dbias is None else dbias.zero_()
@@ -388,11 +396,14 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     nq_pad = -(-Nq // SM90_BWD_Q_TILE) * SM90_BWD_Q_TILE
     lse, delta = _padded_rows(lse, nq_pad), _padded_rows(delta, nq_pad)
     bias, bias_strides = sm90_bias(bias)
+    seg = sm90_segments(segment_ids, Nq, kv_valid_len, q_tile=SM90_BWD_Q_TILE,
+                        kv_tile=SM90_BWD_KV_TILE, pad_q=True)
     with torch.cuda.device(q.device):
         rc = _launch_bias_bwd(native.kernels(), q, k, v, do, lse, delta, bias, bias_strides,
-                              dq_, dk, dv, dbias, scale=scale, causal=causal,
+                              dq_, dk, dv, dbias, seg, scale=scale, causal=causal,
                               kv_valid_len=kv_valid_len, nq_pad=nq_pad, softcap=softcap,
-                              stream=torch.cuda.current_stream(q.device).cuda_stream)
+                              stream=torch.cuda.current_stream(q.device).cuda_stream,
+                              window=window, q_offset=q_offset, kv_offset=kv_offset)
     native.check(rc, "bwd_bias_sm90 kernel launch")
     bias_bwd.launches += 1
     if want_dbias:
@@ -402,6 +413,15 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
 
 bias_bwd.launches = 0
 bias_bwd.launches_dbias = 0
+
+
+def dbias_skips(*, causal: bool, window, segment_ids, kv_valid_len: int, nk: int) -> bool:
+    """Whether the bias route's kernel may leave (Q tile, KV tile) pairs of
+    dbias unwritten, so that :func:`bias_bwd` must zero it first: the pairs
+    that the band (causal, a window) or the segment ids skip, and the keys
+    from ``kv_valid_len`` on. Offsets only shift a band, so they add none."""
+    return (causal or kernel_window(window) != (-1, -1) or segment_ids is not None
+            or kv_valid_len < nk)  # bias bwd dbias zero fill
 
 
 # The most Q tiles a CTA of the split route lists (csrc/bwd_sm90_tile.cuh,

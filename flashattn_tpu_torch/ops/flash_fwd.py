@@ -12,12 +12,12 @@ split-KV forward with cp.async pipelining (``csrc/decode_tile.cuh`` in
 ``csrc/flash_decode*.cu``), whose splits are merged in LSE space; its plain
 version is :func:`decode_reference`. The other calls on bf16 K/V, with or
 without the softcap, go to a Hopper TMA + wgmma forward
-(``csrc/fwd_sm90_tile.cuh``): those with a bias at head dims up to 128
+(``csrc/fwd_sm90_tile.cuh``) -- causal or not, with a window, segment ids or
+q / kv offsets or neither, any tail: those with a bias at head dims up to 128
 (:func:`bias_route`) to its bias route, which streams the f32 bias tile
 through shared memory (``csrc/flash_fwd_bias_sm90.cu``), and those without
-a bias at every head dim up to 256 (:func:`dense_route`: causal or not,
-with a window, segment ids or q / kv offsets or neither, any tail) to its
-dense route (``csrc/flash_fwd_sm90.cu``; D 136-256 on its D 256 form). Both
+a bias at every head dim up to 256 (:func:`dense_route`) to its dense route
+(``csrc/flash_fwd_sm90.cu``; D 136-256 on its D 256 form). Both
 compute K1's function, so their plain version is :func:`fwd_reference`; the
 ``mma.sync`` body ``csrc/fwd_tile.cuh`` (instantiated per option family in
 ``csrc/flash_fwd*.cu``) keeps the calls they refuse: a bias above D 128 and
@@ -63,6 +63,7 @@ QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 _LOG2E = 1.0 / math.log(2.0)
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
 _ROADMAP_OFFSETS = "ROADMAP queue 2, item 2: q / kv offsets on the other routes"
+_ROADMAP_BIAS_WIDE = "ROADMAP queue 2, functions item 6: the bias route above D 128"
 # The decode route (csrc/decode_tile.cuh): at most this many query rows per KV
 # head (the JAX fold bound, flashattn_tpu/ops/flash.py:1052-1077), the head
 # dims it is instantiated for, the keys of one KV tile (a split holds whole
@@ -321,13 +322,13 @@ def bias_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int, b
                kv_dtype) -> bool:
     """Whether a CUDA K1 call goes to the Hopper bias kernel
     (``csrc/fwd_sm90_tile.cuh``): a call that :func:`decode_route` does not
-    take (it is checked first), with a ``bias``, bf16 K/V, no segment ids or
-    window, and a head dim up to ``DENSE_MAX_HEAD_DIM`` (a multiple of 8, as
-    every CUDA K1 call's), with or without a softcap. Every other call with a
-    bias goes to the ``csrc/fwd_tile.cuh`` kernel (D above 128, int8 / fp8
-    K/V)."""
+    take (it is checked first), with a ``bias``, bf16 K/V and a head dim up
+    to ``DENSE_MAX_HEAD_DIM`` (a multiple of 8, as every CUDA K1 call's) --
+    causal or not, with or without a window, segment ids, q / kv offsets or
+    a softcap. Every other call with a bias goes to the ``csrc/fwd_tile.cuh``
+    kernel (D above 128, int8 / fp8 K/V), which takes no window, segment ids
+    or offsets (``_check_kernel_args`` refuses those)."""
     return (bias is not None and kv_dtype == torch.bfloat16
-            and segment_ids is None and kernel_window(check_window(window)) == (-1, -1)
             and head_dim <= DENSE_MAX_HEAD_DIM
             and not decode_route(rows=rows, causal=causal, segment_ids=segment_ids,
                                  window=window, head_dim=head_dim))
@@ -537,20 +538,25 @@ def sm90_bias(bias) -> tuple[torch.Tensor, tuple[int, int, int]]:
     return bias, strides
 
 
-def _launch_bias_sm90(lib, q, k, v, o, lse, bias, bias_strides, *, scale, kv_valid_len,
-                      causal, softcap, stream) -> int:
+def _launch_bias_sm90(lib, q, k, v, o, lse, bias, bias_strides, seg, *, scale, kv_valid_len,
+                      causal, window, softcap, stream, q_offset: int = 0,
+                      kv_offset: int = 0) -> int:
     """Call ``lib.fa_fwd_bias_sm90`` with the arguments of one launch (the
-    C entry's order, ``native.FWD_BIAS_SM90_ARGTYPES``); returns its
-    cudaError_t."""
+    C entry's order, ``native.FWD_BIAS_SM90_ARGTYPES``: the dense route's
+    with the bias after lse and its strides before seg_q's), ``seg`` being
+    :func:`sm90_segments`' tensors or None; returns its cudaError_t."""
     B, Hq, Nq, D = q.shape
+    seg_ptrs = (None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg)
     return lib.fa_fwd_bias_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bias.data_ptr(),
-        B, Hq, k.shape[1], Nq, D, kv_valid_len, int(bool(causal)), float(scale),
-        softcap or 0.0, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        *bias_strides, stream)
+        *seg_ptrs, B, Hq, k.shape[1], Nq, D, kv_valid_len, int(bool(causal)),
+        *kernel_window(window), q_offset, kv_offset, float(scale), softcap or 0.0,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], *bias_strides,
+        0 if seg is None else seg[0].stride(0), stream)
 
 
-def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, bias, softcap):
+def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, bias, softcap,
+               q_offset, kv_offset):
     """Launch the Hopper bias kernel and count the launch."""
     B, Hq, Nq, D = q.shape
     q, k, v = (_kernel_ready(x, tma=True) for x in (q, k, v))
@@ -559,13 +565,15 @@ def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, bias, softcap):
     if o.numel() == 0:
         return o, lse
     bias, bias_strides = sm90_bias(bias)
+    seg = sm90_segments(segment_ids, Nq, kv_valid_len)
     with torch.cuda.device(q.device):
-        rc = _launch_bias_sm90(native.kernels(), q, k, v, o, lse, bias, bias_strides,
+        rc = _launch_bias_sm90(native.kernels(), q, k, v, o, lse, bias, bias_strides, seg,
                                scale=scale, kv_valid_len=kv_valid_len, causal=causal,
-                               softcap=softcap,
-                               stream=torch.cuda.current_stream(q.device).cuda_stream)
+                               window=window, softcap=softcap,
+                               stream=torch.cuda.current_stream(q.device).cuda_stream,
+                               q_offset=q_offset, kv_offset=kv_offset)
     native.check(rc, "flash_fwd_bias_sm90 kernel launch")
-    _count_variants(k.dtype, bias, False, softcap)
+    _count_variants(k.dtype, bias, kernel_window(window) != (-1, -1), softcap)
     fwd.launches_bias_sm90 += 1
     return o, lse
 
@@ -640,23 +648,27 @@ def _dense_f32(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, sof
     return o, lse
 
 
-def offsets_refusal(*, bias, quantized: bool) -> str | None:
+def offsets_refusal(*, quantized: bool) -> str | None:
     """Why a K1 call with offsets that change its result (:func:`band_offsets`)
-    has no kernel yet, naming the route and its ROADMAP item, or None where
-    K1's dense route takes it (every head dim up to 256). The decode route
-    takes no band, so offsets never change its calls."""
-    route = ("the bias route" if bias is not None else "quantized K/V" if quantized else None)
-    if route is None:
+    has no kernel yet -- on quantized K/V -- naming its ROADMAP item, or None
+    where the Hopper routes take it (K1's dense route at every head dim up to
+    256, its bias route up to 128; a bias above 128 is ``_check_kernel_args``'
+    refusal on the card). The decode route takes no band, so offsets never
+    change its calls."""
+    if not quantized:
         return None
-    return f"q / kv offsets are not ported to {route} yet ({_ROADMAP_OFFSETS})"
+    return f"q / kv offsets are not ported to quantized K/V yet ({_ROADMAP_OFFSETS})"
 
 
-def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool) -> None:
+def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool,
+                       offsets: bool = False) -> None:
     """Raise for what no CUDA K1 kernel takes: another device, a q that is
     neither bf16 nor f32, an f32 q with a bias, quantized K/V or D above
     ``DENSE_MAX_HEAD_DIM`` (the f32 route's refusals), D not a multiple of 8
-    or above ``MAX_HEAD_DIM``, segment ids or a window with a bias or
-    quantized K/V, a grid past the CUDA limits."""
+    or above ``MAX_HEAD_DIM``, segment ids or a window with quantized K/V,
+    segment ids, a window or ``offsets`` (that change the result) with a
+    bias above ``DENSE_MAX_HEAD_DIM`` (``csrc/fwd_tile.cuh`` takes none), a
+    grid past the CUDA limits."""
     B, Hq, _, D = q.shape
     if q.device.type != "cuda":
         raise NotImplementedError(f"no K1 kernel for device {q.device}")
@@ -675,12 +687,17 @@ def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool) -> None
         raise NotImplementedError(
             f"the CUDA K1 takes head dims that are multiples of 8 up to "
             f"{MAX_HEAD_DIM}, got D={D} (ROADMAP queue 2 K1 item)")
-    if segment_ids is not None and (bias is not None or k_scale is not None):
+    if segment_ids is not None and k_scale is not None:
         raise NotImplementedError(
-            f"the CUDA K1 takes segment ids without bias or quantized K/V ({_ROADMAP_K1})")
-    if windowed and (bias is not None or k_scale is not None):
+            f"the CUDA K1 takes segment ids without quantized K/V ({_ROADMAP_K1})")
+    if windowed and k_scale is not None:
         raise NotImplementedError(
-            f"the CUDA K1 takes a window without bias or quantized K/V ({_ROADMAP_K1})")
+            f"the CUDA K1 takes a window without quantized K/V ({_ROADMAP_K1})")
+    banded = segment_ids is not None or windowed or offsets
+    if banded and bias is not None and D > DENSE_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"the CUDA K1 takes a bias with segment ids, a window or q / kv offsets at head "
+            f"dims up to {DENSE_MAX_HEAD_DIM}, got D={D} ({_ROADMAP_BIAS_WIDE})")
     if B > 65535 or Hq > 65535:
         raise ValueError(f"B={B} and Hq={Hq} must each be at most 65535 (CUDA grid limit)")
 
@@ -695,8 +712,8 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     with ``causal`` the right bound is 0), in absolute positions ``q_pos =
     q_offset + i`` and ``kv_pos = kv_offset + j`` (host ints or 0-d tensors; 0
     and 0: the top-left alignment, also when Nq != Nk; offsets that change
-    the result raise on every device where K1's dense route would not take
-    them, :func:`offsets_refusal`);
+    the result raise on every device on quantized K/V,
+    :func:`offsets_refusal`);
     ``segment_ids = (seg_q [B, Nq], seg_kv [B, Nk])`` (integers) lets a pair
     attend only when its ids are equal; ``softcap`` (a positive float) caps
     the scaled scores at ``softcap · tanh(s / softcap)``; ``bias``
@@ -705,8 +722,9 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     ``[B, Hkv, Nk]`` and are dequantized in the kernel (not with a softcap).
     CPU tensors take :func:`fwd_reference`. CUDA tensors launch the kernel,
     which takes a bf16 ``q`` (and bf16, int8 or fp8 K/V) with ``D % 8 == 0``
-    and ``D <= 256``, and segment ids or a window only without bias or
-    quantized K/V, or an f32 q, k and v without a bias at ``D <= 128``;
+    and ``D <= 256``, and segment ids, a window or offsets only without
+    quantized K/V and, with a bias, at ``D <= 128``, or an f32 q, k and v
+    without a bias at ``D <= 128``;
     anything else raises. An f32 call (:func:`f32_route`) launches the f32
     kernel; a bf16 CUDA call that :func:`decode_route`
     accepts launches the split-KV decode kernel (and its merge), one that
@@ -749,7 +767,7 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
         raise ValueError("logit_softcap is not supported with quantized K/V (the JAX "
                          "flash_attention_quantized has no softcap path)")
     q_offset, kv_offset = band_offsets(causal, window, q_offset, kv_offset)
-    refusal = q_offset != kv_offset and offsets_refusal(bias=bias, quantized=k_scale is not None)
+    refusal = q_offset != kv_offset and offsets_refusal(quantized=k_scale is not None)
     if refusal:
         raise NotImplementedError(f"K1: {refusal}")
 
@@ -760,7 +778,7 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
                              q_offset=q_offset, kv_offset=kv_offset)
     windowed = kernel_window(window) != (-1, -1)
     _check_kernel_args(q, segment_ids=segment_ids, bias=bias, k_scale=k_scale,
-                       windowed=windowed)
+                       windowed=windowed, offsets=q_offset != kv_offset)
 
     if f32_route(dtype=q.dtype):
         return _dense_f32(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
@@ -774,7 +792,8 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     if bias_route(rows=Hq // Hkv * Nq, causal=causal, segment_ids=segment_ids, window=window,
                   head_dim=D, bias=bias, kv_dtype=k.dtype):
         return _bias_sm90(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
-                          bias=bias, softcap=softcap)
+                          window=window, segment_ids=segment_ids, bias=bias, softcap=softcap,
+                          q_offset=q_offset, kv_offset=kv_offset)
     if dense_route(head_dim=D, bias=bias, kv_dtype=k.dtype):
         return _dense_sm90(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
                            window=window, segment_ids=segment_ids, softcap=softcap,

@@ -42,15 +42,19 @@ FWD_ARGTYPES = [
     _I64, _I64, _I64, _I64, _I64, _I64,  # k_scale, v_scale (batch, head, seq) strides
     _PTR,                                # cudaStream_t
 ]
-# The C entry of K1's bias route (csrc/flash_fwd_bias_sm90.cu).
+# The C entry of K1's bias route (csrc/flash_fwd_bias_sm90.cu): the dense
+# route's arguments with the bias and its strides.
 FWD_BIAS_SM90_ARGTYPES = [
     _PTR, _PTR, _PTR, _PTR, _PTR, _PTR,  # q, k, v, o, lse, bias (f32)
+    _PTR, _PTR, _PTR, _PTR,              # seg_q, seg_kv (padded), q_range, kv_range (or None)
     _I32, _I32, _I32, _I32, _I32,        # B, Hq, Hkv, Nq, D
-    _I32, _I32,                          # kv_valid_len, causal
+    _I32, _I32, _I32, _I32,              # kv_valid_len, causal, window left, right (-1: none)
+    _I32, _I32,                          # q_offset, kv_offset (absolute positions)
     ctypes.c_float, ctypes.c_float,      # scale, softcap (0: none)
     _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
     _I64, _I64, _I64, _I64, _I64, _I64,  # v, o (batch, head, seq) strides
     _I64, _I64, _I64,                    # bias (batch, head, row) strides
+    _I64,                                # seg_q batch stride
     _PTR,                                # cudaStream_t
 ]
 
@@ -105,8 +109,11 @@ BWD_BIAS_SM90_ARGTYPES = [
     _PTR, _PTR,                          # lse, delta (f32 rows padded to nq_pad)
     _PTR,                                # bias (f32)
     _PTR, _PTR, _PTR, _PTR,              # dq (f32, zeroed), dk, dv (f32), dbias (f32, or None)
+    _PTR, _PTR, _PTR, _PTR,              # seg_q, seg_kv (padded), q_range, kv_range (or None)
     _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, Nq, Nk, D
-    _I32, _I32, _I32,                    # kv_valid_len, causal, nq_pad
+    _I32, _I32, _I32, _I32,              # kv_valid_len, causal, window left, right (-1: none)
+    _I32, _I32,                          # q_offset, kv_offset (absolute positions)
+    _I32,                                # nq_pad
     ctypes.c_float, ctypes.c_float,      # scale, softcap (0: none)
     _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
     _I64, _I64, _I64, _I64, _I64, _I64,  # v, dO (batch, head, seq) strides

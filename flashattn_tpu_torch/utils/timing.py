@@ -6,7 +6,8 @@ median of the differenced samples, with its spread beside it. On the card
 each chain is timed with CUDA events (the device's own clock, so host
 dispatch that keeps up costs nothing); on the CPU with the host clock.
 Every TFLOP/s figure of the port is computed with :func:`attention_flops`,
-as the JAX package's are.
+as the JAX package's are; :func:`summarize` gives a list of samples' summary
+statistics.
 """
 
 from __future__ import annotations
@@ -143,3 +144,18 @@ def attention_flops(
         return mult * 2.0 * b * h * area * d
     f = mult * 2.0 * b * h * nq * nk * d
     return f * 0.5 if causal else f
+
+
+def summarize(samples) -> dict:
+    """Mean, std, min, p50 and p90 of ``samples`` (f64; the percentiles are
+    the lower of the two neighbouring samples, numpy's ``method="lower"``):
+    the numpy arm of the JAX package's ``summarize``, whose native arm
+    belongs to its planner."""
+    arr = np.asarray(samples, dtype=np.float64)
+    return {
+        "mean": float(arr.mean()),
+        "std": float(arr.std()),
+        "min": float(arr.min()),
+        "p50": float(np.percentile(arr, 50, method="lower")),
+        "p90": float(np.percentile(arr, 90, method="lower")),
+    }

@@ -38,12 +38,10 @@ from flashattn_tpu_torch.utils.testing import BWD_TOL, assert_close, make_qkv
 N = 2048  # path A's sequence
 
 
-def _route(segment_ids=None, window=None, head_dim=128, bias_shape=(4, 1, N, N),
-           dtype=torch.bfloat16):
+def _route(head_dim=128, bias_shape=(4, 1, N, N), dtype=torch.bfloat16):
     # A meta tensor: the rule reads the bias's shape only.
     bias = None if bias_shape is None else torch.empty(bias_shape, device="meta")
-    return flash_bwd.bias_bwd_route(head_dim=head_dim, bias=bias, dtype=dtype,
-                                    segment_ids=segment_ids, window=window)
+    return flash_bwd.bias_bwd_route(head_dim=head_dim, bias=bias, dtype=dtype)
 
 
 # The calls the route takes, every backward with a bias in bf16 at D <= 128:
@@ -51,8 +49,9 @@ def _route(segment_ids=None, window=None, head_dim=128, bias_shape=(4, 1, N, N),
 # padding bias, D 96 and 40 and 8 (run in the D 128 / 64 boxes), a
 # row-broadcast key mask, a ragged Nq, an Nk that is not a multiple of 4
 # (the wrapper pads the bias's rows: sm90_bias), and the decode fold's
-# [B, 1, rep * Nq, Nk] bias. Causal, the rows per KV head and the softcap
-# are not the rule's to read: it takes every such call.
+# [B, 1, rep * Nq, Nk] bias. Causal, a window, q / kv offsets, segment ids,
+# the rows per KV head and the softcap are not the rule's to read: it takes
+# every such call.
 ROUTE_TAKES = {"path A mask": {}, "path A learned": dict(bias_shape=(4, 16, N, N)),
                "causal GQA": dict(bias_shape=(1, 16, N, N)),
                "D 64": dict(head_dim=64, bias_shape=(2, 1, 1536, 1536)),
@@ -61,14 +60,11 @@ ROUTE_TAKES = {"path A mask": {}, "path A learned": dict(bias_shape=(4, 16, N, N
                "ragged Nq": dict(bias_shape=(2, 16, 1000, N)),
                "Nk 2046": dict(bias_shape=(4, 1, N, N - 2)),
                "decode-shaped": dict(bias_shape=(2, 1, 8, N))}
-# Those it refuses: head dims above 128, f32 and fp16 calls, segment ids and
-# a window (K1 takes a bias with neither), and no bias at all (K3's or the
-# split route's).
+# Those it refuses: head dims above 128, f32 and fp16 calls, and no bias at
+# all (K3's or the split route's).
 ROUTE_REFUSES = {"no bias": dict(bias_shape=None),
                  "f32": dict(dtype=torch.float32), "fp16": dict(dtype=torch.float16),
-                 "D 136": dict(head_dim=136),
-                 "segment ids": dict(segment_ids=(torch.zeros(4, N), torch.zeros(4, N))),
-                 "window": dict(window=(128, -1))}
+                 "D 136": dict(head_dim=136)}
 
 
 @pytest.mark.parametrize("case", list(ROUTE_TAKES))
@@ -172,9 +168,10 @@ def _fake_library():
 @pytest.mark.parametrize("causal", [False, True])
 def test_launch_packs_the_c_arguments(causal, want_dbias):
     """The wrapper's call of fa_bwd_bias_sm90 on BNHD views with GQA and a
-    [B, 1, Nq, Nk] bias: every pointer (dbias null when not wanted), dim,
-    the LSE rows' pitch, the scale, every stride (the bias's 0 on its head)
-    and the stream in the C entry's order."""
+    [B, 1, Nq, Nk] bias: every pointer (dbias null when not wanted, no
+    segment ids), dim, the band (causal, no window, no offsets), the LSE
+    rows' pitch, the scale, every stride (the bias's 0 on its head) and the
+    stream in the C entry's order."""
     B, Hq, Hkv, Nq, Nk, D = 2, 4, 2, 96, 128, 64
     q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2).to(torch.bfloat16)
                for x in make_qkv(63, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv))
@@ -190,16 +187,17 @@ def test_launch_packs_the_c_arguments(causal, want_dbias):
                                     nq_pad=128, softcap=None, stream=4096)
     assert rc == 0 and len(seen) == 1
     args = seen[0]
-    assert len(args) == len(native.BWD_BIAS_SM90_ARGTYPES) == 38
+    assert len(args) == len(native.BWD_BIAS_SM90_ARGTYPES) == 46
     assert args[:10] == tuple(x.data_ptr() for x in (q, k, v, do, stats, stats, bias, dq, dk, dv))
     assert args[10] == (dbias.data_ptr() if want_dbias else None)
-    assert args[11:20] == (B, Hq, Hkv, Nq, Nk, D, 100, int(causal), 128)
-    assert args[20:22] == (0.125, 0.0)  # the scale, no softcap
-    assert args[22:25] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
-    assert args[25:28] == (Nk * Hkv * D, D, Hkv * D)
-    assert args[28:31] == args[25:28] and args[31:34] == args[22:25]  # dO: a clone of q
-    assert args[34:37] == (Nq * Nk, 0, Nk)  # bias [B, 1, Nq, Nk]: head broadcast
-    assert args[37] == 4096
+    assert args[11:15] == (None,) * 4  # no segment ids
+    assert args[15:28] == (B, Hq, Hkv, Nq, Nk, D, 100, int(causal), -1, -1, 0, 0, 128)
+    assert args[28:30] == (0.125, 0.0)  # the scale, no softcap
+    assert args[30:33] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
+    assert args[33:36] == (Nk * Hkv * D, D, Hkv * D)
+    assert args[36:39] == args[33:36] and args[39:42] == args[30:33]  # dO: a clone of q
+    assert args[42:45] == (Nq * Nk, 0, Nk)  # bias [B, 1, Nq, Nk]: head broadcast
+    assert args[45] == 4096
 
 
 def test_padded_rows_pads_lse_to_the_kernel_tile():

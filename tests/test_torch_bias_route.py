@@ -47,9 +47,11 @@ def _route(rows=N, causal=False, segment_ids=None, window=None, head_dim=128,
 # causal LM with GQA (Hq16 / Hkv8: 2 x N folded rows) and a learned
 # [1, 16, N, N] bias, D 64, D 40 and 96 (run in the D 64 / 128 boxes), a
 # row-broadcast [B, 1, 1, Nk] key mask, a ragged Nq of 1000 against Nk 2048,
-# and an Nk that is not a multiple of 4 (the wrapper pads such a bias's rows
-# to 16 bytes: sm90_bias). The softcap is not the rule's to read: every
-# capped call with a bias takes it too.
+# an Nk that is not a multiple of 4 (the wrapper pads such a bias's rows
+# to 16 bytes: sm90_bias), segment ids and a window (a decode-shaped call
+# with a window too: the decode route takes no band). The softcap and the
+# offsets are not the rule's to read: every such call with a bias takes it
+# too.
 ROUTE_TAKES = {"path A mask": {}, "path A learned": dict(bias_shape=(4, 16, N, N)),
                "causal GQA": dict(rows=2 * N, causal=True, bias_shape=(1, 16, N, N)),
                "D 64": dict(head_dim=64, bias_shape=(2, 1, 1536, 1536)),
@@ -58,14 +60,16 @@ ROUTE_TAKES = {"path A mask": {}, "path A learned": dict(bias_shape=(4, 16, N, N
                "ragged Nq": dict(rows=1000, causal=True, bias_shape=(2, 16, 1000, N)),
                "empty window": dict(window=(-1, -1)),
                "Nk 2047": dict(bias_shape=(4, 1, N, N - 1)),
-               "Nk 2046": dict(bias_shape=(4, 1, 1, N - 2))}
+               "Nk 2046": dict(bias_shape=(4, 1, 1, N - 2)),
+               "segment ids": dict(segment_ids=(torch.zeros(4, N), torch.zeros(4, N))),
+               "window": dict(window=(128, -1)),
+               "decode-shaped with a window": dict(rows=2, window=(256, 256),
+                                                   bias_shape=(8, 1, 1, 8192))}
 ROUTE_REFUSES = {"no bias": dict(bias_shape=None),
                  "int8 K/V": dict(kv_dtype=torch.int8),
                  "fp8 K/V": dict(kv_dtype=torch.float8_e4m3fn),
                  "D 136": dict(head_dim=136), "D 256": dict(head_dim=256),
-                 "decode-shaped": dict(rows=2, bias_shape=(8, 1, 1, 8192)),
-                 "segment ids": dict(segment_ids=(torch.zeros(4, N), torch.zeros(4, N))),
-                 "window": dict(window=(128, -1))}
+                 "decode-shaped": dict(rows=2, bias_shape=(8, 1, 1, 8192))}
 
 
 @pytest.mark.parametrize("case", list(ROUTE_TAKES))
@@ -183,8 +187,9 @@ def _fake_library():
 @pytest.mark.parametrize("causal", [False, True])
 def test_launch_packs_the_c_arguments(causal):
     """The wrapper's call of fa_fwd_bias_sm90 on BNHD views with GQA and a
-    [B, 1, 1, Nk] bias: every pointer, dim, stride (the bias's 0 on its
-    broadcast dims), the scale and the stream in the C entry's order."""
+    [B, 1, 1, Nk] bias: every pointer (no segment ids), dim, the band
+    (causal, no window, no offsets), stride (the bias's 0 on its broadcast
+    dims), the scale and the stream in the C entry's order."""
     B, Hq, Hkv, Nq, Nk, D = 2, 4, 2, 96, 128, 64
     q, k, v = (x.transpose(1, 2).contiguous().transpose(1, 2).to(torch.bfloat16)
                for x in make_qkv(44, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv))
@@ -192,19 +197,21 @@ def test_launch_packs_the_c_arguments(causal):
     lse = torch.empty((B, Hq, Nq), dtype=torch.float32)
     bias, strides = flash_fwd.kernel_bias(torch.zeros((B, 1, 1, Nk)))
     lib, seen = _fake_library()
-    rc = flash_fwd._launch_bias_sm90(lib, q, k, v, o, lse, bias, strides, scale=0.125,
-                                     kv_valid_len=100, causal=causal, softcap=None, stream=4096)
+    rc = flash_fwd._launch_bias_sm90(lib, q, k, v, o, lse, bias, strides, None, scale=0.125,
+                                     kv_valid_len=100, causal=causal, window=None,
+                                     softcap=None, stream=4096)
     assert rc == 0 and len(seen) == 1
     args = seen[0]
-    assert len(args) == len(native.FWD_BIAS_SM90_ARGTYPES) == 31
+    assert len(args) == len(native.FWD_BIAS_SM90_ARGTYPES) == 40
     assert args[:6] == tuple(x.data_ptr() for x in (q, k, v, o, lse, bias))
-    assert args[6:13] == (B, Hq, Hkv, Nq, D, 100, int(causal))
-    assert args[13:15] == (0.125, 0.0)  # the scale, no softcap
-    assert args[15:18] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
-    assert args[18:21] == (Nk * Hkv * D, D, Hkv * D)
-    assert args[21:24] == args[18:21] and args[24:27] == args[15:18]
-    assert args[27:30] == (Nk, 0, 0)  # bias [B, 1, 1, Nk]: head and row broadcast
-    assert args[30] == 4096
+    assert args[6:10] == (None,) * 4  # no segment ids
+    assert args[10:21] == (B, Hq, Hkv, Nq, D, 100, int(causal), -1, -1, 0, 0)
+    assert args[21:23] == (0.125, 0.0)  # the scale, no softcap
+    assert args[23:26] == (Nq * Hq * D, D, Hq * D)  # q: BNHD, (batch, head, seq)
+    assert args[26:29] == (Nk * Hkv * D, D, Hkv * D)
+    assert args[29:32] == args[26:29] and args[32:35] == args[23:26]
+    assert args[35:38] == (Nk, 0, 0)  # bias [B, 1, 1, Nk]: head and row broadcast
+    assert args[38:40] == (0, 4096)  # no seg_q stride, the stream
 
 
 def test_tma_ready_copies_only_what_a_tensor_map_cannot_address():

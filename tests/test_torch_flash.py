@@ -84,11 +84,12 @@ def test_flash_attention_low_precision_vs_f32_oracle(dtype, D, Nk, Hkv, layout):
 _SEG = {"segment_ids": torch.zeros(1, 64, dtype=torch.int32)}
 # The JAX options, each raising until its kernel option is ported. The bias,
 # the window, the softcap, the q / kv offsets and block_sizes are ported in
-# both directions (the window, the softcap and the offsets also with segment
-# ids): their cases hold the output and the gradient against the oracle.
-# Offsets with a bias still raise.
+# both directions (the window, the softcap, the offsets and the bias also
+# with segment ids, the bias with offsets): their cases hold the output and
+# the gradient against the oracle.
 PORTED = {"bias", "window", "logit_softcap", "segment_ids+window", "segment_ids+logit_softcap",
-          "q_offset", "kv_offset", "segment_ids+q_offset", "compute_dtype", "block_sizes"}
+          "q_offset", "kv_offset", "segment_ids+q_offset", "compute_dtype", "block_sizes",
+          "segment_ids+bias", "bias+q_offset"}
 UNPORTED = {
     "bias": {"bias": torch.zeros(1, 1, 64, 64)},
     "window": {"window": (8, 8)},
@@ -98,7 +99,7 @@ UNPORTED = {
     "bias+q_offset": {"bias": torch.zeros(1, 1, 64, 64), "causal": True, "q_offset": 3},
     "block_sizes": {"block_sizes": flashattn_tpu_torch.BlockSizes(block_q=64, block_k=128)},
     "compute_dtype": {"compute_dtype": torch.float32},
-    # segment ids are ported; combined with an unported option they still raise
+    # segment ids with each other option
     "segment_ids+bias": {**_SEG, "bias": torch.zeros(1, 1, 64, 64)},
     "segment_ids+window": {**_SEG, "window": (8, 8)},
     "segment_ids+logit_softcap": {**_SEG, "logit_softcap": 5.0},

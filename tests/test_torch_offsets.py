@@ -347,18 +347,35 @@ def test_offsets_reach_the_c_entries(card, case):
 
 
 def test_offsets_refused_off_the_dense_route():
-    """The routes that take no offsets yet refuse them, naming ROADMAP queue
-    2, item 2, on every device: a bias (K1 and the bias route's backward)
-    and quantized K/V; offsets that change nothing pass everywhere. A head
-    dim above 128 takes them (K1's dense route's D 256 form; its plain
-    version here): the output and gradients against the JAX flash_attention
-    with the same offsets (its rows before the offset see no key: the
-    gradients against the JAX oracle's)."""
+    """The route that takes no offsets yet refuses them, naming ROADMAP
+    queue 2, item 2, on every device: quantized K/V; offsets that change
+    nothing pass everywhere. A bias takes them (K1's bias route and its
+    backward; their plain versions here): the output and the gradients,
+    dbias too, against the JAX flash_attention with the same bias and
+    offsets. A head dim above 128 takes them (K1's dense route's D 256 form;
+    its plain version here): the output and gradients against the JAX
+    flash_attention with the same offsets (its rows before the offset see no
+    key: the gradients against the JAX oracle's)."""
+    import jax
+    import jax.numpy as jnp
+
+    from flashattn_tpu.ops.flash import flash_attention
+
     q, k, v = make_qkv(50, 1, 2, 64, 32)
-    bias = torch.zeros(1, 1, 64, 64)
+    do = make_qkv(53, 1, 2, 64, 32)[0]
+    bias = torch.from_numpy(np.random.default_rng(54).standard_normal((1, 2, 64, 64),
+                                                                      dtype=np.float32))
     item = "ROADMAP queue 2, item 2"
-    with pytest.raises(NotImplementedError, match=item):
-        flashattn_tpu_torch.flash_attention(q, k, v, bias=bias, causal=True, q_offset=64)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, bias)]
+    o = flashattn_tpu_torch.flash_attention(*leaves[:3], bias=leaves[3], causal=True,
+                                            q_offset=48)
+    got = torch.autograd.grad(o, leaves, do)
+    want_o, vjp = jax.vjp(lambda a, b, c, d: flash_attention(a, b, c, bias=d, causal=True,
+                                                             q_offset=48),
+                          *(jnp.asarray(x.numpy()) for x in (q, k, v, bias)))
+    assert_close(o.detach(), np.asarray(want_o), F32_FWD, "O with a bias")
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, vjp(jnp.asarray(do.numpy()))):
+        assert_close(g, np.asarray(w), F32_BWD, f"{name} with a bias")
     flashattn_tpu_torch.flash_attention(q, k, v, bias=bias, q_offset=64)  # no band: runs
     wq, wk, wv = make_qkv(51, 1, 2, 64, 160)
     wdo = make_qkv(52, 1, 2, 64, 160)[0]
@@ -372,12 +389,8 @@ def test_offsets_refused_off_the_dense_route():
     for name, got, want in zip(("dq", "dk", "dv"), torch.autograd.grad(o, leaves, wdo), want_g):
         assert_close(got, want, F32_BWD, f"{name} at D 160")
     stats = torch.zeros(1, 2, 64)
-    with pytest.raises(NotImplementedError, match=item):
-        flash_bwd.bias_bwd(q, k, v, q, stats, stats, scale=0.2, causal=True, bias=bias,
-                           q_offset=1)
     k8, v8 = (x.round().clamp(-127, 127).to(torch.int8) for x in (k, v))
-    for kw, route in ((dict(k=k, v=v, bias=bias), "the bias route"),
-                      (dict(k=k8, v=v8, k_scale=stats, v_scale=stats), "quantized K/V")):
-        with pytest.raises(NotImplementedError, match=route):
-            flash_fwd.fwd(q, scale=0.2, causal=True, q_offset=1, **kw)
+    with pytest.raises(NotImplementedError, match=f"quantized K/V.*{item}"):
+        flash_fwd.fwd(q, k8, v8, k_scale=stats, v_scale=stats, scale=0.2, causal=True,
+                      q_offset=1)
     flash_fwd.fwd(q, k8, v8, k_scale=stats, v_scale=stats, scale=0.2, q_offset=1)  # no band

@@ -260,7 +260,7 @@ def test_dense_launch_packs_the_cap(segments):
 def test_bias_launch_packs_the_cap(causal):
     """fa_fwd_bias_sm90 on BNHD views with GQA at D 96 and a [B, 1, 1, Nk]
     bias with cap 30: D as given (the kernel runs it in its D 128 boxes), the
-    cap right after the scale, the bias's strides last."""
+    cap right after the scale, the bias's strides after the tensors'."""
     B, Hq, Hkv, Nq, Nk, D = 2, 4, 2, 96, 128, 96
     q, k, v = _bnhd(*make_qkv(113, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv))
     o, lse = torch.empty_like(q), torch.empty((B, Hq, Nq))
@@ -268,16 +268,17 @@ def test_bias_launch_packs_the_cap(causal):
     seen = []
     lib = types.SimpleNamespace(fa_fwd_bias_sm90=_recorder(
         "fa_fwd_bias_sm90", native.FWD_BIAS_SM90_ARGTYPES, seen))
-    rc = flash_fwd._launch_bias_sm90(lib, q, k, v, o, lse, bias, strides, scale=0.125,
-                                     kv_valid_len=100, causal=causal, softcap=30.0, stream=4096)
+    rc = flash_fwd._launch_bias_sm90(lib, q, k, v, o, lse, bias, strides, None, scale=0.125,
+                                     kv_valid_len=100, causal=causal, window=None,
+                                     softcap=30.0, stream=4096)
     assert rc == 0 and len(seen) == 1
     args = seen[0][1]
-    assert len(args) == len(native.FWD_BIAS_SM90_ARGTYPES) == 31
+    assert len(args) == len(native.FWD_BIAS_SM90_ARGTYPES) == 40
     assert args[:6] == tuple(x.data_ptr() for x in (q, k, v, o, lse, bias))
-    assert args[6:13] == (B, Hq, Hkv, Nq, D, 100, int(causal))
-    assert args[13:15] == (0.125, 30.0)
-    assert args[15:18] == (Nq * Hq * D, D, Hq * D)
-    assert args[27:30] == (Nk, 0, 0) and args[30] == 4096
+    assert args[10:17] == (B, Hq, Hkv, Nq, D, 100, int(causal))
+    assert args[21:23] == (0.125, 30.0)
+    assert args[23:26] == (Nq * Hq * D, D, Hq * D)
+    assert args[35:38] == (Nk, 0, 0) and args[39] == 4096
 
 
 @pytest.mark.parametrize("want_dbias", [False, True])
@@ -301,12 +302,12 @@ def test_bias_bwd_launch_packs_the_cap(want_dbias):
                                     nq_pad=128, softcap=CAP, stream=4096)
     assert rc == 0 and len(seen) == 1
     args = seen[0][1]
-    assert len(args) == len(native.BWD_BIAS_SM90_ARGTYPES) == 38
+    assert len(args) == len(native.BWD_BIAS_SM90_ARGTYPES) == 46
     assert args[10] == (dbias.data_ptr() if want_dbias else None)
-    assert args[11:20] == (B, Hq, Hkv, Nq, Nk, D, 100, 1, 128)
-    assert args[20:22] == (0.125, CAP)
-    assert args[22:25] == (Nq * Hq * D, D, Hq * D)
-    assert args[34:37] == (Nq * Nk, 0, Nk) and args[37] == 4096
+    assert args[15:28] == (B, Hq, Hkv, Nq, Nk, D, 100, 1, -1, -1, 0, 0, 128)
+    assert args[28:30] == (0.125, CAP)
+    assert args[30:33] == (Nq * Hq * D, D, Hq * D)
+    assert args[42:45] == (Nq * Nk, 0, Nk) and args[45] == 4096
 
 
 # ---------------------------------------------------------------------------
@@ -399,10 +400,10 @@ def test_flash_core_routes_on_a_simulated_card(card, case):
     if entries[0] == "fa_fwd_sm90":
         assert args[21] == kw["logit_softcap"]  # the cap, after the scale
     elif entries[0] == "fa_fwd_bias_sm90":
-        assert args[14] == kw.get("logit_softcap", 0.0)
+        assert args[22] == kw.get("logit_softcap", 0.0)
     if entries[1] == "fa_bwd_bias_sm90":
         bwd = card[1][1]
-        assert bwd[21] == kw.get("logit_softcap", 0.0)
+        assert bwd[29] == kw.get("logit_softcap", 0.0)
         assert flash_bwd.bias_bwd.launches_dbias == before[1] + 1  # the bias requires grad
 
 

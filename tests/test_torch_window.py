@@ -175,19 +175,28 @@ def test_window_routes_to_k3(monkeypatch):
 def test_window_offsets_and_bias_gradient_still_raise():
     """Offsets with a window run (against the oracle at the same offsets),
     also above D 128 (at D 160 against the JAX flash_attention with the same
-    window and offsets, output and gradients); those the kernels do not take
-    yet raise with their ROADMAP item on every device: with a bias and on
-    quantized K/V (``offsets_refusal`` names it). The forward with a bias and a window is
-    ported, and on the CPU its gradient too (dQ and dbias against autograd
-    through the oracle; the card's kernels take a bias without a window)."""
+    window and offsets, output and gradients), and with a bias (against the
+    JAX flash_attention with the same bias, window and offsets: output,
+    dQ, dK, dV and dbias); on quantized K/V they raise with their ROADMAP
+    item on every device (``offsets_refusal`` names it). The bias with a
+    window alone is held against autograd through the oracle (dQ and
+    dbias)."""
     q, k, v = make_qkv(8, 1, 2, 64, 32)
     assert_close(flashattn_tpu_torch.flash_attention(q, k, v, window=(8, 8), q_offset=3),
                  oracle.attention_reference(q, k, v, window=(8, 8), q_offset=3),
                  FWD_TOL[torch.float32])
     bias = torch.from_numpy(np.random.default_rng(9).standard_normal((1, 2, 64, 64),
                                                                       dtype=np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 2"):
-        flashattn_tpu_torch.flash_attention(q, k, v, window=(8, 8), q_offset=3, bias=bias)
+    do = make_qkv(12, 1, 2, 64, 32)[0]
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, bias)]
+    o = flashattn_tpu_torch.flash_attention(*leaves[:3], window=(8, 8), q_offset=3,
+                                            bias=leaves[3])
+    got = torch.autograd.grad(o, leaves, do)
+    want_o, vjp = jax.vjp(lambda a, b, c, d: flashattn_tpu.flash_attention(
+        a, b, c, window=(8, 8), q_offset=3, bias=d), *_jax(q, k, v, bias))
+    assert_close(o.detach(), np.asarray(want_o), FWD_TOL[torch.float32], "O with a bias")
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), got, vjp(jnp.asarray(do.numpy()))):
+        assert_close(g, np.asarray(w), BWD_TOL[torch.float32], f"{name} with a bias")
     wide = make_qkv(8, 1, 2, 64, 160)
     want_o = np.array(flashattn_tpu.flash_attention(*_jax(*wide), window=(8, 8), q_offset=3))
     want_g = jax.grad(lambda a, b, c: (flashattn_tpu.flash_attention(
@@ -198,8 +207,8 @@ def test_window_offsets_and_bias_gradient_still_raise():
         a, b, c, window=(8, 8), q_offset=3) ** 2).sum(), *wide)
     for name, got, want in zip(("dq", "dk", "dv"), got_g, want_g):
         assert_close(got, np.array(want), BWD_TOL[torch.float32], f"{name} at D 160")
-    assert "ROADMAP queue 2, item 2" in flash_fwd.offsets_refusal(bias=None, quantized=True)
-    assert flash_fwd.offsets_refusal(bias=None, quantized=False) is None
+    assert "ROADMAP queue 2, item 2" in flash_fwd.offsets_refusal(quantized=True)
+    assert flash_fwd.offsets_refusal(quantized=False) is None
     o = flashattn_tpu_torch.flash_attention(q, k, v, window=(8, 8), bias=bias)
     assert_close(o, oracle.attention_reference(q, k, v, window=(8, 8), bias=bias),
                  FWD_TOL[torch.float32])
