@@ -88,6 +88,15 @@ its kernels:
   ``compute_dtype=float32``; the LM of bench_lm.py at full width in f32
   (gates fused vs xla, 4 AdamW steps, unpacked and packed) with exact
   launches on the f32 kernels only;
+* f32 with a bias: K1's f32 route and the f32 backward with an additive
+  bias (TMA + wgmma on the pieces, the bias added in f32; dbias on request)
+  against their plain versions with TF32 off at every bias broadcast shape,
+  with ids, windows, offsets, the cap, GQA, ragged and decode shapes, dead
+  rows and dbias exactly 0 where the masks drop pairs; f32 path A -- the
+  attention module at its default float32 on x [4, 2048, 2048] with the
+  key-padding mask, alone and with a trainable [1, 16, N, N] bias -- within
+  1e-3 of the plain f32 function, a few AdamW steps each, with exact
+  launches on the f32 bias kernels;
 * head dims above 128: K1's dense route's D 256 form (TMA + wgmma, two
   (K, V) stages; with HGMMA and UTMALDG and no mma.sync in its SASS) at D
   160 / 136 / 256 with the cap, windows, ids, q / kv offsets, dead rows and
@@ -102,7 +111,11 @@ its kernels:
   4) virtual mesh (K1 and K3 with q / kv offsets at D 256);
 * the port's entry points (``flashattn_tpu_torch/entry.py``): ``entry()``'s
   U-Net denoise step and ``dryrun_multichip(8)`` (the f32 LM on a virtual
-  8-rank mesh, contiguous, packed and two slices).
+  8-rank mesh, contiguous, packed and two slices);
+* the composition fuzz's card arm: ``utils/testing.sample_composition``'s
+  draws (every option of ``flash_attention`` jointly) through the kernels
+  against autograd through the port's oracle, until every route has been
+  reached; a refusal only under the labels still open.
 
 Every kernel's line in the kernels JSON carries its time, its plain version's
 time, its bound (the larger of the bytes it must move at 3.35 TB/s and its
@@ -464,11 +477,15 @@ def _card_state() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def phase_env() -> None:
-    smi = subprocess.run(
+def _card_name() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+
+
+def phase_env() -> None:
+    print(_card_name(), flush=True)
     log("env", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
                f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     from flashattn_tpu_torch.utils import native
@@ -549,11 +566,13 @@ def instantiation_name(mangled: str) -> str:
         cap = " softcap" if len(args) == 3 and args[2] == "1" else ""
         return f"K1 dense sm90{seg}{cap} fwd_dense_sm90_kernel<{', '.join(args)}>"
     f32 = re.search(r"(fwd|bwd)_f32_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
-    if f32:  # the f32 routes, fwd_f32_kernel / bwd_f32_kernel<DB, SEG, CAP>
+    if f32:  # the f32 routes, fwd_f32_kernel / bwd_f32_kernel<DB, SEG, CAP, BIAS> (a parent's:
+        # <DB, SEG, CAP>, before the bias)
         args = re.findall(r"L[a-z]+(-?\d+)E", f32.group(2))
-        if len(args) != 3:
+        if len(args) not in (3, 4):
             return f"unrecognised instantiation {f32.group(1)}_f32_kernel<{', '.join(args)}>"
         return (f"{'K1 f32' if f32.group(1) == 'fwd' else 'bwd f32'}"
+                f"{' bias' if len(args) == 4 and args[3] == '1' else ''}"
                 f"{' segments' if args[1] == '1' else ''}{' softcap' if args[2] == '1' else ''} "
                 f"{f32.group(1)}_f32_kernel<{', '.join(args)}>")
     k3_sm90 = re.search(r"\d(?:bwd_sm90_kernel)I((?:L[a-z]+-?\d+E)+)E", mangled)
@@ -1210,6 +1229,7 @@ def _reset_launches() -> None:
     flash_bwd.bias_bwd.launches = flash_bwd.bias_bwd.launches_dbias = 0
     flash_bwd.split_bwd.launches = 0
     flash_fwd.fwd.launches_f32 = flash_bwd._f32_bwd_launch.launches = 0
+    flash_fwd.fwd.launches_f32_bias = flash_bwd.bias_bwd.launches_f32 = 0
     flash_fwd.fwd.launches_split = flash_bwd._f32_bwd_launch.launches_split = 0
     gemm.matmul.launches = roofline.roofline_call.launches = 0
     ring_kernel.ring_fwd_step.launches = ring_kernel.ring_bwd_step.launches = 0
@@ -1229,9 +1249,12 @@ def _launches() -> dict:
     "split bwd" those of K5 + K6 without a bias (one kernel for both, with
     segment ids and / or the softcap), "split bwd d256" those of its D 256
     form; "K1 f32" the launches of K1's f32 kernel (also counted in "K1",
-    and in "K1 window" / "K1 softcap"), "bwd f32" those of the f32 backward
-    body, which K3's f32 calls (also counted in "K3") and the split route's
-    (in "split bwd") launch; "split bf16x3" those of the f32 routes' operand split (one
+    and in "K1 window" / "K1 softcap"), "K1 f32 bias" those of its BIAS
+    family (also in "K1 f32" and "K1 bias"), "bwd f32" those of the f32
+    backward body, which K3's f32 calls (also counted in "K3"), the split
+    route's (in "split bwd") and the bias route's (in "bias bwd" and "bias
+    bwd f32", with dbias also in "bias bwd dbias") launch; "split bf16x3"
+    those of the f32 routes' operand split (one
     before each K1 f32 launch, of q, k and v, and one before each bwd f32
     launch, of q, k, v and dO, both from the f32 C entries). K5 and K6 have
     no kernel of their own: every CUDA backward that is not K3's takes one
@@ -1254,6 +1277,8 @@ def _launches() -> dict:
             "split bwd": flash_bwd.split_bwd.launches,
             "split bwd d256": flash_bwd.split_bwd.launches_d256,
             "K1 f32": flash_fwd.fwd.launches_f32, "bwd f32": flash_bwd._f32_bwd_launch.launches,
+            "K1 f32 bias": flash_fwd.fwd.launches_f32_bias,
+            "bias bwd f32": flash_bwd.bias_bwd.launches_f32,
             "split bf16x3": (flash_fwd.fwd.launches_split
                              + flash_bwd._f32_bwd_launch.launches_split),
             "K7": ring_kernel.ring_fwd_step.launches, "K8": ring_kernel.ring_bwd_step.launches,
@@ -4406,22 +4431,28 @@ def _sdpa_backend(q, k, v, **kw) -> str:
     return f"{len(events)} kernels, most time in: {top}" if events else "no CUDA kernel profiled"
 
 
-def _f32_library_ms(q, k, v, do, lib_kw) -> dict:
+def _f32_library_ms(q, k, v, do, lib_kw, bias_leaf=None) -> dict:
     """SDPA on the f32 inputs (TF32 off) at the two backends that take f32:
     the math backend with ``enable_gqa`` (the one SDPA picks for Hkv < Hq)
     and the memory-efficient backend on K / V expanded to the query heads
     before timing (it takes no GQA); for the forward (``do`` None) or the
-    backward. The faster one's ms and name."""
+    backward (with ``bias_leaf``, the ``attn_mask`` leaf, its gradient too;
+    a backend that gives none is logged and left out). The faster one's ms
+    and name."""
     from torch.nn.attention import SDPBackend
 
     group = q.shape[1] // k.shape[1]
     kx, vx = (x.repeat_interleave(group, 1) for x in (k, v))
-    times = {"math backend": sdpa_ms(q, k, v, do=do, backend=SDPBackend.MATH, **lib_kw)}
+    times = {"math backend": sdpa_ms(q, k, v, do=do, backend=SDPBackend.MATH,
+                                     bias_leaf=bias_leaf, **lib_kw)}
     try:
         times["memory-efficient backend, K / V expanded"] = sdpa_ms(
-            q, kx, vx, do=do, backend=SDPBackend.EFFICIENT_ATTENTION, **lib_kw)
+            q, kx, vx, do=do, backend=SDPBackend.EFFICIENT_ATTENTION, bias_leaf=bias_leaf,
+            **lib_kw)
     except RuntimeError as e:  # the backend refused these inputs: the math time stands
-        log("f32", f"SDPA's memory-efficient backend refused: {str(e)[:200]}")
+        log("f32", f"SDPA's memory-efficient backend refused"
+                   f"{' (with the mask gradient)' if bias_leaf is not None else ''}: "
+                   f"{str(e)[:200]}")
     name = min(times, key=times.get)
     log("f32", f"SDPA f32 {'backward' if do is not None else 'forward'}: "
                + ", ".join(f"{n} {t:.4f} ms" for n, t in times.items()))
@@ -4557,10 +4588,7 @@ def phase_f32_check() -> dict:
     worst = {n: max(e[n] for e in errs) for n in ("fwd_err", "bwd_err")}
     log("f32", f"all {len(F32_CASES)} cases: worst O {worst['fwd_err']:.3e}, worst dQ/dK/dV "
                f"{worst['bwd_err']:.3e}")
-    _tma_wgmma_sass("f32", {f"{name}{' segments' if sg else ''}{' softcap' if cp else ''} "
-                            f"{kind}_f32_kernel<{d}, {sg}, {cp}>"
-                            for name, kind in (("K1 f32", "fwd"), ("bwd f32", "bwd"))
-                            for d in (64, 128) for sg in (0, 1) for cp in (0, 1)})
+    _tma_wgmma_sass("f32", f32_instantiations(bias=False))
     return {"fwd": fwd, "bwd": bwd, "fwd_packed": fwd_p, "bwd_packed": bwd_p, "split": split,
             "cases_worst": worst, "adversarial": adv, "fp16": fp16}
 
@@ -4623,6 +4651,525 @@ def phase_f32_train() -> dict:
         if counts[tag] != want:
             fail(f"f32 LM steps ({tag}) launched {counts[tag]}, expected {want}")
     return counts
+
+
+def f32_instantiations(*, bias: bool) -> set:
+    """The instantiations of K1's f32 route (fwd_f32_kernel<D, SEG, CAP,
+    BIAS>) and of the f32 backward (bwd_f32_kernel<D, SEG, CAP, BIAS>) with
+    or without the bias, as instantiation_name names them: 8 + 8."""
+    b = int(bias)
+    return {f"{name}{' bias' if bias else ''}{' segments' if sg else ''}"
+            f"{' softcap' if cp else ''} {kind}_f32_kernel<{d}, {sg}, {cp}, {b}>"
+            for name, kind in (("K1 f32", "fwd"), ("bwd f32", "bwd"))
+            for d in (64, 128) for sg in (0, 1) for cp in (0, 1)}
+
+
+# f32 with a bias (K1's f32 route's BIAS family, the f32 backward's BIAS
+# family with and without dbias) against the plain versions, TF32 off, q and
+# k at GROW x unit scale: (tag, B, Hq, Hkv, Nq, Nk, D, kv_valid_len, options,
+# ids kind as _seg_case_ids or None, bias dims). The bias dims say which of
+# (batch, head, row) the bias has -- the eight broadcast shapes [1|B, 1|Hq,
+# Nq|1, Nk] once each -- or "padding": the key-padding bias [B, 1, N, N] of
+# lengths (N, 100), whose rows past 100 are dead. Nk 77 and 513 give bias
+# rows that the forward's wrapper pads to 16 bytes; D 72 runs in the D 128
+# boxes; D 64 in the BIAS family's two-stage ring.
+F32_BIAS_CASES = [
+    ("causal GQA 4/2, Nk 77, bias [B, H, Nq, Nk]", 2, 4, 2, 127, 77, 64, 77,
+     dict(causal=True), None, (1, 1, 1)),
+    ("kv_valid_len 150 of Nk 200, bias [1, 1, 1, Nk]", 2, 4, 4, 129, 200, 128, 150, {}, None,
+     (0, 0, 0)),
+    ("key padding, dead rows, bias [B, 1, N, N]", 2, 4, 4, 256, 256, 128, 256, {}, None,
+     "padding"),
+    ("window (64, 32), D 72, bias [1, H, Nq, Nk]", 1, 4, 2, 300, 300, 72, 300,
+     dict(window=(64, 32)), None, (0, 1, 1)),
+    ("random ids, bias [B, H, 1, Nk]", 2, 4, 2, 256, 256, 64, 256, {}, "random", (1, 1, 0)),
+    ("causal, q_off - kv_off 100, GQA 4/1, bias [1, H, 1, Nk]", 1, 4, 1, 200, 300, 128, 300,
+     dict(causal=True, q_offset=100, kv_offset=0), None, (0, 1, 0)),
+    ("Nq 1, cap 5, bias [B, 1, 1, Nk]", 2, 4, 2, 1, 513, 128, 513, dict(softcap=5.0), None,
+     (1, 0, 0)),
+    ("window (40, 40), ids, q_off - kv_off 30, cap 5, bias [1, 1, Nq, Nk]", 2, 4, 2, 200, 260,
+     64, 260, dict(window=(40, 40), q_offset=30, kv_offset=0, softcap=5.0), "tuple",
+     (0, 0, 1)),
+    ("causal GQA 8/1, Nq 129 < Nk 1000, kv_valid_len 900, bias [B, 1, Nq, Nk]", 1, 8, 1, 129,
+     1000, 128, 900, dict(causal=True), None, (1, 0, 1)),
+]
+# The cases that also run the backward without dbias (its dQ / dK / dV must
+# equal the dbias launch's to BWD_TOL[f32] as well).
+F32_BIAS_NO_DBIAS = (1, 5)
+# f32 path A (phase_f32_bias_train): AdamW steps per arm, the first a warm-up,
+# and the gate: the fused arm's loss, all its gradients and (learned arm) the
+# bias's gradient alone against the plain f32 function within this relative
+# error (the f32 LM's limit).
+F32_PATH_A_STEPS = 4
+F32_PATH_A_REL = 1e-3
+
+
+def _f32_bias_input(seed: int, B, Hq, Hkv, Nq, Nk, D, dims):
+    """q, k (GROW) and v, dO, f32 on the card, and the case's f32 bias."""
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    q, k, v = make_qkv(seed, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv, device=DEVICE)
+    do = make_qkv(seed + 1, B, Hq, Nq, D, device=DEVICE)[0]
+    if dims == "padding":
+        bias = _padding_bias((Nq, 100), Nq)
+    else:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed + 2)
+        shape = (B if dims[0] else 1, Hq if dims[1] else 1, Nq if dims[2] else 1, Nk)
+        bias = torch.randn(shape, generator=gen, device=DEVICE)
+    return GROW * q, GROW * k, v, do, bias
+
+
+def _f32_bias_case(tag: str, q, k, v, do, bias, kw, *, no_dbias: bool) -> dict:
+    """K1's f32 route with the bias and the f32 backward's BIAS family (with
+    dbias, and with ``no_dbias`` also without) against fwd_reference and
+    bias_bwd_reference with TF32 off: O within FWD_TOL[f32], LSE within it on
+    live rows, dQ / dK / dV (per KV head) / dbias within BWD_TOL[f32]; dead
+    rows' O = 0 and LSE = ln2 · mask bit for bit, their dQ and dbias 0;
+    dbias exactly 0 on every pair the masks drop (flash_fwd.pair_mask: the
+    band, the ids, the KV tail), read from memory the allocator hands out
+    NaN-filled (_poison_cache); exactly one launch of each kernel and of
+    the split, none of a bf16 kernel."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+    from flashattn_tpu_torch.utils.testing import BWD_TOL, FWD_TOL, check_close, grad_gate
+
+    kw = dict(scale=q.shape[-1] ** -0.5, bias=bias, **kw)
+    variants = dict(K1_window=int("window" in kw), K1_softcap=int("softcap" in kw))
+    before = _launches()
+    o, lse = flash_fwd.fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _routed(f"K1 f32 bias at {tag}", before, K1=1, K1_bias=1, K1_f32=1, K1_f32_bias=1,
+            split_bf16x3=1, **variants)
+    o_want, lse_want = flash_fwd.fwd_reference(q, k, v, **kw)
+    live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
+    dead = ~live
+    tol_f, tol_b = FWD_TOL[torch.float32], BWD_TOL[torch.float32]
+    ok_o, msg_o = check_close(o, o_want, tol_f, "O")
+    ok_l, msg_l = check_close(lse[live], lse_want[live], tol_f, "LSE")
+    dead_ok = bool((o[dead] == 0).all()) and bool((lse[dead] == _dead_lse()).all())
+    err_o = (o - o_want).abs().max().item()
+    delta = (do * o_want).sum(-1)
+    args = (q, k, v, do, lse_want, delta)
+    nkv = kw.get("kv_valid_len", k.shape[2])
+    drop = ~flash_fwd.pair_mask(q.shape[2], k.shape[2], kv_valid_len=nkv,
+                                causal=kw.get("causal", False), segment_ids=kw.get("segment_ids"),
+                                device=DEVICE, window=kw.get("window"),
+                                q_offset=kw.get("q_offset", 0), kv_offset=kw.get("kv_offset", 0))
+    want = flash_bwd.bias_bwd_reference(*args, want_dbias=True, **kw)
+    errs, masked = [], 0
+    for dbias in (True, False) if no_dbias else (True,):
+        b, hq, nq, d = q.shape
+        _poison_cache(8 * (b * hq * nq * (k.shape[2] + d) + 2 * b * hq * k.shape[2] * d))
+        before = _launches()
+        got = flash_bwd.bias_bwd(*args, want_dbias=dbias, **kw)
+        torch.cuda.synchronize()
+        _routed(f"the f32 bias backward at {tag} (dbias {dbias})", before, bias_bwd=1,
+                bias_bwd_f32=1, bias_bwd_dbias=int(dbias), bwd_f32=1, split_bf16x3=1)
+        names = ("dq", "dk", "dv", "dbias")[:4 if dbias else 3]
+        ok_g, why_g, err_g, _ = grad_gate(got[:len(names)], want[:len(names)], tol_b,
+                                          names=names)
+        if not ok_g:
+            fail(f"f32 bias at {tag}: the backward (dbias {dbias}) disagrees with "
+                 f"bias_bwd_reference: {why_g}")
+        dead_ok = dead_ok and bool((got[0][dead] == 0).all())
+        if dbias:
+            dead_ok = dead_ok and bool((got[3][dead.expand(got[3].shape[:3])] == 0).all())
+            masked = int((got[3][drop.expand(got[3].shape)] != 0).sum())
+        errs.append(err_g)
+        del got
+    log("f32 bias", f"{tag}: K1 f32 bias O max_abs_err {err_o:.3e}, LSE live max_abs_err "
+                    f"{(lse[live] - lse_want[live]).abs().max().item() if live.any() else 0:.3e} "
+                    f"(budget FWD_TOL[f32] {tol_f.atol} + {tol_f.rtol}|ref|, max|O ref| "
+                    f"{o_want.abs().max().item():.3f}); the f32 bias backward dQ/dK/dV/dbias "
+                    f"max_abs_err {errs[0]:.3e}" + (f" (without dbias {errs[1]:.3e})"
+                                                    if len(errs) > 1 else "")
+                    + f" (budget BWD_TOL[f32] {tol_b.atol} + {tol_b.rtol}|ref|, max|ref| "
+                    f"{max(x.abs().max().item() for x in want):.3f}); dead rows "
+                    f"{int(dead.sum())} (O, dQ, dbias 0, LSE ln2 · mask bit for bit: "
+                    f"{dead_ok}); dbias on the {int(drop.sum())} dropped pairs: {masked} not "
+                    f"exactly 0")
+    if not (ok_o and ok_l):
+        fail(f"f32 bias at {tag}: K1 disagrees with fwd_reference: {msg_o}; {msg_l}")
+    if not dead_ok or masked:
+        fail(f"f32 bias at {tag}: dead rows or dropped pairs not exactly 0 ({masked} dbias)")
+    del want
+    torch.cuda.empty_cache()
+    return {"fwd_err": err_o, "bwd_err": max(errs)}
+
+
+def _f32_bias_timing() -> dict:
+    """K1's f32 route with the bias and the f32 backward's BIAS family at f32
+    path A's attention (B4 H16 N2048 D128, f32): the mask arm's bias (the
+    key-padding [4, 1, N, N] of ATTN_LENGTHS) and the learned arm's (that
+    plus a [1, 16, N, N] normal: [4, 16, N, N]), the backward without dbias
+    on the first and with it on the second. Each held against its plain
+    version on these inputs (TF32 off: O within FWD_TOL[f32], dQ / dK / dV /
+    dbias within BWD_TOL[f32]), its error in its row; ms, the plain
+    version's ms, the bound (each input read once, each output written
+    once, at 3.35 TB/s; the products over every pair -- the kernels read the
+    bias to learn which pairs it masks -- at PEAK_F32_ACCURATE_FLOPS) and the
+    faster of SDPA's two f32 backends with the bias as ``attn_mask`` (the
+    backward with ``attn_mask``'s gradient on the dbias row, where a backend
+    gives one)."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
+    from flashattn_tpu_torch.utils.testing import BWD_TOL, FWD_TOL, check_close, grad_gate, \
+        make_qkv
+
+    B, H, N, D = len(ATTN_LENGTHS), ATTN_WIDTH["num_heads"], ATTN_SEQ, 128
+    q, k, v = make_qkv(31, B, H, N, D, device=DEVICE)
+    do = make_qkv(32, B, H, N, D, device=DEVICE)[0]
+    mask = _padding_bias(ATTN_LENGTHS, N)
+    gen = torch.Generator(device=DEVICE).manual_seed(33)
+    learned = mask + torch.randn((1, H, N, N), generator=gen, device=DEVICE)
+    scale = D ** -0.5
+    rows = {}
+    for arm, bias, dbias in (("mask", mask, False), ("learned", learned, True)):
+        kw = dict(scale=scale, bias=bias)
+        o, lse = flash_fwd.fwd(q, k, v, **kw)
+        o_want, lse_want = flash_fwd.fwd_reference(q, k, v, **kw)
+        ok_o, msg_o = check_close(o, o_want, FWD_TOL[torch.float32], "O")
+        err_o = (o - o_want).abs().max().item()
+        delta = (do * o).sum(-1)
+        args = (q, k, v, do, lse, delta)
+        got = flash_bwd.bias_bwd(*args, want_dbias=dbias, **kw)
+        want = flash_bwd.bias_bwd_reference(*args, want_dbias=dbias, **kw)
+        n = 4 if dbias else 3
+        ok_g, why_g, err_g, _ = grad_gate(got[:n], want[:n], BWD_TOL[torch.float32],
+                                          names=("dq", "dk", "dv", "dbias")[:n])
+        log("f32 bias", f"path A's {arm} bias {list(bias.shape)} (the timed inputs): K1 f32 "
+                        f"bias O max_abs_err {err_o:.3e}; the f32 bias backward"
+                        f"{' with dbias' if dbias else ''} max_abs_err {err_g:.3e}")
+        if not (ok_o and ok_g):
+            fail(f"f32 bias at path A's {arm} shape: {msg_o}; {why_g}")
+        del got, want, o_want, lse_want
+        torch.cuda.empty_cache()
+        pairs = float(B * H * N * N)
+        leaf = bias.detach().requires_grad_(True) if dbias else None
+        lib_kw = dict(attn_mask=bias if leaf is None else leaf)
+        for name, fn, plain, matmuls, nbytes, err, lib_do in (
+                ("fwd", lambda: flash_fwd.fwd(q, k, v, **kw),
+                 lambda: flash_fwd.fwd_reference(q, k, v, **kw), 2,
+                 tensor_bytes(q, k, v, bias, o, lse), err_o, None),
+                ("bwd", lambda: flash_bwd.bias_bwd(*args, want_dbias=dbias, **kw),
+                 lambda: flash_bwd.bias_bwd_reference(*args, want_dbias=dbias, **kw), 5,
+                 tensor_bytes(q, k, v, do, lse, delta, bias, q, k, v,
+                              bias.expand(B, H, N, N) if dbias else None), err_g, do)):
+            row = {"max_abs_err": err, "ms": cuda_ms(fn, reps=5, trials=5),
+                   "plain_ms": cuda_ms(plain, reps=1, trials=3),
+                   **bound(nbytes, 2.0 * D * pairs * matmuls, PEAK_F32_ACCURATE_FLOPS),
+                   **_f32_library_ms(q, k, v, lib_do, lib_kw, bias_leaf=leaf)}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            rows[f"{name}_{arm}"] = row
+            log("f32 bias", f"{name} at path A's {arm} arm (B{B} H{H} N{N} D{D} f32, bias "
+                            f"{list(bias.shape)}{', dbias' if dbias and name == 'bwd' else ''}): "
+                            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+                            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                            f"{row['bound_share']:.1%} of it), {row['library']} "
+                            f"{row['library_ms']:.4f} ms")
+        del o, lse, args, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_f32_bias_check() -> dict:
+    """K1's f32 route with a bias and the f32 backward's BIAS family (with
+    and without dbias) against their plain versions on every F32_BIAS_CASES
+    entry (_f32_bias_case), TF32 off; the new instantiations' SASS: HGMMA,
+    UTMALDG, no HMMA; then both timed at f32 path A's shape (_f32_bias_timing)."""
+    _f32_tf32_off()
+    errs = []
+    for i, (tag, B, Hq, Hkv, Nq, Nk, D, nkv, kw, ids, dims) in enumerate(F32_BIAS_CASES):
+        q, k, v, do, bias = _f32_bias_input(600 + 10 * i, B, Hq, Hkv, Nq, Nk, D, dims)
+        kw = dict(kw, kv_valid_len=nkv)
+        if ids is not None:
+            kw["segment_ids"] = _seg_case_ids(ids, 700 + i, B, Nq, Nk)
+        errs.append(_f32_bias_case(f"B{B} Hq{Hq} Hkv{Hkv} Nq{Nq} Nk{Nk} D{D}, {tag}", q, k, v,
+                                   do, bias, kw, no_dbias=i in F32_BIAS_NO_DBIAS))
+    worst = {n: max(e[n] for e in errs) for n in ("fwd_err", "bwd_err")}
+    log("f32 bias", f"all {len(F32_BIAS_CASES)} cases: worst O {worst['fwd_err']:.3e}, worst "
+                    f"dQ/dK/dV/dbias {worst['bwd_err']:.3e}")
+    _tma_wgmma_sass("f32 bias", f32_instantiations(bias=True))
+    rows = _f32_bias_timing()
+    return {**rows, "cases_worst": worst}
+
+
+def _f32_path_a(arm: str, x, target, valid, mask, rel0) -> dict:
+    """One arm of f32 path A: FlashMultiHeadDotProductAttention (ATTN_WIDTH)
+    at its default float32, impl "fused", on ``x`` with the key-padding
+    ``mask`` and, where ``rel0`` is given, a trainable f32 bias initialised to
+    it; an MSE loss over the valid rows. Gate (TF32 off): the fused arm's
+    loss, all its gradients and, with the learned bias, that bias's gradient
+    alone against the plain f32 function (_plain_mhdpa on the same weights,
+    the mask folded into its bias) within F32_PATH_A_REL relative error.
+    Then F32_PATH_A_STEPS AdamW steps whose loss falls, each launching
+    exactly one split and one K1 f32 bias kernel forward, one f32 bias
+    backward (with dbias on the learned arm) and its split, and no bf16
+    kernel; ms/step (median after one warm-up) and peak GB."""
+    from flashattn_tpu_torch.integrations import FlashMultiHeadDotProductAttention
+    from flashattn_tpu_torch.models.transformer import adamw_init, adamw_update
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+
+    B, N, F = x.shape
+
+    def build():
+        m = FlashMultiHeadDotProductAttention(
+            **ATTN_WIDTH, impl="fused", device=DEVICE,
+            generator=torch.Generator(device=DEVICE).manual_seed(0))
+        return m, None if rel0 is None else torch.nn.Parameter(rel0.clone())
+
+    def params_of(m, rel):
+        return {**dict(m.named_parameters()), **({} if rel is None else {"rel_bias": rel})}
+
+    def loss_of(m, rel, plain=False):
+        if plain:
+            bias = torch.where(mask, 0.0, DEFAULT_MASK_VALUE)
+            y = _plain_mhdpa(m, x, bias if rel is None else bias + rel)
+        else:
+            y = m(x, mask=mask, bias=rel)
+        return ((y - target) ** 2 * valid[..., None]).sum() / (valid.sum() * F)
+
+    def loss_and_grads(m, rel, plain=False):
+        params = params_of(m, rel)
+        for p in params.values():
+            p.grad = None
+        loss = loss_of(m, rel, plain)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in params.items()}
+
+    model, rel = build()
+    if next(model.parameters()).dtype != torch.float32:
+        fail(f"f32 path A: the module's default dtype is {next(model.parameters()).dtype}")
+    _reset_launches()
+    lf, gf = loss_and_grads(model, rel)
+    gate_launches = _launches()
+    lp, gp = loss_and_grads(model, rel, plain=True)
+    errs = {"loss": abs(lf - lp) / abs(lp), "gradients": _rel_l2(gf, gp),
+            **({} if rel is None else {"rel_bias": _rel_l2({"r": gf["rel_bias"]},
+                                                           {"r": gp["rel_bias"]})})}
+    learned = "" if rel0 is None else f" + a trainable bias {list(rel0.shape)}"
+    log("f32 bias_train", f"{arm} arm: FlashMultiHeadDotProductAttention "
+                          f"({sum(p.numel() for p in params_of(model, rel).values()) / 1e6:.1f} M "
+                          f"params, f32, impl fused) on x [{B}, {N}, {F}], mask of lengths "
+                          f"{ATTN_LENGTHS}{learned}: "
+                          f"loss fused {lf:.7f}, plain f32 {lp:.7f}; relative errors against "
+                          f"the plain f32 function (limit {F32_PATH_A_REL}): "
+                          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    if not all(math.isfinite(e) and e <= F32_PATH_A_REL for e in errs.values()):
+        fail(f"f32 path A {arm} gate: {errs} (limit {F32_PATH_A_REL})")
+    del gf, gp
+    dbias = int(rel0 is not None)
+    want = _expect(K1=1, K1_bias=1, K1_f32=1, K1_f32_bias=1, split_bf16x3=2, bias_bwd=1,
+                   bias_bwd_f32=1, bias_bwd_dbias=dbias, bwd_f32=1)
+    if gate_launches != want:
+        fail(f"f32 path A {arm}: the gate's step launched {gate_launches}, expected {want}")
+    params = params_of(model, rel)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    losses, secs = [], []
+    for _ in range(F32_PATH_A_STEPS):
+        t0 = time.perf_counter()
+        for p in params.values():
+            p.grad = None
+        loss = loss_of(model, rel)
+        loss.backward()
+        adamw_update({n: p.grad for n, p in params.items()}, opt, params)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = _launches()
+    step_ms = statistics.median(secs[1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = F32_PATH_A_STEPS
+    want = _expect(K1=n, K1_bias=n, K1_f32=n, K1_f32_bias=n, split_bf16x3=2 * n, bias_bwd=n,
+                   bias_bwd_f32=n, bias_bwd_dbias=n * dbias, bwd_f32=n)
+    log("f32 bias_train", f"{arm} arm: {n} AdamW steps, {step_ms:.2f} ms/step "
+                          f"({', '.join(f'{s * 1e3:.1f}' for s in secs)}; median after one "
+                          f"warm-up step), peak {peak:.2f} GB ({_card_name()}; "
+                          f"{_card_state()}); loss "
+                          f"{losses[0]:.6f} -> {losses[-1]:.6f}; launches {launches} (expected "
+                          f"K1 = K1 bias = K1 f32 = K1 f32 bias = bias bwd = bias bwd f32 = bwd "
+                          f"f32 = {n}, bias bwd dbias = {n * dbias}, split bf16x3 = {2 * n}, no "
+                          "bf16 kernel)")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"f32 path A {arm}: losses {losses} not finite or not falling")
+    if launches != want:
+        fail(f"f32 path A {arm} launched {launches}, expected {want}")
+    del model, rel, params, opt
+    torch.cuda.empty_cache()
+    return {"ms_per_step": step_ms, "peak_gb": peak, "launches": launches, "gate": errs}
+
+
+def phase_f32_bias_train() -> dict:
+    """f32 path A: FlashMultiHeadDotProductAttention (16 heads of 128,
+    in_features 2048) at its default float32 and impl "fused" on x [4, 2048,
+    2048] f32 with the key-padding mask of ATTN_LENGTHS, in two arms
+    (_f32_path_a): the mask alone, and the mask plus a trainable [1, 16, N, N]
+    f32 bias, whose gradient the f32 backward's dbias gives."""
+    from flashattn_tpu_torch.integrations import make_attention_mask
+
+    _f32_tf32_off()
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    B, N, F = len(ATTN_LENGTHS), ATTN_SEQ, ATTN_WIDTH["in_features"]
+    x = torch.randn((B, N, F), generator=gen, device=DEVICE)
+    target = 0.05 * torch.randn((B, N, F), generator=gen, device=DEVICE)
+    lengths = torch.tensor(ATTN_LENGTHS, device=DEVICE)
+    valid = torch.arange(N, device=DEVICE)[None] < lengths[:, None]
+    mask = make_attention_mask(valid, valid, dtype=torch.bool)
+    rel0 = torch.randn((1, ATTN_WIDTH["num_heads"], N, N), generator=gen, device=DEVICE)
+    return {"mask": _f32_path_a("mask", x, target, valid, mask, None),
+            "learned": _f32_path_a("learned", x, target, valid, mask, rel0)}
+
+
+# The composition fuzz's card arm (phase_fuzz): FUZZ_DRAWS draws of
+# utils/testing.sample_composition from seeds FUZZ_SEED on, then draws from
+# later seeds, up to FUZZ_MAX_SEEDS, only where one of FUZZ_ROUTES has not
+# been reached yet (the routes predicted by the wrappers' own route rules; the
+# launches then decide). A draw may be refused only under the labels still
+# open (FUZZ_OPEN_LABELS); f32 with a bias at D <= 128 never.
+FUZZ_SEED = 3000
+FUZZ_DRAWS = 40
+FUZZ_MAX_SEEDS = 4000
+FUZZ_OPEN_LABELS = ("functions item 6", "f32 rows item 5", "K1 options")
+FUZZ_ROUTES = ("K1 dense", "K1 bias", "K1 f32", "K1 f32 bias", "K1 decode", "K3",
+               "split route", "bias backward", "f32 backward", "f32 bias backward")
+
+
+def _fuzz_routes(launches: dict, f32: bool) -> set:
+    """The FUZZ_ROUTES that a draw's launches (a _launches() difference) went
+    through."""
+    got = {"K1 dense": launches["K1 dense sm90"], "K1 bias": launches["K1 bias sm90"],
+           "K1 f32": launches["K1 f32"] - launches["K1 f32 bias"],
+           "K1 f32 bias": launches["K1 f32 bias"], "K1 decode": launches["K1 decode"],
+           "K3": launches["K3 sm90"], "split route": 0 if f32 else launches["split bwd"],
+           "bias backward": launches["bias bwd"] - launches["bias bwd f32"],
+           "f32 backward": launches["bwd f32"] - launches["bias bwd f32"],
+           "f32 bias backward": launches["bias bwd f32"]}
+    return {name for name, n in got.items() if n > 0}
+
+
+def _fuzz_predicted(c: dict) -> set:
+    """The FUZZ_ROUTES a draw should take, by the wrappers' route rules (no
+    launch): the forward's and the backward's."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
+
+    D = -(-c["D"] // 8) * 8
+    f32 = c["dtype"] == torch.float32
+    seg = c["seg"]
+    bias = c["bias_shape"]
+    if f32:
+        fwd = "K1 f32 bias" if bias else "K1 f32"
+    elif flash_fwd.decode_route(rows=c["Hq"] // c["Hkv"] * c["Nq"], causal=c["causal"],
+                                segment_ids=seg, window=c["window"], head_dim=D):
+        fwd = "K1 decode"
+    elif bias and D <= flash_fwd.DENSE_MAX_HEAD_DIM:
+        fwd = "K1 bias"
+    else:
+        fwd = "K1 dense" if not bias else "fwd_tile.cuh"
+    if bias:
+        bwd = "f32 bias backward" if f32 else "bias backward"
+    elif seg is not None or c["softcap"] is not None:
+        bwd = "f32 backward" if f32 else "split route"
+    else:
+        bwd = "f32 backward" if f32 else "K3"
+    return {fwd, bwd}
+
+
+def _fuzz_draw(seed: int, c: dict) -> tuple[set, str | None, float]:
+    """One draw through flash_attention on the card, forward and backward
+    (dQ, dK, dV and, with a bias, dbias), against autograd through the port's
+    oracle (ops/oracle.attention_reference) on f32 copies of the same values,
+    TF32 off: O within FWD_TOL, the gradients within BWD_TOL, of the draw's
+    dtype. Returns the routes it went through, the refusal's message if it
+    raised NotImplementedError under an open label, and its largest
+    error."""
+    from flashattn_tpu_torch.ops.flash import flash_attention
+    from flashattn_tpu_torch.ops.oracle import attention_reference
+    from flashattn_tpu_torch.utils.testing import (
+        BWD_TOL, FWD_TOL, check_close, composition_inputs, grad_gate)
+
+    x = composition_inputs(c, seed)
+    dt = c["dtype"]
+    q, k, v, do = (torch.from_numpy(x[n]).to(DEVICE, dt) for n in ("q", "k", "v", "do"))
+    bias = None if x["bias"] is None else torch.from_numpy(x["bias"]).to(DEVICE)
+    seg = None if c["seg"] is None else tuple(torch.from_numpy(s).to(DEVICE) for s in c["seg"])
+    kw = dict(causal=c["causal"], window=c["window"], logit_softcap=c["softcap"],
+              q_offset=c["q_off"], kv_offset=c["kv_off"])
+    bnhd = c["layout"] == "BNHD"
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    if bias is not None:
+        leaves.append(bias.detach().requires_grad_(True))
+
+    def lay(t):
+        return t.transpose(1, 2) if bnhd else t
+
+    before = _launches()
+    try:
+        o = lay(flash_attention(*(lay(t) for t in leaves[:3]),
+                                bias=leaves[3] if bias is not None else None,
+                                segment_ids=seg, layout=c["layout"], **kw))
+        grads = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+    except NotImplementedError as e:
+        now = _launches()
+        msg = str(e)
+        f32_bias = dt == torch.float32 and bias is not None and c["D"] <= 128
+        if f32_bias or not any(label in msg for label in FUZZ_OPEN_LABELS):
+            fail(f"fuzz seed {seed} ({c}): refused outside the open labels: {msg}")
+        return _fuzz_routes({n: now[n] - before[n] for n in now}, dt == torch.float32), msg, 0.0
+    now = _launches()
+    routes = _fuzz_routes({n: now[n] - before[n] for n in now}, dt == torch.float32)
+    ref = [t.detach().float().requires_grad_(True) for t in leaves]
+    o_want = attention_reference(*ref[:3], bias=ref[3] if bias is not None else None,
+                                 segment_ids=seg, **kw)
+    want = torch.autograd.grad(o_want, ref, do.float())
+    ok_o, msg_o = check_close(o, o_want.detach(), FWD_TOL[dt], "O")
+    names = ("dq", "dk", "dv", "dbias")[:len(leaves)]
+    ok_g, why_g, err_g, _ = grad_gate(grads, want, BWD_TOL[dt], names=names)
+    if not (ok_o and ok_g):
+        fail(f"fuzz seed {seed} ({c}): {msg_o}; {why_g}")
+    return routes, None, max(err_g, (o.float() - o_want).abs().max().item())
+
+
+def phase_fuzz() -> dict:
+    """The composition fuzz's card arm: utils/testing.sample_composition's
+    draws through flash_attention (_fuzz_draw), FUZZ_DRAWS of them and then,
+    from later seeds, the draws that reach a route of FUZZ_ROUTES not yet
+    reached; fails on any error, any refusal outside FUZZ_OPEN_LABELS (and
+    any of f32 with a bias at D <= 128), and a route of FUZZ_ROUTES no draw
+    reached. Prints the refusals by label."""
+    import numpy as np
+
+    from flashattn_tpu_torch.utils.testing import sample_composition
+
+    _f32_tf32_off()
+    reached, refused, worst, ran = collections.Counter(), collections.Counter(), 0.0, 0
+    seed = FUZZ_SEED
+    while seed < FUZZ_SEED + FUZZ_MAX_SEEDS:
+        c = sample_composition(np.random.default_rng(seed))
+        missing = set(FUZZ_ROUTES) - set(reached)
+        if seed >= FUZZ_SEED + FUZZ_DRAWS:
+            if not missing:
+                break
+            if not _fuzz_predicted(c) & missing:
+                seed += 1
+                continue
+        routes, msg, err = _fuzz_draw(seed, c)
+        ran += 1
+        reached.update(routes)
+        worst = max(worst, err)
+        if msg is not None:
+            refused[next(label for label in FUZZ_OPEN_LABELS if label in msg)] += 1
+        seed += 1
+    missing = [r for r in FUZZ_ROUTES if r not in reached]
+    log("fuzz", f"{ran} draws (seeds {FUZZ_SEED}-{seed - 1}): every route's draws "
+                f"{dict(reached)}; refused under open labels {dict(refused) or 'none'}; worst "
+                f"max_abs_err {worst:.3e}; routes never reached: {missing or 'none'}")
+    if missing:
+        fail(f"the fuzz reached no draw of {missing} in {FUZZ_MAX_SEEDS} seeds")
+    torch.cuda.empty_cache()
+    return {"draws": ran, "routes": dict(reached), "refused": dict(refused), "worst": worst}
 
 
 # Head dims above 128 in the backward (csrc/bwd_sm90_wide.cuh): K3's and the
@@ -5264,9 +5811,12 @@ def main() -> None:
     sharded = timed(phase_sharded_train)
     f32 = timed(phase_f32_check)
     f32_train = timed(phase_f32_train)
+    f32_bias = timed(phase_f32_bias_check)
+    f32_path_a = timed(phase_f32_bias_train)
     wide = timed(phase_wide_bwd_check)
     wide_train = timed(phase_wide_train)
     timed(phase_entry)
+    timed(phase_fuzz)
     fwd_src, bwd_src, split_src, bias_sm90_src = (
         f"flashattn_tpu_torch/csrc/flash_{d}.cu"
         for d in ("fwd_sm90", "bwd_sm90", "bwd_split_sm90", "fwd_bias_sm90"))
@@ -5481,7 +6031,27 @@ def main() -> None:
         {"name": "flash_bwd_split_sm90 D 256 segments (K5 + K6's D 256 form in one launch, "
                  "wgmma: the packed LM with heads of 256)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/bwd_sm90_wide.cuh", "replaces": split_replaces,
-         "launches": wide_train["packed"]["launches"]["split bwd d256"], **wide["split_seg"]}]}),
+         "launches": wide_train["packed"]["launches"]["split bwd d256"], **wide["split_seg"]},
+        # f32 with a bias at f32 path A's attention (B4 H16 N2048 D128, f32;
+        # phase_f32_bias_check's timing), launches from f32 path A's steps
+        # (phase_f32_bias_train); each time includes the split of its operands.
+        *({"name": f"flash_fwd_f32 bias (K1's f32 route with a bias, TMA + wgmma on bf16 "
+                   f"pieces: f32 path A's {arm} arm, bias {shape})", "route": "cuda",
+           "source": "flashattn_tpu_torch/csrc/flash_fwd_f32.cu",
+           "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+           "launches": f32_path_a[arm]["launches"]["K1 f32 bias"], **f32_bias[f"fwd_{arm}"]}
+          for arm, shape in (("mask", "[4, 1, N, N]"), ("learned", "[4, 16, N, N]"))),
+        {"name": "flash_bwd_f32 bias (K5 + K6 on f32 with a bias in one launch, TMA + wgmma on "
+                 "bf16 pieces: f32 path A's mask arm, bias [4, 1, N, N], no dbias)",
+         "route": "cuda", "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu",
+         "replaces": split_replaces,
+         "launches": f32_path_a["mask"]["launches"]["bias bwd f32"], **f32_bias["bwd_mask"]},
+        {"name": "flash_bwd_f32 bias dbias (K5 + K6 on f32 with a bias and dbias in one launch, "
+                 "TMA + wgmma on bf16 pieces: f32 path A's learned arm, bias [4, 16, N, N])",
+         "route": "cuda", "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu",
+         "replaces": split_replaces,
+         "launches": f32_path_a["learned"]["launches"]["bias bwd dbias"],
+         **f32_bias["bwd_learned"]}]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

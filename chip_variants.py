@@ -1,6 +1,6 @@
 """Time the design variants of the TMA + wgmma kernels against the committed ones, on one GPU.
 
-    python3 chip_variants.py [ring] [bias] [k3] [k1cap] [k1wide] [f32]
+    python3 chip_variants.py [ring] [bias] [k3] [k1cap] [k1wide] [f32] [f32bias]
 
 (every family without an argument). Each variant is a committed source
 with one design choice undone by text patches (of the source, or of the
@@ -111,7 +111,7 @@ split ``csrc/split_bf16x3.cu``, which its C entry launches first) through
   products of D / 16 or 4 k-steps) a loop over the six products that is not
   unrolled;
 * ``bwd f32 unroll 6``: that loop unrolled, which crashes ptxas 12.9 (exit
-  139): the one variant in ``BUILD_FAILS``, whose failed build is reported
+  139): a variant in ``BUILD_FAILS``, whose failed build is reported
   and left out (as are unroll 2 and 3, a fence per product, a shuffled
   warpgroup index and unrolled m64n64k16 chains, PERF.md PR 17);
 * ``bwd f32 n64``: the chains on m64n64k16 (twice the columns, the upper
@@ -122,11 +122,26 @@ split ``csrc/split_bf16x3.cu``, which its C entry launches first) through
   retired before P^T is formed;
 * ``bwd f32 descriptors first``: each product's eight descriptors computed
   before a fence of its own, the accumulator zeroed first and every product
-  added, so that ptxas injects no fence.
+  added, so that ptxas injects no fence (ptxas 12.9 crashes on it since the
+  body's BIAS family: in ``BUILD_FAILS`` too).
 
 At the f32 LM's shape (B1 Hq16 Hkv8 N2048 D128 causal, f32, TF32 off) each
 is held against ``bwd_reference``, then timed in turns, the split of q, k,
-v and dO included. Prints the card's name and power limit first.
+v and dO included.
+
+Family ``f32bias``, the f32 backward's BIAS family (the same source), where
+each consumer thread reads its 16 bias values of a tile from global memory
+straight into S^T's fragment layout:
+
+* ``bwd f32 bias``: as committed, the loads issued right after S^T and dP^T,
+  before S^T's wait, so that they land while both products run;
+* ``bwd f32 bias after S``: the loads issued once S^T has retired (dP^T
+  still running), as a just-in-time read would place them.
+
+At f32 path A's attention (B4 H16 N2048 D128, f32, TF32 off) with the mask
+arm's bias ([4, 1, N, N], no dbias) and the learned arm's ([4, 16, N, N],
+dbias) each is held against ``bias_bwd_reference``, then timed in turns over
+3 rounds, the split included. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -446,12 +461,12 @@ def _paired_sdp(src: str) -> str:
     src = src.replace("template <int N>\n__device__ __forceinline__ void zero(",
                       _PAIRED + "template <int N>\n__device__ __forceinline__ void zero(")
     old = ("      issue_ss6<0, D / 16>(sc, k_s, S::KVP, q_st, a_d, b_d, 16);\n"
-           "      issue_ss6<0, D / 16>(dp, v_s, S::KVP, do_st, a_d, b_d, 16);\n"
-           "      wgmma_wait<1>();\n")
-    assert old in src
-    src = src.replace(old, "      issue_ss6x2<0, D / 16>(sc, dp, k_s, v_s, S::KVP, q_st, do_st, a_d, b_d, 16);\n"
-                           "      wgmma_wait<0>();\n")
-    return src
+           "      issue_ss6<0, D / 16>(dp, v_s, S::KVP, do_st, a_d, b_d, 16);\n")
+    wait = "      wgmma_wait<1>();\n      fence_regs(sc);\n"  # S^T's, after the bias loads
+    assert old in src and wait in src
+    src = src.replace(old, "      issue_ss6x2<0, D / 16>(sc, dp, k_s, v_s, S::KVP, q_st, do_st, a_d, "
+                           "b_d, 16);\n")
+    return src.replace(wait, "      wgmma_wait<0>();\n      fence_regs(sc);\n", 1)
 
 
 _SS6_LOOP = """  wgmma_fence();
@@ -544,10 +559,17 @@ VARIANTS = {
     "bwd f32 paired dQ": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _paired_dq),)),
     "bwd f32 paired S dP": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _paired_sdp),)),
     "bwd f32 descriptors first": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _desc_first),)),
+    "bwd f32 bias": ("flash_bwd_f32.cu", ()),
+    "bwd f32 bias after S": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", lambda s: s.replace(
+        "      if constexpr (BIAS) {  // bwd f32 bias prefetch",
+        "      wgmma_wait<1>();\n      fence_regs(sc);\n"
+        "      if constexpr (BIAS) {  // bwd f32 bias prefetch")),)),
 }
 # Variants known not to build, kept as witnesses: a failed build of one of
 # these is reported and left out; any other variant that fails stops the run.
-BUILD_FAILS = {"bwd f32 unroll 6"}  # ptxas 12.9 exits 139 (PERF.md PR 17)
+# ptxas 12.9 exits 139 on both: the unrolled chains (PERF.md) and, since the
+# body's BIAS family, the descriptors computed first (its BIAS instantiations).
+BUILD_FAILS = {"bwd f32 unroll 6", "bwd f32 descriptors first"}
 # The C entry, its argument types and the family of each source.
 ENTRIES = {"ring_bwd.cu": ("fa_ring_bwd_bf16", "RING_BWD_ARGTYPES", "ring"),
            "ring_fwd.cu": ("fa_ring_fwd_bf16", "RING_FWD_ARGTYPES", "ring"),
@@ -557,7 +579,8 @@ ENTRIES = {"ring_bwd.cu": ("fa_ring_bwd_bf16", "RING_BWD_ARGTYPES", "ring"),
            "flash_bwd_f32.cu": ("fa_bwd_f32", "BWD_F32_ARGTYPES", "f32")}
 # Variants whose family is not their source's.
 FAMILY = {"K1 D256": "k1wide", "K1 D256 interleaved": "k1wide", "K1 D256 K / V barriers": "k1wide",
-          "K1 D256 224 registers": "k1wide"}
+          "K1 D256 224 registers": "k1wide", "bwd f32 bias": "f32bias",
+          "bwd f32 bias after S": "f32bias"}
 
 
 def _family(name: str) -> str:
@@ -905,13 +928,65 @@ def f32(libs: dict) -> None:
     _report(times)
 
 
+def f32bias(libs: dict) -> None:
+    from flashattn_tpu_torch.ops import f32_split, flash_bwd, flash_fwd
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    cs._f32_tf32_off()
+    B, H, N, D = len(cs.ATTN_LENGTHS), cs.ATTN_WIDTH["num_heads"], cs.ATTN_SEQ, 128
+    q, k, v = make_qkv(63, B, H, N, D, device="cuda")
+    do = make_qkv(64, B, H, N, D, device="cuda")[0]
+    mask = cs._padding_bias(cs.ATTN_LENGTHS, N)
+    gen = torch.Generator(device="cuda").manual_seed(65)
+    learned = mask + torch.randn((1, H, N, N), generator=gen, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    nq_pad = -(-N // flash_bwd.F32_BWD_Q_TILE) * flash_bwd.F32_BWD_Q_TILE
+    times = {}
+    for arm, bias, want_dbias in (("mask", mask, False), ("learned", learned, True)):
+        kw = dict(scale=D ** -0.5)
+        o, lse = flash_fwd.fwd(q, k, v, bias=bias, **kw)
+        delta = (do * o).sum(-1)
+        want = flash_bwd.bias_bwd_reference(q, k, v, do, lse, delta, bias=bias,
+                                            want_dbias=want_dbias, **kw)
+        stats = flash_bwd._padded_rows(lse, nq_pad), flash_bwd._padded_rows(delta, nq_pad)
+        kbias, strides = flash_fwd.kernel_bias(bias)
+
+        def call(lib):
+            dq = torch.zeros((B, H, N, D), dtype=torch.float32, device="cuda")
+            dk, dv = (torch.empty((B, H, N, D), dtype=torch.float32, device="cuda")
+                      for _ in "kv")
+            dbias = (torch.empty((B, H, N, N), dtype=torch.float32, device="cuda")
+                     if want_dbias else None)
+            pieces = f32_split.scratch(2 * B * H * N, B * H * N, D, q.device)
+            rc = flash_bwd._launch_split(lib, q, k, v, do, *stats, dq, dk, dv, None, causal=False,
+                                         kv_valid_len=N, window=None, softcap=None,
+                                         nq_pad=nq_pad, stream=stream, pieces=pieces,
+                                         bias=kbias, dbias=dbias, bias_strides=strides, **kw)
+            return rc, (dq, dk, dv) + ((dbias,) if want_dbias else ())
+
+        for name, lib in libs.items():
+            rc, got = call(lib)
+            torch.cuda.synchronize()
+            print(f"[check] {name} {arm}: rc {rc}, dQ / dK / dV{' / dbias' if want_dbias else ''}"
+                  " max abs err " + " / ".join(f"{(a - w).abs().max().item():.3e}"
+                                               for a, w in zip(got, want)), flush=True)
+            del got
+        del want
+        torch.cuda.empty_cache()
+        for rnd in range(3):
+            for name, lib in (libs.items() if rnd % 2 == 0 else reversed(libs.items())):
+                times.setdefault((name, arm), []).append(
+                    cs.cuda_ms(lambda: call(lib), reps=5, trials=3))
+    _report(times)
+
+
 def main() -> None:
-    families = sys.argv[1:] or ["ring", "bias", "k3", "k1cap", "k1wide", "f32"]
+    families = sys.argv[1:] or ["ring", "bias", "k3", "k1cap", "k1wide", "f32", "f32bias"]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     libs = build(families)
     for family, run in (("ring", ring), ("bias", bias), ("k3", k3), ("k1cap", k1cap),
-                        ("k1wide", k1wide), ("f32", f32)):
+                        ("k1wide", k1wide), ("f32", f32), ("f32bias", f32bias)):
         if family in families:
             run({n: lib for n, lib in libs.items() if _family(n) == family})
 

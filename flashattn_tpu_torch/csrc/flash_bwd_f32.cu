@@ -1,27 +1,31 @@
 // The f32 attention backward for Hopper (sm_90a): one body for K3 and for
-// K5 + K6 without a bias on f32 inputs, KV-major, one launch writing dQ, dK
-// and dV to f32 accuracy as the TPU kernels compute their f32 calls at
-// Precision.HIGHEST: on bf16 pieces. Kernels bwd_f32_kernel<D, SEG, CAP> (D
-// 64 and 128, every D <= 128 that is a multiple of 8 by the TMA boxes' zero
-// fill; segment ids and the logit softcap as compile-time flags, neither
-// being K3's call) and the C entry fa_bwd_f32.
+// K5 + K6 on f32 inputs, with or without a bias, KV-major, one launch writing
+// dQ, dK, dV and (on request) dbias to f32 accuracy as the TPU kernels
+// compute their f32 calls at Precision.HIGHEST: on bf16 pieces. Kernels
+// bwd_f32_kernel<D, SEG, CAP, BIAS> (D 64 and 128, every D <= 128 that is a
+// multiple of 8 by the TMA boxes' zero fill; segment ids, the logit softcap
+// and the bias as compile-time flags, none being K3's call; dbias a runtime
+// null pointer, so it adds no instantiation) and the C entry fa_bwd_f32.
 //
 // Replaces, on f32 inputs, flashattn_tpu/ops/flash_bwd_fused.py::
 // _bwd_fused_kernel (K3, :110) and _bwd_causal_resident_kernel (K4, :336),
 // and flashattn_tpu/ops/flash_bwd.py::_dkv_kernel (K5, :139) with _dq_kernel
-// (K6, :234) without a bias. With the forward's LSE (natural log; ln2 * mask
-// on a dead row) and Delta = rowsum(dO * O) it computes what
-// bwd_sm90_tile.cuh computes for K3 and the split route, for each (query row
-// i, key j):
+// (K6, :234), with the bias (BIAS) as K5 + K6's bias route (bwd_bias_sm90.cu).
+// With the forward's LSE (natural log; ln2 * mask on a dead row) and Delta =
+// rowsum(dO * O) it computes what bwd_sm90_tile.cuh computes for K3, the
+// split route and the bias route, for each (query row i, key j):
 //   x = S scale log2 e, S = Q K^T (with the softcap, CAP: x = cap log2 e t,
-//       t = tanh(S scale / cap), the accurate tanhf);
+//       t = tanh(S scale / cap), the accurate tanhf); BIAS: + bias log2 e,
+//       in f32 (not split), floored at the mask value, as the forward adds it;
 //   P = exp2(x - LSE log2 e) by exp2f, exactly 0 on keys at or past
 //       kv_valid_len, on rows past Nq, outside the band (row i sees key j iff
 //       i - lo <= j <= i + hi, shifted by q / kv offsets: common.cuh
 //       band_bounds), on a pair whose segment ids differ (SEG) and on a dead
 //       row (LSE log2 e <= mask / 2);
-//   dS = P (dP - Delta) scale, dP = dO V^T (CAP: times 1 - t^2);
-//   dV = P^T dO,  dK = dS^T Q,  dQ = dS K,
+//   dL = P (dP - Delta), dP = dO V^T;  dS = dL scale (CAP: dL (1 - t^2) scale);
+//   dV = P^T dO,  dK = dS^T Q,  dQ = dS K,  dbias = dL (f32, before the
+//       scale and the cap's Jacobian: the JAX kernel's, flash_bwd.py:300-302;
+//       written only when the caller passes dbias),
 // with dK / dV per query head (the caller sums each KV head's group) and dQ
 // added into a zeroed f32 dQ. Every one of the five products is the six bf16
 // products a0 b0 + a0 b1 + a1 b0 + a0 b2 + a1 b1 + a2 b0 of three-piece
@@ -40,7 +44,10 @@
 //     f32 dK and dV (2 x D / 2 registers a thread) across every Q tile of 32
 //     rows that the band leaves (SEG: whose id range meets the KV tile's,
 //     from the wrapper's tile ranges; producer and consumer walk the same
-//     tiles).
+//     tiles). Each (query row, key) pair belongs to one CTA, so dbias
+//     [B, Hq, Nq, Nk] takes plain stores; the pairs of the Q tiles a CTA
+//     skips (the band, the ids) and the keys of the CTAs past kv_valid_len
+//     are never written: the wrapper zero-fills dbias for such calls.
 //   * Shared memory at D 128: K's and V's pieces for 64 keys, 2 x 3 x 16 KB =
 //     96 KB, once by TMA (rows past kv_valid_len read zeros, so a key the
 //     forward never read cannot put a NaN into dQ); two stages of (Q, dO)
@@ -58,6 +65,18 @@
 //     shared memory a third less -- and on small changes to the loop form
 //     (chip_variants.py f32), so each chain is a loop over the products,
 //     and ptxas serializes the wgmma across its iterations (C7520).
+//   * BIAS: shared memory has no room for a bias tile (32 rows x 64 keys of
+//     f32 is 8 KB; 7 KB are left at D 128 beside two (Q, dO) stages), so
+//     each consumer thread reads its 16 values of the tile from global
+//     memory (L2) straight into S^T's fragment layout -- query row m + 8jj +
+//     2t + e, key 16w + g + 8r: each load instruction covers 8 keys of 4
+//     rows, four whole 32-byte sectors -- issued right after S^T and dP^T,
+//     so that they land while the products run (chip_variants.py f32bias
+//     times this against loads issued after S^T has retired). One (Q, dO)
+//     stage to make room would lose the overlap of the next tile's loads,
+//     and dS's region is busy with the previous tile's dQ until this
+//     tile's loop starts. dbias is stored from the same layout, P^T (dP^T -
+//     Delta) taken once dP^T has retired (streaming stores, whole sectors).
 //   * P^T and dS^T are split into three bf16 A fragments each (the
 //     accumulator layout is the A layout); dV += P^T dO and dK += dS^T Q are
 //     six chains of wgmma m64nDk16 with A from registers and the stacked
@@ -91,6 +110,9 @@ struct BwdF32Params {
   int q_tiles, kv_tiles;   // ceil(Nq / 32), ceil(kv_valid_len / 64)
   float scale, scale_log2;
   float cap_scale, cap_log2;  // CAP: scale / cap, cap * log2(e)
+  const float* bias;     // BIAS: f32 [B|1, Hq|1, Nq|1, Nk], unit column stride
+  float* dbias;          // BIAS: [B, Hq, Nq, Nk] f32 contiguous, or null (no dbias)
+  int64_t bias_sb, bias_sh, bias_sn;  // 0 on broadcast dims
 };
 
 }  // namespace fa
@@ -178,7 +200,7 @@ __device__ __forceinline__ void issue_rs6(float (&acc)[D / 2], const uint32_t (&
   wgmma_commit();
 }
 
-template <int D, bool SEG, bool CAP>
+template <int D, bool SEG, bool CAP, bool BIAS>
 __global__ void __launch_bounds__(F32B_THREADS, 1)
     bwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -326,6 +348,14 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       const int tw = opaque(warp), tg = opaque(g), tt = opaque(t);
       const int kvt = n0 + tw * 16 + tg;  // this thread's keys kvt and kvt + 8
 
+      // Edge tiles: those that the tails, the band or (SEG) a document edge cut.
+      bool edge = m + F32B_BLOCK_M > p.nq || n0 + F32B_BLOCK_N > p.kv_valid_len ||
+                  n0 + F32B_BLOCK_N - 1 - m > p.hi || m + F32B_BLOCK_M - 1 - n0 > p.lo;
+      if constexpr (SEG) {
+        const int2 q_rng = p.q_range[b * p.q_tiles + m / F32B_BLOCK_M];
+        edge = edge || !(q_rng.x == q_rng.y && k_rng.x == k_rng.y && q_rng.x == k_rng.x);
+      }
+
       // S^T = K Q^T and dP^T = V dO^T: rows are the tile's keys, columns its
       // 32 query rows; dP^T runs while P^T is formed.
       float sc[16], dp[16];
@@ -333,18 +363,31 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       auto b_d = [](int kk) { return (kk / 4) * F32B_STACK * SW128_ROW + (kk % 4) * 32; };
       issue_ss6<0, D / 16>(sc, k_s, S::KVP, q_st, a_d, b_d, 16);
       issue_ss6<0, D / 16>(dp, v_s, S::KVP, do_st, a_d, b_d, 16);
+      // BIAS: bv[4jj + 2r + e] the bias of query row m + 8jj + 2t + e, key kvt
+      // + 8r (S^T's layout), loaded while the products run; an edge tile
+      // reads only rows below Nq and keys below kv_valid_len.
+      float bv[BIAS ? 16 : 1];
+      if constexpr (BIAS) {  // bwd f32 bias prefetch
+        const float* brow = p.bias + b * p.bias_sb + h * p.bias_sh +
+                            static_cast<int64_t>(m + 2 * tt) * p.bias_sn + kvt;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int row = m + 8 * jj + 2 * tt + e;
+              const bool in = !edge || (row < p.nq && kvt + 8 * r < p.kv_valid_len);
+              bv[4 * jj + 2 * r + e] = in ? __ldg(brow + (8 * jj + e) * p.bias_sn + 8 * r) : 0.f;
+            }
+          }
+        }
+      }
       wgmma_wait<1>();
       fence_regs(sc);
 
       // P^T: sc[4jj + 2r + e] is key kvt + 8r, query row m + 8jj + 2t + e; a
-      // dead row's LSE becomes +inf (P = 0 exactly). Edge tiles: those that
-      // the tails, the band or (SEG) a document edge cut.
-      bool edge = m + F32B_BLOCK_M > p.nq || n0 + F32B_BLOCK_N > p.kv_valid_len ||
-                  n0 + F32B_BLOCK_N - 1 - m > p.hi || m + F32B_BLOCK_M - 1 - n0 > p.lo;
-      if constexpr (SEG) {
-        const int2 q_rng = p.q_range[b * p.q_tiles + m / F32B_BLOCK_M];
-        edge = edge || !(q_rng.x == q_rng.y && k_rng.x == k_rng.y && q_rng.x == k_rng.x);
-      }
+      // dead row's LSE becomes +inf (P = 0 exactly).
       const uint32_t lse_addr = smem_u32(s_stats + s * F32B_BLOCK_M + 2 * tt);
       const uint32_t dlt_addr = smem_u32(s_stats + (2 + s) * F32B_BLOCK_M + 2 * tt);
       const int* q_ids = seg_q_s + s * F32B_BLOCK_M + 2 * tt;  // SEG: this thread's query ids
@@ -371,6 +414,7 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
             } else {
               x = sc[i] * p.scale_log2;
             }
+            if constexpr (BIAS) x = fmaxf(x + bv[i] * LOG2E, MASK_VALUE);
             float pe = exp2f(x - l2[e]);
             if (edge) {
               const int key = kvt + 8 * r;
@@ -388,6 +432,29 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       }
       wgmma_wait<0>();
       fence_regs(dp);
+      if constexpr (BIAS) {
+        if (p.dbias != nullptr) {
+          // dbias = dL^T = P^T (dP^T - Delta), before the scale and the cap's
+          // Jacobian (pj holds P^T (1 - t^2)): 8 lanes store 8 keys of a row.
+          float* db = p.dbias +
+                      ((static_cast<int64_t>(b) * p.hq + h) * p.nq + m + 2 * tt) * p.nk + kvt;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const float2 dl = lds_f2(dlt_addr + 32 * jj);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * jj + 2 * r + e;
+                if (m + 8 * jj + 2 * tt + e < p.nq && kvt + 8 * r < p.nk) {
+                  __stcs(db + static_cast<int64_t>(8 * jj + e) * p.nk + 8 * r,
+                         sc[i] * (dp[i] - (e ? dl.y : dl.x)));  // bwd f32 dbias
+                }
+              }
+            }
+          }
+        }
+      }
 
       // dV += P^T dO, its six products with A from registers; dS^T = P^T
       // (dP^T - Delta) scale (CAP: P^T (1 - tt^2)) meanwhile. P^T's and dS^T's
@@ -505,11 +572,11 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
   }
 }
 
-template <int D, bool SEG, bool CAP>
+template <int D, bool SEG, bool CAP, bool BIAS>
 cudaError_t bwd_f32_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                            const CUtensorMap& tm_v, const CUtensorMap& tm_do,
                            const BwdF32Params& p, cudaStream_t stream) {
-  auto kernel = bwd_f32_kernel<D, SEG, CAP>;
+  auto kernel = bwd_f32_kernel<D, SEG, CAP, BIAS>;
   constexpr int smem = F32BwdSmem<D>::BYTES;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -518,24 +585,25 @@ cudaError_t bwd_f32_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool BIAS>
 cudaError_t bwd_f32_dispatch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                              const CUtensorMap& tm_v, const CUtensorMap& tm_do,
                              const BwdF32Params& p, bool seg, bool cap, cudaStream_t stream) {
   if (seg) {
-    return cap ? bwd_f32_launch<D, true, true>(tm_q, tm_k, tm_v, tm_do, p, stream)
-               : bwd_f32_launch<D, true, false>(tm_q, tm_k, tm_v, tm_do, p, stream);
+    return cap ? bwd_f32_launch<D, true, true, BIAS>(tm_q, tm_k, tm_v, tm_do, p, stream)
+               : bwd_f32_launch<D, true, false, BIAS>(tm_q, tm_k, tm_v, tm_do, p, stream);
   }
-  return cap ? bwd_f32_launch<D, false, true>(tm_q, tm_k, tm_v, tm_do, p, stream)
-             : bwd_f32_launch<D, false, false>(tm_q, tm_k, tm_v, tm_do, p, stream);
+  return cap ? bwd_f32_launch<D, false, true, BIAS>(tm_q, tm_k, tm_v, tm_do, p, stream)
+             : bwd_f32_launch<D, false, false, BIAS>(tm_q, tm_k, tm_v, tm_do, p, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dQ, dK, dV of attention on f32 inputs: the argument list of
-// fa_bwd_split_sm90 (flash_bwd_split_sm90.cu) in its order, on f32 q / dout
+// dQ, dK, dV (and dbias) of attention on f32 inputs: the argument list of
+// fa_bwd_split_sm90 (flash_bwd_split_sm90.cu) in its order, then the bias and
+// dbias before the stream, on f32 q / dout
 // [B, Hq, Nq, D] and k / v [B, Hkv, Nk, D] (unit stride on D, other strides
 // in elements, any alignment), and after dv `pieces`: bf16 scratch of 3 DB (2
 // B Hq Nq + 2 B Hkv kv_valid_len) elements, 16-byte aligned (DB = 64 for D <=
@@ -554,8 +622,13 @@ extern "C" {
 //   q_range [B, q_tiles] and kv_range [B, kv_tiles] int32 (min, max) pairs:
 //     each 32-row Q tile's and each 64-key tile's id range,
 // with q_tiles = ceil(Nq / 32) and kv_tiles = ceil(kv_valid_len / 64);
-// softcap > 0 the forward's cap, 0 none; neither option is K3's call.
-// Requires kv_valid_len >= 1 (without keys every gradient is 0). Returns a
+// softcap > 0 the forward's cap, 0 none; bias an f32 [B|1, Hq|1, Nq|1, Nk]
+// (unit column stride, 4-byte aligned, (batch, head, row) strides in
+// elements, 0 on broadcast dims) added to the (capped) scores as the forward
+// added it, or null; dbias, with a bias, [B, Hq, Nq, Nk] f32 contiguous or
+// null: P (dP - Delta) on every pair of the Q tiles the kernel visits (0 on
+// the pairs the masks drop), nothing elsewhere; none of the three options is
+// K3's call. Requires kv_valid_len >= 1 (without keys every gradient is 0). Returns a
 // cudaError_t (0: success; cudaErrorInvalidValue for arguments it does not
 // take, cudaErrorNotSupported when cuTensorMapEncodeTiled is missing or
 // refuses a tensor map).
@@ -566,9 +639,11 @@ int fa_bwd_f32(const void* q, const void* k, const void* v, const void* dout, co
                int q_off, int kv_off, int nq_pad, float scale, float softcap, int64_t q_sb,
                int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn,
                int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t do_sb, int64_t do_sh,
-               int64_t do_sn, void* stream) {
+               int64_t do_sn, const void* bias, void* dbias, int64_t bias_sb, int64_t bias_sh,
+               int64_t bias_sn, void* stream) {
   const bool seg = seg_q != nullptr;
   const bool cap = softcap > 0.f;
+  const bool has_bias = bias != nullptr;
   if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
       hq > 65535 || hq % hkv != 0 || nq < 1 || nk < 1 ||
       (nk + F32B_BLOCK_N - 1) / F32B_BLOCK_N > 65535 || kv_valid_len < 1 ||
@@ -578,7 +653,9 @@ int fa_bwd_f32(const void* q, const void* k, const void* v, const void* dout, co
       (seg && (!aligned(seg_q, 16) || !aligned(seg_kv, 16) || !aligned(q_range, 8) ||
                !aligned(kv_range, 8))) ||
       !aligned(pieces, 16) || !aligned(lse, 16) || !aligned(delta, 16) || !aligned(dq, 16) ||
-      !aligned(dk, 8) || !aligned(dv, 8)) {
+      !aligned(dk, 8) || !aligned(dv, 8) || (dbias != nullptr && !has_bias) ||
+      (has_bias && (!aligned(bias, 4) || bias_sb < 0 || bias_sh < 0 || bias_sn < 0)) ||
+      !aligned(dbias, 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -636,8 +713,16 @@ int fa_bwd_f32(const void* q, const void* k, const void* v, const void* dout, co
   p.scale_log2 = scale * LOG2E;
   p.cap_scale = cap ? scale / softcap : 0.f;
   p.cap_log2 = softcap * LOG2E;
-  e = d <= 64 ? bwd_f32_dispatch<64>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s)
-              : bwd_f32_dispatch<128>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s);
+  p.bias = static_cast<const float*>(bias);
+  p.dbias = static_cast<float*>(dbias);
+  p.bias_sb = bias_sb; p.bias_sh = bias_sh; p.bias_sn = bias_sn;
+  if (has_bias) {
+    e = d <= 64 ? bwd_f32_dispatch<64, true>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s)
+                : bwd_f32_dispatch<128, true>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s);
+  } else {
+    e = d <= 64 ? bwd_f32_dispatch<64, false>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s)
+                : bwd_f32_dispatch<128, false>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s);
+  }
   return static_cast<int>(e);
 }
 

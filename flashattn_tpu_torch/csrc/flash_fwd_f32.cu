@@ -4,14 +4,17 @@
 // segment ids with their tile ranges, the logit softcap, GQA, any Nq (decode
 // shapes too) and kv_valid_len -- computed to f32 accuracy as the TPU
 // kernel computes its f32 calls at Precision.HIGHEST: on bf16 pieces.
-// Kernels fwd_f32_kernel<D, SEG, CAP> (D 64 and 128, every D <= 128 that is
-// a multiple of 8 by the TMA boxes' zero fill) and the C entry fa_fwd_f32.
+// With BIAS, an additive f32 bias [B|1, H|1, Nq|1, Nk] (K1's bias route's,
+// fwd_sm90_tile.cuh) with all of these. Kernels fwd_f32_kernel<D, SEG, CAP,
+// BIAS> (D 64 and 128, every D <= 128 that is a multiple of 8 by the TMA
+// boxes' zero fill) and the C entry fa_fwd_f32.
 //
 // Replaces the TPU kernel flashattn_tpu/ops/flash_fwd.py::_fwd_kernel (K1,
 // :115) on f32 inputs and, with causal or a window, K2
 // (_fwd_causal_resident_kernel, :516). It computes what the dense route
 // computes -- scores x = s * scale * log2 e (CAP: x = cap * log2 e * tanh(s
-// * scale / cap), the accurate tanhf), the masks (the band, the KV tail,
+// * scale / cap), the accurate tanhf; BIAS: + bias * log2 e, added in f32,
+// not split, and floored at the mask value), the masks (the band, the KV tail,
 // unequal segment ids: the finite mask value), the online softmax in the
 // log2 domain by exp2f (not ex2.approx: FWD_TOL[f32], 1e-4, leaves no room
 // for it), O in f32 and the LSE in natural log; a row whose largest score is
@@ -52,6 +55,22 @@
 //     (dense_softmax_tile with exp2f); P is split into three bf16 A fragments
 //     (the accumulator layout is the A layout), and O += P V is six chains of
 //     wgmma with A from registers, V's pieces the N-major B (transpose bit).
+//   * BIAS: the bias route's bias stream (fwd_sm90_tile.cuh) on the K ring.
+//     The tile (128 rows x 64 keys of f32, 32 KB) comes by 16-byte cp.async
+//     from all 128 producer threads, 16 copies each (one row alone for a
+//     row-broadcast bias: a TMA map cannot take its zero row stride), each
+//     thread's completion arriving on the K slot's full barrier (1 + 128
+//     arrivals), from the tile's absolute column n0 (a band shifted by
+//     offsets starts at n_begin, not 0) through the (batch, head, row)
+//     strides, 0 on broadcast dims; zeros past Nq and past kv_valid_len.
+//     The bias is read in the softmax, so the K slot is released after it,
+//     as before. Its rows keep the bias route's chunk permutation (chunk c
+//     of row r at c ^ 2 (r % 4)), so the two rows a thread reads are
+//     conflict-free float2 loads. Shared memory at D 128: 192 KB + one bias
+//     slot of 32 KB + the ids, alignment and barriers = 230,696 B of the
+//     232,448. At D 64 three K / V / bias stages (48 + 3 x 80 KB) pass the
+//     limit, so the BIAS family keeps two (48 + 2 x 80 = 208 KB): a bias
+//     ring of its own would need its own barriers for the same bytes.
 //   * The CTA visits the KV tiles that meet its rows' band, [m0 - lo, m0 +
 //     127 + hi] (with segment ids, those whose id range meets the Q tile's;
 //     the tile's 64 ids come by a bulk copy on the K slot's barrier), each
@@ -78,6 +97,8 @@ struct FwdF32Params {
   int q_tiles, kv_tiles;   // ceil(Nq / 128), ceil(kv_valid_len / 64)
   float scale_log2;        // softmax scale * log2(e)
   float cap_scale, cap_log2;  // CAP: scale / cap, cap * log2(e)
+  const float* bias;       // BIAS: f32, unit column stride, 16-byte-aligned rows
+  int64_t bias_sb, bias_sh, bias_sn;  // 0 on broadcast dims
 };
 
 }  // namespace fa
@@ -92,18 +113,20 @@ constexpr int F32_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
 
 // Shared-memory layout (bytes, from a 1024-byte-aligned base): Q's three
 // pieces (each D / 64 boxes of 128 rows), STAGES K slots and STAGES V slots
-// (each three pieces of D / 64 boxes of 64 rows), the K slots' 64 segment
-// ids, then the mbarriers q_full, k_full[STAGES], k_empty[STAGES],
-// v_full[STAGES], v_empty[STAGES].
-template <int D>
+// (each three pieces of D / 64 boxes of 64 rows), with BIAS the K slots'
+// bias tiles, the K slots' 64 segment ids, then the mbarriers q_full,
+// k_full[STAGES], k_empty[STAGES], v_full[STAGES], v_empty[STAGES].
+template <int D, bool BIAS = false>
 struct F32FwdSmem {
-  static constexpr int STAGES = D == 64 ? 3 : 1;
+  static constexpr int STAGES = D == 64 ? (BIAS ? 2 : 3) : 1;
   static constexpr int QP = F32_BLOCK_M * D * 2;  // one piece of Q
   static constexpr int KP = F32_BLOCK_N * D * 2;  // one piece of a K or V tile
   static constexpr int SLOT = 3 * KP;
+  static constexpr int BIAS_TILE = BIAS ? F32_BLOCK_M * F32_BLOCK_N * 4 : 0;
   static constexpr int OFF_K = 3 * QP;
   static constexpr int OFF_V = OFF_K + STAGES * SLOT;
-  static constexpr int OFF_SEG = OFF_V + STAGES * SLOT;  // int[STAGES][64]
+  static constexpr int OFF_BIAS = OFF_V + STAGES * SLOT;   // float[STAGES][128 * 64]
+  static constexpr int OFF_SEG = OFF_BIAS + STAGES * BIAS_TILE;  // int[STAGES][64]
   static constexpr int BARS = OFF_SEG + STAGES * F32_BLOCK_N * 4;
   static constexpr int BYTES = 1024 + BARS + (1 + 4 * STAGES) * 8;
   static_assert(QP % 1024 == 0 && KP % 1024 == 0, "the 128-byte swizzle repeats every 1024 bytes");
@@ -152,13 +175,13 @@ __device__ __forceinline__ void issue_pv6(float (&o)[D / 2], const uint32_t (&pa
   wgmma_commit();
 }
 
-template <int D, bool SEG, bool CAP>
+template <int D, bool SEG, bool CAP, bool BIAS>
 __global__ void __launch_bounds__(F32_THREADS, 1)
     fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const FwdF32Params p) {
   static_assert(D == 64 || D == 128, "instantiated for D 64 and 128");
-  using S = F32FwdSmem<D>;
+  using S = F32FwdSmem<D, BIAS>;
   constexpr int BOXES = D / 64;
   constexpr int ST = S::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -171,6 +194,7 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
   uint64_t* v_empty = v_full + ST;
   auto k_slot = [&](int s) { return smem + S::OFF_K + s * S::SLOT; };
   auto v_slot = [&](int s) { return smem + S::OFF_V + s * S::SLOT; };
+  auto bias_slot_base = [&](int s) { return smem + S::OFF_BIAS + s * S::BIAS_TILE; };
 
   const int h = blockIdx.x;
   // A right bound (causal): the late Q tiles meet the most KV tiles; run them first.
@@ -195,7 +219,8 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < ST; ++s) {
-      mbar_init(&k_full[s], 1);  // the TMA thread's expect_tx
+      // The TMA thread's expect_tx (BIAS: and each producer thread's cp.async).
+      mbar_init(&k_full[s], BIAS ? 1 + 128 : 1);
       mbar_init(&v_full[s], 1);
       mbar_init(&k_empty[s], 8);  // one arrival per consumer warp
       mbar_init(&v_empty[s], 8);
@@ -206,8 +231,8 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
 
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    const int hk = h / p.rep;  // GQA: the BlockSpec index map h // rep
     if (tid == 0) {
-      const int hk = h / p.rep;  // GQA: the BlockSpec index map h // rep
       mbar_expect_tx(q_full, 3 * S::QP);
 #pragma unroll
       for (int pc = 0; pc < 3; ++pc) {
@@ -217,6 +242,17 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
                       h, pc * p.batch + b);
         }
       }
+    }
+    // BIAS: thread tid copies 4 columns (chunk c) of rows r0 + 8i of each
+    // tile (row 0 alone for a row-broadcast bias); zeros past Nq (rows never
+    // stored) and past kv_valid_len (columns the tail mask sets).
+    const int c = tid % (F32_BLOCK_N / 4);
+    const int r0 = tid / (F32_BLOCK_N / 4);
+    const float* bias_src = nullptr;
+    if constexpr (BIAS) {
+      bias_src = p.bias + b * p.bias_sb + h * p.bias_sh + (m0 + r0) * p.bias_sn + 4 * c;
+    }
+    if (BIAS || tid == 0) {
       int it = 0;  // tiles issued
       for (int j = 0; j < n_tiles; ++j) {
         if constexpr (SEG) {
@@ -226,32 +262,53 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
         const int parity = ((it / ST) & 1) ^ 1;  // round 0 passes at once
         const int n0 = n_begin + j * F32_BLOCK_N;
         mbar_wait(&k_empty[s], parity);
-        mbar_expect_tx(&k_full[s], S::SLOT + (SEG ? F32_BLOCK_N * 4 : 0));
+        if (tid == 0) {
+          mbar_expect_tx(&k_full[s], S::SLOT + (SEG ? F32_BLOCK_N * 4 : 0));
 #pragma unroll
-        for (int pc = 0; pc < 3; ++pc) {
+          for (int pc = 0; pc < 3; ++pc) {
 #pragma unroll
-          for (int x = 0; x < BOXES; ++x) {
-            tma_load_4d(k_slot(s) + pc * S::KP + x * F32_BLOCK_N * SW128_ROW, &tm_k, &k_full[s],
-                        64 * x, n0, hk, pc * p.batch + b);
+            for (int x = 0; x < BOXES; ++x) {
+              tma_load_4d(k_slot(s) + pc * S::KP + x * F32_BLOCK_N * SW128_ROW, &tm_k,
+                          &k_full[s], 64 * x, n0, hk, pc * p.batch + b);
+            }
+          }
+          if constexpr (SEG) {
+            bulk_load(smem + S::OFF_SEG + s * F32_BLOCK_N * 4,
+                      p.seg_kv + static_cast<int64_t>(b) * p.kv_tiles * F32_BLOCK_N + n0,
+                      F32_BLOCK_N * 4, &k_full[s]);
           }
         }
-        if constexpr (SEG) {
-          bulk_load(smem + S::OFF_SEG + s * F32_BLOCK_N * 4,
-                    p.seg_kv + static_cast<int64_t>(b) * p.kv_tiles * F32_BLOCK_N + n0,
-                    F32_BLOCK_N * 4, &k_full[s]);
+        if constexpr (BIAS) {
+          const int col_bytes = 4 * min(max(nkv - n0 - 4 * c, 0), 4);
+          float* dst = reinterpret_cast<float*>(bias_slot_base(s)) + bias_slot(r0, c);
+          const float* src = bias_src + n0;  // K1 f32 bias column
+          if (p.bias_sn == 0) {
+            if (r0 == 0) cp_async_16_zfill(dst, col_bytes ? src : p.bias, col_bytes);
+          } else {
+#pragma unroll
+            for (int i = 0; i < F32_BLOCK_M / 8; ++i) {
+              const int bytes = r0 + 8 * i < p.nq - m0 ? col_bytes : 0;
+              cp_async_16_zfill(dst + 8 * i * F32_BLOCK_N,
+                                bytes ? src + i * 8 * p.bias_sn : p.bias, bytes);
+            }
+          }
+          cp_async_mbar_arrive(&k_full[s]);
         }
-        mbar_wait(&v_empty[s], parity);
-        mbar_expect_tx(&v_full[s], S::SLOT);
+        if (tid == 0) {
+          mbar_wait(&v_empty[s], parity);
+          mbar_expect_tx(&v_full[s], S::SLOT);
 #pragma unroll
-        for (int pc = 0; pc < 3; ++pc) {
+          for (int pc = 0; pc < 3; ++pc) {
 #pragma unroll
-          for (int x = 0; x < BOXES; ++x) {
-            tma_load_4d(v_slot(s) + pc * S::KP + x * F32_BLOCK_N * SW128_ROW, &tm_v, &v_full[s],
-                        64 * x, n0, hk, pc * p.batch + b);
+            for (int x = 0; x < BOXES; ++x) {
+              tma_load_4d(v_slot(s) + pc * S::KP + x * F32_BLOCK_N * SW128_ROW, &tm_v,
+                          &v_full[s], 64 * x, n0, hk, pc * p.batch + b);
+            }
           }
         }
         ++it;
       }
+      if constexpr (BIAS) asm volatile("cp.async.wait_all;\n" ::: "memory");
     }
   } else {
     // Consumers: warpgroup 1 owns rows m0..m0+63, warpgroup 2 rows m0+64..m0+127.
@@ -285,6 +342,14 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
       q_seg[1] = row0 + 8 < p.nq ? q_ids[row0 + 8] : 0;
     }
     const bool q_one_doc = q_rng.x == q_rng.y;
+    // BIAS: this thread's bias, its row of the tile (row 0 of a
+    // row-broadcast bias) at bias_slot's place (dense_softmax_tile).
+    uint32_t b_off = 0, b_step = 0;
+    if constexpr (BIAS) {
+      const int b_row = p.bias_sn ? row0 - m0 : 0;
+      b_off = 4 * (b_row * F32_BLOCK_N + 8 * (b_row & 3) + 2 * t);
+      b_step = p.bias_sn ? 4 * 8 * F32_BLOCK_N : 0;
+    }
     mbar_wait(q_full, 0);
     int it = 0;  // tiles visited, in the producer's order
     for (int j = 0; j < n_tiles; ++j) {
@@ -307,16 +372,17 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
                           r_first + 63 - c0 > p.lo ||
                           (SEG && !(q_one_doc && k_rng.x == k_rng.y && k_rng.x == q_rng.x));
         const int* ids = reinterpret_cast<const int*>(smem + S::OFF_SEG + s * F32_BLOCK_N * 4);
+        const uint32_t b_addr = BIAS ? smem_u32(bias_slot_base(s)) + b_off : 0;
         if (edge) {
-          dense_softmax_tile<true, SEG, CAP, true>(sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg,
-                                                   p.scale_log2, p.cap_scale, p.cap_log2, m_i,
-                                                   l_i, alpha);
+          dense_softmax_tile<true, SEG, CAP, true, BIAS>(
+              sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, p.cap_scale,
+              p.cap_log2, m_i, l_i, alpha, b_addr, b_step);
         } else {
-          dense_softmax_tile<false, SEG, CAP, true>(sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg,
-                                                    p.scale_log2, p.cap_scale, p.cap_log2, m_i,
-                                                    l_i, alpha);
+          dense_softmax_tile<false, SEG, CAP, true, BIAS>(
+              sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, p.cap_scale,
+              p.cap_log2, m_i, l_i, alpha, b_addr, b_step);
         }
-        release(&k_empty[s]);  // S and the tile's ids have been read
+        release(&k_empty[s]);  // S, the tile's ids and its bias have been read
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
         split3_frags<4>(pa, sc);
@@ -365,11 +431,11 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
   }
 }
 
-template <int D, bool SEG, bool CAP>
+template <int D, bool SEG, bool CAP, bool BIAS>
 cudaError_t fwd_f32_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                            const CUtensorMap& tm_v, const FwdF32Params& p, cudaStream_t stream) {
-  auto kernel = fwd_f32_kernel<D, SEG, CAP>;
-  constexpr int smem = F32FwdSmem<D>::BYTES;
+  auto kernel = fwd_f32_kernel<D, SEG, CAP, BIAS>;
+  constexpr int smem = F32FwdSmem<D, BIAS>::BYTES;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(p.hq, p.q_tiles, p.batch);
@@ -377,16 +443,16 @@ cudaError_t fwd_f32_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool BIAS>
 cudaError_t fwd_f32_dispatch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                              const CUtensorMap& tm_v, const FwdF32Params& p, bool seg, bool cap,
                              cudaStream_t stream) {
   if (seg) {
-    return cap ? fwd_f32_launch<D, true, true>(tm_q, tm_k, tm_v, p, stream)
-               : fwd_f32_launch<D, true, false>(tm_q, tm_k, tm_v, p, stream);
+    return cap ? fwd_f32_launch<D, true, true, BIAS>(tm_q, tm_k, tm_v, p, stream)
+               : fwd_f32_launch<D, true, false, BIAS>(tm_q, tm_k, tm_v, p, stream);
   }
-  return cap ? fwd_f32_launch<D, false, true>(tm_q, tm_k, tm_v, p, stream)
-             : fwd_f32_launch<D, false, false>(tm_q, tm_k, tm_v, p, stream);
+  return cap ? fwd_f32_launch<D, false, true, BIAS>(tm_q, tm_k, tm_v, p, stream)
+             : fwd_f32_launch<D, false, false, BIAS>(tm_q, tm_k, tm_v, p, stream);
 }
 
 }  // namespace
@@ -394,7 +460,7 @@ cudaError_t fwd_f32_dispatch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
 extern "C" {
 
 // O and LSE of f32 attention: the arguments of K1's dense route (fa_fwd_sm90,
-// flash_fwd_sm90.cu) in its order and with its meaning, on f32 q [B, Hq, Nq,
+// flash_fwd_sm90.cu) in its order and with its meaning, then the bias, on f32 q [B, Hq, Nq,
 // D] and k / v [B, Hkv, Nk, D] (unit stride on D, other strides in elements,
 // any alignment), o [B, Hq, Nq, D] f32 (strides in elements, even), lse [B,
 // Hq, Nq] f32 contiguous, and after lse `pieces`: bf16 scratch of 3 DB (B Hq
@@ -405,7 +471,11 @@ extern "C" {
 // Positions are absolute (q_off + row, kv_off + key) for causal and the
 // window (wl, wr; a negative bound is none); dead rows give O = 0, LSE = ln2
 // * mask; segment ids as four pointers or none, at 128-row Q tiles and 64-key
-// KV tiles (fa_fwd_sm90's); softcap > 0 the cap (0: none). Requires 8 <= D
+// KV tiles (fa_fwd_sm90's); softcap > 0 the cap (0: none); bias an f32
+// [B|1, Hq|1, Nq|1, Nk] added to the (capped) scores, or null: unit column
+// stride, (batch, head, row) strides in elements, 0 on broadcast dims, a
+// 16-byte-aligned address and row stride (fa_fwd_bias_sm90's), its columns
+// read only below kv_valid_len and its rows below Nq. Requires 8 <= D
 // <= 128 with D % 8 == 0, Hq % Hkv == 0, 1 <= Nq, 0 <= kv_valid_len, B <=
 // 65535; o 8-byte aligned; seg_kv 16-byte aligned. Returns a cudaError_t (0
 // on success; cudaErrorInvalidValue for arguments it does not take,
@@ -417,14 +487,18 @@ int fa_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, 
                int wr, int q_off, int kv_off, float scale, float softcap, int64_t q_sb,
                int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh, int64_t k_sn,
                int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh,
-               int64_t o_sn, int64_t seg_q_sb, void* stream) {
+               int64_t o_sn, int64_t seg_q_sb, const void* bias, int64_t bias_sb,
+               int64_t bias_sh, int64_t bias_sn, void* stream) {
   const bool seg = seg_q != nullptr;
+  const bool has_bias = bias != nullptr;
   const int q_tiles = (nq + F32_BLOCK_M - 1) / F32_BLOCK_M;
   if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
       hq > 65535 || hq % hkv != 0 || nq < 1 || q_tiles > 65535 || kv_valid_len < 0 ||
       !(softcap >= 0.f) || !aligned(pieces, 16) || !aligned(o, 8) ||
       (o_sb | o_sh | o_sn) % 2 || seg != (seg_kv != nullptr) || seg != (q_range != nullptr) ||
-      seg != (kv_range != nullptr) || (seg && !aligned(seg_kv, 16))) {
+      seg != (kv_range != nullptr) || (seg && !aligned(seg_kv, 16)) ||
+      (has_bias && (!aligned(bias, 16) || (bias_sb | bias_sh | bias_sn) % 4 || bias_sb < 0 ||
+                    bias_sh < 0 || bias_sn < 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -476,8 +550,15 @@ int fa_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, 
   const bool cap = softcap > 0.f;
   p.cap_scale = cap ? scale / softcap : 0.f;
   p.cap_log2 = softcap * fa::LOG2E;
-  e = d <= 64 ? fwd_f32_dispatch<64>(tm_q, tm_k, tm_v, p, seg, cap, s)
-              : fwd_f32_dispatch<128>(tm_q, tm_k, tm_v, p, seg, cap, s);
+  p.bias = static_cast<const float*>(bias);
+  p.bias_sb = bias_sb; p.bias_sh = bias_sh; p.bias_sn = bias_sn;
+  if (has_bias) {
+    e = d <= 64 ? fwd_f32_dispatch<64, true>(tm_q, tm_k, tm_v, p, seg, cap, s)
+                : fwd_f32_dispatch<128, true>(tm_q, tm_k, tm_v, p, seg, cap, s);
+  } else {
+    e = d <= 64 ? fwd_f32_dispatch<64, false>(tm_q, tm_k, tm_v, p, seg, cap, s)
+                : fwd_f32_dispatch<128, false>(tm_q, tm_k, tm_v, p, seg, cap, s);
+  }
   return static_cast<int>(e);
 }
 

@@ -18,13 +18,15 @@ never reaches a plain version:
 * with a bias (:func:`bias_bwd_route`, with or without the softcap, a
   window, q / kv offsets or segment ids, at every head dim up to
   ``BIAS_MAX_HEAD_DIM``, the GQA decode fold's calls too): :func:`bias_bwd`
-  (``csrc/bwd_bias_sm90.cu``) returns dQ, dK / dV per *KV* head and, on
-  request, dbias; :func:`bias_bwd_reference` is its plain version.
+  (``csrc/bwd_bias_sm90.cu`` in bf16, the f32 body in f32) returns dQ, dK /
+  dV per *KV* head and, on request, dbias; :func:`bias_bwd_reference` is its
+  plain version.
 
-On f32 inputs the split route and K3 (``flash_bwd_fused.bwd``) both launch
-one f32 body (:func:`_f32_bwd_launch`, ``csrc/flash_bwd_f32.cu``: TMA +
-wgmma on the three bf16 pieces of each f32 operand, ``ops/f32_split.py``, six
-bf16 products per f32 product); the bias route stays bf16.
+On f32 inputs the split route, the bias route and K3
+(``flash_bwd_fused.bwd``) all launch one f32 body (:func:`_f32_bwd_launch`,
+``csrc/flash_bwd_f32.cu``: TMA + wgmma on the three bf16 pieces of each f32
+operand, ``ops/f32_split.py``, six bf16 products per f32 product; with a
+bias its BIAS family, which writes dbias too), up to ``F32_MAX_HEAD_DIM``.
 
 :func:`dkv` and :func:`dq` keep K5's and K6's plain versions
 (:func:`dkv_reference` / :func:`dq_reference`: dK / dV per query head, and
@@ -40,12 +42,14 @@ import torch
 
 from flashattn_tpu_torch.ops import f32_split
 from flashattn_tpu_torch.ops.flash_fwd import (
+    _ROADMAP_F32_WIDE,
     _kernel_ready,
     band_offsets,
     check_bias,
     check_segment_ids,
     check_softcap,
     check_window,
+    kernel_bias,
     kernel_window,
     pair_mask,
     sm90_bias,
@@ -61,7 +65,6 @@ MAX_HEAD_DIM = 256
 BIAS_MAX_HEAD_DIM = 128
 F32_MAX_HEAD_DIM = 128
 _ROADMAP_BIAS_WIDE = "ROADMAP queue 2, functions item 6: the bias route above D 128"
-_ROADMAP_F32_WIDE = "ROADMAP queue 2, f32 rows item 5: above D 128"
 
 
 def recompute_p_ds(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -169,9 +172,9 @@ def check_kernel_args(q, name: str) -> None:
 
 def check_kernel_dims(q, name: str) -> None:
     """Raise for what the CUDA backward kernels do not take, whatever the
-    device: a dtype other than bf16 and f32 (the bias route takes no f32 yet:
-    :func:`bias_bwd` refuses it), D not a multiple of 8 or above
-    ``MAX_HEAD_DIM``, f32 above ``F32_MAX_HEAD_DIM``, a grid past the CUDA
+    device: a dtype other than bf16 and f32, D not a multiple of 8 or above
+    ``MAX_HEAD_DIM``, f32 above ``F32_MAX_HEAD_DIM`` (with or without a
+    bias: the f32 body takes a bias up to D 128), a grid past the CUDA
     limits. A bias above ``BIAS_MAX_HEAD_DIM`` is the bias route's refusal
     (:func:`bias_bwd`, :func:`dkv`, :func:`dq`)."""
     B, Hq, _, D = q.shape
@@ -266,14 +269,18 @@ def dq(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
 
 
 def bias_bwd_route(*, head_dim: int, bias, dtype) -> bool:
-    """Whether a backward goes to the Hopper bias kernel
-    (``csrc/bwd_bias_sm90.cu``), K5 and K6 in one launch: every call with a
-    bias in bf16 at a head dim up to ``BIAS_MAX_HEAD_DIM`` (a multiple of 8, as
-    every CUDA backward's) -- causal or not, with or without a window, q / kv
-    offsets, segment ids or the softcap, the GQA decode fold's calls too,
-    whichever K1 route the forward took. :func:`bias_bwd` decides the
-    device: a CPU tensor takes the plain version."""
-    return bias is not None and dtype == torch.bfloat16 and head_dim <= BIAS_MAX_HEAD_DIM
+    """Whether a backward goes to :func:`bias_bwd`, K5 and K6 in one launch:
+    every call with a bias in bf16 at a head dim up to ``BIAS_MAX_HEAD_DIM``
+    (the Hopper bias kernel, ``csrc/bwd_bias_sm90.cu``) or in f32 up to
+    ``F32_MAX_HEAD_DIM`` (the f32 body's BIAS family,
+    ``csrc/flash_bwd_f32.cu``), each a multiple of 8, as every CUDA
+    backward's -- causal or not, with or without a window, q / kv offsets,
+    segment ids or the softcap, the GQA decode fold's calls too, whichever K1
+    route the forward took. :func:`bias_bwd` decides the device: a CPU
+    tensor takes the plain version."""
+    limit = F32_MAX_HEAD_DIM if dtype == torch.float32 else BIAS_MAX_HEAD_DIM
+    return (bias is not None and dtype in (torch.bfloat16, torch.float32)
+            and head_dim <= limit)
 
 
 def bias_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -355,10 +362,13 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     segment ids as the forward took them. CPU tensors take
     :func:`bias_bwd_reference`. CUDA tensors launch the Hopper kernel, which
     takes what :func:`bias_bwd_route` sends it (bf16, ``D % 8 == 0``, ``D <=
-    BIAS_MAX_HEAD_DIM``); anything else raises. dQ is summed over the KV tiles by the card's L2
-    (one bulk reduction per tile), so its last bits may differ from run to
-    run. ``bias_bwd.launches`` counts kernel launches,
-    ``bias_bwd.launches_dbias`` those that wrote dbias.
+    BIAS_MAX_HEAD_DIM``), or on f32 up to ``F32_MAX_HEAD_DIM`` the f32 body
+    (:func:`_f32_bwd_launch`: dK / dV come per query head, and each KV head's
+    group is summed here); anything else raises. dQ is summed over the KV
+    tiles by the card's L2 (one bulk reduction per tile), so its last bits
+    may differ from run to run. ``bias_bwd.launches`` counts launches on
+    either kernel, ``bias_bwd.launches_dbias`` those that wrote dbias,
+    ``bias_bwd.launches_f32`` those of the f32 body.
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len, segment_ids)
     if bias is None:
@@ -374,15 +384,12 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     if q.device.type == "cpu":
         return bias_bwd_reference(q, k, v, do, lse, delta, want_dbias=want_dbias, **kw)
     check_kernel_args(q, "K5 + K6 bias route")
-    _refuse_wide_bias(q, "K5 + K6 bias route")
-    if q.dtype == torch.float32:
+    if q.dtype == torch.float32 and D > F32_MAX_HEAD_DIM:
         raise NotImplementedError(
-            "the CUDA K5 + K6 bias route takes no float32 yet (ROADMAP queue 2, f32 rows: the "
-            "bias routes)")
+            f"the CUDA K5 + K6 bias route takes no float32 above D {F32_MAX_HEAD_DIM}, got "
+            f"D={D} ({_ROADMAP_F32_WIDE})")
+    _refuse_wide_bias(q, "K5 + K6 bias route")
     f32 = dict(dtype=torch.float32, device=q.device)
-    dq_ = torch.zeros((B, Hq, Nq, D), **f32)
-    dk = torch.empty((B, Hkv, Nk, D), **f32)
-    dv = torch.empty((B, Hkv, Nk, D), **f32)
     dbias = None
     if want_dbias:
         # The kernel writes the tiles it visits; the band (causal, a window),
@@ -390,6 +397,19 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
         skipped = dbias_skips(causal=causal, window=window, segment_ids=segment_ids,
                               kv_valid_len=kv_valid_len, nk=Nk)
         dbias = (torch.zeros if skipped else torch.empty)((B, Hq, Nq, Nk), **f32)
+    if q.dtype == torch.float32:
+        before = _f32_bwd_launch.launches
+        dq_, dk, dv = _f32_bwd_launch(q, k, v, do, lse, delta, dbias=dbias, **kw)
+        launched = _f32_bwd_launch.launches - before  # 0 without a key or a row
+        if Hkv != Hq:  # the f32 body's dK / dV per query head: sum each KV head's group
+            dk, dv = (x.view(B, Hkv, Hq // Hkv, Nk, D).sum(2) for x in (dk, dv))
+        bias_bwd.launches += launched
+        bias_bwd.launches_f32 += launched
+        bias_bwd.launches_dbias += launched * int(want_dbias)
+        return dq_, dk, dv, dbias
+    dq_ = torch.zeros((B, Hq, Nq, D), **f32)
+    dk = torch.empty((B, Hkv, Nk, D), **f32)
+    dv = torch.empty((B, Hkv, Nk, D), **f32)
     if Nq == 0 or Nk == 0 or B == 0 or Hq == 0:  # an empty grid is not a valid launch
         return dq_, dk.zero_(), dv.zero_(), None if dbias is None else dbias.zero_()
     q, k, v, do = (_kernel_ready(x, tma=True) for x in (q, k, v, do))
@@ -413,6 +433,7 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
 
 bias_bwd.launches = 0
 bias_bwd.launches_dbias = 0
+bias_bwd.launches_f32 = 0
 
 
 def dbias_skips(*, causal: bool, window, segment_ids, kv_valid_len: int, nk: int) -> bool:
@@ -461,23 +482,30 @@ def split_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool =
 
 def _launch_split(lib, q, k, v, do, lse, delta, dq_, dk, dv, seg, *, scale, causal,
                   kv_valid_len, window, softcap, nq_pad, stream, q_offset: int = 0,
-                  kv_offset: int = 0, pieces: torch.Tensor | None = None) -> int:
+                  kv_offset: int = 0, pieces: torch.Tensor | None = None,
+                  bias: torch.Tensor | None = None, dbias: torch.Tensor | None = None,
+                  bias_strides: tuple[int, int, int] = (0, 0, 0)) -> int:
     """Call ``lib.fa_bwd_split_sm90`` -- or, given ``pieces`` (the bf16
     scratch of ``f32_split.scratch``), ``lib.fa_bwd_f32``, whose arguments
-    are the same with ``pieces`` after dv -- with the arguments of one launch
-    (the C entry's order, ``native.BWD_SPLIT_SM90_ARGTYPES`` /
-    ``BWD_F32_ARGTYPES``), ``seg`` being ``flash_fwd.sm90_segments``' tensors
-    at the kernel's tiles or None; returns its cudaError_t."""
+    are the same with ``pieces`` after dv and the f32 ``bias``, ``dbias``
+    (each a tensor or None) and ``bias_strides`` before the stream -- with
+    the arguments of one launch (the C entry's order,
+    ``native.BWD_SPLIT_SM90_ARGTYPES`` / ``BWD_F32_ARGTYPES``), ``seg`` being
+    ``flash_fwd.sm90_segments``' tensors at the kernel's tiles or None;
+    returns its cudaError_t."""
     B, Hq, Nq, D = q.shape
     seg_ptrs = (None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg)
-    entry, scratch = ((lib.fa_bwd_split_sm90, ()) if pieces is None
-                      else (lib.fa_bwd_f32, (pieces.data_ptr(),)))
+    if pieces is None:
+        entry, scratch, tail = lib.fa_bwd_split_sm90, (), ()
+    else:
+        entry, scratch = lib.fa_bwd_f32, (pieces.data_ptr(),)
+        tail = (*(None if x is None else x.data_ptr() for x in (bias, dbias)), *bias_strides)
     return entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq_.data_ptr(), dk.data_ptr(), dv.data_ptr(), *scratch, *seg_ptrs,
         B, Hq, k.shape[1], Nq, k.shape[2], D, kv_valid_len, int(bool(causal)),
         *kernel_window(window), q_offset, kv_offset, nq_pad, float(scale), softcap or 0.0,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], stream)
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *tail, stream)
 
 
 def split_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -555,16 +583,20 @@ F32_BWD_KV_TILE = 64
 
 def _f32_bwd_launch(q, k, v, do, lse, delta, *, scale: float, causal: bool,
                     kv_valid_len: int, segment_ids, window, softcap, q_offset: int,
-                    kv_offset: int):
+                    kv_offset: int, bias=None, dbias: torch.Tensor | None = None):
     """Launch the f32 backward body's C entry (``csrc/flash_bwd_f32.cu``: the
     split of q, k, v and do into their bf16 pieces, then the kernel -- K3
-    without segment ids or a softcap, K5 + K6 without a bias with either) on
-    the CUDA f32 call that :func:`split_bwd` or ``flash_bwd_fused.bwd`` has
-    checked and normalised (the forward's pieces are not kept): ``(dQ [B,
-    Hq, Nq, D], dK, dV [B, Hq, Nk, D])`` in f32, dK / dV per query head. dQ
-    is added to by one bulk reduction a tile, so its last bits may differ
-    from run to run. ``_f32_bwd_launch.launches`` counts the kernel's
-    launches, ``_f32_bwd_launch.launches_split`` the split's."""
+    without segment ids, a softcap or a bias, K5 + K6 with any of them) on
+    the CUDA f32 call that :func:`split_bwd`, :func:`bias_bwd` or
+    ``flash_bwd_fused.bwd`` has checked and normalised (the forward's pieces
+    are not kept): ``(dQ [B, Hq, Nq, D], dK, dV [B, Hq, Nk, D])`` in f32, dK /
+    dV per query head. With a ``bias`` (read in f32 with
+    ``flash_fwd.kernel_bias``' strides) it runs the BIAS family, and writes
+    dbias into ``dbias`` (``[B, Hq, Nq, Nk]`` f32, allocated by the caller,
+    zeroed where :func:`dbias_skips` says; None: no dbias). dQ is added to by
+    one bulk reduction a tile, so its last bits may differ from run to run.
+    ``_f32_bwd_launch.launches`` counts the kernel's launches,
+    ``_f32_bwd_launch.launches_split`` the split's."""
     B, Hq, Nq, D = q.shape
     Nk = k.shape[2]
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -572,8 +604,11 @@ def _f32_bwd_launch(q, k, v, do, lse, delta, *, scale: float, causal: bool,
     dk = torch.empty((B, Hq, Nk, D), **f32)
     dv = torch.empty((B, Hq, Nk, D), **f32)
     if Nq == 0 or Nk == 0 or B == 0 or Hq == 0 or kv_valid_len == 0:
+        if dbias is not None:
+            dbias.zero_()
         return dq_, dk.zero_(), dv.zero_()  # no key attends: an empty grid is not a valid launch
     q, k, v, do = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, do))
+    bias, bias_strides = kernel_bias(bias)
     pieces = f32_split.scratch(2 * B * Hq * Nq, B * k.shape[1] * kv_valid_len, D, q.device)
     nq_pad = -(-Nq // F32_BWD_Q_TILE) * F32_BWD_Q_TILE
     lse, delta = _padded_rows(lse, nq_pad), _padded_rows(delta, nq_pad)
@@ -584,7 +619,8 @@ def _f32_bwd_launch(q, k, v, do, lse, delta, *, scale: float, causal: bool,
                            scale=scale, causal=causal, kv_valid_len=kv_valid_len, window=window,
                            softcap=softcap, nq_pad=nq_pad,
                            stream=torch.cuda.current_stream(q.device).cuda_stream,
-                           q_offset=q_offset, kv_offset=kv_offset, pieces=pieces)
+                           q_offset=q_offset, kv_offset=kv_offset, pieces=pieces, bias=bias,
+                           dbias=dbias, bias_strides=bias_strides)
     native.check(rc, "flash_bwd_f32 kernel launch")
     _f32_bwd_launch.launches += 1
     _f32_bwd_launch.launches_split += 1

@@ -86,9 +86,10 @@ H100_SMS = 132
 # pipeline stage), the tiles of its segment-id ranges.
 DENSE_MAX_HEAD_DIM = 128
 BIAS_ROW_ALIGN = 4
-# The f32 route's ROADMAP item: what it does not take yet (a bias, quantized
-# K/V, head dims above 128).
-_ROADMAP_F32 = "ROADMAP queue 2, f32 rows"
+# The f32 routes' ROADMAP items: what they do not take yet, quantized K/V
+# (item 2) and head dims above 128 (item 5, the backward's too).
+_ROADMAP_F32_QUANT = "ROADMAP queue 2, f32 rows item 2: quantized K/V under an f32 q"
+_ROADMAP_F32_WIDE = "ROADMAP queue 2, f32 rows item 5: above D 128"
 
 SM90_Q_TILE = 128
 SM90_KV_TILE = 64
@@ -349,10 +350,11 @@ def dense_route(*, head_dim: int, bias, kv_dtype) -> bool:
 def f32_route(*, dtype) -> bool:
     """Whether a CUDA K1 call goes to the f32 kernel (``csrc/flash_fwd_f32.cu``):
     every call on an f32 q -- causal or not, with or without a window, segment
-    ids, a softcap or q / kv offsets, at any Nq (decode shapes too) and head
-    dims up to ``DENSE_MAX_HEAD_DIM``. :func:`fwd` checks it before the bf16
-    routes, and ``_check_kernel_args`` refuses the f32 calls it does not take
-    (a bias, quantized K/V, D above 128); no f32 call reaches a bf16 kernel."""
+    ids, a softcap, q / kv offsets or an additive bias (its BIAS family), at
+    any Nq (decode shapes too) and head dims up to ``DENSE_MAX_HEAD_DIM``.
+    :func:`fwd` checks it before the bf16 routes, and ``_check_kernel_args``
+    refuses the f32 calls it does not take (quantized K/V, D above 128, with
+    or without a bias); no f32 call reaches a bf16 kernel."""
     return dtype == torch.float32
 
 
@@ -580,23 +582,28 @@ def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, bia
 
 def _launch_dense_sm90(lib, q, k, v, o, lse, seg, *, scale, kv_valid_len, causal, window,
                       softcap, stream, q_offset: int = 0, kv_offset: int = 0,
-                      pieces: torch.Tensor | None = None) -> int:
+                      pieces: torch.Tensor | None = None, bias: torch.Tensor | None = None,
+                      bias_strides: tuple[int, int, int] = (0, 0, 0)) -> int:
     """Call ``lib.fa_fwd_sm90`` -- or, given ``pieces`` (the bf16 scratch of
     ``f32_split.scratch``), ``lib.fa_fwd_f32``, whose arguments are the same
-    with ``pieces`` after lse -- with the arguments of one launch (the C
-    entry's order, ``native.FWD_SM90_ARGTYPES`` / ``FWD_F32_ARGTYPES``),
-    ``seg`` being :func:`sm90_segments`' tensors or None; returns its
-    cudaError_t."""
+    with ``pieces`` after lse and the f32 ``bias`` (:func:`sm90_bias`' tensor,
+    or None) with its ``bias_strides`` before the stream -- with the
+    arguments of one launch (the C entry's order,
+    ``native.FWD_SM90_ARGTYPES`` / ``FWD_F32_ARGTYPES``), ``seg`` being
+    :func:`sm90_segments`' tensors or None; returns its cudaError_t."""
     B, Hq, Nq, D = q.shape
     seg_ptrs = (None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg)
-    entry, scratch = ((lib.fa_fwd_sm90, ()) if pieces is None
-                      else (lib.fa_fwd_f32, (pieces.data_ptr(),)))
+    if pieces is None:
+        entry, scratch, tail = lib.fa_fwd_sm90, (), ()
+    else:
+        entry, scratch = lib.fa_fwd_f32, (pieces.data_ptr(),)
+        tail = (None if bias is None else bias.data_ptr(), *bias_strides)
     return entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *scratch,
         *seg_ptrs, B, Hq, k.shape[1], Nq, D, kv_valid_len, int(bool(causal)),
         *kernel_window(window), q_offset, kv_offset, float(scale), softcap or 0.0,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        0 if seg is None else seg[0].stride(0), stream)
+        0 if seg is None else seg[0].stride(0), *tail, stream)
 
 
 def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, softcap,
@@ -624,9 +631,10 @@ def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, so
 
 
 def _dense_f32(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, softcap,
-               q_offset, kv_offset):
+               q_offset, kv_offset, bias=None):
     """Launch the f32 kernel's C entry -- the split of q, k and v into their
-    bf16 pieces, then the kernel -- and count both launches."""
+    bf16 pieces, then the kernel (its BIAS family with a ``bias``, read as
+    :func:`sm90_bias` gives it) -- and count both launches."""
     B, Hq, Nq, D = q.shape
     q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides
@@ -635,15 +643,18 @@ def _dense_f32(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, sof
         return o, lse
     pieces = f32_split.scratch(B * Hq * Nq, B * k.shape[1] * kv_valid_len, D, q.device)
     seg = sm90_segments(segment_ids, Nq, kv_valid_len, q_tile=F32_Q_TILE, kv_tile=F32_KV_TILE)
+    bias, bias_strides = (None, (0, 0, 0)) if bias is None else sm90_bias(bias)
     with torch.cuda.device(q.device):
         rc = _launch_dense_sm90(native.kernels(), q, k, v, o, lse, seg, scale=scale,
                                 kv_valid_len=kv_valid_len, causal=causal, window=window,
                                 softcap=softcap,
                                 stream=torch.cuda.current_stream(q.device).cuda_stream,
-                                q_offset=q_offset, kv_offset=kv_offset, pieces=pieces)
+                                q_offset=q_offset, kv_offset=kv_offset, pieces=pieces,
+                                bias=bias, bias_strides=bias_strides)
     native.check(rc, "flash_fwd_f32 kernel launch")
-    _count_variants(k.dtype, None, kernel_window(window) != (-1, -1), softcap)
+    _count_variants(k.dtype, bias, kernel_window(window) != (-1, -1), softcap)
     fwd.launches_f32 += 1
+    fwd.launches_f32_bias += int(bias is not None)
     fwd.launches_split += 1
     return o, lse
 
@@ -663,8 +674,9 @@ def offsets_refusal(*, quantized: bool) -> str | None:
 def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool,
                        offsets: bool = False) -> None:
     """Raise for what no CUDA K1 kernel takes: another device, a q that is
-    neither bf16 nor f32, an f32 q with a bias, quantized K/V or D above
-    ``DENSE_MAX_HEAD_DIM`` (the f32 route's refusals), D not a multiple of 8
+    neither bf16 nor f32, an f32 q with quantized K/V or D above
+    ``DENSE_MAX_HEAD_DIM`` (the f32 route's refusals, with or without a
+    bias: it takes a bias up to D 128), D not a multiple of 8
     or above ``MAX_HEAD_DIM``, segment ids or a window with quantized K/V,
     segment ids, a window or ``offsets`` (that change the result) with a
     bias above ``DENSE_MAX_HEAD_DIM`` (``csrc/fwd_tile.cuh`` takes none), a
@@ -677,11 +689,12 @@ def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool,
             f"the CUDA K1 takes bfloat16 or float32, got {q.dtype} (flash_attention casts "
             "other dtypes to bfloat16)")
     if q.dtype == torch.float32:
-        what = ("a bias" if bias is not None else "quantized K/V" if k_scale is not None
-                else f"head dims above {DENSE_MAX_HEAD_DIM}" if D > DENSE_MAX_HEAD_DIM else None)
+        what, item = ((("quantized K/V", _ROADMAP_F32_QUANT) if k_scale is not None
+                       else (f"head dims above {DENSE_MAX_HEAD_DIM}", _ROADMAP_F32_WIDE)
+                       if D > DENSE_MAX_HEAD_DIM else (None, None)))
         if what:
             raise NotImplementedError(
-                f"the CUDA K1's f32 route takes no {what} yet ({_ROADMAP_F32}); the bf16 "
+                f"the CUDA K1's f32 route takes no {what} yet ({item}); the bf16 "
                 "routes take it")
     if D % 8 or D > MAX_HEAD_DIM:
         raise NotImplementedError(
@@ -724,19 +737,20 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     which takes a bf16 ``q`` (and bf16, int8 or fp8 K/V) with ``D % 8 == 0``
     and ``D <= 256``, and segment ids, a window or offsets only without
     quantized K/V and, with a bias, at ``D <= 128``, or an f32 q, k and v
-    without a bias at ``D <= 128``;
+    with or without a bias (and every option above) at ``D <= 128``;
     anything else raises. An f32 call (:func:`f32_route`) launches the f32
-    kernel; a bf16 CUDA call that :func:`decode_route`
+    kernel (with a bias, its BIAS family); a bf16 CUDA call that :func:`decode_route`
     accepts launches the split-KV decode kernel (and its merge), one that
     :func:`bias_route` accepts the Hopper bias kernel, one that
     :func:`dense_route` accepts (every bf16 call without a bias) the Hopper
     dense kernel, every other (a bias above D 128, quantized K/V) the
     ``fwd_tile.cuh`` kernel. ``fwd.launches`` counts every K1 launch, on any
-    kernel; ``fwd.launches_bias`` those of bf16 K/V with a bias (on any
-    kernel), ``fwd.launches_bias_sm90`` those of the bias kernel,
+    kernel; ``fwd.launches_bias`` those of bf16 or f32 K/V with a bias (on
+    any kernel), ``fwd.launches_bias_sm90`` those of the bias kernel,
     ``fwd.launches_dense_sm90`` those of the Hopper dense kernel
     (``fwd.launches_dense_d256`` those of its D 256 form, D 136-256),
-    ``fwd.launches_f32`` those of the f32 kernel, ``fwd.launches_split``
+    ``fwd.launches_f32`` those of the f32 kernel (``fwd.launches_f32_bias``
+    those with a bias, also counted in ``fwd.launches_bias``), ``fwd.launches_split``
     those of the split of its operands (``f32_split``, one before each),
     ``fwd.launches_int8`` / ``fwd.launches_fp8`` those of quantized K/V (with
     or without a bias), ``fwd.launches_window`` those with a window,
@@ -783,7 +797,7 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     if f32_route(dtype=q.dtype):
         return _dense_f32(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
                           window=window, segment_ids=segment_ids, softcap=softcap,
-                          q_offset=q_offset, kv_offset=kv_offset)
+                          q_offset=q_offset, kv_offset=kv_offset, bias=bias)
 
     if decode_route(rows=Hq // Hkv * Nq, causal=causal, segment_ids=segment_ids, window=window,
                     head_dim=D):
@@ -843,6 +857,7 @@ fwd.launches_bias_sm90 = 0
 fwd.launches_dense_sm90 = 0
 fwd.launches_dense_d256 = 0
 fwd.launches_f32 = 0
+fwd.launches_f32_bias = 0
 fwd.launches_split = 0
 fwd.launches_int8 = 0
 fwd.launches_fp8 = 0

@@ -66,7 +66,7 @@ def matmul(
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the CUDA K9 takes bfloat16 inputs, got {a.dtype}, {b.dtype} (an f32 "
-            "instantiation is a ROADMAP queue 2 item, as for K1)")
+            "instantiation is ROADMAP queue 2, f32 rows item 4)")
     if a.device.type != "cuda":
         raise NotImplementedError(f"no K9 kernel for device {a.device}")
     if out_dtype not in OUT_DTYPES:

@@ -168,8 +168,8 @@ def _check_kernel_args(q, name: str) -> None:
         raise NotImplementedError(f"no {name} kernel for device {q.device}")
     if q.dtype != torch.bfloat16:
         raise NotImplementedError(
-            f"the CUDA {name} takes bfloat16, got {q.dtype} (an f32 instantiation is a "
-            "ROADMAP queue 2 item, 'also open: options')")
+            f"the CUDA {name} takes bfloat16, got {q.dtype} (an f32 instantiation is "
+            "ROADMAP queue 2, f32 rows item 3)")
     if D % 8 or D > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"the CUDA {name} takes head dims that are multiples of 8 up to {MAX_HEAD_DIM}, "

@@ -123,11 +123,17 @@ BWD_BIAS_SM90_ARGTYPES = [
 
 # The C entries of the f32 routes: K1's (csrc/flash_fwd_f32.cu) takes the
 # arguments of K1's dense route, the f32 backward's (csrc/flash_bwd_f32.cu,
-# K3 and K5 + K6 without a bias) those of the split route, segment ids and
-# the softcap optional, each with the bf16 scratch into which it splits its
-# f32 operands first (ops/f32_split.py, csrc/split_bf16x3.cu).
-FWD_F32_ARGTYPES = FWD_SM90_ARGTYPES[:5] + [_PTR] + FWD_SM90_ARGTYPES[5:]  # + pieces
-BWD_F32_ARGTYPES = BWD_SPLIT_SM90_ARGTYPES[:9] + [_PTR] + BWD_SPLIT_SM90_ARGTYPES[9:]
+# K3 and K5 + K6 with or without a bias) those of the split route, segment
+# ids and the softcap optional, each with the bf16 scratch into which it
+# splits its f32 operands first (ops/f32_split.py, csrc/split_bf16x3.cu), and
+# before the stream the optional f32 bias with its strides (and the
+# backward's dbias, or None).
+FWD_F32_ARGTYPES = (FWD_SM90_ARGTYPES[:5] + [_PTR] + FWD_SM90_ARGTYPES[5:-1]  # + pieces
+                    + [_PTR, _I64, _I64, _I64]  # bias (f32, or None), (batch, head, row) strides
+                    + FWD_SM90_ARGTYPES[-1:])
+BWD_F32_ARGTYPES = (BWD_SPLIT_SM90_ARGTYPES[:9] + [_PTR] + BWD_SPLIT_SM90_ARGTYPES[9:-1]
+                    + [_PTR, _PTR, _I64, _I64, _I64]  # bias, dbias (f32, or None), bias strides
+                    + BWD_SPLIT_SM90_ARGTYPES[-1:])
 
 _RING_DIMS = [
     _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, nq, nk, D

@@ -112,3 +112,83 @@ def grad_gate(grads, grads_want, tol: Tolerance, names=("dq", "dk", "dv")):
         if not gok:
             ok, why = False, (why + "; " + msg if why else msg)
     return ok, why, gmd, gmr
+
+
+def sample_composition(rng: np.random.Generator) -> dict:
+    """One draw of the composition fuzz: every option of ``flash_attention``
+    sampled jointly from ``rng`` (a ``numpy.random.Generator``), as the JAX
+    package's fuzz draws them (tests/test_fuzz_compose.py ``_sample_case``:
+    B, GQA, causal, a window, segment ids, a bias of every broadcast shape
+    ``[1|B, 1|Hq, Nq|1, Nk]``, the softcap, f32 or bf16, the layout, ragged
+    Nq / Nk, q / kv offsets) and beyond it: offsets with segment ids, causal
+    with Nq != Nk, head dims 136-256 in bf16 (f32 stays at D <= 128, the f32
+    kernels' range), and decode-class Nq down to 1 with every option but
+    causal. Returns plain values and numpy arrays (``seg``: int32 ``[B,
+    Nq]`` and ``[B, Nk]`` ids, or None), so the port and the JAX package can
+    take the same draw."""
+    B = int(rng.integers(1, 3))
+    Hkv = int(rng.integers(1, 3))
+    Hq = Hkv * int(rng.choice([1, 2, 3]))
+    dtype = torch.float32 if rng.random() < 0.6 else torch.bfloat16
+    wide = dtype == torch.bfloat16 and rng.random() < 0.25
+    D = int(rng.choice([136, 160, 192, 256] if wide else [32, 64, 72, 80, 128]))
+    Nq = int(rng.integers(17, 400))
+    Nk = Nq if rng.random() < 0.6 else int(rng.integers(17, 400))
+    decode = rng.random() < 0.15
+    if decode:
+        Nq = int(rng.integers(1, 17))  # decode-class tiny Q
+    causal = not decode and bool(rng.random() < 0.5)
+    window = None
+    if rng.random() < 0.3:
+        wl = int(rng.integers(0, max(Nq, Nk))) if rng.random() < 0.8 else -1
+        wr = -1 if causal else (int(rng.integers(0, 64)) if rng.random() < 0.5 else -1)
+        if wl >= 0 or wr >= 0:
+            window = (wl, wr)
+    seg = None
+    if rng.random() < 0.4:
+        n_seg = int(rng.integers(1, 5))
+
+        def ids(n):
+            cuts = np.sort(rng.choice(n, size=min(n_seg - 1, n - 1), replace=False))
+            out = np.zeros((B, n), np.int32)
+            for c in cuts:
+                out[:, c:] += 1
+            return out
+
+        seg = (ids(Nq), ids(Nk))
+    bias_shape = None
+    if rng.random() < 0.3:
+        bias_shape = (1 if rng.random() < 0.5 else B, 1 if rng.random() < 0.5 else Hq,
+                      1 if rng.random() < 0.25 else Nq, Nk)
+    softcap = float(rng.choice([15.0, 50.0])) if rng.random() < 0.3 else None
+    # Ring-style absolute offsets: they shift the causal / window band, with
+    # or without segment ids, so some pairs put whole rows or tiles outside it.
+    q_off = kv_off = 0
+    if (causal or window is not None) and rng.random() < 0.4:
+        q_off = int(rng.integers(0, 3)) * 128
+        kv_off = int(rng.integers(0, 3)) * 128
+    layout = "BNHD" if rng.random() < 0.25 else "BHND"
+    return dict(B=B, Hq=Hq, Hkv=Hkv, D=D, Nq=Nq, Nk=Nk, causal=causal, window=window, seg=seg,
+                bias_shape=bias_shape, softcap=softcap, dtype=dtype, q_off=q_off, kv_off=kv_off,
+                layout=layout)
+
+
+def composition_inputs(case: dict, seed: int) -> dict:
+    """The numpy inputs of a :func:`sample_composition` draw, from ``seed``:
+    q ``[B, Hq, Nq, D]``, k / v ``[B, Hkv, Nk, D]``, the output's cotangent
+    ``do`` like q (all unit normal, f32, rounded to bf16 for a bf16 draw) and
+    the bias (``0.5`` times unit normal, f32) of the draw's shape, or None."""
+    rng = np.random.default_rng(seed)
+    B, Hq, Hkv, Nq, Nk, D = (case[n] for n in ("B", "Hq", "Hkv", "Nq", "Nk", "D"))
+
+    def draw(*shape):
+        x = rng.standard_normal(shape, dtype=np.float32)
+        if case["dtype"] == torch.bfloat16:
+            x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+        return x
+
+    q, k, v, do = draw(B, Hq, Nq, D), draw(B, Hkv, Nk, D), draw(B, Hkv, Nk, D), draw(B, Hq, Nq, D)
+    bias = None
+    if case["bias_shape"] is not None:
+        bias = 0.5 * rng.standard_normal(case["bias_shape"], dtype=np.float32)
+    return dict(q=q, k=k, v=v, do=do, bias=bias)

@@ -375,13 +375,15 @@ def _cuda_q(D, dtype=torch.bfloat16):
 
 
 # The refusals left on the card, each naming its ROADMAP item: quantized K/V
-# with segment ids or a window, f32 with a bias, and a bias above D 128 with
-# segment ids, a window or offsets (fwd_tile.cuh takes none).
+# with segment ids or a window, f32 with a bias above D 128 (f32 takes a bias
+# up to D 128: test_f32_bias_with_everything_passes_the_card_checks_up_to_d128),
+# and a bias above D 128 with segment ids, a window or offsets (fwd_tile.cuh
+# takes none).
 REFUSED = {"int8 + ids": (128, torch.bfloat16, dict(segment_ids=True, k_scale=True),
                           "K1 options"),
            "int8 + window": (128, torch.bfloat16, dict(windowed=True, k_scale=True),
                              "K1 options"),
-           "f32 + bias": (64, torch.float32, dict(bias=True), "f32 rows"),
+           "f32 + bias": (136, torch.float32, dict(bias=True), "f32 rows item 5"),
            "D 160 bias + ids": (160, torch.bfloat16, dict(bias=True, segment_ids=True),
                                 "functions item 6"),
            "D 160 bias + window": (160, torch.bfloat16, dict(bias=True, windowed=True),
@@ -399,6 +401,22 @@ def test_refusals_left_on_the_card(case):
               windowed=opts.get("windowed", False), offsets=opts.get("offsets", False))
     with pytest.raises(NotImplementedError, match=item):
         flash_fwd._check_kernel_args(_cuda_q(D, dtype), **kw)
+
+
+@pytest.mark.parametrize("D", [64, 72, 128, 136])
+def test_f32_bias_with_everything_passes_the_card_checks_up_to_d128(D):
+    """An f32 bias with ids, a window and offsets passes K1's and the
+    backward's checks at D <= 128 (the f32 route's BIAS family) and is
+    refused above, naming f32 rows item 5."""
+    q = _cuda_q(D, torch.float32)
+    kw = dict(segment_ids=(1, 1), bias=object(), k_scale=None, windowed=True, offsets=True)
+    assert flash_bwd.bias_bwd_route(head_dim=D, bias=object(), dtype=torch.float32) == (D <= 128)
+    if D <= 128:
+        flash_fwd._check_kernel_args(q, **kw)
+        flash_bwd.check_kernel_dims(q, "K5 + K6 bias route")
+    else:
+        with pytest.raises(NotImplementedError, match="f32 rows item 5"):
+            flash_fwd._check_kernel_args(q, **kw)
 
 
 @pytest.mark.parametrize("D", [64, 128, 136])

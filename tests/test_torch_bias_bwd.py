@@ -59,12 +59,14 @@ ROUTE_TAKES = {"path A mask": {}, "path A learned": dict(bias_shape=(4, 16, N, N
                "row-broadcast": dict(bias_shape=(4, 1, 1, N)),
                "ragged Nq": dict(bias_shape=(2, 16, 1000, N)),
                "Nk 2046": dict(bias_shape=(4, 1, N, N - 2)),
-               "decode-shaped": dict(bias_shape=(2, 1, 8, N))}
-# Those it refuses: head dims above 128, f32 and fp16 calls, and no bias at
+               "decode-shaped": dict(bias_shape=(2, 1, 8, N)),
+               "f32 path A": dict(dtype=torch.float32),
+               "f32 D 64": dict(head_dim=64, dtype=torch.float32, bias_shape=(1, 16, N, N))}
+# Those it refuses: head dims above 128 (f32 too), fp16 calls, and no bias at
 # all (K3's or the split route's).
 ROUTE_REFUSES = {"no bias": dict(bias_shape=None),
-                 "f32": dict(dtype=torch.float32), "fp16": dict(dtype=torch.float16),
-                 "D 136": dict(head_dim=136)}
+                 "f32": dict(head_dim=136, dtype=torch.float32),
+                 "fp16": dict(dtype=torch.float16), "D 136": dict(head_dim=136)}
 
 
 @pytest.mark.parametrize("case", list(ROUTE_TAKES))

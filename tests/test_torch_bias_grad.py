@@ -125,16 +125,17 @@ def test_fold_dbias_equals_unfolded(kind):
 
 
 def test_dbias_only_when_the_bias_needs_it(monkeypatch):
-    """K6 is asked for dbias only when the bias requires grad; a mask (a bias
-    without grad, as the SDPA adapter makes from a boolean mask) gets none."""
+    """The backward (K6, or the bias route that computes K5 and K6 in one
+    launch: every f32 and bf16 call with a bias up to D 128) is asked for
+    dbias only when the bias requires grad; a mask (a bias without grad, as
+    the SDPA adapter makes from a boolean mask) gets none."""
     asked = []
-    real = flash_bwd.dq
+    for name in ("dq", "bias_bwd"):
+        def spy(*args, want_dbias=False, real=getattr(flash_bwd, name), **kw):
+            asked.append(want_dbias)
+            return real(*args, want_dbias=want_dbias, **kw)
 
-    def spy(*args, want_dbias=False, **kw):
-        asked.append(want_dbias)
-        return real(*args, want_dbias=want_dbias, **kw)
-
-    monkeypatch.setattr(flash_bwd, "dq", spy)
+        monkeypatch.setattr(flash_bwd, name, spy)
     q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in _qkv(11))
     bias = torch.from_numpy(_bias(12, (1, 1, NQ, NK)))
     flashattn_tpu_torch.flash_attention(q, k, v, bias=bias).sum().backward()

@@ -207,11 +207,13 @@ def _fake_cuda(shape, dtype):
                                  device=types.SimpleNamespace(type="cuda"))
 
 
-@pytest.mark.parametrize("kw,what", [(dict(bias=object()), "a bias"),
+@pytest.mark.parametrize("kw,what", [(dict(bias=object(), D=136), "head dims above 128"),
                                      (dict(k_scale=object()), "quantized K/V"),
                                      (dict(D=136), "head dims above 128")],
                          ids=["bias", "quantized", "D 136"])
 def test_k1_refuses_what_the_f32_route_does_not_take(kw, what):
+    """The f32 route's refusals name their f32 rows items; a bias it takes up
+    to D 128 (the "bias" case: above D 128, item 5, as without one)."""
     D = kw.pop("D", 128)
     q = _fake_cuda((1, 4, 64, D), torch.float32)
     with pytest.raises(NotImplementedError, match=f"f32 route takes no {what}.*ROADMAP"):
@@ -220,11 +222,13 @@ def test_k1_refuses_what_the_f32_route_does_not_take(kw, what):
 
 
 def test_the_bias_backward_refuses_f32(monkeypatch):
-    q = torch.empty((1, 2, 16, 64), device="meta")
+    """f32 with a bias runs on the f32 body up to D 128; above it the bias
+    route refuses it, naming f32 rows item 5."""
+    q = torch.empty((1, 2, 16, 136), device="meta")
     stats = torch.empty((1, 2, 16), device="meta")
     bias = torch.empty((1, 1, 1, 16), device="meta")
     monkeypatch.setattr(flash_bwd, "check_kernel_args", lambda q, name: None)
-    with pytest.raises(NotImplementedError, match="no float32.*ROADMAP"):
+    with pytest.raises(NotImplementedError, match="no float32.*ROADMAP.*f32 rows item 5"):
         flash_bwd.bias_bwd(q, q, q, q, stats, stats, scale=0.125, bias=bias)
 
 
@@ -269,8 +273,9 @@ def _bnhd(*xs):
 @pytest.mark.parametrize("segments", [False, True])
 def test_f32_forward_packs_the_c_arguments(segments):
     """fa_fwd_f32 on f32 BNHD views with GQA, a window, offsets, the cap and
-    (or not) segment ids at the f32 route's tiles: K1's dense route's
-    argument list, in its order, with the pieces' scratch after lse."""
+    (or not) segment ids at the f32 route's tiles and a bias: K1's dense
+    route's argument list, in its order, with the pieces' scratch after lse
+    and the bias (None without one) and its strides before the stream."""
     B, Hq, Hkv, Nq, Nk, D = 2, 4, 2, 200, 150, 64
     q, k, v = _bnhd(*make_qkv(40, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv))
     o, lse = torch.empty_like(q), torch.empty((B, Hq, Nq))
@@ -278,15 +283,18 @@ def test_f32_forward_packs_the_c_arguments(segments):
     ids = (torch.arange(Nq).repeat(B, 1) // 50, torch.arange(Nk).repeat(B, 1) // 50)
     seg = (flash_fwd.sm90_segments(ids, Nq, 140, q_tile=flash_fwd.F32_Q_TILE,
                                    kv_tile=flash_fwd.F32_KV_TILE) if segments else None)
+    bias, strides = (flash_fwd.sm90_bias(torch.zeros((1, Hq, Nq, Nk))) if segments
+                     else (None, (0, 0, 0)))
     seen = []
     lib = types.SimpleNamespace(fa_fwd_f32=_recorder("fa_fwd_f32", native.FWD_F32_ARGTYPES,
                                                      seen))
     rc = flash_fwd._launch_dense_sm90(lib, q, k, v, o, lse, seg, scale=0.125, kv_valid_len=140,
                                       causal=True, window=(100, -1), softcap=30.0, stream=4096,
-                                      q_offset=600, kv_offset=200, pieces=pieces)
+                                      q_offset=600, kv_offset=200, pieces=pieces, bias=bias,
+                                      bias_strides=strides)
     assert rc == 0 and [name for name, _ in seen] == ["fa_fwd_f32"]
     args = seen[0][1]
-    assert len(args) == len(native.FWD_F32_ARGTYPES) == 37
+    assert len(args) == len(native.FWD_F32_ARGTYPES) == 41
     assert args[:6] == tuple(x.data_ptr() for x in (q, k, v, o, lse, pieces))
     assert args[6:10] == ((None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg))
     assert args[10:21] == (B, Hq, Hkv, Nq, D, 140, 1, 100, -1, 600, 200)
@@ -294,15 +302,18 @@ def test_f32_forward_packs_the_c_arguments(segments):
     assert args[23:26] == (Nq * Hq * D, D, Hq * D)
     assert args[26:29] == (Nk * Hkv * D, D, Hkv * D)
     assert args[29:32] == args[26:29] and args[32:35] == args[23:26]
-    assert args[35] == (Nq if segments else 0) and args[36] == 4096
+    assert args[35] == (Nq if segments else 0) and args[40] == 4096
+    # Nk 150 is not a multiple of 4: sm90_bias pads the rows to 152 columns.
+    assert args[36:40] == ((bias.data_ptr(), 0, Nq * 152, 152) if segments else (None, 0, 0, 0))
 
 
 @pytest.mark.parametrize("segments", [False, True])
 def test_f32_backward_packs_the_c_arguments(segments):
     """fa_bwd_f32 on f32 BNHD views with GQA, a window, offsets and (or not)
     segment ids at the f32 body's tiles (32-row Q tiles, 64-key KV tiles,
-    the query ids padded): the split route's argument list, in its order,
-    with the pieces' scratch after dv."""
+    the query ids padded) and a bias with dbias: the split route's argument
+    list, in its order, with the pieces' scratch after dv and the bias,
+    dbias (None without them) and the bias's strides before the stream."""
     B, Hq, Hkv, Nq, Nk, D = 2, 4, 2, 96, 130, 80
     q, k, v = _bnhd(*make_qkv(41, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv))
     do = q.clone()
@@ -317,16 +328,19 @@ def test_f32_backward_packs_the_c_arguments(segments):
     if segments:
         assert seg[0].shape == (B, 96) and seg[1].shape == (B, 128)
         assert seg[2].shape == (B, 3, 2) and seg[3].shape == (B, 2, 2)
+    bias = torch.zeros((B, 1, 1, Nk)) if segments else None
+    dbias = torch.empty((B, Hq, Nq, Nk)) if segments else None
+    _, strides = flash_fwd.kernel_bias(bias)
     seen = []
     lib = types.SimpleNamespace(fa_bwd_f32=_recorder("fa_bwd_f32", native.BWD_F32_ARGTYPES,
                                                      seen))
     rc = flash_bwd._launch_split(lib, q, k, v, do, stats, stats, dq, dk, dv, seg, scale=0.25,
                                  causal=False, kv_valid_len=120, window=(64, 7), softcap=None,
                                  nq_pad=96, stream=4096, q_offset=96, kv_offset=-64,
-                                 pieces=pieces)
+                                 pieces=pieces, bias=bias, dbias=dbias, bias_strides=strides)
     assert rc == 0 and [name for name, _ in seen] == ["fa_bwd_f32"]
     args = seen[0][1]
-    assert len(args) == len(native.BWD_F32_ARGTYPES) == 42
+    assert len(args) == len(native.BWD_F32_ARGTYPES) == 47
     assert args[:10] == tuple(x.data_ptr()
                               for x in (q, k, v, do, stats, stats, dq, dk, dv, pieces))
     assert args[10:14] == ((None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg))
@@ -336,7 +350,9 @@ def test_f32_backward_packs_the_c_arguments(segments):
     assert args[29:32] == (Nq * Hq * D, D, Hq * D)
     assert args[32:35] == (Nk * Hkv * D, D, Hkv * D)
     assert args[35:38] == args[32:35] and args[38:41] == args[29:32]
-    assert args[41] == 4096
+    assert args[41:46] == ((bias.data_ptr(), dbias.data_ptr(), Nk, 0, 0) if segments
+                           else (None, None, 0, 0, 0))
+    assert args[46] == 4096
 
 
 # ---------------------------------------------------------------------------

@@ -299,5 +299,6 @@ def test_f32_calls_split_once_before_each_kernel(card, packed):
     assert len(f32_split.operands(scratch[0], [qs, kvs, kvs], D)) == 3
     assert len(f32_split.operands(scratch[1], [qs, kvs, kvs, qs], D)) == 4
     fwd_args, bwd_args = calls[0][1], calls[1][1]
-    assert len(fwd_args) == 37 and fwd_args[14] == D and fwd_args[23:26] == (N * Hq * D, D, Hq * D)
-    assert len(bwd_args) == 42 and bwd_args[19] == D and bwd_args[14:17] == (B, Hq, Hkv)
+    assert len(fwd_args) == 41 and fwd_args[14] == D and fwd_args[23:26] == (N * Hq * D, D, Hq * D)
+    assert len(bwd_args) == 47 and bwd_args[19] == D and bwd_args[14:17] == (B, Hq, Hkv)
+    assert fwd_args[36] is None and bwd_args[41:43] == (None, None)  # no bias, no dbias

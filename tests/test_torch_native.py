@@ -192,6 +192,13 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
      "CUtensorMap_stS1_S1_N2fa12FwdF32ParamsE", "K1 f32 segments softcap fwd_f32_kernel<64, 1, 1>"),
     ("_ZN49_GLOBAL__N__a4eea0e5_16_flash_bwd_f32_cu_7d59452214bwd_f32_kernelILi128ELb0ELb0EEEv14"
      "CUtensorMap_stS1_S1_S1_N2fa12BwdF32ParamsE", "bwd f32 bwd_f32_kernel<128, 0, 0>"),
+    ("_ZN49_GLOBAL__N__5b2c1d3e_16_flash_fwd_f32_cu_0a1b2c3d14fwd_f32_kernelILi128ELb0ELb1ELb1EEEv14"
+     "CUtensorMap_stS1_S1_N2fa12FwdF32ParamsE",
+     "K1 f32 bias softcap fwd_f32_kernel<128, 0, 1, 1>"),
+    ("_ZN49_GLOBAL__N__a4eea0e5_16_flash_bwd_f32_cu_7d59452214bwd_f32_kernelILi64ELb1ELb0ELb1EEEv14"
+     "CUtensorMap_stS1_S1_S1_N2fa12BwdF32ParamsE", "bwd f32 bias segments bwd_f32_kernel<64, 1, 0, 1>"),
+    ("_ZN49_GLOBAL__N__a4eea0e5_16_flash_bwd_f32_cu_7d59452214bwd_f32_kernelILi64ELb1ELb0ELb0EEEv14"
+     "CUtensorMap_stS1_S1_S1_N2fa12BwdF32ParamsE", "bwd f32 segments bwd_f32_kernel<64, 1, 0, 0>"),
     ("_ZN49_GLOBAL__N__5e6f7a8b_15_split_bf16x3_cu_1a2b3c4d19split_bf16x3_kernelENS_11SplitParamsE",
      "split bf16x3 split_bf16x3_kernel"),
     ("_ZN12_GLOBAL__N_113decode_kernelILi128ELi0EEEvN2fa12DecodeParamsE",
