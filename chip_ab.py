@@ -43,6 +43,10 @@ those that ``--cases`` names:
   ``flash_bwd.dkv`` then ``flash_bwd.dq`` (K5 + K6, mma.sync) in a parent
   whose ``flash_bwd.bias_bwd`` (one TMA + wgmma kernel) does not take the
   call, ``bias_bwd`` where it does;
+* ``k1_bias_d256``, ``k1_bias_d256_learned``: K1 with path A's key-padding
+  bias and with it plus a normal [1, 8, N, N] bias at heads of 256 (B4 H8
+  N2048 D256, BNHD): ``fwd_tile.cuh`` in a parent before K1's bias route
+  took D 256, its D 256 form after;
 * ``gemm``: K9 at 4096^3, bf16 out;
 * ``ring_fwd``, ``ring_bwd``: K7 and K8 on one full off-diagonal chunk pair
   of the ring's main shape (rank 1's 4096 query rows against rank 0's K/V,
@@ -104,6 +108,10 @@ CASE_KERNELS = {"unet": "K1 dense sm90 fwd_dense_sm90_kernel<64, 0, 0>",
                                  "bias bwd sm90 softcap bwd_bias_sm90_kernel<128, 1, 1, 0>"),
                 "bias_bwd_d96": ("K5 bias dkv_bias_kernel<96, 0> + K6 bias dq_bias_kernel<96, 0>",
                                  "bias bwd sm90 bwd_bias_sm90_kernel<128, 0, 0, 0>"),
+                "k1_bias_d256": ("K1 bias fwd_kernel<256, 1, 0>",
+                                 "K1 bias sm90 fwd_bias_sm90_kernel<256, 0, 0>"),
+                "k1_bias_d256_learned": ("K1 bias fwd_kernel<256, 1, 0>",
+                                         "K1 bias sm90 fwd_bias_sm90_kernel<256, 0, 0>"),
                 "gemm": "K9 gemm_wgmma_kernel<0>",
                 "ring_fwd": "K7 ring_fwd_sm90_kernel<128>",
                 "ring_bwd": "K8 ring_bwd_sm90_kernel<128>"}
@@ -214,7 +222,16 @@ for name, bias, want_dbias, cap, d in (("bias_bwd", pad, False, None, 128),
                                 flash_bwd.dq(*args, want_dbias=want_dbias, **kw)))
     else:
         timed(name, lambda: route(*args, want_dbias=want_dbias, **kw))
-del q, k, v, do, q96, k96, v96, do96, pad, learned, o, lse, args
+del q, k, v, do, q96, k96, v96, do96, learned, o, lse, args
+torch.cuda.empty_cache()
+# K1 with path A's biases at heads of 256 (B4 H8 N2048 D256): fwd_tile.cuh in
+# a parent before the bias route's D 256 form.
+q, k, v = (cs._bnhd(x) for x in make_qkv(17, B, 8, N, 256, dtype=torch.bfloat16, device="cuda"))
+learned = pad + torch.randn((1, 8, N, N), generator=torch.Generator(device="cuda").manual_seed(18),
+                            device="cuda")
+timed("k1_bias_d256", lambda: flash_fwd.fwd(q, k, v, scale=256 ** -0.5, bias=pad))
+timed("k1_bias_d256_learned", lambda: flash_fwd.fwd(q, k, v, scale=256 ** -0.5, bias=learned))
+del q, k, v, pad, learned
 torch.cuda.empty_cache()
 a, b = (x[0, 0].contiguous() for x in make_qkv(9, 1, 1, 4096, 4096, dtype=torch.bfloat16,
                                                 device="cuda")[:2])
@@ -247,8 +264,8 @@ def _canonical(name: str) -> str:
     backward's with the softcap's (0), the bias routes' with segment ids'
     (0); every other name as it is."""
     name = re.sub(r"^(K5[^<]* dkv(?:_window)?_kernel<\d+), 0([,>])", r"\1\2", name)
-    name = re.sub(r"^(bias bwd sm90[^<]*<\d+, \d+)>$", r"\1, 0>", name)
-    name = re.sub(r"^(bias bwd sm90[^<]*<\d+, \d+, \d+)>$", r"\1, 0>", name)
+    name = re.sub(r"^(bias bwd sm90(?! d256)[^<]*<\d+, \d+)>$", r"\1, 0>", name)
+    name = re.sub(r"^(bias bwd sm90(?! d256)[^<]*<\d+, \d+, \d+)>$", r"\1, 0>", name)
     name = re.sub(r"^(K1 bias sm90[^<]*<\d+)>$", r"\1, 0>", name)
     name = re.sub(r"^(K1 bias sm90[^<]*<\d+), (\d+)>$", r"\1, 0, \2>", name)
     return re.sub(r"^(K1 dense sm90[^<]*<\d+, \d+)>$", r"\1, 0>", name)

@@ -536,7 +536,8 @@ def instantiation_name(mangled: str) -> str:
     0>``, ``K1 bias sm90 softcap fwd_bias_sm90_kernel<128, 1>``, ``K1 dense
     sm90 segments fwd_dense_sm90_kernel<128, 1, 0>``, ``K3 sm90
     bwd_sm90_kernel<64>``, ``bias bwd sm90 softcap
-    bwd_bias_sm90_kernel<128, 1, 1>``,
+    bwd_bias_sm90_kernel<128, 1, 1>``, ``bias bwd sm90 d256 segments
+    bwd_bias_wide_kernel<1, 0>``,
     ``K5 + K6 split sm90 segments softcap bwd_split_sm90_kernel<128, 1, 1>``
     or ``K5 softcap bias dkv_bias_kernel<128, 1>`` (K9 is
     ``gemm_wgmma_kernel``, K7 / K8 ``ring_{fwd,bwd}_sm90_kernel``; the
@@ -593,6 +594,14 @@ def instantiation_name(mangled: str) -> str:
         return (f"K5 + K6 split sm90{' segments' if args[1] == '1' else ''}"
                 f"{' softcap' if args[2] == '1' else ''} "
                 f"bwd_split_sm90_kernel<{', '.join(args)}>")
+    bias_wide = re.search(r"bwd_bias_wide_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if bias_wide:  # K5 + K6's bias route at D 256, bwd_bias_wide_kernel<SEG, CAP>
+        args = re.findall(r"L[a-z]+(-?\d+)E", bias_wide.group(1))
+        if len(args) != 2:
+            return f"unrecognised instantiation bwd_bias_wide_kernel<{', '.join(args)}>"
+        return (f"bias bwd sm90 d256{' segments' if args[0] == '1' else ''}"
+                f"{' softcap' if args[1] == '1' else ''} "
+                f"bwd_bias_wide_kernel<{', '.join(args)}>")
     bias_bwd = re.search(r"bwd_bias_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if bias_bwd:  # K5 + K6's bias route, bwd_bias_sm90_kernel<D, DBIAS, CAP, SEG>
         args = re.findall(r"L[a-z]+(-?\d+)E", bias_bwd.group(1))
@@ -1221,7 +1230,8 @@ def _reset_launches() -> None:
     flash_fwd.fwd.launches = flash_bwd_fused.bwd.launches = 0
     flash_fwd.fwd.launches_bias = flash_fwd.fwd.launches_int8 = flash_fwd.fwd.launches_fp8 = 0
     flash_fwd.fwd.launches_bias_sm90 = flash_fwd.fwd.launches_dense_sm90 = 0
-    flash_fwd.fwd.launches_dense_d256 = 0
+    flash_fwd.fwd.launches_dense_d256 = flash_fwd.fwd.launches_bias_d256 = 0
+    flash_bwd.bias_bwd.launches_d256 = 0
     flash_bwd_fused.bwd.launches_sm90 = flash_bwd_fused.bwd.launches_d256 = 0
     flash_bwd.split_bwd.launches_d256 = 0
     flash_fwd.fwd.launches_window = flash_fwd.fwd.launches_softcap = 0
@@ -1239,13 +1249,15 @@ def _launches() -> dict:
     """Every kernel's launch count; "K1" counts all K1 launches, "K1 bias",
     "K1 int8", "K1 fp8", "K1 window" and "K1 softcap" those of its variants
     (a launch with a window and a softcap counts in both), "K1 bias sm90"
-    those of K1's bias route (also counted in "K1 bias"), "K1 dense sm90"
+    those of K1's bias route (also counted in "K1 bias"), "K1 bias d256"
+    those of its D 256 form (bf16 above D 128), "K1 dense sm90"
     those of K1's dense route (a window's also in "K1 window", a cap's in
     "K1 softcap"), "K1 dense d256" those of its D 256 form (bf16 above D
     128); "K3" all K3 launches, "K3 sm90" those of its Hopper
     kernel, "K3 d256" those of its D 256 form (bf16 above D 128); "bias
     bwd" the launches of K5 + K6's bias route (one kernel for both, with a
-    bias and, if any, the softcap), "bias bwd dbias" those that wrote dbias;
+    bias and, if any, the softcap), "bias bwd dbias" those that wrote dbias,
+    "bias bwd d256" those of its D 256 form (bf16 above D 128);
     "split bwd" those of K5 + K6 without a bias (one kernel for both, with
     segment ids and / or the softcap), "split bwd d256" those of its D 256
     form; "K1 f32" the launches of K1's f32 kernel (also counted in "K1",
@@ -1264,6 +1276,7 @@ def _launches() -> dict:
 
     return {"K1": flash_fwd.fwd.launches, "K1 bias": flash_fwd.fwd.launches_bias,
             "K1 bias sm90": flash_fwd.fwd.launches_bias_sm90,
+            "K1 bias d256": flash_fwd.fwd.launches_bias_d256,
             "K1 dense sm90": flash_fwd.fwd.launches_dense_sm90,
             "K1 dense d256": flash_fwd.fwd.launches_dense_d256,
             "K1 int8": flash_fwd.fwd.launches_int8, "K1 fp8": flash_fwd.fwd.launches_fp8,
@@ -1274,6 +1287,7 @@ def _launches() -> dict:
             "K3 d256": flash_bwd_fused.bwd.launches_d256,
             "bias bwd": flash_bwd.bias_bwd.launches,
             "bias bwd dbias": flash_bwd.bias_bwd.launches_dbias,
+            "bias bwd d256": flash_bwd.bias_bwd.launches_d256,
             "split bwd": flash_bwd.split_bwd.launches,
             "split bwd d256": flash_bwd.split_bwd.launches_d256,
             "K1 f32": flash_fwd.fwd.launches_f32, "bwd f32": flash_bwd._f32_bwd_launch.launches,
@@ -1819,9 +1833,9 @@ WINDOW_REL_L2 = 1e-2
 CAP_D40_CASE = (2, 8, 4, 1300, 40, 5.0)
 # Head dims above 128 in the forward at B1 Hq8 Hkv4 D160 (phase_window_check's
 # _wide_fwd_check): without a bias K1's dense route's D 256 form (D 160 in
-# its box), with a bias fwd_tile.cuh (fwd_launch_wide); the cases without a
-# bias also through the split route's D 256 form in phase_wide_bwd_check,
-# since no CUDA backward takes a bias above D 128: (tag, Nq, Nk, causal,
+# its box), with a bias its bias route's D 256 form; each also through its
+# backward's D 256 form in phase_wide_bwd_check (the split route's, the bias
+# route's with dbias): (tag, Nq, Nk, causal,
 # window, ids kind as _seg_case_ids, bias, softcap, has dead rows) -- the
 # dead rows of a window past the keys, of a segment no key carries and of
 # key padding; cap 5 saturates the grown scores' tanh.
@@ -1863,9 +1877,9 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     relative L2 (printed with max|ref|), dead rows' O and dQ exactly 0 and
     their LSE exactly ln2 · mask as the kernels form it in f32; K1 on its
     route, one launch counted with its bias, window and cap: with a bias the
-    bias route at D <= 128, ``fwd_tile.cuh`` above; without, the dense route
-    (its D 256 form above D 128). Returns the max errors, dbias, and the (q,
-    k, v, do, lse, delta) the backward took."""
+    bias route, without the dense route (each its D 256 form above D 128).
+    Returns the max errors, dbias, and the (q, k, v, do, lse, delta) the
+    backward took."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
     from flashattn_tpu_torch.utils.testing import (
@@ -1878,7 +1892,8 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
                     K1_softcap=int("softcap" in kw))
     wide = int(q.shape[-1] > 128)
     if "bias" in kw:  # K1's bias route (the paths' bias calls are not decode-shaped)
-        _routed(f"K1 at {tag}", before, K1=1, K1_bias=1, K1_bias_sm90=1 - wide, **variants)
+        _routed(f"K1 at {tag}", before, K1=1, K1_bias=1, K1_bias_sm90=1, K1_bias_d256=wide,
+                **variants)
     else:  # K1's dense route
         _routed(f"K1 at {tag}", before, K1=1, K1_dense_sm90=1, K1_dense_d256=wide, **variants)
     f32 = [x.float() for x in (q, k, v) + (() if do is None else (do,))]
@@ -1966,7 +1981,8 @@ def _bias_bwd_check(tag: str, args, f32, *, want_dbias: bool, phase: str = "bias
     variant with ``want_dbias``, with the softcap, the window, the offsets
     and the segment ids in ``kw`` if any) on ``args`` = (q, k, v, do, lse,
     delta) against bias_bwd_reference on ``f32``, f32 copies of (q, k, v,
-    do), and the same lse and delta: dQ, dK, dV (per KV head) and dbias
+    do), and the same lse and delta (one launch, of the D 256 form above D
+    128): dQ, dK, dV (per KV head) and dbias
     within BWD_TOL[bf16] and each within WINDOW_REL_L2 relative L2 (printed
     with max|ref|); dead rows' dQ and dbias exactly 0, and dbias exactly 0
     on every pair the masks drop (flash_fwd.pair_mask: the band, the ids,
@@ -1983,11 +1999,13 @@ def _bias_bwd_check(tag: str, args, f32, *, want_dbias: bool, phase: str = "bias
     if want_dbias:
         b, hq, nq, d = q.shape
         _poison_cache(8 * (b * hq * nq * (k.shape[2] + d) + 2 * b * k.shape[1] * k.shape[2] * d))
-    before = flash_bwd.bias_bwd.launches, flash_bwd.bias_bwd.launches_dbias
+    counts = lambda: (flash_bwd.bias_bwd.launches, flash_bwd.bias_bwd.launches_dbias,  # noqa: E731
+                      flash_bwd.bias_bwd.launches_d256)
+    before = counts()
     got = flash_bwd.bias_bwd(*args, want_dbias=want_dbias, **kw)
     torch.cuda.synchronize()
-    launched = (flash_bwd.bias_bwd.launches - before[0],
-                flash_bwd.bias_bwd.launches_dbias - before[1])
+    launched = tuple(a - b for a, b in zip(counts(), before))
+    expected = (1, int(want_dbias), int(q.shape[-1] > 128))
     want = flash_bwd.bias_bwd_reference(*f32, *args[4:], want_dbias=want_dbias, **kw)
     names = ("dq", "dk", "dv", *(("dbias",) if want_dbias else ()))
     got, want = got[:len(names)], want[:len(names)]
@@ -2007,7 +2025,7 @@ def _bias_bwd_check(tag: str, args, f32, *, want_dbias: bool, phase: str = "bias
         ).expand(got[3].shape)
         masked, n_masked = int((got[3][drop] != 0).sum()), int(drop.sum())
         del drop
-    log(phase, f"{tag}: K5 + K6 bias route (bias bwd / bias bwd dbias launches {launched}) "
+    log(phase, f"{tag}: K5 + K6 bias route (bias bwd / dbias / d256 launches {launched}) "
                f"dQ/dK/dV{'/dbias' if want_dbias else ''} max_abs_err {err:.3e} (budget "
                f"BWD_TOL[bf16] atol {g_tol.atol} rtol {g_tol.rtol}); relative L2 (limit "
                f"{WINDOW_REL_L2}) / max|ref|: "
@@ -2015,9 +2033,9 @@ def _bias_bwd_check(tag: str, args, f32, *, want_dbias: bool, phase: str = "bias
                + f"; dead rows {int(dead.sum())}, their dQ{' and dbias' if want_dbias else ''} "
                f"exactly 0: {dead_zero}" + (f"; dbias on the {n_masked} pairs the masks drop: "
                                             f"{masked} not exactly 0" if want_dbias else ""))
-    if launched != (1, int(want_dbias)):
+    if launched != expected:
         fail(f"the bias route's backward launched {launched} times at {tag}, expected "
-             f"{(1, int(want_dbias))}")
+             f"{expected}")
     if not ok:
         fail(f"the bias route's backward disagrees with bias_bwd_reference at {tag}: {why}")
     if not all(r <= WINDOW_REL_L2 for r, _ in rel.values()):
@@ -2033,35 +2051,45 @@ def _bias_bwd_check(tag: str, args, f32, *, want_dbias: bool, phase: str = "bias
     return {"err": err, "dbias": dbias}
 
 
+def _wide_case(i: int):
+    """WIDE_CASES[i]'s inputs at B1 Hq8 Hkv4 D WIDE_D: q, k (at GROW), v and
+    the keyword arguments of its call (the bias: key padding plus a normal
+    [1, Hq, Nq, Nk] bias)."""
+    B, Hq, Hkv, D = 1, 8, 4, WIDE_D
+    name, nq, nk, causal, window, ids, biased, cap, dead = WIDE_CASES[i]
+    q, k, v = _grown(1070 + i, B, Hq, nq, D, nk, Hkv)
+    kw = dict(scale=D ** -0.5, causal=causal)
+    if window is not None:
+        kw["window"] = window
+    if ids is not None:
+        kw["segment_ids"] = _seg_case_ids(ids, 1080 + i, B, nq, nk)
+    if biased:
+        gen = torch.Generator(device=DEVICE).manual_seed(1090 + i)
+        kw["bias"] = _padding_bias((700,), nk) + torch.randn((1, Hq, nq, nk), generator=gen,
+                                                              device=DEVICE)
+    if cap is not None:
+        kw["softcap"] = cap
+    tag = (f"{'the D 256 bias form' if biased else 'the D 256 form'} {name}: B{B} Hq{Hq} "
+           f"Hkv{Hkv} Nq{nq} Nk{nk} D{D}{' causal' if causal else ''}"
+           f"{'' if window is None else f', window {window}'}"
+           f"{'' if ids is None else f', {ids} ids'}"
+           f"{', key padding + normal bias' if biased else ''}"
+           f"{'' if cap is None else f', softcap {cap}'}")
+    return q, k, v, kw, tag
+
+
 def _wide_fwd_check() -> None:
     """K1 above D 128 (WIDE_CASES, then WIDE_FWD_CASES), the forward only
     (_fwd_bwd_check without dO): one launch each, of the dense route's D 256
-    form without a bias and of fwd_tile.cuh with one; then, after those
+    form without a bias and of the bias route's with one; then, after those
     numeric gates, the D 256 form's four instantiations' SASS
     (_tma_wgmma_sass: HGMMA, UTMALDG, no HMMA)."""
-    B, Hq, Hkv, D = 1, 8, 4, WIDE_D
-    for i, (name, nq, nk, causal, window, ids, biased, cap, dead) in enumerate(WIDE_CASES):
-        q, k, v = _grown(1070 + i, B, Hq, nq, D, nk, Hkv)
-        kw = dict(scale=D ** -0.5, causal=causal)
-        if window is not None:
-            kw["window"] = window
-        if ids is not None:
-            kw["segment_ids"] = _seg_case_ids(ids, 1080 + i, B, nq, nk)
-        if biased:
-            gen = torch.Generator(device=DEVICE).manual_seed(1090 + i)
-            kw["bias"] = _padding_bias((700,), nk) + torch.randn((1, Hq, nq, nk), generator=gen,
-                                                                  device=DEVICE)
-        if cap is not None:
-            kw["softcap"] = cap
-        route = "fwd_tile.cuh" if biased else "the D 256 form"
-        out = _fwd_bwd_check(f"{route} {name}: B{B} Hq{Hq} Hkv{Hkv} Nq{nq} Nk{nk} D{D}"
-                             f"{' causal' if causal else ''}"
-                             f"{'' if window is None else f', window {window}'}"
-                             f"{'' if ids is None else f', {ids} ids'}"
-                             f"{', key padding + normal bias' if biased else ''}"
-                             f"{'' if cap is None else f', softcap {cap}'}", q, k, v, None, **kw)
+    B, Hq = 1, 8
+    for i, (name, *_, dead) in enumerate(WIDE_CASES):
+        q, k, v, kw, tag = _wide_case(i)
+        out = _fwd_bwd_check(tag, q, k, v, None, **kw)
         if dead and not out["dead"]:
-            fail(f"the D {D} case {name} has no dead row")
+            fail(f"the D {WIDE_D} case {name} has no dead row")
         del q, k, v, kw
     for i, (name, d, hkv, nq, nk, causal, (qo, ko), dead) in enumerate(WIDE_FWD_CASES):
         q, k, v = _grown(1095 + i, B, Hq, nq, d, nk, hkv)
@@ -3019,22 +3047,27 @@ def phase_bias_band_check() -> dict:
     return res
 
 
-def _plain_mhdpa(m, x, bias):
+def _plain_mhdpa(m, x, bias, softcap=None):
     """The module's function written out apart from the port: the
     projections in the parameters' dtype, then softmax(q k^T · D^-1/2 + bias)
     v in f32 with the f32 ``bias`` [B|1, H, N, N] (a band or documents
-    folded in at the mask value), cast back. A gate's reference: it shares
+    folded in at the mask value; with ``softcap`` the scaled scores capped at
+    cap · tanh(s / cap) before it), cast back. A gate's reference: it shares
     no code with flash_attention_fn, the SDPA adapter or the kernels."""
     q, k, v = ((torch.einsum("bnf,fhd->bhnd", x, p.kernel) + p.bias[:, None]).float()
                for p in (m.query, m.key, m.value))
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * q.shape[-1] ** -0.5 + bias
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * q.shape[-1] ** -0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = s + bias
     o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v).to(x.dtype)
     return torch.einsum("bhnd,hdf->bnf", o, m.out.kernel) + m.out.bias
 
 
-def _path_a(arm: str, x, target, valid, mask, rel0, *, window=None, ids=None) -> dict:
-    """One arm of path A: FlashMultiHeadDotProductAttention (ATTN_WIDTH,
-    bf16) on ``x`` with the key-padding ``mask`` and, where ``rel0`` is given,
+def _path_a(arm: str, x, target, valid, mask, rel0, *, window=None, ids=None, softcap=None,
+            width=None, phase: str = "bias_train") -> dict:
+    """One arm of path A: FlashMultiHeadDotProductAttention (``width``,
+    ATTN_WIDTH by default, bf16) on ``x`` with the key-padding ``mask`` and, where ``rel0`` is given,
     a trainable relative-position bias initialised to it (f32, passed as the
     module's ``bias``); an MSE loss over the valid rows. With ``window``
     the module is built with it (Longformer's local window; its "exact"
@@ -3042,7 +3075,10 @@ def _path_a(arm: str, x, target, valid, mask, rel0, *, window=None, ids=None) ->
     ``ids`` [B, N] (packed rows, no mask) the module's projections feed
     flash_attention(bias=the trainable bias, segment_ids=ids, layout="BNHD")
     and its output projection (the torch.nn module takes no ids, as the flax
-    one takes none); fused arm only. Loss and gradient gates: the bf16 floor
+    one takes none); fused arm only. With ``softcap`` the same projections
+    feed flash_attention(bias=the mask's f32 bias, logit_softcap=softcap)
+    (Gemma 2's cap with a padding bias; the module takes no cap); fused arm
+    only. Loss and gradient gates: the bf16 floor
     is the plain bf16 function (_plain_mhdpa on the bf16 weights, the band
     or the documents folded into its bias) against the plain f32 one on the
     unrounded weights; the fused and exact (impl "exact", the SDPA
@@ -3050,8 +3086,9 @@ def _path_a(arm: str, x, target, valid, mask, rel0, *, window=None, ids=None) ->
     one, over all gradients and, with a learned bias, over its gradient
     alone. Then LM_STEPS AdamW steps per arm (the learned bias trained with
     the weights), the launches of the fused steps counted: every K1 call
-    on K1's bias route (with the window, its window variant), every
-    backward one launch of K5 + K6's."""
+    on K1's bias route (with the window, its window variant; with the cap,
+    its softcap variant; above D 128 its D 256 form), every backward one
+    launch of K5 + K6's (above D 128 its D 256 form)."""
     from flashattn_tpu_torch.integrations import FlashMultiHeadDotProductAttention
     from flashattn_tpu_torch.models.transformer import adamw_init, adamw_update
     from flashattn_tpu_torch.ops import flash_fwd
@@ -3059,7 +3096,10 @@ def _path_a(arm: str, x, target, valid, mask, rel0, *, window=None, ids=None) ->
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
 
     B, N, F = x.shape
-    impls = ("fused",) if window is not None or ids is not None else ("fused", "exact")
+    width = ATTN_WIDTH if width is None else width
+    heads, d_head = width["num_heads"], width["qkv_features"] // width["num_heads"]
+    fused_only = window is not None or ids is not None or softcap is not None
+    impls = ("fused",) if fused_only else ("fused", "exact")
     # The pairs that attend, folded into the plain function's bias.
     keep = flash_fwd.pair_mask(N, N, kv_valid_len=N, causal=False, window=window,
                                segment_ids=None if ids is None else (ids, ids), device=DEVICE)
@@ -3068,7 +3108,7 @@ def _path_a(arm: str, x, target, valid, mask, rel0, *, window=None, ids=None) ->
 
     def build(impl, dtype=torch.bfloat16):
         m = FlashMultiHeadDotProductAttention(
-            **ATTN_WIDTH, window=window, impl=impl, dtype=dtype, device=DEVICE,
+            **width, window=window, impl=impl, dtype=dtype, device=DEVICE,
             generator=torch.Generator(device=DEVICE).manual_seed(0))
         rel = None if rel0 is None else torch.nn.Parameter(rel0.clone())
         return m, rel
@@ -3077,10 +3117,12 @@ def _path_a(arm: str, x, target, valid, mask, rel0, *, window=None, ids=None) ->
         dtype = m.out.kernel.dtype
         if plain:
             bias = torch.where(keep, 0.0, DEFAULT_MASK_VALUE)
-            y = _plain_mhdpa(m, x.to(dtype), bias if rel is None else bias + rel)
-        elif ids is not None:
+            y = _plain_mhdpa(m, x.to(dtype), bias if rel is None else bias + rel, softcap)
+        elif ids is not None or softcap is not None:
             q, k, v = (proj(x.to(dtype), 1) for proj in (m.query, m.key, m.value))
-            y = m.out(flash_attention(q, k, v, bias=rel, segment_ids=ids, layout="BNHD"), 2)
+            bias = rel if softcap is None else torch.where(keep, 0.0, DEFAULT_MASK_VALUE)
+            y = m.out(flash_attention(q, k, v, bias=bias, segment_ids=ids, logit_softcap=softcap,
+                                      layout="BNHD"), 2)
         else:
             y = m(x.to(dtype), mask=mask, bias=rel)
         return ((y.float() - target) ** 2 * valid[..., None]).sum() / (valid.sum() * F)
@@ -3113,11 +3155,10 @@ def _path_a(arm: str, x, target, valid, mask, rel0, *, window=None, ids=None) ->
     what = ((f"key-padding mask of lengths {ATTN_LENGTHS}" if mask is not None else
              "8 documents a row (segment ids)")
             + ("" if window is None else f", window {window}")
+            + ("" if softcap is None else f", logit softcap {softcap}")
             + ("" if rel0 is None else f" + a trainable bias {list(rel0.shape)} f32"))
-    log("bias_train", f"{arm} arm: FlashMultiHeadDotProductAttention ({n_params / 1e6:.1f} M "
-                      f"params, {ATTN_WIDTH['num_heads']} heads of "
-                      f"{ATTN_WIDTH['qkv_features'] // ATTN_WIDTH['num_heads']}, bf16) on x "
-                      f"[{B}, {N}, {F}], {what}: loss "
+    log(phase, f"{arm} arm: FlashMultiHeadDotProductAttention ({n_params / 1e6:.1f} M "
+               f"params, {heads} heads of {d_head}, bf16) on x [{B}, {N}, {F}], {what}: loss "
                       + ", ".join(f"{n} {got[n][0]:.7f}" for n in impls)
                       + f", plain bf16 {l16:.7f}, plain f32 {l32:.7f}; "
                       + "; ".join(f"{key} against plain f32: "
@@ -3155,7 +3196,7 @@ def _path_a(arm: str, x, target, valid, mask, rel0, *, window=None, ids=None) ->
         step_s = statistics.median(secs[LM_WARMUP:])
         res[name] = {"ms_per_step": step_s * 1e3,
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-        log("bias_train", f"{arm} arm, {name}: {LM_STEPS} AdamW steps, {step_s * 1e3:.2f} ms/step "
+        log(phase, f"{arm} arm, {name}: {LM_STEPS} AdamW steps, {step_s * 1e3:.2f} ms/step "
                           f"({', '.join(f'{s * 1e3:.1f}' for s in secs)}; median after "
                           f"{LM_WARMUP} warm-up steps), peak {res[name]['peak_gb']:.2f} GB; loss "
                           f"{losses[0]:.5f} -> {losses[-1]:.5f}")
@@ -3163,17 +3204,38 @@ def _path_a(arm: str, x, target, valid, mask, rel0, *, window=None, ids=None) ->
             fail(f"path A {arm} arm, {name} training: losses {losses} not finite or not falling")
         del params, opt
     n, dbias = LM_STEPS, (0 if rel0 is None else LM_STEPS)
-    win = n if window is not None else 0
-    log("bias_train", f"{arm} arm, launches during the fused steps: {res['launches']} (expected "
-                      f"K1 = K1 bias = K1 bias sm90 = bias bwd = {n}, K1 window = {win}, bias "
-                      f"bwd dbias = {dbias}, no K5, K6, K3, split route or fwd_tile.cuh K1)")
-    if res["launches"] != _expect(K1=n, K1_bias=n, K1_bias_sm90=n, K1_window=win, bias_bwd=n,
-                                  bias_bwd_dbias=dbias):
-        fail(f"path A's {arm} arm launched {res['launches']}, expected K1 = K1 bias = K1 bias "
-             f"sm90 = bias bwd = {n}, K1 window = {win}, bias bwd dbias = {dbias} and no other")
+    win, cap = (n if window is not None else 0), (n if softcap is not None else 0)
+    wide = n if d_head > 128 else 0
+    want = _expect(K1=n, K1_bias=n, K1_bias_sm90=n, K1_bias_d256=wide, K1_window=win,
+                   K1_softcap=cap, bias_bwd=n, bias_bwd_dbias=dbias, bias_bwd_d256=wide)
+    log(phase, f"{arm} arm, launches during the fused steps: {res['launches']} (expected "
+               f"K1 = K1 bias = K1 bias sm90 = bias bwd = {n}, K1 bias d256 = bias bwd d256 = "
+               f"{wide}, K1 window = {win}, K1 softcap = {cap}, bias bwd dbias = {dbias}, no K5, "
+               f"K6, K3, split route or fwd_tile.cuh K1)")
+    if res["launches"] != want:
+        fail(f"path A's {arm} arm launched {res['launches']}, expected {want}")
     del models
     torch.cuda.empty_cache()
     return res
+
+
+def _path_a_inputs(width: dict) -> tuple:
+    """Path A's inputs at ``width``: x [4, 2048, in_features], an MSE target
+    at the output's own scale (its std is ~0.044 at these widths, so the loss
+    moves with the attention's output and not only with the target's
+    variance), the valid rows of ATTN_LENGTHS, their [B, 1, N, N] boolean
+    key-padding mask (as nn.make_attention_mask builds it) and a trainable
+    bias's start [1, heads, N, N], all from one seed."""
+    from flashattn_tpu_torch.integrations import make_attention_mask
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    B, N, F = len(ATTN_LENGTHS), ATTN_SEQ, width["in_features"]
+    x = torch.randn((B, N, F), generator=gen, device=DEVICE)
+    target = 0.05 * torch.randn((B, N, F), generator=gen, device=DEVICE)
+    valid = torch.arange(N, device=DEVICE)[None] < torch.tensor(ATTN_LENGTHS, device=DEVICE)[:, None]
+    mask = make_attention_mask(valid, valid, dtype=torch.bool)
+    rel0 = torch.randn((1, width["num_heads"], N, N), generator=gen, device=DEVICE)
+    return x, target, valid, mask, rel0
 
 
 def phase_bias_train() -> dict:
@@ -3188,20 +3250,10 @@ def phase_bias_train() -> dict:
     on both arms; and packed path A, 8 documents a row (packed_ids) with the
     trainable bias through flash_attention(bias=, segment_ids=) between the
     module's projections, over every row."""
-    from flashattn_tpu_torch.integrations import make_attention_mask
-
-    gen = torch.Generator(device=DEVICE).manual_seed(4)
-    B, N, F = len(ATTN_LENGTHS), ATTN_SEQ, ATTN_WIDTH["in_features"]
-    x = torch.randn((B, N, F), generator=gen, device=DEVICE)
-    # The target at the output's own scale (its std is ~0.044 at this width),
-    # so that the loss moves with the attention's output and not only with
-    # the target's variance.
-    target = 0.05 * torch.randn((B, N, F), generator=gen, device=DEVICE)
-    valid = torch.arange(N, device=DEVICE)[None] < torch.tensor(ATTN_LENGTHS, device=DEVICE)[:, None]
-    mask = make_attention_mask(valid, valid, dtype=torch.bool)
-    res = {"mask": _path_a("mask", x, target, valid, mask, None)}
-    rel0 = torch.randn((1, ATTN_WIDTH["num_heads"], N, N), generator=gen, device=DEVICE)
-    res["learned"] = _path_a("learned", x, target, valid, mask, rel0)
+    x, target, valid, mask, rel0 = _path_a_inputs(ATTN_WIDTH)
+    B, N = x.shape[:2]
+    res = {"mask": _path_a("mask", x, target, valid, mask, None),
+           "learned": _path_a("learned", x, target, valid, mask, rel0)}
     res["window_mask"] = _path_a("windowed mask", x, target, valid, mask, None,
                                  window=BAND_WINDOW)
     res["window_learned"] = _path_a("windowed learned", x, target, valid, mask, rel0,
@@ -5031,19 +5083,24 @@ def phase_f32_bias_train() -> dict:
 FUZZ_SEED = 3000
 FUZZ_DRAWS = 40
 FUZZ_MAX_SEEDS = 4000
-FUZZ_OPEN_LABELS = ("functions item 6", "f32 rows item 5", "K1 options")
-FUZZ_ROUTES = ("K1 dense", "K1 bias", "K1 f32", "K1 f32 bias", "K1 decode", "K3",
-               "split route", "bias backward", "f32 backward", "f32 bias backward")
+FUZZ_OPEN_LABELS = ("f32 rows item 5", "K1 options")
+FUZZ_ROUTES = ("K1 dense", "K1 bias", "K1 bias d256", "K1 f32", "K1 f32 bias", "K1 decode", "K3",
+               "split route", "bias backward", "bias backward d256", "f32 backward",
+               "f32 bias backward")
 
 
 def _fuzz_routes(launches: dict, f32: bool) -> set:
     """The FUZZ_ROUTES that a draw's launches (a _launches() difference) went
     through."""
-    got = {"K1 dense": launches["K1 dense sm90"], "K1 bias": launches["K1 bias sm90"],
+    got = {"K1 dense": launches["K1 dense sm90"],
+           "K1 bias": launches["K1 bias sm90"] - launches["K1 bias d256"],
+           "K1 bias d256": launches["K1 bias d256"],
            "K1 f32": launches["K1 f32"] - launches["K1 f32 bias"],
            "K1 f32 bias": launches["K1 f32 bias"], "K1 decode": launches["K1 decode"],
            "K3": launches["K3 sm90"], "split route": 0 if f32 else launches["split bwd"],
-           "bias backward": launches["bias bwd"] - launches["bias bwd f32"],
+           "bias backward": (launches["bias bwd"] - launches["bias bwd f32"]
+                             - launches["bias bwd d256"]),
+           "bias backward d256": launches["bias bwd d256"],
            "f32 backward": launches["bwd f32"] - launches["bias bwd f32"],
            "f32 bias backward": launches["bias bwd f32"]}
     return {name for name, n in got.items() if n > 0}
@@ -5063,12 +5120,13 @@ def _fuzz_predicted(c: dict) -> set:
     elif flash_fwd.decode_route(rows=c["Hq"] // c["Hkv"] * c["Nq"], causal=c["causal"],
                                 segment_ids=seg, window=c["window"], head_dim=D):
         fwd = "K1 decode"
-    elif bias and D <= flash_fwd.DENSE_MAX_HEAD_DIM:
-        fwd = "K1 bias"
+    elif bias:
+        fwd = "K1 bias" if D <= flash_fwd.DENSE_MAX_HEAD_DIM else "K1 bias d256"
     else:
-        fwd = "K1 dense" if not bias else "fwd_tile.cuh"
+        fwd = "K1 dense"
     if bias:
-        bwd = "f32 bias backward" if f32 else "bias backward"
+        bwd = ("f32 bias backward" if f32 else "bias backward"
+               if D <= flash_bwd.SM90_BWD_NARROW_MAX else "bias backward d256")
     elif seg is not None or c["softcap"] is not None:
         bwd = "f32 backward" if f32 else "split route"
     else:
@@ -5276,13 +5334,13 @@ def _wide_bwd_case(tag: str, q, k, v, do, **kw) -> dict:
     return {"err": err, "dead": n_dead, "unreached": n_unreached}
 
 
-def _sdpa_backends_ms(q, k, v, *, do=None, **kw) -> dict:
+def _sdpa_backends_ms(q, k, v, *, do=None, call: str = "is_causal=True", **kw) -> dict:
     """SDPA on these inputs at its own choice of backend and at each fused
     backend that takes them (flash, memory-efficient, cuDNN; GQA by
     ``enable_gqa``, or on K / V expanded to the query heads where a backend
     refuses it), the forward or, with ``do``, the backward: the times by
     backend (logged), and the fastest fused backend's ms and name as
-    ``library_ms`` / ``library_call``."""
+    ``library_ms`` / ``library_call`` (``call`` names the arguments)."""
     from torch.nn.attention import SDPBackend
 
     what = "backward" if do is not None else "forward"
@@ -5308,7 +5366,7 @@ def _sdpa_backends_ms(q, k, v, *, do=None, **kw) -> dict:
     fused = {n: t for n, t in times.items() if n != "its own choice"} or times
     name = min(fused, key=fused.get)
     return {"library_ms": fused[name],
-            "library_call": f"the {what} of scaled_dot_product_attention(is_causal=True), "
+            "library_call": f"the {what} of scaled_dot_product_attention({call}), "
                             f"{name} backend",
             "library_by_backend": times, "library_device_ms_by_backend": device}
 
@@ -5448,9 +5506,10 @@ def phase_wide_bwd_check() -> dict:
     """K3's and the split route's D 256 form (csrc/bwd_sm90_wide.cuh) against
     their plain versions (_wide_bwd_case) on WIDE_BWD_CASES and, backward
     only, on WIDE_CASES' shapes without a bias (D 160, the cap with a window
-    and / or ids); then the times at the D 256 LM's attention (_wide_timing)
-    and, after those numeric gates, the four D 256 instantiations' SASS
-    (_tma_wgmma_sass: HGMMA, UTMALDG, no HMMA)."""
+    and / or ids); WIDE_CASES with a bias through K1 and the bias route's D
+    256 form with dbias (_fwd_bwd_check); then the times at the D 256 LM's
+    attention (_wide_timing) and, after those numeric gates, the four D 256
+    instantiations' SASS (_tma_wgmma_sass: HGMMA, UTMALDG, no HMMA)."""
     from flashattn_tpu_torch.utils.testing import make_qkv
 
     cases = list(WIDE_BWD_CASES) + [
@@ -5484,6 +5543,13 @@ def phase_wide_bwd_check() -> dict:
     if not dead or not unreached:
         fail(f"the D 256 cases hold {dead} dead rows and {unreached} unreached keys: the "
              "exact-zero gates were not exercised")
+    for i, (name, nq, *_, biased, _cap, _dead) in enumerate(WIDE_CASES):
+        if biased:
+            q, k, v, kw, tag = _wide_case(i)
+            do = _bnhd(make_qkv(1350 + i, 1, 8, nq, WIDE_D, dtype=torch.bfloat16,
+                                device=DEVICE)[0])
+            _fwd_bwd_check(tag, q, k, v, do, phase="wide", want_dbias=True, **kw)
+            del q, k, v, do, kw
     res = _wide_timing()
     _tma_wgmma_sass("wide", {"K3 sm90 bwd_sm90_kernel<256>"} | {
         f"K5 + K6 split sm90{' segments' if sg else ''}{' softcap' if cp else ''} "
@@ -5621,6 +5687,273 @@ def _sharded_lm_wide() -> dict:
     torch.cuda.empty_cache()
     return {"counts": counts, "loss": got, "single_device_loss": ref, "grad_rel_l2": rel,
             "grad_floor": floor, "ms": statistics.median(secs) * 1e3}
+
+
+# Head dims above 128 with a bias (csrc/fwd_sm90_tile.cuh's D 256 bias slot,
+# csrc/bwd_sm90_wide.cuh's BIAS family): K1's and K5 + K6's bias routes'
+# D 256 forms against their plain versions on q, k grown by GROW, BAND_CASES'
+# kind of cases at D 256, 192, 160 and 136: (tag, D, B, Hq, Hkv, Nq, Nk,
+# kv_valid_len, causal, window, ids ("docs": _band_ids, one document no key
+# carries), (q_offset, kv_offset), bias (_band_bias' "mask" / "learned" kind,
+# or which of its (batch, head, row) dims a normal bias has), softcap, dbias,
+# has dead rows).
+WIDE_BIAS_CASES = [
+    ("mask arm", 256, 2, 8, 8, 1024, 1024, None, False, None, None, (0, 0), "mask", None,
+     False, True),
+    ("learned arm", 256, 2, 8, 8, 1024, 1024, None, False, None, None, (0, 0), "learned", None,
+     True, True),
+    ("mask arm, softcap 50", 256, 2, 8, 8, 1024, 1024, None, False, None, None, (0, 0), "mask",
+     SOFTCAP, False, True),
+    ("causal GQA 8/2, [B, 1, 1, Nk] bias", 256, 2, 8, 2, 1024, 1024, None, True, None, None,
+     (0, 0), (1, 0, 0), None, True, False),
+    ("window, learned arm, softcap 50", 160, 2, 8, 4, 1024, 1024, None, False, BAND_WINDOW, None,
+     (0, 0), "learned", SOFTCAP, True, True),
+    ("causal window Nq > Nk, [1, H, N, N], cap 5", 136, 1, 8, 4, 1300, 1024, None, True,
+     (200, -1), None, (0, 0), (0, 1, 1), 5.0, True, True),
+    ("8 documents, causal, full bias", 256, 2, 8, 4, 1024, 1024, None, True, None, "docs",
+     (0, 0), (1, 1, 1), None, True, True),
+    ("causal, q_off - kv_off = 2048", 256, 1, 8, 4, 1024, 1024, None, True, None, None,
+     (2048, 0), (1, 1, 1), None, True, False),
+    ("causal, q_off - kv_off = -64, [1, 1, N, N]", 192, 1, 8, 4, 1024, 1024, None, True, None,
+     None, (0, 64), (0, 0, 1), None, True, True),
+    ("ragged Nq 1300, kv tail 900 of 1000, [B, 1, N, N]", 256, 2, 8, 1, 1300, 1000, 900, False,
+     None, None, (0, 0), (1, 0, 1), None, True, False),
+    ("Nq 1", 256, 2, 8, 4, 1, 1000, None, False, None, None, (0, 0), (1, 1, 1), None, True,
+     False),
+    ("ids + window + offsets + cap 5", 256, 1, 8, 4, 1024, 1024, None, True, (300, -1), "docs",
+     (128, 0), (1, 1, 1), 5.0, True, True),
+]
+# Path A with heads of 256: Gemma 2B's width of 2048 in its 8 query heads of
+# 256 (the module has no GQA, so K / V take 8 heads too).
+WIDE_ATTN_WIDTH = dict(num_heads=8, in_features=2048, qkv_features=2048)
+# The quantized prefill that fwd_tile.cuh keeps: flash_attention_quantized
+# (causal) at the LM's attention, B1 Hq16 Hkv8 N2048 D128.
+QUANT_PREFILL_SHAPE = (1, 16, 8, LM_SEQ, 128)  # B, Hq, Hkv, N, D
+
+
+def _wide_bias(kind, seed: int, B: int, Hq: int, Nq: int, Nk: int) -> torch.Tensor:
+    """A WIDE_BIAS_CASES bias (f32): _band_bias' "mask" / "learned", or a
+    normal bias with the (batch, head, row) dims that ``kind`` flags."""
+    if isinstance(kind, str):
+        return _band_bias(kind, seed, B, Hq, Nq, Nk)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    shape = tuple(n if f else 1 for n, f in zip((B, Hq, Nq), kind)) + (Nk,)
+    return torch.randn(shape, generator=gen, device=DEVICE)
+
+
+def wide_bias_instantiations() -> set:
+    """The D 256 forms of the bias routes, as instantiation_name names them:
+    fwd_bias_sm90_kernel<256, SEG, CAP> and bwd_bias_wide_kernel<SEG, CAP>."""
+    names = set()
+    for sg in (0, 1):
+        for cp in (0, 1):
+            tag = f"{' segments' if sg else ''}{' softcap' if cp else ''}"
+            names |= {f"K1 bias sm90{tag} fwd_bias_sm90_kernel<256, {sg}, {cp}>",
+                      f"bias bwd sm90 d256{tag} bwd_bias_wide_kernel<{sg}, {cp}>"}
+    return names
+
+
+def _wide_bias_timing() -> dict:
+    """K1's and K5 + K6's bias routes' D 256 forms at the shape of path A with
+    heads of 256 (B4 H8 N2048 D256, bf16, q and k at GROW) on both arms'
+    biases (the mask arm's [4, 1, N, N] key padding without dbias, the
+    learned arm's [4, 8, N, N] with), each first held against its plain
+    version (_fwd_bwd_check). Each row: its time (median CUDA-event), its
+    plain version's, its bound (every pair of the N x N tile: the kernels
+    compute the padding's pairs too; the bias read once, dbias written
+    once) and the library's, the faster of SDPA with the bias as
+    ``attn_mask`` (each fused backend that takes it, named; with dbias a bf16
+    copy of the bias that requires grad, SDPA's dbias) and flex_attention
+    compiled by torch.compile with the bias as ``score_mod`` (its backward
+    has no dbias: the bias it reads does not require grad)."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    B, N = len(ATTN_LENGTHS), ATTN_SEQ
+    H = WIDE_ATTN_WIDTH["num_heads"]
+    D = WIDE_ATTN_WIDTH["qkv_features"] // H
+    pad = _padding_bias(ATTN_LENGTHS, N)
+    gen = torch.Generator(device=DEVICE).manual_seed(1690)
+    rel = torch.randn((1, H, N, N), generator=gen, device=DEVICE)
+    q, k, v = _grown(1691, B, H, N, D, N, H)
+    do = _bnhd(make_qkv(1692, B, H, N, D, dtype=torch.bfloat16, device=DEVICE)[0])
+    stats = 4 * B * H * N
+    flops = pair_flops(q, k, matmuls=1, kv_valid_len=N, causal=False, segment_ids=None)
+    res = {}
+    for name, bias, dbias in (("mask", pad, False), ("learned", pad + rel, True)):
+        kw = dict(scale=D ** -0.5, bias=bias)
+        out = _fwd_bwd_check(f"path A's D 256 shape B{B} H{H} N{N} D{D}, {name} arm's bias "
+                             f"{list(bias.shape)}{', dbias' if dbias else ''}", q, k, v, do,
+                             phase="wide bias", want_dbias=dbias, **kw)
+        args = out["args"]
+        try:
+            flex = flex_fwd_bwd_ms(q, k, v, do, scale=D ** -0.5, score_mod=bias_mod(bias))
+        except Exception as e:  # noqa: BLE001 -- a compile that fails is logged, not fatal
+            log("wide bias", f"flex_attention at D {D} with the bias as score_mod failed: "
+                             f"{type(e).__name__}: {str(e)[:200]}")
+            flex = (None, None)
+        leaf = bias.to(torch.bfloat16).requires_grad_(True) if dbias else None
+        sdpa_fwd = _sdpa_backends_ms(q, k, v, attn_mask=bias, call="attn_mask=the f32 bias")
+        sdpa_bwd = (_sdpa_backends_ms(q, k, v, do=do, attn_mask=leaf, bias_leaf=leaf,
+                                      call="attn_mask=the bias in bf16, which requires grad: "
+                                           "dQ, dK, dV and dbias in one call")
+                    if dbias else
+                    _sdpa_backends_ms(q, k, v, do=do, attn_mask=bias, call="attn_mask=the f32 bias"))
+        del leaf
+        for key, ms, plain_ms, nbytes, n_flops, sdpa, t_flex, what in (
+                (f"k1_{name}", cuda_ms(lambda: flash_fwd.fwd(q, k, v, **kw)),
+                 cuda_ms(lambda: flash_fwd.fwd_reference(q, k, v, **kw), reps=3, trials=3),
+                 tensor_bytes(q, k, v, q, bias) + stats, 2 * flops, sdpa_fwd, flex[0], ""),
+                (f"bwd_{name}", cuda_ms(lambda: flash_bwd.bias_bwd(*args, want_dbias=dbias, **kw)),
+                 cuda_ms(lambda: flash_bwd.bias_bwd_reference(*args, want_dbias=dbias, **kw),
+                         reps=2, trials=3),
+                 tensor_bytes(*args, bias, q, k, v) + (tensor_bytes(out["dbias"]) if dbias else 0),
+                 5 * flops, sdpa_bwd, flex[1], "the backward of ")):
+            lib = [(sdpa["library_ms"], sdpa["library_call"])]
+            if t_flex is not None:
+                lib.append((t_flex, f"{what}flex_attention (torch.compile) with the bias as "
+                                    "score_mod"))
+            best = min(lib)
+            res[key] = {"max_abs_err": out["fwd_err" if key.startswith("k1") else "bwd_err"],
+                        "ms": ms, "plain_ms": plain_ms, **bound(nbytes, n_flops),
+                        "library_ms": best[0], "library_call": best[1],
+                        "sdpa_ms": sdpa["library_ms"], "sdpa_call": sdpa["library_call"],
+                        "flex_ms": t_flex}
+            r = res[key]
+            log("wide bias", f"{key} at B{B} H{H} N{N} D{D}: {r['ms']:.4f} ms (plain "
+                             f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} {r['bound_by']}; "
+                             f"SDPA {r['sdpa_ms']:.4f} ({r['sdpa_call']}), flex "
+                             + ("not measured" if t_flex is None else f"{t_flex:.4f}")
+                             + f"; library {r['library_ms']:.4f}: {r['library_call']}) "
+                             f"({_card_state()})")
+        del out, args
+        torch.cuda.empty_cache()
+    return res
+
+
+def _quant_prefill_timing() -> dict:
+    """What fwd_tile.cuh keeps: flash_attention_quantized(causal=True) at
+    QUANT_PREFILL_SHAPE on int8 and fp8 K/V (quantize_kv), one launch of its
+    quantized family each (a launch count, no decode route: Nq is the whole
+    prompt), held against fwd_reference on the same quantized K/V and scales
+    (FWD_TOL[bf16]); its time, the plain version's, its bound (the quantized
+    K/V and scales read once, q read and O written once; the causal pairs'
+    two products) and SDPA's on the dequantized bf16 K/V (is_causal, each
+    fused backend, _sdpa_backends_ms)."""
+    from flashattn_tpu_torch.ops import flash_fwd, quant
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close, make_qkv
+
+    B, Hq, Hkv, N, D = QUANT_PREFILL_SHAPE
+    q, k, v = make_qkv(1700, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16, device=DEVICE)
+    flops = pair_flops(q, k, matmuls=2, kv_valid_len=N, causal=True, segment_ids=None)
+    res = {}
+    for name, dt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        qkv = quant.quantize_kv(k, v, dt, allow_slow_fp8=True)
+        call = lambda: quant.flash_attention_quantized(q, qkv, causal=True)  # noqa: E731
+        before = _launches()
+        o = call()
+        torch.cuda.synchronize()
+        _routed(f"flash_attention_quantized {name}", before, K1=1, **{f"K1_{name}": 1})
+        launched = _launches()[f"K1 {name}"] - before[f"K1 {name}"]
+        plain = lambda: flash_fwd.fwd_reference(  # noqa: E731
+            q, qkv.k_q, qkv.v_q, scale=D ** -0.5, causal=True, k_scale=qkv.k_scale,
+            v_scale=qkv.v_scale)
+        o_want = plain()[0]
+        ok, msg = check_close(o, o_want, FWD_TOL[torch.bfloat16], "O")
+        if not ok:
+            fail(f"flash_attention_quantized {name} at B{B} Hq{Hq} Hkv{Hkv} N{N} D{D}: {msg}")
+        kd, vd = (x.to(torch.bfloat16) for x in quant.dequantize_kv(qkv))
+        res[f"quant_{name}"] = {
+            "launches": launched, "max_abs_err": (o.float() - o_want.float()).abs().max().item(),
+            "ms": cuda_ms(call), "plain_ms": cuda_ms(plain, reps=3, trials=3),
+            **bound(tensor_bytes(q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, q)
+                    + 4 * B * Hq * N, flops),
+            **_sdpa_backends_ms(q, kd, vd, is_causal=True, call="is_causal=True, on the "
+                                                                "dequantized bf16 K/V")}
+        r = res[f"quant_{name}"]
+        log("wide bias", f"fwd_tile.cuh's quantized prefill, {name} K/V, B{B} Hq{Hq} Hkv{Hkv} "
+                         f"N{N} D{D} causal: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+                         f"{r['bound_ms']:.4f} {r['bound_by']}, library {r['library_ms']:.4f}: "
+                         f"{r['library_call']}); O {msg} ({_card_state()})")
+        del qkv, o, o_want, kd, vd
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_wide_bias_check() -> dict:
+    """The bias routes' D 256 forms (K1: fwd_bias_sm90_kernel<256, SEG, CAP>,
+    the bias in one TMA slot; K5 + K6: bwd_bias_wide_kernel<SEG, CAP>, the
+    bias from L2, dbias on a runtime pointer) against their plain versions on
+    WIDE_BIAS_CASES (_fwd_bwd_check: q and k at GROW; one launch each, of the
+    D 256 forms; O, LSE, dQ, dK, dV and dbias within their budgets and
+    WINDOW_REL_L2; dead rows' O exactly 0 and LSE exactly ln2 · mask, their
+    dQ and dbias exactly 0; dbias exactly 0 on every pair the masks drop,
+    read from NaN-filled memory). Then the eight instantiations' SASS
+    (HGMMA, UTMALDG, no HMMA) with their registers and spills, the forms
+    timed at path A's D 256 shape (_wide_bias_timing), and fwd_tile.cuh's
+    quantized prefill (_quant_prefill_timing)."""
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    t0 = time.perf_counter()
+    for i, case in enumerate(WIDE_BIAS_CASES):
+        tag, d, B, Hq, Hkv, nq, nk, kvl, causal, window, ids, (qo, ko), kind, cap, dbias, dead = case
+        q, k, v = _grown(1600 + i, B, Hq, nq, d, nk, Hkv)
+        do = _bnhd(make_qkv(1630 + i, B, Hq, nq, d, dtype=torch.bfloat16, device=DEVICE)[0])
+        kw = dict(scale=d ** -0.5, causal=causal, bias=_wide_bias(kind, 1660 + i, B, Hq, nq, nk))
+        if kvl is not None:
+            kw["kv_valid_len"] = kvl
+        if window is not None:
+            kw["window"] = window
+        if ids is not None:
+            kw["segment_ids"] = _band_ids(B, nq, nk)
+        if (qo, ko) != (0, 0):
+            kw.update(q_offset=qo, kv_offset=ko)
+        if cap is not None:
+            kw["softcap"] = cap
+        out = _fwd_bwd_check(f"{tag}: D{d} B{B} Hq{Hq} Hkv{Hkv} Nq{nq} Nk{nk}"
+                             f"{'' if kvl is None else f' kv_valid_len {kvl}'}"
+                             f"{' causal' if causal else ''}"
+                             f"{'' if window is None else f', window {window}'}"
+                             f"{'' if ids is None else ', 8 documents'}"
+                             f"{'' if (qo, ko) == (0, 0) else f', offsets {(qo, ko)}'}, bias "
+                             f"{list(kw['bias'].shape)}{'' if cap is None else f', softcap {cap}'}"
+                             f"{', dbias' if dbias else ''}", q, k, v, do, phase="wide bias",
+                             want_dbias=dbias, **kw)
+        if dead != bool(out["dead"]):
+            fail(f"the D 256 bias case {tag} has {out['dead']} dead rows")
+        del q, k, v, do, kw, out
+        torch.cuda.empty_cache()
+    log("wide bias", f"{len(WIDE_BIAS_CASES)} cases checked in {time.perf_counter() - t0:.1f} s")
+    _tma_wgmma_sass("wide bias", wide_bias_instantiations())
+    t0 = time.perf_counter()
+    res = {**_wide_bias_timing(), **_quant_prefill_timing()}
+    log("wide bias", f"timed in {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def phase_wide_bias_train() -> dict:
+    """Path A with heads of 256: FlashMultiHeadDotProductAttention
+    (WIDE_ATTN_WIDTH, bf16, impl "fused") on x [4, 2048, 2048] with the
+    key-padding mask of ATTN_LENGTHS (_path_a_inputs), in five arms
+    (_path_a): the mask alone; the mask plus a trainable [1, 8, N, N] bias
+    (dbias); the module with the window BAND_WINDOW and the mask; packed, 8
+    documents a row with the trainable bias through flash_attention(bias=,
+    segment_ids=); capped, the mask's bias with logit_softcap 50 through
+    flash_attention between the module's projections. Each arm's gates (1.5x
+    the bf16 floor against the plain f32 function), LM_STEPS AdamW steps,
+    ms/step and peak GB, and exact launches: every K1 call on the bias
+    route's D 256 form, every backward on the bias backward's D 256 form,
+    none on fwd_tile.cuh."""
+    x, target, valid, mask, rel0 = _path_a_inputs(WIDE_ATTN_WIDTH)
+    B, N = x.shape[:2]
+    kw = dict(width=WIDE_ATTN_WIDTH, phase="wide bias_train")
+    return {"mask": _path_a("mask", x, target, valid, mask, None, **kw),
+            "learned": _path_a("learned", x, target, valid, mask, rel0, **kw),
+            "window": _path_a("windowed mask", x, target, valid, mask, None, window=BAND_WINDOW,
+                              **kw),
+            "packed": _path_a("packed learned", x, target, torch.ones_like(valid), None, rel0,
+                              ids=packed_ids(B, N), **kw),
+            "capped": _path_a("capped mask", x, target, valid, mask, None, softcap=SOFTCAP, **kw)}
 
 
 def phase_entry() -> dict:
@@ -5815,6 +6148,8 @@ def main() -> None:
     f32_path_a = timed(phase_f32_bias_train)
     wide = timed(phase_wide_bwd_check)
     wide_train = timed(phase_wide_train)
+    wide_bias = timed(phase_wide_bias_check)
+    wide_bias_train = timed(phase_wide_bias_train)
     timed(phase_entry)
     timed(phase_fuzz)
     fwd_src, bwd_src, split_src, bias_sm90_src = (
@@ -6051,7 +6386,32 @@ def main() -> None:
          "route": "cuda", "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu",
          "replaces": split_replaces,
          "launches": f32_path_a["learned"]["launches"]["bias bwd dbias"],
-         **f32_bias["bwd_learned"]}]}),
+         **f32_bias["bwd_learned"]},
+        # The bias routes' D 256 forms at the shape of path A with heads of 256
+        # (B4 H8 N2048 D256; phase_wide_bias_check's timing), launches from its
+        # fused steps (phase_wide_bias_train).
+        *({"name": f"flash_fwd_bias_sm90 D 256 (K1's bias route's D 256 form, wgmma, the bias "
+                   f"by TMA: path A with heads of 256, {arm} arm, bias {shape})",
+           "route": "cuda", "source": bias_sm90_src,
+           "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+           "launches": wide_bias_train[arm]["launches"]["K1 bias d256"],
+           **wide_bias[f"k1_{arm}"]}
+          for arm, shape in (("mask", "[4, 1, N, N]"), ("learned", "[4, 8, N, N]"))),
+        *({"name": f"bwd_bias_sm90 D 256{' dbias' if arm == 'learned' else ''} (K5 + K6's bias "
+                   f"route's D 256 form in one launch, wgmma, the bias from L2: path A with "
+                   f"heads of 256, {arm} arm, bias {shape})",
+           "route": "cuda", "source": bias_bwd_src, "replaces": split_replaces,
+           "launches": wide_bias_train[arm]["launches"]["bias bwd d256"],
+           **wide_bias[f"bwd_{arm}"]}
+          for arm, shape in (("mask", "[4, 1, N, N]"), ("learned", "[4, 8, N, N]"))),
+        # What fwd_tile.cuh keeps: the quantized prefill, which no path of the
+        # port makes ("path" null; launches the check's, counted from 0).
+        *({"name": f"flash_fwd {name} (K1 on fwd_tile.cuh, mma.sync: flash_attention_quantized "
+                   f"causal prefill, B1 Hq16 Hkv8 N2048 D128)", "route": "cuda",
+           "source": f"flashattn_tpu_torch/csrc/flash_fwd_{name}.cu",
+           "replaces": "flashattn_tpu/ops/flash_fwd.py:115", "path": None,
+           **wide_bias[f"quant_{name}"]}
+          for name in ("int8", "fp8"))]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

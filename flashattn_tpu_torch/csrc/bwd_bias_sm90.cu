@@ -4,18 +4,24 @@
 // bwd_bias_sm90_kernel<D, DBIAS, CAP, SEG> (D 64 and 128, with and without
 // dbias, the logit softcap and segment ids: 16 instantiations; a head dim
 // below D that is a multiple of 8 runs in them, the TMA boxes reading zeros
-// past it); and the C entry fa_bwd_bias_sm90.
+// past it); its D 256 form on bwd_sm90_wide.cuh's body,
+// bwd_bias_wide_kernel<SEG, CAP> (4 instantiations, dbias on a runtime
+// pointer; every D 136-256 by the zero fill: 64 keys a CTA, the bias read
+// from L2 into S^T's fragments, dK / dV per query head); and the C entry
+// fa_bwd_bias_sm90.
 //
 // Replaces the TPU kernels flashattn_tpu/ops/flash_bwd.py::_dkv_kernel (K5,
 // :139) and ::_dq_kernel (K6, :234) on every backward with a bias
-// (ops/flash_bwd.py::bias_bwd_route: bf16, D <= 128 -- causal, a window,
+// (ops/flash_bwd.py::bias_bwd_route: bf16, D <= 256 -- causal, a window,
 // q / kv offsets, segment ids, the softcap, decode-shaped or not, as the JAX
 // package pairs a bias with them): the formulas, the masks (the KV tail,
 // the Q tail, the band, the ids, dead rows) and the design are in
-// bwd_sm90_tile.cuh. With the softcap, dbias is the gradient of the capped
+// bwd_sm90_tile.cuh (at D 256 bwd_sm90_wide.cuh). With the softcap, dbias is
+// the gradient of the capped
 // logit, dL, written before the cap's Jacobian multiplies it into dS
 // (flashattn_tpu/ops/flash_bwd.py:300-304). dK / dV come per KV head (summed
-// over its Hq / Hkv query heads inside the CTA); dQ is added into a zeroed
+// over its Hq / Hkv query heads inside the CTA; at D 256 per query head,
+// summed by the caller); dQ is added into a zeroed
 // f32 dQ; dbias is written on every (Q tile, KV tile) pair the kernel visits,
 // 0 on its pairs that the band or the ids mask (the caller zero-fills it
 // when the band, the ids or kv_valid_len < Nk leave pairs unvisited).
@@ -33,9 +39,11 @@
 // thread issues the copies, the bias's too, so the producer keeps 24
 // registers and the consumers K8's 240 (cp.async from 128 producer threads,
 // as K1's bias route streams its bias, would need registers the consumers
-// cannot spare: K8 already spills 56 B at 240).
+// cannot spare: K8 already spills 56 B at 240). At D 256 (path A with heads
+// of 256, B4 H8 N2048 D256) the products are the same 344 GFLOP; a learned
+// [4, 8, N, N] bias and its dbias are 1.07 GB together, 0.32 ms.
 
-#include "bwd_sm90_tile.cuh"
+#include "bwd_sm90_wide.cuh"
 
 namespace {
 
@@ -47,6 +55,37 @@ __global__ void __launch_bounds__(BB_THREADS, 1)
                          const __grid_constant__ CUtensorMap tm_do,
                          const __grid_constant__ CUtensorMap tm_bias, const BwdBiasParams p) {
   bwd_sm90_body<D, true, DBIAS, SEG, CAP>(tm_q, tm_k, tm_v, tm_do, &tm_bias, p);
+}
+
+template <bool SEG, bool CAP>
+__global__ void __launch_bounds__(BB_THREADS, 1)
+    bwd_bias_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do, const BwdBiasParams p) {
+  bwd_wide_body<SEG, CAP, true>(tm_q, tm_k, tm_v, tm_do, p);
+}
+
+template <bool SEG, bool CAP>
+cudaError_t bwd_bias_wide_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                 const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+                                 const BwdBiasParams& p, int batch, cudaStream_t stream) {
+  auto kernel = bwd_bias_wide_kernel<SEG, CAP>;
+  const cudaError_t e = allow_smem(kernel, BwSmem::BYTES);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.hq, (p.nk + BW_BLOCK_N - 1) / BW_BLOCK_N, batch);
+  kernel<<<grid, BB_THREADS, BwSmem::BYTES, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_bias_wide_dispatch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                   const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+                                   const BwdBiasParams& p, bool cap, int batch, cudaStream_t s) {
+  const bool seg = p.seg_q != nullptr;
+  return cap ? (seg ? bwd_bias_wide_launch<true, true>(tm_q, tm_k, tm_v, tm_do, p, batch, s)
+                    : bwd_bias_wide_launch<false, true>(tm_q, tm_k, tm_v, tm_do, p, batch, s))
+             : (seg ? bwd_bias_wide_launch<true, false>(tm_q, tm_k, tm_v, tm_do, p, batch, s)
+                    : bwd_bias_wide_launch<false, false>(tm_q, tm_k, tm_v, tm_do, p, batch, s));
 }
 
 template <int D, bool DBIAS, bool CAP, bool SEG>
@@ -92,26 +131,6 @@ cudaError_t bwd_bias_dispatch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
   return bwd_bias_seg<D, false, false>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, hkv, batch, s);
 }
 
-// The bias's TMA map: an f32 [B|1, H|1, Nq|1, Nk] tensor read through its
-// (batch, head, row) strides in elements, a stride of 0 marking a broadcast
-// dim, which becomes a dim of extent 1 (its coordinate always 0); the column
-// extent is kv_valid_len, so columns past it and rows past Nq read zeros.
-// Boxes of 32 columns x `rows` rows with the 128-byte swizzle.
-bool make_bias_map(CUtensorMap* map, const void* bias, int batch, int heads, int nq, int ncols,
-                   int64_t sb, int64_t sh, int64_t sn, int rows) {
-  auto extent = [](int64_t s, int n) { return static_cast<cuuint64_t>(s ? n : 1); };
-  auto bytes = [](int64_t s) { return static_cast<cuuint64_t>(s ? s * 4 : 16); };
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(ncols), extent(sn, nq), extent(sh, heads),
-                              extent(sb, batch)};
-  const cuuint64_t strides[3] = {bytes(sn), bytes(sh), bytes(sb)};
-  const cuuint32_t box[4] = {BB_BIAS_BOX, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(bias), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 }  // namespace
 
 extern "C" {
@@ -125,17 +144,18 @@ extern "C" {
 // 16-byte aligned; bias [B|1, Hq|1, Nq|1, Nk] f32, unit column stride,
 // (batch, head, row) strides in elements, 0 on broadcast dims, multiples of
 // 4, 16-byte-aligned base; dq [B, Hq, Nq, D] f32 contiguous, zeroed (added
-// to), 16-byte aligned; dk / dv [B, Hkv, Nk, D] f32 contiguous, written
-// (summed over each KV head's query heads), 8-byte aligned; dbias null, or
-// [B, Hq, Nq, Nk] f32 contiguous, written on every (64-row Q tile, 128-row KV
-// tile) pair that the band, the ids and kv_valid_len leave (zero it first
+// to), 16-byte aligned; dk / dv f32 contiguous, written, 8-byte aligned: for
+// D <= 128 [B, Hkv, Nk, D] (summed over each KV head's query heads), above
+// [B, Hq, Nk, D] per query head; dbias null, or [B, Hq, Nq, Nk] f32
+// contiguous, written on every (64-row Q tile, KV tile of 128 keys, 64 above
+// D 128) pair that the band, the ids and kv_valid_len leave (zero it first
 // otherwise); causal, the window (wl, wr), the offsets (q_off, kv_off) and
 // the segment ids (seg_q, seg_kv, q_range, kv_range at 64-row Q tiles and
 // 128-key KV tiles, all four or none, q_tiles = ceil(Nq / 64)) as in
 // fa_bwd_split_sm90 (flash_bwd_split_sm90.cu); softcap > 0 the forward's
 // logit cap (dbias then the gradient of the capped logit), 0 none. Requires
-// 8 <= D <= 128 with D % 8 == 0, Hq % Hkv == 0, Nq, Nk >= 1, 0 <=
-// kv_valid_len <= Nk, B <= 65535.
+// 8 <= D <= 256 with D % 8 == 0 (above 128 seg_kv 16-byte aligned), Hq % Hkv
+// == 0, Nq, Nk >= 1, 0 <= kv_valid_len <= Nk, B <= 65535.
 // Returns a cudaError_t (0: success; cudaErrorInvalidValue for arguments it
 // does not take, cudaErrorNotSupported when cuTensorMapEncodeTiled is
 // missing or refuses a tensor map).
@@ -153,8 +173,10 @@ int fa_bwd_bias_sm90(const void* q, const void* k, const void* v, const void* do
   // with kv_valid_len 0 no tile is loaded).
   const int nkv = kv_valid_len > 0 ? kv_valid_len : 1;
   const bool seg = seg_q != nullptr;
-  if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
-      hq % hkv != 0 || nq < 1 || nk < 1 || (nk + BB_BLOCK_N - 1) / BB_BLOCK_N > 65535 ||
+  const bool wide = d > 128;  // bwd_sm90_wide.cuh's form: 64 keys a CTA
+  const int kv_rows = wide ? BW_BLOCK_N : BB_BLOCK_N;  // keys a CTA (the K / V boxes' rows)
+  if (d < 8 || d > BW_D || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
+      hq % hkv != 0 || nq < 1 || nk < 1 || (nk + kv_rows - 1) / kv_rows > 65535 ||
       kv_valid_len < 0 || kv_valid_len > nk || nq_pad < nq || nq_pad % BB_BLOCK_M ||
       !(softcap >= 0.f) || bias == nullptr || !aligned(q, 16) || !aligned(k, 16) ||
       !aligned(v, 16) ||
@@ -167,8 +189,8 @@ int fa_bwd_bias_sm90(const void* q, const void* k, const void* v, const void* do
       bias_sn % 4 || bias_sb < 0 || bias_sh < 0 || bias_sn < 0 ||
       seg != (seg_kv != nullptr) || seg != (q_range != nullptr) ||
       seg != (kv_range != nullptr) ||
-      (seg && (!aligned(seg_q, 16) || !aligned(seg_kv, 4) || !aligned(q_range, 8) ||
-               !aligned(kv_range, 8)))) {
+      (seg && (!aligned(seg_q, 16) || !aligned(seg_kv, wide ? 16 : 4) ||
+               !aligned(q_range, 8) || !aligned(kv_range, 8)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -179,10 +201,11 @@ int fa_bwd_bias_sm90(const void* q, const void* k, const void* v, const void* do
   alignas(64) CUtensorMap tm_do;
   alignas(64) CUtensorMap tm_bias;
   if (!make_bhnd_map(&tm_q, q, batch, hq, nq, d, q_sb, q_sh, q_sn, BB_BLOCK_M) ||
-      !make_bhnd_map(&tm_k, k, batch, hkv, nkv, d, k_sb, k_sh, k_sn, BB_BLOCK_N) ||
-      !make_bhnd_map(&tm_v, v, batch, hkv, nkv, d, v_sb, v_sh, v_sn, BB_BLOCK_N) ||
+      !make_bhnd_map(&tm_k, k, batch, hkv, nkv, d, k_sb, k_sh, k_sn, kv_rows) ||
+      !make_bhnd_map(&tm_v, v, batch, hkv, nkv, d, v_sb, v_sh, v_sn, kv_rows) ||
       !make_bhnd_map(&tm_do, dout, batch, hq, nq, d, do_sb, do_sh, do_sn, BB_BLOCK_M) ||
-      !make_bias_map(&tm_bias, bias, batch, hq, nq, nkv, bias_sb, bias_sh, bias_sn, bias_rows)) {
+      (!wide && !make_bias_map(&tm_bias, bias, batch, hq, nq, nkv, bias_sb, bias_sh, bias_sn,
+                               bias_rows))) {
     return static_cast<int>(cudaErrorNotSupported);
   }
   BwdBiasParams p;
@@ -209,6 +232,8 @@ int fa_bwd_bias_sm90(const void* q, const void* k, const void* v, const void* do
   p.bias_rows = bias_rows;
   p.bias_b = bias_sb != 0;
   p.bias_h = bias_sh != 0;
+  p.bias = static_cast<const float*>(bias);
+  p.bias_sb = bias_sb; p.bias_sh = bias_sh; p.bias_sn = bias_sn;
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
   const bool cap = softcap > 0.f;
@@ -217,9 +242,11 @@ int fa_bwd_bias_sm90(const void* q, const void* k, const void* v, const void* do
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool db = dbias != nullptr;
   const cudaError_t e =
-      d <= 64 ? bwd_bias_dispatch<64>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, db, cap, hkv, batch, s)
-              : bwd_bias_dispatch<128>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, db, cap, hkv, batch,
-                                       s);
+      d <= 64    ? bwd_bias_dispatch<64>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, db, cap, hkv, batch,
+                                         s)
+      : d <= 128 ? bwd_bias_dispatch<128>(tm_q, tm_k, tm_v, tm_do, tm_bias, p, db, cap, hkv,
+                                          batch, s)
+                 : bwd_bias_wide_dispatch(tm_q, tm_k, tm_v, tm_do, p, cap, batch, s);
   return static_cast<int>(e);
 }
 

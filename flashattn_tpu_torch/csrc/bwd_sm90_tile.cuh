@@ -133,11 +133,14 @@ struct BwdSplitParams : BwdDenseParams {
 };
 
 // K5 + K6's bias route: the split route's (dk / dv [B, Hkv, Nk, d] per KV
-// head) and the bias.
+// head; at D 256, bwd_sm90_wide.cuh, per query head) and the bias.
 struct BwdBiasParams : BwdSplitParams {
-  float* dbias;        // [B, Hq, Nq, Nk] f32 contiguous (the DBIAS instantiations)
+  float* dbias;        // [B, Hq, Nq, Nk] f32 contiguous (the DBIAS instantiations; at D
+                       // 256, or null: no dbias)
   int bias_rows;       // rows of a bias box: 64, or 1 for a row-broadcast bias
   int bias_b, bias_h;  // whether the bias has the batch / head dim (else: coordinate 0)
+  const float* bias;   // D 256: f32, unit column stride, read from global memory
+  int64_t bias_sb, bias_sh, bias_sn;  // D 256: its strides, 0 on broadcast dims
 };
 
 // Shared-memory layout (bytes, from a 1024-byte-aligned base): K and V (D /

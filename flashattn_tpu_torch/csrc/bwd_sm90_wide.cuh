@@ -1,16 +1,21 @@
 // The single-pass TMA + wgmma attention backward for Hopper (sm_90a) at head
-// dims 136-256: the D 256 form of K3 (flash_bwd_sm90.cu, bwd_sm90_kernel<256>)
-// and of K5 + K6 without a bias (flash_bwd_split_sm90.cu,
+// dims 136-256: the D 256 form of K3 (flash_bwd_sm90.cu, bwd_sm90_kernel<256>),
+// of K5 + K6 without a bias (flash_bwd_split_sm90.cu,
 // bwd_split_sm90_kernel<256, SEG, CAP>: segment ids, the logit softcap or
-// both). It computes what bwd_sm90_tile.cuh computes for those families (the
-// formulas are in its header): P^T from the forward's LSE, exactly 0 on keys
-// at or past kv_valid_len, rows past Nq, outside the band (common.cuh
-// band_bounds: causal, a window, q / kv offsets), on a pair whose ids differ
-// (SEG) and on a dead row; dS^T = P^T (dP^T - Delta) scale, with CAP P^T
-// (1 - t^2) in the fp16 copy that forms it; dV = P^T dO, dK = dS^T Q per
-// query head, dQ = dS K added into a zeroed f32 dQ. Every p.d <= 256 that is
-// a multiple of 8 runs in the 256 box: the TMA maps read zeros past d (a box
-// wholly past d reads zeros too), as D 40 and 80 run in 64 and 128.
+// both) and of K5 + K6's bias route (bwd_bias_sm90.cu,
+// bwd_bias_wide_kernel<SEG, CAP>: BIAS, with or without segment ids and the
+// softcap; dbias on a runtime pointer). It computes what bwd_sm90_tile.cuh
+// computes for those families (the formulas are in its header): P^T from the
+// forward's LSE (BIAS: the score + bias log2 e, floored at the mask value),
+// exactly 0 on keys at or past kv_valid_len, rows past Nq, outside the band
+// (common.cuh band_bounds: causal, a window, q / kv offsets), on a pair whose
+// ids differ (SEG) and on a dead row; dS^T = P^T (dP^T - Delta) scale, with
+// CAP P^T (1 - t^2) in the fp16 copy that forms it; dbias = P^T (dP^T -
+// Delta) from the f32 P^T, before the scale and the cap's Jacobian; dV = P^T
+// dO, dK = dS^T Q per query head, dQ = dS K added into a zeroed f32 dQ. Every
+// p.d <= 256 that is a multiple of 8 runs in the 256 box: the TMA maps read
+// zeros past d (a box wholly past d reads zeros too), as D 40 and 80 run in
+// 64 and 128.
 //
 // Why not bwd_sm90_tile.cuh at D 256: its 128 KV rows a CTA keep each
 // consumer's f32 dK and dV for 64 keys x D columns in registers, 256 a
@@ -51,6 +56,19 @@
 //     128; the shared-memory descriptors derive from two opaque() bases a
 //     tile, so the compiler cannot hoist ~90 of them (two registers each)
 //     out of the Q-tile loop.
+//   * BIAS: shared memory has no room for a bias tile (a [64 keys x 64
+//     queries] f32 tile is 16 KB beside the 210 KB above), so each consumer
+//     thread reads its 16 values of a tile from global memory (L2) straight
+//     into S^T's fragment layout -- query row mc + 8jj + 2t + e, key kv0 + 8r:
+//     the 8 lanes of a t cover 8 consecutive keys of one row, a whole 32-byte
+//     sector -- issued right after S^T and dP^T, so they land while the
+//     products run (as flash_bwd_f32.cu reads its bias). Each (query head,
+//     key) pair has one owning CTA, so dbias [B, Hq, Nq, Nk] takes plain
+//     (streaming) stores from the same layout once dP^T has retired; the
+//     pairs of the Q tiles that the band or the ids skip are never written
+//     (the wrapper zero-fills dbias for such calls, flash_bwd.dbias_skips).
+//     dK / dV come per query head, as K3's, and the wrapper sums each KV
+//     head's group.
 //   * SEG: the split route's wrapper gives each 64-row Q tile's and each
 //     128-key tile's [min, max] id (ops/flash_fwd.py::sm90_segments, the
 //     tiles of the D <= 128 form); the CTA's 64 keys take their 128-key
@@ -120,11 +138,13 @@ constexpr int bwd_smem_bytes() {
 constexpr int bwd_box_d(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : BW_D; }
 constexpr int bwd_block_n(int box_d) { return box_d == BW_D ? BW_BLOCK_N : BB_BLOCK_N; }
 
-// The body of bwd_sm90_kernel<256> (K3: Params BwdDenseParams) and of
-// bwd_split_sm90_kernel<256, SEG, CAP> (Params BwdSplitParams), for any
-// head dim p.d <= 256; launched as a grid (Hq, ceil(Nk / 64), B) of
-// BB_THREADS threads with BwSmem::BYTES of shared memory.
-template <bool SEG, bool CAP, typename Params>
+// The body of bwd_sm90_kernel<256> (K3: Params BwdDenseParams), of
+// bwd_split_sm90_kernel<256, SEG, CAP> (Params BwdSplitParams) and of
+// bwd_bias_wide_kernel<SEG, CAP> (BIAS: Params BwdBiasParams, its bias
+// pointer and strides; dbias when p.dbias is not null), for any head dim p.d
+// <= 256; launched as a grid (Hq, ceil(Nk / 64), B) of BB_THREADS threads
+// with BwSmem::BYTES of shared memory.
+template <bool SEG, bool CAP, bool BIAS = false, typename Params>
 __device__ __forceinline__ void bwd_wide_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                               const CUtensorMap& tm_v, const CUtensorMap& tm_do,
                                               const Params p) {
@@ -271,14 +291,35 @@ __device__ __forceinline__ void bwd_wide_body(const CUtensorMap& tm_q, const CUt
                               at(kmaj, S::OFF_DO + BW_HALF_M * c * SW128_ROW + koff), kk);
       }
       wgmma_commit();
-      wgmma_wait<1>();  // S^T has retired
-      fence_regs(sc);
 
       // P^T: sc[4jj + 2r + e] is key kv0 + 8r, query row mc + 8jj + 2t + e; a
       // dead row's LSE becomes +inf (P = 0 exactly). Edge tiles: those that
       // the tails or the band cut for this consumer's rows.
       const bool edge = mc + BW_HALF_M > p.nq || n0 + BW_BLOCK_N > p.kv_valid_len ||
                         n0 + BW_BLOCK_N - 1 - mc > p.hi || mc + BW_HALF_M - 1 - n0 > p.lo;
+      // BIAS: bv[4jj + 2r + e] the bias of (query row mc + 8jj + 2t + e, key
+      // kv0 + 8r), in S^T's layout, loaded while the products run; an edge
+      // tile reads only rows below Nq and keys below kv_valid_len.
+      float bv[BIAS ? 16 : 1];
+      if constexpr (BIAS) {  // bwd wide bias prefetch
+        const float* brow = p.bias + b * p.bias_sb + h * p.bias_sh +
+                            static_cast<int64_t>(mc + 2 * t) * p.bias_sn + kv0;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const bool in = !edge || (mc + 8 * jj + 2 * t + e < p.nq &&
+                                        kv0 + 8 * r < p.kv_valid_len);
+              bv[4 * jj + 2 * r + e] =
+                  in ? __ldg(brow + (8 * jj + e) * p.bias_sn + 8 * r) : 0.f;  // bwd wide bias key
+            }
+          }
+        }
+      }
+      wgmma_wait<1>();  // S^T has retired
+      fence_regs(sc);
       bool one_doc = true;  // SEG: the Q tile and the keys' tile are one single document
       if constexpr (SEG) {
         const int2 q_rng = p.q_range[b * p.q_tiles + m0 / BW_BLOCK_M];
@@ -309,6 +350,7 @@ __device__ __forceinline__ void bwd_wide_body(const CUtensorMap& tm_q, const CUt
             } else {
               x = sc[idx] * p.scale_log2;
             }
+            if constexpr (BIAS) x = fmaxf(x + bv[idx] * LOG2E, MASK_VALUE);
             float pe = ex2(x - l2[e]);
             if (edge) {
               const int col = kv0 + 8 * r;
@@ -368,12 +410,32 @@ __device__ __forceinline__ void bwd_wide_body(const CUtensorMap& tm_q, const CUt
       wgmma_wait<0>();  // dP^T has retired
       fence_regs(dp);
       // dS^T = P^T (dP^T - Delta) scale (CAP: ph's P^T (1 - t^2) makes it
-      // dL^T (1 - t^2) scale), bf16, into its tile.
+      // dL^T (1 - t^2) scale), bf16, into its tile. BIAS with dbias: dL^T =
+      // P^T (dP^T - Delta) from the f32 P^T, before the scale and the cap's
+      // Jacobian, 8 lanes storing 8 keys of a row.
+      float* db = nullptr;
+      if constexpr (BIAS) {
+        if (p.dbias != nullptr) {
+          db = p.dbias + ((static_cast<int64_t>(b) * p.hq + h) * p.nq + mc + 2 * t) * p.nk + kv0;
+        }
+      }
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const float2 dl = lds_f2(dlt_addr + 32 * jj);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
+          if constexpr (BIAS) {
+            if (db != nullptr && kv0 + 8 * r < p.nk) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * jj + 2 * r + e;
+                if (mc + 8 * jj + 2 * t + e < p.nq) {
+                  __stcs(db + static_cast<int64_t>(8 * jj + e) * p.nk + 8 * r,
+                         sc[i] * (dp[i] - (e ? dl.y : dl.x)));  // bwd wide dbias
+                }
+              }
+            }
+          }
           const float2 pv = unpack_half(ph[2 * jj + r]);
           *pair_at(smem + S::OFF_DS, jj, r) =
               pack_bf16(pv.x * (dp[4 * jj + 2 * r] - dl.x) * p.scale,

@@ -1,11 +1,11 @@
 // K1 on the mma.sync body fwd_tile.cuh for Hopper (sm_90a): the C entry
-// fa_fwd of the calls that no TMA + wgmma route takes -- a bias on bf16 K/V
-// above D 128 (flash_fwd_bias.cu; with the softcap, flash_fwd_softcap.cu)
-// and int8 / fp8 K/V at every D (flash_fwd_int8.cu, flash_fwd_fp8.cu, with
-// or without a bias). A bf16 call without a bias is K1's dense route's
-// (fa_fwd_sm90, flash_fwd_sm90.cu, at every D up to 256), and fa_fwd refuses
-// it. Segment ids, a window and q / kv offsets are the Hopper routes' options:
-// fa_fwd takes none of them.
+// fa_fwd of the calls that no TMA + wgmma route takes -- int8 / fp8 K/V that
+// are not decode-shaped, at every D (flash_fwd_int8.cu, flash_fwd_fp8.cu,
+// with or without a bias). A bf16 call is K1's dense route's (fa_fwd_sm90,
+// flash_fwd_sm90.cu) or, with a bias, its bias route's (fa_fwd_bias_sm90,
+// flash_fwd_bias_sm90.cu), at every D up to 256, and fa_fwd refuses it.
+// Segment ids, a window, q / kv offsets and the softcap are the Hopper
+// routes' options: fa_fwd takes none of them.
 //
 // The kernel body, what it replaces (flashattn_tpu/ops/flash_fwd.py::
 // _fwd_kernel, and by causal _fwd_causal_resident_kernel) and what bounds it
@@ -17,20 +17,18 @@
 extern "C" {
 
 // O and LSE for q [B, Hq, Nq, D] bf16 and k/v [B, Hkv, Nk, D] of kv_dtype
-// (fa::KV_BF16, KV_INT8 or KV_FP8; unit stride on D, other strides in
-// elements); o has q's shape, lse is [B, Hq, Nq] f32 contiguous.
+// (fa::KV_INT8 or KV_FP8; unit stride on D, other strides in elements); o
+// has q's shape, lse is [B, Hq, Nq] f32 contiguous.
 //   bias: f32 [B|1, Hq|1, Nq|1, Nk] with unit column stride and the given
 //     (batch, head, row) strides, 0 on broadcast dims (null: no bias).
 //   k_scale / v_scale: f32 per-token scales [B, Hkv, Nk] with the given
-//     strides; required for int8 / fp8 K/V, null for bf16.
-// Requires 8 <= D <= 256 with D % 8 == 0, bf16 K/V only with a bias and
-// above D 128 (fa_fwd_sm90 and fa_fwd_bias_sm90 take the other bf16 calls),
-// Hq % Hkv == 0, 0 <= kv_valid_len <= Nk, Nq >= 1; int8 / fp8 K/V rows
-// 8-byte aligned. causal != 0 masks kv_pos > q_pos (zero offsets). softcap >
-// 0 caps the scaled scores at
-// softcap * tanh(s / softcap) (bf16 K/V only; 0: no cap). Returns a
-// cudaError_t (0 on success; cudaErrorInvalidValue for arguments it does not
-// take).
+//     strides, required.
+// Requires 8 <= D <= 256 with D % 8 == 0, Hq % Hkv == 0, 0 <= kv_valid_len
+// <= Nk, Nq >= 1, int8 / fp8 K/V rows 8-byte aligned, softcap 0 (no cap:
+// flash_attention_quantized has none); kv_dtype fa::KV_BF16 is refused
+// (fa_fwd_sm90 and fa_fwd_bias_sm90 take every bf16 call). causal != 0
+// masks kv_pos > q_pos (zero offsets). Returns a cudaError_t (0 on success;
+// cudaErrorInvalidValue for arguments it does not take).
 int fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
            const void* bias, const void* k_scale, const void* v_scale, int kv_dtype,
            int batch, int hq, int hkv, int nq, int d, int kv_valid_len, int causal,
@@ -39,13 +37,9 @@ int fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
            int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh, int64_t o_sn,
            int64_t bias_sb, int64_t bias_sh, int64_t bias_sn, int64_t ks_sb, int64_t ks_sh,
            int64_t ks_sn, int64_t vs_sb, int64_t vs_sh, int64_t vs_sn, void* stream) {
-  const bool quant = kv_dtype != fa::KV_BF16;
   if (d < 8 || d > 256 || d % 8 != 0 || hkv <= 0 || hq % hkv != 0 || nq <= 0 ||
-      kv_valid_len < 0 ||
-      (kv_dtype != fa::KV_BF16 && kv_dtype != fa::KV_INT8 && kv_dtype != fa::KV_FP8) ||
-      quant != (k_scale != nullptr) || quant != (v_scale != nullptr) ||
-      (!quant && (bias == nullptr || d <= 128)) || softcap < 0.f ||
-      (softcap > 0.f && quant)) {
+      kv_valid_len < 0 || (kv_dtype != fa::KV_INT8 && kv_dtype != fa::KV_FP8) ||
+      k_scale == nullptr || v_scale == nullptr || softcap != 0.f) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   fa::FwdParams p;
@@ -71,19 +65,9 @@ int fa_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   p.kv_valid_len = kv_valid_len;
   p.causal = causal != 0;
   p.scale_log2 = scale * fa::LOG2E;
-  p.cap_scale = softcap > 0.f ? scale / softcap : 0.f;
-  p.cap_log2 = softcap * fa::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (kv_dtype == fa::KV_INT8) {
-    e = fa::fwd_int8(p, batch, s);
-  } else if (kv_dtype == fa::KV_FP8) {
-    e = fa::fwd_fp8(p, batch, s);
-  } else if (softcap > 0.f) {
-    e = fa::fwd_softcap_bias_bf16(p, batch, s);
-  } else {
-    e = fa::fwd_bias_bf16(p, batch, s);
-  }
+  const cudaError_t e =
+      kv_dtype == fa::KV_INT8 ? fa::fwd_int8(p, batch, s) : fa::fwd_fp8(p, batch, s);
   return static_cast<int>(e);
 }
 

@@ -1,15 +1,17 @@
 // K1's bias route for Hopper (sm_90a): the C entry fa_fwd_bias_sm90 and the
-// eight instantiations (D 64 and 128, without and with segment ids, without
-// and with the logit softcap) of fwd_sm90_tile.cuh's body with the bias
-// stream, as fwd_bias_sm90_kernel<D, SEG, CAP>; every D <= 128 that is a
-// multiple of 8 runs in the D 64 or 128 one, its TMA boxes reading zeros past
-// D. The band (causal, a window, q / kv offsets) is runtime ints, as in the
-// dense route (flash_fwd_sm90.cu), whose argument list this entry's extends
-// by the bias. What it replaces, what bounds it and its design are in
-// fwd_sm90_tile.cuh; the route (ops/flash_fwd.py::bias_route) is decided in
-// Python, and the other K1 calls with a bias keep fwd_tile.cuh (fa_fwd,
-// flash_fwd.cu): D above 128 and quantized K/V, or the decode kernel
-// (decode_tile.cuh).
+// twelve instantiations (D 64, 128 and 256, without and with segment ids,
+// without and with the logit softcap) of fwd_sm90_tile.cuh's body with the
+// bias, as fwd_bias_sm90_kernel<D, SEG, CAP>; every D <= 256 that is a
+// multiple of 8 runs in the D 64, 128 or 256 one, its TMA boxes reading
+// zeros past D. Below D 256 the bias streams through each stage by cp.async;
+// at D 256 it has one slot of its own, filled by TMA from the bias map (the
+// kernel's fourth tensor map, unused below). The band (causal, a window, q /
+// kv offsets) is runtime ints, as in the dense route (flash_fwd_sm90.cu),
+// whose argument list this entry's extends by the bias. What it replaces,
+// what bounds it and its design are in fwd_sm90_tile.cuh; the route
+// (ops/flash_fwd.py::bias_route) is decided in Python, and the other K1 calls
+// with a bias go to the decode kernel (decode_tile.cuh) or, on quantized K/V,
+// to fwd_tile.cuh (fa_fwd, flash_fwd.cu).
 
 #include "fwd_sm90_tile.cuh"
 
@@ -19,28 +21,37 @@ template <int D, bool SEG, bool CAP>
 __global__ void __launch_bounds__(FB_THREADS, 1)
     fwd_bias_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
-                         const __grid_constant__ CUtensorMap tm_v, const FwdBiasParams p) {
-  fwd_sm90_body<D, true, SEG, CAP>(tm_q, tm_k, tm_v, p);
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_bias, const FwdBiasParams p) {
+  fwd_sm90_body<D, true, SEG, CAP>(tm_q, tm_k, tm_v, p, &tm_bias);
 }
 
-template <int D, bool CAP>
+template <int D, bool SEG, bool CAP>
 cudaError_t fwd_bias_sm90_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
-                                 const CUtensorMap& tm_v, const FwdBiasParams& p, int batch,
-                                 cudaStream_t stream) {
+                                 const CUtensorMap& tm_v, const CUtensorMap& tm_bias,
+                                 const FwdBiasParams& p, int batch, cudaStream_t stream) {
+  auto kernel = fwd_bias_sm90_kernel<D, SEG, CAP>;
   constexpr int smem = FbSmem<D>::BYTES;
-  return p.seg_q != nullptr
-             ? fwd_sm90_launch(fwd_bias_sm90_kernel<D, true, CAP>, smem, tm_q, tm_k, tm_v, p,
-                               batch, stream)
-             : fwd_sm90_launch(fwd_bias_sm90_kernel<D, false, CAP>, smem, tm_q, tm_k, tm_v, p,
-                               batch, stream);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.hq, (p.nq + FB_BLOCK_M - 1) / FB_BLOCK_M, batch);  // the head fastest
+  kernel<<<grid, FB_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, tm_bias, p);
+  return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t fwd_bias_sm90_dispatch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
-                                   const CUtensorMap& tm_v, const FwdBiasParams& p, bool cap,
-                                   int batch, cudaStream_t stream) {
-  return cap ? fwd_bias_sm90_launch<D, true>(tm_q, tm_k, tm_v, p, batch, stream)
-             : fwd_bias_sm90_launch<D, false>(tm_q, tm_k, tm_v, p, batch, stream);
+                                   const CUtensorMap& tm_v, const CUtensorMap& tm_bias,
+                                   const FwdBiasParams& p, bool cap, int batch,
+                                   cudaStream_t s) {
+  const bool seg = p.seg_q != nullptr;
+  return cap ? (seg ? fwd_bias_sm90_launch<D, true, true>(tm_q, tm_k, tm_v, tm_bias, p, batch, s)
+                    : fwd_bias_sm90_launch<D, false, true>(tm_q, tm_k, tm_v, tm_bias, p, batch,
+                                                           s))
+             : (seg ? fwd_bias_sm90_launch<D, true, false>(tm_q, tm_k, tm_v, tm_bias, p, batch,
+                                                           s)
+                    : fwd_bias_sm90_launch<D, false, false>(tm_q, tm_k, tm_v, tm_bias, p, batch,
+                                                            s));
 }
 
 }  // namespace
@@ -57,7 +68,7 @@ extern "C" {
 // tiles and 64-key KV tiles: all four or none), the softcap (> 0 caps the
 // scaled scores at softcap * tanh(s / softcap) before the bias is added, 0
 // none); a row that sees no key, or whose every score is at the mask value,
-// is dead (O = 0, LSE = ln2 * mask). Requires 8 <= D <= 128 with D % 8 == 0,
+// is dead (O = 0, LSE = ln2 * mask). Requires 8 <= D <= 256 with D % 8 == 0,
 // Hq % Hkv == 0, 1 <= Nq, 0 <= kv_valid_len <= Nk, B <= 65535; q, k, v and
 // bias 16-byte aligned, q / k / v strides multiples of 8 elements and the
 // bias's of 4 (16-byte bias rows), o 4-byte aligned with even strides,
@@ -78,7 +89,7 @@ int fa_fwd_bias_sm90(const void* q, const void* k, const void* v, void* o, void*
   // kv_valid_len 0 no KV tile is loaded).
   const int nkv = kv_valid_len > 0 ? kv_valid_len : 1;
   const bool seg = seg_q != nullptr;
-  if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
+  if (d < 8 || d > 256 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
       hq % hkv != 0 || nq < 1 || (nq + FB_BLOCK_M - 1) / FB_BLOCK_M > 65535 ||
       kv_valid_len < 0 || !(softcap >= 0.f) || bias == nullptr || !aligned(q, 16) ||
       !aligned(k, 16) ||
@@ -95,9 +106,12 @@ int fa_fwd_bias_sm90(const void* q, const void* k, const void* v, void* o, void*
   alignas(64) CUtensorMap tm_q;
   alignas(64) CUtensorMap tm_k;
   alignas(64) CUtensorMap tm_v;
+  alignas(64) CUtensorMap tm_bias = {};  // D 256's bias slot (FbSmem::SLOT) only
   if (!make_bhnd_map(&tm_q, q, batch, hq, nq, d, q_sb, q_sh, q_sn, FB_BLOCK_M) ||
       !make_bhnd_map(&tm_k, k, batch, hkv, nkv, d, k_sb, k_sh, k_sn, FB_BLOCK_N) ||
-      !make_bhnd_map(&tm_v, v, batch, hkv, nkv, d, v_sb, v_sh, v_sn, FB_BLOCK_N)) {
+      !make_bhnd_map(&tm_v, v, batch, hkv, nkv, d, v_sb, v_sh, v_sn, FB_BLOCK_N) ||
+      (d > 128 && !make_bias_map(&tm_bias, bias, batch, hq, nq, nkv, bias_sb, bias_sh, bias_sn,
+                                 bias_sn ? FB_BLOCK_M : 1))) {
     return static_cast<int>(cudaErrorNotSupported);
   }
   fa::FwdBiasParams p;
@@ -124,8 +138,10 @@ int fa_fwd_bias_sm90(const void* q, const void* k, const void* v, void* o, void*
   p.cap_scale = cap ? scale / softcap : 0.f;
   p.cap_log2 = softcap * fa::LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = d <= 64 ? fwd_bias_sm90_dispatch<64>(tm_q, tm_k, tm_v, p, cap, batch, s)
-                                : fwd_bias_sm90_dispatch<128>(tm_q, tm_k, tm_v, p, cap, batch, s);
+  const cudaError_t e =
+      d <= 64    ? fwd_bias_sm90_dispatch<64>(tm_q, tm_k, tm_v, tm_bias, p, cap, batch, s)
+      : d <= 128 ? fwd_bias_sm90_dispatch<128>(tm_q, tm_k, tm_v, tm_bias, p, cap, batch, s)
+                 : fwd_bias_sm90_dispatch<256>(tm_q, tm_k, tm_v, tm_bias, p, cap, batch, s);
   return static_cast<int>(e);
 }
 

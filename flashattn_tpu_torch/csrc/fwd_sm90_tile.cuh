@@ -17,10 +17,10 @@
 // bit the convention K3 / K5 / K6 read). GQA maps query head h to KV head
 // h / rep; Q, K, V and O are strided views.
 //
-//   * The bias route takes any D that is a multiple of 8 up to 128, the
-//     dense route any up to 256, instantiated at 64, 128 and (dense) 256:
-//     D 40, 80, 96 or 136-248 read zeros past D from the TMA boxes, and O's
-//     columns >= D are never written. Both take the
+//   * Both routes take any D that is a multiple of 8 up to 256,
+//     instantiated at 64, 128 and 256: D 40, 80, 96 or 136-248 read zeros
+//     past D from the TMA boxes, and O's columns >= D are never written. Both
+//     take the
 //     softcap (CAP, a template flag): the accurate tanhf, which the
 //     backward's recompute uses too -- a P that differs from the backward's
 //     breaks sum(P) = 1 behind Delta.
@@ -110,14 +110,26 @@
 //     others are masked per pair from the rows' ids (read once) and the
 //     tile's 64 ids (padded by the wrapper to whole tiles), which come by a
 //     bulk copy on the stage's barrier.
-//   * D 256 (the dense route; Gemma 2's heads): Q takes 64 KB and a (K, V)
-//     stage 64 KB, so the ring has 2 stages (FbSmem); a consumer keeps O's
-//     128 f32 accumulators, so setmaxnreg gives it 240 registers and the
-//     producer 24; P V is one wgmma m64n256k16 a k-step (sm90.cuh). At the
-//     LM's attention (B1 Hq8 Hkv4 N2048 D256 causal) the grid is 8 x 16 =
-//     128 CTAs, one wave on 132 SMs: the longest visits 32 KV tiles, 268
-//     MFLOP, 0.036 ms at one SM's share of 989 TFLOP/s, the floor of this
-//     grid there.
+//   * D 256 (Gemma 2's heads): Q takes 64 KB and a (K, V) stage 64 KB, so
+//     the ring has 2 stages (FbSmem); a consumer keeps O's 128 f32
+//     accumulators, so setmaxnreg gives it 240 registers and the producer 24;
+//     P V is one wgmma m64n256k16 a k-step (sm90.cuh). At the LM's attention
+//     (B1 Hq8 Hkv4 N2048 D256 causal) the grid is 8 x 16 = 128 CTAs, one wave
+//     on 132 SMs: the longest visits 32 KV tiles, 268 MFLOP, 0.036 ms at one
+//     SM's share of 989 TFLOP/s, the floor of this grid there.
+//   * The bias route at D 256 (fwd_bias_sm90_kernel<256, SEG, CAP>): the
+//     producer keeps 24 registers, too few for the 128-thread cp.async
+//     stream, and a bias tile per stage would pass 227 KB. So the bias has
+//     one slot of its own (32 KB: 229,376 B with Q and the two stages), on a
+//     full / empty barrier pair of its own, filled by the one TMA thread --
+//     two boxes of 32 columns x 128 rows (one row for a row-broadcast bias)
+//     with the 128-byte swizzle, from the bias map of sm90.cuh (a broadcast
+//     dim an extent-1 dim), at the tile's absolute column -- after the
+//     tile's K and V. Each consumer warp releases the slot once its softmax
+//     has read the tile (a warpgroup that skips the tile waits for it all the
+//     same), so the next tile's bias lands while P V runs. With the swizzle a
+//     half-warp's float2 reads fall on 4 chunks of 4 rows: 2-way bank
+//     conflicts, where the cp.async layout below has none.
 //   * The softmax spends one MUFU.EX2 per score (with CAP, tanhf's
 //     exponential and reciprocal too). With a right bound
 //     (causal) the longest Q tiles go first, so the tail of the grid is
@@ -168,22 +180,27 @@ constexpr int FB_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int FB_BOX_ROW = 128;  // bytes per row of a 64-column bf16 box (the swizzle's span)
 
 // Shared-memory layout (bytes, from a 1024-byte-aligned base): Q, then per
-// stage K, V (each D / 64 boxes of 64 columns) and, with BIAS, the bias
-// tile; then the 64 segment ids of each stage; then the mbarriers
-// q_full, full[STAGES], empty[STAGES]. D 256 (the dense route only): Q 64 KB
-// and 2 stages of (K, V) 64 KB, 193 KB in all; a third stage would pass 227
-// KB. (K and V on barriers of their own, so that S = Q K^T starts once K has
-// landed, measured no faster: chip_variants.py k1wide.)
+// stage K, V (each D / 64 boxes of 64 columns) and, with BIAS below D 256,
+// the bias tile; at D 256 with BIAS the one bias slot (SLOT: two boxes of 32
+// columns x 128 rows); then the 64 segment ids of each stage; then the
+// mbarriers q_full, full[STAGES], empty[STAGES] and with SLOT bias_full,
+// bias_empty. D 256: Q 64 KB and 2 stages of (K, V) 64 KB, 193 KB in all (225
+// KB with the bias slot); a third stage would pass 227 KB. (K and V on
+// barriers of their own, so that S = Q K^T starts once K has landed, measured
+// no faster: chip_variants.py k1wide.)
 template <int D, bool BIAS = true>
 struct FbSmem {
   static constexpr int STAGES = D == 256 ? 2 : D == 64 || !BIAS ? 4 : 3;
+  static constexpr bool SLOT = BIAS && D == 256;
   static constexpr int Q = FB_BLOCK_M * D * 2;
   static constexpr int KV = FB_BLOCK_N * D * 2;
   static constexpr int BIAS_TILE = BIAS ? FB_BLOCK_M * FB_BLOCK_N * 4 : 0;
-  static constexpr int STAGE = 2 * KV + BIAS_TILE;
-  static constexpr int SEG = Q + STAGES * STAGE;  // int[STAGES][64]
+  static constexpr int BIAS_BOX = FB_BLOCK_M * SW128_F32 * 4;  // SLOT: a box's bytes
+  static constexpr int STAGE = 2 * KV + (SLOT ? 0 : BIAS_TILE);
+  static constexpr int OFF_BIAS = Q + STAGES * STAGE;  // SLOT
+  static constexpr int SEG = OFF_BIAS + (SLOT ? BIAS_TILE : 0);  // int[STAGES][64]
   static constexpr int BARS = SEG + STAGES * FB_BLOCK_N * 4;
-  static constexpr int BYTES = 1024 + BARS + (1 + 2 * STAGES) * 8;
+  static constexpr int BYTES = 1024 + BARS + (1 + 2 * STAGES + (SLOT ? 2 : 0)) * 8;
   static_assert(Q % 1024 == 0 && KV % 1024 == 0 && BIAS_TILE % 1024 == 0,
                 "the 128-byte swizzle repeats every 1024 bytes");
   static_assert(BYTES <= 232448, "a block's shared memory on sm_90");
@@ -219,15 +236,18 @@ __device__ __forceinline__ int bias_slot(int r, int c) {
 // room for ex2.approx. The bias of column 8jj + 2t of row g is at shared
 // address b_addr ^ 32jj (bias_slot's permutation: b_addr has bits 5-6 = row
 // % 4 and bits 3-4 = t), row g + 8's b_step bytes on (0 for a row-broadcast
-// bias).
-template <bool MASKED, bool SEG, bool CAP, bool ACCURATE = false, bool BIAS = false>
+// bias); with SW128 (the D 256 slot's TMA boxes) at (b_addr ^ 32 (jj % 4)) +
+// box (jj / 4) (b_addr has bits 4-6 = (t / 2) ^ (row % 8) and bit 3 = t % 2:
+// chunk 2 (jj % 4) + t / 2 of the row, swizzled).
+template <bool MASKED, bool SEG, bool CAP, bool ACCURATE = false, bool BIAS = false,
+          bool SW128 = false>
 __device__ __forceinline__ void dense_softmax_tile(float (&sc)[32], int col0, int row0, int t,
                                                    int lo, int hi, int nkv, const int* ids,
                                                    const int (&q_seg)[2], float scale_log2,
                                                    float cap_scale, float cap_log2,
                                                    float (&m_i)[2], float (&l_i)[2],
                                                    float (&alpha)[2], uint32_t b_addr = 0,
-                                                   uint32_t b_step = 0) {
+                                                   uint32_t b_step = 0, uint32_t b_box = 0) {
   float mx[2] = {m_i[0], m_i[1]};
 #pragma unroll
   for (int jj = 0; jj < FB_BLOCK_N / 8; ++jj) {
@@ -236,7 +256,11 @@ __device__ __forceinline__ void dense_softmax_tile(float (&sc)[32], int col0, in
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float2 bv = make_float2(0.f, 0.f);
-      if constexpr (BIAS) bv = lds_f2((b_addr ^ (32 * jj)) + r * b_step);
+      if constexpr (BIAS) {
+        const uint32_t a = SW128 ? (b_addr ^ (32 * (jj & 3))) + (jj >> 2) * b_box
+                                 : b_addr ^ (32 * jj);
+        bv = lds_f2(a + r * b_step);
+      }
       const float bias2[2] = {bv.x, bv.y};  // K1 bias sm90 read
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
@@ -281,10 +305,11 @@ __device__ __forceinline__ int2 kv_tile_range(const FwdDenseParams& p, int b, in
 // and CAP with the logit softcap, the band as runtime ints.
 template <int D, bool BIAS, bool SEG, bool CAP, typename Params>
 __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
-                                              const CUtensorMap& tm_v, const Params& p) {
-  static_assert(D == 64 || D == 128 || (D == 256 && !BIAS),
-                "instantiated for D 64 and 128, and the dense route's D 256");
+                                              const CUtensorMap& tm_v, const Params& p,
+                                              const CUtensorMap* tm_bias = nullptr) {
+  static_assert(D == 64 || D == 128 || D == 256, "instantiated for D 64, 128 and 256");
   using S = FbSmem<D, BIAS>;
+  constexpr bool SLOT = S::SLOT;  // the bias in one slot of its own, by TMA (D 256)
   // setmaxnreg's split of the registers between the producer and each
   // consumer warpgroup (56 + 2 x 224 = 24 + 2 x 240): at D 256 a consumer
   // keeps o[128], sc[32] and pa[16], so the producer (one thread issuing
@@ -300,6 +325,8 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + S::STAGES;
+  uint64_t* bias_full = empty + S::STAGES;  // SLOT
+  uint64_t* bias_empty = bias_full + 1;
 
   const int h = blockIdx.x;
   // A right bound (causal): the late Q tiles meet the most KV tiles, so they
@@ -332,9 +359,13 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < S::STAGES; ++s) {
-      // BIAS: the TMA thread's expect_tx, each producer's cp.async.
-      mbar_init(&full[s], BIAS ? 1 + 128 : 1);
+      // BIAS below D 256: the TMA thread's expect_tx, each producer's cp.async.
+      mbar_init(&full[s], BIAS && !SLOT ? 1 + 128 : 1);
       mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    if constexpr (SLOT) {
+      mbar_init(bias_full, 1);
+      mbar_init(bias_empty, 8);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -343,7 +374,7 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     const int hk = h / p.rep;  // GQA: the BlockSpec index map h // rep
-    if constexpr (BIAS) {
+    if constexpr (BIAS && !SLOT) {
       // Producer: thread 0 issues the TMA loads, all 128 threads the bias copies.
       if (tid == 0) {
         mbar_expect_tx(q_full, S::Q);
@@ -402,7 +433,10 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
       asm volatile("cp.async.wait_all;\n" ::: "memory");
     } else if (tid == 0) {
       // Producer: thread 0 issues every copy, over the tiles the consumers
-      // visit (SEG: those whose id range meets the Q tile's).
+      // visit (SEG: those whose id range meets the Q tile's); with SLOT the
+      // bias too, once the slot is free.
+      uint32_t bias_bytes = 0;
+      if constexpr (SLOT) bias_bytes = 2 * (p.bias_sn ? FB_BLOCK_M : 1) * SW128_ROW;
       mbar_expect_tx(q_full, S::Q);
 #pragma unroll
       for (int x = 0; x < BOXES; ++x) {
@@ -433,6 +467,16 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
           bulk_load(smem + S::SEG + s * FB_BLOCK_N * 4,
                     p.seg_kv + static_cast<int64_t>(b) * p.kv_tiles * FB_BLOCK_N + n0,
                     FB_BLOCK_N * 4, &full[s]);
+        }
+        if constexpr (SLOT) {
+          mbar_wait(bias_empty, (it & 1) ^ 1);  // round 0 passes at once
+          mbar_expect_tx(bias_full, bias_bytes);
+#pragma unroll
+          for (int x = 0; x < FB_BLOCK_N / SW128_F32; ++x) {
+            tma_load_4d(smem + S::OFF_BIAS + x * S::BIAS_BOX, tm_bias, bias_full,
+                        n0 + SW128_F32 * x,  // K1 bias d256 column
+                        p.bias_sn ? m0 : 0, p.bias_sh ? h : 0, p.bias_sb ? b : 0);
+          }
         }
         ++it;
       }
@@ -474,12 +518,26 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
     // BIAS: this thread's bias, its row of the tile (row 0 of a
     // row-broadcast bias), chunk 2jj + t / 2 at bias_slot's place
     // (dense_softmax_tile).
+    // SLOT: row tr of the box (row 0 of a row-broadcast bias), its chunk
+    // t / 2 swizzled by the row's % 8 (g), 8 bytes in for an odd t.
     uint32_t b_off = 0, b_step = 0;
-    if constexpr (BIAS) {
+    if constexpr (SLOT) {
+      const int b_row = p.bias_sn ? tr : 0;
+      b_off = b_row * SW128_ROW + ((((t >> 1) ^ b_row) & 7) << 4) + (t & 1) * 8;
+      b_step = p.bias_sn ? 8 * SW128_ROW : 0;
+    } else if constexpr (BIAS) {
       const int b_row = p.bias_sn ? tr : 0;
       b_off = 4 * (b_row * FB_BLOCK_N + 8 * (b_row & 3) + 2 * t);
       b_step = p.bias_sn ? 4 * 8 * FB_BLOCK_N : 0;
     }
+    // SLOT: this warp is done with the slot's tile (the producer refills it).
+    auto release_bias = [&](int j) {
+      if constexpr (SLOT) {
+        mbar_wait(bias_full, j & 1);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bias_empty);
+      }
+    };
     mbar_wait(q_full, 0);
     int it = 0;  // tiles visited, in the producer's order
     for (int j = 0; j < n_tiles; ++j) {
@@ -495,22 +553,25 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
       // 63 + hi]; the others are released unread.
       if (c0 <= r_first + 63 + p.hi && c0 + FB_BLOCK_N - 1 >= r_first - p.lo) {
         issue_qk<D, FB_BLOCK_M, FB_BLOCK_N>(sc, q_s, stage(it));
+        if constexpr (SLOT) mbar_wait(bias_full, it & 1);
         wgmma_wait<0>();
         fence_regs(sc);
         const bool edge = c0 + FB_BLOCK_N > nkv || c0 + FB_BLOCK_N - 1 - r_first > p.hi ||
                           r_first + 63 - c0 > p.lo ||
                           (SEG && !(q_one_doc && k_rng.x == k_rng.y && k_rng.x == q_rng.x));
         const int* ids = reinterpret_cast<const int*>(smem + S::SEG + s * FB_BLOCK_N * 4);
-        const uint32_t b_addr = BIAS ? smem_u32(stage(it) + 2 * S::KV) + b_off : 0;
+        const uint32_t b_addr =
+            !BIAS ? 0 : smem_u32(SLOT ? smem + S::OFF_BIAS : stage(it) + 2 * S::KV) + b_off;
         if (edge) {
-          dense_softmax_tile<true, SEG, CAP, false, BIAS>(
+          dense_softmax_tile<true, SEG, CAP, false, BIAS, SLOT>(
               sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, p.cap_scale,
-              p.cap_log2, m_i, l_i, alpha, b_addr, b_step);
+              p.cap_log2, m_i, l_i, alpha, b_addr, b_step, S::BIAS_BOX);
         } else {
-          dense_softmax_tile<false, SEG, CAP, false, BIAS>(
+          dense_softmax_tile<false, SEG, CAP, false, BIAS, SLOT>(
               sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, p.cap_scale,
-              p.cap_log2, m_i, l_i, alpha, b_addr, b_step);
+              p.cap_log2, m_i, l_i, alpha, b_addr, b_step, S::BIAS_BOX);
         }
+        release_bias(it);  // the wait has passed: this arrives
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
         pack_p(pa, sc);
@@ -519,6 +580,8 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
         fence_regs(o);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+      } else {
+        release_bias(it);  // unread: the slot's phase still moves on
       }
       release(it);
       ++it;

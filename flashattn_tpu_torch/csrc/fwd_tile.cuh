@@ -1,15 +1,14 @@
 // FlashAttention-2 forward for Hopper (sm_90a) on mma.sync: the kernel body
-// of the K1 calls that no TMA + wgmma route takes -- an additive bias above
-// D 128 (flash_fwd_bias.cu; with the logit softcap, flash_fwd_softcap.cu)
-// and int8 / fp8 K/V that are not decode-shaped (flash_fwd_int8.cu,
-// flash_fwd_fp8.cu, with or without a bias) -- reached through fa_fwd
-// (flash_fwd.cu). Every bf16 call without a bias goes to K1's dense route
-// (fwd_sm90_tile.cuh, D <= 256), a bias at D <= 128 to its bias route.
+// of the K1 calls that no TMA + wgmma route takes -- int8 / fp8 K/V that are
+// not decode-shaped (flash_fwd_int8.cu, flash_fwd_fp8.cu, with or without a
+// bias) -- reached through fa_fwd (flash_fwd.cu). Every bf16 call goes to a
+// TMA + wgmma route (fwd_sm90_tile.cuh: the dense route without a bias, the
+// bias route with one, D <= 256) or to the decode kernel.
 //
 // Replaces, for those calls, the TPU kernels flashattn_tpu/ops/flash_fwd.py::
 // _fwd_kernel (K1, :115) and, with causal, _fwd_causal_resident_kernel (K2,
-// :516): KV tail, GQA, an optional top-left causal mask, an additive bias,
-// the logit softcap and int8 / fp8 e4m3 K/V with per-token f32 scales. It
+// :516): KV tail, GQA, an optional top-left causal mask, an additive bias
+// and int8 / fp8 e4m3 K/V with per-token f32 scales. It
 // computes what those kernels compute -- O = softmax(Q K^T * scale + bias) V
 // with the online softmax in the log2 domain, f32 running max / sum /
 // accumulator, and the row LSE in natural log (m * ln2 + log l) -- but is
@@ -54,24 +53,19 @@
 //     f32 score column, v_scale[col] multiplies P after the row sum and
 //     before P is rounded to bf16 for P V. Folding the scales into K/V before
 //     the bf16 rounding would compute other numbers than the JAX package.
-//   * Logit soft-capping (flash_fwd.py:310-318, Gemma-2): the f32 score
-//     becomes x = cap * log2e * tanh(s * scale / cap) -- scale inside the
-//     tanh, so Q is never pre-scaled -- before the bias (the HF Gemma-2
-//     order) and the masks. tanhf is the accurate one (no fast-math): the
-//     backward's 1 - t^2 amplifies its error near saturation.
 //
-// The bias, the softcap and the K/V element type are template parameters,
-// so each instantiation carries only the options it takes (a runtime
-// segment flag once cost this body 50%, PERF.md): fwd_kernel<DP, BIAS, KV>
-// for a bias on bf16 K/V above D 128 and for int8 / fp8 K/V at every padded
-// D, fwd_softcap_kernel<DP> for the softcap with a bias above D 128.
+// The bias and the K/V element type are template parameters, so each
+// instantiation carries only the options it takes (a runtime segment flag
+// once cost this body 50%, PERF.md): fwd_kernel<DP, BIAS, KV> for int8 / fp8
+// K/V at every padded D. The JAX package has no softcap with quantized K/V
+// (flash_attention_quantized), and fa_fwd takes none.
 //
 // What bounds it: mma.sync at 16 rows per warp, synchronous global->shared
 // loads between two block barriers, and one dependent scalar bias load per
 // score: K1 on this body ran at ~100 TFLOP/s where the TMA + wgmma routes
-// reach 234-358 (PERF.md §6). What it keeps is off the main paths: a bias
-// above D 128 has no backward on the card, and decode-shaped quantized calls
-// take decode_tile.cuh.
+// reach 234-358 (PERF.md §6). What it keeps is off the main paths: the
+// decode-shaped quantized calls take decode_tile.cuh, and only a quantized
+// prefill (flash_attention_quantized over a whole prompt) reaches it.
 
 #pragma once
 
@@ -100,17 +94,12 @@ struct FwdParams {
   int64_t vs_sb, vs_sh, vs_sn;
   int hq, rep, nq, d, kv_valid_len, causal;
   float scale_log2;  // softmax scale * log2(e)
-  float cap_scale;   // softcap: softmax scale / cap
-  float cap_log2;    // softcap: cap * log2(e)
 };
 
 // One launch of an instantiation family over every padded head dim; defined
 // in the source that instantiates the family.
-cudaError_t fwd_bias_bf16(const FwdParams& p, int batch, cudaStream_t stream);  // flash_fwd_bias.cu
-cudaError_t fwd_int8(const FwdParams& p, int batch, cudaStream_t stream);       // flash_fwd_int8.cu
-cudaError_t fwd_fp8(const FwdParams& p, int batch, cudaStream_t stream);        // flash_fwd_fp8.cu
-cudaError_t fwd_softcap_bias_bf16(const FwdParams& p, int batch,
-                                  cudaStream_t stream);  // flash_fwd_softcap.cu
+cudaError_t fwd_int8(const FwdParams& p, int batch, cudaStream_t stream);  // flash_fwd_int8.cu
+cudaError_t fwd_fp8(const FwdParams& p, int batch, cudaStream_t stream);   // flash_fwd_fp8.cu
 
 }  // namespace fa
 
@@ -133,41 +122,36 @@ __device__ __forceinline__ float kv_to_float(uint32_t bits) {
   }
 }
 
-// A K/V tile into the padded bf16 shared tile of load_tile. bf16 goes through
-// load_tile (16-byte loads); int8 / e4m3 rows are read 8 elements (8 bytes)
-// at a time -- so D = 8 is one load per row, and the wrapper guarantees
-// 8-byte-aligned rows -- and widened to 8 bf16, without scaling.
+// A quantized K/V tile into the padded bf16 shared tile of load_tile: rows
+// read 8 elements (8 bytes) at a time -- so D = 8 is one load per row, and
+// the wrapper guarantees 8-byte-aligned rows -- and widened to 8 bf16,
+// without scaling.
 template <int DP, int ROWS, int THREADS, int KV>
 __device__ __forceinline__ void load_kv_tile(__nv_bfloat16* smem,
                                              const typename KvElem<KV>::type* g,
                                              int64_t row_stride, int rows_valid, int d) {
-  if constexpr (KV == KV_BF16) {
-    load_tile<DP, ROWS, THREADS>(smem, g, row_stride, rows_valid, d);
-  } else {
-    constexpr int CHUNKS = DP / 8;
-    constexpr int STRIDE = DP + 8;
-    for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
-      const int r = idx / CHUNKS;
-      const int c = idx % CHUNKS;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows_valid && c * 8 < d) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(g + r * row_stride + c * 8);
-        val.x = pack_bf16(kv_to_float<KV>(raw.x), kv_to_float<KV>(raw.x >> 8));
-        val.y = pack_bf16(kv_to_float<KV>(raw.x >> 16), kv_to_float<KV>(raw.x >> 24));
-        val.z = pack_bf16(kv_to_float<KV>(raw.y), kv_to_float<KV>(raw.y >> 8));
-        val.w = pack_bf16(kv_to_float<KV>(raw.y >> 16), kv_to_float<KV>(raw.y >> 24));
-      }
-      *reinterpret_cast<uint4*>(smem + r * STRIDE + c * 8) = val;
+  constexpr int CHUNKS = DP / 8;
+  constexpr int STRIDE = DP + 8;
+  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
+    const int r = idx / CHUNKS;
+    const int c = idx % CHUNKS;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows_valid && c * 8 < d) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(g + r * row_stride + c * 8);
+      val.x = pack_bf16(kv_to_float<KV>(raw.x), kv_to_float<KV>(raw.x >> 8));
+      val.y = pack_bf16(kv_to_float<KV>(raw.x >> 16), kv_to_float<KV>(raw.x >> 24));
+      val.z = pack_bf16(kv_to_float<KV>(raw.y), kv_to_float<KV>(raw.y >> 8));
+      val.w = pack_bf16(kv_to_float<KV>(raw.y >> 16), kv_to_float<KV>(raw.y >> 24));
     }
+    *reinterpret_cast<uint4*>(smem + r * STRIDE + c * 8) = val;
   }
 }
 
-// BIAS: additive bias; KV: K/V element type (quantized when not KV_BF16,
-// with p.k_scale / p.v_scale); CAP: logit soft-capping.
-template <int DP, bool BIAS, int KV, bool CAP>
+// BIAS: additive bias; KV: the quantized K/V element type (KV_INT8 or
+// KV_FP8, with p.k_scale / p.v_scale).
+template <int DP, bool BIAS, int KV>
 __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
-  constexpr bool QUANT = KV != KV_BF16;
-  static_assert(!(CAP && QUANT), "softcap takes bf16 K/V only (the JAX ValueError)");
+  static_assert(KV != KV_BF16, "bf16 K/V take the TMA + wgmma routes (fwd_sm90_tile.cuh)");
   constexpr int BLOCK_M = FWD_BLOCK_M;
   constexpr int BLOCK_N = FWD_BLOCK_N;
   constexpr int STRIDE = DP + 8;  // shared row stride (see load_tile)
@@ -229,8 +213,8 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
     bias_row[0] = row0 < p.nq ? bias_bh + row0 * p.bias_sn : nullptr;
     bias_row[1] = row0 + 8 < p.nq ? bias_bh + (row0 + 8) * p.bias_sn : nullptr;
   }
-  const float* ks_g = QUANT ? p.k_scale + b * p.ks_sb + hk * p.ks_sh : nullptr;
-  const float* vs_g = QUANT ? p.v_scale + b * p.vs_sb + hk * p.vs_sh : nullptr;
+  const float* ks_g = p.k_scale + b * p.ks_sb + hk * p.ks_sh;
+  const float* vs_g = p.v_scale + b * p.vs_sb + hk * p.vs_sh;
 
   for (int j = 0; j < n_tiles; ++j) {
     const int n0 = j * BLOCK_N;
@@ -238,7 +222,7 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
     __syncthreads();  // the previous tile is consumed (and s_q is complete)
     load_kv_tile<DP, BLOCK_N, FWD_THREADS, KV>(s_k, k_g + n0 * p.k_sn, p.k_sn, kv_rows, p.d);
     load_kv_tile<DP, BLOCK_N, FWD_THREADS, KV>(s_v, v_g + n0 * p.v_sn, p.v_sn, kv_rows, p.d);
-    if (QUANT && threadIdx.x < BLOCK_N) {
+    if (threadIdx.x < BLOCK_N) {
       // 0 past the tail: those columns carry P = 0, and 0 * 0 stays 0.
       const bool live = threadIdx.x < kv_rows;
       s_ks[threadIdx.x] = live ? ks_g[(n0 + threadIdx.x) * p.ks_sn] : 0.f;
@@ -265,9 +249,9 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
       }
     }
 
-    // Scale into the log2 domain in f32 (with quantized K, the column's K
-    // scale first; with softcap, through the cap); add the bias; mask the KV
-    // tail and, on causal's diagonal tiles, its upper triangle col > row.
+    // Scale into the log2 domain in f32 (the column's K scale first); add
+    // the bias; mask the KV tail and, on causal's diagonal tiles, its upper
+    // triangle col > row.
     const bool tail = n0 + BLOCK_N > nkv;
     const bool edge = p.causal && n0 + BLOCK_N - 1 > m0;
     float mx[2] = {m_i[0], m_i[1]};
@@ -277,12 +261,7 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
       for (int e = 0; e < 4; ++e) {
         const int cl = nt * 8 + 2 * t + (e & 1);  // column within the tile
         const int col = n0 + cl;
-        float x;
-        if constexpr (CAP) {
-          x = p.cap_log2 * tanhf(s[nt][e] * p.cap_scale);
-        } else {
-          x = QUANT ? s[nt][e] * s_ks[cl] * p.scale_log2 : s[nt][e] * p.scale_log2;
-        }
+        float x = s[nt][e] * s_ks[cl] * p.scale_log2;
         if (BIAS && bias_row[e >> 1] != nullptr && col < nkv) {
           // Floored at the mask value: a bias at the mask value (a boolean
           // mask turned additive) times log2 e would overflow to -inf, and a
@@ -311,7 +290,7 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
         const float pe = exp2f(s[nt][e] - m_i[e >> 1]);
         l_i[e >> 1] += pe;
         // Quantized V: P diag(v_scale) V, the scale on P before its bf16 rounding.
-        s[nt][e] = QUANT ? pe * s_vs[nt * 8 + 2 * t + (e & 1)] : pe;
+        s[nt][e] = pe * s_vs[nt * 8 + 2 * t + (e & 1)];
       }
     }
 #pragma unroll
@@ -370,28 +349,15 @@ __device__ __forceinline__ void fwd_tile(const FwdParams& p) {
 
 template <int DP, bool BIAS, int KV>
 __global__ void __launch_bounds__(FWD_THREADS) fwd_kernel(const FwdParams p) {
-  fwd_tile<DP, BIAS, KV, false>(p);
+  fwd_tile<DP, BIAS, KV>(p);
 }
 
-// The softcap with a bias (bf16 K/V above D 128: the call that K1's bias
-// route takes at D <= 128).
-template <int DP>
-__global__ void __launch_bounds__(FWD_THREADS) fwd_softcap_kernel(const FwdParams p) {
-  fwd_tile<DP, true, KV_BF16, true>(p);
-}
-
-template <int DP, bool BIAS, int KV, bool CAP>
+template <int DP, bool BIAS, int KV>
 cudaError_t fwd_launch_dp(const FwdParams& p, int batch, cudaStream_t stream) {
-  static_assert(!CAP || (BIAS && KV == KV_BF16), "the softcap family takes a bias on bf16 K/V");
-  size_t smem = static_cast<size_t>(FWD_BLOCK_M + 2 * FWD_BLOCK_N) * (DP + 8) *
-                sizeof(__nv_bfloat16);
-  if (KV != KV_BF16) smem += 2 * FWD_BLOCK_N * sizeof(float);
-  void (*kernel)(const FwdParams);
-  if constexpr (CAP) {
-    kernel = fwd_softcap_kernel<DP>;
-  } else {
-    kernel = fwd_kernel<DP, BIAS, KV>;
-  }
+  const size_t smem = static_cast<size_t>(FWD_BLOCK_M + 2 * FWD_BLOCK_N) * (DP + 8) *
+                          sizeof(__nv_bfloat16) +
+                      2 * FWD_BLOCK_N * sizeof(float);
+  auto kernel = fwd_kernel<DP, BIAS, KV>;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.nq + FWD_BLOCK_M - 1) / FWD_BLOCK_M, p.hq, batch);
@@ -399,45 +365,27 @@ cudaError_t fwd_launch_dp(const FwdParams& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 K/V with a bias, with or without the softcap: one instantiation per
-// padded head dim above 128, the calls that K1's bias route
-// (fa_fwd_bias_sm90) does not take; a smaller D is refused.
-template <bool CAP>
-cudaError_t fwd_launch_wide(const FwdParams& p, int batch, cudaStream_t s) {
-  switch ((p.d + 15) / 16 * 16) {
-    case 144: return fwd_launch_dp<144, true, KV_BF16, CAP>(p, batch, s);
-    case 160: return fwd_launch_dp<160, true, KV_BF16, CAP>(p, batch, s);
-    case 176: return fwd_launch_dp<176, true, KV_BF16, CAP>(p, batch, s);
-    case 192: return fwd_launch_dp<192, true, KV_BF16, CAP>(p, batch, s);
-    case 208: return fwd_launch_dp<208, true, KV_BF16, CAP>(p, batch, s);
-    case 224: return fwd_launch_dp<224, true, KV_BF16, CAP>(p, batch, s);
-    case 240: return fwd_launch_dp<240, true, KV_BF16, CAP>(p, batch, s);
-    case 256: return fwd_launch_dp<256, true, KV_BF16, CAP>(p, batch, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // Quantized K/V, with or without a bias: one instantiation per padded head
 // dim (a multiple of 16 up to 256).
 template <bool BIAS, int KV>
 cudaError_t fwd_launch(const FwdParams& p, int batch, cudaStream_t s) {
   switch ((p.d + 15) / 16 * 16) {
-    case 16: return fwd_launch_dp<16, BIAS, KV, false>(p, batch, s);
-    case 32: return fwd_launch_dp<32, BIAS, KV, false>(p, batch, s);
-    case 48: return fwd_launch_dp<48, BIAS, KV, false>(p, batch, s);
-    case 64: return fwd_launch_dp<64, BIAS, KV, false>(p, batch, s);
-    case 80: return fwd_launch_dp<80, BIAS, KV, false>(p, batch, s);
-    case 96: return fwd_launch_dp<96, BIAS, KV, false>(p, batch, s);
-    case 112: return fwd_launch_dp<112, BIAS, KV, false>(p, batch, s);
-    case 128: return fwd_launch_dp<128, BIAS, KV, false>(p, batch, s);
-    case 144: return fwd_launch_dp<144, BIAS, KV, false>(p, batch, s);
-    case 160: return fwd_launch_dp<160, BIAS, KV, false>(p, batch, s);
-    case 176: return fwd_launch_dp<176, BIAS, KV, false>(p, batch, s);
-    case 192: return fwd_launch_dp<192, BIAS, KV, false>(p, batch, s);
-    case 208: return fwd_launch_dp<208, BIAS, KV, false>(p, batch, s);
-    case 224: return fwd_launch_dp<224, BIAS, KV, false>(p, batch, s);
-    case 240: return fwd_launch_dp<240, BIAS, KV, false>(p, batch, s);
-    default: return fwd_launch_dp<256, BIAS, KV, false>(p, batch, s);
+    case 16: return fwd_launch_dp<16, BIAS, KV>(p, batch, s);
+    case 32: return fwd_launch_dp<32, BIAS, KV>(p, batch, s);
+    case 48: return fwd_launch_dp<48, BIAS, KV>(p, batch, s);
+    case 64: return fwd_launch_dp<64, BIAS, KV>(p, batch, s);
+    case 80: return fwd_launch_dp<80, BIAS, KV>(p, batch, s);
+    case 96: return fwd_launch_dp<96, BIAS, KV>(p, batch, s);
+    case 112: return fwd_launch_dp<112, BIAS, KV>(p, batch, s);
+    case 128: return fwd_launch_dp<128, BIAS, KV>(p, batch, s);
+    case 144: return fwd_launch_dp<144, BIAS, KV>(p, batch, s);
+    case 160: return fwd_launch_dp<160, BIAS, KV>(p, batch, s);
+    case 176: return fwd_launch_dp<176, BIAS, KV>(p, batch, s);
+    case 192: return fwd_launch_dp<192, BIAS, KV>(p, batch, s);
+    case 208: return fwd_launch_dp<208, BIAS, KV>(p, batch, s);
+    case 224: return fwd_launch_dp<224, BIAS, KV>(p, batch, s);
+    case 240: return fwd_launch_dp<240, BIAS, KV>(p, batch, s);
+    default: return fwd_launch_dp<256, BIAS, KV>(p, batch, s);
   }
 }
 

@@ -547,6 +547,31 @@ inline bool make_bhnd_map(CUtensorMap* map, const void* ptr, int batch, int head
   return make_map_bf16(map, ptr, 4, dims, strides, box);
 }
 
+// f32 columns per box of a bias map: the 128-byte swizzle's span.
+constexpr int SW128_F32 = 32;
+
+// The TMA map of an additive bias (K5 + K6's bias route, bwd_bias_sm90.cu; K1's
+// bias route at D 256, fwd_sm90_tile.cuh): an f32 [B|1, H|1, Nq|1, Nk] tensor
+// read through its (batch, head, row) strides in elements, a stride of 0
+// marking a broadcast dim, which becomes a dim of extent 1 (its coordinate
+// always 0); the column extent is ncols (kv_valid_len), so columns past it
+// and rows past Nq read zeros. Boxes of 32 columns x `rows` rows with the
+// 128-byte swizzle: 16-byte chunk c of a box's row r lands at c ^ (r % 8).
+inline bool make_bias_map(CUtensorMap* map, const void* bias, int batch, int heads, int nq,
+                          int ncols, int64_t sb, int64_t sh, int64_t sn, int rows) {
+  auto extent = [](int64_t s, int n) { return static_cast<cuuint64_t>(s ? n : 1); };
+  auto bytes = [](int64_t s) { return static_cast<cuuint64_t>(s ? s * 4 : 16); };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(ncols), extent(sn, nq), extent(sh, heads),
+                              extent(sb, batch)};
+  const cuuint64_t strides[3] = {bytes(sn), bytes(sh), bytes(sb)};
+  const cuuint32_t box[4] = {SW128_F32, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(bias), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // TMA's strides: positive multiples of 16 bytes (8 bf16) on dims of extent > 1.
 inline bool tma_strides(int64_t sb, int b, int64_t sh, int h, int64_t sn, int n) {
   auto ok = [](int64_t s, int extent) { return extent == 1 || (s > 0 && s % 8 == 0); };

@@ -14,9 +14,8 @@ query heads into the Q rows, so the cache is read once. The arguments keep
 the JAX signature; those the port's kernels do not take yet raise
 ``NotImplementedError`` naming their ROADMAP item: on every device q / kv
 offsets that change the result (a causal mask or a window, ``q_offset !=
-kv_offset``) with quantized K/V; on the card f32 above head dim 128, and a
-bias above head dim 128 with segment ids, a window or such offsets, or in
-the backward. ``compute_dtype`` picks the
+kv_offset``) with quantized K/V; on the card f32 above head dim 128.
+``compute_dtype`` picks the
 kernels' dtype as in the JAX package (bf16 or f32; f32 inputs run the f32
 kernels on the card, with a bias too, up to head dim 128), and a head dim
 that is not a multiple of 8 is zero-padded to one, as the JAX function pads
@@ -167,15 +166,15 @@ class _FlashCore(torch.autograd.Function):
     bias (its fused branch, with the window: on the card bf16 at every D up
     to 256, its D 256 form above 128, and f32 up to 128), else its
     two-kernel branch, K5 + K6: with a bias (``flash_bwd.bias_bwd_route``,
-    bf16 or f32 up to D 128: the bias kernel, or the f32 body's BIAS family)
-    one kernel that computes both with the bias and, if any, the softcap,
-    the window, the offsets and the segment ids; without a
-    bias (``flash_bwd.split_sm90_route``, bf16 up to D 256 -- the D 256 form
-    above 128 -- or f32 up to 128) one kernel
+    bf16 up to D 256 -- the D 256 form above 128 -- or f32 up to D 128: the
+    bias kernel, or the f32 body's BIAS family) one kernel that computes
+    both with the bias and, if any, the softcap, the window, the offsets and
+    the segment ids; without a bias (``flash_bwd.split_sm90_route``, bf16 up
+    to D 256 -- the D 256 form above 128 -- or f32 up to 128) one kernel
     that computes both with the segment ids and / or the softcap; else (what
-    no route takes: a bias above D 128) K5 then K6, which
-    raise on a CUDA tensor naming their ROADMAP item; K3 and the split route
-    raise so for f32 above D 128 and for D above 256. dbias is written only
+    no route takes: f32 above D 128 with a bias) K5 then K6, which raise on
+    a CUDA tensor naming their ROADMAP item; K3 and the split route raise so
+    for f32 above D 128 and for D above 256. dbias is written only
     when the bias needs a gradient; it comes back reduced over the bias's
     broadcast dims, in the bias's dtype."""
 
@@ -357,7 +356,7 @@ def flash_attention(
         once, added after the softcap. Differentiable: when it requires grad,
         its gradient ``P (dP − Δ)`` (K6's dbias) comes back summed over its
         size-1 dims, in its dtype. With segment ids, a window and offsets
-        too (on the card in bf16 at head dims up to 128).
+        too (on the card in bf16 at head dims up to 256, in f32 up to 128).
       segment_ids: packed sequences: integer ids ``[B, N]`` (needs
         ``Nq == Nk``) or a ``(q_ids [B, Nq], kv_ids [B, Nk])`` tuple, ids
         >= 0. Pair (i, j) attends iff ``q_ids[i] == kv_ids[j]`` (AND-composed
@@ -381,8 +380,8 @@ def flash_attention(
       plain PyTorch versions, CUDA tensors the kernels in the compute dtype
       (bf16 or f32; fp16 is cast to bf16 and back unless ``compute_dtype``
       says f32): K1 forward; K3 backward, or K5 + K6 (one launch) with
-      segment ids, a softcap or a bias (bf16 head dims up to 256 without a
-      bias, up to 128 with one; f32 up to 128, with or without a bias). A head
+      segment ids, a softcap or a bias (bf16 head dims up to 256, with or
+      without a bias; f32 up to 128, with or without a bias). A head
       dim that is not a multiple of 8 runs zero-padded to one. Tiny-Nq
       non-causal GQA calls without a window (``Nq·Hq/Hkv <= 32``) run
       folded, one KV head's query heads as Q rows.

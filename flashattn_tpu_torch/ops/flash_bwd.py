@@ -16,11 +16,12 @@ never reaches a plain version:
   and dK / dV per *query* head;
   :func:`split_bwd_reference` is its plain version;
 * with a bias (:func:`bias_bwd_route`, with or without the softcap, a
-  window, q / kv offsets or segment ids, at every head dim up to
-  ``BIAS_MAX_HEAD_DIM``, the GQA decode fold's calls too): :func:`bias_bwd`
-  (``csrc/bwd_bias_sm90.cu`` in bf16, the f32 body in f32) returns dQ, dK /
-  dV per *KV* head and, on request, dbias; :func:`bias_bwd_reference` is its
-  plain version.
+  window, q / kv offsets or segment ids, the GQA decode fold's calls too):
+  :func:`bias_bwd` (``csrc/bwd_bias_sm90.cu`` in bf16 up to
+  ``MAX_HEAD_DIM``, its D 256 form above D 128 on
+  ``csrc/bwd_sm90_wide.cuh``; the f32 body in f32) returns dQ, dK / dV per
+  *KV* head and, on request, dbias; :func:`bias_bwd_reference` is its plain
+  version.
 
 On f32 inputs the split route, the bias route and K3
 (``flash_bwd_fused.bwd``) all launch one f32 body (:func:`_f32_bwd_launch`,
@@ -58,13 +59,11 @@ from flashattn_tpu_torch.ops.flash_fwd import (
 from flashattn_tpu_torch.ops.oracle import _expand_kv, _full_f32_matmul
 from flashattn_tpu_torch.utils import native
 
-# Head dims of the CUDA backward routes: K3 and the split route take bf16 up
-# to MAX_HEAD_DIM (D 136-256 in the D 256 form, csrc/bwd_sm90_wide.cuh); the
-# bias route and the f32 body stop at 128.
+# Head dims of the CUDA backward routes: K3, the split route and the bias
+# route take bf16 up to MAX_HEAD_DIM (D 136-256 in their D 256 forms,
+# csrc/bwd_sm90_wide.cuh); the f32 body stops at 128.
 MAX_HEAD_DIM = 256
-BIAS_MAX_HEAD_DIM = 128
 F32_MAX_HEAD_DIM = 128
-_ROADMAP_BIAS_WIDE = "ROADMAP queue 2, functions item 6: the bias route above D 128"
 
 
 def recompute_p_ds(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -175,8 +174,7 @@ def check_kernel_dims(q, name: str) -> None:
     device: a dtype other than bf16 and f32, D not a multiple of 8 or above
     ``MAX_HEAD_DIM``, f32 above ``F32_MAX_HEAD_DIM`` (with or without a
     bias: the f32 body takes a bias up to D 128), a grid past the CUDA
-    limits. A bias above ``BIAS_MAX_HEAD_DIM`` is the bias route's refusal
-    (:func:`bias_bwd`, :func:`dkv`, :func:`dq`)."""
+    limits."""
     B, Hq, _, D = q.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"the CUDA {name} takes bfloat16 or float32, got {q.dtype}")
@@ -190,15 +188,6 @@ def check_kernel_dims(q, name: str) -> None:
             f"({_ROADMAP_F32_WIDE})")
     if B > 65535 or Hq > 65535:
         raise ValueError(f"B={B} and Hq={Hq} must each be at most 65535 (CUDA grid limit)")
-
-
-def _refuse_wide_bias(q, name: str) -> None:
-    """Raise for a bias above ``BIAS_MAX_HEAD_DIM``: no CUDA backward takes
-    one (the bias route stops at 128)."""
-    if q.shape[-1] > BIAS_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA {name} takes a bias at head dims up to {BIAS_MAX_HEAD_DIM}, got "
-            f"D={q.shape[-1]} ({_ROADMAP_BIAS_WIDE})")
 
 
 def _split_kwargs(q, k, v, do, lse, delta, *, scale, causal, kv_valid_len, segment_ids,
@@ -217,11 +206,8 @@ def _split_kwargs(q, k, v, do, lse, delta, *, scale, causal, kv_valid_len, segme
 def _no_split_kernel(q, name: str, *, bias) -> None:
     """Raise for a CUDA call of :func:`dkv` / :func:`dq`: one Hopper launch
     computes K5 and K6 together, :func:`bias_bwd` with a bias and
-    :func:`split_bwd` (or K3) without; a bias above ``BIAS_MAX_HEAD_DIM``
-    has no route yet and names its ROADMAP item."""
+    :func:`split_bwd` (or K3) without."""
     check_kernel_args(q, name)
-    if bias is not None:
-        _refuse_wide_bias(q, name)
     route = ("flash_bwd.bias_bwd (bias_bwd_route)" if bias is not None else
              "flash_bwd.split_bwd (split_sm90_route: segment ids or a softcap; K3 otherwise)")
     raise NotImplementedError(
@@ -270,15 +256,16 @@ def dq(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
 
 def bias_bwd_route(*, head_dim: int, bias, dtype) -> bool:
     """Whether a backward goes to :func:`bias_bwd`, K5 and K6 in one launch:
-    every call with a bias in bf16 at a head dim up to ``BIAS_MAX_HEAD_DIM``
-    (the Hopper bias kernel, ``csrc/bwd_bias_sm90.cu``) or in f32 up to
+    every call with a bias in bf16 at a head dim up to ``MAX_HEAD_DIM``
+    (the Hopper bias kernel, ``csrc/bwd_bias_sm90.cu``, its D 256 form above
+    D 128) or in f32 up to
     ``F32_MAX_HEAD_DIM`` (the f32 body's BIAS family,
     ``csrc/flash_bwd_f32.cu``), each a multiple of 8, as every CUDA
     backward's -- causal or not, with or without a window, q / kv offsets,
     segment ids or the softcap, the GQA decode fold's calls too, whichever K1
     route the forward took. :func:`bias_bwd` decides the device: a CPU
     tensor takes the plain version."""
-    limit = F32_MAX_HEAD_DIM if dtype == torch.float32 else BIAS_MAX_HEAD_DIM
+    limit = F32_MAX_HEAD_DIM if dtype == torch.float32 else MAX_HEAD_DIM
     return (bias is not None and dtype in (torch.bfloat16, torch.float32)
             and head_dim <= limit)
 
@@ -362,13 +349,16 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     segment ids as the forward took them. CPU tensors take
     :func:`bias_bwd_reference`. CUDA tensors launch the Hopper kernel, which
     takes what :func:`bias_bwd_route` sends it (bf16, ``D % 8 == 0``, ``D <=
-    BIAS_MAX_HEAD_DIM``), or on f32 up to ``F32_MAX_HEAD_DIM`` the f32 body
-    (:func:`_f32_bwd_launch`: dK / dV come per query head, and each KV head's
-    group is summed here); anything else raises. dQ is summed over the KV
-    tiles by the card's L2 (one bulk reduction per tile), so its last bits
-    may differ from run to run. ``bias_bwd.launches`` counts launches on
-    either kernel, ``bias_bwd.launches_dbias`` those that wrote dbias,
-    ``bias_bwd.launches_f32`` those of the f32 body.
+    MAX_HEAD_DIM``; above ``SM90_BWD_NARROW_MAX`` its D 256 form, whose dK /
+    dV come per query head), or on f32 up to ``F32_MAX_HEAD_DIM`` the f32
+    body (:func:`_f32_bwd_launch`, dK / dV per query head too); each KV
+    head's group of per-query-head dK / dV is summed here; anything else
+    raises. dQ is summed over the KV tiles by the card's L2 (one bulk
+    reduction per tile), so its last bits may differ from run to run.
+    ``bias_bwd.launches`` counts launches on either kernel,
+    ``bias_bwd.launches_dbias`` those that wrote dbias,
+    ``bias_bwd.launches_f32`` those of the f32 body,
+    ``bias_bwd.launches_d256`` those of the bf16 kernel's D 256 form.
     """
     kv_valid_len = check_args(q, k, v, do, lse, delta, kv_valid_len, segment_ids)
     if bias is None:
@@ -388,7 +378,6 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
         raise NotImplementedError(
             f"the CUDA K5 + K6 bias route takes no float32 above D {F32_MAX_HEAD_DIM}, got "
             f"D={D} ({_ROADMAP_F32_WIDE})")
-    _refuse_wide_bias(q, "K5 + K6 bias route")
     f32 = dict(dtype=torch.float32, device=q.device)
     dbias = None
     if want_dbias:
@@ -401,17 +390,17 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
         before = _f32_bwd_launch.launches
         dq_, dk, dv = _f32_bwd_launch(q, k, v, do, lse, delta, dbias=dbias, **kw)
         launched = _f32_bwd_launch.launches - before  # 0 without a key or a row
-        if Hkv != Hq:  # the f32 body's dK / dV per query head: sum each KV head's group
-            dk, dv = (x.view(B, Hkv, Hq // Hkv, Nk, D).sum(2) for x in (dk, dv))
         bias_bwd.launches += launched
         bias_bwd.launches_f32 += launched
         bias_bwd.launches_dbias += launched * int(want_dbias)
-        return dq_, dk, dv, dbias
+        return dq_, _per_kv_head(dk, Hkv), _per_kv_head(dv, Hkv), dbias
+    wide = D > SM90_BWD_NARROW_MAX  # the D 256 form: dK / dV per query head
     dq_ = torch.zeros((B, Hq, Nq, D), **f32)
-    dk = torch.empty((B, Hkv, Nk, D), **f32)
-    dv = torch.empty((B, Hkv, Nk, D), **f32)
+    dk = torch.empty((B, Hq if wide else Hkv, Nk, D), **f32)
+    dv = torch.empty_like(dk)
     if Nq == 0 or Nk == 0 or B == 0 or Hq == 0:  # an empty grid is not a valid launch
-        return dq_, dk.zero_(), dv.zero_(), None if dbias is None else dbias.zero_()
+        dk, dv = (torch.zeros((B, Hkv, Nk, D), **f32) for _ in range(2))
+        return dq_, dk, dv, None if dbias is None else dbias.zero_()
     q, k, v, do = (_kernel_ready(x, tma=True) for x in (q, k, v, do))
     nq_pad = -(-Nq // SM90_BWD_Q_TILE) * SM90_BWD_Q_TILE
     lse, delta = _padded_rows(lse, nq_pad), _padded_rows(delta, nq_pad)
@@ -426,14 +415,22 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
                               window=window, q_offset=q_offset, kv_offset=kv_offset)
     native.check(rc, "bwd_bias_sm90 kernel launch")
     bias_bwd.launches += 1
-    if want_dbias:
-        bias_bwd.launches_dbias += 1
-    return dq_, dk, dv, dbias
+    bias_bwd.launches_dbias += int(want_dbias)
+    bias_bwd.launches_d256 += int(wide)
+    return dq_, _per_kv_head(dk, Hkv), _per_kv_head(dv, Hkv), dbias
 
 
 bias_bwd.launches = 0
 bias_bwd.launches_dbias = 0
 bias_bwd.launches_f32 = 0
+bias_bwd.launches_d256 = 0
+
+
+def _per_kv_head(x, Hkv: int):
+    """dK or dV ``[B, H, Nk, D]`` summed over each KV head's group of query
+    heads when it comes per query head (H > Hkv), else itself."""
+    B, H, Nk, D = x.shape
+    return x if H == Hkv else x.view(B, Hkv, H // Hkv, Nk, D).sum(2)
 
 
 def dbias_skips(*, causal: bool, window, segment_ids, kv_valid_len: int, nk: int) -> bool:

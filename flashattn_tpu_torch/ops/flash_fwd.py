@@ -13,15 +13,15 @@ split-KV forward with cp.async pipelining (``csrc/decode_tile.cuh`` in
 version is :func:`decode_reference`. The other calls on bf16 K/V, with or
 without the softcap, go to a Hopper TMA + wgmma forward
 (``csrc/fwd_sm90_tile.cuh``) -- causal or not, with a window, segment ids or
-q / kv offsets or neither, any tail: those with a bias at head dims up to 128
-(:func:`bias_route`) to its bias route, which streams the f32 bias tile
-through shared memory (``csrc/flash_fwd_bias_sm90.cu``), and those without
-a bias at every head dim up to 256 (:func:`dense_route`) to its dense route
-(``csrc/flash_fwd_sm90.cu``; D 136-256 on its D 256 form). Both
-compute K1's function, so their plain version is :func:`fwd_reference`; the
-``mma.sync`` body ``csrc/fwd_tile.cuh`` (instantiated per option family in
-``csrc/flash_fwd*.cu``) keeps the calls they refuse: a bias above D 128 and
-int8 / fp8 K/V that are not decode-shaped. Every call on an f32 q
+q / kv offsets or neither, any tail, at every head dim up to 256 (D 136-256
+on the D 256 forms): those with a bias (:func:`bias_route`) to its bias
+route, which brings the f32 bias tile through shared memory
+(``csrc/flash_fwd_bias_sm90.cu``), and those without (:func:`dense_route`)
+to its dense route (``csrc/flash_fwd_sm90.cu``). Both compute K1's function,
+so their plain version is :func:`fwd_reference`; the ``mma.sync`` body
+``csrc/fwd_tile.cuh`` (``csrc/flash_fwd_int8.cu``, ``csrc/flash_fwd_fp8.cu``)
+keeps the calls they refuse: int8 / fp8 K/V that are not decode-shaped.
+Every call on an f32 q
 (:func:`f32_route`) goes to an f32 kernel of its own
 (``csrc/flash_fwd_f32.cu``: the dense route's TMA + wgmma scheme and
 options on the three bf16 pieces of each f32 operand, ``ops/f32_split.py``,
@@ -63,7 +63,6 @@ QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 _LOG2E = 1.0 / math.log(2.0)
 _ROADMAP_K1 = "ROADMAP queue 2, K1 options"
 _ROADMAP_OFFSETS = "ROADMAP queue 2, item 2: q / kv offsets on the other routes"
-_ROADMAP_BIAS_WIDE = "ROADMAP queue 2, functions item 6: the bias route above D 128"
 # The decode route (csrc/decode_tile.cuh): at most this many query rows per KV
 # head (the JAX fold bound, flashattn_tpu/ops/flash.py:1052-1077), the head
 # dims it is instantiated for, the keys of one KV tile (a split holds whole
@@ -76,10 +75,10 @@ DECODE_TILE = 64
 DECODE_MIN_TILES = 4
 DECODE_CTAS_PER_SM = 4
 H100_SMS = 132
-# The bias route and the f32 route (csrc/fwd_sm90_tile.cuh,
-# csrc/flash_fwd_f32.cu): head dims that are multiples of 8 up to this
-# (instantiated at 64 and 128, the TMA boxes reading zeros past D); the dense
-# route takes every head dim up to MAX_HEAD_DIM (its D 256 form above this).
+# The f32 route (csrc/flash_fwd_f32.cu): head dims that are multiples of 8 up
+# to this (instantiated at 64 and 128, the TMA boxes reading zeros past D);
+# the dense and bias routes take every head dim up to MAX_HEAD_DIM (their D
+# 256 forms above this).
 # The f32 elements of one of the bias route's 16-byte bias copies (a bias
 # whose strides are not a multiple of it is copied with its rows padded to
 # one); the dense route's Q tile (rows per CTA) and KV tile (keys per
@@ -324,13 +323,14 @@ def bias_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int, b
     """Whether a CUDA K1 call goes to the Hopper bias kernel
     (``csrc/fwd_sm90_tile.cuh``): a call that :func:`decode_route` does not
     take (it is checked first), with a ``bias``, bf16 K/V and a head dim up
-    to ``DENSE_MAX_HEAD_DIM`` (a multiple of 8, as every CUDA K1 call's) --
-    causal or not, with or without a window, segment ids, q / kv offsets or
-    a softcap. Every other call with a bias goes to the ``csrc/fwd_tile.cuh``
-    kernel (D above 128, int8 / fp8 K/V), which takes no window, segment ids
-    or offsets (``_check_kernel_args`` refuses those)."""
+    to ``MAX_HEAD_DIM`` (a multiple of 8, as every CUDA K1 call's; D 136-256
+    on its D 256 form) -- causal or not, with or without a window, segment
+    ids, q / kv offsets or a softcap. The other calls with a bias on bf16 K/V
+    are the decode route's; on int8 / fp8 K/V they go to the
+    ``csrc/fwd_tile.cuh`` kernel, which takes no window, segment ids or
+    offsets (``_check_kernel_args`` refuses those)."""
     return (bias is not None and kv_dtype == torch.bfloat16
-            and head_dim <= DENSE_MAX_HEAD_DIM
+            and head_dim <= MAX_HEAD_DIM
             and not decode_route(rows=rows, causal=causal, segment_ids=segment_ids,
                                  window=window, head_dim=head_dim))
 
@@ -342,8 +342,8 @@ def dense_route(*, head_dim: int, bias, kv_dtype) -> bool:
     up to ``MAX_HEAD_DIM`` (a multiple of 8, as every CUDA K1 call's; D 136-256
     on its D 256 form) -- causal or not, with or without a window, segment
     ids, q / kv offsets or a softcap, at any Nq (a decode-shaped call at D 256
-    too) and kv_valid_len. The calls it refuses go to the ``csrc/fwd_tile.cuh``
-    kernel (a bias above D 128, int8 / fp8 K/V)."""
+    too) and kv_valid_len. The calls it refuses with bf16 K/V are the bias
+    route's; those on int8 / fp8 K/V go to the ``csrc/fwd_tile.cuh`` kernel."""
     return bias is None and kv_dtype == torch.bfloat16 and head_dim <= MAX_HEAD_DIM
 
 
@@ -559,7 +559,8 @@ def _launch_bias_sm90(lib, q, k, v, o, lse, bias, bias_strides, seg, *, scale, k
 
 def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, bias, softcap,
                q_offset, kv_offset):
-    """Launch the Hopper bias kernel and count the launch."""
+    """Launch the Hopper bias kernel (its D 256 form above
+    ``DENSE_MAX_HEAD_DIM``) and count the launch."""
     B, Hq, Nq, D = q.shape
     q, k, v = (_kernel_ready(x, tma=True) for x in (q, k, v))
     o = torch.empty_like(q)
@@ -577,6 +578,8 @@ def _bias_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, bia
     native.check(rc, "flash_fwd_bias_sm90 kernel launch")
     _count_variants(k.dtype, bias, kernel_window(window) != (-1, -1), softcap)
     fwd.launches_bias_sm90 += 1
+    if D > DENSE_MAX_HEAD_DIM:
+        fwd.launches_bias_d256 += 1
     return o, lse
 
 
@@ -662,10 +665,9 @@ def _dense_f32(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, sof
 def offsets_refusal(*, quantized: bool) -> str | None:
     """Why a K1 call with offsets that change its result (:func:`band_offsets`)
     has no kernel yet -- on quantized K/V -- naming its ROADMAP item, or None
-    where the Hopper routes take it (K1's dense route at every head dim up to
-    256, its bias route up to 128; a bias above 128 is ``_check_kernel_args``'
-    refusal on the card). The decode route takes no band, so offsets never
-    change its calls."""
+    where the Hopper routes take it (K1's dense and bias routes at every head
+    dim up to 256). The decode route takes no band, so offsets never change
+    its calls."""
     if not quantized:
         return None
     return f"q / kv offsets are not ported to quantized K/V yet ({_ROADMAP_OFFSETS})"
@@ -677,10 +679,11 @@ def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool,
     neither bf16 nor f32, an f32 q with quantized K/V or D above
     ``DENSE_MAX_HEAD_DIM`` (the f32 route's refusals, with or without a
     bias: it takes a bias up to D 128), D not a multiple of 8
-    or above ``MAX_HEAD_DIM``, segment ids or a window with quantized K/V,
-    segment ids, a window or ``offsets`` (that change the result) with a
-    bias above ``DENSE_MAX_HEAD_DIM`` (``csrc/fwd_tile.cuh`` takes none), a
-    grid past the CUDA limits."""
+    or above ``MAX_HEAD_DIM``, segment ids or a window with quantized K/V
+    (``csrc/fwd_tile.cuh`` takes neither; ``offsets`` there are
+    :func:`offsets_refusal`'s), a grid past the CUDA limits. A ``bias``
+    with ``offsets`` (that change the result), segment ids or a window
+    passes at every head dim: K1's bias route takes them all."""
     B, Hq, _, D = q.shape
     if q.device.type != "cuda":
         raise NotImplementedError(f"no K1 kernel for device {q.device}")
@@ -706,11 +709,6 @@ def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool,
     if windowed and k_scale is not None:
         raise NotImplementedError(
             f"the CUDA K1 takes a window without quantized K/V ({_ROADMAP_K1})")
-    banded = segment_ids is not None or windowed or offsets
-    if banded and bias is not None and D > DENSE_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA K1 takes a bias with segment ids, a window or q / kv offsets at head "
-            f"dims up to {DENSE_MAX_HEAD_DIM}, got D={D} ({_ROADMAP_BIAS_WIDE})")
     if B > 65535 or Hq > 65535:
         raise ValueError(f"B={B} and Hq={Hq} must each be at most 65535 (CUDA grid limit)")
 
@@ -736,17 +734,18 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     CPU tensors take :func:`fwd_reference`. CUDA tensors launch the kernel,
     which takes a bf16 ``q`` (and bf16, int8 or fp8 K/V) with ``D % 8 == 0``
     and ``D <= 256``, and segment ids, a window or offsets only without
-    quantized K/V and, with a bias, at ``D <= 128``, or an f32 q, k and v
-    with or without a bias (and every option above) at ``D <= 128``;
-    anything else raises. An f32 call (:func:`f32_route`) launches the f32
-    kernel (with a bias, its BIAS family); a bf16 CUDA call that :func:`decode_route`
-    accepts launches the split-KV decode kernel (and its merge), one that
-    :func:`bias_route` accepts the Hopper bias kernel, one that
-    :func:`dense_route` accepts (every bf16 call without a bias) the Hopper
-    dense kernel, every other (a bias above D 128, quantized K/V) the
-    ``fwd_tile.cuh`` kernel. ``fwd.launches`` counts every K1 launch, on any
-    kernel; ``fwd.launches_bias`` those of bf16 or f32 K/V with a bias (on
-    any kernel), ``fwd.launches_bias_sm90`` those of the bias kernel,
+    quantized K/V, or an f32 q, k and v with or without a bias (and every
+    option above) at ``D <= 128``; anything else raises. An f32 call
+    (:func:`f32_route`) launches the f32 kernel (with a bias, its BIAS
+    family); a bf16 CUDA call that :func:`decode_route` accepts launches the
+    split-KV decode kernel (and its merge), one that :func:`bias_route`
+    accepts (every other bf16 call with a bias) the Hopper bias kernel, one
+    that :func:`dense_route` accepts (every bf16 call without a bias) the
+    Hopper dense kernel, every other (quantized K/V) the ``fwd_tile.cuh``
+    kernel. ``fwd.launches`` counts every K1 launch, on any kernel;
+    ``fwd.launches_bias`` those of bf16 or f32 K/V with a bias (on any
+    kernel), ``fwd.launches_bias_sm90`` those of the bias kernel
+    (``fwd.launches_bias_d256`` those of its D 256 form, D 136-256),
     ``fwd.launches_dense_sm90`` those of the Hopper dense kernel
     (``fwd.launches_dense_d256`` those of its D 256 form, D 136-256),
     ``fwd.launches_f32`` those of the f32 kernel (``fwd.launches_f32_bias``
@@ -813,6 +812,7 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
                            window=window, segment_ids=segment_ids, softcap=softcap,
                            q_offset=q_offset, kv_offset=kv_offset)
 
+    # Quantized K/V: csrc/fwd_tile.cuh (the routes above take every bf16 call).
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
     o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides
     lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
@@ -854,6 +854,7 @@ def _count_variants(kv_dtype, bias, windowed: bool, softcap) -> None:
 fwd.launches = 0
 fwd.launches_bias = 0
 fwd.launches_bias_sm90 = 0
+fwd.launches_bias_d256 = 0
 fwd.launches_dense_sm90 = 0
 fwd.launches_dense_d256 = 0
 fwd.launches_f32 = 0

@@ -375,32 +375,44 @@ def _cuda_q(D, dtype=torch.bfloat16):
 
 
 # The refusals left on the card, each naming its ROADMAP item: quantized K/V
-# with segment ids or a window, f32 with a bias above D 128 (f32 takes a bias
-# up to D 128: test_f32_bias_with_everything_passes_the_card_checks_up_to_d128),
-# and a bias above D 128 with segment ids, a window or offsets (fwd_tile.cuh
-# takes none).
+# with segment ids or a window, and f32 with a bias above D 128 (f32 takes a
+# bias up to D 128:
+# test_f32_bias_with_everything_passes_the_card_checks_up_to_d128). A bf16
+# bias above D 128 with segment ids, a window or offsets, refused until the
+# bias route took D 256, now passes (WIDE_PASSES).
 REFUSED = {"int8 + ids": (128, torch.bfloat16, dict(segment_ids=True, k_scale=True),
                           "K1 options"),
            "int8 + window": (128, torch.bfloat16, dict(windowed=True, k_scale=True),
                              "K1 options"),
-           "f32 + bias": (136, torch.float32, dict(bias=True), "f32 rows item 5"),
-           "D 160 bias + ids": (160, torch.bfloat16, dict(bias=True, segment_ids=True),
-                                "functions item 6"),
-           "D 160 bias + window": (160, torch.bfloat16, dict(bias=True, windowed=True),
-                                   "functions item 6"),
-           "D 160 bias + offsets": (160, torch.bfloat16, dict(bias=True, offsets=True),
-                                    "functions item 6")}
+           "f32 + bias": (136, torch.float32, dict(bias=True), "f32 rows item 5")}
+WIDE_PASSES = {"D 160 bias + ids": (160, dict(bias=True, segment_ids=True)),
+               "D 160 bias + window": (160, dict(bias=True, windowed=True)),
+               "D 160 bias + offsets": (160, dict(bias=True, offsets=True))}
+
+
+def _card_kw(opts):
+    return dict(segment_ids=(1, 1) if opts.get("segment_ids") else None,
+                bias=object() if opts.get("bias") else None,
+                k_scale=object() if opts.get("k_scale") else None,
+                windowed=opts.get("windowed", False), offsets=opts.get("offsets", False))
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_refusals_left_on_the_card(case):
     D, dtype, opts, item = REFUSED[case]
-    kw = dict(segment_ids=(1, 1) if opts.get("segment_ids") else None,
-              bias=object() if opts.get("bias") else None,
-              k_scale=object() if opts.get("k_scale") else None,
-              windowed=opts.get("windowed", False), offsets=opts.get("offsets", False))
     with pytest.raises(NotImplementedError, match=item):
-        flash_fwd._check_kernel_args(_cuda_q(D, dtype), **kw)
+        flash_fwd._check_kernel_args(_cuda_q(D, dtype), **_card_kw(opts))
+
+
+@pytest.mark.parametrize("case", list(WIDE_PASSES))
+def test_a_wide_bias_with_a_band_passes_the_card_checks(case):
+    """A bf16 bias at D 160 with segment ids, a window or offsets passes
+    K1's checks, and the bias routes take it, forward and backward."""
+    D, opts = WIDE_PASSES[case]
+    flash_fwd._check_kernel_args(_cuda_q(D), **_card_kw(opts))
+    assert flash_fwd.bias_route(rows=64, causal=False, segment_ids=None, window=None,
+                                head_dim=D, bias=object(), kv_dtype=torch.bfloat16)
+    assert flash_bwd.bias_bwd_route(head_dim=D, bias=object(), dtype=torch.bfloat16)
 
 
 @pytest.mark.parametrize("D", [64, 72, 128, 136])
@@ -419,13 +431,16 @@ def test_f32_bias_with_everything_passes_the_card_checks_up_to_d128(D):
             flash_fwd._check_kernel_args(q, **kw)
 
 
-@pytest.mark.parametrize("D", [64, 128, 136])
+@pytest.mark.parametrize("D", [64, 128, 136, 256])
 def test_bias_with_everything_passes_the_card_checks_up_to_d128(D):
-    """A bf16 bias with ids, a window and offsets passes K1's checks at D <=
-    128 (the bias route) and is refused above (functions item 6)."""
+    """A bf16 bias with ids, a window and offsets passes K1's checks at
+    every D up to 256 (the bias route; its D 256 form above 128, which it
+    was refused until), and the backward's; in f32 it is refused above D 128,
+    naming f32 rows item 5."""
     kw = dict(segment_ids=(1, 1), bias=object(), k_scale=None, windowed=True, offsets=True)
-    if D <= 128:
-        flash_fwd._check_kernel_args(_cuda_q(D), **kw)
-    else:
-        with pytest.raises(NotImplementedError, match="functions item 6"):
-            flash_fwd._check_kernel_args(_cuda_q(D), **kw)
+    flash_fwd._check_kernel_args(_cuda_q(D), **kw)
+    flash_bwd.check_kernel_dims(_cuda_q(D), "K5 + K6 bias route")
+    assert flash_bwd.bias_bwd_route(head_dim=D, bias=object(), dtype=torch.bfloat16)
+    if D > 128:
+        with pytest.raises(NotImplementedError, match="f32 rows item 5"):
+            flash_fwd._check_kernel_args(_cuda_q(D, torch.float32), **kw)

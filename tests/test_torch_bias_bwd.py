@@ -44,7 +44,8 @@ def _route(head_dim=128, bias_shape=(4, 1, N, N), dtype=torch.bfloat16):
     return flash_bwd.bias_bwd_route(head_dim=head_dim, bias=bias, dtype=dtype)
 
 
-# The calls the route takes, every backward with a bias in bf16 at D <= 128:
+# The calls the route takes, every backward with a bias in bf16 at D <= 256
+# (D 136 and 256 on its D 256 form):
 # path A's two arms, the causal LM's learned [1, 16, N, N] bias, D 64 with a
 # padding bias, D 96 and 40 and 8 (run in the D 128 / 64 boxes), a
 # row-broadcast key mask, a ragged Nq, an Nk that is not a multiple of 4
@@ -61,12 +62,13 @@ ROUTE_TAKES = {"path A mask": {}, "path A learned": dict(bias_shape=(4, 16, N, N
                "Nk 2046": dict(bias_shape=(4, 1, N, N - 2)),
                "decode-shaped": dict(bias_shape=(2, 1, 8, N)),
                "f32 path A": dict(dtype=torch.float32),
-               "f32 D 64": dict(head_dim=64, dtype=torch.float32, bias_shape=(1, 16, N, N))}
-# Those it refuses: head dims above 128 (f32 too), fp16 calls, and no bias at
-# all (K3's or the split route's).
+               "f32 D 64": dict(head_dim=64, dtype=torch.float32, bias_shape=(1, 16, N, N)),
+               "D 136": dict(head_dim=136), "D 256": dict(head_dim=256, bias_shape=(4, 8, N, N))}
+# Those it refuses: head dims above 256, f32 above 128, fp16 calls, and no
+# bias at all (K3's or the split route's).
 ROUTE_REFUSES = {"no bias": dict(bias_shape=None),
                  "f32": dict(head_dim=136, dtype=torch.float32),
-                 "fp16": dict(dtype=torch.float16), "D 136": dict(head_dim=136)}
+                 "fp16": dict(dtype=torch.float16), "D 264": dict(head_dim=264)}
 
 
 @pytest.mark.parametrize("case", list(ROUTE_TAKES))

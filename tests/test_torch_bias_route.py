@@ -64,11 +64,15 @@ ROUTE_TAKES = {"path A mask": {}, "path A learned": dict(bias_shape=(4, 16, N, N
                "segment ids": dict(segment_ids=(torch.zeros(4, N), torch.zeros(4, N))),
                "window": dict(window=(128, -1)),
                "decode-shaped with a window": dict(rows=2, window=(256, 256),
-                                                   bias_shape=(8, 1, 1, 8192))}
+                                                   bias_shape=(8, 1, 1, 8192)),
+               "D 136": dict(head_dim=136), "D 256": dict(head_dim=256),
+               "decode-shaped D 256": dict(rows=2, head_dim=256, bias_shape=(8, 1, 1, 8192))}
+# Those it refuses: no bias, quantized K/V, a head dim above 256, and the
+# decode-shaped calls at D 64 / 128 (the decode route's, checked first).
 ROUTE_REFUSES = {"no bias": dict(bias_shape=None),
                  "int8 K/V": dict(kv_dtype=torch.int8),
                  "fp8 K/V": dict(kv_dtype=torch.float8_e4m3fn),
-                 "D 136": dict(head_dim=136), "D 256": dict(head_dim=256),
+                 "D 264": dict(head_dim=264),
                  "decode-shaped": dict(rows=2, bias_shape=(8, 1, 1, 8192))}
 
 

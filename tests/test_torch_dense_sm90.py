@@ -213,9 +213,9 @@ def _meta_qkv(B, Hq, Hkv, Nq, Nk, D, dtype=torch.bfloat16):
 # and cross-attention, the packed LM, the SWA window, a two-sided window, a
 # ragged D 96 call, the decode-shaped calls that the decode kernel refuses
 # (D 40; causal), the softcap, D 160 and a decode-shaped call at D 256 on the
-# dense route's D 256 form, and what stays elsewhere -- a bias above D 128 on
-# fwd_tile.cuh (fa_fwd), a bias on the bias route, a decode-shaped call at
-# D 128 on the decode kernel.
+# dense route's D 256 form, and what stays elsewhere -- a bias on the bias
+# route (above D 128 its D 256 form), a decode-shaped call at D 128 on the
+# decode kernel.
 FWD_CASES = {"LM causal": (1, 16, 8, 256, 256, 128, dict(causal=True), "fa_fwd_sm90"),
              "U-Net self D 40": (1, 8, 8, 512, 512, 40, {}, "fa_fwd_sm90"),
              "U-Net cross Nk 77": (1, 8, 8, 512, 77, 40, {}, "fa_fwd_sm90"),
@@ -229,7 +229,7 @@ FWD_CASES = {"LM causal": (1, 16, 8, 256, 256, 128, dict(causal=True), "fa_fwd_s
              "decode-shaped causal": (2, 4, 2, 4, 512, 128, dict(causal=True), "fa_fwd_sm90"),
              "D 160": (1, 2, 2, 128, 128, 160, {}, "fa_fwd_sm90"),
              "decode-shaped D 256": (2, 4, 2, 1, 512, 256, {}, "fa_fwd_sm90"),
-             "bias at D 160": (1, 2, 2, 128, 128, 160, dict(bias=True), "fa_fwd"),
+             "bias at D 160": (1, 2, 2, 128, 128, 160, dict(bias=True), "fa_fwd_bias_sm90"),
              "softcap": (1, 4, 2, 128, 128, 128, dict(causal=True, softcap=50.0), "fa_fwd_sm90"),
              "bias": (1, 4, 4, 128, 128, 128, dict(bias=True), "fa_fwd_bias_sm90"),
              "decode-shaped": (2, 4, 2, 1, 512, 128, {}, "fa_decode")}
@@ -260,9 +260,11 @@ def test_fwd_routes_on_a_simulated_card(card, case):
         assert args[34] == (Nq if "segment_ids" in kw else 0)  # the ids' batch stride
 
 
-# (D, K/V dtype, options) of the calls fwd_tile.cuh keeps: a bias above D 128
-# (with and without the softcap, causal) and quantized K/V (int8 with a
-# per-query-row bias, fp8 causal without one).
+# (D, K/V dtype, options): the calls fwd_tile.cuh keeps, quantized K/V (int8
+# with a per-query-row bias, fp8 causal without one), and the bf16 calls with
+# a bias above D 128 (with and without the softcap, causal) that it kept
+# until K1's bias route took D 256: they reach fa_fwd_bias_sm90, and fa_fwd,
+# which now refuses bf16 K/V, is not called.
 FA_FWD_CASES = {"bias at D 160": (160, torch.bfloat16, dict(bias=(1, 1, 1))),
                 "capped bias at D 256": (256, torch.bfloat16,
                                          dict(bias=(2, 1, 1), causal=True, softcap=30.0)),
@@ -272,10 +274,11 @@ FA_FWD_CASES = {"bias at D 160": (160, torch.bfloat16, dict(bias=(1, 1, 1))),
 
 @pytest.mark.parametrize("case", list(FA_FWD_CASES))
 def test_fa_fwd_packs_the_c_arguments(card, case):
-    """fa_fwd on BNHD views with GQA and kv_valid_len < Nk: every pointer
-    (null scales on bf16), the K/V dtype code, dim, causal, the scale and
-    softcap, every stride (0 on the bias's broadcast dims) and the stream,
-    in the C entry's typed order -- no segment-id or window argument."""
+    """fa_fwd on BNHD views with GQA and kv_valid_len < Nk: every pointer,
+    the K/V dtype code, dim, causal, the scale and softcap, every stride (0
+    on the bias's broadcast dims) and the stream, in the C entry's typed
+    order -- no segment-id or window argument. A bf16 call takes the bias
+    route (its D 256 form) and never fa_fwd."""
     D, kv_dtype, opts = FA_FWD_CASES[case]
     B, Hq, Hkv, Nq, Nk = 2, 4, 2, 100, 150
     q, k, v = _meta_qkv(B, Hq, Hkv, Nq, Nk, D, dtype=kv_dtype)
@@ -288,6 +291,12 @@ def test_fa_fwd_packs_the_c_arguments(card, case):
         kw["k_scale"], kw["v_scale"] = (torch.ones((B, Hkv, Nk), device="meta") for _ in "kv")
     native.kernels().fa_fwd = _recorder("fa_fwd", native.FWD_ARGTYPES, card)
     flash_fwd.fwd(q, k, v, scale=0.125, kv_valid_len=120, **kw)
+    if not quant:
+        assert [name for name, _ in card] == ["fa_fwd_bias_sm90"]
+        args = card[0][1]
+        assert args[10:16] == (B, Hq, Hkv, Nq, D, 120)
+        assert args[22] == pytest.approx(kw.get("softcap", 0.0))
+        return
     assert [name for name, _ in card] == ["fa_fwd"]
     args = card[0][1]
     assert len(args) == len(native.FWD_ARGTYPES) == 40

@@ -222,6 +222,14 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
     ("_ZN49_GLOBAL__N__81d9f6ab_16_bwd_bias_sm90_cu_2c83e9c620bwd_bias_sm90_kernelILi64ELb0ELb0E"
      "Lb0EEEv14CUtensorMap_stS1_S1_S1_S1_NS_13BwdBiasParamsE",
      "bias bwd sm90 bwd_bias_sm90_kernel<64, 0, 0, 0>"),
+    ("_ZN49_GLOBAL__N__81d9f6ab_16_bwd_bias_sm90_cu_2c83e9c620bwd_bias_wide_kernelILb1ELb0EEEv14"
+     "CUtensorMap_stS1_S1_S1_NS_13BwdBiasParamsE",
+     "bias bwd sm90 d256 segments bwd_bias_wide_kernel<1, 0>"),
+    ("_ZN49_GLOBAL__N__81d9f6ab_16_bwd_bias_sm90_cu_2c83e9c620bwd_bias_wide_kernelILb0ELb1EEEv14"
+     "CUtensorMap_stS1_S1_S1_NS_13BwdBiasParamsE",
+     "bias bwd sm90 d256 softcap bwd_bias_wide_kernel<0, 1>"),
+    ("_ZN12_GLOBAL__N_120fwd_bias_sm90_kernelILi256ELb1ELb1EEEv14CUtensorMap_stS1_S1_S1_N2fa13"
+     "FwdBiasParamsE", "K1 bias sm90 segments softcap fwd_bias_sm90_kernel<256, 1, 1>"),
     ("_Z11some_kernelv", "unrecognised instantiation _Z11some_kernelv"),
 ])
 def test_register_report_names_every_instantiation(mangled, name):

@@ -14,8 +14,8 @@ The kernel runs only on the card (``python3 chip_smoke.py``:
 * the routes on a simulated card (meta tensors, the device test off, the
   head-dim and dtype checks kept, a stand-in library recording each C
   entry): bf16 at D 136-256 reaches K3 or the split route and counts a D
-  256 launch; a bias above D 128, f32 above D 128 and D 264 raise naming
-  their ROADMAP item, before any launch;
+  256 launch, with a bias the bias routes' D 256 forms; f32 above D 128 and
+  D 264 raise naming their ROADMAP item, before any launch;
 * the C arguments of a D 256 launch through stand-ins with the C entries'
   argtypes;
 * the LM with 2 heads of 256 (d_model 512, 2 layers, 32 tokens) against the
@@ -139,6 +139,7 @@ def card(monkeypatch):
     calls = []
     typed = {"fa_fwd_sm90": native.FWD_SM90_ARGTYPES, "fa_bwd_sm90": native.BWD_SM90_ARGTYPES,
              "fa_bwd_split_sm90": native.BWD_SPLIT_SM90_ARGTYPES,
+             "fa_fwd_bias_sm90": native.FWD_BIAS_SM90_ARGTYPES,
              "fa_bwd_bias_sm90": native.BWD_BIAS_SM90_ARGTYPES}
     lib = types.SimpleNamespace(**{n: _recorder(n, a, calls) for n, a in typed.items()})
     lib.fa_fwd = lambda *args: calls.append(("fa_fwd", args)) or 0
@@ -204,18 +205,25 @@ def test_the_d128_calls_do_not_count_as_d256(card):
 
 
 def test_a_bias_above_128_raises_naming_its_item(card):
-    """A bias at D 136: K1 takes it forward (fwd_tile.cuh), no CUDA backward
-    does -- neither the bias route (D <= 128) nor K5 then K6."""
+    """A bias at D 136, which raised in the backward (naming functions item
+    6) until the bias routes took D 136-256: it reaches K1's bias route's D
+    256 form (fa_fwd_bias_sm90) and K5 + K6's (fa_bwd_bias_sm90), one launch
+    each, each counted as a D 256 launch; dK / dV come back per KV head;
+    nothing raises and nothing reaches fa_fwd."""
     q, k, v = (x.requires_grad_(True) for x in _meta_qkv(1, 4, 2, 128, 128, 136))
     bias = torch.zeros((1, 1, 1, 128), device="meta")
+    before = flash_fwd.fwd.launches_bias_d256, flash_bwd.bias_bwd.launches_d256
     o = flashattn_tpu_torch.flash_attention(q, k, v, bias=bias)
-    with pytest.raises(NotImplementedError, match="functions item 6: the bias route above D 128"):
-        torch.autograd.grad(o, (q, k, v), torch.empty_like(o))
-    assert [name for name, _ in card] == ["fa_fwd"]
+    grads = torch.autograd.grad(o, (q, k, v), torch.empty_like(o))
+    assert [name for name, _ in card] == ["fa_fwd_bias_sm90", "fa_bwd_bias_sm90"]
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert (flash_fwd.fwd.launches_bias_d256, flash_bwd.bias_bwd.launches_d256) == (
+        before[0] + 1, before[1] + 1)
+    assert card[0][1][14] == card[1][1][20] == 136  # the head dim each C entry takes
     stats = torch.empty((1, 4, 128), device="meta")
-    with pytest.raises(NotImplementedError, match="functions item 6"):
-        flash_bwd.bias_bwd(q, k, v, q, stats, stats, scale=0.1, bias=bias)
-    assert [name for name, _ in card] == ["fa_fwd"]
+    dq, dk, dv, dbias = flash_bwd.bias_bwd(q, k, v, q, stats, stats, scale=0.1, bias=bias)
+    assert dk.shape == dv.shape == (1, 2, 128, 136) and dbias is None
+    assert [name for name, _ in card][2:] == ["fa_bwd_bias_sm90"]
 
 
 @pytest.mark.parametrize("route", ["K3", "split"])
