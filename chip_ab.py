@@ -47,6 +47,13 @@ those that ``--cases`` names:
   bias and with it plus a normal [1, 8, N, N] bias at heads of 256 (B4 H8
   N2048 D256, BNHD): ``fwd_tile.cuh`` in a parent before K1's bias route
   took D 256, its D 256 form after;
+* ``quant_int8``, ``quant_fp8``, ``quant_swa_int8``: the quantized prefill,
+  ``flash_attention_quantized(causal=True)`` at chip_smoke's
+  QUANT_PREFILL_SHAPE (B1 Hq16 Hkv8 N2048 D128) on int8 / fp8 K/V
+  (``fwd_tile.cuh``'s mma.sync K1 in a parent before K1's quantized route,
+  that route after), and int8 K/V with SWA's window at B1 Hq16 Hkv8 N8192
+  D128 through ``flash_fwd.fwd`` (a parent before the quantized route
+  refuses it: timed in the second tree only);
 * ``gemm``: K9 at 4096^3, bf16 out;
 * ``ring_fwd``, ``ring_bwd``: K7 and K8 on one full off-diagonal chunk pair
   of the ring's main shape (rank 1's 4096 query rows against rank 0's K/V,
@@ -112,6 +119,11 @@ CASE_KERNELS = {"unet": "K1 dense sm90 fwd_dense_sm90_kernel<64, 0, 0>",
                                  "K1 bias sm90 fwd_bias_sm90_kernel<256, 0, 0>"),
                 "k1_bias_d256_learned": ("K1 bias fwd_kernel<256, 1, 0>",
                                          "K1 bias sm90 fwd_bias_sm90_kernel<256, 0, 0>"),
+                "quant_int8": ("K1 int8 fwd_kernel<128, 0, 1>",
+                               "K1 quant sm90 int8 fwd_quant_sm90_kernel<128, 1, 0, 0>"),
+                "quant_fp8": ("K1 fp8 fwd_kernel<128, 0, 2>",
+                              "K1 quant sm90 fp8 fwd_quant_sm90_kernel<128, 2, 0, 0>"),
+                "quant_swa_int8": "K1 quant sm90 int8 fwd_quant_sm90_kernel<128, 1, 0, 0>",
                 "gemm": "K9 gemm_wgmma_kernel<0>",
                 "ring_fwd": "K7 ring_fwd_sm90_kernel<128>",
                 "ring_bwd": "K8 ring_bwd_sm90_kernel<128>"}
@@ -233,6 +245,23 @@ timed("k1_bias_d256", lambda: flash_fwd.fwd(q, k, v, scale=256 ** -0.5, bias=pad
 timed("k1_bias_d256_learned", lambda: flash_fwd.fwd(q, k, v, scale=256 ** -0.5, bias=learned))
 del q, k, v, pad, learned
 torch.cuda.empty_cache()
+B, Hq, Hkv, N, D = cs.QUANT_PREFILL_SHAPE
+q, k, v = make_qkv(19, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16, device="cuda")
+for name, dt in (("quant_int8", torch.int8), ("quant_fp8", torch.float8_e4m3fn)):
+    qkv = quant.quantize_kv(k, v, dt, allow_slow_fp8=True)
+    timed(name, lambda: quant.flash_attention_quantized(q, qkv, causal=True))
+_, B, Hq, Hkv, N, _, D, causal, window = cs.WINDOW_CASES[0]
+q, k, v = make_qkv(20, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16, device="cuda")
+qkv = quant.quantize_kv(k, v, torch.int8)
+kw = dict(scale=D ** -0.5, causal=causal, window=window, k_scale=qkv.k_scale,
+          v_scale=qkv.v_scale)
+try:  # a parent before K1's quantized route refuses a window on quantized K/V
+    flash_fwd.fwd(q, qkv.k_q, qkv.v_q, **kw)
+    timed("quant_swa_int8", lambda: flash_fwd.fwd(q, qkv.k_q, qkv.v_q, **kw))
+except NotImplementedError:
+    pass
+del q, k, v, qkv
+torch.cuda.empty_cache()
 a, b = (x[0, 0].contiguous() for x in make_qkv(9, 1, 1, 4096, 4096, dtype=torch.bfloat16,
                                                 device="cuda")[:2])
 timed("gemm", lambda: gemm.matmul(a, b))
@@ -338,9 +367,14 @@ def main() -> None:
         runs[i].append(res)
         print(f"[ab] {args.trees[i]}: " + ", ".join(f"{k} {v:.5f} ms" for k, v in res.items()),
               flush=True)
-    for case in runs[0][0]:
-        a = [r[case] for r in runs[0]]
-        b = [r[case] for r in runs[1]]
+    for case in dict.fromkeys([*runs[0][0], *runs[1][0]]):
+        a = [r[case] for r in runs[0] if case in r]
+        b = [r[case] for r in runs[1] if case in r]
+        if not a or not b:
+            tree, times = (args.trees[0], a) if a else (args.trees[1], b)
+            print(f"[ab] {case}: {tree} only, {' / '.join(f'{x:.5f}' for x in times)} ms, "
+                  f"median {statistics.median(times):.5f} ms", flush=True)
+            continue
         print(f"[ab] {case}: {args.trees[0]} {' / '.join(f'{x:.5f}' for x in a)} ms, "
               f"{args.trees[1]} {' / '.join(f'{x:.5f}' for x in b)} ms; medians "
               f"{statistics.median(a):.5f} vs {statistics.median(b):.5f} ms, "

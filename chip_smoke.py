@@ -560,6 +560,15 @@ def instantiation_name(mangled: str) -> str:
         variant = {0: "", 1: " int8", 2: " fp8"}.get(args[1], f" kv{args[1]}")
         return (f"K1 decode{variant}{' softcap' if args[3] else ''}{' bias' if args[2] else ''} "
                 f"{label}")
+    quant_sm90 = re.search(r"fwd_quant_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if quant_sm90:  # K1's quantized route, fwd_quant_sm90_kernel<D, KV, BIAS, SEG>
+        args = re.findall(r"L[a-z]+(-?\d+)E", quant_sm90.group(1))
+        label = f"fwd_quant_sm90_kernel<{', '.join(args)}>"
+        if len(args) != 4:
+            return f"unrecognised instantiation {label}"
+        variant = {"1": " int8", "2": " fp8"}.get(args[1], f" kv{args[1]}")
+        return (f"K1 quant sm90{variant}{' bias' if args[2] == '1' else ''}"
+                f"{' segments' if args[3] == '1' else ''} {label}")
     dense_sm90 = re.search(r"fwd_dense_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if dense_sm90:  # K1's dense route, fwd_dense_sm90_kernel<D, SEG, CAP>
         args = re.findall(r"L[a-z]+(-?\d+)E", dense_sm90.group(1))
@@ -1231,6 +1240,7 @@ def _reset_launches() -> None:
     flash_fwd.fwd.launches_bias = flash_fwd.fwd.launches_int8 = flash_fwd.fwd.launches_fp8 = 0
     flash_fwd.fwd.launches_bias_sm90 = flash_fwd.fwd.launches_dense_sm90 = 0
     flash_fwd.fwd.launches_dense_d256 = flash_fwd.fwd.launches_bias_d256 = 0
+    flash_fwd.fwd.launches_quant_sm90 = 0
     flash_bwd.bias_bwd.launches_d256 = 0
     flash_bwd_fused.bwd.launches_sm90 = flash_bwd_fused.bwd.launches_d256 = 0
     flash_bwd.split_bwd.launches_d256 = 0
@@ -1253,7 +1263,8 @@ def _launches() -> dict:
     those of its D 256 form (bf16 above D 128), "K1 dense sm90"
     those of K1's dense route (a window's also in "K1 window", a cap's in
     "K1 softcap"), "K1 dense d256" those of its D 256 form (bf16 above D
-    128); "K3" all K3 launches, "K3 sm90" those of its Hopper
+    128), "K1 quant sm90" those of K1's quantized route (int8 / fp8 K/V not
+    decode-shaped, also in "K1 int8" / "K1 fp8"); "K3" all K3 launches, "K3 sm90" those of its Hopper
     kernel, "K3 d256" those of its D 256 form (bf16 above D 128); "bias
     bwd" the launches of K5 + K6's bias route (one kernel for both, with a
     bias and, if any, the softcap), "bias bwd dbias" those that wrote dbias,
@@ -1279,6 +1290,7 @@ def _launches() -> dict:
             "K1 bias d256": flash_fwd.fwd.launches_bias_d256,
             "K1 dense sm90": flash_fwd.fwd.launches_dense_sm90,
             "K1 dense d256": flash_fwd.fwd.launches_dense_d256,
+            "K1 quant sm90": flash_fwd.fwd.launches_quant_sm90,
             "K1 int8": flash_fwd.fwd.launches_int8, "K1 fp8": flash_fwd.fwd.launches_fp8,
             "K1 window": flash_fwd.fwd.launches_window,
             "K1 softcap": flash_fwd.fwd.launches_softcap,
@@ -1440,7 +1452,9 @@ def phase_decode_check() -> dict:
     LSE = ln2 x mask). Times each variant beside its plain version, with the
     KV read rate 2·B·Hkv·Nk·D·bytes / t of bench_decode.py:94: on the live
     case (decode_step's call; returned under the variant's name) and on the
-    Hkv 8 case (the whole cache with the slot bias; under "<variant> bias")."""
+    Hkv 8 case (the whole cache with the slot bias; under "<variant> bias"),
+    beside SDPA (on int8 / fp8, on the dequantized bf16 cache, the
+    dequantization not included)."""
     from flashattn_tpu_torch.ops import flash_fwd, quant
     from flashattn_tpu_torch.ops.flash import flash_attention
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
@@ -1494,7 +1508,8 @@ def phase_decode_check() -> dict:
                      f"{' causal' if causal else ''}"
                      f"{'' if bias_kind is None else f' bias {bias_kind}'}"
                      f"{' folded' if folded else ''}")
-            kern = "decode kernel" if route else "dense K1"
+            kern = ("decode kernel" if route else "dense K1" if dtype == torch.bfloat16
+                    else "quantized K1")
             line = (f"{label}: path O max_abs_err {err:.3e} (budget {O_TOL_NAME}), relative "
                     f"L2 {rel:.3e} (limit {DECODE_REL_L2}), max|O| "
                     f"{o_want.abs().max().item():.3e}; launches K1 / decode / merge {launched} "
@@ -1547,9 +1562,14 @@ def phase_decode_check() -> dict:
                     tensor_bytes(q, kk, vv, bias, q, *scales.values()) + 4 * b * hq * nq,
                     4.0 * d * b * hq * nq * nk)}
                 with_bias = "" if bias is None else " and bias"
-                if dtype != torch.bfloat16:
-                    res[key].update(library_ms=None, library_call=(
-                        "none: no PyTorch call takes int8 / fp8 K/V with per-token scales"))
+                if dtype != torch.bfloat16:  # no PyTorch call takes 8-bit K/V and scales
+                    kd, vd = (x.to(torch.bfloat16) for x in quant.dequantize_kv(qkv))
+                    res[key]["library_ms"] = sdpa_ms(q, kd, vd, attn_mask=bias)
+                    res[key]["library_call"] = (
+                        f"scaled_dot_product_attention(attn_mask="
+                        f"{'bias' if bias is not None else 'None'}, enable_gqa=True) on the "
+                        "dequantized bf16 K/V, the dequantization not included")
+                    del kd, vd
                 elif cap is None:
                     res[key]["library_ms"] = sdpa_ms(q, k, v, attn_mask=bias)
                     res[key]["library_call"] = (f"scaled_dot_product_attention(attn_mask="
@@ -1790,8 +1810,8 @@ def band_ranges(n_outer: int, n_inner: int, outer: int, inner: int, lo, hi):
     """The inner rows a banded kernel visits for each ``outer``-row tile:
     ``(o0, begin, end)``, the ``inner``-aligned tiles from ``begin`` that meet
     the band [o0 - lo, o0 + outer - 1 + hi] (None: unbounded), up to ``end``
-    -- the ranges that the forwards (csrc/fwd_sm90_tile.cuh, fwd_tile.cuh: Q
-    tiles outer, KV tiles inner) and the KV-major backward
+    -- the ranges that the forward (csrc/fwd_sm90_tile.cuh: Q tiles outer,
+    KV tiles inner) and the KV-major backward
     (csrc/bwd_sm90_tile.cuh: KV tiles outer, with lo and hi swapped) compute,
     restated here only to print how many tile pairs
     they visit. Whether the kernels' own ranges hold the band is shown by
@@ -1876,8 +1896,10 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     BWD_TOL[bf16], each of O, dQ, dK, dV (and dbias) within WINDOW_REL_L2
     relative L2 (printed with max|ref|), dead rows' O and dQ exactly 0 and
     their LSE exactly ln2 · mask as the kernels form it in f32; K1 on its
-    route, one launch counted with its bias, window and cap: with a bias the
-    bias route, without the dense route (each its D 256 form above D 128).
+    route, one launch counted with its bias, window and cap: on int8 / fp8 K/V
+    (``k_scale`` / ``v_scale`` in ``kw``, forward only: the plain version on
+    the same 8-bit K/V and scales) the quantized route, with a bias the bias
+    route, without the dense route (each its D 256 form above D 128).
     Returns the max errors, dbias, and the (q, k, v, do, lse, delta) the
     backward took."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
@@ -1891,7 +1913,11 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     variants = dict(K1_window=int(flash_fwd.kernel_window(kw.get("window")) != (-1, -1)),
                     K1_softcap=int("softcap" in kw))
     wide = int(q.shape[-1] > 128)
-    if "bias" in kw:  # K1's bias route (the paths' bias calls are not decode-shaped)
+    if "k_scale" in kw:  # K1's quantized route (its checks' calls are not decode-shaped)
+        kv_name = "int8" if k.dtype == torch.int8 else "fp8"
+        _routed(f"K1 at {tag}", before, K1=1, K1_quant_sm90=1, **{f"K1_{kv_name}": 1},
+                **variants)
+    elif "bias" in kw:  # K1's bias route (the paths' bias calls are not decode-shaped)
         _routed(f"K1 at {tag}", before, K1=1, K1_bias=1, K1_bias_sm90=1, K1_bias_d256=wide,
                 **variants)
     else:  # K1's dense route
@@ -2114,7 +2140,7 @@ def phase_window_check() -> dict:
     (CAP_D40_CASE: a D 64 instantiation reading zeros past D, the cap
     saturating); K1 alone above D 128 (_wide_fwd_check): at D 160 with the
     cap, the cap and a window and / or segment ids (the dense route's D 256
-    form), a bias, the cap and a bias (fwd_tile.cuh) (WIDE_CASES), and the
+    form), a bias, the cap and a bias (the bias route's) (WIDE_CASES), and the
     D 256 form at a ring's chunk pair, with dead rows, at D 136 ragged GQA
     and at one query row (WIDE_FWD_CASES), each one launch; K1 and the split
     route with softcap 50 and the SWA window at bench_lm's long shape (every
@@ -2330,7 +2356,7 @@ def phase_softcap() -> dict:
     50 and sliding_window 512, gates at [1, 2049] as phase_swa_train's; then
     LM_STEPS fused steps at [1, 8193] with the cap and sliding_window 2048:
     exactly K1 = K1 dense sm90 = K1 window = K1 softcap = split bwd (K5 +
-    K6's split route) = layers x steps, no other (no fwd_tile.cuh K1, no K3).
+    K6's split route) = layers x steps, no other (no bias or quantized K1, no K3).
     Decode: bench_decode's LM with the cap and sliding_window 2048 on a bf16
     cache, decode against the teacher-forced forward (_decode_gate; the
     forward runs K1 with the window and the cap), ms/token at cache lengths
@@ -3211,7 +3237,7 @@ def _path_a(arm: str, x, target, valid, mask, rel0, *, window=None, ids=None, so
     log(phase, f"{arm} arm, launches during the fused steps: {res['launches']} (expected "
                f"K1 = K1 bias = K1 bias sm90 = bias bwd = {n}, K1 bias d256 = bias bwd d256 = "
                f"{wide}, K1 window = {win}, K1 softcap = {cap}, bias bwd dbias = {dbias}, no K5, "
-               f"K6, K3, split route or fwd_tile.cuh K1)")
+               f"K6, K3, split route or quantized K1)")
     if res["launches"] != want:
         fail(f"path A's {arm} arm launched {res['launches']}, expected {want}")
     del models
@@ -3888,7 +3914,7 @@ def _parallel_paths_check() -> dict:
     scale), forward and gradients against single-device flash_attention,
     with exact launch counts: the live chunk pairs of each ring (10 causal,
     7 windowed, 2P + 1 = 9 per rank zigzag), one call per rank for Ulysses
-    and head-parallel; no K7 / K8, bias route or fwd_tile.cuh launch."""
+    and head-parallel; no K7 / K8, bias route or quantized K1 launch."""
     from flashattn_tpu_torch import flash_attention
     from flashattn_tpu_torch.parallel import (
         head_parallel_attention, make_mesh, ring_attention_sharded,
@@ -5084,7 +5110,8 @@ FUZZ_SEED = 3000
 FUZZ_DRAWS = 40
 FUZZ_MAX_SEEDS = 4000
 FUZZ_OPEN_LABELS = ("f32 rows item 5", "K1 options")
-FUZZ_ROUTES = ("K1 dense", "K1 bias", "K1 bias d256", "K1 f32", "K1 f32 bias", "K1 decode", "K3",
+FUZZ_ROUTES = ("K1 dense", "K1 bias", "K1 bias d256", "K1 f32", "K1 f32 bias", "K1 decode",
+               "K1 quant", "K3",
                "split route", "bias backward", "bias backward d256", "f32 backward",
                "f32 bias backward")
 
@@ -5097,6 +5124,7 @@ def _fuzz_routes(launches: dict, f32: bool) -> set:
            "K1 bias d256": launches["K1 bias d256"],
            "K1 f32": launches["K1 f32"] - launches["K1 f32 bias"],
            "K1 f32 bias": launches["K1 f32 bias"], "K1 decode": launches["K1 decode"],
+           "K1 quant": launches["K1 quant sm90"],
            "K3": launches["K3 sm90"], "split route": 0 if f32 else launches["split bwd"],
            "bias backward": (launches["bias bwd"] - launches["bias bwd f32"]
                              - launches["bias bwd d256"]),
@@ -5106,9 +5134,15 @@ def _fuzz_routes(launches: dict, f32: bool) -> set:
     return {name for name, n in got.items() if n > 0}
 
 
+def _fuzz_quant_arm(c: dict) -> bool:
+    """Whether a draw also runs the forward-only quantized arm: bf16 without
+    a softcap (quantized K/V take none)."""
+    return c["dtype"] == torch.bfloat16 and c["softcap"] is None
+
+
 def _fuzz_predicted(c: dict) -> set:
     """The FUZZ_ROUTES a draw should take, by the wrappers' route rules (no
-    launch): the forward's and the backward's."""
+    launch): the forward's, the backward's and the quantized arm's."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
 
     D = -(-c["D"] // 8) * 8
@@ -5131,7 +5165,35 @@ def _fuzz_predicted(c: dict) -> set:
         bwd = "f32 backward" if f32 else "split route"
     else:
         bwd = "f32 backward" if f32 else "K3"
-    return {fwd, bwd}
+    routes = {fwd, bwd}
+    if _fuzz_quant_arm(c):
+        routes.add("K1 decode" if fwd == "K1 decode" else "K1 quant")
+    return routes
+
+
+def _fuzz_quant(seed: int, c: dict, q, k, v, bias, seg) -> set:
+    """The draw's forward-only quantized arm: its K/V quantized by
+    quantize_kv (int8 on even seeds, fp8 on odd) and its every option
+    through flash_fwd.fwd, against the port's oracle on the dequantized K/V
+    (FWD_TOL[bf16]); returns its routes."""
+    from flashattn_tpu_torch.ops import flash_fwd, quant
+    from flashattn_tpu_torch.ops.oracle import attention_reference
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close
+
+    dt = torch.int8 if seed % 2 == 0 else torch.float8_e4m3fn
+    qkv = quant.quantize_kv(k, v, dt, allow_slow_fp8=True)
+    kw = dict(causal=c["causal"], window=c["window"], q_offset=c["q_off"],
+              kv_offset=c["kv_off"], bias=bias, segment_ids=seg)
+    before = _launches()
+    o, _ = flash_fwd.fwd(q, qkv.k_q, qkv.v_q, scale=q.shape[-1] ** -0.5, k_scale=qkv.k_scale,
+                         v_scale=qkv.v_scale, **kw)
+    torch.cuda.synchronize()
+    now = _launches()
+    kd, vd = quant.dequantize_kv(qkv, torch.float32)
+    ok, msg = check_close(o, attention_reference(q.float(), kd, vd, **kw), FWD_TOL[q.dtype], "O")
+    if not ok:
+        fail(f"fuzz seed {seed} ({c}), {dt} K/V: {msg}")
+    return _fuzz_routes({n: now[n] - before[n] for n in now}, False)
 
 
 def _fuzz_draw(seed: int, c: dict) -> tuple[set, str | None, float]:
@@ -5139,8 +5201,9 @@ def _fuzz_draw(seed: int, c: dict) -> tuple[set, str | None, float]:
     (dQ, dK, dV and, with a bias, dbias), against autograd through the port's
     oracle (ops/oracle.attention_reference) on f32 copies of the same values,
     TF32 off: O within FWD_TOL, the gradients within BWD_TOL, of the draw's
-    dtype. Returns the routes it went through, the refusal's message if it
-    raised NotImplementedError under an open label, and its largest
+    dtype; a bf16 draw without a softcap also through its quantized arm
+    (_fuzz_quant). Returns the routes it went through, the refusal's message
+    if it raised NotImplementedError under an open label, and its largest
     error."""
     from flashattn_tpu_torch.ops.flash import flash_attention
     from flashattn_tpu_torch.ops.oracle import attention_reference
@@ -5178,6 +5241,8 @@ def _fuzz_draw(seed: int, c: dict) -> tuple[set, str | None, float]:
         return _fuzz_routes({n: now[n] - before[n] for n in now}, dt == torch.float32), msg, 0.0
     now = _launches()
     routes = _fuzz_routes({n: now[n] - before[n] for n in now}, dt == torch.float32)
+    if _fuzz_quant_arm(c):
+        routes |= _fuzz_quant(seed, c, q, k, v, bias, seg)
     ref = [t.detach().float().requires_grad_(True) for t in leaves]
     o_want = attention_reference(*ref[:3], bias=ref[3] if bias is not None else None,
                                  segment_ids=seg, **kw)
@@ -5726,9 +5791,6 @@ WIDE_BIAS_CASES = [
 # Path A with heads of 256: Gemma 2B's width of 2048 in its 8 query heads of
 # 256 (the module has no GQA, so K / V take 8 heads too).
 WIDE_ATTN_WIDTH = dict(num_heads=8, in_features=2048, qkv_features=2048)
-# The quantized prefill that fwd_tile.cuh keeps: flash_attention_quantized
-# (causal) at the LM's attention, B1 Hq16 Hkv8 N2048 D128.
-QUANT_PREFILL_SHAPE = (1, 16, 8, LM_SEQ, 128)  # B, Hq, Hkv, N, D
 
 
 def _wide_bias(kind, seed: int, B: int, Hq: int, Nq: int, Nk: int) -> torch.Tensor:
@@ -5831,55 +5893,6 @@ def _wide_bias_timing() -> dict:
     return res
 
 
-def _quant_prefill_timing() -> dict:
-    """What fwd_tile.cuh keeps: flash_attention_quantized(causal=True) at
-    QUANT_PREFILL_SHAPE on int8 and fp8 K/V (quantize_kv), one launch of its
-    quantized family each (a launch count, no decode route: Nq is the whole
-    prompt), held against fwd_reference on the same quantized K/V and scales
-    (FWD_TOL[bf16]); its time, the plain version's, its bound (the quantized
-    K/V and scales read once, q read and O written once; the causal pairs'
-    two products) and SDPA's on the dequantized bf16 K/V (is_causal, each
-    fused backend, _sdpa_backends_ms)."""
-    from flashattn_tpu_torch.ops import flash_fwd, quant
-    from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close, make_qkv
-
-    B, Hq, Hkv, N, D = QUANT_PREFILL_SHAPE
-    q, k, v = make_qkv(1700, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16, device=DEVICE)
-    flops = pair_flops(q, k, matmuls=2, kv_valid_len=N, causal=True, segment_ids=None)
-    res = {}
-    for name, dt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
-        qkv = quant.quantize_kv(k, v, dt, allow_slow_fp8=True)
-        call = lambda: quant.flash_attention_quantized(q, qkv, causal=True)  # noqa: E731
-        before = _launches()
-        o = call()
-        torch.cuda.synchronize()
-        _routed(f"flash_attention_quantized {name}", before, K1=1, **{f"K1_{name}": 1})
-        launched = _launches()[f"K1 {name}"] - before[f"K1 {name}"]
-        plain = lambda: flash_fwd.fwd_reference(  # noqa: E731
-            q, qkv.k_q, qkv.v_q, scale=D ** -0.5, causal=True, k_scale=qkv.k_scale,
-            v_scale=qkv.v_scale)
-        o_want = plain()[0]
-        ok, msg = check_close(o, o_want, FWD_TOL[torch.bfloat16], "O")
-        if not ok:
-            fail(f"flash_attention_quantized {name} at B{B} Hq{Hq} Hkv{Hkv} N{N} D{D}: {msg}")
-        kd, vd = (x.to(torch.bfloat16) for x in quant.dequantize_kv(qkv))
-        res[f"quant_{name}"] = {
-            "launches": launched, "max_abs_err": (o.float() - o_want.float()).abs().max().item(),
-            "ms": cuda_ms(call), "plain_ms": cuda_ms(plain, reps=3, trials=3),
-            **bound(tensor_bytes(q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, q)
-                    + 4 * B * Hq * N, flops),
-            **_sdpa_backends_ms(q, kd, vd, is_causal=True, call="is_causal=True, on the "
-                                                                "dequantized bf16 K/V")}
-        r = res[f"quant_{name}"]
-        log("wide bias", f"fwd_tile.cuh's quantized prefill, {name} K/V, B{B} Hq{Hq} Hkv{Hkv} "
-                         f"N{N} D{D} causal: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
-                         f"{r['bound_ms']:.4f} {r['bound_by']}, library {r['library_ms']:.4f}: "
-                         f"{r['library_call']}); O {msg} ({_card_state()})")
-        del qkv, o, o_want, kd, vd
-    torch.cuda.empty_cache()
-    return res
-
-
 def phase_wide_bias_check() -> dict:
     """The bias routes' D 256 forms (K1: fwd_bias_sm90_kernel<256, SEG, CAP>,
     the bias in one TMA slot; K5 + K6: bwd_bias_wide_kernel<SEG, CAP>, the
@@ -5889,9 +5902,8 @@ def phase_wide_bias_check() -> dict:
     WINDOW_REL_L2; dead rows' O exactly 0 and LSE exactly ln2 · mask, their
     dQ and dbias exactly 0; dbias exactly 0 on every pair the masks drop,
     read from NaN-filled memory). Then the eight instantiations' SASS
-    (HGMMA, UTMALDG, no HMMA) with their registers and spills, the forms
-    timed at path A's D 256 shape (_wide_bias_timing), and fwd_tile.cuh's
-    quantized prefill (_quant_prefill_timing)."""
+    (HGMMA, UTMALDG, no HMMA) with their registers and spills, and the forms
+    timed at path A's D 256 shape (_wide_bias_timing)."""
     from flashattn_tpu_torch.utils.testing import make_qkv
 
     t0 = time.perf_counter()
@@ -5926,7 +5938,7 @@ def phase_wide_bias_check() -> dict:
     log("wide bias", f"{len(WIDE_BIAS_CASES)} cases checked in {time.perf_counter() - t0:.1f} s")
     _tma_wgmma_sass("wide bias", wide_bias_instantiations())
     t0 = time.perf_counter()
-    res = {**_wide_bias_timing(), **_quant_prefill_timing()}
+    res = _wide_bias_timing()
     log("wide bias", f"timed in {time.perf_counter() - t0:.1f} s")
     return res
 
@@ -5942,8 +5954,7 @@ def phase_wide_bias_train() -> dict:
     flash_attention between the module's projections. Each arm's gates (1.5x
     the bf16 floor against the plain f32 function), LM_STEPS AdamW steps,
     ms/step and peak GB, and exact launches: every K1 call on the bias
-    route's D 256 form, every backward on the bias backward's D 256 form,
-    none on fwd_tile.cuh."""
+    route's D 256 form, every backward on the bias backward's D 256 form."""
     x, target, valid, mask, rel0 = _path_a_inputs(WIDE_ATTN_WIDTH)
     B, N = x.shape[:2]
     kw = dict(width=WIDE_ATTN_WIDTH, phase="wide bias_train")
@@ -5954,6 +5965,195 @@ def phase_wide_bias_train() -> dict:
             "packed": _path_a("packed learned", x, target, torch.ones_like(valid), None, rel0,
                               ids=packed_ids(B, N), **kw),
             "capped": _path_a("capped mask", x, target, valid, mask, None, softcap=SOFTCAP, **kw)}
+
+
+# K1's quantized route (csrc/flash_fwd_quant_sm90.cu), each case on int8
+# and on fp8 K/V quantized by quantize_kv from q, k grown by GROW: (tag, D,
+# B, Hq, Hkv, Nq, Nk, kv_valid_len, causal, window, ids kind as
+# _seg_case_ids, (q_offset, kv_offset), bias kind -- None, "keys" (key
+# padding [B, 1, 1, Nk]) or "full" (key padding plus a normal [B, Hq, Nq,
+# Nk]) --, BNHD views (the cache's layout, the scales' strides as
+# flash_attention_quantized(layout="BNHD") passes them), has dead rows) --
+# D 64 / 96 / 128 / 192 / 256 and 40 / 136 in wider boxes, causal, windows,
+# ids, offsets, biases, GQA, ragged tails, kv_valid_len 0, one query row.
+QUANT_CASES = [
+    ("the LM's prefill, causal GQA 16/8", 128, 1, 16, 8, 1024, 1024, None, True, None, None,
+     (0, 0), None, True, False),
+    ("window (256, 256), GQA 8/2", 64, 2, 8, 2, 1000, 1000, None, False, (256, 256), None,
+     (0, 0), None, False, False),
+    ("8 documents a row, causal, D 96", 96, 2, 8, 4, 1024, 1024, None, True, None, "packed",
+     (0, 0), None, True, False),
+    ("causal, kv_offset 512 (rows before it see no key), D 192", 192, 1, 8, 4, 1024, 1024,
+     None, True, None, None, (0, 512), None, False, True),
+    ("ragged Nq 1000 / Nk 1100, kv_valid_len 1030, full bias", 256, 2, 8, 4, 1000, 1100, 1030,
+     False, None, None, (0, 0), "full", True, False),
+    ("ids + window (300, -1) + q_offset 128 + full bias", 128, 2, 8, 4, 1024, 1024, None, True,
+     (300, -1), "random", (128, 0), "full", False, None),
+    ("D 40, GQA 8/1, Nq 900 / Nk 800, kv_valid_len 700", 40, 1, 8, 1, 900, 800, 700, False,
+     None, None, (0, 0), None, True, False),
+    ("kv_valid_len 0", 128, 1, 4, 2, 256, 256, 0, False, None, None, (0, 0), None, False, True),
+    ("SWA window (511, -1), causal", 128, 1, 16, 8, 2048, 2048, None, True, (511, -1), None,
+     (0, 0), None, True, False),
+    ("Nq 1, key padding, D 96", 96, 2, 8, 4, 1, 1000, None, False, None, None, (0, 0), "keys",
+     False, False),
+    ("D 136, key padding, causal", 136, 2, 8, 8, 700, 700, None, True, None, None, (0, 0),
+     "keys", True, False),
+    ("a segment no key carries, D 64", 64, 1, 8, 8, 1024, 1024, None, False, None, "dead",
+     (0, 0), None, False, True),
+]
+# The quantized prefill: flash_attention_quantized (causal) at the LM's
+# attention, B1 Hq16 Hkv8 N2048 D128; and int8 K/V with SWA's window at
+# WINDOW_CASES[0]'s shape.
+QUANT_PREFILL_SHAPE = (1, 16, 8, LM_SEQ, 128)  # B, Hq, Hkv, N, D
+
+
+def quant_instantiations() -> set:
+    """K1's quantized route's 24 instantiations, as instantiation_name names
+    them: fwd_quant_sm90_kernel<D, KV, BIAS, SEG>."""
+    return {f"K1 quant sm90 {kv}{' bias' if bi else ''}{' segments' if sg else ''} "
+            f"fwd_quant_sm90_kernel<{d}, {code}, {bi}, {sg}>"
+            for d in (64, 128, 256) for kv, code in (("int8", 1), ("fp8", 2))
+            for bi in (0, 1) for sg in (0, 1)}
+
+
+def _quant_case(i: int, dtype):
+    """QUANT_CASES[i]'s inputs on ``dtype`` K/V: q (bf16), the QuantizedKV
+    (its payload and scales BNHD views where the case says so) and the
+    keyword arguments of its call; and its tag."""
+    from flashattn_tpu_torch.ops import quant
+
+    tag, d, B, Hq, Hkv, nq, nk, kvl, causal, window, ids, (qo, ko), bias, bnhd, _ = QUANT_CASES[i]
+    q, k, v = _grown(1800 + i, B, Hq, nq, d, nk, Hkv)  # [B, H, N, D] views of [B, N, H, D]
+    if bnhd:  # quantized in the cache's layout, passed as views
+        qkv = quant.quantize_kv(*(x.transpose(1, 2) for x in (k, v)), dtype, allow_slow_fp8=True)
+        qkv = quant.QuantizedKV(*(x.transpose(1, 2) for x in qkv))
+    else:
+        q = q.contiguous()
+        qkv = quant.quantize_kv(k.contiguous(), v.contiguous(), dtype, allow_slow_fp8=True)
+    kw = dict(scale=d ** -0.5, causal=causal, k_scale=qkv.k_scale, v_scale=qkv.v_scale)
+    if kvl is not None:
+        kw["kv_valid_len"] = kvl
+    if window is not None:
+        kw["window"] = window
+    if ids is not None:
+        kw["segment_ids"] = _seg_case_ids(ids, 1830 + i, B, nq, nk)
+    if (qo, ko) != (0, 0):
+        kw.update(q_offset=qo, kv_offset=ko)
+    if bias is not None:  # batch row b's last 37 (b + 1) keys padded
+        from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+
+        lengths = torch.tensor([nk - 37 * (r + 1) for r in range(B)], device=DEVICE)
+        keys = torch.arange(nk, device=DEVICE)[None] < lengths[:, None]
+        kw["bias"] = torch.where(keys, 0.0, DEFAULT_MASK_VALUE).to(torch.float32)[:, None, None]
+        if bias == "full":
+            gen = torch.Generator(device=DEVICE).manual_seed(1860 + i)
+            kw["bias"] = kw["bias"] + torch.randn((B, Hq, nq, nk), generator=gen, device=DEVICE)
+    name = "int8" if dtype == torch.int8 else "fp8"
+    return q, qkv, kw, (f"{name} K/V, {tag}: D{d} B{B} Hq{Hq} Hkv{Hkv} Nq{nq} Nk{nk}"
+                        f"{'' if kvl is None else f' kv_valid_len {kvl}'}"
+                        f"{' BNHD' if bnhd else ''}")
+
+
+def _quant_timing() -> dict:
+    """K1's quantized route timed: flash_attention_quantized(causal=True) at
+    QUANT_PREFILL_SHAPE on int8 and fp8 K/V (quantize_kv), one launch of the
+    route each (not decode-shaped: Nq is the whole prompt), held against
+    fwd_reference on the same quantized K/V and scales (FWD_TOL[bf16]); and
+    int8 K/V with SWA's window (WINDOW_CASES[0]: B1 Hq16 Hkv8 N8192 D128,
+    (2047, -1) causal) through flash_fwd.fwd. Each row: its time (the call's
+    CUDA-event time; "kernel_ms" the kernel alone by torch.profiler,
+    "host_ms" the host's time a call: where the host's time nears the
+    kernel's, the call's reads the host), the plain version's, its bound (the quantized K/V and scales read once, q read and
+    O and the LSE written once; the attended pairs' two products) and SDPA's
+    on the dequantized bf16 K/V (each fused backend, _sdpa_backends_ms; with
+    the window, its band as a boolean attn_mask) -- the dequantization not
+    included."""
+    from flashattn_tpu_torch.ops import flash_fwd, quant
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close, make_qkv
+
+    res = {}
+    B, Hq, Hkv, N, D = QUANT_PREFILL_SHAPE
+    q, k, v = make_qkv(1700, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16, device=DEVICE)
+    sw = WINDOW_CASES[0]
+    qs, ks, vs = make_qkv(1701, sw[1], sw[2], sw[4], sw[6], Hkv=sw[3], dtype=torch.bfloat16,
+                          device=DEVICE)
+    rows = (("prefill_int8", torch.int8, q, k, v, dict(causal=True)),
+            ("prefill_fp8", torch.float8_e4m3fn, q, k, v, dict(causal=True)),
+            ("swa_int8", torch.int8, qs, ks, vs, dict(causal=True, window=sw[8])))
+    for key, dt, qq, kk, vv, mask in rows:
+        b, hq, n, d = qq.shape
+        qkv = quant.quantize_kv(kk, vv, dt, allow_slow_fp8=True)
+        kw = dict(scale=d ** -0.5, k_scale=qkv.k_scale, v_scale=qkv.v_scale, **mask)
+        if "window" in mask:
+            call = lambda: flash_fwd.fwd(qq, qkv.k_q, qkv.v_q, **kw)  # noqa: E731
+            what = f"flash_fwd.fwd, window {mask['window']} causal"
+        else:
+            call = lambda: quant.flash_attention_quantized(qq, qkv, causal=True)  # noqa: E731
+            what = "flash_attention_quantized(causal=True)"
+        before = _launches()
+        o = call()
+        o = o[0] if isinstance(o, tuple) else o
+        torch.cuda.synchronize()
+        name = "int8" if dt == torch.int8 else "fp8"
+        _routed(f"{what} on {name} K/V", before, K1=1, K1_quant_sm90=1, **{f"K1_{name}": 1},
+                K1_window=int("window" in mask))
+        plain = lambda: flash_fwd.fwd_reference(qq, qkv.k_q, qkv.v_q, **kw)  # noqa: E731
+        o_want = plain()[0]
+        ok, msg = check_close(o, o_want, FWD_TOL[torch.bfloat16], "O")
+        if not ok:
+            fail(f"{what} on {name} K/V at B{b} Hq{hq} N{n} D{d}: {msg}")
+        pairs = dict(kv_valid_len=n, segment_ids=None, **mask)
+        kd, vd = (x.to(torch.bfloat16) for x in quant.dequantize_kv(qkv))
+        if "window" in mask:
+            band = flash_fwd.pair_mask(n, n, device=DEVICE, **pairs)[0, 0]
+            lib = _sdpa_backends_ms(qq, kd, vd, attn_mask=band,
+                                    call="attn_mask=the band, on the dequantized bf16 K/V")
+            del band
+        else:
+            lib = _sdpa_backends_ms(qq, kd, vd, is_causal=True,
+                                    call="is_causal=True, on the dequantized bf16 K/V")
+        res[key] = {
+            "launches": 1, "max_abs_err": (o.float() - o_want.float()).abs().max().item(),
+            "ms": cuda_ms(call), "kernel_ms": kernels_ms(call), "host_ms": host_ms(call),
+            "plain_ms": cuda_ms(plain, reps=3, trials=3),
+            **bound(tensor_bytes(qq, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, qq)
+                    + 4 * b * hq * n, pair_flops(qq, kk, matmuls=2, **pairs)),
+            **lib}
+        r = res[key]
+        log("quant", f"{what}, {name} K/V, B{b} Hq{hq} Hkv{kk.shape[1]} N{n} D{d}: "
+                     f"{r['ms']:.4f} ms (kernel alone {r['kernel_ms']:.4f}, host "
+                     f"{r['host_ms']:.4f} a call; plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+                     f"{r['bound_by']}, library {r['library_ms']:.4f}: {r['library_call']}); "
+                     f"O {msg} ({_card_state()})")
+        del qkv, o, o_want, kd, vd
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_quant_check() -> dict:
+    """K1's quantized route (fwd_quant_sm90_kernel<D, KV, BIAS, SEG>: int8 /
+    e4m3 K/V widened in shared memory) against fwd_reference on the same
+    8-bit K/V and scales: QUANT_CASES on int8 and on fp8 (_fwd_bwd_check
+    without dO: one launch each of the route, counted with the dtype and the
+    window; O within FWD_TOL[bf16] and WINDOW_REL_L2, LSE within LSE_ATOL on
+    live rows, dead rows' O exactly 0 and LSE exactly ln2 · mask). Then the
+    24 instantiations' SASS (HGMMA, UTMALDG, no HMMA) with their registers
+    and spills, and the route timed (_quant_timing)."""
+    t0 = time.perf_counter()
+    for i, case in enumerate(QUANT_CASES):
+        for dt in (torch.int8, torch.float8_e4m3fn):
+            q, qkv, kw, tag = _quant_case(i, dt)
+            out = _fwd_bwd_check(tag, q, qkv.k_q, qkv.v_q, None, phase="quant", **kw)
+            if case[-1] is not None and case[-1] != bool(out["dead"]):
+                fail(f"the quantized case {tag} has {out['dead']} dead rows")
+            del q, qkv, kw, out
+        torch.cuda.empty_cache()
+    log("quant", f"{2 * len(QUANT_CASES)} cases checked in {time.perf_counter() - t0:.1f} s")
+    _tma_wgmma_sass("quant", quant_instantiations())
+    t0 = time.perf_counter()
+    res = _quant_timing()
+    log("quant", f"timed in {time.perf_counter() - t0:.1f} s")
+    return res
 
 
 def phase_entry() -> dict:
@@ -6150,6 +6350,7 @@ def main() -> None:
     wide_train = timed(phase_wide_train)
     wide_bias = timed(phase_wide_bias_check)
     wide_bias_train = timed(phase_wide_bias_train)
+    quant = timed(phase_quant_check)
     timed(phase_entry)
     timed(phase_fuzz)
     fwd_src, bwd_src, split_src, bias_sm90_src = (
@@ -6404,14 +6605,21 @@ def main() -> None:
            "launches": wide_bias_train[arm]["launches"]["bias bwd d256"],
            **wide_bias[f"bwd_{arm}"]}
           for arm, shape in (("mask", "[4, 1, N, N]"), ("learned", "[4, 8, N, N]"))),
-        # What fwd_tile.cuh keeps: the quantized prefill, which no path of the
-        # port makes ("path" null; launches the check's, counted from 0).
-        *({"name": f"flash_fwd {name} (K1 on fwd_tile.cuh, mma.sync: flash_attention_quantized "
-                   f"causal prefill, B1 Hq16 Hkv8 N2048 D128)", "route": "cuda",
-           "source": f"flashattn_tpu_torch/csrc/flash_fwd_{name}.cu",
-           "replaces": "flashattn_tpu/ops/flash_fwd.py:115", "path": None,
-           **wide_bias[f"quant_{name}"]}
-          for name in ("int8", "fp8"))]}),
+        # K1's quantized route: the quantized prefill and int8 K/V with SWA's
+        # window, which no path of the port makes ("path" null; launches the
+        # timing check's, counted from 0; phase_quant_check).
+        *({"name": f"flash_fwd_quant_sm90 {name} (K1's quantized route, TMA + wgmma, the 8-bit "
+                   f"tiles widened in shared memory: flash_attention_quantized causal prefill, "
+                   f"B1 Hq16 Hkv8 N2048 D128)", "route": "cuda",
+           "source": "flashattn_tpu_torch/csrc/flash_fwd_quant_sm90.cu",
+           "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:516",
+           "path": None, **quant[f"prefill_{name}"]}
+          for name in ("int8", "fp8")),
+        {"name": "flash_fwd_quant_sm90 int8 window (K1's quantized route, TMA + wgmma: int8 K/V "
+                 "with SWA's window (2047, -1) causal, B1 Hq16 Hkv8 N8192 D128)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/flash_fwd_quant_sm90.cu",
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:852",
+         "path": None, **quant["swa_int8"]}]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Time the design variants of the TMA + wgmma kernels against the committed ones, on one GPU.
 
-    python3 chip_variants.py [ring] [bias] [k3] [k1cap] [k1wide] [f32] [f32bias]
+    python3 chip_variants.py [ring] [bias] [k3] [k1cap] [k1wide] [f32] [f32bias] [k1quant]
 
 (every family without an argument). Each variant is a committed source
 with one design choice undone by text patches (of the source, or of the
@@ -141,7 +141,34 @@ straight into S^T's fragment layout:
 At f32 path A's attention (B4 H16 N2048 D128, f32, TF32 off) with the mask
 arm's bias ([4, 1, N, N], no dbias) and the learned arm's ([4, 16, N, N],
 dbias) each is held against ``bias_bwd_reference``, then timed in turns over
-3 rounds, the split included. Prints the card's name and power limit first.
+3 rounds, the split included.
+
+Family ``k1quant``, K1's quantized route ``csrc/flash_fwd_quant_sm90.cu`` (its
+body ``csrc/fwd_sm90_tile.cuh``) through ``flash_fwd._launch_quant_sm90``:
+
+* ``K1 quant``: as committed (int8 widened through f32: the byte in 2^23's
+  mantissa, one f32 subtraction, the upper half kept; e4m3 by
+  ``cvt.rn.f16x2.e4m3x2``, each half to f32, the upper halves kept; 3 bf16
+  stages and 8 8-bit slots at D 128; 72 producer and 216 consumer
+  registers);
+* ``K1 quant int8 in bf16x2``: int8 widened in bf16x2 arithmetic, 128 +
+  the low 7 bits minus 128 or 256: 8 operations for 4 values where the
+  committed form takes 11, one of them a bf16x2 FMA a pair;
+* ``K1 quant fp8 by integer ops``: e4m3 widened by integer operations (sign
+  to bit 15, exponent and mantissa four bits down) and a bf16x2 multiply by
+  2^120;
+* ``K1 quant 4 stages``: 4 bf16 stages and 6 8-bit slots at D 128;
+* ``K1 quant no conversion``, ``K1 quant no widening`` (their numbers are
+  wrong, the check prints how wrong): the bytes stored as they are, without
+  the conversion's arithmetic, or no widening at all (the bf16 stages keep
+  what they held): what the conversion, and all of the producer's widening,
+  cost.
+
+At the quantized prefill (B1 Hq16 Hkv8 N2048 D128 causal, int8 and fp8
+K/V), at SWA's window (N8192, window 2047 to the left, causal, int8) and at
+heads of 256 (B1 Hq8 Hkv4 N2048 D256 causal, int8) each is held against
+``fwd_reference`` on the same 8-bit K/V and scales, then timed in turns
+over 5 rounds. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -515,6 +542,57 @@ def _desc_first(src: str) -> str:
                                       z + "// acc = the six bf16 products of A's pieces")
 
 
+# The quantized route's widening in other arithmetic: int8 in bf16x2, e4m3
+# by the hardware conversion to f16x2.
+_INT8_BF16X2 = '''__device__ __forceinline__ uint32_t widen2_int8(uint32_t w2) {
+  const uint32_t a = (w2 & 0x007F007Fu) | 0x43004300u;
+  const uint32_t c = (w2 & 0x00800080u) ^ 0xC300C300u;
+  uint32_t y;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(y) : "r"(a), "r"(0x3F803F80u), "r"(c));
+  return y;
+}
+
+__device__ __forceinline__ uint2 widen4_int8(uint32_t w) {
+  return make_uint2(widen2_int8(__byte_perm(w, 0, 0x4140)),
+                    widen2_int8(__byte_perm(w, 0, 0x4342)));
+}
+'''
+_FP8_BY_INT = '''__device__ __forceinline__ uint32_t widen2_fp8(uint32_t t) {
+  const uint32_t h = (t & 0x80008000u) | ((t >> 4) & 0x07F007F0u);
+  uint32_t y;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(y) : "r"(h), "r"(0x7B807B80u), "r"(0x80008000u));
+  return y;
+}
+
+__device__ __forceinline__ uint2 widen4_fp8(uint32_t w) {
+  return make_uint2(widen2_fp8(__byte_perm(w, 0, 0x1404)), widen2_fp8(__byte_perm(w, 0, 0x3424)));
+}
+'''
+
+
+def _replace_fn(src: str, head: str, new: str) -> str:
+    start = src.index(head)
+    end = src.index("\n}\n", start) + 3
+    return src[:start] + new + src[end:]
+
+
+def _int8_bf16x2(src: str) -> str:
+    return _replace_fn(src, "__device__ __forceinline__ uint2 widen4_int8(uint32_t w) {",
+                       _INT8_BF16X2)
+
+
+def _fp8_by_int(src: str) -> str:
+    return _replace_fn(src, "__device__ __forceinline__ uint2 widen4_fp8(uint32_t w) {",
+                       _FP8_BY_INT)
+
+
+def _no_conversion(src: str) -> str:
+    old = "  if constexpr (KV == KV_INT8) return widen4_int8(w);\n  return widen4_fp8(w);"
+    assert src.count(old) == 1, "the no-conversion patch no longer applies"
+    return src.replace(old, "  return make_uint2(__byte_perm(w, 0, 0x4140), __byte_perm(w, 0, 0x4342));")
+
+
+QUANT_BODY = "fwd_sm90_tile.cuh"
 BIAS_BODY = "bwd_sm90_tile.cuh"
 # name: (source, ((the file a patch changes, patch), ...)).
 VARIANTS = {
@@ -559,6 +637,18 @@ VARIANTS = {
     "bwd f32 paired dQ": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _paired_dq),)),
     "bwd f32 paired S dP": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _paired_sdp),)),
     "bwd f32 descriptors first": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _desc_first),)),
+    "K1 quant": ("flash_fwd_quant_sm90.cu", ()),
+    "K1 quant int8 in bf16x2": ("flash_fwd_quant_sm90.cu", ((QUANT_BODY, _int8_bf16x2),)),
+    "K1 quant fp8 by integer ops": ("flash_fwd_quant_sm90.cu", ((QUANT_BODY, _fp8_by_int),)),
+    "K1 quant 4 stages": ("flash_fwd_quant_sm90.cu", ((QUANT_BODY, lambda s: s.replace(
+        "  static constexpr int STAGES = D == 256 ? 2 : D == 128 ? 3 : 4;\n"
+        "  static constexpr int SLOTS8 = D == 256 ? 2 : 8;",
+        "  static constexpr int STAGES = D == 256 ? 2 : 4;\n"
+        "  static constexpr int SLOTS8 = D == 64 ? 8 : D == 128 ? 6 : 2;")),)),
+    "K1 quant no conversion": ("flash_fwd_quant_sm90.cu", ((QUANT_BODY, _no_conversion),)),
+    "K1 quant no widening": ("flash_fwd_quant_sm90.cu", ((QUANT_BODY, lambda s: s.replace(
+        "        widen_tile<D, KV>(st + x * S::KV, smem + S::OFF8 + slot * S::KV8, tid);\n",
+        "")),)),
     "bwd f32 bias": ("flash_bwd_f32.cu", ()),
     "bwd f32 bias after S": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", lambda s: s.replace(
         "      if constexpr (BIAS) {  // bwd f32 bias prefetch",
@@ -576,7 +666,8 @@ ENTRIES = {"ring_bwd.cu": ("fa_ring_bwd_bf16", "RING_BWD_ARGTYPES", "ring"),
            "bwd_bias_sm90.cu": ("fa_bwd_bias_sm90", "BWD_BIAS_SM90_ARGTYPES", "bias"),
            "flash_bwd_sm90.cu": ("fa_bwd_sm90", "BWD_SM90_ARGTYPES", "k3"),
            "flash_fwd_sm90.cu": ("fa_fwd_sm90", "FWD_SM90_ARGTYPES", "k1cap"),
-           "flash_bwd_f32.cu": ("fa_bwd_f32", "BWD_F32_ARGTYPES", "f32")}
+           "flash_bwd_f32.cu": ("fa_bwd_f32", "BWD_F32_ARGTYPES", "f32"),
+           "flash_fwd_quant_sm90.cu": ("fa_fwd_quant_sm90", "FWD_QUANT_SM90_ARGTYPES", "k1quant")}
 # Variants whose family is not their source's.
 FAMILY = {"K1 D256": "k1wide", "K1 D256 interleaved": "k1wide", "K1 D256 K / V barriers": "k1wide",
           "K1 D256 224 registers": "k1wide", "bwd f32 bias": "f32bias",
@@ -980,13 +1071,56 @@ def f32bias(libs: dict) -> None:
     _report(times)
 
 
+def k1quant(libs: dict) -> None:
+    from flashattn_tpu_torch.ops import flash_fwd, quant
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    stream = torch.cuda.current_stream().cuda_stream
+    shapes = {"prefill int8": (1, 16, 8, cs.LM_SEQ, 128, torch.int8, None),
+              "prefill fp8": (1, 16, 8, cs.LM_SEQ, 128, torch.float8_e4m3fn, None),
+              "SWA int8": (1, 16, 8, cs.SWA_SEQ, 128, torch.int8, (cs.SWA_WINDOW - 1, -1)),
+              "D256 int8": (1, 8, 4, cs.LM_SEQ, 256, torch.int8, None)}
+    times = {}
+    for label, (B, Hq, Hkv, N, D, dt, window) in shapes.items():
+        q, k, v = make_qkv(81, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16, device="cuda")
+        qkv = quant.quantize_kv(k, v, dt, allow_slow_fp8=True)
+        kw = dict(scale=D ** -0.5, causal=True, window=window)
+        o_want = flash_fwd.fwd_reference(q, qkv.k_q, qkv.v_q, k_scale=qkv.k_scale,
+                                         v_scale=qkv.v_scale, **kw)[0].float()
+        o = torch.empty_like(q)
+        lse = torch.empty((B, Hq, N), dtype=torch.float32, device="cuda")
+
+        def call(lib):
+            return flash_fwd._launch_quant_sm90(lib, q, qkv.k_q, qkv.v_q, o, lse, qkv.k_scale,
+                                                qkv.v_scale, None, (0, 0, 0), None,
+                                                kv_valid_len=N, stream=stream, **kw)
+
+        for name, lib in libs.items():
+            o.zero_()
+            rc = call(lib)
+            torch.cuda.synchronize()
+            print(f"[check] {name} {label}: rc {rc}, O max abs err "
+                  f"{(o.float() - o_want).abs().max().item():.3e}, relative L2 "
+                  f"{cs._rel(o.float(), o_want):.3e}", flush=True)
+        del o_want
+        for rnd in range(5):
+            for name, lib in (libs.items() if rnd % 2 == 0 else reversed(libs.items())):
+                times.setdefault((name, label), []).append(
+                    cs.cuda_ms(lambda: call(lib), reps=20, trials=3))
+        del q, k, v, qkv, o, lse
+        torch.cuda.empty_cache()
+    _report(times)
+
+
 def main() -> None:
-    families = sys.argv[1:] or ["ring", "bias", "k3", "k1cap", "k1wide", "f32", "f32bias"]
+    families = sys.argv[1:] or ["ring", "bias", "k3", "k1cap", "k1wide", "f32", "f32bias",
+                                "k1quant"]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     libs = build(families)
     for family, run in (("ring", ring), ("bias", bias), ("k3", k3), ("k1cap", k1cap),
-                        ("k1wide", k1wide), ("f32", f32), ("f32bias", f32bias)):
+                        ("k1wide", k1wide), ("f32", f32), ("f32bias", f32bias),
+                        ("k1quant", k1quant)):
         if family in families:
             run({n: lib for n, lib in libs.items() if _family(n) == family})
 

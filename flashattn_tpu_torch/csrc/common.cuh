@@ -1,6 +1,6 @@
 // Device helpers shared by the port's attention kernels (sm_90a):
-// mma.sync m16n8k16 bf16 with f32 accumulation, ldmatrix, 16-byte tile
-// loads into padded shared memory, and the test of two segment-id ranges.
+// mma.sync m16n8k16 bf16 with f32 accumulation, ldmatrix, cp.async, and the
+// test of two segment-id ranges.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
@@ -19,7 +19,7 @@
 
 namespace fa {
 
-// K/V element types: the kv_dtype code of the C entries fa_fwd and fa_decode,
+// K/V element types: the kv_dtype code of the C entries fa_fwd_quant_sm90 and fa_decode,
 // and the template argument KV of the K1 kernels.
 enum : int { KV_BF16 = 0, KV_INT8 = 1, KV_FP8 = 2 };
 
@@ -105,27 +105,6 @@ __device__ __forceinline__ uint32_t ld_b32(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy `rows_valid` rows of `d` (a multiple of 8) bf16 from global memory into
-// a ROWS x DP shared tile with row stride DP + 8, in 16-byte pieces; rows past
-// rows_valid and columns past d are zero-filled and never read from global.
-// The row stride DP + 8 elements ((DP/2 + 4) 32-bit words) puts the 8 rows
-// that one fragment load or ldmatrix touches on distinct banks.
-template <int DP, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem, const __nv_bfloat16* g,
-                                          int64_t row_stride, int rows_valid, int d) {
-  constexpr int CHUNKS = DP / 8;
-  constexpr int STRIDE = DP + 8;
-  for (int idx = threadIdx.x; idx < ROWS * CHUNKS; idx += THREADS) {
-    const int r = idx / CHUNKS;
-    const int c = idx % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid && c * 8 < d) {
-      val = *reinterpret_cast<const uint4*>(g + r * row_stride + c * 8);
-    }
-    *reinterpret_cast<uint4*>(smem + r * STRIDE + c * 8) = val;
-  }
 }
 
 // Two tiles can hold a matching pair only if their id ranges intersect; a

@@ -6,7 +6,7 @@
 // :115) on the calls that decoding makes: a query of at most 32 rows per KV
 // head once the GQA fold (flashattn_tpu/ops/flash.py:1052-1077) has put each
 // KV head's query heads into the Q rows, non-causal, without segment ids or a
-// window, D 64 or 128. It computes K1's function exactly as fwd_tile.cuh does:
+// window, D 64 or 128. It computes K1's function exactly as fwd_sm90_tile.cuh does:
 // scores s = q k in f32, x = s * scale * log2 e (with int8 / fp8 K the
 // column's k_scale first; with a softcap x = cap * log2 e * tanh(s * scale /
 // cap)), + bias * log2 e floored at the finite mask value, keys past
@@ -357,7 +357,7 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
           x = QUANT ? s[nt][e] * s_ks[cl] * p.scale_log2 : s[nt][e] * p.scale_log2;
         }
         if (BIAS && bias_row[e >> 1] != nullptr && col < n_hi) {
-          // Floored at the mask value, as in fwd_tile.cuh.
+          // Floored at the mask value, as in fwd_sm90_tile.cuh.
           x = fmaxf(x + bv[nt][e] * LOG2E, MASK_VALUE);
         }
         if (col >= n_hi) x = MASK_VALUE;

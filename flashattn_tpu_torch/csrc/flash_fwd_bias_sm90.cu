@@ -11,7 +11,7 @@
 // what bounds it and its design are in fwd_sm90_tile.cuh; the route
 // (ops/flash_fwd.py::bias_route) is decided in Python, and the other K1 calls
 // with a bias go to the decode kernel (decode_tile.cuh) or, on quantized K/V,
-// to fwd_tile.cuh (fa_fwd, flash_fwd.cu).
+// to the quantized route (fa_fwd_quant_sm90, flash_fwd_quant_sm90.cu).
 
 #include "fwd_sm90_tile.cuh"
 

@@ -2,15 +2,14 @@
 // twelve instantiations (D 64, 128 and 256, without and with segment ids,
 // without and with the logit softcap) of fwd_sm90_tile.cuh's body without
 // the bias stream, as fwd_dense_sm90_kernel<D, SEG, CAP>. D 256 takes every
-// head dim from 136 (its TMA boxes read zeros past D): since it, no bf16
-// call without a bias reaches fwd_tile.cuh. The causal / window band and
+// head dim from 136 (its TMA boxes read zeros past D). The causal / window band and
 // the tails are runtime ints, as in K7 (ring_fwd.cu), and segment ids and
 // the softcap the compile-time options: a runtime segment flag cost
-// fwd_tile's K1 without segments 50% (PERF.md §6), and the cap puts a tanhf
+// the mma.sync K1 without segments 50% (PERF.md §6), and the cap puts a tanhf
 // on every score. What it replaces, what bounds it and its design are in
 // fwd_sm90_tile.cuh; the route (ops/flash_fwd.py::dense_route) is decided in
 // Python, and the calls it refuses (a bias, int8 / fp8 K/V) go to other
-// kernels.
+// kernels. The library's fa_error_string is here too.
 
 #include "fwd_sm90_tile.cuh"
 
@@ -132,6 +131,11 @@ int fa_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
       : d <= 128 ? fwd_dense_dispatch<128>(tm_q, tm_k, tm_v, p, cap, batch, s)
                  : fwd_dense_dispatch<256>(tm_q, tm_k, tm_v, p, cap, batch, s);
   return static_cast<int>(e);
+}
+
+// The message of a cudaError_t that a C entry of this library returned.
+const char* fa_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

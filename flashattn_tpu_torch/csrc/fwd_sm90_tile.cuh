@@ -2,12 +2,15 @@
 // with two instantiation families -- K1's bias route, which streams the f32
 // bias tile through shared memory (flash_fwd_bias_sm90.cu), and K1's dense
 // route (flash_fwd_sm90.cu) -- both with the causal / window band, q / kv
-// offsets, segment ids and any tail.
+// offsets, segment ids and any tail; and, below them, the quantized route's
+// body (flash_fwd_quant_sm90.cu: int8 / e4m3 K/V widened in shared memory by
+// the producer warpgroup, the dense route's consumers and options; its design
+// is in that source and above fwd_quant_sm90_body).
 //
 // Replaces the TPU kernel flashattn_tpu/ops/flash_fwd.py::_fwd_kernel (K1,
 // :115) and, with causal or a window, the whole-sequence banded
 // _fwd_causal_resident_kernel (K2, :516) and fwd_macro_padded (:957).
-// Both families compute what fwd_tile.cuh computes for their calls: scores
+// The families compute K1's function (JAX's order of operations): scores
 // x = s * scale * log2 e (with the logit softcap, CAP: x = cap * log2 e *
 // tanh(s * scale / cap), the scale inside the tanh), + bias * log2 e floored
 // at the finite mask value, then the masks (JAX's order,
@@ -32,7 +35,7 @@
 //     offsets) and segment ids -- the bias added before them, as the JAX
 //     kernel adds it (flashattn_tpu/ops/flash_fwd.py:291-320).
 //   * The dense route (ops/flash_fwd.py::dense_route): bf16 Q/K/V without a
-//     bias or quantized K/V; the KV tail
+//     bias; the KV tail
 //     below kv_valid_len and a ragged Q tail; the band of flash_fwd.py::
 //     _range_predicates, also when Nq != Nk -- row i sees column j iff i -
 //     lo <= j <= i + hi, hi 0 with causal, else the window's right bound, lo
@@ -49,14 +52,14 @@
 // two products are 17.2 GFLOP, 0.017 ms at 989 TFLOP/s: operations. At path
 // A's shape with its bias (B4 H16 N2048 D128, bias [4, 1, N, N]) 137 GFLOP,
 // 0.139 ms; with a learned [4, 16, N, N] bias the kernel must read 1.07 GB
-// of it: 0.32 ms at 3.35 TB/s, bytes. fwd_tile ran them at ~100 and 56
-// TFLOP/s: mma.sync at 16 rows per warp, synchronous K / V loads between two
-// block barriers, and (with a bias) one dependent scalar bias load per
-// score. With the softcap at the SWA shape (B1 Hq16 Hkv8 N8192 D128, window
-// 2047, cap 50) the products are 0.12 ms of operations, and each score's
-// tanhf puts two more MUFU operations (an exponential and a reciprocal) and
-// ~15 FMA-pipe instructions beside the softmax's one ex2: fwd_tile took 0.84
-// ms there. This design:
+// of it: 0.32 ms at 3.35 TB/s, bytes. The mma.sync K1 that this body
+// replaced ran them at ~100 and 56 TFLOP/s: 16 rows per warp, synchronous
+// K / V loads between two block barriers, and (with a bias) one dependent
+// scalar bias load per score. With the softcap at the SWA shape (B1 Hq16
+// Hkv8 N8192 D128, window 2047, cap 50) the products are 0.12 ms of
+// operations, and each score's tanhf puts two more MUFU operations (an
+// exponential and a reciprocal) and ~15 FMA-pipe instructions beside the
+// softmax's one ex2: the mma.sync K1 took 0.84 ms there. This design:
 //
 //   * One CTA owns 128 Q rows of one (batch, head): warpgroup 0 is the
 //     producer (setmaxnreg gives its registers away), warpgroups 1 and 2 the
@@ -168,6 +171,14 @@ struct FwdBiasParams : FwdDenseParams {
   int64_t bias_sb, bias_sh, bias_sn;  // 0 on broadcast dims
 };
 
+// The quantized family's: the bias route's (bias null without one) and the
+// per-token f32 scales [B, Hkv, Nk] with their (batch, head, seq) strides.
+struct FwdQuantParams : FwdBiasParams {
+  const float* k_scale;
+  const float* v_scale;
+  int64_t ks_sb, ks_sh, ks_sn, vs_sb, vs_sh, vs_sn;
+};
+
 }  // namespace fa
 
 namespace {
@@ -238,34 +249,49 @@ __device__ __forceinline__ int bias_slot(int r, int c) {
 // % 4 and bits 3-4 = t), row g + 8's b_step bytes on (0 for a row-broadcast
 // bias); with SW128 (the D 256 slot's TMA boxes) at (b_addr ^ 32 (jj % 4)) +
 // box (jj / 4) (b_addr has bits 4-6 = (t / 2) ^ (row % 8) and bit 3 = t % 2:
-// chunk 2 (jj % 4) + t / 2 of the row, swizzled).
+// chunk 2 (jj % 4) + t / 2 of the row, swizzled). QUANT (int8 / fp8 K/V, the
+// quantized family, no CAP): the tile's 64 k scales times scale * log2 e at
+// shared address kv_scales and its 64 v scales 256 bytes on (kv_scales
+// already 8t bytes in: column 2t), where the TPU kernel applies them
+// (flashattn_tpu/ops/flash_fwd.py:304-309, 342-345): k_scale[col] on the f32
+// score (one multiply, the softmax scale with it), v_scale[col] on the
+// probability after the row sum and before P's bf16 rounding; with BIAS the
+// bias comes from b_regs (sc's layout), not shared memory.
 template <bool MASKED, bool SEG, bool CAP, bool ACCURATE = false, bool BIAS = false,
-          bool SW128 = false>
+          bool SW128 = false, bool QUANT = false>
 __device__ __forceinline__ void dense_softmax_tile(float (&sc)[32], int col0, int row0, int t,
                                                    int lo, int hi, int nkv, const int* ids,
                                                    const int (&q_seg)[2], float scale_log2,
                                                    float cap_scale, float cap_log2,
                                                    float (&m_i)[2], float (&l_i)[2],
                                                    float (&alpha)[2], uint32_t b_addr = 0,
-                                                   uint32_t b_step = 0, uint32_t b_box = 0) {
+                                                   uint32_t b_step = 0, uint32_t b_box = 0,
+                                                   uint32_t kv_scales = 0,
+                                                   const float* b_regs = nullptr) {
   float mx[2] = {m_i[0], m_i[1]};
 #pragma unroll
   for (int jj = 0; jj < FB_BLOCK_N / 8; ++jj) {
     int2 kv_seg = make_int2(0, 0);
     if (SEG && MASKED) kv_seg = *reinterpret_cast<const int2*>(ids + 8 * jj + 2 * t);
+    float2 ks = make_float2(1.f, 1.f);
+    if constexpr (QUANT) ks = lds_f2(kv_scales + 32 * jj);  // K1 quant k scale
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float2 bv = make_float2(0.f, 0.f);
-      if constexpr (BIAS) {
+      if constexpr (BIAS && QUANT) {
+        bv = make_float2(b_regs[4 * jj + 2 * r], b_regs[4 * jj + 2 * r + 1]);
+      } else if constexpr (BIAS) {
         const uint32_t a = SW128 ? (b_addr ^ (32 * (jj & 3))) + (jj >> 2) * b_box
                                  : b_addr ^ (32 * jj);
         bv = lds_f2(a + r * b_step);
       }
       const float bias2[2] = {bv.x, bv.y};  // K1 bias sm90 read
+      const float kscale[2] = {ks.x, ks.y};
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = 4 * jj + 2 * r + e;
-        float x = log2_score<CAP>(sc[i], scale_log2, cap_scale, cap_log2);
+        float x = QUANT ? sc[i] * kscale[e]
+                        : log2_score<CAP>(sc[i], scale_log2, cap_scale, cap_log2);
         if constexpr (BIAS) x = fmaxf(x + bias2[e] * LOG2E, MASK_VALUE);
         if (MASKED) {
           const int col = col0 + 8 * jj + 2 * t + e;
@@ -287,17 +313,56 @@ __device__ __forceinline__ void dense_softmax_tile(float (&sc)[32], int col0, in
     l_i[r] *= alpha[r];
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const float x = sc[i] - m_i[(i >> 1) & 1];
-    const float pe = ACCURATE ? exp2f(x) : ex2(x);
-    l_i[(i >> 1) & 1] += pe;
-    sc[i] = pe;
+  for (int jj = 0; jj < FB_BLOCK_N / 8; ++jj) {
+    float2 vs = make_float2(1.f, 1.f);
+    if constexpr (QUANT) vs = lds_f2(kv_scales + 4 * FB_BLOCK_N + 32 * jj);  // K1 quant v scale
+    const float vscale[2] = {vs.x, vs.y};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = 4 * jj + k;
+      const float x = sc[i] - m_i[k >> 1];
+      const float pe = ACCURATE ? exp2f(x) : ex2(x);
+      l_i[k >> 1] += pe;
+      sc[i] = QUANT ? pe * vscale[k & 1] : pe;  // K1 quant P v_scale
+    }
   }
 }
 
 // The id range of KV tile `tile` of batch row b (the dense route's SEG).
 __device__ __forceinline__ int2 kv_tile_range(const FwdDenseParams& p, int b, int tile) {
   return p.kv_range[b * p.kv_tiles + tile];
+}
+
+// The consumers' epilogue (every family): O = acc / l, LSE = m ln2 + log l
+// of rows row0 and row0 + 8; ragged rows and O's columns >= D (zeros the
+// boxes read) masked on store; a dead row stores O = 0 and LSE = ln2 * mask.
+template <int D>
+__device__ __forceinline__ void fwd_sm90_store(const FwdDenseParams& p, const float (&o)[D / 2],
+                                               const float (&m_i)[2], const float (&l_i)[2],
+                                               int b, int h, int row0, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_i[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const bool dead = m_i[r] <= MASK_VALUE * 0.5f;
+    const float l_safe = l == 0.f ? 1.f : l;
+    const float inv = dead ? 0.f : 1.f / l_safe;
+    const int row = row0 + 8 * r;
+    if (row < p.nq) {
+      __nv_bfloat16* o_row = p.o + b * p.o_sb + h * p.o_sh + static_cast<int64_t>(row) * p.o_sn;
+#pragma unroll
+      for (int jj = 0; jj < D / 8; ++jj) {
+        if (8 * jj + 2 * t >= p.d) continue;
+        *reinterpret_cast<uint32_t*>(o_row + 8 * jj + 2 * t) =
+            pack_bf16(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
+      }
+      if (t == 0) {
+        p.lse[(static_cast<int64_t>(b) * p.hq + h) * p.nq + row] =
+            dead ? LN2 * MASK_VALUE : m_i[r] * LN2 + logf(l_safe);
+      }
+    }
+  }
 }
 
 // The body of both families: BIAS, the bias route (Params FwdBiasParams);
@@ -587,31 +652,360 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
       ++it;
     }
 
-    // Epilogue: O = acc / l, LSE = m ln2 + log l; ragged rows and O's
-    // columns >= D (zeros the boxes read) masked on store.
+    fwd_sm90_store<D>(p, o, m_i, l_i, b, h, row0, t);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The quantized family (flash_fwd_quant_sm90.cu): int8 / e4m3 K/V.
+//
+// Shared-memory layout (bytes, from a 1024-byte-aligned base): Q; STAGES bf16
+// (K, V) stages as the dense route's, which the consumers read; SLOTS8 slots
+// of one 8-bit tile each (K or V: 64 keys x D bytes, unswizzled rows of D
+// bytes), which TMA fills; each bf16 stage's 64 k and 64 v scales and 64
+// segment ids; the mbarriers q_full, full[STAGES], empty[STAGES],
+// raw_full[SLOTS8], raw_empty[SLOTS8]. A slot holds half a tile, so that the
+// next tile's K lands while V is widened: at D 256 (Q 64 KB, two bf16 stages
+// of 64 KB) there is room for two slots of 16 KB and no more (232,008 B). At
+// D 128, 3 stages and 8 slots (4 tiles ahead) measured 0.7-2% faster than 4
+// and 6 (chip_variants.py k1quant).
+template <int D>
+struct FqSmem {
+  static constexpr int STAGES = D == 256 ? 2 : D == 128 ? 3 : 4;
+  static constexpr int SLOTS8 = D == 256 ? 2 : 8;
+  static constexpr int Q = FB_BLOCK_M * D * 2;
+  static constexpr int KV = FB_BLOCK_N * D * 2;  // a bf16 tile
+  static constexpr int KV8 = FB_BLOCK_N * D;     // an 8-bit tile
+  static constexpr int STAGE = 2 * KV;
+  static constexpr int OFF8 = Q + STAGES * STAGE;
+  static constexpr int SCALES = OFF8 + SLOTS8 * KV8;     // float[STAGES][2][64]
+  static constexpr int SEG = SCALES + STAGES * 2 * FB_BLOCK_N * 4;  // int[STAGES][64]
+  static constexpr int BARS = SEG + STAGES * FB_BLOCK_N * 4;
+  static constexpr int BYTES = 1024 + BARS + (1 + 2 * STAGES + 2 * SLOTS8) * 8;
+  static_assert(Q % 1024 == 0 && KV % 1024 == 0 && KV8 % 128 == 0, "TMA's alignments");
+  static_assert(BYTES <= 232448, "a block's shared memory on sm_90");
+};
+
+// Four int8 (w's bytes, signed) as four bf16, exactly: byte b ^ 0x80 (b + 128)
+// as the low byte of the f32 2^23 (0x4B000000) is 2^23 + 128 + b, from which
+// one f32 subtraction leaves b; b's 8 significant bits fit bf16's, so the
+// upper halves of two such f32 are two bf16 (one PRMT). No I2F: conversions
+// run at a quarter of the integer pipe's rate on sm_90. (In bf16x2
+// arithmetic -- 128 + (b & 127) minus 128 or 256, 8 operations for 4 values
+// where this takes 11 -- it measured 5% slower: chip_variants.py k1quant.)
+__device__ __forceinline__ uint2 widen4_int8(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float l = l_i[r];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const bool dead = m_i[r] <= MASK_VALUE * 0.5f;
-      const float l_safe = l == 0.f ? 1.f : l;
-      const float inv = dead ? 0.f : 1.f / l_safe;
-      const int row = row0 + 8 * r;
-      if (row < p.nq) {
-        __nv_bfloat16* o_row = p.o + b * p.o_sb + h * p.o_sh + static_cast<int64_t>(row) * p.o_sn;
+  for (int i = 0; i < 4; ++i) {
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) - 8388736.f;
+  }
+  return make_uint2(__byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632),
+                    __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632));
+}
+
+// Four e4m3 (w's bytes) as four bf16, exactly: pairs to f16x2 by the
+// hardware conversion (cvt.rn.f16x2.e4m3x2, exact: e4m3's subnormals are
+// normal in f16), each half to f32, the upper halves kept (4 significant
+// bits fit bf16). (Through integer operations and a bf16x2 multiply by
+// 2^120 it measured 8% slower: chip_variants.py k1quant.)
+__device__ __forceinline__ uint2 widen4_fp8(uint32_t w) {
+  uint32_t h[2];
+  asm("{\n.reg .b16 a, b;\nmov.b32 {a, b}, %2;\ncvt.rn.f16x2.e4m3x2 %0, a;\n"
+      "cvt.rn.f16x2.e4m3x2 %1, b;\n}\n"
+      : "=r"(h[0]), "=r"(h[1])
+      : "r"(w));
+  uint32_t y[2];
 #pragma unroll
-        for (int jj = 0; jj < D / 8; ++jj) {
-          if (8 * jj + 2 * t >= p.d) continue;
-          *reinterpret_cast<uint32_t*>(o_row + 8 * jj + 2 * t) =
-              pack_bf16(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
-        }
-        if (t == 0) {
-          p.lse[(static_cast<int64_t>(b) * p.hq + h) * p.nq + row] =
-              dead ? LN2 * MASK_VALUE : m_i[r] * LN2 + logf(l_safe);
-        }
+  for (int i = 0; i < 2; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h[i]));
+    y[i] = __byte_perm(__float_as_uint(f.x), __float_as_uint(f.y), 0x7632);
+  }
+  return make_uint2(y[0], y[1]);
+}
+
+template <int KV>
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  if constexpr (KV == KV_INT8) return widen4_int8(w);
+  return widen4_fp8(w);  // K1 quant e4m3
+}
+
+// One 8-bit K or V tile (64 keys x D bytes, row pitch D, as TMA wrote it)
+// widened, unscaled, to bf16 in D / 64 boxes of 64 keys x 128 bytes with the
+// 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)): the layout TMA
+// writes for the bf16 routes, which issue_qk's and issue_pv's descriptors
+// read. Producer thread tid takes 16-byte pieces (16 values, two chunks
+// out); in each 8-lane phase of a 16-byte access lanes 0-3 take row 2j and
+// lanes 4-7 row 2j + 1, of a 128-byte run of the row the halves in turn (at
+// D 64 the two rows, 64 bytes each, are the run), so the 8 loads and each of
+// the 2 x 8 stores fall on 32 distinct banks.
+template <int D, int KV>
+__device__ __forceinline__ void widen_tile(unsigned char* dst, const unsigned char* src, int tid) {
+  constexpr int RUNS = D == 64 ? 1 : D / 128;
+  constexpr int HALVES = D == 64 ? 1 : 2;
+  const int grp = tid >> 3, sub = (tid >> 2) & 1, q = tid & 3;
+#pragma unroll
+  for (int rp = 0; rp < 2; ++rp) {
+    const int row = 32 * rp + 2 * grp + sub;
+#pragma unroll 1  // D 256's two runs one after the other: the producer has 56 registers
+    for (int run = 0; run < RUNS; ++run) {
+#pragma unroll
+      for (int hf = 0; hf < HALVES; ++hf) {
+        const int piece = 8 * run + (D == 64 ? q : 4 * (sub ? 1 - hf : hf) + q);
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + row * D + 16 * piece);
+        const uint2 a = widen4<KV>(raw.x), b = widen4<KV>(raw.y);
+        const uint2 c = widen4<KV>(raw.z), d = widen4<KV>(raw.w);
+        unsigned char* box_row = dst + (piece >> 2) * (FB_BLOCK_N * SW128_ROW) + row * SW128_ROW;
+        const int chunk = 2 * (piece & 3);
+        *reinterpret_cast<uint4*>(box_row + ((chunk ^ (row & 7)) << 4)) =
+            make_uint4(a.x, a.y, b.x, b.y);
+        *reinterpret_cast<uint4*>(box_row + (((chunk + 1) ^ (row & 7)) << 4)) =
+            make_uint4(c.x, c.y, d.x, d.y);
       }
     }
+  }
+}
+
+// BIAS in the quantized family: this thread's 32 bias values of the tile at
+// column c0 in sc's layout (rows row0 and row0 + 8, columns c0 + 8jj + 2t
+// and + 1), read from L2 as K5 + K6's D 256 bias route reads them: rows at
+// or past Nq (row null) and columns at or past kv_valid_len read as 0.
+__device__ __forceinline__ void load_bias_regs(float (&bq)[32], const float* row_g,
+                                               const float* row_g8, int c0, int t, int nkv) {
+#pragma unroll
+  for (int jj = 0; jj < FB_BLOCK_N / 8; ++jj) {
+    const int col = c0 + 8 * jj + 2 * t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* row = r ? row_g8 : row_g;
+      float2 v = make_float2(0.f, 0.f);
+      if (row != nullptr && col + 1 < nkv) {
+        v = __ldg(reinterpret_cast<const float2*>(row + col));
+      } else if (row != nullptr && col < nkv) {
+        v.x = __ldg(row + col);
+      }
+      bq[4 * jj + 2 * r] = v.x;
+      bq[4 * jj + 2 * r + 1] = v.y;
+    }
+  }
+}
+
+// The quantized family's body: the dense route's band, offsets, segment ids
+// and tails (and with BIAS an f32 bias from L2) on int8 / e4m3 K/V (KV),
+// widened in shared memory. Producer warpgroup: thread 0 loads Q by TMA and
+// keeps the 8-bit slots filled (K then V of each visited tile, by TMA from
+// the 8-bit maps tm_k8 / tm_v8); all 128 threads widen each tile into a free
+// bf16 stage (widen_tile), release the slot, store the tile's scales (one
+// each, read before the widening: the k scales times scale * log2 e) and,
+// after fence.proxy.async, arrive on the stage's full barrier (129
+// arrivals: thread 0 first adds, with expect_tx, the bulk copy of the tile's
+// ids). The consumers are the dense route's, with the scales in the softmax
+// (dense_softmax_tile's QUANT).
+template <int D, int KV, bool BIAS, bool SEG>
+__device__ __forceinline__ void fwd_quant_sm90_body(const CUtensorMap& tm_q,
+                                                    const CUtensorMap& tm_k8,
+                                                    const CUtensorMap& tm_v8,
+                                                    const FwdQuantParams& p) {
+  static_assert(D == 64 || D == 128 || D == 256, "instantiated for D 64, 128 and 256");
+  static_assert(KV == KV_INT8 || KV == KV_FP8, "int8 or e4m3 K/V");
+  using S = FqSmem<D>;
+  // setmaxnreg's split, within the 3 x 168 registers a thread slot the launch
+  // gave (a larger sum leaves the consumers' inc waiting forever): the
+  // producer widens (a 16-byte piece in, two out) and walks the tile list; a
+  // consumer keeps o[D / 2], sc[32] and, with BIAS, bq[32].
+  constexpr int PRODUCER_REGS = D == 256 ? 56 : 72;
+  constexpr int CONSUMER_REGS = D == 256 ? 224 : 216;
+  static_assert(PRODUCER_REGS + 2 * CONSUMER_REGS <= 3 * 168, "the launch's registers");
+  constexpr int BOXES = D / 64;
+  constexpr uint32_t SCALE_BYTES = FB_BLOCK_N * 4;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S::STAGES;
+  uint64_t* raw_full = empty + S::STAGES;
+  uint64_t* raw_empty = raw_full + S::SLOTS8;
+
+  const int h = blockIdx.x;
+  const int m_tile = p.hi < NO_BOUND ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int m0 = m_tile * FB_BLOCK_M;
+  const int b = blockIdx.z;
+  const int nkv = p.kv_valid_len;
+  int n_begin = 0;
+  if (p.lo < NO_BOUND) n_begin = max(0, m0 - p.lo) / FB_BLOCK_N * FB_BLOCK_N;
+  const int n_end = p.hi < NO_BOUND ? min(nkv, m0 + FB_BLOCK_M + p.hi) : nkv;
+  const int n_tiles = n_end > n_begin ? (n_end - n_begin + FB_BLOCK_N - 1) / FB_BLOCK_N : 0;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int hk = h / p.rep;
+  auto stage = [&](int j) { return smem + S::Q + (j % S::STAGES) * S::STAGE; };
+  int2 q_rng = make_int2(0, 0);
+  if constexpr (SEG) q_rng = p.q_range[b * p.q_tiles + m_tile];
+  const int t_begin = n_begin / FB_BLOCK_N;
+  auto skipped = [&](int j) {
+    if constexpr (SEG) return !ranges_meet(q_rng, kv_tile_range(p, b, t_begin + j));
+    return false;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(&full[s], 128 + 1);  // each producer thread, and thread 0's expect_tx
+      mbar_init(&empty[s], 8);       // one arrival per consumer warp
+    }
+    for (int s = 0; s < S::SLOTS8; ++s) {
+      mbar_init(&raw_full[s], 1);
+      mbar_init(&raw_empty[s], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    // Thread 0's TMA cursor: 8-bit tile u is K (u even) or V of the
+    // (u / 2)-th visited tile, into slot u % SLOTS8 once every producer
+    // thread has widened the slot's previous tile.
+    int n_visit = 0;
+    for (int j = 0; j < n_tiles; ++j) n_visit += !skipped(j);
+    int jt = 0, n0_issue = 0;
+    auto issue = [&](int u) {
+      const int slot = u % S::SLOTS8;
+      mbar_wait(&raw_empty[slot], ((u / S::SLOTS8) & 1) ^ 1);  // round 0 passes at once
+      if ((u & 1) == 0) {
+        while (skipped(jt)) ++jt;
+        n0_issue = n_begin + jt * FB_BLOCK_N;
+        ++jt;
+      }
+      mbar_expect_tx(&raw_full[slot], S::KV8);
+      tma_load_4d(smem + S::OFF8 + slot * S::KV8, (u & 1) ? &tm_v8 : &tm_k8, &raw_full[slot], 0,
+                  n0_issue, hk, b);
+    };
+    if (tid == 0) {
+      mbar_expect_tx(q_full, S::Q);
+#pragma unroll
+      for (int x = 0; x < BOXES; ++x) {
+        tma_load_4d(smem + x * FB_BLOCK_M * FB_BOX_ROW, &tm_q, q_full, 64 * x, m0, h, b);
+      }
+      for (int u = 0; u < min(S::SLOTS8, 2 * n_visit); ++u) issue(u);
+    }
+    // This thread's scale of each tile, read through the scales' strides: k
+    // scale tid (times scale * log2 e) or v scale tid - 64, at float tid of
+    // the stage's scales; 0 past kv_valid_len (P = 0 there, and 0 * 0 stays 0).
+    const bool k_side = tid < FB_BLOCK_N;
+    const int scale_col = tid % FB_BLOCK_N;
+    const float* scale_src = k_side ? p.k_scale + b * p.ks_sb + hk * p.ks_sh
+                                    : p.v_scale + b * p.vs_sb + hk * p.vs_sh;
+    const int64_t scale_sn = k_side ? p.ks_sn : p.vs_sn;
+    const float scale_mul = k_side ? p.scale_log2 : 1.f;
+    int it = 0;  // tiles widened
+    for (int j = 0; j < n_tiles; ++j) {
+      if (skipped(j)) continue;
+      const int s = it % S::STAGES;
+      const int n0 = n_begin + j * FB_BLOCK_N;
+      unsigned char* st = stage(it);
+      const int col = n0 + scale_col;  // K1 quant scales column
+      const float scale = col < nkv ? __ldg(scale_src + col * scale_sn) : 0.f;
+      mbar_wait(&empty[s], ((it / S::STAGES) & 1) ^ 1);  // round 0 passes at once
+      if (tid == 0) {
+        mbar_expect_tx(&full[s], SEG ? FB_BLOCK_N * 4 : 0);
+        if constexpr (SEG) {
+          bulk_load(smem + S::SEG + s * FB_BLOCK_N * 4,
+                    p.seg_kv + static_cast<int64_t>(b) * p.kv_tiles * FB_BLOCK_N + n0,
+                    FB_BLOCK_N * 4, &full[s]);
+        }
+      }
+#pragma unroll 1
+      for (int x = 0; x < 2; ++x) {  // K, then V
+        const int u = 2 * it + x;
+        const int slot = u % S::SLOTS8;
+        mbar_wait(&raw_full[slot], (u / S::SLOTS8) & 1);
+        widen_tile<D, KV>(st + x * S::KV, smem + S::OFF8 + slot * S::KV8, tid);
+        mbar_arrive(&raw_empty[slot]);
+        if (tid == 0 && u + S::SLOTS8 < 2 * n_visit) issue(u + S::SLOTS8);
+      }
+      reinterpret_cast<float*>(smem + S::SCALES + s * 2 * SCALE_BYTES)[tid] = scale * scale_mul;
+      fence_proxy_async();  // the widened tile, to the consumers' wgmma
+      mbar_arrive(&full[s]);
+      ++it;
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int half = wg - 1;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int r_first = m0 + half * 64;
+    const int row0 = m0 + half * 64 + warp * 16 + g;
+    const unsigned char* q_s = smem + half * 64 * FB_BOX_ROW;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_i[2] = {-INFINITY, -INFINITY};
+    float l_i[2] = {0.f, 0.f};
+    float sc[32], alpha[2], bq[32];
+    uint32_t pa[4][4];
+    int q_seg[2] = {0, 0};
+    if constexpr (SEG) {
+      const int* q_ids = p.seg_q + b * p.seg_q_sb;
+      q_seg[0] = row0 < p.nq ? q_ids[row0] : 0;
+      q_seg[1] = row0 + 8 < p.nq ? q_ids[row0 + 8] : 0;
+    }
+    const bool q_one_doc = q_rng.x == q_rng.y;
+    const float* bias_g = nullptr;
+    const float* bias_g8 = nullptr;
+    if constexpr (BIAS) {
+      const float* bias_bh = p.bias + b * p.bias_sb + h * p.bias_sh;
+      bias_g = row0 < p.nq ? bias_bh + static_cast<int64_t>(row0) * p.bias_sn : nullptr;
+      bias_g8 = row0 + 8 < p.nq ? bias_bh + static_cast<int64_t>(row0 + 8) * p.bias_sn : nullptr;
+    }
+    mbar_wait(q_full, 0);
+    int it = 0;
+    for (int j = 0; j < n_tiles; ++j) {
+      int2 k_rng = make_int2(0, 0);
+      if constexpr (SEG) {
+        k_rng = kv_tile_range(p, b, t_begin + j);
+        if (!ranges_meet(q_rng, k_rng)) continue;
+      }
+      const int s = it % S::STAGES;
+      const int c0 = n_begin + j * FB_BLOCK_N;
+      mbar_wait(&full[s], (it / S::STAGES) & 1);
+      if (c0 <= r_first + 63 + p.hi && c0 + FB_BLOCK_N - 1 >= r_first - p.lo) {
+        issue_qk<D, FB_BLOCK_M, FB_BLOCK_N>(sc, q_s, stage(it));
+        if constexpr (BIAS) load_bias_regs(bq, bias_g, bias_g8, c0, t, nkv);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        const bool edge = c0 + FB_BLOCK_N > nkv || c0 + FB_BLOCK_N - 1 - r_first > p.hi ||
+                          r_first + 63 - c0 > p.lo ||
+                          (SEG && !(q_one_doc && k_rng.x == k_rng.y && k_rng.x == q_rng.x));
+        const int* ids = reinterpret_cast<const int*>(smem + S::SEG + s * FB_BLOCK_N * 4);
+        const uint32_t kv_scales = smem_u32(smem + S::SCALES + s * 2 * SCALE_BYTES) + 8 * t;
+        if (edge) {
+          dense_softmax_tile<true, SEG, false, false, BIAS, false, true>(
+              sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, 0.f, 0.f, m_i, l_i,
+              alpha, 0, 0, 0, kv_scales, bq);
+        } else {
+          dense_softmax_tile<false, SEG, false, false, BIAS, false, true>(
+              sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, 0.f, 0.f, m_i, l_i,
+              alpha, 0, 0, 0, kv_scales, bq);
+        }
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        pack_p(pa, sc);
+        issue_pv<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);
+        wgmma_wait<0>();
+        fence_regs(o);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      ++it;
+    }
+    fwd_sm90_store<D>(p, o, m_i, l_i, b, h, row0, t);
   }
 }
 

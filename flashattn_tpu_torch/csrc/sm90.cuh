@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels (K9 in
-// gemm.cu, K1's bias and dense routes in fwd_sm90_tile.cuh, the ring kernels
+// gemm.cu, K1's bias, dense and quantized routes in fwd_sm90_tile.cuh, the ring kernels
 // K7 / K8 in ring_fwd.cu / ring_bwd.cu, K3 and K5 + K6's bias route in
 // bwd_sm90_tile.cuh, K3 and the split route at D 256 in bwd_sm90_wide.cuh,
 // the f32 routes in flash_fwd_f32.cu / flash_bwd_f32.cu):
@@ -545,6 +545,26 @@ inline bool make_bhnd_map(CUtensorMap* map, const void* ptr, int batch, int head
   const cuuint64_t strides[3] = {bytes(sn, n), bytes(sh, heads), bytes(sb, batch)};
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
   return make_map_bf16(map, ptr, 4, dims, strides, box);
+}
+
+// A TMA map over an 8-bit [B, H, N, D] tensor (int8 or e4m3 K / V, read as
+// bytes; K1's quantized route, fwd_sm90_tile.cuh) addressed by (batch, head,
+// seq) strides in elements (bytes) with a unit D stride: dims (D, N, H, B),
+// boxes of `cols` columns (the instantiation's D, at most 256) x `rows` rows,
+// unswizzled; columns past D and rows past N read zeros. A dim of extent 1
+// takes a 16-byte stride.
+inline bool make_bhnd_map_u8(CUtensorMap* map, const void* ptr, int batch, int heads, int n,
+                             int d, int64_t sb, int64_t sh, int64_t sn, int cols, int rows) {
+  auto bytes = [](int64_t s, int extent) { return static_cast<cuuint64_t>(extent == 1 ? 16 : s); };
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {bytes(sn, n), bytes(sh, heads), bytes(sb, batch)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // f32 columns per box of a bias map: the 128-byte swizzle's span.

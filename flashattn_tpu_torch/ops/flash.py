@@ -12,9 +12,8 @@ K5 then K6, whose K6 also gives dbias, for a bias that route refuses. The GQA de
 ported: a tiny-Nq non-causal GQA call without a window folds each KV head's
 query heads into the Q rows, so the cache is read once. The arguments keep
 the JAX signature; those the port's kernels do not take yet raise
-``NotImplementedError`` naming their ROADMAP item: on every device q / kv
-offsets that change the result (a causal mask or a window, ``q_offset !=
-kv_offset``) with quantized K/V; on the card f32 above head dim 128.
+``NotImplementedError`` naming their ROADMAP item: on the card f32 above
+head dim 128.
 ``compute_dtype`` picks the
 kernels' dtype as in the JAX package (bf16 or f32; f32 inputs run the f32
 kernels on the card, with a bias too, up to head dim 128), and a head dim
@@ -342,8 +341,7 @@ def flash_attention(
         tail and the segment ids stay local). Host ints, or 0-d integer
         tensors read once with ``.item()``. Offsets that change the result
         (a causal mask or a window, ``q_offset != kv_offset``) run on the
-        Hopper kernels, with or without a bias; on quantized K/V they raise
-        ``NotImplementedError`` (ROADMAP queue 2, item 2).
+        Hopper kernels, with or without a bias.
         ``q_offset == kv_offset`` is the call without offsets, bit for bit.
       window: sliding window ``(left, right)``: position pair (i, j) may
         attend iff ``i - left <= j <= i + right`` (absolute positions); -1

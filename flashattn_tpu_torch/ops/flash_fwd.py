@@ -17,10 +17,11 @@ q / kv offsets or neither, any tail, at every head dim up to 256 (D 136-256
 on the D 256 forms): those with a bias (:func:`bias_route`) to its bias
 route, which brings the f32 bias tile through shared memory
 (``csrc/flash_fwd_bias_sm90.cu``), and those without (:func:`dense_route`)
-to its dense route (``csrc/flash_fwd_sm90.cu``). Both compute K1's function,
-so their plain version is :func:`fwd_reference`; the ``mma.sync`` body
-``csrc/fwd_tile.cuh`` (``csrc/flash_fwd_int8.cu``, ``csrc/flash_fwd_fp8.cu``)
-keeps the calls they refuse: int8 / fp8 K/V that are not decode-shaped.
+to its dense route (``csrc/flash_fwd_sm90.cu``). The calls on int8 / fp8 K/V
+that the decode route leaves (:func:`quant_route`) go to the same body's
+quantized route (``csrc/flash_fwd_quant_sm90.cu``), which widens the 8-bit
+tiles in shared memory and takes the dense route's options and a bias. All
+compute K1's function, so their plain version is :func:`fwd_reference`.
 Every call on an f32 q
 (:func:`f32_route`) goes to an f32 kernel of its own
 (``csrc/flash_fwd_f32.cu``: the dense route's TMA + wgmma scheme and
@@ -35,9 +36,10 @@ Strides: the kernel takes (batch, head, seq) strides, so the ``[B, N, H, D]``
 projections of the models and their KV caches arrive as transposed views
 without a copy; the output is allocated with the query's strides. Only a
 tensor whose head-dim stride is not 1, or whose strides or address break the
-kernel's 8-element loads, is made contiguous first. The bias is read with
-stride 0 on its broadcast dims and the scales through their own strides, so
-neither is ever expanded.
+kernel's loads (16 bytes; a TMA map's), is copied first (8-bit K / V rows of
+D % 16 == 8 bytes padded to 16). The bias is read with stride 0 on its
+broadcast dims and the scales through their own strides, so neither is ever
+expanded.
 """
 
 from __future__ import annotations
@@ -57,12 +59,11 @@ from flashattn_tpu_torch.ops.oracle import (
 from flashattn_tpu_torch.utils import native
 
 MAX_HEAD_DIM = 256
-# K/V element types of the kernel: the kv_dtype code of the C entry fa_fwd.
+# K/V element types of the kernels: the kv_dtype code of the C entries
+# fa_fwd_quant_sm90 and fa_decode.
 KV_DTYPE_CODE = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
 QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 _LOG2E = 1.0 / math.log(2.0)
-_ROADMAP_K1 = "ROADMAP queue 2, K1 options"
-_ROADMAP_OFFSETS = "ROADMAP queue 2, item 2: q / kv offsets on the other routes"
 # The decode route (csrc/decode_tile.cuh): at most this many query rows per KV
 # head (the JAX fold bound, flashattn_tpu/ops/flash.py:1052-1077), the head
 # dims it is instantiated for, the keys of one KV tile (a split holds whole
@@ -212,7 +213,7 @@ def _masked_reference(q, k, v, *, scale, keep, bias=None, softcap=None):
     """The exact f32 ``(O, LSE)`` over the pairs of ``keep``, with the scores
     capped by ``softcap`` and then ``bias`` added before the mask, dead rows
     as the kernel stores them. A row is dead when it keeps no pair or, as in
-    the kernel (csrc/fwd_tile.cuh), when its largest score is at or below
+    the kernels (csrc/fwd_sm90_tile.cuh), when its largest score is at or below
     half the mask value in the log2 domain: a padding mask turned additive
     (``DEFAULT_MASK_VALUE`` on every key of the row) leaves nothing to
     attend."""
@@ -294,16 +295,26 @@ def _check_quant(k, v, k_scale, v_scale, B: int, Hkv: int, Nk: int):
 def _kernel_ready(x: torch.Tensor, align: int | None = None, *, tma: bool = False) -> torch.Tensor:
     """``x`` itself if the kernel can address it -- unit head-dim stride, an
     address and other strides aligned to ``align`` bytes (default 8
-    elements: 16 bytes for bf16, 8 for int8 / fp8, the width of one of the
-    dense K1's loads; the decode kernel's 16-byte copies ask for 16) and,
-    for a TMA map's operand (``tma``), no zero stride on a dim of extent > 1
-    (an expanded view) -- else a contiguous copy."""
+    elements: 16 bytes for bf16; the decode kernel's 16-byte copies ask for
+    16, as a TMA map does) and, for a TMA map's operand (``tma``), no zero
+    stride on a dim of extent > 1 (an expanded view) -- else a copy, its rows
+    padded to ``align`` bytes where D's are not a multiple of it (an 8-bit
+    row of D % 16 == 8 for a TMA map; the padding is never read: the map's
+    column extent is D)."""
     esize = x.element_size()
     align = 8 * esize if align is None else align
     ok = (x.stride(-1) == 1 and x.data_ptr() % align == 0
           and all(s * esize % align == 0 and (s or not tma)
                   for s, n in zip(x.stride()[:3], x.shape[:3]) if n > 1))
-    return x if ok else x.contiguous()
+    if ok:
+        return x
+    D = x.shape[-1]
+    pad = -(D * esize) % align // esize
+    if not pad:
+        return x.contiguous()
+    padded = x.new_empty((*x.shape[:-1], D + pad))
+    padded[..., :D] = x
+    return padded[..., :D]
 
 
 def decode_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int) -> bool:
@@ -326,9 +337,8 @@ def bias_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int, b
     to ``MAX_HEAD_DIM`` (a multiple of 8, as every CUDA K1 call's; D 136-256
     on its D 256 form) -- causal or not, with or without a window, segment
     ids, q / kv offsets or a softcap. The other calls with a bias on bf16 K/V
-    are the decode route's; on int8 / fp8 K/V they go to the
-    ``csrc/fwd_tile.cuh`` kernel, which takes no window, segment ids or
-    offsets (``_check_kernel_args`` refuses those)."""
+    are the decode route's; on int8 / fp8 K/V they go to the quantized route
+    (:func:`quant_route`), which takes a bias with every option too."""
     return (bias is not None and kv_dtype == torch.bfloat16
             and head_dim <= MAX_HEAD_DIM
             and not decode_route(rows=rows, causal=causal, segment_ids=segment_ids,
@@ -343,8 +353,20 @@ def dense_route(*, head_dim: int, bias, kv_dtype) -> bool:
     on its D 256 form) -- causal or not, with or without a window, segment
     ids, q / kv offsets or a softcap, at any Nq (a decode-shaped call at D 256
     too) and kv_valid_len. The calls it refuses with bf16 K/V are the bias
-    route's; those on int8 / fp8 K/V go to the ``csrc/fwd_tile.cuh`` kernel."""
+    route's; those on int8 / fp8 K/V the quantized route's."""
     return bias is None and kv_dtype == torch.bfloat16 and head_dim <= MAX_HEAD_DIM
+
+
+def quant_route(*, head_dim: int, kv_dtype) -> bool:
+    """Whether a CUDA K1 call that the decode route left (:func:`fwd` checks
+    it first) goes to the Hopper quantized kernel
+    (``csrc/flash_fwd_quant_sm90.cu``): int8 / float8_e4m3fn K/V at every
+    head dim up to ``MAX_HEAD_DIM`` (a multiple of 8, as every CUDA K1
+    call's) -- causal or not, with or without a window, segment ids, q / kv
+    offsets or a bias, at any Nq and kv_valid_len (a decode-shaped call at a
+    head dim the decode kernel lacks too). No softcap: quantized K/V with
+    one raise in :func:`fwd`, as in the JAX package."""
+    return kv_dtype in QUANT_DTYPES and head_dim <= MAX_HEAD_DIM
 
 
 def f32_route(*, dtype) -> bool:
@@ -633,6 +655,52 @@ def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, so
     return o, lse
 
 
+def _launch_quant_sm90(lib, q, k, v, o, lse, k_scale, v_scale, bias, bias_strides, seg, *,
+                       scale, kv_valid_len, causal, window, stream, q_offset: int = 0,
+                       kv_offset: int = 0) -> int:
+    """Call ``lib.fa_fwd_quant_sm90`` with the arguments of one launch (the C
+    entry's order, ``native.FWD_QUANT_SM90_ARGTYPES``), ``k_scale`` /
+    ``v_scale`` being f32 ``[B, Hkv, Nk]`` views (any strides), ``bias``
+    :func:`sm90_bias`' tensor or None and ``seg`` :func:`sm90_segments`'
+    tensors or None; returns its cudaError_t."""
+    B, Hq, Nq, D = q.shape
+    seg_ptrs = (None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg)
+    return lib.fa_fwd_quant_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), None if bias is None else bias.data_ptr(),
+        *seg_ptrs, KV_DTYPE_CODE[k.dtype], B, Hq, k.shape[1], Nq, D, kv_valid_len,
+        int(bool(causal)), *kernel_window(window), q_offset, kv_offset, float(scale),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], *bias_strides,
+        *k_scale.stride(), *v_scale.stride(), 0 if seg is None else seg[0].stride(0), stream)
+
+
+def _quant_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, bias, k_scale,
+                v_scale, q_offset, kv_offset):
+    """Launch the Hopper quantized kernel and count the launch: K / V as
+    their TMA maps read them (:func:`_kernel_ready` with 16-byte rows), the
+    scales in f32 as they are (BNHD's transposed views too), a bias as
+    :func:`sm90_bias` gives it."""
+    B, Hq, Nq, D = q.shape
+    q = _kernel_ready(q, tma=True)
+    k, v = (_kernel_ready(x, 16, tma=True) for x in (k, v))
+    o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides
+    lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:  # an empty grid is not a valid launch
+        return o, lse
+    bias, bias_strides = (None, (0, 0, 0)) if bias is None else sm90_bias(bias)
+    seg = sm90_segments(segment_ids, Nq, kv_valid_len)
+    with torch.cuda.device(q.device):
+        rc = _launch_quant_sm90(native.kernels(), q, k, v, o, lse, k_scale.float(),
+                                v_scale.float(), bias, bias_strides, seg, scale=scale,
+                                kv_valid_len=kv_valid_len, causal=causal, window=window,
+                                stream=torch.cuda.current_stream(q.device).cuda_stream,
+                                q_offset=q_offset, kv_offset=kv_offset)
+    native.check(rc, "flash_fwd_quant_sm90 kernel launch")
+    _count_variants(k.dtype, bias, kernel_window(window) != (-1, -1), None)
+    fwd.launches_quant_sm90 += 1
+    return o, lse
+
+
 def _dense_f32(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, softcap,
                q_offset, kv_offset, bias=None):
     """Launch the f32 kernel's C entry -- the split of q, k and v into their
@@ -662,28 +730,16 @@ def _dense_f32(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, sof
     return o, lse
 
 
-def offsets_refusal(*, quantized: bool) -> str | None:
-    """Why a K1 call with offsets that change its result (:func:`band_offsets`)
-    has no kernel yet -- on quantized K/V -- naming its ROADMAP item, or None
-    where the Hopper routes take it (K1's dense and bias routes at every head
-    dim up to 256). The decode route takes no band, so offsets never change
-    its calls."""
-    if not quantized:
-        return None
-    return f"q / kv offsets are not ported to quantized K/V yet ({_ROADMAP_OFFSETS})"
-
-
 def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool,
                        offsets: bool = False) -> None:
     """Raise for what no CUDA K1 kernel takes: another device, a q that is
     neither bf16 nor f32, an f32 q with quantized K/V or D above
     ``DENSE_MAX_HEAD_DIM`` (the f32 route's refusals, with or without a
     bias: it takes a bias up to D 128), D not a multiple of 8
-    or above ``MAX_HEAD_DIM``, segment ids or a window with quantized K/V
-    (``csrc/fwd_tile.cuh`` takes neither; ``offsets`` there are
-    :func:`offsets_refusal`'s), a grid past the CUDA limits. A ``bias``
-    with ``offsets`` (that change the result), segment ids or a window
-    passes at every head dim: K1's bias route takes them all."""
+    or above ``MAX_HEAD_DIM``, a grid past the CUDA limits. Segment ids, a
+    window, ``offsets`` (that change the result) and a ``bias`` pass in every
+    combination at every head dim, on bf16 and on quantized K/V: K1's bias,
+    dense and quantized routes take them all."""
     B, Hq, _, D = q.shape
     if q.device.type != "cuda":
         raise NotImplementedError(f"no K1 kernel for device {q.device}")
@@ -703,12 +759,6 @@ def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool,
         raise NotImplementedError(
             f"the CUDA K1 takes head dims that are multiples of 8 up to "
             f"{MAX_HEAD_DIM}, got D={D} (ROADMAP queue 2 K1 item)")
-    if segment_ids is not None and k_scale is not None:
-        raise NotImplementedError(
-            f"the CUDA K1 takes segment ids without quantized K/V ({_ROADMAP_K1})")
-    if windowed and k_scale is not None:
-        raise NotImplementedError(
-            f"the CUDA K1 takes a window without quantized K/V ({_ROADMAP_K1})")
     if B > 65535 or Hq > 65535:
         raise ValueError(f"B={B} and Hq={Hq} must each be at most 65535 (CUDA grid limit)")
 
@@ -722,9 +772,7 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     ``q_pos - left <= kv_pos <= q_pos + right`` (a negative bound is none;
     with ``causal`` the right bound is 0), in absolute positions ``q_pos =
     q_offset + i`` and ``kv_pos = kv_offset + j`` (host ints or 0-d tensors; 0
-    and 0: the top-left alignment, also when Nq != Nk; offsets that change
-    the result raise on every device on quantized K/V,
-    :func:`offsets_refusal`);
+    and 0: the top-left alignment, also when Nq != Nk);
     ``segment_ids = (seg_q [B, Nq], seg_kv [B, Nk])`` (integers) lets a pair
     attend only when its ids are equal; ``softcap`` (a positive float) caps
     the scaled scores at ``softcap · tanh(s / softcap)``; ``bias``
@@ -733,21 +781,23 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     ``[B, Hkv, Nk]`` and are dequantized in the kernel (not with a softcap).
     CPU tensors take :func:`fwd_reference`. CUDA tensors launch the kernel,
     which takes a bf16 ``q`` (and bf16, int8 or fp8 K/V) with ``D % 8 == 0``
-    and ``D <= 256``, and segment ids, a window or offsets only without
-    quantized K/V, or an f32 q, k and v with or without a bias (and every
-    option above) at ``D <= 128``; anything else raises. An f32 call
+    and ``D <= 256`` with every option above, or an f32 q, k and v with or
+    without a bias (and every option but quantized K/V) at ``D <= 128``;
+    anything else raises. An f32 call
     (:func:`f32_route`) launches the f32 kernel (with a bias, its BIAS
     family); a bf16 CUDA call that :func:`decode_route` accepts launches the
     split-KV decode kernel (and its merge), one that :func:`bias_route`
     accepts (every other bf16 call with a bias) the Hopper bias kernel, one
     that :func:`dense_route` accepts (every bf16 call without a bias) the
-    Hopper dense kernel, every other (quantized K/V) the ``fwd_tile.cuh``
-    kernel. ``fwd.launches`` counts every K1 launch, on any kernel;
+    Hopper dense kernel, one that :func:`quant_route` accepts (every other
+    call on int8 / fp8 K/V) the Hopper quantized kernel. ``fwd.launches``
+    counts every K1 launch, on any kernel;
     ``fwd.launches_bias`` those of bf16 or f32 K/V with a bias (on any
     kernel), ``fwd.launches_bias_sm90`` those of the bias kernel
     (``fwd.launches_bias_d256`` those of its D 256 form, D 136-256),
     ``fwd.launches_dense_sm90`` those of the Hopper dense kernel
     (``fwd.launches_dense_d256`` those of its D 256 form, D 136-256),
+    ``fwd.launches_quant_sm90`` those of the Hopper quantized kernel,
     ``fwd.launches_f32`` those of the f32 kernel (``fwd.launches_f32_bias``
     those with a bias, also counted in ``fwd.launches_bias``), ``fwd.launches_split``
     those of the split of its operands (``f32_split``, one before each),
@@ -780,9 +830,6 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
         raise ValueError("logit_softcap is not supported with quantized K/V (the JAX "
                          "flash_attention_quantized has no softcap path)")
     q_offset, kv_offset = band_offsets(causal, window, q_offset, kv_offset)
-    refusal = q_offset != kv_offset and offsets_refusal(quantized=k_scale is not None)
-    if refusal:
-        raise NotImplementedError(f"K1: {refusal}")
 
     if q.device.type == "cpu":
         return fwd_reference(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
@@ -812,28 +859,11 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
                            window=window, segment_ids=segment_ids, softcap=softcap,
                            q_offset=q_offset, kv_offset=kv_offset)
 
-    # Quantized K/V: csrc/fwd_tile.cuh (the routes above take every bf16 call).
-    q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
-    o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides
-    lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
-    if o.numel() == 0:  # an empty grid is not a valid launch
-        return o, lse
-    bias, bias_strides = kernel_bias(bias)
-    scales = (None, None) if k_scale is None else (k_scale.float(), v_scale.float())
-    scale_strides = [x for s in scales for x in (s.stride() if s is not None else (0, 0, 0))]
-    ptrs = [None if x is None else x.data_ptr() for x in (bias, *scales)]
-    with torch.cuda.device(q.device):
-        rc = native.kernels().fa_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            *ptrs, KV_DTYPE_CODE[k.dtype], B, Hq, Hkv, Nq, D, kv_valid_len,
-            int(bool(causal)), float(scale), softcap or 0.0,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *o.stride()[:3], *bias_strides, *scale_strides,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    native.check(rc, "flash_fwd kernel launch")
-    _count_variants(k.dtype, bias, windowed, softcap)
-    return o, lse
+    if quant_route(head_dim=D, kv_dtype=k.dtype):
+        return _quant_sm90(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
+                           window=window, segment_ids=segment_ids, bias=bias, k_scale=k_scale,
+                           v_scale=v_scale, q_offset=q_offset, kv_offset=kv_offset)
+    raise NotImplementedError(f"no K1 kernel takes {k.dtype} K/V at D={D}")
 
 
 def _count_variants(kv_dtype, bias, windowed: bool, softcap) -> None:
@@ -857,6 +887,7 @@ fwd.launches_bias_sm90 = 0
 fwd.launches_bias_d256 = 0
 fwd.launches_dense_sm90 = 0
 fwd.launches_dense_d256 = 0
+fwd.launches_quant_sm90 = 0
 fwd.launches_f32 = 0
 fwd.launches_f32_bias = 0
 fwd.launches_split = 0

@@ -28,20 +28,6 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 _PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# The C entry of K1 on fwd_tile.cuh (csrc/flash_fwd.cu).
-FWD_ARGTYPES = [
-    _PTR, _PTR, _PTR, _PTR, _PTR,        # q, k, v, o, lse
-    _PTR, _PTR, _PTR,                    # bias, k_scale, v_scale (f32, or None)
-    _I32,                                # K/V dtype code (ops/flash_fwd.KV_DTYPE_CODE)
-    _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, Nq, D, kv_valid_len
-    _I32,                                # causal
-    ctypes.c_float, ctypes.c_float,      # scale, softcap (0: none)
-    _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
-    _I64, _I64, _I64, _I64, _I64, _I64,  # v, o (batch, head, seq) strides
-    _I64, _I64, _I64,                    # bias (batch, head, row) strides
-    _I64, _I64, _I64, _I64, _I64, _I64,  # k_scale, v_scale (batch, head, seq) strides
-    _PTR,                                # cudaStream_t
-]
 # The C entry of K1's bias route (csrc/flash_fwd_bias_sm90.cu): the dense
 # route's arguments with the bias and its strides.
 FWD_BIAS_SM90_ARGTYPES = [
@@ -68,6 +54,25 @@ FWD_SM90_ARGTYPES = [
     ctypes.c_float, ctypes.c_float,      # scale, softcap (0: none)
     _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
     _I64, _I64, _I64, _I64, _I64, _I64,  # v, o (batch, head, seq) strides
+    _I64,                                # seg_q batch stride
+    _PTR,                                # cudaStream_t
+]
+
+# The C entry of K1's quantized route (csrc/flash_fwd_quant_sm90.cu): the
+# dense route's arguments with the scales, the bias and the K/V dtype code.
+FWD_QUANT_SM90_ARGTYPES = [
+    _PTR, _PTR, _PTR, _PTR, _PTR,        # q, k, v (int8 / fp8), o, lse
+    _PTR, _PTR, _PTR,                    # k_scale, v_scale (f32), bias (f32, or None)
+    _PTR, _PTR, _PTR, _PTR,              # seg_q, seg_kv (padded), q_range, kv_range (or None)
+    _I32,                                # K/V dtype code (ops/flash_fwd.KV_DTYPE_CODE)
+    _I32, _I32, _I32, _I32, _I32,        # B, Hq, Hkv, Nq, D
+    _I32, _I32, _I32, _I32,              # kv_valid_len, causal, window left, right (-1: none)
+    _I32, _I32,                          # q_offset, kv_offset (absolute positions)
+    ctypes.c_float,                      # scale
+    _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
+    _I64, _I64, _I64, _I64, _I64, _I64,  # v, o (batch, head, seq) strides
+    _I64, _I64, _I64,                    # bias (batch, head, row) strides
+    _I64, _I64, _I64, _I64, _I64, _I64,  # k_scale, v_scale (batch, head, seq) strides
     _I64,                                # seg_q batch stride
     _PTR,                                # cudaStream_t
 ]
@@ -225,8 +230,8 @@ def kernels() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(str(build()[0]))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.fa_fwd.restype = i32
-    lib.fa_fwd.argtypes = FWD_ARGTYPES
+    lib.fa_fwd_quant_sm90.restype = i32
+    lib.fa_fwd_quant_sm90.argtypes = FWD_QUANT_SM90_ARGTYPES
     lib.fa_fwd_bias_sm90.restype = i32
     lib.fa_fwd_bias_sm90.argtypes = FWD_BIAS_SM90_ARGTYPES
     lib.fa_fwd_sm90.restype = i32

@@ -231,7 +231,7 @@ def card(monkeypatch):
              "fa_bwd_bias_sm90": native.BWD_BIAS_SM90_ARGTYPES,
              "fa_bwd_split_sm90": native.BWD_SPLIT_SM90_ARGTYPES}
     lib = types.SimpleNamespace(**{n: _recorder(n, a, calls) for n, a in typed.items()})
-    for name in ("fa_fwd", "fa_decode"):
+    for name in ("fa_fwd_quant_sm90", "fa_decode"):
         setattr(lib, name, lambda *args, name=name: calls.append((name, args)) or 0)
     real_segments = flash_fwd.sm90_segments
 
@@ -374,16 +374,15 @@ def _cuda_q(D, dtype=torch.bfloat16):
                                  device=types.SimpleNamespace(type="cuda"))
 
 
-# The refusals left on the card, each naming its ROADMAP item: quantized K/V
-# with segment ids or a window, and f32 with a bias above D 128 (f32 takes a
-# bias up to D 128:
-# test_f32_bias_with_everything_passes_the_card_checks_up_to_d128). A bf16
-# bias above D 128 with segment ids, a window or offsets, refused until the
-# bias route took D 256, now passes (WIDE_PASSES).
-REFUSED = {"int8 + ids": (128, torch.bfloat16, dict(segment_ids=True, k_scale=True),
-                          "K1 options"),
-           "int8 + window": (128, torch.bfloat16, dict(windowed=True, k_scale=True),
-                             "K1 options"),
+# The card's checks: the refusal left, naming its ROADMAP item -- f32 with a
+# bias above D 128 (f32 takes a bias up to D 128:
+# test_f32_bias_with_everything_passes_the_card_checks_up_to_d128) -- and,
+# item None, quantized K/V with segment ids or a window, refused ("K1
+# options") until K1's quantized route took them: they pass, and that route
+# takes them. A bf16 bias above D 128 with segment ids, a window or offsets,
+# refused until the bias route took D 256, now passes (WIDE_PASSES).
+REFUSED = {"int8 + ids": (128, torch.bfloat16, dict(segment_ids=True, k_scale=True), None),
+           "int8 + window": (128, torch.bfloat16, dict(windowed=True, k_scale=True), None),
            "f32 + bias": (136, torch.float32, dict(bias=True), "f32 rows item 5")}
 WIDE_PASSES = {"D 160 bias + ids": (160, dict(bias=True, segment_ids=True)),
                "D 160 bias + window": (160, dict(bias=True, windowed=True)),
@@ -400,6 +399,10 @@ def _card_kw(opts):
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_refusals_left_on_the_card(case):
     D, dtype, opts, item = REFUSED[case]
+    if item is None:
+        flash_fwd._check_kernel_args(_cuda_q(D, dtype), **_card_kw(opts))
+        assert flash_fwd.quant_route(head_dim=D, kv_dtype=torch.int8)
+        return
     with pytest.raises(NotImplementedError, match=item):
         flash_fwd._check_kernel_args(_cuda_q(D, dtype), **_card_kw(opts))
 

@@ -54,8 +54,8 @@ DENSE_TAKES = {"LM D 128": {}, "U-Net D 40": dict(head_dim=40), "D 64": dict(hea
                "D 80": dict(head_dim=80), "D 96": dict(head_dim=96), "D 8": dict(head_dim=8),
                "D 160": dict(head_dim=160), "D 136": dict(head_dim=136),
                "D 192": dict(head_dim=192), "D 256": dict(head_dim=256)}
-# Those it refuses, which go to fwd_tile.cuh (a bias above D 128, int8 / fp8
-# K/V) or take the bias route (a bias).
+# Those it refuses, which take the quantized route (int8 / fp8 K/V) or the
+# bias route (a bias).
 DENSE_REFUSES = {"int8 K/V": dict(kv_dtype=torch.int8),
                  "fp8 K/V": dict(kv_dtype=torch.float8_e4m3fn),
                  "bias": dict(bias=torch.empty((1, 1, 1, N), device="meta")),
@@ -187,10 +187,10 @@ def card(monkeypatch):
     typed = {"fa_fwd_sm90": native.FWD_SM90_ARGTYPES, "fa_bwd_sm90": native.BWD_SM90_ARGTYPES,
              "fa_fwd_bias_sm90": native.FWD_BIAS_SM90_ARGTYPES,
              "fa_bwd_bias_sm90": native.BWD_BIAS_SM90_ARGTYPES,
-             "fa_bwd_split_sm90": native.BWD_SPLIT_SM90_ARGTYPES}
+             "fa_bwd_split_sm90": native.BWD_SPLIT_SM90_ARGTYPES,
+             "fa_fwd_quant_sm90": native.FWD_QUANT_SM90_ARGTYPES}
     lib = types.SimpleNamespace(**{n: _recorder(n, a, calls) for n, a in typed.items()})
-    for name in ("fa_fwd", "fa_decode"):
-        setattr(lib, name, lambda *args, name=name: calls.append((name, args)) or 0)
+    lib.fa_decode = lambda *args: calls.append(("fa_decode", args)) or 0
     monkeypatch.setattr(native, "kernels", lambda: lib)
     monkeypatch.setattr(flash_fwd, "_check_kernel_args", lambda q, **kw: None)
     monkeypatch.setattr(flash_bwd, "check_kernel_args", lambda q, name: None)
@@ -260,11 +260,11 @@ def test_fwd_routes_on_a_simulated_card(card, case):
         assert args[34] == (Nq if "segment_ids" in kw else 0)  # the ids' batch stride
 
 
-# (D, K/V dtype, options): the calls fwd_tile.cuh keeps, quantized K/V (int8
-# with a per-query-row bias, fp8 causal without one), and the bf16 calls with
-# a bias above D 128 (with and without the softcap, causal) that it kept
-# until K1's bias route took D 256: they reach fa_fwd_bias_sm90, and fa_fwd,
-# which now refuses bf16 K/V, is not called.
+# (D, K/V dtype, options): calls on quantized K/V (int8 with a per-query-row
+# bias, fp8 causal without one), which K1's quantized route takes
+# (fa_fwd_quant_sm90, where the mma.sync fa_fwd took them before it), and the
+# bf16 calls with a bias above D 128 (with and without the softcap, causal),
+# which reach fa_fwd_bias_sm90.
 FA_FWD_CASES = {"bias at D 160": (160, torch.bfloat16, dict(bias=(1, 1, 1))),
                 "capped bias at D 256": (256, torch.bfloat16,
                                          dict(bias=(2, 1, 1), causal=True, softcap=30.0)),
@@ -274,11 +274,11 @@ FA_FWD_CASES = {"bias at D 160": (160, torch.bfloat16, dict(bias=(1, 1, 1))),
 
 @pytest.mark.parametrize("case", list(FA_FWD_CASES))
 def test_fa_fwd_packs_the_c_arguments(card, case):
-    """fa_fwd on BNHD views with GQA and kv_valid_len < Nk: every pointer,
-    the K/V dtype code, dim, causal, the scale and softcap, every stride (0
-    on the bias's broadcast dims) and the stream, in the C entry's typed
-    order -- no segment-id or window argument. A bf16 call takes the bias
-    route (its D 256 form) and never fa_fwd."""
+    """fa_fwd_quant_sm90 on BNHD views with GQA and kv_valid_len < Nk: the K/V
+    dtype code, dims, causal, the window and offsets (none here), the scale,
+    every stride (0 on the bias's broadcast dims; the bias's rows padded to
+    16 bytes by sm90_bias; the scales' own) and the stream, in the C entry's
+    typed order. A bf16 call takes the bias route (its D 256 form)."""
     D, kv_dtype, opts = FA_FWD_CASES[case]
     B, Hq, Hkv, Nq, Nk = 2, 4, 2, 100, 150
     q, k, v = _meta_qkv(B, Hq, Hkv, Nq, Nk, D, dtype=kv_dtype)
@@ -289,7 +289,6 @@ def test_fa_fwd_packs_the_c_arguments(card, case):
     quant = kv_dtype != torch.bfloat16
     if quant:
         kw["k_scale"], kw["v_scale"] = (torch.ones((B, Hkv, Nk), device="meta") for _ in "kv")
-    native.kernels().fa_fwd = _recorder("fa_fwd", native.FWD_ARGTYPES, card)
     flash_fwd.fwd(q, k, v, scale=0.125, kv_valid_len=120, **kw)
     if not quant:
         assert [name for name, _ in card] == ["fa_fwd_bias_sm90"]
@@ -297,23 +296,24 @@ def test_fa_fwd_packs_the_c_arguments(card, case):
         assert args[10:16] == (B, Hq, Hkv, Nq, D, 120)
         assert args[22] == pytest.approx(kw.get("softcap", 0.0))
         return
-    assert [name for name, _ in card] == ["fa_fwd"]
+    assert [name for name, _ in card] == ["fa_fwd_quant_sm90"]
     args = card[0][1]
-    assert len(args) == len(native.FWD_ARGTYPES) == 40
-    assert args[8:16] == (flash_fwd.KV_DTYPE_CODE[kv_dtype], B, Hq, Hkv, Nq, D, 120,
-                          int(kw.get("causal", False)))
-    assert args[16] == 0.125 and args[17] == pytest.approx(kw.get("softcap", 0.0))
-    assert args[18:21] == (Nq * Hq * D, D, Hq * D)
-    assert args[21:24] == args[24:27] == (Nk * Hkv * D, D, Hkv * D)
-    assert args[27:30] == args[18:21]  # O in q's strides
+    assert len(args) == len(native.FWD_QUANT_SM90_ARGTYPES) == 48
+    assert args[12:20] == (flash_fwd.KV_DTYPE_CODE[kv_dtype], B, Hq, Hkv, Nq, D, 120,
+                           int(kw.get("causal", False)))
+    assert args[20:24] == (-1, -1, 0, 0) and args[24] == 0.125
+    assert args[25:28] == (Nq * Hq * D, D, Hq * D)
+    assert args[28:31] == args[31:34] == (Nk * Hkv * D, D, Hkv * D)
+    assert args[34:37] == args[25:28]  # O in q's strides
     if bias_shape:
+        rows = bias_shape[2] * (Nk + -Nk % flash_fwd.BIAS_ROW_ALIGN)
         want = tuple(0 if n == 1 else s for n, s in zip(bias_shape, (
-            bias_shape[1] * bias_shape[2] * Nk, bias_shape[2] * Nk, Nk)))
-        assert args[30:33] == want
+            bias_shape[1] * rows, rows, Nk + -Nk % flash_fwd.BIAS_ROW_ALIGN)))
+        assert args[37:40] == want
     else:
-        assert args[30:33] == (0, 0, 0)
-    assert args[33:39] == ((Hkv * Nk, Nk, 1) * 2 if quant else (0,) * 6)
-    assert args[39] == 77
+        assert args[37:40] == (0, 0, 0) and args[7] is None
+    assert args[40:46] == (Hkv * Nk, Nk, 1) * 2
+    assert args[46:48] == (0, 77)
 
 
 # flash_attention's forward and backward on a simulated card: the LM-like

@@ -368,7 +368,7 @@ def card(monkeypatch):
              "fa_bwd_split_sm90": native.BWD_SPLIT_SM90_ARGTYPES,
              "fa_fwd_f32": native.FWD_F32_ARGTYPES, "fa_bwd_f32": native.BWD_F32_ARGTYPES}
     lib = types.SimpleNamespace(**{n: _recorder(n, a, calls) for n, a in typed.items()})
-    for name in ("fa_fwd", "fa_decode"):
+    for name in ("fa_fwd_quant_sm90", "fa_decode"):
         setattr(lib, name, lambda *args, name=name: calls.append((name, args)) or 0)
     monkeypatch.setattr(native, "kernels", lambda: lib)
     monkeypatch.setattr(flash_fwd, "_check_kernel_args", lambda q, **kw: None)

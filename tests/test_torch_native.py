@@ -230,6 +230,15 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
      "bias bwd sm90 d256 softcap bwd_bias_wide_kernel<0, 1>"),
     ("_ZN12_GLOBAL__N_120fwd_bias_sm90_kernelILi256ELb1ELb1EEEv14CUtensorMap_stS1_S1_S1_N2fa13"
      "FwdBiasParamsE", "K1 bias sm90 segments softcap fwd_bias_sm90_kernel<256, 1, 1>"),
+    ("_ZN56_GLOBAL__N__534aea6b_23_flash_fwd_quant_sm90_cu_7cd3e8af21fwd_quant_sm90_kernelILi256E"
+     "Li1ELb1ELb0EEEv14CUtensorMap_stS1_S1_N2fa14FwdQuantParamsE",
+     "K1 quant sm90 int8 bias fwd_quant_sm90_kernel<256, 1, 1, 0>"),
+    ("_ZN56_GLOBAL__N__534aea6b_23_flash_fwd_quant_sm90_cu_7cd3e8af21fwd_quant_sm90_kernelILi128E"
+     "Li2ELb0ELb1EEEv14CUtensorMap_stS1_S1_N2fa14FwdQuantParamsE",
+     "K1 quant sm90 fp8 segments fwd_quant_sm90_kernel<128, 2, 0, 1>"),
+    ("_ZN56_GLOBAL__N__534aea6b_23_flash_fwd_quant_sm90_cu_7cd3e8af21fwd_quant_sm90_kernelILi64E"
+     "Li1ELb0EEEv14CUtensorMap_stS1_S1_N2fa14FwdQuantParamsE",
+     "unrecognised instantiation fwd_quant_sm90_kernel<64, 1, 0>"),
     ("_Z11some_kernelv", "unrecognised instantiation _Z11some_kernelv"),
 ])
 def test_register_report_names_every_instantiation(mangled, name):

@@ -347,9 +347,10 @@ def test_offsets_reach_the_c_entries(card, case):
 
 
 def test_offsets_refused_off_the_dense_route():
-    """The route that takes no offsets yet refuses them, naming ROADMAP
-    queue 2, item 2, on every device: quantized K/V; offsets that change
-    nothing pass everywhere. A bias takes them (K1's bias route and its
+    """Offsets off the dense route. Quantized K/V take them (K1's quantized
+    route on the card; its plain version here): int8 K/V with a causal band
+    shifted by q_offset against the JAX oracle over the dequantized K/V at the
+    same offset; offsets that change nothing pass too. A bias takes them (K1's bias route and its
     backward; their plain versions here): the output and the gradients,
     dbias too, against the JAX flash_attention with the same bias and
     offsets. A head dim above 128 takes them (K1's dense route's D 256 form;
@@ -360,12 +361,12 @@ def test_offsets_refused_off_the_dense_route():
     import jax.numpy as jnp
 
     from flashattn_tpu.ops.flash import flash_attention
+    from flashattn_tpu.ops.oracle import attention_reference
 
     q, k, v = make_qkv(50, 1, 2, 64, 32)
     do = make_qkv(53, 1, 2, 64, 32)[0]
     bias = torch.from_numpy(np.random.default_rng(54).standard_normal((1, 2, 64, 64),
                                                                       dtype=np.float32))
-    item = "ROADMAP queue 2, item 2"
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v, bias)]
     o = flashattn_tpu_torch.flash_attention(*leaves[:3], bias=leaves[3], causal=True,
                                             q_offset=48)
@@ -388,9 +389,12 @@ def test_offsets_refused_off_the_dense_route():
     assert_close(o.detach(), want_o, F32_FWD, "O at D 160")
     for name, got, want in zip(("dq", "dk", "dv"), torch.autograd.grad(o, leaves, wdo), want_g):
         assert_close(got, want, F32_BWD, f"{name} at D 160")
-    stats = torch.zeros(1, 2, 64)
-    k8, v8 = (x.round().clamp(-127, 127).to(torch.int8) for x in (k, v))
-    with pytest.raises(NotImplementedError, match=f"quantized K/V.*{item}"):
-        flash_fwd.fwd(q, k8, v8, k_scale=stats, v_scale=stats, scale=0.2, causal=True,
-                      q_offset=1)
+    stats = torch.full((1, 2, 64), 0.05)
+    k8, v8 = (x.mul(20).round().clamp(-127, 127).to(torch.int8) for x in (k, v))
+    o8 = flash_fwd.fwd(q, k8, v8, k_scale=stats, v_scale=stats, scale=0.2, causal=True,
+                       q_offset=1)[0]
+    want_o = attention_reference(*(jnp.asarray(x.numpy()) for x in (q, k8.float() * 0.05,
+                                                                   v8.float() * 0.05)),
+                                 scale=0.2, causal=True, q_offset=1)
+    assert_close(o8, np.asarray(want_o), F32_FWD, "O on int8 K/V with q_offset 1")
     flash_fwd.fwd(q, k8, v8, k_scale=stats, v_scale=stats, scale=0.2, q_offset=1)  # no band

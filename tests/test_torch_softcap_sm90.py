@@ -324,7 +324,7 @@ def card(monkeypatch):
              "fa_bwd_bias_sm90": native.BWD_BIAS_SM90_ARGTYPES,
              "fa_bwd_split_sm90": native.BWD_SPLIT_SM90_ARGTYPES}
     lib = types.SimpleNamespace(**{n: _recorder(n, a, calls) for n, a in typed.items()})
-    for name in ("fa_fwd", "fa_decode"):
+    for name in ("fa_fwd_quant_sm90", "fa_decode"):
         setattr(lib, name, lambda *args, name=name: calls.append((name, args)) or 0)
     monkeypatch.setattr(native, "kernels", lambda: lib)
     monkeypatch.setattr(flash_fwd, "_check_kernel_args", lambda q, **kw: None)
@@ -417,8 +417,9 @@ OPTIONS = {"none": {}, "causal": dict(causal=True), "window": dict(window=(50, 1
 @pytest.mark.parametrize("D", [8, 40, 64, 96, 128])
 @pytest.mark.parametrize("name", list(OPTIONS))
 def test_no_bf16_call_up_to_d128_reaches_fwd_tile(card, name, D):
-    """No bf16 forward at D <= 128 reaches fwd_tile.cuh (fa_fwd): each
-    option's call takes one Hopper route."""
+    """No bf16 forward at D <= 128 reaches K1's quantized route
+    (fa_fwd_quant_sm90, where the mma.sync fwd_tile.cuh's fa_fwd was): each
+    option's call takes one bf16 Hopper route."""
     B, Hq, Hkv, N = 2, 4, 2, 200
     q, k, v = _meta_qkv(B, Hq, Hkv, N, N, D)
     kw = dict(OPTIONS[name])
@@ -434,7 +435,7 @@ def test_no_bf16_call_up_to_d128_reaches_fwd_tile(card, name, D):
 @pytest.mark.parametrize("D", [160, 256])
 @pytest.mark.parametrize("name", list(OPTIONS))
 def test_no_bf16_call_without_a_bias_reaches_fwd_tile(card, name, D):
-    """Above D 128 no bf16 forward reaches fwd_tile.cuh (fa_fwd): each
+    """Above D 128 no bf16 forward reaches the quantized route: each
     option's call takes K1's dense route's D 256 form, or with a bias the
     bias route's D 256 form, each counted as such."""
     B, Hq, Hkv, N = 2, 4, 2, 200

@@ -21,7 +21,7 @@ The kernels run only on the card (``python3 chip_smoke.py``:
   flax module;
 * on a simulated card (meta tensors, the device checks off, a stand-in
   library recording each C entry's arguments): the C arguments of both D 256
-  forms and of the slimmed ``fa_fwd`` (quantized K/V only), the routes' head
+  forms and of K1's quantized route (``fa_fwd_quant_sm90``), the routes' head
   dims, and the counters ``fwd.launches_bias_d256`` /
   ``bias_bwd.launches_d256``.
 """
@@ -214,7 +214,8 @@ def card(monkeypatch):
     backward keeps its head-dim and dtype checks), and the stand-in library
     records the name and arguments of every C entry called."""
     calls = []
-    typed = {"fa_fwd": native.FWD_ARGTYPES, "fa_fwd_sm90": native.FWD_SM90_ARGTYPES,
+    typed = {"fa_fwd_quant_sm90": native.FWD_QUANT_SM90_ARGTYPES,
+             "fa_fwd_sm90": native.FWD_SM90_ARGTYPES,
              "fa_fwd_bias_sm90": native.FWD_BIAS_SM90_ARGTYPES,
              "fa_bwd_bias_sm90": native.BWD_BIAS_SM90_ARGTYPES}
     lib = types.SimpleNamespace(**{n: _recorder(n, a, calls) for n, a in typed.items()})
@@ -295,9 +296,10 @@ def test_the_d256_backward_packs_its_c_arguments(card, want_dbias):
 
 
 def test_fa_fwd_takes_only_quantized_kv(card):
-    """The slimmed fa_fwd (fwd_tile.cuh, int8 / fp8 K/V only): a quantized
-    call with a bias above D 128 reaches it with its K/V code and no cap;
-    the same call on bf16 K/V reaches K1's bias route's D 256 form."""
+    """A quantized call with a bias above D 128 reaches K1's quantized route
+    (fa_fwd_quant_sm90, which took over from the mma.sync fa_fwd) with its
+    K/V code, D and bias, and no cap argument; the same call on bf16 K/V
+    reaches K1's bias route's D 256 form."""
     B, Hq, Hkv, N, D = 1, 4, 2, 96, 160
     bias = torch.zeros((1, 1, 1, N), device="meta")
     q, k, v = _meta_qkv(B, Hq, Hkv, N, N, D, kv_dtype=torch.int8)
@@ -305,11 +307,11 @@ def test_fa_fwd_takes_only_quantized_kv(card):
     flash_fwd.fwd(q, k, v, scale=0.1, bias=bias, k_scale=scales[0], v_scale=scales[1])
     q, k, v = _meta_qkv(B, Hq, Hkv, N, N, D)
     flash_fwd.fwd(q, k, v, scale=0.1, bias=bias)
-    assert [name for name, _ in card] == ["fa_fwd", "fa_fwd_bias_sm90"]
+    assert [name for name, _ in card] == ["fa_fwd_quant_sm90", "fa_fwd_bias_sm90"]
     args = card[0][1]
-    assert len(args) == len(native.FWD_ARGTYPES) == 40
-    assert args[8] == flash_fwd.KV_DTYPE_CODE[torch.int8] and args[13] == D
-    assert args[17] == 0.0  # no cap on quantized K/V
+    assert len(args) == len(native.FWD_QUANT_SM90_ARGTYPES) == 48  # no cap argument
+    assert args[12] == flash_fwd.KV_DTYPE_CODE[torch.int8] and args[17] == D
+    assert args[24] == pytest.approx(0.1) and args[37:40] == (0, 0, 0)  # the [1, 1, 1, N] bias
 
 
 @pytest.mark.parametrize("D", [136, 192, 256])

@@ -142,7 +142,7 @@ def card(monkeypatch):
              "fa_fwd_bias_sm90": native.FWD_BIAS_SM90_ARGTYPES,
              "fa_bwd_bias_sm90": native.BWD_BIAS_SM90_ARGTYPES}
     lib = types.SimpleNamespace(**{n: _recorder(n, a, calls) for n, a in typed.items()})
-    lib.fa_fwd = lambda *args: calls.append(("fa_fwd", args)) or 0
+    lib.fa_fwd_quant_sm90 = lambda *args: calls.append(("fa_fwd_quant_sm90", args)) or 0
     monkeypatch.setattr(native, "kernels", lambda: lib)
     monkeypatch.setattr(flash_fwd, "_check_kernel_args", lambda q, **kw: None)
     dims = flash_bwd.check_kernel_dims
@@ -209,7 +209,7 @@ def test_a_bias_above_128_raises_naming_its_item(card):
     6) until the bias routes took D 136-256: it reaches K1's bias route's D
     256 form (fa_fwd_bias_sm90) and K5 + K6's (fa_bwd_bias_sm90), one launch
     each, each counted as a D 256 launch; dK / dV come back per KV head;
-    nothing raises and nothing reaches fa_fwd."""
+    nothing raises and nothing reaches the quantized route."""
     q, k, v = (x.requires_grad_(True) for x in _meta_qkv(1, 4, 2, 128, 128, 136))
     bias = torch.zeros((1, 1, 1, 128), device="meta")
     before = flash_fwd.fwd.launches_bias_d256, flash_bwd.bias_bwd.launches_d256

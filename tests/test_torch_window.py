@@ -19,7 +19,8 @@ import torch
 import flashattn_tpu
 import flashattn_tpu_torch
 from flashattn_tpu.ops import oracle as jax_oracle
-from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, oracle
+from flashattn_tpu.ops import quant as jax_quant
+from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, oracle, quant
 from flashattn_tpu_torch.utils.testing import BWD_TOL, FWD_TOL, assert_close, make_qkv
 
 CASES = [
@@ -177,8 +178,9 @@ def test_window_offsets_and_bias_gradient_still_raise():
     also above D 128 (at D 160 against the JAX flash_attention with the same
     window and offsets, output and gradients), and with a bias (against the
     JAX flash_attention with the same bias, window and offsets: output,
-    dQ, dK, dV and dbias); on quantized K/V they raise with their ROADMAP
-    item on every device (``offsets_refusal`` names it). The bias with a
+    dQ, dK, dV and dbias); on int8 K/V they run as well (K1's quantized
+    route on the card; here its plain version, against the JAX oracle over
+    JAX's dequantization of the same 8-bit K/V and scales). The bias with a
     window alone is held against autograd through the oracle (dQ and
     dbias)."""
     q, k, v = make_qkv(8, 1, 2, 64, 32)
@@ -207,8 +209,14 @@ def test_window_offsets_and_bias_gradient_still_raise():
         a, b, c, window=(8, 8), q_offset=3) ** 2).sum(), *wide)
     for name, got, want in zip(("dq", "dk", "dv"), got_g, want_g):
         assert_close(got, np.array(want), BWD_TOL[torch.float32], f"{name} at D 160")
-    assert "ROADMAP queue 2, item 2" in flash_fwd.offsets_refusal(quantized=True)
-    assert flash_fwd.offsets_refusal(quantized=False) is None
+    qkv = quant.quantize_kv(k, v)
+    got = flash_fwd.fwd(q, qkv.k_q, qkv.v_q, scale=32 ** -0.5, window=(8, 8), q_offset=3,
+                        k_scale=qkv.k_scale, v_scale=qkv.v_scale)[0]
+    kd, vd = jax_quant.dequantize_kv(
+        jax_quant.QuantizedKV(*(jnp.asarray(x.numpy()) for x in qkv)), jnp.float32)
+    want = jax_oracle.attention_reference(jnp.asarray(q.numpy()), kd, vd, window=(8, 8),
+                                          q_offset=3)
+    assert_close(got, np.asarray(want), FWD_TOL[torch.float32], "O on int8 K/V with offsets")
     o = flashattn_tpu_torch.flash_attention(q, k, v, window=(8, 8), bias=bias)
     assert_close(o, oracle.attention_reference(q, k, v, window=(8, 8), bias=bias),
                  FWD_TOL[torch.float32])
