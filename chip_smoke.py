@@ -223,6 +223,46 @@ def cuda_ms(fn, *, reps: int = 20, trials: int = 5) -> float:
     return statistics.median(times)
 
 
+# Cycles a second that queued_ms assumes to size its sleep kernel (the H100's
+# top clock, 1980 MHz): at a lower clock the backlog only lasts longer.
+SLEEP_CYCLES_PER_MS = 1.98e6
+
+
+def queued_ms(fn, *, reps: int = 20, trials: int = 5, backlog_ms: float = 100.0) -> float:
+    """Median over ``trials`` of the mean CUDA-event time of ``reps`` calls of
+    ``fn`` enqueued behind a sleep kernel of ``backlog_ms``: the card is busy
+    while the host enqueues them, so the events read the calls' kernels and
+    the card's gaps between them, not the host's time per call (which
+    cuda_ms reads where it exceeds the kernels'). A trial whose enqueueing
+    outlasted its backlog is run again behind a backlog twice as long, twice
+    at most; past that (a call that waits for the card) cuda_ms's reading,
+    said in the log."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    while len(times) < trials:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(int(backlog_ms * SLEEP_CYCLES_PER_MS))
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if host >= 0.8 * ev[0].elapsed_time(ev[1]):
+            backlog_ms *= 2
+            if backlog_ms > 400.0:
+                log("timing", f"queued_ms: {reps} calls took the host {host:.1f} ms, longer "
+                              f"than their backlog: their CUDA-event time without one instead")
+                return cuda_ms(fn, reps=reps, trials=trials)
+            continue
+        times.append(ev[1].elapsed_time(ev[2]) / reps)
+    return statistics.median(times)
+
+
 def tensor_bytes(*xs) -> int:
     """Bytes of the given tensors (None counts 0): each read or written once."""
     return sum(x.numel() * x.element_size() for x in xs if x is not None)
@@ -279,17 +319,23 @@ def sdpa_ms(q, k, v, *, do=None, bias_leaf=None, backend=None, device: bool = Fa
     return kernels_ms(fn) if device else cuda_ms(fn, reps=5, trials=3)
 
 
+PROFILE_RUNS = 5
+
+
 def _profiled(fn, reps: int, enough) -> list:
     """The key_averages() of a torch.profiler run over CUDA activity in
-    ``reps`` calls of ``fn`` (after one call outside it), run again, three
-    runs at most, while ``enough`` of them is false: in a process that ran
-    the profiler before, CUPTI can drop some launches of a run, or all of
-    them (0 of 20 seen once on an H100)."""
+    ``reps`` calls of ``fn`` (after one call outside it), run again after a
+    pause, PROFILE_RUNS runs at most, while ``enough`` of them is false: in
+    a process that ran the profiler before, CUPTI can drop some launches of
+    a run, or all of them (0 of 20 seen on an H100, in three runs in a row
+    once)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for run in range(PROFILE_RUNS):
+        if run:
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -310,12 +356,18 @@ def kernels_ms(fn, reps: int = 20) -> float:
     between them left out: from a torch.profiler run over CUDA activity in
     ``reps`` calls (_profiled), each kernel's mean device time times its
     launches a call (its count over ``reps``, rounded: the profiler can miss
-    a launch), summed; fails if it records no kernel."""
+    a launch), summed. Where the profiler records no kernel in any of its
+    runs, the calls' CUDA-event time behind a backlog (queued_ms: the
+    kernels and the card's gaps between them), said in the log."""
     events = _profiled(fn, reps, lambda ev: any(_self_device_us(e) > 0 for e in ev))
     total = sum(_self_device_us(e) / e.count * max(1, round(e.count / reps))
                 for e in events if _self_device_us(e) > 0 and e.count > 0)
     if total <= 0:
-        fail("the profiler recorded no kernel of the call")
+        ms = queued_ms(fn, reps=reps, trials=3)
+        log("profiler", f"recorded no kernel of the call in {PROFILE_RUNS} runs: its CUDA-event "
+                        f"time behind a backlog instead, {ms:.4f} ms (the kernels and the card's "
+                        f"gaps between them)")
+        return ms
     return total / 1e3
 
 
@@ -530,7 +582,8 @@ def instantiation_name(mangled: str) -> str:
     """The kernel (K1 and its variant, K1's decode, bias and dense routes,
     K3, K5, K6, K5 + K6's bias route, the f32 routes, K7-K10) and template
     arguments of a mangled instantiation name from ptxas, e.g. ``K1 f32
-    segments fwd_f32_kernel<128, 1, 0>``, ``bwd f32 softcap
+    segments fwd_f32_kernel<128, 1, 0>``, ``K1 f32 d256 bias
+    fwd_f32_wide_kernel<0, 0, 1>``, ``bwd f32 softcap
     bwd_f32_kernel<64, 0, 1>``, ``K1 int8 bias
     fwd_kernel<128, 1, 1>``, ``K1 decode fp8 bias decode_kernel<128, 2, 1,
     0>``, ``K1 bias sm90 softcap fwd_bias_sm90_kernel<128, 1>``, ``K1 dense
@@ -575,6 +628,15 @@ def instantiation_name(mangled: str) -> str:
         seg = " segments" if len(args) >= 2 and args[1] == "1" else ""
         cap = " softcap" if len(args) == 3 and args[2] == "1" else ""
         return f"K1 dense sm90{seg}{cap} fwd_dense_sm90_kernel<{', '.join(args)}>"
+    f32_wide = re.search(r"fwd_f32_wide_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if f32_wide:  # K1's f32 route's D 256 form, fwd_f32_wide_kernel<SEG, CAP, BIAS>
+        args = re.findall(r"L[a-z]+(-?\d+)E", f32_wide.group(1))
+        label = f"fwd_f32_wide_kernel<{', '.join(args)}>"
+        if len(args) != 3:
+            return f"unrecognised instantiation {label}"
+        return (f"K1 f32 d256{' bias' if args[2] == '1' else ''}"
+                f"{' segments' if args[0] == '1' else ''}{' softcap' if args[1] == '1' else ''} "
+                f"{label}")
     f32 = re.search(r"(fwd|bwd)_f32_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if f32:  # the f32 routes, fwd_f32_kernel / bwd_f32_kernel<DB, SEG, CAP, BIAS> (a parent's:
         # <DB, SEG, CAP>, before the bias)
@@ -1250,6 +1312,7 @@ def _reset_launches() -> None:
     flash_bwd.split_bwd.launches = 0
     flash_fwd.fwd.launches_f32 = flash_bwd._f32_bwd_launch.launches = 0
     flash_fwd.fwd.launches_f32_bias = flash_bwd.bias_bwd.launches_f32 = 0
+    flash_fwd.fwd.launches_f32_d256 = flash_bwd._f32_bwd_launch.launches_d256 = 0
     flash_fwd.fwd.launches_split = flash_bwd._f32_bwd_launch.launches_split = 0
     gemm.matmul.launches = roofline.roofline_call.launches = 0
     ring_kernel.ring_fwd_step.launches = ring_kernel.ring_bwd_step.launches = 0
@@ -1273,10 +1336,12 @@ def _launches() -> dict:
     segment ids and / or the softcap), "split bwd d256" those of its D 256
     form; "K1 f32" the launches of K1's f32 kernel (also counted in "K1",
     and in "K1 window" / "K1 softcap"), "K1 f32 bias" those of its BIAS
-    family (also in "K1 f32" and "K1 bias"), "bwd f32" those of the f32
-    backward body, which K3's f32 calls (also counted in "K3"), the split
-    route's (in "split bwd") and the bias route's (in "bias bwd" and "bias
-    bwd f32", with dbias also in "bias bwd dbias") launch; "split bf16x3"
+    family (also in "K1 f32" and "K1 bias"), "K1 f32 d256" those of its D
+    256 form (f32 above D 128, with or without a bias), "bwd f32" those of
+    the f32 backward body, which K3's f32 calls (also counted in "K3"), the
+    split route's (in "split bwd") and the bias route's (in "bias bwd" and
+    "bias bwd f32", with dbias also in "bias bwd dbias") launch, "bwd f32
+    d256" those of its D 256 form (f32 above D 128, whichever route); "split bf16x3"
     those of the f32 routes' operand split (one
     before each K1 f32 launch, of q, k and v, and one before each bwd f32
     launch, of q, k, v and dO, both from the f32 C entries). K5 and K6 have
@@ -1304,7 +1369,9 @@ def _launches() -> dict:
             "split bwd d256": flash_bwd.split_bwd.launches_d256,
             "K1 f32": flash_fwd.fwd.launches_f32, "bwd f32": flash_bwd._f32_bwd_launch.launches,
             "K1 f32 bias": flash_fwd.fwd.launches_f32_bias,
+            "K1 f32 d256": flash_fwd.fwd.launches_f32_d256,
             "bias bwd f32": flash_bwd.bias_bwd.launches_f32,
+            "bwd f32 d256": flash_bwd._f32_bwd_launch.launches_d256,
             "split bf16x3": (flash_fwd.fwd.launches_split
                              + flash_bwd._f32_bwd_launch.launches_split),
             "K7": ring_kernel.ring_fwd_step.launches, "K8": ring_kernel.ring_bwd_step.launches,
@@ -2147,7 +2214,8 @@ def phase_window_check() -> dict:
     capped K1 on its dense route); K1 with softcap and the cache-slot bias at
     bench_decode's shape, GQA-folded. Times each at the path's shape beside
     its plain version and its library call, the kernels with a window beside
-    the same kernel full-causal (gated: at most 0.6x), and prints the tile
+    the same kernel full-causal (gated on their device times behind a
+    backlog, queued_ms: at most 0.6x), and prints the tile
     pairs each visits."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
     from flashattn_tpu_torch.ops.flash import flash_attention
@@ -2214,21 +2282,31 @@ def phase_window_check() -> dict:
           "library_ms": sdpa_ms(q, k, v, do=do, attn_mask=band),
           "library_call": "the backward of scaled_dot_product_attention(attn_mask=band)"}
     k3_full = cuda_ms(lambda: flash_bwd_fused.bwd(*args, **full))
+    # The gate reads device times (queued_ms): the calls' CUDA-event times
+    # above read the host's time per call where it exceeds the kernels', and
+    # on a slow host that brought K1 windowed to 0.92x full causal.
+    device = {"K1": (queued_ms(lambda: flash_fwd.fwd(q, k, v, **kw)),
+                     queued_ms(lambda: flash_fwd.fwd(q, k, v, **full))),
+              "K3": (queued_ms(lambda: flash_bwd_fused.bwd(*args, **kw)),
+                     queued_ms(lambda: flash_bwd_fused.bwd(*args, **full)))}
     # K1's dense route: Q tiles of 128 rows, KV tiles of 64; K3: KV tiles of
     # 128 rows, Q tiles of 64 (csrc/fwd_sm90_tile.cuh, bwd_sm90_tile.cuh).
     tiles = {"K1": (band_tiles(N, N, 128, 64, wl, 0), band_tiles(N, N, 128, 64, None, 0)),
              "K3": (band_tiles(N, N, 128, 64, 0, wl), band_tiles(N, N, 128, 64, 0, None))}
     for name, res_k, full_ms in (("K1", k1, k1_full), ("K3", k3, k3_full)):
         visited, causal_pairs = tiles[name]
+        dev, dev_full = device[name]
         log("window", f"{name} window {kw['window']} causal at B{B} Hq{Hq} Hkv{Hkv} N{N} D{D}: "
                       f"{res_k['ms']:.4f} ms vs {name} full causal {full_ms:.4f} ms "
-                      f"({res_k['ms'] / full_ms:.3f}x, gate 0.6x); tile pairs per head "
+                      f"({res_k['ms'] / full_ms:.3f}x); device time behind a backlog "
+                      f"{dev:.4f} ms vs {dev_full:.4f} ms ({dev / dev_full:.3f}x, gate 0.6x); "
+                      f"tile pairs per head "
                       f"{visited} vs full causal {causal_pairs} ({visited / causal_pairs:.3f}); "
                       f"plain {res_k['plain_ms']:.4f} ms, bound {res_k['bound_ms']:.4f} ms "
                       f"({res_k['bound_by']}), SDPA with the band mask {res_k['library_ms']:.4f} ms")
-        if not res_k["ms"] <= 0.6 * full_ms:
-            fail(f"{name} with window {kw['window']} takes {res_k['ms']:.4f} ms, more than 0.6x "
-                 f"{name} full causal ({full_ms:.4f} ms)")
+        if not dev <= 0.6 * dev_full:
+            fail(f"{name} with window {kw['window']} takes {dev:.4f} ms of device time, more "
+                 f"than 0.6x {name} full causal ({dev_full:.4f} ms)")
     res["k1_window"], res["k3_window"] = k1, k3
     del q, k, v, do, lse, delta, args, band, swa
     torch.cuda.empty_cache()
@@ -4331,9 +4409,11 @@ def _split_device_ms(fn, reps: int = 20) -> float:
     makes it (its C entry launches the split, then its attention kernel):
     the mean over the split launches that a torch.profiler run over CUDA
     activity records in ``reps`` calls (it can record fewer: 8 of 10 on an
-    H100 in a process that had run the profiler before); fails if it
-    records fewer than half of them or no device time (in each of the runs
-    that _profiled makes)."""
+    H100 in a process that had run the profiler before). Where it records
+    fewer than half of them or no device time in each of the runs that
+    _profiled makes, the device time of the whole call behind a backlog
+    (queued_ms: the split and its attention kernel), an upper bound, said
+    in the log; fails if it records more launches than calls."""
 
     def splits(events):
         return [e for e in events if "split_bf16x3_kernel" in e.key]
@@ -4341,8 +4421,14 @@ def _split_device_ms(fn, reps: int = 20) -> float:
     events = splits(_profiled(fn, reps, lambda ev: sum(e.count for e in splits(ev)) >= reps / 2))
     n, t = sum(e.count for e in events), sum(e.device_time_total for e in events)
     log("f32", f"the profiler recorded {n} of the {reps} split launches, {t:.1f} us")
-    if n < reps / 2 or n > reps or t <= 0:
+    if n > reps:
         fail(f"the profiler saw {n} split launches ({t} us) in {reps} f32 calls")
+    if n < reps / 2 or t <= 0:
+        ms = queued_ms(fn, reps=reps, trials=3)
+        log("f32", f"the split not timed by the profiler: the whole call's device time behind "
+                   f"a backlog instead, {ms:.4f} ms (an upper bound: the split and its "
+                   f"attention kernel)")
+        return ms
     return t / n / 1e3
 
 
@@ -4365,11 +4451,13 @@ def _f32_case(tag: str, q, k, v, do, kw) -> dict:
     from flashattn_tpu_torch.utils.testing import BWD_TOL, FWD_TOL, check_close, grad_gate
 
     kw = dict(scale=q.shape[-1] ** -0.5, **kw)
+    wide = int(q.shape[-1] > 128)  # the D 256 forms
     variants = dict(K1_window=int("window" in kw), K1_softcap=int("softcap" in kw))
     before = _launches()
     o, lse = flash_fwd.fwd(q, k, v, **kw)
     torch.cuda.synchronize()
-    _routed(f"K1 f32 at {tag}", before, K1=1, K1_f32=1, split_bf16x3=1, **variants)
+    _routed(f"K1 f32 at {tag}", before, K1=1, K1_f32=1, K1_f32_d256=wide, split_bf16x3=1,
+            **variants)
     o_want, lse_want = flash_fwd.fwd_reference(q, k, v, **kw)
     dead_lse = math.log(2.0) * DEFAULT_MASK_VALUE
     live = lse_want > dead_lse * 0.5
@@ -4389,12 +4477,12 @@ def _f32_case(tag: str, q, k, v, do, kw) -> dict:
         got = flash_bwd.split_bwd(*args, **kw)
         torch.cuda.synchronize()
         _routed(f"the f32 split route at {tag}", before, split_bwd=1, bwd_f32=1,
-                split_bf16x3=1)
+                bwd_f32_d256=wide, split_bf16x3=1)
         want = flash_bwd.split_bwd_reference(*args, **kw)
     else:
         got = flash_bwd_fused.bwd(*args, **kw)
         torch.cuda.synchronize()
-        _routed(f"K3 f32 at {tag}", before, K3=1, bwd_f32=1, split_bf16x3=1)
+        _routed(f"K3 f32 at {tag}", before, K3=1, bwd_f32=1, bwd_f32_d256=wide, split_bf16x3=1)
         want = flash_bwd_fused.bwd_reference(*args, **kw)
     names = ("dq", "dk", "dv")
     ok_g, why_g, err_g, _ = grad_gate(got, want, tol_b, names=names)
@@ -4812,12 +4900,13 @@ def _f32_bias_case(tag: str, q, k, v, do, bias, kw, *, no_dbias: bool) -> dict:
     from flashattn_tpu_torch.utils.testing import BWD_TOL, FWD_TOL, check_close, grad_gate
 
     kw = dict(scale=q.shape[-1] ** -0.5, bias=bias, **kw)
+    wide = int(q.shape[-1] > 128)  # the D 256 forms
     variants = dict(K1_window=int("window" in kw), K1_softcap=int("softcap" in kw))
     before = _launches()
     o, lse = flash_fwd.fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     _routed(f"K1 f32 bias at {tag}", before, K1=1, K1_bias=1, K1_f32=1, K1_f32_bias=1,
-            split_bf16x3=1, **variants)
+            K1_f32_d256=wide, split_bf16x3=1, **variants)
     o_want, lse_want = flash_fwd.fwd_reference(q, k, v, **kw)
     live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
     dead = ~live
@@ -4842,7 +4931,8 @@ def _f32_bias_case(tag: str, q, k, v, do, bias, kw, *, no_dbias: bool) -> dict:
         got = flash_bwd.bias_bwd(*args, want_dbias=dbias, **kw)
         torch.cuda.synchronize()
         _routed(f"the f32 bias backward at {tag} (dbias {dbias})", before, bias_bwd=1,
-                bias_bwd_f32=1, bias_bwd_dbias=int(dbias), bwd_f32=1, split_bf16x3=1)
+                bias_bwd_f32=1, bias_bwd_dbias=int(dbias), bwd_f32=1, bwd_f32_d256=wide,
+                split_bf16x3=1)
         names = ("dq", "dk", "dv", "dbias")[:4 if dbias else 3]
         ok_g, why_g, err_g, _ = grad_gate(got[:len(names)], want[:len(names)], tol_b,
                                           names=names)
@@ -4875,14 +4965,17 @@ def _f32_bias_case(tag: str, q, k, v, do, bias, kw, *, no_dbias: bool) -> dict:
     return {"fwd_err": err_o, "bwd_err": max(errs)}
 
 
-def _f32_bias_timing() -> dict:
+def _f32_bias_timing(H: int = ATTN_WIDTH["num_heads"], D: int = 128,
+                     phase: str = "f32 bias") -> dict:
     """K1's f32 route with the bias and the f32 backward's BIAS family at f32
-    path A's attention (B4 H16 N2048 D128, f32): the mask arm's bias (the
+    path A's attention (B4 H N2048 D, f32: H16 D128, or with heads of 256 H8
+    D256, the D 256 forms): the mask arm's bias (the
     key-padding [4, 1, N, N] of ATTN_LENGTHS) and the learned arm's (that
-    plus a [1, 16, N, N] normal: [4, 16, N, N]), the backward without dbias
+    plus a [1, H, N, N] normal: [4, H, N, N]), the backward without dbias
     on the first and with it on the second. Each held against its plain
     version on these inputs (TF32 off: O within FWD_TOL[f32], dQ / dK / dV /
-    dbias within BWD_TOL[f32]), its error in its row; ms, the plain
+    dbias within BWD_TOL[f32]), its error in its row; ms, the kernels' own
+    device ms (kernels_ms: the split and the attention kernel), the plain
     version's ms, the bound (each input read once, each output written
     once, at 3.35 TB/s; the products over every pair -- the kernels read the
     bias to learn which pairs it masks -- at PEAK_F32_ACCURATE_FLOPS) and the
@@ -4893,7 +4986,7 @@ def _f32_bias_timing() -> dict:
     from flashattn_tpu_torch.utils.testing import BWD_TOL, FWD_TOL, check_close, grad_gate, \
         make_qkv
 
-    B, H, N, D = len(ATTN_LENGTHS), ATTN_WIDTH["num_heads"], ATTN_SEQ, 128
+    B, N = len(ATTN_LENGTHS), ATTN_SEQ
     q, k, v = make_qkv(31, B, H, N, D, device=DEVICE)
     do = make_qkv(32, B, H, N, D, device=DEVICE)[0]
     mask = _padding_bias(ATTN_LENGTHS, N)
@@ -4914,9 +5007,9 @@ def _f32_bias_timing() -> dict:
         n = 4 if dbias else 3
         ok_g, why_g, err_g, _ = grad_gate(got[:n], want[:n], BWD_TOL[torch.float32],
                                           names=("dq", "dk", "dv", "dbias")[:n])
-        log("f32 bias", f"path A's {arm} bias {list(bias.shape)} (the timed inputs): K1 f32 "
-                        f"bias O max_abs_err {err_o:.3e}; the f32 bias backward"
-                        f"{' with dbias' if dbias else ''} max_abs_err {err_g:.3e}")
+        log(phase, f"path A's {arm} bias {list(bias.shape)} (the timed inputs): K1 f32 "
+                   f"bias O max_abs_err {err_o:.3e}; the f32 bias backward"
+                   f"{' with dbias' if dbias else ''} max_abs_err {err_g:.3e}")
         if not (ok_o and ok_g):
             fail(f"f32 bias at path A's {arm} shape: {msg_o}; {why_g}")
         del got, want, o_want, lse_want
@@ -4933,17 +5026,18 @@ def _f32_bias_timing() -> dict:
                  tensor_bytes(q, k, v, do, lse, delta, bias, q, k, v,
                               bias.expand(B, H, N, N) if dbias else None), err_g, do)):
             row = {"max_abs_err": err, "ms": cuda_ms(fn, reps=5, trials=5),
+                   "kernel_ms": kernels_ms(fn, reps=5),
                    "plain_ms": cuda_ms(plain, reps=1, trials=3),
                    **bound(nbytes, 2.0 * D * pairs * matmuls, PEAK_F32_ACCURATE_FLOPS),
                    **_f32_library_ms(q, k, v, lib_do, lib_kw, bias_leaf=leaf)}
             row["bound_share"] = row["bound_ms"] / row["ms"]
             rows[f"{name}_{arm}"] = row
-            log("f32 bias", f"{name} at path A's {arm} arm (B{B} H{H} N{N} D{D} f32, bias "
-                            f"{list(bias.shape)}{', dbias' if dbias and name == 'bwd' else ''}): "
-                            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
-                            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
-                            f"{row['bound_share']:.1%} of it), {row['library']} "
-                            f"{row['library_ms']:.4f} ms")
+            log(phase, f"{name} at path A's {arm} arm (B{B} H{H} N{N} D{D} f32, bias "
+                       f"{list(bias.shape)}{', dbias' if dbias and name == 'bwd' else ''}): "
+                       f"{row['ms']:.3f} ms (kernels alone {row['kernel_ms']:.3f} ms), plain "
+                       f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                       f"({row['bound_by']}; {row['bound_share']:.1%} of it), {row['library']} "
+                       f"{row['library_ms']:.4f} ms ({_card_name()}; {_card_state()})")
         del o, lse, args, delta
         torch.cuda.empty_cache()
     return rows
@@ -4971,9 +5065,11 @@ def phase_f32_bias_check() -> dict:
     return {**rows, "cases_worst": worst}
 
 
-def _f32_path_a(arm: str, x, target, valid, mask, rel0) -> dict:
-    """One arm of f32 path A: FlashMultiHeadDotProductAttention (ATTN_WIDTH)
-    at its default float32, impl "fused", on ``x`` with the key-padding
+def _f32_path_a(arm: str, x, target, valid, mask, rel0, *, width: dict = ATTN_WIDTH,
+                phase: str = "f32 bias_train") -> dict:
+    """One arm of f32 path A: FlashMultiHeadDotProductAttention (``width``,
+    ATTN_WIDTH or WIDE_ATTN_WIDTH's heads of 256, whose kernels are the D 256
+    forms) at its default float32, impl "fused", on ``x`` with the key-padding
     ``mask`` and, where ``rel0`` is given, a trainable f32 bias initialised to
     it; an MSE loss over the valid rows. Gate (TF32 off): the fused arm's
     loss, all its gradients and, with the learned bias, that bias's gradient
@@ -4988,10 +5084,11 @@ def _f32_path_a(arm: str, x, target, valid, mask, rel0) -> dict:
     from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
 
     B, N, F = x.shape
+    wide = int(width["qkv_features"] // width["num_heads"] > 128)
 
     def build():
         m = FlashMultiHeadDotProductAttention(
-            **ATTN_WIDTH, impl="fused", device=DEVICE,
+            **width, impl="fused", device=DEVICE,
             generator=torch.Generator(device=DEVICE).manual_seed(0))
         return m, None if rel0 is None else torch.nn.Parameter(rel0.clone())
 
@@ -5025,19 +5122,21 @@ def _f32_path_a(arm: str, x, target, valid, mask, rel0) -> dict:
             **({} if rel is None else {"rel_bias": _rel_l2({"r": gf["rel_bias"]},
                                                            {"r": gp["rel_bias"]})})}
     learned = "" if rel0 is None else f" + a trainable bias {list(rel0.shape)}"
-    log("f32 bias_train", f"{arm} arm: FlashMultiHeadDotProductAttention "
-                          f"({sum(p.numel() for p in params_of(model, rel).values()) / 1e6:.1f} M "
-                          f"params, f32, impl fused) on x [{B}, {N}, {F}], mask of lengths "
-                          f"{ATTN_LENGTHS}{learned}: "
-                          f"loss fused {lf:.7f}, plain f32 {lp:.7f}; relative errors against "
-                          f"the plain f32 function (limit {F32_PATH_A_REL}): "
-                          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    log(phase, f"{arm} arm: FlashMultiHeadDotProductAttention "
+               f"({sum(p.numel() for p in params_of(model, rel).values()) / 1e6:.1f} M "
+               f"params, {width['num_heads']} heads of "
+               f"{width['qkv_features'] // width['num_heads']}, f32, impl fused) on x [{B}, "
+               f"{N}, {F}], mask of lengths {ATTN_LENGTHS}{learned}: "
+               f"loss fused {lf:.7f}, plain f32 {lp:.7f}; relative errors against "
+               f"the plain f32 function (limit {F32_PATH_A_REL}): "
+               + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
     if not all(math.isfinite(e) and e <= F32_PATH_A_REL for e in errs.values()):
         fail(f"f32 path A {arm} gate: {errs} (limit {F32_PATH_A_REL})")
     del gf, gp
     dbias = int(rel0 is not None)
-    want = _expect(K1=1, K1_bias=1, K1_f32=1, K1_f32_bias=1, split_bf16x3=2, bias_bwd=1,
-                   bias_bwd_f32=1, bias_bwd_dbias=dbias, bwd_f32=1)
+    want = _expect(K1=1, K1_bias=1, K1_f32=1, K1_f32_bias=1, K1_f32_d256=wide, split_bf16x3=2,
+                   bias_bwd=1, bias_bwd_f32=1, bias_bwd_dbias=dbias, bwd_f32=1,
+                   bwd_f32_d256=wide)
     if gate_launches != want:
         fail(f"f32 path A {arm}: the gate's step launched {gate_launches}, expected {want}")
     params = params_of(model, rel)
@@ -5060,16 +5159,17 @@ def _f32_path_a(arm: str, x, target, valid, mask, rel0) -> dict:
     step_ms = statistics.median(secs[1:]) * 1e3
     peak = torch.cuda.max_memory_allocated() / 1e9
     n = F32_PATH_A_STEPS
-    want = _expect(K1=n, K1_bias=n, K1_f32=n, K1_f32_bias=n, split_bf16x3=2 * n, bias_bwd=n,
-                   bias_bwd_f32=n, bias_bwd_dbias=n * dbias, bwd_f32=n)
-    log("f32 bias_train", f"{arm} arm: {n} AdamW steps, {step_ms:.2f} ms/step "
-                          f"({', '.join(f'{s * 1e3:.1f}' for s in secs)}; median after one "
-                          f"warm-up step), peak {peak:.2f} GB ({_card_name()}; "
-                          f"{_card_state()}); loss "
-                          f"{losses[0]:.6f} -> {losses[-1]:.6f}; launches {launches} (expected "
-                          f"K1 = K1 bias = K1 f32 = K1 f32 bias = bias bwd = bias bwd f32 = bwd "
-                          f"f32 = {n}, bias bwd dbias = {n * dbias}, split bf16x3 = {2 * n}, no "
-                          "bf16 kernel)")
+    want = _expect(K1=n, K1_bias=n, K1_f32=n, K1_f32_bias=n, K1_f32_d256=n * wide,
+                   split_bf16x3=2 * n, bias_bwd=n, bias_bwd_f32=n, bias_bwd_dbias=n * dbias,
+                   bwd_f32=n, bwd_f32_d256=n * wide)
+    log(phase, f"{arm} arm: {n} AdamW steps, {step_ms:.2f} ms/step "
+               f"({', '.join(f'{s * 1e3:.1f}' for s in secs)}; median after one "
+               f"warm-up step), peak {peak:.2f} GB ({_card_name()}; "
+               f"{_card_state()}); loss "
+               f"{losses[0]:.6f} -> {losses[-1]:.6f}; launches {launches} (expected "
+               f"K1 = K1 bias = K1 f32 = K1 f32 bias = bias bwd = bias bwd f32 = bwd "
+               f"f32 = {n}{', K1 f32 d256 = bwd f32 d256 = ' + str(n) if wide else ''}, bias "
+               f"bwd dbias = {n * dbias}, split bf16x3 = {2 * n}, no bf16 kernel)")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         fail(f"f32 path A {arm}: losses {losses} not finite or not falling")
     if launches != want:
@@ -5079,25 +5179,258 @@ def _f32_path_a(arm: str, x, target, valid, mask, rel0) -> dict:
     return {"ms_per_step": step_ms, "peak_gb": peak, "launches": launches, "gate": errs}
 
 
-def phase_f32_bias_train() -> dict:
-    """f32 path A: FlashMultiHeadDotProductAttention (16 heads of 128,
-    in_features 2048) at its default float32 and impl "fused" on x [4, 2048,
-    2048] f32 with the key-padding mask of ATTN_LENGTHS, in two arms
-    (_f32_path_a): the mask alone, and the mask plus a trainable [1, 16, N, N]
-    f32 bias, whose gradient the f32 backward's dbias gives."""
+def _f32_path_a_arms(width: dict, phase: str) -> dict:
+    """f32 path A at ``width``: FlashMultiHeadDotProductAttention at its
+    default float32 and impl "fused" on x [4, 2048, 2048] f32 with the
+    key-padding mask of ATTN_LENGTHS, in two arms (_f32_path_a): the mask
+    alone, and the mask plus a trainable [1, heads, N, N] f32 bias, whose
+    gradient the f32 backward's dbias gives."""
     from flashattn_tpu_torch.integrations import make_attention_mask
 
     _f32_tf32_off()
     gen = torch.Generator(device=DEVICE).manual_seed(5)
-    B, N, F = len(ATTN_LENGTHS), ATTN_SEQ, ATTN_WIDTH["in_features"]
+    B, N, F = len(ATTN_LENGTHS), ATTN_SEQ, width["in_features"]
     x = torch.randn((B, N, F), generator=gen, device=DEVICE)
     target = 0.05 * torch.randn((B, N, F), generator=gen, device=DEVICE)
     lengths = torch.tensor(ATTN_LENGTHS, device=DEVICE)
     valid = torch.arange(N, device=DEVICE)[None] < lengths[:, None]
     mask = make_attention_mask(valid, valid, dtype=torch.bool)
-    rel0 = torch.randn((1, ATTN_WIDTH["num_heads"], N, N), generator=gen, device=DEVICE)
-    return {"mask": _f32_path_a("mask", x, target, valid, mask, None),
-            "learned": _f32_path_a("learned", x, target, valid, mask, rel0)}
+    rel0 = torch.randn((1, width["num_heads"], N, N), generator=gen, device=DEVICE)
+    kw = dict(width=width, phase=phase)
+    return {"mask": _f32_path_a("mask", x, target, valid, mask, None, **kw),
+            "learned": _f32_path_a("learned", x, target, valid, mask, rel0, **kw)}
+
+
+def phase_f32_bias_train() -> dict:
+    """f32 path A: FlashMultiHeadDotProductAttention with 16 heads of 128
+    (ATTN_WIDTH), its two arms (_f32_path_a_arms)."""
+    return _f32_path_a_arms(ATTN_WIDTH, "f32 bias_train")
+
+
+# f32 at head dims 136-256: K1's f32 route's D 256 form (fwd_f32_wide_kernel,
+# 64 Q rows a CTA) and the f32 backward's (bwd_f32_kernel<256, ...>, a
+# cluster of two CTAs that split D), csrc/flash_fwd_f32.cu and
+# csrc/flash_bwd_f32.cu, against the plain versions, TF32 off, q and k at
+# GROW x unit scale: (tag, B, Hq, Hkv, Nq, Nk, D, kv_valid_len, options, ids
+# kind as _seg_case_ids or None, bias dims as F32_BIAS_CASES' or None: no
+# bias, K3 or the split route). D 256, 192 and 136 (in the 256 boxes: rank
+# 1 of the backward's cluster then holds 8 real columns); causal, windows,
+# every ids kind, the cap, offsets that leave dead rows, GQA, Nq 1, ragged
+# kv_valid_len; with a bias every broadcast shape once and key padding with
+# dead rows.
+F32_WIDE_CASES = [
+    ("causal GQA 8/4", 1, 8, 4, 257, 257, 256, 257, dict(causal=True), None, None),
+    ("window (64, 32), Nq 300", 1, 4, 2, 300, 300, 192, 300, dict(window=(64, 32)), None,
+     None),
+    ("packed ids", 2, 4, 2, 256, 256, 136, 256, {}, "packed", None),
+    ("cap 5, Nq 129, Nk 77", 1, 4, 2, 129, 77, 256, 77, dict(softcap=5.0), None, None),
+    ("causal, random ids, cap 50", 2, 4, 2, 200, 200, 192, 200,
+     dict(causal=True, softcap=50.0), "random", None),
+    ("causal, q_off - kv_off 100, GQA 4/1", 1, 4, 1, 200, 300, 256, 300,
+     dict(causal=True, q_offset=100, kv_offset=0), None, None),
+    ("Nq 1, kv_valid_len 400 of 513, GQA 8/2", 2, 8, 2, 1, 513, 256, 400, {}, None, None),
+    ("dead rows (ids no key carries)", 1, 4, 4, 300, 300, 136, 300, {}, "dead", None),
+    ("ring kv past q (0, 256): dead rows", 1, 4, 2, 512, 256, 256, 256,
+     dict(causal=True, q_offset=0, kv_offset=256), None, None),
+    ("causal GQA 4/2, Nk 77, bias [B, H, Nq, Nk]", 2, 4, 2, 127, 77, 256, 77,
+     dict(causal=True), None, (1, 1, 1)),
+    ("kv_valid_len 150 of Nk 200, bias [1, 1, 1, Nk]", 2, 4, 4, 129, 200, 192, 150, {}, None,
+     (0, 0, 0)),
+    ("key padding, dead rows, bias [B, 1, N, N]", 2, 4, 4, 256, 256, 256, 256, {}, None,
+     "padding"),
+    ("window (64, 32), bias [1, H, Nq, Nk]", 1, 4, 2, 300, 300, 136, 300,
+     dict(window=(64, 32)), None, (0, 1, 1)),
+    ("random ids, bias [B, H, 1, Nk]", 2, 4, 2, 256, 256, 256, 256, {}, "random", (1, 1, 0)),
+    ("causal, q_off - kv_off 100, GQA 4/1, bias [1, H, 1, Nk]", 1, 4, 1, 200, 300, 192, 300,
+     dict(causal=True, q_offset=100, kv_offset=0), None, (0, 1, 0)),
+    ("Nq 1, cap 5, bias [B, 1, 1, Nk]", 2, 4, 2, 1, 513, 256, 513, dict(softcap=5.0), None,
+     (1, 0, 0)),
+    ("window (40, 40), ids, q_off - kv_off 30, cap 5, bias [1, 1, Nq, Nk]", 2, 4, 2, 200, 260,
+     256, 260, dict(window=(40, 40), q_offset=30, kv_offset=0, softcap=5.0), "tuple",
+     (0, 0, 1)),
+    ("causal GQA 8/1, Nq 129 < Nk 1000, kv_valid_len 900, bias [B, 1, Nq, Nk]", 1, 8, 1, 129,
+     1000, 136, 900, dict(causal=True), None, (1, 0, 1)),
+]
+# The bias cases that also run the backward without dbias.
+F32_WIDE_NO_DBIAS = (10, 13)
+
+
+def f32_wide_instantiations() -> set:
+    """The D 256 forms' instantiations, as instantiation_name names them:
+    fwd_f32_wide_kernel<SEG, CAP, BIAS> and bwd_f32_kernel<256, SEG, CAP,
+    BIAS>, 8 + 8."""
+    def opts(sg, cp, b):
+        return f"{' bias' if b else ''}{' segments' if sg else ''}{' softcap' if cp else ''}"
+
+    flags = [(sg, cp, b) for sg in (0, 1) for cp in (0, 1) for b in (0, 1)]
+    return ({f"K1 f32 d256{opts(*f)} fwd_f32_wide_kernel<{f[0]}, {f[1]}, {f[2]}>" for f in flags}
+            | {f"bwd f32{opts(*f)} bwd_f32_kernel<256, {f[0]}, {f[1]}, {f[2]}>" for f in flags})
+
+
+def _f32_wide_lm_timing() -> dict:
+    """K1's f32 route's D 256 form and the f32 backward's at the attention of
+    the f32 LM with heads of 256 (WIDE_SHAPE, B1 Hq8 Hkv4 N2048 D256, causal):
+    the forward; the backward as K3, as the split route with the cap 50 (the
+    forward capped too) and with 8 packed documents. Each held against its
+    plain version on these inputs (TF32 off: O within FWD_TOL[f32], dQ / dK /
+    dV within BWD_TOL[f32]), its error in its row; ms, the kernels' own
+    device ms (kernels_ms), the plain version's ms, the bound (bytes at 3.35
+    TB/s, the pairs' products at PEAK_F32_ACCURATE_FLOPS) and the faster of
+    SDPA's two f32 backends on the same inputs (the documents as a boolean
+    mask; with the cap none: SDPA takes no cap, library_ms null)."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.utils.testing import (
+        BWD_TOL, FWD_TOL, check_close, grad_gate, make_qkv)
+
+    B, Hq, Hkv, N, D = WIDE_SHAPE
+    q, k, v = make_qkv(41, B, Hq, N, D, Hkv=Hkv, device=DEVICE)
+    do = make_qkv(42, B, Hq, N, D, device=DEVICE)[0]
+    ids = packed_ids(B, N)
+    docs = flash_fwd.pair_mask(N, N, kv_valid_len=N, causal=True, segment_ids=(ids, ids),
+                               device=DEVICE)
+    variants = {  # row: (options, backward, its plain version, SDPA's arguments or None)
+        "bwd": ({}, flash_bwd_fused.bwd, flash_bwd_fused.bwd_reference, dict(is_causal=True)),
+        "bwd_cap": (dict(softcap=SOFTCAP), flash_bwd.split_bwd, flash_bwd.split_bwd_reference,
+                    None),
+        "bwd_ids": (dict(segment_ids=(ids, ids)), flash_bwd.split_bwd,
+                    flash_bwd.split_bwd_reference, dict(attn_mask=docs))}
+    rows = {}
+
+    def timed(name, fn, plain, err, nbytes, matmuls, kw, lib_kw, lib_do):
+        mask = dict(kv_valid_len=N, causal=True, segment_ids=kw.get("segment_ids"))
+        row = {"max_abs_err": err, "ms": cuda_ms(fn, reps=5, trials=5),
+               "kernel_ms": kernels_ms(fn, reps=5), "plain_ms": cuda_ms(plain, reps=1, trials=3),
+               **bound(nbytes, pair_flops(q, k, matmuls=matmuls, **mask),
+                       PEAK_F32_ACCURATE_FLOPS),
+               **({"library_ms": None, "library": "none (SDPA takes no logit softcap)"}
+                  if lib_kw is None else _f32_library_ms(q, k, v, lib_do, lib_kw))}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows[name] = row
+        lib = ("" if row["library_ms"] is None
+               else f", {row['library']} {row['library_ms']:.4f} ms")
+        log("f32 wide", f"{name} at B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal"
+                        f"{' ' + ', '.join(kw) if kw else ''}: {row['ms']:.3f} ms (kernels alone "
+                        f"{row['kernel_ms']:.3f} ms), plain {row['plain_ms']:.3f} ms, bound "
+                        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                        f"{row['bound_share']:.1%} of it){lib} ({_card_name()}; "
+                        f"{_card_state()})")
+
+    for name, (opts, bwd, bwd_ref, lib_kw) in variants.items():
+        kw = dict(scale=D ** -0.5, causal=True, **opts)
+        o, lse = flash_fwd.fwd(q, k, v, **kw)
+        o_want, lse_want = flash_fwd.fwd_reference(q, k, v, **kw)
+        ok_o, msg_o = check_close(o, o_want, FWD_TOL[torch.float32], "O")
+        err_o = (o - o_want).abs().max().item()
+        delta = (do * o).sum(-1)
+        args = (q, k, v, do, lse, delta)
+        got = bwd(*args, **kw)
+        want = bwd_ref(*args, **kw)
+        ok_g, why_g, err_g, _ = grad_gate(got, want, BWD_TOL[torch.float32])
+        log("f32 wide", f"{name} inputs (the timed ones): K1 f32 d256 O max_abs_err {err_o:.3e}; "
+                        f"the backward max_abs_err {err_g:.3e}")
+        if not (ok_o and ok_g):
+            fail(f"f32 at heads of 256 ({name}, the timed inputs): {msg_o}; {why_g}")
+        del got, want, o_want, lse_want
+        if name == "bwd":
+            timed("fwd", lambda: flash_fwd.fwd(q, k, v, **kw),
+                  lambda: flash_fwd.fwd_reference(q, k, v, **kw), err_o,
+                  tensor_bytes(q, k, v, o, lse), 2, opts, lib_kw, None)
+        timed(name, lambda: bwd(*args, **kw), lambda: bwd_ref(*args, **kw), err_g,
+              tensor_bytes(q, k, v, do, lse, delta, q, q, q), 5, opts, lib_kw, do)
+        del o, lse, args, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_f32_wide_check() -> dict:
+    """K1's f32 route's and the f32 backward's D 256 forms against their
+    plain versions on every F32_WIDE_CASES entry, TF32 off: without a bias
+    through _f32_case (O and LSE within FWD_TOL[f32], dQ / dK / dV within
+    BWD_TOL[f32], dead rows and unreached keys exactly 0), with one through
+    _f32_bias_case (and dbias within BWD_TOL[f32], exactly 0 on every
+    dropped pair, read from NaN-filled memory), each with exactly one launch
+    of each D 256 form and of the split; the 16 instantiations' SASS (HGMMA,
+    UTMALDG, no HMMA); then both timed at the f32 LM's attention with heads
+    of 256 (_f32_wide_lm_timing) and at path A's with heads of 256
+    (_f32_bias_timing at H8 D256)."""
+    from flashattn_tpu_torch.utils.testing import make_qkv
+
+    _f32_tf32_off()
+    errs = []
+    for i, (tag, B, Hq, Hkv, Nq, Nk, D, nkv, kw, ids, dims) in enumerate(F32_WIDE_CASES):
+        kw = dict(kw, kv_valid_len=nkv)
+        if ids is not None:
+            kw["segment_ids"] = _seg_case_ids(ids, 900 + i, B, Nq, Nk)
+        tag = f"B{B} Hq{Hq} Hkv{Hkv} Nq{Nq} Nk{Nk} D{D}, {tag}"
+        if dims is None:
+            q, k, v = make_qkv(800 + 10 * i, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv, device=DEVICE)
+            do = make_qkv(801 + 10 * i, B, Hq, Nq, D, device=DEVICE)[0]
+            q, k, v, do = (_bnhd(x) for x in (GROW * q, GROW * k, v, do))
+            errs.append(_f32_case(tag, q, k, v, do, kw))
+        else:
+            q, k, v, do, bias = _f32_bias_input(800 + 10 * i, B, Hq, Hkv, Nq, Nk, D, dims)
+            errs.append(_f32_bias_case(tag, q, k, v, do, bias, kw,
+                                       no_dbias=i in F32_WIDE_NO_DBIAS))
+    worst = {n: max(e[n] for e in errs) for n in ("fwd_err", "bwd_err")}
+    log("f32 wide", f"all {len(F32_WIDE_CASES)} cases: worst O {worst['fwd_err']:.3e}, worst "
+                    f"dQ/dK/dV/dbias {worst['bwd_err']:.3e}")
+    _tma_wgmma_sass("f32 wide", f32_wide_instantiations())
+    rows = _f32_wide_timing()
+    return {**rows, "cases_worst": worst}
+
+
+def _f32_wide_timing() -> dict:
+    """phase_f32_wide_check's timed rows: the LM's (_f32_wide_lm_timing) and
+    path A's with heads of 256 (_f32_bias_timing at H8 D256)."""
+    return {**_f32_wide_lm_timing(),
+            **_f32_bias_timing(WIDE_ATTN_WIDTH["num_heads"], 256, "f32 wide")}
+
+
+def phase_f32_wide_train() -> dict:
+    """The two paths that f32 at heads of 256 opens. (a) The f32 LM with
+    Gemma 2's heads of 256 (WIDE_LM_WIDTH, dtype float32: bench_lm's width, 8
+    query and 4 KV heads of 256) in three variants -- unpacked at [1, 2049],
+    with logit_softcap 50, packed (8 documents a row; steps at [2, 4097]) --
+    each with the f32 LM's gates (_f32_lm_gates: fused vs xla, loss 1e-3,
+    gradients 1e-3 relative L2) and F32_STEPS fused AdamW steps whose loss
+    falls, with exact launches: K1's f32 route's D 256 form, then the f32
+    backward's as K3 / as the split route, n_layers x F32_STEPS each, no bf16
+    kernel. (b) f32 path A with heads of 256 (_f32_path_a_arms at
+    WIDE_ATTN_WIDTH): the mask arm and the learned-bias arm (dbias), gated
+    at F32_PATH_A_REL, the D 256 forms' BIAS families."""
+    from flashattn_tpu_torch.models.transformer import TransformerConfig
+
+    _f32_tf32_off()
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    vocab = WIDE_LM_WIDTH["vocab_size"]
+    tokens = torch.randint(0, vocab, (1, LM_SEQ + 1), generator=gen, device=DEVICE)
+    B, N = PACKED_SHAPE
+    packed_tokens = torch.randint(0, vocab, (B, N + 1), generator=gen, device=DEVICE)
+    n = WIDE_LM_WIDTH["n_layers"] * F32_STEPS
+    f32 = dict(K1=n, K1_f32=n, K1_f32_d256=n, bwd_f32=n, bwd_f32_d256=n, split_bf16x3=2 * n)
+    cfg = TransformerConfig(**WIDE_LM_WIDTH, dtype=torch.float32)
+    variants = {
+        "unpacked": (cfg, None, tokens, None, dict(**f32, K3=n)),
+        "softcap": (dataclasses.replace(cfg, logit_softcap=SOFTCAP), None, tokens, None,
+                    dict(**f32, K1_softcap=n, split_bwd=n)),
+        "packed": (cfg, packed_ids(1, LM_SEQ + 1), packed_tokens, packed_ids(B, N + 1),
+                   dict(**f32, split_bwd=n))}
+    out = {}
+    for tag, (c, gate_ids, step_tokens, step_ids, counts) in variants.items():
+        _f32_lm_gates(c, tokens, gate_ids, f"heads of 256, {tag}")
+        _reset_launches()
+        step_s = _lm_steps(c, step_tokens, "fused", step_ids, phase="f32 wide train",
+                           label=f"f32 fused, heads of 256, {tag}", steps=F32_STEPS, warmup=1)
+        got = _launches()
+        want = _expect(**counts)
+        log("f32 wide train", f"{tag}: launches {got} (expected "
+                              f"{', '.join(f'{k} {v}' for k, v in counts.items())}, no other) "
+                              f"({_card_name()})")
+        if got != want:
+            fail(f"the f32 LM with heads of 256 ({tag}) launched {got}, expected {want}")
+        out[tag] = {"launches": got, "ms_per_step": step_s * 1e3}
+    out["path_a"] = _f32_path_a_arms(WIDE_ATTN_WIDTH, "f32 wide train")
+    return out
 
 
 # The composition fuzz's card arm (phase_fuzz): FUZZ_DRAWS draws of
@@ -5105,15 +5438,16 @@ def phase_f32_bias_train() -> dict:
 # later seeds, up to FUZZ_MAX_SEEDS, only where one of FUZZ_ROUTES has not
 # been reached yet (the routes predicted by the wrappers' own route rules; the
 # launches then decide). A draw may be refused only under the labels still
-# open (FUZZ_OPEN_LABELS); f32 with a bias at D <= 128 never.
+# open (FUZZ_OPEN_LABELS); an f32 draw never (f32 takes every option at
+# every head dim the sampler draws).
 FUZZ_SEED = 3000
 FUZZ_DRAWS = 40
 FUZZ_MAX_SEEDS = 4000
-FUZZ_OPEN_LABELS = ("f32 rows item 5", "K1 options")
-FUZZ_ROUTES = ("K1 dense", "K1 bias", "K1 bias d256", "K1 f32", "K1 f32 bias", "K1 decode",
-               "K1 quant", "K3",
+FUZZ_OPEN_LABELS = ("K1 options",)
+FUZZ_ROUTES = ("K1 dense", "K1 bias", "K1 bias d256", "K1 f32", "K1 f32 bias", "K1 f32 d256",
+               "K1 decode", "K1 quant", "K3",
                "split route", "bias backward", "bias backward d256", "f32 backward",
-               "f32 bias backward")
+               "f32 bias backward", "f32 backward d256")
 
 
 def _fuzz_routes(launches: dict, f32: bool) -> set:
@@ -5123,14 +5457,16 @@ def _fuzz_routes(launches: dict, f32: bool) -> set:
            "K1 bias": launches["K1 bias sm90"] - launches["K1 bias d256"],
            "K1 bias d256": launches["K1 bias d256"],
            "K1 f32": launches["K1 f32"] - launches["K1 f32 bias"],
-           "K1 f32 bias": launches["K1 f32 bias"], "K1 decode": launches["K1 decode"],
+           "K1 f32 bias": launches["K1 f32 bias"], "K1 f32 d256": launches["K1 f32 d256"],
+           "K1 decode": launches["K1 decode"],
            "K1 quant": launches["K1 quant sm90"],
            "K3": launches["K3 sm90"], "split route": 0 if f32 else launches["split bwd"],
            "bias backward": (launches["bias bwd"] - launches["bias bwd f32"]
                              - launches["bias bwd d256"]),
            "bias backward d256": launches["bias bwd d256"],
            "f32 backward": launches["bwd f32"] - launches["bias bwd f32"],
-           "f32 bias backward": launches["bias bwd f32"]}
+           "f32 bias backward": launches["bias bwd f32"],
+           "f32 backward d256": launches["bwd f32 d256"]}
     return {name for name, n in got.items() if n > 0}
 
 
@@ -5166,6 +5502,8 @@ def _fuzz_predicted(c: dict) -> set:
     else:
         bwd = "f32 backward" if f32 else "K3"
     routes = {fwd, bwd}
+    if f32 and D > flash_fwd.DENSE_MAX_HEAD_DIM:
+        routes |= {"K1 f32 d256", "f32 backward d256"}
     if _fuzz_quant_arm(c):
         routes.add("K1 decode" if fwd == "K1 decode" else "K1 quant")
     return routes
@@ -5235,8 +5573,7 @@ def _fuzz_draw(seed: int, c: dict) -> tuple[set, str | None, float]:
     except NotImplementedError as e:
         now = _launches()
         msg = str(e)
-        f32_bias = dt == torch.float32 and bias is not None and c["D"] <= 128
-        if f32_bias or not any(label in msg for label in FUZZ_OPEN_LABELS):
+        if dt == torch.float32 or not any(label in msg for label in FUZZ_OPEN_LABELS):
             fail(f"fuzz seed {seed} ({c}): refused outside the open labels: {msg}")
         return _fuzz_routes({n: now[n] - before[n] for n in now}, dt == torch.float32), msg, 0.0
     now = _launches()
@@ -5260,7 +5597,7 @@ def phase_fuzz() -> dict:
     draws through flash_attention (_fuzz_draw), FUZZ_DRAWS of them and then,
     from later seeds, the draws that reach a route of FUZZ_ROUTES not yet
     reached; fails on any error, any refusal outside FUZZ_OPEN_LABELS (and
-    any of f32 with a bias at D <= 128), and a route of FUZZ_ROUTES no draw
+    any of an f32 draw), and a route of FUZZ_ROUTES no draw
     reached. Prints the refusals by label."""
     import numpy as np
 
@@ -6346,6 +6683,8 @@ def main() -> None:
     f32_train = timed(phase_f32_train)
     f32_bias = timed(phase_f32_bias_check)
     f32_path_a = timed(phase_f32_bias_train)
+    f32_wide = timed(phase_f32_wide_check)
+    f32_wide_train = timed(phase_f32_wide_train)
     wide = timed(phase_wide_bwd_check)
     wide_train = timed(phase_wide_train)
     wide_bias = timed(phase_wide_bias_check)
@@ -6588,6 +6927,51 @@ def main() -> None:
          "replaces": split_replaces,
          "launches": f32_path_a["learned"]["launches"]["bias bwd dbias"],
          **f32_bias["bwd_learned"]},
+        # f32 with heads of 256: the D 256 forms at the attention of the f32 LM
+        # with heads of 256 (B1 Hq8 Hkv4 N2048 D256 causal) and of f32 path A
+        # with heads of 256 (B4 H8 N2048 D256; phase_f32_wide_check's timing),
+        # launches from phase_f32_wide_train's steps; each time includes the
+        # split of its operands ("kernel_ms": the kernels' device time alone).
+        {"name": "flash_fwd_f32 D 256 causal (K1's f32 route's D 256 form, TMA + wgmma on bf16 "
+                 "pieces, 64 Q rows a CTA: the f32 LM with heads of 256, K2)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/flash_fwd_f32.cu",
+         "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:516",
+         "launches": f32_wide_train["unpacked"]["launches"]["K1 f32 d256"], **f32_wide["fwd"]},
+        {"name": "flash_bwd_f32 D 256 (K3 on f32, the D 256 form: a cluster of two CTAs that "
+                 "split D, TMA + wgmma on bf16 pieces: the f32 LM with heads of 256, causal, "
+                 "K4)", "route": "cuda", "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu",
+         "replaces": "flashattn_tpu/ops/flash_bwd_fused.py:110, "
+                     "flashattn_tpu/ops/flash_bwd_fused.py:336",
+         "launches": f32_wide_train["unpacked"]["launches"]["bwd f32 d256"], **f32_wide["bwd"]},
+        {"name": "flash_bwd_f32 D 256 softcap (K5 + K6 on f32 in one launch, the D 256 form: "
+                 "the f32 LM with heads of 256, logit softcap 50)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu", "replaces": split_replaces,
+         "launches": f32_wide_train["softcap"]["launches"]["bwd f32 d256"],
+         **f32_wide["bwd_cap"]},
+        {"name": "flash_bwd_f32 D 256 segments (K5 + K6 on f32 in one launch, the D 256 form: "
+                 "the packed f32 LM with heads of 256)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu", "replaces": split_replaces,
+         "launches": f32_wide_train["packed"]["launches"]["bwd f32 d256"],
+         **f32_wide["bwd_ids"]},
+        *({"name": f"flash_fwd_f32 D 256 bias (K1's f32 route's D 256 form with a bias: f32 "
+                   f"path A with heads of 256, {arm} arm, bias {shape})", "route": "cuda",
+           "source": "flashattn_tpu_torch/csrc/flash_fwd_f32.cu",
+           "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+           "launches": f32_wide_train["path_a"][arm]["launches"]["K1 f32 d256"],
+           **f32_wide[f"fwd_{arm}"]}
+          for arm, shape in (("mask", "[4, 1, N, N]"), ("learned", "[4, 8, N, N]"))),
+        {"name": "flash_bwd_f32 D 256 bias (K5 + K6 on f32 with a bias in one launch, the D 256 "
+                 "form: f32 path A with heads of 256, mask arm, bias [4, 1, N, N], no dbias)",
+         "route": "cuda", "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu",
+         "replaces": split_replaces,
+         "launches": f32_wide_train["path_a"]["mask"]["launches"]["bwd f32 d256"],
+         **f32_wide["bwd_mask"]},
+        {"name": "flash_bwd_f32 D 256 bias dbias (K5 + K6 on f32 with a bias and dbias in one "
+                 "launch, the D 256 form: f32 path A with heads of 256, learned arm, bias [4, 8, "
+                 "N, N])", "route": "cuda", "source": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu",
+         "replaces": split_replaces,
+         "launches": f32_wide_train["path_a"]["learned"]["launches"]["bias bwd dbias"],
+         **f32_wide["bwd_learned"]},
         # The bias routes' D 256 forms at the shape of path A with heads of 256
         # (B4 H8 N2048 D256; phase_wide_bias_check's timing), launches from its
         # fused steps (phase_wide_bias_train).

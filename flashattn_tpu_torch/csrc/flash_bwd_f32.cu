@@ -3,9 +3,11 @@
 // dQ, dK, dV and (on request) dbias to f32 accuracy as the TPU kernels
 // compute their f32 calls at Precision.HIGHEST: on bf16 pieces. Kernels
 // bwd_f32_kernel<D, SEG, CAP, BIAS> (D 64 and 128, every D <= 128 that is a
-// multiple of 8 by the TMA boxes' zero fill; segment ids, the logit softcap
-// and the bias as compile-time flags, none being K3's call; dbias a runtime
-// null pointer, so it adds no instantiation) and the C entry fa_bwd_f32.
+// multiple of 8 by the TMA boxes' zero fill, and the D 256 form, every D
+// 136-256, a cluster of two CTAs that split D; segment ids, the logit
+// softcap and the bias as compile-time flags, none being K3's call; dbias a
+// runtime null pointer, so it adds no instantiation) and the C entry
+// fa_bwd_f32.
 //
 // Replaces, on f32 inputs, flashattn_tpu/ops/flash_bwd_fused.py::
 // _bwd_fused_kernel (K3, :110) and _bwd_causal_resident_kernel (K4, :336),
@@ -89,6 +91,22 @@
 //     (dQ is [B, Hq, Nq, d] contiguous: a full tile on the last, partial Q
 //     tile, or a row of D > d columns, would add into the next rows). dQ's
 //     sums therefore vary in their last bits from run to run.
+//   * D 256 (every D 136-256): the D 128 layout does not double (K's and V's
+//     pieces alone would be 192 KB), so a cluster of two CTAs owns each (query
+//     head, 64 keys), rank r the D 128 body on D's columns [128 r, 128 r +
+//     128): its K / V / Q / dO pieces, dK / dV and dQ there. S^T and dP^T
+//     reduce over all of D, so each CTA sends its partial S^T and dP^T (32
+//     floats a thread, 16 KB) into its peer's shared memory
+//     (st.shared::cluster, an arrival on the peer's mbarrier at cluster
+//     scope, two buffers alternating by Q tile) and adds the peer's: both
+//     then hold the same S^T and dP^T and form the same P^T and dS^T. The
+//     walk (the band, the ids, the KV tail) derives from the head, the KV
+//     tile and the batch, never the rank, so both visit the same Q tiles.
+//     One (Q, dO) stage (the exchange buffers take the second's room: 96 +
+//     48 + 12 + 16 + 32 KB = 204 KB); dQ's half rows are not contiguous, so
+//     each is added by a bulk reduction of its own (warp 0's lanes, the
+//     tile's rows below Nq); dbias by rank 0 alone. At D 136 rank 1 holds 8
+//     real columns and the boxes' zeros.
 
 #include "sm90.cuh"
 #include "split_bf16x3.cuh"
@@ -128,24 +146,32 @@ constexpr int F32B_THREADS = 256;  // producer warpgroup + consumer warpgroup
 constexpr float F32B_NEG_GUARD = 0.5f * MASK_VALUE;
 
 // Shared-memory layout (bytes, from a 1024-byte-aligned base): K's three
-// pieces, V's three pieces (each D / 64 boxes of 64 rows), 2 stages of (Q,
-// dO) as stacked tiles (D / 64 boxes of 96 rows each, piece p at rows
-// 32p..), dS's stacked tile [96][64] bf16, the f32 dQ stage [32][d], the ids
-// (the KV tile's [64], each stage's Q tile's [2][32]), LSE and Delta [2][32]
-// each, then the mbarriers kv_full, full[2], empty[2].
+// pieces, V's three pieces (each DH / 64 boxes of 64 rows; DH the columns a
+// CTA holds: D, or at D 256 its half), STAGES stages of (Q, dO) as stacked
+// tiles (DH / 64 boxes of 96 rows each, piece p at rows 32p..), dS's stacked
+// tile [96][64] bf16, the f32 dQ stage [32][DH], at D 256 the two exchange
+// buffers (the peer's partial S^T and dP^T, [8][128] float4 each: chunk c of
+// thread i at c 128 + i), the ids (the KV tile's [64], each stage's Q
+// tile's [STAGES][32]), LSE and Delta [STAGES][32] each, then the mbarriers
+// kv_full, full[STAGES], empty[STAGES] and at D 256 x_full[2].
 template <int D>
 struct F32BwdSmem {
-  static constexpr int KVP = F32B_BLOCK_N * D * 2;  // one piece of K or V
+  static constexpr bool WIDE = D == 256;
+  static constexpr int DH = WIDE ? 128 : D;
+  static constexpr int STAGES = WIDE ? 1 : 2;
+  static constexpr int KVP = F32B_BLOCK_N * DH * 2;  // one piece of K or V
   static constexpr int OFF_V = 3 * KVP;
-  static constexpr int QT = F32B_STACK * D * 2;     // a stacked Q or dO tile
+  static constexpr int QT = F32B_STACK * DH * 2;     // a stacked Q or dO tile
   static constexpr int OFF_STAGE = 6 * KVP;
   static constexpr int STAGE = 2 * QT;
-  static constexpr int OFF_DS = OFF_STAGE + 2 * STAGE;
+  static constexpr int OFF_DS = OFF_STAGE + STAGES * STAGE;
   static constexpr int OFF_DQ = OFF_DS + F32B_STACK * F32B_BLOCK_N * 2;
-  static constexpr int OFF_SEG = OFF_DQ + F32B_BLOCK_M * D * 4;
-  static constexpr int OFF_STATS = OFF_SEG + (F32B_BLOCK_N + 2 * F32B_BLOCK_M) * 4;
-  static constexpr int BARS = OFF_STATS + 2 * 2 * F32B_BLOCK_M * 4;
-  static constexpr int BYTES = 1024 + BARS + 5 * 8;
+  static constexpr int XBUF = 128 * 32 * 4;  // WIDE: one exchange buffer
+  static constexpr int OFF_X = OFF_DQ + F32B_BLOCK_M * DH * 4;
+  static constexpr int OFF_SEG = OFF_X + (WIDE ? 2 * XBUF : 0);
+  static constexpr int OFF_STATS = OFF_SEG + (F32B_BLOCK_N + STAGES * F32B_BLOCK_M) * 4;
+  static constexpr int BARS = OFF_STATS + 2 * STAGES * F32B_BLOCK_M * 4;
+  static constexpr int BYTES = 1024 + BARS + (1 + 2 * STAGES + (WIDE ? 2 : 0)) * 8;
   static_assert(KVP % 1024 == 0 && QT % 1024 == 0 && OFF_DS % 1024 == 0,
                 "the 128-byte swizzle repeats every 1024 bytes");
   static_assert(BYTES <= 232448, "a block's shared memory on sm_90");
@@ -206,21 +232,30 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ CUtensorMap tm_do, const BwdF32Params p) {
-  static_assert(D == 64 || D == 128, "instantiated for D 64 and 128");
+  static_assert(D == 64 || D == 128 || D == 256, "instantiated for D 64, 128 and 256");
   using S = F32BwdSmem<D>;
-  constexpr int BOXES = D / 64;
+  constexpr bool WIDE = S::WIDE;
+  constexpr int DH = S::DH;
+  constexpr int BOXES = DH / 64;
+  constexpr int ST = S::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
   uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + 2;
+  uint64_t* empty = full + ST;
+  uint64_t* x_full = empty + ST;  // WIDE: [2], one per exchange buffer
   int* seg_kv_s = reinterpret_cast<int*>(smem + S::OFF_SEG);
-  int* seg_q_s = seg_kv_s + F32B_BLOCK_N;                            // [2][32]
-  float* s_stats = reinterpret_cast<float*>(smem + S::OFF_STATS);   // lse[2][32], delta[2][32]
+  int* seg_q_s = seg_kv_s + F32B_BLOCK_N;                            // [ST][32]
+  float* s_stats = reinterpret_cast<float*>(smem + S::OFF_STATS);   // lse[ST][32], delta[ST][32]
   auto stage = [&](int s) { return smem + S::OFF_STAGE + s * S::STAGE; };
 
-  const int h = blockIdx.x;
+  // WIDE: a cluster of two CTAs per (query head, KV tile), rank r holding D's
+  // columns [128 r, 128 r + 128); both walk the same Q tiles (everything
+  // below derives from h, the KV tile and b, never from the rank).
+  const int rank = WIDE ? static_cast<int>(cluster_ctarank()) : 0;
+  const int c_off = rank * DH;  // the CTA's first column
+  const int h = WIDE ? blockIdx.x >> 1 : blockIdx.x;
   const int hk = h / p.rep;
   // A left bound alone: the late KV tiles meet the most Q tiles; run them
   // first (causal's first tiles are its longest already).
@@ -254,13 +289,17 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(&full[s], 1);   // the TMA thread's expect_tx
       mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    if constexpr (WIDE) {
+      for (int s = 0; s < 2; ++s) mbar_init(&x_full[s], 128);  // each peer consumer thread
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  if constexpr (WIDE) cluster_sync();  // the peer's barriers exist before any remote arrival
 
   if (wg == 0) {
     // Producer: thread 0 issues the copies.
@@ -270,10 +309,10 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       for (int pc = 0; pc < 3; ++pc) {
 #pragma unroll
         for (int x = 0; x < BOXES; ++x) {
-          tma_load_4d(smem + pc * S::KVP + x * F32B_BLOCK_N * SW128_ROW, &tm_k, kv_full, 64 * x,
-                      n0, hk, pc * p.batch + b);
+          tma_load_4d(smem + pc * S::KVP + x * F32B_BLOCK_N * SW128_ROW, &tm_k, kv_full,
+                      c_off + 64 * x, n0, hk, pc * p.batch + b);
           tma_load_4d(smem + S::OFF_V + pc * S::KVP + x * F32B_BLOCK_N * SW128_ROW, &tm_v,
-                      kv_full, 64 * x, n0, hk, pc * p.batch + b);
+                      kv_full, c_off + 64 * x, n0, hk, pc * p.batch + b);
         }
       }
       if constexpr (SEG) {
@@ -282,23 +321,24 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       }
       int it = 0;
       for (int i = first; i < n_m; i = next_visit(i + 1), ++it) {
-        const int s = it & 1;
+        const int s = it % ST;
         const int m = m_begin + i * F32B_BLOCK_M;
         unsigned char* st = stage(s);
-        mbar_wait(&empty[s], ((it >> 1) & 1) ^ 1);  // round 0 passes at once
+        mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);  // round 0 passes at once
         mbar_expect_tx(&full[s], 2 * S::QT + 2 * F32B_BLOCK_M * 4 + (SEG ? F32B_BLOCK_M * 4 : 0));
 #pragma unroll
         for (int pc = 0; pc < 3; ++pc) {
 #pragma unroll
           for (int x = 0; x < BOXES; ++x) {
             const int off = (x * F32B_STACK + pc * F32B_BLOCK_M) * SW128_ROW;
-            tma_load_4d(st + off, &tm_q, &full[s], 64 * x, m, h, pc * p.batch + b);
-            tma_load_4d(st + S::QT + off, &tm_do, &full[s], 64 * x, m, h, pc * p.batch + b);
+            tma_load_4d(st + off, &tm_q, &full[s], c_off + 64 * x, m, h, pc * p.batch + b);
+            tma_load_4d(st + S::QT + off, &tm_do, &full[s], c_off + 64 * x, m, h,
+                        pc * p.batch + b);
           }
         }
         const int64_t row = (static_cast<int64_t>(b) * p.hq + h) * p.nq_pad + m;
         bulk_load(s_stats + s * F32B_BLOCK_M, p.lse + row, F32B_BLOCK_M * 4, &full[s]);
-        bulk_load(s_stats + (2 + s) * F32B_BLOCK_M, p.delta + row, F32B_BLOCK_M * 4, &full[s]);
+        bulk_load(s_stats + (ST + s) * F32B_BLOCK_M, p.delta + row, F32B_BLOCK_M * 4, &full[s]);
         if constexpr (SEG) {
           bulk_load(seg_q_s + s * F32B_BLOCK_M,
                     p.seg_q + static_cast<int64_t>(b) * p.q_tiles * F32B_BLOCK_M + m,
@@ -317,13 +357,16 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
     const unsigned char* v_s = smem + S::OFF_V;
     unsigned char* ds_s = smem + S::OFF_DS;
     float* dq_stage = reinterpret_cast<float*>(smem + S::OFF_DQ);
-    const bool issuer = tid == 0;  // issues the dQ reductions
+    // Issue the dQ reductions: thread 0 the tile's, or at D 256 the 32 lanes
+    // of warp 0 one row each (a CTA's columns are not contiguous across rows).
+    const bool issuer = WIDE ? tid < 32 : tid == 0;
     const int d = p.d;  // the columns of dQ / dK / dV, d <= D (the boxes read zeros past it)
+    const int dcols = WIDE ? min(DH, d - c_off) : d;  // this CTA's columns of dQ
     // K steps: along D (S^T, dP^T: 32 bytes into a row, a box every 4) and
     // along the tile's 64 keys (dQ^T: 16 rows of K, 32 bytes into dS's rows).
     auto d_step = [](int kk) { return (kk % 4) * 32; };
 
-    float dk[D / 2], dv[D / 2];
+    float dk[DH / 2], dv[DH / 2];
     zero(dk);
     zero(dv);
     int kv_seg[2] = {0, 0};  // SEG: the ids of this thread's keys
@@ -336,11 +379,11 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
     }
     int it = 0;
     for (int i = first; i < n_m; i = next_visit(i + 1), ++it) {
-      const int s = it & 1;
+      const int s = it % ST;
       const int m = m_begin + i * F32B_BLOCK_M;  // the tile's first row
       const unsigned char* q_st = stage(s);
       const unsigned char* do_st = q_st + S::QT;
-      mbar_wait(&full[s], (it >> 1) & 1);
+      mbar_wait(&full[s], (it / ST) & 1);
       // This thread's coordinates, opaque to the compiler: the ~60 addresses
       // derived from them (LSE / Delta, the dS and dQ stage stores) are
       // recomputed each tile instead of being held in registers across the
@@ -361,8 +404,8 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       float sc[16], dp[16];
       auto a_d = [](int kk) { return (kk / 4) * F32B_BLOCK_N * SW128_ROW + (kk % 4) * 32; };
       auto b_d = [](int kk) { return (kk / 4) * F32B_STACK * SW128_ROW + (kk % 4) * 32; };
-      issue_ss6<0, D / 16>(sc, k_s, S::KVP, q_st, a_d, b_d, 16);
-      issue_ss6<0, D / 16>(dp, v_s, S::KVP, do_st, a_d, b_d, 16);
+      issue_ss6<0, DH / 16>(sc, k_s, S::KVP, q_st, a_d, b_d, 16);
+      issue_ss6<0, DH / 16>(dp, v_s, S::KVP, do_st, a_d, b_d, 16);
       // BIAS: bv[4jj + 2r + e] the bias of query row m + 8jj + 2t + e, key kvt
       // + 8r (S^T's layout), loaded while the products run; an edge tile
       // reads only rows below Nq and keys below kv_valid_len.
@@ -383,13 +426,50 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
           }
         }
       }
-      wgmma_wait<1>();
+      wgmma_wait<WIDE ? 0 : 1>();
       fence_regs(sc);
+      if constexpr (WIDE) {
+        // The partial S^T and dP^T over this CTA's 128 columns to the peer,
+        // and the peer's added to them (mine + peer's: the same sums, bit for
+        // bit, in both CTAs, as IEEE addition commutes), through distributed
+        // shared memory: thread tid writes its 32 floats into the peer's
+        // buffer `xb` at chunk c 128 + tid, then arrives there on x_full[xb];
+        // both buffers alternate by visit, so a buffer is written again only
+        // after every peer thread has read it (it has sent the next visit).
+        fence_regs(dp);
+        const int xb = it & 1;
+        const uint32_t mine = smem_u32(smem + S::OFF_X + xb * S::XBUF) + 16 * tid;
+        const uint32_t peer = cluster_addr(mine, rank ^ 1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          st_cluster_f4(peer + c * 128 * 16, sc[4 * c], sc[4 * c + 1], sc[4 * c + 2],
+                        sc[4 * c + 3]);
+          st_cluster_f4(peer + (4 + c) * 128 * 16, dp[4 * c], dp[4 * c + 1], dp[4 * c + 2],
+                        dp[4 * c + 3]);
+        }
+        mbar_arrive_cluster(cluster_addr(smem_u32(&x_full[xb]), rank ^ 1));
+        mbar_wait_cluster(&x_full[xb], (it >> 1) & 1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float4 xs = *reinterpret_cast<const float4*>(
+              smem + S::OFF_X + xb * S::XBUF + 16 * (c * 128 + tid));
+          const float4 xd = *reinterpret_cast<const float4*>(
+              smem + S::OFF_X + xb * S::XBUF + 16 * ((4 + c) * 128 + tid));
+          sc[4 * c] += xs.x;  // bwd f32 d256 peer S^T
+          sc[4 * c + 1] += xs.y;
+          sc[4 * c + 2] += xs.z;
+          sc[4 * c + 3] += xs.w;
+          dp[4 * c] += xd.x;
+          dp[4 * c + 1] += xd.y;
+          dp[4 * c + 2] += xd.z;
+          dp[4 * c + 3] += xd.w;
+        }
+      }
 
       // P^T: sc[4jj + 2r + e] is key kvt + 8r, query row m + 8jj + 2t + e; a
       // dead row's LSE becomes +inf (P = 0 exactly).
       const uint32_t lse_addr = smem_u32(s_stats + s * F32B_BLOCK_M + 2 * tt);
-      const uint32_t dlt_addr = smem_u32(s_stats + (2 + s) * F32B_BLOCK_M + 2 * tt);
+      const uint32_t dlt_addr = smem_u32(s_stats + (ST + s) * F32B_BLOCK_M + 2 * tt);
       const int* q_ids = seg_q_s + s * F32B_BLOCK_M + 2 * tt;  // SEG: this thread's query ids
       float pj[16];  // P^T (CAP: P^T (1 - tt^2)), all dS^T needs
 #pragma unroll
@@ -433,7 +513,7 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       wgmma_wait<0>();
       fence_regs(dp);
       if constexpr (BIAS) {
-        if (p.dbias != nullptr) {
+        if (p.dbias != nullptr && (!WIDE || rank == 0)) {  // bwd f32 dbias rank
           // dbias = dL^T = P^T (dP^T - Delta), before the scale and the cap's
           // Jacobian (pj holds P^T (1 - t^2)): 8 lanes store 8 keys of a row.
           float* db = p.dbias +
@@ -462,7 +542,7 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       {
         uint32_t pa[3][2][4];
         split3_frags<2>(pa, sc);
-        issue_rs6<D>(dv, pa, do_st);
+        issue_rs6<DH>(dv, pa, do_st);
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           const float2 dl = lds_f2(dlt_addr + 32 * jj);
@@ -487,7 +567,7 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       // 8 (i & 1), queries 16kk + 8 (i >> 1) + 2t and + 1.
       uint32_t da[3][2][4];
       split3_frags<2>(da, dp);
-      issue_rs6<D>(dk, da, q_st);
+      issue_rs6<DH>(dk, da, q_st);
 #pragma unroll
       for (int pc = 0; pc < 3; ++pc) {
 #pragma unroll
@@ -518,9 +598,10 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       if (issuer) bulk_wait_read();  // the last tile's reduction has read the dQ stage
       named_sync(1, 128);            // dS written by every tw, the dQ stage free
 
-      // dQ^T = K^T dS^T, 64 of D's columns at a time: dq[4jj + 2r + e] is
-      // column 64x + 16 tw + tg + 8r, query row 8jj + 2t + e, staged into
-      // the row-major [32][d] tile (dQ's own layout).
+      // dQ^T = K^T dS^T, 64 of the CTA's columns at a time: dq[4jj + 2r + e]
+      // is column c_off + 64x + 16 tw + tg + 8r, query row 8jj + 2t + e,
+      // staged into the row-major [32][dcols] tile (dQ's own layout; at D 256
+      // the CTA's half of each row).
 #pragma unroll
       for (int x = 0; x < BOXES; ++x) {
         float dq[16];
@@ -532,11 +613,11 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int col = 64 * x + tw * 16 + tg + 8 * r;
-          if (col >= d) continue;  // bwd f32 dQ stage columns
+          if (col >= dcols) continue;  // bwd f32 dQ stage columns
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
-            dq_stage[(8 * jj + 2 * tt) * d + col] = dq[4 * jj + 2 * r];
-            dq_stage[(8 * jj + 2 * tt + 1) * d + col] = dq[4 * jj + 2 * r + 1];
+            dq_stage[(8 * jj + 2 * tt) * dcols + col] = dq[4 * jj + 2 * r];
+            dq_stage[(8 * jj + 2 * tt + 1) * dcols + col] = dq[4 * jj + 2 * r + 1];
           }
         }
       }
@@ -546,8 +627,17 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
         // Only the tile's rows below Nq: dQ is [B, Hq, Nq, d] contiguous, so
         // a full 32 rows on the last tile would add into the next head's.
         const int q_rows = min(F32B_BLOCK_M, p.nq - m);
-        bulk_reduce_add_f32(p.dq + ((static_cast<int64_t>(b) * p.hq + h) * p.nq + m) * d,
-                            dq_stage, q_rows * d * 4);  // bwd f32 dQ reduce
+        float* dq_tile = p.dq + ((static_cast<int64_t>(b) * p.hq + h) * p.nq + m) * d;
+        if constexpr (WIDE) {
+          // One reduction per row of this CTA's columns: a span over rows
+          // would add into the peer's columns and the next rows.
+          if (tid < q_rows) {
+            bulk_reduce_add_f32(dq_tile + static_cast<int64_t>(tid) * d + c_off,
+                                dq_stage + tid * dcols, dcols * 4);  // bwd f32 d256 dQ reduce
+          }
+        } else {
+          bulk_reduce_add_f32(dq_tile, dq_stage, q_rows * d * 4);  // bwd f32 dQ reduce
+        }
         bulk_commit();
       }
     }
@@ -559,10 +649,11 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
     for (int r = 0; r < 2; ++r) {
       const int key = kv0 + 8 * r;
       if (key >= p.nk) continue;
-      const int64_t off = ((static_cast<int64_t>(b) * p.hq + h) * p.nk + key) * d + 2 * t;
+      const int64_t off =
+          ((static_cast<int64_t>(b) * p.hq + h) * p.nk + key) * d + c_off + 2 * t;
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj) {
-        if (8 * jj + 2 * t >= d) continue;
+      for (int jj = 0; jj < DH / 8; ++jj) {
+        if (c_off + 8 * jj + 2 * t >= d) continue;
         *reinterpret_cast<float2*>(p.dk + off + 8 * jj) =
             make_float2(dk[4 * jj + 2 * r], dk[4 * jj + 2 * r + 1]);
         *reinterpret_cast<float2*>(p.dv + off + 8 * jj) =
@@ -570,6 +661,8 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       }
     }
   }
+  // WIDE: no CTA leaves while its peer may still write into its shared memory.
+  if constexpr (WIDE) cluster_sync();
 }
 
 template <int D, bool SEG, bool CAP, bool BIAS>
@@ -580,9 +673,27 @@ cudaError_t bwd_f32_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
   constexpr int smem = F32BwdSmem<D>::BYTES;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(p.hq, (p.nk + F32B_BLOCK_N - 1) / F32B_BLOCK_N, p.batch);
-  kernel<<<grid, F32B_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
-  return cudaGetLastError();
+  constexpr int ranks = F32BwdSmem<D>::WIDE ? 2 : 1;  // CTAs per cluster
+  const dim3 grid(p.hq * ranks, (p.nk + F32B_BLOCK_N - 1) / F32B_BLOCK_N, p.batch);
+  if constexpr (ranks == 1) {
+    kernel<<<grid, F32B_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
+    return cudaGetLastError();
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(F32B_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ranks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t le = cudaLaunchKernelEx(&cfg, kernel, tm_q, tm_k, tm_v, tm_do, p);
+    return le != cudaSuccess ? le : cudaGetLastError();
+  }
 }
 
 template <int D, bool BIAS>
@@ -607,7 +718,8 @@ extern "C" {
 // [B, Hq, Nq, D] and k / v [B, Hkv, Nk, D] (unit stride on D, other strides
 // in elements, any alignment), and after dv `pieces`: bf16 scratch of 3 DB (2
 // B Hq Nq + 2 B Hkv kv_valid_len) elements, 16-byte aligned (DB = 64 for D <=
-// 64, else 128). One launch of the split (split_bf16x3.cu) writes the three
+// 64, 128 for D <= 128, else 256; above 128 the D 256 form, a cluster of two
+// CTAs a KV tile). One launch of the split (split_bf16x3.cu) writes the three
 // bf16 pieces of q's and dout's rows and of k's and v's first kv_valid_len
 // rows there (q, k, v, dout in that order, each [3, B, H, N, DB]); the
 // attention kernel then reads them. lse / delta [B, Hq, nq_pad] f32
@@ -644,7 +756,7 @@ int fa_bwd_f32(const void* q, const void* k, const void* v, const void* dout, co
   const bool seg = seg_q != nullptr;
   const bool cap = softcap > 0.f;
   const bool has_bias = bias != nullptr;
-  if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
+  if (d < 8 || d > 256 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
       hq > 65535 || hq % hkv != 0 || nq < 1 || nk < 1 ||
       (nk + F32B_BLOCK_N - 1) / F32B_BLOCK_N > 65535 || kv_valid_len < 1 ||
       kv_valid_len > nk || nq_pad < nq || nq_pad % F32B_BLOCK_M || !(softcap >= 0.f) ||
@@ -662,7 +774,7 @@ int fa_bwd_f32(const void* q, const void* k, const void* v, const void* dout, co
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // The pieces: q's [3, B, Hq, Nq, DB], k's and v's [3, B, Hkv, kv_valid_len,
   // DB], dout's [3, B, Hq, Nq, DB].
-  const int db = d <= 64 ? 64 : 128;
+  const int db = d <= 64 ? 64 : d <= 128 ? 128 : 256;
   const int64_t q_head = static_cast<int64_t>(db) * nq;
   const int64_t kv_head = static_cast<int64_t>(db) * kv_valid_len;
   __nv_bfloat16* qp = static_cast<__nv_bfloat16*>(pieces);
@@ -717,11 +829,13 @@ int fa_bwd_f32(const void* q, const void* k, const void* v, const void* dout, co
   p.dbias = static_cast<float*>(dbias);
   p.bias_sb = bias_sb; p.bias_sh = bias_sh; p.bias_sn = bias_sn;
   if (has_bias) {
-    e = d <= 64 ? bwd_f32_dispatch<64, true>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s)
-                : bwd_f32_dispatch<128, true>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s);
+    e = d <= 64    ? bwd_f32_dispatch<64, true>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s)
+        : d <= 128 ? bwd_f32_dispatch<128, true>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s)
+                   : bwd_f32_dispatch<256, true>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s);
   } else {
-    e = d <= 64 ? bwd_f32_dispatch<64, false>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s)
-                : bwd_f32_dispatch<128, false>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s);
+    e = d <= 64    ? bwd_f32_dispatch<64, false>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s)
+        : d <= 128 ? bwd_f32_dispatch<128, false>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s)
+                   : bwd_f32_dispatch<256, false>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s);
   }
   return static_cast<int>(e);
 }

@@ -7,7 +7,9 @@
 // With BIAS, an additive f32 bias [B|1, H|1, Nq|1, Nk] (K1's bias route's,
 // fwd_sm90_tile.cuh) with all of these. Kernels fwd_f32_kernel<D, SEG, CAP,
 // BIAS> (D 64 and 128, every D <= 128 that is a multiple of 8 by the TMA
-// boxes' zero fill) and the C entry fa_fwd_f32.
+// boxes' zero fill), its D 256 form fwd_f32_wide_kernel<SEG, CAP, BIAS>
+// (every D 136-256: 64 Q rows a CTA, its notes below) and the C entry
+// fa_fwd_f32.
 //
 // Replaces the TPU kernel flashattn_tpu/ops/flash_fwd.py::_fwd_kernel (K1,
 // :115) on f32 inputs and, with causal or a window, K2
@@ -110,6 +112,8 @@ using namespace fa;
 constexpr int F32_BLOCK_M = 128;  // Q rows per CTA: two consumer warpgroups of 64
 constexpr int F32_BLOCK_N = 64;   // keys per KV tile
 constexpr int F32_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
+constexpr int F32W_BLOCK_M = 64;  // the D 256 form's Q rows per CTA: one consumer warpgroup
+constexpr int F32W_THREADS = 256;  // its producer warpgroup + consumer warpgroup
 
 // Shared-memory layout (bytes, from a 1024-byte-aligned base): Q's three
 // pieces (each D / 64 boxes of 128 rows), STAGES K slots and STAGES V slots
@@ -431,15 +435,334 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
   }
 }
 
+// The D 256 form (every D 136-256): Q's three pieces of 64 rows (4 boxes
+// each), then two chunk slots, each one 128-column half of a K or V tile's
+// three pieces (2 boxes of 64 keys), with BIAS the tile's bias [64 rows x 64
+// keys] f32 on a barrier pair of its own, the tile's 64 ids, then the
+// mbarriers q_full, full[2], empty[2], bias_full, bias_empty.
+template <bool BIAS>
+struct F32WideFwdSmem {
+  static constexpr int QP = F32W_BLOCK_M * 256 * 2;   // one piece of Q
+  static constexpr int CP = F32_BLOCK_N * 128 * 2;    // one piece of a chunk
+  static constexpr int SLOT = 3 * CP;
+  static constexpr int OFF_SLOT = 3 * QP;
+  static constexpr int BIAS_TILE = BIAS ? F32W_BLOCK_M * F32_BLOCK_N * 4 : 0;
+  static constexpr int OFF_BIAS = OFF_SLOT + 2 * SLOT;
+  static constexpr int OFF_SEG = OFF_BIAS + BIAS_TILE;  // int[64]
+  static constexpr int BARS = OFF_SEG + F32_BLOCK_N * 4;
+  static constexpr int BYTES = 1024 + BARS + 7 * 8;
+  static_assert(QP % 1024 == 0 && CP % 1024 == 0, "the 128-byte swizzle repeats every 1024 bytes");
+  static_assert(BYTES <= 232448, "a block's shared memory on sm_90");
+};
+
+// K1's f32 route at D 256. The D 128 layout does not double (Q's pieces
+// alone would be 192 KB), so a CTA owns 64 Q rows of one (batch, head):
+// warpgroup 0 the producer (thread 0 issues the TMA copies; with BIAS all
+// 128 copy the bias tile by cp.async), warpgroup 1 the one consumer, its
+// f32 O (128 registers a thread) in two halves of 128 columns. Every KV tile
+// comes as four chunks through a two-slot ring -- K's column halves, then
+// V's -- so V's halves load during the softmax and the next K's during P V.
+// S = Q K^T: six wgmma m64n64k16 chains over both K halves into one
+// accumulator, the small products first; O += P V: six chains of m64n128k16
+// per half, P's three pieces from registers. The two-CTA cluster that
+// splits D (each CTA the D 128 body on its half, the partial S summed
+// through distributed shared memory) would keep 128 rows a pair, but its
+// 32 KB exchange buffer leaves no room for a bias tile beside the D 128
+// layout's 192 KB; 64 rows leave 16 KB for it in shared memory. No
+// setmaxnreg: at 256 threads a thread may hold 255 registers.
+template <bool SEG, bool CAP, bool BIAS>
+__global__ void __launch_bounds__(F32W_THREADS, 1)
+    fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, const FwdF32Params p) {
+  using S = F32WideFwdSmem<BIAS>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + 2;
+  uint64_t* bias_full = empty + 2;
+  uint64_t* bias_empty = bias_full + 1;
+  auto slot = [&](int s) { return smem + S::OFF_SLOT + s * S::SLOT; };
+  const int* ids = reinterpret_cast<const int*>(smem + S::OFF_SEG);
+
+  const int h = blockIdx.x;
+  const int m_tile = p.hi < NO_BOUND ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int m0 = m_tile * F32W_BLOCK_M;
+  const int b = blockIdx.z;
+  const int nkv = p.kv_valid_len;
+  int n_begin = 0;
+  if (p.lo < NO_BOUND) n_begin = max(0, m0 - p.lo) / F32_BLOCK_N * F32_BLOCK_N;
+  const int n_end = p.hi < NO_BOUND ? min(nkv, m0 + F32W_BLOCK_M + p.hi) : nkv;
+  const int n_tiles = n_end > n_begin ? (n_end - n_begin + F32_BLOCK_N - 1) / F32_BLOCK_N : 0;
+  const int t_begin = n_begin / F32_BLOCK_N;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  // SEG: the id range of the 128-row tile that holds these 64 rows (the C
+  // entry's ranges; a superset of theirs, so no visited tile is missed).
+  int2 q_rng = make_int2(0, 0);
+  if constexpr (SEG) q_rng = p.q_range[b * p.q_tiles + m0 / F32_BLOCK_M];
+  auto kv_rng = [&](int j) { return p.kv_range[b * p.kv_tiles + t_begin + j]; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full[s], 1);   // the TMA thread's expect_tx
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    mbar_init(bias_full, 128);  // each producer thread's cp.async
+    mbar_init(bias_empty, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    const int hk = h / p.rep;
+    if (tid == 0) {
+      mbar_expect_tx(q_full, 3 * S::QP);
+#pragma unroll
+      for (int pc = 0; pc < 3; ++pc) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          tma_load_4d(smem + pc * S::QP + x * F32W_BLOCK_M * SW128_ROW, &tm_q, q_full, 64 * x, m0,
+                      h, pc * p.batch + b);
+        }
+      }
+    }
+    // One chunk: the column half `half` of K's or V's tile at n0 into the
+    // next slot (ring position it); K's first half brings the tile's ids.
+    auto chunk = [&](const CUtensorMap* map, int half, int n0, int it, bool with_ids) {
+      const int s = it & 1;
+      mbar_wait(&empty[s], ((it >> 1) & 1) ^ 1);  // round 0 passes at once
+      mbar_expect_tx(&full[s], S::SLOT + (with_ids ? F32_BLOCK_N * 4 : 0));
+#pragma unroll
+      for (int pc = 0; pc < 3; ++pc) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          tma_load_4d(slot(s) + pc * S::CP + x * F32_BLOCK_N * SW128_ROW, map, &full[s],
+                      64 * (2 * half + x), n0, hk, pc * p.batch + b);
+        }
+      }
+      if (with_ids) {
+        bulk_load(smem + S::OFF_SEG,
+                  p.seg_kv + static_cast<int64_t>(b) * p.kv_tiles * F32_BLOCK_N + n0,
+                  F32_BLOCK_N * 4, &full[s]);
+      }
+    };
+    // BIAS: thread tid copies 4 columns (chunk c) of rows r0 + 8i (row 0
+    // alone for a row-broadcast bias); zeros past Nq and past kv_valid_len.
+    const int c = tid % (F32_BLOCK_N / 4);
+    const int r0 = tid / (F32_BLOCK_N / 4);
+    const float* bias_src = nullptr;
+    if constexpr (BIAS) {
+      bias_src = p.bias + b * p.bias_sb + h * p.bias_sh + (m0 + r0) * p.bias_sn + 4 * c;
+    }
+    if (BIAS || tid == 0) {
+      int it = 0, v = 0;  // chunks and tiles issued
+      for (int j = 0; j < n_tiles; ++j) {
+        if constexpr (SEG) {
+          if (!ranges_meet(q_rng, kv_rng(j))) continue;
+        }
+        const int n0 = n_begin + j * F32_BLOCK_N;
+        if (tid == 0) {
+          chunk(&tm_k, 0, n0, it, SEG);
+          chunk(&tm_k, 1, n0, it + 1, false);
+        }
+        if constexpr (BIAS) {
+          mbar_wait(bias_empty, (v & 1) ^ 1);
+          const int col_bytes = 4 * min(max(nkv - n0 - 4 * c, 0), 4);
+          float* dst = reinterpret_cast<float*>(smem + S::OFF_BIAS) + bias_slot(r0, c);
+          const float* src = bias_src + n0;  // K1 f32 d256 bias column
+          if (p.bias_sn == 0) {
+            if (r0 == 0) cp_async_16_zfill(dst, col_bytes ? src : p.bias, col_bytes);
+          } else {
+#pragma unroll
+            for (int i = 0; i < F32W_BLOCK_M / 8; ++i) {
+              const int bytes = r0 + 8 * i < p.nq - m0 ? col_bytes : 0;
+              cp_async_16_zfill(dst + 8 * i * F32_BLOCK_N,
+                                bytes ? src + i * 8 * p.bias_sn : p.bias, bytes);
+            }
+          }
+          cp_async_mbar_arrive(bias_full);
+        }
+        if (tid == 0) {
+          chunk(&tm_v, 0, n0, it + 2, false);
+          chunk(&tm_v, 1, n0, it + 3, false);
+        }
+        it += 4;
+        ++v;
+      }
+      if constexpr (BIAS) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    }
+  } else {
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int row0 = m0 + warp * 16 + g;  // this thread's rows row0, row0 + 8
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    float o[2][64];  // O's column halves
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[hf][i] = 0.f;
+    }
+    float m_i[2] = {-INFINITY, -INFINITY};
+    float l_i[2] = {0.f, 0.f};
+    float sc[32], alpha[2];
+    uint32_t pa[3][4][4];
+    int q_seg[2] = {0, 0};
+    if constexpr (SEG) {
+      const int* q_ids = p.seg_q + b * p.seg_q_sb;
+      q_seg[0] = row0 < p.nq ? q_ids[row0] : 0;
+      q_seg[1] = row0 + 8 < p.nq ? q_ids[row0 + 8] : 0;
+    }
+    const bool q_one_doc = q_rng.x == q_rng.y;
+    uint32_t b_off = 0, b_step = 0;
+    if constexpr (BIAS) {
+      const int b_row = p.bias_sn ? row0 - m0 : 0;
+      b_off = smem_u32(smem + S::OFF_BIAS) + 4 * (b_row * F32_BLOCK_N + 8 * (b_row & 3) + 2 * t);
+      b_step = p.bias_sn ? 4 * 8 * F32_BLOCK_N : 0;
+    }
+    mbar_wait(q_full, 0);
+    int v = 0;  // tiles visited, in the producer's order
+    for (int j = 0; j < n_tiles; ++j) {
+      int2 k_rng = make_int2(0, 0);
+      if constexpr (SEG) {
+        k_rng = kv_rng(j);
+        if (!ranges_meet(q_rng, k_rng)) continue;
+      }
+      const int c0 = n_begin + j * F32_BLOCK_N;
+      // K's halves are in slots 0 and 1 (the phase of each slot's even
+      // use), V's after them (the odd use).
+      mbar_wait(&full[0], 0);
+      mbar_wait(&full[1], 0);
+      wgmma_fence();
+#pragma unroll
+      for (int x = 0; x < 6; ++x) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const unsigned char* a = smem + pair_a(x) * S::QP + 2 * hf * F32W_BLOCK_M * SW128_ROW;
+          const unsigned char* kb = slot(hf) + pair_b(x) * S::CP;
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            wgmma_ss_m64n64k16(
+                sc,
+                smem_desc(a + (kk / 4) * F32W_BLOCK_M * SW128_ROW + (kk % 4) * 32, 16, 1024),
+                smem_desc(kb + (kk / 4) * F32_BLOCK_N * SW128_ROW + (kk % 4) * 32, 16, 1024),
+                x > 0 || hf > 0 || kk > 0);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      release(&empty[0]);
+      release(&empty[1]);
+      const bool edge = c0 + F32_BLOCK_N > nkv || c0 + F32_BLOCK_N - 1 - m0 > p.hi ||
+                        m0 + F32W_BLOCK_M - 1 - c0 > p.lo ||
+                        (SEG && !(q_one_doc && k_rng.x == k_rng.y && k_rng.x == q_rng.x));
+      if constexpr (BIAS) mbar_wait(bias_full, v & 1);
+      if (edge) {
+        dense_softmax_tile<true, SEG, CAP, true, BIAS>(
+            sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, p.cap_scale,
+            p.cap_log2, m_i, l_i, alpha, b_off, b_step);
+      } else {
+        dense_softmax_tile<false, SEG, CAP, true, BIAS>(
+            sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, p.cap_scale,
+            p.cap_log2, m_i, l_i, alpha, b_off, b_step);
+      }
+      if constexpr (BIAS) release(bias_empty);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[hf][i] *= alpha[(i >> 1) & 1];
+      }
+      split3_frags<4>(pa, sc);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        mbar_wait(&full[hf], 1);
+        wgmma_fence();
+#pragma unroll
+        for (int x = 0; x < 6; ++x) {
+          const unsigned char* vb = slot(hf) + pair_b(x) * S::CP;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            wgmma_pv<128>(o[hf], pa[pair_a(x)][kk],
+                          smem_desc(vb + kk * 16 * SW128_ROW, F32_BLOCK_N * SW128_ROW, 1024));
+          }
+        }
+        wgmma_commit();
+      }
+      wgmma_wait<1>();  // V's first half has been read
+      fence_regs(o[0]);
+      release(&empty[0]);
+      wgmma_wait<0>();
+      fence_regs(o[1]);
+#pragma unroll
+      for (int pc = 0; pc < 3; ++pc) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) fence_regs(pa[pc][kk]);
+      }
+      release(&empty[1]);
+      ++v;
+    }
+
+    // Epilogue: O = acc / l, LSE = m ln2 + log l; rows past Nq and O's
+    // columns >= D (zeros the boxes read) masked on store.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_i[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const bool dead = m_i[r] <= MASK_VALUE * 0.5f;
+      const float l_safe = l == 0.f ? 1.f : l;
+      const float inv = dead ? 0.f : 1.f / l_safe;
+      const int row = row0 + 8 * r;
+      if (row < p.nq) {
+        float* o_row = p.o + b * p.o_sb + h * p.o_sh + static_cast<int64_t>(row) * p.o_sn;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+          for (int jj = 0; jj < 16; ++jj) {
+            const int col = 128 * hf + 8 * jj + 2 * t;
+            if (col >= p.d) continue;  // K1 f32 d256 O columns
+            *reinterpret_cast<float2*>(o_row + col) =
+                make_float2(o[hf][4 * jj + 2 * r] * inv, o[hf][4 * jj + 2 * r + 1] * inv);
+          }
+        }
+        if (t == 0) {
+          p.lse[(static_cast<int64_t>(b) * p.hq + h) * p.nq + row] =
+              dead ? LN2 * MASK_VALUE : m_i[r] * LN2 + logf(l_safe);
+        }
+      }
+    }
+  }
+}
+
 template <int D, bool SEG, bool CAP, bool BIAS>
 cudaError_t fwd_f32_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                            const CUtensorMap& tm_v, const FwdF32Params& p, cudaStream_t stream) {
-  auto kernel = fwd_f32_kernel<D, SEG, CAP, BIAS>;
-  constexpr int smem = F32FwdSmem<D, BIAS>::BYTES;
-  const cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(p.hq, p.q_tiles, p.batch);
-  kernel<<<grid, F32_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, p);
+  if constexpr (D == 256) {
+    auto kernel = fwd_f32_wide_kernel<SEG, CAP, BIAS>;
+    constexpr int smem = F32WideFwdSmem<BIAS>::BYTES;
+    const cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(p.hq, (p.nq + F32W_BLOCK_M - 1) / F32W_BLOCK_M, p.batch);
+    kernel<<<grid, F32W_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, p);
+  } else {
+    auto kernel = fwd_f32_kernel<D, SEG, CAP, BIAS>;
+    constexpr int smem = F32FwdSmem<D, BIAS>::BYTES;
+    const cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    const dim3 grid(p.hq, p.q_tiles, p.batch);
+    kernel<<<grid, F32_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, p);
+  }
   return cudaGetLastError();
 }
 
@@ -465,7 +788,7 @@ extern "C" {
 // any alignment), o [B, Hq, Nq, D] f32 (strides in elements, even), lse [B,
 // Hq, Nq] f32 contiguous, and after lse `pieces`: bf16 scratch of 3 DB (B Hq
 // Nq + 2 B Hkv kv_valid_len) elements, 16-byte aligned (DB = 64 for D <= 64,
-// else 128). One launch of the split (split_bf16x3.cu) writes the three bf16
+// 128 for D <= 128, else 256). One launch of the split (split_bf16x3.cu) writes the three bf16
 // pieces of q's rows and of k's and v's first kv_valid_len rows there, in
 // that order, each [3, B, H, N, DB]; the attention kernel then reads them.
 // Positions are absolute (q_off + row, kv_off + key) for causal and the
@@ -476,8 +799,9 @@ extern "C" {
 // stride, (batch, head, row) strides in elements, 0 on broadcast dims, a
 // 16-byte-aligned address and row stride (fa_fwd_bias_sm90's), its columns
 // read only below kv_valid_len and its rows below Nq. Requires 8 <= D
-// <= 128 with D % 8 == 0, Hq % Hkv == 0, 1 <= Nq, 0 <= kv_valid_len, B <=
-// 65535; o 8-byte aligned; seg_kv 16-byte aligned. Returns a cudaError_t (0
+// <= 256 with D % 8 == 0 (above 128 the D 256 form, 64 Q rows a CTA; the
+// id ranges stay those of 128-row tiles), Hq % Hkv == 0, 1 <= Nq, 0 <=
+// kv_valid_len, B <= 65535; o 8-byte aligned; seg_kv 16-byte aligned. Returns a cudaError_t (0
 // on success; cudaErrorInvalidValue for arguments it does not take,
 // cudaErrorNotSupported when cuTensorMapEncodeTiled is missing or refuses a
 // tensor map).
@@ -492,8 +816,10 @@ int fa_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, 
   const bool seg = seg_q != nullptr;
   const bool has_bias = bias != nullptr;
   const int q_tiles = (nq + F32_BLOCK_M - 1) / F32_BLOCK_M;
-  if (d < 8 || d > 128 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
-      hq > 65535 || hq % hkv != 0 || nq < 1 || q_tiles > 65535 || kv_valid_len < 0 ||
+  const int cta_rows = d > 128 ? F32W_BLOCK_M : F32_BLOCK_M;  // Q rows per CTA
+  if (d < 8 || d > 256 || d % 8 || batch < 1 || batch > 65535 || hkv < 1 || hq < 1 ||
+      hq > 65535 || hq % hkv != 0 || nq < 1 || (nq + cta_rows - 1) / cta_rows > 65535 ||
+      kv_valid_len < 0 ||
       !(softcap >= 0.f) || !aligned(pieces, 16) || !aligned(o, 8) ||
       (o_sb | o_sh | o_sn) % 2 || seg != (seg_kv != nullptr) || seg != (q_range != nullptr) ||
       seg != (kv_range != nullptr) || (seg && !aligned(seg_kv, 16)) ||
@@ -504,7 +830,7 @@ int fa_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, 
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // The pieces: q's [3, B, Hq, Nq, DB], then k's and v's [3, B, Hkv, kv_valid_len, DB].
-  const int db = d <= 64 ? 64 : 128;
+  const int db = d <= 64 ? 64 : d <= 128 ? 128 : 256;
   __nv_bfloat16* qp = static_cast<__nv_bfloat16*>(pieces);
   __nv_bfloat16* kp = qp + 3LL * db * batch * hq * nq;
   __nv_bfloat16* vp = kp + 3LL * db * batch * hkv * kv_valid_len;
@@ -521,7 +847,7 @@ int fa_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, 
   alignas(64) CUtensorMap tm_k;
   alignas(64) CUtensorMap tm_v;
   const int64_t q_row = db, q_head = q_row * nq, kv_row = db, kv_head = kv_row * nkv;
-  if (!make_bhnd_map(&tm_q, qp, 3 * batch, hq, nq, d, q_head * hq, q_head, q_row, F32_BLOCK_M) ||
+  if (!make_bhnd_map(&tm_q, qp, 3 * batch, hq, nq, d, q_head * hq, q_head, q_row, cta_rows) ||
       !make_bhnd_map(&tm_k, kp, 3 * batch, hkv, nkv, d, kv_head * hkv, kv_head, kv_row,
                      F32_BLOCK_N) ||
       !make_bhnd_map(&tm_v, vp, 3 * batch, hkv, nkv, d, kv_head * hkv, kv_head, kv_row,
@@ -553,11 +879,13 @@ int fa_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, 
   p.bias = static_cast<const float*>(bias);
   p.bias_sb = bias_sb; p.bias_sh = bias_sh; p.bias_sn = bias_sn;
   if (has_bias) {
-    e = d <= 64 ? fwd_f32_dispatch<64, true>(tm_q, tm_k, tm_v, p, seg, cap, s)
-                : fwd_f32_dispatch<128, true>(tm_q, tm_k, tm_v, p, seg, cap, s);
+    e = d <= 64    ? fwd_f32_dispatch<64, true>(tm_q, tm_k, tm_v, p, seg, cap, s)
+        : d <= 128 ? fwd_f32_dispatch<128, true>(tm_q, tm_k, tm_v, p, seg, cap, s)
+                   : fwd_f32_dispatch<256, true>(tm_q, tm_k, tm_v, p, seg, cap, s);
   } else {
-    e = d <= 64 ? fwd_f32_dispatch<64, false>(tm_q, tm_k, tm_v, p, seg, cap, s)
-                : fwd_f32_dispatch<128, false>(tm_q, tm_k, tm_v, p, seg, cap, s);
+    e = d <= 64    ? fwd_f32_dispatch<64, false>(tm_q, tm_k, tm_v, p, seg, cap, s)
+        : d <= 128 ? fwd_f32_dispatch<128, false>(tm_q, tm_k, tm_v, p, seg, cap, s)
+                   : fwd_f32_dispatch<256, false>(tm_q, tm_k, tm_v, p, seg, cap, s);
   }
   return static_cast<int>(e);
 }

@@ -17,15 +17,15 @@
 // __float2bfloat16_rn (no flush of subnormals).
 //
 // What bounds it: bytes. Each f32 element is read once (4 bytes) and written
-// as three bf16 (6 bytes, 8 past D in a box of 64 or 128 columns): at the f32
+// as three bf16 (6 bytes, 8 past D in a box of 64, 128 or 256 columns): at the f32
 // LM's Q, K and V (B1 Hq16 Hkv8 N2048 D128) 33.6 MB read and 50.3 MB written,
 // 0.025 ms at 3.35 TB/s. One thread takes 8 columns of a row -- two 16-byte
 // loads (4-byte ones where the view's alignment or D forbids them) and three
 // 16-byte stores, neighbouring threads on neighbouring addresses -- so the
 // copy runs at the memory's rate.
 //
-// Layout of the output: [3, B, H, N, DB] bf16 contiguous (DB the D box, 64
-// or 128), piece p of batch b being batch p * B + b of a [3B, H, N, DB]
+// Layout of the output: [3, B, H, N, DB] bf16 contiguous (DB the D box, 64,
+// 128 or 256), piece p of batch b being batch p * B + b of a [3B, H, N, DB]
 // tensor, the 4-D TMA maps of the attention bodies; columns D..DB-1 are
 // zeros. One launch splits up to four operands (the f32 routes' C entries
 // split Q, K and V, or Q, K, V and dO, before their attention kernel): each

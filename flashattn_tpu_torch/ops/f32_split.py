@@ -29,8 +29,8 @@ PIECES = 3
 
 def d_box(D: int) -> int:
     """The head-dim box of the pieces: the attention kernels' instantiation,
-    64 or 128 columns (zeros past D)."""
-    return 64 if D <= 64 else 128
+    64, 128 or 256 columns (zeros past D)."""
+    return 64 if D <= 64 else 128 if D <= 128 else 256
 
 
 def split_reference(x: torch.Tensor) -> torch.Tensor:

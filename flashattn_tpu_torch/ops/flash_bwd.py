@@ -27,7 +27,8 @@ On f32 inputs the split route, the bias route and K3
 (``flash_bwd_fused.bwd``) all launch one f32 body (:func:`_f32_bwd_launch`,
 ``csrc/flash_bwd_f32.cu``: TMA + wgmma on the three bf16 pieces of each f32
 operand, ``ops/f32_split.py``, six bf16 products per f32 product; with a
-bias its BIAS family, which writes dbias too), up to ``F32_MAX_HEAD_DIM``.
+bias its BIAS family, which writes dbias too), up to ``MAX_HEAD_DIM`` (its
+D 256 form above D 128, a cluster of two CTAs that split D).
 
 :func:`dkv` and :func:`dq` keep K5's and K6's plain versions
 (:func:`dkv_reference` / :func:`dq_reference`: dK / dV per query head, and
@@ -43,7 +44,6 @@ import torch
 
 from flashattn_tpu_torch.ops import f32_split
 from flashattn_tpu_torch.ops.flash_fwd import (
-    _ROADMAP_F32_WIDE,
     _kernel_ready,
     band_offsets,
     check_bias,
@@ -60,10 +60,9 @@ from flashattn_tpu_torch.ops.oracle import _expand_kv, _full_f32_matmul
 from flashattn_tpu_torch.utils import native
 
 # Head dims of the CUDA backward routes: K3, the split route and the bias
-# route take bf16 up to MAX_HEAD_DIM (D 136-256 in their D 256 forms,
-# csrc/bwd_sm90_wide.cuh); the f32 body stops at 128.
+# route take bf16 and f32 up to MAX_HEAD_DIM (D 136-256 in their D 256 forms,
+# csrc/bwd_sm90_wide.cuh and csrc/flash_bwd_f32.cu).
 MAX_HEAD_DIM = 256
-F32_MAX_HEAD_DIM = 128
 
 
 def recompute_p_ds(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -172,9 +171,8 @@ def check_kernel_args(q, name: str) -> None:
 def check_kernel_dims(q, name: str) -> None:
     """Raise for what the CUDA backward kernels do not take, whatever the
     device: a dtype other than bf16 and f32, D not a multiple of 8 or above
-    ``MAX_HEAD_DIM``, f32 above ``F32_MAX_HEAD_DIM`` (with or without a
-    bias: the f32 body takes a bias up to D 128), a grid past the CUDA
-    limits."""
+    ``MAX_HEAD_DIM`` (in either dtype, with or without a bias), a grid past
+    the CUDA limits."""
     B, Hq, _, D = q.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"the CUDA {name} takes bfloat16 or float32, got {q.dtype}")
@@ -182,10 +180,6 @@ def check_kernel_dims(q, name: str) -> None:
         raise NotImplementedError(
             f"the CUDA {name} takes head dims that are multiples of 8 up to {MAX_HEAD_DIM}, "
             f"got D={D} (ROADMAP queue 2, K1 options: head dims above 256)")
-    if q.dtype == torch.float32 and D > F32_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA {name} takes float32 at head dims up to {F32_MAX_HEAD_DIM}, got D={D} "
-            f"({_ROADMAP_F32_WIDE})")
     if B > 65535 or Hq > 65535:
         raise ValueError(f"B={B} and Hq={Hq} must each be at most 65535 (CUDA grid limit)")
 
@@ -258,16 +252,14 @@ def bias_bwd_route(*, head_dim: int, bias, dtype) -> bool:
     """Whether a backward goes to :func:`bias_bwd`, K5 and K6 in one launch:
     every call with a bias in bf16 at a head dim up to ``MAX_HEAD_DIM``
     (the Hopper bias kernel, ``csrc/bwd_bias_sm90.cu``, its D 256 form above
-    D 128) or in f32 up to
-    ``F32_MAX_HEAD_DIM`` (the f32 body's BIAS family,
-    ``csrc/flash_bwd_f32.cu``), each a multiple of 8, as every CUDA
+    D 128) or in f32 (the f32 body's BIAS family, ``csrc/flash_bwd_f32.cu``,
+    its D 256 form above D 128), each a multiple of 8, as every CUDA
     backward's -- causal or not, with or without a window, q / kv offsets,
     segment ids or the softcap, the GQA decode fold's calls too, whichever K1
     route the forward took. :func:`bias_bwd` decides the device: a CPU
     tensor takes the plain version."""
-    limit = F32_MAX_HEAD_DIM if dtype == torch.float32 else MAX_HEAD_DIM
     return (bias is not None and dtype in (torch.bfloat16, torch.float32)
-            and head_dim <= limit)
+            and head_dim <= MAX_HEAD_DIM)
 
 
 def bias_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -350,8 +342,8 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     :func:`bias_bwd_reference`. CUDA tensors launch the Hopper kernel, which
     takes what :func:`bias_bwd_route` sends it (bf16, ``D % 8 == 0``, ``D <=
     MAX_HEAD_DIM``; above ``SM90_BWD_NARROW_MAX`` its D 256 form, whose dK /
-    dV come per query head), or on f32 up to ``F32_MAX_HEAD_DIM`` the f32
-    body (:func:`_f32_bwd_launch`, dK / dV per query head too); each KV
+    dV come per query head), or on f32 up to ``MAX_HEAD_DIM`` the f32 body
+    (:func:`_f32_bwd_launch`, dK / dV per query head too); each KV
     head's group of per-query-head dK / dV is summed here; anything else
     raises. dQ is summed over the KV tiles by the card's L2 (one bulk
     reduction per tile), so its last bits may differ from run to run.
@@ -374,10 +366,6 @@ def bias_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     if q.device.type == "cpu":
         return bias_bwd_reference(q, k, v, do, lse, delta, want_dbias=want_dbias, **kw)
     check_kernel_args(q, "K5 + K6 bias route")
-    if q.dtype == torch.float32 and D > F32_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA K5 + K6 bias route takes no float32 above D {F32_MAX_HEAD_DIM}, got "
-            f"D={D} ({_ROADMAP_F32_WIDE})")
     f32 = dict(dtype=torch.float32, device=q.device)
     dbias = None
     if want_dbias:
@@ -450,16 +438,15 @@ SPLIT_MAX_Q_TILES = 4096
 def split_sm90_route(*, head_dim: int, bias, dtype, segment_ids, softcap) -> bool:
     """Whether a backward that K3 does not take (segment ids, a softcap or a
     bias) goes to the one launch of :func:`split_bwd` in place of K5 then
-    K6: bf16 (the Hopper kernel, its D 256 form above D 128) at a head dim up
-    to ``MAX_HEAD_DIM`` or f32 (the f32 body) up to ``F32_MAX_HEAD_DIM`` (a
-    multiple of 8, as every CUDA backward's), no bias, and segment ids or a
+    K6: bf16 (the Hopper kernel) or f32 (the f32 body), each with its D 256
+    form above D 128, at a head dim up to ``MAX_HEAD_DIM`` (a multiple of 8,
+    as every CUDA backward's), no bias, and segment ids or a
     softcap -- with or without causal, a window, offsets, GQA or a tail. The
     calls with a bias take :func:`bias_bwd`.
     :func:`split_bwd` decides the device: a CPU tensor takes the plain
     version."""
-    limit = F32_MAX_HEAD_DIM if dtype == torch.float32 else MAX_HEAD_DIM
     return (bias is None and dtype in (torch.bfloat16, torch.float32)
-            and head_dim <= limit and (segment_ids is not None or softcap is not None))
+            and head_dim <= MAX_HEAD_DIM and (segment_ids is not None or softcap is not None))
 
 
 def split_bwd_reference(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
@@ -517,8 +504,8 @@ def split_bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     (``flash_bwd_fused.bwd``). CPU tensors take :func:`split_bwd_reference`.
     CUDA tensors launch the Hopper kernel, which takes bf16 with ``D % 8 ==
     0``, ``D <= 256`` (its D 256 form above 128) and, with segment ids, ``Nq
-    <= 64 · SPLIT_MAX_Q_TILES``, or, on f32 up to D 128, the f32 body
-    (:func:`_f32_bwd_launch`); anything else raises. dQ is
+    <= 64 · SPLIT_MAX_Q_TILES``, or, on f32 at the same head dims, the f32
+    body (:func:`_f32_bwd_launch`); anything else raises. dQ is
     summed over the KV tiles by the card's L2 (one bulk reduction per tile),
     so its last bits may differ from run to run.
     ``split_bwd.launches`` counts the route's launches, on either kernel,
@@ -592,8 +579,10 @@ def _f32_bwd_launch(q, k, v, do, lse, delta, *, scale: float, causal: bool,
     dbias into ``dbias`` (``[B, Hq, Nq, Nk]`` f32, allocated by the caller,
     zeroed where :func:`dbias_skips` says; None: no dbias). dQ is added to by
     one bulk reduction a tile, so its last bits may differ from run to run.
-    ``_f32_bwd_launch.launches`` counts the kernel's launches,
-    ``_f32_bwd_launch.launches_split`` the split's."""
+    Above D 128 the C entry launches the D 256 form. ``_f32_bwd_launch.launches``
+    counts the kernel's launches, ``_f32_bwd_launch.launches_d256`` those of
+    its D 256 form (whichever of K3, the split route and the bias route
+    called it), ``_f32_bwd_launch.launches_split`` the split's."""
     B, Hq, Nq, D = q.shape
     Nk = k.shape[2]
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -620,9 +609,11 @@ def _f32_bwd_launch(q, k, v, do, lse, delta, *, scale: float, causal: bool,
                            dbias=dbias, bias_strides=bias_strides)
     native.check(rc, "flash_bwd_f32 kernel launch")
     _f32_bwd_launch.launches += 1
+    _f32_bwd_launch.launches_d256 += int(D > SM90_BWD_NARROW_MAX)
     _f32_bwd_launch.launches_split += 1
     return dq_, dk, dv
 
 
 _f32_bwd_launch.launches = 0
+_f32_bwd_launch.launches_d256 = 0
 _f32_bwd_launch.launches_split = 0

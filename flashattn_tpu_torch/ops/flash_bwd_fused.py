@@ -88,7 +88,8 @@ def bwd(q, k, v, do, lse, delta, *, scale: float, causal: bool = False,
     KV tile that no row reaches writes zero dK / dV). CPU tensors take
     :func:`bwd_reference`. CUDA tensors launch the Hopper kernel, which takes
     bf16 with ``D % 8 == 0`` and ``D <= 256`` (its D 256 form above 128), or
-    on f32 up to D 128 the f32 body (``flash_bwd._f32_bwd_launch``); anything
+    on f32 at the same head dims the f32 body (``flash_bwd._f32_bwd_launch``,
+    its D 256 form above 128); anything
     else raises. ``bwd.launches`` counts
     K3 launches on either kernel, ``bwd.launches_sm90`` those of the Hopper
     kernel (every bf16 one), ``bwd.launches_d256`` those of its D 256 form.

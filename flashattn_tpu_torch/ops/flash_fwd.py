@@ -26,7 +26,8 @@ Every call on an f32 q
 (:func:`f32_route`) goes to an f32 kernel of its own
 (``csrc/flash_fwd_f32.cu``: the dense route's TMA + wgmma scheme and
 options on the three bf16 pieces of each f32 operand, ``ops/f32_split.py``,
-six bf16 products per f32 product), decode shapes too; its plain version is
+six bf16 products per f32 product; above D 128 its D 256 form), decode
+shapes too; its plain version is
 :func:`fwd_reference` as well. :func:`fwd` launches a kernel for
 CUDA tensors and computes the plain :func:`fwd_reference` for CPU tensors --
 the device of the input decides, and a CUDA tensor never reaches a plain
@@ -76,25 +77,23 @@ DECODE_TILE = 64
 DECODE_MIN_TILES = 4
 DECODE_CTAS_PER_SM = 4
 H100_SMS = 132
-# The f32 route (csrc/flash_fwd_f32.cu): head dims that are multiples of 8 up
-# to this (instantiated at 64 and 128, the TMA boxes reading zeros past D);
-# the dense and bias routes take every head dim up to MAX_HEAD_DIM (their D
-# 256 forms above this).
+# The head dims above which K1's dense, bias and f32 routes run their D 256
+# forms (every head dim up to MAX_HEAD_DIM, the TMA boxes reading zeros past
+# D).
 # The f32 elements of one of the bias route's 16-byte bias copies (a bias
 # whose strides are not a multiple of it is copied with its rows padded to
 # one); the dense route's Q tile (rows per CTA) and KV tile (keys per
 # pipeline stage), the tiles of its segment-id ranges.
 DENSE_MAX_HEAD_DIM = 128
 BIAS_ROW_ALIGN = 4
-# The f32 routes' ROADMAP items: what they do not take yet, quantized K/V
-# (item 2) and head dims above 128 (item 5, the backward's too).
+# The f32 route's ROADMAP item: what it does not take yet, quantized K/V.
 _ROADMAP_F32_QUANT = "ROADMAP queue 2, f32 rows item 2: quantized K/V under an f32 q"
-_ROADMAP_F32_WIDE = "ROADMAP queue 2, f32 rows item 5: above D 128"
 
 SM90_Q_TILE = 128
 SM90_KV_TILE = 64
-# The f32 route's Q tile (rows per CTA) and KV tile (keys per slot), the
-# tiles of its segment-id ranges (csrc/flash_fwd_f32.cu): the dense route's.
+# The f32 route's Q tile (rows per CTA; its D 256 form's CTA takes half of
+# one) and KV tile (keys per slot), the tiles of its segment-id ranges
+# (csrc/flash_fwd_f32.cu): the dense route's.
 F32_Q_TILE = SM90_Q_TILE
 F32_KV_TILE = SM90_KV_TILE
 
@@ -373,10 +372,10 @@ def f32_route(*, dtype) -> bool:
     """Whether a CUDA K1 call goes to the f32 kernel (``csrc/flash_fwd_f32.cu``):
     every call on an f32 q -- causal or not, with or without a window, segment
     ids, a softcap, q / kv offsets or an additive bias (its BIAS family), at
-    any Nq (decode shapes too) and head dims up to ``DENSE_MAX_HEAD_DIM``.
-    :func:`fwd` checks it before the bf16 routes, and ``_check_kernel_args``
-    refuses the f32 calls it does not take (quantized K/V, D above 128, with
-    or without a bias); no f32 call reaches a bf16 kernel."""
+    any Nq (decode shapes too) and every head dim up to ``MAX_HEAD_DIM`` (a
+    multiple of 8; D 136-256 on its D 256 form). :func:`fwd` checks it
+    before the bf16 routes, and ``_check_kernel_args`` refuses the f32 calls
+    it does not take (quantized K/V); no f32 call reaches a bf16 kernel."""
     return dtype == torch.float32
 
 
@@ -726,6 +725,7 @@ def _dense_f32(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, sof
     _count_variants(k.dtype, bias, kernel_window(window) != (-1, -1), softcap)
     fwd.launches_f32 += 1
     fwd.launches_f32_bias += int(bias is not None)
+    fwd.launches_f32_d256 += int(D > DENSE_MAX_HEAD_DIM)
     fwd.launches_split += 1
     return o, lse
 
@@ -733,9 +733,8 @@ def _dense_f32(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, sof
 def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool,
                        offsets: bool = False) -> None:
     """Raise for what no CUDA K1 kernel takes: another device, a q that is
-    neither bf16 nor f32, an f32 q with quantized K/V or D above
-    ``DENSE_MAX_HEAD_DIM`` (the f32 route's refusals, with or without a
-    bias: it takes a bias up to D 128), D not a multiple of 8
+    neither bf16 nor f32, an f32 q with quantized K/V (the f32 route's
+    refusal; it takes a bias at every head dim), D not a multiple of 8
     or above ``MAX_HEAD_DIM``, a grid past the CUDA limits. Segment ids, a
     window, ``offsets`` (that change the result) and a ``bias`` pass in every
     combination at every head dim, on bf16 and on quantized K/V: K1's bias,
@@ -747,18 +746,14 @@ def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool,
         raise NotImplementedError(
             f"the CUDA K1 takes bfloat16 or float32, got {q.dtype} (flash_attention casts "
             "other dtypes to bfloat16)")
-    if q.dtype == torch.float32:
-        what, item = ((("quantized K/V", _ROADMAP_F32_QUANT) if k_scale is not None
-                       else (f"head dims above {DENSE_MAX_HEAD_DIM}", _ROADMAP_F32_WIDE)
-                       if D > DENSE_MAX_HEAD_DIM else (None, None)))
-        if what:
-            raise NotImplementedError(
-                f"the CUDA K1's f32 route takes no {what} yet ({item}); the bf16 "
-                "routes take it")
+    if q.dtype == torch.float32 and k_scale is not None:
+        raise NotImplementedError(
+            f"the CUDA K1's f32 route takes no quantized K/V yet ({_ROADMAP_F32_QUANT}); the "
+            "bf16 routes take it")
     if D % 8 or D > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"the CUDA K1 takes head dims that are multiples of 8 up to "
-            f"{MAX_HEAD_DIM}, got D={D} (ROADMAP queue 2 K1 item)")
+            f"{MAX_HEAD_DIM}, got D={D} (ROADMAP queue 2, K1 options: head dims above 256)")
     if B > 65535 or Hq > 65535:
         raise ValueError(f"B={B} and Hq={Hq} must each be at most 65535 (CUDA grid limit)")
 
@@ -782,8 +777,8 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     CPU tensors take :func:`fwd_reference`. CUDA tensors launch the kernel,
     which takes a bf16 ``q`` (and bf16, int8 or fp8 K/V) with ``D % 8 == 0``
     and ``D <= 256`` with every option above, or an f32 q, k and v with or
-    without a bias (and every option but quantized K/V) at ``D <= 128``;
-    anything else raises. An f32 call
+    without a bias (and every option but quantized K/V) at the same head
+    dims; anything else raises. An f32 call
     (:func:`f32_route`) launches the f32 kernel (with a bias, its BIAS
     family); a bf16 CUDA call that :func:`decode_route` accepts launches the
     split-KV decode kernel (and its merge), one that :func:`bias_route`
@@ -799,7 +794,8 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     (``fwd.launches_dense_d256`` those of its D 256 form, D 136-256),
     ``fwd.launches_quant_sm90`` those of the Hopper quantized kernel,
     ``fwd.launches_f32`` those of the f32 kernel (``fwd.launches_f32_bias``
-    those with a bias, also counted in ``fwd.launches_bias``), ``fwd.launches_split``
+    those with a bias, also counted in ``fwd.launches_bias``;
+    ``fwd.launches_f32_d256`` those of its D 256 form, D 136-256), ``fwd.launches_split``
     those of the split of its operands (``f32_split``, one before each),
     ``fwd.launches_int8`` / ``fwd.launches_fp8`` those of quantized K/V (with
     or without a bias), ``fwd.launches_window`` those with a window,
@@ -890,6 +886,7 @@ fwd.launches_dense_d256 = 0
 fwd.launches_quant_sm90 = 0
 fwd.launches_f32 = 0
 fwd.launches_f32_bias = 0
+fwd.launches_f32_d256 = 0
 fwd.launches_split = 0
 fwd.launches_int8 = 0
 fwd.launches_fp8 = 0

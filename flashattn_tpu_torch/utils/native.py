@@ -132,7 +132,8 @@ BWD_BIAS_SM90_ARGTYPES = [
 # ids and the softcap optional, each with the bf16 scratch into which it
 # splits its f32 operands first (ops/f32_split.py, csrc/split_bf16x3.cu), and
 # before the stream the optional f32 bias with its strides (and the
-# backward's dbias, or None).
+# backward's dbias, or None); both take every head dim up to 256, launching
+# their D 256 forms above 128 with the same arguments.
 FWD_F32_ARGTYPES = (FWD_SM90_ARGTYPES[:5] + [_PTR] + FWD_SM90_ARGTYPES[5:-1]  # + pieces
                     + [_PTR, _I64, _I64, _I64]  # bias (f32, or None), (batch, head, row) strides
                     + FWD_SM90_ARGTYPES[-1:])

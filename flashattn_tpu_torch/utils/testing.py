@@ -121,8 +121,8 @@ def sample_composition(rng: np.random.Generator) -> dict:
     B, GQA, causal, a window, segment ids, a bias of every broadcast shape
     ``[1|B, 1|Hq, Nq|1, Nk]``, the softcap, f32 or bf16, the layout, ragged
     Nq / Nk, q / kv offsets) and beyond it: offsets with segment ids, causal
-    with Nq != Nk, head dims 136-256 in bf16 (f32 stays at D <= 128, the f32
-    kernels' range), and decode-class Nq down to 1 with every option but
+    with Nq != Nk, head dims 136-256 in bf16 and f32 (the kernels' D 256
+    forms), and decode-class Nq down to 1 with every option but
     causal. Returns plain values and numpy arrays (``seg``: int32 ``[B,
     Nq]`` and ``[B, Nk]`` ids, or None), so the port and the JAX package can
     take the same draw."""
@@ -130,7 +130,7 @@ def sample_composition(rng: np.random.Generator) -> dict:
     Hkv = int(rng.integers(1, 3))
     Hq = Hkv * int(rng.choice([1, 2, 3]))
     dtype = torch.float32 if rng.random() < 0.6 else torch.bfloat16
-    wide = dtype == torch.bfloat16 and rng.random() < 0.25
+    wide = rng.random() < 0.25
     D = int(rng.choice([136, 160, 192, 256] if wide else [32, 64, 72, 80, 128]))
     Nq = int(rng.integers(17, 400))
     Nk = Nq if rng.random() < 0.6 else int(rng.integers(17, 400))

@@ -374,16 +374,15 @@ def _cuda_q(D, dtype=torch.bfloat16):
                                  device=types.SimpleNamespace(type="cuda"))
 
 
-# The card's checks: the refusal left, naming its ROADMAP item -- f32 with a
-# bias above D 128 (f32 takes a bias up to D 128:
-# test_f32_bias_with_everything_passes_the_card_checks_up_to_d128) -- and,
-# item None, quantized K/V with segment ids or a window, refused ("K1
-# options") until K1's quantized route took them: they pass, and that route
-# takes them. A bf16 bias above D 128 with segment ids, a window or offsets,
-# refused until the bias route took D 256, now passes (WIDE_PASSES).
+# The card's checks on what was refused: item None, quantized K/V with
+# segment ids or a window, refused ("K1 options") until K1's quantized route
+# took them, and f32 with a bias above D 128, refused ("f32 rows item 5")
+# until the f32 route's D 256 form took it: they pass, and the quantized /
+# f32 route takes them. A bf16 bias above D 128 with segment ids, a window or
+# offsets, refused until the bias route took D 256, now passes (WIDE_PASSES).
 REFUSED = {"int8 + ids": (128, torch.bfloat16, dict(segment_ids=True, k_scale=True), None),
            "int8 + window": (128, torch.bfloat16, dict(windowed=True, k_scale=True), None),
-           "f32 + bias": (136, torch.float32, dict(bias=True), "f32 rows item 5")}
+           "f32 + bias": (136, torch.float32, dict(bias=True), None)}
 WIDE_PASSES = {"D 160 bias + ids": (160, dict(bias=True, segment_ids=True)),
                "D 160 bias + window": (160, dict(bias=True, windowed=True)),
                "D 160 bias + offsets": (160, dict(bias=True, offsets=True))}
@@ -401,7 +400,11 @@ def test_refusals_left_on_the_card(case):
     D, dtype, opts, item = REFUSED[case]
     if item is None:
         flash_fwd._check_kernel_args(_cuda_q(D, dtype), **_card_kw(opts))
-        assert flash_fwd.quant_route(head_dim=D, kv_dtype=torch.int8)
+        if dtype == torch.float32:
+            assert flash_fwd.f32_route(dtype=dtype)
+            assert flash_bwd.bias_bwd_route(head_dim=D, bias=object(), dtype=dtype)
+        else:
+            assert flash_fwd.quant_route(head_dim=D, kv_dtype=torch.int8)
         return
     with pytest.raises(NotImplementedError, match=item):
         flash_fwd._check_kernel_args(_cuda_q(D, dtype), **_card_kw(opts))
@@ -421,29 +424,24 @@ def test_a_wide_bias_with_a_band_passes_the_card_checks(case):
 @pytest.mark.parametrize("D", [64, 72, 128, 136])
 def test_f32_bias_with_everything_passes_the_card_checks_up_to_d128(D):
     """An f32 bias with ids, a window and offsets passes K1's and the
-    backward's checks at D <= 128 (the f32 route's BIAS family) and is
-    refused above, naming f32 rows item 5."""
+    backward's checks at D <= 128 (the f32 route's BIAS family) and, since
+    its D 256 form, above (refused until then, naming f32 rows item 5)."""
     q = _cuda_q(D, torch.float32)
     kw = dict(segment_ids=(1, 1), bias=object(), k_scale=None, windowed=True, offsets=True)
-    assert flash_bwd.bias_bwd_route(head_dim=D, bias=object(), dtype=torch.float32) == (D <= 128)
-    if D <= 128:
-        flash_fwd._check_kernel_args(q, **kw)
-        flash_bwd.check_kernel_dims(q, "K5 + K6 bias route")
-    else:
-        with pytest.raises(NotImplementedError, match="f32 rows item 5"):
-            flash_fwd._check_kernel_args(q, **kw)
+    assert flash_bwd.bias_bwd_route(head_dim=D, bias=object(), dtype=torch.float32)
+    flash_fwd._check_kernel_args(q, **kw)
+    flash_bwd.check_kernel_dims(q, "K5 + K6 bias route")
 
 
 @pytest.mark.parametrize("D", [64, 128, 136, 256])
 def test_bias_with_everything_passes_the_card_checks_up_to_d128(D):
     """A bf16 bias with ids, a window and offsets passes K1's checks at
     every D up to 256 (the bias route; its D 256 form above 128, which it
-    was refused until), and the backward's; in f32 it is refused above D 128,
-    naming f32 rows item 5."""
+    was refused until), and the backward's; in f32 too (refused above D 128,
+    naming f32 rows item 5, until the f32 route's D 256 form)."""
     kw = dict(segment_ids=(1, 1), bias=object(), k_scale=None, windowed=True, offsets=True)
     flash_fwd._check_kernel_args(_cuda_q(D), **kw)
     flash_bwd.check_kernel_dims(_cuda_q(D), "K5 + K6 bias route")
     assert flash_bwd.bias_bwd_route(head_dim=D, bias=object(), dtype=torch.bfloat16)
-    if D > 128:
-        with pytest.raises(NotImplementedError, match="f32 rows item 5"):
-            flash_fwd._check_kernel_args(_cuda_q(D, torch.float32), **kw)
+    flash_fwd._check_kernel_args(_cuda_q(D, torch.float32), **kw)
+    flash_bwd.check_kernel_dims(_cuda_q(D, torch.float32), "K5 + K6 bias route")

@@ -175,13 +175,16 @@ def test_f32_route_takes_f32_only(dtype, takes):
 
 
 # The f32 backward's route without a bias: ``split_sm90_route`` takes f32 as
-# it takes bf16 (split_bwd then launches the f32 body); K3's f32 calls
-# (neither option) stay K3's, a bias or a head dim above 128 is no route's.
+# it takes bf16 (split_bwd then launches the f32 body, its D 256 form above
+# D 128); K3's f32 calls (neither option) stay K3's, a bias or a head dim
+# above 256 is no route's.
 F32_BWD_TAKES = {"f32": {}, "f32 D 8": dict(head_dim=8),
-                 "f32 D 112": dict(head_dim=112, segment_ids=None, softcap=30.0)}
+                 "f32 D 112": dict(head_dim=112, segment_ids=None, softcap=30.0),
+                 "f32 D 136": dict(head_dim=136),
+                 "f32 D 256": dict(head_dim=256, segment_ids=None, softcap=30.0)}
 F32_BWD_REFUSES = {"neither": dict(segment_ids=None),
                    "bias": dict(bias=torch.empty((1, 1, 1, 8), device="meta")),
-                   "D 136": dict(head_dim=136), "fp16": dict(dtype=torch.float16)}
+                   "D 264": dict(head_dim=264), "fp16": dict(dtype=torch.float16)}
 IDS = torch.zeros((1, 8), dtype=torch.int32)
 
 
@@ -207,29 +210,37 @@ def _fake_cuda(shape, dtype):
                                  device=types.SimpleNamespace(type="cuda"))
 
 
-@pytest.mark.parametrize("kw,what", [(dict(bias=object(), D=136), "head dims above 128"),
+@pytest.mark.parametrize("kw,what", [(dict(bias=object(), D=136), None),
                                      (dict(k_scale=object()), "quantized K/V"),
-                                     (dict(D=136), "head dims above 128")],
+                                     (dict(D=136), None)],
                          ids=["bias", "quantized", "D 136"])
 def test_k1_refuses_what_the_f32_route_does_not_take(kw, what):
-    """The f32 route's refusals name their f32 rows items; a bias it takes up
-    to D 128 (the "bias" case: above D 128, item 5, as without one)."""
+    """The f32 route's refusal (quantized K/V) names its f32 rows item;
+    D 136, with or without a bias (refused until the D 256 forms took D
+    136-256), now passes K1's checks (``what`` None)."""
     D = kw.pop("D", 128)
     q = _fake_cuda((1, 4, 64, D), torch.float32)
+    args = dict(segment_ids=None, bias=kw.get("bias"), k_scale=kw.get("k_scale"),
+                windowed=False)
+    if what is None:
+        flash_fwd._check_kernel_args(q, **args)
+        return
     with pytest.raises(NotImplementedError, match=f"f32 route takes no {what}.*ROADMAP"):
-        flash_fwd._check_kernel_args(q, segment_ids=None, bias=kw.get("bias"),
-                                     k_scale=kw.get("k_scale"), windowed=False)
+        flash_fwd._check_kernel_args(q, **args)
 
 
-def test_the_bias_backward_refuses_f32(monkeypatch):
-    """f32 with a bias runs on the f32 body up to D 128; above it the bias
-    route refuses it, naming f32 rows item 5."""
+def test_the_bias_backward_refuses_f32(card):
+    """f32 with a bias at D 136, which the bias route refused (f32 rows
+    item 5) until the f32 body's D 256 form: it reaches ``fa_bwd_f32`` once,
+    counted as a D 256 launch, dK / dV per KV head."""
     q = torch.empty((1, 2, 16, 136), device="meta")
     stats = torch.empty((1, 2, 16), device="meta")
     bias = torch.empty((1, 1, 1, 16), device="meta")
-    monkeypatch.setattr(flash_bwd, "check_kernel_args", lambda q, name: None)
-    with pytest.raises(NotImplementedError, match="no float32.*ROADMAP.*f32 rows item 5"):
-        flash_bwd.bias_bwd(q, q, q, q, stats, stats, scale=0.125, bias=bias)
+    before = flash_bwd._f32_bwd_launch.launches_d256
+    dq, dk, dv, dbias = flash_bwd.bias_bwd(q, q, q, q, stats, stats, scale=0.125, bias=bias)
+    assert [name for name, _ in card] == ["fa_bwd_f32"]
+    assert flash_bwd._f32_bwd_launch.launches_d256 == before + 1
+    assert dq.shape == dk.shape == dv.shape == q.shape and dbias is None
 
 
 def test_the_f32_backward_on_cpu_is_its_plain_version(monkeypatch):

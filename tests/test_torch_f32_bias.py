@@ -70,12 +70,14 @@ def test_f32_bias_passes_k1_checks_and_the_backward_route(case):
 @pytest.mark.parametrize("opts", [{}, dict(segment_ids=(1, 1), windowed=True, offsets=True)],
                          ids=["plain", "everything"])
 def test_f32_bias_above_d128_is_refused_naming_f32_rows_item_5(D, opts):
+    """f32 with a bias at D 136-256, refused naming f32 rows item 5 until the
+    D 256 forms: it now passes K1's checks and the backward's, and the bias
+    backward's route takes it, with every option."""
     kw = {**dict(segment_ids=None, k_scale=None, windowed=False, offsets=False), **opts}
-    with pytest.raises(NotImplementedError, match="f32 rows item 5"):
-        flash_fwd._check_kernel_args(_cuda_q(D), bias=object(), **kw)
-    assert not flash_bwd.bias_bwd_route(head_dim=D, bias=object(), dtype=F32)
-    with pytest.raises(NotImplementedError, match="f32 rows item 5"):
-        flash_bwd.check_kernel_dims(_cuda_q(D), "K5 + K6 bias route")
+    flash_fwd._check_kernel_args(_cuda_q(D), bias=object(), **kw)
+    assert flash_fwd.f32_route(dtype=F32)
+    assert flash_bwd.bias_bwd_route(head_dim=D, bias=object(), dtype=F32)
+    flash_bwd.check_kernel_dims(_cuda_q(D), "K5 + K6 bias route")
 
 
 def test_f32_quantized_kv_is_refused_naming_f32_rows_item_2():

@@ -239,6 +239,15 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
     ("_ZN56_GLOBAL__N__534aea6b_23_flash_fwd_quant_sm90_cu_7cd3e8af21fwd_quant_sm90_kernelILi64E"
      "Li1ELb0EEEv14CUtensorMap_stS1_S1_N2fa14FwdQuantParamsE",
      "unrecognised instantiation fwd_quant_sm90_kernel<64, 1, 0>"),
+    ("_ZN49_GLOBAL__N__5b2c1d3e_16_flash_fwd_f32_cu_0a1b2c3d19fwd_f32_wide_kernelILb1ELb0ELb1EEEv14"
+     "CUtensorMap_stS1_S1_N2fa12FwdF32ParamsE",
+     "K1 f32 d256 bias segments fwd_f32_wide_kernel<1, 0, 1>"),
+    ("_ZN49_GLOBAL__N__5b2c1d3e_16_flash_fwd_f32_cu_0a1b2c3d19fwd_f32_wide_kernelILb0ELb1EEEv14"
+     "CUtensorMap_stS1_S1_N2fa12FwdF32ParamsE",
+     "unrecognised instantiation fwd_f32_wide_kernel<0, 1>"),
+    ("_ZN49_GLOBAL__N__a4eea0e5_16_flash_bwd_f32_cu_7d59452214bwd_f32_kernelILi256ELb0ELb1ELb1EEEv14"
+     "CUtensorMap_stS1_S1_S1_N2fa12BwdF32ParamsE",
+     "bwd f32 bias softcap bwd_f32_kernel<256, 0, 1, 1>"),
     ("_Z11some_kernelv", "unrecognised instantiation _Z11some_kernelv"),
 ])
 def test_register_report_names_every_instantiation(mangled, name):

@@ -54,14 +54,16 @@ ROUTE_TAKES = {"packed D 128": {}, "softcap": dict(segment_ids=None, softcap=50.
                "D 8": dict(head_dim=8), "D 96 softcap": dict(head_dim=96, segment_ids=None,
                                                             softcap=30.0),
                "f32": dict(dtype=torch.float32),
-               "D 136": dict(head_dim=136), "D 160 softcap": dict(head_dim=160, softcap=5.0)}
+               "D 136": dict(head_dim=136), "D 160 softcap": dict(head_dim=160, softcap=5.0),
+               "f32 D 136": dict(head_dim=136, dtype=torch.float32)}
 # Those it refuses: K3's (neither option), the bias calls (the bias route),
-# head dims above 256, f32 above 128, fp16.
+# head dims above 256 (in f32 too: f32 takes D 136-256 since its D 256
+# form), fp16.
 ROUTE_REFUSES = {"neither": dict(segment_ids=None),
                  "bias + softcap": dict(segment_ids=None, softcap=50.0,
                                         bias=torch.empty((1, 1, 1, 8), device="meta")),
                  "bias": dict(bias=torch.empty((1, 1, 1, 8), device="meta")),
-                 "D 264": dict(head_dim=264), "f32 D 136": dict(head_dim=136,
+                 "D 264": dict(head_dim=264), "f32 D 264": dict(head_dim=264,
                                                                 dtype=torch.float32),
                  "fp16": dict(dtype=torch.float16)}
 

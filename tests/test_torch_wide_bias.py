@@ -317,13 +317,14 @@ def test_fa_fwd_takes_only_quantized_kv(card):
 @pytest.mark.parametrize("D", [136, 192, 256])
 def test_routes_take_a_bf16_bias_up_to_d256(D):
     """bias_route and bias_bwd_route take a bf16 bias at every head dim up
-    to 256, with a band and ids too; f32 stops at 128."""
+    to 256, with a band and ids too; bias_bwd_route an f32 one too (f32
+    stopped at 128 until the f32 body's D 256 form)."""
     N = 512
     bias = torch.empty((1, 1, N, N), device="meta")
     assert flash_fwd.bias_route(rows=2 * N, causal=True, segment_ids=None, window=(64, -1),
                                 head_dim=D, bias=bias, kv_dtype=torch.bfloat16)
     assert flash_bwd.bias_bwd_route(head_dim=D, bias=bias, dtype=torch.bfloat16)
-    assert not flash_bwd.bias_bwd_route(head_dim=D, bias=bias, dtype=torch.float32)
+    assert flash_bwd.bias_bwd_route(head_dim=D, bias=bias, dtype=torch.float32)
 
 
 def test_routes_refuse_a_bias_above_d256():

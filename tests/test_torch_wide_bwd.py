@@ -14,8 +14,9 @@ The kernel runs only on the card (``python3 chip_smoke.py``:
 * the routes on a simulated card (meta tensors, the device test off, the
   head-dim and dtype checks kept, a stand-in library recording each C
   entry): bf16 at D 136-256 reaches K3 or the split route and counts a D
-  256 launch, with a bias the bias routes' D 256 forms; f32 above D 128 and
-  D 264 raise naming their ROADMAP item, before any launch;
+  256 launch, with a bias the bias routes' D 256 forms; f32 at D 136
+  reaches the f32 body's D 256 form (fa_bwd_f32), and D 264 raises naming
+  its ROADMAP item, before any launch;
 * the C arguments of a D 256 launch through stand-ins with the C entries'
   argtypes;
 * the LM with 2 heads of 256 (d_model 512, 2 layers, 32 tokens) against the
@@ -140,7 +141,8 @@ def card(monkeypatch):
     typed = {"fa_fwd_sm90": native.FWD_SM90_ARGTYPES, "fa_bwd_sm90": native.BWD_SM90_ARGTYPES,
              "fa_bwd_split_sm90": native.BWD_SPLIT_SM90_ARGTYPES,
              "fa_fwd_bias_sm90": native.FWD_BIAS_SM90_ARGTYPES,
-             "fa_bwd_bias_sm90": native.BWD_BIAS_SM90_ARGTYPES}
+             "fa_bwd_bias_sm90": native.BWD_BIAS_SM90_ARGTYPES,
+             "fa_fwd_f32": native.FWD_F32_ARGTYPES, "fa_bwd_f32": native.BWD_F32_ARGTYPES}
     lib = types.SimpleNamespace(**{n: _recorder(n, a, calls) for n, a in typed.items()})
     lib.fa_fwd_quant_sm90 = lambda *args: calls.append(("fa_fwd_quant_sm90", args)) or 0
     monkeypatch.setattr(native, "kernels", lambda: lib)
@@ -228,17 +230,31 @@ def test_a_bias_above_128_raises_naming_its_item(card):
 
 @pytest.mark.parametrize("route", ["K3", "split"])
 @pytest.mark.parametrize("dtype,D,item", [
-    (F32, 136, "f32 rows item 5: above D 128"),
+    (F32, 136, None),
     (torch.bfloat16, 264, "K1 options: head dims above 256"),
     (F32, 264, "K1 options: head dims above 256")], ids=["f32 D 136", "bf16 D 264", "f32 D 264"])
 def test_what_no_backward_takes_raises_naming_its_item(card, route, dtype, D, item):
+    """D 264 raises naming its ROADMAP item, before any launch. f32 at D 136
+    (``item`` None), which raised naming f32 rows item 5 until the f32 body's
+    D 256 form, reaches ``fa_bwd_f32`` once, counted as a D 256 launch."""
     q, k, v = _meta_qkv(1, 4, 2, 128, 128, D, dtype=dtype)
     stats = torch.empty((1, 4, 128), device="meta")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 2, {item}"):
+
+    def backward():
         if route == "K3":
-            flash_bwd_fused.bwd(q, k, v, q, stats, stats, scale=0.1, causal=True)
-        else:
-            flash_bwd.split_bwd(q, k, v, q, stats, stats, scale=0.1, softcap=5.0)
+            return flash_bwd_fused.bwd(q, k, v, q, stats, stats, scale=0.1, causal=True)
+        return flash_bwd.split_bwd(q, k, v, q, stats, stats, scale=0.1, softcap=5.0)
+
+    if item is None:
+        before = flash_bwd._f32_bwd_launch.launches_d256
+        grads = backward()
+        assert [name for name, _ in card] == ["fa_bwd_f32"]
+        assert card[0][1][19] == D  # the head dim the C entry takes
+        assert flash_bwd._f32_bwd_launch.launches_d256 == before + 1
+        assert [g.shape for g in grads] == [q.shape, (1, 4, 128, D), (1, 4, 128, D)]
+        return
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 2, {item}"):
+        backward()
     assert card == []
 
 
