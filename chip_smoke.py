@@ -320,20 +320,24 @@ def sdpa_ms(q, k, v, *, do=None, bias_leaf=None, backend=None, device: bool = Fa
 
 
 PROFILE_RUNS = 5
+# Set once every run of a _profiled call recorded no kernel at all: CUPTI
+# had stopped recording, and on the H100 it has not recovered later in the
+# same process (PR 24: 31 reads in a row), so later calls make one run.
+_CUPTI_SILENT = []
 
 
 def _profiled(fn, reps: int, enough) -> list:
     """The key_averages() of a torch.profiler run over CUDA activity in
     ``reps`` calls of ``fn`` (after one call outside it), run again after a
-    pause, PROFILE_RUNS runs at most, while ``enough`` of them is false: in
-    a process that ran the profiler before, CUPTI can drop some launches of
-    a run, or all of them (0 of 20 seen on an H100, in three runs in a row
-    once)."""
+    pause, PROFILE_RUNS runs at most (one once CUPTI has gone silent,
+    _CUPTI_SILENT), while ``enough`` of them is false: in a process that
+    ran the profiler before, CUPTI can drop some launches of a run, or all
+    of them (0 of 20 seen on an H100, in three runs in a row once)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for run in range(PROFILE_RUNS):
+    for run in range(1 if _CUPTI_SILENT else PROFILE_RUNS):
         if run:
             time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -342,7 +346,9 @@ def _profiled(fn, reps: int, enough) -> list:
             torch.cuda.synchronize()
         events = list(prof.key_averages())
         if enough(events):
-            break
+            return events
+    if not any(_self_device_us(e) > 0 for e in events):
+        _CUPTI_SILENT.append(True)
     return events
 
 
@@ -364,7 +370,8 @@ def kernels_ms(fn, reps: int = 20) -> float:
                 for e in events if _self_device_us(e) > 0 and e.count > 0)
     if total <= 0:
         ms = queued_ms(fn, reps=reps, trials=3)
-        log("profiler", f"recorded no kernel of the call in {PROFILE_RUNS} runs: its CUDA-event "
+        log("profiler", f"recorded no kernel of the call in "
+                        f"{1 if len(_CUPTI_SILENT) > 1 else PROFILE_RUNS} run(s): its CUDA-event "
                         f"time behind a backlog instead, {ms:.4f} ms (the kernels and the card's "
                         f"gaps between them)")
         return ms
@@ -628,9 +635,18 @@ def instantiation_name(mangled: str) -> str:
         seg = " segments" if len(args) >= 2 and args[1] == "1" else ""
         cap = " softcap" if len(args) == 3 and args[2] == "1" else ""
         return f"K1 dense sm90{seg}{cap} fwd_dense_sm90_kernel<{', '.join(args)}>"
+    wide_ring = re.search(r"ring_(fwd|bwd)_wide_kernel", mangled)
+    if wide_ring:  # K7 / K8's D 256 forms (K1's dense body, K3's D 256 body)
+        return (f"{'K7' if wide_ring.group(1) == 'fwd' else 'K8'} d256 "
+                f"ring_{wide_ring.group(1)}_wide_kernel")
     f32_wide = re.search(r"fwd_f32_wide_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
-    if f32_wide:  # K1's f32 route's D 256 form, fwd_f32_wide_kernel<SEG, CAP, BIAS>
+    if f32_wide:  # K1's f32 route's D 256 form, fwd_f32_wide_kernel<SEG, CAP, BIAS, RING>
+        # (RING 1: K7's f32 D 256 form; RING 0 is named as before it existed)
         args = re.findall(r"L[a-z]+(-?\d+)E", f32_wide.group(1))
+        label = f"fwd_f32_wide_kernel<{', '.join(args)}>"
+        if len(args) == 4 and args[3] == "1":
+            return f"K7 f32 d256 {label}"
+        args = args[:3] if len(args) == 4 else args
         label = f"fwd_f32_wide_kernel<{', '.join(args)}>"
         if len(args) != 3:
             return f"unrecognised instantiation {label}"
@@ -638,9 +654,14 @@ def instantiation_name(mangled: str) -> str:
                 f"{' segments' if args[0] == '1' else ''}{' softcap' if args[1] == '1' else ''} "
                 f"{label}")
     f32 = re.search(r"(fwd|bwd)_f32_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
-    if f32:  # the f32 routes, fwd_f32_kernel / bwd_f32_kernel<DB, SEG, CAP, BIAS> (a parent's:
-        # <DB, SEG, CAP>, before the bias)
+    if f32:  # the f32 routes, fwd_f32_kernel / bwd_f32_kernel<DB, SEG, CAP, BIAS, RING> (RING
+        # 1: K7's / K8's f32 forms; RING 0 named without it, as a parent's
+        # <DB, SEG, CAP, BIAS>, or <DB, SEG, CAP> before the bias)
         args = re.findall(r"L[a-z]+(-?\d+)E", f32.group(2))
+        if len(args) == 5 and args[4] == "1":
+            return (f"{'K7' if f32.group(1) == 'fwd' else 'K8'} f32 "
+                    f"{f32.group(1)}_f32_kernel<{', '.join(args)}>")
+        args = args[:4] if len(args) == 5 else args
         if len(args) not in (3, 4):
             return f"unrecognised instantiation {f32.group(1)}_f32_kernel<{', '.join(args)}>"
         return (f"{'K1 f32' if f32.group(1) == 'fwd' else 'bwd f32'}"
@@ -1315,7 +1336,8 @@ def _reset_launches() -> None:
     flash_fwd.fwd.launches_f32_d256 = flash_bwd._f32_bwd_launch.launches_d256 = 0
     flash_fwd.fwd.launches_split = flash_bwd._f32_bwd_launch.launches_split = 0
     gemm.matmul.launches = roofline.roofline_call.launches = 0
-    ring_kernel.ring_fwd_step.launches = ring_kernel.ring_bwd_step.launches = 0
+    for step in (ring_kernel.ring_fwd_step, ring_kernel.ring_bwd_step):
+        step.launches = step.launches_f32 = step.launches_d256 = step.launches_split = 0
 
 
 def _launches() -> dict:
@@ -1344,7 +1366,10 @@ def _launches() -> dict:
     d256" those of its D 256 form (f32 above D 128, whichever route); "split bf16x3"
     those of the f32 routes' operand split (one
     before each K1 f32 launch, of q, k and v, and one before each bwd f32
-    launch, of q, k, v and dO, both from the f32 C entries). K5 and K6 have
+    launch, of q, k, v and dO, both from the f32 C entries, and one before
+    each K7 / K8 f32 launch: "K7 f32" / "K8 f32" those of the ring kernels'
+    f32 forms, "K7 d256" / "K8 d256" those of their D 256 forms, all also in
+    "K7" / "K8"). K5 and K6 have
     no kernel of their own: every CUDA backward that is not K3's takes one
     of the routes."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, gemm, roofline
@@ -1373,8 +1398,14 @@ def _launches() -> dict:
             "bias bwd f32": flash_bwd.bias_bwd.launches_f32,
             "bwd f32 d256": flash_bwd._f32_bwd_launch.launches_d256,
             "split bf16x3": (flash_fwd.fwd.launches_split
-                             + flash_bwd._f32_bwd_launch.launches_split),
+                             + flash_bwd._f32_bwd_launch.launches_split
+                             + ring_kernel.ring_fwd_step.launches_split
+                             + ring_kernel.ring_bwd_step.launches_split),
             "K7": ring_kernel.ring_fwd_step.launches, "K8": ring_kernel.ring_bwd_step.launches,
+            "K7 f32": ring_kernel.ring_fwd_step.launches_f32,
+            "K8 f32": ring_kernel.ring_bwd_step.launches_f32,
+            "K7 d256": ring_kernel.ring_fwd_step.launches_d256,
+            "K8 d256": ring_kernel.ring_bwd_step.launches_d256,
             "K9": gemm.matmul.launches, "K10": roofline.roofline_call.launches}
 
 
@@ -3519,37 +3550,68 @@ RING_CASES = [("causal", 4, 4096, 16, 8, 128, True, None, 1, 10),
               ("1 rank", 1, 4096, 16, 8, 128, True, None, 1, 1),
               ("D64 window edge", 2, 512, 4, 2, 64, True, (127, -1), GROW, 3),
               ("D96 window edge", 2, 512, 4, 2, 96, True, (127, -1), GROW, 3)]
+# The ring kernels' f32 and D 136-256 forms (phase_ring_wide), as RING_CASES
+# with the dtype first: the f32 LM's attention (Hq16 Hkv8 D128, f32) causal
+# and windowed, Gemma 2's heads of 256 (Hq8 Hkv4 D256) in bf16 causal and
+# windowed and in f32 causal, at RING_RANKS x RING_CHUNK; then small cases: a
+# band edge inside every 128-row tile at D 136 (GQA 4/1, a second 128-column
+# half of 8 real columns) in both dtypes and at D 64 in f32 (the f32 D 64
+# instantiations), D 100 (padded to 104 by the entry point) non-causal, 8
+# ranks with GQA 16/2, and one rank in f32 at D 256, which must give what
+# K1's and K3's f32 D 256 forms give.
+F32 = torch.float32
+BF16 = torch.bfloat16
+RING_WIDE_CASES = [("f32 causal", F32, 4, 4096, 16, 8, 128, True, None, 1, 10),
+                   ("f32 window", F32, 4, 4096, 16, 8, 128, True, RING_WINDOW, GROW, 7),
+                   ("bf16 D256 causal", BF16, 4, 4096, 8, 4, 256, True, None, 1, 10),
+                   ("bf16 D256 window", BF16, 4, 4096, 8, 4, 256, True, RING_WINDOW, GROW, 7),
+                   ("f32 D256 causal", F32, 4, 4096, 8, 4, 256, True, None, 1, 10),
+                   ("bf16 D136 window edge", BF16, 2, 512, 4, 1, 136, True, (127, -1), GROW, 3),
+                   ("f32 D136 window edge", F32, 2, 512, 4, 1, 136, True, (127, -1), GROW, 3),
+                   ("f32 D64 window edge", F32, 2, 512, 4, 2, 64, True, (127, -1), GROW, 3),
+                   ("f32 D100 non-causal", F32, 2, 512, 4, 2, 100, False, None, 1, 4),
+                   ("f32 8 ranks GQA 16/2", F32, 8, 1024, 16, 2, 128, True, None, 1, 36),
+                   ("f32 D256 1 rank", F32, 1, 4096, 8, 4, 256, True, None, 1, 1)]
+# The forms the wide cases time at RING_RANKS x RING_CHUNK causal (the first
+# case of each), by the name of their `kernels` entries.
+RING_WIDE_TIMED = {"f32 causal": "f32", "bf16 D256 causal": "bf16 D 256",
+                   "f32 D256 causal": "f32 D 256"}
 # One direction of the H100 SXM's NVLink (the hopper guide's table).
 NVLINK_BYTES_PER_S = 450e9
 
 
-def _ring_inputs(seed: int, ranks: int, chunk: int, hq: int, hkv: int, d: int, grow: int):
-    """q, k (x grow), v and dO, bf16 [1, H, ranks * chunk, d]."""
+def _ring_inputs(seed: int, ranks: int, chunk: int, hq: int, hkv: int, d: int, grow: int,
+                 dtype=torch.bfloat16):
+    """q, k (x grow), v and dO, [1, H, ranks * chunk, d] in ``dtype``."""
     from flashattn_tpu_torch.utils.testing import make_qkv
 
     n = ranks * chunk
     q, k, v = make_qkv(seed, 1, hq, n, d, Hkv=hkv, device=DEVICE)
     do = make_qkv(seed + 1, 1, hq, n, d, device=DEVICE)[0]
-    return tuple(x.to(torch.bfloat16) for x in (grow * q, grow * k, v, do))
+    return tuple(x.to(dtype) for x in (grow * q, grow * k, v, do))
 
 
-def _ring_gate(tag: str, got: dict, want: dict, what: str) -> tuple[float, float]:
-    """O within FWD_TOL[bf16], LSE within LSE_ATOL, dQ/dK/dV within
-    BWD_TOL[bf16], each also within relative L2 WINDOW_REL_L2; logs and
-    fails. Returns the max errors of O and of the gradients."""
+def _ring_gate(tag: str, got: dict, want: dict, what: str,
+               dtype=torch.bfloat16) -> tuple[float, float]:
+    """O within FWD_TOL[dtype], the LSE within LSE_ATOL (bf16) or
+    FWD_TOL[f32], dQ/dK/dV within BWD_TOL[dtype], each also within relative
+    L2 WINDOW_REL_L2; logs and fails. Returns the max errors of O and of the
+    gradients."""
     from flashattn_tpu_torch.utils.testing import (
         BWD_TOL, FWD_TOL, Tolerance, check_close, grad_gate)
 
-    ok_o, msg_o = check_close(got["o"], want["o"], FWD_TOL[torch.bfloat16], "O")
-    ok_l, msg_l = check_close(got["lse"], want["lse"], Tolerance(LSE_ATOL, 0.0), "LSE")
+    name = "f32" if dtype == torch.float32 else "bf16"
+    lse_tol = FWD_TOL[torch.float32] if dtype == torch.float32 else Tolerance(LSE_ATOL, 0.0)
+    ok_o, msg_o = check_close(got["o"], want["o"], FWD_TOL[dtype], "O")
+    ok_l, msg_l = check_close(got["lse"], want["lse"], lse_tol, "LSE")
     names = ("dq", "dk", "dv")
     ok_g, why, err_g, _ = grad_gate([got[n] for n in names], [want[n] for n in names],
-                                    BWD_TOL[torch.bfloat16], names=names)
+                                    BWD_TOL[dtype], names=names)
     err_o = (got["o"].float() - want["o"].float()).abs().max().item()
     rel = {n: _rel(got[n].float(), want[n].float()) for n in ("o", *names)}
-    log("ring", f"{tag} vs {what}: O max_abs_err {err_o:.3e} (budget {O_TOL_NAME}), LSE "
+    log("ring", f"{tag} vs {what}: O max_abs_err {err_o:.3e} (budget FWD_TOL[{name}]), LSE "
                 f"max_abs_err {(got['lse'] - want['lse']).abs().max().item():.3e} (budget "
-                f"{LSE_ATOL}), dQ/dK/dV max_abs_err {err_g:.3e} (budget BWD_TOL[bf16]); "
+                f"{tuple(lse_tol)}), dQ/dK/dV max_abs_err {err_g:.3e} (budget BWD_TOL[{name}]); "
                 f"relative L2 (limit {WINDOW_REL_L2}): "
                 + ", ".join(f"{n} {r:.2e}" for n, r in rel.items()))
     if not (ok_o and ok_l and ok_g):
@@ -3559,89 +3621,102 @@ def _ring_gate(tag: str, got: dict, want: dict, what: str) -> tuple[float, float
     return err_o, err_g
 
 
-def _ring_bytes(ranks: int, chunk: int, hq: int, hkv: int, causal: bool, window) -> tuple:
-    """Bytes each live step must move, summed over the ring: K7 reads its Q
-    chunk and K/V chunk (bf16) and the f32 running state (acc, m, l) except
-    on a rank's first live step, and writes the state or, on the last, O
-    (bf16) and LSE; K8 reads Q, dO, K, V (bf16), LSE and Delta, reads and
-    writes the f32 dK/dV accumulators and the f32 dQ."""
+def _ring_bytes(ranks: int, chunk: int, hq: int, hkv: int, d: int, elem: int, causal: bool,
+                window) -> tuple:
+    """Bytes each live step must move, summed over the ring, for head dim
+    ``d`` and Q / K / V / O / dO of ``elem`` bytes an element: K7 reads its Q
+    chunk and K/V chunk and the f32 running state (acc, m, l) except on a
+    rank's first live step, and writes the state or, on the last, O and LSE;
+    K8 reads Q, dO, K, V, LSE and Delta, reads and writes the f32 dK/dV
+    accumulators and the f32 dQ."""
     from flashattn_tpu_torch.parallel.ring_kernel import _live_steps
 
-    d = 128
-    q_b, kv_b = 2 * hq * chunk * d, 2 * 2 * hkv * chunk * d
+    q_b, kv_b = elem * hq * chunk * d, elem * 2 * hkv * chunk * d
     state_b, stats_b = 4 * hq * chunk * (d + 2), 4 * hq * chunk
+    dkv_b, dq_b = 4 * 2 * hkv * chunk * d, 4 * hq * chunk * d
     fwd = bwd = 0
     for steps in (_live_steps(r, ranks, chunk, chunk, causal, window) for r in range(ranks)):
         for s in steps:
             fwd += q_b + kv_b + (0 if s == steps[0] else state_b)
             fwd += q_b + stats_b if s == steps[-1] else state_b
-            bwd += 2 * q_b + kv_b + 2 * stats_b + 2 * 2 * kv_b + 2 * 4 * hq * chunk * d
+            bwd += 2 * q_b + kv_b + 2 * stats_b + 2 * dkv_b + 2 * dq_b
     return fwd, bwd
 
 
-def phase_ring() -> dict:
-    """Ring attention over virtual ranks (RING_CASES): the forward and the
-    gradients through ring_attention_kernel_sharded with autograd, with exact
-    K7 = K8 launch counts (the counters reset just before), held against the
-    plain ring (run_virtual_ring(plain=True): the same rotation with the
-    steps' plain versions, on f32 copies) and against single-device K1 / K3
-    on the global sequence; then K7's and K8's SASS (_tma_wgmma_sass) and a
-    one-rank NCCL process group through ring_attention_kernel(group=). Times
-    K7 and K8 per step (a diagonal and a full off-diagonal chunk pair) and
-    the whole ring forward and backward, each with its TFLOP/s, the plain
-    ring, K1 / K3 and SDPA at the global shape, and prints the bytes one
-    rotation would put on NVLink."""
-    import torch.distributed as dist
+def _ring_expect(dtype, d: int, n: int) -> dict:
+    """The launch counts of a ring with ``n`` live (rank, step) pairs: K7 =
+    K8 = n, on the f32 forms (and one split bf16x3 each) for f32 and on the
+    D 256 forms above D 128."""
+    f32, wide = int(dtype == torch.float32), int(d + -d % 8 > 128)
+    return _expect(K7=n, K8=n, K7_f32=n * f32, K8_f32=n * f32, K7_d256=n * wide,
+                   K8_d256=n * wide, split_bf16x3=2 * n * f32)
 
+
+def _ring_case(i: int, case, dtype, phase: str) -> dict:
+    """One ring case (RING_CASES' fields after the dtype): the forward and the
+    gradients through ring_attention_kernel_sharded with autograd and exact
+    launch counts (_ring_expect, the counters reset just before), held
+    against the plain ring (run_virtual_ring(plain=True), TF32 off) and
+    against single-device K1 / K3 on the global sequence, fed the ring's
+    pre-scaled q2 with scale ln2 (the same scores: the rounding of q2 stays
+    out of the gate) and the head dim zero-padded to a multiple of 8 as the
+    ring pads it. Returns the errors, counts, inputs and outputs."""
     from flashattn_tpu_torch.ops import flash_bwd_fused, flash_fwd
-    from flashattn_tpu_torch.parallel import ring_attention_kernel, ring_attention_kernel_sharded
+    from flashattn_tpu_torch.parallel import ring_attention_kernel_sharded
     from flashattn_tpu_torch.parallel import ring_kernel as rk
 
-    res = {}
-    for i, (name, ranks, chunk, hq, hkv, d, causal, window, grow, expect) in enumerate(RING_CASES):
-        q, k, v, do = _ring_inputs(1400 + 10 * i, ranks, chunk, hq, hkv, d, grow)
-        tag = (f"{name}: {ranks} ranks x {chunk} B1 Hq{hq} Hkv{hkv} D{d} "
-               f"{'causal' if causal else 'non-causal'}"
-               f"{'' if window is None else f' window {window}'}{'' if grow == 1 else f' (q, k x{grow})'}")
-        kw = dict(causal=causal, window=window)
-        ring = ring_attention_kernel_sharded(ranks=ranks, **kw)
-        leaves = tuple(x.detach().requires_grad_(True) for x in (q, k, v))
-        _reset_launches()
-        o = ring(*leaves)
-        dq, dk, dv = torch.autograd.grad(o, leaves, do)
-        torch.cuda.synchronize()
-        counts = _launches()
-        log("ring", f"{tag}: launches {counts} (expected K7 = K8 = {expect}, no other)")
-        if counts != _expect(K7=expect, K8=expect):
-            fail(f"the ring at {tag} launched {counts}, expected K7 = K8 = {expect} and no other")
-        got = {"o": o.detach(), "lse": rk.run_virtual_ring(q, k, v, ranks=ranks, **kw)[1],
-               "dq": dq, "dk": dk, "dv": dv}
-        plain = dict(zip(("o", "lse", "dq", "dk", "dv"), rk.run_virtual_ring(
-            q, k, v, do, ranks=ranks, plain=True, **kw)))
-        err = _ring_gate(tag, got, plain, "the plain ring")
-        # K1 / K3 on the whole sequence take the ring's q2 = bf16(q·scale·log2e)
-        # with scale ln2 -- the same scores, so the bf16 rounding of q2 (the
-        # JAX ring's practice, ring_kernel.py:886) stays out of the gate --
-        # and dL/dq = dL/dq2 · scale·log2e.
-        q2, s2q = rk._prescale(q, d ** -0.5), d ** -0.5 * rk.LOG2E
-        o1, lse1 = flash_fwd.fwd(q2, k, v, scale=rk.LN2, **kw)
-        delta = (do.float() * o1.float()).sum(-1)
-        g3 = flash_bwd_fused.bwd(q2, k, v, do, lse1, delta, scale=rk.LN2, **kw)
-        single = {"o": o1, "lse": lse1, "dq": g3[0] * s2q,
-                  **{n: g.view(1, hkv, g.shape[1] // hkv, *g.shape[2:]).sum(2)
-                     for n, g in zip(("dk", "dv"), g3[1:])}}
-        _ring_gate(tag, got, single, "single-device K1 / K3")
-        if name == "1 rank":
-            one = (q, k, v, do, got)
-        if name in ("causal", "window"):
-            res[name] = {"err": err, "counts": counts, "inputs": (q, k, v, do), "kw": kw}
-        del o, dq, dk, dv, got, plain, single, g3, o1, q2, leaves
-        torch.cuda.empty_cache()
-    _tma_wgmma_sass("ring", {f"{k} ring_{w}_sm90_kernel<{d}>"
-                             for k, w in (("K7", "fwd"), ("K8", "bwd")) for d in (64, 128)})
+    name, ranks, chunk, hq, hkv, d, causal, window, grow, expect = case
+    q, k, v, do = _ring_inputs(1400 + 10 * i + (dtype == torch.float32), ranks, chunk, hq, hkv,
+                               d, grow, dtype)
+    tag = (f"{name}: {ranks} ranks x {chunk} B1 Hq{hq} Hkv{hkv} D{d} "
+           f"{'f32' if dtype == torch.float32 else 'bf16'} "
+           f"{'causal' if causal else 'non-causal'}"
+           f"{'' if window is None else f' window {window}'}"
+           f"{'' if grow == 1 else f' (q, k x{grow})'}")
+    kw = dict(causal=causal, window=window)
+    ring = ring_attention_kernel_sharded(ranks=ranks, **kw)
+    leaves = tuple(x.detach().requires_grad_(True) for x in (q, k, v))
+    _reset_launches()
+    o = ring(*leaves)
+    dq, dk, dv = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    counts = _launches()
+    want_counts = _ring_expect(dtype, d, expect)
+    log(phase, f"{tag}: launches {counts} (expected "
+               f"{ {n: c for n, c in want_counts.items() if c} }, no other)")
+    if counts != want_counts:
+        fail(f"the ring at {tag} launched {counts}, expected {want_counts}")
+    got = {"o": o.detach(), "lse": rk.run_virtual_ring(q, k, v, ranks=ranks, **kw)[1],
+           "dq": dq, "dk": dk, "dv": dv}
+    plain = dict(zip(("o", "lse", "dq", "dk", "dv"), rk.run_virtual_ring(
+        q, k, v, do, ranks=ranks, plain=True, **kw)))
+    err = _ring_gate(tag, got, plain, "the plain ring", dtype)
+    # dL/dq = dL/dq2 · scale·log2e.
+    q2, s2q = rk._prescale(q, d ** -0.5), d ** -0.5 * rk.LOG2E
+    q2p, kp, vp, dop = rk._pad_d(q2, k, v, do)
+    o1, lse1 = flash_fwd.fwd(q2p, kp, vp, scale=rk.LN2, **kw)
+    delta = (dop.float() * o1.float()).sum(-1)
+    g3 = flash_bwd_fused.bwd(q2p, kp, vp, dop, lse1, delta, scale=rk.LN2, **kw)
+    single = {"o": o1[..., :d], "lse": lse1, "dq": g3[0][..., :d] * s2q,
+              **{n: g[..., :d].reshape(1, hkv, g.shape[1] // hkv, *g.shape[2:-1], d).sum(2)
+                 for n, g in zip(("dk", "dv"), g3[1:])}}
+    _ring_gate(tag, got, single, "single-device K1 / K3", dtype)
+    out = {"err": err, "counts": counts, "inputs": (q, k, v, do), "kw": kw, "got": got}
+    del o, dq, dk, dv, plain, single, g3, o1, q2, leaves
+    torch.cuda.empty_cache()
+    return out
 
-    # One rank of a real process group: NCCL, world size 1, an in-process store.
-    q, k, v, do, want = one
+
+def _nccl_one_rank(inputs, want: dict, limit: float, phase: str) -> None:
+    """A one-rank NCCL process group (world size 1, an in-process store)
+    through ring_attention_kernel(group=), causal, against the one virtual
+    rank's outputs ``want`` within ``limit`` (dQ's bulk reductions add in a
+    varying order)."""
+    import torch.distributed as dist
+
+    from flashattn_tpu_torch.parallel import ring_attention_kernel
+
+    q, k, v, do = inputs
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
         leaves = tuple(x.detach().requires_grad_(True) for x in (q, k, v))
@@ -3652,17 +3727,36 @@ def phase_ring() -> dict:
         dist.destroy_process_group()
     diffs = [(a.float() - want[n].float()).abs().max().item()
              for n, a in zip(("o", "dq", "dk", "dv"), (o, *grads))]
-    log("ring", f"one-rank NCCL group (world size 1) vs the one virtual rank: O / dQ / dK / dV "
-                f"max_abs_diff {', '.join(f'{d:.3e}' for d in diffs)} (limit {O_TOL_NAME} atol "
-                f"0.02: dQ's bulk reductions add in a varying order)")
-    if not max(diffs) <= 2e-2:
+    log(phase, f"one-rank NCCL group (world size 1, {q.dtype}, D{q.shape[-1]}) vs the one "
+               f"virtual rank: O / dQ / dK / dV max_abs_diff "
+               f"{', '.join(f'{d:.3e}' for d in diffs)} (limit {limit})")
+    if not max(diffs) <= limit:
         fail(f"the one-rank NCCL ring differs from the virtual rank: {diffs}")
-    del one, want, o, grads, leaves
 
-    # Times at the main shape, causal; the window's ring beside its SDPA.
-    q, k, v, do = res["causal"]["inputs"]
-    n, scale = q.shape[2], 128 ** -0.5
-    hq, hkv = q.shape[1], k.shape[1]
+
+def _ring_timing(inputs, err, *, label: str, phase: str,
+                 window_inputs=None) -> tuple[dict, dict]:
+    """Times of the ring at RING_RANKS x RING_CHUNK causal on ``inputs``
+    (bf16 or f32): the whole ring forward and backward, each with its
+    TFLOP/s, the plain ring, single-device K1 / K3 and SDPA at the global
+    shape (bf16: its own choice of backend; f32: the memory-efficient
+    backend on K / V expanded to the query heads, TF32 off -- the math
+    backend's f32 scores would not fit), K7 and K8 per step (rank 0's
+    diagonal chunk, its first step, and rank 1's full off-diagonal chunk at
+    step 1, read, merged and written; an f32 step's time includes its
+    split), and the bytes one rotation would put on NVLink; with
+    ``window_inputs``, the ring with RING_WINDOW on them. Returns the
+    `kernels` entries' numbers of K7 and K8 (``err`` their max errors)."""
+    from torch.nn.attention import SDPBackend
+
+    from flashattn_tpu_torch.ops import flash_bwd_fused, flash_fwd
+    from flashattn_tpu_torch.parallel import ring_attention_kernel_sharded
+    from flashattn_tpu_torch.parallel import ring_kernel as rk
+
+    q, k, v, do = inputs
+    f32_in = q.dtype == torch.float32
+    n, d = q.shape[2], q.shape[3]
+    scale, hq, hkv, elem = d ** -0.5, q.shape[1], k.shape[1], q.element_size()
     ring = ring_attention_kernel_sharded(ranks=RING_RANKS, causal=True)
     leaves = tuple(x.detach().requires_grad_(True) for x in (q, k, v))
     out = ring(*leaves)
@@ -3683,82 +3777,174 @@ def phase_ring() -> dict:
     delta = (do.float() * o1.float()).sum(-1)
     k3_ms = cuda_ms(lambda: flash_bwd_fused.bwd(q, k, v, do, lse1, delta, scale=scale,
                                                 causal=True), reps=3, trials=3)
-    sdpa_fwd, sdpa_bwd = sdpa_ms(q, k, v, is_causal=True), sdpa_ms(q, k, v, do=do, is_causal=True)
+    del o1
+    if f32_in:
+        kx, vx = (x.repeat_interleave(hq // hkv, 1) for x in (k, v))
+        try:
+            lib = [sdpa_ms(q, kx, vx, do=g, is_causal=True,
+                           backend=SDPBackend.EFFICIENT_ATTENTION) for g in (None, do)]
+        except RuntimeError as e:  # the backend refused these inputs
+            log(phase, f"SDPA's memory-efficient backend refused f32 D{d}: {str(e)[:200]}")
+            lib = [None, None]
+        del kx, vx
+        lib_call = (f"scaled_dot_product_attention(is_causal=True), memory-efficient backend, "
+                    f"f32 with TF32 off, K / V expanded to the query heads, on the global "
+                    f"[1, {hq}, {n}, {d}]")
+    else:
+        lib = [sdpa_ms(q, k, v, do=g, is_causal=True) for g in (None, do)]
+        lib_call = (f"scaled_dot_product_attention(is_causal=True, enable_gqa=True), its own "
+                    f"choice of backend, on the global [1, {hq}, {n}, {d}]")
 
-    # Per step: rank 0's diagonal chunk (its first step: the state is written,
-    # not read) and rank 1's full off-diagonal chunk at step 1 (read, merged,
-    # written).
     c = RING_CHUNK
     qs, ks, vs, dos = (xport.split(x) for x in (q2, k, v, do))
     f32 = dict(dtype=torch.float32, device=DEVICE)
-    acc, m, l = (torch.empty((1, hq, c, 128), **f32), torch.empty((1, hq, c), **f32),
+    acc, m, l = (torch.empty((1, hq, c, d), **f32), torch.empty((1, hq, c), **f32),
                  torch.empty((1, hq, c), **f32))
     o_c, lse_c = torch.empty_like(qs[0]), torch.empty((1, hq, c), **f32)
     deltas = [x.contiguous() for x in xport.split((do.float() * o_ref.float()).sum(-1))]
-    dq_c, dk_c, dv_c = (torch.zeros((1, hq, c, 128), **f32), torch.zeros((1, hkv, c, 128), **f32),
-                        torch.zeros((1, hkv, c, 128), **f32))
-    steps = {"diagonal": dict(rank=0, src=0, first=True), "off-diagonal": dict(rank=1, src=0,
-                                                                               first=False)}
+    dq_c, dk_c, dv_c = (torch.zeros((1, hq, c, d), **f32), torch.zeros((1, hkv, c, d), **f32),
+                        torch.zeros((1, hkv, c, d), **f32))
+    steps = {"diagonal": dict(rank=0, src=0, first=True),
+             "off-diagonal": dict(rank=1, src=0, first=False)}
     step_ms = {}
-    for label, st in steps.items():
+    for key, st in steps.items():
         r, src = st["rank"], st["src"]
         pos = dict(q_base=r * c, kv_off=src * c, causal=True)
-        step_ms[label] = (
+        step_ms[key] = (
             cuda_ms(lambda: rk.ring_fwd_step(qs[r], ks[src], vs[src], acc, m, l, o_c, lse_c,
                                              first=st["first"], **pos), reps=10, trials=3),
             cuda_ms(lambda: rk.ring_bwd_step(qs[r], ks[src], vs[src], dos[r], lses[r], deltas[r],
                                              dq_c, dk_c, dv_c, **pos), reps=5, trials=3))
     pair = dict(kv_valid_len=n, causal=True, segment_ids=None)
-    fwd_bytes, bwd_bytes = _ring_bytes(RING_RANKS, c, hq, hkv, True, None)
+    peak = PEAK_F32_ACCURATE_FLOPS if f32_in else PEAK_BF16_FLOPS
+    fwd_bytes, bwd_bytes = _ring_bytes(RING_RANKS, c, hq, hkv, d, elem, True, None)
     fwd_flops, bwd_flops = pair_flops(q, k, matmuls=2, **pair), pair_flops(q, k, matmuls=5, **pair)
-    k7 = {"max_abs_err": res["causal"]["err"][0], "ms": fwd_ms, "plain_ms": plain_fwd_ms,
-          **bound(fwd_bytes, fwd_flops), "library_ms": sdpa_fwd,
-          "library_call": f"scaled_dot_product_attention(is_causal=True, enable_gqa=True) on "
-                          f"the global [1, {hq}, {n}, 128]"}
-    k8 = {"max_abs_err": res["causal"]["err"][1], "ms": bwd_ms, "plain_ms": plain_bwd_ms,
-          **bound(bwd_bytes, bwd_flops), "library_ms": sdpa_bwd,
-          "library_call": "the backward of scaled_dot_product_attention(is_causal=True) on the "
-                          "global sequence"}
-    kv_rot, dkv_rot = 2 * 2 * hkv * c * 128, 2 * 4 * hkv * c * 128
-    log("ring", f"{RING_RANKS} ranks x {c} B1 Hq{hq} Hkv{hkv} D128 causal bf16: forward ring "
-                f"{fwd_ms:.4f} ms ({fwd_flops / fwd_ms / 1e9:.1f} TFLOP/s), backward ring "
-                f"{bwd_ms:.4f} ms ({bwd_flops / bwd_ms / 1e9:.1f} TFLOP/s); plain ring "
-                f"{plain_fwd_ms:.2f} / {plain_bwd_ms:.2f} ms; "
-                f"single-device K1 {k1_ms:.4f} ms, K3 {k3_ms:.4f} ms at N{n}; SDPA "
-                f"{sdpa_fwd:.4f} / backward {sdpa_bwd:.4f} ms; bound {k7['bound_ms']:.4f} "
-                f"({k7['bound_by']}) / {k8['bound_ms']:.4f} ms ({k8['bound_by']}) "
-                f"(median CUDA-event time)")
-    for label, (f_ms, b_ms) in step_ms.items():
+    k7 = {"max_abs_err": err[0], "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+          **bound(fwd_bytes, fwd_flops, peak), "library_ms": lib[0], "library_call": lib_call}
+    k8 = {"max_abs_err": err[1], "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+          **bound(bwd_bytes, bwd_flops, peak), "library_ms": lib[1],
+          "library_call": f"the backward of {lib_call}"}
+    lib_txt = " / ".join("refused" if t is None else f"{t:.4f}" for t in lib)
+    log(phase, f"{label}: {RING_RANKS} ranks x {c} B1 Hq{hq} Hkv{hkv} D{d} causal: forward ring "
+               f"{fwd_ms:.4f} ms ({fwd_flops / fwd_ms / 1e9:.1f} TFLOP/s), backward ring "
+               f"{bwd_ms:.4f} ms ({bwd_flops / bwd_ms / 1e9:.1f} TFLOP/s); plain ring "
+               f"{plain_fwd_ms:.2f} / {plain_bwd_ms:.2f} ms; single-device K1 {k1_ms:.4f} ms, "
+               f"K3 {k3_ms:.4f} ms at N{n}; SDPA {lib_txt} ms; bound {k7['bound_ms']:.4f} "
+               f"({k7['bound_by']}) / {k8['bound_ms']:.4f} ms ({k8['bound_by']}) "
+               f"(median CUDA-event time)")
+    per_pair = (6 if f32_in else 1) * 2 * d
+    for key, (f_ms, b_ms) in step_ms.items():
         # Pairs a step attends: the diagonal chunk's lower triangle, or all.
-        pairs = hq * (c * (c + 1) // 2 if label == "diagonal" else c * c)
-        log("ring", f"one step, {label} {c} x {c} chunk pair: K7 {f_ms:.4f} ms "
-                    f"({2 * 2 * 128 * pairs / f_ms / 1e9:.1f} TFLOP/s), K8 {b_ms:.4f} ms "
-                    f"({5 * 2 * 128 * pairs / b_ms / 1e9:.1f} TFLOP/s)")
-    log("ring", f"bytes one rotation would put on NVLink per rank (computed, not measured): K/V "
-                f"bf16 {kv_rot / 1e6:.1f} MB ({kv_rot / NVLINK_BYTES_PER_S * 1e3:.4f} ms at 450 "
-                f"GB/s), dK/dV f32 {dkv_rot / 1e6:.1f} MB "
-                f"({dkv_rot / NVLINK_BYTES_PER_S * 1e3:.4f} ms); per ring {RING_RANKS - 1} K/V "
-                f"rotations forward, {RING_RANKS - 1} K/V + {RING_RANKS} dK/dV backward")
-    del out, leaves, o_ref, o1
+        pairs = hq * (c * (c + 1) // 2 if key == "diagonal" else c * c)
+        log(phase, f"{label}: one step, {key} {c} x {c} chunk pair: K7 {f_ms:.4f} ms "
+                   f"({2 * per_pair * pairs / f_ms / 1e9:.1f} TFLOP/s), K8 {b_ms:.4f} ms "
+                   f"({5 * per_pair * pairs / b_ms / 1e9:.1f} TFLOP/s)"
+                   + (" (bf16 TFLOP/s: six bf16 products per f32 product)" if f32_in else ""))
+    kv_rot, dkv_rot = elem * 2 * hkv * c * d, 4 * 2 * hkv * c * d
+    log(phase, f"{label}: bytes one rotation would put on NVLink per rank (computed, not "
+               f"measured): K/V {kv_rot / 1e6:.1f} MB ({kv_rot / NVLINK_BYTES_PER_S * 1e3:.4f} "
+               f"ms at 450 GB/s), dK/dV f32 {dkv_rot / 1e6:.1f} MB "
+               f"({dkv_rot / NVLINK_BYTES_PER_S * 1e3:.4f} ms); per ring {RING_RANKS - 1} K/V "
+               f"rotations forward, {RING_RANKS - 1} K/V + {RING_RANKS} dK/dV backward")
+    k7["step_ms"] = {key: t[0] for key, t in step_ms.items()}
+    k8["step_ms"] = {key: t[1] for key, t in step_ms.items()}
+    del out, leaves, o_ref
     torch.cuda.empty_cache()
+    if window_inputs is not None:
+        ring = ring_attention_kernel_sharded(ranks=RING_RANKS, causal=True, window=RING_WINDOW)
+        q, k, v, do = window_inputs
+        leaves = tuple(x.detach().requires_grad_(True) for x in (q, k, v))
+        out = ring(*leaves)
+        w_fwd = cuda_ms(lambda: ring(q, k, v), reps=5, trials=3)
+        w_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), reps=3,
+                        trials=3)
+        msg = f"{label}: window {RING_WINDOW} at {RING_RANKS} x {c}: forward ring {w_fwd:.4f} ms, "
+        msg += f"backward ring {w_bwd:.4f} ms"
+        if not f32_in:
+            band = flash_fwd.pair_mask(n, n, kv_valid_len=n, causal=True, segment_ids=None,
+                                       window=RING_WINDOW, device=DEVICE)[0, 0]
+            msg += (f"; SDPA with the band mask {sdpa_ms(q, k, v, attn_mask=band):.4f} / "
+                    f"backward {sdpa_ms(q, k, v, do=do, attn_mask=band):.4f} ms")
+            del band
+        log(phase, msg + " (median CUDA-event time)")
+        del out, leaves
+        torch.cuda.empty_cache()
+    return k7, k8
 
-    q, k, v, do = res["window"]["inputs"]
-    ring = ring_attention_kernel_sharded(ranks=RING_RANKS, causal=True, window=RING_WINDOW)
-    leaves = tuple(x.detach().requires_grad_(True) for x in (q, k, v))
-    out = ring(*leaves)
-    w_fwd = cuda_ms(lambda: ring(q, k, v), reps=5, trials=3)
-    w_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), reps=3,
-                    trials=3)
-    band = flash_fwd.pair_mask(n, n, kv_valid_len=n, causal=True, segment_ids=None,
-                               window=RING_WINDOW, device=DEVICE)[0, 0]
-    log("ring", f"window {RING_WINDOW} at {RING_RANKS} x {c}: forward ring {w_fwd:.4f} ms, "
-                f"backward ring {w_bwd:.4f} ms; SDPA with the band mask "
-                f"{sdpa_ms(q, k, v, attn_mask=band):.4f} / backward "
-                f"{sdpa_ms(q, k, v, do=do, attn_mask=band):.4f} ms (median CUDA-event time)")
+
+def phase_ring() -> dict:
+    """Ring attention over virtual ranks (RING_CASES, bf16 at D <= 128):
+    each case through _ring_case (autograd through
+    ring_attention_kernel_sharded with exact K7 = K8 launch counts, against
+    the plain ring and single-device K1 / K3); then K7's and K8's SASS
+    (_tma_wgmma_sass) and a one-rank NCCL process group through
+    ring_attention_kernel(group=); then _ring_timing at the main shape
+    causal and with the window."""
+    res = {}
+    for i, case in enumerate(RING_CASES):
+        out = _ring_case(i, case, torch.bfloat16, "ring")
+        if case[0] == "1 rank":
+            one = out
+        if case[0] in ("causal", "window"):
+            res[case[0]] = out
+        else:
+            del out
+    _tma_wgmma_sass("ring", {f"{k} ring_{w}_sm90_kernel<{d}>"
+                             for k, w in (("K7", "fwd"), ("K8", "bwd")) for d in (64, 128)})
+    _nccl_one_rank(one["inputs"], one["got"], 2e-2, "ring")
+    del one
+    k7, k8 = _ring_timing(res["causal"]["inputs"], res["causal"]["err"], label="bf16",
+                          phase="ring", window_inputs=res["window"]["inputs"])
     counts = res["causal"]["counts"]
-    del out, leaves, band, res
+    del res
     torch.cuda.empty_cache()
     return {"k7": k7, "k8": k8, "launches": counts}
+
+
+def ring_wide_instantiations() -> set:
+    """The ring kernels' f32 and D 256 forms, by instantiation_name."""
+    return {"K7 d256 ring_fwd_wide_kernel", "K8 d256 ring_bwd_wide_kernel",
+            "K7 f32 d256 fwd_f32_wide_kernel<0, 0, 0, 1>",
+            *(f"K7 f32 fwd_f32_kernel<{d}, 0, 0, 0, 1>" for d in (64, 128)),
+            *(f"K8 f32 bwd_f32_kernel<{d}, 0, 0, 0, 1>" for d in (64, 128, 256))}
+
+
+def phase_ring_wide() -> dict:
+    """The ring kernels' f32 and D 136-256 forms (RING_WIDE_CASES): each case
+    through _ring_case (exact K7 = K8 and split bf16x3 launch counts; f32
+    gated at FWD_TOL / BWD_TOL[f32], bf16 at [bf16] and relative L2 1e-2,
+    against the plain ring in f32 with TF32 off and single-device K1 / K3);
+    the new instantiations' SASS; a one-rank NCCL group in f32 at D 256;
+    then _ring_timing of each form at the main shape (RING_WIDE_TIMED).
+    Returns, per form, the `kernels` entries' numbers and the launches of
+    the form's main-shape runs."""
+    _f32_tf32_off()
+    res, launches = {}, {}
+    for i, (name, dtype, *case) in enumerate(RING_WIDE_CASES):
+        out = _ring_case(100 + i, (name, *case), dtype, "ring wide")
+        for key in ("K7", "K8"):
+            launches[key] = launches.get(key, 0) + out["counts"][key]
+        if name in RING_WIDE_TIMED or name.endswith("window") or name == "f32 D256 1 rank":
+            res[name] = out
+        else:
+            del out
+    _tma_wgmma_sass("ring wide", ring_wide_instantiations())
+    _nccl_one_rank(res["f32 D256 1 rank"]["inputs"], res["f32 D256 1 rank"]["got"], 1e-3,
+                   "ring wide")
+    del res["f32 D256 1 rank"]
+    forms = {}
+    for name, form in RING_WIDE_TIMED.items():
+        window = res.get(name.replace("causal", "window"), {}).get("inputs")
+        k7, k8 = _ring_timing(res[name]["inputs"], res[name]["err"], label=form,
+                              phase="ring wide", window_inputs=window)
+        forms[form] = {"k7": k7, "k8": k8, "launches": {
+            key: sum(r["counts"][key] for n, r in res.items()
+                     if n.replace("window", "causal") == name) for key in ("K7", "K8")}}
+        res.pop(name)
+        res.pop(name.replace("causal", "window"), None)
+        torch.cuda.empty_cache()
+    log("ring wide", f"K7 / K8 launches over the phase's cases: {launches}")
+    return forms
 
 
 # ---------------------------------------------------------------------------
@@ -5267,6 +5453,25 @@ def f32_wide_instantiations() -> set:
             | {f"bwd f32{opts(*f)} bwd_f32_kernel<256, {f[0]}, {f[1]}, {f[2]}>" for f in flags})
 
 
+def _f32_flex_library_ms(q, k, v, do, cap: float) -> dict:
+    """The library yardstick of a soft-capped f32 call, which no SDPA call
+    computes: flex_attention compiled by torch.compile, causal, the cap as
+    its score_mod, on the f32 inputs with TF32 off (Inductor then keeps its
+    dots in f32), the forward (``do`` None) or the backward. A compile or
+    launch that the backend refuses is logged and leaves library_ms null."""
+    _f32_tf32_off()
+    what = "backward" if do is not None else "forward"
+    try:
+        ms = flex_ms(q, k, v, scale=q.shape[-1] ** -0.5, do=do, score_mod=softcap_mod(cap),
+                     mask_mod=band_mod(None))
+    except Exception as e:  # noqa: BLE001 -- Inductor's and Triton's errors alike
+        log("f32 wide", f"compiled flex_attention f32 {what} with the cap refused: "
+                        f"{type(e).__name__}: {str(e)[:200]}")
+        return {"library_ms": None, "library": f"none (compiled flex refused: {type(e).__name__})"}
+    return {"library_ms": ms,
+            "library": f"flex_attention compiled, f32 (TF32 off), causal, cap {cap} as score_mod"}
+
+
 def _f32_wide_lm_timing() -> dict:
     """K1's f32 route's D 256 form and the f32 backward's at the attention of
     the f32 LM with heads of 256 (WIDE_SHAPE, B1 Hq8 Hkv4 N2048 D256, causal):
@@ -5277,7 +5482,9 @@ def _f32_wide_lm_timing() -> dict:
     device ms (kernels_ms), the plain version's ms, the bound (bytes at 3.35
     TB/s, the pairs' products at PEAK_F32_ACCURATE_FLOPS) and the faster of
     SDPA's two f32 backends on the same inputs (the documents as a boolean
-    mask; with the cap none: SDPA takes no cap, library_ms null)."""
+    mask); with the cap, which SDPA does not take, compiled flex_attention
+    with the cap as its score_mod (softcap_mod) and the causal block mask,
+    TF32 off (_f32_flex_library_ms)."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd
     from flashattn_tpu_torch.utils.testing import (
         BWD_TOL, FWD_TOL, check_close, grad_gate, make_qkv)
@@ -5302,8 +5509,8 @@ def _f32_wide_lm_timing() -> dict:
                "kernel_ms": kernels_ms(fn, reps=5), "plain_ms": cuda_ms(plain, reps=1, trials=3),
                **bound(nbytes, pair_flops(q, k, matmuls=matmuls, **mask),
                        PEAK_F32_ACCURATE_FLOPS),
-               **({"library_ms": None, "library": "none (SDPA takes no logit softcap)"}
-                  if lib_kw is None else _f32_library_ms(q, k, v, lib_do, lib_kw))}
+               **(_f32_flex_library_ms(q, k, v, lib_do, SOFTCAP) if lib_kw is None
+                  else _f32_library_ms(q, k, v, lib_do, lib_kw))}
         row["bound_share"] = row["bound_ms"] / row["ms"]
         rows[name] = row
         lib = ("" if row["library_ms"] is None
@@ -6678,6 +6885,7 @@ def main() -> None:
     bias_train = timed(phase_bias_train)
     roof = timed(phase_roofline)
     ring = timed(phase_ring)
+    ring_wide = timed(phase_ring_wide)
     sharded = timed(phase_sharded_train)
     f32 = timed(phase_f32_check)
     f32_train = timed(phase_f32_train)
@@ -6828,6 +7036,27 @@ def main() -> None:
          "source": "flashattn_tpu_torch/csrc/ring_bwd.cu",
          "replaces": "flashattn_tpu/parallel/ring_kernel.py:389",
          "launches": ring["launches"]["K8"], **ring["k8"]},
+        # The ring kernels' f32 and D 256 forms (phase_ring_wide) at 4 ranks x
+        # 4096 causal: the f32 LM's attention (Hq16 Hkv8 D128) and Gemma 2's
+        # heads of 256 (Hq8 Hkv4 D256); launches from the form's main-shape
+        # runs (causal and, where it has one, windowed); ms the whole ring,
+        # an f32 ring's with its splits.
+        *({"name": f"ring {step} step {form} (K{7 if step == 'fwd' else 8}'s {form} form, TMA + "
+                   f"wgmma{' on bf16 pieces' if 'f32' in form else ''})", "route": "cuda",
+           "source": src[step], "replaces": ("flashattn_tpu/parallel/ring_kernel.py:74"
+                                             if step == "fwd" else
+                                             "flashattn_tpu/parallel/ring_kernel.py:389"),
+           "launches": ring_wide[form]["launches"][f"K{7 if step == 'fwd' else 8}"],
+           **{k: v for k, v in ring_wide[form][f"k{7 if step == 'fwd' else 8}"].items()
+              if k != "step_ms"}}
+          for form, src in (
+              ("f32", {"fwd": "flashattn_tpu_torch/csrc/flash_fwd_f32.cu",
+                       "bwd": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu"}),
+              ("bf16 D 256", {"fwd": "flashattn_tpu_torch/csrc/fwd_sm90_tile.cuh",
+                              "bwd": "flashattn_tpu_torch/csrc/bwd_sm90_wide.cuh"}),
+              ("f32 D 256", {"fwd": "flashattn_tpu_torch/csrc/flash_fwd_f32.cu",
+                             "bwd": "flashattn_tpu_torch/csrc/flash_bwd_f32.cu"}))
+          for step in ("fwd", "bwd")),
         # The chunk pairs of the sharded LM step (phase_sharded_train): its
         # contiguous step's launches and its packed step's.
         {"name": "K1 dense sm90 offsets (flash_fwd_sm90, wgmma: the contiguous ring's "

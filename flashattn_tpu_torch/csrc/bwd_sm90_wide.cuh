@@ -143,8 +143,13 @@ constexpr int bwd_block_n(int box_d) { return box_d == BW_D ? BW_BLOCK_N : BB_BL
 // bwd_bias_wide_kernel<SEG, CAP> (BIAS: Params BwdBiasParams, its bias
 // pointer and strides; dbias when p.dbias is not null), for any head dim p.d
 // <= 256; launched as a grid (Hq, ceil(Nk / 64), B) of BB_THREADS threads
-// with BwSmem::BYTES of shared memory.
-template <bool SEG, bool CAP, bool BIAS = false, typename Params>
+// with BwSmem::BYTES of shared memory. RING (K8's D 256 form, ring_bwd.cu:
+// Params BwdDenseParams with q pre-scaled, scale = scale_log2 = 1): a grid
+// (Hkv, ceil(Nk / 64), B) whose CTA walks the Q tiles of each query head of
+// its KV head's group in turn (visit w: head h0 + w / n_m, Q tile w % n_m),
+// so its dK / dV sum the group, and adds them into dk / dv [B, Hkv, Nk, d],
+// the ring's rotating accumulators, which it alone owns.
+template <bool SEG, bool CAP, bool BIAS = false, bool RING = false, typename Params>
 __device__ __forceinline__ void bwd_wide_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                               const CUtensorMap& tm_v, const CUtensorMap& tm_do,
                                               const Params p) {
@@ -160,8 +165,10 @@ __device__ __forceinline__ void bwd_wide_body(const CUtensorMap& tm_q, const CUt
   int* seg_kv_s = reinterpret_cast<int*>(smem + S::OFF_SEG);      // SEG: the keys' ids
   int* seg_q_s = seg_kv_s + BW_BLOCK_N;                           // SEG: the Q tile's ids
 
-  const int h = blockIdx.x;
-  const int hk = h / p.rep;
+  static_assert(!(RING && (SEG || CAP || BIAS)), "K8 takes no ids, cap or bias");
+  const int hk = RING ? blockIdx.x : blockIdx.x / p.rep;
+  const int h0 = RING ? hk * p.rep : blockIdx.x;  // the first query head walked
+  const int heads = RING ? p.rep : 1;             // K8 GQA heads
   // A left bound alone: the late KV tiles meet the most Q tiles; run them
   // first (causal's first tiles are its longest already).
   const int n_tile =
@@ -189,6 +196,7 @@ __device__ __forceinline__ void bwd_wide_body(const CUtensorMap& tm_q, const CUt
     return i;
   };
   const int first = next_visit(0);
+  const int n_w = heads * n_m;  // visits: the Q tiles of each head walked
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
 
@@ -217,8 +225,9 @@ __device__ __forceinline__ void bwd_wide_body(const CUtensorMap& tm_q, const CUt
                   BW_BLOCK_N * 4, kv_full);
       }
       int it = 0;
-      for (int i = first; i < n_m; i = next_visit(i + 1), ++it) {
-        const int m0 = m_begin + i * BW_BLOCK_M;
+      for (int w = first; w < n_w; w = next_visit(w + 1), ++it) {
+        const int m0 = m_begin + (RING ? w % n_m : w) * BW_BLOCK_M;
+        const int h = RING ? h0 + w / n_m : h0;
         mbar_wait(empty, (it & 1) ^ 1);  // round 0 passes at once
         mbar_expect_tx(full, 2 * S::QT + 2 * BW_BLOCK_M * 4 + (SEG ? BW_BLOCK_M * 4 : 0));
 #pragma unroll
@@ -263,8 +272,9 @@ __device__ __forceinline__ void bwd_wide_body(const CUtensorMap& tm_q, const CUt
       }
     }
     int it = 0;
-    for (int i = first; i < n_m; i = next_visit(i + 1), ++it) {
-      const int m0 = m_begin + i * BW_BLOCK_M;  // the tile's first row
+    for (int w = first; w < n_w; w = next_visit(w + 1), ++it) {
+      const int m0 = m_begin + (RING ? w % n_m : w) * BW_BLOCK_M;  // the tile's first row
+      const int h = RING ? h0 + w / n_m : h0;
       const int mc = m0 + BW_HALF_M * c;         // this consumer's first row of S^T
       mbar_wait(full, it & 1);
       // Every shared-memory operand from two bases the compiler cannot see
@@ -518,7 +528,8 @@ __device__ __forceinline__ void bwd_wide_body(const CUtensorMap& tm_q, const CUt
     if (issuer) bulk_wait();
 
     // dK and dV of this thread's keys below Nk, columns 128c.. below d, per
-    // query head: dk[4jj + 2r + e] is key kv0 + 8r, column 128c + 8jj + 2t + e.
+    // query head (RING: per KV head, the grid's): dk[4jj + 2r + e] is key kv0
+    // + 8r, column 128c + 8jj + 2t + e.
     const int64_t row0 = (static_cast<int64_t>(b) * gridDim.x + blockIdx.x) * p.nk + kv0;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -528,10 +539,16 @@ __device__ __forceinline__ void bwd_wide_body(const CUtensorMap& tm_q, const CUt
 #pragma unroll
       for (int jj = 0; jj < 16; ++jj) {
         if (128 * c + 8 * jj + 2 * t >= d) continue;
-        *reinterpret_cast<float2*>(dk_row + 8 * jj + 2 * t) =
-            make_float2(dk[4 * jj + 2 * r], dk[4 * jj + 2 * r + 1]);
-        *reinterpret_cast<float2*>(dv_row + 8 * jj + 2 * t) =  // bwd wide dV store
-            make_float2(dv[4 * jj + 2 * r], dv[4 * jj + 2 * r + 1]);
+        float2 k2 = make_float2(dk[4 * jj + 2 * r], dk[4 * jj + 2 * r + 1]);
+        float2 v2 = make_float2(dv[4 * jj + 2 * r], dv[4 * jj + 2 * r + 1]);
+        if constexpr (RING) {  // K8: added to the ring's accumulators
+          const float2 k0 = *reinterpret_cast<const float2*>(dk_row + 8 * jj + 2 * t);
+          const float2 v0 = *reinterpret_cast<const float2*>(dv_row + 8 * jj + 2 * t);
+          k2 = make_float2(k0.x + k2.x, k0.y + k2.y);
+          v2 = make_float2(v0.x + v2.x, v0.y + v2.y);
+        }
+        *reinterpret_cast<float2*>(dk_row + 8 * jj + 2 * t) = k2;
+        *reinterpret_cast<float2*>(dv_row + 8 * jj + 2 * t) = v2;  // bwd wide dV store
       }
     }
   }

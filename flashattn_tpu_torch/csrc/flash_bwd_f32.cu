@@ -9,6 +9,20 @@
 // runtime null pointer, so it adds no instantiation) and the C entry
 // fa_bwd_f32.
 //
+// With RING the same kernel is K8's f32 forms, one ring backward step of one
+// rank (C entry fa_ring_bwd_f32): it replaces
+// flashattn_tpu/parallel/ring_kernel.py::_ring_bwd_kernel (K8, :389) on f32
+// (Precision.HIGHEST, :451). At the f32 LM's attention a full off-diagonal
+// 4096 x 4096 chunk pair is 344 GFLOP of f32 products: 2.1 ms at 165 TFLOP/s,
+// operations. The body is unchanged but for two things: the CTA (or cluster,
+// at D 256) is one per (KV head, 64 keys) and walks the Q tiles of each query
+// head of the KV head's group in turn, so its dK / dV sum the group inside
+// the CTA (one owner per accumulator tile, no race), and the epilogue adds
+// them into the ring's rotating f32 dK / dV instead of storing them; q
+// arrives pre-scaled (scale = scale_log2 = 1) and the band is shifted by
+// q_base - kv_off. The C entry splits k and v on each live step and q and dO
+// on the rank's first.
+//
 // Replaces, on f32 inputs, flashattn_tpu/ops/flash_bwd_fused.py::
 // _bwd_fused_kernel (K3, :110) and _bwd_causal_resident_kernel (K4, :336),
 // and flashattn_tpu/ops/flash_bwd.py::_dkv_kernel (K5, :139) with _dq_kernel
@@ -226,13 +240,14 @@ __device__ __forceinline__ void issue_rs6(float (&acc)[D / 2], const uint32_t (&
   wgmma_commit();
 }
 
-template <int D, bool SEG, bool CAP, bool BIAS>
+template <int D, bool SEG, bool CAP, bool BIAS, bool RING>
 __global__ void __launch_bounds__(F32B_THREADS, 1)
     bwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ CUtensorMap tm_do, const BwdF32Params p) {
   static_assert(D == 64 || D == 128 || D == 256, "instantiated for D 64, 128 and 256");
+  static_assert(!(RING && (SEG || CAP || BIAS)), "K8 takes no ids, cap or bias");
   using S = F32BwdSmem<D>;
   constexpr bool WIDE = S::WIDE;
   constexpr int DH = S::DH;
@@ -255,8 +270,13 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
   // below derives from h, the KV tile and b, never from the rank).
   const int rank = WIDE ? static_cast<int>(cluster_ctarank()) : 0;
   const int c_off = rank * DH;  // the CTA's first column
-  const int h = WIDE ? blockIdx.x >> 1 : blockIdx.x;
-  const int hk = h / p.rep;
+  // RING (K8): the grid's head is a KV head, and the CTA walks the Q tiles
+  // of each query head of its group in turn (visit w: head h0 + w / n_m, Q
+  // tile w % n_m), so its dK / dV sum the group and have one owner.
+  const int head = WIDE ? blockIdx.x >> 1 : blockIdx.x;
+  const int hk = RING ? head : head / p.rep;
+  const int h0 = RING ? head * p.rep : head;  // the first query head walked
+  const int heads = RING ? p.rep : 1;         // K8 GQA heads
   // A left bound alone: the late KV tiles meet the most Q tiles; run them
   // first (causal's first tiles are its longest already).
   const int n_tile =
@@ -284,6 +304,7 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
     return i;
   };
   const int first = next_visit(0);
+  const int n_w = heads * n_m;  // visits: the Q tiles of each head walked
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
 
@@ -320,9 +341,10 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
                   F32B_BLOCK_N * 4, kv_full);
       }
       int it = 0;
-      for (int i = first; i < n_m; i = next_visit(i + 1), ++it) {
+      for (int w = first; w < n_w; w = next_visit(w + 1), ++it) {
         const int s = it % ST;
-        const int m = m_begin + i * F32B_BLOCK_M;
+        const int m = m_begin + (RING ? w % n_m : w) * F32B_BLOCK_M;
+        const int h = RING ? h0 + w / n_m : h0;
         unsigned char* st = stage(s);
         mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);  // round 0 passes at once
         mbar_expect_tx(&full[s], 2 * S::QT + 2 * F32B_BLOCK_M * 4 + (SEG ? F32B_BLOCK_M * 4 : 0));
@@ -378,9 +400,10 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       }
     }
     int it = 0;
-    for (int i = first; i < n_m; i = next_visit(i + 1), ++it) {
+    for (int w = first; w < n_w; w = next_visit(w + 1), ++it) {
       const int s = it % ST;
-      const int m = m_begin + i * F32B_BLOCK_M;  // the tile's first row
+      const int m = m_begin + (RING ? w % n_m : w) * F32B_BLOCK_M;  // the tile's first row
+      const int h = RING ? h0 + w / n_m : h0;
       const unsigned char* q_st = stage(s);
       const unsigned char* do_st = q_st + S::QT;
       mbar_wait(&full[s], (it / ST) & 1);
@@ -644,20 +667,29 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
     if (issuer) bulk_wait();
 
     // dK and dV of this thread's keys, per query head; every key below Nk is
-    // written (zeros for keys no row reached).
+    // written (zeros for keys no row reached). RING: per KV head, added to
+    // the ring's rotating f32 accumulators (read, summed, written back: the
+    // CTA is their one owner).
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = kv0 + 8 * r;
       if (key >= p.nk) continue;
-      const int64_t off =
-          ((static_cast<int64_t>(b) * p.hq + h) * p.nk + key) * d + c_off + 2 * t;
+      const int64_t dkv_head = RING ? static_cast<int64_t>(b) * (p.hq / p.rep) + hk
+                                    : static_cast<int64_t>(b) * p.hq + head;
+      const int64_t off = (dkv_head * p.nk + key) * d + c_off + 2 * t;
 #pragma unroll
       for (int jj = 0; jj < DH / 8; ++jj) {
         if (c_off + 8 * jj + 2 * t >= d) continue;
-        *reinterpret_cast<float2*>(p.dk + off + 8 * jj) =
-            make_float2(dk[4 * jj + 2 * r], dk[4 * jj + 2 * r + 1]);
-        *reinterpret_cast<float2*>(p.dv + off + 8 * jj) =
-            make_float2(dv[4 * jj + 2 * r], dv[4 * jj + 2 * r + 1]);
+        float2 k2 = make_float2(dk[4 * jj + 2 * r], dk[4 * jj + 2 * r + 1]);
+        float2 v2 = make_float2(dv[4 * jj + 2 * r], dv[4 * jj + 2 * r + 1]);
+        if constexpr (RING) {
+          const float2 k0 = *reinterpret_cast<const float2*>(p.dk + off + 8 * jj);
+          const float2 v0 = *reinterpret_cast<const float2*>(p.dv + off + 8 * jj);
+          k2 = make_float2(k0.x + k2.x, k0.y + k2.y);
+          v2 = make_float2(v0.x + v2.x, v0.y + v2.y);
+        }
+        *reinterpret_cast<float2*>(p.dk + off + 8 * jj) = k2;
+        *reinterpret_cast<float2*>(p.dv + off + 8 * jj) = v2;
       }
     }
   }
@@ -665,16 +697,17 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
   if constexpr (WIDE) cluster_sync();
 }
 
-template <int D, bool SEG, bool CAP, bool BIAS>
+template <int D, bool SEG, bool CAP, bool BIAS, bool RING = false>
 cudaError_t bwd_f32_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                            const CUtensorMap& tm_v, const CUtensorMap& tm_do,
                            const BwdF32Params& p, cudaStream_t stream) {
-  auto kernel = bwd_f32_kernel<D, SEG, CAP, BIAS>;
+  auto kernel = bwd_f32_kernel<D, SEG, CAP, BIAS, RING>;
   constexpr int smem = F32BwdSmem<D>::BYTES;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   constexpr int ranks = F32BwdSmem<D>::WIDE ? 2 : 1;  // CTAs per cluster
-  const dim3 grid(p.hq * ranks, (p.nk + F32B_BLOCK_N - 1) / F32B_BLOCK_N, p.batch);
+  const int heads = RING ? p.hq / p.rep : p.hq;  // RING: a CTA (pair) per KV head
+  const dim3 grid(heads * ranks, (p.nk + F32B_BLOCK_N - 1) / F32B_BLOCK_N, p.batch);
   if constexpr (ranks == 1) {
     kernel<<<grid, F32B_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, tm_do, p);
     return cudaGetLastError();
@@ -837,6 +870,92 @@ int fa_bwd_f32(const void* q, const void* k, const void* v, const void* dout, co
         : d <= 128 ? bwd_f32_dispatch<128, false>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s)
                    : bwd_f32_dispatch<256, false>(tm_q, tm_k, tm_v, tm_do, p, seg, cap, s);
   }
+  return static_cast<int>(e);
+}
+
+
+// K8 on f32 inputs, one ring backward step of one rank (ring_bwd.cu's
+// fa_ring_bwd_bf16, whose argument list this takes in its order, with the
+// pieces after dv): f32 q (q * scale * log2 e) / dout [B, Hq, nq, D] and k /
+// v [B, Hkv, nk, D] (unit stride on D, other strides in elements), lse
+// (natural log, -inf on a dead row), delta, dq, dk and dv as there: dq added
+// to by bulk reductions over its rows, dk / dv [B, Hkv, nk, D] the ring's
+// rotating accumulators, read, summed over each KV head's query heads inside
+// the CTA and written back. The step runs this file's kernel with RING --
+// the band shifted by q_base - kv_off, scale = scale_log2 = 1 (q arrives in
+// the log2 domain, so dq comes out x 1/scale and dk x 1/ln2 of the
+// gradients) -- on three bf16 pieces per operand: one launch of the split
+// writes k's and v's pieces into kv_pieces (3 DB 2 B Hkv nk elements) and,
+// with split_q != 0, q's and then dout's into q_pieces (3 DB 2 B Hq nq
+// elements); without it q_pieces holds what the rank's first live step
+// wrote there (q and dO do not rotate). Both 16-byte aligned; DB as
+// fa_ring_fwd_f32's. Requires 8 <= D <= 256 with D % 8 == 0, Hq % Hkv == 0,
+// nq and nk multiples of 128, B <= 65535; above D 128 a cluster of two CTAs
+// per KV head and 64 keys. Returns a cudaError_t as fa_bwd_f32.
+int fa_ring_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                    void* q_pieces, void* kv_pieces, int split_q, int batch, int hq, int hkv,
+                    int nq, int nk, int d, int q_base, int kv_off, int causal, int wl, int wr,
+                    int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t kv_sb, int64_t kv_sh,
+                    int64_t kv_sn, int64_t do_sb, int64_t do_sh, int64_t do_sn, void* stream) {
+  if (batch < 1 || batch > 65535 || d < 8 || d > 256 || d % 8 || hkv < 1 || hq < 1 ||
+      hq % hkv || nq < 128 || nk < 128 || nq % 128 || nk % 128 ||
+      nk / F32B_BLOCK_N > 65535 || !aligned(q_pieces, 16) || !aligned(kv_pieces, 16) ||
+      !aligned(lse, 16) || !aligned(delta, 16) || !aligned(dq, 16) || !aligned(dk, 8) ||
+      !aligned(dv, 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int db = d <= 64 ? 64 : d <= 128 ? 128 : 256;
+  const int64_t q_head = static_cast<int64_t>(db) * nq;
+  const int64_t kv_head = static_cast<int64_t>(db) * nk;
+  __nv_bfloat16* qp = static_cast<__nv_bfloat16*>(q_pieces);
+  __nv_bfloat16* dop = qp + 3 * q_head * hq * batch;
+  __nv_bfloat16* kp = static_cast<__nv_bfloat16*>(kv_pieces);
+  __nv_bfloat16* vp = kp + 3 * kv_head * hkv * batch;
+  const fa::SplitArg split[4] = {{k, kp, batch, hkv, nk, d, kv_sb, kv_sh, kv_sn},
+                                 {v, vp, batch, hkv, nk, d, kv_sb, kv_sh, kv_sn},
+                                 {q, qp, batch, hq, nq, d, q_sb, q_sh, q_sn},
+                                 {dout, dop, batch, hq, nq, d, do_sb, do_sh, do_sn}};
+  cudaError_t e = fa::split_bf16x3(split, split_q ? 4 : 2, db, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  alignas(64) CUtensorMap tm_q;
+  alignas(64) CUtensorMap tm_k;
+  alignas(64) CUtensorMap tm_v;
+  alignas(64) CUtensorMap tm_do;
+  if (!make_bhnd_map(&tm_q, qp, 3 * batch, hq, nq, d, q_head * hq, q_head, db, F32B_BLOCK_M) ||
+      !make_bhnd_map(&tm_k, kp, 3 * batch, hkv, nk, d, kv_head * hkv, kv_head, db,
+                     F32B_BLOCK_N) ||
+      !make_bhnd_map(&tm_v, vp, 3 * batch, hkv, nk, d, kv_head * hkv, kv_head, db,
+                     F32B_BLOCK_N) ||
+      !make_bhnd_map(&tm_do, dop, 3 * batch, hq, nq, d, q_head * hq, q_head, db,
+                     F32B_BLOCK_M)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  fa::BwdF32Params p = {};
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
+  p.batch = batch;
+  p.hq = hq;
+  p.rep = hq / hkv;
+  p.nq = nq;
+  p.nq_pad = nq;
+  p.nk = nk;
+  p.kv_valid_len = nk;
+  p.d = d;
+  band_bounds(causal, wl, wr, &p.lo, &p.hi, static_cast<int64_t>(q_base) - kv_off);
+  p.q_tiles = nq / F32B_BLOCK_M;
+  p.kv_tiles = nk / F32B_BLOCK_N;
+  p.scale = 1.f;
+  p.scale_log2 = 1.f;
+  e = d <= 64    ? bwd_f32_launch<64, false, false, false, true>(tm_q, tm_k, tm_v, tm_do, p, s)
+      : d <= 128 ? bwd_f32_launch<128, false, false, false, true>(tm_q, tm_k, tm_v, tm_do, p, s)
+                 : bwd_f32_launch<256, false, false, false, true>(tm_q, tm_k, tm_v, tm_do, p,
+                                                                  s);
   return static_cast<int>(e);
 }
 

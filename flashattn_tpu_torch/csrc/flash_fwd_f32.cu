@@ -11,6 +11,22 @@
 // (every D 136-256: 64 Q rows a CTA, its notes below) and the C entry
 // fa_fwd_f32.
 //
+// With RING the same kernels are K7's f32 forms, one ring forward step of
+// one rank (C entry fa_ring_fwd_f32): they replace
+// flashattn_tpu/parallel/ring_kernel.py::_ring_fwd_kernel (K7, :74) on f32,
+// whose products the JAX kernel takes at Precision.HIGHEST (:280). At the f32
+// LM's attention (B1 Hq16 Hkv8 D128) a full off-diagonal 4096 x 4096 chunk
+// pair is 137 GFLOP of f32 products, six bf16 products each: 0.83 ms at 165
+// TFLOP/s, against ~140 MB of Q, K / V and f32 state (0.04 ms): operations,
+// as for K1. So K7 is this body unchanged in its main loop -- the band shifted
+// by q_base - kv_off, scale_log2 = 1 (q arrives pre-scaled into the log2
+// domain) -- with the ring's epilogue (ring_merge.cuh: the chunk's partial
+// merged into the rank's f32 (acc, m, l), or O and the LSE on its last live
+// step) in place of K1's. The C entry splits k and v on each live step (they
+// rotate as f32: 4 bytes an element on the wire, not the pieces' 6) and q
+// only on the rank's first (q does not rotate; the pieces stay in the
+// caller's scratch for the ring).
+//
 // Replaces the TPU kernel flashattn_tpu/ops/flash_fwd.py::_fwd_kernel (K1,
 // :115) on f32 inputs and, with causal or a window, K2
 // (_fwd_causal_resident_kernel, :516). It computes what the dense route
@@ -81,6 +97,7 @@
 //     right bound (causal) the longest Q tiles go first.
 
 #include "fwd_sm90_tile.cuh"
+#include "ring_merge.cuh"
 #include "split_bf16x3.cuh"
 
 namespace fa {
@@ -101,6 +118,7 @@ struct FwdF32Params {
   float cap_scale, cap_log2;  // CAP: scale / cap, cap * log2(e)
   const float* bias;       // BIAS: f32, unit column stride, 16-byte-aligned rows
   int64_t bias_sb, bias_sh, bias_sn;  // 0 on broadcast dims
+  RingState ring;          // RING: the ring's running state (ring_merge.cuh)
 };
 
 }  // namespace fa
@@ -179,7 +197,7 @@ __device__ __forceinline__ void issue_pv6(float (&o)[D / 2], const uint32_t (&pa
   wgmma_commit();
 }
 
-template <int D, bool SEG, bool CAP, bool BIAS>
+template <int D, bool SEG, bool CAP, bool BIAS, bool RING>
 __global__ void __launch_bounds__(F32_THREADS, 1)
     fwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -408,7 +426,13 @@ __global__ void __launch_bounds__(F32_THREADS, 1)
     }
 
     // Epilogue: O = acc / l, LSE = m ln2 + log l; ragged rows and O's
-    // columns >= D (zeros the boxes read) masked on store.
+    // columns >= D (zeros the boxes read) masked on store. RING: K7's merge
+    // into the ring's state, or its finalize (ring_merge.cuh).
+    if constexpr (RING) {
+      ring_merge_store<D>(p.ring, p.o, p.o_sb, p.o_sh, p.o_sn, p.lse, p.hq, p.nq, p.d, o, m_i,
+                          l_i, b, h, row0, t);
+      return;
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float l = l_i[r];
@@ -470,7 +494,7 @@ struct F32WideFwdSmem {
 // 32 KB exchange buffer leaves no room for a bias tile beside the D 128
 // layout's 192 KB; 64 rows leave 16 KB for it in shared memory. No
 // setmaxnreg: at 256 threads a thread may hold 255 registers.
-template <bool SEG, bool CAP, bool BIAS>
+template <bool SEG, bool CAP, bool BIAS, bool RING>
 __global__ void __launch_bounds__(F32W_THREADS, 1)
     fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
@@ -714,7 +738,14 @@ __global__ void __launch_bounds__(F32W_THREADS, 1)
     }
 
     // Epilogue: O = acc / l, LSE = m ln2 + log l; rows past Nq and O's
-    // columns >= D (zeros the boxes read) masked on store.
+    // columns >= D (zeros the boxes read) masked on store. RING: K7's merge
+    // (ring_merge.cuh), O's halves as one accumulator of 256 columns.
+    if constexpr (RING) {
+      ring_merge_store<256>(p.ring, p.o, p.o_sb, p.o_sh, p.o_sn, p.lse, p.hq, p.nq, p.d,
+                            *reinterpret_cast<const float(*)[128]>(&o[0][0]), m_i, l_i, b, h,
+                            row0, t);
+      return;
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float l = l_i[r];
@@ -745,18 +776,18 @@ __global__ void __launch_bounds__(F32W_THREADS, 1)
   }
 }
 
-template <int D, bool SEG, bool CAP, bool BIAS>
+template <int D, bool SEG, bool CAP, bool BIAS, bool RING = false>
 cudaError_t fwd_f32_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                            const CUtensorMap& tm_v, const FwdF32Params& p, cudaStream_t stream) {
   if constexpr (D == 256) {
-    auto kernel = fwd_f32_wide_kernel<SEG, CAP, BIAS>;
+    auto kernel = fwd_f32_wide_kernel<SEG, CAP, BIAS, RING>;
     constexpr int smem = F32WideFwdSmem<BIAS>::BYTES;
     const cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
     const dim3 grid(p.hq, (p.nq + F32W_BLOCK_M - 1) / F32W_BLOCK_M, p.batch);
     kernel<<<grid, F32W_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, p);
   } else {
-    auto kernel = fwd_f32_kernel<D, SEG, CAP, BIAS>;
+    auto kernel = fwd_f32_kernel<D, SEG, CAP, BIAS, RING>;
     constexpr int smem = F32FwdSmem<D, BIAS>::BYTES;
     const cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
@@ -887,6 +918,82 @@ int fa_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, 
         : d <= 128 ? fwd_f32_dispatch<128, false>(tm_q, tm_k, tm_v, p, seg, cap, s)
                    : fwd_f32_dispatch<256, false>(tm_q, tm_k, tm_v, p, seg, cap, s);
   }
+  return static_cast<int>(e);
+}
+
+
+// K7 on f32 inputs, one ring forward step of one rank (ring_fwd.cu's
+// fa_ring_fwd_bf16, whose argument list this takes in its order, with the
+// pieces after lse): f32 q [B, Hq, nq, D] (q * scale * log2 e), k / v [B,
+// Hkv, nk, D] and o [B, Hq, nq, D] (unit stride on D, other strides in
+// elements; o's even and 8-byte aligned), the f32 state and lse as there.
+// The step runs this file's kernels with RING -- the band shifted by q_base -
+// kv_off, scale_log2 = 1 (q arrives in the log2 domain), the epilogue
+// ring_merge.cuh's -- on three bf16 pieces per operand: one launch of the
+// split (split_bf16x3.cu) writes k's and v's pieces into kv_pieces (3 DB 2 B
+// Hkv nk elements: k's [3, B, Hkv, nk, DB], then v's) and, with split_q != 0,
+// q's into q_pieces (3 DB B Hq nq elements, [3, B, Hq, nq, DB]); without it
+// q_pieces holds what an earlier step of the rank's ring wrote there (q does
+// not rotate: the rank's first live step splits it). Both 16-byte aligned; DB
+// = 64 for D <= 64, 128 for D <= 128, else 256. Requires 8 <= D <= 256 with D
+// % 8 == 0, Hq % Hkv == 0, nq and nk multiples of 128, B <= 65535. Returns a
+// cudaError_t (0: success; cudaErrorInvalidValue for arguments it does not
+// take, cudaErrorNotSupported when cuTensorMapEncodeTiled is missing or
+// refuses a tensor map).
+int fa_ring_fwd_f32(const void* q, const void* k, const void* v, void* acc, void* m, void* l,
+                    void* o, void* lse, void* q_pieces, void* kv_pieces, int split_q, int batch,
+                    int hq, int hkv, int nq, int nk, int d, int q_base, int kv_off, int causal,
+                    int wl, int wr, int first, int last, int64_t q_sb, int64_t q_sh,
+                    int64_t q_sn, int64_t kv_sb, int64_t kv_sh, int64_t kv_sn, int64_t o_sb,
+                    int64_t o_sh, int64_t o_sn, void* stream) {
+  if (batch < 1 || batch > 65535 || d < 8 || d > 256 || d % 8 || hkv < 1 || hq < 1 ||
+      hq > 65535 || hq % hkv || nq < F32_BLOCK_M || nk < F32_BLOCK_M || nq % F32_BLOCK_M ||
+      nk % F32_BLOCK_M || nq / F32W_BLOCK_M > 65535 || !aligned(q_pieces, 16) ||
+      !aligned(kv_pieces, 16) || !aligned(o, 8) || (o_sb | o_sh | o_sn) % 2 ||
+      (!(first && last) && (acc == nullptr || m == nullptr || l == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int db = d <= 64 ? 64 : d <= 128 ? 128 : 256;
+  __nv_bfloat16* qp = static_cast<__nv_bfloat16*>(q_pieces);
+  __nv_bfloat16* kp = static_cast<__nv_bfloat16*>(kv_pieces);
+  __nv_bfloat16* vp = kp + 3LL * db * batch * hkv * nk;
+  const fa::SplitArg split[3] = {{k, kp, batch, hkv, nk, d, kv_sb, kv_sh, kv_sn},
+                                 {v, vp, batch, hkv, nk, d, kv_sb, kv_sh, kv_sn},
+                                 {q, qp, batch, hq, nq, d, q_sb, q_sh, q_sn}};
+  cudaError_t e = fa::split_bf16x3(split, split_q ? 3 : 2, db, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int cta_rows = d > 128 ? F32W_BLOCK_M : F32_BLOCK_M;  // Q rows per CTA
+  alignas(64) CUtensorMap tm_q;
+  alignas(64) CUtensorMap tm_k;
+  alignas(64) CUtensorMap tm_v;
+  const int64_t q_head = static_cast<int64_t>(db) * nq, kv_head = static_cast<int64_t>(db) * nk;
+  if (!make_bhnd_map(&tm_q, qp, 3 * batch, hq, nq, d, q_head * hq, q_head, db, cta_rows) ||
+      !make_bhnd_map(&tm_k, kp, 3 * batch, hkv, nk, d, kv_head * hkv, kv_head, db, F32_BLOCK_N) ||
+      !make_bhnd_map(&tm_v, vp, 3 * batch, hkv, nk, d, kv_head * hkv, kv_head, db,
+                     F32_BLOCK_N)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  fa::FwdF32Params p = {};
+  p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
+  p.batch = batch;
+  p.hq = hq;
+  p.rep = hq / hkv;
+  p.nq = nq;
+  p.d = d;
+  p.kv_valid_len = nk;
+  band_bounds(causal, wl, wr, &p.lo, &p.hi, static_cast<int64_t>(q_base) - kv_off);
+  p.q_tiles = nq / F32_BLOCK_M;
+  p.kv_tiles = nk / F32_BLOCK_N;
+  p.scale_log2 = 1.f;
+  p.ring = {static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l),
+            first != 0, last != 0};
+  e = d <= 64    ? fwd_f32_launch<64, false, false, false, true>(tm_q, tm_k, tm_v, p, s)
+      : d <= 128 ? fwd_f32_launch<128, false, false, false, true>(tm_q, tm_k, tm_v, p, s)
+                 : fwd_f32_launch<256, false, false, false, true>(tm_q, tm_k, tm_v, p, s);
   return static_cast<int>(e);
 }
 

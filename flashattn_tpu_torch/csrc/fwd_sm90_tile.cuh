@@ -144,6 +144,7 @@
 
 #pragma once
 
+#include "ring_merge.cuh"
 #include "sm90.cuh"
 
 namespace fa {
@@ -367,8 +368,10 @@ __device__ __forceinline__ void fwd_sm90_store(const FwdDenseParams& p, const fl
 
 // The body of both families: BIAS, the bias route (Params FwdBiasParams);
 // else the dense route (Params FwdDenseParams); in both SEG with segment ids
-// and CAP with the logit softcap, the band as runtime ints.
-template <int D, bool BIAS, bool SEG, bool CAP, typename Params>
+// and CAP with the logit softcap, the band as runtime ints. RING (K7's D 256
+// form, ring_fwd.cu: Params with a RingState `ring`) merges the rows into a
+// ring's running state in place of K1's epilogue (ring_merge.cuh).
+template <int D, bool BIAS, bool SEG, bool CAP, bool RING = false, typename Params>
 __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                               const CUtensorMap& tm_v, const Params& p,
                                               const CUtensorMap* tm_bias = nullptr) {
@@ -652,7 +655,12 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
       ++it;
     }
 
-    fwd_sm90_store<D>(p, o, m_i, l_i, b, h, row0, t);
+    if constexpr (RING) {
+      ring_merge_store<D>(p.ring, p.o, p.o_sb, p.o_sh, p.o_sn, p.lse, p.hq, p.nq, p.d, o, m_i,
+                          l_i, b, h, row0, t);
+    } else {
+      fwd_sm90_store<D>(p, o, m_i, l_i, b, h, row0, t);
+    }
   }
 }
 

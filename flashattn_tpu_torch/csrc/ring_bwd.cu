@@ -1,7 +1,8 @@
 // K8, one backward step of ring attention, for Hopper (sm_90a): a warp-
 // specialised TMA + wgmma backward of the chunk pair, KV-major, with the dQ
 // tile reduced into global memory by one bulk reduction, and the C entry
-// fa_ring_bwd_bf16.
+// fa_ring_bwd_bf16 (bf16, D <= 256; K8 on f32 is flash_bwd_f32.cu's
+// fa_ring_bwd_f32).
 //
 // Replaces the TPU kernel flashattn_tpu/parallel/ring_kernel.py::
 // _ring_bwd_kernel (K8, :389). At step s rank r holds the K/V chunk of rank
@@ -56,8 +57,20 @@
 //     64-row CTAs would make) in 32 KB requests instead of scalar atomics.
 //   * Shared memory at D 128: K, V 64 KB; 2 x (Q2, dO) 64 KB; dS^T 2 x 16 KB;
 //     the dQ stage 32 KB; 194 KB in all.
+//
+// At D 136-256 the f32 dK and dV of 64 KV rows per consumer would take 256
+// registers a thread, past the 240 setmaxnreg gives, and the shared memory
+// ~350 KB. A full off-diagonal chunk pair at B1 Hq8 Hkv4 D256 is 344 GFLOP,
+// 0.35 ms at 989 TFLOP/s: operations. The D 256 form, ring_bwd_wide_kernel,
+// is K3's D 256 body (bwd_sm90_wide.cuh) with RING: 64 keys a CTA, the two
+// consumer warpgroups splitting D for dK / dV / dQ (128 f32 accumulators a
+// thread for dK and dV) and the query columns for S^T / dP^T; the CTA is one
+// per (KV head, 64 keys) and walks the Q tiles of each query head of its
+// group in turn, so its dK / dV sum the group (GQA reduced in the CTA, one
+// owner per accumulator tile) and are added into the rotating accumulators;
+// q pre-scaled (scale = scale_log2 = 1), the band shifted by q_base - kv_off.
 
-#include "sm90.cuh"
+#include "bwd_sm90_wide.cuh"
 
 namespace {
 
@@ -66,7 +79,6 @@ using namespace fa;
 constexpr int RB_BLOCK_N = 128;  // KV rows per CTA: two consumer warpgroups of 64
 constexpr int RB_BLOCK_M = 64;   // query rows per streamed tile
 constexpr int RB_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
-constexpr float NEG_GUARD = 0.5f * MASK_VALUE;
 
 struct RingBwdParams {
   const float* lse;    // [B, Hq, nq] contiguous, natural log (-inf: dead row)
@@ -391,6 +403,18 @@ __global__ void __launch_bounds__(RB_THREADS, 1)
   }
 }
 
+// K8 at D 136-256: the D 256 form of K3 (bwd_sm90_wide.cuh) with RING -- a
+// CTA per (KV head, 64 keys) walking its group's query heads, dK / dV added
+// into the ring's accumulators -- on the chunk pair, the band shifted by
+// q_base - kv_off and q pre-scaled (scale = scale_log2 = 1).
+__global__ void __launch_bounds__(BB_THREADS, 1)
+    ring_bwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do, const BwdDenseParams p) {
+  bwd_wide_body<false, false, false, true>(tm_q, tm_k, tm_v, tm_do, p);
+}
+
 template <int D>
 cudaError_t ring_bwd_launch(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                             const CUtensorMap& tm_v, const CUtensorMap& tm_do,
@@ -417,7 +441,8 @@ extern "C" {
 // accumulated over the query heads of each KV head and written back; lse,
 // delta and dq 16-byte aligned. dq comes out x 1/scale and dk x 1/ln2 of the
 // gradients (q carries scale * log2 e). Positions, band and requirements as
-// fa_ring_fwd_bf16. Returns a cudaError_t (0: success; cudaErrorInvalidValue
+// fa_ring_fwd_bf16, D <= 256: above 128 the D 256 form (ring_bwd_wide_kernel,
+// 64 keys a CTA). Returns a cudaError_t (0: success; cudaErrorInvalidValue
 // for arguments it does not take, cudaErrorNotSupported when
 // cuTensorMapEncodeTiled is missing or refuses a tensor map).
 int fa_ring_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
@@ -426,9 +451,9 @@ int fa_ring_bwd_bf16(const void* q, const void* k, const void* v, const void* do
                      int wl, int wr, int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t kv_sb,
                      int64_t kv_sh, int64_t kv_sn, int64_t do_sb, int64_t do_sh, int64_t do_sn,
                      void* stream) {
-  if (batch < 1 || batch > 65535 || d < 8 || d > 128 || d % 8 || hkv < 1 || hq < 1 ||
+  if (batch < 1 || batch > 65535 || d < 8 || d > 256 || d % 8 || hkv < 1 || hq < 1 ||
       hq % hkv || nq < RB_BLOCK_N || nk < RB_BLOCK_N || nq % RB_BLOCK_N || nk % RB_BLOCK_N ||
-      nk / RB_BLOCK_N > 65535 || !aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16) ||
+      nk / BW_BLOCK_N > 65535 || !aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16) ||
       !aligned(dout, 16) || !aligned(lse, 16) || !aligned(delta, 16) || !aligned(dq, 16) ||
       !aligned(dk, 8) || !aligned(dv, 8) || !tma_strides(q_sb, batch, q_sh, hq, q_sn, nq) ||
       !tma_strides(kv_sb, batch, kv_sh, hkv, kv_sn, nk) ||
@@ -436,16 +461,42 @@ int fa_ring_bwd_bf16(const void* q, const void* k, const void* v, const void* do
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const int dp = d <= 64 ? 64 : 128;  // the boxes read zeros past d
+  const int kv_rows = d > 128 ? BW_BLOCK_N : RB_BLOCK_N;  // keys a CTA, the K / V boxes' rows
   alignas(64) CUtensorMap tm_q;
   alignas(64) CUtensorMap tm_k;
   alignas(64) CUtensorMap tm_v;
   alignas(64) CUtensorMap tm_do;
   if (!make_bhnd_map(&tm_q, q, batch, hq, nq, d, q_sb, q_sh, q_sn, RB_BLOCK_M) ||
-      !make_bhnd_map(&tm_k, k, batch, hkv, nk, d, kv_sb, kv_sh, kv_sn, RB_BLOCK_N) ||
-      !make_bhnd_map(&tm_v, v, batch, hkv, nk, d, kv_sb, kv_sh, kv_sn, RB_BLOCK_N) ||
+      !make_bhnd_map(&tm_k, k, batch, hkv, nk, d, kv_sb, kv_sh, kv_sn, kv_rows) ||
+      !make_bhnd_map(&tm_v, v, batch, hkv, nk, d, kv_sb, kv_sh, kv_sn, kv_rows) ||
       !make_bhnd_map(&tm_do, dout, batch, hq, nq, d, do_sb, do_sh, do_sn, RB_BLOCK_M)) {
     return static_cast<int>(cudaErrorNotSupported);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > 128) {
+    // K3's parameters: the band in the chunks' local positions, no tail, q
+    // pre-scaled, the LSE and Delta rows unpadded (nq a multiple of 64).
+    BwdDenseParams p = {};
+    p.lse = static_cast<const float*>(lse);
+    p.delta = static_cast<const float*>(delta);
+    p.dq = static_cast<float*>(dq);
+    p.dk = static_cast<float*>(dk);
+    p.dv = static_cast<float*>(dv);
+    p.hq = hq;
+    p.rep = hq / hkv;
+    p.nq = nq;
+    p.nq_pad = nq;
+    p.nk = nk;
+    p.kv_valid_len = nk;
+    p.d = d;
+    band_bounds(causal, wl, wr, &p.lo, &p.hi, static_cast<int64_t>(q_base) - kv_off);
+    p.scale = 1.f;
+    p.scale_log2 = 1.f;
+    const cudaError_t e = allow_smem(ring_bwd_wide_kernel, BwSmem::BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(hkv, nk / BW_BLOCK_N, batch);
+    ring_bwd_wide_kernel<<<grid, BB_THREADS, BwSmem::BYTES, s>>>(tm_q, tm_k, tm_v, tm_do, p);
+    return static_cast<int>(cudaGetLastError());
   }
   RingBwdParams p;
   p.lse = static_cast<const float*>(lse);
@@ -461,10 +512,9 @@ int fa_ring_bwd_bf16(const void* q, const void* k, const void* v, const void* do
   p.q_base = q_base;
   p.kv_off = kv_off;
   band_bounds(causal, wl, wr, &p.lo, &p.hi);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      dp == 64 ? ring_bwd_launch<64>(tm_q, tm_k, tm_v, tm_do, p, hkv, batch, s)
-               : ring_bwd_launch<128>(tm_q, tm_k, tm_v, tm_do, p, hkv, batch, s);
+      d <= 64 ? ring_bwd_launch<64>(tm_q, tm_k, tm_v, tm_do, p, hkv, batch, s)
+              : ring_bwd_launch<128>(tm_q, tm_k, tm_v, tm_do, p, hkv, batch, s);
   return static_cast<int>(e);
 }
 

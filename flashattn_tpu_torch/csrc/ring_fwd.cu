@@ -1,6 +1,7 @@
 // K7, one forward step of ring attention, for Hopper (sm_90a): a warp-
 // specialised TMA + wgmma forward of the chunk pair with the LSE merge (or
-// the finalize) in its epilogue, and the C entry fa_ring_fwd_bf16.
+// the finalize) in its epilogue, and the C entry fa_ring_fwd_bf16 (bf16, D
+// <= 256; K7 on f32 is flash_fwd_f32.cu's fa_ring_fwd_f32).
 //
 // Replaces the TPU kernel flashattn_tpu/parallel/ring_kernel.py::
 // _ring_fwd_kernel (K7, :74, with _merge_tile :257 and _finalize_tile :357).
@@ -49,9 +50,25 @@
 //   * With a right bound (causal) the Q tiles that meet the most KV tiles run
 //     first, so the diagonal step's grid ends on short CTAs.
 //   * The epilogue merges (or finalizes) the rows each thread owns in the
-//     accumulator layout straight against the f32 state in global memory.
+//     accumulator layout straight against the f32 state in global memory
+//     (ring_merge.cuh, shared by every form of K7).
+//
+// At D 136-256 (Gemma 2's heads of 256) this body does not widen: Q and four
+// (K, V) stages would take 320 KB of shared memory, and O 128 f32 a thread.
+// A full off-diagonal 4096 x 4096 chunk pair at B1 Hq8 Hkv4 D256 is the same
+// 137 GFLOP (0.139 ms at 989 TFLOP/s) against ~100 MB of Q, K / V and f32
+// state: operations. So the D 256 form, ring_fwd_wide_kernel, runs K1's dense
+// body (fwd_sm90_tile.cuh) at its D 256 instantiation with RING -- 128 Q
+// rows a CTA, Q 64 KB and two (K, V) stages of 64 KB, P V by one wgmma
+// m64n256k16 a k-step, 24 producer and 240 consumer registers -- on the
+// chunk pair: the band shifted by q_base - kv_off (common.cuh band_bounds),
+// q pre-scaled (scale_log2 = 1), and this ring's epilogue in place of K1's,
+// reading and writing the state in float2 column pairs, so the 128 O
+// registers need no second copy. Every D 136-248 reads zeros past D from
+// the 256-column boxes.
 
-#include "sm90.cuh"
+#include "fwd_sm90_tile.cuh"
+#include "ring_merge.cuh"
 
 namespace {
 
@@ -60,19 +77,21 @@ using namespace fa;
 constexpr int RF_BLOCK_M = 128;  // Q rows per CTA: two consumer warpgroups of 64
 constexpr int RF_BLOCK_N = 64;   // keys per KV tile
 constexpr int RF_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
-constexpr float NEG_GUARD = 0.5f * MASK_VALUE;
 
 struct RingFwdParams {
-  float* acc;        // [B, Hq, nq, D] f32 contiguous: running unnormalized O
-  float* m;          // [B, Hq, nq] f32 contiguous: running max (log2 units)
-  float* l;          // [B, Hq, nq] f32 contiguous: running sum
+  RingState ring;    // the rank's running state and the step's place (ring_merge.cuh)
   __nv_bfloat16* o;  // written on the last step, (batch, head, seq) strides
   float* lse;        // [B, Hq, nq] f32 contiguous, written on the last step
   int64_t o_sb, o_sh, o_sn;
   int hq, rep, nq, nk, d;
   int q_base, kv_off;  // global position of the chunk's first Q row / KV column
   int lo, hi;          // band: row - lo <= col <= row + hi (NO_BOUND: none)
-  int first, last;
+};
+
+// The D 256 form's parameters: K1's dense route's (fwd_sm90_tile.cuh), whose
+// body it runs with RING, and the state.
+struct RingWideParams : FwdDenseParams {
+  RingState ring;
 };
 
 // Shared-memory layout (bytes, from a 1024-byte-aligned base): Q (D / 64
@@ -155,7 +174,7 @@ __global__ void __launch_bounds__(RF_THREADS, 1)
   const int n_tiles = n_end > n_begin ? (n_end - n_begin + RF_BLOCK_N - 1) / RF_BLOCK_N : 0;
   // An empty partial merges as a no-op: only the first and the last step
   // still have a state to start or to finalize.
-  if (n_tiles == 0 && !p.first && !p.last) return;
+  if (n_tiles == 0 && !p.ring.first && !p.ring.last) return;
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   auto stage = [&](int j) { return smem + S::Q + (j % S::STAGES) * S::STAGE; };
@@ -257,60 +276,22 @@ __global__ void __launch_bounds__(RF_THREADS, 1)
       release(j);
     }
 
-    // Epilogue: merge the chunk partial (m_i, l, o) into the running state
-    // (ring_kernel.py:342-347), then write the state back or, on the last
-    // live step, finalize into O and LSE (:373-378). Columns >= d hold zeros
+    // Epilogue: merge the chunk partial into the running state, or finalize
+    // on the rank's last live step (ring_merge.cuh). Columns >= d hold zeros
     // (the boxes read zeros there) and are not written.
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float l = l_i[r];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const int row = m0 + half * 64 + warp * 16 + g + 8 * r;  // local row
-      const int64_t srow = (static_cast<int64_t>(b) * p.hq + h) * p.nq + row;
-      const float m_run = p.first ? MASK_VALUE : p.m[srow];
-      const float l_run = p.first ? 0.f : p.l[srow];
-      const float m_new = fmaxf(m_run, m_i[r]);
-      const float a_run = m_run <= NEG_GUARD ? 0.f : exp2f(m_run - m_new);
-      const float a_c = m_i[r] <= NEG_GUARD ? 0.f : exp2f(m_i[r] - m_new);
-      const float l_new = l_run * a_run + l * a_c;
-      float* acc_row = p.acc + srow * p.d;
-      if (p.last) {
-        const bool alive = l_new > 0.f;
-        const float inv = alive ? 1.f / l_new : 0.f;
-        __nv_bfloat16* o_row =
-            p.o + b * p.o_sb + h * p.o_sh + static_cast<int64_t>(row) * p.o_sn;
-#pragma unroll
-        for (int jj = 0; jj < D / 8; ++jj) {
-          const int col = 8 * jj + 2 * t;
-          if (col < p.d) {
-            float2 prev = make_float2(0.f, 0.f);
-            if (!p.first) prev = *reinterpret_cast<const float2*>(acc_row + col);
-            *reinterpret_cast<uint32_t*>(o_row + col) =
-                pack_bf16((prev.x * a_run + o[4 * jj + 2 * r] * a_c) * inv,
-                          (prev.y * a_run + o[4 * jj + 2 * r + 1] * a_c) * inv);
-          }
-        }
-        if (t == 0) p.lse[srow] = alive ? (m_new + log2f(l_new)) * LN2 : -INFINITY;
-      } else {
-#pragma unroll
-        for (int jj = 0; jj < D / 8; ++jj) {
-          const int col = 8 * jj + 2 * t;
-          if (col < p.d) {
-            float2 prev = make_float2(0.f, 0.f);
-            if (!p.first) prev = *reinterpret_cast<const float2*>(acc_row + col);
-            *reinterpret_cast<float2*>(acc_row + col) =
-                make_float2(prev.x * a_run + o[4 * jj + 2 * r] * a_c,
-                            prev.y * a_run + o[4 * jj + 2 * r + 1] * a_c);
-          }
-        }
-        if (t == 0) {
-          p.m[srow] = m_new;
-          p.l[srow] = l_new;
-        }
-      }
-    }
+    ring_merge_store<D>(p.ring, p.o, p.o_sb, p.o_sh, p.o_sn, p.lse, p.hq, p.nq, p.d, o, m_i,
+                        l_i, b, h, m0 + half * 64 + warp * 16 + g, t);
   }
+}
+
+// K7 at D 136-256: K1's dense body (fwd_sm90_tile.cuh, its D 256 form) on the
+// chunk pair, with the band shifted by q_base - kv_off and q pre-scaled
+// (scale_log2 = 1), and this ring's epilogue in place of K1's.
+__global__ void __launch_bounds__(FB_THREADS, 1)
+    ring_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, const RingWideParams p) {
+  fwd_sm90_body<256, false, false, false, true>(tm_q, tm_k, tm_v, p);
 }
 
 template <int D>
@@ -338,8 +319,9 @@ extern "C" {
 // positions of the chunks' first row and column; causal != 0 masks col >
 // row, the window (wl, wr) col < row - wl (wl >= 0) and col > row + wr (wr >=
 // 0). first != 0: start the state instead of reading it; last != 0: write O
-// and LSE instead of the state. Requires 8 <= D <= 128, D % 8 == 0, Hq % Hkv
-// == 0, nq and nk multiples of 128, B <= 65535. Returns a cudaError_t (0:
+// and LSE instead of the state. Requires 8 <= D <= 256, D % 8 == 0, Hq % Hkv
+// == 0, nq and nk multiples of 128, B <= 65535; above D 128 the D 256 form
+// (K1's dense body, ring_fwd_wide_kernel). Returns a cudaError_t (0:
 // success; cudaErrorInvalidValue for arguments it does not take,
 // cudaErrorNotSupported when cuTensorMapEncodeTiled is missing or refuses a
 // tensor map).
@@ -348,7 +330,7 @@ int fa_ring_fwd_bf16(const void* q, const void* k, const void* v, void* acc, voi
                      int q_base, int kv_off, int causal, int wl, int wr, int first, int last,
                      int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t kv_sb, int64_t kv_sh,
                      int64_t kv_sn, int64_t o_sb, int64_t o_sh, int64_t o_sn, void* stream) {
-  if (batch < 1 || batch > 65535 || d < 8 || d > 128 || d % 8 || hkv < 1 || hq < 1 ||
+  if (batch < 1 || batch > 65535 || d < 8 || d > 256 || d % 8 || hkv < 1 || hq < 1 ||
       hq % hkv || nq < RF_BLOCK_M || nk < RF_BLOCK_M || nq % RF_BLOCK_M || nk % RF_BLOCK_M ||
       nq / RF_BLOCK_M > 65535 || !aligned(q, 16) || !aligned(k, 16) || !aligned(v, 16) ||
       !aligned(o, 4) || !tma_strides(q_sb, batch, q_sh, hq, q_sn, nq) ||
@@ -357,7 +339,6 @@ int fa_ring_fwd_bf16(const void* q, const void* k, const void* v, void* acc, voi
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const int dp = d <= 64 ? 64 : 128;  // the boxes read zeros past d
   alignas(64) CUtensorMap tm_q;
   alignas(64) CUtensorMap tm_k;
   alignas(64) CUtensorMap tm_v;
@@ -366,10 +347,31 @@ int fa_ring_fwd_bf16(const void* q, const void* k, const void* v, void* acc, voi
       !make_bhnd_map(&tm_v, v, batch, hkv, nk, d, kv_sb, kv_sh, kv_sn, RF_BLOCK_N)) {
     return static_cast<int>(cudaErrorNotSupported);
   }
+  const RingState ring = {static_cast<float*>(acc), static_cast<float*>(m),
+                          static_cast<float*>(l), first != 0, last != 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d > 128) {
+    // K1's dense route's parameters: the band in the chunks' local positions
+    // (shifted by q_base - kv_off), no tail, no ids, no cap, q pre-scaled.
+    RingWideParams p = {};
+    p.ring = ring;
+    p.o = static_cast<__nv_bfloat16*>(o);
+    p.lse = static_cast<float*>(lse);
+    p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
+    p.hq = hq;
+    p.rep = hq / hkv;
+    p.nq = nq;
+    p.d = d;
+    p.kv_valid_len = nk;
+    band_bounds(causal, wl, wr, &p.lo, &p.hi, static_cast<int64_t>(q_base) - kv_off);
+    p.q_tiles = nq / FB_BLOCK_M;
+    p.kv_tiles = nk / FB_BLOCK_N;
+    p.scale_log2 = 1.f;
+    return static_cast<int>(fwd_sm90_launch(ring_fwd_wide_kernel, FbSmem<256, false>::BYTES,
+                                            tm_q, tm_k, tm_v, p, batch, s));
+  }
   RingFwdParams p;
-  p.acc = static_cast<float*>(acc);
-  p.m = static_cast<float*>(m);
-  p.l = static_cast<float*>(l);
+  p.ring = ring;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.lse = static_cast<float*>(lse);
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
@@ -381,11 +383,8 @@ int fa_ring_fwd_bf16(const void* q, const void* k, const void* v, void* acc, voi
   p.q_base = q_base;
   p.kv_off = kv_off;
   band_bounds(causal, wl, wr, &p.lo, &p.hi);
-  p.first = first != 0;
-  p.last = last != 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = dp == 64 ? ring_fwd_launch<64>(tm_q, tm_k, tm_v, p, batch, s)
-                                 : ring_fwd_launch<128>(tm_q, tm_k, tm_v, p, batch, s);
+  const cudaError_t e = d <= 64 ? ring_fwd_launch<64>(tm_q, tm_k, tm_v, p, batch, s)
+                                : ring_fwd_launch<128>(tm_q, tm_k, tm_v, p, batch, s);
   return static_cast<int>(e);
 }
 

@@ -34,6 +34,10 @@ tensors that runs ``ranks`` virtual ranks in one process (the counterpart of
 the JAX function on a virtual device mesh). CPU tensors take the plain
 versions of the steps, :func:`ring_fwd_step_reference` and
 :func:`ring_bwd_step_reference`; CUDA tensors launch the kernels or raise.
+The kernels take bf16 and f32 (the JAX kernel's ``Precision.HIGHEST``, as
+K1's f32 route computes it: each operand as three bf16 pieces,
+``ops/f32_split.py``) at every head dim up to 256; the entry points pad a
+head dim that is not a multiple of 8 with zeros, as ``flash_attention`` does.
 The ``FLASHATTN_TPU_RING_BWD_KERNEL`` fallback to the ppermute ring is not
 ported (the ``FLASHATTN_TPU_*`` knobs are left out by decision, ROADMAP).
 """
@@ -45,6 +49,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from flashattn_tpu_torch.ops import f32_split
 from flashattn_tpu_torch.ops.flash import _dispatch_dtype
 from flashattn_tpu_torch.ops.flash_fwd import check_window, kernel_window
 from flashattn_tpu_torch.ops.oracle import (
@@ -61,7 +66,7 @@ LN2 = math.log(2.0)
 # Rows whose chunk max never rose above this are fully masked: their partial
 # carries no probability mass and is dropped at merge time.
 _NEG_GUARD = DEFAULT_MASK_VALUE * 0.5
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 
 def _block_sizes(nq: int, nk: int) -> tuple[int, int]:
@@ -166,10 +171,8 @@ def _check_kernel_args(q, name: str) -> None:
     B, Hq, _, D = q.shape
     if q.device.type != "cuda":
         raise NotImplementedError(f"no {name} kernel for device {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the CUDA {name} takes bfloat16, got {q.dtype} (an f32 instantiation is "
-            "ROADMAP queue 2, f32 rows item 3)")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"the CUDA {name} takes bfloat16 and float32, got {q.dtype}")
     if D % 8 or D > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"the CUDA {name} takes head dims that are multiples of 8 up to {MAX_HEAD_DIM}, "
@@ -178,24 +181,25 @@ def _check_kernel_args(q, name: str) -> None:
         raise ValueError(f"B={B} and Hq={Hq} must each be at most 65535 (CUDA grid limit)")
 
 
-def _check_step_args(name: str, q2, k, v, bf16, f32) -> None:
+def _check_step_args(name: str, q2, k, v, same, f32) -> None:
     """Raise unless a step's tensors are as its kernel addresses them: q2
-    ``[B, Hq, nq, D]``, k and v ``[B, Hkv, nk, D]`` with one set of strides,
-    the ``bf16`` tensors (name: tensor, q2's shape) with a unit head-dim
-    stride, other strides on 8-element boundaries and nonzero on dims of
-    extent > 1, and a 16-byte-aligned address (what a TMA map takes: a rank's
-    chunk view of a global tensor passes as it is), the ``f32`` buffers
-    (name: (tensor or None, shape)) f32, contiguous and 16-byte aligned (the
-    kernels' bulk copies), all on q2's device. Nothing is copied: the outputs
-    are written in place."""
+    ``[B, Hq, nq, D]`` bf16 or f32, k and v ``[B, Hkv, nk, D]`` with one set
+    of strides, they and the ``same`` tensors (name: tensor, q2's shape) in
+    q2's dtype with a unit head-dim stride, other strides on 8-element
+    boundaries and nonzero on dims of extent > 1, and a 16-byte-aligned
+    address (what a TMA map takes: a rank's chunk view of a global tensor
+    passes as it is; the f32 forms' split reads them as well), the ``f32``
+    buffers (name: (tensor or None, shape)) f32, contiguous and 16-byte
+    aligned (the kernels' bulk copies), all on q2's device. Nothing is
+    copied: the outputs are written in place."""
     B, Hq, nq, D = q2.shape
     if (k.shape != v.shape or k.ndim != 4 or k.shape[0] != B or k.shape[3] != D
             or Hq % k.shape[1] or k.stride() != v.stride()):
         raise ValueError(f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} (strides "
                          f"{k.stride()}, {v.stride()}) do not fit q2 {tuple(q2.shape)}")
-    for key, x in {"q2": q2, "k": k, "v": v, **bf16}.items():
-        if x.dtype != torch.bfloat16 or x.device != q2.device or (
-                key not in ("k", "v") and x.shape != q2.shape):
+    for key, x in {"q2": q2, "k": k, "v": v, **same}.items():
+        if (x.dtype != q2.dtype or x.dtype not in (torch.bfloat16, torch.float32)
+                or x.device != q2.device or (key not in ("k", "v") and x.shape != q2.shape)):
             raise ValueError(f"{name}: {key} {x.dtype} {tuple(x.shape)} on {x.device}, "
                              f"q2 {tuple(q2.shape)} on {q2.device}")
         if not (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
@@ -215,40 +219,100 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _piece_args(pieces) -> tuple:
+    """The f32 C entries' pieces arguments from ``(q_pieces, kv_pieces,
+    split_q)``; none for bf16 (``pieces`` None)."""
+    if pieces is None:
+        return ()
+    q_pieces, kv_pieces, split_q = pieces
+    return q_pieces.data_ptr(), kv_pieces.data_ptr(), int(bool(split_q))
+
+
 def _launch_fwd(lib, q2, k, v, acc, m, l, o, lse, *, q_base, kv_off, causal, window, first,
-                last, stream) -> int:
-    """Call ``lib.fa_ring_fwd_bf16`` with the arguments of one K7 launch (the
-    C entry's order, ``native.RING_FWD_ARGTYPES``); returns its cudaError_t."""
+                last, stream, pieces=None) -> int:
+    """Call the C entry of one K7 launch with its arguments in its order:
+    ``lib.fa_ring_fwd_bf16`` (``native.RING_FWD_ARGTYPES``) or, with
+    ``pieces`` (an f32 step's ``(q_pieces, kv_pieces, split_q)``),
+    ``lib.fa_ring_fwd_f32`` (``native.RING_FWD_F32_ARGTYPES``); returns its
+    cudaError_t."""
     B, Hq, nq, D = q2.shape
-    return lib.fa_ring_fwd_bf16(
+    entry = lib.fa_ring_fwd_bf16 if pieces is None else lib.fa_ring_fwd_f32
+    return entry(
         q2.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(acc), _ptr(m), _ptr(l), o.data_ptr(),
-        lse.data_ptr(), B, Hq, k.shape[1], nq, k.shape[2], D, int(q_base), int(kv_off),
-        int(bool(causal)), *kernel_window(window), int(bool(first)), int(bool(last)),
-        *q2.stride()[:3], *k.stride()[:3], *o.stride()[:3], stream)
+        lse.data_ptr(), *_piece_args(pieces), B, Hq, k.shape[1], nq, k.shape[2], D,
+        int(q_base), int(kv_off), int(bool(causal)), *kernel_window(window), int(bool(first)),
+        int(bool(last)), *q2.stride()[:3], *k.stride()[:3], *o.stride()[:3], stream)
 
 
 def _launch_bwd(lib, q2, k, v, do, lse, delta, dq, dk, dv, *, q_base, kv_off, causal, window,
-                stream) -> int:
-    """Call ``lib.fa_ring_bwd_bf16`` with the arguments of one K8 launch (the
-    C entry's order, ``native.RING_BWD_ARGTYPES``); returns its cudaError_t."""
+                stream, pieces=None) -> int:
+    """Call the C entry of one K8 launch with its arguments in its order:
+    ``lib.fa_ring_bwd_bf16`` (``native.RING_BWD_ARGTYPES``) or, with
+    ``pieces``, ``lib.fa_ring_bwd_f32`` (``native.RING_BWD_F32_ARGTYPES``);
+    returns its cudaError_t."""
     B, Hq, nq, D = q2.shape
-    return lib.fa_ring_bwd_bf16(
+    entry = lib.fa_ring_bwd_bf16 if pieces is None else lib.fa_ring_bwd_f32
+    return entry(
         q2.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Hq, k.shape[1], nq,
-        k.shape[2], D, int(q_base), int(kv_off), int(bool(causal)), *kernel_window(window),
-        *q2.stride()[:3], *k.stride()[:3], *do.stride()[:3], stream)
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_piece_args(pieces), B,
+        Hq, k.shape[1], nq, k.shape[2], D, int(q_base), int(kv_off), int(bool(causal)),
+        *kernel_window(window), *q2.stride()[:3], *k.stride()[:3], *do.stride()[:3], stream)
+
+
+def q_pieces_scratch(q2, operands: int):
+    """The bf16 scratch that holds a rank's f32 q2 (``operands`` 2: and dO)
+    as three bf16 pieces each, ``[operands, 3, B, Hq, nq, d_box(D)]`` flat,
+    across the K7 / K8 launches of one ring: q and dO do not rotate, so the
+    rank's first live step splits them into it and its later steps read it."""
+    B, Hq, nq, D = q2.shape
+    return torch.empty(operands * f32_split.PIECES * B * Hq * nq * f32_split.d_box(D),
+                       dtype=torch.bfloat16, device=q2.device)
+
+
+def _f32_pieces(q2, k, q_pieces, split_q: bool, operands: int) -> tuple:
+    """An f32 step's pieces: ``q_pieces`` checked (or made, and then split
+    into), and this step's K/V pieces, ``[2, 3, B, Hkv, nk, d_box(D)]``
+    flat, which its launch splits k and v into (they rotate as f32)."""
+    B, Hq, nq, D = q2.shape
+    n_q = operands * f32_split.PIECES * B * Hq * nq * f32_split.d_box(D)
+    if q_pieces is None:
+        q_pieces, split_q = q_pieces_scratch(q2, operands), True
+    elif (q_pieces.dtype != torch.bfloat16 or q_pieces.numel() != n_q
+          or not q_pieces.is_contiguous() or q_pieces.device != q2.device
+          or q_pieces.data_ptr() % 16):
+        raise ValueError(f"q_pieces must be {n_q} contiguous bf16 elements, 16-byte aligned, on "
+                         f"{q2.device}, got {q_pieces.dtype} {tuple(q_pieces.shape)}")
+    kv = torch.empty(2 * f32_split.PIECES * k.shape[0] * k.shape[1] * k.shape[2]
+                     * f32_split.d_box(D), dtype=torch.bfloat16, device=q2.device)
+    return q_pieces, kv, split_q
+
+
+def _count(step, q2, pieces) -> None:
+    """One launch of ``step``'s kernel: every launch, the f32 forms' (with
+    the split their C entry launches before the kernel) and the D 256
+    forms' (D above 128)."""
+    step.launches += 1
+    step.launches_f32 += pieces is not None
+    step.launches_split += pieces is not None
+    step.launches_d256 += q2.shape[-1] > 128
 
 
 def ring_fwd_step(q2, k, v, acc, m, l, o, lse, *, q_base: int, kv_off: int,
                   causal: bool = False, window=None, first: bool = False,
-                  last: bool = False) -> None:
+                  last: bool = False, q_pieces=None, split_q: bool = True) -> None:
     """K7: one forward ring step of one rank, in place (arguments as
     :func:`ring_fwd_step_reference`). CPU tensors take the plain version;
-    CUDA tensors launch the kernel -- bf16, D ≤ 128 a multiple of 8, chunks
-    of multiples of 128 rows, the bf16 tensors as a TMA map takes them
+    CUDA tensors launch the kernel -- bf16 or f32, D ≤ 256 a multiple of 8,
+    chunks of multiples of 128 rows, q2 / k / v / o as a TMA map takes them
     (:func:`_check_step_args`), ``acc``/``m``/``l``/``lse`` contiguous,
-    ``k`` and ``v`` with one set of strides -- or raise.
-    ``ring_fwd_step.launches`` counts kernel launches."""
+    ``k`` and ``v`` with one set of strides -- or raise. On f32 the C entry
+    first splits k and v into three bf16 pieces each, and q2 into
+    ``q_pieces`` (:func:`q_pieces_scratch`) with ``split_q``; without
+    ``split_q`` the step reads the pieces that an earlier step of the rank
+    wrote there; ``q_pieces=None``: the step makes its own and splits q2.
+    ``ring_fwd_step.launches`` counts kernel launches (``launches_f32``,
+    ``launches_d256`` those of the f32 and D 256 forms, ``launches_split``
+    the splits the f32 C entry launches, one each)."""
     if q2.device.type == "cpu":
         return ring_fwd_step_reference(q2, k, v, acc, m, l, o, lse, q_base=q_base,
                                        kv_off=kv_off, causal=causal, window=window,
@@ -261,21 +325,25 @@ def ring_fwd_step(q2, k, v, acc, m, l, o, lse, *, q_base: int, kv_off: int,
     if not (first and last) and (acc is None or m is None or l is None):
         raise ValueError("K7: a step that is not both the first and the last reads or "
                          "writes the state acc, m, l")
+    pieces = (_f32_pieces(q2, k, q_pieces, split_q, 1) if q2.dtype == torch.float32 else None)
     with torch.cuda.device(q2.device):
         rc = _launch_fwd(native.kernels(), q2, k, v, acc, m, l, o, lse, q_base=q_base,
                          kv_off=kv_off, causal=causal, window=window, first=first, last=last,
-                         stream=torch.cuda.current_stream(q2.device).cuda_stream)
+                         stream=torch.cuda.current_stream(q2.device).cuda_stream, pieces=pieces)
     native.check(rc, "ring_fwd kernel launch")
-    ring_fwd_step.launches += 1
+    _count(ring_fwd_step, q2, pieces)
 
 
 def ring_bwd_step(q2, k, v, do, lse, delta, dq, dk, dv, *, q_base: int, kv_off: int,
-                  causal: bool = False, window=None) -> None:
+                  causal: bool = False, window=None, q_pieces=None,
+                  split_q: bool = True) -> None:
     """K8: one backward ring step of one rank, in place (arguments as
     :func:`ring_bwd_step_reference`). CPU tensors take the plain version;
-    CUDA tensors launch the kernel (as :func:`ring_fwd_step`; ``dq`` is
-    added to by the kernel's bulk reductions and must start at 0) or raise.
-    ``ring_bwd_step.launches`` counts kernel launches."""
+    CUDA tensors launch the kernel (as :func:`ring_fwd_step`, ``q_pieces``
+    holding q2's pieces and then dO's; ``dq`` is added to by the kernel's
+    bulk reductions and must start at 0) or raise.
+    ``ring_bwd_step.launches`` counts kernel launches (and the same
+    ``launches_f32``, ``launches_d256`` and ``launches_split``)."""
     if q2.device.type == "cpu":
         return ring_bwd_step_reference(q2, k, v, do, lse, delta, dq, dk, dv, q_base=q_base,
                                        kv_off=kv_off, causal=causal, window=window)
@@ -285,16 +353,17 @@ def ring_bwd_step(q2, k, v, do, lse, delta, dq, dk, dv, *, q_base: int, kv_off: 
     _check_step_args("K8", q2, k, v, {"do": do}, {
         "lse": (lse, stats), "delta": (delta, stats), "dq": (dq, (*stats, D)),
         "dk": (dk, tuple(k.shape)), "dv": (dv, tuple(k.shape))})
+    pieces = (_f32_pieces(q2, k, q_pieces, split_q, 2) if q2.dtype == torch.float32 else None)
     with torch.cuda.device(q2.device):
         rc = _launch_bwd(native.kernels(), q2, k, v, do, lse, delta, dq, dk, dv, q_base=q_base,
                          kv_off=kv_off, causal=causal, window=window,
-                         stream=torch.cuda.current_stream(q2.device).cuda_stream)
+                         stream=torch.cuda.current_stream(q2.device).cuda_stream, pieces=pieces)
     native.check(rc, "ring_bwd kernel launch")
-    ring_bwd_step.launches += 1
+    _count(ring_bwd_step, q2, pieces)
 
 
-ring_fwd_step.launches = 0
-ring_bwd_step.launches = 0
+for _step in (ring_fwd_step, ring_bwd_step):
+    _step.launches = _step.launches_f32 = _step.launches_d256 = _step.launches_split = 0
 
 
 # ---------------------------------------------------------------------------
@@ -397,12 +466,25 @@ def _live_steps(rank: int, world: int, nq: int, nk: int, causal: bool, window) -
             if _chunk_needed(rank * nq, (rank - s) % world * nk, nq, nk, causal, window)]
 
 
+def _ring_pieces(step, q2s, operands: int):
+    """``pieces(i, first)``: the keyword arguments that rank i's step takes
+    beside the ring's -- on the f32 kernels (``step`` None, f32 tensors off
+    the CPU) the rank's :func:`q_pieces_scratch`, which its first live step
+    splits q2 (and dO) into and its later steps read; else none."""
+    q2 = q2s[0]
+    if step is not None or q2.dtype != torch.float32 or q2.device.type == "cpu":
+        return lambda i, first: {}
+    scratch = [q_pieces_scratch(x, operands) for x in q2s]
+    return lambda i, first: dict(q_pieces=scratch[i], split_q=first)
+
+
 def _ring_forward(xport, q2s, ks, vs, os, *, causal, window, step=None):
     """Run the forward ring over the local ranks of ``xport``: per rank its
     q2 (q·scale·log2e), k, v chunks and an output view ``o``. Writes each
     ``o`` in place and returns each rank's LSE ``[B, Hq, nq]`` (natural log,
     −inf on a row no chunk gave a key). ``step`` (default K7's wrapper) runs
     one (rank, step)."""
+    pieces = _ring_pieces(step, q2s, 1)
     step = step or ring_fwd_step
     P = xport.world
     B, Hq, nq, D = q2s[0].shape
@@ -425,7 +507,8 @@ def _ring_forward(xport, q2s, ks, vs, os, *, causal, window, step=None):
             if s in live[i]:
                 step(q2s[i], *cur[i], *state[i], os[i], lses[i], q_base=r * nq,
                      kv_off=(r - s) % P * nk, causal=causal, window=window,
-                     first=s == live[i][0], last=s == live[i][-1])
+                     first=s == live[i][0], last=s == live[i][-1],
+                     **pieces(i, s == live[i][0]))
         if s < P - 1:
             xport.wait(moving)
             cur = nxt
@@ -443,6 +526,7 @@ def _ring_backward(xport, q2s, ks, vs, dos, lses, deltas, *, causal, window, ste
     brings every accumulator home. Returns per rank (dQ, dK, dV) in f32,
     ×1/scale, ×1/ln2 and ×1 of the gradients. ``step`` defaults to K8's
     wrapper."""
+    pieces = _ring_pieces(step, q2s, 2)
     step = step or ring_bwd_step
     P = xport.world
     B, Hq, nq, D = q2s[0].shape
@@ -466,7 +550,8 @@ def _ring_backward(xport, q2s, ks, vs, dos, lses, deltas, *, causal, window, ste
         for i, r in enumerate(xport.ranks):
             if s in live[i]:
                 step(q2s[i], *cur[i], dos[i], lses[i], deltas[i], dqs[i], *held[i],
-                     q_base=r * nq, kv_off=(r - s) % P * nk, causal=causal, window=window)
+                     q_base=r * nq, kv_off=(r - s) % P * nk, causal=causal, window=window,
+                     **pieces(i, s == live[i][0]))
         if P > 1:  # after the step that wrote them; at s = P - 1, the hop home
             xport.wait(xport.rotate(held, [a[(s + 1) % 2] for a in acc], tag=len(cur[0])))
         if s < P - 1:
@@ -530,18 +615,29 @@ def _check_chunks(q, k, v, window) -> None:
         raise ValueError(f"Hq={q.shape[1]} must be a multiple of Hkv={k.shape[1]}")
 
 
+def _pad_d(*xs):
+    """``xs`` with the head dim zero-padded to a multiple of 8 (the kernels'
+    TMA boxes' unit; the JAX kernel pads to 64, ring_kernel.py:882-896):
+    zero columns of q and k add 0 to every score and zero columns of v give
+    zero columns of O, which the callers slice off."""
+    pad = -xs[0].shape[-1] % 8
+    return tuple(torch.nn.functional.pad(x, (0, pad)) if pad else x for x in xs)
+
+
 def _apply(q, k, v, xport, *, causal, scale, window):
-    """Dtype dispatch (fp16 runs as bf16), checks, and the autograd ring."""
+    """Dtype dispatch (fp16 runs as bf16), the head dim padded to a multiple
+    of 8 (the scale stays the true D's), checks, and the autograd ring."""
     window = check_window(window)
+    D = q.shape[-1]
     if scale is None:
-        scale = float(q.shape[-1]) ** -0.5
+        scale = float(D) ** -0.5
     kdt = _dispatch_dtype(q.dtype)
     in_dtype = q.dtype
-    q, k, v = (x.to(kdt).contiguous() for x in (q, k, v))
+    q, k, v = _pad_d(*(x.to(kdt).contiguous() for x in (q, k, v)))
     if q.device.type == "cuda":
         _check_kernel_args(q, "K7/K8")
     o = _RingKernelCore.apply(q, k, v, xport, bool(causal), float(scale), window)
-    return o.to(in_dtype)
+    return o[..., :D].to(in_dtype)
 
 
 def ring_attention_kernel(q, k, v, *, group=None, causal: bool = False,
@@ -555,9 +651,11 @@ def ring_attention_kernel(q, k, v, *, group=None, causal: bool = False,
     holds rows ``[r N/P, (r+1) N/P)``. Chunks must be multiples of 128 rows
     (``ValueError`` naming "128-aligned" otherwise) and Hkv must divide Hq
     (GQA). ``causal`` and ``window = (left, right)`` mask in global
-    positions. Differentiable: the backward runs the ring again and every
-    rank of the group must take part, as in the forward. Returns the local
-    chunk of the output, in q's dtype.
+    positions. bf16 and f32 run as they are, fp16 as bf16; any head dim up
+    to 256 (on the card, one above 256 raises NotImplementedError).
+    Differentiable: the backward runs the ring again and every rank of the
+    group must take part, as in the forward. Returns the local chunk of the
+    output, in q's dtype.
     """
     _check_chunks(q, k, v, window)
     return _apply(q, k, v, ProcessGroupRing(group), causal=causal, scale=scale, window=window)
@@ -588,14 +686,16 @@ def run_virtual_ring(q, k, v, do=None, *, ranks: int, causal: bool = False,
     """The ring over ``ranks`` virtual ranks without autograd, for checks and
     timing: ``(O, LSE)`` (LSE ``[B, Hq, N]`` f32, natural log) and, with
     ``do``, ``(O, LSE, dQ, dK, dV)``, all on the inputs' dtype (``q``, ``k``
-    and ``v`` in one dtype, chunk-aligned). ``plain=True`` runs the same
+    and ``v`` in one dtype, chunk-aligned; a head dim that is not a
+    multiple of 8 runs zero-padded). ``plain=True`` runs the same
     rotation with the steps' plain versions in place of the kernels -- the
     plain ring, on any device."""
     window = check_window(window)
+    D = q.shape[-1]
     if scale is None:
-        scale = float(q.shape[-1]) ** -0.5
+        scale = float(D) ** -0.5
     xport = VirtualRanks(ranks)
-    q, k, v = (x.contiguous() for x in (q, k, v))
+    q, k, v = _pad_d(*(x.contiguous() for x in (q, k, v)))
     fwd_step, bwd_step = ((ring_fwd_step_reference, ring_bwd_step_reference) if plain
                           else (None, None))
     q2 = _prescale(q, scale)
@@ -603,7 +703,7 @@ def run_virtual_ring(q, k, v, do=None, *, ranks: int, causal: bool = False,
     lses = _ring_forward(xport, xport.split(q2), xport.split(k), xport.split(v), xport.split(o),
                          causal=causal, window=window, step=fwd_step)
     if do is None:
-        return o, xport.join(lses)
-    grads = _ring_grads(xport, q2, k, v, o, lses, do, scale=scale, causal=causal, window=window,
-                        step=bwd_step)
-    return (o, xport.join(lses), *grads)
+        return o[..., :D], xport.join(lses)
+    grads = _ring_grads(xport, q2, k, v, o, lses, *_pad_d(do), scale=scale, causal=causal,
+                        window=window, step=bwd_step)
+    return (o[..., :D], xport.join(lses), *(g[..., :D] for g in grads))

@@ -146,7 +146,8 @@ _RING_DIMS = [
     _I32, _I32,                          # q_base, kv_off (global positions)
     _I32, _I32, _I32,                    # causal, window left, window right (-1: none)
 ]
-# The C entries of the ring kernels K7 (csrc/ring_fwd.cu) and K8 (csrc/ring_bwd.cu).
+# The C entries of the ring kernels K7 (csrc/ring_fwd.cu) and K8 (csrc/ring_bwd.cu)
+# on bf16, every D <= 256.
 RING_FWD_ARGTYPES = [
     _PTR, _PTR, _PTR,                    # q (x scale x log2 e), k, v
     _PTR, _PTR, _PTR,                    # acc, m, l: the running state (f32)
@@ -164,6 +165,14 @@ RING_BWD_ARGTYPES = [
     _I64, _I64, _I64,                    # dO (batch, head, seq) strides
     _PTR,                                # cudaStream_t
 ]
+# Their f32 forms (csrc/flash_fwd_f32.cu, csrc/flash_bwd_f32.cu): the same
+# arguments on f32 tensors, with the bf16 scratch of the pieces after lse / dv.
+_RING_PIECES = [
+    _PTR, _PTR,                          # q_pieces (q's; the backward: q's, dO's), kv_pieces
+    _I32,                                # split_q: split q (and dO) into q_pieces first
+]
+RING_FWD_F32_ARGTYPES = RING_FWD_ARGTYPES[:8] + _RING_PIECES + RING_FWD_ARGTYPES[8:]
+RING_BWD_F32_ARGTYPES = RING_BWD_ARGTYPES[:9] + _RING_PIECES + RING_BWD_ARGTYPES[9:]
 
 
 def find_nvcc() -> str:
@@ -278,6 +287,10 @@ def kernels() -> ctypes.CDLL:
     lib.fa_ring_fwd_bf16.argtypes = RING_FWD_ARGTYPES
     lib.fa_ring_bwd_bf16.restype = i32
     lib.fa_ring_bwd_bf16.argtypes = RING_BWD_ARGTYPES
+    lib.fa_ring_fwd_f32.restype = i32
+    lib.fa_ring_fwd_f32.argtypes = RING_FWD_F32_ARGTYPES
+    lib.fa_ring_bwd_f32.restype = i32
+    lib.fa_ring_bwd_f32.argtypes = RING_BWD_F32_ARGTYPES
     lib.fa_error_string.restype = ctypes.c_char_p
     lib.fa_error_string.argtypes = [i32]
     return lib

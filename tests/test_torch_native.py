@@ -248,6 +248,23 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
     ("_ZN49_GLOBAL__N__a4eea0e5_16_flash_bwd_f32_cu_7d59452214bwd_f32_kernelILi256ELb0ELb1ELb1EEEv14"
      "CUtensorMap_stS1_S1_S1_N2fa12BwdF32ParamsE",
      "bwd f32 bias softcap bwd_f32_kernel<256, 0, 1, 1>"),
+    # The ring kernels' f32 forms (RING 1) and the f32 routes with RING 0,
+    # named as before the flag; the D 256 forms of K7 / K8.
+    ("_ZN49_GLOBAL__N__5b2c1d3e_16_flash_fwd_f32_cu_0a1b2c3d14fwd_f32_kernelILi128ELb0ELb0ELb0E"
+     "Lb1EEEv14CUtensorMap_stS1_S1_N2fa12FwdF32ParamsE", "K7 f32 fwd_f32_kernel<128, 0, 0, 0, 1>"),
+    ("_ZN49_GLOBAL__N__5b2c1d3e_16_flash_fwd_f32_cu_0a1b2c3d14fwd_f32_kernelILi64ELb1ELb0ELb1E"
+     "Lb0EEEv14CUtensorMap_stS1_S1_N2fa12FwdF32ParamsE",
+     "K1 f32 bias segments fwd_f32_kernel<64, 1, 0, 1>"),
+    ("_ZN49_GLOBAL__N__5b2c1d3e_16_flash_fwd_f32_cu_0a1b2c3d19fwd_f32_wide_kernelILb0ELb0ELb0E"
+     "Lb1EEEv14CUtensorMap_stS1_S1_N2fa12FwdF32ParamsE", "K7 f32 d256 fwd_f32_wide_kernel<0, 0, 0, 1>"),
+    ("_ZN49_GLOBAL__N__5b2c1d3e_16_flash_fwd_f32_cu_0a1b2c3d19fwd_f32_wide_kernelILb0ELb1ELb0E"
+     "Lb0EEEv14CUtensorMap_stS1_S1_N2fa12FwdF32ParamsE", "K1 f32 d256 softcap fwd_f32_wide_kernel<0, 1, 0>"),
+    ("_ZN49_GLOBAL__N__a4eea0e5_16_flash_bwd_f32_cu_7d59452214bwd_f32_kernelILi256ELb0ELb0ELb0E"
+     "Lb1EEEv14CUtensorMap_stS1_S1_S1_N2fa12BwdF32ParamsE", "K8 f32 bwd_f32_kernel<256, 0, 0, 0, 1>"),
+    ("_ZN12_GLOBAL__N_120ring_fwd_wide_kernelE14CUtensorMap_stS0_S0_NS_14RingWideParamsE",
+     "K7 d256 ring_fwd_wide_kernel"),
+    ("_ZN12_GLOBAL__N_120ring_bwd_wide_kernelE14CUtensorMap_stS0_S0_S0_N2fa14BwdDenseParamsE",
+     "K8 d256 ring_bwd_wide_kernel"),
     ("_Z11some_kernelv", "unrecognised instantiation _Z11some_kernelv"),
 ])
 def test_register_report_names_every_instantiation(mangled, name):

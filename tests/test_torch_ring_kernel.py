@@ -49,7 +49,8 @@ def _grads(fn, q, k, v, do):
 
 
 # (ranks, causal, window, Hkv, D): the JAX ring kernel tests' masks, both
-# windows, GQA with one KV head, at 2 and 4 ranks.
+# windows, GQA with one KV head, at 2 and 4 ranks; head dims above 128 (D
+# 256, D 136 with a window and GQA) and one the entry point pads (D 100).
 FWD_CASES = [
     (4, True, None, 2, 128),
     (4, False, None, 2, 64),
@@ -58,6 +59,9 @@ FWD_CASES = [
     (4, True, None, 1, 64),
     (2, True, None, 2, 64),
     (2, False, (160, 160), 1, 128),
+    (2, True, None, 1, 256),
+    (4, True, (160, -1), 1, 136),
+    (2, False, None, 2, 100),
 ]
 
 

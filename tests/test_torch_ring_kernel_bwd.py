@@ -20,7 +20,9 @@ H, NQ = 2, 128
 
 
 # (ranks, causal, window, Hkv, D): both masks, both windows and GQA with one
-# KV head at 4 ranks (the JAX race-detected backward's cases), and 2 ranks.
+# KV head at 4 ranks (the JAX race-detected backward's cases), and 2 ranks;
+# head dims above 128 (D 256, D 136 with a window and GQA) and one the entry
+# point pads (D 100).
 GRAD_CASES = [
     (2, True, None, 2, 128),
     (2, False, None, 1, 64),
@@ -28,6 +30,9 @@ GRAD_CASES = [
     (4, True, (160, -1), 2, 64),
     (4, False, (160, 160), 2, 64),
     (4, True, None, 1, 64),
+    (2, True, None, 1, 256),
+    (4, True, (160, -1), 1, 136),
+    (2, False, None, 2, 100),
 ]
 
 
