@@ -39,7 +39,10 @@ its kernels:
   at bench_decode's attention shapes: gates against the teacher-forced
   forward and between cache dtypes, 8 requests per cache dtype (16 decode
   kernel launches per step, no dense K1), ms/token at cache lengths
-  1024-8192;
+  1024-8192; then the same LM in f32 served from an f32, an int8 and an fp8
+  cache (the decode kernel's f32-q form, checked alone first; gates against
+  the teacher-forced f32 forward and between cache dtypes, 2 x 8 requests
+  per cache with exact launches, ms/token and peak memory at 1024-8192);
 * sliding-window training (bench_lm.py's long-context cells): the same LM
   with ``sliding_window=2048``, gates at [1, 2049] tokens with a window of
   512, 10 AdamW steps at [1, 8193] beside 10 full-causal steps, and a few
@@ -61,7 +64,9 @@ its kernels:
 * the roofline probes (path B): K9 (gemm.matmul) at 4096^3 and K10
   (measure_mxu_peak_tflops) against their plain versions, K10's HMMA count in
   the SASS, and the measured mma.sync and chained torch.matmul peaks beside
-  the datasheet's 989 TFLOP/s;
+  the datasheet's 989 TFLOP/s; then their f32 forms (six bf16 products per
+  f32 product) against torch.matmul with TF32 off and roofline_reference,
+  and the f32-accurate rates beside the 165 TFLOP/s the f32 bounds assume;
 * sequence-parallel ring attention (context-parallel long-context training
   at the LM's attention width, 4 virtual ranks x 4096 tokens): forward and
   gradients through ring_attention_kernel_sharded with exactly 10 K7 and 10
@@ -124,7 +129,11 @@ kernels' FLOPs at 165 TFLOP/s, the bf16 peak over six) and the
 time of one PyTorch call that computes the same function
 (``scaled_dot_product_attention``, forward or backward; ``flex_attention``
 compiled by ``torch.compile`` where a softcap or segment ids rule SDPA out),
-or null with the reason where none does (quantized K/V).
+or null with the reason where none does (quantized K/V). Those compiled
+afresh in every run for rows it does not change -- compiled flex_attention,
+SDPA at each fused backend -- run with ``--yardsticks`` (YARDSTICKS); by
+default the flex rows' library time is null ("not timed") and SDPA runs at
+its own choice of backend.
 
 One line per phase; the last two lines are a JSON object of the kernels'
 numbers and ``{"ok": true, "device": ...}``. Exits non-zero, before printing
@@ -157,6 +166,7 @@ LATENT = 64        # SD1.5 at 512x512 pixels
 CONTEXT_LEN = 77   # CLIP text tokens
 O_TOL_NAME = "FWD_TOL[bf16]"
 LSE_ATOL = 1e-3
+F32_LSE_ATOL = 1e-4  # an f32 q's LSE (FWD_TOL[f32]'s atol)
 REL_L2_LIMIT = 2e-2
 # The LM of benchmarks/bench_lm.py:122-125 (full depth) and its step.
 LM_WIDTH = dict(vocab_size=32000, d_model=2048, n_layers=8, n_heads=16, n_kv_heads=8,
@@ -288,6 +298,23 @@ def pair_flops(q, k, *, matmuls: int, **mask) -> float:
     keep = flash_fwd.pair_mask(Nq, k.shape[2], device=q.device, **mask)
     pairs = float(keep.expand(B, 1, Nq, k.shape[2]).sum().item()) * Hq
     return 2.0 * D * pairs * matmuls
+
+
+# The library yardsticks that are compiled afresh in every run -- flex_attention
+# by torch.compile (each call a compile of its own) and SDPA at each fused
+# backend -- time rows that a run of the kernels they stand beside does not
+# change. They run with ``python3 chip_smoke.py --yardsticks`` (main sets
+# this); by default flex_ms gives None (the row's library_ms null, logged as
+# "not timed") and _sdpa_backends_ms times SDPA at its own choice of backend
+# alone. Every gate, and every kernel timing a gate reads, runs either way.
+YARDSTICKS = False
+# Seconds spent in each yardstick kind this run (main prints them).
+YARDSTICK_SECONDS = {"flex_attention compiled": 0.0, "SDPA backends": 0.0}
+
+
+def ms_text(ms) -> str:
+    """A library time as the logs print it: ms to 4 places, or why none."""
+    return "not timed (python3 chip_smoke.py --yardsticks)" if ms is None else f"{ms:.4f}"
 
 
 def sdpa_ms(q, k, v, *, do=None, bias_leaf=None, backend=None, device: bool = False,
@@ -425,23 +452,29 @@ def flex_ms(q, k, v, *, scale: float, do=None, score_mod=None, mask_mod=None) ->
     ``mask_mod``, on contiguous copies of the same inputs; with ``do``, its
     one backward call (dQ, dK and dV together). The warm-up compiles it
     (Inductor's and Triton's caches go to the port's build directory). Timed
-    here, used nowhere in the port."""
+    here, used nowhere in the port. None unless YARDSTICKS."""
+    if not YARDSTICKS:
+        return None
     from torch._functorch import config as functorch_config
 
+    t0 = time.perf_counter()
     flex, block = _compiled_flex(q, k, mask_mod)
     kw = dict(score_mod=score_mod, block_mask=block, scale=scale,
               enable_gqa=k.shape[1] != q.shape[1])
     q, k, v = (x.contiguous() for x in (q, k, v))
     if do is None:
         with torch.no_grad():
-            return cuda_ms(lambda: flex(q, k, v, **kw), reps=5, trials=3)
-    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
-    # The one graph's backward is timed again and again (retain_graph), which
-    # a compiled backward that donates its saved buffers refuses.
-    with functorch_config.patch(donated_buffer=False):
-        out = flex(qg, kg, vg, **kw)
-        return cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
-                       reps=5, trials=3)
+            ms = cuda_ms(lambda: flex(q, k, v, **kw), reps=5, trials=3)
+    else:
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        # The one graph's backward is timed again and again (retain_graph), which
+        # a compiled backward that donates its saved buffers refuses.
+        with functorch_config.patch(donated_buffer=False):
+            out = flex(qg, kg, vg, **kw)
+            ms = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
+                         reps=5, trials=3)
+    YARDSTICK_SECONDS["flex_attention compiled"] += time.perf_counter() - t0
+    return ms
 
 
 def _compiled_flex(q, k, mask_mod):
@@ -467,9 +500,12 @@ def flex_fwd_bwd_ms(q, k, v, do, *, scale: float, score_mod=None, mask_mod=None)
     flex_attention on inputs that require grad (the training graph, whose
     forward is what the backward then differentiates), its forward call
     timed as it is, then its one backward call (dQ, dK and dV). Timed here,
-    used nowhere in the port."""
+    used nowhere in the port. (None, None) unless YARDSTICKS."""
+    if not YARDSTICKS:
+        return None, None
     from torch._functorch import config as functorch_config
 
+    t0 = time.perf_counter()
     flex, block = _compiled_flex(q, k, mask_mod)
     kw = dict(score_mod=score_mod, block_mask=block, scale=scale,
               enable_gqa=k.shape[1] != q.shape[1])
@@ -479,6 +515,7 @@ def flex_fwd_bwd_ms(q, k, v, do, *, scale: float, score_mod=None, mask_mod=None)
         out = flex(qg, kg, vg, **kw)
         bwd = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
                       reps=5, trials=3)
+    YARDSTICK_SECONDS["flex_attention compiled"] += time.perf_counter() - t0
     return fwd, bwd
 
 
@@ -612,14 +649,34 @@ def instantiation_name(mangled: str) -> str:
     if "split_bf16x3_kernel" in mangled:  # the f32 routes' operand split
         return "split bf16x3 split_bf16x3_kernel"
     dec = re.search(r"decode_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
-    if dec:  # K1's decode route: decode_kernel<D, KV, BIAS, CAP>
+    if dec:  # K1's decode route: decode_kernel<D, KV, BIAS, CAP, F32Q> (F32Q 0 named
+        # without it, as before the f32-q form)
         args = [int(a) for a in re.findall(r"L[a-z]+(-?\d+)E", dec.group(1))]
+        f32q = len(args) == 5 and args[4] == 1
+        args = args[:4] if len(args) == 5 and not f32q else args
         label = f"decode_kernel<{', '.join(map(str, args))}>"
-        if len(args) != 4:
+        if len(args) != 4 + f32q:
             return f"unrecognised instantiation {label}"
         variant = {0: "", 1: " int8", 2: " fp8"}.get(args[1], f" kv{args[1]}")
-        return (f"K1 decode{variant}{' softcap' if args[3] else ''}{' bias' if args[2] else ''} "
-                f"{label}")
+        return (f"K1 decode{' f32' if f32q else ''}{variant}{' softcap' if args[3] else ''}"
+                f"{' bias' if args[2] else ''} {label}")
+    quant_f32 = re.search(r"fwd_quant_f32_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if quant_f32:  # K1's quantized route on an f32 q, fwd_quant_f32_kernel<D, KV, BIAS, SEG>
+        args = re.findall(r"L[a-z]+(-?\d+)E", quant_f32.group(1))
+        label = f"fwd_quant_f32_kernel<{', '.join(args)}>"
+        if len(args) != 4:
+            return f"unrecognised instantiation {label}"
+        variant = {"1": " int8", "2": " fp8"}.get(args[1], f" kv{args[1]}")
+        return (f"K1 quant f32{variant}{' bias' if args[2] == '1' else ''}"
+                f"{' segments' if args[3] == '1' else ''} {label}")
+    gemm_f32 = re.search(r"gemm_f32_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
+    if gemm_f32:  # K9's f32 form, gemm_f32_kernel<OUT_F32>
+        args = re.findall(r"L[a-z]+(-?\d+)E", gemm_f32.group(1))
+        return f"K9 f32 gemm_f32_kernel<{', '.join(args)}>"
+    roof = re.search(r"roofline_kernelILi(\d+)E(f|13__nv_bfloat16)E", mangled)
+    if roof:  # K10, roofline_kernel<CHAINS, T>: bf16 named as before its f32 form
+        return (f"K10 f32 roofline_kernel<{roof.group(1)}, float>" if roof.group(2) == "f"
+                else f"K10 roofline_kernel<{roof.group(1)}>")
     quant_sm90 = re.search(r"fwd_quant_sm90_kernelI((?:L[a-z]+-?\d+E)+)E", mangled)
     if quant_sm90:  # K1's quantized route, fwd_quant_sm90_kernel<D, KV, BIAS, SEG>
         args = re.findall(r"L[a-z]+(-?\d+)E", quant_sm90.group(1))
@@ -1116,8 +1173,8 @@ def phase_seg_check() -> dict:
                f"K5 + K6 split route {res['split']['ms']:.4f} ms ({tf / res['split']['ms']:.1f} "
                f"TFLOP/s; plain {res['split']['plain_ms']:.4f}, bound "
                f"{res['split']['bound_ms']:.4f} {res['split']['bound_by']}); flex_attention "
-               f"{res['k1']['library_ms']:.4f} ms, its backward {res['split']['library_ms']:.4f} "
-               "ms (median CUDA-event time)")
+               f"{ms_text(res['k1']['library_ms'])} ms, its backward "
+               f"{ms_text(res['split']['library_ms'])} ms (median CUDA-event time)")
     log("seg", f"not gated: K1 causal without segments at the same shape {causal_ms:.4f} ms; "
                f"K1 with segments / K1 causal = {res['k1']['ms'] / causal_ms:.3f}; of the K1 call, "
                f"the kernel alone {alone_ms:.4f} ms, the segment inputs alone (sm90_segments) "
@@ -1323,7 +1380,8 @@ def _reset_launches() -> None:
     flash_fwd.fwd.launches_bias = flash_fwd.fwd.launches_int8 = flash_fwd.fwd.launches_fp8 = 0
     flash_fwd.fwd.launches_bias_sm90 = flash_fwd.fwd.launches_dense_sm90 = 0
     flash_fwd.fwd.launches_dense_d256 = flash_fwd.fwd.launches_bias_d256 = 0
-    flash_fwd.fwd.launches_quant_sm90 = 0
+    flash_fwd.fwd.launches_quant_sm90 = flash_fwd.fwd.launches_quant_f32 = 0
+    flash_fwd.fwd.launches_decode_f32 = 0
     flash_bwd.bias_bwd.launches_d256 = 0
     flash_bwd_fused.bwd.launches_sm90 = flash_bwd_fused.bwd.launches_d256 = 0
     flash_bwd.split_bwd.launches_d256 = 0
@@ -1336,6 +1394,8 @@ def _reset_launches() -> None:
     flash_fwd.fwd.launches_f32_d256 = flash_bwd._f32_bwd_launch.launches_d256 = 0
     flash_fwd.fwd.launches_split = flash_bwd._f32_bwd_launch.launches_split = 0
     gemm.matmul.launches = roofline.roofline_call.launches = 0
+    gemm.matmul.launches_f32 = gemm.matmul.launches_split = 0
+    roofline.roofline_call.launches_f32 = 0
     for step in (ring_kernel.ring_fwd_step, ring_kernel.ring_bwd_step):
         step.launches = step.launches_f32 = step.launches_d256 = step.launches_split = 0
 
@@ -1369,7 +1429,12 @@ def _launches() -> dict:
     launch, of q, k, v and dO, both from the f32 C entries, and one before
     each K7 / K8 f32 launch: "K7 f32" / "K8 f32" those of the ring kernels'
     f32 forms, "K7 d256" / "K8 d256" those of their D 256 forms, all also in
-    "K7" / "K8"). K5 and K6 have
+    "K7" / "K8"; and one before each K9 f32 launch, of a and b); "K1
+    decode f32" the launches of the decode kernel's f32-q form (an f32 q
+    over int8 / fp8 K/V, also in "K1" and "K1 int8" / "K1 fp8"; its merges
+    in "K1 merge"), "K1 quant f32" those of the quantized route's f32-q
+    form (likewise, each after one split of q), "K9 f32" / "K10 f32" those
+    of the probes' f32 forms (also in "K9" / "K10"). K5 and K6 have
     no kernel of their own: every CUDA backward that is not K3's takes one
     of the routes."""
     from flashattn_tpu_torch.ops import flash_bwd, flash_bwd_fused, flash_fwd, gemm, roofline
@@ -1381,6 +1446,8 @@ def _launches() -> dict:
             "K1 dense sm90": flash_fwd.fwd.launches_dense_sm90,
             "K1 dense d256": flash_fwd.fwd.launches_dense_d256,
             "K1 quant sm90": flash_fwd.fwd.launches_quant_sm90,
+            "K1 quant f32": flash_fwd.fwd.launches_quant_f32,
+            "K1 decode f32": flash_fwd.fwd.launches_decode_f32,
             "K1 int8": flash_fwd.fwd.launches_int8, "K1 fp8": flash_fwd.fwd.launches_fp8,
             "K1 window": flash_fwd.fwd.launches_window,
             "K1 softcap": flash_fwd.fwd.launches_softcap,
@@ -1400,13 +1467,15 @@ def _launches() -> dict:
             "split bf16x3": (flash_fwd.fwd.launches_split
                              + flash_bwd._f32_bwd_launch.launches_split
                              + ring_kernel.ring_fwd_step.launches_split
-                             + ring_kernel.ring_bwd_step.launches_split),
+                             + ring_kernel.ring_bwd_step.launches_split
+                             + gemm.matmul.launches_split),
             "K7": ring_kernel.ring_fwd_step.launches, "K8": ring_kernel.ring_bwd_step.launches,
             "K7 f32": ring_kernel.ring_fwd_step.launches_f32,
             "K8 f32": ring_kernel.ring_bwd_step.launches_f32,
             "K7 d256": ring_kernel.ring_fwd_step.launches_d256,
             "K8 d256": ring_kernel.ring_bwd_step.launches_d256,
-            "K9": gemm.matmul.launches, "K10": roofline.roofline_call.launches}
+            "K9": gemm.matmul.launches, "K10": roofline.roofline_call.launches,
+            "K9 f32": gemm.matmul.launches_f32, "K10 f32": roofline.roofline_call.launches_f32}
 
 
 def _expect(**counts) -> dict:
@@ -1904,6 +1973,248 @@ def _decode_ms(model, cfg, cache_len: int, quant_dtype, *, phase: str, label: st
     return step_s
 
 
+# The f32 LM served on the card (phase_decode_f32): DECODE_WIDTH in f32 from
+# an f32, an int8 and an fp8 cache, through init_kv_cache and decode_step.
+# The gate: the f32-cache decode logits against the teacher-forced f32
+# forward within the f32 LM's limit (PERF.md §2), the 8-bit caches' against
+# the f32 cache's by QUANT_RULE; then DECODE_F32_ROUNDS rounds of
+# DECODE_REQUESTS requests per cache dtype (PROMPT_LEN prompt tokens through
+# decode_step, DECODE_F32_GEN greedy tokens).
+DECODE_F32_REL_L2 = 1e-3
+DECODE_F32_ROUNDS, DECODE_F32_GEN = 2, 32
+F32_CACHES = {"f32": None, "int8": torch.int8, "fp8": torch.float8_e4m3fn}
+# The decode kernel's f32-q form alone (_decode_f32_check): (name, B, Hq, Hkv,
+# Nq, Nk, D, bias kind) -- decode_step's call at cache 8192 held at half (its
+# 4097 live slots, folded), the whole cache with the JAX step's slot bias,
+# one split, D 64, a batch row every slot of which is masked.
+DECODE_F32_CASES = [("live", DECODE_B, DECODE_H, 8, 1, DECODE_LIVE, DECODE_D, None),
+                    ("slot bias", DECODE_B, DECODE_H, 8, 1, DECODE_NK, DECODE_D, "slots"),
+                    ("1 split", 2, DECODE_H, 8, 1, 200, DECODE_D, None),
+                    ("D64", 2, 8, 2, 1, 1000, 64, "slots"),
+                    ("dead row", 2, DECODE_H, 8, 1, 1000, DECODE_D, "dead")]
+
+
+def _f32_decode_expect(name: str, batch: int, lives) -> dict:
+    """The launches of the f32 LM's decode_step over steps whose live slots
+    are ``lives``: per layer and step one K1 launch -- on an f32 cache K1's
+    f32 route, after its split of q, k and v; on an 8-bit cache the decode
+    kernel's f32-q form (counted with the dtype), its merge where the live
+    slots make more than one split, and no split."""
+    layers, hkv = DECODE_WIDTH["n_layers"], DECODE_WIDTH["n_kv_heads"]
+    n = layers * len(lives)
+    if name == "f32":
+        return _expect(K1=n, K1_f32=n, split_bf16x3=n)
+    return _expect(K1=n, K1_decode_f32=n, **{f"K1_{name}": n},
+                   K1_merge=layers * sum(_decode_merges(batch, hkv, live) for live in lives))
+
+
+def _decode_f32_check() -> dict:
+    """The decode kernel's f32-q form (csrc/flash_decode_quant_f32.cu) on int8
+    and fp8 K/V at DECODE_F32_CASES, q in f32: through the path
+    (flash_attention_quantized) against fwd_reference on the same 8-bit K/V
+    and scales, with exactly one K1 launch on the f32-q form and its merge
+    where the splits make one; the kernel on the folded launch against
+    decode_reference with the kernel's splits (O within FWD_TOL[f32], LSE
+    within F32_LSE_ATOL on live rows; a masked batch row exactly O = 0, LSE =
+    ln2 x mask). Timed at decode_step's call (the "live" case) beside its
+    plain version, its bound (bytes: q, the 8-bit K/V and scales read once,
+    O and the LSE written once) and SDPA f32 on the dequantized f32 K/V (TF32
+    off; the dequantization not included). Returns the rows by K/V dtype."""
+    from flashattn_tpu_torch.ops import flash_fwd, quant
+    from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, Tolerance, check_close, make_qkv
+
+    _f32_tf32_off()
+    tol, lse_tol = FWD_TOL[torch.float32], Tolerance(F32_LSE_ATOL, 0.0)
+    res = {}
+    for i, (case, b, hq, hkv, nq, nk, d, bias_kind) in enumerate(DECODE_F32_CASES):
+        q, k, v = make_qkv(2900 + i, b, hq, nq, d, Nk=nk, Hkv=hkv, device=DEVICE)  # f32
+        bias = None if bias_kind is None else _decode_slot_bias(nk, nk // 2)
+        if bias_kind == "dead":  # batch row 0: every slot at the mask value
+            bias = bias.expand(b, 1, 1, nk).clone()
+            bias[0] = DEFAULT_MASK_VALUE
+        rep = hq // hkv
+        qk = q.reshape(b, hkv, rep * nq, d)  # the folded launch the path makes
+        splits = _decode_splits(b, hkv, nk)
+        for name, dt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+            qkv = quant.quantize_kv(k, v, dt, allow_slow_fp8=True)
+            scales = dict(k_scale=qkv.k_scale, v_scale=qkv.v_scale)
+            before = _launches()
+            o = quant.flash_attention_quantized(q, qkv, bias=bias)
+            torch.cuda.synchronize()
+            label = (f"f32 q, {name} K/V, {case}: B{b} Hq{hq} Hkv{hkv} Nq{nq} Nk{nk} D{d}"
+                     f"{'' if bias_kind is None else f' bias {bias_kind}'}, folded")
+            _routed(label, before, K1=1, K1_decode_f32=1, **{f"K1_{name}": 1},
+                    K1_merge=int(splits > 1))
+            o_want, _ = flash_fwd.fwd_reference(q, qkv.k_q, qkv.v_q, scale=d ** -0.5, bias=bias,
+                                                **scales)
+            ok, msg = check_close(o, o_want, tol, "O")
+            err = (o - o_want).abs().max().item()
+            if not ok or o.dtype != torch.float32:
+                fail(f"the decode kernel's f32-q form ({label}) through the path disagrees with "
+                     f"fwd_reference: {msg} (O {o.dtype})")
+            kw = dict(scale=d ** -0.5, bias=bias, **scales)
+            o_k, lse_k = flash_fwd.fwd(qk, qkv.k_q, qkv.v_q, **kw)
+            torch.cuda.synchronize()
+            o_r, lse_r = flash_fwd.decode_reference(qk, qkv.k_q, qkv.v_q, **kw, splits=splits)
+            ok_o, msg_o = check_close(o_k, o_r, tol, "O")
+            live = lse_r > 0.5 * math.log(2.0) * DEFAULT_MASK_VALUE
+            ok_l, msg_l = check_close(lse_k[live], lse_r[live], lse_tol, "LSE")
+            ok_l = ok_l and torch.allclose(lse_k[~live], lse_r[~live], rtol=1e-6, atol=0.0)
+            k_err = (o_k - o_r).abs().max().item()
+            lse_err = (lse_k[live] - lse_r[live]).abs().max().item()
+            line = (f"{label}: path O max_abs_err {err:.3e} (budget FWD_TOL[f32]); kernel vs "
+                    f"decode_reference ({splits} splits): O max_abs_err {k_err:.3e}, LSE "
+                    f"max_abs_err on live rows {lse_err:.3e} (budget {F32_LSE_ATOL})")
+            if not (ok_o and ok_l):
+                fail(f"the decode kernel's f32-q form ({label}) disagrees with "
+                     f"decode_reference: {msg_o}; {msg_l}")
+            if bias_kind == "dead":
+                dead_o = o_k[0].abs().max().item()
+                line += f"; masked batch row: max|O| {dead_o}"
+                if dead_o != 0.0 or o[0].abs().max().item() != 0.0 or (~live[0]).sum() == 0:
+                    fail(f"{label}: the masked batch row is not exactly O = 0, LSE = ln2 x mask")
+            if case == "live":  # decode_step's call
+                call = lambda: flash_fwd.fwd(qk, qkv.k_q, qkv.v_q, **kw)  # noqa: E731
+                kd, vd = quant.dequantize_kv(qkv, torch.float32)
+                nbytes = tensor_bytes(q, qkv.k_q, qkv.v_q, *scales.values(), q) + 4 * b * hq * nq
+                # Three bf16 products per f32 product (q's pieces on the exactly widened K/V).
+                res[name] = {"max_abs_err": err, "ms": cuda_ms(call),
+                             "kernel_ms": kernels_ms(call),
+                             "plain_ms": cuda_ms(lambda: flash_fwd.decode_reference(
+                                 qk, qkv.k_q, qkv.v_q, **kw, splits=splits), reps=3, trials=3),
+                             **bound(nbytes, 3 * 4.0 * d * b * hq * nq * nk),
+                             **_f32_library_ms(q, kd, vd, None, {})}
+                res[name]["library_call"] = (f"{res[name]['library']} on the dequantized f32 "
+                                             "K/V, the dequantization not included")
+                r = res[name]
+                line += (f"; {r['ms'] * 1e3:.2f} us (kernels alone {r['kernel_ms'] * 1e3:.2f}; "
+                         f"{2 * b * hkv * nk * d / r['ms'] / 1e6:.1f} GB/s of K/V), plain "
+                         f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+                         f"({r['bound_by']}), library {r['library_ms'] * 1e3:.2f} us "
+                         f"({r['library_call']})")
+                del kd, vd
+            log("decode f32", line)
+            del qkv
+        del q, k, v, qk
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_decode_f32() -> dict:
+    """The f32 LM served at DECODE_WIDTH (820.6 M params, 3.3 GB in f32) from
+    an f32, an int8 and an fp8 cache. The decode kernel's f32-q form alone
+    first (_decode_f32_check). Then gates at batch 2 over the first
+    DECODE_GATE_TOKENS tokens: the f32-cache decode logits against the
+    teacher-forced f32 forward (K1's f32 route), relative L2 within
+    DECODE_F32_REL_L2; the int8 and fp8 caches' against the f32 cache's by
+    QUANT_RULE. Then DECODE_F32_ROUNDS rounds of DECODE_REQUESTS requests at
+    batch DECODE_REQUESTS per cache dtype (a PROMPT_LEN-token prompt through
+    decode_step, DECODE_F32_GEN greedy tokens) with exact launches
+    (_f32_decode_expect: 16 K1 launches a step, on an 8-bit cache all of
+    them the decode kernel's f32-q form with its merge where the splits make
+    one, no split and no other K1 kernel; on an f32 cache K1's f32 route,
+    whose C entry splits the live K/V on every call); then ms/token and
+    tokens/s at cache lengths DECODE_CACHE_LENS held at half, batch
+    DECODE_B, with the peak device memory and the launches checked the same
+    way. Returns the kernel rows and the launch counts per cache dtype."""
+    from flashattn_tpu_torch.models.transformer import (
+        TransformerConfig, decode_step, init_kv_cache, init_transformer, transformer_forward)
+
+    rows = _decode_f32_check()
+    _f32_tf32_off()
+    cfg = TransformerConfig(**DECODE_WIDTH, dtype=torch.float32)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    model = init_transformer(cfg, gen, device=DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = torch.randint(0, cfg.vocab_size, (2, DECODE_GATE_TOKENS), generator=gen,
+                           device=DEVICE)
+    with torch.no_grad():
+        fwd = transformer_forward(model, tokens, cfg)
+    dec = {name: _decode_logits(model, cfg, tokens, dt) for name, dt in F32_CACHES.items()}
+    torch.cuda.synchronize()
+    for name, x in dec.items():
+        if x.shape != fwd.shape or not torch.isfinite(x).all():
+            fail(f"f32 LM, {name} cache: decode logits of shape {tuple(x.shape)} or not finite")
+    rel = _rel(dec["f32"], fwd)
+    log("decode f32", f"f32 LM ({n_params / 1e6:.1f} M params, {cfg.n_layers} layers, d_model "
+                      f"{cfg.d_model}, Hq{cfg.n_heads} Hkv{cfg.n_kv_heads} D{cfg.d_head}, f32), "
+                      f"{list(tokens.shape)} tokens: f32-cache decode vs teacher-forced f32 "
+                      f"forward relative L2 {rel:.3e} (limit {DECODE_F32_REL_L2})")
+    if not rel <= DECODE_F32_REL_L2:
+        fail(f"f32 decode gate: decode vs forward relative L2 {rel:.3e} > {DECODE_F32_REL_L2}")
+    scale = max(dec["f32"].abs().max().item(), 1.0)
+    for name in ("int8", "fp8"):
+        d = (dec[name] - dec["f32"]).abs().max().item()
+        limit = QUANT_RULE[name] * scale
+        log("decode f32", f"f32 LM, {name} cache vs f32 cache: max|dlogits| {d:.4f} (limit "
+                          f"{QUANT_RULE[name]} x {scale:.4f} = {limit:.4f}), relative L2 "
+                          f"{_rel(dec[name], dec['f32']):.3e}")
+        if not d < limit:
+            fail(f"f32 LM: the {name} cache's decode differs from the f32 cache's: {d} >= "
+                 f"{limit}")
+    del dec, fwd
+
+    counts = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    steps = PROMPT_LEN + DECODE_F32_GEN
+    for name, dt in F32_CACHES.items():
+        _reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_F32_ROUNDS):
+            prompts = torch.randint(0, cfg.vocab_size, (DECODE_REQUESTS, PROMPT_LEN),
+                                    generator=gen, device=DEVICE)
+            cache = init_kv_cache(cfg, DECODE_REQUESTS, steps, dt, device=DEVICE)
+            for t in range(PROMPT_LEN):
+                logits, cache = decode_step(model, cache, prompts[:, t], cfg)
+            out = []
+            for _ in range(DECODE_F32_GEN):
+                token = logits.argmax(-1)
+                out.append(token)
+                logits, cache = decode_step(model, cache, token, cfg)
+            torch.cuda.synchronize()
+            out = torch.stack(out, dim=1)
+            if not torch.isfinite(logits).all() or not ((out >= 0) & (out < cfg.vocab_size)).all():
+                fail(f"f32 LM, {name} cache: logits not finite or tokens out of range")
+            del cache
+        secs = time.perf_counter() - t0
+        counts[name] = _launches()
+        want = _f32_decode_expect(name, DECODE_REQUESTS,
+                                  list(range(1, steps + 1)) * DECODE_F32_ROUNDS)
+        n_steps = steps * DECODE_F32_ROUNDS
+        log("decode f32", f"f32 LM, {name} cache: {DECODE_F32_ROUNDS} x {DECODE_REQUESTS} "
+                          f"requests at batch {DECODE_REQUESTS}, {PROMPT_LEN}-token prompt + "
+                          f"{DECODE_F32_GEN} greedy tokens = {n_steps} steps in {secs:.3f} s "
+                          f"({secs / n_steps * 1e3:.2f} ms/step, "
+                          f"{DECODE_REQUESTS * n_steps / secs:.0f} tokens/s); first request's "
+                          f"tokens {out[0, :8].tolist()}...; launches "
+                          f"{ {x: c for x, c in counts[name].items() if c} } (expected "
+                          f"{ {x: c for x, c in want.items() if c} })")
+        if counts[name] != want:
+            fail(f"f32 LM, {name} cache: decode launched {counts[name]}, expected {want}")
+        torch.cuda.empty_cache()
+
+    ms = {}
+    for cache_len in DECODE_CACHE_LENS:
+        for name, dt in F32_CACHES.items():
+            _reset_launches()
+            ms[f"{name} {cache_len}"] = _decode_ms(model, cfg, cache_len, dt, phase="decode f32",
+                                                   label=f"f32 LM, {name} cache")
+            timed = _launches()
+            want = _f32_decode_expect(name, DECODE_B,
+                                      [cache_len // 2 + 1] * (DECODE_WARMUP + DECODE_STEPS))
+            if timed != want:
+                fail(f"f32 LM, {name} cache at cache length {cache_len}: launched {timed}, "
+                     f"expected {want}")
+            counts[name] = {x: counts[name][x] + timed[x] for x in timed}
+    log("decode f32", "launches over the requests and the timed steps: "
+                      + "; ".join(f"{n}: { {x: c for x, c in cs.items() if c} }"
+                                  for n, cs in counts.items()))
+    del model
+    torch.cuda.empty_cache()
+    return {"rows": rows, "counts": counts, "s_per_token": ms}
+
+
 def band_ranges(n_outer: int, n_inner: int, outer: int, inner: int, lo, hi):
     """The inner rows a banded kernel visits for each ``outer``-row tile:
     ``(o0, begin, end)``, the ``inner``-aligned tiles from ``begin`` that meet
@@ -1996,7 +2307,9 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     their LSE exactly ln2 · mask as the kernels form it in f32; K1 on its
     route, one launch counted with its bias, window and cap: on int8 / fp8 K/V
     (``k_scale`` / ``v_scale`` in ``kw``, forward only: the plain version on
-    the same 8-bit K/V and scales) the quantized route, with a bias the bias
+    the same 8-bit K/V and scales) the quantized route -- under an f32 q its
+    f32-q form after one split of q, O within FWD_TOL[f32] and the LSE within
+    F32_LSE_ATOL --, with a bias the bias
     route, without the dense route (each its D 256 form above D 128).
     Returns the max errors, dbias, and the (q, k, v, do, lse, delta) the
     backward took."""
@@ -2011,10 +2324,11 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     variants = dict(K1_window=int(flash_fwd.kernel_window(kw.get("window")) != (-1, -1)),
                     K1_softcap=int("softcap" in kw))
     wide = int(q.shape[-1] > 128)
+    f32q = q.dtype == torch.float32
     if "k_scale" in kw:  # K1's quantized route (its checks' calls are not decode-shaped)
         kv_name = "int8" if k.dtype == torch.int8 else "fp8"
-        _routed(f"K1 at {tag}", before, K1=1, K1_quant_sm90=1, **{f"K1_{kv_name}": 1},
-                **variants)
+        route = dict(K1_quant_f32=1, split_bf16x3=1) if f32q else dict(K1_quant_sm90=1)
+        _routed(f"K1 at {tag}", before, K1=1, **route, **{f"K1_{kv_name}": 1}, **variants)
     elif "bias" in kw:  # K1's bias route (the paths' bias calls are not decode-shaped)
         _routed(f"K1 at {tag}", before, K1=1, K1_bias=1, K1_bias_sm90=1, K1_bias_d256=wide,
                 **variants)
@@ -2023,17 +2337,19 @@ def _fwd_bwd_check(tag: str, q, k, v, do, *, phase: str = "window", want_dbias: 
     f32 = [x.float() for x in (q, k, v) + (() if do is None else (do,))]
     o_want, lse_want = flash_fwd.fwd_reference(*f32[:3], **kw)
     live = lse_want > math.log(2.0) * DEFAULT_MASK_VALUE * 0.5
-    ok_o, msg_o = check_close(o, o_want, FWD_TOL[torch.bfloat16], "O")
-    ok_l, msg_l = check_close(lse[live], lse_want[live], Tolerance(LSE_ATOL, 0.0), "LSE")
+    o_tol, o_tol_name, lse_atol = ((FWD_TOL[torch.float32], "FWD_TOL[f32]", F32_LSE_ATOL) if f32q
+                                   else (FWD_TOL[torch.bfloat16], O_TOL_NAME, LSE_ATOL))
+    ok_o, msg_o = check_close(o, o_want, o_tol, "O")
+    ok_l, msg_l = check_close(lse[live], lse_want[live], Tolerance(lse_atol, 0.0), "LSE")
     err_o = (o.float() - o_want).abs().max().item()
     dead = ~live
     dead_o = bool((o[dead] == 0).all()) and bool((lse[dead] == _dead_lse()).all())
     rel_o = _rel(o.float(), o_want) if live.any() else 0.0
-    log(phase, f"{tag}: K1 O max_abs_err {err_o:.3e} (budget {O_TOL_NAME}), relative L2 "
+    log(phase, f"{tag}: K1 O max_abs_err {err_o:.3e} (budget {o_tol_name}), relative L2 "
                f"{rel_o:.2e} (limit {WINDOW_REL_L2}) / max|ref| {o_want.abs().max().item():.3f}, "
                f"LSE live rows max_abs_err "
                f"{(lse[live] - lse_want[live]).abs().max().item() if live.any() else 0:.3e} "
-               f"(budget {LSE_ATOL}); dead rows {int(dead.sum())}, their O exactly 0 and LSE "
+               f"(budget {lse_atol}); dead rows {int(dead.sum())}, their O exactly 0 and LSE "
                f"exactly ln2 · mask: {dead_o}")
     if not (ok_o and ok_l):
         fail(f"K1 disagrees with fwd_reference at {tag}: {msg_o}; {msg_l}")
@@ -2374,10 +2690,10 @@ def phase_window_check() -> dict:
     log("window", f"softcap at the SWA shape: K1's dense route {res['k1_softcap']['ms']:.4f} ms "
                   f"(bound {res['k1_softcap']['bound_ms']:.4f} {res['k1_softcap']['bound_by']}; plain "
                   f"{res['k1_softcap']['plain_ms']:.4f}, flex_attention "
-                  f"{fwd_library['library_ms']:.4f}), K5 + K6 split route {sc['ms']:.4f} ms "
+                  f"{ms_text(fwd_library['library_ms'])}), K5 + K6 split route {sc['ms']:.4f} ms "
                   f"({pair_flops(q, k, matmuls=5, **mask) / 1e9 / sc['ms']:.1f} TFLOP/s; plain "
                   f"{sc['plain_ms']:.4f}, bound {sc['bound_ms']:.4f} {sc['bound_by']}), "
-                  f"flex_attention's backward {bwd_library['library_ms']:.4f} ms; K1 window "
+                  f"flex_attention's backward {ms_text(bwd_library['library_ms'])} ms; K1 window "
                   f"without the cap {k1['ms']:.4f} ms, K3 window {k3['ms']:.4f} ms (median "
                   "CUDA-event time)")
     del q, k, v, do, args, out
@@ -2406,7 +2722,7 @@ def phase_window_check() -> dict:
                   f"max|ref| {o_want.abs().max().item():.3f}); K1 "
                   f"{res['k1_softcap_bias']['ms'] * 1e3:.2f} us, plain "
                   f"{res['k1_softcap_bias']['plain_ms'] * 1e3:.2f} us, flex_attention "
-                  f"{res['k1_softcap_bias']['library_ms'] * 1e3:.2f} us")
+                  f"{ms_text(res['k1_softcap_bias']['library_ms'])} ms")
     if not ok:
         fail(f"K1 softcap + bias disagrees with fwd_reference at the decode shape: {msg}")
     return res
@@ -2850,7 +3166,7 @@ def phase_bias_check() -> dict:
                     f"sm90 {k1_ms:.4f} ms; K5 + K6's bias route with dbias {row['ms']:.4f} ms "
                     f"(plain {row['plain_ms']:.4f}), without dbias {row['no_dbias_ms']:.4f} ms; "
                     f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); library "
-                    f"{row['library_ms']:.4f} ms ({row['library_call']})")
+                    f"{ms_text(row['library_ms'])} ms ({row['library_call']})")
         del args, out
         torch.cuda.empty_cache()
     del q, k, v, do, combined
@@ -3055,7 +3371,8 @@ def _band_library(q, k, v, do, bias, mask, *, window=None, ids=None, dbias=False
             ("", sdpa[0], "scaled_dot_product_attention(attn_mask=the f32 bias + folded mask)",
              flex[0]),
             ("the backward of ", sdpa[1], sdpa_bwd, flex[1])):
-        best = min((t_sdpa, what + sdpa_call), (t_flex, what + flex_call))
+        best = min(((t, c) for t, c in ((t_sdpa, what + sdpa_call), (t_flex, what + flex_call))
+                    if t is not None))
         out.append({"library_ms": best[0], "library_call": best[1], "sdpa_ms": t_sdpa,
                     "flex_ms": t_flex})
     return tuple(out)
@@ -3122,7 +3439,7 @@ def _band_timing() -> dict:
             r = res[key]
             log("band", f"{key} at path A's shape: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
                         f"bound {r['bound_ms']:.4f} {r['bound_by']}, {share:.3f} of the pairs; "
-                        f"SDPA {r['sdpa_ms']:.4f}, flex {r['flex_ms']:.4f}; library "
+                        f"SDPA {r['sdpa_ms']:.4f}, flex {ms_text(r['flex_ms'])}; library "
                         f"{r['library_call']})")
         del out, args, keep
         torch.cuda.empty_cache()
@@ -3527,6 +3844,164 @@ def phase_roofline() -> dict:
     log("roofline", f"K9 at {m}x{kd} @ {kd}x{n}: {flops / res['k9']['ms'] / 1e9:.1f} TFLOP/s "
                     f"(torch.matmul {flops / res['k9']['library_ms'] / 1e9:.1f}), beside K10's "
                     f"mma.sync {mxu:.1f} and the chained torch.matmul {matmul_peak:.1f} TFLOP/s")
+    return res
+
+
+# K9's and K10's f32 forms (phase_roofline_f32): K9 at GEMM_SHAPES and
+# GEMM_TAIL_SHAPE, K10 at ROOFLINE_SIZE x ROOFLINE_ITERS (its f32 panels
+# fill shared memory at 512), the chained f32 torch.matmul at
+# MATMUL_F32_PEAK_SIZE.
+MATMUL_F32_PEAK_SIZE = 2048
+
+
+def phase_roofline_f32() -> dict:
+    """The probes' f32 forms: K9 on f32 a, b (the split of a and b, then six
+    bf16 products per f32 product on wgmma) against torch.matmul with TF32
+    off -- FWD_TOL[f32] at 512x256x384 and 512x384x256 in f32 and bf16 out
+    (bf16 out: FWD_TOL[bf16]), within the f32 summation bound K 2^-24
+    (|A||B|) at 4096^3 -- and K10's f32 form (panels split once, six bf16
+    mma.sync per f32 product) against roofline_reference at size 256, 4
+    iterations (within the f32 summation bound of its terms); launches
+    exact (the driving run: K9 f32 and its split twice, K10 f32 > 0); the
+    SASS: K9 f32 HGMMA and no HMMA, K10
+    f32 at least 6 x 2 x N_CHAINS HMMA. Measures K10's f32-accurate rate and
+    the chained f32 torch.matmul's beside PEAK_F32_ACCURATE_FLOPS (165
+    TFLOP/s, the bound of every f32 row), and times K9 at 4096^3 and K10
+    beside their plain versions, bounds and library calls."""
+    from flashattn_tpu_torch.ops import gemm, roofline
+    from flashattn_tpu_torch.ops.oracle import _full_f32_matmul
+    from flashattn_tpu_torch.utils import native
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close
+
+    _f32_tf32_off()
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    shapes = (*GEMM_SHAPES, GEMM_TAIL_SHAPE)
+    operands = [tuple(torch.randn(s, generator=gen, device=DEVICE) for s in ((m, kd), (kd, n)))
+                for m, n, kd in shapes]
+    _reset_launches()
+    big = gemm.matmul(*operands[0])
+    small = gemm.matmul(*operands[1], block_m=128, block_n=128, block_k=128)
+    size, iters = ROOFLINE_SIZE, ROOFLINE_ITERS
+    peak = roofline.measure_mxu_peak_tflops(size=size, iters=iters, dtype=torch.float32)
+    counts = _launches()
+    log("roofline f32", f"launches driving the f32 probes: "
+                        f"{ {x: c for x, c in counts.items() if c} } (expected K9 = K9 f32 = "
+                        "split bf16x3 = 2, K10 = K10 f32 > 0, no other)")
+    if (counts != _expect(K9=2, K9_f32=2, split_bf16x3=2, K10=counts["K10"],
+                          K10_f32=counts["K10"]) or not counts["K10"]):
+        fail(f"the f32 probes launched {counts}")
+    res = {"launches": counts, "k10_tflops": peak}
+    for (m, n, kd), (a, b), out in zip(shapes, operands, (big, small, None)):
+        want = gemm.matmul_reference(a, b)  # full f32, TF32 off
+        for out_dtype in (torch.float32, torch.bfloat16):
+            if out is None or out_dtype == torch.bfloat16:
+                out = gemm.matmul(a, b, block_m=128, block_n=128, block_k=128,
+                                  out_dtype=out_dtype)
+            err = (out.float() - want).abs().max().item()
+            if out_dtype == torch.bfloat16:
+                ok, msg = check_close(out, want, FWD_TOL[torch.bfloat16], "K9 f32, bf16 out")
+                budget = "FWD_TOL[bf16]"
+            elif kd <= 512:
+                ok, msg = check_close(out, want, FWD_TOL[torch.float32], "K9 f32")
+                budget = "FWD_TOL[f32]"
+            else:
+                bound32 = kd * 2.0 ** -24 * gemm.matmul_reference(a.abs(), b.abs())
+                excess = ((out - want).abs() - bound32).max().item()
+                ok, msg = excess <= 0, f"K9 f32: |err| - K 2^-24 (|A||B|) max {excess:.3e}"
+                budget = "K 2^-24 (|A||B|) per element"
+            log("roofline f32", f"K9 f32 {m}x{kd} @ {kd}x{n}, {str(out_dtype)[6:]} out: "
+                                f"max_abs_err {err:.3e} ({budget}, max|ref| "
+                                f"{want.abs().max().item():.2f})")
+            if not ok or out.dtype != out_dtype:
+                fail(f"K9's f32 form disagrees with torch.matmul at {m}x{kd}x{n}: {msg}")
+            if (m, n, kd) == GEMM_SHAPES[0] and out_dtype == torch.float32:
+                k9_err = err
+            out = None
+    # K10: N_CHAINS sums of 256 products, added: within the f32 summation
+    # bound of its N_CHAINS (256 + N_CHAINS) terms per element (an element
+    # whose terms cancel leaves no room for FWD_TOL[f32]'s rtol: 2.6e-4 off
+    # at |e| 0.23 in the first run, where the bound allowed 1.7e-3).
+    a, b = (torch.randn((256, 256), generator=gen, device=DEVICE) for _ in range(2))
+    out = roofline.roofline_call(a, b, iters=4, size=256)
+    want = roofline.roofline_reference(a, b, iters=4)
+    bound10 = (roofline.N_CHAINS * (256 + roofline.N_CHAINS) * 2.0 ** -24
+               * gemm.matmul_reference(a.abs(), b.abs()))
+    excess = ((out - want).abs() - bound10).max().item()
+    k10_err = (out - want).abs().max().item()
+    log("roofline f32", f"K10 f32 size 256, 4 iterations: max_abs_err {k10_err:.3e} (f32 "
+                        f"summation bound N_CHAINS (256 + N_CHAINS) 2^-24 (|A||B|): |err| - "
+                        f"bound max {excess:.3e}; max|ref| {want.abs().max().item():.2f})")
+    if not excess <= 0 or out.dtype != torch.float32:
+        fail(f"K10's f32 form disagrees with its plain version: |err| - bound max {excess:.3e}")
+
+    k9_names = {"K9 f32 gemm_f32_kernel<0>", "K9 f32 gemm_f32_kernel<1>"}
+    k10_name = f"K10 f32 roofline_kernel<{roofline.N_CHAINS}, float>"
+    sass = sass_opcodes(native.BUILD_DIR / native.LIB_NAME, k9_names | {k10_name})
+    mma = {x: {op: sass.get(x, collections.Counter())[op] for op in ("HMMA", "HGMMA")}
+           for x in sorted(k9_names | {k10_name})}
+    log("roofline f32", f"HMMA / HGMMA instructions in the SASS: {mma} (K10 f32 needs at least "
+                        f"{6 * 2 * roofline.N_CHAINS}: six products x {roofline.N_CHAINS} chains "
+                        "x 2 n-tiles a k-step; K9 f32 HGMMA and no HMMA); registers, stack, "
+                        "spill stores / loads: "
+                        + ", ".join(f"{x} {BUILD_STATS.get(x)}" for x in sorted(mma)))
+    if mma[k10_name]["HMMA"] < 6 * 2 * roofline.N_CHAINS:
+        fail(f"K10 f32's SASS has {mma[k10_name]['HMMA']} HMMA: its products were merged")
+    for x in k9_names:
+        if mma[x]["HGMMA"] == 0 or mma[x]["HMMA"] != 0:
+            fail(f"{x}'s SASS has {mma[x]}: K9's f32 form must run on wgmma (HGMMA) alone")
+    matmul_peak = roofline.measure_xla_matmul_peak_tflops(size=MATMUL_F32_PEAK_SIZE,
+                                                          dtype=torch.float32)
+    res["matmul_tflops"] = matmul_peak
+    accurate = PEAK_F32_ACCURATE_FLOPS / 1e12
+    log("roofline f32", f"measured f32 rates: K10's f32 form (six bf16 mma.sync per f32 "
+                        f"product, size {size}, {iters} iterations, {roofline.N_CHAINS} chains) "
+                        f"{peak:.1f} TFLOP/s, {peak / accurate:.1%} of the {accurate:.0f} TFLOP/s "
+                        f"that the f32 rows' bounds assume; chained f32 torch.matmul (TF32 off, "
+                        f"size {MATMUL_F32_PEAK_SIZE}) {matmul_peak:.1f} TFLOP/s")
+    if not 0 < peak <= accurate:
+        fail(f"K10 f32 measured {peak:.1f} TFLOP/s, outside (0, {accurate:.0f}]")
+
+    a, b = operands[0]
+    m, n, kd = GEMM_SHAPES[0]
+    with _full_f32_matmul():
+        lib = cuda_ms(lambda: torch.matmul(a, b))
+    res["k9"] = {"max_abs_err": k9_err, "ms": cuda_ms(lambda: gemm.matmul(a, b)),
+                 "kernel_ms": kernels_ms(lambda: gemm.matmul(a, b)),
+                 "plain_ms": cuda_ms(lambda: gemm.matmul_reference(a, b), reps=3, trials=3),
+                 **bound(tensor_bytes(a, b, big), 2.0 * m * n * kd, PEAK_F32_ACCURATE_FLOPS),
+                 "library_ms": lib, "library_call": "torch.matmul (f32, TF32 off)"}
+    a, b = (torch.randn((size, size), generator=gen, device=DEVICE) for _ in range(2))
+    a4, b4 = (x.expand(roofline.N_CHAINS, size, size).contiguous() for x in (a, b))
+    c0 = torch.zeros((roofline.N_CHAINS, size, size), device=DEVICE)
+
+    def chained_matmul():
+        c = c0
+        for _ in range(iters):
+            c = torch.baddbmm(c, a4, b4, beta=1e-30)
+        return c
+
+    with _full_f32_matmul():
+        lib = cuda_ms(chained_matmul, reps=1, trials=3)
+    res["k10"] = {"max_abs_err": k10_err,
+                  "ms": cuda_ms(lambda: roofline.roofline_call(a, b, iters=iters, size=size),
+                                reps=3, trials=3),
+                  "plain_ms": cuda_ms(lambda: roofline.roofline_reference(a, b, iters=iters),
+                                      reps=1, trials=3),
+                  **bound(3 * size * size * 4, 2.0 * size ** 3 * iters * roofline.N_CHAINS,
+                          PEAK_F32_ACCURATE_FLOPS),
+                  "library_ms": lib,
+                  "library_call": (f"{iters} chained torch.baddbmm of [{roofline.N_CHAINS}, "
+                                   f"{size}, {size}] f32, TF32 off (beta 1e-30)")}
+    flops = 2.0 * m * n * kd
+    for key, r in (("K9 f32", res["k9"]), ("K10 f32", res["k10"])):
+        log("roofline f32", f"{key}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['library_call']} "
+                            f"{r['library_ms']:.4f} ms")
+    log("roofline f32", f"K9 f32 at {m}x{kd} @ {kd}x{n}: {flops / res['k9']['ms'] / 1e9:.1f} "
+                        f"f32-accurate TFLOP/s (split included; kernels alone "
+                        f"{flops / res['k9']['kernel_ms'] / 1e9:.1f}), torch.matmul f32 "
+                        f"{flops / res['k9']['library_ms'] / 1e9:.1f}, beside K10 f32's {peak:.1f} "
+                        f"and {accurate:.0f} TFLOP/s ({_card_name()}; {_card_state()})")
     return res
 
 
@@ -4141,7 +4616,7 @@ def _offsets_check() -> dict:
                 log("offsets", f"{name} pair B1 Hq8 Hkv4 N{Nq} D128 bf16, {what}: "
                                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, bound "
                                f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
-                               f"{row['library_ms']:.4f} ms (median CUDA-event time)")
+                               f"{ms_text(row['library_ms'])} ms (median CUDA-event time)")
         del q, k, v, do
         torch.cuda.empty_cache()
     return rows
@@ -5949,15 +6424,18 @@ def _sdpa_backends_ms(q, k, v, *, do=None, call: str = "is_causal=True", **kw) -
     ``enable_gqa``, or on K / V expanded to the query heads where a backend
     refuses it), the forward or, with ``do``, the backward: the times by
     backend (logged), and the fastest fused backend's ms and name as
-    ``library_ms`` / ``library_call`` (``call`` names the arguments)."""
+    ``library_ms`` / ``library_call`` (``call`` names the arguments). Unless
+    YARDSTICKS, SDPA at its own choice of backend alone."""
     from torch.nn.attention import SDPBackend
 
+    t0 = time.perf_counter()
     what = "backward" if do is not None else "forward"
     group = q.shape[1] // k.shape[1]
     times, device = {}, {}
-    for name, backend in (("its own choice", None), ("flash", SDPBackend.FLASH_ATTENTION),
-                          ("memory-efficient", SDPBackend.EFFICIENT_ATTENTION),
-                          ("cuDNN", SDPBackend.CUDNN_ATTENTION)):
+    backends = (("its own choice", None), ("flash", SDPBackend.FLASH_ATTENTION),
+                ("memory-efficient", SDPBackend.EFFICIENT_ATTENTION),
+                ("cuDNN", SDPBackend.CUDNN_ATTENTION))
+    for name, backend in backends if YARDSTICKS else backends[:1]:
         try:
             times[name] = sdpa_ms(q, k, v, do=do, backend=backend, **kw)
             device[name] = sdpa_ms(q, k, v, do=do, backend=backend, device=True, **kw)
@@ -5974,6 +6452,8 @@ def _sdpa_backends_ms(q, k, v, *, do=None, call: str = "is_causal=True", **kw) -
                 + ", ".join(f"{n} {t:.4f} / {device[n]:.4f}" for n, t in times.items()))
     fused = {n: t for n, t in times.items() if n != "its own choice"} or times
     name = min(fused, key=fused.get)
+    if YARDSTICKS:
+        YARDSTICK_SECONDS["SDPA backends"] += time.perf_counter() - t0
     return {"library_ms": fused[name],
             "library_call": f"the {what} of scaled_dot_product_attention({call}), "
                             f"{name} backend",
@@ -6106,7 +6586,8 @@ def _wide_timing() -> dict:
                       f"{row['c_entry_host_ms']:.4f})")
         log("wide", f"{key} at B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} causal bf16: {row['ms']:.4f} ms"
                     f"{alone}, plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
-                    f"{row['bound_by']}, library {row['library_ms']:.4f} ({row['library_call']}); "
+                    f"{row['bound_by']}, library {ms_text(row['library_ms'])} "
+                    f"({row['library_call']}); "
                     f"max_abs_err {row['max_abs_err']:.3e} (median CUDA-event time)")
     return res
 
@@ -6560,14 +7041,26 @@ def quant_instantiations() -> set:
             for bi in (0, 1) for sg in (0, 1)}
 
 
-def _quant_case(i: int, dtype):
-    """QUANT_CASES[i]'s inputs on ``dtype`` K/V: q (bf16), the QuantizedKV
-    (its payload and scales BNHD views where the case says so) and the
-    keyword arguments of its call; and its tag."""
+def quant_f32_instantiations() -> set:
+    """The quantized route's f32-q form's 24 instantiations:
+    fwd_quant_f32_kernel<D, KV, BIAS, SEG>."""
+    return {n.replace("K1 quant sm90", "K1 quant f32").replace("fwd_quant_sm90_kernel",
+                                                                "fwd_quant_f32_kernel")
+            for n in quant_instantiations()}
+
+
+def _quant_case(i: int, dtype, q_dtype=torch.bfloat16):
+    """QUANT_CASES[i]'s inputs on ``dtype`` K/V: q (bf16, or with ``q_dtype``
+    f32 the same draw before its bf16 rounding, so that its small pieces are
+    not 0), the QuantizedKV (its payload and scales BNHD views where the
+    case says so) and the keyword arguments of its call; and its tag."""
     from flashattn_tpu_torch.ops import quant
+    from flashattn_tpu_torch.utils.testing import make_qkv
 
     tag, d, B, Hq, Hkv, nq, nk, kvl, causal, window, ids, (qo, ko), bias, bnhd, _ = QUANT_CASES[i]
     q, k, v = _grown(1800 + i, B, Hq, nq, d, nk, Hkv)  # [B, H, N, D] views of [B, N, H, D]
+    if q_dtype == torch.float32:
+        q = _bnhd(GROW * make_qkv(1800 + i, B, Hq, nq, d, Nk=nk, Hkv=Hkv, device=DEVICE)[0])
     if bnhd:  # quantized in the cache's layout, passed as views
         qkv = quant.quantize_kv(*(x.transpose(1, 2) for x in (k, v)), dtype, allow_slow_fp8=True)
         qkv = quant.QuantizedKV(*(x.transpose(1, 2) for x in qkv))
@@ -6592,7 +7085,8 @@ def _quant_case(i: int, dtype):
         if bias == "full":
             gen = torch.Generator(device=DEVICE).manual_seed(1860 + i)
             kw["bias"] = kw["bias"] + torch.randn((B, Hq, nq, nk), generator=gen, device=DEVICE)
-    name = "int8" if dtype == torch.int8 else "fp8"
+    name = ("f32 q, " if q_dtype == torch.float32 else "") + (
+        "int8" if dtype == torch.int8 else "fp8")
     return q, qkv, kw, (f"{name} K/V, {tag}: D{d} B{B} Hq{Hq} Hkv{Hkv} Nq{nq} Nk{nk}"
                         f"{'' if kvl is None else f' kv_valid_len {kvl}'}"
                         f"{' BNHD' if bnhd else ''}")
@@ -6674,28 +7168,88 @@ def _quant_timing() -> dict:
     return res
 
 
+def _quant_f32_timing() -> dict:
+    """The quantized route's f32-q form timed at the f32 LM's prefill:
+    flash_attention_quantized(causal=True) with an f32 q at
+    QUANT_PREFILL_SHAPE on int8 and fp8 K/V, one launch of the form and one
+    split of q each, held against fwd_reference on the same K/V and scales
+    (FWD_TOL[f32]); its time (the call's CUDA-event time, the split's
+    included; "kernel_ms" the kernels alone), the plain version's, its bound
+    (three bf16 products per f32 product at 989 TFLOP/s, 0.052 ms; the bytes
+    of q, the 8-bit K/V, the scales, O and the LSE once) and SDPA's faster
+    f32 backend on the dequantized f32 K/V, TF32 off, the dequantization not
+    included."""
+    from flashattn_tpu_torch.ops import quant
+    from flashattn_tpu_torch.ops.flash_fwd import fwd_reference
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close, make_qkv
+
+    _f32_tf32_off()
+    res = {}
+    B, Hq, Hkv, N, D = QUANT_PREFILL_SHAPE
+    q, k, v = make_qkv(1702, B, Hq, N, D, Hkv=Hkv, device=DEVICE)  # f32
+    for name, dt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        qkv = quant.quantize_kv(k, v, dt, allow_slow_fp8=True)
+        call = lambda: quant.flash_attention_quantized(q, qkv, causal=True)  # noqa: E731
+        before = _launches()
+        o = call()
+        torch.cuda.synchronize()
+        _routed(f"flash_attention_quantized(causal=True) on {name} K/V, f32 q", before, K1=1,
+                K1_quant_f32=1, split_bf16x3=1, **{f"K1_{name}": 1})
+        kw = dict(scale=D ** -0.5, causal=True, k_scale=qkv.k_scale, v_scale=qkv.v_scale)
+        plain = lambda: fwd_reference(q, qkv.k_q, qkv.v_q, **kw)  # noqa: E731
+        o_want = plain()[0]
+        ok, msg = check_close(o, o_want, FWD_TOL[torch.float32], "O")
+        if not ok or o.dtype != torch.float32:
+            fail(f"the quantized route's f32-q form at the f32 LM's prefill on {name} K/V: "
+                 f"{msg} (O {o.dtype})")
+        pairs = dict(kv_valid_len=N, causal=True, segment_ids=None)
+        kd, vd = quant.dequantize_kv(qkv, torch.float32)
+        res[f"prefill_f32_{name}"] = {
+            "launches": 1, "max_abs_err": (o - o_want).abs().max().item(),
+            "ms": cuda_ms(call), "kernel_ms": kernels_ms(call),
+            "plain_ms": cuda_ms(plain, reps=3, trials=3),
+            **bound(tensor_bytes(q, qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale, q) + 4 * B * Hq * N,
+                    3 * pair_flops(q, k, matmuls=2, **pairs)),
+            **_f32_library_ms(q, kd, vd, None, dict(is_causal=True))}
+        r = res[f"prefill_f32_{name}"]
+        r["library_call"] = f"{r['library']} on the dequantized f32 K/V, is_causal=True"
+        log("quant", f"f32 q, {name} K/V, the f32 LM's prefill B{B} Hq{Hq} Hkv{Hkv} N{N} D{D} "
+                     f"causal: {r['ms']:.4f} ms (kernels alone {r['kernel_ms']:.4f}; plain "
+                     f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} {r['bound_by']}, library "
+                     f"{r['library_ms']:.4f}: {r['library_call']}); O {msg} ({_card_state()})")
+        del qkv, o, o_want, kd, vd
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_quant_check() -> dict:
     """K1's quantized route (fwd_quant_sm90_kernel<D, KV, BIAS, SEG>: int8 /
     e4m3 K/V widened in shared memory) against fwd_reference on the same
     8-bit K/V and scales: QUANT_CASES on int8 and on fp8 (_fwd_bwd_check
     without dO: one launch each of the route, counted with the dtype and the
     window; O within FWD_TOL[bf16] and WINDOW_REL_L2, LSE within LSE_ATOL on
-    live rows, dead rows' O exactly 0 and LSE exactly ln2 · mask). Then the
-    24 instantiations' SASS (HGMMA, UTMALDG, no HMMA) with their registers
-    and spills, and the route timed (_quant_timing)."""
+    live rows, dead rows' O exactly 0 and LSE exactly ln2 · mask); then every
+    case again with an f32 q, on the route's f32-q form
+    (fwd_quant_f32_kernel<D, KV, BIAS, SEG>: one launch and one split of q
+    each; O within FWD_TOL[f32], LSE within F32_LSE_ATOL, dead rows the
+    same). Then the 48 instantiations' SASS (HGMMA, UTMALDG, no HMMA) with
+    their registers and spills, and both forms timed (_quant_timing,
+    _quant_f32_timing)."""
+    _f32_tf32_off()
     t0 = time.perf_counter()
-    for i, case in enumerate(QUANT_CASES):
-        for dt in (torch.int8, torch.float8_e4m3fn):
-            q, qkv, kw, tag = _quant_case(i, dt)
-            out = _fwd_bwd_check(tag, q, qkv.k_q, qkv.v_q, None, phase="quant", **kw)
-            if case[-1] is not None and case[-1] != bool(out["dead"]):
-                fail(f"the quantized case {tag} has {out['dead']} dead rows")
-            del q, qkv, kw, out
-        torch.cuda.empty_cache()
-    log("quant", f"{2 * len(QUANT_CASES)} cases checked in {time.perf_counter() - t0:.1f} s")
-    _tma_wgmma_sass("quant", quant_instantiations())
+    for q_dtype in (torch.bfloat16, torch.float32):
+        for i, case in enumerate(QUANT_CASES):
+            for dt in (torch.int8, torch.float8_e4m3fn):
+                q, qkv, kw, tag = _quant_case(i, dt, q_dtype)
+                out = _fwd_bwd_check(tag, q, qkv.k_q, qkv.v_q, None, phase="quant", **kw)
+                if case[-1] is not None and case[-1] != bool(out["dead"]):
+                    fail(f"the quantized case {tag} has {out['dead']} dead rows")
+                del q, qkv, kw, out
+            torch.cuda.empty_cache()
+    log("quant", f"{4 * len(QUANT_CASES)} cases checked in {time.perf_counter() - t0:.1f} s")
+    _tma_wgmma_sass("quant", quant_instantiations() | quant_f32_instantiations())
     t0 = time.perf_counter()
-    res = _quant_timing()
+    res = {**_quant_timing(), **_quant_f32_timing()}
     log("quant", f"timed in {time.perf_counter() - t0:.1f} s")
     return res
 
@@ -6855,9 +7409,13 @@ def phase_utilities() -> dict:
 
 
 def main() -> None:
+    global YARDSTICKS
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
     import flashattn_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    YARDSTICKS = "--yardsticks" in sys.argv[1:]
+    t_start = time.perf_counter()
 
     def timed(phase):
         t0 = time.perf_counter()
@@ -6877,6 +7435,7 @@ def main() -> None:
     packed = timed(phase_packed_train)
     dec_k = timed(phase_decode_check)
     dec = timed(phase_decode)
+    dec_f32 = timed(phase_decode_f32)
     win = timed(phase_window_check)
     swa = timed(phase_swa_train)
     cap = timed(phase_softcap)
@@ -6884,6 +7443,7 @@ def main() -> None:
     band = timed(phase_bias_band_check)
     bias_train = timed(phase_bias_train)
     roof = timed(phase_roofline)
+    roof_f32 = timed(phase_roofline_f32)
     ring = timed(phase_ring)
     ring_wide = timed(phase_ring_wide)
     sharded = timed(phase_sharded_train)
@@ -6900,6 +7460,9 @@ def main() -> None:
     quant = timed(phase_quant_check)
     timed(phase_entry)
     timed(phase_fuzz)
+    log("time", f"total: {time.perf_counter() - t_start:.1f} s (yardsticks "
+                f"{'on' if YARDSTICKS else 'off: python3 chip_smoke.py --yardsticks times them'}; "
+                + ", ".join(f"{k} {v:.1f} s" for k, v in YARDSTICK_SECONDS.items()) + ")")
     fwd_src, bwd_src, split_src, bias_sm90_src = (
         f"flashattn_tpu_torch/csrc/flash_{d}.cu"
         for d in ("fwd_sm90", "bwd_sm90", "bwd_split_sm90", "fwd_bias_sm90"))
@@ -7026,6 +7589,17 @@ def main() -> None:
          "source": "flashattn_tpu_torch/csrc/roofline.cu",
          "replaces": "flashattn_tpu/ops/roofline.py:28", "launches": roof["launches"]["K10"],
          **roof["k10"]},
+        # The probes' f32 forms (phase_roofline_f32): K9 at 4096^3 (its time
+        # includes the split of a and b), K10 at size 512, 1024 iterations;
+        # bounds at PEAK_F32_ACCURATE_FLOPS; launches from the driving run.
+        {"name": "gemm f32 (K9's f32 form, TMA + wgmma on bf16 pieces: six products per f32 "
+                 "product)", "route": "cuda", "source": "flashattn_tpu_torch/csrc/gemm.cu",
+         "replaces": "flashattn_tpu/ops/gemm.py:22", "launches": roof_f32["launches"]["K9 f32"],
+         **roof_f32["k9"]},
+        {"name": "roofline f32 (K10's f32 form, mma.sync on bf16 pieces)", "route": "cuda",
+         "source": "flashattn_tpu_torch/csrc/roofline.cu",
+         "replaces": "flashattn_tpu/ops/roofline.py:28",
+         "launches": roof_f32["launches"]["K10 f32"], **roof_f32["k10"]},
         {"name": "ring fwd step (K7, TMA + wgmma)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/ring_fwd.cu",
          "replaces": "flashattn_tpu/parallel/ring_kernel.py:74, "
@@ -7232,7 +7806,27 @@ def main() -> None:
                  "with SWA's window (2047, -1) causal, B1 Hq16 Hkv8 N8192 D128)", "route": "cuda",
          "source": "flashattn_tpu_torch/csrc/flash_fwd_quant_sm90.cu",
          "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:852",
-         "path": None, **quant["swa_int8"]}]}),
+         "path": None, **quant["swa_int8"]},
+        # The f32 LM served from an 8-bit cache (phase_decode_f32): the decode
+        # kernel's f32-q form at decode_step's call at cache 8192 held at
+        # half (B8 Hq16 Hkv8 Nk4097 D128, folded), launches from the
+        # requests and timed steps (its merge kernel's beside them).
+        *({"name": f"flash_decode_quant_f32 {name} (K1's decode route's f32-q form, mma.sync: "
+                   f"the f32 LM's decode_step on an {name} cache)", "route": "cuda",
+           "source": "flashattn_tpu_torch/csrc/flash_decode_quant_f32.cu",
+           "replaces": "flashattn_tpu/ops/flash_fwd.py:115",
+           "launches": dec_f32["counts"][name]["K1 decode f32"],
+           "merge_launches": dec_f32["counts"][name]["K1 merge"], **dec_f32["rows"][name]}
+          for name in ("int8", "fp8")),
+        # The quantized route's f32-q form at the f32 LM's prefill (no path of
+        # the port makes it: "path" null, launches the timing check's).
+        *({"name": f"flash_fwd_quant_f32 {name} (K1's quantized route's f32-q form, TMA + wgmma, "
+                   f"q in three bf16 pieces: f32 causal prefill on {name} K/V, B1 Hq16 Hkv8 N2048 "
+                   f"D128)", "route": "cuda",
+           "source": "flashattn_tpu_torch/csrc/flash_fwd_quant_f32.cu",
+           "replaces": "flashattn_tpu/ops/flash_fwd.py:115, flashattn_tpu/ops/flash_fwd.py:516",
+           "path": None, **quant[f"prefill_f32_{name}"]}
+          for name in ("int8", "fp8"))]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -107,6 +107,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Product x of the six (A piece, B piece) bf16 products of an f32 product,
+// the small ones first: (2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0).
+__host__ __device__ constexpr int pair_a(int x) { return x == 0 ? 2 : x == 1 || x == 3 ? 1 : 0; }
+__host__ __device__ constexpr int pair_b(int x) { return x == 2 ? 2 : x == 1 || x == 4 ? 1 : 0; }
+
+// The three bf16 pieces of a and b (the split of ops/f32_split.py, round to
+// nearest even; the differences are exact in f32), piece p of the pair in
+// w[p] (.x, the low half, = a's).
+__device__ __forceinline__ void split3_pair(float a, float b, uint32_t (&w)[3]) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    w[p] = *reinterpret_cast<const uint32_t*>(&v);
+    a -= __low2float(v);
+    b -= __high2float(v);
+  }
+}
+
 // Two tiles can hold a matching pair only if their id ranges intersect; a
 // disjoint pair of ranges proves that none does (exact for any ids).
 __device__ __forceinline__ bool ranges_meet(int2 a, int2 b) {

@@ -52,6 +52,15 @@
 //   * A bias (a caller's f32 [B|1, Hq|1, Nq|1, Nk] mask; decode_step passes
 //     none, it hands the kernel only the live slots) is read through its
 //     strides, 0 on broadcast dims, before the chunk's copies are waited on.
+//   * F32Q (an f32 q over int8 / fp8 K/V, the f32 LM served from an 8-bit
+//     cache; flash_decode_quant_f32.cu, C entry fa_decode_f32): the JAX
+//     kernel's f32 products at Precision.HIGHEST, where the widened K / V are
+//     exact in bf16 and only q and P need three bf16 pieces. q is split
+//     into its pieces in registers as its fragments are read from global
+//     memory (no split launch), S is three mma.sync a k-step (q0 K + q1 K +
+//     q2 K), P (with its v_scale) is split in registers and O += P V is three
+//     mma.sync a k-step; O is f32, written by the CTA or the merge. The
+//     extra products are ~0.8 GFLOP at the f32 LM's decode: still bytes.
 
 #pragma once
 
@@ -60,10 +69,10 @@
 namespace fa {
 
 struct DecodeParams {
-  const __nv_bfloat16* q;
+  const void* q;  // bf16, or f32 with f32 (F32Q)
   const void* k;  // bf16, int8 or e4m3 bytes
   const void* v;
-  __nv_bfloat16* o;
+  void* o;        // q's type
   float* lse;            // [B, Hq, Nq] contiguous
   const float* bias;     // f32, unit column stride, or null
   const float* k_scale;  // [B, Hkv, Nk] f32 per-token scales (quantized K/V)
@@ -81,6 +90,7 @@ struct DecodeParams {
   float scale_log2;  // softmax scale * log2(e)
   float cap_scale;   // softcap: softmax scale / cap
   float cap_log2;    // softcap: cap * log2(e)
+  bool f32;          // q and o f32 (F32Q; int8 / fp8 K/V only)
 };
 
 // One launch of the family over D 64 / 128 (then the merge when splits > 1);
@@ -88,6 +98,8 @@ struct DecodeParams {
 cudaError_t decode_bf16(const DecodeParams& p, int batch, cudaStream_t stream);   // flash_decode.cu
 cudaError_t decode_quant(const DecodeParams& p, int batch, int kv_dtype,
                          cudaStream_t stream);  // flash_decode_quant.cu
+cudaError_t decode_quant_f32(const DecodeParams& p, int batch, int kv_dtype,
+                             cudaStream_t stream);  // flash_decode_quant_f32.cu
 cudaError_t decode_merge(const DecodeParams& p, int batch, cudaStream_t stream);  // flash_decode.cu
 
 }  // namespace fa
@@ -178,13 +190,15 @@ __device__ __forceinline__ uint2 widen4(uint32_t raw) {
 }
 
 // D: head dim (64 or 128); KV: K/V element type; BIAS: additive bias; CAP:
-// logit soft-capping (bf16 K/V only).
-template <int D, int KV, bool BIAS, bool CAP>
+// logit soft-capping (bf16 K/V only); F32Q: an f32 q and O (8-bit K/V only).
+template <int D, int KV, bool BIAS, bool CAP, bool F32Q = false>
 __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams p) {
   using S = DecSmem<D, KV>;
   using KVT = typename KvElem<KV>::type;
   constexpr bool QUANT = S::QUANT;
   static_assert(!(CAP && QUANT), "softcap takes bf16 K/V only (the JAX ValueError)");
+  static_assert(!F32Q || QUANT, "an f32 q over bf16 K/V is K1's f32 route");
+  constexpr int QPC = F32Q ? 3 : 1;  // q's bf16 pieces
   constexpr int KS = D / 16;  // k-steps of Q K^T
   constexpr int NT_O = D / 8;  // n-tiles of the output
   constexpr int PIECES = D * S::ESIZE / 16;  // 16-byte pieces per K/V row
@@ -226,16 +240,31 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
     if (BIAS && live_row[e]) bias_row[e] = p.bias + b * p.bias_sb + h * p.bias_sh + i * p.bias_sn;
   }
   // Q A-fragments of the warp's tile, straight from global memory (zero rows
-  // past p.rows).
-  uint32_t qa[KS][4];
+  // past p.rows); F32Q: each f32 pair split into its three bf16 pieces,
+  // qa[pc] piece pc's fragments.
+  uint32_t qa[QPC][KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
     const int c = ks * 16 + 2 * t;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const uint32_t* qr = reinterpret_cast<const uint32_t*>(p.q + q_off[e] + c);
-      qa[ks][e] = live_row[e] ? __ldg(qr) : 0u;
-      qa[ks][2 + e] = live_row[e] ? __ldg(qr + 4) : 0u;
+      if constexpr (F32Q) {
+        const float* qr = static_cast<const float*>(p.q) + q_off[e] + c;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {  // columns c, c + 1, then c + 8, c + 9
+          const float2 x = live_row[e] ? __ldg(reinterpret_cast<const float2*>(qr + 8 * hf))
+                                       : make_float2(0.f, 0.f);
+          uint32_t w[3];
+          split3_pair(x.x, x.y, w);  // decode f32 q pieces
+#pragma unroll
+          for (int pc = 0; pc < 3; ++pc) qa[pc][ks][2 * hf + e] = w[pc];
+        }
+      } else {
+        const uint32_t* qr = reinterpret_cast<const uint32_t*>(
+            static_cast<const __nv_bfloat16*>(p.q) + q_off[e] + c);
+        qa[0][ks][e] = live_row[e] ? __ldg(qr) : 0u;
+        qa[0][ks][2 + e] = live_row[e] ? __ldg(qr + 4) : 0u;
+      }
     }
   }
 
@@ -340,7 +369,11 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         const __nv_bfloat16* kr = kc + (nt * 8 + g) * WS + ks * 16 + 2 * t;
-        mma_bf16_16816(s[nt], qa[ks], ld_b32(kr), ld_b32(kr + 8));
+        const uint32_t kb0 = ld_b32(kr), kb1 = ld_b32(kr + 8);
+#pragma unroll
+        for (int pc = QPC - 1; pc >= 0; --pc) {  // decode f32 S pieces
+          mma_bf16_16816(s[nt], qa[pc][ks], kb0, kb1);
+        }
       }
     }
     float mx[2] = {m_i[0], m_i[1]};
@@ -391,15 +424,33 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
       acc[i2][2] *= alpha[1];
       acc[i2][3] *= alpha[1];
     }
-    // O += P V: the two score n-tiles are the A fragment of one k-step.
-    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+    // O += P V: the two score n-tiles are the A fragment of one k-step
+    // (F32Q: of each of P's three bf16 pieces).
+    uint32_t pa[QPC][4];
+    if constexpr (F32Q) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t w[3];
+        // decode f32 P pieces
+        split3_pair(s[i >> 1][2 * (i & 1)], s[i >> 1][2 * (i & 1) + 1], w);
+#pragma unroll
+        for (int pc = 0; pc < 3; ++pc) pa[pc][i] = w[pc];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pa[0][i] = pack_bf16(s[i >> 1][2 * (i & 1)], s[i >> 1][2 * (i & 1) + 1]);
+      }
+    }
 #pragma unroll
     for (int dt = 0; dt < D / 16; ++dt) {
       uint32_t vb[4];
       ldmatrix_x4_trans(vb, vc + v_row * WS + dt * 16 + v_col);
-      mma_bf16_16816(acc[2 * dt], pa, vb[0], vb[1]);
-      mma_bf16_16816(acc[2 * dt + 1], pa, vb[2], vb[3]);
+#pragma unroll
+      for (int pc = QPC - 1; pc >= 0; --pc) {
+        mma_bf16_16816(acc[2 * dt], pa[pc], vb[0], vb[1]);
+        mma_bf16_16816(acc[2 * dt + 1], pa[pc], vb[2], vb[3]);
+      }
     }
     __syncwarp();  // this stage is consumed before the next issue refills it
   }
@@ -453,7 +504,12 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
       const int h = hk * p.rep + r / p.nq;
       const int i = r % p.nq;
       const float l_safe = l == 0.f ? 1.f : l;
-      p.o[b * p.o_sb + h * p.o_sh + i * p.o_sn + d] = __float2bfloat16(dead ? 0.f : a / l_safe);
+      const int64_t o_at = b * p.o_sb + h * p.o_sh + i * p.o_sn + d;
+      if constexpr (F32Q) {
+        static_cast<float*>(p.o)[o_at] = dead ? 0.f : a / l_safe;
+      } else {
+        static_cast<__nv_bfloat16*>(p.o)[o_at] = __float2bfloat16(dead ? 0.f : a / l_safe);
+      }
       if (d == 0) {
         p.lse[(static_cast<int64_t>(b) * p.hq + h) * p.nq + i] =
             dead ? LN2 * MASK_VALUE : m_max * LN2 + logf(l_safe);
@@ -468,10 +524,10 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
   }
 }
 
-template <int D, int KV, bool BIAS, bool CAP>
+template <int D, int KV, bool BIAS, bool CAP, bool F32Q>
 cudaError_t decode_launch_d(const DecodeParams& p, int batch, cudaStream_t stream) {
   using S = DecSmem<D, KV>;
-  auto kernel = decode_kernel<D, KV, BIAS, CAP>;
+  auto kernel = decode_kernel<D, KV, BIAS, CAP, F32Q>;
   const cudaError_t e = allow_smem(kernel, S::BYTES);
   if (e != cudaSuccess) return e;
   const dim3 grid(p.splits, p.hkv, batch);
@@ -482,10 +538,10 @@ cudaError_t decode_launch_d(const DecodeParams& p, int batch, cudaStream_t strea
 }
 
 // One instantiation per head dim (64 or 128; the wrapper routes no other).
-template <int KV, bool BIAS, bool CAP>
+template <int KV, bool BIAS, bool CAP, bool F32Q = false>
 cudaError_t decode_launch(const DecodeParams& p, int batch, cudaStream_t s) {
-  return p.d == 64 ? decode_launch_d<64, KV, BIAS, CAP>(p, batch, s)
-                   : decode_launch_d<128, KV, BIAS, CAP>(p, batch, s);
+  return p.d == 64 ? decode_launch_d<64, KV, BIAS, CAP, F32Q>(p, batch, s)
+                   : decode_launch_d<128, KV, BIAS, CAP, F32Q>(p, batch, s);
 }
 
 }  // namespace

@@ -6,7 +6,8 @@
 // _fwd_kernel on the calls that decoding makes), what bounds it (bytes: 0.080
 // ms for bf16 K/V at the LM's decode shape, 0.041 ms for int8 / fp8) and how
 // the design addresses that are in decode_tile.cuh. flash_decode_quant.cu
-// instantiates the int8 / e4m3 K/V variants, compiled by its own nvcc.
+// instantiates the int8 / e4m3 K/V variants and flash_decode_quant_f32.cu
+// their f32-q form (C entry fa_decode_f32), each compiled by its own nvcc.
 
 #include "decode_tile.cuh"
 
@@ -43,7 +44,12 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_merge_kernel(const DecodeP
     }
     const int h = hk * p.rep + r / p.nq;
     const int i = r % p.nq;
-    p.o[b * p.o_sb + h * p.o_sh + i * p.o_sn + d] = __float2bfloat16(dead ? 0.f : a / l);
+    const int64_t o_at = b * p.o_sb + h * p.o_sh + i * p.o_sn + d;
+    if (p.f32) {
+      static_cast<float*>(p.o)[o_at] = dead ? 0.f : a / l;
+    } else {
+      static_cast<__nv_bfloat16*>(p.o)[o_at] = __float2bfloat16(dead ? 0.f : a / l);
+    }
     if (d == 0) {
       p.lse[(static_cast<int64_t>(b) * p.hq + h) * p.nq + i] =
           dead ? LN2 * MASK_VALUE : m_max * LN2 + logf(l);
@@ -67,6 +73,74 @@ cudaError_t fa::decode_bf16(const DecodeParams& p, int batch, cudaStream_t strea
   return bias ? decode_launch<KV_BF16, true, false>(p, batch, stream)
               : decode_launch<KV_BF16, false, false>(p, batch, stream);
 }
+
+namespace {
+
+// Both C entries: q and o bf16, or (f32) f32 over int8 / e4m3 K/V.
+int decode_entry(bool f32, const void* q, const void* k, const void* v, void* o, void* lse,
+                 const void* bias, const void* k_scale, const void* v_scale, void* part_acc,
+                 void* part_ml, int kv_dtype, int batch, int hq, int hkv, int nq, int d,
+                 int kv_valid_len, int splits, int split_len, float scale, float softcap,
+                 int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh,
+                 int64_t k_sn, int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb,
+                 int64_t o_sh, int64_t o_sn, int64_t bias_sb, int64_t bias_sh, int64_t bias_sn,
+                 int64_t ks_sb, int64_t ks_sh, int64_t ks_sn, int64_t vs_sb, int64_t vs_sh,
+                 int64_t vs_sn, void* stream) {
+  const bool quant = kv_dtype != fa::KV_BF16;
+  const int rows = hkv > 0 && hq % hkv == 0 ? hq / hkv * nq : 0;
+  const bool splits_ok =
+      split_len > 0 && split_len % 64 == 0 && splits >= 1 && splits <= 65535 &&
+      (kv_valid_len == 0 ? splits == 1
+                         : static_cast<int64_t>(splits - 1) * split_len < kv_valid_len &&
+                               static_cast<int64_t>(splits) * split_len >= kv_valid_len);
+  if ((d != 64 && d != 128) || rows < 1 || rows > 32 || kv_valid_len < 0 || !splits_ok ||
+      batch < 1 || batch > 65535 || hkv > 65535 ||
+      (kv_dtype != fa::KV_BF16 && kv_dtype != fa::KV_INT8 &&
+       kv_dtype != fa::KV_FP8) ||
+      quant != (k_scale != nullptr) || quant != (v_scale != nullptr) || softcap < 0.f ||
+      (softcap > 0.f && quant) || (f32 && !quant) ||
+      (splits > 1 && (part_acc == nullptr || part_ml == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  fa::DecodeParams p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.bias = static_cast<const float*>(bias);
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
+  p.part_acc = static_cast<float*>(part_acc);
+  p.part_ml = static_cast<float*>(part_ml);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sn = q_sn;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sn = k_sn;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sn = v_sn;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
+  p.bias_sb = bias_sb; p.bias_sh = bias_sh; p.bias_sn = bias_sn;
+  p.ks_sb = ks_sb; p.ks_sh = ks_sh; p.ks_sn = ks_sn;
+  p.vs_sb = vs_sb; p.vs_sh = vs_sh; p.vs_sn = vs_sn;
+  p.hq = hq;
+  p.hkv = hkv;
+  p.rep = hq / hkv;
+  p.nq = nq;
+  p.rows = rows;
+  p.d = d;
+  p.kv_valid_len = kv_valid_len;
+  p.splits = splits;
+  p.split_len = split_len;
+  p.scale_log2 = scale * fa::LOG2E;
+  p.cap_scale = softcap > 0.f ? scale / softcap : 0.f;
+  p.cap_log2 = softcap * fa::LOG2E;
+  p.f32 = f32;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = f32     ? fa::decode_quant_f32(p, batch, kv_dtype, s)
+                        : quant ? fa::decode_quant(p, batch, kv_dtype, s)
+                                : fa::decode_bf16(p, batch, s);
+  return static_cast<int>(e);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -95,54 +169,32 @@ int fa_decode(const void* q, const void* k, const void* v, void* o, void* lse, c
               int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb, int64_t o_sh, int64_t o_sn,
               int64_t bias_sb, int64_t bias_sh, int64_t bias_sn, int64_t ks_sb, int64_t ks_sh,
               int64_t ks_sn, int64_t vs_sb, int64_t vs_sh, int64_t vs_sn, void* stream) {
-  const bool quant = kv_dtype != fa::KV_BF16;
-  const int rows = hkv > 0 && hq % hkv == 0 ? hq / hkv * nq : 0;
-  const bool splits_ok =
-      split_len > 0 && split_len % 64 == 0 && splits >= 1 && splits <= 65535 &&
-      (kv_valid_len == 0 ? splits == 1
-                         : static_cast<int64_t>(splits - 1) * split_len < kv_valid_len &&
-                               static_cast<int64_t>(splits) * split_len >= kv_valid_len);
-  if ((d != 64 && d != 128) || rows < 1 || rows > 32 || kv_valid_len < 0 || !splits_ok ||
-      batch < 1 || batch > 65535 || hkv > 65535 ||
-      (kv_dtype != fa::KV_BF16 && kv_dtype != fa::KV_INT8 &&
-       kv_dtype != fa::KV_FP8) ||
-      quant != (k_scale != nullptr) || quant != (v_scale != nullptr) || softcap < 0.f ||
-      (softcap > 0.f && quant) || (splits > 1 && (part_acc == nullptr || part_ml == nullptr))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  fa::DecodeParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = k;
-  p.v = v;
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.lse = static_cast<float*>(lse);
-  p.bias = static_cast<const float*>(bias);
-  p.k_scale = static_cast<const float*>(k_scale);
-  p.v_scale = static_cast<const float*>(v_scale);
-  p.part_acc = static_cast<float*>(part_acc);
-  p.part_ml = static_cast<float*>(part_ml);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sn = q_sn;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sn = k_sn;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sn = v_sn;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
-  p.bias_sb = bias_sb; p.bias_sh = bias_sh; p.bias_sn = bias_sn;
-  p.ks_sb = ks_sb; p.ks_sh = ks_sh; p.ks_sn = ks_sn;
-  p.vs_sb = vs_sb; p.vs_sh = vs_sh; p.vs_sn = vs_sn;
-  p.hq = hq;
-  p.hkv = hkv;
-  p.rep = hq / hkv;
-  p.nq = nq;
-  p.rows = rows;
-  p.d = d;
-  p.kv_valid_len = kv_valid_len;
-  p.splits = splits;
-  p.split_len = split_len;
-  p.scale_log2 = scale * fa::LOG2E;
-  p.cap_scale = softcap > 0.f ? scale / softcap : 0.f;
-  p.cap_log2 = softcap * fa::LOG2E;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = quant ? fa::decode_quant(p, batch, kv_dtype, s) : fa::decode_bf16(p, batch, s);
-  return static_cast<int>(e);
+  return decode_entry(false, q, k, v, o, lse, bias, k_scale, v_scale, part_acc, part_ml,
+                      kv_dtype, batch, hq, hkv, nq, d, kv_valid_len, splits, split_len, scale,
+                      softcap, q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, o_sb, o_sh,
+                      o_sn, bias_sb, bias_sh, bias_sn, ks_sb, ks_sh, ks_sn, vs_sb, vs_sh, vs_sn,
+                      stream);
+}
+
+// The same for an f32 q and o (K1's decode route's f32-q form, F32Q in
+// decode_tile.cuh) over int8 / e4m3 K/V (kv_dtype KV_INT8 or KV_FP8; bf16
+// K/V return cudaErrorInvalidValue: an f32 q over them is K1's f32 route);
+// q's strides even (8-byte pairs), o f32 with q's shape. The other
+// arguments and the launches as fa_decode's.
+int fa_decode_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                  const void* bias, const void* k_scale, const void* v_scale, void* part_acc,
+                  void* part_ml, int kv_dtype, int batch, int hq, int hkv, int nq, int d,
+                  int kv_valid_len, int splits, int split_len, float scale, float softcap,
+                  int64_t q_sb, int64_t q_sh, int64_t q_sn, int64_t k_sb, int64_t k_sh,
+                  int64_t k_sn, int64_t v_sb, int64_t v_sh, int64_t v_sn, int64_t o_sb,
+                  int64_t o_sh, int64_t o_sn, int64_t bias_sb, int64_t bias_sh, int64_t bias_sn,
+                  int64_t ks_sb, int64_t ks_sh, int64_t ks_sn, int64_t vs_sb, int64_t vs_sh,
+                  int64_t vs_sn, void* stream) {
+  return decode_entry(true, q, k, v, o, lse, bias, k_scale, v_scale, part_acc, part_ml,
+                      kv_dtype, batch, hq, hkv, nq, d, kv_valid_len, splits, split_len, scale,
+                      softcap, q_sb, q_sh, q_sn, k_sb, k_sh, k_sn, v_sb, v_sh, v_sn, o_sb, o_sh,
+                      o_sn, bias_sb, bias_sh, bias_sn, ks_sb, ks_sh, ks_sn, vs_sb, vs_sh, vs_sn,
+                      stream);
 }
 
 }  // extern "C"

@@ -180,6 +180,12 @@ struct FwdQuantParams : FwdBiasParams {
   int64_t ks_sb, ks_sh, ks_sn, vs_sb, vs_sh, vs_sn;
 };
 
+// The quantized family's launch on an f32 q (its F32Q form, tm_q the map of
+// q's three bf16 pieces), D from p.d; defined in flash_fwd_quant_f32.cu.
+cudaError_t fwd_quant_f32(const CUtensorMap& tm_q, const CUtensorMap& tm_k8,
+                          const CUtensorMap& tm_v8, const FwdQuantParams& p, int kv_dtype,
+                          int batch, cudaStream_t stream);
+
 }  // namespace fa
 
 namespace {
@@ -337,7 +343,9 @@ __device__ __forceinline__ int2 kv_tile_range(const FwdDenseParams& p, int b, in
 // The consumers' epilogue (every family): O = acc / l, LSE = m ln2 + log l
 // of rows row0 and row0 + 8; ragged rows and O's columns >= D (zeros the
 // boxes read) masked on store; a dead row stores O = 0 and LSE = ln2 * mask.
-template <int D>
+// O in bf16, or with F32O in f32 (the quantized family on an f32 q, whose
+// p.o points at f32).
+template <int D, bool F32O = false>
 __device__ __forceinline__ void fwd_sm90_store(const FwdDenseParams& p, const float (&o)[D / 2],
                                                const float (&m_i)[2], const float (&l_i)[2],
                                                int b, int h, int row0, int t) {
@@ -351,12 +359,17 @@ __device__ __forceinline__ void fwd_sm90_store(const FwdDenseParams& p, const fl
     const float inv = dead ? 0.f : 1.f / l_safe;
     const int row = row0 + 8 * r;
     if (row < p.nq) {
-      __nv_bfloat16* o_row = p.o + b * p.o_sb + h * p.o_sh + static_cast<int64_t>(row) * p.o_sn;
+      const int64_t o_off = b * p.o_sb + h * p.o_sh + static_cast<int64_t>(row) * p.o_sn;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj) {
         if (8 * jj + 2 * t >= p.d) continue;
-        *reinterpret_cast<uint32_t*>(o_row + 8 * jj + 2 * t) =
-            pack_bf16(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
+        const float x0 = o[4 * jj + 2 * r] * inv, x1 = o[4 * jj + 2 * r + 1] * inv;
+        if constexpr (F32O) {
+          *reinterpret_cast<float2*>(reinterpret_cast<float*>(p.o) + o_off + 8 * jj + 2 * t) =
+              make_float2(x0, x1);
+        } else {
+          *reinterpret_cast<uint32_t*>(p.o + o_off + 8 * jj + 2 * t) = pack_bf16(x0, x1);
+        }
       }
       if (t == 0) {
         p.lse[(static_cast<int64_t>(b) * p.hq + h) * p.nq + row] =
@@ -677,11 +690,22 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
 // of 64 KB) there is room for two slots of 16 KB and no more (232,008 B). At
 // D 128, 3 stages and 8 slots (4 tiles ahead) measured 0.7-2% faster than 4
 // and 6 (chip_variants.py k1quant).
-template <int D>
+// F32Q (an f32 q, flash_fwd_quant_f32.cu): Q as its three bf16 pieces, each
+// QP bytes. At D 128 they take 96 KB, so 2 bf16 stages and 6 slots remain
+// (215,688 B); at D 256 a CTA takes 64 Q rows (one consumer warpgroup:
+// three pieces of 128 rows would be 192 KB alone), and Q's 96 KB leave one
+// bf16 stage and two slots (198,456 B). D 64: the bf16 q's layout with Q's
+// 48 KB (151,752 B).
+template <int D, bool F32Q = false>
 struct FqSmem {
-  static constexpr int STAGES = D == 256 ? 2 : D == 128 ? 3 : 4;
-  static constexpr int SLOTS8 = D == 256 ? 2 : 8;
-  static constexpr int Q = FB_BLOCK_M * D * 2;
+  static constexpr int BM = F32Q && D == 256 ? 64 : FB_BLOCK_M;  // Q rows per CTA
+  static constexpr int CONSUMERS = BM / 64;                      // consumer warpgroups
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  static constexpr int STAGES =
+      F32Q ? (D == 256 ? 1 : D == 128 ? 2 : 4) : (D == 256 ? 2 : D == 128 ? 3 : 4);
+  static constexpr int SLOTS8 = D == 256 ? 2 : F32Q && D == 128 ? 6 : 8;
+  static constexpr int QP = BM * D * 2;  // one bf16 piece of Q
+  static constexpr int Q = (F32Q ? 3 : 1) * QP;
   static constexpr int KV = FB_BLOCK_N * D * 2;  // a bf16 tile
   static constexpr int KV8 = FB_BLOCK_N * D;     // an 8-bit tile
   static constexpr int STAGE = 2 * KV;
@@ -690,7 +714,7 @@ struct FqSmem {
   static constexpr int SEG = SCALES + STAGES * 2 * FB_BLOCK_N * 4;  // int[STAGES][64]
   static constexpr int BARS = SEG + STAGES * FB_BLOCK_N * 4;
   static constexpr int BYTES = 1024 + BARS + (1 + 2 * STAGES + 2 * SLOTS8) * 8;
-  static_assert(Q % 1024 == 0 && KV % 1024 == 0 && KV8 % 128 == 0, "TMA's alignments");
+  static_assert(QP % 1024 == 0 && KV % 1024 == 0 && KV8 % 128 == 0, "TMA's alignments");
   static_assert(BYTES <= 232448, "a block's shared memory on sm_90");
 };
 
@@ -809,21 +833,33 @@ __device__ __forceinline__ void load_bias_regs(float (&bq)[32], const float* row
 // arrivals: thread 0 first adds, with expect_tx, the bulk copy of the tile's
 // ids). The consumers are the dense route's, with the scales in the softmax
 // (dense_softmax_tile's QUANT).
-template <int D, int KV, bool BIAS, bool SEG>
+// F32Q (an f32 q, flash_fwd_quant_f32.cu): tm_q maps Q's three bf16 pieces
+// ([3B, H, N, D], piece pc of batch b at batch pc B + b; the split of q
+// alone), S is three wgmma chains, one per piece, on the exactly widened K
+// (wgmma_qk3), the softmax takes exp2f (ACCURATE), P (with its v_scale) is
+// split in registers into three bf16 pieces and O += P V is three chains
+// (wgmma_pv3), O is stored in f32: each f32 product the three bf16 products
+// that Precision.HIGHEST takes when one operand is exact in bf16. At D 256 a
+// CTA takes 64 Q rows with one consumer warpgroup (FqSmem).
+template <int D, int KV, bool BIAS, bool SEG, bool F32Q = false>
 __device__ __forceinline__ void fwd_quant_sm90_body(const CUtensorMap& tm_q,
                                                     const CUtensorMap& tm_k8,
                                                     const CUtensorMap& tm_v8,
                                                     const FwdQuantParams& p) {
   static_assert(D == 64 || D == 128 || D == 256, "instantiated for D 64, 128 and 256");
   static_assert(KV == KV_INT8 || KV == KV_FP8, "int8 or e4m3 K/V");
-  using S = FqSmem<D>;
+  using S = FqSmem<D, F32Q>;
+  constexpr int BM = S::BM;
   // setmaxnreg's split, within the 3 x 168 registers a thread slot the launch
   // gave (a larger sum leaves the consumers' inc waiting forever): the
   // producer widens (a 16-byte piece in, two out) and walks the tile list; a
   // consumer keeps o[D / 2], sc[32] and, with BIAS, bq[32].
+  // With one consumer warpgroup (F32Q at D 256: 256 threads, 255 registers
+  // each) there is no setmaxnreg.
   constexpr int PRODUCER_REGS = D == 256 ? 56 : 72;
   constexpr int CONSUMER_REGS = D == 256 ? 224 : 216;
   static_assert(PRODUCER_REGS + 2 * CONSUMER_REGS <= 3 * 168, "the launch's registers");
+  constexpr bool SETMAXNREG = S::CONSUMERS == 2;
   constexpr int BOXES = D / 64;
   constexpr uint32_t SCALE_BYTES = FB_BLOCK_N * 4;
   extern __shared__ unsigned char smem_raw[];
@@ -837,19 +873,20 @@ __device__ __forceinline__ void fwd_quant_sm90_body(const CUtensorMap& tm_q,
 
   const int h = blockIdx.x;
   const int m_tile = p.hi < NO_BOUND ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int m0 = m_tile * FB_BLOCK_M;
+  const int m0 = m_tile * BM;
   const int b = blockIdx.z;
   const int nkv = p.kv_valid_len;
   int n_begin = 0;
   if (p.lo < NO_BOUND) n_begin = max(0, m0 - p.lo) / FB_BLOCK_N * FB_BLOCK_N;
-  const int n_end = p.hi < NO_BOUND ? min(nkv, m0 + FB_BLOCK_M + p.hi) : nkv;
+  const int n_end = p.hi < NO_BOUND ? min(nkv, m0 + BM + p.hi) : nkv;
   const int n_tiles = n_end > n_begin ? (n_end - n_begin + FB_BLOCK_N - 1) / FB_BLOCK_N : 0;
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   const int hk = h / p.rep;
   auto stage = [&](int j) { return smem + S::Q + (j % S::STAGES) * S::STAGE; };
   int2 q_rng = make_int2(0, 0);
-  if constexpr (SEG) q_rng = p.q_range[b * p.q_tiles + m_tile];
+  // (The id range of the 128-row tile that holds the CTA's rows.)
+  if constexpr (SEG) q_rng = p.q_range[b * p.q_tiles + m0 / FB_BLOCK_M];
   const int t_begin = n_begin / FB_BLOCK_N;
   auto skipped = [&](int j) {
     if constexpr (SEG) return !ranges_meet(q_rng, kv_tile_range(p, b, t_begin + j));
@@ -860,7 +897,7 @@ __device__ __forceinline__ void fwd_quant_sm90_body(const CUtensorMap& tm_q,
     mbar_init(q_full, 1);
     for (int s = 0; s < S::STAGES; ++s) {
       mbar_init(&full[s], 128 + 1);  // each producer thread, and thread 0's expect_tx
-      mbar_init(&empty[s], 8);       // one arrival per consumer warp
+      mbar_init(&empty[s], 4 * S::CONSUMERS);  // one arrival per consumer warp
     }
     for (int s = 0; s < S::SLOTS8; ++s) {
       mbar_init(&raw_full[s], 1);
@@ -871,7 +908,9 @@ __device__ __forceinline__ void fwd_quant_sm90_body(const CUtensorMap& tm_q,
   __syncthreads();
 
   if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if constexpr (SETMAXNREG) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    }
     // Thread 0's TMA cursor: 8-bit tile u is K (u even) or V of the
     // (u / 2)-th visited tile, into slot u % SLOTS8 once every producer
     // thread has widened the slot's previous tile.
@@ -893,8 +932,12 @@ __device__ __forceinline__ void fwd_quant_sm90_body(const CUtensorMap& tm_q,
     if (tid == 0) {
       mbar_expect_tx(q_full, S::Q);
 #pragma unroll
-      for (int x = 0; x < BOXES; ++x) {
-        tma_load_4d(smem + x * FB_BLOCK_M * FB_BOX_ROW, &tm_q, q_full, 64 * x, m0, h, b);
+      for (int pc = 0; pc < (F32Q ? 3 : 1); ++pc) {
+#pragma unroll
+        for (int x = 0; x < BOXES; ++x) {
+          tma_load_4d(smem + pc * S::QP + x * BM * FB_BOX_ROW, &tm_q, q_full, 64 * x, m0, h,
+                      pc * gridDim.z + b);
+        }
       }
       for (int u = 0; u < min(S::SLOTS8, 2 * n_visit); ++u) issue(u);
     }
@@ -939,7 +982,9 @@ __device__ __forceinline__ void fwd_quant_sm90_body(const CUtensorMap& tm_q,
       ++it;
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    if constexpr (SETMAXNREG) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    }
     const int half = wg - 1;
     const int warp = tid / 32;
     const int lane = tid % 32;
@@ -955,7 +1000,7 @@ __device__ __forceinline__ void fwd_quant_sm90_body(const CUtensorMap& tm_q,
     float m_i[2] = {-INFINITY, -INFINITY};
     float l_i[2] = {0.f, 0.f};
     float sc[32], alpha[2], bq[32];
-    uint32_t pa[4][4];
+    uint32_t pa[F32Q ? 3 : 1][4][4];  // P's bf16 A fragments (F32Q: its three pieces)
     int q_seg[2] = {0, 0};
     if constexpr (SEG) {
       const int* q_ids = p.seg_q + b * p.seg_q_sb;
@@ -982,7 +1027,11 @@ __device__ __forceinline__ void fwd_quant_sm90_body(const CUtensorMap& tm_q,
       const int c0 = n_begin + j * FB_BLOCK_N;
       mbar_wait(&full[s], (it / S::STAGES) & 1);
       if (c0 <= r_first + 63 + p.hi && c0 + FB_BLOCK_N - 1 >= r_first - p.lo) {
-        issue_qk<D, FB_BLOCK_M, FB_BLOCK_N>(sc, q_s, stage(it));
+        if constexpr (F32Q) {
+          wgmma_qk3<D, BM, FB_BLOCK_N, S::QP>(sc, q_s, stage(it));
+        } else {
+          issue_qk<D, BM, FB_BLOCK_N>(sc, q_s, stage(it));
+        }
         if constexpr (BIAS) load_bias_regs(bq, bias_g, bias_g8, c0, t, nkv);
         wgmma_wait<0>();
         fence_regs(sc);
@@ -992,40 +1041,51 @@ __device__ __forceinline__ void fwd_quant_sm90_body(const CUtensorMap& tm_q,
         const int* ids = reinterpret_cast<const int*>(smem + S::SEG + s * FB_BLOCK_N * 4);
         const uint32_t kv_scales = smem_u32(smem + S::SCALES + s * 2 * SCALE_BYTES) + 8 * t;
         if (edge) {
-          dense_softmax_tile<true, SEG, false, false, BIAS, false, true>(
+          dense_softmax_tile<true, SEG, false, F32Q, BIAS, false, true>(
               sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, 0.f, 0.f, m_i, l_i,
               alpha, 0, 0, 0, kv_scales, bq);
         } else {
-          dense_softmax_tile<false, SEG, false, false, BIAS, false, true>(
+          dense_softmax_tile<false, SEG, false, F32Q, BIAS, false, true>(
               sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, 0.f, 0.f, m_i, l_i,
               alpha, 0, 0, 0, kv_scales, bq);
         }
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-        pack_p(pa, sc);
-        issue_pv<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);
+        if constexpr (F32Q) {
+          split3_frags<4>(pa, sc);  // K1 quant f32 P pieces
+          wgmma_pv3<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);
+        } else {
+          pack_p(pa[0], sc);
+          issue_pv<D, FB_BLOCK_N>(o, pa[0], stage(it) + S::KV);
+        }
         wgmma_wait<0>();
         fence_regs(o);
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+        for (int pc = 0; pc < (F32Q ? 3 : 1); ++pc) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) fence_regs(pa[pc][kk]);
+        }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
       ++it;
     }
-    fwd_sm90_store<D>(p, o, m_i, l_i, b, h, row0, t);
+    fwd_sm90_store<D, F32Q>(p, o, m_i, l_i, b, h, row0, t);
   }
 }
 
-// The grid of both families: (head, Q tile, batch), the head fastest.
+// The grid of every family: (head, Q tile of `rows` rows, batch), the head
+// fastest, `threads` a CTA (the quantized family's F32Q at D 256: 64 rows,
+// 256 threads).
 template <typename Kernel, typename Params>
 cudaError_t fwd_sm90_launch(Kernel kernel, int smem, const CUtensorMap& tm_q,
                             const CUtensorMap& tm_k, const CUtensorMap& tm_v, const Params& p,
-                            int batch, cudaStream_t stream) {
+                            int batch, cudaStream_t stream, int rows = FB_BLOCK_M,
+                            int threads = FB_THREADS) {
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(p.hq, (p.nq + FB_BLOCK_M - 1) / FB_BLOCK_M, batch);
-  kernel<<<grid, FB_THREADS, smem, stream>>>(tm_q, tm_k, tm_v, p);
+  const dim3 grid(p.hq, (p.nq + rows - 1) / rows, batch);
+  kernel<<<grid, threads, smem, stream>>>(tm_q, tm_k, tm_v, p);
   return cudaGetLastError();
 }
 

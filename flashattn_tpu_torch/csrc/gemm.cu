@@ -39,8 +39,23 @@
 // The tensor maps are built on the host by cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint so the library links no libcuda, and passed
 // as __grid_constant__ kernel parameters.
+//
+// f32 inputs (fa_gemm_f32; the JAX probe takes any dtype, its dot at
+// Precision.HIGHEST on f32): each f32 product is the six bf16 products a0 b0
+// + a0 b1 + a1 b0 + a0 b2 + a1 b1 + a2 b0 of the pieces x = x0 + x1 + x2
+// (ops/f32_split.py), the small ones first, as K1's f32 route takes them.
+// The C entry first splits a and b by one launch of split_bf16x3.cu: a
+// contiguous [M, K] with K % 128 == 0 is the [1, 1, M K / 128, 128] tensor
+// whose pieces [3, M K] are three row-major [M, K] bf16 matrices, so the
+// split needs no 2-D form; one tensor map then covers the three as [3M, K]
+// (b's as [3K, N]). Three pieces triple a stage (48 KB -> 144 KB at the bf16
+// tile), so the f32 kernel takes 128 x 128 tiles of C and 2 stages of 96 KB
+// (197,664 B), each consumer warpgroup 64 rows x 128 columns (64 f32
+// registers) by wgmma m64n128k16, 24 a 64-deep step. Bound at 4096^3: 137.4
+// GFLOP of f32 products at 989 / 6 = 165 TFLOP/s, 0.833 ms.
 
 #include "sm90.cuh"
+#include "split_bf16x3.cuh"
 
 namespace {
 
@@ -188,6 +203,111 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
   }
 }
 
+// The f32 kernel (the header's notes): tiles of 128 x 128, 2 stages, each
+// stage A's three pieces (128 x 64) then B's (64 x 128, two 64 x 64 boxes).
+constexpr int GF_BN = 128;
+constexpr int GF_STAGES = 2;
+constexpr int GF_A_PIECE = GEMM_BM * GEMM_BK * 2;
+constexpr int GF_B_PIECE = GEMM_BK * GF_BN * 2;
+constexpr int GF_STAGE = 3 * (GF_A_PIECE + GF_B_PIECE);
+constexpr int GF_SMEM = 1024 + GF_STAGES * GF_STAGE + 2 * GF_STAGES * 8;
+static_assert(GF_SMEM <= 232448, "a block's shared memory on sm_90");
+
+template <bool OUT_F32>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    gemm_f32_kernel(const __grid_constant__ CUtensorMap tm_a,
+                    const __grid_constant__ CUtensorMap tm_b, void* __restrict__ out, int m,
+                    int n, int k) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + GF_STAGES * GF_STAGE);
+  uint64_t* empty = full + GF_STAGES;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int m0 = blockIdx.y * GEMM_BM;
+  const int n0 = blockIdx.x * GF_BN;
+  const int k_tiles = k / GEMM_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GF_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % GF_STAGES;
+        mbar_wait(&empty[s], ((kt / GF_STAGES) & 1) ^ 1);  // round 0 passes at once
+        unsigned char* st = smem + s * GF_STAGE;
+        mbar_expect_tx(&full[s], GF_STAGE);
+#pragma unroll
+        for (int pc = 0; pc < 3; ++pc) {
+          tma_load_2d(st + pc * GF_A_PIECE, &tm_a, &full[s], kt * GEMM_BK, pc * m + m0);
+#pragma unroll
+          for (int j = 0; j < GF_BN / 64; ++j) {
+            tma_load_2d(st + 3 * GF_A_PIECE + pc * GF_B_PIECE + j * B_BOX, &tm_b, &full[s],
+                        n0 + 64 * j, pc * k + kt * GEMM_BK);
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int half = wg - 1;
+    float d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      const int s = kt % GF_STAGES;
+      mbar_wait(&full[s], (kt / GF_STAGES) & 1);
+      const unsigned char* st = smem + s * GF_STAGE;
+      fence_regs(d);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int x = 0; x < 6; ++x) {  // K9 f32 products
+        const unsigned char* a_t = st + pair_a(x) * GF_A_PIECE + half * 64 * 128;
+        const unsigned char* b_t = st + 3 * GF_A_PIECE + pair_b(x) * GF_B_PIECE;
+#pragma unroll
+        for (int kk = 0; kk < GEMM_BK / 16; ++kk) {
+          wgmma_ss_kn_m64n128k16(d, smem_desc(a_t + kk * 32, 16, 1024),
+                                 smem_desc(b_t + kk * 16 * 128, B_BOX, 1024));
+        }
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_regs(d);
+      if (kt > 0 && tid == 0) mbar_arrive(&empty[(kt - 1) % GF_STAGES]);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_regs(d);
+
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int64_t row = m0 + half * 64 + warp * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < GF_BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int64_t idx = (row + 8 * r) * n + col;
+        if constexpr (OUT_F32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) =
+              make_float2(d[4 * j + 2 * r], d[4 * j + 2 * r + 1]);
+        } else {
+          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + idx) =
+              pack_bf16(d[4 * j + 2 * r], d[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
 // A 2-D bf16 row-major [rows, cols] tensor map with boxes of box_rows x 64
 // columns (128 bytes, the 128-byte swizzle's span); out-of-bounds reads zeros.
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
@@ -225,6 +345,45 @@ int fa_gemm_bf16(const void* a, const void* b, void* out, int m, int n, int k, i
   const cudaError_t e = allow_smem(kernel, GEMM_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, GEMM_THREADS, GEMM_SMEM, s>>>(tm_a, tm_b, out, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out [M, N] = a [M, K] @ b [K, N] for f32 a, b (row-major, contiguous),
+// each f32 product as six bf16 products (the header's notes); out f32
+// (out_f32 != 0) or bf16, contiguous. pieces: bf16 scratch of 3 (M K + K N)
+// elements, 16-byte aligned, into which one launch of the split
+// (split_bf16x3.cu) writes a's and b's pieces first. Requires M, N and K
+// positive multiples of 128 and M / 128 <= 65535. Returns a cudaError_t (0
+// on success; cudaErrorInvalidValue for arguments it does not take,
+// cudaErrorNotSupported when cuTensorMapEncodeTiled is missing or refuses a
+// tensor map).
+int fa_gemm_f32(const void* a, const void* b, void* out, void* pieces, int m, int n, int k,
+                int out_f32, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || m % 128 || n % 128 || k % 128 || m / GEMM_BM > 65535 ||
+      reinterpret_cast<uintptr_t>(pieces) % 16 || static_cast<int64_t>(m) * k / 128 > INT32_MAX ||
+      static_cast<int64_t>(k) * n / 128 > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  __nv_bfloat16* ap = static_cast<__nv_bfloat16*>(pieces);
+  __nv_bfloat16* bp = ap + 3LL * m * k;
+  // Each matrix as rows of 128 elements: its pieces are three copies of its layout.
+  const fa::SplitArg split[2] = {
+      {a, ap, 1, 1, static_cast<int>(static_cast<int64_t>(m) * k / 128), 128, 0, 0, 128},
+      {b, bp, 1, 1, static_cast<int>(static_cast<int64_t>(k) * n / 128), 128, 0, 0, 128}};
+  cudaError_t e = fa::split_bf16x3(split, 2, 128, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  alignas(64) CUtensorMap tm_a;
+  alignas(64) CUtensorMap tm_b;
+  if (!make_map(&tm_a, ap, 3 * m, k, GEMM_BM) || !make_map(&tm_b, bp, 3 * k, n, GEMM_BK)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  const dim3 grid(n / GF_BN, m / GEMM_BM);
+  auto kernel = out_f32 ? gemm_f32_kernel<true> : gemm_f32_kernel<false>;
+  e = allow_smem(kernel, GF_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, GEMM_THREADS, GF_SMEM, s>>>(tm_a, tm_b, out, m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 

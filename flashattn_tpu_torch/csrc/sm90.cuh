@@ -441,24 +441,6 @@ __device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA));
 }
 
-// Product x of the six (A piece, B piece) bf16 products of an f32 product,
-// the small ones first: (2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0).
-__host__ __device__ constexpr int pair_a(int x) { return x == 0 ? 2 : x == 1 || x == 3 ? 1 : 0; }
-__host__ __device__ constexpr int pair_b(int x) { return x == 2 ? 2 : x == 1 || x == 4 ? 1 : 0; }
-
-// The three bf16 pieces of a and b (the split of ops/f32_split.py, round to
-// nearest even; the differences are exact in f32), piece p of the pair in
-// w[p] (.x, the low half, = a's).
-__device__ __forceinline__ void split3_pair(float a, float b, uint32_t (&w)[3]) {
-#pragma unroll
-  for (int p = 0; p < 3; ++p) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-    w[p] = *reinterpret_cast<const uint32_t*>(&v);
-    a -= __low2float(v);
-    b -= __high2float(v);
-  }
-}
-
 // An accumulator fragment (the layout of P, dS^T: sc[8kk + 2i] and + 1 are
 // k-step kk's A register i) as the A fragments of its K / 16 k-steps, one set
 // per bf16 piece: a[p][kk] the A fragment of piece p at k-step kk.
@@ -470,7 +452,7 @@ __device__ __forceinline__ void split3_frags(uint32_t (&a)[3][KSTEPS][4],
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       uint32_t w[3];
-      split3_pair(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1], w);
+      fa::split3_pair(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1], w);
 #pragma unroll
       for (int p = 0; p < 3; ++p) a[p][kk][i] = w[p];
     }
@@ -504,6 +486,44 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     wgmma_pv<D>(o, pa[kk], smem_desc(v_s + kk * 16 * SW128_ROW, V_ROWS * SW128_ROW, 1024));
+  }
+  wgmma_commit();
+}
+
+// An f32 A times a bf16 B (K1's quantized route on an f32 q, whose 8-bit K
+// / V widen exactly to bf16): S = A B^T as issue_qk forms it, with A as its
+// three bf16 pieces, PIECE bytes apart, three chains into one accumulator,
+// the small piece first; the first product starts S at 0.
+template <int D, int A_ROWS, int B_ROWS, int PIECE>
+__device__ __forceinline__ void wgmma_qk3(float (&sc)[32], const unsigned char* a_s,
+                                          const unsigned char* b_s) {
+  wgmma_fence();
+#pragma unroll
+  for (int pc = 2; pc >= 0; --pc) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_m64n64k16(
+          sc,
+          smem_desc(a_s + pc * PIECE + (kk / 4) * A_ROWS * SW128_ROW + (kk % 4) * 32, 16, 1024),
+          smem_desc(b_s + (kk / 4) * B_ROWS * SW128_ROW + (kk % 4) * 32, 16, 1024),
+          pc < 2 || kk > 0);
+    }
+  }
+  wgmma_commit();
+}
+
+// O += P V as issue_pv forms it, with P as its three bf16 pieces
+// (split3_frags), the small piece first.
+template <int D, int V_ROWS>
+__device__ __forceinline__ void wgmma_pv3(float (&o)[D / 2], const uint32_t (&pa)[3][4][4],
+                                          const unsigned char* v_s) {
+  wgmma_fence();
+#pragma unroll
+  for (int pc = 2; pc >= 0; --pc) {  // K1 quant f32 P V pieces
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_pv<D>(o, pa[pc][kk], smem_desc(v_s + kk * 16 * SW128_ROW, V_ROWS * SW128_ROW, 1024));
+    }
   }
   wgmma_commit();
 }

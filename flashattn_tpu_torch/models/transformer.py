@@ -327,7 +327,8 @@ def decode_step(model: Transformer, cache: dict, token, cfg: TransformerConfig):
     is the JAX step's. K1's decode kernel runs on a bf16 cache (with
     ``cfg.logit_softcap``, soft-capped) or on int8 / fp8 K/V (the step's K
     and V quantized per token first) on a quantized one, GQA-folded either
-    way.
+    way; under an f32 model on an int8 / fp8 cache in its f32-q form (q
+    kept in f32), on an f32 cache K1's f32 route.
 
     Unlike the pure JAX function, this one writes the step's K/V (and
     scales) into the cache tensors in place and advances ``cache["length"]``

@@ -22,13 +22,18 @@ that the decode route leaves (:func:`quant_route`) go to the same body's
 quantized route (``csrc/flash_fwd_quant_sm90.cu``), which widens the 8-bit
 tiles in shared memory and takes the dense route's options and a bias. All
 compute K1's function, so their plain version is :func:`fwd_reference`.
-Every call on an f32 q
+Every call on an f32 q over f32 K/V
 (:func:`f32_route`) goes to an f32 kernel of its own
 (``csrc/flash_fwd_f32.cu``: the dense route's TMA + wgmma scheme and
 options on the three bf16 pieces of each f32 operand, ``ops/f32_split.py``,
 six bf16 products per f32 product; above D 128 its D 256 form), decode
 shapes too; its plain version is
-:func:`fwd_reference` as well. :func:`fwd` launches a kernel for
+:func:`fwd_reference` as well. An f32 q over int8 / fp8 K/V (the f32 LM
+served from an 8-bit cache) takes the f32-q forms of the decode and
+quantized routes (``csrc/flash_decode_quant_f32.cu``,
+``csrc/flash_fwd_quant_f32.cu``): q as its three bf16 pieces, the 8-bit K/V
+widened exactly to one, three bf16 products per f32 product, O in f32.
+:func:`fwd` launches a kernel for
 CUDA tensors and computes the plain :func:`fwd_reference` for CPU tensors --
 the device of the input decides, and a CUDA tensor never reaches a plain
 version.
@@ -86,9 +91,6 @@ H100_SMS = 132
 # pipeline stage), the tiles of its segment-id ranges.
 DENSE_MAX_HEAD_DIM = 128
 BIAS_ROW_ALIGN = 4
-# The f32 route's ROADMAP item: what it does not take yet, quantized K/V.
-_ROADMAP_F32_QUANT = "ROADMAP queue 2, f32 rows item 2: quantized K/V under an f32 q"
-
 SM90_Q_TILE = 128
 SM90_KV_TILE = 64
 # The f32 route's Q tile (rows per CTA; its D 256 form's CTA takes half of
@@ -322,7 +324,8 @@ def decode_route(*, rows: int, causal: bool, segment_ids, window, head_dim: int)
     GQA fold's rows), not causal, no segment ids, no window, and a head dim of
     64 or 128 (the only ones instantiated; other head dims keep the dense
     route). Every call ``decode_step`` makes qualifies, with or without a
-    bias, a softcap or int8 / fp8 K/V."""
+    bias, a softcap or int8 / fp8 K/V; on 8-bit K/V an f32 q too (the
+    kernel's f32-q form, ``csrc/flash_decode_quant_f32.cu``)."""
     return (rows <= DECODE_MAX_ROWS and not causal and segment_ids is None
             and kernel_window(check_window(window)) == (-1, -1)
             and head_dim in DECODE_HEAD_DIMS)
@@ -363,20 +366,22 @@ def quant_route(*, head_dim: int, kv_dtype) -> bool:
     head dim up to ``MAX_HEAD_DIM`` (a multiple of 8, as every CUDA K1
     call's) -- causal or not, with or without a window, segment ids, q / kv
     offsets or a bias, at any Nq and kv_valid_len (a decode-shaped call at a
-    head dim the decode kernel lacks too). No softcap: quantized K/V with
-    one raise in :func:`fwd`, as in the JAX package."""
+    head dim the decode kernel lacks too), under a bf16 q or, in its f32-q
+    form (``csrc/flash_fwd_quant_f32.cu``), an f32 one. No softcap:
+    quantized K/V with one raise in :func:`fwd`, as in the JAX package."""
     return kv_dtype in QUANT_DTYPES and head_dim <= MAX_HEAD_DIM
 
 
-def f32_route(*, dtype) -> bool:
+def f32_route(*, dtype, kv_dtype=None) -> bool:
     """Whether a CUDA K1 call goes to the f32 kernel (``csrc/flash_fwd_f32.cu``):
-    every call on an f32 q -- causal or not, with or without a window, segment
-    ids, a softcap, q / kv offsets or an additive bias (its BIAS family), at
-    any Nq (decode shapes too) and every head dim up to ``MAX_HEAD_DIM`` (a
-    multiple of 8; D 136-256 on its D 256 form). :func:`fwd` checks it
-    before the bf16 routes, and ``_check_kernel_args`` refuses the f32 calls
-    it does not take (quantized K/V); no f32 call reaches a bf16 kernel."""
-    return dtype == torch.float32
+    every call on an f32 q over f32 K/V -- causal or not, with or without a
+    window, segment ids, a softcap, q / kv offsets or an additive bias (its
+    BIAS family), at any Nq (decode shapes too) and every head dim up to
+    ``MAX_HEAD_DIM`` (a multiple of 8; D 136-256 on its D 256 form).
+    :func:`fwd` checks it before the other routes. An f32 q over int8 / fp8
+    K/V (``kv_dtype``) goes to the decode or the quantized route's f32-q
+    form; no f32 call reaches a kernel that rounds q to bf16."""
+    return dtype == torch.float32 and kv_dtype not in QUANT_DTYPES
 
 
 def _whole_tiles(ids: torch.Tensor, n_valid: int, tile: int) -> torch.Tensor:
@@ -513,10 +518,13 @@ def decode_reference(q, k, v, *, scale: float, kv_valid_len: int | None = None, 
 
 def _decode(q, k, v, *, scale, kv_valid_len, bias, k_scale, v_scale, softcap):
     """Launch the decode kernel (and, with more than one split, its merge)
-    and count the launch."""
+    and count the launch: ``fa_decode`` on a bf16 q, ``fa_decode_f32`` (the
+    f32-q form, over int8 / fp8 K/V; O in f32) on an f32 one."""
     B, Hq, Nq, D = q.shape
     Hkv = k.shape[1]
-    q, k, v = _kernel_ready(q), _kernel_ready(k, 16), _kernel_ready(v, 16)
+    f32 = q.dtype == torch.float32
+    q = _kernel_ready(q, 8) if f32 else _kernel_ready(q)
+    k, v = _kernel_ready(k, 16), _kernel_ready(v, 16)
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -532,7 +540,8 @@ def _decode(q, k, v, *, scale, kv_valid_len, bias, k_scale, v_scale, softcap):
     scale_strides = [x for s in scales for x in (s.stride() if s is not None else (0, 0, 0))]
     ptrs = [None if x is None else x.data_ptr() for x in (bias, *scales, part_acc, part_ml)]
     with torch.cuda.device(q.device):
-        rc = native.kernels().fa_decode(
+        lib = native.kernels()
+        rc = (lib.fa_decode_f32 if f32 else lib.fa_decode)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *ptrs,
             KV_DTYPE_CODE[k.dtype], B, Hq, Hkv, Nq, D, kv_valid_len, splits, split_len,
             float(scale), softcap or 0.0, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -541,7 +550,10 @@ def _decode(q, k, v, *, scale, kv_valid_len, bias, k_scale, v_scale, softcap):
         )
     native.check(rc, "flash_decode kernel launch")
     _count_variants(k.dtype, bias, False, softcap)
-    fwd.launches_decode += 1
+    if f32:
+        fwd.launches_decode_f32 += 1
+    else:
+        fwd.launches_decode += 1
     if splits > 1:
         fwd.launches_merge += 1
     return o, lse
@@ -656,16 +668,21 @@ def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, so
 
 def _launch_quant_sm90(lib, q, k, v, o, lse, k_scale, v_scale, bias, bias_strides, seg, *,
                        scale, kv_valid_len, causal, window, stream, q_offset: int = 0,
-                       kv_offset: int = 0) -> int:
-    """Call ``lib.fa_fwd_quant_sm90`` with the arguments of one launch (the C
-    entry's order, ``native.FWD_QUANT_SM90_ARGTYPES``), ``k_scale`` /
-    ``v_scale`` being f32 ``[B, Hkv, Nk]`` views (any strides), ``bias``
-    :func:`sm90_bias`' tensor or None and ``seg`` :func:`sm90_segments`'
-    tensors or None; returns its cudaError_t."""
+                       kv_offset: int = 0, pieces: torch.Tensor | None = None) -> int:
+    """Call ``lib.fa_fwd_quant_sm90`` -- or, given ``pieces`` (the bf16
+    scratch of an f32 q's three pieces, ``f32_split.scratch``),
+    ``lib.fa_fwd_quant_f32``, whose arguments are the same with ``pieces``
+    after lse -- with the arguments of one launch (the C entry's order,
+    ``native.FWD_QUANT_SM90_ARGTYPES`` / ``FWD_QUANT_F32_ARGTYPES``),
+    ``k_scale`` / ``v_scale`` being f32 ``[B, Hkv, Nk]`` views (any strides),
+    ``bias`` :func:`sm90_bias`' tensor or None and ``seg``
+    :func:`sm90_segments`' tensors or None; returns its cudaError_t."""
     B, Hq, Nq, D = q.shape
     seg_ptrs = (None,) * 4 if seg is None else tuple(x.data_ptr() for x in seg)
-    return lib.fa_fwd_quant_sm90(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+    entry, scratch = ((lib.fa_fwd_quant_sm90, ()) if pieces is None
+                      else (lib.fa_fwd_quant_f32, (pieces.data_ptr(),)))
+    return entry(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *scratch,
         k_scale.data_ptr(), v_scale.data_ptr(), None if bias is None else bias.data_ptr(),
         *seg_ptrs, KV_DTYPE_CODE[k.dtype], B, Hq, k.shape[1], Nq, D, kv_valid_len,
         int(bool(causal)), *kernel_window(window), q_offset, kv_offset, float(scale),
@@ -678,9 +695,15 @@ def _quant_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, bi
     """Launch the Hopper quantized kernel and count the launch: K / V as
     their TMA maps read them (:func:`_kernel_ready` with 16-byte rows), the
     scales in f32 as they are (BNHD's transposed views too), a bias as
-    :func:`sm90_bias` gives it."""
+    :func:`sm90_bias` gives it. An f32 q takes the kernel's f32-q form, its
+    C entry splitting q alone into the pieces' scratch first (both launches
+    counted; O in f32)."""
     B, Hq, Nq, D = q.shape
-    q = _kernel_ready(q, tma=True)
+    f32 = q.dtype == torch.float32
+    if f32:
+        q = q if q.stride(-1) == 1 else q.contiguous()
+    else:
+        q = _kernel_ready(q, tma=True)
     k, v = (_kernel_ready(x, 16, tma=True) for x in (k, v))
     o = torch.empty_like(q)  # preserve_format: keeps q's (e.g. BNHD) strides
     lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
@@ -688,15 +711,20 @@ def _quant_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, bi
         return o, lse
     bias, bias_strides = (None, (0, 0, 0)) if bias is None else sm90_bias(bias)
     seg = sm90_segments(segment_ids, Nq, kv_valid_len)
+    pieces = f32_split.scratch(B * Hq * Nq, 0, D, q.device) if f32 else None
     with torch.cuda.device(q.device):
         rc = _launch_quant_sm90(native.kernels(), q, k, v, o, lse, k_scale.float(),
                                 v_scale.float(), bias, bias_strides, seg, scale=scale,
                                 kv_valid_len=kv_valid_len, causal=causal, window=window,
                                 stream=torch.cuda.current_stream(q.device).cuda_stream,
-                                q_offset=q_offset, kv_offset=kv_offset)
+                                q_offset=q_offset, kv_offset=kv_offset, pieces=pieces)
     native.check(rc, "flash_fwd_quant_sm90 kernel launch")
     _count_variants(k.dtype, bias, kernel_window(window) != (-1, -1), None)
-    fwd.launches_quant_sm90 += 1
+    if f32:
+        fwd.launches_quant_f32 += 1
+        fwd.launches_split += 1
+    else:
+        fwd.launches_quant_sm90 += 1
     return o, lse
 
 
@@ -733,12 +761,11 @@ def _dense_f32(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, sof
 def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool,
                        offsets: bool = False) -> None:
     """Raise for what no CUDA K1 kernel takes: another device, a q that is
-    neither bf16 nor f32, an f32 q with quantized K/V (the f32 route's
-    refusal; it takes a bias at every head dim), D not a multiple of 8
-    or above ``MAX_HEAD_DIM``, a grid past the CUDA limits. Segment ids, a
-    window, ``offsets`` (that change the result) and a ``bias`` pass in every
-    combination at every head dim, on bf16 and on quantized K/V: K1's bias,
-    dense and quantized routes take them all."""
+    neither bf16 nor f32, D not a multiple of 8 or above ``MAX_HEAD_DIM``, a
+    grid past the CUDA limits. Segment ids, a window, ``offsets`` (that
+    change the result) and a ``bias`` pass in every combination at every head
+    dim, under a bf16 or an f32 q, on its own dtype's K/V or quantized K/V:
+    K1's routes take them all."""
     B, Hq, _, D = q.shape
     if q.device.type != "cuda":
         raise NotImplementedError(f"no K1 kernel for device {q.device}")
@@ -746,10 +773,6 @@ def _check_kernel_args(q, *, segment_ids, bias, k_scale, windowed: bool,
         raise NotImplementedError(
             f"the CUDA K1 takes bfloat16 or float32, got {q.dtype} (flash_attention casts "
             "other dtypes to bfloat16)")
-    if q.dtype == torch.float32 and k_scale is not None:
-        raise NotImplementedError(
-            f"the CUDA K1's f32 route takes no quantized K/V yet ({_ROADMAP_F32_QUANT}); the "
-            "bf16 routes take it")
     if D % 8 or D > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"the CUDA K1 takes head dims that are multiples of 8 up to "
@@ -775,24 +798,26 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     float8_e4m3fn ``k``/``v`` take per-token ``k_scale``/``v_scale``
     ``[B, Hkv, Nk]`` and are dequantized in the kernel (not with a softcap).
     CPU tensors take :func:`fwd_reference`. CUDA tensors launch the kernel,
-    which takes a bf16 ``q`` (and bf16, int8 or fp8 K/V) with ``D % 8 == 0``
-    and ``D <= 256`` with every option above, or an f32 q, k and v with or
-    without a bias (and every option but quantized K/V) at the same head
-    dims; anything else raises. An f32 call
+    which takes a bf16 or f32 ``q`` (and K/V of its dtype, int8 or fp8) with
+    ``D % 8 == 0`` and ``D <= 256`` with every option above; anything else
+    raises. An f32 call on f32 K/V
     (:func:`f32_route`) launches the f32 kernel (with a bias, its BIAS
-    family); a bf16 CUDA call that :func:`decode_route` accepts launches the
+    family); a CUDA call that :func:`decode_route` accepts launches the
     split-KV decode kernel (and its merge), one that :func:`bias_route`
     accepts (every other bf16 call with a bias) the Hopper bias kernel, one
     that :func:`dense_route` accepts (every bf16 call without a bias) the
     Hopper dense kernel, one that :func:`quant_route` accepts (every other
-    call on int8 / fp8 K/V) the Hopper quantized kernel. ``fwd.launches``
+    call on int8 / fp8 K/V) the Hopper quantized kernel -- under an f32 q
+    the decode and quantized kernels' f32-q forms. ``fwd.launches``
     counts every K1 launch, on any kernel;
     ``fwd.launches_bias`` those of bf16 or f32 K/V with a bias (on any
     kernel), ``fwd.launches_bias_sm90`` those of the bias kernel
     (``fwd.launches_bias_d256`` those of its D 256 form, D 136-256),
     ``fwd.launches_dense_sm90`` those of the Hopper dense kernel
     (``fwd.launches_dense_d256`` those of its D 256 form, D 136-256),
-    ``fwd.launches_quant_sm90`` those of the Hopper quantized kernel,
+    ``fwd.launches_quant_sm90`` those of the Hopper quantized kernel
+    (``fwd.launches_quant_f32`` those of its f32-q form, which count a
+    split of q each in ``fwd.launches_split``),
     ``fwd.launches_f32`` those of the f32 kernel (``fwd.launches_f32_bias``
     those with a bias, also counted in ``fwd.launches_bias``;
     ``fwd.launches_f32_d256`` those of its D 256 form, D 136-256), ``fwd.launches_split``
@@ -800,8 +825,9 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     ``fwd.launches_int8`` / ``fwd.launches_fp8`` those of quantized K/V (with
     or without a bias), ``fwd.launches_window`` those with a window,
     ``fwd.launches_softcap`` those with a softcap, ``fwd.launches_decode``
-    those of the decode kernel and ``fwd.launches_merge`` those of its merge
-    kernel (a call with more than one split).
+    those of the decode kernel (``fwd.launches_decode_f32`` those of its
+    f32-q form) and ``fwd.launches_merge`` those of its merge kernel (a call
+    with more than one split, on either form).
     """
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"q/k/v must be rank-4, got {q.shape}, {k.shape}, {v.shape}")
@@ -836,7 +862,7 @@ def fwd(q, k, v, *, scale: float, kv_valid_len: int | None = None, causal: bool 
     _check_kernel_args(q, segment_ids=segment_ids, bias=bias, k_scale=k_scale,
                        windowed=windowed, offsets=q_offset != kv_offset)
 
-    if f32_route(dtype=q.dtype):
+    if f32_route(dtype=q.dtype, kv_dtype=k.dtype):
         return _dense_f32(q, k, v, scale=scale, kv_valid_len=kv_valid_len, causal=causal,
                           window=window, segment_ids=segment_ids, softcap=softcap,
                           q_offset=q_offset, kv_offset=kv_offset, bias=bias)
@@ -884,6 +910,7 @@ fwd.launches_bias_d256 = 0
 fwd.launches_dense_sm90 = 0
 fwd.launches_dense_d256 = 0
 fwd.launches_quant_sm90 = 0
+fwd.launches_quant_f32 = 0
 fwd.launches_f32 = 0
 fwd.launches_f32_bias = 0
 fwd.launches_f32_d256 = 0
@@ -893,4 +920,5 @@ fwd.launches_fp8 = 0
 fwd.launches_window = 0
 fwd.launches_softcap = 0
 fwd.launches_decode = 0
+fwd.launches_decode_f32 = 0
 fwd.launches_merge = 0

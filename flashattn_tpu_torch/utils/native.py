@@ -77,6 +77,44 @@ FWD_QUANT_SM90_ARGTYPES = [
     _PTR,                                # cudaStream_t
 ]
 
+# The C entry of K1's quantized route on an f32 q (fa_fwd_quant_f32, also in
+# csrc/flash_fwd_quant_sm90.cu): the same arguments with the bf16 scratch of
+# q's three pieces (ops/f32_split.py) after lse; q and o f32.
+FWD_QUANT_F32_ARGTYPES = (FWD_QUANT_SM90_ARGTYPES[:5] + [_PTR]  # + pieces
+                          + FWD_QUANT_SM90_ARGTYPES[5:])
+
+# The C entries of K1's decode route (csrc/flash_decode.cu): fa_decode (q and
+# o bf16) and fa_decode_f32 (q and o f32, over int8 / fp8 K/V) take the same
+# arguments.
+DECODE_ARGTYPES = [
+    _PTR, _PTR, _PTR, _PTR, _PTR,        # q, k, v, o, lse
+    _PTR, _PTR, _PTR,                    # bias, k_scale, v_scale (f32, or None)
+    _PTR, _PTR,                          # part_acc, part_ml (f32 scratch, or None)
+    _I32,                                # K/V dtype code (ops/flash_fwd.KV_DTYPE_CODE)
+    _I32, _I32, _I32, _I32, _I32, _I32,  # B, Hq, Hkv, Nq, D, kv_valid_len
+    _I32, _I32,                          # splits, split_len
+    ctypes.c_float, ctypes.c_float,      # scale, softcap (0: none)
+    _I64, _I64, _I64, _I64, _I64, _I64,  # q, k (batch, head, seq) strides
+    _I64, _I64, _I64, _I64, _I64, _I64,  # v, o (batch, head, seq) strides
+    _I64, _I64, _I64,                    # bias (batch, head, row) strides
+    _I64, _I64, _I64, _I64, _I64, _I64,  # k_scale, v_scale (batch, head, seq) strides
+    _PTR,                                # cudaStream_t
+]
+
+# The probes' C entries: K9 (csrc/gemm.cu; fa_gemm_f32 with the bf16 scratch
+# of a's and b's pieces after out) and K10 (csrc/roofline.cu, either dtype).
+GEMM_ARGTYPES = [
+    _PTR, _PTR, _PTR,                    # a [M, K], b [K, N], out [M, N]
+    _I32, _I32, _I32, _I32,              # M, N, K, out is f32 (else bf16)
+    _PTR,                                # cudaStream_t
+]
+GEMM_F32_ARGTYPES = GEMM_ARGTYPES[:3] + [_PTR] + GEMM_ARGTYPES[3:]  # + pieces
+ROOFLINE_ARGTYPES = [
+    _PTR, _PTR, _PTR,                    # a, b, out [size, size]
+    _I32, _I32,                          # size, iters
+    _PTR,                                # cudaStream_t
+]
+
 # The C entry of K3 (csrc/flash_bwd_sm90.cu).
 BWD_SM90_ARGTYPES = [
     _PTR, _PTR, _PTR, _PTR,              # q, k, v, dO
@@ -239,28 +277,18 @@ def build(extra_flags: tuple[str, ...] = ()) -> tuple[pathlib.Path, str]:
 def kernels() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     lib = ctypes.CDLL(str(build()[0]))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    i32 = ctypes.c_int
     lib.fa_fwd_quant_sm90.restype = i32
     lib.fa_fwd_quant_sm90.argtypes = FWD_QUANT_SM90_ARGTYPES
     lib.fa_fwd_bias_sm90.restype = i32
     lib.fa_fwd_bias_sm90.argtypes = FWD_BIAS_SM90_ARGTYPES
     lib.fa_fwd_sm90.restype = i32
     lib.fa_fwd_sm90.argtypes = FWD_SM90_ARGTYPES
-    lib.fa_decode.restype = i32
-    lib.fa_decode.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,            # q, k, v, o, lse
-        ptr, ptr, ptr,                      # bias, k_scale, v_scale (f32, or None)
-        ptr, ptr,                           # part_acc, part_ml (f32 scratch, or None)
-        i32,                                # K/V dtype code (ops/flash_fwd.KV_DTYPE_CODE)
-        i32, i32, i32, i32, i32, i32,       # B, Hq, Hkv, Nq, D, kv_valid_len
-        i32, i32,                           # splits, split_len
-        ctypes.c_float, ctypes.c_float,     # scale, softcap (0: none)
-        i64, i64, i64, i64, i64, i64,       # q, k (batch, head, seq) strides
-        i64, i64, i64, i64, i64, i64,       # v, o (batch, head, seq) strides
-        i64, i64, i64,                      # bias (batch, head, row) strides
-        i64, i64, i64, i64, i64, i64,       # k_scale, v_scale (batch, head, seq) strides
-        ptr,                                # cudaStream_t
-    ]
+    lib.fa_fwd_quant_f32.restype = i32
+    lib.fa_fwd_quant_f32.argtypes = FWD_QUANT_F32_ARGTYPES
+    for name in ("fa_decode", "fa_decode_f32"):
+        getattr(lib, name).restype = i32
+        getattr(lib, name).argtypes = DECODE_ARGTYPES
     lib.fa_bwd_sm90.restype = i32
     lib.fa_bwd_sm90.argtypes = BWD_SM90_ARGTYPES
     lib.fa_bwd_split_sm90.restype = i32
@@ -270,17 +298,12 @@ def kernels() -> ctypes.CDLL:
     lib.fa_bwd_f32.restype = i32
     lib.fa_bwd_f32.argtypes = BWD_F32_ARGTYPES
     lib.fa_gemm_bf16.restype = i32
-    lib.fa_gemm_bf16.argtypes = [
-        ptr, ptr, ptr,                      # a [M, K], b [K, N] (bf16), out [M, N]
-        i32, i32, i32, i32,                 # M, N, K, out is f32 (else bf16)
-        ptr,                                # cudaStream_t
-    ]
-    lib.fa_roofline_bf16.restype = i32
-    lib.fa_roofline_bf16.argtypes = [
-        ptr, ptr, ptr,                      # a, b, out [size, size] bf16
-        i32, i32,                           # size, iters
-        ptr,                                # cudaStream_t
-    ]
+    lib.fa_gemm_bf16.argtypes = GEMM_ARGTYPES
+    lib.fa_gemm_f32.restype = i32
+    lib.fa_gemm_f32.argtypes = GEMM_F32_ARGTYPES
+    for name in ("fa_roofline_bf16", "fa_roofline_f32"):
+        getattr(lib, name).restype = i32
+        getattr(lib, name).argtypes = ROOFLINE_ARGTYPES
     lib.fa_bwd_bias_sm90.restype = i32
     lib.fa_bwd_bias_sm90.argtypes = BWD_BIAS_SM90_ARGTYPES
     lib.fa_ring_fwd_bf16.restype = i32

@@ -211,13 +211,15 @@ def _fake_cuda(shape, dtype):
 
 
 @pytest.mark.parametrize("kw,what", [(dict(bias=object(), D=136), None),
-                                     (dict(k_scale=object()), "quantized K/V"),
+                                     (dict(k_scale=object()), None),
                                      (dict(D=136), None)],
                          ids=["bias", "quantized", "D 136"])
 def test_k1_refuses_what_the_f32_route_does_not_take(kw, what):
-    """The f32 route's refusal (quantized K/V) names its f32 rows item;
-    D 136, with or without a bias (refused until the D 256 forms took D
-    136-256), now passes K1's checks (``what`` None)."""
+    """What K1's checks refused under an f32 q now passes them (``what``
+    None): D 136, with or without a bias (refused until the D 256 forms took
+    D 136-256), and quantized K/V (refused naming f32 rows item 2 until the
+    decode and quantized routes' f32-q forms; tests/test_torch_f32_quant.py
+    holds what still raises above D 256)."""
     D = kw.pop("D", 128)
     q = _fake_cuda((1, 4, 64, D), torch.float32)
     args = dict(segment_ids=None, bias=kw.get("bias"), k_scale=kw.get("k_scale"),
@@ -225,7 +227,7 @@ def test_k1_refuses_what_the_f32_route_does_not_take(kw, what):
     if what is None:
         flash_fwd._check_kernel_args(q, **args)
         return
-    with pytest.raises(NotImplementedError, match=f"f32 route takes no {what}.*ROADMAP"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 2, {what}"):
         flash_fwd._check_kernel_args(q, **args)
 
 

@@ -81,9 +81,13 @@ def test_f32_bias_above_d128_is_refused_naming_f32_rows_item_5(D, opts):
 
 
 def test_f32_quantized_kv_is_refused_naming_f32_rows_item_2():
-    with pytest.raises(NotImplementedError, match="f32 rows item 2"):
-        flash_fwd._check_kernel_args(_cuda_q(128), segment_ids=None, bias=object(),
-                                     k_scale=object(), windowed=False)
+    """An f32 q over quantized K/V with a bias, refused naming f32 rows item 2
+    until the decode and quantized routes' f32-q forms: it now passes K1's
+    checks, and the f32 route leaves it to the quantized route."""
+    flash_fwd._check_kernel_args(_cuda_q(128), segment_ids=None, bias=object(),
+                                 k_scale=object(), windowed=False)
+    assert not flash_fwd.f32_route(dtype=F32, kv_dtype=torch.int8)
+    assert flash_fwd.quant_route(head_dim=128, kv_dtype=torch.int8)
 
 
 # ---------------------------------------------------------------------------

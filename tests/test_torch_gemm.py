@@ -5,10 +5,19 @@ Ports tests/test_quant_gemm.py:72-85 (the tiled-matmul probe against ``a @
 b``, and its ValueError): the port's ``matmul`` runs its plain version on a
 CPU tensor, the JAX ``matmul`` its Pallas kernel in interpret mode. K10's
 plain version is held against the JAX ``_roofline_call`` in interpret mode
-(size 128, 2 iterations). Budgets: FWD_TOL[f32] for f32 outputs,
+(size 128, 2 iterations), in bf16 and in f32. On a simulated card (meta
+tensors, the device checks off, a stand-in library taking the C entries'
+argtypes) f32 inputs reach the f32 forms' entries (``fa_gemm_f32`` with the
+pieces' scratch, ``fa_roofline_f32``) and bf16 ones the bf16 entries; K10's
+f32 form refuses sizes past its shared memory naming "K10 options".
+Budgets: FWD_TOL[f32] for f32 outputs,
 FWD_TOL[bf16] for bf16 ones (the same f32 sums rounded once to bf16). The
 harness's median-of-differenced-samples rule is checked on a fake clock.
 """
+
+import contextlib
+import ctypes
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +27,7 @@ import torch
 from flashattn_tpu.ops import gemm as jax_gemm
 from flashattn_tpu.ops import roofline as jax_roofline
 from flashattn_tpu_torch.ops import gemm, roofline
-from flashattn_tpu_torch.utils import timing
+from flashattn_tpu_torch.utils import native, timing
 from flashattn_tpu_torch.utils.testing import FWD_TOL, assert_close
 
 
@@ -69,13 +78,18 @@ def test_gemm_rejects_what_jax_rejects(case):
 
 
 def test_gemm_takes_no_plain_path_off_the_cpu():
-    """A tensor off the CPU launches K9 or raises: f32 inputs name the
-    ROADMAP's f32 item, another device has no kernel."""
+    """A tensor off the CPU launches K9 or raises: f32 inputs (refused until
+    K9's f32 form) and bf16 ones on another device have no kernel there, a
+    dtype neither bf16 nor f32 and mixed dtypes none at all."""
     a = torch.empty(128, 128, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="meta"):
         gemm.matmul(a, a)
     with pytest.raises(NotImplementedError, match="meta"):
         gemm.matmul(a.to(torch.bfloat16), a.to(torch.bfloat16))
+    with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
+        gemm.matmul(a.to(torch.float16), a.to(torch.float16))
+    with pytest.raises(NotImplementedError, match="one dtype"):
+        gemm.matmul(a, a.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("iters", [1, 2])
@@ -131,3 +145,108 @@ def test_time_chained_stats_differences_two_chains(monkeypatch):
     # 10 steps between the chains: 10 ms < 50 ms, so the chains grow to (10, 40), then (40, 160).
     assert timing.time_chained(chain_start, torch.zeros(()), consts=(torch.ones(()),),
                                iters=10, warmup_iters=0, repeats=1) == pytest.approx(1e-3)
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("blocks", [(128, 128, 128), (256, 128, 128)])
+def test_gemm_f32_inputs_match_jax_interpret(blocks, out_dtype):
+    """f32 inputs (K9's f32 form on the card: six bf16 products per f32
+    product) against the JAX probe's Pallas kernel in interpret mode, the
+    output f32 by default or bf16 through out_dtype, as the JAX probe gives
+    them."""
+    a, b = _randn(6, 256, 384), _randn(7, 384, 128)
+    bm, bn, bk = blocks
+    jdt = None if out_dtype is None else jnp.bfloat16
+    want = jax_gemm.matmul(jnp.asarray(a), jnp.asarray(b), block_m=bm, block_n=bn, block_k=bk,
+                           out_dtype=jdt)
+    got = gemm.matmul(torch.from_numpy(a), torch.from_numpy(b), block_m=bm, block_n=bn,
+                      block_k=bk, out_dtype=out_dtype)
+    assert got.dtype == (out_dtype or torch.float32)
+    assert_close(got, np.asarray(want.astype(jnp.float32)), FWD_TOL[got.dtype])
+
+
+@pytest.mark.parametrize("iters", [1, 2])
+def test_roofline_f32_matches_jax_interpret(iters):
+    """K10's plain version on f32 a, b against the JAX ``_roofline_call``
+    with dtype f32 in interpret mode (its products at Precision.HIGHEST)."""
+    a, b = _randn(8, 128, 128), _randn(9, 128, 128)
+    want = jax_roofline._roofline_call(jnp.asarray(a), jnp.asarray(b), iters=iters, size=128,
+                                       interpret=True)
+    got = roofline.roofline_call(torch.from_numpy(a), torch.from_numpy(b), iters=iters, size=128)
+    assert got.dtype == torch.float32
+    assert_close(got, np.asarray(want), FWD_TOL[torch.float32])
+
+
+def _recorder(name, argtypes, calls):
+    proto = ctypes.CFUNCTYPE(ctypes.c_int, *argtypes)
+    return proto(lambda *args: calls.append((name, args)) or 0)
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """Meta tensors pass for CUDA ones (the probes' device checks off); the
+    stand-in library records each entry called with its typed arguments."""
+    calls = []
+    typed = {"fa_gemm_bf16": native.GEMM_ARGTYPES, "fa_gemm_f32": native.GEMM_F32_ARGTYPES,
+             "fa_roofline_bf16": native.ROOFLINE_ARGTYPES,
+             "fa_roofline_f32": native.ROOFLINE_ARGTYPES}
+    lib = types.SimpleNamespace(**{n: _recorder(n, a, calls) for n, a in typed.items()})
+    monkeypatch.setattr(native, "kernels", lambda: lib)
+    for mod in (gemm, roofline):
+        monkeypatch.setattr(mod, "_check_device", lambda a: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=77))
+    return calls
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_routes_by_input_dtype(card, dtype, out_dtype):
+    """f32 inputs reach fa_gemm_f32 once, with the bf16 scratch of a's and b's
+    three pieces (3 (M K + K N) elements) after out, counted as K9's f32 form
+    and its split; bf16 inputs fa_gemm_bf16, without one. M, N, K and the
+    output's dtype code as the C entries take them."""
+    M, K, N = 256, 384, 128
+    a = torch.empty((M, K), dtype=dtype, device="meta")
+    b = torch.empty((K, N), dtype=dtype, device="meta")
+    sizes = []
+    real_empty = torch.empty
+    before = (gemm.matmul.launches, gemm.matmul.launches_f32, gemm.matmul.launches_split)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "empty", lambda *s, **kw: sizes.append((s, kw.get("dtype")))
+                   or real_empty(*s, **kw))
+        out = gemm.matmul(a, b, out_dtype=out_dtype)
+    f32 = dtype == torch.float32
+    assert [n for n, _ in card] == ["fa_gemm_f32" if f32 else "fa_gemm_bf16"]
+    args = card[0][1]
+    assert args[-5 if f32 else -5:] == (M, N, K, int(out.dtype == torch.float32), 77)
+    assert out.dtype == (out_dtype or dtype) and out.shape == (M, N)
+    assert ((((3 * (M * K + K * N),), torch.bfloat16) in sizes) == f32)
+    assert (gemm.matmul.launches - before[0], gemm.matmul.launches_f32 - before[1],
+            gemm.matmul.launches_split - before[2]) == (1, int(f32), int(f32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roofline_routes_by_dtype(card, dtype):
+    """K10 on f32 reaches fa_roofline_f32 (its f32 form, f32 out), on bf16
+    fa_roofline_bf16, with the size and the iterations."""
+    a = torch.empty((256, 256), dtype=dtype, device="meta")
+    before = (roofline.roofline_call.launches, roofline.roofline_call.launches_f32)
+    out = roofline.roofline_call(a, a, iters=3, size=256)
+    name = "fa_roofline_f32" if dtype == torch.float32 else "fa_roofline_bf16"
+    assert [n for n, _ in card] == [name] and card[0][1][3:] == (256, 3, 77)
+    assert out.dtype == dtype
+    assert (roofline.roofline_call.launches - before[0],
+            roofline.roofline_call.launches_f32 - before[1]) == (1, int(dtype == torch.float32))
+
+
+def test_roofline_f32_refuses_sizes_past_its_panels(card):
+    """K10's f32 form keeps its panels' three pieces in shared memory up to
+    F32_MAX_SIZE (512); past it the refusal names the ROADMAP's K10 options,
+    while bf16 still takes sizes up to MAX_SIZE."""
+    a = torch.empty((576, 576), device="meta")
+    with pytest.raises(NotImplementedError, match="K10 options"):
+        roofline.roofline_call(a, a, iters=1, size=576)
+    roofline.roofline_call(a.to(torch.bfloat16), a.to(torch.bfloat16), iters=1, size=576)
+    assert [n for n, _ in card] == ["fa_roofline_bf16"]

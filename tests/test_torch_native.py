@@ -265,6 +265,23 @@ def test_missing_nvcc_raises(fake_tree, monkeypatch):
      "K7 d256 ring_fwd_wide_kernel"),
     ("_ZN12_GLOBAL__N_120ring_bwd_wide_kernelE14CUtensorMap_stS0_S0_S0_N2fa14BwdDenseParamsE",
      "K8 d256 ring_bwd_wide_kernel"),
+    # The f32-q forms of K1's decode and quantized routes (F32Q 0 named as
+    # before the flag), K9's f32 form, K10 templated on its dtype.
+    ("_ZN12_GLOBAL__N_113decode_kernelILi128ELi1ELb0ELb0ELb1EEEvN2fa12DecodeParamsE",
+     "K1 decode f32 int8 decode_kernel<128, 1, 0, 0, 1>"),
+    ("_ZN12_GLOBAL__N_113decode_kernelILi64ELi2ELb1ELb0ELb1EEEvN2fa12DecodeParamsE",
+     "K1 decode f32 fp8 bias decode_kernel<64, 2, 1, 0, 1>"),
+    ("_ZN12_GLOBAL__N_113decode_kernelILi128ELi2ELb1ELb0ELb0EEEvN2fa12DecodeParamsE",
+     "K1 decode fp8 bias decode_kernel<128, 2, 1, 0>"),
+    ("_ZN56_GLOBAL__N__1f2e3d4c_23_flash_fwd_quant_f32_cu_5a6b7c8d21fwd_quant_f32_kernelILi256E"
+     "Li2ELb1ELb1EEEv14CUtensorMap_stS1_S1_N2fa14FwdQuantParamsE",
+     "K1 quant f32 fp8 bias segments fwd_quant_f32_kernel<256, 2, 1, 1>"),
+    ("_ZN12_GLOBAL__N_115gemm_f32_kernelILb1EEEv14CUtensorMap_stS0_Pviii",
+     "K9 f32 gemm_f32_kernel<1>"),
+    ("_ZN12_GLOBAL__N_115roofline_kernelILi4EfEEvPKT0_S3_PS1_ii",
+     "K10 f32 roofline_kernel<4, float>"),
+    ("_ZN12_GLOBAL__N_115roofline_kernelILi4E13__nv_bfloat16EEvPKT0_S4_PS2_ii",
+     "K10 roofline_kernel<4>"),
     ("_Z11some_kernelv", "unrecognised instantiation _Z11some_kernelv"),
 ])
 def test_register_report_names_every_instantiation(mangled, name):
