@@ -59,6 +59,13 @@ those that ``--cases`` names:
   of the ring's main shape (rank 1's 4096 query rows against rank 0's K/V,
   B1 Hq16 Hkv8 D128 causal; the mma.sync kernels of a parent whose
   ``csrc/ring.cu`` had them, the TMA + wgmma kernels after).
+* ``f32_k3``: K3 on f32 (the f32 backward body ``flash_bwd_f32.cu``) at the
+  ``lm`` shape, TF32 off;
+* ``f32_bias_bwd``, ``f32_bias_bwd_dbias``, ``f32_bias_bwd_d256``,
+  ``f32_bias_bwd_d256_dbias``: the same body's BIAS family at f32 path A's
+  attention, B4 H16 N2048 D128 and B4 H8 N2048 D256, f32, TF32 off, the
+  key-padding bias [4, 1, N, N] without dbias and it plus a normal [1, H,
+  N, N] with dbias, through ``flash_bwd.bias_bwd``.
 
 The children take their helpers and shapes from this checkout's
 chip_smoke.py, and pass only arguments that both checkouts take. Prints the
@@ -126,7 +133,12 @@ CASE_KERNELS = {"unet": "K1 dense sm90 fwd_dense_sm90_kernel<64, 0, 0>",
                 "quant_swa_int8": "K1 quant sm90 int8 fwd_quant_sm90_kernel<128, 1, 0, 0>",
                 "gemm": "K9 gemm_wgmma_kernel<0>",
                 "ring_fwd": "K7 ring_fwd_sm90_kernel<128>",
-                "ring_bwd": "K8 ring_bwd_sm90_kernel<128>"}
+                "ring_bwd": "K8 ring_bwd_sm90_kernel<128>",
+                "f32_k3": "bwd f32 bwd_f32_kernel<128, 0, 0, 0>",
+                "f32_bias_bwd": "bwd f32 bias bwd_f32_kernel<128, 0, 0, 1>",
+                "f32_bias_bwd_dbias": "bwd f32 bias bwd_f32_kernel<128, 0, 0, 1>",
+                "f32_bias_bwd_d256": "bwd f32 bias bwd_f32_kernel<256, 0, 0, 1>",
+                "f32_bias_bwd_d256_dbias": "bwd f32 bias bwd_f32_kernel<256, 0, 0, 1>"}
 
 LOAD_SMOKE = r'''
 import importlib.util, json, sys, torch
@@ -283,6 +295,35 @@ timed("ring_fwd", lambda: rk.ring_fwd_step(q2[:, :, c:], k[:, :, :c], v[:, :, :c
                                              o1, lse_c, **pos))
 timed("ring_bwd", lambda: rk.ring_bwd_step(q2[:, :, c:], k[:, :, :c], v[:, :, :c],
                                              do[:, :, c:], lse1, delta1, dq, dk, dv, **pos))
+del q, k, v, do, o, lse, q2, acc, m, l, o1, lse_c, dq, dk, dv
+torch.cuda.empty_cache()
+# The f32 backward body (flash_bwd_f32.cu), TF32 off: K3 on f32 at the f32
+# LM's attention, and its BIAS family at f32 path A's attention, heads of 128
+# and of 256, the mask arm without dbias and the learned arm with it.
+cs._f32_tf32_off()
+_, B, Hq, Hkv, N, _, D = cs.CAUSAL_CASES[0]
+q, k, v = (cs._bnhd(x) for x in make_qkv(23, B, Hq, N, D, Hkv=Hkv, device="cuda"))
+do = cs._bnhd(make_qkv(24, B, Hq, N, D, device="cuda")[0])
+kw = dict(scale=D ** -0.5, causal=True)
+o, lse = flash_fwd.fwd(q, k, v, **kw)
+delta = (do * o).sum(-1)
+timed("f32_k3", lambda: flash_bwd_fused.bwd(q, k, v, do, lse, delta, **kw))
+B, N = len(cs.ATTN_LENGTHS), cs.ATTN_SEQ
+pad = cs._padding_bias(cs.ATTN_LENGTHS, N)
+for h, d in ((cs.ATTN_WIDTH["num_heads"], 128), (cs.WIDE_ATTN_WIDTH["num_heads"], 256)):
+    q, k, v = make_qkv(25, B, h, N, d, device="cuda")
+    do = make_qkv(26, B, h, N, d, device="cuda")[0]
+    learned = pad + torch.randn((1, h, N, N), device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(27))
+    sfx = "" if d == 128 else "_d256"
+    for name, bias, want_dbias in ((f"f32_bias_bwd{sfx}", pad, False),
+                                   (f"f32_bias_bwd{sfx}_dbias", learned, True)):
+        kw = dict(scale=d ** -0.5, bias=bias)
+        o, lse = flash_fwd.fwd(q, k, v, **kw)
+        args = (q, k, v, do, lse, (do * o).sum(-1))
+        timed(name, lambda: flash_bwd.bias_bwd(*args, want_dbias=want_dbias, **kw))
+    del q, k, v, do, learned, o, lse, args
+    torch.cuda.empty_cache()
 print("AB " + json.dumps(out), flush=True)
 '''
 

@@ -606,6 +606,32 @@ def phase_build() -> None:
         log("build", f"{name}: {regs} registers, {stack} B stack frame, {spill_st} B spill "
                      f"stores, {spill_ld} B spill loads")
     log("build", f"{len(stats)} kernel instantiations")
+    # ptxas's notes of wgmma serialized (C7518-C7520): logged for every
+    # instantiation; the f32 backward body's must have none (its chains issue
+    # back to back, csrc/flash_bwd_f32.cu).
+    notes = serialization_notes(out)
+    for name, found in sorted(notes.items()):
+        for code, why in found:
+            log("build", f"{name}: ({code}) wgmma serialized: {why}")
+    f32_bwd = sorted(n for n in stats if "bwd_f32_kernel" in n)
+    log("build", f"wgmma serialization notes: {sum(map(len, notes.values()))} in "
+                 f"{len(notes)} instantiations; the f32 backward's {len(f32_bwd)} "
+                 f"instantiations: {sum(n in notes for n in f32_bwd)} with one")
+    if any(n in notes for n in f32_bwd):
+        fail("ptxas serialized the wgmma chains of the f32 backward body: "
+             + "; ".join(f"{n}: {notes[n]}" for n in f32_bwd if n in notes))
+
+
+def serialization_notes(out: str) -> dict:
+    """ptxas's "wgmma.mma_async instructions are serialized" notes in ``-v``
+    output as {instantiation_name: [(code, reason), ...]}, e.g. ``("C7520",
+    "program dependence on compiler-inserted WG.AR in divergent path")``."""
+    notes = {}
+    for m in re.finditer(r"\((C75\d\d)\) Potential Performance Loss: wgmma\.mma_async "
+                         r"instructions are serialized due to (.*?) in the function '([^']+)'",
+                         out):
+        notes.setdefault(instantiation_name(m.group(3)), []).append((m.group(1), m.group(2)))
+    return notes
 
 
 def ptxas_stats(out: str) -> dict:
@@ -1059,6 +1085,14 @@ def _seg_case_ids(kind: str, seed: int, B: int, Nq: int, Nk: int):
         return ids, ids
     if kind == "tuple":
         return random_ids(seed, B, Nq), random_ids(seed + 1, B, Nk)
+    if kind == "alternate":
+        # The f32 backward's 32-row Q tiles in turn ids 0 and 1, every key 0:
+        # each KV tile's walk skips every other Q tile (their rows are dead).
+        from flashattn_tpu_torch.ops.flash_bwd import F32_BWD_Q_TILE
+
+        rows = torch.arange(Nq, device=DEVICE) // F32_BWD_Q_TILE % 2
+        return (rows.to(torch.int32).expand(B, Nq).contiguous(),
+                torch.zeros((B, Nk), dtype=torch.int32, device=DEVICE))
     seg_q = torch.zeros((B, Nq), dtype=torch.int32, device=DEVICE)
     seg_q[:, Nq // 2:] = 7
     return seg_q, torch.zeros((B, Nk), dtype=torch.int32, device=DEVICE)
@@ -4046,6 +4080,13 @@ RING_WIDE_CASES = [("f32 causal", F32, 4, 4096, 16, 8, 128, True, None, 1, 10),
                    ("f32 D64 window edge", F32, 2, 512, 4, 2, 64, True, (127, -1), GROW, 3),
                    ("f32 D100 non-causal", F32, 2, 512, 4, 2, 100, False, None, 1, 4),
                    ("f32 8 ranks GQA 16/2", F32, 8, 1024, 16, 2, 128, True, None, 1, 36),
+                   # K8 f32's group walk with an odd count of visits: 3 query
+                   # heads a KV head x 3 Q tiles a KV tile on the diagonal
+                   # step, x 1 on the off-diagonal one.
+                   ("f32 GQA 3/1 window (31, -1)", F32, 2, 512, 3, 1, 128, True, (31, -1),
+                    GROW, 3),
+                   ("f32 D256 GQA 3/1 window (31, -1)", F32, 2, 512, 3, 1, 256, True, (31, -1),
+                    GROW, 3),
                    ("f32 D256 1 rank", F32, 1, 4096, 8, 4, 256, True, None, 1, 1)]
 # The forms the wide cases time at RING_RANKS x RING_CHUNK causal (the first
 # case of each), by the name of their `kernels` entries.
@@ -4928,6 +4969,14 @@ F32_CASES = [
     ("ring kv past q (0, 512)", 1, 8, 4, 1024, 512, 128,
      dict(causal=True, q_offset=0, kv_offset=512), None),
     ("decode Nq1 Nk500 GQA 8/2", 2, 8, 2, 1, 500, 128, {}, None),
+    # The f32 backward's two consumers take a KV tile's visits in turn: an odd
+    # count (5 Q tiles), one visit (consumer 1 idle), none (causal keys past
+    # Nq: dK / dV 0), every other Q tile skipped by the ids (5 of 9 visited).
+    ("Nq160 Nk200: five Q tiles a KV tile", 1, 4, 2, 160, 200, 128, {}, None),
+    ("Nq20 Nk300: one Q tile a KV tile", 2, 4, 4, 20, 300, 64, {}, None),
+    ("Nq100 Nk300 causal: KV tiles no Q tile meets", 1, 4, 2, 100, 300, 128,
+     dict(causal=True), None),
+    ("Nq288 ids skipping every other Q tile", 2, 4, 2, 288, 256, 128, {}, "alternate"),
 ]
 # The reference's adversarial shape (flashattn_tpu/utils/testing.py:25-26,
 # precision_test.py:34-38): B3 H7 N1537 D111 Nkv1234, non-causal, through
@@ -5519,16 +5568,47 @@ F32_BIAS_CASES = [
      (0, 0, 1)),
     ("causal GQA 8/1, Nq 129 < Nk 1000, kv_valid_len 900, bias [B, 1, Nq, Nk]", 1, 8, 1, 129,
      1000, 128, 900, dict(causal=True), None, (1, 0, 1)),
+    # The two consumers' walk: every other Q tile skipped by the ids (3 of 5
+    # visited, Nq not a multiple of the Q tile; dbias zero-filled on the
+    # skipped tiles' pairs), and one Q tile a KV tile.
+    ("Nq 150, ids skipping every other Q tile, bias [B, H, Nq, Nk]", 2, 4, 2, 150, 160, 128,
+     160, {}, "alternate", (1, 1, 1)),
+    ("Nq 20, Nk 300: one Q tile a KV tile, bias [B, 1, Nq, Nk]", 1, 4, 4, 20, 300, 64, 300, {},
+     None, (1, 0, 1)),
 ]
 # The cases that also run the backward without dbias (its dQ / dK / dV must
 # equal the dbias launch's to BWD_TOL[f32] as well).
-F32_BIAS_NO_DBIAS = (1, 5)
+F32_BIAS_NO_DBIAS = (1, 5, 9)
 # f32 path A (phase_f32_bias_train): AdamW steps per arm, the first a warm-up,
 # and the gate: the fused arm's loss, all its gradients and (learned arm) the
 # bias's gradient alone against the plain f32 function within this relative
 # error (the f32 LM's limit).
 F32_PATH_A_STEPS = 4
 F32_PATH_A_REL = 1e-3
+
+
+def f32_bwd_walk(Nq: int, kv_valid_len: int, *, causal: bool = False, segment_ids=None):
+    """The (Q tile, KV tile) pairs that the f32 backward body visits, as a
+    bool [B (1 without ids), q_tiles, kv_tiles] tensor: the CTA of KV tile n
+    walks the Q tiles from the band's first row on (causal without offsets:
+    row n * F32_BWD_KV_TILE) that, with segment ids, have an id range
+    (flash_fwd.sm90_segments' tiles) meeting the KV tile's
+    (csrc/flash_bwd_f32.cu: m_begin, next_visit); its two consumers take
+    the visits of a KV tile in turn."""
+    from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
+
+    qt, kt = flash_bwd.F32_BWD_Q_TILE, flash_bwd.F32_BWD_KV_TILE
+    n_q, n_k = -(-Nq // qt), -(-kv_valid_len // kt)
+    dev = "cpu" if segment_ids is None else segment_ids[0].device
+    t, n = torch.arange(n_q, device=dev)[:, None], torch.arange(n_k, device=dev)[None, :]
+    visit = (t >= n * kt // qt if causal else torch.ones((n_q, n_k), dtype=torch.bool,
+                                                          device=dev))[None]
+    if segment_ids is not None:
+        _, _, q_rng, kv_rng = flash_fwd.sm90_segments(segment_ids, Nq, kv_valid_len, q_tile=qt,
+                                                      kv_tile=kt, pad_q=True)
+        visit = visit & (q_rng[:, :, None, 0] <= kv_rng[:, None, :, 1]) & (
+            kv_rng[:, None, :, 0] <= q_rng[:, :, None, 1])
+    return visit
 
 
 def _f32_bias_input(seed: int, B, Hq, Hkv, Nq, Nk, D, dims):
@@ -5911,9 +5991,18 @@ F32_WIDE_CASES = [
      (0, 0, 1)),
     ("causal GQA 8/1, Nq 129 < Nk 1000, kv_valid_len 900, bias [B, 1, Nq, Nk]", 1, 8, 1, 129,
      1000, 136, 900, dict(causal=True), None, (1, 0, 1)),
+    # The two consumers' walk at D 256 (rank 0 folds the bias into its
+    # partial S^T without the cap): every other Q tile skipped, one Q tile a
+    # KV tile, KV tiles that no Q tile meets (with the cap: both ranks read
+    # the bias).
+    ("Nq 150, ids skipping every other Q tile, bias [B, H, Nq, Nk]", 2, 4, 2, 150, 160, 256,
+     160, {}, "alternate", (1, 1, 1)),
+    ("Nq 20, Nk 300: one Q tile a KV tile", 1, 4, 4, 20, 300, 256, 300, {}, None, None),
+    ("causal Nq 100 < Nk 300, cap 5, bias [1, H, Nq, Nk]", 1, 4, 2, 100, 300, 192, 300,
+     dict(causal=True, softcap=5.0), None, (0, 1, 1)),
 ]
 # The bias cases that also run the backward without dbias.
-F32_WIDE_NO_DBIAS = (10, 13)
+F32_WIDE_NO_DBIAS = (10, 13, 18)
 
 
 def f32_wide_instantiations() -> set:

@@ -107,41 +107,42 @@ Family ``f32``, the f32 backward ``csrc/flash_bwd_f32.cu`` (built with the
 split ``csrc/split_bf16x3.cu``, which its C entry launches first) through
 ``flash_bwd._launch_split``:
 
-* ``bwd f32``: as committed, each of its wgmma m64n32k16 chains (six
-  products of D / 16 or 4 k-steps) a loop over the six products that is not
-  unrolled;
-* ``bwd f32 unroll 6``: that loop unrolled, which crashes ptxas 12.9 (exit
-  139): a variant in ``BUILD_FAILS``, whose failed build is reported
-  and left out (as are unroll 2 and 3, a fence per product, a shuffled
-  warpgroup index and unrolled m64n64k16 chains, PERF.md PR 17);
-* ``bwd f32 n64``: the chains on m64n64k16 (twice the columns, the upper
-  half read past each piece and dropped), the loop kept;
-* ``bwd f32 paired dQ``: dQ^T's two 64-column halves (D 128) as two chains
-  in one loop over the products, one wait for both;
-* ``bwd f32 paired S dP``: S^T and dP^T as two chains in one loop, both
-  retired before P^T is formed;
-* ``bwd f32 descriptors first``: each product's eight descriptors computed
-  before a fence of its own, the accumulator zeroed first and every product
-  added, so that ptxas injects no fence (ptxas 12.9 crashes on it since the
-  body's BIAS family: in ``BUILD_FAILS`` too).
+* ``bwd f32``: as committed (two consumer warpgroups taking the visits in
+  turn; the six-product chains of wgmma m64n32k16 unrolled by template
+  recursion, each wgmma forming its descriptors inside its own asm
+  statement from the chain's two base descriptors; setmaxnreg 24 / 240);
+* ``bwd f32 chain loops``: each chain a loop over the six products that is
+  not unrolled, the descriptors formed in C++ (the earlier body's form:
+  ptxas serializes its wgmma, C7520);
+* ``bwd f32 descriptors in C++``: that loop unrolled (ptxas 12.9 crashed on
+  it in the earlier body; it builds in this one);
+* ``bwd f32 40 / 232 registers``: the producer given 40 registers and the
+  consumers 232.
+
+A variant in ``BUILD_FAILS`` (none since PR 27) is one ptxas is known to
+refuse: its failed build is reported and left out.
 
 At the f32 LM's shape (B1 Hq16 Hkv8 N2048 D128 causal, f32, TF32 off) each
 is held against ``bwd_reference``, then timed in turns, the split of q, k,
-v and dO included.
+v and dO included. Each build prints its instantiations' registers, spills
+and ptxas's wgmma serialization notes.
 
-Family ``f32bias``, the f32 backward's BIAS family (the same source), where
-each consumer thread reads its 16 bias values of a tile from global memory
-straight into S^T's fragment layout:
+Family ``f32bias``, the f32 backward's BIAS family (the same source):
 
-* ``bwd f32 bias``: as committed, the loads issued right after S^T and dP^T,
-  before S^T's wait, so that they land while both products run;
-* ``bwd f32 bias after S``: the loads issued once S^T has retired (dP^T
-  still running), as a just-in-time read would place them.
+* ``bwd f32 bias``: as committed (the stage released once dK retires; at D
+  256 rank 0 alone reads the bias and folds it into its partial S^T);
+* ``bwd f32 bias stage released at the end``: the stage released once dQ is
+  staged, so the producer loads the consumer's next tile only after its
+  dQ^T: what the early release saves, i.e. how long the producer would wait;
+* ``bwd f32 bias chain loops``, ``bwd f32 bias descriptors in C++``: as
+  ``bwd f32 chain loops`` and ``bwd f32 descriptors in C++``;
+* ``bwd f32 bias read by both ranks``: at D 256 each rank reads the bias
+  and adds it in P^T's exponent (the earlier body's way).
 
-At f32 path A's attention (B4 H16 N2048 D128, f32, TF32 off) with the mask
-arm's bias ([4, 1, N, N], no dbias) and the learned arm's ([4, 16, N, N],
-dbias) each is held against ``bias_bwd_reference``, then timed in turns over
-3 rounds, the split included.
+At f32 path A's attention (B4 H16 N2048 D128 and B4 H8 N2048 D256, f32,
+TF32 off) with the mask arm's bias ([4, 1, N, N], no dbias) and the learned
+arm's ([4, H, N, N], dbias) each is held against ``bias_bwd_reference``, then
+timed in turns over 3 rounds, the split included.
 
 Family ``k1quant``, K1's quantized route ``csrc/flash_fwd_quant_sm90.cu`` (its
 body ``csrc/fwd_sm90_tile.cuh``) through ``flash_fwd._launch_quant_sm90``:
@@ -368,178 +369,41 @@ def _regs_56_224(src: str) -> str:
     return src
 
 
-def _n64(src: str) -> str:
-    """The f32 backward's six-product chains on wgmma m64n64k16 into 32-float
-    accumulators whose upper 32 columns (the next 32 rows of shared memory,
-    read and discarded) are dropped: whether ptxas takes them unrolled."""
-    import re
-
-    from flashattn_tpu_torch.utils import native
-
-    sm90 = (native.CSRC / "sm90.cuh").read_text()
-    body = re.search(r"__device__ __forceinline__ void wgmma_ss_m64n64k16\(.*?\n}\n", sm90,
-                     re.S).group(0)
-    tt = body.replace("wgmma_ss_m64n64k16(", "wgmma_ss_m64n64k16_ta(").replace(
-        "p, 1, 1, 0, 0;", "p, 1, 1, 1, 0;")
-    helper = tt + """
-template <int TA>
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  if constexpr (TA == 0) {
-    wgmma_ss_m64n64k16(d, a, b, acc);
-  } else {
-    wgmma_ss_m64n64k16_ta(d, a, b, acc);
+# The f32 backward's chains in other forms (wgmma_n32_at and chain_ss6
+# replaced): each wgmma's descriptors formed in C++ from the chain's two base
+# descriptors, the chain unrolled, or a loop over the six products that is
+# not unrolled (the earlier body's form, which ptxas serializes, C7520).
+_CHAIN_CXX = """template <int TA, int KS, int A_PIECE, int A_BOX, int A_COL, int B_BOX>
+__device__ __forceinline__ void chain_ss6(float (&acc)[16], uint64_t a0, uint64_t b0) {
+#pragma unroll UNROLL
+  for (int x = 0; x < 6; ++x) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      wgmma_ss_m64n32k16<TA>(
+          acc, a0 + ((pair_a(x) * A_PIECE + (kk / 4) * A_BOX + (kk % 4) * A_COL) >> 4),
+          b0 + ((pair_b(x) * F32B_BLOCK_M * SW128_ROW + (kk / 4) * B_BOX + (kk % 4) * 32) >> 4),
+          x > 0 || kk > 0);
+    }
   }
 }
-
-"""
-    for old, new in (
-            ("// acc = the six bf16 products of A's pieces", helper + "// acc = the six bf16 "
-             "products of A's pieces"),
-            ("void issue_ss6(float (&acc)[16],", "void issue_ss6(float (&acc)[32],"),
-            ("      wgmma_ss_m64n32k16<TA>(acc,", "      wgmma_n64<TA>(acc,"),
-            ("      float sc[16], dp[16];\n", "      float sc64[32], dp64[32], sc[16], dp[16];\n"),
-            ("issue_ss6<0, D / 16>(sc, k_s", "issue_ss6<0, D / 16>(sc64, k_s"),
-            ("issue_ss6<0, D / 16>(dp, v_s", "issue_ss6<0, D / 16>(dp64, v_s"),
-            ("      wgmma_wait<1>();\n      fence_regs(sc);\n",
-             "      wgmma_wait<1>();\n      fence_regs(sc64);\n"
-             "      for (int i = 0; i < 16; ++i) sc[i] = sc64[i];\n"),
-            ("      wgmma_wait<0>();\n      fence_regs(dp);\n",
-             "      wgmma_wait<0>();\n      fence_regs(dp64);\n"
-             "      for (int i = 0; i < 16; ++i) dp[i] = dp64[i];\n"),
-            ("        float dq[16];\n", "        float dq64[32], dq[16];\n"),
-            ("            dq, k_s + x * F32B_BLOCK_N", "            dq64, k_s + x * F32B_BLOCK_N"),
-            ("        wgmma_wait<0>();\n        fence_regs(dq);\n",
-             "        wgmma_wait<0>();\n        fence_regs(dq64);\n"
-             "        for (int i = 0; i < 16; ++i) dq[i] = dq64[i];\n")):
-        assert old in src, old
-        src = src.replace(old, new)
-    return src
-
-
-_PAIRED = """
-// Two chains of six products in one loop over the products: acc0 = A0 B0,
-// acc1 = A1 B1 (K-major B, pieces 32 rows apart; A pieces a_piece apart).
-template <int TA, int K_STEPS, typename AK, typename BK>
-__device__ __forceinline__ void issue_ss6x2(float (&acc0)[16], float (&acc1)[16],
-                                            const unsigned char* a_s0, const unsigned char* a_s1,
-                                            int a_piece, const unsigned char* b_s0,
-                                            const unsigned char* b_s1, AK a_k, BK b_k,
-                                            uint32_t a_lbo) {
-  const uint64_t a0 = opaque(smem_desc(a_s0, a_lbo, 1024));
-  const uint64_t a1 = opaque(smem_desc(a_s1, a_lbo, 1024));
-  const uint64_t b0 = opaque(smem_desc(b_s0, 16, 1024));
-  const uint64_t b1 = opaque(smem_desc(b_s1, 16, 1024));
-  wgmma_fence();
-#pragma unroll 1
-  for (int x = 0; x < 6; ++x) {
-#pragma unroll
-    for (int kk = 0; kk < K_STEPS; ++kk) {
-      const int da = (pair_a(x) * a_piece + a_k(kk)) >> 4;
-      const int db = (pair_b(x) * F32B_BLOCK_M * SW128_ROW + b_k(kk)) >> 4;
-      wgmma_ss_m64n32k16<TA>(acc0, a0 + da, b0 + db, x > 0 || kk > 0);
-      wgmma_ss_m64n32k16<TA>(acc1, a1 + da, b1 + db, x > 0 || kk > 0);
-    }
-  }
-  wgmma_commit();
-}
-
 """
 
 
-def _paired_dq(src: str) -> str:
-    """dQ^T's two 64-column halves (D 128) as two chains of one loop."""
-    src = src.replace("template <int N>\n__device__ __forceinline__ void zero(",
-                      _PAIRED + "template <int N>\n__device__ __forceinline__ void zero(")
-    old = src[src.index("#pragma unroll\n      for (int x = 0; x < BOXES; ++x) {\n        float dq[16];"):
-              src.index("      fence_proxy_async();\n      named_sync(2, 128);")]
-    new = """      float dqs[2][16];
-      if constexpr (BOXES == 2) {
-        issue_ss6x2<1, F32B_BLOCK_N / 16>(
-            dqs[0], dqs[1], k_s, k_s + F32B_BLOCK_N * SW128_ROW, S::KVP, ds_s, ds_s,
-            [](int kk) { return kk * 16 * SW128_ROW; }, d_step, F32B_BLOCK_N * SW128_ROW);
-      } else {
-        issue_ss6<1, F32B_BLOCK_N / 16>(
-            dqs[0], k_s, S::KVP, ds_s, [](int kk) { return kk * 16 * SW128_ROW; }, d_step,
-            F32B_BLOCK_N * SW128_ROW);
-      }
-      wgmma_wait<0>();
-      fence_regs(dqs[0]);
-      fence_regs(dqs[1]);
-#pragma unroll
-      for (int x = 0; x < BOXES; ++x) {
-        const float (&dq)[16] = dqs[x];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int col = 64 * x + tw * 16 + tg + 8 * r;
-          if (col >= d) continue;
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            dq_stage[(8 * jj + 2 * tt) * d + col] = dq[4 * jj + 2 * r];
-            dq_stage[(8 * jj + 2 * tt + 1) * d + col] = dq[4 * jj + 2 * r + 1];
-          }
-        }
-      }
-"""
-    return src.replace(old, new)
+def _chain_cxx(unroll: str):
+    def patch(src: str) -> str:
+        a = src.index("// One wgmma m64n32k16 from shared memory, D (64 x 32, f32)")
+        b = src.index("\n}\n", src.index("void chain_ss6(", a)) + 3
+        return src[:a] + _CHAIN_CXX.replace("UNROLL", unroll) + src[b:]
+    return patch
 
 
-def _paired_sdp(src: str) -> str:
-    """S^T and dP^T as two chains of one loop, both retired before P^T."""
-    src = src.replace("template <int N>\n__device__ __forceinline__ void zero(",
-                      _PAIRED + "template <int N>\n__device__ __forceinline__ void zero(")
-    old = ("      issue_ss6<0, D / 16>(sc, k_s, S::KVP, q_st, a_d, b_d, 16);\n"
-           "      issue_ss6<0, D / 16>(dp, v_s, S::KVP, do_st, a_d, b_d, 16);\n")
-    wait = "      wgmma_wait<1>();\n      fence_regs(sc);\n"  # S^T's, after the bias loads
-    assert old in src and wait in src
-    src = src.replace(old, "      issue_ss6x2<0, D / 16>(sc, dp, k_s, v_s, S::KVP, q_st, do_st, a_d, "
-                           "b_d, 16);\n")
-    return src.replace(wait, "      wgmma_wait<0>();\n      fence_regs(sc);\n", 1)
-
-
-_SS6_LOOP = """  wgmma_fence();
-#pragma unroll 1  // unrolled, the chains crash ptxas 12.9 (the header)
-  for (int x = 0; x < 6; ++x) {
-#pragma unroll
-    for (int kk = 0; kk < K_STEPS; ++kk) {
-      wgmma_ss_m64n32k16<TA>(acc, a0 + ((pair_a(x) * a_piece + a_k(kk)) >> 4),
-                             b0 + ((pair_b(x) * F32B_BLOCK_M * SW128_ROW + b_k(kk)) >> 4),
-                             x > 0 || kk > 0);
-    }
-  }
-"""
-
-
-_DESC_FIRST_LOOP = """  zero(acc);
-#pragma unroll 1
-  for (int x = 0; x < 6; ++x) {
-    uint64_t da[K_STEPS], db[K_STEPS];
-#pragma unroll
-    for (int kk = 0; kk < K_STEPS; ++kk) {
-      da[kk] = opaque(a0 + ((pair_a(x) * a_piece + a_k(kk)) >> 4));
-      db[kk] = opaque(b0 + ((pair_b(x) * F32B_BLOCK_M * SW128_ROW + b_k(kk)) >> 4));
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < K_STEPS; ++kk) {
-      wgmma_ss_m64n32k16<TA>(acc, da[kk], db[kk], 1);
-    }
-  }
-"""
-
-
-def _desc_first(src: str) -> str:
-    """Each product's descriptors computed (and made opaque) before a fence of
-    its own, so that no register a wgmma reads is written after the last
-    fence (what ptxas otherwise fixes by injecting one, C7519 / C7520); the
-    accumulator zeroed first and every product added to it."""
-    assert _SS6_LOOP in src
-    src = src.replace(_SS6_LOOP, _DESC_FIRST_LOOP)
-    # zero() is defined after issue_ss6: move it before
-    z = ("template <int N>\n__device__ __forceinline__ void zero(float (&x)[N]) {\n"
-         "#pragma unroll\n  for (int i = 0; i < N; ++i) x[i] = 0.f;\n}\n\n")
-    assert z in src
-    return src.replace(z, "").replace("// acc = the six bf16 products of A's pieces",
-                                      z + "// acc = the six bf16 products of A's pieces")
+def _release_at_end(src: str) -> str:
+    """The (Q, dO) stage released at the end of the visit, once dQ has been
+    staged, as the earlier body released it, instead of once dK retires."""
+    old = "      if (lane == 0) mbar_arrive(&empty[c]);  // bwd f32 stage release\n"
+    anchor = "      named_sync(bar, 128);  // the whole dQ tile is staged\n"
+    assert src.count(old) == 1 and src.count(anchor) == 1, "the release patch no longer applies"
+    return src.replace(old, "").replace(anchor, anchor + "      __syncwarp();\n" + old)
 
 
 # The quantized route's widening in other arithmetic: int8 in bf16x2, e4m3
@@ -631,12 +495,11 @@ VARIANTS = {
     "K1 D256 K / V barriers": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _kv_barriers),)),
     "K1 D256 224 registers": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _regs_56_224),)),
     "bwd f32": ("flash_bwd_f32.cu", ()),
-    "bwd f32 unroll 6": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", lambda s: s.replace(
-        "#pragma unroll 1  // unrolled,", "#pragma unroll 6  // unrolled,")),)),
-    "bwd f32 n64": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _n64),)),
-    "bwd f32 paired dQ": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _paired_dq),)),
-    "bwd f32 paired S dP": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _paired_sdp),)),
-    "bwd f32 descriptors first": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _desc_first),)),
+    "bwd f32 chain loops": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _chain_cxx("1")),)),
+    "bwd f32 descriptors in C++": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _chain_cxx("")),)),
+    "bwd f32 40 / 232 registers": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", lambda s: s.replace(
+        "setmaxnreg.dec.sync.aligned.u32 24;", "setmaxnreg.dec.sync.aligned.u32 40;").replace(
+        "setmaxnreg.inc.sync.aligned.u32 240;", "setmaxnreg.inc.sync.aligned.u32 232;")),)),
     "K1 quant": ("flash_fwd_quant_sm90.cu", ()),
     "K1 quant int8 in bf16x2": ("flash_fwd_quant_sm90.cu", ((QUANT_BODY, _int8_bf16x2),)),
     "K1 quant fp8 by integer ops": ("flash_fwd_quant_sm90.cu", ((QUANT_BODY, _fp8_by_int),)),
@@ -650,16 +513,20 @@ VARIANTS = {
         "        widen_tile<D, KV>(st + x * S::KV, smem + S::OFF8 + slot * S::KV8, tid);\n",
         "")),)),
     "bwd f32 bias": ("flash_bwd_f32.cu", ()),
-    "bwd f32 bias after S": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", lambda s: s.replace(
-        "      if constexpr (BIAS) {  // bwd f32 bias prefetch",
-        "      wgmma_wait<1>();\n      fence_regs(sc);\n"
-        "      if constexpr (BIAS) {  // bwd f32 bias prefetch")),)),
+    "bwd f32 bias stage released at the end": ("flash_bwd_f32.cu",
+                                               (("flash_bwd_f32.cu", _release_at_end),)),
+    "bwd f32 bias chain loops": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _chain_cxx("1")),)),
+    "bwd f32 bias descriptors in C++": ("flash_bwd_f32.cu",
+                                        (("flash_bwd_f32.cu", _chain_cxx("")),)),
+    "bwd f32 bias read by both ranks": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", lambda s: s.replace(
+        "constexpr bool FOLD = WIDE && BIAS && !CAP;", "constexpr bool FOLD = false;")),)),
 }
 # Variants known not to build, kept as witnesses: a failed build of one of
 # these is reported and left out; any other variant that fails stops the run.
-# ptxas 12.9 exits 139 on both: the unrolled chains (PERF.md) and, since the
-# body's BIAS family, the descriptors computed first (its BIAS instantiations).
-BUILD_FAILS = {"bwd f32 unroll 6", "bwd f32 descriptors first"}
+# None since PR 27: ptxas 12.9 exited 139 on the earlier f32 backward body
+# whenever its chains were unrolled (PERF.md PR 17); the same unrolled
+# chains build in the body that replaced it ("bwd f32 descriptors in C++").
+BUILD_FAILS: set = set()
 # The C entry, its argument types and the family of each source.
 ENTRIES = {"ring_bwd.cu": ("fa_ring_bwd_bf16", "RING_BWD_ARGTYPES", "ring"),
            "ring_fwd.cu": ("fa_ring_fwd_bf16", "RING_FWD_ARGTYPES", "ring"),
@@ -671,7 +538,9 @@ ENTRIES = {"ring_bwd.cu": ("fa_ring_bwd_bf16", "RING_BWD_ARGTYPES", "ring"),
 # Variants whose family is not their source's.
 FAMILY = {"K1 D256": "k1wide", "K1 D256 interleaved": "k1wide", "K1 D256 K / V barriers": "k1wide",
           "K1 D256 224 registers": "k1wide", "bwd f32 bias": "f32bias",
-          "bwd f32 bias after S": "f32bias"}
+          "bwd f32 bias stage released at the end": "f32bias",
+          "bwd f32 bias chain loops": "f32bias", "bwd f32 bias descriptors in C++": "f32bias",
+          "bwd f32 bias read by both ranks": "f32bias"}
 
 
 def _family(name: str) -> str:
@@ -720,6 +589,10 @@ def build(families) -> dict:
         for entry, (regs, stack, st, ld) in cs.ptxas_stats(err + out).items():
             print(f"[build] {name}: {entry}: {regs} registers, {stack} B stack, {st} / {ld} B "
                   "spill stores / loads", flush=True)
+        notes = cs.serialization_notes(err + out)
+        print(f"[build] {name}: wgmma serialized in {len(notes)} instantiations"
+              + "".join(f"; {n}: {found[0][0]} {found[0][1]}" for n, found in
+                        sorted(notes.items())[:3]), flush=True)
         lib = ctypes.CDLL(str(d / "lib.so"))
         entry, argtypes, _ = ENTRIES[VARIANTS[name][0]]
         fn = getattr(lib, entry)
@@ -1020,11 +893,18 @@ def f32(libs: dict) -> None:
 
 
 def f32bias(libs: dict) -> None:
+    cs._f32_tf32_off()
+    times = {}
+    for H, D in ((cs.ATTN_WIDTH["num_heads"], 128), (cs.WIDE_ATTN_WIDTH["num_heads"], 256)):
+        _f32bias_at(libs, times, H, D)
+    _report(times)
+
+
+def _f32bias_at(libs: dict, times: dict, H: int, D: int) -> None:
     from flashattn_tpu_torch.ops import f32_split, flash_bwd, flash_fwd
     from flashattn_tpu_torch.utils.testing import make_qkv
 
-    cs._f32_tf32_off()
-    B, H, N, D = len(cs.ATTN_LENGTHS), cs.ATTN_WIDTH["num_heads"], cs.ATTN_SEQ, 128
+    B, N = len(cs.ATTN_LENGTHS), cs.ATTN_SEQ
     q, k, v = make_qkv(63, B, H, N, D, device="cuda")
     do = make_qkv(64, B, H, N, D, device="cuda")[0]
     mask = cs._padding_bias(cs.ATTN_LENGTHS, N)
@@ -1032,8 +912,7 @@ def f32bias(libs: dict) -> None:
     learned = mask + torch.randn((1, H, N, N), generator=gen, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     nq_pad = -(-N // flash_bwd.F32_BWD_Q_TILE) * flash_bwd.F32_BWD_Q_TILE
-    times = {}
-    for arm, bias, want_dbias in (("mask", mask, False), ("learned", learned, True)):
+    for arm, bias, want_dbias in ((f"mask D{D}", mask, False), (f"learned D{D}", learned, True)):
         kw = dict(scale=D ** -0.5)
         o, lse = flash_fwd.fwd(q, k, v, bias=bias, **kw)
         delta = (do * o).sum(-1)
@@ -1068,7 +947,8 @@ def f32bias(libs: dict) -> None:
             for name, lib in (libs.items() if rnd % 2 == 0 else reversed(libs.items())):
                 times.setdefault((name, arm), []).append(
                     cs.cuda_ms(lambda: call(lib), reps=5, trials=3))
-    _report(times)
+    del q, k, v, do, mask, learned
+    torch.cuda.empty_cache()
 
 
 def k1quant(libs: dict) -> None:

@@ -49,58 +49,66 @@
 // registers), summed in f32. The C entry splits Q, K, V and dO in one
 // launch before the kernel, into scratch the caller gives.
 //
-// What bounds it: operations. At the f32 LM's attention (B1 Hq16 Hkv8 N2049
-// D128 causal) the five f32 products are 43 GFLOP, six bf16 products each:
-// 0.26 ms at 989 / 6 = 165 TFLOP/s, against 60 MB of inputs and outputs
-// (0.018 ms at 3.35 TB/s). The body is bwd_sm90_tile.cuh's KV-major scheme on
-// pieces, cut to the shared memory three pieces take:
+// What bounds it: operations. At f32 path A's attention (B4 H16 N2048 D128,
+// no band) the five f32 products are 344 GFLOP, six bf16 products each:
+// 2.08 ms at 989 / 6 = 165 TFLOP/s, against 0.19 GB of inputs and outputs
+// with a [B, 1, N, N] bias (0.06 ms at 3.35 TB/s; 2.3 GB, 0.69 ms, with a
+// [B, H, N, N] bias and its dbias). The design:
 //
-//   * One CTA owns 64 keys of one (batch, query head): warpgroup 0 is the
-//     producer (one thread issues every copy), warpgroup 1 the consumer, its
-//     f32 dK and dV (2 x D / 2 registers a thread) across every Q tile of 32
-//     rows that the band leaves (SEG: whose id range meets the KV tile's,
-//     from the wrapper's tile ranges; producer and consumer walk the same
-//     tiles). Each (query row, key) pair belongs to one CTA, so dbias
-//     [B, Hq, Nq, Nk] takes plain stores; the pairs of the Q tiles a CTA
-//     skips (the band, the ids) and the keys of the CTAs past kv_valid_len
-//     are never written: the wrapper zero-fills dbias for such calls.
+//   * One CTA owns 64 keys of one (batch, query head) and walks the Q tiles
+//     of 32 rows that the band leaves (SEG: whose id range meets the KV
+//     tile's, from the wrapper's tile ranges). Warpgroup 0 is the producer
+//     (one thread issues every copy; setmaxnreg leaves it 24 registers),
+//     warpgroups 1 and 2 are two consumers (240 registers each) that take
+//     the visits in turn: consumer c the visits c, c + 2, ..., each with its
+//     own (Q, dO) stage, dQ stage and f32 dK / dV for the CTA's 64 keys
+//     (2 x D / 2 registers a thread). While one consumer's products run, the
+//     other forms P^T with exp2f, splits P^T and dS^T and stores dbias, dS
+//     and dQ, so the tensor cores are fed from two instruction streams. The
+//     two partial dK / dV are added once through shared memory at the end,
+//     each consumer writing out one of the two. Each (query row, key) pair
+//     belongs to one CTA, so dbias [B, Hq, Nq, Nk] takes plain stores; the
+//     pairs of the Q tiles a CTA skips (the band, the ids) and the keys of
+//     the CTAs past kv_valid_len are never written: the wrapper zero-fills
+//     dbias for such calls.
 //   * Shared memory at D 128: K's and V's pieces for 64 keys, 2 x 3 x 16 KB =
 //     96 KB, once by TMA (rows past kv_valid_len read zeros, so a key the
-//     forward never read cannot put a NaN into dQ); two stages of (Q, dO)
-//     pieces with their LSE, Delta and (SEG) ids, 2 x 48 KB; dS's pieces 12
-//     KB; dQ's f32 stage 32 x 128 x 4 = 16 KB: 220 KB of the 227. 128 keys
-//     (two consumers) would take 192 KB for K and V alone, and 64-row Q
-//     tiles 96 KB a stage.
+//     forward never read cannot put a NaN into dQ); per consumer a (Q, dO)
+//     stage of the three pieces with LSE, Delta and (SEG) ids, 48 KB, and a
+//     16 KB region that holds the tile's dS pieces and then its f32 dQ:
+//     96 + 2 x 64 = 224 KB of the 227. The stage is released as soon as dK
+//     has retired, before dQ^T, so the producer loads the consumer's next
+//     tile under its dQ^T and the other consumer's products (released at
+//     the visit's end instead, the kernel takes 4-11% longer at D 128:
+//     chip_variants.py f32bias). A third stage has no room.
 //   * A Q / dO stage holds the three pieces stacked, rows 32p..32p+31 of a
 //     96-row tile. S^T = K Q^T and dP^T = V dO^T are each six chains of
 //     wgmma m64n32k16 from shared memory into one accumulator, issued
-//     together; P^T is formed while dP^T runs. ptxas 12.9 crashes (exit 139)
-//     on this kernel whenever a chain of six products is unrolled -- by 2, 3
-//     or 6, at m64n32k16 or m64n64k16, with a fence per product, or as
-//     chains of mixed widths sharing one accumulator, which would read
-//     shared memory a third less -- and on small changes to the loop form
-//     (chip_variants.py f32), so each chain is a loop over the products,
-//     and ptxas serializes the wgmma across its iterations (C7520).
-//   * BIAS: shared memory has no room for a bias tile (32 rows x 64 keys of
-//     f32 is 8 KB; 7 KB are left at D 128 beside two (Q, dO) stages), so
-//     each consumer thread reads its 16 values of the tile from global
+//     together; P^T is formed while dP^T runs. The chains are unrolled
+//     (chain_ss6), every base descriptor formed before the fence and each
+//     wgmma's own two inside its asm statement, so that ptxas issues them
+//     back to back (no C75xx note: chip_smoke.py phase_build) with two
+//     64-bit registers of descriptors live. As loops ptxas serializes them
+//     (C7520) and the kernel takes 1.4-1.9x as long; unrolled with the
+//     descriptors formed in C++ (which the compiler keeps in registers) it
+//     takes as long at D 128 and 8-19% longer at D 256 (chip_variants.py
+//     f32bias's "chain loops" and "descriptors in C++").
+//   * BIAS: each consumer thread reads its 16 values of the tile from global
 //     memory (L2) straight into S^T's fragment layout -- query row m + 8jj +
 //     2t + e, key 16w + g + 8r: each load instruction covers 8 keys of 4
 //     rows, four whole 32-byte sectors -- issued right after S^T and dP^T,
-//     so that they land while the products run (chip_variants.py f32bias
-//     times this against loads issued after S^T has retired). One (Q, dO)
-//     stage to make room would lose the overlap of the next tile's loads,
-//     and dS's region is busy with the previous tile's dQ until this
-//     tile's loop starts. dbias is stored from the same layout, P^T (dP^T -
-//     Delta) taken once dP^T has retired (streaming stores, whole sectors).
+//     so that they land while the products run. dbias is stored from the
+//     same layout, P^T (dP^T - Delta) taken once dP^T has retired
+//     (streaming stores, whole sectors).
 //   * P^T and dS^T are split into three bf16 A fragments each (the
 //     accumulator layout is the A layout); dV += P^T dO and dK += dS^T Q are
 //     six chains of wgmma m64nDk16 with A from registers and the stacked
-//     pieces as the N-major B. dS's pieces go to shared memory as [96 rows
-//     (piece, query)][64 keys], and dQ^T = K^T dS^T is computed per 64 of D's
-//     columns as S^T is, K's box the M-major A and dS's pieces the K-major B
-//     (a 32-row dQ tile is below wgmma's 64 rows; its transpose is not); it
-//     is staged as f32 [32][d] (exactly d columns) and added to dQ
+//     pieces as the N-major B. dS's pieces go to the consumer's dS / dQ
+//     region as [96 rows (piece, query)][64 keys], and dQ^T = K^T dS^T is
+//     computed per 64 of D's columns as S^T is, K's box the M-major A and
+//     dS's pieces the K-major B (a 32-row dQ tile is below wgmma's 64 rows;
+//     its transpose is not), all boxes' chains issued before one wait; it is
+//     staged over dS as f32 [32][d] (exactly d columns) and added to dQ
 //     by ONE cp.reduce.async.bulk per tile, for the tile's rows below Nq only
 //     (dQ is [B, Hq, Nq, d] contiguous: a full tile on the last, partial Q
 //     tile, or a row of D > d columns, would add into the next rows). dQ's
@@ -108,19 +116,26 @@
 //   * D 256 (every D 136-256): the D 128 layout does not double (K's and V's
 //     pieces alone would be 192 KB), so a cluster of two CTAs owns each (query
 //     head, 64 keys), rank r the D 128 body on D's columns [128 r, 128 r +
-//     128): its K / V / Q / dO pieces, dK / dV and dQ there. S^T and dP^T
-//     reduce over all of D, so each CTA sends its partial S^T and dP^T (32
-//     floats a thread, 16 KB) into its peer's shared memory
-//     (st.shared::cluster, an arrival on the peer's mbarrier at cluster
-//     scope, two buffers alternating by Q tile) and adds the peer's: both
-//     then hold the same S^T and dP^T and form the same P^T and dS^T. The
-//     walk (the band, the ids, the KV tail) derives from the head, the KV
-//     tile and the batch, never the rank, so both visit the same Q tiles.
-//     One (Q, dO) stage (the exchange buffers take the second's room: 96 +
-//     48 + 12 + 16 + 32 KB = 204 KB); dQ's half rows are not contiguous, so
-//     each is added by a bulk reduction of its own (warp 0's lanes, the
-//     tile's rows below Nq); dbias by rank 0 alone. At D 136 rank 1 holds 8
-//     real columns and the boxes' zeros.
+//     128): its K / V / Q / dO pieces, dK / dV and dQ there, with the same
+//     two consumers and two stages (the next tile's loads overlap this one's
+//     work). S^T and dP^T reduce over all of D, so consumer c of each CTA
+//     sends its partial S^T and dP^T (32 floats a thread, 16 KB) into its
+//     peer consumer's dS / dQ region (st.shared::cluster, an arrival on the
+//     peer's mbarrier at cluster scope) and adds the peer's: both then hold
+//     the same S^T and dP^T and form the same P^T and dS^T. The region is
+//     the exchange buffer first, then dS, then the dQ stage: a consumer
+//     writes into its peer's only once the peer's last bulk reduction has
+//     read it (the peer's arrival on x_free), so the layout is D 128's,
+//     224 KB. While one consumer waits on its peer, the other's products
+//     run. Without the softcap rank 0 alone reads the bias and adds bias /
+//     scale to its partial S^T before the exchange (both ranks then form
+//     the same sum, as IEEE addition commutes); the cap's tanh lies between
+//     S and the bias, so with it both ranks read the bias. The walk (the
+//     band, the ids, the KV tail) derives from the head, the KV tile and
+//     the batch, never the rank, so both visit the same Q tiles. dQ's half
+//     rows are not contiguous, so each is added by a bulk reduction of its
+//     own (warp 0's lanes, the tile's rows below Nq); dbias by rank 0
+//     alone. At D 136 rank 1 holds 8 real columns and the boxes' zeros.
 
 #include "sm90.cuh"
 #include "split_bf16x3.cuh"
@@ -153,66 +168,83 @@ namespace {
 
 using namespace fa;
 
-constexpr int F32B_BLOCK_N = 64;   // keys per CTA: one consumer warpgroup
+constexpr int F32B_BLOCK_N = 64;   // keys per CTA
 constexpr int F32B_BLOCK_M = 32;   // query rows per Q tile
 constexpr int F32B_STACK = 3 * F32B_BLOCK_M;  // rows of a stacked tile: three pieces
-constexpr int F32B_THREADS = 256;  // producer warpgroup + consumer warpgroup
+constexpr int F32B_THREADS = 384;  // producer warpgroup + two consumer warpgroups
 constexpr float F32B_NEG_GUARD = 0.5f * MASK_VALUE;
 
 // Shared-memory layout (bytes, from a 1024-byte-aligned base): K's three
 // pieces, V's three pieces (each DH / 64 boxes of 64 rows; DH the columns a
-// CTA holds: D, or at D 256 its half), STAGES stages of (Q, dO) as stacked
-// tiles (DH / 64 boxes of 96 rows each, piece p at rows 32p..), dS's stacked
-// tile [96][64] bf16, the f32 dQ stage [32][DH], at D 256 the two exchange
-// buffers (the peer's partial S^T and dP^T, [8][128] float4 each: chunk c of
-// thread i at c 128 + i), the ids (the KV tile's [64], each stage's Q
-// tile's [STAGES][32]), LSE and Delta [STAGES][32] each, then the mbarriers
-// kv_full, full[STAGES], empty[STAGES] and at D 256 x_full[2].
+// CTA holds: D, or at D 256 its half), then per consumer c a slot: its (Q,
+// dO) stage as stacked tiles (DH / 64 boxes of 96 rows each, piece p at rows
+// 32p..) and its region R (dS's stacked tile [96][64] bf16, then the f32 dQ
+// stage [32][DH]; at D 256 first the peer's partial S^T and dP^T, [8][128]
+// float4: chunk k of thread i at k 128 + i); then the ids (the KV tile's
+// [64], each stage's Q tile's [2][32]), LSE and Delta [2][32] each, then the
+// mbarriers kv_full, full[2], empty[2] and at D 256 x_full[2], x_free[2].
 template <int D>
 struct F32BwdSmem {
   static constexpr bool WIDE = D == 256;
   static constexpr int DH = WIDE ? 128 : D;
-  static constexpr int STAGES = WIDE ? 1 : 2;
   static constexpr int KVP = F32B_BLOCK_N * DH * 2;  // one piece of K or V
   static constexpr int OFF_V = 3 * KVP;
   static constexpr int QT = F32B_STACK * DH * 2;     // a stacked Q or dO tile
-  static constexpr int OFF_STAGE = 6 * KVP;
   static constexpr int STAGE = 2 * QT;
-  static constexpr int OFF_DS = OFF_STAGE + STAGES * STAGE;
-  static constexpr int OFF_DQ = OFF_DS + F32B_STACK * F32B_BLOCK_N * 2;
-  static constexpr int XBUF = 128 * 32 * 4;  // WIDE: one exchange buffer
-  static constexpr int OFF_X = OFF_DQ + F32B_BLOCK_M * DH * 4;
-  static constexpr int OFF_SEG = OFF_X + (WIDE ? 2 * XBUF : 0);
-  static constexpr int OFF_STATS = OFF_SEG + (F32B_BLOCK_N + STAGES * F32B_BLOCK_M) * 4;
-  static constexpr int BARS = OFF_STATS + 2 * STAGES * F32B_BLOCK_M * 4;
-  static constexpr int BYTES = 1024 + BARS + (1 + 2 * STAGES + (WIDE ? 2 : 0)) * 8;
-  static_assert(KVP % 1024 == 0 && QT % 1024 == 0 && OFF_DS % 1024 == 0,
+  static constexpr int DS = F32B_STACK * F32B_BLOCK_N * 2;
+  static constexpr int DQ = F32B_BLOCK_M * DH * 4;
+  static constexpr int R = DS > DQ ? DS : DQ;        // a consumer's dS / dQ region
+  static constexpr int SLOT = STAGE + R;
+  static constexpr int OFF_SLOT = 6 * KVP;
+  static constexpr int OFF_SEG = OFF_SLOT + 2 * SLOT;
+  static constexpr int OFF_STATS = OFF_SEG + (F32B_BLOCK_N + 2 * F32B_BLOCK_M) * 4;
+  static constexpr int BARS = OFF_STATS + 2 * 2 * F32B_BLOCK_M * 4;
+  static constexpr int BYTES = 1024 + BARS + (5 + (WIDE ? 4 : 0)) * 8;
+  static_assert(KVP % 1024 == 0 && QT % 1024 == 0 && R % 1024 == 0 && SLOT % 1024 == 0,
                 "the 128-byte swizzle repeats every 1024 bytes");
+  static_assert(!WIDE || R == 128 * 32 * 4, "D 256: the region holds the peer's partials");
+  static_assert(STAGE >= F32B_BLOCK_N * DH * 4, "a stage holds one consumer's dK or dV");
   static_assert(BYTES <= 232448, "a block's shared memory on sm_90");
 };
 
-// acc = the six bf16 products of A's pieces (a_s: piece 0, pieces
-// a_piece bytes apart) and B's (b_s: a stacked K-major tile, piece p at rows
-// 32p..), the small terms first, over K_STEPS k-steps of 16 along the
-// reduction; a_k(kk) / b_k(kk) give k-step kk's byte offset in A's / B's
-// layout, a_lbo A's leading byte offset (M-major A: its box size).
-template <int TA, int K_STEPS, typename AK, typename BK>
-__device__ __forceinline__ void issue_ss6(float (&acc)[16], const unsigned char* a_s, int a_piece,
-                                          const unsigned char* b_s, AK a_k, BK b_k,
-                                          uint32_t a_lbo) {
-  const uint64_t a0 = opaque(smem_desc(a_s, a_lbo, 1024));
-  const uint64_t b0 = opaque(smem_desc(b_s, 16, 1024));
-  wgmma_fence();
-#pragma unroll 1  // unrolled, the chains crash ptxas 12.9 (the header)
-  for (int x = 0; x < 6; ++x) {
-#pragma unroll
-    for (int kk = 0; kk < K_STEPS; ++kk) {
-      wgmma_ss_m64n32k16<TA>(acc, a0 + ((pair_a(x) * a_piece + a_k(kk)) >> 4),
-                             b0 + ((pair_b(x) * F32B_BLOCK_M * SW128_ROW + b_k(kk)) >> 4),
-                             x > 0 || kk > 0);
-    }
-  }
-  wgmma_commit();
+// One wgmma m64n32k16 from shared memory, D (64 x 32, f32) = A (64 x 16) B
+// (16 x 32), B K-major, A K-major (TA 0) or M-major (TA 1), added to D
+// unless ACC is 0: its descriptors a0 + AO and b0 + BO (AO, BO in 16-byte
+// units, into the start address) are formed inside this asm statement, so
+// that no chain holds more than its two base descriptors in registers.
+template <int TA, int AO, int BO, int ACC>
+__device__ __forceinline__ void wgmma_n32_at(float (&d)[16], uint64_t a0, uint64_t b0) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b64 da, db;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "add.s64 da, %16, %19;\n"
+      "add.s64 db, %17, %20;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "},"
+      " da, db, p, 1, 1, %21, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a0), "l"(b0), "r"(ACC), "n"(AO), "n"(BO), "n"(TA));
+}
+
+// Product I.. of a chain: acc = the six bf16 products of A's pieces (A_PIECE
+// bytes apart) and B's (a stacked K-major tile, piece p at rows 32p..), the
+// small terms first, over KS k-steps of 16 along the reduction; k-step kk is
+// (kk / 4) A_BOX + (kk % 4) A_COL bytes into A and (kk / 4) B_BOX + (kk % 4)
+// 32 into B. Unrolled by recursion: every offset is a constant.
+template <int TA, int KS, int A_PIECE, int A_BOX, int A_COL, int B_BOX, int I = 0>
+__device__ __forceinline__ void chain_ss6(float (&acc)[16], uint64_t a0, uint64_t b0) {
+  constexpr int x = I / KS, kk = I % KS;
+  constexpr int ao = pair_a(x) * A_PIECE + (kk / 4) * A_BOX + (kk % 4) * A_COL;
+  constexpr int bo = pair_b(x) * F32B_BLOCK_M * SW128_ROW + (kk / 4) * B_BOX + (kk % 4) * 32;
+  wgmma_n32_at<TA, (ao >> 4), (bo >> 4), (I > 0)>(acc, a0, b0);
+  if constexpr (I + 1 < 6 * KS) chain_ss6<TA, KS, A_PIECE, A_BOX, A_COL, B_BOX, I + 1>(acc, a0, b0);
 }
 
 template <int N>
@@ -240,6 +272,32 @@ __device__ __forceinline__ void issue_rs6(float (&acc)[D / 2], const uint32_t (&
   wgmma_commit();
 }
 
+// One consumer's dK and dV of this thread's keys (kv0, kv0 + 8): written per
+// query head, every key below Nk (zeros for keys no row reached); RING: per
+// KV head, added to the ring's rotating f32 accumulators (read, summed,
+// written back: the CTA is their one owner).
+template <int DH, bool RING>
+__device__ __forceinline__ void store_dkv(float* out, const float (&acc)[DH / 2],
+                                          const BwdF32Params& p, int64_t dkv_head, int kv0,
+                                          int c_off, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kv0 + 8 * r;
+    if (key >= p.nk) continue;
+    float* row = out + (dkv_head * p.nk + key) * p.d + c_off + 2 * t;
+#pragma unroll
+    for (int jj = 0; jj < DH / 8; ++jj) {
+      if (c_off + 8 * jj + 2 * t >= p.d) continue;
+      float2 v2 = make_float2(acc[4 * jj + 2 * r], acc[4 * jj + 2 * r + 1]);
+      if constexpr (RING) {
+        const float2 v0 = *reinterpret_cast<const float2*>(row + 8 * jj);
+        v2 = make_float2(v0.x + v2.x, v0.y + v2.y);
+      }
+      *reinterpret_cast<float2*>(row + 8 * jj) = v2;
+    }
+  }
+}
+
 template <int D, bool SEG, bool CAP, bool BIAS, bool RING>
 __global__ void __launch_bounds__(F32B_THREADS, 1)
     bwd_f32_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -252,18 +310,20 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
   constexpr bool WIDE = S::WIDE;
   constexpr int DH = S::DH;
   constexpr int BOXES = DH / 64;
-  constexpr int ST = S::STAGES;
+  // D 256 without the cap: rank 0 folds the bias into its partial S^T.
+  constexpr bool FOLD = WIDE && BIAS && !CAP;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
-  uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + ST;
-  uint64_t* x_full = empty + ST;  // WIDE: [2], one per exchange buffer
+  uint64_t* full = kv_full + 1;   // [2]
+  uint64_t* empty = full + 2;     // [2]
+  uint64_t* x_full = empty + 2;   // WIDE: [2], the peer's partials have landed
+  uint64_t* x_free = x_full + 2;  // WIDE: [2], the peer's region may be written
   int* seg_kv_s = reinterpret_cast<int*>(smem + S::OFF_SEG);
-  int* seg_q_s = seg_kv_s + F32B_BLOCK_N;                            // [ST][32]
-  float* s_stats = reinterpret_cast<float*>(smem + S::OFF_STATS);   // lse[ST][32], delta[ST][32]
-  auto stage = [&](int s) { return smem + S::OFF_STAGE + s * S::STAGE; };
+  int* seg_q_s = seg_kv_s + F32B_BLOCK_N;                            // [2][32]
+  float* s_stats = reinterpret_cast<float*>(smem + S::OFF_STATS);   // lse[2][32], delta[2][32]
+  auto stage = [&](int s) { return smem + S::OFF_SLOT + s * S::SLOT; };
 
   // WIDE: a cluster of two CTAs per (query head, KV tile), rank r holding D's
   // columns [128 r, 128 r + 128); both walk the same Q tiles (everything
@@ -296,7 +356,8 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
     if (n_m > 0) k_rng = p.kv_range[b * p.kv_tiles + n_tile];
   }
   // The first visited Q tile at or after i (SEG: whose id range meets the KV
-  // tile's); producer and consumer walk the same tiles.
+  // tile's); producer and consumers walk the same tiles, visit `it` (0, 1,
+  // ...) going to consumer it % 2 through stage it % 2.
   auto next_visit = [&](int i) {
     if constexpr (SEG) {
       while (i < n_m && !ranges_meet(p.q_range[b * p.q_tiles + t0 + i], k_rng)) ++i;
@@ -310,12 +371,15 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < ST; ++s) {
+    for (int s = 0; s < 2; ++s) {
       mbar_init(&full[s], 1);   // the TMA thread's expect_tx
-      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+      mbar_init(&empty[s], 4);  // one arrival per warp of the stage's consumer
     }
     if constexpr (WIDE) {
-      for (int s = 0; s < 2; ++s) mbar_init(&x_full[s], 128);  // each peer consumer thread
+      for (int s = 0; s < 2; ++s) {
+        mbar_init(&x_full[s], 128);  // each thread of the peer's consumer s
+        mbar_init(&x_free[s], 1);    // the peer's consumer s, once its region is read
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -324,6 +388,7 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
 
   if (wg == 0) {
     // Producer: thread 0 issues the copies.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == 0 && first < n_m) {
       mbar_expect_tx(kv_full, 6 * S::KVP + (SEG ? F32B_BLOCK_N * 4 : 0));
 #pragma unroll
@@ -342,11 +407,11 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       }
       int it = 0;
       for (int w = first; w < n_w; w = next_visit(w + 1), ++it) {
-        const int s = it % ST;
+        const int s = it & 1;
         const int m = m_begin + (RING ? w % n_m : w) * F32B_BLOCK_M;
         const int h = RING ? h0 + w / n_m : h0;
         unsigned char* st = stage(s);
-        mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);  // round 0 passes at once
+        mbar_wait(&empty[s], ((it >> 1) & 1) ^ 1);  // each stage's round 0 passes at once
         mbar_expect_tx(&full[s], 2 * S::QT + 2 * F32B_BLOCK_M * 4 + (SEG ? F32B_BLOCK_M * 4 : 0));
 #pragma unroll
         for (int pc = 0; pc < 3; ++pc) {
@@ -360,7 +425,7 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
         }
         const int64_t row = (static_cast<int64_t>(b) * p.hq + h) * p.nq_pad + m;
         bulk_load(s_stats + s * F32B_BLOCK_M, p.lse + row, F32B_BLOCK_M * 4, &full[s]);
-        bulk_load(s_stats + (ST + s) * F32B_BLOCK_M, p.delta + row, F32B_BLOCK_M * 4, &full[s]);
+        bulk_load(s_stats + (2 + s) * F32B_BLOCK_M, p.delta + row, F32B_BLOCK_M * 4, &full[s]);
         if constexpr (SEG) {
           bulk_load(seg_q_s + s * F32B_BLOCK_M,
                     p.seg_q + static_cast<int64_t>(b) * p.q_tiles * F32B_BLOCK_M + m,
@@ -369,7 +434,10 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       }
     }
   } else {
-    // Consumer: warpgroup 1, the tile's 64 keys.
+    // Consumer c: warpgroup 1 + c, the tile's 64 keys, visits c, c + 2, ...
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1;
+    const int bar = 1 + c;  // this consumer's named barrier (128 threads)
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int g = lane >> 2;  // accumulator row group
@@ -377,16 +445,17 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
     const int kv0 = n0 + warp * 16 + g;  // this thread's keys kv0 and kv0 + 8
     const unsigned char* k_s = smem;
     const unsigned char* v_s = smem + S::OFF_V;
-    unsigned char* ds_s = smem + S::OFF_DS;
-    float* dq_stage = reinterpret_cast<float*>(smem + S::OFF_DQ);
+    unsigned char* q_st = stage(c);
+    const unsigned char* do_st = q_st + S::QT;
+    unsigned char* r_s = q_st + S::STAGE;  // WIDE: the peer's partials, then dS, then dQ
+    float* dq_stage = reinterpret_cast<float*>(r_s);
     // Issue the dQ reductions: thread 0 the tile's, or at D 256 the 32 lanes
     // of warp 0 one row each (a CTA's columns are not contiguous across rows).
     const bool issuer = WIDE ? tid < 32 : tid == 0;
     const int d = p.d;  // the columns of dQ / dK / dV, d <= D (the boxes read zeros past it)
     const int dcols = WIDE ? min(DH, d - c_off) : d;  // this CTA's columns of dQ
-    // K steps: along D (S^T, dP^T: 32 bytes into a row, a box every 4) and
-    // along the tile's 64 keys (dQ^T: 16 rows of K, 32 bytes into dS's rows).
-    auto d_step = [](int kk) { return (kk % 4) * 32; };
+    // The rank that reads the bias (FOLD: rank 0 alone).
+    const bool bias_reader = !FOLD || rank == 0;
 
     float dk[DH / 2], dv[DH / 2];
     zero(dk);
@@ -401,12 +470,11 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
     }
     int it = 0;
     for (int w = first; w < n_w; w = next_visit(w + 1), ++it) {
-      const int s = it % ST;
+      if ((it & 1) != c) continue;  // the other consumer's visit
+      const int j = it >> 1;        // this consumer's visit count
       const int m = m_begin + (RING ? w % n_m : w) * F32B_BLOCK_M;  // the tile's first row
       const int h = RING ? h0 + w / n_m : h0;
-      const unsigned char* q_st = stage(s);
-      const unsigned char* do_st = q_st + S::QT;
-      mbar_wait(&full[s], (it / ST) & 1);
+      mbar_wait(&full[c], j & 1);
       // This thread's coordinates, opaque to the compiler: the ~60 addresses
       // derived from them (LSE / Delta, the dS and dQ stage stores) are
       // recomputed each tile instead of being held in registers across the
@@ -425,75 +493,103 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
       // S^T = K Q^T and dP^T = V dO^T: rows are the tile's keys, columns its
       // 32 query rows; dP^T runs while P^T is formed.
       float sc[16], dp[16];
-      auto a_d = [](int kk) { return (kk / 4) * F32B_BLOCK_N * SW128_ROW + (kk % 4) * 32; };
-      auto b_d = [](int kk) { return (kk / 4) * F32B_STACK * SW128_ROW + (kk % 4) * 32; };
-      issue_ss6<0, DH / 16>(sc, k_s, S::KVP, q_st, a_d, b_d, 16);
-      issue_ss6<0, DH / 16>(dp, v_s, S::KVP, do_st, a_d, b_d, 16);
+      {
+        // Every descriptor a chain reads is formed before the fence.
+        const uint64_t kd = opaque(smem_desc(k_s, 16, 1024));
+        const uint64_t vd = opaque(smem_desc(v_s, 16, 1024));
+        const uint64_t qd = opaque(smem_desc(q_st, 16, 1024));
+        const uint64_t dd = opaque(smem_desc(do_st, 16, 1024));
+        wgmma_fence();
+        chain_ss6<0, DH / 16, S::KVP, F32B_BLOCK_N * SW128_ROW, 32, F32B_STACK * SW128_ROW>(
+            sc, kd, qd);
+        wgmma_commit();
+        chain_ss6<0, DH / 16, S::KVP, F32B_BLOCK_N * SW128_ROW, 32, F32B_STACK * SW128_ROW>(
+            dp, vd, dd);
+        wgmma_commit();
+      }
       // BIAS: bv[4jj + 2r + e] the bias of query row m + 8jj + 2t + e, key kvt
       // + 8r (S^T's layout), loaded while the products run; an edge tile
       // reads only rows below Nq and keys below kv_valid_len.
       float bv[BIAS ? 16 : 1];
       if constexpr (BIAS) {  // bwd f32 bias prefetch
-        const float* brow = p.bias + b * p.bias_sb + h * p.bias_sh +
-                            static_cast<int64_t>(m + 2 * tt) * p.bias_sn + kvt;
+        if (bias_reader) {
+          const float* brow = p.bias + b * p.bias_sb + h * p.bias_sh +
+                              static_cast<int64_t>(m + 2 * tt) * p.bias_sn + kvt;
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+          for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
+            for (int r = 0; r < 2; ++r) {
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int row = m + 8 * jj + 2 * tt + e;
-              const bool in = !edge || (row < p.nq && kvt + 8 * r < p.kv_valid_len);
-              bv[4 * jj + 2 * r + e] = in ? __ldg(brow + (8 * jj + e) * p.bias_sn + 8 * r) : 0.f;
+              for (int e = 0; e < 2; ++e) {
+                const int row = m + 8 * jj + 2 * tt + e;
+                const bool in = !edge || (row < p.nq && kvt + 8 * r < p.kv_valid_len);
+                bv[4 * jj + 2 * r + e] =
+                    in ? __ldg(brow + (8 * jj + e) * p.bias_sn + 8 * r) : 0.f;
+              }
             }
           }
         }
       }
-      wgmma_wait<WIDE ? 0 : 1>();
-      fence_regs(sc);
       if constexpr (WIDE) {
-        // The partial S^T and dP^T over this CTA's 128 columns to the peer,
-        // and the peer's added to them (mine + peer's: the same sums, bit for
-        // bit, in both CTAs, as IEEE addition commutes), through distributed
-        // shared memory: thread tid writes its 32 floats into the peer's
-        // buffer `xb` at chunk c 128 + tid, then arrives there on x_full[xb];
-        // both buffers alternate by visit, so a buffer is written again only
-        // after every peer thread has read it (it has sent the next visit).
+        // The peer's region is free once its last bulk reduction has read
+        // it: tell the peer that ours is (the reduction of our visit j - 1).
+        if (j > 0 && issuer) {
+          bulk_wait_read();
+          __syncwarp();
+          if (tid == 0) mbar_arrive_cluster(cluster_addr(smem_u32(&x_free[c]), rank ^ 1));
+        }
+        wgmma_wait<0>();
+        fence_regs(sc);
         fence_regs(dp);
-        const int xb = it & 1;
-        const uint32_t mine = smem_u32(smem + S::OFF_X + xb * S::XBUF) + 16 * tid;
+        if constexpr (FOLD) {
+          if (rank == 0) {
+#pragma unroll
+            // bias / scale may overflow to -inf on the mask value: floored at
+            // the mask value in P^T, P stays exactly 0 there.
+            for (int i = 0; i < 16; ++i) sc[i] += bv[i] * (1.f / p.scale);  // bwd f32 d256 bias fold
+          }
+        }
+        // The partial S^T and dP^T over this CTA's 128 columns to the peer
+        // consumer, and the peer's added to them (mine + peer's: the same
+        // sums, bit for bit, in both CTAs, as IEEE addition commutes),
+        // through distributed shared memory: thread tid writes its 32
+        // floats into the peer's region at chunk k 128 + tid, then arrives
+        // there on x_full[c].
+        mbar_wait_cluster(&x_free[c], (j & 1) ^ 1);  // round 0 passes at once
+        const uint32_t mine = smem_u32(r_s) + 16 * tid;
         const uint32_t peer = cluster_addr(mine, rank ^ 1);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          st_cluster_f4(peer + c * 128 * 16, sc[4 * c], sc[4 * c + 1], sc[4 * c + 2],
-                        sc[4 * c + 3]);
-          st_cluster_f4(peer + (4 + c) * 128 * 16, dp[4 * c], dp[4 * c + 1], dp[4 * c + 2],
-                        dp[4 * c + 3]);
+        for (int k4 = 0; k4 < 4; ++k4) {
+          st_cluster_f4(peer + k4 * 128 * 16, sc[4 * k4], sc[4 * k4 + 1], sc[4 * k4 + 2],
+                        sc[4 * k4 + 3]);
+          st_cluster_f4(peer + (4 + k4) * 128 * 16, dp[4 * k4], dp[4 * k4 + 1], dp[4 * k4 + 2],
+                        dp[4 * k4 + 3]);
         }
-        mbar_arrive_cluster(cluster_addr(smem_u32(&x_full[xb]), rank ^ 1));
-        mbar_wait_cluster(&x_full[xb], (it >> 1) & 1);
+        mbar_arrive_cluster(cluster_addr(smem_u32(&x_full[c]), rank ^ 1));
+        mbar_wait_cluster(&x_full[c], j & 1);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float4 xs = *reinterpret_cast<const float4*>(
-              smem + S::OFF_X + xb * S::XBUF + 16 * (c * 128 + tid));
-          const float4 xd = *reinterpret_cast<const float4*>(
-              smem + S::OFF_X + xb * S::XBUF + 16 * ((4 + c) * 128 + tid));
-          sc[4 * c] += xs.x;  // bwd f32 d256 peer S^T
-          sc[4 * c + 1] += xs.y;
-          sc[4 * c + 2] += xs.z;
-          sc[4 * c + 3] += xs.w;
-          dp[4 * c] += xd.x;
-          dp[4 * c + 1] += xd.y;
-          dp[4 * c + 2] += xd.z;
-          dp[4 * c + 3] += xd.w;
+        for (int k4 = 0; k4 < 4; ++k4) {
+          const float4 xs = *reinterpret_cast<const float4*>(r_s + 16 * (k4 * 128 + tid));
+          const float4 xd = *reinterpret_cast<const float4*>(r_s + 16 * ((4 + k4) * 128 + tid));
+          sc[4 * k4] += xs.x;  // bwd f32 d256 peer S^T
+          sc[4 * k4 + 1] += xs.y;
+          sc[4 * k4 + 2] += xs.z;
+          sc[4 * k4 + 3] += xs.w;
+          dp[4 * k4] += xd.x;
+          dp[4 * k4 + 1] += xd.y;
+          dp[4 * k4 + 2] += xd.z;
+          dp[4 * k4 + 3] += xd.w;
         }
+      } else {
+        wgmma_wait<1>();
+        fence_regs(sc);
       }
 
       // P^T: sc[4jj + 2r + e] is key kvt + 8r, query row m + 8jj + 2t + e; a
       // dead row's LSE becomes +inf (P = 0 exactly).
-      const uint32_t lse_addr = smem_u32(s_stats + s * F32B_BLOCK_M + 2 * tt);
-      const uint32_t dlt_addr = smem_u32(s_stats + (ST + s) * F32B_BLOCK_M + 2 * tt);
-      const int* q_ids = seg_q_s + s * F32B_BLOCK_M + 2 * tt;  // SEG: this thread's query ids
+      const uint32_t lse_addr = smem_u32(s_stats + c * F32B_BLOCK_M + 2 * tt);
+      const uint32_t dlt_addr = smem_u32(s_stats + (2 + c) * F32B_BLOCK_M + 2 * tt);
+      const int* q_ids = seg_q_s + c * F32B_BLOCK_M + 2 * tt;  // SEG: this thread's query ids
       float pj[16];  // P^T (CAP: P^T (1 - tt^2)), all dS^T needs
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
@@ -517,7 +613,11 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
             } else {
               x = sc[i] * p.scale_log2;
             }
-            if constexpr (BIAS) x = fmaxf(x + bv[i] * LOG2E, MASK_VALUE);
+            if constexpr (FOLD) {
+              x = fmaxf(x, MASK_VALUE);  // the bias is in S^T already
+            } else if constexpr (BIAS) {
+              x = fmaxf(x + bv[i] * LOG2E, MASK_VALUE);
+            }
             float pe = exp2f(x - l2[e]);
             if (edge) {
               const int key = kvt + 8 * r;
@@ -533,8 +633,10 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
           }
         }
       }
-      wgmma_wait<0>();
-      fence_regs(dp);
+      if constexpr (!WIDE) {
+        wgmma_wait<0>();
+        fence_regs(dp);
+      }
       if constexpr (BIAS) {
         if (p.dbias != nullptr && (!WIDE || rank == 0)) {  // bwd f32 dbias rank
           // dbias = dL^T = P^T (dP^T - Delta), before the scale and the cap's
@@ -561,7 +663,7 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
 
       // dV += P^T dO, its six products with A from registers; dS^T = P^T
       // (dP^T - Delta) scale (CAP: P^T (1 - tt^2)) meanwhile. P^T's and dS^T's
-      // pieces are not live together: 48 registers would pass the 255.
+      // pieces are not live together: 48 registers would pass the budget.
       {
         uint32_t pa[3][2][4];
         split3_frags<2>(pa, sc);
@@ -584,13 +686,28 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
           for (int kk = 0; kk < 2; ++kk) fence_regs(pa[pc][kk]);
         }
       }
-      // dK += dS^T Q, and dS's pieces into the stacked [96][64] tile (rows 32p
-      // + query, keys along the 128-byte rows, the swizzle's chunk order:
-      // 16-byte chunk c of row R at c ^ (R % 8)): da[p][kk][i] holds key kvt +
-      // 8 (i & 1), queries 16kk + 8 (i >> 1) + 2t and + 1.
+      // dK += dS^T Q; then the stage (Q, dO, LSE, Delta, ids) is free for the
+      // consumer's next tile while dQ^T runs.
       uint32_t da[3][2][4];
       split3_frags<2>(da, dp);
       issue_rs6<DH>(dk, da, q_st);
+      wgmma_wait<0>();  // dK has retired
+      fence_regs(dk);
+#pragma unroll
+      for (int pc = 0; pc < 3; ++pc) {
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) fence_regs(da[pc][kk]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[c]);  // bwd f32 stage release
+      // The region: every thread has read the peer's partials (WIDE), the
+      // last tile's reduction has read the dQ stage (issuer's wait).
+      if (!WIDE && issuer) bulk_wait_read();
+      named_sync(bar, 128);
+      // dS's pieces into the stacked [96][64] tile (rows 32p + query, keys
+      // along the 128-byte rows, the swizzle's chunk order: 16-byte chunk c
+      // of row R at c ^ (R % 8)): da[p][kk][i] holds key kvt + 8 (i & 1),
+      // queries 16kk + 8 (i >> 1) + 2t and + 1.
 #pragma unroll
       for (int pc = 0; pc < 3; ++pc) {
 #pragma unroll
@@ -601,7 +718,7 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int row = F32B_BLOCK_M * pc + 16 * kk + 8 * (i >> 1) + 2 * tt + e;
-              *reinterpret_cast<uint16_t*>(ds_s + row * SW128_ROW +
+              *reinterpret_cast<uint16_t*>(r_s + row * SW128_ROW +
                                            (((key >> 3) ^ (row & 7)) << 4) + (key & 7) * 2) =
                   static_cast<uint16_t>(da[pc][kk][i] >> (16 * e));
             }
@@ -609,43 +726,48 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
         }
       }
       fence_proxy_async();
-      wgmma_wait<0>();  // dK has retired
-      fence_regs(dk);
-#pragma unroll
-      for (int pc = 0; pc < 3; ++pc) {
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) fence_regs(da[pc][kk]);
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);  // this tw is done with (Q, dO, LSE, Delta)
-      if (issuer) bulk_wait_read();  // the last tile's reduction has read the dQ stage
-      named_sync(1, 128);            // dS written by every tw, the dQ stage free
+      named_sync(bar, 128);  // dS written by every warp
 
-      // dQ^T = K^T dS^T, 64 of the CTA's columns at a time: dq[4jj + 2r + e]
-      // is column c_off + 64x + 16 tw + tg + 8r, query row 8jj + 2t + e,
-      // staged into the row-major [32][dcols] tile (dQ's own layout; at D 256
-      // the CTA's half of each row).
+      // dQ^T = K^T dS^T, 64 of the CTA's columns a box, every box's chain
+      // issued before one wait: dq[x][4jj + 2r + e] is column c_off + 64x +
+      // 16 tw + tg + 8r, query row 8jj + 2t + e, staged over dS into the
+      // row-major [32][dcols] tile (dQ's own layout; at D 256 the CTA's half
+      // of each row).
+      float dq[BOXES][16];
+      {
+        const uint64_t sd = opaque(smem_desc(r_s, 16, 1024));
+        uint64_t kb[BOXES];
+#pragma unroll
+        for (int x = 0; x < BOXES; ++x) {
+          kb[x] = opaque(smem_desc(k_s + x * F32B_BLOCK_N * SW128_ROW, F32B_BLOCK_N * SW128_ROW,
+                                   1024));
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int x = 0; x < BOXES; ++x) {
+          chain_ss6<1, F32B_BLOCK_N / 16, S::KVP, 0, 16 * SW128_ROW, 0>(dq[x], kb[x], sd);
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int x = 0; x < BOXES; ++x) fence_regs(dq[x]);
+      }
+      named_sync(bar, 128);  // every warp's dQ^T has read dS
 #pragma unroll
       for (int x = 0; x < BOXES; ++x) {
-        float dq[16];
-        issue_ss6<1, F32B_BLOCK_N / 16>(
-            dq, k_s + x * F32B_BLOCK_N * SW128_ROW, S::KVP, ds_s,
-            [](int kk) { return kk * 16 * SW128_ROW; }, d_step, F32B_BLOCK_N * SW128_ROW);
-        wgmma_wait<0>();
-        fence_regs(dq);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int col = 64 * x + tw * 16 + tg + 8 * r;
           if (col >= dcols) continue;  // bwd f32 dQ stage columns
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
-            dq_stage[(8 * jj + 2 * tt) * dcols + col] = dq[4 * jj + 2 * r];
-            dq_stage[(8 * jj + 2 * tt + 1) * dcols + col] = dq[4 * jj + 2 * r + 1];
+            dq_stage[(8 * jj + 2 * tt) * dcols + col] = dq[x][4 * jj + 2 * r];
+            dq_stage[(8 * jj + 2 * tt + 1) * dcols + col] = dq[x][4 * jj + 2 * r + 1];
           }
         }
       }
       fence_proxy_async();
-      named_sync(2, 128);  // the whole dQ tile is staged; dS is free for the next tile
+      named_sync(bar, 128);  // the whole dQ tile is staged
       if (issuer) {
         // Only the tile's rows below Nq: dQ is [B, Hq, Nq, d] contiguous, so
         // a full 32 rows on the last tile would add into the next head's.
@@ -664,34 +786,34 @@ __global__ void __launch_bounds__(F32B_THREADS, 1)
         bulk_commit();
       }
     }
-    if (issuer) bulk_wait();
 
-    // dK and dV of this thread's keys, per query head; every key below Nk is
-    // written (zeros for keys no row reached). RING: per KV head, added to
-    // the ring's rotating f32 accumulators (read, summed, written back: the
-    // CTA is their one owner).
+    // The two consumers' dK / dV added once: consumer 0 hands its dK over
+    // through its stage, consumer 1 its dV through its own (both stages are
+    // done with: every visit has retired), each thread's values at [i][tid],
+    // the same thread of the other consumer holding the same keys and
+    // columns; consumer 0 then writes dV, consumer 1 dK.
+    float* mine_s = reinterpret_cast<float*>(stage(c));
+    const float* theirs_s = reinterpret_cast<const float*>(stage(c ^ 1));
+    const int64_t dkv_head = RING ? static_cast<int64_t>(b) * (p.hq / p.rep) + hk
+                                  : static_cast<int64_t>(b) * p.hq + head;
+    if (c == 0) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = kv0 + 8 * r;
-      if (key >= p.nk) continue;
-      const int64_t dkv_head = RING ? static_cast<int64_t>(b) * (p.hq / p.rep) + hk
-                                    : static_cast<int64_t>(b) * p.hq + head;
-      const int64_t off = (dkv_head * p.nk + key) * d + c_off + 2 * t;
+      for (int i = 0; i < DH / 2; ++i) mine_s[i * 128 + tid] = dk[i];
+    } else {
 #pragma unroll
-      for (int jj = 0; jj < DH / 8; ++jj) {
-        if (c_off + 8 * jj + 2 * t >= d) continue;
-        float2 k2 = make_float2(dk[4 * jj + 2 * r], dk[4 * jj + 2 * r + 1]);
-        float2 v2 = make_float2(dv[4 * jj + 2 * r], dv[4 * jj + 2 * r + 1]);
-        if constexpr (RING) {
-          const float2 k0 = *reinterpret_cast<const float2*>(p.dk + off + 8 * jj);
-          const float2 v0 = *reinterpret_cast<const float2*>(p.dv + off + 8 * jj);
-          k2 = make_float2(k0.x + k2.x, k0.y + k2.y);
-          v2 = make_float2(v0.x + v2.x, v0.y + v2.y);
-        }
-        *reinterpret_cast<float2*>(p.dk + off + 8 * jj) = k2;
-        *reinterpret_cast<float2*>(p.dv + off + 8 * jj) = v2;
-      }
+      for (int i = 0; i < DH / 2; ++i) mine_s[i * 128 + tid] = dv[i];
     }
+    named_sync(3, 256);  // bwd f32 dkv handover
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) dv[i] += theirs_s[i * 128 + tid];
+      store_dkv<DH, RING>(p.dv, dv, p, dkv_head, kv0, c_off, t);
+    } else {
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) dk[i] += theirs_s[i * 128 + tid];
+      store_dkv<DH, RING>(p.dk, dk, p, dkv_head, kv0, c_off, t);
+    }
+    if (issuer) bulk_wait();
   }
   // WIDE: no CTA leaves while its peer may still write into its shared memory.
   if constexpr (WIDE) cluster_sync();

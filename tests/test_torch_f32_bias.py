@@ -8,7 +8,10 @@ refusals; on a simulated card (meta tensors, the device checks off, a
 stand-in library with the C entries' argtypes recording every call) the C
 arguments of ``fa_fwd_f32`` / ``fa_bwd_f32`` with the bias, its strides and
 dbias, dK / dV per KV head, the launch counters and dbias zero-filled
-exactly where ``dbias_skips`` says; every call of the f32 attention module
+exactly where ``dbias_skips`` says, and the Q / KV tiles and padding that
+``_f32_bwd_launch`` passes; dbias against the JAX ``flash_attention`` exactly
+0 on the pairs the body's walk (``chip_smoke.f32_bwd_walk``) skips, and
+chip_smoke's walk cases visiting as they are named; every call of the f32 attention module
 taking the f32 bias routes; and f32 path A's plain function (the card gate's
 reference, ``chip_smoke._plain_mhdpa``) against flax's
 ``MultiHeadDotProductAttention`` on shared numpy weights (the JAX tests'
@@ -28,12 +31,14 @@ import pytest
 import torch
 
 import chip_smoke
+import flashattn_tpu
 import flashattn_tpu_torch
 from flashattn_tpu_torch.integrations import FlashMultiHeadDotProductAttention, make_attention_mask
 from flashattn_tpu_torch.models.convert import mhdpa_from_flax
 from flashattn_tpu_torch.ops import flash_bwd, flash_fwd
 from flashattn_tpu_torch.ops.oracle import DEFAULT_MASK_VALUE
 from flashattn_tpu_torch.utils import native
+from flashattn_tpu_torch.utils.testing import BWD_TOL, assert_close, make_qkv
 
 F32 = torch.float32
 
@@ -280,6 +285,128 @@ def test_f32_dbias_is_zero_filled_where_pairs_go_unwritten(card, monkeypatch, ca
     assert flash_bwd.dbias_skips(causal=kw.get("causal", False), window=kw.get("window"),
                                  segment_ids=kw.get("segment_ids"),
                                  kv_valid_len=kw.get("kv_valid_len", N), nk=N) == zeroed
+
+
+# ---------------------------------------------------------------------------
+# The f32 body's walk (chip_smoke.f32_bwd_walk): each CTA's two consumers take
+# its KV tile's visits in turn; the pairs of the Q tiles it skips are never
+# written, so dbias must be 0 there in the oracle and zero-filled by the
+# wrapper.
+
+
+def _walk_ids(B, Nq, Nk):
+    """Ids whose Q tiles alternate 0 / 1 and whose KV tiles alternate 0 / 1:
+    each KV tile's walk skips every other Q tile, and every row sees keys."""
+    qt, kt = flash_bwd.F32_BWD_Q_TILE, flash_bwd.F32_BWD_KV_TILE
+    return tuple(np.broadcast_to((np.arange(n) // t % 2).astype(np.int32), (B, n)).copy()
+                 for n, t in ((Nq, qt), (Nk, kt)))
+
+
+# (B, Hq, Hkv, Nq, Nk, D, options): the walk skips every other Q tile by the
+# ids (Nq not a multiple of the Q tile), skips whole KV tiles (causal keys
+# past Nq), or visits one Q tile a KV tile.
+WALKS = {"ids skipping every other Q tile": (2, 2, 1, 150, 160, 32, dict(ids=True)),
+         "causal, KV tiles no Q tile meets": (1, 2, 2, 100, 300, 32, dict(causal=True)),
+         "one Q tile a KV tile": (2, 2, 2, 20, 300, 32, {})}
+
+
+@pytest.mark.parametrize("case", list(WALKS))
+def test_f32_dbias_is_zero_where_the_walk_skips_tiles(case):
+    """dbias of a full [B, Hq, Nq, Nk] bias: the port's flash_attention on
+    f32 CPU tensors (the plain bias route) against jax.vjp of the JAX
+    flash_attention (its Pallas kernels in interpret mode) within
+    BWD_TOL[f32]; both exactly 0 on every pair of the (Q tile, KV tile)
+    pairs the f32 body leaves unvisited; dbias_skips asks for the zero fill
+    exactly when there are such pairs."""
+    B, Hq, Hkv, Nq, Nk, D, opts = WALKS[case]
+    q, k, v = make_qkv(41, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv)
+    do = make_qkv(42, B, Hq, Nq, D)[0]
+    bias = np.random.default_rng(43).standard_normal((B, Hq, Nq, Nk), dtype=np.float32)
+    causal = opts.get("causal", False)
+    ids = _walk_ids(B, Nq, Nk) if opts.get("ids") else None
+    jkw = dict(causal=causal, **({} if ids is None else {
+        "segment_ids": tuple(jnp.asarray(x) for x in ids)}))
+    _, vjp = jax.vjp(lambda a, b, c, d: flashattn_tpu.flash_attention(a, b, c, bias=d, **jkw),
+                     *(jnp.asarray(x) for x in (q.numpy(), k.numpy(), v.numpy(), bias)))
+    want = np.array(vjp(jnp.asarray(do.numpy()))[3])
+    seg = None if ids is None else tuple(torch.from_numpy(x) for x in ids)
+    leaf = torch.from_numpy(bias).requires_grad_(True)
+    o = flashattn_tpu_torch.flash_attention(q, k, v, bias=leaf, causal=causal, segment_ids=seg)
+    (got,) = torch.autograd.grad(o, (leaf,), do)
+    assert_close(got, want, BWD_TOL[F32], "dbias")
+    walk = chip_smoke.f32_bwd_walk(Nq, Nk, causal=causal, segment_ids=seg)
+    qt, kt = flash_bwd.F32_BWD_Q_TILE, flash_bwd.F32_BWD_KV_TILE
+    unvisited = (~walk).repeat_interleave(qt, 1)[:, :Nq].repeat_interleave(kt, 2)[:, :, :Nk]
+    unvisited = unvisited[:, None].expand(B, Hq, Nq, Nk)
+    assert (got[unvisited] == 0).all() and (torch.from_numpy(want)[unvisited] == 0).all()
+    assert flash_bwd.dbias_skips(causal=causal, window=None, segment_ids=seg, kv_valid_len=Nk,
+                                 nk=Nk) == bool(unvisited.any())
+
+
+def test_chip_smoke_walk_cases_visit_as_named(monkeypatch):
+    """chip_smoke's cases for the two consumers' walk visit what their names
+    say: an odd count of Q tiles on every KV tile, one Q tile, KV tiles that
+    no Q tile meets, every other Q tile skipped (an odd count left)."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    cases = {c[0]: c for c in chip_smoke.F32_CASES}
+
+    def walk(name):
+        _, B, _, _, Nq, Nk, _, kw, ids = cases[name]
+        seg = None if ids is None else chip_smoke._seg_case_ids(ids, 0, B, Nq, Nk)
+        return chip_smoke.f32_bwd_walk(Nq, Nk, causal=kw.get("causal", False),
+                                       segment_ids=seg).sum(1)
+
+    assert (walk("Nq160 Nk200: five Q tiles a KV tile") == 5).all()
+    assert (walk("Nq20 Nk300: one Q tile a KV tile") == 1).all()
+    visits = walk("Nq100 Nk300 causal: KV tiles no Q tile meets")
+    assert (visits == 0).any() and (visits > 0).any()
+    assert (walk("Nq288 ids skipping every other Q tile") == 5).all()
+    ring = {c[0]: c for c in chip_smoke.RING_WIDE_CASES}
+    for name in ("f32 GQA 3/1 window (31, -1)", "f32 D256 GQA 3/1 window (31, -1)"):
+        _, _, ranks, chunk, hq, hkv, _, causal, window, _, _ = ring[name]
+        # The diagonal step's walk of a KV tile: (64 + lo) rows from its first, 3 tiles.
+        rows = flash_bwd.F32_BWD_KV_TILE + window[0]
+        assert causal and hq // hkv == 3 and -(-rows // flash_bwd.F32_BWD_Q_TILE) == 3
+
+
+# (Nq, D): Nq off and on the Q tile; the D 64, 128 and 256 forms.
+TILES = [(20, 64), (150, 128), (288, 256), (2048, 128)]
+
+
+@pytest.mark.parametrize("Nq,D", TILES)
+def test_f32_bwd_launch_passes_the_bodys_tiles(card, monkeypatch, Nq, D):
+    """bias_bwd with ids and dbias on the simulated card: _f32_bwd_launch
+    pads LSE / Delta and the query ids to whole 32-row Q tiles, gives the id
+    ranges of those tiles and of 64-key KV tiles, and fa_bwd_f32 receives
+    the shape, the padded row count and one launch (a D 256 one above D
+    128)."""
+    seen = {}
+
+    def spy(*args, real=flash_bwd._launch_split, **kw):
+        seen.update(lse=args[5], delta=args[6], seg=args[10], nq_pad=kw["nq_pad"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(flash_bwd, "_launch_split", spy)
+    B, Hq, Hkv, Nk = 2, 4, 2, 160
+    q, k, v = _meta(B, Hq, Hkv, Nq, Nk, D)
+    lse = torch.empty((B, Hq, Nq), device="meta")
+    ids = tuple(torch.zeros((B, n), dtype=torch.int32, device="meta") for n in (Nq, Nk))
+    bias = torch.empty((B, Hq, Nq, Nk), device="meta")
+    wide = flash_bwd._f32_bwd_launch.launches_d256
+    flash_bwd.bias_bwd(q, k, v, q, lse, lse, scale=D ** -0.5, bias=bias, want_dbias=True,
+                       segment_ids=ids)
+    qt, kt = flash_bwd.F32_BWD_Q_TILE, flash_bwd.F32_BWD_KV_TILE
+    nq_pad, kv_tiles = -(-Nq // qt) * qt, -(-Nk // kt)
+    assert (qt, kt) == (32, 64)
+    assert seen["nq_pad"] == nq_pad
+    assert seen["lse"].shape == seen["delta"].shape == (B, Hq, nq_pad)
+    seg_q, seg_kv, q_rng, kv_rng = seen["seg"]
+    assert seg_q.shape == (B, nq_pad) and seg_kv.shape == (B, kv_tiles * kt)
+    assert q_rng.shape == (B, nq_pad // qt, 2) and kv_rng.shape == (B, kv_tiles, 2)
+    [(name, args)] = list(card)
+    assert name == "fa_bwd_f32"
+    assert args[14:21] == (B, Hq, Hkv, Nq, Nk, D, Nk) and args[26] == nq_pad
+    assert flash_bwd._f32_bwd_launch.launches_d256 - wide == int(D > 128)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,10 @@ Here:
   the eight broadcast shapes of a bias and the key-padding bias with dead
   rows, with dbias and without; a ragged kv_valid_len against the JAX
   function on the valid keys. Budgets FWD_TOL / BWD_TOL[f32];
+* the walk of the D 256 form's two consumers (``chip_smoke.f32_bwd_walk``):
+  dQ / dK / dV / dbias against JAX where the walk skips Q tiles by the ids,
+  leaves KV tiles unvisited or gives a KV tile one Q tile, dbias exactly 0
+  on the skipped pairs in both and ``dbias_skips`` true exactly then;
 * the split's pieces at D 136 in the 256 box (``f32_split``);
 * the routes on a simulated card (meta tensors, the device checks off, a
   stand-in library recording each C entry): f32 at D 136-256 reaches
@@ -45,6 +49,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import flashattn_tpu
 import flashattn_tpu_torch
 from flashattn_tpu.integrations import flax_linen
@@ -166,6 +171,48 @@ def test_f32_wide_matches_jax(case):
         dead = torch.from_numpy(bias[:, 0].max(-1) <= DEFAULT_MASK_VALUE)
         dead = dead[:, None].expand(-1, q.shape[1], -1)
         assert dead.any() and (o[dead] == 0).all() and (grads[0][dead] == 0).all()
+
+
+# The D 256 form's walk (chip_smoke.f32_bwd_walk; each cluster's two
+# consumers take its KV tile's visits in turn): (name, B, Hq, Hkv, Nq, Nk, D,
+# options). Ids whose 32-row Q tiles and 64-key KV tiles alternate 0 / 1
+# skip every other Q tile (every row still sees keys); causal keys past Nq
+# leave whole KV tiles unvisited; Nq 20 gives each KV tile one Q tile.
+WALKS = [("D 256 ids skipping every other Q tile", 2, 2, 1, 150, 160, 256, dict(ids=True)),
+         ("D 192 causal, KV tiles no Q tile meets", 1, 2, 2, 100, 300, 192,
+          dict(causal=True)),
+         ("D 256 one Q tile a KV tile", 2, 2, 2, 20, 300, 256, {})]
+
+
+@pytest.mark.parametrize("case", WALKS, ids=[c[0] for c in WALKS])
+def test_f32_wide_walk_matches_jax_and_leaves_skipped_pairs_zero(case):
+    """With a full [B, Hq, Nq, Nk] bias: dQ, dK, dV and dbias of the port's
+    flash_attention (CPU, the plain bias route) against jax.vjp of the JAX
+    flash_attention within BWD_TOL[f32]; dbias exactly 0, in both, on every
+    pair of the (Q tile, KV tile) pairs the f32 body leaves unvisited, and
+    dbias_skips asks for the zero fill exactly when there are such pairs."""
+    name, B, Hq, Hkv, Nq, Nk, D, opts = case
+    q, k, v = make_qkv(51, B, Hq, Nq, D, Nk=Nk, Hkv=Hkv)
+    do = make_qkv(52, B, Hq, Nq, D)[0]
+    bias = np.random.default_rng(53).standard_normal((B, Hq, Nq, Nk), dtype=np.float32)
+    kw = dict(causal=opts.get("causal", False))
+    qt, kt = flash_bwd.F32_BWD_Q_TILE, flash_bwd.F32_BWD_KV_TILE
+    if opts.get("ids"):
+        kw["segment_ids"] = tuple(
+            np.broadcast_to((np.arange(n) // t % 2).astype(np.int32), (B, n)).copy()
+            for n, t in ((Nq, qt), (Nk, kt)))
+    want = _jax(q, k, v, do, bias, kw)[1]
+    _, got = _port(q, k, v, do, bias, kw, dbias=True)
+    for n, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert_close(g, w, F32_BWD, n)
+    seg = kw.get("segment_ids")
+    seg = None if seg is None else tuple(torch.from_numpy(x) for x in seg)
+    walk = chip_smoke.f32_bwd_walk(Nq, Nk, causal=kw["causal"], segment_ids=seg)
+    skipped = (~walk).repeat_interleave(qt, 1)[:, :Nq].repeat_interleave(kt, 2)[:, :, :Nk]
+    skipped = skipped[:, None].expand(B, Hq, Nq, Nk)
+    assert (got[3][skipped] == 0).all() and (torch.from_numpy(want[3].copy())[skipped] == 0).all()
+    assert flash_bwd.dbias_skips(causal=kw["causal"], window=None, segment_ids=seg,
+                                 kv_valid_len=Nk, nk=Nk) == bool(skipped.any())
 
 
 @pytest.mark.parametrize("D", [136, 256])

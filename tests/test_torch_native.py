@@ -313,6 +313,35 @@ def test_ptxas_stats_reads_registers_and_stack(out, want):
     assert chip_smoke.ptxas_stats(out) == want
 
 
+NOTE_F32 = ("ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions "
+            "are serialized due to program dependence on compiler-inserted WG.AR in divergent "
+            "path in the function '_ZN49_GLOBAL__N__a4eea0e5_16_flash_bwd_f32_cu_7d59452214bwd_"
+            "f32_kernelILi256ELb0ELb0ELb1ELb0EEEv14CUtensorMap_stS1_S1_S1_N2fa12BwdF32ParamsE'\n")
+NOTE_K3 = ("ptxas info    : (C7518) Potential Performance Loss: wgmma.mma_async instructions "
+           "are serialized due to program dependence on compiler-inserted WG.DP in divergent "
+           "path in the function '_ZN50_GLOBAL__N__8207f27e_17_flash_bwd_sm90_cu_c3d7ba5c15bwd_"
+           "sm90_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_NS_14BwdDenseParamsE'\n")
+
+
+@pytest.mark.parametrize("out,want", [
+    (NOTE_F32, {"bwd f32 bias bwd_f32_kernel<256, 0, 0, 1>": [
+        ("C7520", "program dependence on compiler-inserted WG.AR in divergent path")]}),
+    (PTXAS_K1 + NOTE_K3 + NOTE_F32, {
+        "K3 sm90 bwd_sm90_kernel<128>": [
+            ("C7518", "program dependence on compiler-inserted WG.DP in divergent path")],
+        "bwd f32 bias bwd_f32_kernel<256, 0, 0, 1>": [
+            ("C7520", "program dependence on compiler-inserted WG.AR in divergent path")]}),
+    (PTXAS_K1, {}),
+])
+def test_serialization_notes_name_each_instantiation(out, want):
+    """chip_smoke.serialization_notes (the build phase's wgmma serialization
+    log and its gate on the f32 backward body, chip_variants.py's build
+    report) reads each C75xx note's code and reason per named instantiation."""
+    import chip_smoke
+
+    assert chip_smoke.serialization_notes(out) == want
+
+
 @pytest.mark.parametrize("n,lo,hi,want", [
     (4096, None, 0, 64 * 65 // 2),   # full causal: the lower triangle of 64 x 64 tiles
     (4096, None, None, 64 * 64),     # no band: every tile
