@@ -59,6 +59,12 @@ those that ``--cases`` names:
   of the ring's main shape (rank 1's 4096 query rows against rank 0's K/V,
   B1 Hq16 Hkv8 D128 causal; the mma.sync kernels of a parent whose
   ``csrc/ring.cu`` had them, the TMA + wgmma kernels after).
+* ``k1_d256``, ``ring_fwd_d256``: K1's dense body at D 256, as its dense
+  route at the LM's attention with heads of 256 (B1 Hq8 Hkv4 N2048 D256
+  causal, the raw launch ``flash_fwd._launch_dense_sm90``) and as K7's D 256
+  form on one full off-diagonal 4096 x 4096 chunk pair at Hq8 Hkv4 D256
+  (``ring_kernel.ring_fwd_step``, a middle step: the state read, merged and
+  written).
 * ``f32_k3``: K3 on f32 (the f32 backward body ``flash_bwd_f32.cu``) at the
   ``lm`` shape, TF32 off;
 * ``f32_bias_bwd``, ``f32_bias_bwd_dbias``, ``f32_bias_bwd_d256``,
@@ -134,6 +140,8 @@ CASE_KERNELS = {"unet": "K1 dense sm90 fwd_dense_sm90_kernel<64, 0, 0>",
                 "gemm": "K9 gemm_wgmma_kernel<0>",
                 "ring_fwd": "K7 ring_fwd_sm90_kernel<128>",
                 "ring_bwd": "K8 ring_bwd_sm90_kernel<128>",
+                "k1_d256": "K1 dense sm90 fwd_dense_sm90_kernel<256, 0, 0>",
+                "ring_fwd_d256": "K7 d256 ring_fwd_wide_kernel",
                 "f32_k3": "bwd f32 bwd_f32_kernel<128, 0, 0, 0>",
                 "f32_bias_bwd": "bwd f32 bias bwd_f32_kernel<128, 0, 0, 1>",
                 "f32_bias_bwd_dbias": "bwd f32 bias bwd_f32_kernel<128, 0, 0, 1>",
@@ -296,6 +304,26 @@ timed("ring_fwd", lambda: rk.ring_fwd_step(q2[:, :, c:], k[:, :, :c], v[:, :, :c
 timed("ring_bwd", lambda: rk.ring_bwd_step(q2[:, :, c:], k[:, :, :c], v[:, :, :c],
                                              do[:, :, c:], lse1, delta1, dq, dk, dv, **pos))
 del q, k, v, do, o, lse, q2, acc, m, l, o1, lse_c, dq, dk, dv
+torch.cuda.empty_cache()
+# K1's dense body at D 256: its dense route at the LM's attention with heads
+# of 256, and K7's D 256 form on the ring's off-diagonal chunk pair at Hq8 Hkv4.
+B, Hq, Hkv, N, D = cs.WIDE_SHAPE
+q, k, v = (cs._bnhd(x) for x in make_qkv(28, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16,
+                                         device="cuda"))
+o, lse = torch.empty_like(q), torch.empty((B, Hq, N), dtype=torch.float32, device="cuda")
+stream = torch.cuda.current_stream().cuda_stream
+timed("k1_d256", lambda: flash_fwd._launch_dense_sm90(
+    native.kernels(), q, k, v, o, lse, None, scale=D ** -0.5, kv_valid_len=N, causal=True,
+    window=None, softcap=None, stream=stream))
+hq, hkv = 8, 4
+q, k, v = make_qkv(29, 1, hq, 2 * c, D, Hkv=hkv, dtype=torch.bfloat16, device="cuda")
+q2 = rk._prescale(q, D ** -0.5)
+acc, m, l = (torch.zeros((1, hq, c, D), **f32), torch.zeros((1, hq, c), **f32),
+             torch.ones((1, hq, c), **f32))
+o1, lse_c = torch.empty_like(q2[:, :, c:]), torch.empty((1, hq, c), **f32)
+timed("ring_fwd_d256", lambda: rk.ring_fwd_step(q2[:, :, c:], k[:, :, :c], v[:, :, :c], acc, m,
+                                                  l, o1, lse_c, **pos))
+del q, k, v, o, lse, q2, acc, m, l, o1, lse_c
 torch.cuda.empty_cache()
 # The f32 backward body (flash_bwd_f32.cu), TF32 off: K3 on f32 at the f32
 # LM's attention, and its BIAS family at f32 path A's attention, heads of 128

@@ -608,18 +608,30 @@ def phase_build() -> None:
     log("build", f"{len(stats)} kernel instantiations")
     # ptxas's notes of wgmma serialized (C7518-C7520): logged for every
     # instantiation; the f32 backward body's must have none (its chains issue
-    # back to back, csrc/flash_bwd_f32.cu).
+    # back to back, csrc/flash_bwd_f32.cu), nor K1's forward body's D 256
+    # forms (its overlapped loop issues S and P V without a branch,
+    # csrc/fwd_sm90_tile.cuh).
     notes = serialization_notes(out)
     for name, found in sorted(notes.items()):
         for code, why in found:
             log("build", f"{name}: ({code}) wgmma serialized: {why}")
-    f32_bwd = sorted(n for n in stats if "bwd_f32_kernel" in n)
-    log("build", f"wgmma serialization notes: {sum(map(len, notes.values()))} in "
-                 f"{len(notes)} instantiations; the f32 backward's {len(f32_bwd)} "
-                 f"instantiations: {sum(n in notes for n in f32_bwd)} with one")
-    if any(n in notes for n in f32_bwd):
-        fail("ptxas serialized the wgmma chains of the f32 backward body: "
-             + "; ".join(f"{n}: {notes[n]}" for n in f32_bwd if n in notes))
+    for label, names in (("the f32 backward body", sorted(n for n in stats
+                                                          if "bwd_f32_kernel" in n)),
+                         ("the D 256 forward body", fwd_d256_instantiations(stats))):
+        log("build", f"wgmma serialization notes: {sum(map(len, notes.values()))} in "
+                     f"{len(notes)} instantiations; {label}'s {len(names)} instantiations: "
+                     f"{sum(n in notes for n in names)} with one")
+        if any(n in notes for n in names):
+            fail(f"ptxas serialized the wgmma of {label}: "
+                 + "; ".join(f"{n}: {notes[n]}" for n in names if n in notes))
+
+
+def fwd_d256_instantiations(names) -> list:
+    """Of ``names`` (instantiation_name's), the D 256 instantiations of K1's
+    forward body fwd_sm90_tile.cuh::fwd_sm90_body: K1's dense route's and bias
+    route's D 256 forms and K7's D 256 form."""
+    return sorted(n for n in names if "fwd_dense_sm90_kernel<256" in n
+                  or "fwd_bias_sm90_kernel<256" in n or "ring_fwd_wide_kernel" in n)
 
 
 def serialization_notes(out: str) -> dict:
@@ -2320,6 +2332,57 @@ WIDE_FWD_CASES = [("ring chunk pair", 256, 4, 1024, 1024, True, (1024, 0), False
                   ("Nq 1", 256, 4, 1, 1000, False, (0, 0), False)]
 
 
+# K1's dense D 256 form at its 80-key KV tile (csrc/fwd_sm90_tile.cuh BN),
+# forward only, q and k at GROW: (tag, D, Hq, Hkv, Nq, Nk, causal, window,
+# (q_offset, kv_offset), ids) -- KV lengths that 80 does not divide (the
+# masked partial tile) with a ragged Q tail, a window's left edge and a q / kv
+# offset inside a tile, documents that end inside tiles (tile_edge_ids), GQA
+# 4/1 and D 136 / 200 / 256.
+TILE_CASES = [("Nk 1000, ragged Q", 256, 8, 4, 1000, 1000, False, None, (0, 0), None),
+              ("Nk 2049 causal", 256, 8, 4, 2049, 2049, True, None, (0, 0), None),
+              ("window edge at 200", 256, 8, 4, 1024, 1024, True, (200, -1), (0, 0), None),
+              ("q_off - kv_off 40", 200, 8, 4, 1024, 1024, True, None, (40, 0), None),
+              ("documents ending inside tiles", 256, 8, 4, 1000, 1000, True, None, (0, 0),
+               "tile edges"),
+              ("GQA 4/1 ragged", 136, 4, 1, 1300, 1000, True, None, (0, 0), None)]
+# The document boundaries of tile_edge_ids: none on a 64- or 80-key tile edge.
+TILE_EDGE_BOUNDS = (100, 250, 333, 700, 950)
+# K7's D 256 form on one chunk pair at the 80-key tile: (chunk, Hq, Hkv, D).
+RING_TILE_PAIR = (512, 8, 4, 256)
+
+
+def tile_edge_ids(B: int, N: int, device=DEVICE) -> torch.Tensor:
+    """int32 [B, N] ids whose documents end at TILE_EDGE_BOUNDS (below N)."""
+    bounds = torch.tensor(TILE_EDGE_BOUNDS, device=device)
+    return torch.bucketize(torch.arange(N, device=device), bounds, right=True).to(
+        torch.int32).expand(B, N).contiguous()
+
+
+def kernel_band(causal: bool, window, q_off: int, kv_off: int) -> tuple:
+    """(lo, hi) of the kernels' band, None where unbounded: common.cuh
+    band_bounds on the window (left, right) -- row i sees column j iff i - lo
+    <= j <= i + hi -- shifted by q_off - kv_off."""
+    delta = q_off - kv_off
+    wl, wr = window if window is not None else (-1, -1)
+    lo = wl - delta if wl >= 0 else None
+    hi = delta if causal else (wr + delta if wr >= 0 else None)
+    return lo, hi
+
+
+def tile_visits(case, kv_tile: int) -> int:
+    """The (128-row Q tile, ``kv_tile``-key tile) pairs the dense forward
+    visits on a TILE_CASES entry, ids aside (band_tiles on kernel_band)."""
+    _, _, _, _, nq, nk, causal, window, (qo, ko), _ = case
+    return band_tiles(nq, nk, 128, kv_tile, *kernel_band(causal, window, qo, ko))
+
+
+def ring_step_flops(hq: int, chunk: int, d: int, *, diagonal: bool, matmuls: int = 2) -> int:
+    """The FLOPs of one ring step's ``matmuls`` products on a chunk pair: the
+    diagonal pair's causal lower triangle, or every pair off it."""
+    pairs = hq * (chunk * (chunk + 1) // 2 if diagonal else chunk * chunk)
+    return matmuls * 2 * d * pairs
+
+
 def _grown(seed, B, Hq, Nq, D, Nk, Hkv):
     """q, k (scaled by GROW) and v, bf16 [B, H, N, D] views of [B, N, H, D]."""
     from flashattn_tpu_torch.utils.testing import make_qkv
@@ -2574,9 +2637,92 @@ def _wide_fwd_check() -> None:
         if dead != bool(out["dead"]):
             fail(f"the D {d} case {name} has {out['dead']} dead rows")
         del q, k, v
+    _tile_width_check()
     _tma_wgmma_sass("window", {
         f"K1 dense sm90{' segments' if sg else ''}{' softcap' if cp else ''} "
         f"fwd_dense_sm90_kernel<256, {sg}, {cp}>" for sg in (0, 1) for cp in (0, 1)})
+
+
+def _tile_width_check() -> None:
+    """K1's dense D 256 form at its 80-key KV tile: TILE_CASES through
+    _fwd_bwd_check (forward only: FWD_TOL[bf16], LSE 1e-3, relative L2 1e-2,
+    dead rows exactly 0, one launch of the D 256 form), each with the tile
+    pairs it visits at 80 keys and would at 64; then K7's D 256 form on one
+    chunk pair (_ring_tile_steps)."""
+    from flashattn_tpu_torch.ops import flash_fwd
+
+    for i, case in enumerate(TILE_CASES):
+        name, d, hq, hkv, nq, nk, causal, window, (qo, ko), ids = case
+        q, k, v = _grown(1200 + i, 1, hq, nq, d, nk, hkv)
+        kw = dict(scale=d ** -0.5, causal=causal, q_offset=qo, kv_offset=ko)
+        if window is not None:
+            kw["window"] = window
+        if ids is not None:
+            kw["segment_ids"] = (tile_edge_ids(1, nq), tile_edge_ids(1, nk))
+        tile = flash_fwd.dense_kv_tile(d)
+        _fwd_bwd_check(f"the D 256 form at {tile}-key tiles, {name}: B1 Hq{hq} Hkv{hkv} Nq{nq} "
+                       f"Nk{nk} D{d}{' causal' if causal else ''}"
+                       f"{'' if window is None else f', window {window}'}"
+                       f"{'' if (qo, ko) == (0, 0) else f', q / kv offsets {(qo, ko)}'}"
+                       f"{'' if ids is None else ', documents ending at ' + str(TILE_EDGE_BOUNDS)}"
+                       f"; tile pairs visited {tile_visits(case, tile)} (at 64 keys "
+                       f"{tile_visits(case, 64)})", q, k, v, None, **kw)
+        del q, k, v
+    _ring_tile_steps()
+
+
+def _ring_tile_steps() -> None:
+    """K7's D 256 form on one RING_TILE_PAIR chunk pair (512 keys: six 80-key
+    tiles and a masked partial one), rank 1's rows against rank 0's K/V at q,
+    k GROW: as the rank's first live step, a middle step and its last,
+    against ring_fwd_step_reference on the same inputs and state (a state the
+    plain step made from the diagonal pair): the state's acc and l within
+    relative L2 1e-2 and m within LSE_ATOL, the last step's O within
+    FWD_TOL[bf16] and relative L2 1e-2 and its LSE within LSE_ATOL; one D 256
+    launch each."""
+    from flashattn_tpu_torch.parallel import ring_kernel as rk
+    from flashattn_tpu_torch.utils.testing import FWD_TOL, check_close
+
+    c, hq, hkv, d = RING_TILE_PAIR
+    q, k, v = _grown(1220, 1, hq, 2 * c, d, 2 * c, hkv)
+    q2 = rk._prescale(q.contiguous(), d ** -0.5)
+    k, v = k.contiguous(), v.contiguous()
+    rows = lambda x, r: x.narrow(2, r * c, c)  # noqa: E731
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    state0 = (torch.zeros((1, hq, c, d), **f32), torch.zeros((1, hq, c), **f32),
+              torch.zeros((1, hq, c), **f32))
+    o_ref, lse_ref = torch.empty_like(rows(q2, 1)), torch.empty((1, hq, c), **f32)
+    rk.ring_fwd_step_reference(rows(q2, 1), rows(k, 1), rows(v, 1), *state0, o_ref, lse_ref,
+                               q_base=c, kv_off=c, causal=True, first=True)
+    for kind, flags in (("first", dict(first=True)), ("middle", {}), ("last", dict(last=True))):
+        pos = dict(q_base=c, kv_off=0, causal=True, **flags)
+        want, got = (tuple(x.clone() for x in state0) for _ in range(2))
+        o_w, lse_w = torch.empty_like(o_ref), torch.empty_like(lse_ref)
+        o_g, lse_g = torch.zeros_like(o_ref), torch.zeros_like(lse_ref)
+        rk.ring_fwd_step_reference(rows(q2, 1), rows(k, 0), rows(v, 0), *want, o_w, lse_w, **pos)
+        before = rk.ring_fwd_step.launches_d256
+        rk.ring_fwd_step(rows(q2, 1), rows(k, 0), rows(v, 0), *got, o_g, lse_g, **pos)
+        torch.cuda.synchronize()
+        if rk.ring_fwd_step.launches_d256 != before + 1:
+            fail(f"K7's D 256 form was not launched once at the {kind} step")
+        tag = f"K7 D 256 at 80-key tiles, the {kind} step of a {c} x {c} pair, Hq{hq} Hkv{hkv}"
+        if kind == "last":
+            ok_o, msg_o = check_close(o_g, o_w, FWD_TOL[torch.bfloat16], "O")
+            errs = {"O": (o_g.float() - o_w.float()).abs().max().item(),
+                    "O relative L2": _rel(o_g.float(), o_w.float()),
+                    "LSE": (lse_g - lse_w).abs().max().item()}
+            ok = ok_o and errs["O relative L2"] <= WINDOW_REL_L2 and errs["LSE"] <= LSE_ATOL
+        else:
+            errs = {"acc relative L2": _rel(got[0], want[0]),
+                    "m": (got[1] - want[1]).abs().max().item(),
+                    "l relative L2": _rel(got[2], want[2])}
+            msg_o = ""
+            ok = (errs["acc relative L2"] <= WINDOW_REL_L2 and errs["m"] <= LSE_ATOL
+                  and errs["l relative L2"] <= WINDOW_REL_L2)
+        log("window", f"{tag}: " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (limits relative L2 {WINDOW_REL_L2}, m / LSE {LSE_ATOL}, O {O_TOL_NAME})")
+        if not ok:
+            fail(f"{tag} disagrees with ring_fwd_step_reference: {errs} {msg_o}")
 
 
 def phase_window_check() -> dict:
@@ -4348,13 +4494,13 @@ def _ring_timing(inputs, err, *, label: str, phase: str,
                f"K3 {k3_ms:.4f} ms at N{n}; SDPA {lib_txt} ms; bound {k7['bound_ms']:.4f} "
                f"({k7['bound_by']}) / {k8['bound_ms']:.4f} ms ({k8['bound_by']}) "
                f"(median CUDA-event time)")
-    per_pair = (6 if f32_in else 1) * 2 * d
+    products = 6 if f32_in else 1  # bf16 products per product
     for key, (f_ms, b_ms) in step_ms.items():
-        # Pairs a step attends: the diagonal chunk's lower triangle, or all.
-        pairs = hq * (c * (c + 1) // 2 if key == "diagonal" else c * c)
+        f_fl, b_fl = (products * ring_step_flops(hq, c, d, diagonal=key == "diagonal", matmuls=n)
+                      for n in (2, 5))
         log(phase, f"{label}: one step, {key} {c} x {c} chunk pair: K7 {f_ms:.4f} ms "
-                   f"({2 * per_pair * pairs / f_ms / 1e9:.1f} TFLOP/s), K8 {b_ms:.4f} ms "
-                   f"({5 * per_pair * pairs / b_ms / 1e9:.1f} TFLOP/s)"
+                   f"({f_fl / f_ms / 1e9:.1f} TFLOP/s), K8 {b_ms:.4f} ms "
+                   f"({b_fl / b_ms / 1e9:.1f} TFLOP/s)"
                    + (" (bf16 TFLOP/s: six bf16 products per f32 product)" if f32_in else ""))
     kv_rot, dkv_rot = elem * 2 * hkv * c * d, 4 * 2 * hkv * c * d
     log(phase, f"{label}: bytes one rotation would put on NVLink per rank (computed, not "

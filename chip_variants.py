@@ -82,25 +82,44 @@ left, causal, cap 50, q and k at 4x) each is held against ``fwd_reference``
 (O's max abs and relative L2 errors, LSE's max abs error, printed), then
 timed in turns.
 
-Family ``k1wide``, K1's dense route's D 256 form (``csrc/flash_fwd_sm90.cu``,
-its body ``csrc/fwd_sm90_tile.cuh``) through ``flash_fwd._launch_dense_sm90``:
+Family ``k1wide``, K1's dense body at D 256 (``csrc/fwd_sm90_tile.cuh``,
+built with ``csrc/flash_fwd_sm90.cu`` and ``csrc/ring_fwd.cu``) through
+``flash_fwd._launch_dense_sm90`` and ``ring_kernel._launch_fwd``, each
+choice of its design (``FbSmem``'s OVERLAP, PINGPONG and BN) undone or
+taken in turn:
 
-* ``K1 D256``: as committed (two (K, V) stages, K and V of a stage on one
-  barrier, K's boxes issued before V's; 24 producer and 240 consumer
-  registers);
-* ``K1 D256 interleaved``: K's and V's boxes issued in turn, the dense
-  route's earlier order;
-* ``K1 D256 K / V barriers``: K and V on barriers of their own, so that S =
-  Q K^T starts once K has landed and V's copy runs under it (the first
-  design);
-* ``K1 D256 224 registers``: the D <= 128 split, 56 producer and 224
-  consumer registers.
+* ``K1 D256``: as committed (the next tile's S and the previous tile's P V
+  on the tensor cores under the softmax, K and V on barriers of their own,
+  the two consumer warpgroups issuing their products in turn, 80-key tiles,
+  the ring's state prefetched into L2 four tiles before the end);
+* ``K1 D256 no ping-pong``: the warpgroups issue independently;
+* ``K1 D256 serial 64 keys``: the earlier loop (issue S, wait, softmax,
+  issue P V, wait; K and V of a stage on one barrier; 64-key tiles; no
+  ping-pong);
+* ``K1 D256 serial 80 keys``: that loop on 80-key tiles;
+* ``K1 D256 ping-pong serial``: the serial loop on 80-key tiles with the
+  warpgroups taking turns to issue S and P V;
+* ``K1 D256 64 keys``: the committed loop on 64-key tiles;
+* ``K1 D256 no state prefetch``: K7's merge reads its state from device
+  memory after the last tile;
+* ``K1 D128 overlap``: the overlapped loop also in the dense D 128 form
+  (64-key tiles, 4 stages, no ping-pong), which keeps the serial loop as
+  committed;
+* ``K1 D256 merge unbatched``: K7's merge reading each column pair of its
+  state just before writing it back (``ring_merge.cuh``'s
+  RING_MERGE_AHEAD 1, not 8).
 
-At the D 256 LM's attention (B1 Hq8 Hkv4 N2048 D256 causal) each is held
-against ``fwd_reference`` (O's max abs and relative L2 errors, LSE's max abs
-error, printed), then timed in turns over 10 rounds, there, non-causal
-(every KV tile visited) and at the D 128 LM's attention (B1 Hq16 Hkv8 N2048
-D128 causal: the copy order is shared), and each round's pairs against the
+Each is held against ``fwd_reference`` at the D 256 LM's attention (B1 Hq8
+Hkv4 N2048 D256 causal; O's max abs and relative L2 errors, LSE's max abs
+error, printed) and, as K7, against ``ring_fwd_step_reference`` on the
+ring's off-diagonal chunk pair (B1 Hq8 Hkv4 D256, rank 1's 4096 rows against
+rank 0's K/V) merged into a state that the plain step made from the diagonal
+pair (the state's errors printed). Then each is timed in turns over 10
+rounds: at the D 256 LM's attention, non-causal (every KV tile visited), on
+the ring's off-diagonal pair as a middle step (the state read, merged and
+written) and as a rank's first live step (the state written without a read:
+the difference is what the merge's read costs), and at the D 128 LM's
+attention (B1 Hq16 Hkv8 N2048 D128 causal); each round's pairs against the
 committed form are counted.
 
 Family ``f32``, the f32 backward ``csrc/flash_bwd_f32.cu`` (built with the
@@ -297,76 +316,24 @@ def _tanh_approx(src: str) -> str:
         "    return cap_log2 * t;\n  }")
 
 
-# K and V of each (K, V) stage at D 256 on barriers of their own (v_full).
-_KV_BARRIERS = (
-    ("  static constexpr int STAGES = D == 256 ? 2 : D == 64 || !BIAS ? 4 : 3;\n",
-     "  static constexpr int STAGES = D == 256 ? 2 : D == 64 || !BIAS ? 4 : 3;\n"
-     "  static constexpr bool KV_SPLIT = D == 256;\n"),
-    ("BYTES = 1024 + BARS + (1 + 2 * STAGES) * 8;",
-     "BYTES = 1024 + BARS + (1 + (KV_SPLIT ? 3 : 2) * STAGES) * 8;"),
-    ("  uint64_t* empty = full + S::STAGES;\n",
-     "  uint64_t* empty = full + S::STAGES;\n"
-     "  uint64_t* v_full = S::KV_SPLIT ? empty + S::STAGES : full;\n"),
-    ("      mbar_init(&empty[s], 8);  // one arrival per consumer warp\n",
-     "      mbar_init(&empty[s], 8);  // one arrival per consumer warp\n"
-     "      if (S::KV_SPLIT) mbar_init(&v_full[s], 1);\n"),
-    ("k1wide).\n        mbar_expect_tx(&full[s], 2 * S::KV + (SEG ? FB_BLOCK_N * 4 : 0));\n",
-     "k1wide).\n"
-     "        mbar_expect_tx(&full[s], (S::KV_SPLIT ? 1 : 2) * S::KV + (SEG ? FB_BLOCK_N * 4 : 0));\n"
-     "        if (S::KV_SPLIT) mbar_expect_tx(&v_full[s], S::KV);\n"),
-    ("          tma_load_4d(st + S::KV + x * FB_BLOCK_N * FB_BOX_ROW, &tm_v, &full[s], 64 * x, n0, hk,\n",
-     "          tma_load_4d(st + S::KV + x * FB_BLOCK_N * FB_BOX_ROW, &tm_v, &v_full[s], 64 * x, n0, hk,\n"),
-    ("""        pack_p(pa, sc);
-        issue_pv<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);""",
-     """        pack_p(pa, sc);
-        if (S::KV_SPLIT) mbar_wait(&v_full[s], (it / S::STAGES) & 1);
-        issue_pv<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);"""),
-    ("""        for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
-      }
-      release(it);""", """        for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
-      } else if (S::KV_SPLIT) {
-        mbar_wait(&v_full[s], (it / S::STAGES) & 1);
-      }
-      release(it);"""),
-)
+# The dense D 256 body's design switches (FbSmem in fwd_sm90_tile.cuh), as
+# committed: the overlapped loop, ping-pong, 80-key tiles.
+_DESIGN = {"overlap": "  static constexpr bool OVERLAP = D == 256 && !BIAS;\n",
+           "pingpong": "  static constexpr bool PINGPONG = D == 256 && !BIAS;\n",
+           "bn": "  static constexpr int BN = D == 256 && !BIAS ? 80 : 64;\n"}
 
 
-# K's and V's boxes of each stage issued in turn (K0 V0 K1 V1 ...), the earlier order.
-_INTERLEAVED = ("""#pragma unroll
-        for (int x = 0; x < BOXES; ++x) {
-          tma_load_4d(st + x * FB_BLOCK_N * FB_BOX_ROW, &tm_k, &full[s], 64 * x, n0, hk, b);
-        }
-#pragma unroll
-        for (int x = 0; x < BOXES; ++x) {
-          tma_load_4d(st + S::KV""", """#pragma unroll
-        for (int x = 0; x < BOXES; ++x) {
-          tma_load_4d(st + x * FB_BLOCK_N * FB_BOX_ROW, &tm_k, &full[s], 64 * x, n0, hk, b);
-          tma_load_4d(st + S::KV""")
-
-
-def _interleaved(src: str) -> str:
-    assert src.count(_INTERLEAVED[0]) == 1, "the interleaved-copies patch no longer applies"
-    return src.replace(*_INTERLEAVED)
-
-
-def _kv_barriers(src: str) -> str:
-    for old, new in _KV_BARRIERS:
-        assert src.count(old) == 1, f"the K / V barriers patch no longer applies at {old[:60]!r}"
-        src = src.replace(old, new)
-    return src
-
-
-# The D 256 form's register split as at D <= 128: 56 producer, 224 consumer.
-_REGS_56_224 = (
-    ("constexpr int PRODUCER_REGS = D == 256 ? 24 : 56;", "constexpr int PRODUCER_REGS = 56;"),
-    ("constexpr int CONSUMER_REGS = D == 256 ? 240 : 224;", "constexpr int CONSUMER_REGS = 224;"))
-
-
-def _regs_56_224(src: str) -> str:
-    for old, new in _REGS_56_224:
-        assert src.count(old) == 1, f"the 224-register patch no longer applies at {old!r}"
-        src = src.replace(old, new)
-    return src
+def _design(overlap: str | None = None, pingpong: str | None = None, bn: str | None = None):
+    """A patch of FbSmem's switches: each given one's expression replaced."""
+    def patch(src: str) -> str:
+        for key, expr in (("overlap", overlap), ("pingpong", pingpong), ("bn", bn)):
+            if expr is None:
+                continue
+            old = _DESIGN[key]
+            assert src.count(old) == 1, f"the {key} patch no longer applies"
+            src = src.replace(old, old[:old.index("= ") + 2] + expr + ";\n")
+        return src
+    return patch
 
 
 # The f32 backward's chains in other forms (wgmma_n32_at and chain_ss6
@@ -491,9 +458,21 @@ VARIANTS = {
     "K1 cap": ("flash_fwd_sm90.cu", ()),
     "K1 cap tanh.approx": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _tanh_approx),)),
     "K1 D256": ("flash_fwd_sm90.cu", ()),
-    "K1 D256 interleaved": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _interleaved),)),
-    "K1 D256 K / V barriers": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _kv_barriers),)),
-    "K1 D256 224 registers": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _regs_56_224),)),
+    "K1 D256 no ping-pong": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _design(
+        pingpong="false")),)),
+    "K1 D256 serial 64 keys": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _design(
+        overlap="false", pingpong="false", bn="64")),)),
+    "K1 D256 serial 80 keys": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _design(
+        overlap="false", pingpong="false")),)),
+    "K1 D256 ping-pong serial": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _design(
+        overlap="false")),)),
+    "K1 D256 64 keys": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _design(bn="64")),)),
+    "K1 D256 no state prefetch": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", lambda s: s.replace(
+        "constexpr int RING_PREFETCH_TILES = 4;", "constexpr int RING_PREFETCH_TILES = 0;")),)),
+    "K1 D128 overlap": ("flash_fwd_sm90.cu", (("fwd_sm90_tile.cuh", _design(
+        overlap="D >= 128 && !BIAS")),)),
+    "K1 D256 merge unbatched": ("flash_fwd_sm90.cu", (("ring_merge.cuh", lambda s: s.replace(
+        "constexpr int RING_MERGE_AHEAD = 8;", "constexpr int RING_MERGE_AHEAD = 1;")),)),
     "bwd f32": ("flash_bwd_f32.cu", ()),
     "bwd f32 chain loops": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _chain_cxx("1")),)),
     "bwd f32 descriptors in C++": ("flash_bwd_f32.cu", (("flash_bwd_f32.cu", _chain_cxx("")),)),
@@ -504,10 +483,10 @@ VARIANTS = {
     "K1 quant int8 in bf16x2": ("flash_fwd_quant_sm90.cu", ((QUANT_BODY, _int8_bf16x2),)),
     "K1 quant fp8 by integer ops": ("flash_fwd_quant_sm90.cu", ((QUANT_BODY, _fp8_by_int),)),
     "K1 quant 4 stages": ("flash_fwd_quant_sm90.cu", ((QUANT_BODY, lambda s: s.replace(
-        "  static constexpr int STAGES = D == 256 ? 2 : D == 128 ? 3 : 4;\n"
-        "  static constexpr int SLOTS8 = D == 256 ? 2 : 8;",
-        "  static constexpr int STAGES = D == 256 ? 2 : 4;\n"
-        "  static constexpr int SLOTS8 = D == 64 ? 8 : D == 128 ? 6 : 2;")),)),
+        "(D == 256 ? 2 : D == 128 ? 3 : 4);\n"
+        "  static constexpr int SLOTS8 = D == 256 ? 2 : F32Q && D == 128 ? 6 : 8;",
+        "(D == 256 ? 2 : 4);\n"
+        "  static constexpr int SLOTS8 = D == 256 ? 2 : D == 128 ? 6 : 8;")),)),
     "K1 quant no conversion": ("flash_fwd_quant_sm90.cu", ((QUANT_BODY, _no_conversion),)),
     "K1 quant no widening": ("flash_fwd_quant_sm90.cu", ((QUANT_BODY, lambda s: s.replace(
         "        widen_tile<D, KV>(st + x * S::KV, smem + S::OFF8 + slot * S::KV8, tid);\n",
@@ -536,8 +515,12 @@ ENTRIES = {"ring_bwd.cu": ("fa_ring_bwd_bf16", "RING_BWD_ARGTYPES", "ring"),
            "flash_bwd_f32.cu": ("fa_bwd_f32", "BWD_F32_ARGTYPES", "f32"),
            "flash_fwd_quant_sm90.cu": ("fa_fwd_quant_sm90", "FWD_QUANT_SM90_ARGTYPES", "k1quant")}
 # Variants whose family is not their source's.
-FAMILY = {"K1 D256": "k1wide", "K1 D256 interleaved": "k1wide", "K1 D256 K / V barriers": "k1wide",
-          "K1 D256 224 registers": "k1wide", "bwd f32 bias": "f32bias",
+FAMILY = {**{name: "k1wide" for name in ("K1 D256", "K1 D256 no ping-pong",
+                                         "K1 D256 serial 64 keys", "K1 D256 serial 80 keys",
+                                         "K1 D256 ping-pong serial", "K1 D256 64 keys",
+                                         "K1 D256 no state prefetch", "K1 D128 overlap",
+                                         "K1 D256 merge unbatched")},
+          "bwd f32 bias": "f32bias",
           "bwd f32 bias stage released at the end": "f32bias",
           "bwd f32 bias chain loops": "f32bias", "bwd f32 bias descriptors in C++": "f32bias",
           "bwd f32 bias read by both ranks": "f32bias"}
@@ -547,8 +530,9 @@ def _family(name: str) -> str:
     return FAMILY.get(name, ENTRIES[VARIANTS[name][0]][2])
 
 
-# Sources a variant's library is linked with beside its own.
-EXTRA_SOURCES = {"flash_bwd_f32.cu": ("split_bf16x3.cu",)}
+# Sources a variant's library is linked with beside its own (K1's dense body
+# at D 256 is also K7's D 256 form).
+EXTRA_SOURCES = {"flash_bwd_f32.cu": ("split_bf16x3.cu",), "flash_fwd_sm90.cu": ("ring_fwd.cu",)}
 
 
 def build(families) -> dict:
@@ -803,7 +787,13 @@ def k1cap(libs: dict) -> None:
 
 def k1wide(libs: dict) -> None:
     from flashattn_tpu_torch.ops import flash_fwd
+    from flashattn_tpu_torch.parallel import ring_kernel as rk
+    from flashattn_tpu_torch.utils import native
     from flashattn_tpu_torch.utils.testing import make_qkv
+
+    for lib in libs.values():
+        lib.fa_ring_fwd_bf16.restype = ctypes.c_int
+        lib.fa_ring_fwd_bf16.argtypes = native.RING_FWD_ARGTYPES
 
     def inputs(B, Hq, Hkv, N, D):
         q, k, v = (cs._bnhd(x) for x in make_qkv(71, B, Hq, N, D, Hkv=Hkv, dtype=torch.bfloat16,
@@ -822,33 +812,71 @@ def k1wide(libs: dict) -> None:
         return flash_fwd._launch_dense_sm90(lib, q, k, v, o, lse, None, kv_valid_len=q.shape[2],
                                             stream=stream, **kw)
 
+    # K7's D 256 form: rank 1's rows against rank 0's K/V (off-diagonal),
+    # merged into the state the plain step made from rank 1's own (diagonal).
+    c = cs.RING_CHUNK
+    rq, rk_, rv = make_qkv(72, 1, Hq, 2 * c, D, Hkv=Hkv, dtype=torch.bfloat16, device="cuda")
+    q2 = rk._prescale(rq, D ** -0.5)
+    rows = lambda x, r: x.narrow(2, r * c, c)  # noqa: E731
+    f32 = dict(dtype=torch.float32, device="cuda")
+    state0 = (torch.zeros((1, Hq, c, D), **f32), torch.zeros((1, Hq, c), **f32),
+              torch.zeros((1, Hq, c), **f32))
+    o_c, lse_c = torch.empty_like(rows(q2, 1)), torch.empty((1, Hq, c), **f32)
+    diag = dict(q_base=c, kv_off=c, causal=True, window=None)
+    rk.ring_fwd_step_reference(rows(q2, 1), rows(rk_, 1), rows(rv, 1), *state0, o_c, lse_c,
+                               first=True, **diag)
+    off = dict(q_base=c, kv_off=0, causal=True, window=None)
+    want = tuple(x.clone() for x in state0)
+    rk.ring_fwd_step_reference(rows(q2, 1), rows(rk_, 0), rows(rv, 0), *want, o_c, lse_c, **off)
+
+    def ring_call(lib, state, first):
+        return rk._launch_fwd(lib, rows(q2, 1), rows(rk_, 0), rows(rv, 0), *state, o_c, lse_c,
+                              stream=stream, first=first, last=False, **off)
+
     for name, lib in libs.items():
         o.zero_()
         rc = call(lib)
+        got = tuple(x.clone() for x in state0)
+        rc_ring = ring_call(lib, got, False)
         torch.cuda.synchronize()
         print(f"[check] {name}: rc {rc}, O max abs err "
               f"{(o.float() - o_want).abs().max().item():.3e}, relative L2 "
               f"{cs._rel(o.float(), o_want):.3e}, LSE max abs err "
-              f"{(lse - lse_want).abs().max().item():.3e}", flush=True)
-    del o_want, lse_want
+              f"{(lse - lse_want).abs().max().item():.3e}; K7 middle step rc {rc_ring}, acc / m "
+              f"/ l relative L2 " + " / ".join(f"{cs._rel(a, b):.3e}" for a, b in zip(got, want)),
+              flush=True)
+    del o_want, lse_want, want
     torch.cuda.empty_cache()
+    state = tuple(x.clone() for x in state0)
+    calls = {"LM D256": lambda lib: call(lib), "non-causal D256": lambda lib: call(lib),
+             "ring off-diagonal middle step": lambda lib: ring_call(lib, state, False),
+             "ring off-diagonal first step": lambda lib: ring_call(lib, state, True),
+             "LM D128": lambda lib: call(lib)}
     times = {}
-    for label, causal in (("LM D256", True), ("non-causal D256", False), ("LM D128", True)):
-        kw["causal"] = causal
+    for label, fn in calls.items():
+        kw["causal"] = label != "non-causal D256"
         if label == "LM D128":
             q, k, v, o, lse = inputs(1, 16, 8, N, 128)
             kw["scale"] = 128 ** -0.5
         for rnd in range(10):
             for name, lib in (libs.items() if rnd % 2 == 0 else reversed(libs.items())):
                 times.setdefault((name, label), []).append(
-                    cs.cuda_ms(lambda: call(lib), reps=20, trials=3))
+                    cs.cuda_ms(lambda: fn(lib), reps=20, trials=3))
     _report(times)
     for (name, label), ts in times.items():
         if name != "K1 D256":
             base = times[("K1 D256", label)]
             wins = sum(t < b for t, b in zip(ts, base))
             print(f"[pairs] {name} {label}: faster than the committed form in {wins} of "
-                  f"{len(ts)} rounds", flush=True)
+                  f"{len(ts)} rounds; median {statistics.median(ts) / statistics.median(base) - 1:+.2%}",
+                  flush=True)
+    pairs = Hq * c * c
+    for name in libs:
+        mid = statistics.median(times[(name, "ring off-diagonal middle step")])
+        first = statistics.median(times[(name, "ring off-diagonal first step")])
+        print(f"[ring] {name}: off-diagonal step {mid:.4f} ms ({4 * D * pairs / mid / 1e9:.1f} "
+              f"TFLOP/s), as a first step {first:.4f} ms: the merge's read "
+              f"{(mid - first) / mid:+.1%} of the step", flush=True)
 
 
 def f32(libs: dict) -> None:

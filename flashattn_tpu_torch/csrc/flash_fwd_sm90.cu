@@ -57,13 +57,14 @@ extern "C" {
 // dead: O = 0 and LSE = ln2 * mask. Segment ids: all four pointers or
 // none --
 //   seg_q [B, Nq] int32, unit stride along the rows, batch stride seg_q_sb;
-//   seg_kv [B, kv_tiles * 64] int32 contiguous: the ids of the keys below
-//     kv_valid_len, each row padded to whole tiles of 64 (the padding is
-//     never compared);
+//   seg_kv [B, kv_tiles * T] int32 contiguous: the ids of the keys below
+//     kv_valid_len, each row padded to whole KV tiles of T keys (the padding
+//     is never compared);
 //   q_range [B, q_tiles] and kv_range [B, kv_tiles] int32 pairs (min, max),
 //     contiguous: the id range of each 128-row Q tile's rows below Nq and of
-//     each 64-key tile's keys below kv_valid_len,
-// with q_tiles = ceil(Nq / 128) and kv_tiles = ceil(kv_valid_len / 64).
+//     each T-key tile's keys below kv_valid_len,
+// with q_tiles = ceil(Nq / 128), kv_tiles = ceil(kv_valid_len / T) and T
+// the KV tile (dense_kv_tile: 64 up to D 128, 80 above).
 // softcap > 0 caps the scaled scores at softcap * tanh(s / softcap), 0 none.
 // Requires 8 <= D <= 256 with D % 8 == 0, Hq % Hkv == 0, 1 <= Nq,
 // 0 <= kv_valid_len <= Nk, B <= 65535; q, k, v 16-byte aligned with strides
@@ -98,9 +99,10 @@ int fa_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
   alignas(64) CUtensorMap tm_q;
   alignas(64) CUtensorMap tm_k;
   alignas(64) CUtensorMap tm_v;
+  const int kv_tile = dense_kv_tile(d);  // keys per KV tile: 80 in the D 256 form
   if (!make_bhnd_map(&tm_q, q, batch, hq, nq, d, q_sb, q_sh, q_sn, FB_BLOCK_M) ||
-      !make_bhnd_map(&tm_k, k, batch, hkv, nkv, d, k_sb, k_sh, k_sn, FB_BLOCK_N) ||
-      !make_bhnd_map(&tm_v, v, batch, hkv, nkv, d, v_sb, v_sh, v_sn, FB_BLOCK_N)) {
+      !make_bhnd_map(&tm_k, k, batch, hkv, nkv, d, k_sb, k_sh, k_sn, kv_tile) ||
+      !make_bhnd_map(&tm_v, v, batch, hkv, nkv, d, v_sb, v_sh, v_sn, kv_tile)) {
     return static_cast<int>(cudaErrorNotSupported);
   }
   fa::FwdDenseParams p;
@@ -120,7 +122,7 @@ int fa_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
   band_bounds(causal, wl, wr, &p.lo, &p.hi,
               static_cast<int64_t>(q_off) - kv_off);  // K1 dense offsets
   p.q_tiles = (nq + FB_BLOCK_M - 1) / FB_BLOCK_M;
-  p.kv_tiles = (kv_valid_len + FB_BLOCK_N - 1) / FB_BLOCK_N;
+  p.kv_tiles = (kv_valid_len + kv_tile - 1) / kv_tile;
   p.scale_log2 = scale * fa::LOG2E;
   const bool cap = softcap > 0.f;
   p.cap_scale = cap ? scale / softcap : 0.f;

@@ -103,7 +103,8 @@
 //     issuing every copy (K7's producer). The CTA visits only the KV tiles that meet its rows'
 //     band, [m0 - lo, m0 + 127 + hi], so a window of w costs ~w columns a
 //     row; each warpgroup skips (and releases unread) the tiles that miss its
-//     own 64 rows, and masks only the tiles that the band, the KV tail or a
+//     own 64 rows (in the D 256 form, whose warpgroups take turns, it masks
+//     them whole), and masks only the tiles that the band, the KV tail or a
 //     document edge cuts. With segment ids the wrapper gives each Q tile's
 //     and each KV tile's [min, max] id (flashattn_tpu/ops/flash.py::
 //     _seg_block_flags, taken on the host as there); producer and consumers
@@ -111,15 +112,21 @@
 //     packed attention costs the sum of the documents' areas. A visited tile
 //     whose ids and the Q tile's are one single document is not masked; the
 //     others are masked per pair from the rows' ids (read once) and the
-//     tile's 64 ids (padded by the wrapper to whole tiles), which come by a
-//     bulk copy on the stage's barrier.
-//   * D 256 (Gemma 2's heads): Q takes 64 KB and a (K, V) stage 64 KB, so
-//     the ring has 2 stages (FbSmem); a consumer keeps O's 128 f32
+//     tile's ids (padded by the wrapper to whole tiles of the route's KV
+//     tile, 80 keys in the D 256 form), which come by a bulk copy on the
+//     stage's K barrier.
+//   * D 256 (Gemma 2's heads): Q takes 64 KB and a (K, V) stage of 80 keys
+//     80 KB, so the ring has 2 stages (FbSmem); a consumer keeps O's 128 f32
 //     accumulators, so setmaxnreg gives it 240 registers and the producer 24;
-//     P V is one wgmma m64n256k16 a k-step (sm90.cuh). At the LM's attention
-//     (B1 Hq8 Hkv4 N2048 D256 causal) the grid is 8 x 16 = 128 CTAs, one wave
-//     on 132 SMs: the longest visits 32 KV tiles, 268 MFLOP, 0.036 ms at one
-//     SM's share of 989 TFLOP/s, the floor of this grid there.
+//     P V is one wgmma m64n256k16 a k-step (sm90.cuh), S one m64n80k16. At
+//     64 keys a tile's shared-memory traffic equals its tensor work, so the
+//     dense form takes 80-key tiles, overlaps each tile's softmax with the
+//     next tile's S and the previous tile's P V, and has its two consumer
+//     warpgroups issue their products in turn (FbSmem's OVERLAP, PINGPONG,
+//     BN). At the LM's attention (B1 Hq8 Hkv4 N2048 D256 causal) the grid is
+//     8 x 16 = 128 CTAs, one wave on 132 SMs: the longest visits 2048 keys,
+//     268 MFLOP, 0.036 ms at one SM's share of 989 TFLOP/s, the floor of
+//     this grid there.
 //   * The bias route at D 256 (fwd_bias_sm90_kernel<256, SEG, CAP>): the
 //     producer keeps 24 registers, too few for the 128-thread cp.async
 //     stream, and a bias tile per stage would pass 227 KB. So the bias has
@@ -137,10 +144,12 @@
 //     exponential and reciprocal too). With a right bound
 //     (causal) the longest Q tiles go first, so the tail of the grid is
 //     short.
-// Tried on the card and left out (H100, path A's mask arm; PERF.md §6):
-// overlapping a tile's softmax with the previous tile's P V inside a
-// warpgroup, alone or with the two warpgroups taking turns on named barriers
-// (5-10% slower), and Q's fragments in registers (no faster).
+// Tried on the card and left out (H100, PERF.md §6): in the bias route at D
+// 128 (path A's mask arm), overlapping a tile's softmax with the previous
+// tile's P V inside a warpgroup, alone or with the two warpgroups taking
+// turns on named barriers (5-10% slower), and Q's fragments in registers (no
+// faster); the overlapped loop in the bias route's D 256 form (7-9% slower)
+// and in the dense D 128 form (11% slower at the LM's attention).
 
 #pragma once
 
@@ -193,36 +202,81 @@ namespace {
 using namespace fa;
 
 constexpr int FB_BLOCK_M = 128;  // Q rows per CTA: two consumer warpgroups of 64
-constexpr int FB_BLOCK_N = 64;   // keys per KV tile
+constexpr int FB_BLOCK_N = 64;   // keys per KV tile below D 256 and in the bias forms (FbSmem::BN)
 constexpr int FB_THREADS = 384;  // producer warpgroup + 2 consumer warpgroups
 constexpr int FB_BOX_ROW = 128;  // bytes per row of a 64-column bf16 box (the swizzle's span)
 
-// Shared-memory layout (bytes, from a 1024-byte-aligned base): Q, then per
-// stage K, V (each D / 64 boxes of 64 columns) and, with BIAS below D 256,
-// the bias tile; at D 256 with BIAS the one bias slot (SLOT: two boxes of 32
-// columns x 128 rows); then the 64 segment ids of each stage; then the
-// mbarriers q_full, full[STAGES], empty[STAGES] and with SLOT bias_full,
-// bias_empty. D 256: Q 64 KB and 2 stages of (K, V) 64 KB, 193 KB in all (225
-// KB with the bias slot); a third stage would pass 227 KB. (K and V on
-// barriers of their own, so that S = Q K^T starts once K has landed, measured
-// no faster: chip_variants.py k1wide.)
+// The body's design at each (D, BIAS) (chip_variants.py k1wide times each
+// choice against the others) and its shared-memory layout (bytes, from a
+// 1024-byte-aligned base): Q, then per stage K, V (each D / 64 boxes of 64
+// columns, BN rows) and, with BIAS below D 256, the bias tile; at D 256 with
+// BIAS the one bias slot (SLOT: two boxes of 32 columns x 128 rows); then the
+// BN segment ids of each stage; then the mbarriers q_full, full[STAGES],
+// empty[STAGES], with OVERLAP v_full[STAGES] and v_empty[STAGES] (full /
+// empty then hold K and the ids alone), and with SLOT bias_full, bias_empty.
+//   * OVERLAP (the dense D 256 form, K7's D 256 form with it): a consumer
+//     warpgroup issues tile j's S = Q K^T, then the previous tile's O += P
+//     V, and runs tile j's softmax while both are on the tensor cores
+//     (FlashAttention-3's intra-warpgroup overlap), waiting on P V only
+//     before it writes P again. K and V then sit on barriers of their own,
+//     the producer issuing each tile's K one tile ahead of its V, so that K
+//     is released once S has read it and V once P V has. The
+//     bias forms keep the serial loop: with the D 256 slot it measured 7-9%
+//     slower on path A's two arms (chip_ab.py), as at D 128 (the header).
+//   * PINGPONG (with OVERLAP): the two consumer warpgroups issue their
+//     products in turn, on named barriers 1 and 2 (with OVERLAP a tile's S
+//     and the previous P V together, without it S and P V each), so that
+//     one's softmax runs under the other's products; both then walk every
+//     tile of the CTA (a tile outside a warpgroup's band is masked whole).
+//     With OVERLAP it measured 9-12% faster than OVERLAP alone at D 256
+//     (chip_variants.py k1wide).
+//   * BN, the keys of a KV tile: 80 in the dense D 256 form (its Q 64 KB and
+//     two (K, V) stages of 80 KB take 224 KB), where a 64-key tile's shared-
+//     memory traffic (S's Q and K reads, P V's V reads, TMA's writes: 256 KB
+//     a tile for both warpgroups, 2048 cycles at 128 B a clock) equals its
+//     tensor work (2048 cycles at 2048 bf16 MAC a clock), so any stall comes
+//     off the rate; 80 keys move 304 KB against 2560 cycles. The bias forms
+//     keep 64 (the softmax's bias addressing, and the D 256 slot's 32 KB).
+// D 256: Q 64 KB and 2 stages of (K, V), 225 KB with 80 keys, 225 KB with the
+// bias slot at 64 keys; a third stage would pass 227 KB.
 template <int D, bool BIAS = true>
 struct FbSmem {
+  static constexpr bool OVERLAP = D == 256 && !BIAS;
+  static constexpr bool PINGPONG = D == 256 && !BIAS;
+  static constexpr int BN = D == 256 && !BIAS ? 80 : 64;
   static constexpr int STAGES = D == 256 ? 2 : D == 64 || !BIAS ? 4 : 3;
   static constexpr bool SLOT = BIAS && D == 256;
+  static constexpr int KSTEPS = BN / 16;  // P V's k-steps a tile
+  static constexpr int NS = BN / 2;       // a consumer thread's scores of a tile
   static constexpr int Q = FB_BLOCK_M * D * 2;
-  static constexpr int KV = FB_BLOCK_N * D * 2;
-  static constexpr int BIAS_TILE = BIAS ? FB_BLOCK_M * FB_BLOCK_N * 4 : 0;
+  static constexpr int KV = BN * D * 2;
+  static constexpr int BIAS_TILE = BIAS ? FB_BLOCK_M * BN * 4 : 0;
   static constexpr int BIAS_BOX = FB_BLOCK_M * SW128_F32 * 4;  // SLOT: a box's bytes
   static constexpr int STAGE = 2 * KV + (SLOT ? 0 : BIAS_TILE);
   static constexpr int OFF_BIAS = Q + STAGES * STAGE;  // SLOT
-  static constexpr int SEG = OFF_BIAS + (SLOT ? BIAS_TILE : 0);  // int[STAGES][64]
-  static constexpr int BARS = SEG + STAGES * FB_BLOCK_N * 4;
-  static constexpr int BYTES = 1024 + BARS + (1 + 2 * STAGES + (SLOT ? 2 : 0)) * 8;
+  static constexpr int SEG = OFF_BIAS + (SLOT ? BIAS_TILE : 0);  // int[STAGES][BN]
+  static constexpr int BARS = SEG + STAGES * BN * 4;
+  static constexpr int BYTES =
+      1024 + BARS + (1 + (OVERLAP ? 4 : 2) * STAGES + (SLOT ? 2 : 0)) * 8;
   static_assert(Q % 1024 == 0 && KV % 1024 == 0 && BIAS_TILE % 1024 == 0,
                 "the 128-byte swizzle repeats every 1024 bytes");
+  static_assert(BN == 64 || (BN == 80 && !BIAS), "the bias forms read 64-column bias tiles");
   static_assert(BYTES <= 232448, "a block's shared memory on sm_90");
 };
+
+// The keys of the dense route's KV tile at head dim d (its tile ranges' and
+// padded ids' width; flash_fwd_sm90.cu, ring_fwd.cu).
+constexpr int dense_kv_tile(int d) {
+  return d <= 64 ? FbSmem<64, false>::BN : d <= 128 ? FbSmem<128, false>::BN
+                                                    : FbSmem<256, false>::BN;
+}
+
+// RING: the producer prefetches the rows' running state into L2 as it issues
+// the loads of the CTA's RING_PREFETCH_TILES-th tile from the end (0: never),
+// so that the merge (ring_merge_store) reads it from L2: read from device
+// memory after the last tile, it took 13-16% of the D 256 off-diagonal step
+// (chip_variants.py k1wide, the middle step against a first one).
+constexpr int RING_PREFETCH_TILES = 4;
 
 // The log2-domain score of raw score s: s * scale * log2 e, or with CAP
 // cap * log2 e * tanh(s * scale / cap) -- the accurate tanhf, the one the
@@ -240,14 +294,15 @@ __device__ __forceinline__ int bias_slot(int r, int c) {
   return r * FB_BLOCK_N + 4 * (c ^ ((r & 3) << 1));
 }
 
-// One tile's scores to probabilities, sc[4jj + 2r + e] being row row0 +
-// 8r, column col0 + 8jj + 2t + e (absolute positions): scale (with CAP, cap)
+// One tile's scores to probabilities (NS / 4 keys: 64, or 80 in the dense
+// D 256 form), sc[4jj + 2r + e] being row row0 + 8r, column col0 + 8jj + 2t
+// + e (absolute positions): scale (with CAP, cap)
 // into the log2 domain in f32 (log2_score); with BIAS add the bias and floor
 // at the mask value (a bias at the mask value times log2 e would overflow to
 // -inf, and a tile of -inf only would make the rescale NaN); with MASKED (a
 // tile that the band, the KV tail or, with SEG, a document edge cuts) set to
 // the mask value the pairs outside the band, the columns at or past nkv and,
-// with SEG, the pairs whose ids differ (ids: the tile's 64 key ids in shared
+// with SEG, the pairs whose ids differ (ids: the tile's key ids in shared
 // memory, q_seg the rows'); then the online max and sum. Returns the rescale
 // factor of the earlier tiles' O in alpha. ACCURATE (K1's f32 route,
 // flash_fwd_f32.cu) takes the exponentials by exp2f: FWD_TOL[f32] leaves no
@@ -265,8 +320,8 @@ __device__ __forceinline__ int bias_slot(int r, int c) {
 // probability after the row sum and before P's bf16 rounding; with BIAS the
 // bias comes from b_regs (sc's layout), not shared memory.
 template <bool MASKED, bool SEG, bool CAP, bool ACCURATE = false, bool BIAS = false,
-          bool SW128 = false, bool QUANT = false>
-__device__ __forceinline__ void dense_softmax_tile(float (&sc)[32], int col0, int row0, int t,
+          bool SW128 = false, bool QUANT = false, int NS>
+__device__ __forceinline__ void dense_softmax_tile(float (&sc)[NS], int col0, int row0, int t,
                                                    int lo, int hi, int nkv, const int* ids,
                                                    const int (&q_seg)[2], float scale_log2,
                                                    float cap_scale, float cap_log2,
@@ -275,9 +330,10 @@ __device__ __forceinline__ void dense_softmax_tile(float (&sc)[32], int col0, in
                                                    uint32_t b_step = 0, uint32_t b_box = 0,
                                                    uint32_t kv_scales = 0,
                                                    const float* b_regs = nullptr) {
+  static_assert(NS == 32 || (NS == 40 && !BIAS && !QUANT), "64- or 80-key tiles");
   float mx[2] = {m_i[0], m_i[1]};
 #pragma unroll
-  for (int jj = 0; jj < FB_BLOCK_N / 8; ++jj) {
+  for (int jj = 0; jj < NS / 4; ++jj) {
     int2 kv_seg = make_int2(0, 0);
     if (SEG && MASKED) kv_seg = *reinterpret_cast<const int2*>(ids + 8 * jj + 2 * t);
     float2 ks = make_float2(1.f, 1.f);
@@ -320,7 +376,7 @@ __device__ __forceinline__ void dense_softmax_tile(float (&sc)[32], int col0, in
     l_i[r] *= alpha[r];
   }
 #pragma unroll
-  for (int jj = 0; jj < FB_BLOCK_N / 8; ++jj) {
+  for (int jj = 0; jj < NS / 4; ++jj) {
     float2 vs = make_float2(1.f, 1.f);
     if constexpr (QUANT) vs = lds_f2(kv_scales + 4 * FB_BLOCK_N + 32 * jj);  // K1 quant v scale
     const float vscale[2] = {vs.x, vs.y};
@@ -383,7 +439,10 @@ __device__ __forceinline__ void fwd_sm90_store(const FwdDenseParams& p, const fl
 // else the dense route (Params FwdDenseParams); in both SEG with segment ids
 // and CAP with the logit softcap, the band as runtime ints. RING (K7's D 256
 // form, ring_fwd.cu: Params with a RingState `ring`) merges the rows into a
-// ring's running state in place of K1's epilogue (ring_merge.cuh).
+// ring's running state in place of K1's epilogue (ring_merge.cuh). The
+// consumers' loop is FbSmem's: serial (issue S, wait, softmax, issue P V,
+// wait) or, with OVERLAP, a tile's S and the previous tile's P V on the
+// tensor cores under the tile's softmax.
 template <int D, bool BIAS, bool SEG, bool CAP, bool RING = false, typename Params>
 __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
                                               const CUtensorMap& tm_v, const Params& p,
@@ -391,12 +450,15 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
   static_assert(D == 64 || D == 128 || D == 256, "instantiated for D 64, 128 and 256");
   using S = FbSmem<D, BIAS>;
   constexpr bool SLOT = S::SLOT;  // the bias in one slot of its own, by TMA (D 256)
+  constexpr int BN = S::BN;
+  static_assert(!S::OVERLAP || !BIAS || SLOT, "the cp.async bias rides on the stage's barrier");
   // setmaxnreg's split of the registers between the producer and each
   // consumer warpgroup (56 + 2 x 224 = 24 + 2 x 240): at D 256 a consumer
-  // keeps o[128], sc[32] and pa[16], so the producer (one thread issuing
+  // keeps o[128], S's 40 scores and P's 20 fragments (with OVERLAP a tile's
+  // S beside the previous tile's P), so the producer (one thread issuing
   // copies) goes down to 24 and the consumers up to 240, as
   // FlashAttention-3's Hopper forward splits them (56 / 224 there: 4-14%
-  // slower, chip_variants.py k1wide).
+  // slower in the serial loop, chip_variants.py k1wide).
   constexpr int PRODUCER_REGS = D == 256 ? 24 : 56;
   constexpr int CONSUMER_REGS = D == 256 ? 240 : 224;
   constexpr int BOXES = D / 64;
@@ -404,9 +466,11 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BARS);
-  uint64_t* full = q_full + 1;
+  uint64_t* full = q_full + 1;  // K and the ids (OVERLAP), or K, V and the ids
   uint64_t* empty = full + S::STAGES;
-  uint64_t* bias_full = empty + S::STAGES;  // SLOT
+  uint64_t* v_full = S::OVERLAP ? empty + S::STAGES : full;
+  uint64_t* v_empty = S::OVERLAP ? v_full + S::STAGES : empty;
+  uint64_t* bias_full = empty + (S::OVERLAP ? 3 : 1) * S::STAGES;  // SLOT
   uint64_t* bias_empty = bias_full + 1;
 
   const int h = blockIdx.x;
@@ -419,9 +483,9 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
   // The KV tiles from n_begin that meet the CTA's rows' band, columns
   // [m0 - lo, m0 + 127 + hi].
   int n_begin = 0;
-  if (p.lo < NO_BOUND) n_begin = max(0, m0 - p.lo) / FB_BLOCK_N * FB_BLOCK_N;
+  if (p.lo < NO_BOUND) n_begin = max(0, m0 - p.lo) / BN * BN;
   const int n_end = p.hi < NO_BOUND ? min(nkv, m0 + FB_BLOCK_M + p.hi) : nkv;
-  const int n_tiles = n_end > n_begin ? (n_end - n_begin + FB_BLOCK_N - 1) / FB_BLOCK_N : 0;
+  const int n_tiles = n_end > n_begin ? (n_end - n_begin + BN - 1) / BN : 0;
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   auto stage = [&](int j) { return smem + S::Q + (j % S::STAGES) * S::STAGE; };
@@ -431,7 +495,7 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
   // tiles.
   int2 q_rng = make_int2(0, 0);
   if constexpr (SEG) q_rng = p.q_range[b * p.q_tiles + m_tile];
-  const int t_begin = n_begin / FB_BLOCK_N;
+  const int t_begin = n_begin / BN;
   auto skipped = [&](int j) {
     if constexpr (SEG) return !ranges_meet(q_rng, kv_tile_range(p, b, t_begin + j));
     return false;
@@ -443,6 +507,10 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
       // BIAS below D 256: the TMA thread's expect_tx, each producer's cp.async.
       mbar_init(&full[s], BIAS && !SLOT ? 1 + 128 : 1);
       mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      if constexpr (S::OVERLAP) {
+        mbar_init(&v_full[s], 1);
+        mbar_init(&v_empty[s], 8);
+      }
     }
     if constexpr (SLOT) {
       mbar_init(bias_full, 1);
@@ -467,8 +535,8 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
       // The bias tile, 4 columns a copy: thread tid copies chunk c of rows
       // r0 + 8i (row 0 alone for a row-broadcast bias); zeros past Nq (rows
       // never stored) and past kv_valid_len (columns the tail mask sets).
-      const int c = tid % (FB_BLOCK_N / 4);
-      const int r0 = tid / (FB_BLOCK_N / 4);
+      const int c = tid % (BN / 4);
+      const int r0 = tid / (BN / 4);
       const int bias_rows = p.bias_sn ? FB_BLOCK_M : 1;
       const int rows_valid = p.nq - m0;
       const float* bias_src = p.bias + b * p.bias_sb + h * p.bias_sh  // K1 bias sm90 head
@@ -478,21 +546,20 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
       for (int j = 0; j < n_tiles; ++j) {
         if (skipped(j)) continue;
         const int s = it % S::STAGES;
-        const int n0 = n_begin + j * FB_BLOCK_N;  // the tile's first column
+        const int n0 = n_begin + j * BN;  // the tile's first column
         unsigned char* st = stage(it);
         mbar_wait(&empty[s], ((it / S::STAGES) & 1) ^ 1);  // round 0 passes at once
         if (tid == 0) {
-          mbar_expect_tx(&full[s], 2 * S::KV + (SEG ? FB_BLOCK_N * 4 : 0));
+          mbar_expect_tx(&full[s], 2 * S::KV + (SEG ? BN * 4 : 0));
 #pragma unroll
           for (int x = 0; x < BOXES; ++x) {
-            tma_load_4d(st + x * FB_BLOCK_N * FB_BOX_ROW, &tm_k, &full[s], 64 * x, n0, hk, b);
-            tma_load_4d(st + S::KV + x * FB_BLOCK_N * FB_BOX_ROW, &tm_v, &full[s], 64 * x, n0,
-                        hk, b);
+            tma_load_4d(st + x * BN * FB_BOX_ROW, &tm_k, &full[s], 64 * x, n0, hk, b);
+            tma_load_4d(st + S::KV + x * BN * FB_BOX_ROW, &tm_v, &full[s], 64 * x, n0, hk, b);
           }
           if constexpr (SEG) {
-            bulk_load(smem + S::SEG + s * FB_BLOCK_N * 4,
-                      p.seg_kv + static_cast<int64_t>(b) * p.kv_tiles * FB_BLOCK_N + n0,
-                      FB_BLOCK_N * 4, &full[s]);
+            bulk_load(smem + S::SEG + s * BN * 4,
+                      p.seg_kv + static_cast<int64_t>(b) * p.kv_tiles * BN + n0, BN * 4,
+                      &full[s]);
           }
         }
         const int col_bytes = 4 * min(max(nkv - n0 - 4 * c, 0), 4);
@@ -504,8 +571,7 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
 #pragma unroll
           for (int i = 0; i < FB_BLOCK_M / 8; ++i) {
             const int bytes = r0 + 8 * i < rows_valid ? col_bytes : 0;
-            cp_async_16_zfill(dst + 8 * i * FB_BLOCK_N, bytes ? src + i * src_step : p.bias,
-                              bytes);
+            cp_async_16_zfill(dst + 8 * i * BN, bytes ? src + i * src_step : p.bias, bytes);
           }
         }
         cp_async_mbar_arrive(&full[s]);
@@ -515,7 +581,9 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
     } else if (tid == 0) {
       // Producer: thread 0 issues every copy, over the tiles the consumers
       // visit (SEG: those whose id range meets the Q tile's); with SLOT the
-      // bias too, once the slot is free.
+      // bias too, once the slot is free. With OVERLAP a tile's K (and ids)
+      // lands on full[s] and its V on v_full[s], V issued one tile behind K:
+      // the consumers read tile j's K before tile j - 1's V.
       uint32_t bias_bytes = 0;
       if constexpr (SLOT) bias_bytes = 2 * (p.bias_sn ? FB_BLOCK_M : 1) * SW128_ROW;
       mbar_expect_tx(q_full, S::Q);
@@ -523,44 +591,67 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
       for (int x = 0; x < BOXES; ++x) {
         tma_load_4d(smem + x * FB_BLOCK_M * FB_BOX_ROW, &tm_q, q_full, 64 * x, m0, h, b);
       }
+      // V of visit `it` (from column n0) into its stage.
+      auto load_v = [&](int visit, int n0) {
+        const int s = visit % S::STAGES;
+        if constexpr (S::OVERLAP) {
+          mbar_wait(&v_empty[s], ((visit / S::STAGES) & 1) ^ 1);  // round 0 passes at once
+          mbar_expect_tx(&v_full[s], S::KV);
+        }
+#pragma unroll
+        for (int x = 0; x < BOXES; ++x) {
+          tma_load_4d(stage(visit) + S::KV + x * BN * FB_BOX_ROW, &tm_v, &v_full[s], 64 * x, n0,
+                      hk, b);
+        }
+      };
       int it = 0;  // tiles issued
+      int n0_prev = 0;
       for (int j = 0; j < n_tiles; ++j) {
         if (skipped(j)) continue;
         const int s = it % S::STAGES;
-        const int n0 = n_begin + j * FB_BLOCK_N;
+        const int n0 = n_begin + j * BN;
         unsigned char* st = stage(it);
         mbar_wait(&empty[s], ((it / S::STAGES) & 1) ^ 1);  // round 0 passes at once
         // K's boxes, then V's: each tensor's rows read whole, one after the
         // other (K's and V's boxes in turn measured 7% slower at the D 256
-        // LM's attention and 12% non-causal, no different at D 128;
-        // chip_variants.py k1wide).
-        mbar_expect_tx(&full[s], 2 * S::KV + (SEG ? FB_BLOCK_N * 4 : 0));
+        // LM's attention and 12% non-causal, no different at D 128, in the
+        // serial loop; chip_variants.py k1wide).
+        mbar_expect_tx(&full[s], (S::OVERLAP ? 1 : 2) * S::KV + (SEG ? BN * 4 : 0));
 #pragma unroll
         for (int x = 0; x < BOXES; ++x) {
-          tma_load_4d(st + x * FB_BLOCK_N * FB_BOX_ROW, &tm_k, &full[s], 64 * x, n0, hk, b);
+          tma_load_4d(st + x * BN * FB_BOX_ROW, &tm_k, &full[s], 64 * x, n0, hk, b);
         }
-#pragma unroll
-        for (int x = 0; x < BOXES; ++x) {
-          tma_load_4d(st + S::KV + x * FB_BLOCK_N * FB_BOX_ROW, &tm_v, &full[s], 64 * x, n0, hk,
-                      b);
-        }
+        if constexpr (!S::OVERLAP) load_v(it, n0);
         if constexpr (SEG) {
-          bulk_load(smem + S::SEG + s * FB_BLOCK_N * 4,
-                    p.seg_kv + static_cast<int64_t>(b) * p.kv_tiles * FB_BLOCK_N + n0,
-                    FB_BLOCK_N * 4, &full[s]);
+          bulk_load(smem + S::SEG + s * BN * 4,
+                    p.seg_kv + static_cast<int64_t>(b) * p.kv_tiles * BN + n0, BN * 4,
+                    &full[s]);
         }
         if constexpr (SLOT) {
           mbar_wait(bias_empty, (it & 1) ^ 1);  // round 0 passes at once
           mbar_expect_tx(bias_full, bias_bytes);
 #pragma unroll
-          for (int x = 0; x < FB_BLOCK_N / SW128_F32; ++x) {
+          for (int x = 0; x < BN / SW128_F32; ++x) {
             tma_load_4d(smem + S::OFF_BIAS + x * S::BIAS_BOX, tm_bias, bias_full,
                         n0 + SW128_F32 * x,  // K1 bias d256 column
                         p.bias_sn ? m0 : 0, p.bias_sh ? h : 0, p.bias_sb ? b : 0);
           }
         }
+        if (S::OVERLAP && it > 0) load_v(it - 1, n0_prev);
+        if constexpr (RING) {
+          if (j == max(n_tiles - RING_PREFETCH_TILES, 0)) {
+            ring_prefetch_state(p.ring, p.hq, p.nq, p.d, b, h, m0, FB_BLOCK_M);
+          }
+        }
+        n0_prev = n0;
         ++it;
       }
+      if constexpr (RING) {
+        if (n_tiles == 0 && RING_PREFETCH_TILES > 0) {
+          ring_prefetch_state(p.ring, p.hq, p.nq, p.d, b, h, m0, FB_BLOCK_M);
+        }
+      }
+      if (S::OVERLAP && it > 0) load_v(it - 1, n0_prev);
     }
   } else {
     // Consumers: warpgroup 1 owns rows m0..m0+63, warpgroup 2 rows m0+64..m0+127.
@@ -574,9 +665,27 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
     const int tr = half * 64 + warp * 16 + g;    // row g of this warp in the CTA's tile
     const int row0 = m0 + tr;
     const unsigned char* q_s = smem + half * 64 * FB_BOX_ROW;
+    // This warp is done with visit j's stage: its K and ids (release), its
+    // V (release_v; without OVERLAP release frees both).
     auto release = [&](int j) {
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[j % S::STAGES]);
+    };
+    auto release_v = [&](int j) {
+      if constexpr (S::OVERLAP) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&v_empty[j % S::STAGES]);
+      }
+    };
+    auto wait_v = [&](int j) {
+      if constexpr (S::OVERLAP) mbar_wait(&v_full[j % S::STAGES], (j / S::STAGES) & 1);
+    };
+    // PINGPONG: this warpgroup's turn to issue products, then the other's.
+    auto turn_begin = [&] {
+      if constexpr (S::PINGPONG) named_sync(1 + half, 256);
+    };
+    auto turn_end = [&] {
+      if constexpr (S::PINGPONG) named_arrive(2 - half, 256);
     };
 
     float o[D / 2];
@@ -586,8 +695,8 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
     // its columns (reduced over the quad at the end; m is quad-uniform).
     float m_i[2] = {-INFINITY, -INFINITY};
     float l_i[2] = {0.f, 0.f};
-    float sc[32], alpha[2];
-    uint32_t pa[4][4];
+    float sc[S::NS], alpha[2];
+    uint32_t pa[S::KSTEPS][4];
     // SEG: the ids of rows g and g + 8 (rows past Nq are never stored).
     int q_seg[2] = {0, 0};
     if constexpr (SEG) {
@@ -608,8 +717,8 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
       b_step = p.bias_sn ? 8 * SW128_ROW : 0;
     } else if constexpr (BIAS) {
       const int b_row = p.bias_sn ? tr : 0;
-      b_off = 4 * (b_row * FB_BLOCK_N + 8 * (b_row & 3) + 2 * t);
-      b_step = p.bias_sn ? 4 * 8 * FB_BLOCK_N : 0;
+      b_off = 4 * (b_row * BN + 8 * (b_row & 3) + 2 * t);
+      b_step = p.bias_sn ? 4 * 8 * BN : 0;
     }
     // SLOT: this warp is done with the slot's tile (the producer refills it).
     auto release_bias = [&](int j) {
@@ -619,53 +728,141 @@ __device__ __forceinline__ void fwd_sm90_body(const CUtensorMap& tm_q, const CUt
         if (lane == 0) mbar_arrive(bias_empty);
       }
     };
+    // KV tile j's (visit `visit`'s) scores in sc to P, masked where the
+    // band, the KV tail or a document edge cuts the tile for this
+    // warpgroup's rows; alpha the factor of the earlier tiles' O.
+    auto softmax = [&](int j, int visit, int2 k_rng) {
+      const int c0 = n_begin + j * BN;  // the tile's first column
+      const bool edge = c0 + BN > nkv || c0 + BN - 1 - r_first > p.hi ||
+                        r_first + 63 - c0 > p.lo ||
+                        (SEG && !(q_one_doc && k_rng.x == k_rng.y && k_rng.x == q_rng.x));
+      const int* ids =
+          reinterpret_cast<const int*>(smem + S::SEG + (visit % S::STAGES) * BN * 4);
+      const uint32_t b_addr =
+          !BIAS ? 0 : smem_u32(SLOT ? smem + S::OFF_BIAS : stage(visit) + 2 * S::KV) + b_off;
+      if constexpr (SLOT) mbar_wait(bias_full, visit & 1);
+      if (edge) {
+        dense_softmax_tile<true, SEG, CAP, false, BIAS, SLOT>(
+            sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, p.cap_scale,
+            p.cap_log2, m_i, l_i, alpha, b_addr, b_step, S::BIAS_BOX);
+      } else {
+        dense_softmax_tile<false, SEG, CAP, false, BIAS, SLOT>(
+            sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, p.cap_scale,
+            p.cap_log2, m_i, l_i, alpha, b_addr, b_step, S::BIAS_BOX);
+      }
+      release_bias(visit);  // the wait has passed: this arrives
+    };
+    auto rescale = [&] {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    };
+    // After the last P V: O and P free again.
+    auto pv_retired = [&] {
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < S::KSTEPS; ++kk) fence_regs(pa[kk]);
+    };
+    // A tile that meets this warpgroup's band, [r_first - lo, r_first + 63 +
+    // hi]; the others are released unread (PINGPONG: masked whole instead).
+    auto meets = [&](int j) {
+      const int c0 = n_begin + j * BN;
+      return S::PINGPONG || (c0 <= r_first + 63 + p.hi && c0 + BN - 1 >= r_first - p.lo);
+    };
+    if constexpr (S::PINGPONG) {
+      if (half == 1) named_arrive(1, 256);  // warpgroup 1 issues first
+    }
     mbar_wait(q_full, 0);
     int it = 0;  // tiles visited, in the producer's order
-    for (int j = 0; j < n_tiles; ++j) {
-      int2 k_rng = make_int2(0, 0);
-      if constexpr (SEG) {
-        k_rng = kv_tile_range(p, b, t_begin + j);
-        if (!ranges_meet(q_rng, k_rng)) continue;
-      }
-      const int s = it % S::STAGES;
-      const int c0 = n_begin + j * FB_BLOCK_N;  // the tile's first column
-      mbar_wait(&full[s], (it / S::STAGES) & 1);
-      // A tile that meets this warpgroup's band, [r_first - lo, r_first +
-      // 63 + hi]; the others are released unread.
-      if (c0 <= r_first + 63 + p.hi && c0 + FB_BLOCK_N - 1 >= r_first - p.lo) {
-        issue_qk<D, FB_BLOCK_M, FB_BLOCK_N>(sc, q_s, stage(it));
-        if constexpr (SLOT) mbar_wait(bias_full, it & 1);
+    if constexpr (S::OVERLAP) {
+      // From KV tile j on, the next tile this warpgroup computes (n_tiles:
+      // none), its stage full; the visited tiles outside this warpgroup's
+      // band on the way are released unread (`it` counts them).
+      auto advance = [&](int j) {
+        for (; j < n_tiles; ++j) {
+          if (skipped(j)) continue;
+          mbar_wait(&full[it % S::STAGES], (it / S::STAGES) & 1);
+          if (meets(j)) break;
+          release_bias(it);  // unread: the slot's phase still moves on
+          release(it);
+          wait_v(it);
+          release_v(it);
+          ++it;
+        }
+        return j;
+      };
+      auto k_range = [&](int j) {
+        if constexpr (SEG) return kv_tile_range(p, b, t_begin + j);
+        return make_int2(0, 0);
+      };
+      // The first tile alone: its S, then its P in pa (pend: its visit).
+      // Every later tile's S and the pending P V are then issued without a
+      // branch (ptxas serializes wgmma issued on a divergent path, C7520).
+      int j = advance(0);
+      if (j < n_tiles) {
+        turn_begin();
+        issue_qk<D, FB_BLOCK_M, BN>(sc, q_s, stage(it));
+        turn_end();
         wgmma_wait<0>();
         fence_regs(sc);
-        const bool edge = c0 + FB_BLOCK_N > nkv || c0 + FB_BLOCK_N - 1 - r_first > p.hi ||
-                          r_first + 63 - c0 > p.lo ||
-                          (SEG && !(q_one_doc && k_rng.x == k_rng.y && k_rng.x == q_rng.x));
-        const int* ids = reinterpret_cast<const int*>(smem + S::SEG + s * FB_BLOCK_N * 4);
-        const uint32_t b_addr =
-            !BIAS ? 0 : smem_u32(SLOT ? smem + S::OFF_BIAS : stage(it) + 2 * S::KV) + b_off;
-        if (edge) {
-          dense_softmax_tile<true, SEG, CAP, false, BIAS, SLOT>(
-              sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, p.cap_scale,
-              p.cap_log2, m_i, l_i, alpha, b_addr, b_step, S::BIAS_BOX);
-        } else {
-          dense_softmax_tile<false, SEG, CAP, false, BIAS, SLOT>(
-              sc, c0, row0, t, p.lo, p.hi, nkv, ids, q_seg, p.scale_log2, p.cap_scale,
-              p.cap_log2, m_i, l_i, alpha, b_addr, b_step, S::BIAS_BOX);
-        }
-        release_bias(it);  // the wait has passed: this arrives
-#pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+        if constexpr (!SEG) release(it);  // K read; with SEG the ids until the softmax
+        softmax(j, it, k_range(j));
+        if constexpr (SEG) release(it);
         pack_p(pa, sc);
-        issue_pv<D, FB_BLOCK_N>(o, pa, stage(it) + S::KV);
-        wgmma_wait<0>();
-        fence_regs(o);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
-      } else {
-        release_bias(it);  // unread: the slot's phase still moves on
+        int pend = it++;
+        for (j = advance(j + 1); j < n_tiles; j = advance(j + 1)) {
+          turn_begin();
+          issue_qk<D, FB_BLOCK_M, BN>(sc, q_s, stage(it));  // K1 D256 next S
+          rescale();  // O to the pending tile's max, under S's product
+          wait_v(pend);
+          issue_pv<D, BN>(o, pa, stage(pend) + S::KV);
+          turn_end();
+          wgmma_wait<1>();  // S
+          fence_regs(sc);
+          if constexpr (!SEG) release(it);
+          softmax(j, it, k_range(j));
+          if constexpr (SEG) release(it);
+          pv_retired();
+          release_v(pend);
+          pack_p(pa, sc);
+          pend = it++;
+        }
+        rescale();
+        wait_v(pend);
+        issue_pv<D, BN>(o, pa, stage(pend) + S::KV);
+        pv_retired();
+        release_v(pend);
       }
-      release(it);
-      ++it;
+    } else {
+      for (int j = 0; j < n_tiles; ++j) {
+        int2 k_rng = make_int2(0, 0);
+        if constexpr (SEG) {
+          k_rng = kv_tile_range(p, b, t_begin + j);
+          if (!ranges_meet(q_rng, k_rng)) continue;
+        }
+        mbar_wait(&full[it % S::STAGES], (it / S::STAGES) & 1);
+        if (meets(j)) {
+          turn_begin();
+          issue_qk<D, FB_BLOCK_M, BN>(sc, q_s, stage(it));
+          turn_end();
+          wgmma_wait<0>();
+          fence_regs(sc);
+          softmax(j, it, k_rng);
+          rescale();
+          pack_p(pa, sc);
+          turn_begin();
+          issue_pv<D, BN>(o, pa, stage(it) + S::KV);
+          turn_end();
+          pv_retired();
+        } else {
+          release_bias(it);  // unread: the slot's phase still moves on
+        }
+        release(it);
+        ++it;
+      }
+    }
+    if constexpr (S::PINGPONG) {
+      if (half == 0) named_sync(1, 256);  // warpgroup 1's last turn
     }
 
     if constexpr (RING) {

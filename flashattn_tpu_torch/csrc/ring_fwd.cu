@@ -59,13 +59,16 @@
 // 137 GFLOP (0.139 ms at 989 TFLOP/s) against ~100 MB of Q, K / V and f32
 // state: operations. So the D 256 form, ring_fwd_wide_kernel, runs K1's dense
 // body (fwd_sm90_tile.cuh) at its D 256 instantiation with RING -- 128 Q
-// rows a CTA, Q 64 KB and two (K, V) stages of 64 KB, P V by one wgmma
-// m64n256k16 a k-step, 24 producer and 240 consumer registers -- on the
-// chunk pair: the band shifted by q_base - kv_off (common.cuh band_bounds),
-// q pre-scaled (scale_log2 = 1), and this ring's epilogue in place of K1's,
-// reading and writing the state in float2 column pairs, so the 128 O
-// registers need no second copy. Every D 136-248 reads zeros past D from
-// the 256-column boxes.
+// rows a CTA, Q 64 KB and two (K, V) stages of 80 keys (80 KB), each tile's
+// softmax under the next tile's S and the previous tile's P V, the two
+// consumer warpgroups issuing their products in turn, 24 producer and 240
+// consumer registers -- on the chunk pair: the band shifted by q_base -
+// kv_off (common.cuh band_bounds), q pre-scaled (scale_log2 = 1), the rows'
+// state prefetched into L2 by the producer four tiles before the end, and
+// this ring's epilogue in place of K1's, reading and writing the state in
+// float2 column pairs, so the 128 O registers need no second copy. A chunk
+// of 4096 keys ends in a partial 80-key tile, masked as K1's KV tail. Every
+// D 136-248 reads zeros past D from the 256-column boxes.
 
 #include "fwd_sm90_tile.cuh"
 #include "ring_merge.cuh"
@@ -342,9 +345,11 @@ int fa_ring_fwd_bf16(const void* q, const void* k, const void* v, void* acc, voi
   alignas(64) CUtensorMap tm_q;
   alignas(64) CUtensorMap tm_k;
   alignas(64) CUtensorMap tm_v;
+  // Keys per KV tile: 80 in the D 256 form (K1's dense body's dense_kv_tile).
+  const int kv_tile = d > 128 ? dense_kv_tile(d) : RF_BLOCK_N;
   if (!make_bhnd_map(&tm_q, q, batch, hq, nq, d, q_sb, q_sh, q_sn, RF_BLOCK_M) ||
-      !make_bhnd_map(&tm_k, k, batch, hkv, nk, d, kv_sb, kv_sh, kv_sn, RF_BLOCK_N) ||
-      !make_bhnd_map(&tm_v, v, batch, hkv, nk, d, kv_sb, kv_sh, kv_sn, RF_BLOCK_N)) {
+      !make_bhnd_map(&tm_k, k, batch, hkv, nk, d, kv_sb, kv_sh, kv_sn, kv_tile) ||
+      !make_bhnd_map(&tm_v, v, batch, hkv, nk, d, kv_sb, kv_sh, kv_sn, kv_tile)) {
     return static_cast<int>(cudaErrorNotSupported);
   }
   const RingState ring = {static_cast<float*>(acc), static_cast<float*>(m),
@@ -365,7 +370,7 @@ int fa_ring_fwd_bf16(const void* q, const void* k, const void* v, void* acc, voi
     p.kv_valid_len = nk;
     band_bounds(causal, wl, wr, &p.lo, &p.hi, static_cast<int64_t>(q_base) - kv_off);
     p.q_tiles = nq / FB_BLOCK_M;
-    p.kv_tiles = nk / FB_BLOCK_N;
+    p.kv_tiles = (nk + kv_tile - 1) / kv_tile;
     p.scale_log2 = 1.f;
     return static_cast<int>(fwd_sm90_launch(ring_fwd_wide_kernel, FbSmem<256, false>::BYTES,
                                             tm_q, tm_k, tm_v, p, batch, s));

@@ -23,6 +23,29 @@ struct RingState {
   int first, last;
 };
 
+// Prefetch into L2 the state that ring_merge_store reads for the `rows` rows
+// from row0 (acc's rows are contiguous, as are m's and l's): three bulk
+// prefetches, none on the first step, which reads no state.
+__device__ __forceinline__ void ring_prefetch_state(const RingState& st, int hq, int nq, int d,
+                                                    int b, int h, int row0, int rows) {
+  if (st.first) return;
+  const int64_t srow = (static_cast<int64_t>(b) * hq + h) * nq + row0;
+  const void* src[3] = {st.acc + srow * d, st.m + srow, st.l + srow};
+  const uint32_t bytes[3] = {static_cast<uint32_t>(rows * d * 4), static_cast<uint32_t>(rows * 4),
+                             static_cast<uint32_t>(rows * 4)};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src[i]), "r"(bytes[i])
+                 : "memory");
+  }
+}
+
+// The state's column pairs a thread reads ahead in ring_merge_store (a
+// divisor of D / 8 at D 64, 128 and 256). One at a time, each read waiting
+// on the store before it, the merge took 13% of K7's D 256 off-diagonal step
+// with the state prefetched into L2 (chip_variants.py k1wide).
+constexpr int RING_MERGE_AHEAD = 8;
+
 // Merge this thread's partial into the state: its rows row0 and row0 + 8
 // (local rows of the chunk) in the wgmma accumulator layout, o[4jj + 2r + e]
 // being row row0 + 8r, column 8jj + 2t + e; m_i in log2 units (quad-uniform)
@@ -33,8 +56,9 @@ struct RingState {
 // seq) strides, and LSE = (m + log2 l) ln2 into lse [B, Hq, nq]; a row no step
 // gave a column gets O = 0 and LSE = -inf (every row is below nq: the C entries
 // take chunks of whole 128-row tiles). The state is read and written in
-// float2 column pairs straight from global memory, so a D 256 accumulator
-// (128 registers a thread) needs no second copy. Columns >= d are neither
+// float2 column pairs straight from global memory, RING_MERGE_AHEAD pairs
+// at a time, so a D 256 accumulator (128 registers a thread) needs no
+// second copy. Columns >= d are neither
 // read nor written.
 template <int D, typename OT>
 __device__ __forceinline__ void ring_merge_store(const RingState& st, OT* o, int64_t o_sb,
@@ -42,6 +66,7 @@ __device__ __forceinline__ void ring_merge_store(const RingState& st, OT* o, int
                                                  int nq, int d, const float (&acc)[D / 2],
                                                  const float (&m_i)[2], const float (&l_i)[2],
                                                  int b, int h, int row0, int t) {
+  static_assert((D / 8) % RING_MERGE_AHEAD == 0, "whole groups of column pairs");
   constexpr float NEG = 0.5f * MASK_VALUE;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -58,36 +83,39 @@ __device__ __forceinline__ void ring_merge_store(const RingState& st, OT* o, int
     const float l_new = l_run * a_run + l * a_c;
     const bool alive = l_new > 0.f;
     float* acc_row = st.acc + srow * d;
-    if (st.last) {
-      const float inv = alive ? 1.f / l_new : 0.f;
-      OT* o_row = o + b * o_sb + h * o_sh + static_cast<int64_t>(row) * o_sn;
+    const float inv = st.last && alive ? 1.f / l_new : 0.f;
+    OT* o_row = o + b * o_sb + h * o_sh + static_cast<int64_t>(row) * o_sn;
+    // RING_MERGE_AHEAD column pairs of the state are read before any of
+    // them is written back, so that their loads are in flight together.
 #pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj) {  // K7 merge columns
+    for (int j0 = 0; j0 < D / 8; j0 += RING_MERGE_AHEAD) {  // K7 merge columns
+      float2 prev[RING_MERGE_AHEAD];
+#pragma unroll
+      for (int u = 0; u < RING_MERGE_AHEAD; ++u) {
+        const int col = 8 * (j0 + u) + 2 * t;
+        prev[u] = st.first || col >= d ? make_float2(0.f, 0.f)
+                                       : *reinterpret_cast<const float2*>(acc_row + col);
+      }
+#pragma unroll
+      for (int u = 0; u < RING_MERGE_AHEAD; ++u) {
+        const int jj = j0 + u;
         const int col = 8 * jj + 2 * t;
         if (col >= d) continue;
-        float2 prev = make_float2(0.f, 0.f);
-        if (!st.first) prev = *reinterpret_cast<const float2*>(acc_row + col);
-        const float x = (prev.x * a_run + acc[4 * jj + 2 * r] * a_c) * inv;
-        const float y = (prev.y * a_run + acc[4 * jj + 2 * r + 1] * a_c) * inv;
-        if constexpr (sizeof(OT) == 4) {
-          *reinterpret_cast<float2*>(o_row + col) = make_float2(x, y);
+        const float x = prev[u].x * a_run + acc[4 * jj + 2 * r] * a_c;
+        const float y = prev[u].y * a_run + acc[4 * jj + 2 * r + 1] * a_c;
+        if (!st.last) {
+          *reinterpret_cast<float2*>(acc_row + col) = make_float2(x, y);
+        } else if constexpr (sizeof(OT) == 4) {
+          *reinterpret_cast<float2*>(o_row + col) = make_float2(x * inv, y * inv);
         } else {
-          *reinterpret_cast<uint32_t*>(o_row + col) = pack_bf16(x, y);
+          *reinterpret_cast<uint32_t*>(o_row + col) = pack_bf16(x * inv, y * inv);
         }
       }
-      if (t == 0) lse[srow] = alive ? (m_new + log2f(l_new)) * LN2 : -INFINITY;
-    } else {
-#pragma unroll
-      for (int jj = 0; jj < D / 8; ++jj) {  // K7 merge columns
-        const int col = 8 * jj + 2 * t;
-        if (col >= d) continue;
-        float2 prev = make_float2(0.f, 0.f);
-        if (!st.first) prev = *reinterpret_cast<const float2*>(acc_row + col);
-        *reinterpret_cast<float2*>(acc_row + col) =
-            make_float2(prev.x * a_run + acc[4 * jj + 2 * r] * a_c,
-                        prev.y * a_run + acc[4 * jj + 2 * r + 1] * a_c);
-      }
-      if (t == 0) {
+    }
+    if (t == 0) {
+      if (st.last) {
+        lse[srow] = alive ? (m_new + log2f(l_new)) * LN2 : -INFINITY;
+      } else {
         st.m[srow] = m_new;
         st.l[srow] = l_new;
       }

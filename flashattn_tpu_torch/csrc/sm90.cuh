@@ -258,6 +258,31 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// S (64 x 80, f32) = A (64 x 16, K-major) B (16 x 80, K-major), added to S
+// unless `accumulate` is 0: K1's dense D 256 form's 80-key tile (fwd_sm90_tile.cuh).
+__device__ __forceinline__ void wgmma_ss_m64n80k16(float (&d)[40], uint64_t desc_a, uint64_t desc_b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39"
+      "},"
+      " %40, %41, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D (64 x 64, f32) = A (64 x 16, M-major: trans-a 1) B (16 x 64, N-major:
 // trans-b 1), added to D unless `accumulate` is 0.
 __device__ __forceinline__ void wgmma_ss_tt_m64n64k16(float (&d)[32], uint64_t desc_a,
@@ -459,32 +484,38 @@ __device__ __forceinline__ void split3_frags(uint32_t (&a)[3][KSTEPS][4],
   }
 }
 
-// Issue S = A B^T for one warpgroup's 64 rows of A x 64 rows of B over D
-// columns, both K-major tiles of D / 64 swizzled boxes of 64 columns (A's
-// boxes A_ROWS rows high, B's B_ROWS; a_s points at the warpgroup's first
-// row): k-step kk is 32 bytes into the rows of box kk / 4.
-template <int D, int A_ROWS, int B_ROWS>
-__device__ __forceinline__ void issue_qk(float (&sc)[32], const unsigned char* a_s,
+// Issue S = A B^T for one warpgroup's 64 rows of A x NS / 4 rows of B (64,
+// or 80: K1's dense D 256 form's tile) over D columns, both K-major tiles of
+// D / 64 swizzled boxes of 64 columns (A's boxes A_ROWS rows high, B's
+// B_ROWS; a_s points at the warpgroup's first row): k-step kk is 32 bytes
+// into the rows of box kk / 4.
+template <int D, int A_ROWS, int B_ROWS, int NS>
+__device__ __forceinline__ void issue_qk(float (&sc)[NS], const unsigned char* a_s,
                                          const unsigned char* b_s) {
+  static_assert(NS == 32 || NS == 40, "S tiles of 64 or 80 keys");
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    wgmma_ss_m64n64k16(
-        sc, smem_desc(a_s + (kk / 4) * A_ROWS * SW128_ROW + (kk % 4) * 32, 16, 1024),
-        smem_desc(b_s + (kk / 4) * B_ROWS * SW128_ROW + (kk % 4) * 32, 16, 1024), kk);
+    const uint64_t da = smem_desc(a_s + (kk / 4) * A_ROWS * SW128_ROW + (kk % 4) * 32, 16, 1024);
+    const uint64_t db = smem_desc(b_s + (kk / 4) * B_ROWS * SW128_ROW + (kk % 4) * 32, 16, 1024);
+    if constexpr (NS == 32) {
+      wgmma_ss_m64n64k16(sc, da, db, kk);
+    } else {
+      wgmma_ss_m64n80k16(sc, da, db, kk);
+    }
   }
   wgmma_commit();
 }
 
-// Issue O += P V for 64 rows of V (boxes V_ROWS high, V_ROWS >= 64): the A
-// fragment of k-step kk is P's columns 16kk..16kk+15; V's k-step is 16 rows
-// (2048 bytes) down its boxes, the next 64 columns one box on.
-template <int D, int V_ROWS>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[4][4],
+// Issue O += P V for 16 KS rows of V (boxes V_ROWS high, V_ROWS >= 16 KS):
+// the A fragment of k-step kk is P's columns 16kk..16kk+15; V's k-step is 16
+// rows (2048 bytes) down its boxes, the next 64 columns one box on.
+template <int D, int V_ROWS, int KS>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[KS][4],
                                          const unsigned char* v_s) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     wgmma_pv<D>(o, pa[kk], smem_desc(v_s + kk * 16 * SW128_ROW, V_ROWS * SW128_ROW, 1024));
   }
   wgmma_commit();
@@ -528,13 +559,14 @@ __device__ __forceinline__ void wgmma_pv3(float (&o)[D / 2], const uint32_t (&pa
   wgmma_commit();
 }
 
-// P in bf16 as the A fragments of P V's four k-steps: the accumulators of
-// columns 16kk..16kk+15 are exactly k-step kk's fragment (the wgmma
-// accumulator layout is mma.sync's: sc[4jj + 2r + e] is row g + 8r of the
-// warp's 16, column 8jj + 2t + e).
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4], const float (&sc)[32]) {
+// P in bf16 as the A fragments of P V's KS k-steps (4 a 64-key tile, 5 an
+// 80-key one): the accumulators of columns 16kk..16kk+15 are exactly k-step
+// kk's fragment (the wgmma accumulator layout is mma.sync's: sc[4jj + 2r +
+// e] is row g + 8r of the warp's 16, column 8jj + 2t + e).
+template <int KS>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[KS][4], const float (&sc)[8 * KS]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) pa[kk][i] = fa::pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
   }

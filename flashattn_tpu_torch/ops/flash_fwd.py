@@ -88,11 +88,15 @@ H100_SMS = 132
 # The f32 elements of one of the bias route's 16-byte bias copies (a bias
 # whose strides are not a multiple of it is copied with its rows padded to
 # one); the dense route's Q tile (rows per CTA) and KV tile (keys per
-# pipeline stage), the tiles of its segment-id ranges.
+# pipeline stage), the tiles of its segment-id ranges: SM90_KV_TILE up to
+# DENSE_MAX_HEAD_DIM, SM90_WIDE_KV_TILE in its D 256 form
+# (csrc/fwd_sm90_tile.cuh FbSmem::BN, dense_kv_tile); the bias route keeps
+# SM90_KV_TILE at every head dim.
 DENSE_MAX_HEAD_DIM = 128
 BIAS_ROW_ALIGN = 4
 SM90_Q_TILE = 128
 SM90_KV_TILE = 64
+SM90_WIDE_KV_TILE = 80
 # The f32 route's Q tile (rows per CTA; its D 256 form's CTA takes half of
 # one) and KV tile (keys per slot), the tiles of its segment-id ranges
 # (csrc/flash_fwd_f32.cu): the dense route's.
@@ -406,6 +410,12 @@ def seg_tile_ranges(ids: torch.Tensor, n_valid: int, tile: int) -> torch.Tensor:
     return torch.stack(_whole_tiles(ids.to(torch.int32), n_valid, tile).aminmax(dim=-1), dim=-1)
 
 
+def dense_kv_tile(head_dim: int) -> int:
+    """The keys of K1's dense route's KV tile at ``head_dim``: the width of
+    its segment-id tile ranges (:func:`sm90_segments`' ``kv_tile``)."""
+    return SM90_KV_TILE if head_dim <= DENSE_MAX_HEAD_DIM else SM90_WIDE_KV_TILE
+
+
 def sm90_segments(segment_ids, Nq: int, kv_valid_len: int, *, q_tile: int = SM90_Q_TILE,
                   kv_tile: int = SM90_KV_TILE, pad_q: bool = False):
     """A Hopper kernel's segment inputs for ``(seg_q [B, Nq], seg_kv [B,
@@ -414,8 +424,9 @@ def sm90_segments(segment_ids, Nq: int, kv_valid_len: int, *, q_tile: int = SM90
     seg_kv's first kv_valid_len ids, contiguous, each row padded to whole
     ``kv_tile`` tiles (one 16-byte-aligned bulk copy a tile); the id ranges
     of each ``q_tile`` rows of seg_q and each ``kv_tile`` keys of seg_kv
-    (:func:`seg_tile_ranges`). The defaults are K1's dense route's tiles;
-    the backward (``flash_bwd.split_bwd``) asks for its own. None without
+    (:func:`seg_tile_ranges`). The defaults are K1's bias route's tiles and
+    its dense route's up to D 128 (above, :func:`dense_kv_tile`); the
+    backward (``flash_bwd.split_bwd``) asks for its own. None without
     segments or keys. A handful of small launches: the wrapper's host time is
     part of each kernel call."""
     if segment_ids is None or kv_valid_len == 0:
@@ -651,7 +662,7 @@ def _dense_sm90(q, k, v, *, scale, kv_valid_len, causal, window, segment_ids, so
     lse = torch.empty((B, Hq, Nq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:  # an empty grid is not a valid launch
         return o, lse
-    seg = sm90_segments(segment_ids, Nq, kv_valid_len)
+    seg = sm90_segments(segment_ids, Nq, kv_valid_len, kv_tile=dense_kv_tile(D))
     with torch.cuda.device(q.device):
         rc = _launch_dense_sm90(native.kernels(), q, k, v, o, lse, seg, scale=scale,
                                 kv_valid_len=kv_valid_len, causal=causal, window=window,
